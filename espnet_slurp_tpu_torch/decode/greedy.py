@@ -1,0 +1,44 @@
+"""Batched greedy attention decoding. Port of espnet_slurp_tpu/decode/greedy.py
+(the beam-size-1 path): [B] hypotheses advance in lockstep, finished ones
+freeze at eos, and the loop stops once all have ended."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..models.asr_model import ASRModel
+
+
+def init_decoder_cache(model: ASRModel, batch: int, max_len: int):
+    """Zeroed self-attention KV cache of the model's decoder."""
+    return model.decoder.init_cache(batch, max_len)
+
+
+def eos_lengths(tokens: torch.Tensor, eos: int) -> torch.Tensor:
+    """Length of each row's prefix before its first eos (last axis)."""
+    return torch.cumprod((tokens != eos).long(), dim=-1).sum(dim=-1)
+
+
+@torch.inference_mode()
+def attention_greedy_decode(model: ASRModel, hs: torch.Tensor,
+                            h_lengths: torch.Tensor, max_len: int = 128
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (tokens [B, max_len] eos-padded, lengths [B] without sos/eos)."""
+    cfg = model.cfg
+    b = hs.shape[0]
+    sos, eos = cfg.sos_id, cfg.eos_id
+    mem_kv = model.decoder.precompute_memory(hs)
+    cache = init_decoder_cache(model, b, max_len)
+    tokens = torch.full((b, max_len), eos, dtype=torch.long, device=hs.device)
+    y = torch.full((b,), sos, dtype=torch.long, device=hs.device)
+    ended = torch.zeros(b, dtype=torch.bool, device=hs.device)
+    for i in range(max_len):
+        logits, cache = model.decoder.step(y, i, cache, mem_kv, h_lengths,
+                                           max_len)
+        y = torch.where(ended, eos, logits.argmax(dim=-1))
+        tokens[:, i] = y
+        ended = ended | (y == eos)
+        if bool(ended.all()):
+            break
+    return tokens, eos_lengths(tokens, eos)

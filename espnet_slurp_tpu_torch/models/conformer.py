@@ -1,0 +1,146 @@
+"""Conformer encoder. Port of espnet_slurp_tpu/models/conformer.py.
+
+Macaron FFN halves (kernel K2), rel-pos MHSA (kernel K3), a depthwise conv
+module with LayerNorm, and Conv2d subsampling. Unlike the reference's TPU
+path, T' is not padded to a tile multiple: both kernels mask the ragged
+edge. MoE, interCTC, self-conditioning, stochastic depth, BatchNorm and
+remat wait for later slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels.ffn import fused_ffn
+from ..ops.masks import attention_bias, chunk_mask, length_mask
+from .attention import RelPosMultiHeadAttention
+from .embedding import Conv2dSubsampling, rel_positional_embedding
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default epsilon
+
+
+class FeedForward(nn.Module):
+    """swish(x W1 + b1) W2 + b2; with ``use_flash`` through kernel K2."""
+
+    def __init__(self, d_model: int, d_ff: int, use_flash: bool = False):
+        super().__init__()
+        self.use_flash = use_flash
+        self.w1 = nn.Linear(d_model, d_ff)
+        self.w2 = nn.Linear(d_ff, d_model)
+
+    def forward(self, x):
+        if self.use_flash:
+            # The kernel takes the reference's [in, out] weight layout.
+            return fused_ffn(
+                x.contiguous(), self.w1.weight.t().contiguous(),
+                self.w1.bias.float(), self.w2.weight.t().contiguous(),
+                self.w2.bias.float())
+        return self.w2(F.silu(self.w1(x)))
+
+
+class ConvModule(nn.Module):
+    """Pointwise(2D) + GLU -> pad mask -> depthwise(k) -> LayerNorm ->
+    swish -> pointwise(D). ``causal`` pads k-1 frames on the left only."""
+
+    def __init__(self, d_model: int, kernel_size: int = 31,
+                 causal: bool = False):
+        super().__init__()
+        self.kernel_size, self.causal = kernel_size, causal
+        self.pointwise1 = nn.Linear(d_model, 2 * d_model)
+        self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
+                                   groups=d_model)
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.pointwise2 = nn.Linear(d_model, d_model)
+
+    def forward(self, x, pad_mask=None):
+        h = F.glu(self.pointwise1(x), dim=-1)
+        if pad_mask is not None:
+            h = torch.where(pad_mask[..., None], h, torch.zeros_like(h))
+        k = self.kernel_size
+        # flax "SAME" pads (k-1)//2 on the left and the rest on the right.
+        left = k - 1 if self.causal else (k - 1) // 2
+        h = F.pad(h.transpose(1, 2), (left, k - 1 - left))
+        h = self.depthwise(h).transpose(1, 2)
+        return self.pointwise2(F.silu(self.norm(h)))
+
+
+class ConformerBlock(nn.Module):
+    def __init__(self, d_model: int, n_head: int, d_ff: int,
+                 kernel_size: int = 31, causal_conv: bool = False,
+                 use_flash: bool = False, chunk_size: int = 0,
+                 left_chunks: int = -1):
+        super().__init__()
+        self.chunk_size, self.left_chunks = chunk_size, left_chunks
+        ln = lambda: nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm_ff1 = ln()
+        self.ff1 = FeedForward(d_model, d_ff, use_flash)
+        self.norm_mha = ln()
+        self.self_attn = RelPosMultiHeadAttention(n_head, d_model, use_flash)
+        self.norm_conv = ln()
+        self.conv = ConvModule(d_model, kernel_size, causal_conv)
+        self.norm_ff2 = ln()
+        self.ff2 = FeedForward(d_model, d_ff, use_flash)
+        self.norm_final = ln()
+
+    def forward(self, x, pos_emb, mask_bias, pad_mask, lengths=None):
+        x = x + 0.5 * self.ff1(self.norm_ff1(x))
+        x = x + self.self_attn(self.norm_mha(x), pos_emb, mask_bias,
+                               lengths=lengths, chunk_size=self.chunk_size,
+                               left_chunks=self.left_chunks)
+        x = x + self.conv(self.norm_conv(x), pad_mask)
+        x = x + 0.5 * self.ff2(self.norm_ff2(x))
+        return self.norm_final(x)
+
+
+class ConformerEncoder(nn.Module):
+    """Conv2d subsampling + N Conformer blocks + after_norm.
+
+    forward: (feats [B, T, idim], feat_lengths [B]) -> (hs [B, T', D] with
+    padded frames zeroed, h_lengths [B]). ``flash``: "auto"/"on" route the
+    FFNs and attention through kernels K2/K3 (whose plain versions run on
+    the CPU); "off" takes the eager paths with an additive mask bias.
+    """
+
+    def __init__(self, idim: int, d_model: int = 256, n_head: int = 4,
+                 d_ff: int = 2048, num_blocks: int = 12,
+                 kernel_size: int = 31, chunk_size: int = 0,
+                 left_chunks: int = -1, flash: str = "auto",
+                 subsampling_factor: int = 4):
+        super().__init__()
+        if flash not in ("auto", "on", "off"):
+            raise ValueError(f"flash must be auto|on|off, got {flash!r}")
+        self.d_model, self.num_blocks = d_model, num_blocks
+        self.chunk_size, self.left_chunks = chunk_size, left_chunks
+        self.use_flash = flash != "off"
+        self.subsampling_factor = subsampling_factor
+        self.embed = Conv2dSubsampling(idim, d_model, subsampling_factor)
+        for i in range(num_blocks):
+            self.add_module(f"block_{i}", ConformerBlock(
+                d_model, n_head, d_ff, kernel_size,
+                causal_conv=chunk_size > 0, use_flash=self.use_flash,
+                chunk_size=chunk_size, left_chunks=left_chunks))
+        self.after_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, feats, feat_lengths):
+        x = self.embed(feats)
+        olens = Conv2dSubsampling.out_length(feat_lengths,
+                                             self.subsampling_factor)
+        t = x.shape[1]
+        x = x * math.sqrt(self.d_model)
+        pos_emb = rel_positional_embedding(t, self.d_model, x.dtype, x.device)
+        pad = length_mask(olens, t)
+        bias = None  # the kernel path masks padding and chunks itself
+        if not self.use_flash:
+            att_mask = pad[:, None, None, :]
+            if self.chunk_size > 0:
+                att_mask = att_mask & chunk_mask(
+                    t, self.chunk_size, self.left_chunks, x.device)[None, None]
+            bias = attention_bias(att_mask)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x, pos_emb, bias, pad,
+                                            lengths=olens)
+        x = self.after_norm(x)
+        return torch.where(pad[..., None], x, torch.zeros_like(x)), olens

@@ -1,0 +1,174 @@
+"""Transformer decoder with an explicit KV cache for incremental decoding.
+
+Port of espnet_slurp_tpu/models/transformer.py (CachedAttention, the relu
+FeedForward, DecoderLayer and TransformerDecoder). The cache is a dict of
+fixed-shape [B, Lmax, H, Dh] tensors per layer. Unlike the reference's pure
+functions, ``step`` writes the new key/value row into the cache tensors in
+place (and returns them), which saves a copy of every layer's cache per step.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.masks import attention_bias, causal_mask, length_mask
+from .conformer import LN_EPS
+from .embedding import abs_positional_encoding, sinusoid_table
+
+
+class CachedAttention(nn.Module):
+    """MHA whose K/V projections can be computed once and cached."""
+
+    def __init__(self, n_head: int, n_feat: int):
+        super().__init__()
+        self.n_head, self.n_feat = n_head, n_feat
+        self.linear_q = nn.Linear(n_feat, n_feat)
+        self.linear_k = nn.Linear(n_feat, n_feat)
+        self.linear_v = nn.Linear(n_feat, n_feat)
+        self.linear_out = nn.Linear(n_feat, n_feat)
+
+    def _split(self, x):
+        return x.reshape(*x.shape[:-1], self.n_head, self.n_feat // self.n_head)
+
+    def project_kv(self, kv_in):
+        """[B, Tk, D] -> (k, v), each [B, Tk, H, Dh]."""
+        return self._split(self.linear_k(kv_in)), self._split(
+            self.linear_v(kv_in))
+
+    def attend(self, q_in, k, v, mask_bias=None):
+        """q_in [B, Tq, D]; k, v [B, Tk, H, Dh] -> [B, Tq, D]."""
+        dh = self.n_feat // self.n_head
+        q = self._split(self.linear_q(q_in))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        scores = scores / math.sqrt(dh)
+        if mask_bias is not None:
+            scores = scores + mask_bias
+        attn = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        return self.linear_out(out.reshape(*q_in.shape[:-1], self.n_feat))
+
+    def forward(self, q_in, kv_in, mask_bias=None):
+        k, v = self.project_kv(kv_in)
+        return self.attend(q_in, k, v, mask_bias)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.w1 = nn.Linear(d_model, d_ff)
+        self.w2 = nn.Linear(d_ff, d_model)
+
+    def forward(self, x):
+        return self.w2(F.relu(self.w1(x)))
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm self-attention, cross-attention and relu FFN."""
+
+    def __init__(self, d_model: int, n_head: int, d_ff: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.self_attn = CachedAttention(n_head, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.src_attn = CachedAttention(n_head, d_model)
+        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ff = FeedForward(d_model, d_ff)
+
+    def forward(self, x, self_bias, memory, mem_bias):
+        h = self.norm1(x)
+        x = x + self.self_attn(h, h, self_bias)
+        k, v = self.src_attn.project_kv(memory)
+        x = x + self.src_attn.attend(self.norm2(x), k, v, mem_bias)
+        return x + self.ff(self.norm3(x))
+
+    def step(self, x_t, cache_k, cache_v, step_idx: int, self_bias, mem_k,
+             mem_v, mem_bias):
+        """One decode step; x_t [B, 1, D]. Writes row ``step_idx`` of
+        cache_k/cache_v [B, Lmax, H, Dh] in place. Returns (y_t, cache_k,
+        cache_v)."""
+        h = self.norm1(x_t)
+        k_t, v_t = self.self_attn.project_kv(h)
+        cache_k[:, step_idx] = k_t[:, 0]
+        cache_v[:, step_idx] = v_t[:, 0]
+        x_t = x_t + self.self_attn.attend(h, cache_k, cache_v, self_bias)
+        x_t = x_t + self.src_attn.attend(self.norm2(x_t), mem_k, mem_v,
+                                         mem_bias)
+        return x_t + self.ff(self.norm3(x_t)), cache_k, cache_v
+
+
+class TransformerDecoder(nn.Module):
+    """Pre-norm Transformer decoder with an embedding + abs-PE input."""
+
+    def __init__(self, vocab_size: int, d_model: int = 256, n_head: int = 4,
+                 d_ff: int = 2048, num_blocks: int = 6):
+        super().__init__()
+        self.vocab_size, self.d_model, self.n_head = vocab_size, d_model, n_head
+        self.num_blocks = num_blocks
+        self.embed = nn.Embedding(vocab_size, d_model)
+        for i in range(num_blocks):
+            self.add_module(f"layer_{i}", DecoderLayer(d_model, n_head, d_ff))
+        self.after_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.output = nn.Linear(d_model, vocab_size)
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_blocks)]
+
+    def forward(self, ys, ys_lengths, memory, memory_lengths,
+                memory_mask: Optional[torch.Tensor] = None):
+        """Scoring forward: [B, L] ids -> [B, L, V] logits (causal)."""
+        l = ys.shape[1]
+        x = abs_positional_encoding(self.embed(ys), scale=True)
+        self_mask = length_mask(ys_lengths, l)[:, None, None, :] \
+            & causal_mask(l, ys.device)[None, None]
+        self_bias = attention_bias(self_mask)
+        if memory_mask is None:
+            memory_mask = length_mask(memory_lengths, memory.shape[1])
+        mem_bias = attention_bias(memory_mask[:, None, None, :])
+        for layer in self.layers:
+            x = layer(x, self_bias, memory, mem_bias)
+        return self.output(self.after_norm(x))
+
+    # ---- incremental decoding -------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int,
+                   device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+        dh = self.d_model // self.n_head
+        dtype = self.output.weight.dtype
+        device = device or self.output.weight.device
+        z = lambda: torch.zeros(batch, max_len, self.n_head, dh, dtype=dtype,
+                                device=device)
+        return {f"layer_{i}": {"k": z(), "v": z()}
+                for i in range(self.num_blocks)}
+
+    def precompute_memory(self, memory):
+        """Per-layer cross-attention K/V of the encoder output, once."""
+        return {f"layer_{i}": dict(zip(("k", "v"),
+                                       layer.src_attn.project_kv(memory)))
+                for i, layer in enumerate(self.layers)}
+
+    def step(self, y_t, step_idx: int, cache, mem_kv, memory_lengths,
+             max_len: int, memory_mask: Optional[torch.Tensor] = None):
+        """One step: y_t [B] token ids at position ``step_idx``.
+
+        Returns ([B, V] logits, cache) with the cache updated in place."""
+        emb = self.embed(y_t[:, None]) * math.sqrt(self.d_model)
+        pe = sinusoid_table(1, self.d_model, offset=step_idx)
+        emb = emb + torch.from_numpy(pe).to(emb.device, emb.dtype)
+        pos = torch.arange(max_len, device=y_t.device)
+        self_bias = torch.where(pos <= step_idx, 0.0, -1e9).to(
+            torch.float32)[None, None, None, :]
+        if memory_mask is None:
+            memory_mask = length_mask(memory_lengths,
+                                      mem_kv["layer_0"]["k"].shape[1])
+        mem_bias = attention_bias(memory_mask[:, None, None, :])
+        x = emb
+        for i, layer in enumerate(self.layers):
+            c, m = cache[f"layer_{i}"], mem_kv[f"layer_{i}"]
+            x, c["k"], c["v"] = layer.step(x, c["k"], c["v"], step_idx,
+                                           self_bias, m["k"], m["v"], mem_bias)
+        return self.output(self.after_norm(x)[:, 0]), cache

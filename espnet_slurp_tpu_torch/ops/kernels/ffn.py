@@ -1,0 +1,86 @@
+"""Fused position-wise feed-forward (kernel K2), forward only.
+
+Port of espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn. On a CUDA tensor the
+wrapper launches the hand-written kernel in ``csrc/ffn.cu``, which never
+writes the [N, d_ff] hidden to device memory; on a CPU tensor it runs
+``fused_ffn_plain``, the same function in plain PyTorch. There is no other
+route: a CUDA tensor the kernel does not take raises.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+
+def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """swish(x @ w1 + b1) @ w2 + b2 in fp32, with the hidden rounded to
+    x.dtype before the second product, as the kernel does."""
+    h = F.silu(x.float() @ w1.float() + b1.float()).to(x.dtype)
+    return (h.float() @ w2.float() + b2.float()).to(x.dtype)
+
+
+def _check(x, w1, b1, w2, b2, dropout_rate):
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "fused_ffn: dropout needs the training kernels (not ported yet)")
+    d = x.shape[-1]
+    if w1.ndim != 2 or w1.shape[0] != d:
+        raise ValueError(f"fused_ffn: w1 {tuple(w1.shape)} does not match "
+                         f"x {tuple(x.shape)}")
+    f, d2 = w1.shape[1], w2.shape[-1]
+    if tuple(w2.shape) != (f, d2) or tuple(b1.shape) != (f,) \
+            or tuple(b2.shape) != (d2,):
+        raise ValueError("fused_ffn: expected w1 [D, F], b1 [F], w2 [F, D2], "
+                         "b2 [D2]")
+    if x.dtype not in build.DTYPE_CODES or w1.dtype != x.dtype \
+            or w2.dtype != x.dtype:
+        raise TypeError("fused_ffn: x, w1, w2 must share float32 or bfloat16")
+    if b1.dtype != torch.float32 or b2.dtype != torch.float32:
+        raise TypeError("fused_ffn: biases must be float32")
+    if len({t.device for t in (x, w1, b1, w2, b2)}) != 1:
+        raise ValueError("fused_ffn: all arguments must be on one device")
+    if not all(t.is_contiguous() for t in (x, w1, b1, w2, b2)):
+        raise ValueError("fused_ffn: all arguments must be contiguous")
+
+
+def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor, seed=None, *,
+              dropout_rate: float = 0.0) -> torch.Tensor:
+    """swish(x @ w1 + b1) @ w2 + b2 without a device-memory hidden.
+
+    x: [..., D]; w1: [D, F]; b1: float32 [F]; w2: [F, D2]; b2: float32 [D2].
+    x, w1, w2 are float32 or bfloat16 (fp32 accumulation). Any number of
+    rows. Returns [..., D2] in x.dtype. ``seed`` and ``dropout_rate`` keep
+    the reference's signature; a rate above 0 raises until the training
+    kernels land.
+    """
+    _check(x, w1, b1, w2, b2, dropout_rate)
+    if x.device.type == "cpu":
+        return fused_ffn_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ffn: unsupported device {x.device}")
+    lib = build.library()
+    code = build.DTYPE_CODES[x.dtype]
+    d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
+    f_mult = lib.espnet_fused_ffn_f_multiple(code)
+    if d % 16 or d2 % 16 or f % f_mult:
+        raise ValueError(f"fused_ffn kernel: needs D, D2 % 16 == 0 and "
+                         f"F % {f_mult} == 0, got D={d} F={f} D2={d2}")
+    for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+        build.check_aligned(name, t)
+    n = x.numel() // d
+    out = torch.empty(*x.shape[:-1], d2, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    build.check(lib.espnet_fused_ffn_fwd(
+        code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), n, d, f, d2, build.stream_ptr(x)),
+        "fused_ffn")
+    fused_ffn.launches += 1
+    return out
+
+
+fused_ffn.launches = 0

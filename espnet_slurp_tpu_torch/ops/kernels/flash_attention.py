@@ -1,0 +1,138 @@
+"""Relative-position flash attention (kernel K3), forward only.
+
+Port of espnet_slurp_tpu/ops/pallas/flash_attention.py:rel_flash_attention.
+On CUDA tensors ``rel_flash_attention_fwd`` launches the hand-written kernel
+in ``csrc/flash_attention.cu`` (online softmax over key tiles; the rel-shift
+is a skewed read of the [H, 2T, Dh] position table; key-length and chunk
+masks built in the kernel; no [T, T] or [T, 2T-1] buffer in device memory).
+On CPU tensors it runs ``rel_flash_attention_plain``, the same function in
+plain PyTorch. A CUDA tensor the kernel does not take raises.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import build
+
+NEG = -1e30
+
+
+def allowed_mask(t: int, lengths: torch.Tensor, chunk_size: int = 0,
+                 left_chunks: int = -1) -> torch.Tensor:
+    """[B, 1, T, T] bool: key j is visible to query i (the kernel's mask)."""
+    ar = torch.arange(t, device=lengths.device)
+    ok = (ar[None, :] < lengths[:, None])[:, None, None, :]
+    if chunk_size > 0:
+        rc = (ar // chunk_size)[:, None]
+        cc = (ar // chunk_size)[None, :]
+        cm = cc <= rc
+        if left_chunks >= 0:
+            cm = cm & (cc >= rc - left_chunks)
+        ok = ok & cm[None, None]
+    return ok
+
+
+def rel_shift_index(t: int, device) -> torch.Tensor:
+    """[T, T] column index into the [T, 2T-1] position scores:
+    (T-1) - i + j, the Transformer-XL rel-shift as a gather."""
+    ar = torch.arange(t, device=device)
+    return (t - 1) - ar[:, None] + ar[None, :]
+
+
+def rel_flash_attention_plain(q_u, q_v, k, v, p, lengths, *, scale: float,
+                              chunk_size: int = 0, left_chunks: int = -1
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: (out [B,H,T,Dh], lse [B,H,T]).
+
+    Scores and softmax in fp32; the probabilities are rounded to v.dtype
+    before the value product, as the kernel does."""
+    b, h, t, dh = q_u.shape
+    ac = q_u.float() @ k.float().transpose(-1, -2)
+    raw = q_v.float() @ p[:, : 2 * t - 1].float().transpose(-1, -2)
+    bd = raw.gather(-1, rel_shift_index(t, raw.device).expand(b, h, t, t))
+    s = (ac + bd) * scale
+    s = s.masked_fill(~allowed_mask(t, lengths, chunk_size, left_chunks), NEG)
+    lse = torch.logsumexp(s, dim=-1)
+    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    return (probs.float() @ v.float()).to(q_u.dtype), lse
+
+
+def _check(q_u, q_v, k, v, p, lengths):
+    if q_u.ndim != 4:
+        raise ValueError("rel_flash_attention: q_u must be [B, H, T, Dh]")
+    b, h, t, dh = q_u.shape
+    for name, x in (("q_v", q_v), ("k", k), ("v", v)):
+        if x.shape != q_u.shape:
+            raise ValueError(f"rel_flash_attention: {name} {tuple(x.shape)} "
+                             f"!= q_u {tuple(q_u.shape)}")
+    if tuple(p.shape) != (h, 2 * t, dh):
+        raise ValueError(f"rel_flash_attention: p {tuple(p.shape)} != "
+                         f"{(h, 2 * t, dh)}")
+    if tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32:
+        raise ValueError("rel_flash_attention: lengths must be int32 [B]")
+    if q_u.dtype not in build.DTYPE_CODES or any(
+            x.dtype != q_u.dtype for x in (q_v, k, v, p)):
+        raise TypeError("rel_flash_attention: q_u, q_v, k, v, p must share "
+                        "float32 or bfloat16")
+    args = (q_u, q_v, k, v, p, lengths)
+    if len({x.device for x in args}) != 1:
+        raise ValueError("rel_flash_attention: all arguments must be on one "
+                         "device")
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("rel_flash_attention: all arguments must be "
+                         "contiguous")
+
+
+def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
+                            chunk_size: int = 0, left_chunks: int = -1
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, H, T, Dh], lse fp32 [B, H, T]) for any T.
+
+    q_u = q + pos_bias_u, q_v = q + pos_bias_v, k, v: [B, H, T, Dh];
+    p: [H, 2T, Dh] position projections for offsets T-1 ... -(T-1) (row
+    2T-1 unused); lengths: int32 [B] valid keys. Padded query rows hold
+    values for a row with the same keys; mask them outside."""
+    _check(q_u, q_v, k, v, p, lengths)
+    if q_u.device.type == "cpu":
+        return rel_flash_attention_plain(q_u, q_v, k, v, p, lengths,
+                                         scale=scale, chunk_size=chunk_size,
+                                         left_chunks=left_chunks)
+    if q_u.device.type != "cuda":
+        raise ValueError(f"rel_flash_attention: unsupported device "
+                         f"{q_u.device}")
+    b, h, t, dh = q_u.shape
+    if dh % 16:
+        raise ValueError(f"rel_flash_attention kernel: needs Dh % 16 == 0, "
+                         f"got {dh}")
+    for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
+        build.check_aligned(name, x)
+    lib = build.library()
+    out = torch.empty_like(q_u)
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=q_u.device)
+    build.check(lib.espnet_rel_flash_fwd(
+        build.DTYPE_CODES[q_u.dtype], q_u.data_ptr(), q_v.data_ptr(),
+        k.data_ptr(), v.data_ptr(), p.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, h, t, dh, float(scale),
+        int(chunk_size), int(left_chunks), build.stream_ptr(q_u)),
+        "rel_flash_attention")
+    rel_flash_attention_fwd.launches += 1
+    return out, lse
+
+
+rel_flash_attention_fwd.launches = 0
+
+
+def rel_flash_attention(q_u, q_v, k, v, p, lengths, seed=None, *,
+                        scale: float, dropout_rate: float = 0.0,
+                        chunk_size: int = 0, left_chunks: int = -1
+                        ) -> torch.Tensor:
+    """The reference's signature: returns out [B, H, T, Dh] only. A dropout
+    rate above 0 raises until the training kernels land."""
+    if dropout_rate > 0.0:
+        raise NotImplementedError("rel_flash_attention: dropout needs the "
+                                  "training kernels (not ported yet)")
+    return rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, scale=scale,
+                                   chunk_size=chunk_size,
+                                   left_chunks=left_chunks)[0]

@@ -1,0 +1,42 @@
+"""Feature normalisation. Port of espnet_slurp_tpu/ops/normalize.py."""
+from __future__ import annotations
+
+import torch
+
+from .masks import length_mask
+
+
+def global_mvn(x: torch.Tensor, lengths: torch.Tensor, mean: torch.Tensor,
+               inv_std: torch.Tensor, norm_means: bool = True,
+               norm_vars: bool = True) -> torch.Tensor:
+    """[B, T, F] normalised by precomputed stats; padding zeroed."""
+    if norm_means:
+        x = x - mean
+    if norm_vars:
+        x = x * inv_std
+    mask = length_mask(lengths, x.shape[1])[..., None]
+    return torch.where(mask, x, torch.zeros_like(x))
+
+
+def utterance_mvn(x: torch.Tensor, lengths: torch.Tensor,
+                  norm_means: bool = True, norm_vars: bool = False,
+                  eps: float = 1.0e-20) -> torch.Tensor:
+    """Per-utterance mean (and optionally variance) normalisation over the
+    valid frames; padding zeroed."""
+    mask = length_mask(lengths, x.shape[1])[..., None]
+    zero = torch.zeros_like(x)
+    denom = torch.clamp(lengths.to(x.dtype), min=1.0)[:, None, None]
+    mean = torch.where(mask, x, zero).sum(dim=1, keepdim=True) / denom
+    if norm_means:
+        x = torch.where(mask, x - mean, zero)
+        if norm_vars:
+            var = torch.where(mask, x ** 2, zero).sum(dim=1,
+                                                      keepdim=True) / denom
+            x = torch.where(mask, x / torch.sqrt(torch.clamp(var, min=eps)),
+                            zero)
+        return x
+    if norm_vars:
+        var = torch.where(mask, (x - mean) ** 2, zero).sum(
+            dim=1, keepdim=True) / denom
+        x = x / torch.sqrt(torch.clamp(var, min=eps))
+    return torch.where(mask, x, zero)

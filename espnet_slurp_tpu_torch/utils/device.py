@@ -1,0 +1,18 @@
+"""Device choice for the port's entry points: CUDA unless the caller says so."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``device`` as a torch.device; None means the card, and raises when
+    there is none (pass ``device="cpu"`` to run on the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

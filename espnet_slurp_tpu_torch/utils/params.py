@@ -1,0 +1,81 @@
+"""Parameter bridge from a flax tree, and seeded random weights.
+
+``flax_to_torch`` turns the reference's nested param dict (numpy leaves)
+into this port's state_dict. The port names its modules as the flax tree
+does, so the key is the flax path joined by "." with the leaf renamed:
+
+- Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in];
+- Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW, and 1-D [k, in/groups,
+  out] -> Conv1d [out, in/groups, k] (the depthwise [k, 1, D] -> [D, 1, k]);
+- LayerNorm ``scale`` -> ``weight`` (``bias`` stays);
+- Embed ``embedding`` -> Embedding ``weight``;
+- ``pos_bias_u`` / ``pos_bias_v`` unchanged.
+
+The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_TOP_LEVEL_RENAMES = {"ctc": "ctc_proj"}
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _convert_leaf(name: str, value: np.ndarray):
+    if name == "kernel":
+        if value.ndim == 2:
+            return "weight", value.T
+        if value.ndim == 3:
+            return "weight", value.transpose(2, 1, 0)
+        if value.ndim == 4:
+            return "weight", value.transpose(3, 2, 0, 1)
+        raise ValueError(f"kernel of rank {value.ndim}")
+    if name in ("scale", "embedding"):
+        return "weight", value
+    if name in ("bias", "pos_bias_u", "pos_bias_v"):
+        return name, value
+    raise ValueError(f"no conversion for flax leaf {name!r}")
+
+
+def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested flax params (np.ndarray leaves) -> this port's state_dict."""
+    out = {}
+    for path, value in _flatten(params).items():
+        path = (_TOP_LEVEL_RENAMES.get(path[0], path[0]),) + path[1:]
+        leaf, converted = _convert_leaf(path[-1], value)
+        key = ".".join(path[:-1] + (leaf,))
+        out[key] = torch.from_numpy(np.array(converted, copy=True))
+    return out
+
+
+def init_random_(model: nn.Module, seed: int) -> nn.Module:
+    """Fills every parameter from a seeded CPU ``torch.Generator``: weights
+    of rank >= 2 ~ N(0, 1/fan_in), LayerNorm scales 1, biases and other
+    vectors ~ N(0, 0.02). Returns the model."""
+    gen = torch.Generator().manual_seed(seed)
+    norms = {id(m.weight) for m in model.modules()
+             if isinstance(m, nn.LayerNorm)}
+    with torch.no_grad():
+        for p in model.parameters():
+            if id(p) in norms:
+                p.fill_(1.0)
+                continue
+            if p.ndim >= 2:
+                std = float(np.prod(p.shape[1:])) ** -0.5
+            else:
+                std = 0.02
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return model

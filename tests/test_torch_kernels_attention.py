@@ -1,0 +1,121 @@
+"""Kernel K3 (rel-pos flash attention) and the attention modules.
+
+espnet_slurp_tpu_torch/ops/kernels/flash_attention.py on CPU tensors runs
+rel_flash_attention_plain; it is held to the Pallas kernel in interpret mode
+at the shapes and chunk settings of tests/test_flash_attention.py, valid
+query rows only. RelPosMultiHeadAttention (both paths) and
+MultiHeadAttention are held to their flax modules. The CUDA kernel is held
+to the plain version on the card by chip_smoke.py. fp32; tolerance atol
+1e-5 / rtol 1e-4.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from espnet_slurp_tpu.models import attention as jatt
+from espnet_slurp_tpu.ops.pallas.flash_attention import (
+    rel_flash_attention as jax_rel_flash)
+from espnet_slurp_tpu_torch.models import attention as tatt
+from espnet_slurp_tpu_torch.ops.kernels.flash_attention import (
+    rel_flash_attention, rel_flash_attention_fwd, rel_flash_attention_plain)
+from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+from torch_parity import t
+
+B, H, T, DH = 2, 2, 256, 32
+SCALE = 1.0 / np.sqrt(DH)
+LENGTHS = np.asarray([T, 190], np.int32)
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.RandomState(0)
+    f = lambda *s: rng.randn(*s).astype(np.float32) * 0.3
+    qu, qv, k, v = (f(B, H, T, DH) for _ in range(4))
+    p = f(H, 2 * T, DH)
+    p[:, -1] = 0.0
+    return qu, qv, k, v, p
+
+
+def _valid_rows(x):
+    m = (np.arange(T)[None, :] < LENGTHS[:, None])[:, None, :, None]
+    return np.where(m, np.asarray(x), 0.0)
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (64, -1), (64, 1)])
+def test_plain_matches_pallas_interpret(data, chunk):
+    cs, lc = chunk
+    ref = jax_rel_flash(*map(jnp.asarray, data), jnp.asarray(LENGTHS),
+                       scale=SCALE, chunk_size=cs, left_chunks=lc,
+                       interpret=True)
+    out, lse = rel_flash_attention_plain(*map(t, data), t(LENGTHS),
+                                         scale=SCALE, chunk_size=cs,
+                                         left_chunks=lc)
+    np.testing.assert_allclose(_valid_rows(out), _valid_rows(ref), atol=1e-5,
+                               rtol=1e-4)
+    assert lse.shape == (B, H, T) and torch.isfinite(lse).all()
+
+
+def test_wrapper_on_cpu_is_plain_and_not_counted(data):
+    args = tuple(map(t, data)) + (t(LENGTHS),)
+    before = rel_flash_attention_fwd.launches
+    out = rel_flash_attention(*args, scale=SCALE)
+    assert rel_flash_attention_fwd.launches == before
+    torch.testing.assert_close(
+        out, rel_flash_attention_plain(*args, scale=SCALE)[0], atol=0, rtol=0)
+    with pytest.raises(NotImplementedError):
+        rel_flash_attention(*args, scale=SCALE, dropout_rate=0.1)
+    with pytest.raises(ValueError):
+        rel_flash_attention(*args[:4], args[4][:, :-1], args[5], scale=SCALE)
+
+
+def test_rel_shift_matches():
+    x = np.random.RandomState(3).randn(2, 3, 5, 9).astype(np.float32)
+    np.testing.assert_array_equal(tatt.rel_shift(t(x)).numpy(),
+                                  np.asarray(jatt.rel_shift(jnp.asarray(x))))
+
+
+def _rel_mha_case(seed=1, b=2, t_len=37, d=32, h=4):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, t_len, d).astype(np.float32)
+    from espnet_slurp_tpu.models.embedding import rel_positional_embedding
+    pos = np.asarray(rel_positional_embedding(t_len, d))
+    lens = np.asarray([t_len, 23], np.int32)
+    mask = (np.arange(t_len)[None, :] < lens[:, None])[:, None, None, :]
+    bias = np.where(mask, 0.0, -1e9).astype(np.float32)
+    mod = jatt.RelPosMultiHeadAttention(h, d)
+    params = mod.init(jax.random.PRNGKey(seed), x, pos, bias)["params"]
+    # pos_bias_u/v initialise to zero; make them count.
+    params = jax.tree.map(np.asarray, params)
+    params["pos_bias_u"] = rng.randn(h, d // h).astype(np.float32)
+    params["pos_bias_v"] = rng.randn(h, d // h).astype(np.float32)
+    ref = mod.apply({"params": params}, x, pos, bias)
+    return x, pos, lens, bias, params, np.asarray(ref)
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_rel_pos_mha_matches_flax_eager(use_flash):
+    x, pos, lens, bias, params, ref = _rel_mha_case()
+    mod = tatt.RelPosMultiHeadAttention(4, 32, use_flash=use_flash)
+    mod.load_state_dict(flax_to_torch(params))
+    with torch.no_grad():
+        out = mod(t(x), t(pos), t(bias), lengths=t(lens))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-4)
+
+
+def test_abs_mha_matches_flax():
+    rng = np.random.RandomState(4)
+    q = rng.randn(2, 5, 32).astype(np.float32)
+    kv = rng.randn(2, 7, 32).astype(np.float32)
+    bias = np.where(np.arange(7)[None, None, None, :] < 6, 0.0,
+                    -1e9).astype(np.float32)
+    mod = jatt.MultiHeadAttention(4, 32)
+    params = mod.init(jax.random.PRNGKey(0), q, kv, kv, bias)["params"]
+    ref = mod.apply({"params": params}, q, kv, kv, bias)
+    port = tatt.MultiHeadAttention(4, 32)
+    port.load_state_dict(flax_to_torch(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        out = port(t(q), t(kv), t(kv), t(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-4)

@@ -1,0 +1,82 @@
+"""Kernel K2 (fused FFN): the port's plain version against the reference.
+
+espnet_slurp_tpu_torch/ops/kernels/ffn.py:fused_ffn on CPU tensors runs
+fused_ffn_plain; it is held here to the Pallas kernel in interpret mode at
+the shapes of tests/test_pallas_ffn.py, and to the flax FeedForward eager
+path. The CUDA kernel itself is held to fused_ffn_plain on the card by
+chip_smoke.py. fp32; tolerance atol 1e-5 / rtol 1e-4 (single op).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from espnet_slurp_tpu.models.conformer import FeedForward as JaxFeedForward
+from espnet_slurp_tpu.ops.pallas.ffn import fused_ffn as jax_fused_ffn
+from espnet_slurp_tpu_torch.models.conformer import FeedForward
+from espnet_slurp_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
+from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+from torch_parity import t
+
+B, T, D, F = 2, 128, 256, 512
+
+
+def _inputs(seed=0, t_len=T):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, t_len, D).astype(np.float32) * 0.5,
+            (r.randn(D, F) / np.sqrt(D)).astype(np.float32),
+            (r.randn(F) * 0.1).astype(np.float32),
+            (r.randn(F, D) / np.sqrt(F)).astype(np.float32),
+            (r.randn(D) * 0.1).astype(np.float32))
+
+
+def test_plain_matches_pallas_interpret():
+    args = _inputs()
+    ref = jax_fused_ffn(*map(jnp.asarray, args), interpret=True)
+    out = fused_ffn_plain(*map(t, args))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_wrapper_on_cpu_is_plain_and_not_counted():
+    args = tuple(map(t, _inputs(seed=1)))
+    before = fused_ffn.launches
+    out = fused_ffn(*args)
+    assert fused_ffn.launches == before
+    torch.testing.assert_close(out, fused_ffn_plain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_feedforward_matches_flax_eager(use_flash):
+    x = np.random.RandomState(7).randn(B, 100, D).astype(np.float32)
+    ff = JaxFeedForward(D, F, use_flash=False)
+    params = ff.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    ref = ff.apply({"params": params}, jnp.asarray(x))
+    mod = FeedForward(D, F, use_flash=use_flash)
+    mod.load_state_dict(flax_to_torch(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        out = mod(t(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_bf16_plain_rounds_hidden_like_the_kernel():
+    x, w1, b1, w2, b2 = map(t, _inputs(seed=2))
+    bf = torch.bfloat16
+    out = fused_ffn(x.to(bf), w1.to(bf), b1, w2.to(bf), b2)
+    assert out.dtype == bf
+    ref = fused_ffn_plain(x, w1, b1, w2, b2)
+    torch.testing.assert_close(out.float(), ref, atol=5e-2, rtol=5e-2)
+
+
+def test_rejects_bad_arguments():
+    x, w1, b1, w2, b2 = map(t, _inputs(seed=3))
+    with pytest.raises(NotImplementedError):
+        fused_ffn(x, w1, b1, w2, b2, dropout_rate=0.1)
+    with pytest.raises(ValueError):
+        fused_ffn(x, w1.t(), b1, w2, b2)
+    with pytest.raises(TypeError):
+        fused_ffn(x, w1, b1.double(), w2, b2)
+    with pytest.raises(ValueError):
+        fused_ffn(x.transpose(0, 1), w1, b1, w2, b2)
