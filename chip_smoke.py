@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drives the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
 
 Run from the repository root: ``python3 chip_smoke.py`` (no arguments, one
 card). It exits non-zero, printing no result, when there is no CUDA device
@@ -23,6 +23,29 @@ or the port's package is not beside it. Phases, each of which fails the run:
    in fp32 with the same weights on the CPU (plain versions) and on the card
    (kernels), and the valid frames compared (<= 1e-3 of max |ref|: twelve
    stacked blocks, fp32 sums in another order).
+4. Kernels at the shapes of the flagship train step (bench.py:43-51: B 64
+   utterances of 15 s, T' 468, U 64, V 5000): K1 CTC lattice forward and
+   backward, K4 fused CTC head forward and backward, K2 backward and K3
+   backward (unchunked and chunk 16 / left 4), each against its plain
+   version's outputs and autograd gradients on the same inputs (bf16 within
+   2e-2 and fp32 within 1e-4 of max |ref|, per output and gradient; K1 is
+   fp32 only), then each direction timed alone as in phase 2, beside its
+   plain version, a PyTorch yardstick (K1: F.ctc_loss; K3 backward: SDPA's
+   backward over a constant bias, which computes no dp) and its bound.
+5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
+   dropout 0, SpecAug on, seeded random weights) and the port's
+   make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
+   synthetic 15 s utterances with U = 64: one warm-up step, then 5 timed
+   steps on the same batch. Every loss and grad norm finite, nothing
+   skipped, the last loss below the first, and per step exactly 24 K2 and
+   12 K3 launches forward and backward and 1 of K4 and K1 each way (the
+   counts zeroed just before the timed steps and read just after).
+6. One fp32 forward + backward of the same flagship weights on two short
+   utterances (3 s, 2.1 s; SpecAug off) on the CPU (plain versions) and on
+   the card (kernels): the loss within 1e-4 relative, every parameter
+   gradient within 1e-3 of its max |ref| (floored at 1e-4 of the largest
+   gradient entry of the model: the key projections' biases have gradient
+   0 in exact arithmetic and hold only rounding noise).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -41,8 +64,12 @@ import numpy as np
 # Traffic of bench.py:128-133.
 N_UTT, UTT_SECONDS, FS = 8, 15, 16000
 BEAM, CTC_WEIGHT, MAX_LEN = 10, 0.3, 96  # pre-beam: Speech2Text's 30
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
+# Traffic of the flagship train step, bench.py:43-51.
+TRAIN_B, TRAIN_SECONDS, TRAIN_U, TRAIN_STEPS = 64, 15, 64, 5
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3, and
+# fp32 outside the tensor cores (the CTC lattice, whose operands are fp32).
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
@@ -71,8 +98,8 @@ def median_ms(torch, fn, warmup=3, reps=25) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -286,6 +313,378 @@ def slice_phase(torch, card):
     return launches, wall
 
 
+def grad_case(torch, fn, args, cot, n_diff):
+    """(output, grads of <output, cot> w.r.t. the first n_diff args, and a
+    backward-only callable that re-runs that backward on the kept graph)."""
+    leaves = [a.detach().clone().requires_grad_(i < n_diff)
+              for i, a in enumerate(args)]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    diff = leaves[:n_diff]
+    grads = torch.autograd.grad(out, diff, cot, retain_graph=True)
+    again = lambda: torch.autograd.grad(out, diff, cot, retain_graph=True)
+    return out.detach(), grads, again
+
+
+def hold(torch, what, out, ref, grads, ref_grads, names, tol):
+    """Output and every gradient within tol of max |ref|; returns the max
+    abs error of the output and of the gradients."""
+    torch.cuda.synchronize()
+    err_out, rel_out = rel_err(out, ref)
+    errs = [rel_err(a, r) for a, r in zip(grads, ref_grads)]
+    detail = ", ".join(f"{n} {r:.3e}" for n, (_, r) in zip(names, errs))
+    print(f"{what}: out {rel_out:.3e}; grads {detail} of max|ref| "
+          f"(tolerance {tol})")
+    if not (rel_out <= tol and all(r <= tol for _, r in errs)
+            and all(torch.isfinite(g).all() for g in grads)):
+        raise AssertionError(f"{what} disagrees with its plain version")
+    return err_out, max(e for e, _ in errs)
+
+
+def train_kernel_phase(torch, t_prime):
+    """K2 and K3 backward, K4 and K1 both ways, at the flagship train step's
+    shapes; returns the kernels-line entries."""
+    import torch.nn.functional as F
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    cfg = flagship_config()
+    b, t, u = TRAIN_B, t_prime, TRAIN_U
+    d, f, h, v = cfg.d_model, cfg.d_ff, cfg.n_head, cfg.vocab_size
+    dh, n, s = d // h, b * t_prime, 2 * u + 1
+    out = []
+
+    # K2 backward: N = 64 x T' rows.
+    base = (r(n, d), r(d, f) * d ** -0.5, r(f) * 0.1, r(f, d) * f ** -0.5,
+            r(d) * 0.1)
+    cot = r(n, d)
+    for dt in (torch.bfloat16, torch.float32):
+        args = (base[0].to(dt), base[1].to(dt), base[2], base[3].to(dt),
+                base[4])
+        o, g, _ = grad_case(torch, ffn.fused_ffn, args, cot.to(dt), 5)
+        ro, rg, plain_bwd = grad_case(torch, ffn.fused_ffn_plain, args,
+                                      cot.to(dt), 5)
+        name = str(dt).split(".")[-1]
+        _, err = hold(torch, f"K2 fused_ffn backward {name} N={n}", o, ro, g,
+                      rg, ("dx", "dw1", "db1", "dw2", "db2"), TOL[name])
+        if dt == torch.bfloat16:
+            x, w1, b1, w2, _ = args
+            gb = cot.to(dt)
+            ffn_fwd_ms = median_ms(torch, lambda: ffn._launch_fwd(*args))
+            ms = median_ms(torch, lambda: ffn._launch_bwd(x, w1, b1, w2, gb))
+            plain_ms = median_ms(torch, plain_bwd)
+            # in: x, g, W1, W2, b1; out: dx, dW1, dW2, db1, db2
+            bnd = bound(10.0 * n * d * f,
+                        2 * (3 * n * d + 4 * d * f) + 4 * (2 * f + d))
+            out.append(dict(
+                name="fused_ffn_bwd", route="cuda",
+                source="espnet_slurp_tpu_torch/csrc/ffn.cu",
+                replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None))
+    del base, cot, o, g, ro, rg, plain_bwd
+
+    # K3 backward: B 64, H 4, T', Dh 64, ragged lengths.
+    lengths = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                           device="cuda")
+    qkv = [r(b, h, t, dh) * 0.5 for _ in range(4)]
+    p = r(h, 2 * t, dh) * 0.5
+    p[:, -1] = 0.0
+    cot = r(b, h, t, dh)
+    scale = dh ** -0.5
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        args = [x.to(dt) for x in qkv] + [p.to(dt), lengths]
+        for cs, lc in ((0, -1), (16, 4)):
+            kw = dict(scale=scale, chunk_size=cs, left_chunks=lc)
+            o, g, _ = grad_case(
+                torch, lambda *a: fa.rel_flash_attention_fwd(*a, **kw), args,
+                cot.to(dt), 5)
+            ro, rg, plain_bwd = grad_case(
+                torch, lambda *a: fa.rel_flash_attention_plain(*a, **kw),
+                args, cot.to(dt), 5)
+            _, err = hold(torch, f"K3 rel_flash_attention backward {name} "
+                          f"B={b} T={t} chunk=({cs},{lc})", o, ro, g, rg,
+                          ("dq_u", "dq_v", "dk", "dv", "dp"), TOL[name])
+            if dt != torch.bfloat16 or cs != 0:
+                del plain_bwd
+                continue
+            out_k, lse = fa._launch_fwd(*args, scale, 0, -1)
+            gb = cot.to(dt)
+            att_fwd_ms = median_ms(torch, lambda: fa._launch_fwd(
+                *args, scale, 0, -1))
+            ms = median_ms(torch, lambda: fa._launch_bwd(
+                *args, out_k, lse, gb, scale, 0, -1))
+            plain_ms = median_ms(torch, plain_bwd)
+            del plain_bwd
+            q_u, q_v, k, vv, pp, _ = args
+            raw = q_v.float() @ pp[:, :2 * t - 1].float().transpose(-1, -2)
+            bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(
+                b, h, t, t))
+            allowed = fa.allowed_mask(t, lengths)
+            bias = torch.where(allowed, bd * scale, fa.NEG).to(dt)
+            del raw, bd
+            leaves = [x.detach().requires_grad_(True) for x in (q_u, k, vv)]
+            sd = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=bias, scale=scale)
+            lib_ms = median_ms(torch, lambda: torch.autograd.grad(
+                sd, leaves, gb, retain_graph=True))
+            del sd, leaves, bias
+            pairs = float(allowed.sum().item()) * h
+            bnd = bound(16.0 * pairs * dh,
+                        2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
+                        + 2 * (4 * b * h * t * dh + 2 * h * t * dh))
+            out.append(dict(
+                name="rel_flash_attention_bwd", route="cuda",
+                source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
+                replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:379",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
+                library_note="SDPA backward over a constant rel-shifted bias; "
+                             "computes no dp"))
+    del qkv, p, cot, o, g, ro, rg
+
+    # K4: hs [B, T', D], W [V, D], labels U = 64 with blanks between.
+    labels = torch.randint(1, v - 1, (b, u), generator=gen, device="cuda")
+    ulen = torch.tensor([u - (i % 5) for i in range(b)], device="cuda")
+    ext, skip, smax, last = kctc.extend_labels(labels, ulen)
+    ext32 = ext.to(torch.int32)
+    hs0, w0, b0 = r(b, t, d) * 0.5, r(v, d) * d ** -0.5, r(v) * 0.1
+    cot = r(b, t, s)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        args = (hs0.to(dt), w0.to(dt), b0, ext32)
+        o, g, _ = grad_case(torch, kh.fused_ctc_head_emit, args, cot, 3)
+        ro, rg, plain_bwd = grad_case(torch, kh.fused_ctc_head_emit_plain,
+                                      args, cot, 3)
+        err_o, err_g = hold(torch, f"K4 fused_ctc_head_emit {name} B={b} "
+                            f"T={t} V={v} S={s}", o, ro, g, rg,
+                            ("dhs", "dw", "db"), TOL[name])
+        if dt != torch.bfloat16:
+            del plain_bwd
+            continue
+        hs, w, bb, _ = args
+        _, z = kh._launch_fwd(hs, w, bb, ext32)
+        fwd_ms = median_ms(torch, lambda: kh._launch_fwd(hs, w, bb, ext32))
+        bwd_ms = median_ms(torch, lambda: kh._launch_bwd(hs, w, bb, ext32,
+                                                         z, cot))
+        plain_fwd_ms = median_ms(torch, lambda: kh.fused_ctc_head_emit_plain(
+            *args))
+        plain_bwd_ms = median_ms(torch, plain_bwd)
+        del plain_bwd
+        fbound = bound(2.0 * n * d * (v + s),
+                       2 * n * d + 2 * d * v + 4 * v + 4 * b * s
+                       + 4 * n * s + 4 * n)
+        bbound = bound(6.0 * n * d * v,
+                       2 * n * d + 2 * d * v + 4 * v + 4 * b * s + 4 * n
+                       + 4 * n * s + 2 * n * d + 2 * d * v + 4 * v)
+        common = dict(route="cuda",
+                      source="espnet_slurp_tpu_torch/csrc/ctc_head.cu",
+                      launches=None, library_ms=None)
+        out.append(dict(name="fused_ctc_head_emit",
+                        replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:160",
+                        max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                        bound_ms=fbound[0], bound_by=fbound[1], **common))
+        out.append(dict(name="fused_ctc_head_emit_bwd",
+                        replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:179",
+                        max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                        bound_ms=bbound[0], bound_by=bbound[1], **common))
+    del hs0, w0, o, g, ro, rg
+
+    # K1: emissions of log-softmaxed random logits, ragged T' and U.
+    tlen = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    lp = torch.log_softmax(r(b, t, v) * 2.0, -1)
+    emit = kctc.mask_emit(lp.gather(2, ext[:, None, :].expand(b, t, -1)),
+                          smax).contiguous()
+    cot = torch.rand(b, generator=gen, device="cuda")
+    largs = (emit, skip, tlen, last)
+    o, g, _ = grad_case(torch, kctc.ctc_lattice, largs, cot, 1)
+    ro, rg, plain_bwd = grad_case(torch, kctc.ctc_lattice_plain, largs, cot, 1)
+    err_o, err_g = hold(torch, f"K1 ctc_lattice float32 B={b} T={t} S={s}",
+                        o, ro, g, rg, ("demit",), TOL["float32"])
+    _, alpha = kctc._launch_fwd(*largs)
+    fwd_ms = median_ms(torch, lambda: kctc._launch_fwd(*largs))
+    bwd_ms = median_ms(torch, lambda: kctc._launch_bwd(*largs, alpha, cot))
+    plain_fwd_ms = median_ms(torch, lambda: kctc.ctc_lattice_plain(*largs),
+                             warmup=1, reps=5)
+    plain_bwd_ms = median_ms(torch, plain_bwd, warmup=1, reps=5)
+    del plain_bwd
+    lpt = lp.transpose(0, 1).detach().requires_grad_(True)
+    ctc = lambda: F.ctc_loss(lpt, labels, tlen.long(), ulen, blank=0,
+                             reduction="none", zero_infinity=True)
+    lib_fwd_ms = median_ms(torch, ctc)
+    lib_loss = ctc()
+    lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
+        lib_loss, lpt, cot, retain_graph=True))
+    # Compulsory bytes only: the alpha residual is left out (a backward
+    # could recompute it). Forward: emit, skip, tlen, last in, loss out;
+    # backward: the same inputs and g in, demit out.
+    states = float((tlen.long() * s).sum().item())  # the recursion's work
+    fbound = bound(10.0 * states, 4 * b * t * s + 4 * b * s + 8 * b + 4 * b,
+                   PEAK_FP32_FLOPS)
+    bbound = bound(14.0 * states, 4 * b * t * s + 4 * b * s + 8 * b + 4 * b
+                   + 4 * b * t * s, PEAK_FP32_FLOPS)
+    common = dict(route="cuda", source="espnet_slurp_tpu_torch/csrc/ctc.cu",
+                  launches=None)
+    out.append(dict(name="ctc_lattice",
+                    replaces="espnet_slurp_tpu/ops/pallas/ctc.py:195",
+                    max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                    bound_ms=fbound[0], bound_by=fbound[1],
+                    library_ms=lib_fwd_ms,
+                    library_note="F.ctc_loss forward on [T', B, V] log-probs",
+                    **common))
+    out.append(dict(name="ctc_lattice_bwd",
+                    replaces="espnet_slurp_tpu/ops/pallas/ctc.py:236",
+                    max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                    bound_ms=bbound[0], bound_by=bbound[1],
+                    library_ms=lib_bwd_ms,
+                    library_note="F.ctc_loss backward to [T', B, V] "
+                                 "log-probs", **common))
+    return out, {"fused_ffn": ffn_fwd_ms, "rel_flash_attention": att_fwd_ms}
+
+
+def train_batch(torch, rng, b, n_samples, u, vocab, device):
+    return {
+        "speech": torch.from_numpy(
+            rng.randn(b, n_samples).astype(np.float32) * 0.1).to(device),
+        "speech_lengths": torch.full((b,), n_samples, dtype=torch.int32,
+                                     device=device),
+        "text": torch.from_numpy(rng.randint(1, vocab - 1, size=(b, u))
+                                 .astype(np.int64)).to(device),
+        "text_lengths": torch.full((b,), u, dtype=torch.int32, device=device),
+    }
+
+
+COUNTED = {  # kernels-line name -> (wrapper, counter attribute), per step
+    "fused_ffn": ("ffn", "fused_ffn", "launches"),
+    "fused_ffn_bwd": ("ffn", "fused_ffn", "bwd_launches"),
+    "rel_flash_attention": ("fa", "rel_flash_attention_fwd", "launches"),
+    "rel_flash_attention_bwd": ("fa", "rel_flash_attention_fwd",
+                                "bwd_launches"),
+    "fused_ctc_head_emit": ("kh", "fused_ctc_head_emit", "launches"),
+    "fused_ctc_head_emit_bwd": ("kh", "fused_ctc_head_emit", "bwd_launches"),
+    "ctc_lattice": ("kctc", "ctc_lattice", "launches"),
+    "ctc_lattice_bwd": ("kctc", "ctc_lattice", "bwd_launches"),
+}
+
+
+def train_phase(torch, card):
+    """The flagship train step on the bench traffic; returns the launch
+    counts of the timed steps."""
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+    from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    mods = {"ffn": ffn, "fa": fa, "kh": kh, "kctc": kctc}
+    counter = lambda m, f, a: getattr(getattr(mods[m], f), a)
+    cfg = flagship_config()
+    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError("the bf16 model must keep fp32 parameters")
+    tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
+    state = TrainState.create(model, tx, seed=0)
+    step = make_train_step(model, tx)
+    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, st = step(state, batch)  # warm-up: cuBLAS/cuDNN, the allocator
+    first_loss = float(st["loss"])
+    warm_s = time.perf_counter() - t0
+
+    for m, f, a in COUNTED.values():
+        setattr(getattr(mods[m], f), a, 0)
+    losses, norms, skipped, times = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, st = step(state, batch)
+        losses.append(float(st["loss"]))  # synchronises
+        times.append(time.perf_counter() - t0)
+        norms.append(float(st["grad_norm"]))
+        skipped.append(float(st["skipped"]))
+    launches = {k: counter(*v) for k, v in COUNTED.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = float(np.median(times))
+    audio = TRAIN_B * TRAIN_SECONDS
+    print(f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, U={TRAIN_U}, "
+          f"bf16 compute / fp32 parameters, Adam lr 1e-3: step "
+          f"{step_s:.4f} s (median of {TRAIN_STEPS}; steps {times}; warm-up "
+          f"{warm_s:.3f} s), {audio / step_s:.1f} audio-s/s, peak memory "
+          f"{peak_gb:.2f} GB on {card}")
+    print(f"train: losses {[first_loss] + losses}, grad norms {norms}, "
+          f"skipped {skipped}, loss_ctc {float(st['loss_ctc']):.4f}, "
+          f"loss_att {float(st['loss_att']):.4f}")
+    print(f"train: launches over {TRAIN_STEPS} steps {launches}")
+    n_blocks = cfg.num_encoder_blocks
+    per_step = {"fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+                "rel_flash_attention": n_blocks,
+                "rel_flash_attention_bwd": n_blocks,
+                "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    if launches != {k: TRAIN_STEPS * c for k, c in per_step.items()}:
+        raise AssertionError(f"train launches {launches}, expected "
+                             f"{per_step} per step")
+    if not (all(np.isfinite(losses + norms + [first_loss]))
+            and sum(skipped) == 0 and losses[-1] < first_loss):
+        raise AssertionError("train: non-finite, skipped or not falling")
+    return launches, step_s
+
+
+def train_cpu_vs_card(torch):
+    """One fp32 forward + backward, CPU (plain versions) against the card
+    (kernels), same flagship weights, two short utterances."""
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = dataclasses.replace(flagship_config(), dtype="float32",
+                              specaug=None)
+    state = init_random_(ASRModel(cfg, device="cpu"), seed=0).state_dict()
+    rng = np.random.RandomState(2)
+    lens = np.asarray([48000, 33600], np.int32)
+    speech = np.zeros((2, 48000), np.float32)
+    for i, m in enumerate(lens):
+        speech[i, :m] = rng.randn(m).astype(np.float32) * 0.1
+    text = rng.randint(1, cfg.vocab_size - 1, size=(2, 12)).astype(np.int64)
+    tlens = np.asarray([12, 8], np.int32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = ASRModel(cfg, device=dev)
+        model.load_state_dict(state)
+        batch = {"speech": torch.from_numpy(speech).to(dev),
+                 "speech_lengths": torch.from_numpy(lens).to(dev),
+                 "text": torch.from_numpy(text).to(dev),
+                 "text_lengths": torch.from_numpy(tlens).to(dev)}
+        loss, _ = model(**batch, train=True)
+        loss.backward()
+        res[dev] = (float(loss.detach()), {k: p.grad.detach().cpu()
+                                  for k, p in model.named_parameters()})
+    (loss_c, g_c), (loss_g, g_g) = res["cpu"], res["cuda"]
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    floor = 1e-4 * max(float(x.abs().max()) for x in g_c.values())
+    worst = max(((float((g_g[k] - r).abs().max())
+                  / max(float(r.abs().max()), floor)), k)
+                for k, r in g_c.items())
+    print(f"fp32 train step card vs CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(rel {rel:.3e}, tolerance 1e-4); worst gradient {worst[1]} "
+          f"{worst[0]:.3e} of max|ref| (tolerance 1e-3) over {len(g_c)} "
+          f"tensors")
+    if not (rel <= 1e-4 and worst[0] <= 1e-3):
+        raise AssertionError("fp32 train step card vs CPU")
+
+
 def main() -> int:
     import torch
 
@@ -312,10 +711,21 @@ def main() -> int:
     n = bucket_length(FS * UTT_SECONDS, 4096)
     t_prime = Conv2dSubsampling.out_length_static(1 + n // 128)
     kernels = kernel_phase(torch, t_prime)
-    launches, _ = slice_phase(torch, card)
+    decode_launches, _ = slice_phase(torch, card)
+    t_train = Conv2dSubsampling.out_length_static(
+        1 + FS * TRAIN_SECONDS // 128)
+    train_kernels, fwd_train_ms = train_kernel_phase(torch, t_train)
+    kernels += train_kernels
+    train_launches, _ = train_phase(torch, card)
+    train_cpu_vs_card(torch)
     for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
-        print(f"{kern['name']}: {kern['ms']:.4f} ms (plain {kern['plain_ms']:.4f}"
+        name = kern["name"]
+        kern["launches"] = train_launches[name]
+        kern["launches_per_train_step"] = train_launches[name] // TRAIN_STEPS
+        if name in decode_launches:
+            kern["launches_per_decode"] = decode_launches[name]
+            kern["ms_at_train_shape"] = fwd_train_ms[name]
+        print(f"{name}: {kern['ms']:.4f} ms (plain {kern['plain_ms']:.4f}"
               f" ms, library {kern['library_ms']}, bound {kern['bound_ms']:.4f}"
               f" ms by {kern['bound_by']}) on {card}")
     print(json.dumps({"kernels": kernels}))

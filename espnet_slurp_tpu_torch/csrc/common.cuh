@@ -29,6 +29,9 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
 // Row padding, in elements, of a shared tile holding T (16 bytes).
 template <typename T>
 __host__ __device__ constexpr int pad_of() { return 16 / static_cast<int>(sizeof(T)); }

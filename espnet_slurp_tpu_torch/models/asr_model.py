@@ -1,9 +1,14 @@
-"""Hybrid CTC/attention ASR model, inference half.
+"""Hybrid CTC/attention ASR model.
 
 Port of espnet_slurp_tpu/models/asr_model.py: ``ASRConfig`` (the fields
-this slice uses, with the reference's defaults) and ``ASRModel`` with
-``encode`` (frontend -> MVN -> Conformer), ``ctc_logprobs`` and
-``decoder_logits``. The losses come with the training slice.
+the serving and training slices use, with the reference's defaults),
+``add_sos_eos``, ``label_smoothing_loss`` and ``ASRModel`` with ``encode``
+(frontend -> SpecAug when training -> MVN -> Conformer), ``ctc_logprobs``,
+``decoder_logits`` and ``forward`` (the training loss: CTC through the
+fused head K4 and the lattice K1, plus label-smoothed CE on the decoder).
+Parameters are fp32 and every layer computes in ``cfg.dtype``, as the flax
+modules do (models/layers.py). The TCPGen, interCTC and MoE branches of the
+reference's loss raise.
 """
 from __future__ import annotations
 
@@ -14,10 +19,16 @@ import torch
 from torch import nn
 
 from ..ops.frontend import FrontendConfig, default_frontend
+from ..ops.kernels.ctc_head import ctc_loss_pallas_head
+from ..ops.masks import length_mask
 from ..ops.normalize import global_mvn, utterance_mvn
+from ..ops.specaug import SpecAugConfig, specaug
 from ..utils.device import resolve_device
 from .conformer import ConformerEncoder
+from .layers import Linear
 from .transformer import TransformerDecoder
+
+IGNORE_ID = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +41,10 @@ class ASRConfig:
     num_decoder_blocks: int = 6
     decoder_d_ff: int = 2048
     kernel_size: int = 31
+    dropout_rate: float = 0.1
+    ctc_weight: float = 0.3
+    interctc_weight: float = 0.0
+    lsm_weight: float = 0.1
     blank_id: int = 0
     sos: int = -1  # -1 => vocab_size - 1
     eos: int = -1
@@ -39,6 +54,7 @@ class ASRConfig:
     flash_attention: str = "auto"  # "auto"/"on": kernels K2/K3; "off": eager
     subsampling_factor: int = 4
     frontend: FrontendConfig = FrontendConfig()
+    specaug: Optional[SpecAugConfig] = SpecAugConfig()
     dtype: str = "float32"  # compute dtype: float32 | bfloat16
 
     @property
@@ -57,15 +73,53 @@ class ASRConfig:
 def flagship_config() -> ASRConfig:
     """The flagship LS-100 Conformer (__graft_entry__.py:25-27): vocab 5000,
     12 x 256 encoder, 4 heads, d_ff 1024, kernel 31, 6-block decoder with
-    d_ff 2048, bf16."""
+    d_ff 2048, dropout 0, bf16."""
     return ASRConfig(vocab_size=5000, d_model=256, n_head=4, d_ff=1024,
                      num_encoder_blocks=12, num_decoder_blocks=6,
-                     decoder_d_ff=2048, kernel_size=31, dtype="bfloat16")
+                     decoder_d_ff=2048, kernel_size=31, dropout_rate=0.0,
+                     dtype="bfloat16")
+
+
+def add_sos_eos(ys: torch.Tensor, ys_lengths: torch.Tensor, sos: int,
+                eos: int, ignore_id: int = IGNORE_ID):
+    """[B, U] -> (ys_in [B, U+1] with sos prepended and eos as padding,
+    ys_out [B, U+1] with eos appended at each row's end and ignore_id as
+    padding)."""
+    b, u = ys.shape
+    valid = length_mask(ys_lengths, u)
+    ys_clean = torch.where(valid, ys, torch.zeros_like(ys))
+    ys_in = torch.cat([torch.full((b, 1), sos, dtype=ys.dtype,
+                                  device=ys.device),
+                       torch.where(valid, ys_clean, torch.full_like(ys, eos))],
+                      1)
+    pos = torch.arange(u + 1, device=ys.device)[None, :]
+    ys_out = torch.cat([ys_clean, torch.zeros_like(ys[:, :1])], 1)
+    n = ys_lengths.to(ys.device)[:, None]
+    ys_out = torch.where(pos < n, ys_out,
+                         torch.where(pos == n, torch.full_like(ys_out, eos),
+                                     torch.full_like(ys_out, ignore_id)))
+    return ys_in, ys_out
+
+
+def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         smoothing: float, ignore_id: int = IGNORE_ID):
+    """Label-smoothed CE, mean over valid tokens (the reference's
+    token-mean form): (loss, accuracy)."""
+    valid = targets != ignore_id
+    tgt = torch.where(valid, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    loss = (1.0 - smoothing) * nll - smoothing * logp.mean(dim=-1)
+    denom = valid.sum().clamp_min(1)
+    loss = torch.where(valid, loss, torch.zeros_like(loss)).sum() / denom
+    acc = ((logits.argmax(-1) == tgt) & valid).sum() / denom
+    return loss, acc
 
 
 class ASRModel(nn.Module):
     """Encoder + CTC head + attention decoder, built on ``device`` (the card
-    unless ``device="cpu"``) in ``cfg.dtype``. The frontend runs in fp32."""
+    unless ``device="cpu"``) with fp32 parameters, computing in
+    ``cfg.dtype``. The frontend runs in fp32."""
 
     def __init__(self, cfg: ASRConfig, device=None):
         super().__init__()
@@ -76,22 +130,29 @@ class ASRModel(nn.Module):
             c.num_encoder_blocks, c.kernel_size, chunk_size=c.chunk_size,
             left_chunks=c.left_chunks, flash=c.flash_attention,
             subsampling_factor=c.subsampling_factor)
-        self.ctc_proj = nn.Linear(c.d_model, c.vocab_size)
+        self.ctc_proj = Linear(c.d_model, c.vocab_size)
         self.decoder = TransformerDecoder(c.vocab_size, c.d_model, c.n_head,
-                                          c.decoder_d_ff, c.num_decoder_blocks)
-        self.to(device=resolve_device(device), dtype=c.torch_dtype)
+                                          c.decoder_d_ff, c.num_decoder_blocks,
+                                          dtype=c.torch_dtype)
+        self.to(device=resolve_device(device))
 
     @property
     def device(self) -> torch.device:
         return self.ctc_proj.weight.device
 
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
-               mvn_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               mvn_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               *, train: bool = False,
+               generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Raw waveform [B, N] -> (hs [B, T', D], h_lengths [B])."""
+        """Raw waveform [B, N] -> (hs [B, T', D], h_lengths [B]). With
+        ``train``, ``cfg.specaug`` and a ``generator`` the features are
+        augmented (every draw from the generator)."""
         c = self.cfg
         feats, feat_lengths = default_frontend(speech, speech_lengths,
                                                c.frontend)
+        if train and c.specaug is not None and generator is not None:
+            feats = specaug(feats, feat_lengths, c.specaug, generator)
         if c.use_mvn == "global" and mvn_stats is not None:
             feats = global_mvn(feats, feat_lengths, *mvn_stats)
         elif c.use_mvn == "utterance":
@@ -103,3 +164,50 @@ class ASRModel(nn.Module):
 
     def decoder_logits(self, ys_in, ys_in_lengths, hs, h_lengths):
         return self.decoder(ys_in, ys_in_lengths, hs, h_lengths)
+
+    def _ctc_loss_mean(self, hs, h_lengths, text, text_lengths):
+        """Batch-mean CTC loss from encoder states through the fused head
+        (K4) and the lattice (K1): on the card their kernels, on the CPU
+        their plain versions. No [B, T, V] logits are kept."""
+        c = self.cfg
+        per = ctc_loss_pallas_head(
+            hs, self.ctc_proj.weight.to(hs.dtype),
+            self.ctc_proj.bias.float(), h_lengths, text.clamp_min(0),
+            text_lengths, c.blank_id)
+        return per.sum() / per.shape[0]
+
+    def forward(self, speech, speech_lengths, text, text_lengths, *,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                mvn_stats=None):
+        """Training forward -> (loss, stats) with loss_ctc, loss_att, acc,
+        loss: ctc_weight * CTC + (1 - ctc_weight) * label-smoothed CE.
+        ``generator`` draws SpecAug's masks when ``train``."""
+        c = self.cfg
+        if train and c.dropout_rate > 0.0:
+            raise NotImplementedError(
+                "ASRModel: training with dropout needs the dropout kernels "
+                "(in-kernel Philox for K2/K3), which come with the next "
+                "training slice; use dropout_rate=0.0")
+        if c.interctc_weight > 0.0:
+            raise NotImplementedError("ASRModel: interCTC is not ported yet")
+        hs, h_lengths = self.encode(speech, speech_lengths, mvn_stats,
+                                    train=train, generator=generator)
+        stats = {}
+        loss = torch.zeros((), device=hs.device)
+        if c.ctc_weight > 0.0:
+            loss_ctc = self._ctc_loss_mean(hs, h_lengths, text, text_lengths)
+            stats["loss_ctc"] = loss_ctc
+            loss = loss + c.ctc_weight * loss_ctc
+        if c.ctc_weight < 1.0:
+            text_lengths = text_lengths.to(text.device)
+            ys_in, ys_out = add_sos_eos(text.clamp_min(0).long(),
+                                        text_lengths, c.sos_id, c.eos_id)
+            logits = self.decoder(ys_in, text_lengths + 1, hs, h_lengths)
+            loss_att, acc = label_smoothing_loss(logits, ys_out,
+                                                 c.lsm_weight)
+            stats["loss_att"] = loss_att
+            stats["acc"] = acc
+            loss = loss + (1.0 - c.ctc_weight) * loss_att
+        stats["loss"] = loss
+        return loss, stats

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.flash_attention import rel_flash_attention
+from .layers import Linear
 
 
 class MultiHeadAttention(nn.Module):
@@ -24,10 +25,10 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, n_head: int, n_feat: int):
         super().__init__()
         self.n_head, self.n_feat = n_head, n_feat
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
 
     def forward(self, query, key, value, mask_bias=None):
         h, d = self.n_head, self.n_feat
@@ -61,13 +62,13 @@ class RelPosMultiHeadAttention(nn.Module):
         super().__init__()
         self.n_head, self.n_feat, self.use_flash = n_head, n_feat, use_flash
         dh = n_feat // n_head
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_pos = nn.Linear(n_feat, n_feat, bias=False)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_pos = Linear(n_feat, n_feat, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, dh))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, dh))
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
 
     def forward(self, x, pos_emb, mask_bias=None, lengths=None, chunk_size=0,
                 left_chunks=-1):
@@ -78,8 +79,8 @@ class RelPosMultiHeadAttention(nn.Module):
         k = self.linear_k(x).reshape(b, t, h, dh).transpose(1, 2)
         v = self.linear_v(x).reshape(b, t, h, dh).transpose(1, 2)
         p = self.linear_pos(pos_emb)  # [1, 2T-1, D]
-        q_u = (q + self.pos_bias_u).transpose(1, 2)  # [B, H, T, Dh]
-        q_v = (q + self.pos_bias_v).transpose(1, 2)
+        q_u = (q + self.pos_bias_u.to(q.dtype)).transpose(1, 2)  # [B,H,T,Dh]
+        q_v = (q + self.pos_bias_v.to(q.dtype)).transpose(1, 2)
         scale = 1.0 / math.sqrt(dh)
 
         if self.use_flash and lengths is not None:

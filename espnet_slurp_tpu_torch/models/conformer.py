@@ -18,6 +18,7 @@ from ..ops.kernels.ffn import fused_ffn
 from ..ops.masks import attention_bias, chunk_mask, length_mask
 from .attention import RelPosMultiHeadAttention
 from .embedding import Conv2dSubsampling, rel_positional_embedding
+from .layers import Conv1d, LayerNorm, Linear
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default epsilon
 
@@ -28,16 +29,17 @@ class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ff: int, use_flash: bool = False):
         super().__init__()
         self.use_flash = use_flash
-        self.w1 = nn.Linear(d_model, d_ff)
-        self.w2 = nn.Linear(d_ff, d_model)
+        self.w1 = Linear(d_model, d_ff)
+        self.w2 = Linear(d_ff, d_model)
 
     def forward(self, x):
         if self.use_flash:
-            # The kernel takes the reference's [in, out] weight layout.
+            # The kernel takes the reference's [in, out] weight layout, in
+            # the compute dtype; the fp32 parameters get fp32 gradients.
+            wt = lambda w: w.t().to(x.dtype).contiguous()
             return fused_ffn(
-                x.contiguous(), self.w1.weight.t().contiguous(),
-                self.w1.bias.float(), self.w2.weight.t().contiguous(),
-                self.w2.bias.float())
+                x.contiguous(), wt(self.w1.weight), self.w1.bias.float(),
+                wt(self.w2.weight), self.w2.bias.float())
         return self.w2(F.silu(self.w1(x)))
 
 
@@ -49,11 +51,11 @@ class ConvModule(nn.Module):
                  causal: bool = False):
         super().__init__()
         self.kernel_size, self.causal = kernel_size, causal
-        self.pointwise1 = nn.Linear(d_model, 2 * d_model)
-        self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
-                                   groups=d_model)
-        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.pointwise2 = nn.Linear(d_model, d_model)
+        self.pointwise1 = Linear(d_model, 2 * d_model)
+        self.depthwise = Conv1d(d_model, d_model, kernel_size,
+                                groups=d_model)
+        self.norm = LayerNorm(d_model, eps=LN_EPS)
+        self.pointwise2 = Linear(d_model, d_model)
 
     def forward(self, x, pad_mask=None):
         h = F.glu(self.pointwise1(x), dim=-1)
@@ -74,7 +76,7 @@ class ConformerBlock(nn.Module):
                  left_chunks: int = -1):
         super().__init__()
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
-        ln = lambda: nn.LayerNorm(d_model, eps=LN_EPS)
+        ln = lambda: LayerNorm(d_model, eps=LN_EPS)
         self.norm_ff1 = ln()
         self.ff1 = FeedForward(d_model, d_ff, use_flash)
         self.norm_mha = ln()
@@ -122,7 +124,7 @@ class ConformerEncoder(nn.Module):
                 d_model, n_head, d_ff, kernel_size,
                 causal_conv=chunk_size > 0, use_flash=self.use_flash,
                 chunk_size=chunk_size, left_chunks=left_chunks))
-        self.after_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.after_norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, feats, feat_lengths):
         x = self.embed(feats)

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .layers import Conv2d
+
 # Per-factor (kernel, stride) stacks, VALID padding over (time, freq).
 _SUBSAMPLE_SPECS = {
     2: ((3, 2), (3, 1)),
@@ -64,9 +66,9 @@ class Conv2dSubsampling(nn.Module):
         ch, f = 1, idim
         self.n_convs = len(_SUBSAMPLE_SPECS[factor])
         for i, (k, s) in enumerate(_SUBSAMPLE_SPECS[factor]):
-            self.add_module(f"conv{i + 1}", nn.Conv2d(ch, odim, k, s))
+            self.add_module(f"conv{i + 1}", Conv2d(ch, odim, k, s))
             ch, f = odim, (f - k) // s + 1
-        self.out = nn.Conv2d(odim, odim, (1, f))
+        self.out = Conv2d(odim, odim, (1, f))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.unsqueeze(1)

@@ -18,6 +18,7 @@ from torch import nn
 from ..ops.masks import attention_bias, causal_mask, length_mask
 from .conformer import LN_EPS
 from .embedding import abs_positional_encoding, sinusoid_table
+from .layers import LayerNorm, Linear
 
 
 class CachedAttention(nn.Module):
@@ -26,10 +27,10 @@ class CachedAttention(nn.Module):
     def __init__(self, n_head: int, n_feat: int):
         super().__init__()
         self.n_head, self.n_feat = n_head, n_feat
-        self.linear_q = nn.Linear(n_feat, n_feat)
-        self.linear_k = nn.Linear(n_feat, n_feat)
-        self.linear_v = nn.Linear(n_feat, n_feat)
-        self.linear_out = nn.Linear(n_feat, n_feat)
+        self.linear_q = Linear(n_feat, n_feat)
+        self.linear_k = Linear(n_feat, n_feat)
+        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_out = Linear(n_feat, n_feat)
 
     def _split(self, x):
         return x.reshape(*x.shape[:-1], self.n_head, self.n_feat // self.n_head)
@@ -59,8 +60,8 @@ class CachedAttention(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ff: int):
         super().__init__()
-        self.w1 = nn.Linear(d_model, d_ff)
-        self.w2 = nn.Linear(d_ff, d_model)
+        self.w1 = Linear(d_model, d_ff)
+        self.w2 = Linear(d_ff, d_model)
 
     def forward(self, x):
         return self.w2(F.relu(self.w1(x)))
@@ -71,11 +72,11 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, d_ff: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = CachedAttention(n_head, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS)
         self.src_attn = CachedAttention(n_head, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm3 = LayerNorm(d_model, eps=LN_EPS)
         self.ff = FeedForward(d_model, d_ff)
 
     def forward(self, x, self_bias, memory, mem_bias):
@@ -101,18 +102,21 @@ class DecoderLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """Pre-norm Transformer decoder with an embedding + abs-PE input."""
+    """Pre-norm Transformer decoder with an embedding + abs-PE input.
+    Parameters stay fp32; ``dtype`` is the compute dtype (the embedding's
+    output and the KV cache)."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_head: int = 4,
-                 d_ff: int = 2048, num_blocks: int = 6):
+                 d_ff: int = 2048, num_blocks: int = 6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size, self.d_model, self.n_head = vocab_size, d_model, n_head
-        self.num_blocks = num_blocks
+        self.num_blocks, self.dtype = num_blocks, dtype
         self.embed = nn.Embedding(vocab_size, d_model)
         for i in range(num_blocks):
             self.add_module(f"layer_{i}", DecoderLayer(d_model, n_head, d_ff))
-        self.after_norm = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.output = nn.Linear(d_model, vocab_size)
+        self.after_norm = LayerNorm(d_model, eps=LN_EPS)
+        self.output = Linear(d_model, vocab_size)
 
     @property
     def layers(self):
@@ -122,7 +126,7 @@ class TransformerDecoder(nn.Module):
                 memory_mask: Optional[torch.Tensor] = None):
         """Scoring forward: [B, L] ids -> [B, L, V] logits (causal)."""
         l = ys.shape[1]
-        x = abs_positional_encoding(self.embed(ys), scale=True)
+        x = abs_positional_encoding(self.embed(ys).to(self.dtype), scale=True)
         self_mask = length_mask(ys_lengths, l)[:, None, None, :] \
             & causal_mask(l, ys.device)[None, None]
         self_bias = attention_bias(self_mask)
@@ -138,7 +142,7 @@ class TransformerDecoder(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    device=None) -> Dict[str, Dict[str, torch.Tensor]]:
         dh = self.d_model // self.n_head
-        dtype = self.output.weight.dtype
+        dtype = self.dtype
         device = device or self.output.weight.device
         z = lambda: torch.zeros(batch, max_len, self.n_head, dh, dtype=dtype,
                                 device=device)
@@ -156,7 +160,7 @@ class TransformerDecoder(nn.Module):
         """One step: y_t [B] token ids at position ``step_idx``.
 
         Returns ([B, V] logits, cache) with the cache updated in place."""
-        emb = self.embed(y_t[:, None]) * math.sqrt(self.d_model)
+        emb = self.embed(y_t[:, None]).to(self.dtype) * math.sqrt(self.d_model)
         pe = sinusoid_table(1, self.d_model, offset=step_idx)
         emb = emb + torch.from_numpy(pe).to(emb.device, emb.dtype)
         pos = torch.arange(max_len, device=y_t.device)

@@ -101,6 +101,21 @@ def library() -> ctypes.CDLL:
     lib.espnet_rel_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i,
                                          f, i, i, p]
     lib.espnet_rel_flash_fwd.restype = i
+    lib.espnet_fused_ffn_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i,
+                                         i, i, i, p]
+    lib.espnet_fused_ffn_bwd.restype = i
+    lib.espnet_rel_flash_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p,
+                                         p, p, p, i, i, i, i, f, i, i, p]
+    lib.espnet_rel_flash_bwd.restype = i
+    lib.espnet_ctc_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.espnet_ctc_fwd.restype = i
+    lib.espnet_ctc_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.espnet_ctc_bwd.restype = i
+    lib.espnet_ctc_head_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.espnet_ctc_head_fwd.restype = i
+    lib.espnet_ctc_head_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, i, p]
+    lib.espnet_ctc_head_bwd.restype = i
     lib.espnet_error_string.argtypes = [i]
     lib.espnet_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,10 +1,12 @@
-"""Fused position-wise feed-forward (kernel K2), forward only.
+"""Fused position-wise feed-forward (kernel K2), forward and backward.
 
 Port of espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn. On a CUDA tensor the
-wrapper launches the hand-written kernel in ``csrc/ffn.cu``, which never
-writes the [N, d_ff] hidden to device memory; on a CPU tensor it runs
-``fused_ffn_plain``, the same function in plain PyTorch. There is no other
-route: a CUDA tensor the kernel does not take raises.
+wrapper is a ``torch.autograd.Function`` that launches the hand-written
+kernels in ``csrc/ffn.cu``: the forward, and a backward that recomputes the
+hidden chunk by chunk; neither writes the [N, d_ff] hidden to device memory.
+On a CPU tensor it runs ``fused_ffn_plain``, the same function in plain
+PyTorch, whose gradients are PyTorch's autograd. There is no other route: a
+CUDA tensor the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def _check(x, w1, b1, w2, b2, dropout_rate):
     if dropout_rate > 0.0:
         raise NotImplementedError(
-            "fused_ffn: dropout needs the training kernels (not ported yet)")
+            "fused_ffn: dropout in the kernel (Philox, forward and backward) "
+            "comes with the next training slice; train at dropout_rate 0")
     d = x.shape[-1]
     if w1.ndim != 2 or w1.shape[0] != d:
         raise ValueError(f"fused_ffn: w1 {tuple(w1.shape)} does not match "
@@ -46,6 +49,63 @@ def _check(x, w1, b1, w2, b2, dropout_rate):
         raise ValueError("fused_ffn: all arguments must be contiguous")
 
 
+# Row splits of the dW/db reduction (per-split fp32 partials, summed here).
+DW_SPLITS = 16
+
+
+def _launch_fwd(x, w1, b1, w2, b2):
+    lib = build.library()
+    d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
+    n = x.numel() // d
+    out = torch.empty(*x.shape[:-1], d2, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    build.check(lib.espnet_fused_ffn_fwd(
+        build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d, f,
+        d2, build.stream_ptr(x)), "fused_ffn")
+    fused_ffn.launches += 1
+    return out
+
+
+def _launch_bwd(x, w1, b1, w2, g):
+    d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
+    n = x.numel() // d
+    dev = x.device
+    if n == 0:
+        return (torch.zeros_like(x), torch.zeros_like(w1),
+                torch.zeros_like(b1), torch.zeros_like(w2),
+                torch.zeros(d2, device=dev))
+    nsplit = max(1, min(DW_SPLITS, n // 64))
+    dx = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw1p = torch.empty(nsplit, d, f, **f32)
+    db1p = torch.empty(nsplit, f, **f32)
+    dw2p = torch.empty(nsplit, f, d2, **f32)
+    db2p = torch.empty(nsplit, d2, **f32)
+    build.check(build.library().espnet_fused_ffn_bwd(
+        build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dw1p.data_ptr(), db1p.data_ptr(), dw2p.data_ptr(), db2p.data_ptr(),
+        nsplit, n, d, f, d2, build.stream_ptr(x)), "fused_ffn backward")
+    fused_ffn.bwd_launches += 1
+    # dW back in the weights' dtype, as the reference returns them.
+    return (dx, dw1p.sum(0).to(w1.dtype), db1p.sum(0),
+            dw2p.sum(0).to(w2.dtype), db2p.sum(0))
+
+
+class _FusedFfn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return _launch_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2 = ctx.saved_tensors
+        return _launch_bwd(x, w1, b1, w2, g.to(x.dtype).contiguous())
+
+
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, seed=None, *,
               dropout_rate: float = 0.0) -> torch.Tensor:
@@ -53,9 +113,10 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
     x: [..., D]; w1: [D, F]; b1: float32 [F]; w2: [F, D2]; b2: float32 [D2].
     x, w1, w2 are float32 or bfloat16 (fp32 accumulation). Any number of
-    rows. Returns [..., D2] in x.dtype. ``seed`` and ``dropout_rate`` keep
-    the reference's signature; a rate above 0 raises until the training
-    kernels land.
+    rows. Returns [..., D2] in x.dtype, differentiable in every argument
+    (on the card through the backward kernels). ``seed`` and
+    ``dropout_rate`` keep the reference's signature; a rate above 0 raises
+    until the dropout kernels land.
     """
     _check(x, w1, b1, w2, b2, dropout_rate)
     if x.device.type == "cpu":
@@ -71,16 +132,8 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"F % {f_mult} == 0, got D={d} F={f} D2={d2}")
     for name, t in (("x", x), ("w1", w1), ("w2", w2)):
         build.check_aligned(name, t)
-    n = x.numel() // d
-    out = torch.empty(*x.shape[:-1], d2, dtype=x.dtype, device=x.device)
-    if n == 0:
-        return out
-    build.check(lib.espnet_fused_ffn_fwd(
-        code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), n, d, f, d2, build.stream_ptr(x)),
-        "fused_ffn")
-    fused_ffn.launches += 1
-    return out
+    return _FusedFfn.apply(x, w1, b1, w2, b2)
 
 
 fused_ffn.launches = 0
+fused_ffn.bwd_launches = 0

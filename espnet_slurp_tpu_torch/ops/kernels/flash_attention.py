@@ -1,12 +1,15 @@
-"""Relative-position flash attention (kernel K3), forward only.
+"""Relative-position flash attention (kernel K3), forward and backward.
 
 Port of espnet_slurp_tpu/ops/pallas/flash_attention.py:rel_flash_attention.
-On CUDA tensors ``rel_flash_attention_fwd`` launches the hand-written kernel
-in ``csrc/flash_attention.cu`` (online softmax over key tiles; the rel-shift
-is a skewed read of the [H, 2T, Dh] position table; key-length and chunk
-masks built in the kernel; no [T, T] or [T, 2T-1] buffer in device memory).
-On CPU tensors it runs ``rel_flash_attention_plain``, the same function in
-plain PyTorch. A CUDA tensor the kernel does not take raises.
+On CUDA tensors ``rel_flash_attention_fwd`` is a ``torch.autograd.Function``
+that launches the hand-written kernels in ``csrc/flash_attention.cu``: the
+forward (online softmax over key tiles; the rel-shift is a skewed read of
+the [H, 2T, Dh] position table; key-length and chunk masks built in the
+kernel; no [T, T] or [T, 2T-1] buffer in device memory) and the backward
+(dq_u / dq_v and dk / dv / dp kernels, dp summed over the batch). On CPU
+tensors it runs ``rel_flash_attention_plain``, the same function in plain
+PyTorch, whose gradients are PyTorch's autograd. A CUDA tensor the kernel
+does not take raises.
 """
 from __future__ import annotations
 
@@ -85,33 +88,11 @@ def _check(q_u, q_v, k, v, p, lengths):
                          "contiguous")
 
 
-def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
-                            chunk_size: int = 0, left_chunks: int = -1
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, H, T, Dh], lse fp32 [B, H, T]) for any T.
-
-    q_u = q + pos_bias_u, q_v = q + pos_bias_v, k, v: [B, H, T, Dh];
-    p: [H, 2T, Dh] position projections for offsets T-1 ... -(T-1) (row
-    2T-1 unused); lengths: int32 [B] valid keys. Padded query rows hold
-    values for a row with the same keys; mask them outside."""
-    _check(q_u, q_v, k, v, p, lengths)
-    if q_u.device.type == "cpu":
-        return rel_flash_attention_plain(q_u, q_v, k, v, p, lengths,
-                                         scale=scale, chunk_size=chunk_size,
-                                         left_chunks=left_chunks)
-    if q_u.device.type != "cuda":
-        raise ValueError(f"rel_flash_attention: unsupported device "
-                         f"{q_u.device}")
+def _launch_fwd(q_u, q_v, k, v, p, lengths, scale, chunk_size, left_chunks):
     b, h, t, dh = q_u.shape
-    if dh % 16:
-        raise ValueError(f"rel_flash_attention kernel: needs Dh % 16 == 0, "
-                         f"got {dh}")
-    for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
-        build.check_aligned(name, x)
-    lib = build.library()
     out = torch.empty_like(q_u)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q_u.device)
-    build.check(lib.espnet_rel_flash_fwd(
+    build.check(build.library().espnet_rel_flash_fwd(
         build.DTYPE_CODES[q_u.dtype], q_u.data_ptr(), q_v.data_ptr(),
         k.data_ptr(), v.data_ptr(), p.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, t, dh, float(scale),
@@ -121,7 +102,74 @@ def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
     return out, lse
 
 
+def _launch_bwd(q_u, q_v, k, v, p, lengths, out, lse, g, scale, chunk_size,
+                left_chunks):
+    b, h, t, dh = q_u.shape
+    # delta = rowsum(dO * out), outside the kernels as in the reference.
+    delta = (g.float() * out.float()).sum(-1).contiguous()
+    grads = [torch.empty_like(q_u) for _ in range(4)]
+    dp = torch.zeros(h, 2 * t, dh, dtype=torch.float32, device=q_u.device)
+    build.check(build.library().espnet_rel_flash_bwd(
+        build.DTYPE_CODES[q_u.dtype], q_u.data_ptr(), q_v.data_ptr(),
+        k.data_ptr(), v.data_ptr(), p.data_ptr(), lengths.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(x.data_ptr() for x in grads), dp.data_ptr(), b, h, t, dh,
+        float(scale), int(chunk_size), int(left_chunks),
+        build.stream_ptr(q_u)), "rel_flash_attention backward")
+    rel_flash_attention_fwd.bwd_launches += 1
+    return (*grads, dp.to(p.dtype))
+
+
+class _RelFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, lengths, scale, chunk_size,
+                left_chunks):
+        out, lse = _launch_fwd(q_u, q_v, k, v, p, lengths, scale,
+                               chunk_size, left_chunks)
+        ctx.save_for_backward(q_u, q_v, k, v, p, lengths, out, lse)
+        ctx.args = (scale, chunk_size, left_chunks)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q_u, q_v, k, v, p, lengths, out, lse = ctx.saved_tensors
+        grads = _launch_bwd(q_u, q_v, k, v, p, lengths, out, lse,
+                            g.to(q_u.dtype).contiguous(), *ctx.args)
+        return (*grads, None, None, None, None)
+
+
+def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
+                            chunk_size: int = 0, left_chunks: int = -1
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, H, T, Dh], lse fp32 [B, H, T]) for any T.
+
+    q_u = q + pos_bias_u, q_v = q + pos_bias_v, k, v: [B, H, T, Dh];
+    p: [H, 2T, Dh] position projections for offsets T-1 ... -(T-1) (row
+    2T-1 unused); lengths: int32 [B] valid keys. Padded query rows hold
+    values for a row with the same keys; mask them outside. ``out`` is
+    differentiable in q_u, q_v, k, v and p (on the card through the
+    backward kernels; ``lse`` is not)."""
+    _check(q_u, q_v, k, v, p, lengths)
+    if q_u.device.type == "cpu":
+        return rel_flash_attention_plain(q_u, q_v, k, v, p, lengths,
+                                         scale=scale, chunk_size=chunk_size,
+                                         left_chunks=left_chunks)
+    if q_u.device.type != "cuda":
+        raise ValueError(f"rel_flash_attention: unsupported device "
+                         f"{q_u.device}")
+    dh = q_u.shape[-1]
+    if dh % 16:
+        raise ValueError(f"rel_flash_attention kernel: needs Dh % 16 == 0, "
+                         f"got {dh}")
+    for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
+        build.check_aligned(name, x)
+    return _RelFlash.apply(q_u, q_v, k, v, p, lengths, float(scale),
+                           int(chunk_size), int(left_chunks))
+
+
 rel_flash_attention_fwd.launches = 0
+rel_flash_attention_fwd.bwd_launches = 0
 
 
 def rel_flash_attention(q_u, q_v, k, v, p, lengths, seed=None, *,
@@ -129,10 +177,12 @@ def rel_flash_attention(q_u, q_v, k, v, p, lengths, seed=None, *,
                         chunk_size: int = 0, left_chunks: int = -1
                         ) -> torch.Tensor:
     """The reference's signature: returns out [B, H, T, Dh] only. A dropout
-    rate above 0 raises until the training kernels land."""
+    rate above 0 raises until the dropout kernels land."""
     if dropout_rate > 0.0:
-        raise NotImplementedError("rel_flash_attention: dropout needs the "
-                                  "training kernels (not ported yet)")
+        raise NotImplementedError(
+            "rel_flash_attention: dropout in the kernel (Philox, forward and "
+            "backward) comes with the next training slice; train at "
+            "dropout_rate 0")
     return rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, scale=scale,
                                    chunk_size=chunk_size,
                                    left_chunks=left_chunks)[0]

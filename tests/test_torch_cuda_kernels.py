@@ -1,13 +1,16 @@
 """The port's CUDA kernels against their plain versions, on the card, at
-edge shapes the serving path's smoke run does not reach: a single row,
-ragged N, narrow widths, T shorter than a tile or just past one, Dh 32 to
-128, key lengths of 0 and below (Speech2Text's padding rows), chunk masks.
+edge shapes the smoke run does not reach: a single row, ragged N, narrow
+widths, T shorter than a tile or just past one, Dh 32 to 128, key lengths
+of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
+passes and the CTC kernels also U = 0, U > T and duplicate labels in ext.
+Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
 conftest imports JAX, which the card's machine lacks, so run there with:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 Tolerances are relative to max |ref|: 2e-2 in bf16 (rounding of the hidden
-or the probabilities before the second product) and 1e-4 in fp32.
+or the probabilities before the second product) and 1e-4 in fp32 (the
+lattice is fp32 only).
 """
 import pytest
 import torch
@@ -27,10 +30,10 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _rel(out, ref):
+def _rel(out, ref, floor=1e-30):
     ref = ref.float()
     return ((out.float() - ref).abs().max() / ref.abs().max().clamp_min(
-        1e-30)).item()
+        floor)).item()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -95,3 +98,135 @@ def test_rel_flash_attention_refuses_what_it_cannot_take(gen):
     with pytest.raises(TypeError):
         fa.rel_flash_attention(q, q, q, q.half(), r(2, 16, 32), lengths,
                                scale=1.0)
+
+
+# ---- Backward passes and the CTC kernels (K1, K4) ---------------------------
+# Each kernel's gradients are held to the plain version's autograd gradients
+# on the same inputs, every output and gradient within TOL of its max |ref|,
+# with max |ref| floored at 1e-3: some gradients are exactly 0 in the
+# reference (T = 1: the score gradient of a softmax over one key, where
+# dP - delta cancels) and come out at rounding level (~3e-8) from the
+# kernel, which sums dP and delta in another order.
+
+
+def _grads(fn, args, cot, n_diff=None):
+    """Outputs and the gradients of <outputs, cot> w.r.t. the float args
+    (the first ``n_diff`` of them when given)."""
+    n_diff = len(args) if n_diff is None else n_diff
+    leaves = [a.detach().clone().requires_grad_(
+        a.is_floating_point() and i < n_diff) for i, a in enumerate(args)]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    (out.float() * cot).sum().backward()
+    return out.detach(), [a.grad for a in leaves if a.requires_grad]
+
+
+def _check_grads(kernel_fn, plain_fn, args, cot, tol, names):
+    out, grads = _grads(kernel_fn, args, cot)
+    ref, ref_grads = _grads(plain_fn, args, cot)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= tol, "output"
+    for name, a, r in zip(names, grads, ref_grads):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=1e-3) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,f,d2", [(1, 256, 1024, 256), (33, 64, 128, 32),
+                                      (100, 128, 256, 128),
+                                      (1000, 256, 1024, 256)])
+def test_fused_ffn_backward(gen, dtype, n, d, f, d2):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    args = (r(n, d).to(dtype), (r(d, f) * d ** -0.5).to(dtype), r(f) * 0.1,
+            (r(f, d2) * f ** -0.5).to(dtype), r(d2) * 0.1)
+    before = ffn.fused_ffn.bwd_launches
+    _check_grads(ffn.fused_ffn, ffn.fused_ffn_plain, args, r(n, d2),
+                 TOL[dtype], ("dx", "dw1", "db1", "dw2", "db2"))
+    assert ffn.fused_ffn.bwd_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,dh", [(1, 64), (17, 32), (65, 64), (130, 128)])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 4), (5, 0)])
+def test_rel_flash_attention_backward(gen, dtype, t, dh, chunk):
+    b, h = 4, 2
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
+    lengths = torch.tensor([t, max(t - 7, 1), 0, -1], dtype=torch.int32,
+                           device="cuda")
+    p = r(h, 2 * t, dh)
+    p[:, -1] = 0.0
+    args = [r(b, h, t, dh).to(dtype) for _ in range(4)] + [p.to(dtype),
+                                                           lengths]
+    cs, lc = chunk
+    kw = dict(scale=dh ** -0.5, chunk_size=cs, left_chunks=lc)
+    before = fa.rel_flash_attention_fwd.bwd_launches
+    _check_grads(lambda *a: fa.rel_flash_attention_fwd(*a, **kw),
+                 lambda *a: fa.rel_flash_attention_plain(*a, **kw), args,
+                 r(b, h, t, dh), TOL[dtype],
+                 ("dq_u", "dq_v", "dk", "dv", "dp"))
+    assert fa.rel_flash_attention_fwd.bwd_launches == before + 1
+
+
+def _lattice_case(gen, t, u_lens, v=9):
+    """Log-prob emissions of label sequences with repeats, U = 0 and U > T
+    rows among them."""
+    b, u = len(u_lens), max(max(u_lens), 1)
+    lp = torch.log_softmax(torch.randn(b, t, v, generator=gen,
+                                       device="cuda"), -1)
+    labels = torch.randint(1, v, (b, u), generator=gen, device="cuda")
+    labels[:, 1::3] = labels[:, ::3][:, :labels[:, 1::3].shape[1]]
+    ulen = torch.tensor(u_lens, device="cuda")
+    tlen = torch.tensor([max(t - 3 * i, 1) for i in range(b)], device="cuda")
+    from espnet_slurp_tpu_torch.ops.kernels.ctc import (extend_labels,
+                                                        mask_emit)
+    ext, skip, smax, last = extend_labels(labels, ulen)
+    emit = mask_emit(lp.gather(2, ext[:, None, :].expand(b, t, -1)), smax)
+    return emit.contiguous(), skip, tlen.to(torch.int32), last
+
+
+@pytest.mark.parametrize("t", [1, 17, 65, 130])
+@pytest.mark.parametrize("u_lens", [(0,), (3, 0, 5, 40), (1, 2, 7)])
+def test_ctc_lattice(gen, t, u_lens):
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    emit, skip, tlen, last = _lattice_case(gen, t, u_lens)
+    # Rows whose likelihood saturates get g = 0, as zero_infinity gives them.
+    ref_loss = kctc.ctc_lattice_plain(emit, skip, tlen, last)
+    cot = torch.where(ref_loss < 1e29, torch.rand(ref_loss.shape,
+                                                  generator=gen,
+                                                  device="cuda"), 0.0)
+    before = (kctc.ctc_lattice.launches, kctc.ctc_lattice.bwd_launches)
+    args = (emit, skip, tlen, last)
+    out, (g,) = _grads(kctc.ctc_lattice, args, cot, n_diff=1)
+    _, (g_ref,) = _grads(kctc.ctc_lattice_plain, args, cot, n_diff=1)
+    torch.cuda.synchronize()
+    assert (kctc.ctc_lattice.launches, kctc.ctc_lattice.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    ok = ref_loss < 1e29
+    assert torch.equal(ok, out < 1e29)
+    assert _rel(out[ok], ref_loss[ok]) <= 1e-4 if ok.any() else True
+    assert torch.isfinite(g).all()
+    assert torch.equal(g[~ok], torch.zeros_like(g[~ok]))
+    assert _rel(g, g_ref) <= 1e-4 if g_ref.abs().max() > 0 else \
+        torch.equal(g, g_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,d,v", [(1, 128, 77), (17, 256, 130),
+                                   (65, 128, 5000), (130, 256, 333)])
+def test_fused_ctc_head(gen, dtype, t, d, v):
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    b, s = 3, 2 * 9 + 1
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    ext = torch.randint(0, v, (b, s), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ext[:, ::2] = 0  # blanks: one label, many states
+    ext[:, 3] = ext[:, 5]  # a repeated label
+    args = ((r(b, t, d) * 0.5).to(dtype), (r(v, d) * d ** -0.5).to(dtype),
+            r(v) * 0.1, ext)
+    before = (kh.fused_ctc_head_emit.launches,
+              kh.fused_ctc_head_emit.bwd_launches)
+    _check_grads(kh.fused_ctc_head_emit, kh.fused_ctc_head_emit_plain, args,
+                 r(b, t, s), TOL[dtype], ("dhs", "dw", "db"))
+    assert (kh.fused_ctc_head_emit.launches,
+            kh.fused_ctc_head_emit.bwd_launches) == (before[0] + 1,
+                                                     before[1] + 1)

@@ -119,3 +119,63 @@ def test_abs_mha_matches_flax():
         out = port(t(q), t(kv), t(kv), t(bias))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (64, 1)])
+def test_plain_gradients_match_pallas_interpret(data, chunk):
+    """dq_u, dq_v, dk, dv and dp of the plain version's autograd against
+    jax.grad of the Pallas kernel (its _dkv_kernel and _dq_kernel) in
+    interpret mode, T = 256, ragged lengths, the cotangent on valid query
+    rows only; within 1e-4 of max |ref| as in
+    tests/test_flash_attention.py."""
+    cs, lc = chunk
+    cot = _valid_rows(np.random.RandomState(9).randn(B, H, T, DH)
+                      .astype(np.float32))
+    ref = jax.grad(
+        lambda *a: jnp.sum(jax_rel_flash(*a, jnp.asarray(LENGTHS),
+                                         scale=SCALE, chunk_size=cs,
+                                         left_chunks=lc, interpret=True)
+                           * cot), argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, data))
+    leaves = [t(a).requires_grad_(True) for a in data]
+    out = rel_flash_attention(*leaves, t(LENGTHS), scale=SCALE,
+                              chunk_size=cs, left_chunks=lc)
+    (out * t(cot)).sum().backward()
+    for name, a, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), leaves, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(a.grad.numpy(), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=name)
+
+
+def test_fully_masked_rows_follow_autograd_not_the_kernel():
+    """Documented divergence (ROADMAP.md queue 3): for a query row with no
+    visible key the reference's backward takes exp(s - lse) = 1 per key
+    (lse rounds to NEG) and keeps the masked scores' gradient, so its dv
+    is T times the forward's uniform weights and dq/dk are non-zero. The
+    port gives the plain version's autograd: uniform 1/T, no score
+    gradient. Rows with visible keys agree to 1e-4 of max |ref|."""
+    b, h, tl, dh = 2, 1, 128, 32
+    rng = np.random.RandomState(0)
+    f = lambda *s: rng.randn(*s).astype(np.float32) * 0.3
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = np.asarray([tl, 0], np.int32)
+    cot = f(b, h, tl, dh)
+    ref = jax.grad(lambda *a: jnp.sum(jax_rel_flash(
+        *a, jnp.asarray(lens), scale=dh ** -0.5, interpret=True) * cot),
+        argnums=(0, 2, 3))(*map(jnp.asarray, args))
+    leaves = [t(a).requires_grad_(True) for a in args]
+    out, _ = rel_flash_attention_plain(*leaves, t(lens), scale=dh ** -0.5)
+    (out * t(cot)).sum().backward()
+    for name, a, r in zip(("dq_u", "dk", "dv"),
+                          (leaves[0], leaves[2], leaves[3]), ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(a.grad[0].numpy(), r[0], rtol=0,
+                                   atol=1e-4 * np.abs(r[0]).max(),
+                                   err_msg=name)
+    assert float(leaves[0].grad[1].abs().max()) == 0.0
+    assert float(leaves[2].grad[1].abs().max()) == 0.0
+    assert np.abs(np.asarray(ref[0])[1]).max() > 0.1
+    dv = leaves[3].grad[1].numpy()
+    np.testing.assert_allclose(np.asarray(ref[2])[1], tl * dv, rtol=1e-4,
+                               atol=1e-5)
+

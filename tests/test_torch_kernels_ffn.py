@@ -80,3 +80,19 @@ def test_rejects_bad_arguments():
         fused_ffn(x, w1, b1.double(), w2, b2)
     with pytest.raises(ValueError):
         fused_ffn(x.transpose(0, 1), w1, b1, w2, b2)
+
+
+def test_plain_gradients_match_pallas_interpret():
+    """dx, dW1, db1, dW2, db2 of the plain version's autograd against
+    jax.grad of the Pallas kernel (its _bwd_kernel) in interpret mode,
+    N = 256 rows, fp32, rtol/atol 5e-4 as in tests/test_pallas_ffn.py."""
+    args = _inputs(seed=4)
+    cot = np.random.RandomState(5).randn(B, T, D).astype(np.float32)
+    ref = jax.grad(lambda *a: jnp.sum(jax_fused_ffn(*a, interpret=True)
+                                      * cot), argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, args))
+    leaves = [t(a).requires_grad_(True) for a in args]
+    (fused_ffn(*leaves) * t(cot)).sum().backward()
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), leaves, ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(r), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)

@@ -16,10 +16,12 @@ from espnet_slurp_tpu_torch.utils.params import flax_to_torch
 
 def tiny_port_cfg(**kw) -> ASRConfig:
     """The port's copy of __graft_entry__._flagship_cfg(tiny=True)."""
-    return ASRConfig(
+    base = dict(
         vocab_size=64, d_model=32, n_head=2, d_ff=64, num_encoder_blocks=2,
         num_decoder_blocks=1, decoder_d_ff=64, kernel_size=7,
-        frontend=FrontendConfig(n_fft=128, hop_length=64, n_mels=16), **kw)
+        dropout_rate=0.0,
+        frontend=FrontendConfig(n_fft=128, hop_length=64, n_mels=16))
+    return ASRConfig(**{**base, **kw})
 
 
 def tiny_jax_model(**kw):
