@@ -46,6 +46,32 @@ or the port's package is not beside it. Phases, each of which fails the run:
    gradient within 1e-3 of its max |ref| (floored at 1e-4 of the largest
    gradient entry of the model: the key projections' biases have gradient
    0 in exact arithmetic and hold only rounding noise).
+7. Kernels at the shapes of the Conformer-transducer train step
+   (conf/train_transducer.yaml: B 32 utterances of 15 s, T' 468, U 64):
+   K2 and K3 both ways as in phase 4 (untimed), K5 RNN-T lattice (fp32
+   tables [32, 468, 65], ragged T' and U) and K6 fused conv module
+   (x [32, 468, 256], k 31, SAME with ragged lengths in bf16 and fp32, and
+   one causal case), each direction against its plain version's outputs
+   and autograd gradients (bf16 within 2e-2, fp32 within 1e-4 of max
+   |ref|); K5 and K6 then timed as in phase 4 beside the plain version,
+   the bound and (K6) the eager ConvModule it replaces. Last, K6 forward
+   in bf16 at the greedy decode's shape (x [8, T', 256], 468 valid frames
+   each) against its plain version, within 2e-2.
+8. The transducer train slice: transducer_flagship_config() with
+   fused_conv (fp32 parameters, bf16 compute, dropout 0, SpecAug on, seeded
+   random weights), Adam at constant lr 1e-3 (the yaml's warmuplr with
+   15k warm-up steps would not move the loss in 5 steps), 32 synthetic
+   15 s utterances with U = 64: one warm-up step, then 5 timed steps. Every
+   loss finite, nothing skipped, the last loss below the first, and per step
+   exactly 24 K2, 12 K3 and 12 K6 launches each way, 1 K5 and 1 K1 each way
+   and no K4.
+9. One fp32 transducer forward + backward (fused_conv, SpecAug off) of the
+   same weights on phase 6's two short utterances, CPU (plain versions)
+   against the card (kernels): loss within 1e-4 relative, every gradient
+   within 1e-3 of its max |ref| with phase 6's floor.
+10. Greedy decode: Speech2TextTransducer (fused_conv) decodes the 8 x 15 s
+   serving traffic on the card; its RTF is printed, and the encode must
+   launch 24 K2, 12 K3 and 12 K6.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -66,6 +92,9 @@ N_UTT, UTT_SECONDS, FS = 8, 15, 16000
 BEAM, CTC_WEIGHT, MAX_LEN = 10, 0.3, 96  # pre-beam: Speech2Text's 30
 # Traffic of the flagship train step, bench.py:43-51.
 TRAIN_B, TRAIN_SECONDS, TRAIN_U, TRAIN_STEPS = 64, 15, 64, 5
+# Traffic of the transducer train step (the shape at which PERF_NOTES.md:
+# 116-123 timed the reference's transducer): 32 x 15 s, U 64.
+TR_B, TR_U = 32, 64
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3, and
 # fp32 outside the tensor cores (the CTC lattice, whose operands are fp32).
 PEAK_BF16_FLOPS = 989e12
@@ -341,6 +370,60 @@ def hold(torch, what, out, ref, grads, ref_grads, names, tol):
     return err_out, max(e for e, _ in errs)
 
 
+def check_ffn_bwd(torch, ffn, n, d, f, r):
+    """K2 forward and backward against its plain version in bf16 and fp32
+    at N rows; returns the bf16 inputs and cotangent, the bf16 max abs
+    gradient error and the plain version's backward on them."""
+    base = (r(n, d), r(d, f) * d ** -0.5, r(f) * 0.1, r(f, d) * f ** -0.5,
+            r(d) * 0.1)
+    cot = r(n, d)
+    for dt in (torch.float32, torch.bfloat16):
+        args = (base[0].to(dt), base[1].to(dt), base[2], base[3].to(dt),
+                base[4])
+        o, g, _ = grad_case(torch, ffn.fused_ffn, args, cot.to(dt), 5)
+        ro, rg, plain_bwd = grad_case(torch, ffn.fused_ffn_plain, args,
+                                      cot.to(dt), 5)
+        name = str(dt).split(".")[-1]
+        _, err = hold(torch, f"K2 fused_ffn backward {name} N={n}", o, ro, g,
+                      rg, ("dx", "dw1", "db1", "dw2", "db2"), TOL[name])
+        del o, g, ro, rg
+    return args, cot.to(dt), err, plain_bwd
+
+
+def check_attention_bwd(torch, fa, b, h, t, dh, r):
+    """K3 forward and backward (unchunked and chunk 16 / left 4, ragged
+    lengths) against its plain version in bf16 and fp32; returns the
+    unchunked bf16 inputs and cotangent, its max abs gradient error and the
+    plain version's backward on them."""
+    lengths = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                           device="cuda")
+    qkv = [r(b, h, t, dh) * 0.5 for _ in range(4)]
+    p = r(h, 2 * t, dh) * 0.5
+    p[:, -1] = 0.0
+    cot = r(b, h, t, dh)
+    scale = dh ** -0.5
+    kept = None
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        args = [x.to(dt) for x in qkv] + [p.to(dt), lengths]
+        for cs, lc in ((16, 4), (0, -1)):
+            kw = dict(scale=scale, chunk_size=cs, left_chunks=lc)
+            o, g, _ = grad_case(
+                torch, lambda *a: fa.rel_flash_attention_fwd(*a, **kw), args,
+                cot.to(dt), 5)
+            ro, rg, plain_bwd = grad_case(
+                torch, lambda *a: fa.rel_flash_attention_plain(*a, **kw),
+                args, cot.to(dt), 5)
+            _, err = hold(torch, f"K3 rel_flash_attention backward {name} "
+                          f"B={b} T={t} chunk=({cs},{lc})", o, ro, g, rg,
+                          ("dq_u", "dq_v", "dk", "dv", "dp"), TOL[name])
+            del o, g, ro, rg
+            if dt == torch.bfloat16 and cs == 0:
+                kept = (args, cot.to(dt), err, plain_bwd)
+            del plain_bwd
+    return kept
+
+
 def train_kernel_phase(torch, t_prime):
     """K2 and K3 backward, K4 and K1 both ways, at the flagship train step's
     shapes; returns the kernels-line entries."""
@@ -360,94 +443,56 @@ def train_kernel_phase(torch, t_prime):
     out = []
 
     # K2 backward: N = 64 x T' rows.
-    base = (r(n, d), r(d, f) * d ** -0.5, r(f) * 0.1, r(f, d) * f ** -0.5,
-            r(d) * 0.1)
-    cot = r(n, d)
-    for dt in (torch.bfloat16, torch.float32):
-        args = (base[0].to(dt), base[1].to(dt), base[2], base[3].to(dt),
-                base[4])
-        o, g, _ = grad_case(torch, ffn.fused_ffn, args, cot.to(dt), 5)
-        ro, rg, plain_bwd = grad_case(torch, ffn.fused_ffn_plain, args,
-                                      cot.to(dt), 5)
-        name = str(dt).split(".")[-1]
-        _, err = hold(torch, f"K2 fused_ffn backward {name} N={n}", o, ro, g,
-                      rg, ("dx", "dw1", "db1", "dw2", "db2"), TOL[name])
-        if dt == torch.bfloat16:
-            x, w1, b1, w2, _ = args
-            gb = cot.to(dt)
-            ffn_fwd_ms = median_ms(torch, lambda: ffn._launch_fwd(*args))
-            ms = median_ms(torch, lambda: ffn._launch_bwd(x, w1, b1, w2, gb))
-            plain_ms = median_ms(torch, plain_bwd)
-            # in: x, g, W1, W2, b1; out: dx, dW1, dW2, db1, db2
-            bnd = bound(10.0 * n * d * f,
-                        2 * (3 * n * d + 4 * d * f) + 4 * (2 * f + d))
-            out.append(dict(
-                name="fused_ffn_bwd", route="cuda",
-                source="espnet_slurp_tpu_torch/csrc/ffn.cu",
-                replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None))
-    del base, cot, o, g, ro, rg, plain_bwd
+    args, gb, err, plain_bwd = check_ffn_bwd(torch, ffn, n, d, f, r)
+    x, w1, b1, w2, _ = args
+    ffn_fwd_ms = median_ms(torch, lambda: ffn._launch_fwd(*args))
+    ms = median_ms(torch, lambda: ffn._launch_bwd(x, w1, b1, w2, gb))
+    plain_ms = median_ms(torch, plain_bwd)
+    # in: x, g, W1, W2, b1; out: dx, dW1, dW2, db1, db2
+    bnd = bound(10.0 * n * d * f,
+                2 * (3 * n * d + 4 * d * f) + 4 * (2 * f + d))
+    out.append(dict(
+        name="fused_ffn_bwd", route="cuda",
+        source="espnet_slurp_tpu_torch/csrc/ffn.cu",
+        replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None))
+    del args, gb, x, w1, b1, w2, plain_bwd
 
     # K3 backward: B 64, H 4, T', Dh 64, ragged lengths.
-    lengths = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
-                           device="cuda")
-    qkv = [r(b, h, t, dh) * 0.5 for _ in range(4)]
-    p = r(h, 2 * t, dh) * 0.5
-    p[:, -1] = 0.0
-    cot = r(b, h, t, dh)
+    args, gb, err, plain_bwd = check_attention_bwd(torch, fa, b, h, t, dh, r)
     scale = dh ** -0.5
-    for dt in (torch.bfloat16, torch.float32):
-        name = str(dt).split(".")[-1]
-        args = [x.to(dt) for x in qkv] + [p.to(dt), lengths]
-        for cs, lc in ((0, -1), (16, 4)):
-            kw = dict(scale=scale, chunk_size=cs, left_chunks=lc)
-            o, g, _ = grad_case(
-                torch, lambda *a: fa.rel_flash_attention_fwd(*a, **kw), args,
-                cot.to(dt), 5)
-            ro, rg, plain_bwd = grad_case(
-                torch, lambda *a: fa.rel_flash_attention_plain(*a, **kw),
-                args, cot.to(dt), 5)
-            _, err = hold(torch, f"K3 rel_flash_attention backward {name} "
-                          f"B={b} T={t} chunk=({cs},{lc})", o, ro, g, rg,
-                          ("dq_u", "dq_v", "dk", "dv", "dp"), TOL[name])
-            if dt != torch.bfloat16 or cs != 0:
-                del plain_bwd
-                continue
-            out_k, lse = fa._launch_fwd(*args, scale, 0, -1)
-            gb = cot.to(dt)
-            att_fwd_ms = median_ms(torch, lambda: fa._launch_fwd(
-                *args, scale, 0, -1))
-            ms = median_ms(torch, lambda: fa._launch_bwd(
-                *args, out_k, lse, gb, scale, 0, -1))
-            plain_ms = median_ms(torch, plain_bwd)
-            del plain_bwd
-            q_u, q_v, k, vv, pp, _ = args
-            raw = q_v.float() @ pp[:, :2 * t - 1].float().transpose(-1, -2)
-            bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(
-                b, h, t, t))
-            allowed = fa.allowed_mask(t, lengths)
-            bias = torch.where(allowed, bd * scale, fa.NEG).to(dt)
-            del raw, bd
-            leaves = [x.detach().requires_grad_(True) for x in (q_u, k, vv)]
-            sd = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, attn_mask=bias, scale=scale)
-            lib_ms = median_ms(torch, lambda: torch.autograd.grad(
-                sd, leaves, gb, retain_graph=True))
-            del sd, leaves, bias
-            pairs = float(allowed.sum().item()) * h
-            bnd = bound(16.0 * pairs * dh,
-                        2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
-                        + 2 * (4 * b * h * t * dh + 2 * h * t * dh))
-            out.append(dict(
-                name="rel_flash_attention_bwd", route="cuda",
-                source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
-                replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:379",
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
-                library_note="SDPA backward over a constant rel-shifted bias; "
-                             "computes no dp"))
-    del qkv, p, cot, o, g, ro, rg
+    out_k, lse = fa._launch_fwd(*args, scale, 0, -1)
+    att_fwd_ms = median_ms(torch, lambda: fa._launch_fwd(*args, scale, 0, -1))
+    ms = median_ms(torch, lambda: fa._launch_bwd(
+        *args, out_k, lse, gb, scale, 0, -1))
+    plain_ms = median_ms(torch, plain_bwd)
+    del plain_bwd
+    q_u, q_v, k, vv, pp, lengths = args
+    raw = q_v.float() @ pp[:, :2 * t - 1].float().transpose(-1, -2)
+    bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(b, h, t, t))
+    allowed = fa.allowed_mask(t, lengths)
+    bias = torch.where(allowed, bd * scale, fa.NEG).to(q_u.dtype)
+    del raw, bd
+    leaves = [x.detach().requires_grad_(True) for x in (q_u, k, vv)]
+    sd = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=bias, scale=scale)
+    lib_ms = median_ms(torch, lambda: torch.autograd.grad(
+        sd, leaves, gb, retain_graph=True))
+    del sd, leaves, bias
+    pairs = float(allowed.sum().item()) * h
+    bnd = bound(16.0 * pairs * dh,
+                2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
+                + 2 * (4 * b * h * t * dh + 2 * h * t * dh))
+    out.append(dict(
+        name="rel_flash_attention_bwd", route="cuda",
+        source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
+        replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:379",
+        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
+        library_note="SDPA backward over a constant rel-shifted bias; "
+                     "computes no dp"))
+    del args, gb, q_u, q_v, k, vv, pp, out_k, lse
 
     # K4: hs [B, T', D], W [V, D], labels U = 64 with blanks between.
     labels = torch.randint(1, v - 1, (b, u), generator=gen, device="cuda")
@@ -562,6 +607,10 @@ def train_batch(torch, rng, b, n_samples, u, vocab, device):
 
 
 COUNTED = {  # kernels-line name -> (wrapper, counter attribute), per step
+    "rnnt_lattice": ("kt", "rnnt_lattice", "launches"),
+    "rnnt_lattice_bwd": ("kt", "rnnt_lattice", "bwd_launches"),
+    "fused_conv_module": ("kc", "fused_conv_module", "launches"),
+    "fused_conv_module_bwd": ("kc", "fused_conv_module", "bwd_launches"),
     "fused_ffn": ("ffn", "fused_ffn", "launches"),
     "fused_ffn_bwd": ("ffn", "fused_ffn", "bwd_launches"),
     "rel_flash_attention": ("fa", "rel_flash_attention_fwd", "launches"),
@@ -574,38 +623,47 @@ COUNTED = {  # kernels-line name -> (wrapper, counter attribute), per step
 }
 
 
-def train_phase(torch, card):
-    """The flagship train step on the bench traffic; returns the launch
-    counts of the timed steps."""
-    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
-                                                          flagship_config)
+def kernel_modules():
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
     from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
     from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
     from espnet_slurp_tpu_torch.ops.kernels import ffn
     from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+    from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
+    return {"ffn": ffn, "fa": fa, "kh": kh, "kctc": kctc, "kt": kt, "kc": kc}
+
+
+def zero_counts(names=COUNTED):
+    mods = kernel_modules()
+    for m, f, a in (COUNTED[n] for n in names):
+        setattr(getattr(mods[m], f), a, 0)
+
+
+def read_counts(names=COUNTED):
+    mods = kernel_modules()
+    return {n: getattr(getattr(mods[COUNTED[n][0]], COUNTED[n][1]),
+                       COUNTED[n][2]) for n in names}
+
+
+def run_train_steps(torch, what, model, batch, card, audio_s):
+    """One warm-up step, then TRAIN_STEPS timed ones with every launch
+    count zeroed just before and read just after; checks finite losses,
+    nothing skipped and a falling loss. Returns (launches, step s, stats)."""
     from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
     from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
-    from espnet_slurp_tpu_torch.utils.params import init_random_
 
-    mods = {"ffn": ffn, "fa": fa, "kh": kh, "kctc": kctc}
-    counter = lambda m, f, a: getattr(getattr(mods[m], f), a)
-    cfg = flagship_config()
-    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
     if not all(p.dtype == torch.float32 for p in model.parameters()):
         raise AssertionError("the bf16 model must keep fp32 parameters")
     tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
     state = TrainState.create(model, tx, seed=0)
     step = make_train_step(model, tx)
-    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
-                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, st = step(state, batch)  # warm-up: cuBLAS/cuDNN, the allocator
     first_loss = float(st["loss"])
     warm_s = time.perf_counter() - t0
 
-    for m, f, a in COUNTED.values():
-        setattr(getattr(mods[m], f), a, 0)
+    zero_counts()
     losses, norms, skipped, times = [], [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -614,32 +672,385 @@ def train_phase(torch, card):
         times.append(time.perf_counter() - t0)
         norms.append(float(st["grad_norm"]))
         skipped.append(float(st["skipped"]))
-    launches = {k: counter(*v) for k, v in COUNTED.items()}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = float(np.median(times))
-    audio = TRAIN_B * TRAIN_SECONDS
-    print(f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, U={TRAIN_U}, "
-          f"bf16 compute / fp32 parameters, Adam lr 1e-3: step "
+    print(f"{what}: bf16 compute / fp32 parameters, Adam lr 1e-3: step "
           f"{step_s:.4f} s (median of {TRAIN_STEPS}; steps {times}; warm-up "
-          f"{warm_s:.3f} s), {audio / step_s:.1f} audio-s/s, peak memory "
+          f"{warm_s:.3f} s), {audio_s / step_s:.1f} audio-s/s, peak memory "
           f"{peak_gb:.2f} GB on {card}")
-    print(f"train: losses {[first_loss] + losses}, grad norms {norms}, "
-          f"skipped {skipped}, loss_ctc {float(st['loss_ctc']):.4f}, "
-          f"loss_att {float(st['loss_att']):.4f}")
-    print(f"train: launches over {TRAIN_STEPS} steps {launches}")
-    n_blocks = cfg.num_encoder_blocks
-    per_step = {"fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
-                "rel_flash_attention": n_blocks,
-                "rel_flash_attention_bwd": n_blocks,
-                "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
-                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
-    if launches != {k: TRAIN_STEPS * c for k, c in per_step.items()}:
-        raise AssertionError(f"train launches {launches}, expected "
-                             f"{per_step} per step")
+    extra = ", ".join(f"{k} {float(v):.4f}" for k, v in st.items()
+                      if k.startswith("loss_"))
+    print(f"{what}: losses {[first_loss] + losses}, grad norms {norms}, "
+          f"skipped {skipped}, {extra}")
+    print(f"{what}: launches over {TRAIN_STEPS} steps {launches}")
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and losses[-1] < first_loss):
-        raise AssertionError("train: non-finite, skipped or not falling")
+        raise AssertionError(f"{what}: non-finite, skipped or not falling")
     return launches, step_s
+
+
+def check_per_step(what, launches, per_step):
+    """Every counted kernel launched exactly TRAIN_STEPS x per_step times
+    (0 for those not named)."""
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in COUNTED}
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, expected "
+                             f"{per_step} per step")
+
+
+def train_phase(torch, card):
+    """The flagship train step on the bench traffic; returns the launch
+    counts of the timed steps."""
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = flagship_config()
+    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
+    launches, step_s = run_train_steps(
+        torch, f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, "
+        f"U={TRAIN_U}", model, batch, card, TRAIN_B * TRAIN_SECONDS)
+    n_blocks = cfg.num_encoder_blocks
+    check_per_step("train", launches, {
+        "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+        "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
+        "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+        "ctc_lattice": 1, "ctc_lattice_bwd": 1})
+    return launches, step_s
+
+
+def transducer_config(**asr):
+    from espnet_slurp_tpu_torch.models.transducer import \
+        transducer_flagship_config
+    cfg = transducer_flagship_config()
+    return dataclasses.replace(cfg, asr=dataclasses.replace(
+        cfg.asr, fused_conv=True, **asr))
+
+
+def transducer_kernel_phase(torch, t_prime, t_serve):
+    """K2 and K3 both ways, and K5 and K6 both ways, at the transducer
+    step's shapes (T' t_prime), then K6 forward at the greedy decode's
+    (N_UTT x t_serve, lengths t_prime); returns the kernels-line entries."""
+    from espnet_slurp_tpu_torch.models.conformer import ConvModule
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+    from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    cfg = transducer_config().asr
+    b, t, u1, d, k = TR_B, t_prime, TR_U + 1, cfg.d_model, cfg.kernel_size
+    out = []
+
+    # K2 and K3 at B 32 (the flagship step's checks are at B 64).
+    check_ffn_bwd(torch, ffn, b * t, d, cfg.d_ff, r)
+    check_attention_bwd(torch, fa, b, cfg.n_head, t, d // cfg.n_head, r)
+
+    # K5: tables of log-softmaxed logits, ragged T' and U, fp32 only.
+    lp = torch.log_softmax(r(b, t, u1, 8) * 2.0, -1)
+    blank = lp[..., 0].contiguous()
+    emit = lp[..., 1].clone()
+    emit[..., -1] = kt.NEG
+    del lp
+    tlen = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    ulen = torch.tensor([TR_U - (i % 5) for i in range(b)],
+                        dtype=torch.int32, device="cuda")
+    cot = torch.rand(b, generator=gen, device="cuda")
+    largs = (blank, emit, tlen, ulen)
+    o, g, _ = grad_case(torch, kt.rnnt_lattice, largs, cot, 2)
+    ro, rg, plain_bwd = grad_case(torch, kt.rnnt_lattice_plain, largs, cot, 2)
+    err_o, err_g = hold(torch, f"K5 rnnt_lattice float32 B={b} T={t} U1={u1}",
+                        o, ro, g, rg, ("dblank", "demit"), TOL["float32"])
+    _, alpha = kt._launch_fwd(*largs)
+    fwd_ms = median_ms(torch, lambda: kt._launch_fwd(*largs))
+    bwd_ms = median_ms(torch, lambda: kt._launch_bwd(*largs, alpha, cot))
+    plain_fwd_ms = median_ms(torch, lambda: kt.rnnt_lattice_plain(*largs),
+                             warmup=1, reps=5)
+    plain_bwd_ms = median_ms(torch, plain_bwd, warmup=1, reps=5)
+    del plain_bwd, alpha
+    # Compulsory bytes only (the fp64 alpha residual is left out, as for
+    # K1): forward both tables, tlen, ulen in and the loss out; backward
+    # the same inputs and g in, dblank and demit out.
+    table = 4 * b * t * u1
+    states = float((tlen.long() * u1).sum().item())
+    fbound = bound(10.0 * states, 2 * table + 8 * b + 4 * b, PEAK_FP32_FLOPS)
+    bbound = bound(14.0 * states, 2 * table + 12 * b + 2 * table,
+                   PEAK_FP32_FLOPS)
+    chain = t + u1 - 1
+    print(f"K5 rnnt_lattice: forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} "
+          f"ms over a chain of {chain} dependent anti-diagonal steps "
+          f"({1e3 * fwd_ms / chain:.3f} / {1e3 * bwd_ms / chain:.3f} us a "
+          f"step); bytes bound {fbound[0]:.4f} / {bbound[0]:.4f} ms")
+    common = dict(route="cuda",
+                  source="espnet_slurp_tpu_torch/csrc/transducer.cu",
+                  launches=None, library_ms=None,
+                  library_note="torch has no RNN-T loss of its own",
+                  dependency_chain_steps=chain)
+    out.append(dict(name="rnnt_lattice",
+                    replaces="espnet_slurp_tpu/ops/pallas/transducer.py:134",
+                    max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                    bound_ms=fbound[0], bound_by=fbound[1], **common))
+    out.append(dict(name="rnnt_lattice_bwd",
+                    replaces="espnet_slurp_tpu/ops/pallas/transducer.py:183",
+                    max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                    bound_ms=bbound[0], bound_by=bbound[1], **common))
+    del blank, emit, o, g, ro, rg
+
+    # K6: x [B, T', D], k 31, ragged lengths; SAME in bf16 and fp32, and
+    # causal in bf16.
+    lengths = torch.tensor([t - 7 * i for i in range(b)], dtype=torch.int32,
+                           device="cuda")
+    x0 = r(b, t, d)
+    params0 = (r(2 * d, d) * d ** -0.5, r(2 * d) * 0.1, r(d, k) * k ** -0.5,
+               r(d) * 0.1, 1.0 + 0.1 * r(d), r(d) * 0.1, r(d, d) * d ** -0.5,
+               r(d) * 0.1)
+    gout = r(b, t, d)
+    names = ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta", "dw2",
+             "db2")
+    for dt, causal in ((torch.bfloat16, False), (torch.float32, False),
+                       (torch.bfloat16, True)):
+        name = str(dt).split(".")[-1]
+        w1, b1, wdw, bdw, gamma, beta, w2, b2 = params0
+        args = (x0.to(dt), lengths, w1.to(dt), b1, wdw, bdw, gamma, beta,
+                w2.to(dt), b2)
+        kw = dict(kernel_size=k, causal=causal)
+        fn = lambda *a: kc.fused_conv_module(*a, **kw)
+        plain = lambda *a: kc.fused_conv_module_plain(*a, **kw)
+        grad_args = (args[0],) + args[2:] + (args[1],)  # differentiable first
+        reorder = lambda f: lambda x, *rest: f(x, rest[-1], *rest[:-1])
+        o, g, _ = grad_case(torch, reorder(fn), grad_args, gout.to(dt), 9)
+        ro, rg, plain_bwd = grad_case(torch, reorder(plain), grad_args,
+                                      gout.to(dt), 9)
+        err_o, err_g = hold(torch, f"K6 fused_conv_module {name} B={b} T={t} "
+                            f"D={d} k={k} causal={causal}", o, ro, g, rg,
+                            names, TOL[name])
+        if dt != torch.bfloat16 or causal:
+            del plain_bwd
+            continue
+        pl = kc.left_pad(k, False)
+        gb = gout.to(dt)
+        fwd_ms = median_ms(torch, lambda: kc._launch_fwd(*args, k, pl, 1e-6))
+        bwd_ms = median_ms(torch, lambda: kc._launch_bwd(*args[:-1], gb, k,
+                                                         pl, 1e-6))
+        plain_fwd_ms = median_ms(torch, lambda: plain(*args))
+        plain_bwd_ms = median_ms(torch, plain_bwd)
+        del plain_bwd
+        # The eager ConvModule with the same weights: what K6 replaces.
+        mod = ConvModule(d, k).cuda()
+        with torch.no_grad():
+            for p, v in zip((mod.pointwise1.weight, mod.pointwise1.bias,
+                             mod.depthwise.weight, mod.depthwise.bias,
+                             mod.norm.weight, mod.norm.bias,
+                             mod.pointwise2.weight, mod.pointwise2.bias),
+                            params0):
+                p.copy_(v.view_as(p))
+        mask = (torch.arange(t, device="cuda")[None, :]
+                < lengths.long()[:, None])
+        xe = args[0].detach().requires_grad_(True)
+        lib_fwd_ms = median_ms(torch, lambda: mod(xe, mask))
+        ye = mod(xe, mask)
+        leaves = [xe] + list(mod.parameters())
+        lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
+            ye, leaves, gb, retain_graph=True))
+        del ye, leaves, mod
+        n = b * t
+        wbytes = 2 * (2 * d * d + d * d) + 4 * (2 * d + d * k + 4 * d)
+        fbound = bound(2.0 * n * d * (2 * d + d + k), 2 * 2 * n * d + 4 * b
+                       + wbytes)
+        # recompute of pw1 + taps, then dsw, dW2, dW1, dx and the taps' two
+        # gradients; bytes: x, g in, dx out, weights in and gradients out.
+        bbound = bound(2.0 * n * d * (2 * d + k + d + d + 2 * d + 2 * d + 2 * k),
+                       3 * 2 * n * d + 4 * b + wbytes
+                       + 4 * (3 * d * d + 2 * d + d * k + 4 * d))
+        common = dict(route="cuda",
+                      source="espnet_slurp_tpu_torch/csrc/conv_module.cu",
+                      launches=None,
+                      library_note="the eager ConvModule (bf16), which K6 "
+                                   "replaces")
+        out.append(dict(name="fused_conv_module",
+                        replaces="espnet_slurp_tpu/ops/pallas/conv_module.py"
+                                 ":214",
+                        max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                        bound_ms=fbound[0], bound_by=fbound[1],
+                        library_ms=lib_fwd_ms, **common))
+        out.append(dict(name="fused_conv_module_bwd",
+                        replaces="espnet_slurp_tpu/ops/pallas/conv_module.py"
+                                 ":236",
+                        max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                        bound_ms=bbound[0], bound_by=bbound[1],
+                        library_ms=lib_bwd_ms, **common))
+
+    # K6 forward as the greedy decode runs it: 8 utterances of 15 s padded
+    # to T' t_serve, each with t_prime valid frames, bf16, no gradient.
+    w1, b1, wdw, bdw, gamma, beta, w2, b2 = params0
+    bf = torch.bfloat16
+    args = (r(N_UTT, t_serve, d).to(bf),
+            torch.full((N_UTT,), t, dtype=torch.int32, device="cuda"),
+            w1.to(bf), b1, wdw, bdw, gamma, beta, w2.to(bf), b2)
+    with torch.no_grad():
+        o = kc.fused_conv_module(*args, kernel_size=k, causal=False)
+        torch.cuda.synchronize()
+        ro = kc.fused_conv_module_plain(*args, kernel_size=k, causal=False)
+    err, rel = rel_err(o, ro)
+    print(f"K6 fused_conv_module bfloat16 B={N_UTT} T={t_serve} valid={t} "
+          f"(greedy decode): out max abs err {err:.3e}, {rel:.3e} of "
+          f"max|ref| (tolerance {TOL['bfloat16']})")
+    if not (torch.isfinite(o).all() and rel <= TOL["bfloat16"]):
+        raise AssertionError("K6 at the decode's shape disagrees with its "
+                             "plain version")
+    return out
+
+
+def transducer_train_phase(torch, card):
+    """The transducer train step (fused_conv) on 32 x 15 s, U 64; returns
+    the launch counts of the timed steps."""
+    from espnet_slurp_tpu_torch.models.transducer import TransducerModel
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = transducer_config()
+    model = init_random_(TransducerModel(cfg, device="cuda"), seed=0)
+    batch = train_batch(torch, np.random.RandomState(1), TR_B,
+                        FS * TRAIN_SECONDS, TR_U, cfg.asr.vocab_size, "cuda")
+    launches, step_s = run_train_steps(
+        torch, f"transducer train: B={TR_B} x {TRAIN_SECONDS} s, U={TR_U}, "
+        f"V={cfg.asr.vocab_size}, fused_conv", model, batch, card,
+        TR_B * TRAIN_SECONDS)
+    n_blocks = cfg.asr.num_encoder_blocks
+    check_per_step("transducer train", launches, {
+        "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+        "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
+        "fused_conv_module": n_blocks, "fused_conv_module_bwd": n_blocks,
+        "rnnt_lattice": 1, "rnnt_lattice_bwd": 1,
+        "ctc_lattice": 1, "ctc_lattice_bwd": 1})
+    return launches, step_s
+
+
+def transducer_cpu_vs_card(torch):
+    """One fp32 transducer forward + backward (fused_conv, SpecAug off),
+    CPU (plain versions) against the card (kernels), same weights."""
+    from espnet_slurp_tpu_torch.models.transducer import TransducerModel
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = transducer_config(dtype="float32", specaug=None)
+    state = init_random_(TransducerModel(cfg, device="cpu"),
+                         seed=0).state_dict()
+    compare_cpu_card(torch, "fp32 transducer step", TransducerModel, cfg,
+                     state, *short_batch(cfg.asr.vocab_size))
+
+
+def short_batch(vocab: int):
+    """Two short utterances (3 s, 2.1 s) and 12 / 8 labels, the inputs of
+    both fp32 card-vs-CPU checks."""
+    rng = np.random.RandomState(2)
+    lens = np.asarray([48000, 33600], np.int32)
+    speech = np.zeros((2, 48000), np.float32)
+    for i, m in enumerate(lens):
+        speech[i, :m] = rng.randn(m).astype(np.float32) * 0.1
+    text = rng.randint(1, vocab - 1, size=(2, 12)).astype(np.int64)
+    return speech, lens, text, np.asarray([12, 8], np.int32)
+
+
+def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
+                     tlens):
+    """loss within 1e-4 relative and every gradient within 1e-3 of max |ref|
+    (floored at 1e-4 of the largest gradient entry), CPU against card.
+
+    A subsampling ReLU input that lies within fp32 rounding of 0 can fall
+    on either side on the two devices; its gradient is then the upstream
+    one on one side and 0 on the other, which moves the first conv's
+    weight and bias gradients by up to 7e-3 of max |ref| (measured on other
+    draws). Such kinks get gradient 0 on both sides: their forward value is
+    ~0 either way, and the comparison no longer depends on the draw."""
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = model_cls(cfg, device=dev)
+        model.load_state_dict(state)
+        batch = {"speech": torch.from_numpy(speech).to(dev),
+                 "speech_lengths": torch.from_numpy(lens).to(dev),
+                 "text": torch.from_numpy(text).to(dev),
+                 "text_lengths": torch.from_numpy(tlens).to(dev)}
+        embed, pre = model.encoder.embed, []
+        hooks = [getattr(embed, f"conv{i + 1}").register_forward_hook(
+            lambda m, i, o: pre.append(o)) for i in range(embed.n_convs)]
+        loss, _ = model(**batch, train=True)
+        for hk in hooks:
+            hk.remove()
+        runs[dev] = (model, loss, pre)
+    flips = []
+    for z_c, z_g in zip(runs["cpu"][2], runs["cuda"][2]):
+        flip = (z_c > 0) != (z_g > 0).cpu()
+        flips.append(int(flip.sum()))
+        for z in (z_c, z_g):
+            z.register_hook(lambda g, f=flip.to(z.device): g.masked_fill(f, 0))
+    res = {}
+    for dev, (model, loss, _) in runs.items():
+        loss.backward()
+        res[dev] = (float(loss.detach()), {k: p.grad.detach().cpu()
+                                  for k, p in model.named_parameters()})
+    del runs
+    (loss_c, g_c), (loss_g, g_g) = res["cpu"], res["cuda"]
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    floor = 1e-4 * max(float(x.abs().max()) for x in g_c.values())
+    worst = max(((float((g_g[k] - r).abs().max())
+                  / max(float(r.abs().max()), floor)), k)
+                for k, r in g_c.items())
+    print(f"{what} card vs CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
+          f"(rel {rel:.3e}, tolerance 1e-4); worst gradient {worst[1]} "
+          f"{worst[0]:.3e} of max|ref| (tolerance 1e-3) over {len(g_c)} "
+          f"tensors; subsampling ReLU kinks on opposite sides {flips}")
+    if not (rel <= 1e-4 and worst[0] <= 1e-3):
+        raise AssertionError(f"{what} card vs CPU")
+
+
+def transducer_decode_phase(torch, card):
+    """Speech2TextTransducer (greedy, fused_conv) on the serving traffic;
+    returns the encode's launch counts."""
+    from espnet_slurp_tpu_torch.models.transducer import TransducerModel
+    from espnet_slurp_tpu_torch.tasks.asr_transducer import \
+        Speech2TextTransducer
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = transducer_config()
+    state = init_random_(TransducerModel(cfg, device="cpu"),
+                         seed=0).state_dict()
+    tokens = token_list(cfg.asr.vocab_size)
+    s2t = Speech2TextTransducer(cfg, state, tokens, token_type="word",
+                                device="cuda")
+    rng = np.random.RandomState(0)
+    speeches = [rng.randn(FS * UTT_SECONDS).astype(np.float32) * 0.1
+                for _ in range(N_UTT)]
+    t0 = time.perf_counter()
+    s2t.decode_batch(speeches)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    names = ("fused_ffn", "rel_flash_attention", "fused_conv_module")
+    zero_counts(names)
+    t0 = time.perf_counter()
+    texts = s2t.decode_batch(speeches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(names)
+    n_blocks = cfg.asr.num_encoder_blocks
+    print(f"transducer greedy decode: {N_UTT} x {UTT_SECONDS} s, max_len "
+          f"{s2t.max_len}, 4 symbols per frame: wall {wall:.3f} s (first "
+          f"call {warm_s:.3f} s), RTF {wall / (N_UTT * UTT_SECONDS):.5f} on "
+          f"{card}; launches {launches}; hypothesis lengths "
+          f"{[len(x.split()) for x in texts]}")
+    if launches != {"fused_ffn": 2 * n_blocks,
+                    "rel_flash_attention": n_blocks,
+                    "fused_conv_module": n_blocks}:
+        raise AssertionError(f"transducer encode launches {launches}")
+    vocab = set(tokens) - {"<blank>", "<sos/eos>"}
+    if len(texts) != N_UTT or not all(
+            isinstance(x, str) and len(x.split()) <= s2t.max_len
+            and set(x.split()) <= vocab for x in texts):
+        raise AssertionError(f"malformed decode output: {texts!r:.500}")
+    return launches
 
 
 def train_cpu_vs_card(torch):
@@ -652,37 +1063,8 @@ def train_cpu_vs_card(torch):
     cfg = dataclasses.replace(flagship_config(), dtype="float32",
                               specaug=None)
     state = init_random_(ASRModel(cfg, device="cpu"), seed=0).state_dict()
-    rng = np.random.RandomState(2)
-    lens = np.asarray([48000, 33600], np.int32)
-    speech = np.zeros((2, 48000), np.float32)
-    for i, m in enumerate(lens):
-        speech[i, :m] = rng.randn(m).astype(np.float32) * 0.1
-    text = rng.randint(1, cfg.vocab_size - 1, size=(2, 12)).astype(np.int64)
-    tlens = np.asarray([12, 8], np.int32)
-    res = {}
-    for dev in ("cpu", "cuda"):
-        model = ASRModel(cfg, device=dev)
-        model.load_state_dict(state)
-        batch = {"speech": torch.from_numpy(speech).to(dev),
-                 "speech_lengths": torch.from_numpy(lens).to(dev),
-                 "text": torch.from_numpy(text).to(dev),
-                 "text_lengths": torch.from_numpy(tlens).to(dev)}
-        loss, _ = model(**batch, train=True)
-        loss.backward()
-        res[dev] = (float(loss.detach()), {k: p.grad.detach().cpu()
-                                  for k, p in model.named_parameters()})
-    (loss_c, g_c), (loss_g, g_g) = res["cpu"], res["cuda"]
-    rel = abs(loss_g - loss_c) / abs(loss_c)
-    floor = 1e-4 * max(float(x.abs().max()) for x in g_c.values())
-    worst = max(((float((g_g[k] - r).abs().max())
-                  / max(float(r.abs().max()), floor)), k)
-                for k, r in g_c.items())
-    print(f"fp32 train step card vs CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
-          f"(rel {rel:.3e}, tolerance 1e-4); worst gradient {worst[1]} "
-          f"{worst[0]:.3e} of max|ref| (tolerance 1e-3) over {len(g_c)} "
-          f"tensors")
-    if not (rel <= 1e-4 and worst[0] <= 1e-3):
-        raise AssertionError("fp32 train step card vs CPU")
+    compare_cpu_card(torch, "fp32 train step", ASRModel, cfg, state,
+                     *short_batch(cfg.vocab_size))
 
 
 def main() -> int:
@@ -718,13 +1100,24 @@ def main() -> int:
     kernels += train_kernels
     train_launches, _ = train_phase(torch, card)
     train_cpu_vs_card(torch)
+    kernels += transducer_kernel_phase(torch, t_train, t_prime)
+    tr_launches, _ = transducer_train_phase(torch, card)
+    transducer_cpu_vs_card(torch)
+    tr_decode = transducer_decode_phase(torch, card)
     for kern in kernels:
         name = kern["name"]
-        kern["launches"] = train_launches[name]
+        # Each kernel's count from its own slice's train step: the flagship
+        # ASR step for K1-K4, the transducer step for K5 and K6.
+        own = tr_launches if name.startswith(("rnnt", "fused_conv")) \
+            else train_launches
+        kern["launches"] = own[name]
         kern["launches_per_train_step"] = train_launches[name] // TRAIN_STEPS
+        kern["launches_per_transducer_step"] = tr_launches[name] // TRAIN_STEPS
         if name in decode_launches:
             kern["launches_per_decode"] = decode_launches[name]
             kern["ms_at_train_shape"] = fwd_train_ms[name]
+        if name in tr_decode:
+            kern["launches_per_transducer_decode"] = tr_decode[name]
         print(f"{name}: {kern['ms']:.4f} ms (plain {kern['plain_ms']:.4f}"
               f" ms, library {kern['library_ms']}, bound {kern['bound_ms']:.4f}"
               f" ms by {kern['bound_by']}) on {card}")

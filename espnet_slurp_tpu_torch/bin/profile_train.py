@@ -1,12 +1,16 @@
-"""Where the time of one flagship train step goes, on the card.
+"""Where the time of one train step goes, on the card.
 
-    python -m espnet_slurp_tpu_torch.bin.profile_train [--out FILE]
+    python -m espnet_slurp_tpu_torch.bin.profile_train \
+        [--model asr|transducer] [--fused-conv] [--out FILE]
 
-Builds the flagship ASRModel (models/asr_model.py:flagship_config: fp32
-parameters, bf16 compute, dropout 0, SpecAug on; random weights from a
-seeded torch.Generator) and the port's make_train_step with Adam at
-constant lr 1e-3, on the traffic of bench.py:43-58 (64 synthetic 15 s
-utterances, U = 64). Runs two warm-up steps, times three more on the host
+Builds the flagship ASRModel (``asr``, models/asr_model.py:flagship_config,
+on the traffic of bench.py:43-58: 64 synthetic 15 s utterances, U = 64) or
+the Conformer-transducer (``transducer``, models/transducer.py:
+transducer_flagship_config, conf/train_transducer.yaml: 32 x 15 s, U = 64,
+vocab 600), fp32 parameters, bf16 compute, dropout 0, SpecAug on, random
+weights from a seeded torch.Generator; ``--fused-conv`` routes the conv
+modules through kernel K6. The port's make_train_step runs Adam at constant
+lr 1e-3. Runs two warm-up steps, times three more on the host
 clock (each ended by a synchronise), then profiles one with torch.profiler.
 Prints one JSON line: the unprofiled step seconds and audio-seconds per
 second; for the profiled step its wall, device busy time (sum of kernel
@@ -20,6 +24,7 @@ the rest) and the top kernels. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -30,11 +35,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..models.asr_model import ASRModel, flagship_config
+from ..models.transducer import TransducerModel, transducer_flagship_config
 from ..train.optim import OptimConfig, build_optimizer
 from ..train.state import TrainState, make_train_step
 from ..utils.params import init_random_
 
-B, SECONDS, U, FS = 64, 15, 64, 16000
+SECONDS, U, FS = 15, 64, 16000
+BATCH = {"asr": 64, "transducer": 32}
 RANGES = ("train_step.forward", "train_step.backward", "train_step.update")
 KINDS = (("matmul", ("gemm", "sm90_", "cutlass", "xmma", "cublas")),
          ("conv", ("conv", "cudnn", "implicit", "winograd", "fft")),
@@ -55,6 +62,9 @@ def kind_of(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(BATCH), default="asr")
+    ap.add_argument("--fused-conv", action="store_true",
+                    help="conv modules through kernel K6")
     ap.add_argument("--out", help="also write the JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -65,8 +75,17 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = flagship_config()
-    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+    if args.model == "asr":
+        cfg = dataclasses.replace(flagship_config(),
+                                  fused_conv=args.fused_conv)
+        model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+    else:
+        base = transducer_flagship_config()
+        cfg = dataclasses.replace(base, asr=dataclasses.replace(
+            base.asr, fused_conv=args.fused_conv)).asr
+        model = init_random_(TransducerModel(
+            dataclasses.replace(base, asr=cfg), device="cuda"), seed=0)
+    B = BATCH[args.model]
     tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
     state = TrainState.create(model, tx, seed=0)
     step = make_train_step(model, tx)
@@ -108,7 +127,8 @@ def main() -> None:
         k = kind_of(e.key)
         by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
         if k == "port_kernels":
-            ours[e.key.split("<")[0].split("(")[0][-40:]] = {
+            short = e.key.replace("(anonymous namespace)::", "")
+            ours[short.split("<")[0].split("(")[0][-40:]] = {
                 "count": e.count, "ms": e.self_device_time_total / 1e3}
     ranges = {r: {"host_ms": 0.0, "device_ms": 0.0} for r in RANGES}
     for e in prof.events():
@@ -121,7 +141,9 @@ def main() -> None:
     step_s = float(np.median(times))
     result = {
         "card": card,
-        "batch": f"{B} x {SECONDS} s, U {U}",
+        "model": args.model,
+        "fused_conv": args.fused_conv,
+        "batch": f"{B} x {SECONDS} s, U {U}, V {cfg.vocab_size}",
         "step_s": step_s,
         "steps_s": times,
         "audio_s_per_s": B * SECONDS / step_s,

@@ -52,6 +52,9 @@ class ASRConfig:
     chunk_size: int = 0  # > 0: streaming chunk attention (frames after x4)
     left_chunks: int = -1
     flash_attention: str = "auto"  # "auto"/"on": kernels K2/K3; "off": eager
+    # Conv modules through kernel K6 (kernel path only): the port's form of
+    # the reference's ESPNET_TPU_FUSED_CONV=1, off by default as there.
+    fused_conv: bool = False
     subsampling_factor: int = 4
     frontend: FrontendConfig = FrontendConfig()
     specaug: Optional[SpecAugConfig] = SpecAugConfig()
@@ -78,6 +81,33 @@ def flagship_config() -> ASRConfig:
                      num_encoder_blocks=12, num_decoder_blocks=6,
                      decoder_d_ff=2048, kernel_size=31, dropout_rate=0.0,
                      dtype="bfloat16")
+
+
+def build_encoder(cfg: ASRConfig) -> ConformerEncoder:
+    """The Conformer encoder of ``cfg`` (fp32 parameters)."""
+    return ConformerEncoder(
+        cfg.frontend.n_mels, cfg.d_model, cfg.n_head, cfg.d_ff,
+        cfg.num_encoder_blocks, cfg.kernel_size, chunk_size=cfg.chunk_size,
+        left_chunks=cfg.left_chunks, flash=cfg.flash_attention,
+        subsampling_factor=cfg.subsampling_factor, fused_conv=cfg.fused_conv)
+
+
+def encode_speech(cfg: ASRConfig, encoder: ConformerEncoder,
+                  speech: torch.Tensor, speech_lengths: torch.Tensor,
+                  mvn_stats=None, train: bool = False,
+                  generator: Optional[torch.Generator] = None):
+    """Frontend -> SpecAug (when ``train`` with ``cfg.specaug`` and a
+    ``generator``) -> MVN -> ``encoder``, in ``cfg.dtype``: the encode of
+    every model built on the ASR stack."""
+    feats, feat_lengths = default_frontend(speech, speech_lengths,
+                                           cfg.frontend)
+    if train and cfg.specaug is not None and generator is not None:
+        feats = specaug(feats, feat_lengths, cfg.specaug, generator)
+    if cfg.use_mvn == "global" and mvn_stats is not None:
+        feats = global_mvn(feats, feat_lengths, *mvn_stats)
+    elif cfg.use_mvn == "utterance":
+        feats = utterance_mvn(feats, feat_lengths)
+    return encoder(feats.to(cfg.torch_dtype), feat_lengths)
 
 
 def add_sos_eos(ys: torch.Tensor, ys_lengths: torch.Tensor, sos: int,
@@ -125,11 +155,7 @@ class ASRModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         c = cfg
-        self.encoder = ConformerEncoder(
-            c.frontend.n_mels, c.d_model, c.n_head, c.d_ff,
-            c.num_encoder_blocks, c.kernel_size, chunk_size=c.chunk_size,
-            left_chunks=c.left_chunks, flash=c.flash_attention,
-            subsampling_factor=c.subsampling_factor)
+        self.encoder = build_encoder(c)
         self.ctc_proj = Linear(c.d_model, c.vocab_size)
         self.decoder = TransformerDecoder(c.vocab_size, c.d_model, c.n_head,
                                           c.decoder_d_ff, c.num_decoder_blocks,
@@ -148,16 +174,8 @@ class ASRModel(nn.Module):
         """Raw waveform [B, N] -> (hs [B, T', D], h_lengths [B]). With
         ``train``, ``cfg.specaug`` and a ``generator`` the features are
         augmented (every draw from the generator)."""
-        c = self.cfg
-        feats, feat_lengths = default_frontend(speech, speech_lengths,
-                                               c.frontend)
-        if train and c.specaug is not None and generator is not None:
-            feats = specaug(feats, feat_lengths, c.specaug, generator)
-        if c.use_mvn == "global" and mvn_stats is not None:
-            feats = global_mvn(feats, feat_lengths, *mvn_stats)
-        elif c.use_mvn == "utterance":
-            feats = utterance_mvn(feats, feat_lengths)
-        return self.encoder(feats.to(c.torch_dtype), feat_lengths)
+        return encode_speech(self.cfg, self.encoder, speech, speech_lengths,
+                             mvn_stats, train, generator)
 
     def ctc_logprobs(self, hs: torch.Tensor) -> torch.Tensor:
         return torch.log_softmax(self.ctc_proj(hs).float(), dim=-1)

@@ -1,10 +1,13 @@
 """Conformer encoder. Port of espnet_slurp_tpu/models/conformer.py.
 
 Macaron FFN halves (kernel K2), rel-pos MHSA (kernel K3), a depthwise conv
-module with LayerNorm, and Conv2d subsampling. Unlike the reference's TPU
-path, T' is not padded to a tile multiple: both kernels mask the ragged
-edge. MoE, interCTC, self-conditioning, stochastic depth, BatchNorm and
-remat wait for later slices.
+module with LayerNorm (with ``fused_conv``, kernel K6), and Conv2d
+subsampling. Unlike the reference's TPU path, T' is not padded to a tile
+multiple: the kernels mask the ragged edge. ``fused_conv`` is the port's
+form of the reference's ``ESPNET_TPU_FUSED_CONV=1`` (models/conformer.py:
+184-191): off by default, and in effect only on the kernel path
+(``flash != "off"``). MoE, interCTC, self-conditioning, stochastic depth,
+BatchNorm and remat wait for later slices.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.conv_module import fused_conv_module
 from ..ops.kernels.ffn import fused_ffn
 from ..ops.masks import attention_bias, chunk_mask, length_mask
 from .attention import RelPosMultiHeadAttention
@@ -45,19 +49,33 @@ class FeedForward(nn.Module):
 
 class ConvModule(nn.Module):
     """Pointwise(2D) + GLU -> pad mask -> depthwise(k) -> LayerNorm ->
-    swish -> pointwise(D). ``causal`` pads k-1 frames on the left only."""
+    swish -> pointwise(D). ``causal`` pads k-1 frames on the left only.
+    With ``fused`` the whole chain is kernel K6, masked by ``lengths``
+    (or, without them, by ``pad_mask``'s row sums)."""
 
     def __init__(self, d_model: int, kernel_size: int = 31,
-                 causal: bool = False):
+                 causal: bool = False, fused: bool = False):
         super().__init__()
-        self.kernel_size, self.causal = kernel_size, causal
+        self.kernel_size, self.causal, self.fused = kernel_size, causal, fused
         self.pointwise1 = Linear(d_model, 2 * d_model)
         self.depthwise = Conv1d(d_model, d_model, kernel_size,
                                 groups=d_model)
         self.norm = LayerNorm(d_model, eps=LN_EPS)
         self.pointwise2 = Linear(d_model, d_model)
 
-    def forward(self, x, pad_mask=None):
+    def forward(self, x, pad_mask=None, lengths=None):
+        if self.fused:
+            if lengths is None and pad_mask is not None:
+                lengths = pad_mask.sum(-1)
+            d, dt = x.shape[-1], x.dtype
+            return fused_conv_module(
+                x.contiguous(), lengths, self.pointwise1.weight.to(dt),
+                self.pointwise1.bias.float(),
+                self.depthwise.weight.view(d, self.kernel_size),
+                self.depthwise.bias, self.norm.weight, self.norm.bias,
+                self.pointwise2.weight.to(dt), self.pointwise2.bias.float(),
+                kernel_size=self.kernel_size, causal=self.causal,
+                eps=self.norm.eps)
         h = F.glu(self.pointwise1(x), dim=-1)
         if pad_mask is not None:
             h = torch.where(pad_mask[..., None], h, torch.zeros_like(h))
@@ -73,7 +91,7 @@ class ConformerBlock(nn.Module):
     def __init__(self, d_model: int, n_head: int, d_ff: int,
                  kernel_size: int = 31, causal_conv: bool = False,
                  use_flash: bool = False, chunk_size: int = 0,
-                 left_chunks: int = -1):
+                 left_chunks: int = -1, fused_conv: bool = False):
         super().__init__()
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         ln = lambda: LayerNorm(d_model, eps=LN_EPS)
@@ -82,7 +100,8 @@ class ConformerBlock(nn.Module):
         self.norm_mha = ln()
         self.self_attn = RelPosMultiHeadAttention(n_head, d_model, use_flash)
         self.norm_conv = ln()
-        self.conv = ConvModule(d_model, kernel_size, causal_conv)
+        self.conv = ConvModule(d_model, kernel_size, causal_conv,
+                               fused=fused_conv and use_flash)
         self.norm_ff2 = ln()
         self.ff2 = FeedForward(d_model, d_ff, use_flash)
         self.norm_final = ln()
@@ -92,7 +111,7 @@ class ConformerBlock(nn.Module):
         x = x + self.self_attn(self.norm_mha(x), pos_emb, mask_bias,
                                lengths=lengths, chunk_size=self.chunk_size,
                                left_chunks=self.left_chunks)
-        x = x + self.conv(self.norm_conv(x), pad_mask)
+        x = x + self.conv(self.norm_conv(x), pad_mask, lengths)
         x = x + 0.5 * self.ff2(self.norm_ff2(x))
         return self.norm_final(x)
 
@@ -104,13 +123,14 @@ class ConformerEncoder(nn.Module):
     padded frames zeroed, h_lengths [B]). ``flash``: "auto"/"on" route the
     FFNs and attention through kernels K2/K3 (whose plain versions run on
     the CPU); "off" takes the eager paths with an additive mask bias.
+    ``fused_conv`` (kernel path only) runs each conv module through K6.
     """
 
     def __init__(self, idim: int, d_model: int = 256, n_head: int = 4,
                  d_ff: int = 2048, num_blocks: int = 12,
                  kernel_size: int = 31, chunk_size: int = 0,
                  left_chunks: int = -1, flash: str = "auto",
-                 subsampling_factor: int = 4):
+                 subsampling_factor: int = 4, fused_conv: bool = False):
         super().__init__()
         if flash not in ("auto", "on", "off"):
             raise ValueError(f"flash must be auto|on|off, got {flash!r}")
@@ -123,7 +143,8 @@ class ConformerEncoder(nn.Module):
             self.add_module(f"block_{i}", ConformerBlock(
                 d_model, n_head, d_ff, kernel_size,
                 causal_conv=chunk_size > 0, use_flash=self.use_flash,
-                chunk_size=chunk_size, left_chunks=left_chunks))
+                chunk_size=chunk_size, left_chunks=left_chunks,
+                fused_conv=fused_conv))
         self.after_norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, feats, feat_lengths):

@@ -116,6 +116,16 @@ def library() -> ctypes.CDLL:
     lib.espnet_ctc_head_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i,
                                         i, i, i, p]
     lib.espnet_ctc_head_bwd.restype = i
+    lib.espnet_rnnt_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.espnet_rnnt_fwd.restype = i
+    lib.espnet_rnnt_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.espnet_rnnt_bwd.restype = i
+    lib.espnet_conv_module_fwd.argtypes = [i] + [p] * 11 + [i] * 5 + [f, p]
+    lib.espnet_conv_module_fwd.restype = i
+    lib.espnet_conv_module_bwd.argtypes = [i] + [p] * 18 + [i] * 6 + [f, p]
+    lib.espnet_conv_module_bwd.restype = i
+    lib.espnet_conv_module_rows_tile.argtypes = [i]
+    lib.espnet_conv_module_rows_tile.restype = i
     lib.espnet_error_string.argtypes = [i]
     lib.espnet_error_string.restype = ctypes.c_char_p
     return lib

@@ -24,6 +24,23 @@ from ..decode.greedy import attention_greedy_decode
 from ..models.asr_model import ASRConfig, ASRModel
 
 
+def pad_speech_batch(speeches: Sequence[np.ndarray], multiple: int = 4096):
+    """(buf [bb, n] float32, lens [bb] int32) padded as the reference pads:
+    bb the next power of two (padding rows get length 1), n =
+    bucket_length(longest, multiple)."""
+    b = len(speeches)
+    bb = 1
+    while bb < b:
+        bb *= 2
+    n = bucket_length(max(len(s) for s in speeches), multiple)
+    buf = np.zeros((bb, n), np.float32)
+    lens = np.ones((bb,), np.int32)
+    for i, s in enumerate(speeches):
+        buf[i, :len(s)] = s
+        lens[i] = len(s)
+    return buf, lens
+
+
 class Speech2Text:
     """Batched ASR decoding with the attention decoder (greedy when
     ``beam_size <= 1``) or joint CTC/attention beam search."""
@@ -47,20 +64,8 @@ class Speech2Text:
         return self.decode_batch([speech])[0]
 
     def pad_batch(self, speeches: Sequence[np.ndarray]):
-        """(buf [bb, n] float32, lens [bb] int32) padded as the reference
-        pads: bb the next power of two, n = bucket_length(longest)."""
-        b = len(speeches)
-        bb = 1
-        while bb < b:
-            bb *= 2
-        n = bucket_length(max(len(s) for s in speeches),
-                          self.speech_bucket_multiple)
-        buf = np.zeros((bb, n), np.float32)
-        lens = np.ones((bb,), np.int32)
-        for i, s in enumerate(speeches):
-            buf[i, :len(s)] = s
-            lens[i] = len(s)
-        return buf, lens
+        """(buf [bb, n] float32, lens [bb] int32): ``pad_speech_batch``."""
+        return pad_speech_batch(speeches, self.speech_bucket_multiple)
 
     @torch.inference_mode()
     def decode_batch(self, speeches: Sequence[np.ndarray]) -> List[str]:

@@ -9,7 +9,12 @@ does, so the key is the flax path joined by "." with the leaf renamed:
   out] -> Conv1d [out, in/groups, k] (the depthwise [k, 1, D] -> [D, 1, k]);
 - LayerNorm ``scale`` -> ``weight`` (``bias`` stays);
 - Embed ``embedding`` -> Embedding ``weight``;
-- ``pos_bias_u`` / ``pos_bias_v`` unchanged.
+- ``pos_bias_u`` / ``pos_bias_v`` unchanged;
+- an ``nn.OptimizedLSTMCell`` (``<rnn>/cell/{ii,if,ig,io}/kernel``,
+  ``{hi,hf,hg,ho}/{kernel,bias}``; no input-side bias) -> the port's
+  ``LSTMLayer`` ``<rnn>.weight_ih`` [4P, in], ``weight_hh`` [4P, P] and
+  ``bias_hh`` [4P], gates stacked in the order i, f, g, o (torch's): the
+  same scalars, in 3 tensors instead of 12.
 
 The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here.
 """
@@ -50,15 +55,33 @@ def _convert_leaf(name: str, value: np.ndarray):
     raise ValueError(f"no conversion for flax leaf {name!r}")
 
 
+_LSTM_GATES = "ifgo"
+
+
+def _lstm_leaves(cells: Dict[tuple, Dict[str, np.ndarray]]):
+    """{rnn path: {"ii/kernel": ..., ...}} -> [(key, value)] of LSTMLayer."""
+    for path, leaves in cells.items():
+        stack = lambda side, leaf: np.concatenate(
+            [leaves[f"{side}{g}/{leaf}"].T if leaf == "kernel"
+             else leaves[f"{side}{g}/{leaf}"] for g in _LSTM_GATES], 0)
+        prefix = ".".join(path)
+        yield prefix + ".weight_ih", stack("i", "kernel")
+        yield prefix + ".weight_hh", stack("h", "kernel")
+        yield prefix + ".bias_hh", stack("h", "bias")
+
+
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested flax params (np.ndarray leaves) -> this port's state_dict."""
-    out = {}
+    out, cells = {}, {}
     for path, value in _flatten(params).items():
         path = (_TOP_LEVEL_RENAMES.get(path[0], path[0]),) + path[1:]
+        if len(path) >= 3 and path[-3] == "cell":
+            cells.setdefault(path[:-3], {})["/".join(path[-2:])] = value
+            continue
         leaf, converted = _convert_leaf(path[-1], value)
-        key = ".".join(path[:-1] + (leaf,))
-        out[key] = torch.from_numpy(np.array(converted, copy=True))
-    return out
+        out[".".join(path[:-1] + (leaf,))] = converted
+    out.update(_lstm_leaves(cells))
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
 
 
 def init_random_(model: nn.Module, seed: int) -> nn.Module:

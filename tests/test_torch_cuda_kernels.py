@@ -2,7 +2,9 @@
 edge shapes the smoke run does not reach: a single row, ragged N, narrow
 widths, T shorter than a tile or just past one, Dh 32 to 128, key lengths
 of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
-passes and the CTC kernels also U = 0, U > T and duplicate labels in ext.
+passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
+for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
+conv module k 3 to 31, SAME and causal, lengths 0, 1 and full.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -230,3 +232,84 @@ def test_fused_ctc_head(gen, dtype, t, d, v):
     assert (kh.fused_ctc_head_emit.launches,
             kh.fused_ctc_head_emit.bwd_launches) == (before[0] + 1,
                                                      before[1] + 1)
+
+
+# ---- The transducer slice's kernels (K5, K6) ---------------------------------
+
+
+@pytest.mark.parametrize("u1", [1, 2, 33, 65, 129, 300])
+def test_rnnt_lattice(gen, u1):
+    """K5 against its plain version: U1 within a warp, across warps and
+    past the 256-thread mark; rows with tlen 0, 1 and T, ulen 0, and a zero
+    cotangent (exact zero gradients there and at frames past tlen)."""
+    from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
+    b, t = 5, 40
+    lp = torch.log_softmax(torch.randn(b, t, u1, 6, generator=gen,
+                                       device="cuda"), -1)
+    blank = lp[..., 0].contiguous()
+    emit = lp[..., 1].clone()
+    emit[..., -1] = kt.NEG
+    tlen = torch.tensor([t, 1, 0, t - 13, t], dtype=torch.int32,
+                        device="cuda")
+    ulen = torch.tensor([u1 - 1, min(3, u1 - 1), 0, 0, (u1 - 1) // 2],
+                        dtype=torch.int32, device="cuda")
+    cot = torch.rand(b, generator=gen, device="cuda")
+    cot[4] = 0.0
+    args = (blank, emit, tlen, ulen)
+    before = (kt.rnnt_lattice.launches, kt.rnnt_lattice.bwd_launches)
+    out, grads = _grads(kt.rnnt_lattice, args, cot, n_diff=2)
+    ref, ref_grads = _grads(kt.rnnt_lattice_plain, args, cot, n_diff=2)
+    torch.cuda.synchronize()
+    assert (kt.rnnt_lattice.launches, kt.rnnt_lattice.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(out, ref) <= 1e-4 and float(out[2]) == 0.0
+    frames = torch.arange(t, device="cuda")[None, :, None]
+    dead = (frames >= tlen.long()[:, None, None]) | (cot == 0)[:, None, None]
+    for name, g, r in zip(("dblank", "demit"), grads, ref_grads):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r, floor=1e-3) <= 1e-4, name
+        assert torch.equal(g[dead.expand_as(g)],
+                           torch.zeros_like(g[dead.expand_as(g)])), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,causal", [(3, False), (15, False), (31, False),
+                                      (15, True), (31, True)])
+@pytest.mark.parametrize("t,d", [(37, 64), (100, 256)])
+def test_fused_conv_module(gen, dtype, k, causal, t, d):
+    """K6 forward and backward against its plain version: T not a tile
+    multiple, lengths 0, 1 and full, every gradient (x and the nine
+    parameters)."""
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    b = 4
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    lengths = torch.tensor([t, 1, 0, t - 5], dtype=torch.int32,
+                           device="cuda")
+    args = (r(b, t, d).to(dtype), lengths,
+            (r(2 * d, d) * d ** -0.5).to(dtype), r(2 * d) * 0.1,
+            r(d, k) * k ** -0.5, r(d) * 0.1, 1.0 + 0.1 * r(d), r(d) * 0.1,
+            (r(d, d) * d ** -0.5).to(dtype), r(d) * 0.1)
+    kw = dict(kernel_size=k, causal=causal)
+    before = (kc.fused_conv_module.launches,
+              kc.fused_conv_module.bwd_launches)
+    _check_grads(lambda *a: kc.fused_conv_module(*a, **kw),
+                 lambda *a: kc.fused_conv_module_plain(*a, **kw), args,
+                 r(b, t, d), TOL[dtype],
+                 ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta",
+                  "dw2", "db2"))
+    assert (kc.fused_conv_module.launches,
+            kc.fused_conv_module.bwd_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+
+
+def test_fused_conv_module_refuses_what_it_cannot_take(gen):
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+
+    def args(d, k):
+        return (r(2, 9, d), None, r(2 * d, d), r(2 * d), r(d, k), r(d),
+                r(d), r(d), r(d, d), r(d))
+    with pytest.raises(ValueError):  # D not a multiple of 64
+        kc.fused_conv_module(*args(96, 3), kernel_size=3)
+    with pytest.raises(ValueError):  # SAME padding with an even kernel
+        kc.fused_conv_module(*args(64, 4), kernel_size=4)

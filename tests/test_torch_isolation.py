@@ -34,10 +34,32 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert bad == "[]", bad
 
 
+_REFERENCE_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(espnet_slurp_tpu(?!_torch)\b|jax\b|flax\b)", re.M)
+SMOKE = PKG.parent / "chip_smoke.py"
+
+
 def test_no_source_names_the_reference_package():
-    pattern = re.compile(
-        r"^\s*(from|import)\s+(espnet_slurp_tpu(?!_torch)\b|jax\b|flax\b)",
-        re.M)
     offenders = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
-                 if pattern.search(p.read_text())]
+                 if _REFERENCE_IMPORT.search(p.read_text())]
     assert offenders == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    assert not _REFERENCE_IMPORT.search(SMOKE.read_text())
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA, or alone in a directory, chip_smoke.py exits non-zero
+    and prints no result line."""
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("a card is present: the script would run in full")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(SMOKE.read_text())
+    for path in (SMOKE, alone):
+        proc = subprocess.run([sys.executable, str(path)], capture_output=True,
+                              text=True, cwd=path.parent, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

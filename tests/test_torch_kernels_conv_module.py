@@ -1,0 +1,153 @@
+"""Kernel K6 (fused conv module) against the JAX package, on the CPU.
+
+espnet_slurp_tpu_torch/ops/kernels/conv_module.py:fused_conv_module runs its
+plain version on CPU tensors. It is held to the reference's Pallas kernel
+(espnet_slurp_tpu/ops/pallas/conv_module.py:fused_conv_module, interpret
+mode) and to the unfused flax ConvModule, at the shapes and tolerances of
+tests/test_fused_conv.py (d 128, T 37, k 15, ragged lengths; forward within
+2e-4, dx within 3e-4, parameter gradients within 3e-3 x max(1, max |ref|)).
+The weights are the flax module's, converted by flax_to_torch (the kernel
+takes nn.Linear's and Conv1d's layouts).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from espnet_slurp_tpu.models.conformer import ConvModule as JaxConvModule
+from espnet_slurp_tpu.ops.pallas.conv_module import \
+    fused_conv_module as jax_fused
+from espnet_slurp_tpu_torch.models.conformer import ConvModule
+from espnet_slurp_tpu_torch.ops.kernels.conv_module import fused_conv_module
+from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+
+PARAM_NAMES = ("pointwise1.weight", "pointwise1.bias", "depthwise.weight",
+               "depthwise.bias", "norm.weight", "norm.bias",
+               "pointwise2.weight", "pointwise2.bias")
+
+
+def _mk(batch=3, t=37, d=128, k=15, causal=False, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, t, d).astype(np.float32)
+    lens = np.asarray([t, t - 9, t // 2][:batch], np.int32)
+    ref = JaxConvModule(d, kernel_size=k, causal=causal, use_flash=False)
+    pad_mask = jnp.arange(t)[None, :] < jnp.asarray(lens)[:, None]
+    params = ref.init(jax.random.key(seed), jnp.asarray(x), pad_mask)
+    params = jax.tree.map(
+        lambda p: p + 0.02 * jnp.asarray(rng.randn(*p.shape), p.dtype),
+        params)
+    gvec = np.random.RandomState(7).randn(batch, t, d).astype(np.float32)
+    return x, lens, ref, jax.tree.map(np.asarray, params), gvec
+
+
+def _port(x, lens, params, k, causal, gvec=None):
+    """(out, {name: grad} incl. "x") of the port's wrapper on CPU tensors."""
+    sd = flax_to_torch(params["params"])
+    leaves = {n: sd[n].clone().requires_grad_(True) for n in PARAM_NAMES}
+    xt = torch.from_numpy(x.copy()).requires_grad_(True)
+    d = x.shape[-1]
+    out = fused_conv_module(
+        xt, None if lens is None else torch.from_numpy(lens),
+        leaves["pointwise1.weight"], leaves["pointwise1.bias"],
+        leaves["depthwise.weight"].view(d, k), leaves["depthwise.bias"],
+        leaves["norm.weight"], leaves["norm.bias"],
+        leaves["pointwise2.weight"], leaves["pointwise2.bias"],
+        kernel_size=k, causal=causal)
+    if gvec is None:
+        return out.detach().numpy(), None
+    (out * torch.from_numpy(gvec)).sum().backward()
+    grads = {n: p.grad.numpy() for n, p in leaves.items()}
+    grads["x"] = xt.grad.numpy()
+    return out.detach().numpy(), grads
+
+
+def _jax_fused(x, lens, params, k, causal):
+    p = params["params"]
+    d = x.shape[-1]
+    return lambda pp, xx: jax_fused(
+        xx, None if lens is None else jnp.asarray(lens),
+        pp["pointwise1"]["kernel"], pp["pointwise1"]["bias"],
+        pp["depthwise"]["kernel"].reshape(k, d), pp["depthwise"]["bias"],
+        pp["norm"]["scale"], pp["norm"]["bias"], pp["pointwise2"]["kernel"],
+        pp["pointwise2"]["bias"], kernel_size=k, causal=causal,
+        interpret=True), p
+
+
+def _jax_refs(x, lens, ref, params, k, causal, gvec):
+    """{"unfused": (out, grads), "pallas": (out, grads)}, the gradients as
+    a port state_dict plus "x"."""
+    t = x.shape[1]
+    mask = None if lens is None else (jnp.arange(t)[None, :]
+                                      < jnp.asarray(lens)[:, None])
+    fused, p = _jax_fused(x, lens, params, k, causal)
+    fns = {"unfused": (lambda pp, xx: ref.apply({"params": pp}, xx, mask)),
+           "pallas": fused}
+    out = {}
+    for name, fn in fns.items():
+        y = fn(p, jnp.asarray(x))
+        gp, gx = jax.grad(lambda pp, xx: jnp.sum(fn(pp, xx) * gvec),
+                          argnums=(0, 1))(p, jnp.asarray(x))
+        grads = flax_to_torch(jax.tree.map(np.asarray, gp))
+        grads = {n: v.numpy() for n, v in grads.items()}
+        grads["x"] = np.asarray(gx)
+        out[name] = (np.asarray(y), grads)
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_and_gradients_match_jax(causal):
+    k = 15
+    x, lens, ref, params, gvec = _mk(causal=causal)
+    out, grads = _port(x, lens, params, k, causal, gvec)
+    for name, (y, rg) in _jax_refs(x, lens, ref, params, k, causal,
+                                   gvec).items():
+        np.testing.assert_allclose(out, y, rtol=0, atol=2e-4, err_msg=name)
+        np.testing.assert_allclose(grads["x"], rg["x"], rtol=0, atol=3e-4,
+                                   err_msg=name)
+        for n in PARAM_NAMES:
+            np.testing.assert_allclose(
+                grads[n], rg[n], rtol=0,
+                atol=3e-3 * max(1.0, float(np.abs(rg[n]).max())),
+                err_msg=f"{name} {n}")
+
+
+def test_no_mask_matches_jax():
+    k = 15
+    x, _, ref, params, _ = _mk(t=32)
+    out, _ = _port(x, None, params, k, False)
+    y_ref = ref.apply(params, jnp.asarray(x), None)
+    fused, p = _jax_fused(x, None, params, k, False)
+    np.testing.assert_allclose(out, np.asarray(y_ref), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(out, np.asarray(fused(p, jnp.asarray(x))),
+                               rtol=0, atol=2e-4)
+
+
+def test_padding_is_isolated():
+    """Content after the valid length must not change valid-frame outputs."""
+    k = 15
+    x, lens, _, params, _ = _mk(t=40)
+    valid = np.arange(40)[None, :] < lens[:, None]
+    y1, _ = _port(x, lens, params, k, False)
+    y2, _ = _port(x + np.where(valid[..., None], 0.0, 37.0).astype(
+        np.float32), lens, params, k, False)
+    np.testing.assert_allclose(y1[valid], y2[valid], rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_module_path_matches_eager_module(causal):
+    """The port's ConvModule with ``fused`` (the kernel's plain version on
+    the CPU) against its eager layers, fp32, with lengths from the mask."""
+    torch.manual_seed(0)
+    d, k, t = 64, 7, 23
+    eager = ConvModule(d, k, causal)
+    fused = ConvModule(d, k, causal, fused=True)
+    with torch.no_grad():
+        for p in eager.parameters():
+            p.add_(0.05 * torch.randn(p.shape))
+    fused.load_state_dict(eager.state_dict())
+    x = torch.randn(2, t, d)
+    lens = torch.tensor([t, 15])
+    mask = torch.arange(t)[None, :] < lens[:, None]
+    torch.testing.assert_close(fused(x, mask, lens), eager(x, mask, lens),
+                               rtol=1e-5, atol=1e-5)
