@@ -32,6 +32,10 @@ or the port's package is not beside it. Phases, each of which fails the run:
    fp32 only), then each direction timed alone as in phase 2, beside its
    plain version, a PyTorch yardstick (K1: F.ctc_loss; K3 backward: SDPA's
    backward over a constant bias, which computes no dp) and its bound.
+   K2's bf16 backward is also held to fused_ffn_bwd_plain (the same
+   rounding points) within BWD_PLAIN_TOL, and printed with each of its
+   three launches' device times (rows / dx / dW, torch.profiler) and what
+   one call adds to peak memory.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
    dropout 0, SpecAug on, seeded random weights) and the port's
    make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
@@ -48,7 +52,9 @@ or the port's package is not beside it. Phases, each of which fails the run:
    0 in exact arithmetic and hold only rounding noise).
 7. Kernels at the shapes of the Conformer-transducer train step
    (conf/train_transducer.yaml: B 32 utterances of 15 s, T' 468, U 64):
-   K2 and K3 both ways as in phase 4 (untimed), K5 RNN-T lattice (fp32
+   K2 and K3 both ways as in phase 4 (K3 untimed; K2's backward timed
+   beside its plain composition, with its launches and peak memory, as in
+   phase 4), K5 RNN-T lattice (fp32
    tables [32, 468, 65], ragged T' and U) and K6 fused conv module
    (x [32, 468, 256], k 31, SAME with ragged lengths in bf16 and fp32, and
    one causal case), each direction against its plain version's outputs
@@ -101,6 +107,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K2's bf16 backward against fused_ffn_bwd_plain, which rounds hd and ds
+# where the kernels do: only fp32 summation order differs, and it can move a
+# bf16 output by one unit in the last place (2^-8 to 2^-7 of itself). At the
+# two train shapes this check saw at most 5.0e-3 of max |ref| on an H100
+# 80GB HBM3; the bound keeps a 2x margin over that and stays above one unit
+# (7.8e-3).
+BWD_PLAIN_TOL = 1e-2
 
 
 def card_line() -> str:
@@ -387,7 +400,55 @@ def check_ffn_bwd(torch, ffn, n, d, f, r):
         _, err = hold(torch, f"K2 fused_ffn backward {name} N={n}", o, ro, g,
                       rg, ("dx", "dw1", "db1", "dw2", "db2"), TOL[name])
         del o, g, ro, rg
-    return args, cot.to(dt), err, plain_bwd
+    x, w1, b1, w2, _ = args
+    gb = cot.to(dt)
+    outs = ffn._launch_bwd(x, w1, b1, w2, gb)
+    refs = ffn.fused_ffn_bwd_plain(x, w1, b1, w2, gb)
+    torch.cuda.synchronize()
+    rels = [rel_err(a, b)[1] for a, b in zip(outs, refs)]
+    print(f"K2 fused_ffn backward bfloat16 N={n} against fused_ffn_bwd_plain: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in zip(
+              ("dx", "dw1", "db1", "dw2", "db2"), rels))
+          + f" of max|ref| (tolerance {BWD_PLAIN_TOL})")
+    if not max(rels) <= BWD_PLAIN_TOL:
+        raise AssertionError("K2 bf16 backward disagrees with "
+                             "fused_ffn_bwd_plain")
+    del outs, refs
+    return args, gb, err, plain_bwd
+
+
+def ffn_bwd_detail(torch, ffn, args, gb, n):
+    """K2's bf16 backward at N rows: its time and the plain composition's
+    (CUDA events, the same call), each launch's device time (rows / dx / dW,
+    torch.profiler over 5 calls) and what one call adds to peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w1, b1, w2, _ = args
+    call = lambda: ffn._launch_bwd(x, w1, b1, w2, gb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    launch_ms = {}
+    for e in prof.key_averages():
+        for part in ("rows", "dx", "dw"):
+            if f"ffn_bwd::{part}_kernel" in e.key and e.count:
+                launch_ms[part] = e.self_device_time_total / 1e3 / e.count
+    ms = median_ms(torch, call)
+    print(f"K2 fused_ffn backward bfloat16 N={n}: {ms:.4f} ms; launches rows "
+          + " / ".join(f"{launch_ms.get(p, float('nan')):.4f}"
+                       for p in ("rows", "dx", "dw"))
+          + f" ms (rows / dx / dW, torch.profiler); one call adds "
+            f"{peak_mb:.1f} MB at its peak")
+    if sorted(launch_ms) != ["dw", "dx", "rows"]:
+        print("K2 backward: the profiler showed no device time for "
+              f"{sorted({'rows', 'dx', 'dw'} - set(launch_ms))}")
+    return ms, launch_ms, peak_mb
 
 
 def check_attention_bwd(torch, fa, b, h, t, dh, r):
@@ -446,8 +507,12 @@ def train_kernel_phase(torch, t_prime):
     args, gb, err, plain_bwd = check_ffn_bwd(torch, ffn, n, d, f, r)
     x, w1, b1, w2, _ = args
     ffn_fwd_ms = median_ms(torch, lambda: ffn._launch_fwd(*args))
-    ms = median_ms(torch, lambda: ffn._launch_bwd(x, w1, b1, w2, gb))
+    ffn_fwd_bound = bound(4.0 * n * d * f,
+                          2 * (2 * n * d + 2 * d * f) + 4 * (f + d))[0]
     plain_ms = median_ms(torch, plain_bwd)
+    ms, launch_ms, peak_mb = ffn_bwd_detail(torch, ffn, args, gb, n)
+    print(f"K2 fused_ffn backward bfloat16 N={n}: plain composition "
+          f"{plain_ms:.4f} ms in the same call")
     # in: x, g, W1, W2, b1; out: dx, dW1, dW2, db1, db2
     bnd = bound(10.0 * n * d * f,
                 2 * (3 * n * d + 4 * d * f) + 4 * (2 * f + d))
@@ -456,7 +521,8 @@ def train_kernel_phase(torch, t_prime):
         source="espnet_slurp_tpu_torch/csrc/ffn.cu",
         replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None))
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        launch_ms=launch_ms, peak_mb=peak_mb))
     del args, gb, x, w1, b1, w2, plain_bwd
 
     # K3 backward: B 64, H 4, T', Dh 64, ragged lengths.
@@ -591,7 +657,8 @@ def train_kernel_phase(torch, t_prime):
                     library_ms=lib_bwd_ms,
                     library_note="F.ctc_loss backward to [T', B, V] "
                                  "log-probs", **common))
-    return out, {"fused_ffn": ffn_fwd_ms, "rel_flash_attention": att_fwd_ms}
+    return out, {"fused_ffn": (ffn_fwd_ms, ffn_fwd_bound),
+                 "rel_flash_attention": (att_fwd_ms, None)}
 
 
 def train_batch(torch, rng, b, n_samples, u, vocab, device):
@@ -746,8 +813,19 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     b, t, u1, d, k = TR_B, t_prime, TR_U + 1, cfg.d_model, cfg.kernel_size
     out = []
 
-    # K2 and K3 at B 32 (the flagship step's checks are at B 64).
-    check_ffn_bwd(torch, ffn, b * t, d, cfg.d_ff, r)
+    # K2 and K3 at B 32 (the flagship step's checks are at B 64); K2's
+    # backward timed beside its plain composition at this shape too.
+    args, gb, _, plain_bwd = check_ffn_bwd(torch, ffn, b * t, d, cfg.d_ff, r)
+    plain_ms = median_ms(torch, plain_bwd)
+    del plain_bwd
+    ms, launch_ms, peak_mb = ffn_bwd_detail(torch, ffn, args, gb, b * t)
+    print(f"K2 fused_ffn backward bfloat16 N={b * t}: plain composition "
+          f"{plain_ms:.4f} ms in the same call")
+    ffn_bwd_tr = {"ms_at_transducer_shape": ms,
+                  "plain_ms_at_transducer_shape": plain_ms,
+                  "launch_ms_at_transducer_shape": launch_ms,
+                  "peak_mb_at_transducer_shape": peak_mb}
+    del args, gb
     check_attention_bwd(torch, fa, b, cfg.n_head, t, d // cfg.n_head, r)
 
     # K5: tables of log-softmaxed logits, ragged T' and U, fp32 only.
@@ -903,7 +981,7 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     if not (torch.isfinite(o).all() and rel <= TOL["bfloat16"]):
         raise AssertionError("K6 at the decode's shape disagrees with its "
                              "plain version")
-    return out
+    return out, ffn_bwd_tr
 
 
 def transducer_train_phase(torch, card):
@@ -1100,7 +1178,9 @@ def main() -> int:
     kernels += train_kernels
     train_launches, _ = train_phase(torch, card)
     train_cpu_vs_card(torch)
-    kernels += transducer_kernel_phase(torch, t_train, t_prime)
+    tr_kernels, ffn_bwd_tr = transducer_kernel_phase(torch, t_train, t_prime)
+    kernels += tr_kernels
+    next(k for k in kernels if k["name"] == "fused_ffn_bwd").update(ffn_bwd_tr)
     tr_launches, _ = transducer_train_phase(torch, card)
     transducer_cpu_vs_card(torch)
     tr_decode = transducer_decode_phase(torch, card)
@@ -1115,7 +1195,9 @@ def main() -> int:
         kern["launches_per_transducer_step"] = tr_launches[name] // TRAIN_STEPS
         if name in decode_launches:
             kern["launches_per_decode"] = decode_launches[name]
-            kern["ms_at_train_shape"] = fwd_train_ms[name]
+            kern["ms_at_train_shape"], bnd = fwd_train_ms[name]
+            if bnd is not None:
+                kern["bound_ms_at_train_shape"] = bnd
         if name in tr_decode:
             kern["launches_per_transducer_decode"] = tr_decode[name]
         print(f"{name}: {kern['ms']:.4f} ms (plain {kern['plain_ms']:.4f}"

@@ -21,6 +21,7 @@
 // the simple first version (WMMA bf16 tiles staged through shared memory, no
 // pipelining, one block per SM at the flagship shape); wgmma/TMA come later.
 #include "common.cuh"
+#include "mma_gemm.cuh"
 
 namespace espnet {
 
@@ -98,22 +99,20 @@ int launch_ffn(const void* x, const void* w1, const float* b1, const void* w2, c
 }
 
 
-// ---- Backward -------------------------------------------------------------
+// ---- Backward, float32 ----------------------------------------------------
 //
-// Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel. From the output
-// cotangent g it recomputes s = x W1 + b1 chunk by chunk over F (no [N, F]
-// hidden in device memory) and forms
+// The fp32 instantiation of espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel,
+// which serves the fp32 card-against-CPU checks (the bf16 backward is the
+// tensor-core version further below). From the output cotangent g it
+// recomputes s = x W1 + b1 chunk by chunk over F and forms
 //   dW2 = hd^T g, db2 = sum g, dh = g W2^T, ds = dh * swish'(s),
 //   dW1 = x^T ds, db1 = sum ds, dx = ds W1^T,
-// with swish'(s) = sig(s) (1 + s (1 - sig(s))), hd and ds rounded to the
-// element type before the products (fp32 accumulation), as the reference does.
-// Two kernels, each recomputing s and dh: dx (one block per BM rows, F walked
-// in BF chunks, the [BM, D] fp32 dx accumulator in shared memory) and dw (one
-// block per (F chunk, row split), that chunk of W1 and W2 resident, dW1^T /
-// dW2 / db1 / db2 accumulated over the split's row tiles in shared memory and
-// written as per-split fp32 partials that the wrapper sums: deterministic, no
-// atomics). The bound is the tensor cores, as in the forward (~6x the
-// forward's FLOPs with the recompute).
+// with swish'(s) = sig(s) (1 + s (1 - sig(s))). Two kernels, each
+// recomputing s and dh: dx (one block per BM rows, F walked in BF chunks, the
+// [BM, D] accumulator in shared memory) and dw (one block per (F chunk, row
+// split), dW1^T / dW2 / db1 / db2 accumulated over the split's row tiles in
+// shared memory and written as per-split partials that the wrapper sums:
+// deterministic, no atomics).
 
 struct FfnBwdLayout {
   size_t xs, gs, w1s, w2s, sf, dhf, t1, t2, acc1, acc2, db1, db2, total;
@@ -310,6 +309,247 @@ int launch_ffn_bwd(const void* x, const void* w1, const float* b1, const void* w
   return (int)cudaGetLastError();
 }
 
+
+// ---- Backward, bf16: three tensor-core GEMM kernels -------------------------
+//
+// Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel (the pallas_call of
+// fused_ffn's core_bwd) in bf16. It computes, with the reference's rounding
+// points and fp32 accumulation,
+//   s = x W1 + b1; sig = sigmoid(s); hd = bf16(s sig)
+//   dW2 = hd^T g; db2 = sum g; dh = g W2^T; ds = dh sig (1 + s (1 - sig))
+//   dW1 = x^T bf16(ds); db1 = sum ds (fp32); dx = bf16(ds) W1^T.
+//
+// Bound: the tensor cores. The five products are 10 N D F operations (D2 =
+// D): 78.5 GFLOP at the flagship train shape (N = 64 x 468, D 256, F 1024),
+// 0.0794 ms at 989 TFLOP/s, against ~19 MB of compulsory traffic (0.006 ms
+// at 3.35 TB/s).
+//
+// Why scratch, not the TPU's single pass: the TPU kernel walks row tiles in
+// order on one core and sums dW1 / dW2 in VMEM across its grid. 132 SMs
+// running blocks in no order cannot carry a sum from block to block, and a
+// block that recomputes s and dh for its own dW tile (the fp32 path above)
+// repeats two of the five products. So the hidden is formed once, by
+// `rows`, and written as two bf16 [N, F] scratch tensors (hd and ds: 2 x 61
+// MB at the flagship shape, ~0.07 ms of extra traffic); `dx` and `dw` then
+// read them. Every product is the register-accumulator mainloop of
+// mma_gemm.cuh fed by a 4-stage cp.async ring:
+//   rows  grid (F / 64, N / 128): S = x W1[:, tile] and DH = g W2[tile, :]^T
+//         into two 128 x 64 register tiles; the epilogue writes hd and ds
+//         (bf16), zeroes rows >= N, and writes the fp32 column sums of ds
+//         as one db1 partial per row tile.
+//   dx    grid (D / 128, N / 128): DS W1^T, both operands K-contiguous.
+//   dw    grid (dW1 tiles + dW2 tiles, S splits of N): dW1 = x^T DS and
+//         dW2 = H^T g as 128 x 128 tiles (both operands N-row-major, read
+//         through ldmatrix.trans), each split writing fp32 partials; the
+//         blocks of dW2's first row of tiles also sum g's columns (db2)
+//         from the stages as they land.
+// The wrapper sums the partials (deterministic, no atomics). The scratch
+// lives only for the call; the forward still keeps no hidden.
+
+namespace ffn_bwd {
+
+using mma::Gemm;
+using mma::Major;
+constexpr int kStages = 4;
+constexpr int kRowTile = 128;  // rows of N per rows / dx block, and per db1 partial
+constexpr int kRowsF = 64;     // F columns per rows block
+// rows: both products share the warp layout (4 x 2 warps of 32 x 32), so
+// their accumulators line up element for element.
+using RowsS = Gemm<kRowTile, kRowsF, 32, 32, 32, kStages, Major::K, Major::MN>;
+using RowsDH = Gemm<kRowTile, kRowsF, 32, 32, 32, kStages, Major::K, Major::K>;
+using Dx = Gemm<kRowTile, 128, 32, 64, 32, kStages, Major::K, Major::K>;
+using Dw = Gemm<128, 128, 32, 64, 32, kStages, Major::MN, Major::MN>;
+constexpr size_t kRowsSmem =
+    RowsS::kSmemBytes > RowsDH::kSmemBytes ? RowsS::kSmemBytes : RowsDH::kSmemBytes;
+static_assert(RowsS::kThreads == kThreads && RowsDH::kThreads == kThreads &&
+                  Dx::kThreads == kThreads && Dw::kThreads == kThreads,
+              "one block shape");
+
+__host__ __device__ constexpr long cdiv(long a, long b) { return (a + b - 1) / b; }
+
+__global__ void __launch_bounds__(kThreads, 2)
+    rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                const float* __restrict__ b1, const bf16* __restrict__ w2,
+                const bf16* __restrict__ g, bf16* __restrict__ hd, bf16* __restrict__ ds,
+                float* __restrict__ db1p, int n, int d, int f, int d2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const long n0 = (long)blockIdx.x * kRowsF;
+  const long m0 = (long)blockIdx.y * kRowTile;
+  RowsS::Acc s, dh;
+  RowsS::zero(s);
+  RowsS::zero(dh);
+  RowsS::run(s, ring, x, d, w1, f, m0, n0, n, f, 0, d);     // x [N, D] . W1 [D, F]
+  RowsDH::run(dh, ring, g, d2, w2, d2, m0, n0, n, f, 0, d2);  // g [N, D2] . W2 [F, D2]^T
+
+  float csum[RowsS::NT][2];
+#pragma unroll
+  for (int j = 0; j < RowsS::NT; ++j) {
+    const long c = n0 + RowsS::frag_col(j);
+    const bool col_ok = c < f;  // F is a multiple of the tile: always, kept as a guard
+    const float bias0 = col_ok ? b1[c] : 0.0f, bias1 = col_ok ? b1[c + 1] : 0.0f;
+    csum[j][0] = csum[j][1] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < RowsS::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long r = m0 + RowsS::frag_row(i, h);
+        float hv[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sv = s[i][j][2 * h + e] + (e ? bias1 : bias0);
+          const float sig = 1.0f / (1.0f + __expf(-sv));
+          hv[e] = sv * sig;
+          dv[e] = dh[i][j][2 * h + e] * sig * (1.0f + sv * (1.0f - sig));
+        }
+        if (r < n) {
+          if (col_ok) {
+            *reinterpret_cast<__nv_bfloat162*>(hd + r * f + c) =
+                __floats2bfloat162_rn(hv[0], hv[1]);
+            *reinterpret_cast<__nv_bfloat162*>(ds + r * f + c) =
+                __floats2bfloat162_rn(dv[0], dv[1]);
+          }
+          csum[j][0] += dv[0];  // rows >= N add nothing
+          csum[j][1] += dv[1];
+        }
+      }
+  }
+  // Column sums: over the 8 lanes that share a column pair, then over the
+  // 4 warps along M through shared memory (the ring is free after run).
+  float* red = reinterpret_cast<float*>(smem);  // [4][kRowsF]
+  const int warp_m = (threadIdx.x >> 5) / RowsS::kWarpsN;
+#pragma unroll
+  for (int j = 0; j < RowsS::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = csum[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if ((threadIdx.x & 31) < 4) red[warp_m * kRowsF + RowsS::frag_col(j) + e] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < kRowsF && n0 + threadIdx.x < f) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kRowTile / 32; ++w) v += red[w * kRowsF + threadIdx.x];
+    db1p[(long)blockIdx.y * f + n0 + threadIdx.x] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    dx_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ w1, bf16* __restrict__ dx,
+              int n, int d, int f) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long n0 = (long)blockIdx.x * 128;
+  const long m0 = (long)blockIdx.y * kRowTile;
+  Dx::Acc acc;
+  Dx::zero(acc);
+  // DS [N, F] . W1 [D, F]^T
+  Dx::run(acc, reinterpret_cast<bf16*>(smem), ds, f, w1, f, m0, n0, n, d, 0, f);
+  Dx::epilogue(acc, [&](int r, int c, float v0, float v1) {
+    const long row = m0 + r, col = n0 + c;
+    if (row < n && col < d) {
+      *reinterpret_cast<__nv_bfloat162*>(dx + row * d + col) = __floats2bfloat162_rn(v0, v1);
+    }
+  });
+}
+
+// Column sums of dw's B stage (g rows [BK, 128], MN-major): thread t sums
+// column t % 128 over half t / 128 of the stage's rows.
+struct ColumnSum {
+  bool on;
+  float sum;
+  __device__ __forceinline__ void operator()(const bf16*, const bf16* sb) {
+    if (!on) return;
+    const bf16* p = sb + (threadIdx.x >> 7) * 16 * Dw::B_LD + (threadIdx.x & 127);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) sum += __bfloat162float(p[r * Dw::B_LD]);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+    dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ds, const bf16* __restrict__ hd,
+              const bf16* __restrict__ g, float* __restrict__ dw1p, float* __restrict__ dw2p,
+              float* __restrict__ db2p, int n, int d, int f, int d2, long kchunk) {
+  static_assert(kThreads == 2 * 128 && Dw::B_LD == 128 + 8, "ColumnSum's thread map");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const long split = blockIdx.y;
+  const long k0 = split * kchunk, k1 = k0 + kchunk < n ? k0 + kchunk : n;
+  const int tiles1 = (int)(cdiv(d, 128) * cdiv(f, 128));
+  int t = blockIdx.x;
+  Dw::Acc acc;
+  Dw::zero(acc);
+  long m0, n0, rows, cols;
+  float* out;
+  ColumnSum db2{false, 0.0f};
+  if (t < tiles1) {  // dW1 [D, F] = x^T [D, N] . DS [N, F]
+    const int tn = (int)cdiv(f, 128);
+    m0 = (long)(t / tn) * 128;
+    n0 = (long)(t % tn) * 128;
+    rows = d;
+    cols = f;
+    out = dw1p + split * d * f;
+    Dw::run(acc, ring, x, d, ds, f, m0, n0, d, f, k0, k1);
+  } else {  // dW2 [F, D2] = H^T [F, N] . g [N, D2]
+    t -= tiles1;
+    const int tn = (int)cdiv(d2, 128);
+    m0 = (long)(t / tn) * 128;
+    n0 = (long)(t % tn) * 128;
+    rows = f;
+    cols = d2;
+    out = dw2p + split * f * d2;
+    db2.on = m0 == 0;
+    Dw::run(acc, ring, hd, f, g, d2, m0, n0, f, d2, k0, k1, db2);
+  }
+  Dw::epilogue(acc, [&](int r, int c, float v0, float v1) {
+    const long row = m0 + r, col = n0 + c;
+    if (row < rows && col < cols) {
+      *reinterpret_cast<float2*>(out + row * cols + col) = make_float2(v0, v1);
+    }
+  });
+  if (db2.on) {  // block-uniform
+    float* red = reinterpret_cast<float*>(smem);  // [2][128]; the ring is free after run
+    red[threadIdx.x] = db2.sum;
+    __syncthreads();
+    if (threadIdx.x < 128 && n0 + threadIdx.x < d2) {
+      db2p[split * d2 + n0 + threadIdx.x] = red[threadIdx.x] + red[128 + threadIdx.x];
+    }
+  }
+}
+
+// Launches rows, dx and dw on `stream`; returns the first non-zero
+// cudaError_t. db1p holds cdiv(n, kRowTile) partials, dw1p / dw2p / db2p
+// nsplit each; hd and ds are [n, f] scratch.
+inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const bf16* g,
+                  bf16* dx, bf16* hd, bf16* ds, float* dw1p, float* db1p, float* dw2p,
+                  float* db2p, int nsplit, int n, int d, int f, int d2, cudaStream_t stream) {
+  const long row_tiles = cdiv(n, kRowTile);
+  if (n <= 0 || d % 16 || d2 % 16 || f % kRowsF || nsplit <= 0 || nsplit > 65535 ||
+      row_tiles > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long kchunk = cdiv(cdiv(n, nsplit), 32) * 32;
+  cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
+  cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)Dx::kSmemBytes);
+  cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)Dw::kSmemBytes);
+  rows_kernel<<<dim3((unsigned)cdiv(f, kRowsF), (unsigned)row_tiles), kThreads, kRowsSmem,
+                stream>>>(x, w1, b1, w2, g, hd, ds, db1p, n, d, f, d2);
+  if (int err = (int)cudaGetLastError()) return err;
+  dx_kernel<<<dim3((unsigned)cdiv(d, 128), (unsigned)row_tiles), kThreads, Dx::kSmemBytes,
+              stream>>>(ds, w1, dx, n, d, f);
+  if (int err = (int)cudaGetLastError()) return err;
+  const long tiles = cdiv(d, 128) * cdiv(f, 128) + cdiv(f, 128) * cdiv(d2, 128);
+  dw_kernel<<<dim3((unsigned)tiles, (unsigned)nsplit), kThreads, Dw::kSmemBytes, stream>>>(
+      x, ds, hd, g, dw1p, dw2p, db2p, n, d, f, d2, kchunk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ffn_bwd
+
 }  // namespace espnet
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = launched).
@@ -329,17 +569,26 @@ extern "C" const char* espnet_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Backward. g: [N, D2] (x's type); dx: [N, D]; per-split fp32 partials
-// dw1p [nsplit, D, F], db1p [nsplit, F], dw2p [nsplit, F, D2], db2p
-// [nsplit, D2], summed by the caller. Returns a cudaError_t code.
+// Rows of N per db1 partial of the bf16 backward.
+extern "C" int espnet_fused_ffn_bwd_row_tile() { return espnet::ffn_bwd::kRowTile; }
+
+// Backward. g: [N, D2] (x's type); dx: [N, D]; fp32 partials, summed by the
+// caller: dw1p [nsplit, D, F], dw2p [nsplit, F, D2], db2p [nsplit, D2], and
+// db1p [parts, F] with parts = cdiv(N, espnet_fused_ffn_bwd_row_tile()) in
+// bf16 and nsplit in fp32. hd and ds: bf16 [N, F] scratch of the bf16 path
+// (unused in fp32). Returns a cudaError_t code.
 extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, const float* b1,
-                                    const void* w2, const void* g, void* dx, float* dw1p,
-                                    float* db1p, float* dw2p, float* db2p, int nsplit, int n,
-                                    int d, int f, int d2, void* stream) {
+                                    const void* w2, const void* g, void* dx, void* hd, void* ds,
+                                    float* dw1p, float* db1p, float* dw2p, float* db2p,
+                                    int nsplit, int n, int d, int f, int d2, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  using espnet::bf16;
   if (dtype == 1) {
-    return espnet::launch_ffn_bwd<espnet::bf16, 64, 32>(x, w1, b1, w2, g, dx, dw1p, db1p, dw2p,
-                                                        db2p, nsplit, n, d, f, d2, s);
+    return espnet::ffn_bwd::launch(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+        static_cast<const bf16*>(w2), static_cast<const bf16*>(g), static_cast<bf16*>(dx),
+        static_cast<bf16*>(hd), static_cast<bf16*>(ds), dw1p, db1p, dw2p, db2p, nsplit, n, d, f,
+        d2, s);
   }
   if (dtype == 0) {
     return espnet::launch_ffn_bwd<float, 16, 32>(x, w1, b1, w2, g, dx, dw1p, db1p, dw2p, db2p,

@@ -1,0 +1,265 @@
+// A bf16 tensor-core GEMM mainloop for the port's kernels: C += A * B over a
+// range of K, for one BM x BN block tile, with fp32 accumulators in
+// registers.
+//
+//   - Tensor cores through inline PTX: `ldmatrix` (`.trans` for an operand
+//     whose K is not the contiguous axis) and
+//     `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`.
+//   - A ring of STAGES shared-memory stages filled by `cp.async.cg` (16
+//     bytes a thread), STAGES - 1 tiles in flight while the tensor cores
+//     work on the oldest. Every shared row is padded by 16 bytes, so the
+//     eight row addresses of one `ldmatrix` fall in eight distinct 4-bank
+//     groups (no bank conflicts) for the tile widths used here.
+//   - A ragged M, N or K edge is zero-filled by `cp.async` with a source
+//     size of 0; the epilogue masks its stores.
+//   - Operand layouts are template parameters (`Major`), the epilogue is a
+//     functor that receives each thread's accumulator pairs with their
+//     (row, column), and a per-stage hook may read each landed stage (a
+//     column sum of an operand rides along for free).
+//
+// No CUTLASS / CuTe: the header is self-contained so that the build inside
+// chip_smoke.py's time limit stays a few seconds. wgmma and TMA are a later
+// step; this is the Ampere-style mainloop, which Hopper runs unchanged.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace espnet {
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+// Where the reduction axis K lies in memory for an operand X with rows i (M
+// for A, N for B): K-major, X(i, k) = p[i * ld + k]; MN-major, X(i, k) =
+// p[k * ld + i].
+enum class Major { K, MN };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid == false nothing is read and the 16
+// bytes are zero-filled (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A per-stage hook that does nothing.
+struct NoHook {
+  __device__ __forceinline__ void operator()(const bf16*, const bf16*) {}
+};
+
+// One block tile of BM x BN over warps of WM x WN (warp w owns rows
+// (w / (BN / WN)) * WM and columns (w % (BN / WN)) * WN of the tile), K
+// walked in steps of BK through a ring of STAGES shared-memory stages.
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, Major AL, Major BL>
+struct Gemm {
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kThreads = (BM / WM) * kWarpsN * 32;
+  static constexpr int MT = WM / 16;  // m16 tiles per warp
+  static constexpr int NT = WN / 8;   // n8 tiles per warp
+  static constexpr int kPad = 8;      // 16 bytes of bf16
+  // Shared tiles: rows x cols with cols contiguous, padded.
+  static constexpr int A_ROWS = AL == Major::K ? BM : BK;
+  static constexpr int A_LD = (AL == Major::K ? BK : BM) + kPad;
+  static constexpr int B_ROWS = BL == Major::K ? BN : BK;
+  static constexpr int B_LD = (BL == Major::K ? BK : BN) + kPad;
+  static constexpr int A_ELEMS = A_ROWS * A_LD;
+  static constexpr int STAGE_ELEMS = A_ELEMS + B_ROWS * B_LD;
+  static constexpr size_t kSmemBytes = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16);
+  static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 16 == 0, "warp tile");
+  static_assert(BK % 16 == 0 && STAGES >= 2, "k step");
+
+  using Acc = float[MT][NT][4];
+
+  __device__ __forceinline__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  }
+
+  // rows x cols (cols contiguous, a multiple of 8) of global p (leading
+  // dimension ld) from (r0, c0) into the padded shared tile s; a 16-byte
+  // chunk with row >= rlim or column >= clim is zero-filled.
+  template <int ROWS, int COLS, int LD>
+  __device__ __forceinline__ static void load_tile(bf16* s, const bf16* p, long ld, long r0,
+                                                   long c0, long rlim, long clim) {
+    constexpr int CH = COLS / 8;
+    constexpr int TOTAL = ROWS * CH;
+    static_assert(TOTAL % kThreads == 0, "tile chunks per thread");
+#pragma unroll
+    for (int i = 0; i < TOTAL / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / CH;
+      const int c = (idx - r * CH) * 8;
+      const long gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < rlim && gc < clim;
+      cp_async16(s + r * LD + c, ok ? p + gr * ld + gc : p, ok);
+    }
+  }
+
+  // Stage `slot` <- the K step starting at kb.
+  __device__ __forceinline__ static void load_stage(bf16* ring, int slot, const bf16* A, long lda,
+                                                    const bf16* B, long ldb, long m0, long n0,
+                                                    long mlim, long nlim, long kb, long klim) {
+    bf16* sa = ring + slot * STAGE_ELEMS;
+    bf16* sb = sa + A_ELEMS;
+    if constexpr (AL == Major::K) {
+      load_tile<BM, BK, A_LD>(sa, A, lda, m0, kb, mlim, klim);
+    } else {
+      load_tile<BK, BM, A_LD>(sa, A, lda, kb, m0, klim, mlim);
+    }
+    if constexpr (BL == Major::K) {
+      load_tile<BN, BK, B_LD>(sb, B, ldb, n0, kb, nlim, klim);
+    } else {
+      load_tile<BK, BN, B_LD>(sb, B, ldb, kb, n0, klim, nlim);
+    }
+  }
+
+  // The warp's products over one landed stage.
+  __device__ __forceinline__ static void compute_stage(Acc& acc, const bf16* sa, const bf16* sb) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int wm = (warp / kWarpsN) * WM, wn = (warp % kWarpsN) * WN;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MT][4];
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int m = wm + i * 16;
+        if constexpr (AL == Major::K) {
+          // 8x8 matrices (m +0/+8, k +0/+8) in the order of the A fragment.
+          ldsm_x4<false>(a[i], sa + (m + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
+        } else {
+          ldsm_x4<true>(a[i], sa + (kk + (lane & 7) + (lane >> 4) * 8) * A_LD + m +
+                                  ((lane >> 3) & 1) * 8);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const int n = wn + j * 8;
+        uint32_t r[4];  // (n +0, k +0), (n +0, k +8), (n +8, k +0), (n +8, k +8)
+        if constexpr (BL == Major::K) {
+          ldsm_x4<false>(r, sb + (n + (lane & 7) + (lane >> 4) * 8) * B_LD + kk +
+                                ((lane >> 3) & 1) * 8);
+        } else {
+          ldsm_x4<true>(r, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD + n +
+                               (lane >> 4) * 8);
+        }
+        b[j][0] = r[0];
+        b[j][1] = r[1];
+        b[j + 1][0] = r[2];
+        b[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+
+  // acc += A[m0 : m0 + BM, k0 : k1] * B[k0 : k1, n0 : n0 + BN], rows of A
+  // past mlim, columns of B past nlim and K past k1 read as zero. `ring`
+  // holds kSmemBytes of dynamic shared memory; hook(sa, sb) sees every
+  // landed stage before its products. Called by the whole block; ends with
+  // the ring free for reuse.
+  __device__ __forceinline__ static void run(Acc& acc, bf16* ring, const bf16* A, long lda,
+                                             const bf16* B, long ldb, long m0, long n0, long mlim,
+                                             long nlim, long k0, long k1) {
+    NoHook none;
+    run(acc, ring, A, lda, B, ldb, m0, n0, mlim, nlim, k0, k1, none);
+  }
+
+  // (Inlined, so that the accumulators stay in registers.)
+  template <class Hook>
+  __device__ __forceinline__ static void run(Acc& acc, bf16* ring, const bf16* A, long lda,
+                                             const bf16* B, long ldb, long m0, long n0, long mlim,
+                                             long nlim, long k0, long k1, Hook& hook) {
+    const int kt_total = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < kt_total) {
+        load_stage(ring, s, A, lda, B, ldb, m0, n0, mlim, nlim, k0 + (long)s * BK, k1);
+      }
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < kt_total; ++kt) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage kt landed for all; stage kt - 1 read by all
+      const int next = kt + STAGES - 1;
+      if (next < kt_total) {
+        load_stage(ring, next % STAGES, A, lda, B, ldb, m0, n0, mlim, nlim, k0 + (long)next * BK,
+                   k1);
+      }
+      cp_async_commit();
+      const bf16* sa = ring + (kt % STAGES) * STAGE_ELEMS;
+      hook(sa, sa + A_ELEMS);
+      compute_stage(acc, sa, sa + A_ELEMS);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // acc[i][j][2h] and acc[i][j][2h + 1] hold the block tile's elements
+  // (frag_row(i, h), frag_col(j)) and (frag_row(i, h), frag_col(j) + 1),
+  // relative to the tile's origin.
+  __device__ __forceinline__ static int frag_row(int i, int h) {
+    return ((threadIdx.x >> 5) / kWarpsN) * WM + i * 16 + ((threadIdx.x & 31) >> 2) + h * 8;
+  }
+  __device__ __forceinline__ static int frag_col(int j) {
+    return ((threadIdx.x >> 5) % kWarpsN) * WN + j * 8 + (threadIdx.x & 3) * 2;
+  }
+
+  // Calls epi(row, col, v0, v1) for each accumulator pair of the thread
+  // (coordinates as frag_row / frag_col; col is even).
+  template <class Epi>
+  __device__ __forceinline__ static void epilogue(const Acc& acc, Epi&& epi) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          epi(frag_row(i, h), frag_col(j), acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+  }
+};
+
+}  // namespace mma
+}  // namespace espnet

@@ -101,9 +101,11 @@ def library() -> ctypes.CDLL:
     lib.espnet_rel_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i,
                                          f, i, i, p]
     lib.espnet_rel_flash_fwd.restype = i
-    lib.espnet_fused_ffn_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i,
-                                         i, i, i, p]
+    lib.espnet_fused_ffn_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, p]
     lib.espnet_fused_ffn_bwd.restype = i
+    lib.espnet_fused_ffn_bwd_row_tile.argtypes = []
+    lib.espnet_fused_ffn_bwd_row_tile.restype = i
     lib.espnet_rel_flash_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p,
                                          p, p, p, i, i, i, i, f, i, i, p]
     lib.espnet_rel_flash_bwd.restype = i

@@ -2,11 +2,15 @@
 
 Port of espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn. On a CUDA tensor the
 wrapper is a ``torch.autograd.Function`` that launches the hand-written
-kernels in ``csrc/ffn.cu``: the forward, and a backward that recomputes the
-hidden chunk by chunk; neither writes the [N, d_ff] hidden to device memory.
-On a CPU tensor it runs ``fused_ffn_plain``, the same function in plain
-PyTorch, whose gradients are PyTorch's autograd. There is no other route: a
-CUDA tensor the kernel does not take raises.
+kernels in ``csrc/ffn.cu``: the forward, which writes no [N, d_ff] hidden to
+device memory (the autograd context keeps only the inputs), and a backward.
+In bf16 the backward is three tensor-core GEMM kernels (rows, dx, dW) that
+pass the rounded hidden and its gradient through [N, d_ff] scratch for the
+length of the call; in fp32 it recomputes the hidden chunk by chunk.
+``fused_ffn_bwd_plain`` is that backward at the kernel's rounding points.
+On a CPU tensor the wrapper runs ``fused_ffn_plain``, the same function in
+plain PyTorch, whose gradients are PyTorch's autograd. There is no other
+route: a CUDA tensor the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -49,8 +53,32 @@ def _check(x, w1, b1, w2, b2, dropout_rate):
         raise ValueError("fused_ffn: all arguments must be contiguous")
 
 
-# Row splits of the dW/db reduction (per-split fp32 partials, summed here).
+def fused_ffn_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                        w2: torch.Tensor, g: torch.Tensor):
+    """The backward of fused_ffn at the kernel's rounding points: (dx, dW1,
+    db1, dW2, db2) for the output cotangent g [..., D2] (x.dtype).
+
+    As espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel: products in fp32 of
+    x.dtype operands; the hidden hd and ds rounded to x.dtype before the
+    products that take them; db1 summed from the unrounded ds; dx, dW1 and
+    dW2 returned in x.dtype, the bias gradients in fp32."""
+    d = x.shape[-1]
+    xf, gf = x.reshape(-1, d).float(), g.reshape(-1, g.shape[-1]).float()
+    s = xf @ w1.float() + b1.float()
+    sig = torch.sigmoid(s)
+    hd = (s * sig).to(x.dtype).float()
+    ds = (gf @ w2.float().t()) * (sig * (1.0 + s * (1.0 - sig)))
+    ds_c = ds.to(x.dtype).float()
+    dx = (ds_c @ w1.float().t()).to(x.dtype).reshape(x.shape)
+    return (dx, (xf.t() @ ds_c).to(w1.dtype), ds.sum(0),
+            (hd.t() @ gf).to(w2.dtype), gf.sum(0))
+
+
+# Row splits of the fp32 path's dW/db reduction (per-split partials, summed
+# here); the bf16 path splits N into at most BF16_DW_SPLITS ranges of at
+# least 512 rows.
 DW_SPLITS = 16
+BF16_DW_SPLITS = 8
 
 
 def _launch_fwd(x, w1, b1, w2, b2):
@@ -76,16 +104,27 @@ def _launch_bwd(x, w1, b1, w2, g):
         return (torch.zeros_like(x), torch.zeros_like(w1),
                 torch.zeros_like(b1), torch.zeros_like(w2),
                 torch.zeros(d2, device=dev))
-    nsplit = max(1, min(DW_SPLITS, n // 64))
+    lib = build.library()
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=dev)
+    if x.dtype == torch.bfloat16:
+        # rows -> dx -> dw: the hidden hd and ds go through [N, F] scratch
+        # (freed when the call returns); db1 is summed per row tile.
+        nsplit = max(1, min(BF16_DW_SPLITS, n // 512))
+        parts = -(-n // lib.espnet_fused_ffn_bwd_row_tile())
+        hd = torch.empty(n, f, dtype=x.dtype, device=dev)
+        ds = torch.empty(n, f, dtype=x.dtype, device=dev)
+        scratch = (hd.data_ptr(), ds.data_ptr())
+    else:
+        nsplit = parts = max(1, min(DW_SPLITS, n // 64))
+        scratch = (None, None)
     dw1p = torch.empty(nsplit, d, f, **f32)
-    db1p = torch.empty(nsplit, f, **f32)
+    db1p = torch.empty(parts, f, **f32)
     dw2p = torch.empty(nsplit, f, d2, **f32)
     db2p = torch.empty(nsplit, d2, **f32)
-    build.check(build.library().espnet_fused_ffn_bwd(
+    build.check(lib.espnet_fused_ffn_bwd(
         build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(), *scratch,
         dw1p.data_ptr(), db1p.data_ptr(), dw2p.data_ptr(), db2p.data_ptr(),
         nsplit, n, d, f, d2, build.stream_ptr(x)), "fused_ffn backward")
     fused_ffn.bwd_launches += 1

@@ -22,6 +22,11 @@ from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The bf16 FFN backward against fused_ffn_bwd_plain (the same rounding
+# points): what remains is fp32 summation order, which can move a bf16
+# output by one unit in the last place (2^-8 to 2^-7 of itself); chip_smoke.py
+# states the margin.
+BWD_PLAIN_TOL = 1e-2
 
 
 @pytest.fixture
@@ -134,9 +139,14 @@ def _check_grads(kernel_fn, plain_fn, args, cot, tol, names):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,d,f,d2", [(1, 256, 1024, 256), (33, 64, 128, 32),
-                                      (100, 128, 256, 128),
-                                      (1000, 256, 1024, 256)])
+@pytest.mark.parametrize("n,d,f,d2", [
+    (1, 256, 1024, 256), (33, 64, 128, 32), (100, 128, 256, 128),
+    (1000, 256, 1024, 256),
+    # the bf16 kernels' tile edges: N around a 128-row tile, N split into
+    # 8 ranges of 544 rows with a ragged last one (4097), F a multiple of
+    # the F multiple but not of a 128-wide dW tile, D2 = 32 under one
+    (127, 128, 256, 128), (128, 128, 256, 128), (129, 128, 256, 128),
+    (4097, 256, 1024, 256), (300, 256, 192, 256), (200, 256, 256, 32)])
 def test_fused_ffn_backward(gen, dtype, n, d, f, d2):
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     args = (r(n, d).to(dtype), (r(d, f) * d ** -0.5).to(dtype), r(f) * 0.1,
@@ -145,6 +155,24 @@ def test_fused_ffn_backward(gen, dtype, n, d, f, d2):
     _check_grads(ffn.fused_ffn, ffn.fused_ffn_plain, args, r(n, d2),
                  TOL[dtype], ("dx", "dw1", "db1", "dw2", "db2"))
     assert ffn.fused_ffn.bwd_launches == before + 1
+
+
+@pytest.mark.parametrize("n,d,f,d2", [(129, 128, 256, 128),
+                                      (4097, 256, 1024, 256),
+                                      (200, 256, 192, 32)])
+def test_fused_ffn_backward_bf16_at_its_rounding_points(gen, n, d, f, d2):
+    """The bf16 backward kernels against fused_ffn_bwd_plain, which rounds
+    hd and ds where they do: within BWD_PLAIN_TOL of max |ref| per output."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    bf = torch.bfloat16
+    args = (r(n, d).to(bf), (r(d, f) * d ** -0.5).to(bf), r(f) * 0.1,
+            (r(f, d2) * f ** -0.5).to(bf), r(n, d2).to(bf))
+    out = ffn._launch_bwd(*args)
+    ref = ffn.fused_ffn_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel(a, b) <= BWD_PLAIN_TOL, name
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

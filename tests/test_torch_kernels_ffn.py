@@ -5,6 +5,8 @@ fused_ffn_plain; it is held here to the Pallas kernel in interpret mode at
 the shapes of tests/test_pallas_ffn.py, and to the flax FeedForward eager
 path. The CUDA kernel itself is held to fused_ffn_plain on the card by
 chip_smoke.py. fp32; tolerance atol 1e-5 / rtol 1e-4 (single op).
+fused_ffn_bwd_plain, the backward at the bf16 kernels' rounding points, is
+held to jax.vjp of the Pallas kernel in bf16 and fp32.
 """
 import jax
 import jax.numpy as jnp
@@ -15,7 +17,9 @@ import torch
 from espnet_slurp_tpu.models.conformer import FeedForward as JaxFeedForward
 from espnet_slurp_tpu.ops.pallas.ffn import fused_ffn as jax_fused_ffn
 from espnet_slurp_tpu_torch.models.conformer import FeedForward
-from espnet_slurp_tpu_torch.ops.kernels.ffn import fused_ffn, fused_ffn_plain
+from espnet_slurp_tpu_torch.ops.kernels.ffn import (fused_ffn,
+                                                     fused_ffn_bwd_plain,
+                                                     fused_ffn_plain)
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
 from torch_parity import t
 
@@ -96,3 +100,32 @@ def test_plain_gradients_match_pallas_interpret():
     for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), leaves, ref):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(r), rtol=5e-4,
                                    atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bwd_plain_matches_pallas_vjp(dtype):
+    """fused_ffn_bwd_plain against jax.vjp of the Pallas kernel (its
+    _bwd_kernel, interpret mode) at N = 256, D = 256, F = 512: dx, dW1,
+    db1, dW2, db2 each within tol of its max |ref|. bf16: both sides round
+    hd and ds to bf16 at the same points and return dx / dW in bf16, so what
+    differs is the fp32 summation order, which can flip a rounding by one
+    unit in the last place (2^-8 to 2^-7 of the value): tol 2^-7 = 7.8e-3.
+    fp32: sums in another order, tol 1e-5."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x, w1, b1, w2, b2 = _inputs(seed=6)
+    cot = np.random.RandomState(7).randn(B, T, D).astype(np.float32)
+    jargs = (jnp.asarray(x, jdt), jnp.asarray(w1, jdt), jnp.asarray(b1),
+             jnp.asarray(w2, jdt), jnp.asarray(b2))
+    _, vjp = jax.vjp(lambda *a: jax_fused_ffn(*a, interpret=True), *jargs)
+    ref = vjp(jnp.asarray(cot, jdt))
+    as_t = lambda a: t(np.asarray(jnp.asarray(a, jnp.float32))).to(tdt)
+    out = fused_ffn_bwd_plain(as_t(jargs[0]), as_t(jargs[1]), t(b1),
+                              as_t(jargs[3]), as_t(jnp.asarray(cot, jdt)))
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), out, ref):
+        r = np.asarray(jnp.asarray(r, jnp.float32))
+        assert a.dtype == (tdt if name in ("dx", "dw1", "dw2")
+                           else torch.float32), name
+        assert a.shape == r.shape, name
+        err = np.abs(a.float().numpy() - r).max() / np.abs(r).max()
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"

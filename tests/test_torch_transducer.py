@@ -9,7 +9,10 @@ SpecAug off, dropout 0, the same seeded inputs and the flax init's weights.
 Tolerances: outputs to 1e-5 (atol; one fp32 chain in another order), the
 loss and its stats to rtol 1e-4, each parameter gradient to 1e-4 of its
 tensor's max |ref| floored at 1e-4 of the largest gradient entry (as
-tests/test_torch_train.py), greedy tokens and texts exactly.
+tests/test_torch_train.py), greedy tokens and texts exactly. Two recorded
+reference-side divergences are asserted as such: the bf16 decode carry of
+PredictionNetwork.init_carry, and the transducer encoder ignoring
+subsampling_factor.
 """
 import dataclasses
 
@@ -25,9 +28,10 @@ from espnet_slurp_tpu.models.asr_model import ASRConfig as JaxASRConfig
 from espnet_slurp_tpu.models import transducer as jtd
 from espnet_slurp_tpu.ops.frontend import FrontendConfig as JaxFrontend
 from espnet_slurp_tpu_torch.ops.specaug import SpecAugConfig
+from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
 from espnet_slurp_tpu_torch.models.transducer import (
-    TransducerConfig, TransducerModel, transducer_flagship_config,
-    transducer_greedy_decode)
+    PredictionNetwork, TransducerConfig, TransducerModel,
+    transducer_flagship_config, transducer_greedy_decode)
 from espnet_slurp_tpu_torch.tasks.asr_transducer import Speech2TextTransducer
 from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
 from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
@@ -44,10 +48,10 @@ ASR = dict(vocab_size=VOCAB, d_model=32, n_head=2, d_ff=64,
 HEAD = dict(pred_dim=24, joint_dim=40, aux_ctc_weight=0.3)
 
 
-def _jax_model(prediction="lstm"):
+def _jax_model(prediction="lstm", **asr_kw):
     cfg = jtd.TransducerConfig(
         asr=JaxASRConfig(frontend=JaxFrontend(n_fft=128, hop_length=64,
-                                              n_mels=16), **ASR),
+                                              n_mels=16), **{**ASR, **asr_kw}),
         prediction=prediction, **HEAD)
     return jtd.TransducerModel(cfg)
 
@@ -138,6 +142,87 @@ def test_prediction_and_joint_match_flax(case, kind):
         joint = model.joint.full(t(enc), t(pred))
     np.testing.assert_allclose(joint.numpy(), np.asarray(ref_joint),
                                atol=1e-5)
+
+
+def test_bf16_prediction_steps_follow_the_training_path():
+    """Reference fault (ROADMAP queue 3): at bf16, PredictionNetwork.
+    init_carry makes the decode carry in bf16, while __call__'s nn.RNN
+    starts from flax's fp32 carry. Vocab 50, P 64, 20 labels, 3 rows.
+
+    - The reference stepped (jit) from an fp32 zero carry reproduces its
+      __call__ exactly, so the carry's type is the whole of the gap;
+      stepped from its own init_carry it strays (recorded: ~1.1e-3 of a
+      largest output of ~0.15).
+    - The port keeps c and h in fp32 both ways: its steps from init_carry
+      equal its own training forward bit for bit, and are held to the
+      reference's __call__ within 3e-3 abs. That margin is bf16 rounding,
+      not the carry: torch and XLA evaluate the bf16 gates in other orders,
+      which moves outputs by about as much as the reference's carry gap."""
+    vocab, p, n_lab, b = 50, 64, 20, 3
+    labels = np.random.RandomState(0).randint(
+        0, vocab, size=(b, n_lab)).astype(np.int32)
+    jnet = jtd.PredictionNetwork(vocab, p, 1, "lstm", dtype=jnp.bfloat16)
+    params = jax.tree.map(np.asarray, jnet.init(
+        jax.random.PRNGKey(0), jnp.asarray(labels))["params"])
+    ref = np.asarray(jnet.apply({"params": params}, jnp.asarray(labels)),
+                     np.float32)
+    step = jax.jit(lambda y, c: jnet.apply(
+        {"params": params}, y, c, method=lambda m, y, c: m.step(y, c)))
+
+    def ref_steps(carry):
+        out = []
+        for u in range(n_lab):
+            g, carry = step(jnp.asarray(labels[:, u]), carry)
+            out.append(np.asarray(g, np.float32))
+        return np.stack(out, 1), carry
+
+    init = jnet.apply({"params": params}, b,
+                      method=lambda m, n: m.init_carry(n))
+    assert init[0][0].dtype == jnp.bfloat16
+    z = jnp.zeros((b, p), jnp.float32)
+    from_fp32, _ = ref_steps([(z, z)])
+    np.testing.assert_array_equal(from_fp32, ref)
+    from_init, _ = ref_steps(init)
+    assert np.abs(from_init - ref).max() > 5e-4
+
+    net = PredictionNetwork(vocab, p, 1, "lstm", dtype=torch.bfloat16)
+    net.load_state_dict(flax_to_torch(params))
+    carry = net.init_carry(b, "cpu")
+    assert all(x.dtype == torch.float32 for x in carry[0])
+    outs = []
+    with torch.no_grad():
+        for u in range(n_lab):
+            g, carry = net.step(t(labels[:, u]).long(), carry)
+            outs.append(g)
+        full = net(t(labels).long())
+    steps = torch.stack(outs, 1)
+    assert torch.equal(steps, full)
+    np.testing.assert_allclose(steps.float().numpy(), ref, atol=3e-3,
+                               rtol=0)
+
+
+def test_encoder_follows_subsampling_factor(case):
+    """Reference fault (ROADMAP queue 3): TransducerModel.setup builds its
+    ConformerEncoder without subsampling_factor, so a config asking for x6
+    still subsamples x4. The port's transducer builds its encoder as
+    ASRModel does and follows the config."""
+    _, _, batch = case
+    jmodel = _jax_model(subsampling_factor=6)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), **batch)["params"]
+    _, ref_len, *_ = jmodel.apply(
+        {"params": params}, jnp.asarray(batch["speech"]),
+        jnp.asarray(batch["speech_lengths"]),
+        method=lambda m, s, sl: m.encode(s, sl))
+    model = TransducerModel(_port_cfg(subsampling_factor=6), device="cpu")
+    assert model.encoder.embed.factor == 6
+    with torch.no_grad():
+        hs, hl = model.encode(t(batch["speech"]), t(batch["speech_lengths"]))
+    frames = [1 + int(n) // 64 for n in batch["speech_lengths"]]  # hop 64
+    want6 = [Conv2dSubsampling.out_length_static(n, 6) for n in frames]
+    want4 = [Conv2dSubsampling.out_length_static(n, 4) for n in frames]
+    assert want6 != want4
+    assert hl.tolist() == want6 and hs.shape[1] == max(want6)
+    assert np.asarray(ref_len).tolist() == want4
 
 
 @pytest.mark.parametrize("fused_conv", [False, True])
