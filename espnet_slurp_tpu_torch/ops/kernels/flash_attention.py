@@ -9,7 +9,8 @@ kernel; no [T, T] or [T, 2T-1] buffer in device memory) and the backward
 (dq_u / dq_v and dk / dv / dp kernels, dp summed over the batch). On CPU
 tensors it runs ``rel_flash_attention_plain``, the same function in plain
 PyTorch, whose gradients are PyTorch's autograd. A CUDA tensor the kernel
-does not take raises.
+does not take raises. ``rel_flash_attention_bwd_plain`` is the backward at
+the kernels' rounding points.
 """
 from __future__ import annotations
 
@@ -60,6 +61,43 @@ def rel_flash_attention_plain(q_u, q_v, k, v, p, lengths, *, scale: float,
     lse = torch.logsumexp(s, dim=-1)
     probs = torch.softmax(s, dim=-1).to(v.dtype)
     return (probs.float() @ v.float()).to(q_u.dtype), lse
+
+
+def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g, *,
+                                  scale: float, chunk_size: int = 0,
+                                  left_chunks: int = -1):
+    """The backward at the kernels' rounding points: (dq_u, dq_v, dk, dv, dp)
+    for the output cotangent g [B, H, T, Dh] (q_u.dtype), given the
+    forward's out and lse.
+
+    As espnet_slurp_tpu/ops/pallas/flash_attention.py:_dkv_kernel and
+    _dq_kernel: scores recomputed in fp32 from q_u.dtype operands, P =
+    exp(s - lse) on visible pairs, dP = g v^T, delta = rowsum(g * out), ds =
+    P (dP - delta) scale; P, ds and the skewed rawg (rawg[i, T-1-i+j] =
+    ds[i, j]) rounded to q_u.dtype before the products that take them;
+    fp32 accumulation, dp summed over the batch; dp returned in p.dtype,
+    the rest in q_u.dtype. A query row with no visible key (lse at NEG)
+    takes P = 1/T and ds = 0 (the plain autograd's gradient; the reference
+    differs there, ROADMAP.md queue 3). Nothing on the main path calls it."""
+    b, h, t, _ = q_u.shape
+    dt = q_u.dtype
+    qu, qv, kf, vf, pf, gf = (x.float() for x in (q_u, q_v, k, v, p, g))
+    idx = rel_shift_index(t, q_u.device).expand(b, h, t, t)
+    bd = (qv @ pf.transpose(-1, -2)).gather(-1, idx)
+    s = (qu @ kf.transpose(-1, -2) + bd) * scale
+    ok = allowed_mask(t, lengths, chunk_size, left_chunks)
+    dead = (lse < 0.5 * NEG)[..., None]
+    prob = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    prob = torch.where(dead, 1.0 / t, prob)
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    ds = prob * (gf @ vf.transpose(-1, -2) - delta) * scale
+    ds = torch.where(ok & ~dead, ds, 0.0).to(dt).float()
+    rawg = torch.zeros(b, h, t, 2 * t, device=q_u.device).scatter_(-1, idx,
+                                                                  ds)
+    dv = prob.to(dt).float().transpose(-1, -2) @ gf
+    dp = (rawg.transpose(-1, -2) @ qv).sum(0)
+    return ((ds @ kf).to(dt), (rawg @ pf).to(dt),
+            (ds.transpose(-1, -2) @ qu).to(dt), dv.to(dt), dp.to(p.dtype))
 
 
 def _check(q_u, q_v, k, v, p, lengths):

@@ -6,7 +6,9 @@ at the shapes and chunk settings of tests/test_flash_attention.py, valid
 query rows only. RelPosMultiHeadAttention (both paths) and
 MultiHeadAttention are held to their flax modules. The CUDA kernel is held
 to the plain version on the card by chip_smoke.py. fp32; tolerance atol
-1e-5 / rtol 1e-4.
+1e-5 / rtol 1e-4. rel_flash_attention_bwd_plain, the backward at the
+kernels' rounding points, is held to jax.vjp of the Pallas kernel in fp32
+and bf16, and to the plain version's autograd.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,8 @@ from espnet_slurp_tpu.ops.pallas.flash_attention import (
     rel_flash_attention as jax_rel_flash)
 from espnet_slurp_tpu_torch.models import attention as tatt
 from espnet_slurp_tpu_torch.ops.kernels.flash_attention import (
-    rel_flash_attention, rel_flash_attention_fwd, rel_flash_attention_plain)
+    rel_flash_attention, rel_flash_attention_bwd_plain,
+    rel_flash_attention_fwd, rel_flash_attention_plain)
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
 from torch_parity import t
 
@@ -179,3 +182,93 @@ def test_fully_masked_rows_follow_autograd_not_the_kernel():
     np.testing.assert_allclose(np.asarray(ref[2])[1], tl * dv, rtol=1e-4,
                                atol=1e-5)
 
+
+
+GRAD_NAMES = ("dq_u", "dq_v", "dk", "dv", "dp")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [(0, -1), (64, 1)])
+def test_bwd_plain_matches_pallas_vjp(data, dtype, chunk):
+    """rel_flash_attention_bwd_plain against jax.vjp of the Pallas kernel
+    (its _dkv_kernel and _dq_kernel, interpret mode) at T = 256 with ragged
+    lengths, the cotangent on valid query rows; out from the Pallas forward,
+    lse from the plain forward. Each of dq_u, dq_v, dk, dv and dp within tol
+    of its max |ref|. fp32: sums in another order, tol 1e-4. bf16: both
+    sides round P, ds and rawg to bf16 at the same points and return bf16,
+    so what differs is the fp32 summation order, which can flip a rounding
+    by one unit in the last place (2^-8 to 2^-7 of a value): tol 2^-7."""
+    cs, lc = chunk
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    kw = dict(scale=SCALE, chunk_size=cs, left_chunks=lc)
+    cot = _valid_rows(np.random.RandomState(9).randn(B, H, T, DH)
+                      .astype(np.float32))
+    out, vjp = jax.vjp(
+        lambda *a: jax_rel_flash(*a, jnp.asarray(LENGTHS), interpret=True,
+                                 **kw), *(jnp.asarray(a, jdt) for a in data))
+    ref = vjp(jnp.asarray(cot, jdt))
+    args = [t(a).to(tdt) for a in data] + [t(LENGTHS)]
+    _, lse = rel_flash_attention_plain(*args, **kw)
+    got = rel_flash_attention_bwd_plain(
+        *args, t(np.asarray(out, np.float32)).to(tdt), lse, t(cot).to(tdt),
+        **kw)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    for name, a, r in zip(GRAD_NAMES, got, ref):
+        r = np.asarray(r, np.float32)
+        assert a.dtype == tdt and a.shape == r.shape, name
+        np.testing.assert_allclose(a.float().numpy(), r, rtol=0,
+                                   atol=tol * np.abs(r).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (5, 0)])
+def test_bwd_plain_matches_plain_autograd(chunk):
+    """fp32, T = 70 (not a tile multiple), lengths 70, 0 and 33: every
+    gradient of rel_flash_attention_bwd_plain within 1e-5 of max |ref| of
+    the plain version's autograd, fully masked rows included."""
+    cs, lc = chunk
+    kw = dict(scale=0.25, chunk_size=cs, left_chunks=lc)
+    b, h, tl, dh = 3, 2, 70, 16
+    rng = np.random.RandomState(5)
+    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5)
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = t(np.asarray([tl, 0, 33], np.int32))
+    cot = f(b, h, tl, dh)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out, lse = rel_flash_attention_plain(*leaves, lens, **kw)
+    (out * cot).sum().backward()
+    got = rel_flash_attention_bwd_plain(*args, lens, out.detach(),
+                                        lse.detach(), cot, **kw)
+    for name, a, r in zip(GRAD_NAMES, got, leaves):
+        r = r.grad.numpy()
+        np.testing.assert_allclose(a.numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
+def test_bwd_plain_fully_masked_rows_follow_autograd_not_the_kernel():
+    """The divergence of test_fully_masked_rows_follow_autograd_not_the_kernel
+    holds for rel_flash_attention_bwd_plain too: against jax.grad of the
+    Pallas kernel, the utterance with visible keys agrees within 1e-4 of
+    max |ref|; the fully masked one has dq_u = dk = 0 and dv = 1/T of the
+    reference's."""
+    b, h, tl, dh = 2, 1, 128, 32
+    rng = np.random.RandomState(0)
+    f = lambda *s: rng.randn(*s).astype(np.float32) * 0.3
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = np.asarray([tl, 0], np.int32)
+    cot = f(b, h, tl, dh)
+    ref = jax.grad(lambda *a: jnp.sum(jax_rel_flash(
+        *a, jnp.asarray(lens), scale=dh ** -0.5, interpret=True) * cot),
+        argnums=(0, 2, 3))(*map(jnp.asarray, args))
+    targs = [t(a) for a in args] + [t(lens)]
+    out, lse = rel_flash_attention_plain(*targs, scale=dh ** -0.5)
+    dq_u, _, dk, dv, _ = rel_flash_attention_bwd_plain(
+        *targs, out, lse, t(cot), scale=dh ** -0.5)
+    for name, a, r in zip(("dq_u", "dk", "dv"), (dq_u, dk, dv), ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(a[0].numpy(), r[0], rtol=0,
+                                   atol=1e-4 * np.abs(r[0]).max(),
+                                   err_msg=name)
+    assert float(dq_u[1].abs().max()) == 0.0
+    assert float(dk[1].abs().max()) == 0.0
+    np.testing.assert_allclose(np.asarray(ref[2])[1], tl * dv[1].numpy(),
+                               rtol=1e-4, atol=1e-5)
