@@ -29,6 +29,7 @@
 // [T, 2T - 1] buffer reaches global memory. The simple first version: WMMA bf16
 // tiles staged through shared memory, no pipelining; wgmma/TMA come later.
 #include "common.cuh"
+#include "mma_gemm.cuh"
 
 namespace espnet {
 
@@ -205,8 +206,11 @@ int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* 
 // rawg[r, BQ-1-r+c] = ds[r, c], then dq_v += rawg slab and
 // dp[slab rows] += rawg^T q_v. Two kernels, as in the reference: dq (query
 // tile outer) and dkv (key tile outer). dp is summed over the batch and the
-// query tiles with fp32 atomicAdd into [H, 2T, Dh] (so its last bits depend
-// on the order the blocks run in); slab rows outside [0, 2T) are dropped.
+// query tiles in fp32 into [H, 2T, Dh] with atomic adds (so its last bits
+// depend on the order the blocks run in); slab rows outside [0, 2T) are
+// dropped. In bf16 at Dh 32 and 64 the dkv launch is rel_dkv::dkv_kernel
+// below (register accumulators, cp.async ring, vector reductions); the
+// WMMA kernels here serve fp32 and every other Dh.
 
 struct FlashBwdLayout {
   size_t qu, qv, dout, k, v, slab, sc, dpf, raw, t1, t2, t3, acc1, acc2, lse, delta, total;
@@ -250,6 +254,16 @@ struct FlashBwdLayout {
 struct PairScores {
   int t, i0, j0, klen, chunk_size, left_chunks;
   float scale;
+  // Key j is visible to query i (both < t): the key-length and chunk masks.
+  __device__ __forceinline__ bool visible(int i, int j) const {
+    bool ok = j < klen;
+    if (chunk_size > 0) {
+      const int cc = j / chunk_size, rc = i / chunk_size;
+      ok = ok && cc <= rc;
+      if (left_chunks >= 0) ok = ok && cc >= rc - left_chunks;
+    }
+    return ok;
+  }
   template <int BQ>
   __device__ __forceinline__ void at(const float* sc, int ldsc, const float* raw, int ldraw,
                                      const float* dpf, const float* lse, const float* delta,
@@ -257,16 +271,10 @@ struct PairScores {
     const int i = i0 + r, j = j0 + c;
     float pv = 0.0f, ds = 0.0f;
     if (i < t && j < t) {
-      bool ok = j < klen;
-      if (chunk_size > 0) {
-        const int cc = j / chunk_size, rc = i / chunk_size;
-        ok = ok && cc <= rc;
-        if (left_chunks >= 0) ok = ok && cc >= rc - left_chunks;
-      }
       const float l = lse[r];
       if (l < 0.5f * kNeg) {
         pv = 1.0f / (float)t;  // fully masked row: uniform weights, no ds
-      } else if (ok) {
+      } else if (visible(i, j)) {
         const float s = (sc[r * ldsc + c] + raw[r * ldraw + (BQ - 1 - r + c)]) * scale;
         pv = expf(s - l);
         ds = pv * (dpf[r * ldsc + c] - delta[r]) * scale;
@@ -465,35 +473,381 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- dkv in bf16 at Dh 32 and 64: register accumulators ----------------
+//
+// Replaces _dkv_kernel (espnet_slurp_tpu/ops/pallas/flash_attention.py:178)
+// in bf16 where Dh is 32 or 64 (both main-path models use 64); every other
+// case takes rel_flash_dkv_kernel above. It computes what that kernel
+// computes, with the same rounding points (P, ds and rawg rounded to bf16
+// before the products that take them, fp32 accumulation).
+//
+// Bound (flagship train shape, B 64, H 4, T' 468, Dh 64): the compulsory
+// traffic (q_u, q_v, dO, k, v, p, lse, delta in; dk, dv, dp out) is ~39
+// MB, 0.012 ms at 3.35 TB/s; the tensor-core work is ~56 GFLOP in the
+// products this kernel forms, 0.057 ms at 989 TFLOP/s: it is bounded by
+// operations, and its first limits are the shared-memory operand traffic of
+// mma.sync and the dp reduction.
+//
+// Design. One block (8 warps) owns one (b, h) and one key tile of BK = 64
+// rows and walks the query tiles of BQ = 32 rows:
+//   - k and v are loaded once; dk and dv ([BK, Dh] fp32 each) live in
+//     registers (warp tile 16 x Dh/2) for the whole loop and are written
+//     once, in bf16.
+//   - A 2-stage ring: while tile qt is computed, cp.async fetches q_u, q_v
+//     and dO [BQ, Dh], the position slab p[c0 - BQ : c0 + BK) of tile qt + 1
+//     (rows outside [0, 2T) zero-filled with a source size of 0) and lse
+//     and delta.
+//   - S = q_u k^T and dP = dO v^T stay in registers (warp tile 16 x 16).
+//     raw = q_v slab^T [BQ, BQ + BK] goes through the tensor cores and once
+//     to shared fp32, because the skewed read raw[r, BQ-1-r+c] crosses
+//     lanes. P and ds are formed at the S fragments' (row, column) with
+//     PairScores::at's masks, scale and fully-masked-row rule, and written
+//     to shared memory as bf16 [BQ, BK]; ds also into the skewed bf16 rawg
+//     [BQ, BQ + BK], whose off-band zeros are written once per block.
+//   - dv += P^T dO and dk += ds^T q_u read both operands through
+//     ldmatrix.trans (no transposing pass); dslab = rawg^T q_v [BQ + BK, Dh]
+//     accumulates in registers.
+//   - dp: slab rows [c0 + BK, c0 + BQ + BK) are final after tile qt, since
+//     the next tile's slab is [c0 - BQ, c0 + BK). Each warp owns the m16
+//     tiles {w / 4, w / 4 + 2, w / 4 + 4} of dslab, so the BQ = 32-row shift
+//     to the next tile moves an accumulator from one slot of the thread to
+//     the next: the kernel flushes the final slot and carries the other two
+//     (kCarry; all rows are flushed after the last tile). A flush is one
+//     red.global.add.v4.f32 per 4 columns (pairs of lanes trade halves with
+//     one shuffle), summed over the batch and the key tiles in fp32; rows
+//     outside [0, 2T) are dropped.
+// Shared memory: k, v, 2 ring stages, raw fp32 [BQ, 104], P, ds and rawg:
+// 103,424 bytes at Dh 64 (70,656 at Dh 32), so two blocks share an SM
+// (__launch_bounds__(256, 2): at most 128 registers a thread).
+namespace rel_dkv {
+
+using mma::Major;
+using mma::cp_async16;
+using mma::cp_async4;
+using mma::warp_mma_k16;
+constexpr int BQ = 32, BK = 64, SW = BQ + BK;
+constexpr bool kCarry = true;  // flush only the final dslab rows of each tile
+
+template <int DH>
+struct Layout {
+  static constexpr int LDQ = DH + 8;    // q_u, q_v, dO, k, v, slab rows (bf16)
+  static constexpr int LDR = SW + 8;    // raw fp32: 104 = 8 mod 32 banks
+  static constexpr int LDP = BK + 8;    // P, ds (bf16)
+  static constexpr int LDG = SW + 8;    // rawg (bf16)
+  static constexpr int QU = 0, QV = BQ * LDQ, DO = 2 * BQ * LDQ, SLAB = 3 * BQ * LDQ;
+  static constexpr size_t kStageBytes = (size_t)(3 * BQ + SW) * LDQ * 2 + 2 * BQ * 4;
+  static constexpr size_t kK = 0, kV = (size_t)BK * LDQ * 2, kRing = 2 * kV,
+                          kRaw = kRing + 2 * kStageBytes, kP = kRaw + (size_t)BQ * LDR * 4,
+                          kDs = kP + (size_t)BQ * LDP * 2, kRawg = kDs + (size_t)BQ * LDP * 2,
+                          kBytes = kRawg + (size_t)BQ * LDG * 2;
+  static_assert(kV % 16 == 0 && kStageBytes % 16 == 0 && kP % 16 == 0 && kRawg % 16 == 0,
+                "16-byte aligned regions");
+};
+
+// rows x DH of global rows [r0, r0 + rows) of g (row length DH) into shared
+// s (leading dimension ld); rows outside [lo, hi) are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_rows_async(bf16* s, int ld, const bf16* g, long r0, int rows,
+                                                long lo, long hi) {
+  constexpr int CH = DH / 8;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += kThreads) {
+    const int r = idx / CH;
+    const int c = (idx - r * CH) * 8;
+    const long gr = r0 + r;
+    const bool ok = gr >= lo && gr < hi;
+    cp_async16(s + r * ld + c, ok ? g + gr * DH + c : g, ok);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+    dkv_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
+               const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const bf16* __restrict__ p, const int* __restrict__ lengths,
+               const bf16* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+               float* __restrict__ dp, int h, int t, float scale, int chunk_size,
+               int left_chunks) {
+  using L = Layout<DH>;
+  constexpr int NKV = DH / 16;  // n8 tiles of a dk / dv warp tile (16 x DH/2)
+  constexpr int NSL = DH / 32;  // n8 tiles of a dslab warp tile (3 m16 tiles x DH/4)
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
+  float* raw = reinterpret_cast<float*>(smem + L::kRaw);
+  bf16* ps = reinterpret_cast<bf16*>(smem + L::kP);
+  bf16* dss = reinterpret_cast<bf16*>(smem + L::kDs);
+  bf16* rawg = reinterpret_cast<bf16*>(smem + L::kRawg);
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int j0 = blockIdx.x * BK;
+  const long base = (long)bh * t * DH;
+  const bf16* pb = p + (long)hh * 2 * t * DH;
+  float* dpb = dp + (long)hh * 2 * t * DH;
+  const PairScores pair{t, 0, j0, lengths[b], chunk_size, left_chunks, scale};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  // Stage `slot` <- query tile i0 and its slab rows from c0.
+  auto load_stage = [&](int slot, int i0, long c0) {
+    unsigned char* st = smem + L::kRing + slot * L::kStageBytes;
+    bf16* sq = reinterpret_cast<bf16*>(st);
+    load_rows_async<DH>(sq + L::QU, L::LDQ, qu + base, i0, BQ, 0, t);
+    load_rows_async<DH>(sq + L::QV, L::LDQ, qv + base, i0, BQ, 0, t);
+    load_rows_async<DH>(sq + L::DO, L::LDQ, dout + base, i0, BQ, 0, t);
+    load_rows_async<DH>(sq + L::SLAB, L::LDQ, pb, c0, SW, 0, 2L * t);
+    float* lf = reinterpret_cast<float*>(sq + (3 * BQ + SW) * L::LDQ);  // lse [BQ], delta [BQ]
+    if (threadIdx.x < 2 * BQ) {
+      const int r = threadIdx.x % BQ;
+      const float* src = threadIdx.x < BQ ? lse : delta;
+      const bool ok = i0 + r < t;
+      cp_async4(lf + threadIdx.x, ok ? src + (long)bh * t + i0 + r : src, ok);
+    }
+  };
+
+  // rawg off the band is 0 for every tile: written once.
+  for (int idx = threadIdx.x; idx < BQ * L::LDG / 2; idx += kThreads) {
+    reinterpret_cast<uint32_t*>(rawg)[idx] = 0u;
+  }
+  load_rows_async<DH>(ks, L::LDQ, k + base, j0, BK, 0, t);
+  load_rows_async<DH>(vs, L::LDQ, v + base, j0, BK, 0, t);
+  load_stage(0, 0, (long)t - BQ + j0);
+  mma::cp_async_commit();
+
+  float acc_k[1][NKV][4], acc_v[1][NKV][4], sl[3][NSL][4];
+#pragma unroll
+  for (int j = 0; j < NKV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[0][j][e] = acc_v[0][j][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < NSL; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sl[i][j][e] = 0.0f;
+
+  const int sm = (warp >> 2) * 16, sn = (warp & 3) * 16;         // S, dP, raw rows / S cols
+  const int rn = (warp & 3) * 24;                                 // raw cols
+  const int km = (warp >> 1) * 16, kn = (warp & 1) * (DH / 2);    // dk, dv
+  const int lm = warp >> 2, ln = (warp & 3) * (DH / 4);           // dslab m16 tiles lm + 2i
+  const int nq = (t + BQ - 1) / BQ;
+
+  // dslab rows of slot i (m16 tile lm + 2i) into dp: one red.v4 per 4
+  // columns. Lanes tq and tq ^ 1 trade halves: the even lane takes row g,
+  // the odd lane row g + 8, both the 4 columns from (tq & ~1) * 2.
+  auto flush = [&](int i, long c0) {
+#pragma unroll
+    for (int j = 0; j < NSL; ++j) {
+      const bool odd = tq & 1;
+      const float s0 = odd ? sl[i][j][0] : sl[i][j][2];
+      const float s1 = odd ? sl[i][j][1] : sl[i][j][3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      float4 val = odd ? make_float4(r0, r1, sl[i][j][2], sl[i][j][3])
+                       : make_float4(sl[i][j][0], sl[i][j][1], r0, r1);
+      const long prow = c0 + (lm + 2 * i) * 16 + g + (odd ? 8 : 0);
+      const int col = ln + j * 8 + (tq & 2) * 2;
+      if (prow >= 0 && prow < 2L * t &&
+          (val.x != 0.0f || val.y != 0.0f || val.z != 0.0f || val.w != 0.0f)) {
+        asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(dpb + prow * DH + col),
+                     "f"(val.x), "f"(val.y), "f"(val.z), "f"(val.w)
+                     : "memory");
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sl[i][j][e] = 0.0f;
+    }
+  };
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int i0 = qt * BQ;
+    const long c0 = (long)t - BQ - i0 + j0;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; the previous tile's readers are done
+    if (qt + 1 < nq) load_stage((qt + 1) & 1, i0 + BQ, c0 - BQ);
+    mma::cp_async_commit();
+    const unsigned char* st = smem + L::kRing + (qt & 1) * L::kStageBytes;
+    const bf16* sq = reinterpret_cast<const bf16*>(st);
+    const bf16 *qus = sq + L::QU, *qvs = sq + L::QV, *dos = sq + L::DO, *slab = sq + L::SLAB;
+    const float* lse_s = reinterpret_cast<const float*>(sq + (3 * BQ + SW) * L::LDQ);
+    const float* delta_s = lse_s + BQ;
+
+    float s[1][2][4], dpr[1][2][4], rw[1][3][4];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        rw[0][j][e] = 0.0f;
+        if (j < 2) s[0][j][e] = dpr[0][j][e] = 0.0f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      warp_mma_k16<1, 2, Major::K, Major::K>(s, qus, L::LDQ, ks, L::LDQ, sm, sn, kk);
+      warp_mma_k16<1, 2, Major::K, Major::K>(dpr, dos, L::LDQ, vs, L::LDQ, sm, sn, kk);
+      warp_mma_k16<1, 3, Major::K, Major::K>(rw, qvs, L::LDQ, slab, L::LDQ, sm, rn, kk);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        *reinterpret_cast<float2*>(raw + (sm + g + 8 * hf) * L::LDR + rn + 8 * j + 2 * tq) =
+            make_float2(rw[0][j][2 * hf], rw[0][j][2 * hf + 1]);
+      }
+    __syncthreads();  // raw visible
+
+    // P and ds at the S fragments (PairScores::at with S and dP from
+    // registers), to bf16 P, ds and the skewed rawg.
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = sm + g + 8 * hf, c = sn + 8 * j + 2 * tq;
+        const int i = i0 + r;
+        const float l = lse_s[r], dl = delta_s[r];
+        float pv[2], dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = j0 + c + e;
+          pv[e] = 0.0f;
+          dsv[e] = 0.0f;
+          if (i < t && jj < t) {
+            if (l < 0.5f * kNeg) {
+              pv[e] = 1.0f / (float)t;  // fully masked row: uniform weights, no ds
+            } else if (pair.visible(i, jj)) {
+              const float sv = (s[0][j][2 * hf + e] + raw[r * L::LDR + (BQ - 1 - r + c + e)]) * scale;
+              pv[e] = expf(sv - l);
+              dsv[e] = pv[e] * (dpr[0][j][2 * hf + e] - dl) * scale;
+            }
+          }
+          rawg[r * L::LDG + (BQ - 1 - r + c + e)] = __float2bfloat16(dsv[e]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(ps + r * L::LDP + c) = __floats2bfloat162_rn(pv[0], pv[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dss + r * L::LDP + c) =
+            __floats2bfloat162_rn(dsv[0], dsv[1]);
+      }
+    __syncthreads();  // P, ds, rawg visible
+
+#pragma unroll
+    for (int kk = 0; kk < BQ; kk += 16) {
+      warp_mma_k16<1, NKV, Major::MN, Major::MN>(acc_v, ps, L::LDP, dos, L::LDQ, km, kn, kk);
+      warp_mma_k16<1, NKV, Major::MN, Major::MN>(acc_k, dss, L::LDP, qus, L::LDQ, km, kn, kk);
+      warp_mma_k16<3, NSL, Major::MN, Major::MN, 32>(sl, rawg, L::LDG, qvs, L::LDQ, lm * 16, ln,
+                                                     kk);
+    }
+    if (kCarry && qt + 1 < nq) {
+      // slot 2 holds rows [BK, SW): final. Slots 0, 1 move up one (rows
+      // + BQ in the next tile's slab).
+      flush(2, c0);
+#pragma unroll
+      for (int j = 0; j < NSL; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sl[2][j][e] = sl[1][j][e];
+          sl[1][j][e] = sl[0][j][e];
+          sl[0][j][e] = 0.0f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) flush(i, c0);
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < NKV; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = km + g + 8 * hf, c = kn + 8 * j + 2 * tq;
+      if (j0 + r < t) {
+        const long o = base + (long)(j0 + r) * DH + c;
+        *reinterpret_cast<__nv_bfloat162*>(dk + o) =
+            __floats2bfloat162_rn(acc_k[0][j][2 * hf], acc_k[0][j][2 * hf + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + o) =
+            __floats2bfloat162_rn(acc_v[0][j][2 * hf], acc_v[0][j][2 * hf + 1]);
+      }
+    }
+}
+
+template <int DH>
+int launch(const bf16* qu, const bf16* qv, const bf16* k, const bf16* v, const bf16* p,
+           const int* lengths, const bf16* dout, const float* lse, const float* delta, bf16* dk,
+           bf16* dv, float* dp, int b, int h, int t, float scale, int chunk_size, int left_chunks,
+           cudaStream_t stream) {
+  constexpr size_t bytes = Layout<DH>::kBytes;
+  cudaFuncSetAttribute(dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaFuncSetAttribute(dkv_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  dkv_kernel<DH><<<dim3((t + BK - 1) / BK, b * h), kThreads, bytes, stream>>>(
+      qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, h, t, scale, chunk_size,
+      left_chunks);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of dkv_kernel<DH> that one SM holds at once (0 for another Dh).
+inline int blocks_per_sm(int dh) {
+  int n = 0;
+  if (dh == 64) {
+    cudaFuncSetAttribute(dkv_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)Layout<64>::kBytes);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<64>, kThreads,
+                                                  Layout<64>::kBytes);
+  } else if (dh == 32) {
+    cudaFuncSetAttribute(dkv_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)Layout<32>::kBytes);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<32>, kThreads,
+                                                  Layout<32>::kBytes);
+  }
+  return n;
+}
+
+}  // namespace rel_dkv
+
+template <typename T, int BQ, int BK, bool DKV>
+int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, const void* v,
+                                const void* p, const int* lengths, const void* dout,
+                                const float* lse, const float* delta, void* dq_or_dk,
+                                void* dqv_or_dv, float* dp, int b, int h, int t, int dh,
+                                float scale, int chunk_size, int left_chunks,
+                                cudaStream_t stream) {
+  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), DKV);
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (L.total > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
+  const T *qut = static_cast<const T*>(qu), *qvt = static_cast<const T*>(qv),
+          *kt = static_cast<const T*>(k), *vt = static_cast<const T*>(v),
+          *pt = static_cast<const T*>(p), *dot = static_cast<const T*>(dout);
+  if constexpr (DKV) {
+    auto kk = rel_flash_dkv_kernel<T, BQ, BK>;
+    cudaFuncSetAttribute(kk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    kk<<<dim3((t + BK - 1) / BK, b * h), kThreads, L.total, stream>>>(
+        qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dq_or_dk),
+        static_cast<T*>(dqv_or_dv), dp, h, t, dh, scale, chunk_size, left_chunks);
+  } else {
+    auto kq = rel_flash_dq_kernel<T, BQ, BK>;
+    cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    kq<<<dim3((t + BQ - 1) / BQ, b * h), kThreads, L.total, stream>>>(
+        qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dq_or_dk),
+        static_cast<T*>(dqv_or_dv), h, t, dh, scale, chunk_size, left_chunks);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dkv, then dq, with the tiles of rel_flash_dkv_kernel / rel_flash_dq_kernel.
 template <typename T, int BQ, int BK>
 int launch_rel_flash_bwd(const void* qu, const void* qv, const void* k, const void* v,
                          const void* p, const int* lengths, const void* dout, const float* lse,
                          const float* delta, void* dqu, void* dqv, void* dk, void* dv, float* dp,
                          int b, int h, int t, int dh, float scale, int chunk_size,
                          int left_chunks, cudaStream_t stream) {
-  const FlashBwdLayout Lq(dh, BQ, BK, sizeof(T), false);
-  const FlashBwdLayout Lk(dh, BQ, BK, sizeof(T), true);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (Lq.total > (size_t)max_smem || Lk.total > (size_t)max_smem) {
-    return (int)cudaErrorInvalidConfiguration;
+  if (int err = launch_rel_flash_bwd_kernel<T, BQ, BK, true>(
+          qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, b, h, t, dh, scale,
+          chunk_size, left_chunks, stream)) {
+    return err;
   }
-  auto kq = rel_flash_dq_kernel<T, BQ, BK>;
-  auto kk = rel_flash_dkv_kernel<T, BQ, BK>;
-  cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lq.total);
-  cudaFuncSetAttribute(kk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lk.total);
-  const T *qut = static_cast<const T*>(qu), *qvt = static_cast<const T*>(qv),
-          *kt = static_cast<const T*>(k), *vt = static_cast<const T*>(v),
-          *pt = static_cast<const T*>(p), *dot = static_cast<const T*>(dout);
-  kk<<<dim3((t + BK - 1) / BK, b * h), kThreads, Lk.total, stream>>>(
-      qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      dp, h, t, dh, scale, chunk_size, left_chunks);
-  if (int err = (int)cudaGetLastError()) return err;
-  kq<<<dim3((t + BQ - 1) / BQ, b * h), kThreads, Lq.total, stream>>>(
-      qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dqu),
-      static_cast<T*>(dqv), h, t, dh, scale, chunk_size, left_chunks);
-  return (int)cudaGetLastError();
+  return launch_rel_flash_bwd_kernel<T, BQ, BK, false>(qu, qv, k, v, p, lengths, dout, lse,
+                                                       delta, dqu, dqv, nullptr, b, h, t, dh,
+                                                       scale, chunk_size, left_chunks, stream);
 }
 
 inline bool fits(int dh, int bq, int bk, int esize) {
@@ -538,6 +892,27 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (dh == 64 || dh == 32)) {
+    using espnet::bf16;
+    const int err =
+        dh == 64
+            ? espnet::rel_dkv::launch<64>(
+                  static_cast<const bf16*>(qu), static_cast<const bf16*>(qv),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<const bf16*>(p), lengths, static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dp, b, h, t, scale, chunk_size,
+                  left_chunks, s)
+            : espnet::rel_dkv::launch<32>(
+                  static_cast<const bf16*>(qu), static_cast<const bf16*>(qv),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<const bf16*>(p), lengths, static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dp, b, h, t, scale, chunk_size,
+                  left_chunks, s);
+    if (err) return err;
+    return espnet::launch_rel_flash_bwd_kernel<bf16, 64, 64, false>(
+        qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, nullptr, b, h, t, dh, scale,
+        chunk_size, left_chunks, s);
+  }
   if (dtype == 1) {
     if (espnet::fits(dh, 64, 64, 2)) {
       return espnet::launch_rel_flash_bwd<espnet::bf16, 64, 64>(
@@ -554,4 +929,10 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
                                                        chunk_size, left_chunks, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the bf16 dkv kernel that one SM holds at once at this Dh (0 where
+// that kernel does not take the Dh).
+extern "C" int espnet_rel_flash_dkv_blocks_per_sm(int dh) {
+  return espnet::rel_dkv::blocks_per_sm(dh);
 }

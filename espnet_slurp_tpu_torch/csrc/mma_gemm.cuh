@@ -46,6 +46,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4 bytes global -> shared (cache-all), zero-filled when valid == false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -74,6 +80,69 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  if constexpr (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_u32(p)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_u32(p)));
+  }
+}
+
+// One warp's products over one k-step of 16, both operands already in
+// shared memory with runtime leading dimensions: for i < MT, j < NT,
+//   acc[i][j] += A[m0 + i * MSTRIDE : +16, kk : kk + 16] * B[kk : kk + 16, n0 + 8 j : +8]
+// with A(m, k) = sa[m * lda + k] (AL K-major) or sa[k * lda + m] (MN-major),
+// B(k, n) = sb[n * ldb + k] (BL K-major) or sb[k * ldb + n] (MN-major).
+// acc[i][j][2h + e] is then the element (m0 + i * MSTRIDE + lane / 4 + 8 h,
+// n0 + 8 j + 2 (lane % 4) + e). NT may be odd: the last n8 tile goes
+// through ldmatrix .x2 (its lanes 0-15 give the addresses, as for .x4).
+// Every row address must be 16-byte aligned.
+template <int MT, int NT, Major AL, Major BL, int MSTRIDE = 16>
+__device__ __forceinline__ void warp_mma_k16(float (&acc)[MT][NT][4], const bf16* sa, int lda,
+                                             const bf16* sb, int ldb, int m0, int n0, int kk) {
+  const int lane = threadIdx.x & 31;
+  uint32_t a[MT][4];
+  uint32_t b[NT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int m = m0 + i * MSTRIDE;
+    if constexpr (AL == Major::K) {
+      // 8x8 matrices (m +0/+8, k +0/+8) in the order of the A fragment.
+      ldsm_x4<false>(a[i], sa + (m + (lane & 15)) * lda + kk + (lane >> 4) * 8);
+    } else {
+      ldsm_x4<true>(a[i], sa + (kk + (lane & 7) + (lane >> 4) * 8) * lda + m +
+                              ((lane >> 3) & 1) * 8);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    const int n = n0 + j * 8;
+    // (n +0, k +0), (n +0, k +8), (n +8, k +0), (n +8, k +8)
+    const bf16* pb = BL == Major::K
+                         ? sb + (n + (lane & 7) + (lane >> 4) * 8) * ldb + kk + ((lane >> 3) & 1) * 8
+                         : sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + n + (lane >> 4) * 8;
+    if (j + 1 < NT) {
+      uint32_t r[4];
+      ldsm_x4<BL == Major::MN>(r, pb);
+      b[j][0] = r[0];
+      b[j][1] = r[1];
+      b[j + 1][0] = r[2];
+      b[j + 1][1] = r[3];
+    } else {
+      ldsm_x2<BL == Major::MN>(b[j], pb);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
 }
 
 // A per-stage hook that does nothing.
@@ -153,44 +222,11 @@ struct Gemm {
 
   // The warp's products over one landed stage.
   __device__ __forceinline__ static void compute_stage(Acc& acc, const bf16* sa, const bf16* sb) {
-    const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int wm = (warp / kWarpsN) * WM, wn = (warp % kWarpsN) * WN;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MT][4];
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int m = wm + i * 16;
-        if constexpr (AL == Major::K) {
-          // 8x8 matrices (m +0/+8, k +0/+8) in the order of the A fragment.
-          ldsm_x4<false>(a[i], sa + (m + (lane & 15)) * A_LD + kk + (lane >> 4) * 8);
-        } else {
-          ldsm_x4<true>(a[i], sa + (kk + (lane & 7) + (lane >> 4) * 8) * A_LD + m +
-                                  ((lane >> 3) & 1) * 8);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        const int n = wn + j * 8;
-        uint32_t r[4];  // (n +0, k +0), (n +0, k +8), (n +8, k +0), (n +8, k +8)
-        if constexpr (BL == Major::K) {
-          ldsm_x4<false>(r, sb + (n + (lane & 7) + (lane >> 4) * 8) * B_LD + kk +
-                                ((lane >> 3) & 1) * 8);
-        } else {
-          ldsm_x4<true>(r, sb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * B_LD + n +
-                               (lane >> 4) * 8);
-        }
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+      warp_mma_k16<MT, NT, AL, BL>(acc, sa, A_LD, sb, B_LD, wm, wn, kk);
     }
   }
 

@@ -22,10 +22,10 @@ from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# The bf16 FFN backward against fused_ffn_bwd_plain (the same rounding
-# points): what remains is fp32 summation order, which can move a bf16
-# output by one unit in the last place (2^-8 to 2^-7 of itself); chip_smoke.py
-# states the margin.
+# The bf16 FFN and attention backward passes against fused_ffn_bwd_plain
+# and rel_flash_attention_bwd_plain (the same rounding points): what remains
+# is fp32 summation order, which can move a bf16 output by one unit in the
+# last place (2^-8 to 2^-7 of itself); chip_smoke.py states the margin.
 BWD_PLAIN_TOL = 1e-2
 
 
@@ -195,6 +195,56 @@ def test_rel_flash_attention_backward(gen, dtype, t, dh, chunk):
                  r(b, h, t, dh), TOL[dtype],
                  ("dq_u", "dq_v", "dk", "dv", "dp"))
     assert fa.rel_flash_attention_fwd.bwd_launches == before + 1
+
+
+def _attention_case(gen, t, dh, b=4, h=2):
+    """bf16 q_u, q_v, k, v, p and key lengths t, t - 7, 0 and -1."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
+    lengths = torch.tensor([t, max(t - 7, 1), 0, -1][:b], dtype=torch.int32,
+                           device="cuda")
+    p = r(h, 2 * t, dh)
+    p[:, -1] = 0.0
+    bf = torch.bfloat16
+    return [r(b, h, t, dh).to(bf) for _ in range(4)] + [p.to(bf), lengths]
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 129, 468])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 4), (5, 0)])
+def test_rel_flash_attention_backward_bf16_at_its_rounding_points(gen, t, dh,
+                                                                  chunk):
+    """The bf16 backward launch (Dh 32 and 64: the register-accumulator dkv
+    kernel; Dh 128: the 32 x 32 WMMA kernels) against
+    rel_flash_attention_bwd_plain, which rounds P, ds and rawg where the
+    kernels do: dq_u, dq_v, dk, dv and dp each within BWD_PLAIN_TOL of max
+    |ref| (floored at 1e-3, as in _check_grads), fully masked rows
+    included."""
+    cs, lc = chunk
+    args = _attention_case(gen, t, dh)
+    scale = dh ** -0.5
+    out, lse = fa._launch_fwd(*args, scale, cs, lc)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         .to(torch.bfloat16))
+    before = fa.rel_flash_attention_fwd.bwd_launches
+    got = fa._launch_bwd(*args, out, lse, g, scale, cs, lc)
+    assert fa.rel_flash_attention_fwd.bwd_launches == before + 1
+    ref = fa.rel_flash_attention_bwd_plain(*args, out, lse, g, scale=scale,
+                                           chunk_size=cs, left_chunks=lc)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
+
+
+def test_rel_flash_attention_dkv_two_blocks_per_sm(gen):
+    """The bf16 dkv kernel's shared memory and registers let two blocks
+    share an SM at both Dh it takes."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    assert lib.espnet_rel_flash_dkv_blocks_per_sm(64) >= 2
+    assert lib.espnet_rel_flash_dkv_blocks_per_sm(32) >= 2
+    assert lib.espnet_rel_flash_dkv_blocks_per_sm(128) == 0
 
 
 def _lattice_case(gen, t, u_lens, v=9):
