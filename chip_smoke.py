@@ -32,10 +32,12 @@ or the port's package is not beside it. Phases, each of which fails the run:
    fp32 only), then each direction timed alone as in phase 2, beside its
    plain version, a PyTorch yardstick (K1: F.ctc_loss; K3 backward: SDPA's
    backward over a constant bias, which computes no dp) and its bound.
-   K2's bf16 backward is also held to fused_ffn_bwd_plain (the same
-   rounding points) within BWD_PLAIN_TOL, and printed with each of its
-   three launches' device times (rows / dx / dW, torch.profiler) and what
-   one call adds to peak memory.
+   The bf16 backward passes of K2 and K3 are also held to
+   fused_ffn_bwd_plain and rel_flash_attention_bwd_plain (the same
+   rounding points) within BWD_PLAIN_TOL, and printed with each of their
+   launches' device times (K2 rows / dx / dW, K3 dkv / dq; torch.profiler)
+   and what one call adds to peak memory; K3's dkv launch also gets a bound
+   of its own.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
    dropout 0, SpecAug on, seeded random weights) and the port's
    make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
@@ -52,8 +54,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    0 in exact arithmetic and hold only rounding noise).
 7. Kernels at the shapes of the Conformer-transducer train step
    (conf/train_transducer.yaml: B 32 utterances of 15 s, T' 468, U 64):
-   K2 and K3 both ways as in phase 4 (K3 untimed; K2's backward timed
-   beside its plain composition, with its launches and peak memory, as in
+   K2 and K3 both ways as in phase 4 (their backward passes timed beside
+   the plain composition, with their launches and peak memory, as in
    phase 4), K5 RNN-T lattice (fp32
    tables [32, 468, 65], ragged T' and U) and K6 fused conv module
    (x [32, 468, 256], k 31, SAME with ragged lengths in bf16 and fp32, and
@@ -107,12 +109,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# K2's bf16 backward against fused_ffn_bwd_plain, which rounds hd and ds
-# where the kernels do: only fp32 summation order differs, and it can move a
-# bf16 output by one unit in the last place (2^-8 to 2^-7 of itself). At the
-# two train shapes this check saw at most 5.0e-3 of max |ref| on an H100
-# 80GB HBM3; the bound keeps a 2x margin over that and stays above one unit
-# (7.8e-3).
+# The bf16 backward passes of K2 and K3 against fused_ffn_bwd_plain and
+# rel_flash_attention_bwd_plain, which round hd and ds (K2) and P, ds and
+# rawg (K3) where the kernels do: only fp32 summation order differs, and it
+# can move a bf16 output by one unit in the last place (2^-8 to 2^-7 of
+# itself). At the two train shapes K2's check saw at most 5.0e-3 of max
+# |ref| on an H100 80GB HBM3; the bound keeps a 2x margin over that and
+# stays above one unit (7.8e-3).
 BWD_PLAIN_TOL = 1e-2
 
 
@@ -485,6 +488,55 @@ def check_attention_bwd(torch, fa, b, h, t, dh, r):
     return kept
 
 
+def attention_bwd_detail(torch, fa, args, gb, b, t):
+    """K3's bf16 backward at B x T': held to rel_flash_attention_bwd_plain
+    (the kernels' rounding points) within BWD_PLAIN_TOL per output, then its
+    time (CUDA events), each launch's device time (dkv / dq, torch.profiler
+    over 5 calls) and what one call adds to peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+    scale = args[0].shape[-1] ** -0.5
+    out, lse = fa._launch_fwd(*args, scale, 0, -1)
+    call = lambda: fa._launch_bwd(*args, out, lse, gb, scale, 0, -1)
+    got = call()
+    ref = fa.rel_flash_attention_bwd_plain(*args, out, lse, gb, scale=scale)
+    torch.cuda.synchronize()
+    rels = [rel_err(a, r)[1] for a, r in zip(got, ref)]
+    print(f"K3 rel_flash_attention backward bfloat16 B={b} T={t} against "
+          "rel_flash_attention_bwd_plain: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in zip(
+                  ("dq_u", "dq_v", "dk", "dv", "dp"), rels))
+          + f" of max|ref| (tolerance {BWD_PLAIN_TOL})")
+    if not max(rels) <= BWD_PLAIN_TOL:
+        raise AssertionError("K3 bf16 backward disagrees with "
+                             "rel_flash_attention_bwd_plain")
+    del got, ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    launch_ms = {}
+    for e in prof.key_averages():
+        for part in ("dkv", "dq"):
+            if f"{part}_kernel" in e.key and e.count:
+                launch_ms[part] = e.self_device_time_total / 1e3 / e.count
+    ms = median_ms(torch, call)
+    print(f"K3 rel_flash_attention backward bfloat16 B={b} T={t}: {ms:.4f} "
+          "ms; launches dkv / dq " + " / ".join(
+              f"{launch_ms.get(k, float('nan')):.4f}" for k in ("dkv", "dq"))
+          + f" ms (torch.profiler); one call adds {peak_mb:.1f} MB at its "
+            "peak")
+    if sorted(launch_ms) != ["dkv", "dq"]:
+        print("K3 backward: the profiler showed no device time for "
+              f"{sorted({'dkv', 'dq'} - set(launch_ms))}")
+    return ms, launch_ms, peak_mb
+
+
 def train_kernel_phase(torch, t_prime):
     """K2 and K3 backward, K4 and K1 both ways, at the flagship train step's
     shapes; returns the kernels-line entries."""
@@ -528,12 +580,12 @@ def train_kernel_phase(torch, t_prime):
     # K3 backward: B 64, H 4, T', Dh 64, ragged lengths.
     args, gb, err, plain_bwd = check_attention_bwd(torch, fa, b, h, t, dh, r)
     scale = dh ** -0.5
-    out_k, lse = fa._launch_fwd(*args, scale, 0, -1)
     att_fwd_ms = median_ms(torch, lambda: fa._launch_fwd(*args, scale, 0, -1))
-    ms = median_ms(torch, lambda: fa._launch_bwd(
-        *args, out_k, lse, gb, scale, 0, -1))
     plain_ms = median_ms(torch, plain_bwd)
     del plain_bwd
+    ms, launch_ms, peak_mb = attention_bwd_detail(torch, fa, args, gb, b, t)
+    print(f"K3 rel_flash_attention backward bfloat16 B={b} T={t}: plain "
+          f"composition {plain_ms:.4f} ms in the same call")
     q_u, q_v, k, vv, pp, lengths = args
     raw = q_v.float() @ pp[:, :2 * t - 1].float().transpose(-1, -2)
     bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(b, h, t, t))
@@ -550,6 +602,11 @@ def train_kernel_phase(torch, t_prime):
     bnd = bound(16.0 * pairs * dh,
                 2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
                 + 2 * (4 * b * h * t * dh + 2 * h * t * dh))
+    # dkv alone: S, dP, the skewed q_v p^T, dv, dk and dp over the visible
+    # pairs; q_u, q_v, dO, k, v, p, lse, delta in, dk, dv, dp (fp32) out.
+    dkv_bnd = bound(12.0 * pairs * dh,
+                    2 * (5 * b * h * t * dh + 2 * h * t * dh) + 8 * b * h * t
+                    + 2 * 2 * b * h * t * dh + 4 * 2 * h * t * dh)
     out.append(dict(
         name="rel_flash_attention_bwd", route="cuda",
         source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
@@ -557,8 +614,10 @@ def train_kernel_phase(torch, t_prime):
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
         library_note="SDPA backward over a constant rel-shifted bias; "
-                     "computes no dp"))
-    del args, gb, q_u, q_v, k, vv, pp, out_k, lse
+                     "computes no dp",
+        launch_ms=launch_ms, peak_mb=peak_mb, dkv_bound_ms=dkv_bnd[0],
+        dkv_bound_by=dkv_bnd[1]))
+    del args, gb, q_u, q_v, k, vv, pp
 
     # K4: hs [B, T', D], W [V, D], labels U = 64 with blanks between.
     labels = torch.randint(1, v - 1, (b, u), generator=gen, device="cuda")
@@ -826,7 +885,18 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
                   "launch_ms_at_transducer_shape": launch_ms,
                   "peak_mb_at_transducer_shape": peak_mb}
     del args, gb
-    check_attention_bwd(torch, fa, b, cfg.n_head, t, d // cfg.n_head, r)
+    args, gb, _, plain_bwd = check_attention_bwd(torch, fa, b, cfg.n_head, t,
+                                                 d // cfg.n_head, r)
+    plain_ms = median_ms(torch, plain_bwd)
+    del plain_bwd
+    ms, launch_ms, peak_mb = attention_bwd_detail(torch, fa, args, gb, b, t)
+    print(f"K3 rel_flash_attention backward bfloat16 B={b} T={t}: plain "
+          f"composition {plain_ms:.4f} ms in the same call")
+    att_bwd_tr = {"ms_at_transducer_shape": ms,
+                  "plain_ms_at_transducer_shape": plain_ms,
+                  "launch_ms_at_transducer_shape": launch_ms,
+                  "peak_mb_at_transducer_shape": peak_mb}
+    del args, gb
 
     # K5: tables of log-softmaxed logits, ragged T' and U, fp32 only.
     lp = torch.log_softmax(r(b, t, u1, 8) * 2.0, -1)
@@ -981,7 +1051,8 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     if not (torch.isfinite(o).all() and rel <= TOL["bfloat16"]):
         raise AssertionError("K6 at the decode's shape disagrees with its "
                              "plain version")
-    return out, ffn_bwd_tr
+    return out, {"fused_ffn_bwd": ffn_bwd_tr,
+                 "rel_flash_attention_bwd": att_bwd_tr}
 
 
 def transducer_train_phase(torch, card):
@@ -1178,9 +1249,10 @@ def main() -> int:
     kernels += train_kernels
     train_launches, _ = train_phase(torch, card)
     train_cpu_vs_card(torch)
-    tr_kernels, ffn_bwd_tr = transducer_kernel_phase(torch, t_train, t_prime)
+    tr_kernels, at_tr_shape = transducer_kernel_phase(torch, t_train, t_prime)
     kernels += tr_kernels
-    next(k for k in kernels if k["name"] == "fused_ffn_bwd").update(ffn_bwd_tr)
+    for kern in kernels:
+        kern.update(at_tr_shape.get(kern["name"], {}))
     tr_launches, _ = transducer_train_phase(torch, card)
     transducer_cpu_vs_card(torch)
     tr_decode = transducer_decode_phase(torch, card)
