@@ -512,7 +512,8 @@ __global__ void __launch_bounds__(kThreads)
 //     tiles {w / 4, w / 4 + 2, w / 4 + 4} of dslab, so the BQ = 32-row shift
 //     to the next tile moves an accumulator from one slot of the thread to
 //     the next: the kernel flushes the final slot and carries the other two
-//     (kCarry; all rows are flushed after the last tile). A flush is one
+//     (all rows are flushed after the last tile); flushing every row after
+//     every tile triples the reductions and timed slower. A flush is one
 //     red.global.add.v4.f32 per 4 columns (pairs of lanes trade halves with
 //     one shuffle), summed over the batch and the key tiles in fp32; rows
 //     outside [0, 2T) are dropped.
@@ -526,7 +527,6 @@ using mma::cp_async16;
 using mma::cp_async4;
 using mma::warp_mma_k16;
 constexpr int BQ = 32, BK = 64, SW = BQ + BK;
-constexpr bool kCarry = true;  // flush only the final dslab rows of each tile
 
 template <int DH>
 struct Layout {
@@ -735,7 +735,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       warp_mma_k16<3, NSL, Major::MN, Major::MN, 32>(sl, rawg, L::LDG, qvs, L::LDQ, lm * 16, ln,
                                                      kk);
     }
-    if (kCarry && qt + 1 < nq) {
+    if (qt + 1 < nq) {
       // slot 2 holds rows [BK, SW): final. Slots 0, 1 move up one (rows
       // + BQ in the next tile's slab).
       flush(2, c0);
@@ -768,35 +768,33 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 }
 
+// Sets dkv_kernel<DH>'s shared-memory attributes; returns its bytes.
 template <int DH>
-int launch(const bf16* qu, const bf16* qv, const bf16* k, const bf16* v, const bf16* p,
-           const int* lengths, const bf16* dout, const float* lse, const float* delta, bf16* dk,
-           bf16* dv, float* dp, int b, int h, int t, float scale, int chunk_size, int left_chunks,
-           cudaStream_t stream) {
+size_t configure() {
   constexpr size_t bytes = Layout<DH>::kBytes;
   cudaFuncSetAttribute(dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   cudaFuncSetAttribute(dkv_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
                        (int)cudaSharedmemCarveoutMaxShared);
+  return bytes;
+}
+
+template <int DH>
+int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
+           const int* lengths, const void* dout, const float* lse, const float* delta, void* dk,
+           void* dv, float* dp, int b, int h, int t, float scale, int chunk_size, int left_chunks,
+           cudaStream_t stream) {
+  const size_t bytes = configure<DH>();
+  auto in = [](const void* x) { return static_cast<const bf16*>(x); };
   dkv_kernel<DH><<<dim3((t + BK - 1) / BK, b * h), kThreads, bytes, stream>>>(
-      qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, h, t, scale, chunk_size,
-      left_chunks);
+      in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dp, h, t, scale, chunk_size, left_chunks);
   return (int)cudaGetLastError();
 }
 
-// Blocks of dkv_kernel<DH> that one SM holds at once (0 for another Dh).
-inline int blocks_per_sm(int dh) {
+template <int DH>
+int blocks_per_sm() {
   int n = 0;
-  if (dh == 64) {
-    cudaFuncSetAttribute(dkv_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)Layout<64>::kBytes);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<64>, kThreads,
-                                                  Layout<64>::kBytes);
-  } else if (dh == 32) {
-    cudaFuncSetAttribute(dkv_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)Layout<32>::kBytes);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<32>, kThreads,
-                                                  Layout<32>::kBytes);
-  }
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<DH>, kThreads, configure<DH>());
   return n;
 }
 
@@ -893,23 +891,12 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
   }
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && (dh == 64 || dh == 32)) {
-    using espnet::bf16;
-    const int err =
-        dh == 64
-            ? espnet::rel_dkv::launch<64>(
-                  static_cast<const bf16*>(qu), static_cast<const bf16*>(qv),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(p), lengths, static_cast<const bf16*>(dout), lse, delta,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dp, b, h, t, scale, chunk_size,
-                  left_chunks, s)
-            : espnet::rel_dkv::launch<32>(
-                  static_cast<const bf16*>(qu), static_cast<const bf16*>(qv),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(p), lengths, static_cast<const bf16*>(dout), lse, delta,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), dp, b, h, t, scale, chunk_size,
-                  left_chunks, s);
-    if (err) return err;
-    return espnet::launch_rel_flash_bwd_kernel<bf16, 64, 64, false>(
+    const auto dkv = dh == 64 ? espnet::rel_dkv::launch<64> : espnet::rel_dkv::launch<32>;
+    if (int err = dkv(qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, b, h, t, scale,
+                      chunk_size, left_chunks, s)) {
+      return err;
+    }
+    return espnet::launch_rel_flash_bwd_kernel<espnet::bf16, 64, 64, false>(
         qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, nullptr, b, h, t, dh, scale,
         chunk_size, left_chunks, s);
   }
@@ -934,5 +921,6 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
 // Blocks of the bf16 dkv kernel that one SM holds at once at this Dh (0 where
 // that kernel does not take the Dh).
 extern "C" int espnet_rel_flash_dkv_blocks_per_sm(int dh) {
-  return espnet::rel_dkv::blocks_per_sm(dh);
+  return dh == 64 ? espnet::rel_dkv::blocks_per_sm<64>()
+                  : dh == 32 ? espnet::rel_dkv::blocks_per_sm<32>() : 0;
 }
