@@ -257,7 +257,9 @@ def kernel_phase(torch, t_prime):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = median_ms(torch, lambda: sdpa(q_u, k, v, attn_mask=bias,
                                            scale=scale))
-    pairs = float(allowed.sum().item()) * h  # (query, visible key) pairs
+    # (query, visible key) pairs; the mask broadcasts over the query axis
+    # when there is no chunking.
+    pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
     att_bytes = 2 * (5 * b * h * t * dh + h * 2 * t * dh) + 4 * b * h * t \
         + 4 * b
     att_bound = bound(3 * 2.0 * pairs * dh, att_bytes)
@@ -598,7 +600,7 @@ def train_kernel_phase(torch, t_prime):
     lib_ms = median_ms(torch, lambda: torch.autograd.grad(
         sd, leaves, gb, retain_graph=True))
     del sd, leaves, bias
-    pairs = float(allowed.sum().item()) * h
+    pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
     bnd = bound(16.0 * pairs * dh,
                 2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
                 + 2 * (4 * b * h * t * dh + 2 * h * t * dh))

@@ -481,12 +481,13 @@ __global__ void __launch_bounds__(kThreads)
 // computes, with the same rounding points (P, ds and rawg rounded to bf16
 // before the products that take them, fp32 accumulation).
 //
-// Bound (flagship train shape, B 64, H 4, T' 468, Dh 64): the compulsory
-// traffic (q_u, q_v, dO, k, v, p, lse, delta in; dk, dv, dp out) is ~39
-// MB, 0.012 ms at 3.35 TB/s; the tensor-core work is ~56 GFLOP in the
-// products this kernel forms, 0.057 ms at 989 TFLOP/s: it is bounded by
-// operations, and its first limits are the shared-memory operand traffic of
-// mma.sync and the dp reduction.
+// Bound (flagship train shape, B 64, H 4, T' 468, Dh 64, ragged lengths):
+// the compulsory traffic (q_u, q_v, dO, k, v, p, lse, delta in; dk, dv, dp
+// out) is ~110 MB, 0.033 ms at 3.35 TB/s; the six products over the
+// visible (query, key) pairs are ~34 GFLOP, 0.035 ms at 989 TFLOP/s, so it
+// sits at the ridge. The tiles it forms hold ~56 GFLOP (masked pairs and
+// the unused part of the skewed product included); its first limits are
+// the shared-memory operand traffic of mma.sync and the dp reduction.
 //
 // Design. One block (8 warps) owns one (b, h) and one key tile of BK = 64
 // rows and walks the query tiles of BQ = 32 rows:

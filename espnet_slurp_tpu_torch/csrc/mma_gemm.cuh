@@ -16,6 +16,9 @@
 //     functor that receives each thread's accumulator pairs with their
 //     (row, column), and a per-stage hook may read each landed stage (a
 //     column sum of an operand rides along for free).
+//   - `warp_mma_k16`, the mainloop's per-warp step on its own: one warp's
+//     products over one k-step from tiles a kernel already holds in shared
+//     memory, with runtime leading dimensions (K3's dkv kernel uses it).
 //
 // No CUTLASS / CuTe: the header is self-contained so that the build inside
 // chip_smoke.py's time limit stays a few seconds. wgmma and TMA are a later
