@@ -502,7 +502,8 @@ __global__ void __launch_bounds__(kThreads)
 //     raw = q_v slab^T [BQ, BQ + BK] goes through the tensor cores and once
 //     to shared fp32, because the skewed read raw[r, BQ-1-r+c] crosses
 //     lanes. P and ds are formed at the S fragments' (row, column) with
-//     PairScores::at's masks, scale and fully-masked-row rule, and written
+//     the masks (PairScores::visible), scale and fully-masked-row rule of
+//     PairScores::at, and written
 //     to shared memory as bf16 [BQ, BK]; ds also into the skewed bf16 rawg
 //     [BQ, BQ + BK], whose off-band zeros are written once per block.
 //   - dv += P^T dO and dk += ds^T q_u read both operands through
