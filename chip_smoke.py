@@ -422,13 +422,11 @@ def check_ffn_bwd(torch, ffn, n, d, f, r):
     return args, gb, err, plain_bwd
 
 
-def ffn_bwd_detail(torch, ffn, args, gb, n):
-    """K2's bf16 backward at N rows: its time and the plain composition's
-    (CUDA events, the same call), each launch's device time (rows / dx / dW,
-    torch.profiler over 5 calls) and what one call adds to peak memory."""
+def launch_detail(torch, call, kernels):
+    """call()'s time (CUDA events), the device time of each of its launches
+    (torch.profiler over 5 calls; kernels maps a label to a part of the
+    kernel's name) and what one call adds to peak memory, in MB."""
     from torch.profiler import ProfilerActivity, profile
-    x, w1, b1, w2, _ = args
-    call = lambda: ffn._launch_bwd(x, w1, b1, w2, gb)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -441,18 +439,27 @@ def ffn_bwd_detail(torch, ffn, args, gb, n):
         torch.cuda.synchronize()
     launch_ms = {}
     for e in prof.key_averages():
-        for part in ("rows", "dx", "dw"):
-            if f"ffn_bwd::{part}_kernel" in e.key and e.count:
-                launch_ms[part] = e.self_device_time_total / 1e3 / e.count
-    ms = median_ms(torch, call)
+        for label, part in kernels.items():
+            if part in e.key and e.count:
+                launch_ms[label] = e.self_device_time_total / 1e3 / e.count
+    if set(launch_ms) != set(kernels):
+        print("the profiler showed no device time for "
+              f"{sorted(set(kernels) - set(launch_ms))}")
+    return median_ms(torch, call), launch_ms, peak_mb
+
+
+def ffn_bwd_detail(torch, ffn, args, gb, n):
+    """K2's bf16 backward at N rows: its time, each launch's device time
+    (rows / dx / dW) and what one call adds to peak memory."""
+    x, w1, b1, w2, _ = args
+    ms, launch_ms, peak_mb = launch_detail(
+        torch, lambda: ffn._launch_bwd(x, w1, b1, w2, gb),
+        {p: f"ffn_bwd::{p}_kernel" for p in ("rows", "dx", "dw")})
     print(f"K2 fused_ffn backward bfloat16 N={n}: {ms:.4f} ms; launches rows "
           + " / ".join(f"{launch_ms.get(p, float('nan')):.4f}"
                        for p in ("rows", "dx", "dw"))
           + f" ms (rows / dx / dW, torch.profiler); one call adds "
             f"{peak_mb:.1f} MB at its peak")
-    if sorted(launch_ms) != ["dw", "dx", "rows"]:
-        print("K2 backward: the profiler showed no device time for "
-              f"{sorted({'rows', 'dx', 'dw'} - set(launch_ms))}")
     return ms, launch_ms, peak_mb
 
 
@@ -493,9 +500,8 @@ def check_attention_bwd(torch, fa, b, h, t, dh, r):
 def attention_bwd_detail(torch, fa, args, gb, b, t):
     """K3's bf16 backward at B x T': held to rel_flash_attention_bwd_plain
     (the kernels' rounding points) within BWD_PLAIN_TOL per output, then its
-    time (CUDA events), each launch's device time (dkv / dq, torch.profiler
-    over 5 calls) and what one call adds to peak memory."""
-    from torch.profiler import ProfilerActivity, profile
+    time, each launch's device time (dkv / dq) and what one call adds to peak
+    memory."""
     scale = args[0].shape[-1] ** -0.5
     out, lse = fa._launch_fwd(*args, scale, 0, -1)
     call = lambda: fa._launch_bwd(*args, out, lse, gb, scale, 0, -1)
@@ -512,30 +518,13 @@ def attention_bwd_detail(torch, fa, args, gb, b, t):
         raise AssertionError("K3 bf16 backward disagrees with "
                              "rel_flash_attention_bwd_plain")
     del got, ref
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    call()
-    torch.cuda.synchronize()
-    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            call()
-        torch.cuda.synchronize()
-    launch_ms = {}
-    for e in prof.key_averages():
-        for part in ("dkv", "dq"):
-            if f"{part}_kernel" in e.key and e.count:
-                launch_ms[part] = e.self_device_time_total / 1e3 / e.count
-    ms = median_ms(torch, call)
+    ms, launch_ms, peak_mb = launch_detail(
+        torch, call, {p: f"{p}_kernel" for p in ("dkv", "dq")})
     print(f"K3 rel_flash_attention backward bfloat16 B={b} T={t}: {ms:.4f} "
           "ms; launches dkv / dq " + " / ".join(
               f"{launch_ms.get(k, float('nan')):.4f}" for k in ("dkv", "dq"))
           + f" ms (torch.profiler); one call adds {peak_mb:.1f} MB at its "
             "peak")
-    if sorted(launch_ms) != ["dkv", "dq"]:
-        print("K3 backward: the profiler showed no device time for "
-              f"{sorted({'dkv', 'dq'} - set(launch_ms))}")
     return ms, launch_ms, peak_mb
 
 

@@ -183,7 +183,6 @@ def test_fully_masked_rows_follow_autograd_not_the_kernel():
                                atol=1e-5)
 
 
-
 GRAD_NAMES = ("dq_u", "dq_v", "dk", "dv", "dp")
 
 
