@@ -6,7 +6,9 @@ card). It exits non-zero, printing no result, when there is no CUDA device
 or the port's package is not beside it. Phases, each of which fails the run:
 
 1. The card's name and power limit; the hand-written kernels are built from
-   espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time printed.
+   espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
+   compiler's register report and the blocks per SM of K3's bf16 forward
+   and dkv kernels printed.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -14,7 +16,14 @@ or the port's package is not beside it. Phases, each of which fails the run:
    bf16 (error <= 2e-2 of max |ref|) and fp32 (<= 1e-4 of max |ref|), then
    timed with CUDA events (median of 25 after 3 warm-up runs) beside its
    plain version, a PyTorch yardstick where one call computes the same
-   function, and its bound on an H100 SXM.
+   function, and its bound on an H100 SXM (K3's forward as its launch
+   alone, with torch.profiler's device time beside it). K3's bf16 forward is also held
+   on every row (fully masked rows included) to
+   rel_flash_attention_fwd_tiled_plain at the kernel's key tile (the same
+   rounding points) within BWD_PLAIN_TOL and to rel_flash_attention_plain
+   within 2e-2, unchunked and chunked, and torch.profiler shows which
+   kernel bf16 at Dh 64 (the register-resident one), fp32 and bf16 at Dh
+   128 (the WMMA one) launch.
 3. The slice: a flagship-width Speech2Text (random weights from a seeded
    torch.Generator) decodes 8 synthetic 15 s utterances with beam 10,
    pre-beam 30, ctc_weight 0.3, max_len 96 (the traffic of bench.py). The
@@ -37,7 +46,9 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rounding points) within BWD_PLAIN_TOL, and printed with each of their
    launches' device times (K2 rows / dx / dW, K3 dkv / dq; torch.profiler)
    and what one call adds to peak memory; K3's dkv launch also gets a bound
-   of its own.
+   of its own. K3's bf16 forward is held on every row as in phase 2 and
+   timed beside its plain version, SDPA over the precomputed bias and its
+   bound at this shape.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
    dropout 0, SpecAug on, seeded random weights) and the port's
    make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
@@ -117,6 +128,8 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # |ref| on an H100 80GB HBM3; the bound keeps a 2x margin over that and
 # stays above one unit (7.8e-3).
 BWD_PLAIN_TOL = 1e-2
+# K3's bf16 forward at Dh 64, by its kernel's name in torch.profiler.
+FWD_KERNEL = {"fwd": "rel_fwd::fwd_kernel"}
 
 
 def card_line() -> str:
@@ -222,6 +235,68 @@ def check_attention(torch, fa, b, h, t, dh, gen):
     return args_bf16, err_bf16, scale
 
 
+def check_attention_fwd_tiled(torch, fa, args, what):
+    """K3's bf16 forward (the register-resident kernel at Dh 32 / 64) on
+    every row, fully masked ones included, unchunked and chunk 16 / left 4:
+    out within BWD_PLAIN_TOL of max |ref| of rel_flash_attention_fwd_tiled
+    _plain at the kernel's key tile (the same rounding points) and within
+    TOL of rel_flash_attention_plain; lse within 1e-4 of max |ref| on rows
+    with a visible key, the same rows fully masked. Returns the worst
+    relative errors (tiled, plain)."""
+    scale = args[0].shape[-1] ** -0.5
+    worst = [0.0, 0.0]
+    for cs, lc in ((0, -1), (16, 4)):
+        kw = dict(scale=scale, chunk_size=cs, left_chunks=lc)
+        out, lse = fa._launch_fwd(*args, scale, cs, lc)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.rel_flash_attention_fwd_tiled_plain(
+            *args, block_k=fa.FWD_BLOCK_K, **kw)
+        rel_t = rel_err(out, ref)[1]
+        rel_p = rel_err(out, fa.rel_flash_attention_plain(*args, **kw)[0])[1]
+        seen = ref_lse > 0.5 * fa.NEG
+        rel_l = rel_err(lse[seen], ref_lse[seen])[1] if seen.any() else 0.0
+        dead = int((~seen).sum().item())
+        print(f"K3 rel_flash_attention bfloat16 {what} chunk=({cs},{lc}), "
+              f"every row ({dead} fully masked): out {rel_t:.3e} of max|ref| "
+              f"against rel_flash_attention_fwd_tiled_plain (tolerance "
+              f"{BWD_PLAIN_TOL}), {rel_p:.3e} against "
+              f"rel_flash_attention_plain (tolerance {TOL['bfloat16']}); lse "
+              f"{rel_l:.3e} (tolerance 1e-4)")
+        if not (torch.isfinite(out).all() and rel_t <= BWD_PLAIN_TOL
+                and rel_p <= TOL["bfloat16"] and rel_l <= 1e-4
+                and torch.equal(seen, lse > 0.5 * fa.NEG)):
+            raise AssertionError(f"K3 bf16 forward {what} chunk=({cs},{lc}) "
+                                 "disagrees with its plain versions")
+        worst = [max(worst[0], rel_t), max(worst[1], rel_p)]
+        del out, lse, ref, ref_lse
+    return worst
+
+
+def attention_fwd_routes(torch, fa, args):
+    """Which kernel espnet_rel_flash_fwd launches (torch.profiler's kernel
+    names): bf16 at Dh 64 the register-resident rel_fwd::fwd_kernel, fp32
+    and bf16 at Dh 128 the WMMA rel_flash_fwd_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    wide = [torch.cat([x, x], -1) for x in args[:4]] + [
+        torch.cat([args[4], args[4]], -1), args[5]]
+    cases = (("bfloat16 Dh 64", args, "rel_fwd::fwd_kernel<64>"),
+             ("float32 Dh 64", [x.float() if x.is_floating_point() else x
+                                for x in args],
+              "rel_flash_fwd_kernel<float"),
+             ("bfloat16 Dh 128", wide, "rel_flash_fwd_kernel<__nv_bfloat16"))
+    for what, xs, want in cases:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa._launch_fwd(*xs, xs[0].shape[-1] ** -0.5, 0, -1)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if "espnet" in e.key})
+        print(f"K3 forward route, {what}: {names}")
+        if len(names) != 1 or want not in names[0]:
+            raise AssertionError(f"K3 forward {what} did not launch {want}")
+    del wide
+
+
 def kernel_phase(torch, t_prime):
     from espnet_slurp_tpu_torch.models.asr_model import flagship_config
     from espnet_slurp_tpu_torch.ops.kernels import ffn
@@ -235,6 +310,9 @@ def kernel_phase(torch, t_prime):
     ffn_args, ffn_err = check_ffn(torch, ffn, rows, d, f, gen)
     att_args, att_err, scale = check_attention(torch, fa, N_UTT, h, t_prime,
                                                dh, gen)
+    check_attention_fwd_tiled(torch, fa, att_args,
+                              f"B={N_UTT} T={t_prime} (serving)")
+    attention_fwd_routes(torch, fa, att_args)
 
     # K2 timings: no single PyTorch call computes swish(x W1 + b1) W2 + b2.
     ffn_ms = median_ms(torch, lambda: ffn.fused_ffn(*ffn_args))
@@ -246,8 +324,11 @@ def kernel_phase(torch, t_prime):
     # (rel-shifted position scores + mask), the bias build not timed.
     q_u, q_v, k, v, p, lengths = att_args
     b, _, t, _ = q_u.shape
-    att_ms = median_ms(torch, lambda: fa.rel_flash_attention_fwd(
-        *att_args, scale=scale))
+    # The launch alone, as at the train shape: at this size the wrapper's
+    # host work (checks, autograd) outlasts the kernel. torch.profiler's
+    # device time beside it.
+    att_ms, att_device, _ = launch_detail(
+        torch, lambda: fa._launch_fwd(*att_args, scale, 0, -1), FWD_KERNEL)
     att_plain_ms = median_ms(torch, lambda: fa.rel_flash_attention_plain(
         *att_args, scale=scale))
     raw = q_v.float() @ p[:, :2 * t - 1].float().transpose(-1, -2)
@@ -276,7 +357,8 @@ def kernel_phase(torch, t_prime):
              replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:280",
              launches=None, max_abs_err=att_err, ms=att_ms,
              plain_ms=att_plain_ms, bound_ms=att_bound[0],
-             bound_by=att_bound[1], library_ms=lib_ms),
+             bound_by=att_bound[1], library_ms=lib_ms,
+             device_ms=att_device.get("fwd")),
     ]
 
 
@@ -570,8 +652,13 @@ def train_kernel_phase(torch, t_prime):
 
     # K3 backward: B 64, H 4, T', Dh 64, ragged lengths.
     args, gb, err, plain_bwd = check_attention_bwd(torch, fa, b, h, t, dh, r)
+    check_attention_fwd_tiled(torch, fa, args, f"B={b} T={t} (train)")
     scale = dh ** -0.5
-    att_fwd_ms = median_ms(torch, lambda: fa._launch_fwd(*args, scale, 0, -1))
+    att_fwd_ms, att_fwd_device, _ = launch_detail(
+        torch, lambda: fa._launch_fwd(*args, scale, 0, -1), FWD_KERNEL)
+    with torch.no_grad():
+        att_fwd_plain_ms = median_ms(torch, lambda: fa.rel_flash_attention_plain(
+            *args, scale=scale))
     plain_ms = median_ms(torch, plain_bwd)
     del plain_bwd
     ms, launch_ms, peak_mb = attention_bwd_detail(torch, fa, args, gb, b, t)
@@ -583,6 +670,10 @@ def train_kernel_phase(torch, t_prime):
     allowed = fa.allowed_mask(t, lengths)
     bias = torch.where(allowed, bd * scale, fa.NEG).to(q_u.dtype)
     del raw, bd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        att_fwd_lib_ms = median_ms(torch, lambda: sdpa(
+            q_u, k, vv, attn_mask=bias, scale=scale))
     leaves = [x.detach().requires_grad_(True) for x in (q_u, k, vv)]
     sd = torch.nn.functional.scaled_dot_product_attention(
         *leaves, attn_mask=bias, scale=scale)
@@ -590,6 +681,11 @@ def train_kernel_phase(torch, t_prime):
         sd, leaves, gb, retain_graph=True))
     del sd, leaves, bias
     pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
+    # The forward: q_u k^T, the skewed q_v p^T and P v over the visible
+    # pairs; q_u, q_v, k, v, p, lengths in, out and lse out.
+    att_fwd_bound = bound(3 * 2.0 * pairs * dh,
+                          2 * (5 * b * h * t * dh + h * 2 * t * dh)
+                          + 4 * b * h * t + 4 * b)
     bnd = bound(16.0 * pairs * dh,
                 2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
                 + 2 * (4 * b * h * t * dh + 2 * h * t * dh))
@@ -707,8 +803,15 @@ def train_kernel_phase(torch, t_prime):
                     library_ms=lib_bwd_ms,
                     library_note="F.ctc_loss backward to [T', B, V] "
                                  "log-probs", **common))
-    return out, {"fused_ffn": (ffn_fwd_ms, ffn_fwd_bound),
-                 "rel_flash_attention": (att_fwd_ms, None)}
+    return out, {
+        "fused_ffn": dict(ms_at_train_shape=ffn_fwd_ms,
+                          bound_ms_at_train_shape=ffn_fwd_bound),
+        "rel_flash_attention": dict(
+            ms_at_train_shape=att_fwd_ms,
+            bound_ms_at_train_shape=att_fwd_bound[0],
+            plain_ms_at_train_shape=att_fwd_plain_ms,
+            library_ms_at_train_shape=att_fwd_lib_ms,
+            device_ms_at_train_shape=att_fwd_device.get("fwd"))}
 
 
 def train_batch(torch, rng, b, n_samples, u, vocab, device):
@@ -1227,6 +1330,10 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if re.search(r"Compiling entry|registers|spill", line):
             print("  " + line.strip())
+    blocks = {f"{k} Dh {dh}": getattr(
+        build.library(), f"espnet_rel_flash_{k}_blocks_per_sm")(dh)
+        for k in ("fwd", "dkv") for dh in (64, 32)}
+    print(f"K3 bf16 kernels, blocks per SM: {blocks}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).
@@ -1236,7 +1343,7 @@ def main() -> int:
     decode_launches, _ = slice_phase(torch, card)
     t_train = Conv2dSubsampling.out_length_static(
         1 + FS * TRAIN_SECONDS // 128)
-    train_kernels, fwd_train_ms = train_kernel_phase(torch, t_train)
+    train_kernels, fwd_train = train_kernel_phase(torch, t_train)
     kernels += train_kernels
     train_launches, _ = train_phase(torch, card)
     train_cpu_vs_card(torch)
@@ -1244,6 +1351,8 @@ def main() -> int:
     kernels += tr_kernels
     for kern in kernels:
         kern.update(at_tr_shape.get(kern["name"], {}))
+        if kern["name"] == "rel_flash_attention":
+            kern["blocks_per_sm"] = blocks["fwd Dh 64"]
     tr_launches, _ = transducer_train_phase(torch, card)
     transducer_cpu_vs_card(torch)
     tr_decode = transducer_decode_phase(torch, card)
@@ -1258,9 +1367,7 @@ def main() -> int:
         kern["launches_per_transducer_step"] = tr_launches[name] // TRAIN_STEPS
         if name in decode_launches:
             kern["launches_per_decode"] = decode_launches[name]
-            kern["ms_at_train_shape"], bnd = fwd_train_ms[name]
-            if bnd is not None:
-                kern["bound_ms_at_train_shape"] = bnd
+            kern.update(fwd_train[name])
         if name in tr_decode:
             kern["launches_per_transducer_decode"] = tr_decode[name]
         print(f"{name}: {kern['ms']:.4f} ms (plain {kern['plain_ms']:.4f}"

@@ -9,15 +9,23 @@
 // rel_flash_attention (_fwd_kernel, _dkv_kernel, _dq_kernel), which runs the
 // self-attention of every Conformer block.
 //
-// What bounds it on the H100: at the flagship shape (B = 8, H = 4, T ~ 470,
-// Dh = 64, bf16) the three products (q_u k^T, the skewed q_v p^T, P v) are
-// ~2.7 GFLOP against ~10 MB of compulsory traffic (q_u, q_v, k, v, p, out,
-// lse): ~270 FLOP per byte, close to the ridge, so a fast kernel is bounded
-// about equally by memory and by the tensor cores. The plain composition
-// writes [B, H, T, T] scores and probabilities and a [B, H, T, 2T-1] position
-// score matrix, which is what the TPU kernel was written to avoid.
+// What bounds it on the H100: at the flagship train shape (B = 64, H = 4,
+// T' = 468, Dh = 64, bf16) the three products (q_u k^T, the skewed q_v p^T,
+// P v) over the (query, key) pairs are ~21 GFLOP against ~78 MB of
+// compulsory traffic (q_u, q_v, k, v, p, out, lse): ~280 FLOP per byte, at
+// the ridge, so a fast kernel is bounded about equally by memory and by the
+// tensor cores (0.022-0.023 ms). The plain composition writes [B, H, T, T]
+// scores and probabilities and a [B, H, T, 2T-1] position score matrix,
+// which is what the TPU kernel was written to avoid.
 //
-// Design: one block owns BQ query rows of one (batch, head) and streams key
+// Two forward kernels. In bf16 at Dh 32 and 64 (both main-path models) the
+// forward is rel_fwd::fwd_kernel below: registers for q, S, P and O, one
+// fp32 shared trip a warp for the skewed slice, cp.async rings; its note
+// says what limits it and what its design does about that. Every other
+// case (fp32, bf16 at other Dh) takes rel_flash_fwd_kernel here, the first
+// version:
+//
+// one block owns BQ query rows of one (batch, head) and streams key
 // tiles of BK rows with an online softmax (running max m, sum l, fp32 output
 // accumulator in shared memory). The rel-shift never materialises: for a
 // (query tile i0, key tile j0) pair, the position rows it needs are the one
@@ -26,8 +34,8 @@
 // and reads bd[i, j] from it at column (BQ - 1) - i + j. Slab rows outside
 // [0, 2T) and key/query rows at or past T are zero-filled; key columns at or
 // past T are dropped from the softmax, so any T works. No [T, T] or
-// [T, 2T - 1] buffer reaches global memory. The simple first version: WMMA bf16
-// tiles staged through shared memory, no pipelining; wgmma/TMA come later.
+// [T, 2T - 1] buffer reaches global memory. WMMA tiles staged through shared
+// memory, no pipelining.
 #include "common.cuh"
 #include "mma_gemm.cuh"
 
@@ -171,9 +179,6 @@ template <typename T, int BQ, int BK>
 int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* v, const void* p,
                      const int* lengths, void* out, float* lse, int b, int h, int t, int dh,
                      float scale, int chunk_size, int left_chunks, cudaStream_t stream) {
-  if (b <= 0 || h <= 0 || t <= 0 || dh % 16 || (long)b * h > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
   const FlashLayout L(dh, BQ, BK, sizeof(T));
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
@@ -547,12 +552,13 @@ struct Layout {
 };
 
 // rows x DH of global rows [r0, r0 + rows) of g (row length DH) into shared
-// s (leading dimension ld); rows outside [lo, hi) are zero-filled.
-template <int DH>
+// s (leading dimension ld) by a block of NTH threads; rows outside [lo, hi)
+// are zero-filled.
+template <int DH, int NTH = kThreads>
 __device__ __forceinline__ void load_rows_async(bf16* s, int ld, const bf16* g, long r0, int rows,
                                                 long lo, long hi) {
   constexpr int CH = DH / 8;
-  for (int idx = threadIdx.x; idx < rows * CH; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < rows * CH; idx += NTH) {
     const int r = idx / CH;
     const int c = (idx - r * CH) * 8;
     const long gr = r0 + r;
@@ -802,6 +808,298 @@ int blocks_per_sm() {
 
 }  // namespace rel_dkv
 
+// ---- Forward in bf16 at Dh 32 and 64: S, P and O in registers ----------
+//
+// Replaces _fwd_kernel (espnet_slurp_tpu/ops/pallas/flash_attention.py:134,
+// called at :336) in bf16 where Dh is 32 or 64 (both main-path models use
+// 64); fp32 and every other Dh take rel_flash_fwd_kernel above. Same
+// function and rounding points as that kernel: scores in fp32 from bf16
+// products, masked scores kNeg, an online softmax over key tiles whose
+// exp(s - m_running) is rounded to bf16 before P v, l and O in fp32.
+//
+// Bound (flagship train shape, B 64, H 4, T' 468, Dh 64): ~78 MB of
+// compulsory traffic (q_u, q_v, k, v, p in; out, lse out), 0.023 ms at
+// 3.35 TB/s, and ~21 GFLOP of products over the (query, key) pairs, 0.022
+// ms at 989 TFLOP/s: it sits at the ridge. The tiles it forms hold ~28
+// GFLOP (the raw slice is 16 x (BK + 16) per warp) and take ~0.25 ms of
+// device time there (PERF.md §6): its products run through mma.sync with
+// operands fed from shared memory (each warp reads the whole k, v
+// and its slab span), beside the softmax's fp32 work; which of the two
+// holds it is not measured apart.
+//
+// Design. One block (4 warps) owns one (b, h) and one query tile of BQ = 64
+// rows; warp w owns query rows 16 w .. 16 w + 15 and walks the key tiles of
+// BK = 64 rows:
+//   - q_u and q_v are loaded once; their A fragments stay in registers for
+//     the whole walk (mma::load_a_k16), and so do the O accumulator, the
+//     running max m and the per-lane partial sums l (reduced over the quad
+//     once, at the end).
+//   - S = q_u k^T goes into m16n8k16 accumulators (mma::warp_mma_k16_ra).
+//   - The skewed product: the position rows that a warp's 16 query rows
+//     need for one key tile are the slab rows [48 - 16 w, 48 - 16 w + 80),
+//     so each warp forms only its 16 x 80 slice rawW = q_v slab^T, in five
+//     16-row groups of 8 registers each, and stores it in fp32 to a region
+//     of shared memory of its own (rows of 88 floats: conflict-free float2
+//     stores); after a __syncwarp it reads bd[r, c] = rawW[r, 15 - r + c]
+//     at the S fragment's (row, column), the lane-crossing skew.
+//   - Masks per lane row: the visible keys of query i are one interval
+//     [jlo, jhi) (PairScores::visible: key length, chunk and left chunks),
+//     computed once; key columns at or past T are -inf and leave l alone.
+//     Scores are kept in log2 units (scale * log2 e folded in, exp2f).
+//   - The online softmax runs on the fragments: the row max over the quad
+//     that holds a row (two shuffles), O rescaled once a tile, and P packed
+//     from the S accumulators straight into bf16 A fragments for P v, whose
+//     B operand v is read with ldmatrix.trans.
+//   - Loads: a 2-stage cp.async ring of (k, v) tiles, and the slab as a
+//     ring of three 64-row chunks (tile kt reads chunks kt and kt + 1, so
+//     each p row is fetched once a block); rows outside [0, 2T) and key rows
+//     at or past T are zero-filled with a source size of 0.
+// Shared memory: 7 tiles of 64 x (Dh + 8) bf16 and 4 x 16 x 88 fp32 raw
+// slices (q's staging reuses the raw region): 87,040 B at Dh 64 (58,368 at
+// Dh 32), so two blocks (three at Dh 32) share an SM; 176 / 132 registers,
+// no spills. At the serving shape
+// (B 8, H 4, T' 471) the grid is 8 x 32 = 256 blocks: one wave on 132 SMs.
+// The query-tile loop (ring, raw slice, masks) is what dq's redesign can
+// reuse: dq walks the same (b, h, query tile) over the key tiles.
+namespace rel_fwd {
+
+using mma::Major;
+using rel_dkv::load_rows_async;
+constexpr int BQ = 64, BK = 64, kWarps = BQ / 16, kThreadsFwd = kWarps * 32;
+constexpr int SPAN = BK + 16;  // slab rows one warp reads for one key tile (BK + 15, rounded)
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+template <int DH>
+struct Layout {
+  static constexpr int LDQ = DH + 8;    // q, k, v, slab rows (bf16)
+  static constexpr int LDR = SPAN + 8;  // raw fp32: 88 = 24 mod 32 banks
+  static constexpr size_t kTile = (size_t)BK * LDQ * 2;
+  // k: 2 stages, v: 2 stages, slab: 3 chunks of BK rows, raw: one slice a warp.
+  static constexpr size_t kK = 0, kV = 2 * kTile, kSlab = 4 * kTile, kRaw = 7 * kTile,
+                          kBytes = kRaw + (size_t)kWarps * 16 * LDR * 4;
+  static_assert(BQ == BK, "the slab of a tile is two chunks of BK rows");
+  static_assert(kTile % 16 == 0 && 2 * BQ * LDQ * 2 <= kWarps * 16 * LDR * 4,
+                "16-byte aligned tiles; q's staging fits the raw region");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsFwd, 2)
+    fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
+               const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const bf16* __restrict__ p, const int* __restrict__ lengths,
+               bf16* __restrict__ out, float* __restrict__ lse, int h, int t, float scale,
+               int chunk_size, int left_chunks) {
+  using L = Layout<DH>;
+  constexpr int KS = DH / 16;  // k-steps over Dh
+  constexpr int NO = DH / 8;   // n8 tiles of a warp's O (16 x DH)
+  constexpr int NS = BK / 8;   // n8 tiles of a warp's S (16 x BK)
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int i0 = blockIdx.x * BQ;
+  const long base = (long)bh * t * DH;
+  const bf16* pb = p + (long)hh * 2 * t * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const long cb = (long)t - BQ - i0;  // p row of slab row 0 at key tile 0
+  const int nk = (t + BK - 1) / BK;
+  float* raw = reinterpret_cast<float*>(smem + L::kRaw) + warp * 16 * L::LDR;
+  auto tile = [&](size_t region, int slot) {
+    return reinterpret_cast<bf16*>(smem + region + slot * L::kTile);
+  };
+  // Chunk m: p rows [cb + m BK, cb + (m + 1) BK), in slot m % 3.
+  auto load_chunk = [&](int m) {
+    load_rows_async<DH, kThreadsFwd>(tile(L::kSlab, m % 3), L::LDQ, pb, cb + (long)m * BK, BK, 0,
+                                     2L * t);
+  };
+  auto load_kv = [&](int kt) {
+    load_rows_async<DH, kThreadsFwd>(tile(L::kK, kt & 1), L::LDQ, k + base, kt * BK, BK, 0, t);
+    load_rows_async<DH, kThreadsFwd>(tile(L::kV, kt & 1), L::LDQ, v + base, kt * BK, BK, 0, t);
+  };
+
+  // q_u and q_v through the raw region into registers, with tile 0.
+  bf16* qs = reinterpret_cast<bf16*>(smem + L::kRaw);
+  load_rows_async<DH, kThreadsFwd>(qs, L::LDQ, qu + base, i0, BQ, 0, t);
+  load_rows_async<DH, kThreadsFwd>(qs + BQ * L::LDQ, L::LDQ, qv + base, i0, BQ, 0, t);
+  load_chunk(0);
+  load_kv(0);
+  load_chunk(1);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa_u[KS][4], qa_v[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    mma::load_a_k16<Major::K>(qa_u[kk], qs, L::LDQ, warp * 16, kk * 16);
+    mma::load_a_k16<Major::K>(qa_v[kk], qs + BQ * L::LDQ, L::LDQ, warp * 16, kk * 16);
+  }
+
+  // This lane's rows g and g + 8 of the warp: visible keys [jlo, jhi).
+  const int klen = lengths[b];
+  int jlo[2], jhi[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + warp * 16 + g + 8 * hf;
+    jlo[hf] = 0;
+    jhi[hf] = klen;
+    if (chunk_size > 0) {
+      const int rc = i / chunk_size;
+      jhi[hf] = min(klen, (rc + 1) * chunk_size);
+      if (left_chunks >= 0) jlo[hf] = max(0, (rc - left_chunks) * chunk_size);
+    }
+  }
+
+  const float sl2 = scale * kLog2e, neg2 = kNeg * kLog2e;
+  float o[NO][4], m2[2] = {neg2, neg2}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  const int sw0 = BQ - 16 - 16 * warp;  // the warp's first slab row
+
+  for (int kt = 0; kt < nk; ++kt) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; tile kt - 1's readers (and q's) are done
+    if (kt + 1 < nk) {
+      load_kv(kt + 1);
+      load_chunk(kt + 2);
+    }
+    mma::cp_async_commit();
+    const bf16* ks = tile(L::kK, kt & 1);
+    const bf16* vs = tile(L::kV, kt & 1);
+
+    // rawW = q_v slab[sw0 : sw0 + SPAN]^T, 16 slab rows (one chunk) at a time.
+#pragma unroll
+    for (int gi = 0; gi < SPAN / 16; ++gi) {
+      const int row = sw0 + 16 * gi;
+      const bf16* sp = tile(L::kSlab, (kt + row / BK) % 3) + (row % BK) * L::LDQ;
+      float rw[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rw[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) mma::warp_mma_k16_ra<2, Major::K>(rw, qa_v[kk], sp, L::LDQ, 0, kk * 16);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          *reinterpret_cast<float2*>(raw + (g + 8 * hf) * L::LDR + 16 * gi + 8 * j + 2 * tq) =
+              make_float2(rw[j][2 * hf], rw[j][2 * hf + 1]);
+        }
+    }
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) mma::warp_mma_k16_ra<NS, Major::K>(s, qa_u[kk], ks, L::LDQ, 0, kk * 16);
+    __syncwarp();  // rawW visible to the warp
+
+    // Scores in log2 units, masked; the tile's row max.
+    const int j0 = kt * BK;
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = g + 8 * hf, c = 8 * j + 2 * tq + e, jj = j0 + c;
+          float x = -CUDART_INF_F;  // key column past T: not part of the softmax
+          if (jj < t) {
+            x = jj >= jlo[hf] && jj < jhi[hf]
+                    ? (s[j][2 * hf + e] + raw[r * L::LDR + 15 - r + c]) * sl2
+                    : neg2;
+          }
+          s[j][2 * hf + e] = x;
+          mt[hf] = fmaxf(mt[hf], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mt[hf] = fmaxf(mt[hf], __shfl_xor_sync(0xffffffffu, mt[hf], 1));
+      mt[hf] = fmaxf(mt[hf], __shfl_xor_sync(0xffffffffu, mt[hf], 2));
+      const float m_new = fmaxf(m2[hf], mt[hf]);
+      alpha[hf] = exp2f(m2[hf] - m_new);
+      m2[hf] = m_new;
+      l[hf] *= alpha[hf];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    // P = exp2(x - m) in fp32 for l, in bf16 A fragments for P v.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float p0 = exp2f(s[2 * kk + q][2 * hf] - m2[hf]);
+          const float p1 = exp2f(s[2 * kk + q][2 * hf + 1] - m2[hf]);
+          l[hf] += p0 + p1;
+          __nv_bfloat162 pk = __floats2bfloat162_rn(p0, p1);
+          a[2 * q + hf] = *reinterpret_cast<uint32_t*>(&pk);
+        }
+      mma::warp_mma_k16_ra<NO, Major::MN>(o, a, vs, L::LDQ, 0, kk * 16);
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lt = l[hf] + __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt = fmaxf(lt, 1e-30f);
+    const int i = i0 + warp * 16 + g + 8 * hf;
+    if (i < t) {
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out + base + (long)i * DH + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(o[j][2 * hf] / lt, o[j][2 * hf + 1] / lt);
+      }
+      if (tq == 0) lse[(long)bh * t + i] = m2[hf] * kLn2 + logf(lt);
+    }
+  }
+}
+
+// Sets fwd_kernel<DH>'s shared-memory attributes; returns its bytes.
+template <int DH>
+size_t configure() {
+  constexpr size_t bytes = Layout<DH>::kBytes;
+  cudaFuncSetAttribute(fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaFuncSetAttribute(fwd_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  return bytes;
+}
+
+template <int DH>
+int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
+           const int* lengths, void* out, float* lse, int b, int h, int t, float scale,
+           int chunk_size, int left_chunks, cudaStream_t stream) {
+  const size_t bytes = configure<DH>();
+  auto in = [](const void* x) { return static_cast<const bf16*>(x); };
+  fwd_kernel<DH><<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
+      in(qu), in(qv), in(k), in(v), in(p), lengths, static_cast<bf16*>(out), lse, h, t, scale,
+      chunk_size, left_chunks);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fwd_kernel<DH>, kThreadsFwd, configure<DH>());
+  return n;
+}
+
+}  // namespace rel_fwd
+
 template <typename T, int BQ, int BK, bool DKV>
 int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, const void* v,
                                 const void* p, const int* lengths, const void* dout,
@@ -867,7 +1165,14 @@ extern "C" int espnet_rel_flash_fwd(int dtype, const void* qu, const void* qv, c
                                     const void* v, const void* p, const int* lengths, void* out,
                                     float* lse, int b, int h, int t, int dh, float scale,
                                     int chunk_size, int left_chunks, void* stream) {
+  if (b <= 0 || h <= 0 || t <= 0 || dh % 16 || (long)b * h > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (dh == 64 || dh == 32)) {
+    const auto fwd = dh == 64 ? espnet::rel_fwd::launch<64> : espnet::rel_fwd::launch<32>;
+    return fwd(qu, qv, k, v, p, lengths, out, lse, b, h, t, scale, chunk_size, left_chunks, s);
+  }
   if (dtype == 1) {
     return espnet::launch_rel_flash<espnet::bf16, 64, 64>(qu, qv, k, v, p, lengths, out, lse, b, h,
                                                           t, dh, scale, chunk_size, left_chunks, s);
@@ -925,4 +1230,11 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
 extern "C" int espnet_rel_flash_dkv_blocks_per_sm(int dh) {
   return dh == 64 ? espnet::rel_dkv::blocks_per_sm<64>()
                   : dh == 32 ? espnet::rel_dkv::blocks_per_sm<32>() : 0;
+}
+
+// Blocks of the bf16 forward kernel that one SM holds at once at this Dh (0
+// where that kernel does not take the Dh).
+extern "C" int espnet_rel_flash_fwd_blocks_per_sm(int dh) {
+  return dh == 64 ? espnet::rel_fwd::blocks_per_sm<64>()
+                  : dh == 32 ? espnet::rel_fwd::blocks_per_sm<32>() : 0;
 }

@@ -18,7 +18,9 @@
 //     column sum of an operand rides along for free).
 //   - `warp_mma_k16`, the mainloop's per-warp step on its own: one warp's
 //     products over one k-step from tiles a kernel already holds in shared
-//     memory, with runtime leading dimensions (K3's dkv kernel uses it).
+//     memory, with runtime leading dimensions (K3's dkv kernel uses it), and
+//     `warp_mma_k16_ra`, the same with A already in registers (K3's forward
+//     keeps q there, and feeds P from its score accumulators).
 //
 // No CUTLASS / CuTe: the header is self-contained so that the build inside
 // chip_smoke.py's time limit stays a few seconds. wgmma and TMA are a later
@@ -98,32 +100,28 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
   }
 }
 
-// One warp's products over one k-step of 16, both operands already in
-// shared memory with runtime leading dimensions: for i < MT, j < NT,
-//   acc[i][j] += A[m0 + i * MSTRIDE : +16, kk : kk + 16] * B[kk : kk + 16, n0 + 8 j : +8]
-// with A(m, k) = sa[m * lda + k] (AL K-major) or sa[k * lda + m] (MN-major),
-// B(k, n) = sb[n * ldb + k] (BL K-major) or sb[k * ldb + n] (MN-major).
-// acc[i][j][2h + e] is then the element (m0 + i * MSTRIDE + lane / 4 + 8 h,
-// n0 + 8 j + 2 (lane % 4) + e). NT may be odd: the last n8 tile goes
-// through ldmatrix .x2 (its lanes 0-15 give the addresses, as for .x4).
-// Every row address must be 16-byte aligned.
-template <int MT, int NT, Major AL, Major BL, int MSTRIDE = 16>
-__device__ __forceinline__ void warp_mma_k16(float (&acc)[MT][NT][4], const bf16* sa, int lda,
-                                             const bf16* sb, int ldb, int m0, int n0, int kk) {
+// A fragment of one m16 x k16 tile at (m, kk): A(m, k) = sa[m * lda + k]
+// (AL K-major) or sa[k * lda + m] (MN-major). Row addresses 16-byte aligned.
+template <Major AL>
+__device__ __forceinline__ void load_a_k16(uint32_t (&a)[4], const bf16* sa, int lda, int m,
+                                           int kk) {
   const int lane = threadIdx.x & 31;
-  uint32_t a[MT][4];
-  uint32_t b[NT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int m = m0 + i * MSTRIDE;
-    if constexpr (AL == Major::K) {
-      // 8x8 matrices (m +0/+8, k +0/+8) in the order of the A fragment.
-      ldsm_x4<false>(a[i], sa + (m + (lane & 15)) * lda + kk + (lane >> 4) * 8);
-    } else {
-      ldsm_x4<true>(a[i], sa + (kk + (lane & 7) + (lane >> 4) * 8) * lda + m +
-                              ((lane >> 3) & 1) * 8);
-    }
+  if constexpr (AL == Major::K) {
+    // 8x8 matrices (m +0/+8, k +0/+8) in the order of the A fragment.
+    ldsm_x4<false>(a, sa + (m + (lane & 15)) * lda + kk + (lane >> 4) * 8);
+  } else {
+    ldsm_x4<true>(a, sa + (kk + (lane & 7) + (lane >> 4) * 8) * lda + m + ((lane >> 3) & 1) * 8);
   }
+}
+
+// B fragments of NT n8 tiles from column n0 over the k-step at kk: B(k, n) =
+// sb[n * ldb + k] (BL K-major) or sb[k * ldb + n] (MN-major). NT may be
+// odd: the last n8 tile goes through ldmatrix .x2 (its lanes 0-15 give the
+// addresses, as for .x4).
+template <int NT, Major BL>
+__device__ __forceinline__ void load_b_k16(uint32_t (&b)[NT][2], const bf16* sb, int ldb, int n0,
+                                           int kk) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < NT; j += 2) {
     const int n = n0 + j * 8;
@@ -142,10 +140,38 @@ __device__ __forceinline__ void warp_mma_k16(float (&acc)[MT][NT][4], const bf16
       ldsm_x2<BL == Major::MN>(b[j], pb);
     }
   }
+}
+
+// One warp's products over one k-step of 16, both operands already in
+// shared memory with runtime leading dimensions: for i < MT, j < NT,
+//   acc[i][j] += A[m0 + i * MSTRIDE : +16, kk : kk + 16] * B[kk : kk + 16, n0 + 8 j : +8]
+// with the layouts of load_a_k16 / load_b_k16. acc[i][j][2h + e] is then
+// the element (m0 + i * MSTRIDE + lane / 4 + 8 h, n0 + 8 j + 2 (lane % 4) + e).
+template <int MT, int NT, Major AL, Major BL, int MSTRIDE = 16>
+__device__ __forceinline__ void warp_mma_k16(float (&acc)[MT][NT][4], const bf16* sa, int lda,
+                                             const bf16* sb, int ldb, int m0, int n0, int kk) {
+  uint32_t a[MT][4];
+  uint32_t b[NT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) load_a_k16<AL>(a[i], sa, lda, m0 + i * MSTRIDE, kk);
+  load_b_k16<NT, BL>(b, sb, ldb, n0, kk);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+}
+
+// warp_mma_k16 for one m16 tile whose A fragment the warp already holds in
+// registers (from load_a_k16, or accumulators packed to bf16: element (g +
+// 8 h, 2 t + e + 8 q) of the 16 x 16 tile in half e of a[2 q + h], with g =
+// lane / 4 and t = lane % 4): acc[j] += A * B[kk : kk + 16, n0 + 8 j : +8].
+template <int NT, Major BL>
+__device__ __forceinline__ void warp_mma_k16_ra(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                                const bf16* sb, int ldb, int n0, int kk) {
+  uint32_t b[NT][2];
+  load_b_k16<NT, BL>(b, sb, ldb, n0, kk);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a, b[j][0], b[j][1]);
 }
 
 // A per-stage hook that does nothing.

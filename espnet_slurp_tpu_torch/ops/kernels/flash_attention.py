@@ -5,12 +5,14 @@ On CUDA tensors ``rel_flash_attention_fwd`` is a ``torch.autograd.Function``
 that launches the hand-written kernels in ``csrc/flash_attention.cu``: the
 forward (online softmax over key tiles; the rel-shift is a skewed read of
 the [H, 2T, Dh] position table; key-length and chunk masks built in the
-kernel; no [T, T] or [T, 2T-1] buffer in device memory) and the backward
+kernel; no [T, T] or [T, 2T-1] buffer in device memory; in bf16 at Dh 32
+and 64 with q, S, P and O in registers) and the backward
 (dq_u / dq_v and dk / dv / dp kernels, dp summed over the batch). On CPU
 tensors it runs ``rel_flash_attention_plain``, the same function in plain
 PyTorch, whose gradients are PyTorch's autograd. A CUDA tensor the kernel
-does not take raises. ``rel_flash_attention_bwd_plain`` is the backward at
-the kernels' rounding points.
+does not take raises. ``rel_flash_attention_fwd_tiled_plain`` and
+``rel_flash_attention_bwd_plain`` are the forward and the backward at the
+kernels' rounding points.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ import torch
 from . import build
 
 NEG = -1e30
+# Key tile of the bf16 forward kernel at Dh 32 and 64
+# (csrc/flash_attention.cu: rel_fwd::BK); its online softmax rounds at
+# these tile edges.
+FWD_BLOCK_K = 64
 
 
 def allowed_mask(t: int, lengths: torch.Tensor, chunk_size: int = 0,
@@ -61,6 +67,40 @@ def rel_flash_attention_plain(q_u, q_v, k, v, p, lengths, *, scale: float,
     lse = torch.logsumexp(s, dim=-1)
     probs = torch.softmax(s, dim=-1).to(v.dtype)
     return (probs.float() @ v.float()).to(q_u.dtype), lse
+
+
+def rel_flash_attention_fwd_tiled_plain(q_u, q_v, k, v, p, lengths, *,
+                                        scale: float, chunk_size: int = 0,
+                                        left_chunks: int = -1,
+                                        block_k: int = FWD_BLOCK_K
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward at the kernels' rounding points: (out, lse fp32).
+
+    As espnet_slurp_tpu/ops/pallas/flash_attention.py:_fwd_kernel: scores
+    in fp32 from q_u.dtype operands, masked scores NEG, then an online
+    softmax over key tiles of ``block_k`` (the running max starts at NEG;
+    key columns past T are no part of any tile) with exp(s - m_running)
+    rounded to v.dtype before P v, and l and the output accumulator in
+    fp32. Nothing on the main path calls it."""
+    b, h, t, dh = q_u.shape
+    qu, qv, kf, vf, pf = (x.float() for x in (q_u, q_v, k, v, p))
+    bd = (qv @ pf[:, : 2 * t - 1].transpose(-1, -2)).gather(
+        -1, rel_shift_index(t, q_u.device).expand(b, h, t, t))
+    s = (qu @ kf.transpose(-1, -2) + bd) * scale
+    s = s.masked_fill(~allowed_mask(t, lengths, chunk_size, left_chunks), NEG)
+    m = torch.full((b, h, t, 1), NEG, device=q_u.device)
+    l = torch.zeros(b, h, t, 1, device=q_u.device)
+    acc = torch.zeros(b, h, t, dh, device=q_u.device)
+    for j0 in range(0, t, block_k):
+        st = s[..., j0:j0 + block_k]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        pt = torch.exp(st - m_new)
+        l = l * alpha + pt.sum(-1, keepdim=True)
+        acc = acc * alpha + pt.to(v.dtype).float() @ vf[..., j0:j0 + block_k, :]
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return (acc / l).to(q_u.dtype), (m + torch.log(l))[..., 0]
 
 
 def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g, *,

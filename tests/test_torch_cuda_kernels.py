@@ -237,6 +237,72 @@ def test_rel_flash_attention_backward_bf16_at_its_rounding_points(gen, t, dh,
         assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
 
 
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 129, 468, 471])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 4), (5, 0)])
+def test_rel_flash_attention_fwd_bf16_at_its_rounding_points(gen, t, dh,
+                                                             chunk):
+    """The bf16 forward at Dh 32 and 64 (the register-resident kernel)
+    against rel_flash_attention_fwd_tiled_plain at the kernel's key tile,
+    which rounds exp(s - m) where the kernel does: out within BWD_PLAIN_TOL
+    of max |ref|, and within TOL of rel_flash_attention_plain, on every row,
+    fully masked rows (lengths 0 and -1) included; lse within 1e-4 of max
+    |ref| (fp32 sums in another order) on rows with a visible key, and the
+    same rows fully masked."""
+    cs, lc = chunk
+    args = _attention_case(gen, t, dh)
+    kw = dict(scale=dh ** -0.5, chunk_size=cs, left_chunks=lc)
+    before = fa.rel_flash_attention_fwd.launches
+    out, lse = fa._launch_fwd(*args, kw["scale"], cs, lc)
+    torch.cuda.synchronize()
+    assert fa.rel_flash_attention_fwd.launches == before + 1
+    ref, ref_lse = fa.rel_flash_attention_fwd_tiled_plain(
+        *args, block_k=fa.FWD_BLOCK_K, **kw)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert _rel(out, ref) <= BWD_PLAIN_TOL
+    assert _rel(out, fa.rel_flash_attention_plain(*args, **kw)[0]) <= \
+        TOL[torch.bfloat16]
+    seen = ref_lse > -1e29
+    assert torch.equal(seen, lse > -1e29)
+    assert _rel(lse[seen], ref_lse[seen]) <= 1e-4
+
+
+@pytest.mark.parametrize("t", [65, 468])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 4)])
+def test_rel_flash_attention_backward_takes_the_fwd_kernel_lse(gen, t, dh,
+                                                               chunk):
+    """The bf16 backward launch fed the register-resident forward's out and
+    lse against rel_flash_attention_bwd_plain fed the tiled plain forward's:
+    dq_u, dq_v, dk, dv and dp each within BWD_PLAIN_TOL of max |ref|
+    (floored at 1e-3), fully masked rows (lse at NEG) included."""
+    cs, lc = chunk
+    args = _attention_case(gen, t, dh)
+    scale = dh ** -0.5
+    kw = dict(scale=scale, chunk_size=cs, left_chunks=lc)
+    out, lse = fa._launch_fwd(*args, scale, cs, lc)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         .to(torch.bfloat16))
+    got = fa._launch_bwd(*args, out, lse, g, scale, cs, lc)
+    ref_out, ref_lse = fa.rel_flash_attention_fwd_tiled_plain(
+        *args, block_k=fa.FWD_BLOCK_K, **kw)
+    ref = fa.rel_flash_attention_bwd_plain(*args, ref_out, ref_lse, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got, ref):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
+
+
+def test_rel_flash_attention_fwd_two_blocks_per_sm(gen):
+    """The bf16 forward kernel's shared memory and registers let two blocks
+    share an SM at both Dh it takes, and it takes no other Dh."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    assert lib.espnet_rel_flash_fwd_blocks_per_sm(64) >= 2
+    assert lib.espnet_rel_flash_fwd_blocks_per_sm(32) >= 2
+    assert lib.espnet_rel_flash_fwd_blocks_per_sm(128) == 0
+
+
 def test_rel_flash_attention_dkv_two_blocks_per_sm(gen):
     """The bf16 dkv kernel's shared memory and registers let two blocks
     share an SM at both Dh it takes."""

@@ -8,7 +8,9 @@ MultiHeadAttention are held to their flax modules. The CUDA kernel is held
 to the plain version on the card by chip_smoke.py. fp32; tolerance atol
 1e-5 / rtol 1e-4. rel_flash_attention_bwd_plain, the backward at the
 kernels' rounding points, is held to jax.vjp of the Pallas kernel in fp32
-and bf16, and to the plain version's autograd.
+and bf16, and to the plain version's autograd; its forward counterpart
+rel_flash_attention_fwd_tiled_plain to the Pallas forward in fp32 and bf16,
+and to the plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -22,9 +24,12 @@ from espnet_slurp_tpu.ops.pallas.flash_attention import (
 from espnet_slurp_tpu_torch.models import attention as tatt
 from espnet_slurp_tpu_torch.ops.kernels.flash_attention import (
     rel_flash_attention, rel_flash_attention_bwd_plain,
-    rel_flash_attention_fwd, rel_flash_attention_plain)
+    rel_flash_attention_fwd, rel_flash_attention_fwd_tiled_plain,
+    rel_flash_attention_plain)
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
 from torch_parity import t
+
+NEG = -1e30
 
 B, H, T, DH = 2, 2, 256, 32
 SCALE = 1.0 / np.sqrt(DH)
@@ -271,3 +276,65 @@ def test_bwd_plain_fully_masked_rows_follow_autograd_not_the_kernel():
     assert float(dk[1].abs().max()) == 0.0
     np.testing.assert_allclose(np.asarray(ref[2])[1], tl * dv[1].numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 4)])
+def test_fwd_tiled_plain_matches_pallas_interpret(dtype, chunk):
+    """rel_flash_attention_fwd_tiled_plain at block_k 128 against the Pallas
+    forward (its _fwd_kernel, interpret mode, 128-row query and key tiles)
+    at T = 256 with key lengths 256, 131 and 0: out on every row, fully
+    masked rows (length 0, and chunked rows past 131) included; lse against
+    the plain version's logsumexp. fp32: sums in another order, out within
+    1e-5 of max |ref|. bf16: both round exp(s - m) to bf16 before P v and
+    return bf16, so what differs is the fp32 summation order, which can
+    flip the output's rounding by one unit in the last place (2^-8 to 2^-7
+    of a value): 2^-7 of max |ref|. lse within 1e-5 relative on rows with a
+    visible key; the same rows fully masked on both sides."""
+    cs, lc = chunk
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    b, h, tl, dh = 3, 2, 256, 32
+    rng = np.random.RandomState(11)
+    f = lambda *s: rng.randn(*s).astype(np.float32) * 0.5
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    args[4][:, -1] = 0.0
+    lens = np.asarray([tl, 131, 0], np.int32)
+    kw = dict(scale=dh ** -0.5, chunk_size=cs, left_chunks=lc)
+    ref = jax_rel_flash(*(jnp.asarray(a, jdt) for a in args),
+                        jnp.asarray(lens), block_q=128, block_k=128,
+                        interpret=True, **kw)
+    targs = [t(a).to(tdt) for a in args] + [t(lens)]
+    out, lse = rel_flash_attention_fwd_tiled_plain(*targs, block_k=128, **kw)
+    _, ref_lse = rel_flash_attention_plain(*targs, **kw)
+    assert out.dtype == tdt and lse.dtype == torch.float32
+    r = np.asarray(ref, np.float32)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(out.float().numpy(), r, rtol=0,
+                               atol=tol * np.abs(r).max())
+    seen = ref_lse > 0.5 * NEG
+    assert torch.equal(seen, lse > 0.5 * NEG) and not seen.all()
+    torch.testing.assert_close(lse[seen], ref_lse[seen], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (5, 0)])
+def test_fwd_tiled_plain_matches_plain(chunk):
+    """fp32, T = 70 over key tiles of 32 (a ragged last tile), lengths 70,
+    0, -1 and 33: rel_flash_attention_fwd_tiled_plain's out within 1e-5 of
+    max |ref| of rel_flash_attention_plain on every row, fully masked rows
+    (uniform weights) included, and lse within 1e-5 relative on rows with a
+    visible key."""
+    cs, lc = chunk
+    kw = dict(scale=0.25, chunk_size=cs, left_chunks=lc)
+    b, h, tl, dh = 4, 2, 70, 16
+    rng = np.random.RandomState(6)
+    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5)
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = t(np.asarray([tl, 0, -1, 33], np.int32))
+    out, lse = rel_flash_attention_fwd_tiled_plain(*args, lens, block_k=32,
+                                                   **kw)
+    ref, ref_lse = rel_flash_attention_plain(*args, lens, **kw)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+    seen = ref_lse > 0.5 * NEG
+    assert torch.equal(seen, lse > 0.5 * NEG) and not seen.all()
+    torch.testing.assert_close(lse[seen], ref_lse[seen], rtol=1e-5, atol=0)
