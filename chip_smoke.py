@@ -7,8 +7,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
 
 1. The card's name and power limit; the hand-written kernels are built from
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
-   compiler's register report and the blocks per SM of K3's bf16 forward
-   and dkv kernels printed.
+   compiler's register report and the blocks per SM of K3's bf16 forward,
+   dkv and dq kernels printed.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -22,8 +22,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rel_flash_attention_fwd_tiled_plain at the kernel's key tile (the same
    rounding points) within BWD_PLAIN_TOL and to rel_flash_attention_plain
    within 2e-2, unchunked and chunked, and torch.profiler shows which
-   kernel bf16 at Dh 64 (the register-resident one), fp32 and bf16 at Dh
-   128 (the WMMA one) launch.
+   forward and which dq kernel bf16 at Dh 64 (the register-resident ones),
+   fp32 and bf16 at Dh 128 (the WMMA ones) launch.
 3. The slice: a flagship-width Speech2Text (random weights from a seeded
    torch.Generator) decodes 8 synthetic 15 s utterances with beam 10,
    pre-beam 30, ctc_weight 0.3, max_len 96 (the traffic of bench.py). The
@@ -45,10 +45,10 @@ or the port's package is not beside it. Phases, each of which fails the run:
    fused_ffn_bwd_plain and rel_flash_attention_bwd_plain (the same
    rounding points) within BWD_PLAIN_TOL, and printed with each of their
    launches' device times (K2 rows / dx / dW, K3 dkv / dq; torch.profiler)
-   and what one call adds to peak memory; K3's dkv launch also gets a bound
-   of its own. K3's bf16 forward is held on every row as in phase 2 and
-   timed beside its plain version, SDPA over the precomputed bias and its
-   bound at this shape.
+   and what one call adds to peak memory; K3's dkv and dq launches also
+   get bounds of their own. K3's bf16 forward is held on every row as in
+   phase 2 and timed beside its plain version, SDPA over the precomputed
+   bias and its bound at this shape.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
    dropout 0, SpecAug on, seeded random weights) and the port's
    make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
@@ -272,29 +272,57 @@ def check_attention_fwd_tiled(torch, fa, args, what):
     return worst
 
 
+def launched_kernels(torch, call):
+    """Names of the port's kernels that call() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if "espnet" in e.key})
+
+
+def route_cases(torch, args):
+    """K3's bf16 Dh 64 inputs, the same in fp32, and in bf16 at Dh 128."""
+    wide = [torch.cat([x, x], -1) for x in args[:4]] + [
+        torch.cat([args[4], args[4]], -1), args[5]]
+    return (("bfloat16 Dh 64", args),
+            ("float32 Dh 64", [x.float() if x.is_floating_point() else x
+                               for x in args]),
+            ("bfloat16 Dh 128", wide))
+
+
 def attention_fwd_routes(torch, fa, args):
     """Which kernel espnet_rel_flash_fwd launches (torch.profiler's kernel
     names): bf16 at Dh 64 the register-resident rel_fwd::fwd_kernel, fp32
     and bf16 at Dh 128 the WMMA rel_flash_fwd_kernel."""
-    from torch.profiler import ProfilerActivity, profile
-    wide = [torch.cat([x, x], -1) for x in args[:4]] + [
-        torch.cat([args[4], args[4]], -1), args[5]]
-    cases = (("bfloat16 Dh 64", args, "rel_fwd::fwd_kernel<64>"),
-             ("float32 Dh 64", [x.float() if x.is_floating_point() else x
-                                for x in args],
-              "rel_flash_fwd_kernel<float"),
-             ("bfloat16 Dh 128", wide, "rel_flash_fwd_kernel<__nv_bfloat16"))
-    for what, xs, want in cases:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fa._launch_fwd(*xs, xs[0].shape[-1] ** -0.5, 0, -1)
-            torch.cuda.synchronize()
-        names = sorted({e.key for e in prof.key_averages()
-                        if "espnet" in e.key})
+    want = ("rel_fwd::fwd_kernel<64>", "rel_flash_fwd_kernel<float",
+            "rel_flash_fwd_kernel<__nv_bfloat16")
+    for (what, xs), w in zip(route_cases(torch, args), want):
+        names = launched_kernels(torch, lambda: fa._launch_fwd(
+            *xs, xs[0].shape[-1] ** -0.5, 0, -1))
         print(f"K3 forward route, {what}: {names}")
-        if len(names) != 1 or want not in names[0]:
-            raise AssertionError(f"K3 forward {what} did not launch {want}")
-    del wide
+        if len(names) != 1 or w not in names[0]:
+            raise AssertionError(f"K3 forward {what} did not launch {w}")
+
+
+def attention_bwd_routes(torch, fa, args):
+    """Which dq kernel espnet_rel_flash_bwd launches (torch.profiler's kernel
+    names): bf16 at Dh 64 the register-resident rel_dq::dq_kernel, fp32 and
+    bf16 at Dh 128 the WMMA rel_flash_dq_kernel."""
+    want = ("rel_dq::dq_kernel<64>", "rel_flash_dq_kernel<float",
+            "rel_flash_dq_kernel<__nv_bfloat16")
+    for (what, xs), w in zip(route_cases(torch, args), want):
+        scale = xs[0].shape[-1] ** -0.5
+        out, lse = fa._launch_fwd(*xs, scale, 0, -1)
+        g = torch.ones_like(out)
+        names = launched_kernels(torch, lambda: fa._launch_bwd(
+            *xs, out, lse, g, scale, 0, -1))
+        dq = [n for n in names if "dq_kernel" in n]
+        print(f"K3 backward route, {what}: {names}")
+        if len(dq) != 1 or w not in dq[0]:
+            raise AssertionError(f"K3 backward {what} did not launch {w}")
+        del out, lse, g
 
 
 def kernel_phase(torch, t_prime):
@@ -313,6 +341,7 @@ def kernel_phase(torch, t_prime):
     check_attention_fwd_tiled(torch, fa, att_args,
                               f"B={N_UTT} T={t_prime} (serving)")
     attention_fwd_routes(torch, fa, att_args)
+    attention_bwd_routes(torch, fa, att_args)
 
     # K2 timings: no single PyTorch call computes swish(x W1 + b1) W2 + b2.
     ffn_ms = median_ms(torch, lambda: ffn.fused_ffn(*ffn_args))
@@ -694,6 +723,11 @@ def train_kernel_phase(torch, t_prime):
     dkv_bnd = bound(12.0 * pairs * dh,
                     2 * (5 * b * h * t * dh + 2 * h * t * dh) + 8 * b * h * t
                     + 2 * 2 * b * h * t * dh + 4 * 2 * h * t * dh)
+    # dq alone: S, dP, the skewed q_v p^T, dq_u and dq_v over the visible
+    # pairs; q_u, q_v, dO, k, v, p, lse, delta in, dq_u, dq_v out.
+    dq_bnd = bound(10.0 * pairs * dh,
+                   2 * (5 * b * h * t * dh + 2 * h * t * dh) + 8 * b * h * t
+                   + 2 * 2 * b * h * t * dh)
     out.append(dict(
         name="rel_flash_attention_bwd", route="cuda",
         source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
@@ -703,7 +737,8 @@ def train_kernel_phase(torch, t_prime):
         library_note="SDPA backward over a constant rel-shifted bias; "
                      "computes no dp",
         launch_ms=launch_ms, peak_mb=peak_mb, dkv_bound_ms=dkv_bnd[0],
-        dkv_bound_by=dkv_bnd[1]))
+        dkv_bound_by=dkv_bnd[1], dq_bound_ms=dq_bnd[0],
+        dq_bound_by=dq_bnd[1]))
     del args, gb, q_u, q_v, k, vv, pp
 
     # K4: hs [B, T', D], W [V, D], labels U = 64 with blanks between.
@@ -1332,7 +1367,7 @@ def main() -> int:
             print("  " + line.strip())
     blocks = {f"{k} Dh {dh}": getattr(
         build.library(), f"espnet_rel_flash_{k}_blocks_per_sm")(dh)
-        for k in ("fwd", "dkv") for dh in (64, 32)}
+        for k in ("fwd", "dkv", "dq") for dh in (64, 32)}
     print(f"K3 bf16 kernels, blocks per SM: {blocks}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
@@ -1353,6 +1388,9 @@ def main() -> int:
         kern.update(at_tr_shape.get(kern["name"], {}))
         if kern["name"] == "rel_flash_attention":
             kern["blocks_per_sm"] = blocks["fwd Dh 64"]
+        if kern["name"] == "rel_flash_attention_bwd":
+            kern["blocks_per_sm"] = {k: blocks[f"{k} Dh 64"]
+                                     for k in ("dkv", "dq")}
     tr_launches, _ = transducer_train_phase(torch, card)
     transducer_cpu_vs_card(torch)
     tr_decode = transducer_decode_phase(torch, card)

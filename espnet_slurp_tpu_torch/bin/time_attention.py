@@ -1,20 +1,25 @@
-"""Times kernel K3's forward (rel-pos flash attention) on the card.
+"""Times kernel K3 (rel-pos flash attention) on the card, both directions.
 
     python -m espnet_slurp_tpu_torch.bin.time_attention [--out FILE]
 
 bf16, H 4, Dh 64 (the flagship's and the transducer's attention), no
-chunking, inputs from a seeded torch.Generator: the serving shape (B 8,
-T' 471, key lengths 471 - 29 i) and the flagship train shape (B 64, T' 468,
-key lengths 468 - 3 i). Each shape, the launch alone (no autograd):
-``ms``, the median of four medians of 25 CUDA-event runs of one launch
-after 3 warm-ups (chip_smoke.py's way; a launch shorter than the host's
-enqueue counts that too), all four kept in ``runs_ms``; ``ms_batched``, the
-median of 5 event pairs around 20 back-to-back launches, over 20; and
-``device_ms``, torch.profiler's device time per launch over 10 launches.
-Prints one JSON line with the card's name and power limit (nvidia-smi) and
-the kernel module's path.
-To time another checkout's kernel, run this file from that checkout's root
-with ``PYTHONPATH=.``. Needs a CUDA device.
+chunking, inputs from a seeded torch.Generator. The forward (``_launch_fwd``)
+at the serving shape (B 8, T' 471, key lengths 471 - 29 i) and the flagship
+train shape (B 64, T' 468, key lengths 468 - 3 i). The backward
+(``_launch_bwd``: delta, the dkv and dq launches, dp's cast), fed the
+forward kernel's out and lse, at the flagship train shape and the
+transducer's (B 32) with full key lengths, as both train steps give it, and
+at the flagship train shape with key lengths 468 - 3 i. Each case, the
+wrapper's launch alone (no autograd): ``ms``, the median of four medians of
+25 CUDA-event runs of one call after 3 warm-ups (chip_smoke.py's way; a
+launch shorter than the host's enqueue counts that too), all four kept in
+``runs_ms``; ``ms_batched``, the median of 5 event pairs around 20
+back-to-back calls, over 20; and ``device_ms``, torch.profiler's device
+time of the port's kernels per call over 10 calls (backward: also ``dq_ms``
+and ``dkv_ms``, each launch's own). Prints one JSON line with the card's
+name and power limit (nvidia-smi) and the kernel module's path.
+To time another checkout's kernels, run this file with that checkout's
+root as the working directory and ``PYTHONPATH=.``. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,7 +32,10 @@ import torch
 
 from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
 
-SHAPES = {"serving": (8, 471, 29), "train": (64, 468, 3)}
+# name: (backward?, B, T', key lengths T' - step i)
+CASES = {"serving": (False, 8, 471, 29), "train": (False, 64, 468, 3),
+         "train_bwd": (True, 64, 468, 0), "transducer_bwd": (True, 32, 468, 0),
+         "train_bwd_ragged": (True, 64, 468, 3)}
 H, DH = 4, 64
 
 
@@ -63,7 +71,9 @@ def batched_ms(fn, n=20, reps=5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, n=10) -> float:
+def device_ms(fn, parts, n=10) -> dict:
+    """torch.profiler's device time per call of fn, over n calls, of the
+    port's kernels whose name holds each part (by label)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -71,7 +81,9 @@ def device_ms(fn, n=10) -> float:
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if "espnet" in e.key]
-    return sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    return {label: sum(e.self_device_time_total for e in kernels
+                       if part in e.key) / 1e3 / n
+            for label, part in parts.items()}
 
 
 def case(b, t, step, gen):
@@ -96,13 +108,23 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"card": card, "module": fa.__file__}
-    for name, (b, t, step) in SHAPES.items():
+    scale = DH ** -0.5
+    for name, (backward, b, t, step) in CASES.items():
         inputs = case(b, t, step, gen)
-        call = lambda: fa._launch_fwd(*inputs, DH ** -0.5, 0, -1)
+        parts = {"device_ms": "espnet"}
+        if backward:
+            out, lse = fa._launch_fwd(*inputs, scale, 0, -1)
+            g = torch.randn(out.shape, generator=gen,
+                            device="cuda").to(out.dtype)
+            call = lambda: fa._launch_bwd(*inputs, out, lse, g, scale, 0, -1)
+            parts.update(dq_ms="dq_kernel", dkv_ms="dkv_kernel")
+        else:
+            call = lambda: fa._launch_fwd(*inputs, scale, 0, -1)
         times = [median_ms(call) for _ in range(4)]
-        result[name] = {"B": b, "T": t, "ms": float(np.median(times)),
-                        "runs_ms": times, "ms_batched": batched_ms(call),
-                        "device_ms": device_ms(call)}
+        result[name] = {"B": b, "T": t, "step": step,
+                        "ms": float(np.median(times)), "runs_ms": times,
+                        "ms_batched": batched_ms(call),
+                        **device_ms(call, parts)}
     line = json.dumps(result)
     print(line)
     if args.out:

@@ -214,8 +214,9 @@ int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* 
 // query tiles in fp32 into [H, 2T, Dh] with atomic adds (so its last bits
 // depend on the order the blocks run in); slab rows outside [0, 2T) are
 // dropped. In bf16 at Dh 32 and 64 the dkv launch is rel_dkv::dkv_kernel
-// below (register accumulators, cp.async ring, vector reductions); the
-// WMMA kernels here serve fp32 and every other Dh.
+// below (register accumulators, cp.async ring, vector reductions) and the
+// dq launch rel_dq::dq_kernel (the forward's query-tile loop, registers for
+// q, dO, S, dP and dq); the WMMA kernels here serve fp32 and every other Dh.
 
 struct FlashBwdLayout {
   size_t qu, qv, dout, k, v, slab, sc, dpf, raw, t1, t2, t3, acc1, acc2, lse, delta, total;
@@ -859,8 +860,8 @@ int blocks_per_sm() {
 // Dh 32), so two blocks (three at Dh 32) share an SM; 176 / 132 registers,
 // no spills. At the serving shape
 // (B 8, H 4, T' 471) the grid is 8 x 32 = 256 blocks: one wave on 132 SMs.
-// The query-tile loop (ring, raw slice, masks) is what dq's redesign can
-// reuse: dq walks the same (b, h, query tile) over the key tiles.
+// rel_dq::dq_kernel below walks the same (b, h, query tile) over the key
+// tiles with this loop (ring, raw slice, masks).
 namespace rel_fwd {
 
 using mma::Major;
@@ -881,6 +882,54 @@ struct Layout {
   static_assert(kTile % 16 == 0 && 2 * BQ * LDQ * 2 <= kWarps * 16 * LDR * 4,
                 "16-byte aligned tiles; q's staging fits the raw region");
 };
+
+// Keys visible to query i: [jlo, jhi) (PairScores::visible for keys below
+// klen).
+__device__ __forceinline__ void visible_keys(int i, int klen, int chunk_size, int left_chunks,
+                                             int& jlo, int& jhi) {
+  jlo = 0;
+  jhi = klen;
+  if (chunk_size > 0) {
+    const int rc = i / chunk_size;
+    jhi = min(klen, (rc + 1) * chunk_size);
+    if (left_chunks >= 0) jlo = max(0, (rc - left_chunks) * chunk_size);
+  }
+}
+
+// Slab rows row .. row + 15 of key tile kt in the 3-chunk ring `slab`
+// (chunk m in slot m % 3; tile kt's slab is chunks kt and kt + 1).
+template <int LDQ>
+__device__ __forceinline__ const bf16* slab_rows(const bf16* slab, int kt, int row) {
+  return slab + ((kt + row / BK) % 3) * BK * LDQ + (row % BK) * LDQ;
+}
+
+// The warp's rawW = q_v slab[sw0 : sw0 + SPAN]^T of key tile kt into its
+// fp32 raw slice (rows of LDR floats), 16 slab rows (one chunk) at a time.
+template <int DH, int LDQ, int LDR>
+__device__ __forceinline__ void raw_slice(float* raw, const uint32_t (&qa_v)[DH / 16][4],
+                                          const bf16* slab, int kt, int sw0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int gi = 0; gi < SPAN / 16; ++gi) {
+    float rw[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rw[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      mma::warp_mma_k16_ra<2, Major::K>(rw, qa_v[kk], slab_rows<LDQ>(slab, kt, sw0 + 16 * gi),
+                                        LDQ, 0, kk * 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        *reinterpret_cast<float2*>(raw + (g + 8 * hf) * LDR + 16 * gi + 8 * j + 2 * tq) =
+            make_float2(rw[j][2 * hf], rw[j][2 * hf + 1]);
+      }
+  }
+}
 
 template <int DH>
 __global__ void __launch_bounds__(kThreadsFwd, 2)
@@ -937,18 +986,11 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
   }
 
   // This lane's rows g and g + 8 of the warp: visible keys [jlo, jhi).
-  const int klen = lengths[b];
   int jlo[2], jhi[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int i = i0 + warp * 16 + g + 8 * hf;
-    jlo[hf] = 0;
-    jhi[hf] = klen;
-    if (chunk_size > 0) {
-      const int rc = i / chunk_size;
-      jhi[hf] = min(klen, (rc + 1) * chunk_size);
-      if (left_chunks >= 0) jlo[hf] = max(0, (rc - left_chunks) * chunk_size);
-    }
+    visible_keys(i0 + warp * 16 + g + 8 * hf, lengths[b], chunk_size, left_chunks, jlo[hf],
+                 jhi[hf]);
   }
 
   const float sl2 = scale * kLog2e, neg2 = kNeg * kLog2e;
@@ -970,26 +1012,7 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     const bf16* ks = tile(L::kK, kt & 1);
     const bf16* vs = tile(L::kV, kt & 1);
 
-    // rawW = q_v slab[sw0 : sw0 + SPAN]^T, 16 slab rows (one chunk) at a time.
-#pragma unroll
-    for (int gi = 0; gi < SPAN / 16; ++gi) {
-      const int row = sw0 + 16 * gi;
-      const bf16* sp = tile(L::kSlab, (kt + row / BK) % 3) + (row % BK) * L::LDQ;
-      float rw[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) rw[j][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) mma::warp_mma_k16_ra<2, Major::K>(rw, qa_v[kk], sp, L::LDQ, 0, kk * 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          *reinterpret_cast<float2*>(raw + (g + 8 * hf) * L::LDR + 16 * gi + 8 * j + 2 * tq) =
-              make_float2(rw[j][2 * hf], rw[j][2 * hf + 1]);
-        }
-    }
+    raw_slice<DH, L::LDQ, L::LDR>(raw, qa_v, tile(L::kSlab, 0), kt, sw0);
 
     float s[NS][4];
 #pragma unroll
@@ -1100,6 +1123,289 @@ int blocks_per_sm() {
 
 }  // namespace rel_fwd
 
+// ---- dq in bf16 at Dh 32 and 64: the forward's query-tile loop ---------
+//
+// Replaces _dq_kernel (espnet_slurp_tpu/ops/pallas/flash_attention.py:237,
+// called at :421) in bf16 where Dh is 32 or 64 (both main-path models use
+// 64); fp32 and every other Dh take rel_flash_dq_kernel above. Same
+// function and rounding points as that kernel (PairScores::at): s in fp32
+// from bf16 products, P = exp(s - lse) and ds = P (dP - delta) scale on
+// visible pairs, ds and the skewed rawg rounded to bf16 before ds k and
+// rawg slab, fp32 accumulation; masked pairs, keys at or past T and fully
+// masked rows (lse < kNeg / 2) give ds = 0.
+//
+// Bound (flagship train shape, B 64, H 4, T' 468, Dh 64, ragged lengths):
+// ~109 MB of compulsory traffic (q_u, q_v, dO, k, v, p, lse, delta in;
+// dq_u, dq_v out), 0.033 ms at 3.35 TB/s; five products over the ~45 M
+// visible (query, key) pairs, ~29 GFLOP, 0.029 ms at 989 TFLOP/s: it sits
+// at the ridge. The tiles it forms hold ~2.9 MFLOP a (query tile, key
+// tile) pair; as in the forward, mma.sync with operands fed from shared
+// memory and the fp32 work on the fragments bound it first.
+//
+// Design: rel_fwd::fwd_kernel's walk. One block (4 warps) owns one (b, h)
+// and one query tile of BQ = 64 rows; warp w owns query rows 16 w .. 16 w
+// + 15 and walks the key tiles of BK = 64 rows:
+//   - q_u, q_v and dO are loaded once; their A fragments stay in registers,
+//     and so do the dq_u and dq_v accumulators (16 x Dh fp32 each), lse
+//     (in log2 units) and delta of the lane's two rows.
+//   - The skewed product: as in the forward, each warp forms its 16 x 80
+//     slice rawW = q_v slab[sw0 : sw0 + 80]^T and stores it in fp32 to a
+//     shared region of its own; bd[r, c] = rawW[r, 15 - r + c].
+//   - S = q_u k^T and dP = dO v^T go into m16n8k16 accumulators, in two
+//     halves of 32 key columns (registers: the fragments and accumulators
+//     above hold 112 of them). ds is formed at the fragments and packed
+//     straight into bf16 A fragments for dq_u += ds k, k read as the
+//     MN-major B through ldmatrix.trans.
+//   - rawg[r, 15 - r + c] = ds[r, c] crosses lanes: each warp writes its ds
+//     skewed (2-byte stores: the pair (c, c + 1) is 4-byte aligned only for
+//     odd r) into a bf16 16 x 80 region of its own, whose off-band zeros are
+//     written once a block, and reads it back after a __syncwarp as A
+//     fragments (mma::load_a_k16) for dq_v += rawg slab[sw0 : sw0 + 80],
+//     the slab read through ldmatrix.trans, one ring chunk a 16-row group.
+//   - Loads: the forward's 2-stage cp.async (k, v) ring and 3-chunk slab
+//     ring (tile kt reads chunks kt and kt + 1), zero-filled outside [0,
+//     2T) and past T.
+// Shared memory: the forward's 7 tiles of 64 x (Dh + 8) bf16 and 4 x 16 x
+// 88 fp32 raw slices, plus 4 x 16 x 88 bf16 rawg regions (q_u, q_v and
+// dO's staging reuses raw and rawg): 98,304 B at Dh 64 (69,632 at Dh 32),
+// so two blocks share an SM.
+namespace rel_dq {
+
+using mma::Major;
+using rel_dkv::load_rows_async;
+using rel_fwd::BK;
+using rel_fwd::BQ;
+using rel_fwd::kLog2e;
+using rel_fwd::kThreadsFwd;
+using rel_fwd::kWarps;
+using rel_fwd::raw_slice;
+using rel_fwd::slab_rows;
+using rel_fwd::SPAN;
+using rel_fwd::visible_keys;
+constexpr int HALF = BK / 2;  // key columns of S and dP formed at once
+
+template <int DH>
+struct Layout {
+  static constexpr int LDQ = DH + 8;    // q, dO, k, v, slab rows (bf16)
+  static constexpr int LDR = SPAN + 8;  // raw fp32: 88 = 24 mod 32 banks
+  static constexpr int LDG = SPAN + 8;  // rawg bf16: 176-byte rows, ldmatrix without conflicts
+  static constexpr size_t kTile = (size_t)BK * LDQ * 2;
+  // k: 2 stages, v: 2 stages, slab: 3 chunks of BK rows, then one raw slice
+  // and one rawg region a warp.
+  static constexpr size_t kK = 0, kV = 2 * kTile, kSlab = 4 * kTile, kRaw = 7 * kTile,
+                          kRawg = kRaw + (size_t)kWarps * 16 * LDR * 4,
+                          kBytes = kRawg + (size_t)kWarps * 16 * LDG * 2;
+  static_assert(BQ == BK, "the slab of a tile is two chunks of BK rows");
+  static_assert(kTile % 16 == 0 && kRawg % 16 == 0 && 3 * BQ * LDQ * 2 <= kBytes - kRaw,
+                "16-byte aligned regions; q_u, q_v and dO's staging fits raw and rawg");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsFwd, 2)
+    dq_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
+              const bf16* __restrict__ k, const bf16* __restrict__ v,
+              const bf16* __restrict__ p, const int* __restrict__ lengths,
+              const bf16* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, bf16* __restrict__ dqu, bf16* __restrict__ dqv,
+              int h, int t, float scale, int chunk_size, int left_chunks) {
+  using L = Layout<DH>;
+  constexpr int KS = DH / 16;   // k-steps over Dh
+  constexpr int NO = DH / 8;    // n8 tiles of a warp's dq_u / dq_v (16 x DH)
+  constexpr int NH = HALF / 8;  // n8 tiles of a warp's S / dP half (16 x HALF)
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int i0 = blockIdx.x * BQ;
+  const long base = (long)bh * t * DH;
+  const bf16* pb = p + (long)hh * 2 * t * DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const long cb = (long)t - BQ - i0;  // p row of slab row 0 at key tile 0
+  float* raw = reinterpret_cast<float*>(smem + L::kRaw) + warp * 16 * L::LDR;
+  bf16* rg = reinterpret_cast<bf16*>(smem + L::kRawg) + warp * 16 * L::LDG;
+  auto tile = [&](size_t region, int slot) {
+    return reinterpret_cast<bf16*>(smem + region + slot * L::kTile);
+  };
+  auto load_chunk = [&](int m) {
+    load_rows_async<DH, kThreadsFwd>(tile(L::kSlab, m % 3), L::LDQ, pb, cb + (long)m * BK, BK, 0,
+                                     2L * t);
+  };
+  auto load_kv = [&](int kt) {
+    load_rows_async<DH, kThreadsFwd>(tile(L::kK, kt & 1), L::LDQ, k + base, kt * BK, BK, 0, t);
+    load_rows_async<DH, kThreadsFwd>(tile(L::kV, kt & 1), L::LDQ, v + base, kt * BK, BK, 0, t);
+  };
+
+  const int nk = (t + BK - 1) / BK;
+  const int klen = min(lengths[b], t);  // keys at or past T are invisible
+
+  // q_u, q_v and dO through the raw and rawg regions into registers, with
+  // the first tile.
+  bf16* qs = reinterpret_cast<bf16*>(smem + L::kRaw);
+  load_rows_async<DH, kThreadsFwd>(qs, L::LDQ, qu + base, i0, BQ, 0, t);
+  load_rows_async<DH, kThreadsFwd>(qs + BQ * L::LDQ, L::LDQ, qv + base, i0, BQ, 0, t);
+  load_rows_async<DH, kThreadsFwd>(qs + 2 * BQ * L::LDQ, L::LDQ, dout + base, i0, BQ, 0, t);
+  load_chunk(0);
+  load_kv(0);
+  load_chunk(1);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa_u[KS][4], qa_v[KS][4], qa_do[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    mma::load_a_k16<Major::K>(qa_u[kk], qs, L::LDQ, warp * 16, kk * 16);
+    mma::load_a_k16<Major::K>(qa_v[kk], qs + BQ * L::LDQ, L::LDQ, warp * 16, kk * 16);
+    mma::load_a_k16<Major::K>(qa_do[kk], qs + 2 * BQ * L::LDQ, L::LDQ, warp * 16, kk * 16);
+  }
+  __syncthreads();  // every warp has read the staging
+  // rawg off the band is 0 for every tile: written once.
+  for (int idx = lane; idx < 16 * L::LDG / 2; idx += 32) {
+    reinterpret_cast<uint32_t*>(rg)[idx] = 0u;
+  }
+
+  // This lane's rows g and g + 8 of the warp: visible keys (none for a row
+  // past T or a fully masked one), lse in log2 units, delta.
+  int jlo[2], jhi[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + warp * 16 + g + 8 * hf;
+    const float l = i < t ? lse[(long)bh * t + i] : kNeg;
+    dl[hf] = i < t ? delta[(long)bh * t + i] : 0.0f;
+    lse2[hf] = l * kLog2e;
+    visible_keys(i, klen, chunk_size, left_chunks, jlo[hf], jhi[hf]);
+    if (i >= t || l < 0.5f * kNeg) jhi[hf] = jlo[hf];
+  }
+
+  const float sl2 = scale * kLog2e;
+  float acc_u[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_u[j][e] = acc_v[j][e] = 0.0f;
+  const int sw0 = BQ - 16 - 16 * warp;  // the warp's first slab row
+
+  for (int kt = 0; kt < nk; ++kt) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; tile kt - 1's readers are done
+    if (kt + 1 < nk) {
+      load_kv(kt + 1);
+      load_chunk(kt + 2);
+    }
+    mma::cp_async_commit();
+    const bf16* ks = tile(L::kK, kt & 1);
+    const bf16* vs = tile(L::kV, kt & 1);
+    const bf16* slab = tile(L::kSlab, 0);
+    raw_slice<DH, L::LDQ, L::LDR>(raw, qa_v, slab, kt, sw0);
+    __syncwarp();  // rawW visible to the warp
+
+    const int j0 = kt * BK;
+#pragma unroll
+    for (int hv = 0; hv < BK / HALF; ++hv) {
+      const int n0 = hv * HALF;
+      float s[NH][4], dpv[NH][4];
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        mma::warp_mma_k16_ra<NH, Major::K>(s, qa_u[kk], ks, L::LDQ, n0, kk * 16);
+        mma::warp_mma_k16_ra<NH, Major::K>(dpv, qa_do[kk], vs, L::LDQ, n0, kk * 16);
+      }
+      // ds at the fragments (into s), and skewed into rawg.
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = g + 8 * hf, c = n0 + 8 * j + 2 * tq + e, jj = j0 + c;
+            float ds = 0.0f;
+            if (jj >= jlo[hf] && jj < jhi[hf]) {
+              const float x = (s[j][2 * hf + e] + raw[r * L::LDR + 15 - r + c]) * sl2 - lse2[hf];
+              ds = exp2f(x) * (dpv[j][2 * hf + e] - dl[hf]) * scale;
+            }
+            s[j][2 * hf + e] = ds;
+            rg[r * L::LDG + 15 - r + c] = __float2bfloat16(ds);
+          }
+      // dq_u += ds k over the half's keys.
+#pragma unroll
+      for (int kk = 0; kk < HALF / 16; ++kk) {
+        uint32_t a[4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            __nv_bfloat162 pk = __floats2bfloat162_rn(s[2 * kk + q][2 * hf],
+                                                      s[2 * kk + q][2 * hf + 1]);
+            a[2 * q + hf] = *reinterpret_cast<uint32_t*>(&pk);
+          }
+        mma::warp_mma_k16_ra<NO, Major::MN>(acc_u, a, ks, L::LDQ, 0, n0 + kk * 16);
+      }
+    }
+    __syncwarp();  // rawg visible to the warp
+
+    // dq_v += rawg slab[sw0 : sw0 + SPAN], 16 slab rows (one chunk) at a time.
+#pragma unroll
+    for (int gi = 0; gi < SPAN / 16; ++gi) {
+      uint32_t a[4];
+      mma::load_a_k16<Major::K>(a, rg, L::LDG, 0, gi * 16);
+      mma::warp_mma_k16_ra<NO, Major::MN>(acc_v, a, slab_rows<L::LDQ>(slab, kt, sw0 + 16 * gi),
+                                          L::LDQ, 0, 0);
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + warp * 16 + g + 8 * hf;
+    if (i < t) {
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const long o = base + (long)i * DH + 8 * j + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(dqu + o) =
+            __floats2bfloat162_rn(acc_u[j][2 * hf], acc_u[j][2 * hf + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dqv + o) =
+            __floats2bfloat162_rn(acc_v[j][2 * hf], acc_v[j][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// Sets dq_kernel<DH>'s shared-memory attributes; returns its bytes.
+template <int DH>
+size_t configure() {
+  constexpr size_t bytes = Layout<DH>::kBytes;
+  cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  return bytes;
+}
+
+template <int DH>
+int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
+           const int* lengths, const void* dout, const float* lse, const float* delta, void* dqu,
+           void* dqv, int b, int h, int t, float scale, int chunk_size, int left_chunks,
+           cudaStream_t stream) {
+  const size_t bytes = configure<DH>();
+  auto in = [](const void* x) { return static_cast<const bf16*>(x); };
+  dq_kernel<DH><<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
+      in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, static_cast<bf16*>(dqu),
+      static_cast<bf16*>(dqv), h, t, scale, chunk_size, left_chunks);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dq_kernel<DH>, kThreadsFwd, configure<DH>());
+  return n;
+}
+
+}  // namespace rel_dq
+
 template <typename T, int BQ, int BK, bool DKV>
 int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, const void* v,
                                 const void* p, const int* lengths, const void* dout,
@@ -1148,14 +1454,6 @@ int launch_rel_flash_bwd(const void* qu, const void* qv, const void* k, const vo
                                                        scale, chunk_size, left_chunks, stream);
 }
 
-inline bool fits(int dh, int bq, int bk, int esize) {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return FlashBwdLayout(dh, bq, bk, esize, true).total <= (size_t)max_smem &&
-         FlashBwdLayout(dh, bq, bk, esize, false).total <= (size_t)max_smem;
-}
-
 }  // namespace espnet
 
 // dtype: 0 = float32, 1 = bfloat16. q_u, q_v, k, v, out: [B, H, T, Dh];
@@ -1199,20 +1497,15 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && (dh == 64 || dh == 32)) {
     const auto dkv = dh == 64 ? espnet::rel_dkv::launch<64> : espnet::rel_dkv::launch<32>;
+    const auto dq = dh == 64 ? espnet::rel_dq::launch<64> : espnet::rel_dq::launch<32>;
     if (int err = dkv(qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, b, h, t, scale,
                       chunk_size, left_chunks, s)) {
       return err;
     }
-    return espnet::launch_rel_flash_bwd_kernel<espnet::bf16, 64, 64, false>(
-        qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, nullptr, b, h, t, dh, scale,
-        chunk_size, left_chunks, s);
+    return dq(qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, b, h, t, scale, chunk_size,
+              left_chunks, s);
   }
   if (dtype == 1) {
-    if (espnet::fits(dh, 64, 64, 2)) {
-      return espnet::launch_rel_flash_bwd<espnet::bf16, 64, 64>(
-          qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, dk, dv, dp, b, h, t, dh, scale,
-          chunk_size, left_chunks, s);
-    }
     return espnet::launch_rel_flash_bwd<espnet::bf16, 32, 32>(
         qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, dk, dv, dp, b, h, t, dh, scale,
         chunk_size, left_chunks, s);
@@ -1237,4 +1530,11 @@ extern "C" int espnet_rel_flash_dkv_blocks_per_sm(int dh) {
 extern "C" int espnet_rel_flash_fwd_blocks_per_sm(int dh) {
   return dh == 64 ? espnet::rel_fwd::blocks_per_sm<64>()
                   : dh == 32 ? espnet::rel_fwd::blocks_per_sm<32>() : 0;
+}
+
+// Blocks of the bf16 dq kernel that one SM holds at once at this Dh (0
+// where that kernel does not take the Dh).
+extern "C" int espnet_rel_flash_dq_blocks_per_sm(int dh) {
+  return dh == 64 ? espnet::rel_dq::blocks_per_sm<64>()
+                  : dh == 32 ? espnet::rel_dq::blocks_per_sm<32>() : 0;
 }

@@ -197,11 +197,13 @@ def test_rel_flash_attention_backward(gen, dtype, t, dh, chunk):
     assert fa.rel_flash_attention_fwd.bwd_launches == before + 1
 
 
-def _attention_case(gen, t, dh, b=4, h=2):
-    """bf16 q_u, q_v, k, v, p and key lengths t, t - 7, 0 and -1."""
+def _attention_case(gen, t, dh, b=4, h=2, lengths=None):
+    """bf16 q_u, q_v, k, v, p and key lengths (by default t, t - 7, 0 and
+    -1)."""
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
-    lengths = torch.tensor([t, max(t - 7, 1), 0, -1][:b], dtype=torch.int32,
-                           device="cuda")
+    if lengths is None:
+        lengths = [t, max(t - 7, 1), 0, -1][:b]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     p = r(h, 2 * t, dh)
     p[:, -1] = 0.0
     bf = torch.bfloat16
@@ -214,7 +216,7 @@ def _attention_case(gen, t, dh, b=4, h=2):
 def test_rel_flash_attention_backward_bf16_at_its_rounding_points(gen, t, dh,
                                                                   chunk):
     """The bf16 backward launch (Dh 32 and 64: the register-accumulator dkv
-    kernel; Dh 128: the 32 x 32 WMMA kernels) against
+    and dq kernels; Dh 128: the 32 x 32 WMMA kernels) against
     rel_flash_attention_bwd_plain, which rounds P, ds and rawg where the
     kernels do: dq_u, dq_v, dk, dv and dp each within BWD_PLAIN_TOL of max
     |ref| (floored at 1e-3, as in _check_grads), fully masked rows
@@ -291,6 +293,42 @@ def test_rel_flash_attention_backward_takes_the_fwd_kernel_lse(gen, t, dh,
     for name, a, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got, ref):
         assert torch.isfinite(a).all(), name
         assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
+
+
+@pytest.mark.parametrize("t", [129, 468])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 0)])
+def test_rel_flash_attention_dq_over_invisible_key_tiles(gen, t, dh, chunk):
+    """Key lengths 64, 65, 128 and 129 end on and one past a 64-key tile
+    edge, and chunk 16 / left 0 lets each query see one chunk: whole key
+    tiles that the bf16 dq kernel at Dh 32 / 64 walks are invisible to
+    every query of its block and must add nothing. dq_u and dq_v (and dk,
+    dv, dp) against
+    rel_flash_attention_bwd_plain, each within BWD_PLAIN_TOL of max |ref|
+    (floored at 1e-3)."""
+    cs, lc = chunk
+    args = _attention_case(gen, t, dh, lengths=[64, 65, 128, 129])
+    scale = dh ** -0.5
+    out, lse = fa._launch_fwd(*args, scale, cs, lc)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         .to(torch.bfloat16))
+    got = fa._launch_bwd(*args, out, lse, g, scale, cs, lc)
+    ref = fa.rel_flash_attention_bwd_plain(*args, out, lse, g, scale=scale,
+                                           chunk_size=cs, left_chunks=lc)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got, ref):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
+
+
+def test_rel_flash_attention_dq_two_blocks_per_sm(gen):
+    """The bf16 dq kernel's shared memory and registers let two blocks
+    share an SM at both Dh it takes, and it takes no other Dh."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    assert lib.espnet_rel_flash_dq_blocks_per_sm(64) >= 2
+    assert lib.espnet_rel_flash_dq_blocks_per_sm(32) >= 2
+    assert lib.espnet_rel_flash_dq_blocks_per_sm(128) == 0
 
 
 def test_rel_flash_attention_fwd_two_blocks_per_sm(gen):

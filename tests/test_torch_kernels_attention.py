@@ -46,8 +46,8 @@ def data():
     return qu, qv, k, v, p
 
 
-def _valid_rows(x):
-    m = (np.arange(T)[None, :] < LENGTHS[:, None])[:, None, :, None]
+def _valid_rows(x, lengths=LENGTHS):
+    m = (np.arange(T)[None, :] < lengths[:, None])[:, None, :, None]
     return np.where(m, np.asarray(x), 0.0)
 
 
@@ -192,8 +192,12 @@ GRAD_NAMES = ("dq_u", "dq_v", "dk", "dv", "dp")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("chunk", [(0, -1), (64, 1)])
-def test_bwd_plain_matches_pallas_vjp(data, dtype, chunk):
+@pytest.mark.parametrize(
+    "chunk,lengths",
+    [((0, -1), LENGTHS), ((64, 1), LENGTHS), ((16, 4), LENGTHS),
+     ((0, -1), np.asarray([64, 129], np.int32))],
+    ids=["chunk0", "chunk1", "chunk16_4", "whole_key_tiles_masked"])
+def test_bwd_plain_matches_pallas_vjp(data, dtype, chunk, lengths):
     """rel_flash_attention_bwd_plain against jax.vjp of the Pallas kernel
     (its _dkv_kernel and _dq_kernel, interpret mode) at T = 256 with ragged
     lengths, the cotangent on valid query rows; out from the Pallas forward,
@@ -201,17 +205,20 @@ def test_bwd_plain_matches_pallas_vjp(data, dtype, chunk):
     of its max |ref|. fp32: sums in another order, tol 1e-4. bf16: both
     sides round P, ds and rawg to bf16 at the same points and return bf16,
     so what differs is the fp32 summation order, which can flip a rounding
-    by one unit in the last place (2^-8 to 2^-7 of a value): tol 2^-7."""
+    by one unit in the last place (2^-8 to 2^-7 of a value): tol 2^-7.
+    Lengths 64 and 129 end on and one past a 64-key tile edge, so whole
+    tiles of keys are invisible to every query (ds is 0 on each of their
+    pairs), and chunk 16 / left 4 gives each query a window."""
     cs, lc = chunk
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     kw = dict(scale=SCALE, chunk_size=cs, left_chunks=lc)
     cot = _valid_rows(np.random.RandomState(9).randn(B, H, T, DH)
-                      .astype(np.float32))
+                      .astype(np.float32), lengths)
     out, vjp = jax.vjp(
-        lambda *a: jax_rel_flash(*a, jnp.asarray(LENGTHS), interpret=True,
+        lambda *a: jax_rel_flash(*a, jnp.asarray(lengths), interpret=True,
                                  **kw), *(jnp.asarray(a, jdt) for a in data))
     ref = vjp(jnp.asarray(cot, jdt))
-    args = [t(a).to(tdt) for a in data] + [t(LENGTHS)]
+    args = [t(a).to(tdt) for a in data] + [t(lengths)]
     _, lse = rel_flash_attention_plain(*args, **kw)
     got = rel_flash_attention_bwd_plain(
         *args, t(np.asarray(out, np.float32)).to(tdt), lse, t(cot).to(tdt),
