@@ -8,7 +8,7 @@ or the port's package is not beside it. Phases, each of which fails the run:
 1. The card's name and power limit; the hand-written kernels are built from
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
    compiler's register report and the blocks per SM of K3's bf16 forward,
-   dkv and dq kernels printed.
+   dkv and dq kernels and of K2's bf16 forward kernel printed.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -23,7 +23,12 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rounding points) within BWD_PLAIN_TOL and to rel_flash_attention_plain
    within 2e-2, unchunked and chunked, and torch.profiler shows which
    forward and which dq kernel bf16 at Dh 64 (the register-resident ones),
-   fp32 and bf16 at Dh 128 (the WMMA ones) launch.
+   fp32 and bf16 at Dh 128 (the WMMA ones) launch. K2's bf16 forward is
+   also held to fused_ffn_plain (the same rounding points) within
+   BWD_PLAIN_TOL, shown by torch.profiler to launch the register-resident
+   ffn_fwd::fwd_kernel (with its reduction where F is split across
+   blocks), and timed as its launch alone beside its device time; the same
+   at the flagship and transducer train shapes in phases 4 and 7.
 3. The slice: a flagship-width Speech2Text (random weights from a seeded
    torch.Generator) decodes 8 synthetic 15 s utterances with beam 10,
    pre-beam 30, ctc_weight 0.3, max_len 96 (the traffic of bench.py). The
@@ -46,9 +51,12 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rounding points) within BWD_PLAIN_TOL, and printed with each of their
    launches' device times (K2 rows / dx / dW, K3 dkv / dq; torch.profiler)
    and what one call adds to peak memory; K3's dkv and dq launches also
-   get bounds of their own. K3's bf16 forward is held on every row as in
-   phase 2 and timed beside its plain version, SDPA over the precomputed
-   bias and its bound at this shape.
+   get bounds of their own. K4's bf16 backward likewise: held to
+   fused_ctc_head_emit_bwd_plain within BWD_PLAIN_TOL, its rows, dx and dw
+   launches checked by name in torch.profiler and printed with their
+   device times and what one call adds to peak memory. K3's bf16 forward
+   is held on every row as in phase 2 and timed beside its plain version,
+   SDPA over the precomputed bias and its bound at this shape.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
    dropout 0, SpecAug on, seeded random weights) and the port's
    make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
@@ -120,9 +128,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# The bf16 backward passes of K2 and K3 against fused_ffn_bwd_plain and
-# rel_flash_attention_bwd_plain, which round hd and ds (K2) and P, ds and
-# rawg (K3) where the kernels do: only fp32 summation order differs, and it
+# The bf16 backward passes of K2, K3 and K4 and the bf16 forward of K2
+# against fused_ffn_bwd_plain, rel_flash_attention_bwd_plain,
+# fused_ctc_head_emit_bwd_plain and fused_ffn_plain, which round hd and ds
+# (K2), P, ds and rawg (K3), dlg (K4) and hd (K2's forward) where the
+# kernels do: only fp32 summation order differs, and it
 # can move a bf16 output by one unit in the last place (2^-8 to 2^-7 of
 # itself). At the two train shapes K2's check saw at most 5.0e-3 of max
 # |ref| on an H100 80GB HBM3; the bound keeps a 2x margin over that and
@@ -272,14 +282,63 @@ def check_attention_fwd_tiled(torch, fa, args, what):
     return worst
 
 
-def launched_kernels(torch, call):
-    """Names of the port's kernels that call() launches (torch.profiler)."""
+def port_kernels_ms(torch, call, n=3):
+    """torch.profiler's device time per launch of each of the port's
+    kernels that call() launches, by name, over n calls after one
+    unprofiled call. Averaged over the launches the profiler recorded: on
+    the card it has been seen to drop some of a window's launches (at
+    worst all of a single call's), so the count of calls is no divisor."""
     from torch.profiler import ProfilerActivity, profile
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
+        for _ in range(n):
+            call()
         torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages() if "espnet" in e.key})
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages() if "espnet" in e.key and e.count}
+
+
+def launched_kernels(torch, call):
+    """Names of the port's kernels that call() launches (torch.profiler)."""
+    return sorted(port_kernels_ms(torch, call))
+
+
+def ffn_fwd_detail(torch, ffn, args, what):
+    """K2's bf16 forward at one shape: held to fused_ffn_plain (the kernel's
+    rounding points) within BWD_PLAIN_TOL, launched as ffn_fwd::fwd_kernel
+    (torch.profiler's names; with ffn_fwd::reduce_kernel where F is split
+    across blocks), then the launch alone timed (CUDA events) beside its
+    device time (torch.profiler: the sum of its kernels' times a launch),
+    the plain version's time and its bound. Returns a dict of those."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    x, w1, b1, w2, b2 = args
+    (n, d), f, d2 = x.shape, w1.shape[1], w2.shape[1]
+    call = lambda: ffn._launch_fwd(*args)
+    out = call()
+    torch.cuda.synchronize()
+    rel = rel_err(out, ffn.fused_ffn_plain(*args))[1]
+    per_kernel = port_kernels_ms(torch, call, n=5)
+    names = sorted(per_kernel)
+    splits = build.library().espnet_fused_ffn_fwd_splits(n, d, f, d2)
+    print(f"K2 fused_ffn bfloat16 N={n} {what}: {rel:.3e} of max|ref| "
+          f"against fused_ffn_plain (tolerance {BWD_PLAIN_TOL}); F split "
+          f"{splits} ways; kernels {names}")
+    if not (torch.isfinite(out).all() and rel <= BWD_PLAIN_TOL
+            and any("ffn_fwd::fwd_kernel<" in k for k in names)
+            and all("ffn_fwd::" in k for k in names)
+            and any("reduce_kernel" in k for k in names) == (splits > 1)):
+        raise AssertionError(f"K2 bf16 forward N={n} disagrees with "
+                             "fused_ffn_plain or took another kernel")
+    ms, dev = median_ms(torch, call), sum(per_kernel.values())
+    plain = median_ms(torch, lambda: ffn.fused_ffn_plain(*args))
+    bnd = bound(2.0 * n * f * (d + d2),
+                2 * (n * d + n * d2 + d * f + f * d2) + 4 * (f + d2))
+    print(f"K2 fused_ffn bfloat16 N={n} {what}: {ms:.4f} ms (launch "
+          f"alone), device {dev:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bnd[0],
+                bound_by=bnd[1], max_rel_err=rel, splits=splits)
 
 
 def route_cases(torch, args):
@@ -343,11 +402,8 @@ def kernel_phase(torch, t_prime):
     attention_fwd_routes(torch, fa, att_args)
     attention_bwd_routes(torch, fa, att_args)
 
-    # K2 timings: no single PyTorch call computes swish(x W1 + b1) W2 + b2.
-    ffn_ms = median_ms(torch, lambda: ffn.fused_ffn(*ffn_args))
-    ffn_plain_ms = median_ms(torch, lambda: ffn.fused_ffn_plain(*ffn_args))
-    ffn_bound = bound(4.0 * rows * d * f,
-                      2 * (2 * rows * d + 2 * d * f) + 4 * (f + d))
+    # K2: no single PyTorch call computes swish(x W1 + b1) W2 + b2.
+    k2 = ffn_fwd_detail(torch, ffn, ffn_args, "(serving)")
 
     # K3 timings; the yardstick is SDPA over a precomputed additive bias
     # (rel-shifted position scores + mask), the bias build not timed.
@@ -378,9 +434,10 @@ def kernel_phase(torch, t_prime):
         dict(name="fused_ffn", route="cuda",
              source="espnet_slurp_tpu_torch/csrc/ffn.cu",
              replaces="espnet_slurp_tpu/ops/pallas/ffn.py:128",
-             launches=None, max_abs_err=ffn_err, ms=ffn_ms,
-             plain_ms=ffn_plain_ms, bound_ms=ffn_bound[0],
-             bound_by=ffn_bound[1], library_ms=None),
+             launches=None, max_abs_err=ffn_err, ms=k2["ms"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None,
+             device_ms=k2["device_ms"], f_splits=k2["splits"]),
         dict(name="rel_flash_attention", route="cuda",
              source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
              replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:280",
@@ -639,6 +696,39 @@ def attention_bwd_detail(torch, fa, args, gb, b, t):
     return ms, launch_ms, peak_mb
 
 
+def ctc_head_bwd_detail(torch, kh, call, args, n):
+    """K4's bf16 backward at the flagship train shape: held to
+    fused_ctc_head_emit_bwd_plain (the kernels' rounding points) within
+    BWD_PLAIN_TOL per output, launched as ctc_head_bwd's rows, dx and dw
+    kernels (torch.profiler's names), then its time, each launch's device
+    time and what one call adds to peak memory."""
+    got = call()
+    ref = kh.fused_ctc_head_emit_bwd_plain(*args)
+    torch.cuda.synchronize()
+    rels = [rel_err(a, r)[1] for a, r in zip(got, ref)]
+    names = launched_kernels(torch, call)
+    parts = ("rows", "dx", "dw")
+    print(f"K4 fused_ctc_head_emit backward bfloat16 N={n} against "
+          "fused_ctc_head_emit_bwd_plain: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in zip(("dhs", "dw", "db"), rels))
+          + f" of max|ref| (tolerance {BWD_PLAIN_TOL}); kernels {names}")
+    if not (max(rels) <= BWD_PLAIN_TOL and len(names) == 3 and all(
+            any(f"ctc_head_bwd::{p}_kernel" in k for k in names)
+            for p in parts)):
+        raise AssertionError("K4 bf16 backward disagrees with "
+                             "fused_ctc_head_emit_bwd_plain or took another "
+                             "kernel")
+    del got, ref
+    ms, launch_ms, peak_mb = launch_detail(
+        torch, call, {p: f"ctc_head_bwd::{p}_kernel" for p in parts})
+    print(f"K4 fused_ctc_head_emit backward bfloat16 N={n}: {ms:.4f} ms; "
+          "launches rows / dx / dw " + " / ".join(
+              f"{launch_ms.get(p, float('nan')):.4f}" for p in parts)
+          + f" ms (torch.profiler); one call adds {peak_mb:.1f} MB at its "
+            "peak")
+    return ms, launch_ms, peak_mb
+
+
 def train_kernel_phase(torch, t_prime):
     """K2 and K3 backward, K4 and K1 both ways, at the flagship train step's
     shapes; returns the kernels-line entries."""
@@ -660,9 +750,7 @@ def train_kernel_phase(torch, t_prime):
     # K2 backward: N = 64 x T' rows.
     args, gb, err, plain_bwd = check_ffn_bwd(torch, ffn, n, d, f, r)
     x, w1, b1, w2, _ = args
-    ffn_fwd_ms = median_ms(torch, lambda: ffn._launch_fwd(*args))
-    ffn_fwd_bound = bound(4.0 * n * d * f,
-                          2 * (2 * n * d + 2 * d * f) + 4 * (f + d))[0]
+    k2 = ffn_fwd_detail(torch, ffn, args, "(flagship train)")
     plain_ms = median_ms(torch, plain_bwd)
     ms, launch_ms, peak_mb = ffn_bwd_detail(torch, ffn, args, gb, n)
     print(f"K2 fused_ffn backward bfloat16 N={n}: plain composition "
@@ -763,8 +851,9 @@ def train_kernel_phase(torch, t_prime):
         hs, w, bb, _ = args
         _, z = kh._launch_fwd(hs, w, bb, ext32)
         fwd_ms = median_ms(torch, lambda: kh._launch_fwd(hs, w, bb, ext32))
-        bwd_ms = median_ms(torch, lambda: kh._launch_bwd(hs, w, bb, ext32,
-                                                         z, cot))
+        head_bwd = lambda: kh._launch_bwd(hs, w, bb, ext32, z, cot)
+        bwd_ms, head_launch_ms, head_peak_mb = ctc_head_bwd_detail(
+            torch, kh, head_bwd, (hs, w, bb, ext32, z, cot), n)
         plain_fwd_ms = median_ms(torch, lambda: kh.fused_ctc_head_emit_plain(
             *args))
         plain_bwd_ms = median_ms(torch, plain_bwd)
@@ -785,7 +874,9 @@ def train_kernel_phase(torch, t_prime):
         out.append(dict(name="fused_ctc_head_emit_bwd",
                         replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:179",
                         max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
-                        bound_ms=bbound[0], bound_by=bbound[1], **common))
+                        bound_ms=bbound[0], bound_by=bbound[1],
+                        launch_ms=head_launch_ms, peak_mb=head_peak_mb,
+                        **common))
     del hs0, w0, o, g, ro, rg
 
     # K1: emissions of log-softmaxed random logits, ragged T' and U.
@@ -839,8 +930,8 @@ def train_kernel_phase(torch, t_prime):
                     library_note="F.ctc_loss backward to [T', B, V] "
                                  "log-probs", **common))
     return out, {
-        "fused_ffn": dict(ms_at_train_shape=ffn_fwd_ms,
-                          bound_ms_at_train_shape=ffn_fwd_bound),
+        "fused_ffn": {f"{k}_at_train_shape": k2[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "splits")},
         "rel_flash_attention": dict(
             ms_at_train_shape=att_fwd_ms,
             bound_ms_at_train_shape=att_fwd_bound[0],
@@ -1004,6 +1095,9 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     # K2 and K3 at B 32 (the flagship step's checks are at B 64); K2's
     # backward timed beside its plain composition at this shape too.
     args, gb, _, plain_bwd = check_ffn_bwd(torch, ffn, b * t, d, cfg.d_ff, r)
+    k2 = ffn_fwd_detail(torch, ffn, args, "(transducer train)")
+    ffn_fwd_tr = {f"{k}_at_transducer_shape": k2[k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "splits")}
     plain_ms = median_ms(torch, plain_bwd)
     del plain_bwd
     ms, launch_ms, peak_mb = ffn_bwd_detail(torch, ffn, args, gb, b * t)
@@ -1180,7 +1274,7 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     if not (torch.isfinite(o).all() and rel <= TOL["bfloat16"]):
         raise AssertionError("K6 at the decode's shape disagrees with its "
                              "plain version")
-    return out, {"fused_ffn_bwd": ffn_bwd_tr,
+    return out, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
                  "rel_flash_attention_bwd": att_bwd_tr}
 
 
@@ -1369,6 +1463,9 @@ def main() -> int:
         build.library(), f"espnet_rel_flash_{k}_blocks_per_sm")(dh)
         for k in ("fwd", "dkv", "dq") for dh in (64, 32)}
     print(f"K3 bf16 kernels, blocks per SM: {blocks}")
+    ffn_blocks = build.library().espnet_fused_ffn_fwd_blocks_per_sm(256, 256)
+    print(f"K2 bf16 forward kernel (D 256, D2 256), blocks per SM: "
+          f"{ffn_blocks}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).
@@ -1388,6 +1485,8 @@ def main() -> int:
         kern.update(at_tr_shape.get(kern["name"], {}))
         if kern["name"] == "rel_flash_attention":
             kern["blocks_per_sm"] = blocks["fwd Dh 64"]
+        if kern["name"] == "fused_ffn":
+            kern["blocks_per_sm"] = ffn_blocks
         if kern["name"] == "rel_flash_attention_bwd":
             kern["blocks_per_sm"] = {k: blocks[f"{k} Dh 64"]
                                      for k in ("dkv", "dq")}

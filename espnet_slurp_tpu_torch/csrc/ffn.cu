@@ -1,5 +1,5 @@
 // Fused position-wise feed-forward: out = swish(x W1 + b1) W2 + b2, forward
-// and backward (the backward's own notes are at its kernels below).
+// and backward (each direction's own notes are at its kernels below).
 //
 // Replaces the TPU kernel espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn
 // (_fwd_kernel, _bwd_kernel), which runs both macaron FFNs of every Conformer
@@ -12,14 +12,12 @@
 // composition instead writes and re-reads an [N, F] hidden (4x the size of x)
 // and its activation, which is what the TPU kernel was written to avoid.
 //
-// Design: one block owns BM rows of x, kept in shared memory for the whole
-// block. It walks F in chunks of BF: the [BM, BF] hidden chunk is computed
-// (x * W1[:, chunk]), biased and passed through swish in shared memory, cast to
-// the element type, and immediately multiplied into the [BM, D2] fp32
-// accumulator with W2[chunk, :]. The [N, F] hidden never reaches global
-// memory. Ragged row tiles are zero-filled on load and masked on store. This is
-// the simple first version (WMMA bf16 tiles staged through shared memory, no
-// pipelining, one block per SM at the flagship shape); wgmma/TMA come later.
+// The float32 forward (ffn_fwd_kernel<float>) serves the fp32 card-against-CPU
+// checks: one block owns BM rows of x in shared memory and walks F in chunks
+// of BF, the hidden chunk formed and passed through swish in shared memory and
+// multiplied at once into a [BM, D2] accumulator there (plain FMAs, no
+// pipelining). The bf16 forward is the register-resident ffn_fwd::fwd_kernel
+// further below. Neither writes an [N, F] hidden to global memory.
 #include "common.cuh"
 #include "mma_gemm.cuh"
 
@@ -98,6 +96,283 @@ int launch_ffn(const void* x, const void* w1, const float* b1, const void* w2, c
   return (int)cudaGetLastError();
 }
 
+
+// ---- Forward, bf16: S, hd and O in registers --------------------------------
+//
+// Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_fwd_kernel (the pallas_call
+// of fused_ffn at :186) in bf16, dropout 0, at its rounding points:
+//   s = x W1 + b1 (fp32), hd = bf16(s sigmoid(s)), out = bf16(hd W2 + b2).
+//
+// Bound: the tensor cores. The two products are 4 N D F operations (D2 = D):
+// 31.4 GFLOP at the flagship train shape (N = 64 x 468, D 256, F 1024),
+// 0.032 ms at 989 TFLOP/s, against ~16 MB of compulsory traffic (0.005 ms).
+//
+// Design (K3's register-resident forward, with F in place of the keys): one
+// block of 4 warps owns BM = 64 rows of x, kept in shared memory for the
+// block's life. Warp w owns rows 16 w .. 16 w + 15 and all D2 output
+// columns; their fp32 accumulator O (16 x D2, 128 registers at D2 256) stays
+// in registers. The block walks its range of F in tiles of BF = 32:
+//   - W1[:, tile] and W2[tile, :] stream through a 2-stage cp.async ring;
+//   - S = x W1[:, tile] (16 x 32 a warp) comes from mma.sync into register
+//     accumulators, x's A fragments read from shared memory each k-step;
+//   - bias and swish are applied there, and hd is rounded to bf16 and packed
+//     straight into two A fragments, as the attention forward packs P;
+//   - O += hd W2[tile, :] by mma::warp_mma_k16_ra, W2 read as an MN-major B.
+// The epilogue adds b2, rounds and stores bf16 pairs. 108,544 B of shared
+// memory at D 256, D2 256: two blocks an SM (8 warps).
+//
+// Occupancy: 64-row tiles give 468 blocks at the train shape and 234 at the
+// transducer's, but only 59 at the serving shape (N = 8 x 471) for 132 SMs x
+// 2 slots. There the F range is split across blocks (fsplit 2 or 4, chosen
+// on the host as the count that needs the fewest waves per unit of work):
+// each block writes fp32 partials [fsplit, N, D2] that reduce_kernel sums in
+// a fixed order (deterministic) before adding b2 and rounding. Smaller row
+// tiles were the other way; they would re-read all of W1 and W2 (1 MB) once
+// per 32 rows at every shape, and halve the work that each x load feeds.
+
+namespace ffn_fwd {
+
+constexpr int BM = 64, BF = 32, kWarps = BM / 16, kThreadsFwd = kWarps * 32;
+constexpr int LDW1 = BF + 8;  // W1 tile rows: 80 bytes, 8 rows on 8 distinct bank groups
+
+// Shared memory: x [BM][d + 8], then 2 stages of (W1 tile [d][BF + 8], W2
+// tile [BF][D2 + 8]), all bf16.
+template <int D2>
+struct Layout {
+  static constexpr int LDW2 = D2 + 8;
+  __host__ __device__ static size_t x_elems(int d) { return (size_t)BM * (d + 8); }
+  __host__ __device__ static size_t w1_elems(int d) { return (size_t)d * LDW1; }
+  __host__ __device__ static size_t stage_elems(int d) {
+    return w1_elems(d) + (size_t)BF * LDW2;
+  }
+  __host__ __device__ static size_t bytes(int d) {
+    return sizeof(bf16) * (x_elems(d) + 2 * stage_elems(d));
+  }
+};
+
+// rows x cols (cols a multiple of 8) of p (leading dimension ld) from (r0,
+// c0) into s (leading dimension lds); rows at or past rlim are zero-filled.
+__device__ __forceinline__ void load_async(bf16* s, int lds, const bf16* p, long ld, long r0,
+                                           long c0, int rows, int cols, long rlim) {
+  const int ch = cols >> 3;
+  for (int idx = threadIdx.x; idx < rows * ch; idx += kThreadsFwd) {
+    const int r = idx / ch;
+    const int c = (idx - r * ch) * 8;
+    const bool ok = r0 + r < rlim;
+    mma::cp_async16(s + r * lds + c, ok ? p + (r0 + r) * ld + c0 + c : p, ok);
+  }
+}
+
+// Block (row tile, split): O over F range split * (f / nsplit) .. + f /
+// nsplit; with nsplit 1 it writes out, else fp32 partials part[split].
+template <int D2>
+__global__ void __launch_bounds__(kThreadsFwd, 2)
+    fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+               const float* __restrict__ b1, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, bf16* __restrict__ out, float* __restrict__ part,
+               int n, int d, int f) {
+  using L = Layout<D2>;
+  constexpr int NC = D2 / 32;  // chunks of 4 n8 tiles of O
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = xs + L::x_elems(d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const long m0 = (long)blockIdx.x * BM;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int frange = f / nsplit;  // a multiple of BF (the host checks)
+  const int fbeg = split * frange;
+  const int nft = frange / BF;
+  const int ldx = d + 8;
+  auto w1s = [&](int slot) { return ring + slot * L::stage_elems(d); };
+  auto w2s = [&](int slot) { return ring + slot * L::stage_elems(d) + L::w1_elems(d); };
+  auto load_stage = [&](int ft) {
+    const long f0 = fbeg + (long)ft * BF;
+    load_async(w1s(ft & 1), LDW1, w1, f, 0, f0, d, BF, d);
+    load_async(w2s(ft & 1), L::LDW2, w2, D2, f0, 0, BF, D2, f);
+  };
+  load_async(xs, ldx, x, d, m0, 0, BM, d, n);
+  load_stage(0);
+  mma::cp_async_commit();
+
+  float o[NC][4][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][j][e] = 0.0f;
+
+  for (int ft = 0; ft < nft; ++ft) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // stage ft (and x) landed; stage ft - 1's readers are done
+    if (ft + 1 < nft) load_stage(ft + 1);
+    mma::cp_async_commit();
+    const bf16* w1t = w1s(ft & 1);
+    const bf16* w2t = w2s(ft & 1);
+
+    float s[1][4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][j][e] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < d; kk += 16) {
+      mma::warp_mma_k16<1, 4, mma::Major::K, mma::Major::MN>(s, xs, ldx, w1t, LDW1, warp * 16, 0,
+                                                             kk);
+    }
+
+    // hd = bf16(swish(s + b1)), element (g + 8 hf, 8 j + 2 tq + e) of the
+    // warp's 16 x 32 tile, packed as the A fragments of k-steps j / 2.
+    const int f0 = fbeg + ft * BF;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + f0 + 8 * j + 2 * tq);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float s0 = s[0][j][2 * hf] + bb.x, s1 = s[0][j][2 * hf + 1] + bb.y;
+        __nv_bfloat162 hk = __floats2bfloat162_rn(s0 / (1.0f + __expf(-s0)),
+                                                  s1 / (1.0f + __expf(-s1)));
+        a[j >> 1][2 * (j & 1) + hf] = *reinterpret_cast<uint32_t*>(&hk);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        mma::warp_mma_k16_ra<4, mma::Major::MN>(o[c], a[kk], w2t, L::LDW2, 32 * c, 16 * kk);
+      }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const long row = m0 + warp * 16 + g + 8 * hf;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 32 * c + 8 * j + 2 * tq;
+        const float v0 = o[c][j][2 * hf], v1 = o[c][j][2 * hf + 1];
+        if (nsplit == 1) {
+          const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+          *reinterpret_cast<__nv_bfloat162*>(out + row * D2 + col) =
+              __floats2bfloat162_rn(v0 + bb.x, v1 + bb.y);
+        } else {
+          *reinterpret_cast<float2*>(part + ((long)split * n + row) * D2 + col) =
+              make_float2(v0, v1);
+        }
+      }
+  }
+}
+
+// out = bf16(sum over splits of part + b2), four elements a thread, the
+// splits added in order.
+__global__ void __launch_bounds__(256)
+    reduce_kernel(const float* __restrict__ part, const float* __restrict__ b2,
+                  bf16* __restrict__ out, long total, int d2, int nsplit) {
+  const long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= total) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int sp = 1; sp < nsplit; ++sp) {
+    const float4 p = *reinterpret_cast<const float4*>(part + sp * total + i);
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  const float4 bb = *reinterpret_cast<const float4*>(b2 + i % d2);
+  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(acc.x + bb.x, acc.y + bb.y);
+  *reinterpret_cast<__nv_bfloat162*>(out + i + 2) =
+      __floats2bfloat162_rn(acc.z + bb.z, acc.w + bb.w);
+}
+
+// Sets fwd_kernel<D2>'s shared-memory attributes for width d; returns its
+// blocks per SM (0: the shape does not fit).
+template <int D2>
+int configure(int d) {
+  const size_t bytes = Layout<D2>::bytes(d);
+  int dev = 0, max_smem = 0, nb = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > (size_t)max_smem) return 0;
+  cudaFuncSetAttribute(fwd_kernel<D2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaFuncSetAttribute(fwd_kernel<D2>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fwd_kernel<D2>, kThreadsFwd, bytes);
+  return nb;
+}
+
+inline bool shape_ok(int n, int d, int f) { return n > 0 && d > 0 && d % 16 == 0 && f % BF == 0; }
+
+// Blocks of fwd_kernel<d2> that fit one SM at width d (the attributes set);
+// 0 for an output width it is not built for or a d that does not fit.
+inline int blocks_per_sm(int d, int d2) {
+  if (d <= 0 || d % 16) return 0;
+  switch (d2) {
+    case 32: return configure<32>(d);
+    case 64: return configure<64>(d);
+    case 128: return configure<128>(d);
+    case 256: return configure<256>(d);
+    default: return 0;
+  }
+}
+
+// The F split for n rows: the count in {1, 2, 4} that divides F into whole
+// tiles and needs the fewest waves per unit of work (ties to the smaller);
+// 0 when the kernel cannot take the shape.
+inline int splits(int n, int d, int f, int d2) {
+  if (!shape_ok(n, d, f)) return 0;
+  const int nb = blocks_per_sm(d, d2);
+  if (nb <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long slots = (long)nb * sms, tiles = (n + BM - 1) / BM;
+  int best = 1;
+  double best_cost = (double)((tiles + slots - 1) / slots);
+  for (int fs = 2; fs <= 4; fs *= 2) {
+    if (f % (fs * BF)) continue;
+    const double cost = (double)((tiles * fs + slots - 1) / slots) / fs;
+    if (cost < best_cost) {
+      best = fs;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int D2>
+int launch_d2(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+              bf16* out, float* part, int nsplit, int n, int d, int f, cudaStream_t stream) {
+  fwd_kernel<D2><<<dim3((unsigned)((n + BM - 1) / BM), nsplit), kThreadsFwd,
+                   Layout<D2>::bytes(d), stream>>>(x, w1, b1, w2, b2, out, part, n, d, f);
+  return (int)cudaGetLastError();
+}
+
+inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                  const float* b2, bf16* out, float* part, int nsplit, int n, int d, int f,
+                  int d2, cudaStream_t stream) {
+  if (!shape_ok(n, d, f) || nsplit < 1 || f % (nsplit * BF) || (nsplit > 1 && !part)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (blocks_per_sm(d, d2) <= 0) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+  switch (d2) {
+    case 32: err = launch_d2<32>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
+    case 64: err = launch_d2<64>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
+    case 128: err = launch_d2<128>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
+    case 256: err = launch_d2<256>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
+  }
+  if (err || nsplit == 1) return err;
+  const long total = (long)n * d2;
+  reduce_kernel<<<(unsigned)((total / 4 + 255) / 256), 256, 0, stream>>>(part, b2, out, total,
+                                                                         d2, nsplit);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ffn_fwd
 
 // ---- Backward, float32 ----------------------------------------------------
 //
@@ -552,14 +827,36 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 
 }  // namespace espnet
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. part: fp32 [nsplit, N, D2] scratch of
+// the bf16 path when nsplit > 1 (espnet_fused_ffn_fwd_splits gives nsplit;
+// fp32 takes nsplit 1 and no scratch). Returns a cudaError_t code (0 =
+// launched).
 extern "C" int espnet_fused_ffn_fwd(int dtype, const void* x, const void* w1, const float* b1,
-                                    const void* w2, const float* b2, void* out, int n, int d,
-                                    int f, int d2, void* stream) {
+                                    const void* w2, const float* b2, void* out, float* part,
+                                    int nsplit, int n, int d, int f, int d2, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return espnet::launch_ffn<espnet::bf16, 32, 64>(x, w1, b1, w2, b2, out, n, d, f, d2, s);
-  if (dtype == 0) return espnet::launch_ffn<float, 32, 32>(x, w1, b1, w2, b2, out, n, d, f, d2, s);
+  using espnet::bf16;
+  if (dtype == 1) {
+    return espnet::ffn_fwd::launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
+                                   static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), part,
+                                   nsplit, n, d, f, d2, s);
+  }
+  if (dtype == 0 && nsplit == 1) {
+    return espnet::launch_ffn<float, 32, 32>(x, w1, b1, w2, b2, out, n, d, f, d2, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 forward's F split for N rows (1, 2 or 4); 0 when it cannot take
+// the shape (D2 other than 32, 64, 128, 256; D not a multiple of 16; F not
+// a multiple of 32; too much shared memory).
+extern "C" int espnet_fused_ffn_fwd_splits(int n, int d, int f, int d2) {
+  return espnet::ffn_fwd::splits(n, d, f, d2);
+}
+
+// Blocks of the bf16 forward kernel that fit one SM at widths D, D2.
+extern "C" int espnet_fused_ffn_fwd_blocks_per_sm(int d, int d2) {
+  return espnet::ffn_fwd::blocks_per_sm(d, d2);
 }
 
 // Row-chunk width over F that the kernel requires F to be a multiple of.

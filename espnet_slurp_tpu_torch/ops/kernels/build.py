@@ -94,8 +94,13 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's C signature set."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.espnet_fused_ffn_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.espnet_fused_ffn_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i,
+                                         p]
     lib.espnet_fused_ffn_fwd.restype = i
+    lib.espnet_fused_ffn_fwd_splits.argtypes = [i, i, i, i]
+    lib.espnet_fused_ffn_fwd_splits.restype = i
+    lib.espnet_fused_ffn_fwd_blocks_per_sm.argtypes = [i, i]
+    lib.espnet_fused_ffn_fwd_blocks_per_sm.restype = i
     lib.espnet_fused_ffn_f_multiple.argtypes = [i]
     lib.espnet_fused_ffn_f_multiple.restype = i
     lib.espnet_rel_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i,
@@ -121,9 +126,11 @@ def library() -> ctypes.CDLL:
     lib.espnet_ctc_bwd.restype = i
     lib.espnet_ctc_head_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.espnet_ctc_head_fwd.restype = i
-    lib.espnet_ctc_head_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i,
-                                        i, i, i, p]
+    lib.espnet_ctc_head_bwd.argtypes = [i, p, p, p, p, p, p, p, p, i, p, p, p,
+                                        i, i, i, i, i, i, p]
     lib.espnet_ctc_head_bwd.restype = i
+    lib.espnet_ctc_head_bwd_row_tile.argtypes = []
+    lib.espnet_ctc_head_bwd_row_tile.restype = i
     lib.espnet_rnnt_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.espnet_rnnt_fwd.restype = i
     lib.espnet_rnnt_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]

@@ -5,10 +5,13 @@ Port of espnet_slurp_tpu/ops/pallas/ctc_head.py (``fused_ctc_head_emit``,
 t, ext[b, s]] without [B, T, V] logits in device memory; w is [V, D], the
 layout of ``nn.Linear``'s weight (the reference takes its transpose). On
 CUDA tensors ``fused_ctc_head_emit`` launches the hand-written kernels in
-``csrc/ctc_head.cu`` (forward; backward dx and dW/db); on CPU tensors it runs
+``csrc/ctc_head.cu`` (forward; backward dx and dW/db: in bf16 three
+tensor-core GEMM kernels that pass the rounded dlogits through [B T, V]
+scratch for the length of the call); on CPU tensors it runs
 ``fused_ctc_head_emit_plain``, the same function in plain PyTorch with
-autograd. No vocabulary padding: gradients come back for the true [V, D]
-and [V]. A CUDA tensor the kernels do not take raises.
+autograd. ``fused_ctc_head_emit_bwd_plain`` is the backward at the bf16
+kernels' rounding points. No vocabulary padding: gradients come back for
+the true [V, D] and [V]. A CUDA tensor the kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from . import build
 from .ctc import extend_labels, lattice_loss
 
-# Row splits of the dW/db reduction (per-split fp32 partials, summed here).
+# Row splits of the fp32 path's dW/db reduction (per-split fp32 partials,
+# summed here).
 DW_SPLITS = 8
 
 
@@ -31,6 +35,31 @@ def fused_ctc_head_emit_plain(hs: torch.Tensor, w: torch.Tensor,
     bsz, t, _ = hs.shape
     idx = ext.long()[:, None, :].expand(bsz, t, -1)
     return logits.gather(2, idx) - z
+
+
+def fused_ctc_head_emit_bwd_plain(hs: torch.Tensor, w: torch.Tensor,
+                                  b: torch.Tensor, ext: torch.Tensor,
+                                  z: torch.Tensor, g: torch.Tensor):
+    """The backward of fused_ctc_head_emit at the kernels' rounding points:
+    (dhs in hs.dtype, dW [V, D] in w.dtype, db fp32) for the cotangent g
+    [B, T, S] of emit, given the forward's logsumexp z [B, T].
+
+    As espnet_slurp_tpu/ops/pallas/ctc_head.py:_bwd_kernel: dlg =
+    scatter_s(g) - exp(lg - z) * sum_s g in fp32 (duplicate labels add),
+    rounded to hs.dtype before dhs = dlg W and dW = dlg^T hs (fp32
+    products); db summed from the unrounded dlg. g is scattered as given:
+    the reference rounds it to bf16 first, an artifact of its one-hot
+    product (ROADMAP queue 3)."""
+    bsz, t, d = hs.shape
+    v = w.shape[0]
+    gf = g.float()
+    dlg = torch.exp(hs.float() @ w.float().t() + b.float() - z[..., None])
+    dlg.mul_(-gf.sum(-1, keepdim=True))
+    dlg.scatter_add_(2, ext.long()[:, None, :].expand(bsz, t, -1), gf)
+    dlgc = dlg.to(hs.dtype).float()
+    dhs = (dlgc @ w.float()).to(hs.dtype)
+    dw = (dlgc.reshape(-1, v).t() @ hs.float().reshape(-1, d)).to(w.dtype)
+    return dhs, dw, dlg.sum((0, 1))
 
 
 def _check(hs, w, b, ext):
@@ -70,14 +99,31 @@ def _launch_bwd(hs, w, b, ext, z, g):
     """-> (dhs, dW [V, D] in w's dtype, db)."""
     bsz, t, d = hs.shape
     v, s = w.shape[0], ext.shape[1]
-    nsplit = max(1, min(DW_SPLITS, bsz * t))
+    n = bsz * t
+    dev = hs.device
     dx = torch.empty_like(hs)
-    f32 = dict(dtype=torch.float32, device=hs.device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = build.library()
+    if hs.dtype == torch.bfloat16:
+        # rows -> dx -> dw: dlogits goes through a bf16 [N, VP] scratch
+        # (freed when the call returns); dW is split over N so that its
+        # tiles fill two blocks an SM; db is summed per row tile.
+        vp = -(-v // 8) * 8
+        slots = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+        tiles = -(-v // 128) * -(-d // 128)
+        nsplit = max(1, min(n // 512, slots // tiles))
+        parts = -(-n // lib.espnet_ctc_head_bwd_row_tile())
+        dsum = g.sum(-1)
+        dlg = torch.empty(n, vp, dtype=hs.dtype, device=dev)
+        extra = (dsum.data_ptr(), dlg.data_ptr(), vp)
+    else:
+        nsplit = parts = max(1, min(DW_SPLITS, n))
+        extra = (None, None, 0)
     dw_part = torch.empty(nsplit, v, d, **f32)
-    db_part = torch.empty(nsplit, v, **f32)
-    build.check(build.library().espnet_ctc_head_bwd(
+    db_part = torch.empty(parts, v, **f32)
+    build.check(lib.espnet_ctc_head_bwd(
         build.DTYPE_CODES[hs.dtype], hs.data_ptr(), w.data_ptr(),
-        b.data_ptr(), ext.data_ptr(), z.data_ptr(), g.data_ptr(),
+        b.data_ptr(), ext.data_ptr(), z.data_ptr(), g.data_ptr(), *extra,
         dx.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), nsplit, bsz,
         t, d, v, s, build.stream_ptr(hs)), "fused_ctc_head_emit backward")
     fused_ctc_head_emit.bwd_launches += 1
@@ -106,7 +152,7 @@ def fused_ctc_head_emit(hs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     bfloat16, fp32 accumulation); b: float32 [V]; ext: int32 [B, S] with
     entries in [0, V). Differentiable in hs, w and b; on the card the
     backward recomputes the logits tile by tile (dW comes back in w's
-    dtype, as the reference returns it)."""
+    dtype, as the reference returns it, db in fp32)."""
     _check(hs, w, b, ext)
     if hs.device.type == "cpu":
         return fused_ctc_head_emit_plain(hs, w, b, ext)

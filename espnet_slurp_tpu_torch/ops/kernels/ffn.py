@@ -8,9 +8,11 @@ In bf16 the backward is three tensor-core GEMM kernels (rows, dx, dW) that
 pass the rounded hidden and its gradient through [N, d_ff] scratch for the
 length of the call; in fp32 it recomputes the hidden chunk by chunk.
 ``fused_ffn_bwd_plain`` is that backward at the kernel's rounding points.
-On a CPU tensor the wrapper runs ``fused_ffn_plain``, the same function in
-plain PyTorch, whose gradients are PyTorch's autograd. There is no other
-route: a CUDA tensor the kernel does not take raises.
+In bf16 the forward keeps the hidden tile, its swish and the output
+accumulator in registers (``ffn_fwd::fwd_kernel``) and takes D2 of 32, 64,
+128 or 256. On a CPU tensor the wrapper runs ``fused_ffn_plain``, the same
+function in plain PyTorch, whose gradients are PyTorch's autograd. There is
+no other route: a CUDA tensor the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -79,6 +81,8 @@ def fused_ffn_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # least 512 rows.
 DW_SPLITS = 16
 BF16_DW_SPLITS = 8
+# Output widths the bf16 forward kernel keeps in registers.
+BF16_D2 = (32, 64, 128, 256)
 
 
 def _launch_fwd(x, w1, b1, w2, b2):
@@ -88,10 +92,19 @@ def _launch_fwd(x, w1, b1, w2, b2):
     out = torch.empty(*x.shape[:-1], d2, dtype=x.dtype, device=x.device)
     if n == 0:
         return out
+    nsplit, part = 1, None
+    if x.dtype == torch.bfloat16:
+        # Few row tiles (the serving shape) split F across blocks; their
+        # fp32 partials are summed in order by the kernel's reduction.
+        nsplit = lib.espnet_fused_ffn_fwd_splits(n, d, f, d2)
+        if nsplit > 1:
+            part = torch.empty(nsplit, n, d2, dtype=torch.float32,
+                               device=x.device)
     build.check(lib.espnet_fused_ffn_fwd(
         build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, d, f,
-        d2, build.stream_ptr(x)), "fused_ffn")
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), nsplit, n, d, f, d2,
+        build.stream_ptr(x)), "fused_ffn")
     fused_ffn.launches += 1
     return out
 
@@ -169,7 +182,13 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if d % 16 or d2 % 16 or f % f_mult:
         raise ValueError(f"fused_ffn kernel: needs D, D2 % 16 == 0 and "
                          f"F % {f_mult} == 0, got D={d} F={f} D2={d2}")
-    for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+    if x.dtype == torch.bfloat16 and not lib.espnet_fused_ffn_fwd_splits(
+            max(1, x.numel() // d), d, f, d2):
+        raise ValueError(f"fused_ffn bf16 kernel: needs D2 in {BF16_D2} "
+                         f"and its tiles in shared memory, got D={d} "
+                         f"D2={d2}")
+    for name, t in (("x", x), ("w1", w1), ("w2", w2), ("b1", b1),
+                    ("b2", b2)):
         build.check_aligned(name, t)
     return _FusedFfn.apply(x, w1, b1, w2, b2)
 

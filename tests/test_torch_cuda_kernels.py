@@ -58,6 +58,42 @@ def test_fused_ffn(gen, dtype, n, d, f, d2):
     assert _rel(out, ffn.fused_ffn_plain(*args)) <= TOL[dtype]
 
 
+def _kernel_names(call):
+    """Names of the port's kernels that call() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if "espnet" in e.key})
+
+
+@pytest.mark.parametrize("n,d,f,d2", [
+    # below one 64-row tile, ragged, the serving shape (F split 4 ways),
+    # the flagship train shape, F split 2 ways (192), narrow and wide D
+    (17, 256, 1024, 256), (4097, 256, 1024, 256), (3768, 256, 1024, 256),
+    (29952, 256, 1024, 256), (3768, 256, 192, 256), (100, 64, 128, 32),
+    (300, 128, 256, 64), (200, 512, 512, 128)])
+def test_fused_ffn_fwd_bf16_kernel(gen, n, d, f, d2):
+    """The bf16 forward is ffn_fwd::fwd_kernel (by its profiler name), within
+    BWD_PLAIN_TOL of fused_ffn_plain, which rounds hd and the output where
+    the kernel does."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    bf = torch.bfloat16
+    args = (r(n, d).to(bf), (r(d, f) * d ** -0.5).to(bf), r(f) * 0.1,
+            (r(f, d2) * f ** -0.5).to(bf), r(d2) * 0.1)
+    before = ffn.fused_ffn.launches
+    out = ffn.fused_ffn(*args)
+    torch.cuda.synchronize()
+    assert ffn.fused_ffn.launches == before + 1
+    assert out.shape == (n, d2) and out.dtype == bf
+    assert torch.isfinite(out).all()
+    assert _rel(out, ffn.fused_ffn_plain(*args)) <= BWD_PLAIN_TOL
+    names = _kernel_names(lambda: ffn._launch_fwd(*args))
+    assert any("ffn_fwd::fwd_kernel" in k for k in names), names
+    assert not any("ffn_fwd_kernel" in k for k in names), names
+
+
 def test_fused_ffn_refuses_what_it_cannot_take(gen):
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x, w1, b1, w2, b2 = r(8, 64), r(64, 80), r(80), r(80, 64), r(64)
@@ -66,6 +102,11 @@ def test_fused_ffn_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError):
         ffn.fused_ffn(r(8, 128)[:, :64], r(64, 128), r(128), r(128, 64),
                       b2)
+    bf = torch.bfloat16  # output widths the bf16 forward does not hold
+    for d2 in (48, 512):
+        with pytest.raises(ValueError):
+            ffn.fused_ffn(r(8, 64).to(bf), r(64, 128).to(bf), r(128),
+                          r(128, d2).to(bf), r(d2))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -414,6 +455,54 @@ def test_fused_ctc_head(gen, dtype, t, d, v):
     assert (kh.fused_ctc_head_emit.launches,
             kh.fused_ctc_head_emit.bwd_launches) == (before[0] + 1,
                                                      before[1] + 1)
+
+
+@pytest.mark.parametrize("b,t,d,v", [
+    # 128-row tiles that span 8 utterances (T 17), two (T 100: a boundary
+    # inside a tile), and the flagship train shape (T 468, V 5000); V 77,
+    # 130 and 333 ragged against 128-column tiles and not multiples of 8
+    (8, 17, 128, 77), (3, 100, 256, 130), (2, 129, 64, 333),
+    (64, 468, 256, 5000)])
+def test_fused_ctc_head_bwd_bf16_at_its_rounding_points(gen, b, t, d, v):
+    """The bf16 backward (ctc_head_bwd's rows, dx and dw kernels, by their
+    profiler names) against fused_ctc_head_emit_bwd_plain, which rounds dlg
+    where they do: within BWD_PLAIN_TOL of max |ref| per output."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    bf, s = torch.bfloat16, 2 * 9 + 1
+    ext = torch.randint(0, v, (b, s), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ext[:, ::2] = 0  # blanks: one label, many states
+    ext[:, 3] = ext[:, 5]  # a repeated label
+    ext[0, 1] = v - 1  # the last, ragged column
+    hs, w, bias = (r(b, t, d) * 0.5).to(bf), (r(v, d) * d ** -0.5).to(bf), \
+        r(v) * 0.1
+    g = r(b, t, s)
+    _, z = kh._launch_fwd(hs, w, bias, ext)
+    before = kh.fused_ctc_head_emit.bwd_launches
+    out = kh._launch_bwd(hs, w, bias, ext, z, g)
+    assert kh.fused_ctc_head_emit.bwd_launches == before + 1
+    ref = kh.fused_ctc_head_emit_bwd_plain(hs, w, bias, ext, z, g)
+    torch.cuda.synchronize()
+    for name, a, e in zip(("dhs", "dw", "db"), out, ref):
+        assert a.shape == e.shape and a.dtype == e.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, e) <= BWD_PLAIN_TOL, name
+    names = _kernel_names(lambda: kh._launch_bwd(hs, w, bias, ext, z, g))
+    for part in ("rows", "dx", "dw"):
+        assert any(f"ctc_head_bwd::{part}_kernel" in k for k in names), names
+    assert not any("ctc_head_dx_kernel" in k or "ctc_head_dw_kernel" in k
+                   for k in names), names
+
+
+def test_fused_ctc_head_refuses_what_it_cannot_take(gen):
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    bf = torch.bfloat16
+    ext = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):  # D not a multiple of 16
+        kh.fused_ctc_head_emit(r(2, 5, 40).to(bf), r(77, 40).to(bf), r(77),
+                               ext)
 
 
 # ---- The transducer slice's kernels (K5, K6) ---------------------------------

@@ -10,6 +10,15 @@ gets the transpose of the same weight, and its dW is compared transposed. Then
 ctc_loss_pallas_head end to end (loss and gradients) against the JAX one.
 Tolerances as in tests/test_ctc_head.py: 1e-5 for values, gradients
 2e-4 * max(1, max |ref|) (fp32).
+
+fused_ctc_head_emit_bwd_plain, the backward at the bf16 kernels' rounding
+points, is held to jax.vjp of the Pallas kernel in bf16 and fp32. In bf16
+the reference rounds two values that the port keeps in fp32, both artifacts
+of its one-hot gather / scatter product on the TPU's matrix unit: the
+gathered logit before z is subtracted, and the cotangent g before the
+scatter. The port keeps both unrounded (ROADMAP queue 3);
+test_bf16_rounding_points_diverge_from_the_reference holds the size of
+that divergence.
 """
 import jax
 import jax.numpy as jnp
@@ -105,3 +114,105 @@ def test_ctc_loss_pallas_head_matches_jax():
                                rtol=1e-5, atol=1e-5)
     loss.sum().backward()
     _check_grads(args, ref_g)
+
+
+def _z(hs, w, b):
+    """The forward's logsumexp over V, as the kernel saves it."""
+    return torch.logsumexp(hs.float() @ w.float().t() + b, -1)
+
+
+def _bf16_exact(x):
+    """x rounded to bf16 and back: a cotangent the reference's own rounding
+    of g leaves unchanged."""
+    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def _pallas_vjp(hs, w, b, ext, g, v):
+    """emit and (dhs, dW [D, V], db) of the Pallas kernel, interpret mode,
+    as float32 numpy arrays."""
+    ref, vjp = jax.vjp(lambda h, ww, bb: jax_emit(h, ww, bb, jnp.asarray(ext),
+                                                  vocab=v, interpret=True),
+                       hs, w, jnp.asarray(b))
+    return np.asarray(ref), [np.asarray(jnp.asarray(x, jnp.float32))
+                             for x in vjp(jnp.asarray(g))]
+
+
+def _as_port(hs, w, dtype):
+    """The reference's (rounded) hs and w [D, V] as the port's hs and w [V,
+    D] in dtype."""
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    return (t(f32(hs)).to(dtype),
+            t(np.ascontiguousarray(f32(w).T)).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t_len,v", [(T, V), (133, 130)])
+def test_bwd_plain_matches_pallas_vjp(dtype, t_len, v):
+    """fused_ctc_head_emit_bwd_plain against jax.vjp of the Pallas kernel
+    (its _bwd_kernel, interpret mode): V not a multiple of 128, T not a
+    multiple of the kernel's row tile (37 of 40; 133 of 2 x 128), duplicate
+    labels. The cotangent is exact in bf16, so the reference's rounding of
+    g (queue 3) changes nothing and the two compute the same function with
+    the same rounding of dlg. bf16: what differs is the fp32 summation
+    order, which can flip a rounding of dlg, dhs or dW by one unit in the
+    last place (2^-8 to 2^-7 of the value): tol 2^-7 of max |ref|. fp32:
+    summation order only, tol 1e-5."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    hs, w, b, ext, g = _inputs(seed=3, t_len=t_len, v=v)
+    g = _bf16_exact(g)
+    jhs, jw = jnp.asarray(hs, jdt), jnp.asarray(w, jdt)
+    _, ref = _pallas_vjp(jhs, jw, b, ext, g, v)
+    ths, tw = _as_port(jhs, jw, tdt)
+    out = kh.fused_ctc_head_emit_bwd_plain(ths, tw, t(b), t(ext),
+                                           _z(ths, tw, t(b)), t(g))
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for name, a, r in zip(("dhs", "dW", "db"), out, ref):
+        assert a.dtype == (torch.float32 if name == "db" else tdt), name
+        a = a.float().numpy()
+        a = a.T if name == "dW" else a
+        assert a.shape == r.shape, name
+        err = np.abs(a - r).max() / np.abs(r).max()
+        assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+def test_bf16_rounding_points_diverge_from_the_reference():
+    """Reference-side divergence (ROADMAP queue 3), at B 2, T 37, D 128, V
+    77, S 128, seed 0, bf16. The Pallas kernel rounds the gathered logit
+    to bf16 before subtracting z (ctc_head.py:62-66) and the cotangent g to
+    bf16 before the scatter (:88-90); the port rounds neither.
+      - emit: the port is off by at most the bf16 rounding of the gathered
+        logit (2^-8 of it) and off on most entries, while the port's
+        logits with that one rounding added match the reference on >= 99%
+        of entries within 1e-5 (the rest: one bf16 unit, a rounding that
+        fp32 summation order flipped).
+      - backward: with the raw g the port differs by 1e-4 to 1e-2 of max
+        |ref| per output (3.7e-3 dhs, 3.3e-3 dW, 1.7e-3 db at this seed),
+        and with g exact in bf16 by under 1e-5: the whole difference is
+        the rounding of g."""
+    hs, w, b, ext, g = _inputs(seed=0)
+    bf = jnp.bfloat16
+    jhs, jw = jnp.asarray(hs, bf), jnp.asarray(w, bf)
+    ths, tw = _as_port(jhs, jw, torch.bfloat16)
+    ref, ref_grads = _pallas_vjp(jhs, jw, b, ext, g, V)
+
+    lg = ths.float() @ tw.float().t() + t(b)
+    z = torch.logsumexp(lg, -1, keepdim=True)
+    gathered = lg.gather(2, t(ext).long()[:, None, :].expand(B, T, -1))
+    port = kh.fused_ctc_head_emit_plain(ths, tw, t(b), t(ext)).numpy()
+    rounded = (gathered.to(torch.bfloat16).float() - z).numpy()
+    off = np.abs(port - ref)
+    assert (off <= 2.0 ** -8 * np.abs(gathered.numpy()) + 1e-5).all()
+    assert (off > 1e-5).mean() > 0.5
+    assert (np.abs(rounded - ref) <= 1e-5).mean() >= 0.99
+
+    zz = z[..., 0]
+    for cot, lo, hi in ((g, 1e-4, 1e-2), (_bf16_exact(g), 0.0, 1e-5)):
+        if lo == 0.0:
+            ref_grads = _pallas_vjp(jhs, jw, b, ext, cot, V)[1]
+        out = kh.fused_ctc_head_emit_bwd_plain(ths, tw, t(b), t(ext), zz,
+                                               t(cot))
+        for name, a, r in zip(("dhs", "dW", "db"), out, ref_grads):
+            a = a.float().numpy()
+            a = a.T if name == "dW" else a
+            err = np.abs(a - r).max() / np.abs(r).max()
+            assert lo <= err <= hi, f"{name}: {err:.3e} not in [{lo}, {hi}]"

@@ -5,8 +5,10 @@ fused_ffn_plain; it is held here to the Pallas kernel in interpret mode at
 the shapes of tests/test_pallas_ffn.py, and to the flax FeedForward eager
 path. The CUDA kernel itself is held to fused_ffn_plain on the card by
 chip_smoke.py. fp32; tolerance atol 1e-5 / rtol 1e-4 (single op).
-fused_ffn_bwd_plain, the backward at the bf16 kernels' rounding points, is
-held to jax.vjp of the Pallas kernel in bf16 and fp32.
+In bf16, fused_ffn_plain (the forward at the bf16 kernel's rounding points)
+is held to the Pallas forward in bf16, and fused_ffn_bwd_plain, the backward
+at the bf16 kernels' rounding points, to jax.vjp of the Pallas kernel in
+bf16 and fp32.
 """
 import jax
 import jax.numpy as jnp
@@ -72,6 +74,28 @@ def test_bf16_plain_rounds_hidden_like_the_kernel():
     assert out.dtype == bf
     ref = fused_ffn_plain(x, w1, b1, w2, b2)
     torch.testing.assert_close(out.float(), ref, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("seed,t_len", [(8, T), (9, 192)])
+def test_bf16_plain_matches_pallas_forward(seed, t_len):
+    """fused_ffn_plain in bf16 against the Pallas forward (its _fwd_kernel,
+    interpret mode) in bf16 on the same bf16 inputs, N = 256 and 384 rows.
+    Both round hd to bf16 before the second product and the output after
+    b2, with fp32 accumulation; what differs is the fp32 summation order,
+    which can flip a rounding of hd or of the output by one unit in the
+    last place (2^-8 to 2^-7 of the value): tol 2^-7 of max |ref|."""
+    x, w1, b1, w2, b2 = _inputs(seed=seed, t_len=t_len)
+    bf = jnp.bfloat16
+    jargs = (jnp.asarray(x, bf), jnp.asarray(w1, bf), jnp.asarray(b1),
+             jnp.asarray(w2, bf), jnp.asarray(b2))
+    ref = np.asarray(jax_fused_ffn(*jargs, interpret=True).astype(
+        jnp.float32))
+    as_t = lambda a: t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+    out = fused_ffn_plain(as_t(jargs[0]), as_t(jargs[1]), t(b1),
+                          as_t(jargs[3]), t(b2))
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = np.abs(out.float().numpy() - ref).max() / np.abs(ref).max()
+    assert err <= 2.0 ** -7, f"{err:.3e}"
 
 
 def test_rejects_bad_arguments():
