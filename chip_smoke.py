@@ -58,20 +58,36 @@ or the port's package is not beside it. Phases, each of which fails the run:
    is held on every row as in phase 2 and timed beside its plain version,
    SDPA over the precomputed bias and its bound at this shape.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
-   dropout 0, SpecAug on, seeded random weights) and the port's
-   make_train_step with Adam at constant lr 1e-3 (bench.py:58), on 64
-   synthetic 15 s utterances with U = 64: one warm-up step, then 5 timed
-   steps on the same batch. Every loss and grad norm finite, nothing
-   skipped, the last loss below the first, and per step exactly 24 K2 and
-   12 K3 launches forward and backward and 1 of K4 and K1 each way (the
-   counts zeroed just before the timed steps and read just after).
+   the recipe's dropout 0.1 (conf/train_ls100_conformer.yaml:14), SpecAug
+   on, seeded random weights) and the port's make_train_step with Adam at
+   constant lr 1e-3 (bench.py:58), on 64 synthetic 15 s utterances with U
+   = 64: one warm-up step, then 5 timed steps on the same batch. Every loss
+   and grad norm finite, nothing skipped, the last loss below the first,
+   and per step exactly 24 K2 and 12 K3 launches forward and backward and 1
+   of K4 and K1 each way (the counts zeroed just before the timed steps and
+   read just after); then one profiled step for the device's busy time.
+   The same phase then runs at dropout 0, and its step wall and busy time
+   are printed beside.
 6. One fp32 forward + backward of the same flagship weights on two short
    utterances (3 s, 2.1 s; SpecAug off) on the CPU (plain versions) and on
    the card (kernels): the loss within 1e-4 relative, every parameter
    gradient within 1e-3 of its max |ref| (floored at 1e-4 of the largest
    gradient entry of the model: the key projections' biases have gradient
    0 in exact arithmetic and hold only rounding noise).
-7. Kernels at the shapes of the Conformer-transducer train step
+7. The dropout kernels at the flagship train shape (B 64 x T' 468, D 256,
+   F 1024, H 4, Dh 64, bf16, rate 0.1): csrc/philox.cuh reproduces
+   Random123's Philox4x32-10 answer vectors on the card; the keep mask the
+   launches draw equals ops/kernels/philox.py's bit for bit at K2's [N, F]
+   and K3's [B * H, T', T'], its keep rate within 6 sigma of 0.9; K2 and
+   K3 each way against their plain versions with the same seed, within
+   BWD_PLAIN_TOL at the kernels' rounding points and within 2e-2 of the
+   unrounded (fp32) plain version per output and gradient; the dropout
+   launches by profiler name, and each launch's device time at 0.1 beside
+   rate 0 (the Philox draws' cost). Then K2's width route: a d_model 512 /
+   d_ff 2048 FeedForward (bench.py's 17 x 512 config) in bf16 and fp32,
+   forward and backward, against its plain version, with the route each
+   dtype took read from K2's launch counter.
+8. Kernels at the shapes of the Conformer-transducer train step
    (conf/train_transducer.yaml: B 32 utterances of 15 s, T' 468, U 64):
    K2 and K3 both ways as in phase 4 (their backward passes timed beside
    the plain composition, with their launches and peak memory, as in
@@ -84,24 +100,28 @@ or the port's package is not beside it. Phases, each of which fails the run:
    the bound and (K6) the eager ConvModule it replaces. Last, K6 forward
    in bf16 at the greedy decode's shape (x [8, T', 256], 468 valid frames
    each) against its plain version, within 2e-2.
-8. The transducer train slice: transducer_flagship_config() with
-   fused_conv (fp32 parameters, bf16 compute, dropout 0, SpecAug on, seeded
-   random weights), Adam at constant lr 1e-3 (the yaml's warmuplr with
-   15k warm-up steps would not move the loss in 5 steps), 32 synthetic
+9. The transducer train slice: transducer_flagship_config() with
+   fused_conv (fp32 parameters, bf16 compute, the yaml's dropout 0.1,
+   SpecAug on, seeded random weights), Adam at constant lr 1e-3 (the
+   yaml's warmuplr with 15k warm-up steps would not move the loss in 5
+   steps), 32 synthetic
    15 s utterances with U = 64: one warm-up step, then 5 timed steps. Every
    loss finite, nothing skipped, the last loss below the first, and per step
    exactly 24 K2, 12 K3 and 12 K6 launches each way, 1 K5 and 1 K1 each way
    and no K4.
-9. One fp32 transducer forward + backward (fused_conv, SpecAug off) of the
-   same weights on phase 6's two short utterances, CPU (plain versions)
-   against the card (kernels): loss within 1e-4 relative, every gradient
-   within 1e-3 of its max |ref| with phase 6's floor.
-10. Greedy decode: Speech2TextTransducer (fused_conv) decodes the 8 x 15 s
+10. One fp32 transducer forward + backward (fused_conv, SpecAug off,
+   dropout 0: the fp32 launches draw none) of the same weights on phase
+   6's two short utterances, CPU (plain versions) against the card
+   (kernels): loss within 1e-4 relative, every gradient within 1e-3 of its
+   max |ref| with phase 6's floor.
+11. Greedy decode: Speech2TextTransducer (fused_conv) decodes the 8 x 15 s
    serving traffic on the card; its RTF is printed, and the encode must
    launch 24 K2, 12 K3 and 12 K6.
 
-The line before the last is the ``{"kernels": [...]}`` JSON; the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
+K3's entries carry phase 7's ``dropout`` record; their launches are those
+of phase 5's run at dropout 0.1); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -140,6 +160,18 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 BWD_PLAIN_TOL = 1e-2
 # K3's bf16 forward at Dh 64, by its kernel's name in torch.profiler.
 FWD_KERNEL = {"fwd": "rel_fwd::fwd_kernel"}
+# The recipes' dropout (conf/train_ls100_conformer.yaml:14,
+# conf/train_transducer.yaml:15) and a fixed seed for the kernel checks.
+DROPOUT, DROPOUT_SEED = 0.1, 20241017
+# Philox4x32-10 answer vectors of Random123 (counter, key, output).
+PHILOX_KAT = (
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+)
 
 
 def card_line() -> str:
@@ -282,21 +314,27 @@ def check_attention_fwd_tiled(torch, fa, args, what):
     return worst
 
 
-def port_kernels_ms(torch, call, n=3):
+def port_kernels_ms(torch, call, n=3, attempts=3):
     """torch.profiler's device time per launch of each of the port's
     kernels that call() launches, by name, over n calls after one
     unprofiled call. Averaged over the launches the profiler recorded: on
-    the card it has been seen to drop some of a window's launches (at
-    worst all of a single call's), so the count of calls is no divisor."""
+    the card it has been seen to drop some of a window's launches, and
+    once all of a window's (a serving-shape K2 forward of 0.045 ms), so
+    the count of calls is no divisor and a window that recorded no launch
+    of the port is profiled again, up to ``attempts`` windows."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / e.count
-            for e in prof.key_averages() if "espnet" in e.key and e.count}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        got = {e.key: e.self_device_time_total / 1e3 / e.count
+               for e in prof.key_averages() if "espnet" in e.key and e.count}
+        if got:
+            break
+    return got
 
 
 def launched_kernels(torch, call):
@@ -355,7 +393,7 @@ def attention_fwd_routes(torch, fa, args):
     """Which kernel espnet_rel_flash_fwd launches (torch.profiler's kernel
     names): bf16 at Dh 64 the register-resident rel_fwd::fwd_kernel, fp32
     and bf16 at Dh 128 the WMMA rel_flash_fwd_kernel."""
-    want = ("rel_fwd::fwd_kernel<64>", "rel_flash_fwd_kernel<float",
+    want = ("rel_fwd::fwd_kernel<64, false>", "rel_flash_fwd_kernel<float",
             "rel_flash_fwd_kernel<__nv_bfloat16")
     for (what, xs), w in zip(route_cases(torch, args), want):
         names = launched_kernels(torch, lambda: fa._launch_fwd(
@@ -369,7 +407,7 @@ def attention_bwd_routes(torch, fa, args):
     """Which dq kernel espnet_rel_flash_bwd launches (torch.profiler's kernel
     names): bf16 at Dh 64 the register-resident rel_dq::dq_kernel, fp32 and
     bf16 at Dh 128 the WMMA rel_flash_dq_kernel."""
-    want = ("rel_dq::dq_kernel<64>", "rel_flash_dq_kernel<float",
+    want = ("rel_dq::dq_kernel<64, false>", "rel_flash_dq_kernel<float",
             "rel_flash_dq_kernel<__nv_bfloat16")
     for (what, xs), w in zip(route_cases(torch, args), want):
         scale = xs[0].shape[-1] ** -0.5
@@ -446,6 +484,278 @@ def kernel_phase(torch, t_prime):
              bound_by=att_bound[1], library_ms=lib_ms,
              device_ms=att_device.get("fwd")),
     ]
+
+
+def philox_phase(torch, n, f, b, h, t):
+    """csrc/philox.cuh on the card: Random123's answer vectors, then the
+    keep mask the dropout launches draw, written out by the library's test
+    entry, equal bit for bit to ops/kernels/philox.py's at K2's [N, F] and
+    K3's [B * H, T, T]; the keep rate of the latter within 6 sigma of 1 -
+    DROPOUT. Returns the keep rate."""
+    from espnet_slurp_tpu_torch.ops.kernels import build, philox
+    lib = build.library()
+    ck = np.asarray([list(c) + list(k) for c, k, _ in PHILOX_KAT], np.uint32)
+    ck_d = torch.from_numpy(ck.view(np.int32)).cuda()
+    out = torch.empty(len(PHILOX_KAT), 4, dtype=torch.int32, device="cuda")
+    build.check(lib.espnet_philox4x32_10(
+        ck_d.data_ptr(), out.data_ptr(), len(PHILOX_KAT),
+        build.stream_ptr(out)), "philox answer vectors")
+    got = out.cpu().numpy().view(np.uint32)
+    want = np.asarray([o for _, _, o in PHILOX_KAT], np.uint32)
+    print("Philox4x32-10 answer vectors: " + "; ".join(
+        " ".join(f"{v:08x}" for v in row) for row in got)
+          + f" ({'match' if np.array_equal(got, want) else 'DIFFER'})")
+    if not np.array_equal(got, want):
+        raise AssertionError("csrc/philox.cuh misses Random123's answers")
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
+    thr = philox.threshold(DROPOUT)
+    rate = None
+    for what, planes, rows, cols in (("K2 [N, F]", 1, n, f),
+                                     ("K3 [B*H, T, T]", b * h, t, t)):
+        dev = torch.empty(planes, rows, cols, dtype=torch.uint8,
+                          device="cuda")
+        build.check(lib.espnet_philox_keep_mask(
+            seed.data_ptr(), thr, planes, rows, cols, dev.data_ptr(),
+            build.stream_ptr(dev)), "philox keep mask")
+        ref = philox.keep_mask(seed, DROPOUT, rows, cols, planes=planes)
+        same = torch.equal(dev.bool(), ref)
+        rate = float(ref.float().mean())
+        sigma = ((1 - DROPOUT) * DROPOUT / ref.numel()) ** 0.5
+        dev_sigma = (rate - 1 + DROPOUT) / sigma
+        print(f"dropout mask {what} = [{planes}, {rows}, {cols}]: device "
+              f"{'equals' if same else 'DIFFERS FROM'} ops/kernels/philox.py "
+              f"bit for bit; keep rate {rate:.6f} ({dev_sigma:+.2f} sigma "
+              f"from {1 - DROPOUT}; 16-bit draw: "
+              f"{philox.keep_probability(DROPOUT):.7f})")
+        if not (same and abs(rate - (1 - DROPOUT)) <= 6 * sigma):
+            raise AssertionError(f"dropout mask {what}")
+        del dev, ref
+    return rate
+
+
+def ffn_dropout_detail(torch, ffn, n, d, f, r):
+    """K2's bf16 launches at rate DROPOUT on N rows: forward and backward
+    held to fused_ffn_plain / fused_ffn_bwd_plain with the same seed (the
+    kernels' rounding points) within BWD_PLAIN_TOL, and to the unrounded
+    plain version (fp32, autograd) within TOL of max |ref| per output and
+    gradient; the dropout launches by profiler name; each launch's device
+    time at DROPOUT beside rate 0. Returns a dict of those."""
+    bf = torch.bfloat16
+    args = (r(n, d).to(bf), (r(d, f) * d ** -0.5).to(bf), r(f) * 0.1,
+            (r(f, d) * f ** -0.5).to(bf), r(d) * 0.1)
+    g = r(n, d).to(bf)
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
+    x, w1, b1, w2, _ = args
+    out = ffn._launch_fwd(*args, seed, DROPOUT)
+    grads = ffn._launch_bwd(x, w1, b1, w2, g, seed, DROPOUT)
+    at_rp = ffn.fused_ffn_plain(*args, seed, dropout_rate=DROPOUT)
+    bwd_rp = ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
+                                     dropout_rate=DROPOUT)
+    leaves = [a.float().requires_grad_(True) for a in args]
+    un = ffn.fused_ffn_plain(*leaves, seed, dropout_rate=DROPOUT)
+    un_grads = torch.autograd.grad(un, leaves, g.float())
+    torch.cuda.synchronize()
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+    rp = [rel_err(a, b)[1] for a, b in zip((out, *grads), (at_rp, *bwd_rp))]
+    unr = [rel_err(a, b)[1] for a, b in zip((out, *grads),
+                                            (un.detach(), *un_grads))]
+    print(f"K2 fused_ffn bfloat16 N={n} dropout {DROPOUT}: against the "
+          "plain versions at the kernels' rounding points "
+          + ", ".join(f"{k} {v:.3e}" for k, v in zip(names, rp))
+          + f" (tolerance {BWD_PLAIN_TOL}); against the unrounded plain "
+          "version " + ", ".join(f"{k} {v:.3e}" for k, v in zip(names, unr))
+          + f" of max|ref| (tolerance {TOL['bfloat16']})")
+    if not (max(rp) <= BWD_PLAIN_TOL and max(unr) <= TOL["bfloat16"]
+            and all(torch.isfinite(a).all() for a in (out, *grads))):
+        raise AssertionError("K2 with dropout disagrees with its plain "
+                             "versions")
+    err = max(rel_err(a, b)[0] for a, b in zip((out, *grads),
+                                               (un.detach(), *un_grads)))
+    del at_rp, bwd_rp, un, un_grads, leaves, grads
+    times = {}
+    for rate in (0.0, DROPOUT):
+        sd = seed if rate else None
+        fwd = port_kernels_ms(torch, lambda: ffn._launch_fwd(*args, sd, rate),
+                              n=5)
+        bwd = port_kernels_ms(torch, lambda: ffn._launch_bwd(
+            x, w1, b1, w2, g, sd, rate), n=5)
+        times[rate] = {**fwd, **bwd}
+    drop_names = sorted(times[DROPOUT])
+    print(f"K2 fused_ffn bfloat16 N={n}: launches at dropout {DROPOUT} "
+          f"{drop_names}")
+    if not (any("ffn_fwd::fwd_kernel<256, true>" in k for k in drop_names)
+            and any("ffn_bwd::rows_kernel<true>" in k for k in drop_names)):
+        raise AssertionError("K2 with dropout did not launch its dropout "
+                             "kernels")
+    ms = {}
+    for part in ("ffn_fwd::fwd_kernel", "ffn_bwd::rows_kernel",
+                 "ffn_bwd::dx_kernel", "ffn_bwd::dw_kernel"):
+        ms[part] = [sum(v for k, v in times[rate].items() if part in k)
+                    for rate in (0.0, DROPOUT)]
+    print(f"K2 fused_ffn bfloat16 N={n}: device ms a launch, rate 0 -> "
+          f"{DROPOUT}: " + ", ".join(f"{k} {a:.4f} -> {b:.4f}"
+                                      for k, (a, b) in ms.items()))
+    return dict(max_abs_err=err, rounding_point_rel=max(rp),
+                unrounded_rel=max(unr), device_ms_rate0_vs_dropout=ms)
+
+
+def attention_dropout_detail(torch, fa, b, h, t, dh, r):
+    """K3's bf16 launches at rate DROPOUT (B x H x T x Dh, ragged key
+    lengths): the forward held to rel_flash_attention_fwd_tiled_plain and
+    the backward to rel_flash_attention_bwd_plain with the same seed (the
+    kernels' rounding points) within BWD_PLAIN_TOL, both to the unrounded
+    plain version (fp32, autograd) within TOL of max |ref| per output and
+    gradient, lse to the plain version's within 1e-4; the dropout launches
+    by profiler name; each launch's device time at DROPOUT beside rate 0.
+    Returns a dict of those."""
+    bf = torch.bfloat16
+    lengths = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                           device="cuda")
+    p = r(h, 2 * t, dh) * 0.5
+    p[:, -1] = 0.0
+    args = [(r(b, h, t, dh) * 0.5).to(bf) for _ in range(4)] + [p.to(bf),
+                                                                lengths]
+    g = r(b, h, t, dh).to(bf)
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
+    scale = dh ** -0.5
+    kw = dict(scale=scale, dropout_rate=DROPOUT)
+    out, lse = fa._launch_fwd(*args, scale, 0, -1, seed, DROPOUT)
+    grads = fa._launch_bwd(*args, out, lse, g, scale, 0, -1, seed, DROPOUT)
+    at_rp, _ = fa.rel_flash_attention_fwd_tiled_plain(
+        *args, seed, block_k=fa.FWD_BLOCK_K, **kw)
+    bwd_rp = fa.rel_flash_attention_bwd_plain(*args, out, lse, g, seed, **kw)
+    torch.cuda.synchronize()
+    names = ("out", "dq_u", "dq_v", "dk", "dv", "dp")
+    rp = [rel_err(a, b_)[1] for a, b_ in zip((out, *grads), (at_rp, *bwd_rp))]
+    del at_rp, bwd_rp
+    leaves = [a.float().requires_grad_(True) for a in args[:5]]
+    un, un_lse = fa.rel_flash_attention_plain(*leaves, lengths, seed, **kw)
+    un_grads = torch.autograd.grad(un, leaves, g.float())
+    torch.cuda.synchronize()
+    unr = [rel_err(a, b_)[1] for a, b_ in zip((out, *grads),
+                                              (un.detach(), *un_grads))]
+    rel_lse = rel_err(lse, un_lse)[1]
+    print(f"K3 rel_flash_attention bfloat16 B={b} T={t} dropout {DROPOUT}: "
+          "against the plain versions at the kernels' rounding points "
+          + ", ".join(f"{k} {v:.3e}" for k, v in zip(names, rp))
+          + f" (tolerance {BWD_PLAIN_TOL}); against the unrounded plain "
+          "version " + ", ".join(f"{k} {v:.3e}" for k, v in zip(names, unr))
+          + f" of max|ref| (tolerance {TOL['bfloat16']}); lse {rel_lse:.3e} "
+          "(undropped; tolerance 1e-4)")
+    if not (max(rp) <= BWD_PLAIN_TOL and max(unr) <= TOL["bfloat16"]
+            and rel_lse <= 1e-4
+            and all(torch.isfinite(a).all() for a in (out, *grads))):
+        raise AssertionError("K3 with dropout disagrees with its plain "
+                             "versions")
+    err = max(rel_err(a, b_)[0] for a, b_ in zip((out, *grads),
+                                                 (un.detach(), *un_grads)))
+    del un, un_grads, leaves, grads
+    times = {}
+    for rate in (0.0, DROPOUT):
+        sd = seed if rate else None
+        fwd = port_kernels_ms(torch, lambda: fa._launch_fwd(
+            *args, scale, 0, -1, sd, rate), n=5)
+        bwd = port_kernels_ms(torch, lambda: fa._launch_bwd(
+            *args, out, lse, g, scale, 0, -1, sd, rate), n=5)
+        times[rate] = {**fwd, **bwd}
+    drop_names = sorted(times[DROPOUT])
+    print(f"K3 rel_flash_attention bfloat16 B={b} T={t}: launches at "
+          f"dropout {DROPOUT} {drop_names}")
+    if not all(any(f"{k}<{dh}, true>" in n for n in drop_names)
+               for k in ("rel_fwd::fwd_kernel", "rel_dkv::dkv_kernel",
+                         "rel_dq::dq_kernel")):
+        raise AssertionError("K3 with dropout did not launch its dropout "
+                             "kernels")
+    ms = {}
+    for part in ("rel_fwd::fwd_kernel", "rel_dkv::dkv_kernel",
+                 "rel_dq::dq_kernel"):
+        ms[part] = [sum(v for k, v in times[rate].items() if part in k)
+                    for rate in (0.0, DROPOUT)]
+    print(f"K3 rel_flash_attention bfloat16 B={b} T={t}: device ms a "
+          f"launch, rate 0 -> {DROPOUT}: " + ", ".join(
+              f"{k} {a:.4f} -> {b_:.4f}" for k, (a, b_) in ms.items()))
+    return dict(max_abs_err=err, rounding_point_rel=max(rp),
+                unrounded_rel=max(unr), device_ms_rate0_vs_dropout=ms)
+
+
+def ffn_route_phase(torch):
+    """The K2 width repair: a d_model 512 / d_ff 2048 FeedForward (the
+    widths of bench.py's 17 x 512 config) on the card in bf16 and fp32,
+    forward and backward, against the plain version of its function
+    (fused_ffn_plain's autograd on the same weights) within TOL of max
+    |ref|; the route each dtype took, read from K2's launch counter."""
+    from espnet_slurp_tpu_torch.models.conformer import FeedForward
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    torch.manual_seed(0)
+    mod = FeedForward(512, 2048, use_flash=True).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x0 = torch.randn(8, 200, 512, generator=gen, device="cuda")
+    cot = torch.randn(8, 200, 512, generator=gen, device="cuda")
+    routes = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        mod.zero_grad()
+        x = x0.to(dt).requires_grad_(True)
+        before = (ffn.fused_ffn.launches, ffn.fused_ffn.bwd_launches)
+        out = mod(x)
+        out.backward(cot.to(dt))
+        torch.cuda.synchronize()
+        moved = (ffn.fused_ffn.launches - before[0],
+                 ffn.fused_ffn.bwd_launches - before[1])
+        routes[name] = "K2" if moved == (1, 1) else (
+            "eager" if moved == (0, 0) else f"mixed {moved}")
+        w = [mod.w1.weight, mod.w1.bias, mod.w2.weight, mod.w2.bias]
+        leaves = [x0.to(dt).requires_grad_(True)] + [
+            p.detach().clone().requires_grad_(True) for p in w]
+        ref = ffn.fused_ffn_plain(leaves[0], leaves[1].t().to(dt), leaves[2],
+                                  leaves[3].t().to(dt), leaves[4])
+        ref.backward(cot.to(dt))
+        got = [x.grad] + [p.grad for p in w]
+        ref_g = [a.grad for a in leaves]
+        rels = [rel_err(out, ref)[1]] + [rel_err(a, b)[1]
+                                         for a, b in zip(got, ref_g)]
+        print(f"FeedForward d_model 512 d_ff 2048 {name}: route {routes[name]}"
+              f" (K2 launches {moved}); out, dx, dW1, db1, dW2, db2 "
+              + ", ".join(f"{v:.3e}" for v in rels)
+              + f" of max|ref| (tolerance {TOL[name]})")
+        if not (max(rels) <= TOL[name] and "mixed" not in routes[name]):
+            raise AssertionError(f"FeedForward 512 {name}")
+    return routes
+
+
+def dropout_phase(torch, t_prime):
+    """The dropout kernels at the flagship train shape (B 64, T' t_prime, D
+    256, F 1024, H 4, Dh 64, bf16, DROPOUT): the Philox mask on the card,
+    K2 and K3 both ways against their plain versions with the same seed,
+    each launch's device time at DROPOUT beside rate 0; then the K2 width
+    route. Returns the kernels-line additions by kernel name."""
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = flagship_config()
+    d, f, h = cfg.d_model, cfg.d_ff, cfg.n_head
+    b, n = TRAIN_B, TRAIN_B * t_prime
+    keep_rate = philox_phase(torch, n, f, b, h, t_prime)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    k2 = ffn_dropout_detail(torch, ffn, n, d, f, r)
+    k3 = attention_dropout_detail(torch, fa, b, h, t_prime, d // h, r)
+    routes = ffn_route_phase(torch)
+    fwd = lambda det, part: dict(
+        rate=DROPOUT, keep_rate=keep_rate, max_abs_err=det["max_abs_err"],
+        rel_err_rounding_points=det["rounding_point_rel"],
+        rel_err_unrounded=det["unrounded_rel"],
+        device_ms_rate0_vs_dropout={
+            k: v for k, v in det["device_ms_rate0_vs_dropout"].items()
+            if any(p in k for p in part)})
+    return {
+        "fused_ffn": {**fwd(k2, ("fwd_kernel",)),
+                      "feedforward_512_routes": routes},
+        "fused_ffn_bwd": fwd(k2, ("rows", "dx", "dw")),
+        "rel_flash_attention": fwd(k3, ("rel_fwd",)),
+        "rel_flash_attention_bwd": fwd(k3, ("rel_dkv", "rel_dq")),
+    }
 
 
 def token_list(vocab: int):
@@ -994,7 +1304,9 @@ def read_counts(names=COUNTED):
 def run_train_steps(torch, what, model, batch, card, audio_s):
     """One warm-up step, then TRAIN_STEPS timed ones with every launch
     count zeroed just before and read just after; checks finite losses,
-    nothing skipped and a falling loss. Returns (launches, step s, stats)."""
+    nothing skipped and a falling loss; then one more step under
+    torch.profiler for the device's busy time (the sum of its kernels'
+    times). Returns (launches, step s, busy ms)."""
     from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
     from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
 
@@ -1033,7 +1345,14 @@ def run_train_steps(torch, what, model, batch, card, audio_s):
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and losses[-1] < first_loss):
         raise AssertionError(f"{what}: non-finite, skipped or not falling")
-    return launches, step_s
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, st = step(state, batch)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if not e.key.startswith("train_step.")) / 1e3
+    print(f"{what}: device busy {busy_ms:.2f} ms in one profiled step")
+    return launches, step_s, busy_ms
 
 
 def check_per_step(what, launches, per_step):
@@ -1046,25 +1365,38 @@ def check_per_step(what, launches, per_step):
 
 
 def train_phase(torch, card):
-    """The flagship train step on the bench traffic; returns the launch
-    counts of the timed steps."""
+    """The flagship train step on the bench traffic at the recipe's dropout
+    (DROPOUT), then the same phase at dropout 0 for its step wall and busy
+    time; returns the launch counts of the dropout run's timed steps."""
     from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
                                                           flagship_config)
     from espnet_slurp_tpu_torch.utils.params import init_random_
 
-    cfg = flagship_config()
-    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
-    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
-                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
-    launches, step_s = run_train_steps(
-        torch, f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, "
-        f"U={TRAIN_U}", model, batch, card, TRAIN_B * TRAIN_SECONDS)
-    n_blocks = cfg.num_encoder_blocks
-    check_per_step("train", launches, {
-        "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
-        "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
-        "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
-        "ctc_lattice": 1, "ctc_lattice_bwd": 1})
+    runs = {}
+    for rate in (DROPOUT, 0.0):
+        cfg = dataclasses.replace(flagship_config(), dropout_rate=rate)
+        model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+        batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                            FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size,
+                            "cuda")
+        launches, step_s, busy_ms = run_train_steps(
+            torch, f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, "
+            f"U={TRAIN_U}, dropout {rate}", model, batch, card,
+            TRAIN_B * TRAIN_SECONDS)
+        n_blocks = cfg.num_encoder_blocks
+        check_per_step("train", launches, {
+            "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+            "rel_flash_attention": n_blocks,
+            "rel_flash_attention_bwd": n_blocks,
+            "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+            "ctc_lattice": 1, "ctc_lattice_bwd": 1})
+        runs[rate] = (launches, step_s, busy_ms)
+        del model, batch
+        torch.cuda.empty_cache()
+    (launches, step_s, busy), (_, step0, busy0) = runs[DROPOUT], runs[0.0]
+    print(f"train: flagship step at dropout {DROPOUT} {step_s:.4f} s, "
+          f"device busy {busy:.2f} ms; at dropout 0 {step0:.4f} s, "
+          f"{busy0:.2f} ms (same call, {card})")
     return launches, step_s
 
 
@@ -1279,8 +1611,8 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
 
 
 def transducer_train_phase(torch, card):
-    """The transducer train step (fused_conv) on 32 x 15 s, U 64; returns
-    the launch counts of the timed steps."""
+    """The transducer train step (fused_conv, the yaml's dropout 0.1) on 32
+    x 15 s, U 64; returns the launch counts of the timed steps."""
     from espnet_slurp_tpu_torch.models.transducer import TransducerModel
     from espnet_slurp_tpu_torch.utils.params import init_random_
 
@@ -1288,10 +1620,10 @@ def transducer_train_phase(torch, card):
     model = init_random_(TransducerModel(cfg, device="cuda"), seed=0)
     batch = train_batch(torch, np.random.RandomState(1), TR_B,
                         FS * TRAIN_SECONDS, TR_U, cfg.asr.vocab_size, "cuda")
-    launches, step_s = run_train_steps(
+    launches, step_s, _ = run_train_steps(
         torch, f"transducer train: B={TR_B} x {TRAIN_SECONDS} s, U={TR_U}, "
-        f"V={cfg.asr.vocab_size}, fused_conv", model, batch, card,
-        TR_B * TRAIN_SECONDS)
+        f"V={cfg.asr.vocab_size}, fused_conv, dropout "
+        f"{cfg.asr.dropout_rate}", model, batch, card, TR_B * TRAIN_SECONDS)
     n_blocks = cfg.asr.num_encoder_blocks
     check_per_step("transducer train", launches, {
         "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
@@ -1308,7 +1640,7 @@ def transducer_cpu_vs_card(torch):
     from espnet_slurp_tpu_torch.models.transducer import TransducerModel
     from espnet_slurp_tpu_torch.utils.params import init_random_
 
-    cfg = transducer_config(dtype="float32", specaug=None)
+    cfg = transducer_config(dtype="float32", specaug=None, dropout_rate=0.0)
     state = init_random_(TransducerModel(cfg, device="cpu"),
                          seed=0).state_dict()
     compare_cpu_card(torch, "fp32 transducer step", TransducerModel, cfg,
@@ -1479,10 +1811,13 @@ def main() -> int:
     kernels += train_kernels
     train_launches, _ = train_phase(torch, card)
     train_cpu_vs_card(torch)
+    dropout = dropout_phase(torch, t_train)
     tr_kernels, at_tr_shape = transducer_kernel_phase(torch, t_train, t_prime)
     kernels += tr_kernels
     for kern in kernels:
         kern.update(at_tr_shape.get(kern["name"], {}))
+        if kern["name"] in dropout:
+            kern["dropout"] = dropout[kern["name"]]
         if kern["name"] == "rel_flash_attention":
             kern["blocks_per_sm"] = blocks["fwd Dh 64"]
         if kern["name"] == "fused_ffn":

@@ -1,15 +1,16 @@
 """Where the time of one train step goes, on the card.
 
     python -m espnet_slurp_tpu_torch.bin.profile_train \
-        [--model asr|transducer] [--fused-conv] [--out FILE]
+        [--model asr|transducer] [--fused-conv] [--dropout RATE] [--out FILE]
 
 Builds the flagship ASRModel (``asr``, models/asr_model.py:flagship_config,
 on the traffic of bench.py:43-58: 64 synthetic 15 s utterances, U = 64) or
 the Conformer-transducer (``transducer``, models/transducer.py:
 transducer_flagship_config, conf/train_transducer.yaml: 32 x 15 s, U = 64,
-vocab 600), fp32 parameters, bf16 compute, dropout 0, SpecAug on, random
-weights from a seeded torch.Generator; ``--fused-conv`` routes the conv
-modules through kernel K6. The port's make_train_step runs Adam at constant
+vocab 600), fp32 parameters, bf16 compute, dropout ``--dropout`` (default 0;
+the recipes train at 0.1), SpecAug on, random weights from a seeded
+torch.Generator; ``--fused-conv`` routes the conv modules through kernel
+K6. The port's make_train_step runs Adam at constant
 lr 1e-3. Runs two warm-up steps, times three more on the host
 clock (each ended by a synchronise), then profiles one with torch.profiler.
 Prints one JSON line: the unprofiled step seconds and audio-seconds per
@@ -65,6 +66,8 @@ def main() -> None:
     ap.add_argument("--model", choices=sorted(BATCH), default="asr")
     ap.add_argument("--fused-conv", action="store_true",
                     help="conv modules through kernel K6")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="the encoder's dropout rate")
     ap.add_argument("--out", help="also write the JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -77,12 +80,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.model == "asr":
         cfg = dataclasses.replace(flagship_config(),
-                                  fused_conv=args.fused_conv)
+                                  fused_conv=args.fused_conv,
+                                  dropout_rate=args.dropout)
         model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
     else:
         base = transducer_flagship_config()
         cfg = dataclasses.replace(base, asr=dataclasses.replace(
-            base.asr, fused_conv=args.fused_conv)).asr
+            base.asr, fused_conv=args.fused_conv,
+            dropout_rate=args.dropout)).asr
         model = init_random_(TransducerModel(
             dataclasses.replace(base, asr=cfg), device="cuda"), seed=0)
     B = BATCH[args.model]

@@ -1,5 +1,5 @@
-// Fused position-wise feed-forward: out = swish(x W1 + b1) W2 + b2, forward
-// and backward (each direction's own notes are at its kernels below).
+// Fused position-wise feed-forward: out = dropout(swish(x W1 + b1)) W2 + b2,
+// forward and backward (each direction's own notes are at its kernels below).
 //
 // Replaces the TPU kernel espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn
 // (_fwd_kernel, _bwd_kernel), which runs both macaron FFNs of every Conformer
@@ -18,8 +18,13 @@
 // multiplied at once into a [BM, D2] accumulator there (plain FMAs, no
 // pipelining). The bf16 forward is the register-resident ffn_fwd::fwd_kernel
 // further below. Neither writes an [N, F] hidden to global memory.
+//
+// Dropout on the hidden (the reference's _keep_mask) is drawn in the bf16
+// launches only, from philox.cuh; the fp32 launches run at rate 0, and
+// their C entries refuse a seed.
 #include "common.cuh"
 #include "mma_gemm.cuh"
+#include "philox.cuh"
 
 namespace espnet {
 
@@ -100,8 +105,13 @@ int launch_ffn(const void* x, const void* w1, const float* b1, const void* w2, c
 // ---- Forward, bf16: S, hd and O in registers --------------------------------
 //
 // Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_fwd_kernel (the pallas_call
-// of fused_ffn at :186) in bf16, dropout 0, at its rounding points:
-//   s = x W1 + b1 (fp32), hd = bf16(s sigmoid(s)), out = bf16(hd W2 + b2).
+// of fused_ffn at :186) in bf16, at its rounding points:
+//   s = x W1 + b1 (fp32), h = s sigmoid(s), hd = bf16(keep ? h / (1 - rate)
+//   : 0), out = bf16(hd W2 + b2).
+// Dropout (DROP): the keep bits of (row n, column f) come from philox.cuh,
+// two Philox calls a lane a tile of 32 columns (8 elements each), drawn
+// before S's products so that their registers are free again when S is
+// live; at rate 0 the kernel is instantiated without them.
 //
 // Bound: the tensor cores. The two products are 4 N D F operations (D2 = D):
 // 31.4 GFLOP at the flagship train shape (N = 64 x 468, D 256, F 1024),
@@ -165,12 +175,12 @@ __device__ __forceinline__ void load_async(bf16* s, int lds, const bf16* p, long
 
 // Block (row tile, split): O over F range split * (f / nsplit) .. + f /
 // nsplit; with nsplit 1 it writes out, else fp32 partials part[split].
-template <int D2>
+template <int D2, bool DROP>
 __global__ void __launch_bounds__(kThreadsFwd, 2)
     fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                const float* __restrict__ b1, const bf16* __restrict__ w2,
                const float* __restrict__ b2, bf16* __restrict__ out, float* __restrict__ part,
-               int n, int d, int f) {
+               int n, int d, int f, philox::Dropout drop) {
   using L = Layout<D2>;
   constexpr int NC = D2 / 32;  // chunks of 4 n8 tiles of O
   extern __shared__ __align__(128) unsigned char smem[];
@@ -194,6 +204,8 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
   load_async(xs, ldx, x, d, m0, 0, BM, d, n);
   load_stage(0);
   mma::cp_async_commit();
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
+  const uint32_t krow = (uint32_t)(m0 + warp * 16 + g);  // the lane's first row
 
   float o[NC][4][4];
 #pragma unroll
@@ -210,6 +222,14 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     mma::cp_async_commit();
     const bf16* w1t = w1s(ft & 1);
     const bf16* w2t = w2s(ft & 1);
+    const int f0 = fbeg + ft * BF;
+    // Keep bits of the lane's 16 hidden elements of this tile: n8 tiles
+    // (0, 1) in bits 0-7, (2, 3) in bits 8-15.
+    uint32_t kb = 0;
+    if constexpr (DROP) {
+      kb = philox::keep8(seed, 0u, krow, (uint32_t)(f0 + 2 * tq), drop.thr) |
+           philox::keep8(seed, 0u, krow, (uint32_t)(f0 + 16 + 2 * tq), drop.thr) << 8;
+    }
 
     float s[1][4][4];
 #pragma unroll
@@ -222,9 +242,8 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
                                                              kk);
     }
 
-    // hd = bf16(swish(s + b1)), element (g + 8 hf, 8 j + 2 tq + e) of the
-    // warp's 16 x 32 tile, packed as the A fragments of k-steps j / 2.
-    const int f0 = fbeg + ft * BF;
+    // hd = bf16(dropout(swish(s + b1))), element (g + 8 hf, 8 j + 2 tq + e)
+    // of the warp's 16 x 32 tile, packed as the A fragments of k-steps j / 2.
     uint32_t a[2][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -232,8 +251,13 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const float s0 = s[0][j][2 * hf] + bb.x, s1 = s[0][j][2 * hf + 1] + bb.y;
-        __nv_bfloat162 hk = __floats2bfloat162_rn(s0 / (1.0f + __expf(-s0)),
-                                                  s1 / (1.0f + __expf(-s1)));
+        float h0 = s0 / (1.0f + __expf(-s0)), h1 = s1 / (1.0f + __expf(-s1));
+        if constexpr (DROP) {
+          const uint32_t k8 = kb >> (8 * (j >> 1));
+          h0 = philox::kept(k8, hf, j & 1, 0) ? h0 * drop.inv : 0.0f;
+          h1 = philox::kept(k8, hf, j & 1, 1) ? h1 * drop.inv : 0.0f;
+        }
+        __nv_bfloat162 hk = __floats2bfloat162_rn(h0, h1);
         a[j >> 1][2 * (j & 1) + hf] = *reinterpret_cast<uint32_t*>(&hk);
       }
     }
@@ -288,8 +312,9 @@ __global__ void __launch_bounds__(256)
       __floats2bfloat162_rn(acc.z + bb.z, acc.w + bb.w);
 }
 
-// Sets fwd_kernel<D2>'s shared-memory attributes for width d; returns its
-// blocks per SM (0: the shape does not fit).
+// Sets fwd_kernel<D2, *>'s shared-memory attributes for width d; returns
+// its blocks per SM (0: the shape does not fit). Both variants share the
+// shared memory and the register cap, so one occupancy serves both.
 template <int D2>
 int configure(int d) {
   const size_t bytes = Layout<D2>::bytes(d);
@@ -297,10 +322,12 @@ int configure(int d) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (bytes > (size_t)max_smem) return 0;
-  cudaFuncSetAttribute(fwd_kernel<D2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  cudaFuncSetAttribute(fwd_kernel<D2>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fwd_kernel<D2>, kThreadsFwd, bytes);
+  for (auto kernel : {fwd_kernel<D2, false>, fwd_kernel<D2, true>}) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+  }
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fwd_kernel<D2, false>, kThreadsFwd, bytes);
   return nb;
 }
 
@@ -345,25 +372,36 @@ inline int splits(int n, int d, int f, int d2) {
 
 template <int D2>
 int launch_d2(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-              bf16* out, float* part, int nsplit, int n, int d, int f, cudaStream_t stream) {
-  fwd_kernel<D2><<<dim3((unsigned)((n + BM - 1) / BM), nsplit), kThreadsFwd,
-                   Layout<D2>::bytes(d), stream>>>(x, w1, b1, w2, b2, out, part, n, d, f);
+              bf16* out, float* part, int nsplit, int n, int d, int f,
+              const philox::Dropout& drop, cudaStream_t stream) {
+  const dim3 grid((unsigned)((n + BM - 1) / BM), nsplit);
+  const size_t bytes = Layout<D2>::bytes(d);
+  if (drop.seed) {
+    fwd_kernel<D2, true><<<grid, kThreadsFwd, bytes, stream>>>(x, w1, b1, w2, b2, out, part, n, d,
+                                                               f, drop);
+  } else {
+    fwd_kernel<D2, false><<<grid, kThreadsFwd, bytes, stream>>>(x, w1, b1, w2, b2, out, part, n,
+                                                                d, f, drop);
+  }
   return (int)cudaGetLastError();
 }
 
 inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                   const float* b2, bf16* out, float* part, int nsplit, int n, int d, int f,
-                  int d2, cudaStream_t stream) {
+                  int d2, const philox::Dropout& drop, cudaStream_t stream) {
   if (!shape_ok(n, d, f) || nsplit < 1 || f % (nsplit * BF) || (nsplit > 1 && !part)) {
     return (int)cudaErrorInvalidValue;
   }
   if (blocks_per_sm(d, d2) <= 0) return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto launch_w) {
+    return launch_w(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, drop, stream);
+  };
   int err = (int)cudaErrorInvalidValue;
   switch (d2) {
-    case 32: err = launch_d2<32>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
-    case 64: err = launch_d2<64>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
-    case 128: err = launch_d2<128>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
-    case 256: err = launch_d2<256>(x, w1, b1, w2, b2, out, part, nsplit, n, d, f, stream); break;
+    case 32: err = run(launch_d2<32>); break;
+    case 64: err = run(launch_d2<64>); break;
+    case 128: err = run(launch_d2<128>); break;
+    case 256: err = run(launch_d2<256>); break;
   }
   if (err || nsplit == 1) return err;
   const long total = (long)n * d2;
@@ -590,9 +628,13 @@ int launch_ffn_bwd(const void* x, const void* w1, const float* b1, const void* w
 // Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel (the pallas_call of
 // fused_ffn's core_bwd) in bf16. It computes, with the reference's rounding
 // points and fp32 accumulation,
-//   s = x W1 + b1; sig = sigmoid(s); hd = bf16(s sig)
-//   dW2 = hd^T g; db2 = sum g; dh = g W2^T; ds = dh sig (1 + s (1 - sig))
-//   dW1 = x^T bf16(ds); db1 = sum ds (fp32); dx = bf16(ds) W1^T.
+//   s = x W1 + b1; sig = sigmoid(s); hd = bf16(keep ? s sig / (1 - rate) : 0)
+//   dW2 = hd^T g; db2 = sum g; dh = keep ? (g W2^T) / (1 - rate) : 0
+//   ds = dh sig (1 + s (1 - sig)); dW1 = x^T bf16(ds); db1 = sum ds (fp32);
+//   dx = bf16(ds) W1^T.
+// Dropout touches only `rows`: it draws the forward's keep bits again
+// (philox.cuh, four Philox calls a lane a block) and writes the dropped hd
+// and the masked ds, which dx and dw read as they are.
 //
 // Bound: the tensor cores. The five products are 10 N D F operations (D2 =
 // D): 78.5 GFLOP at the flagship train shape (N = 64 x 468, D 256, F 1024),
@@ -642,15 +684,31 @@ static_assert(RowsS::kThreads == kThreads && RowsDH::kThreads == kThreads &&
 
 __host__ __device__ constexpr long cdiv(long a, long b) { return (a + b - 1) / b; }
 
+template <bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
     rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 const float* __restrict__ b1, const bf16* __restrict__ w2,
                 const bf16* __restrict__ g, bf16* __restrict__ hd, bf16* __restrict__ ds,
-                float* __restrict__ db1p, int n, int d, int f, int d2) {
+                float* __restrict__ db1p, int n, int d, int f, int d2, philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const long n0 = (long)blockIdx.x * kRowsF;
   const long m0 = (long)blockIdx.y * kRowTile;
+  // Keep bits of the lane's 32 elements: m16 tile i and n8 tiles (2 jp,
+  // 2 jp + 1) in bits 8 (2 i + jp) .. + 7.
+  uint32_t kb = 0;
+  if constexpr (DROP) {
+    const uint32_t seed = (uint32_t)__ldg(drop.seed);
+#pragma unroll
+    for (int i = 0; i < RowsS::MT; ++i)
+#pragma unroll
+      for (int jp = 0; jp < RowsS::NT / 2; ++jp) {
+        kb |= philox::keep8(seed, 0u, (uint32_t)(m0 + RowsS::frag_row(i, 0)),
+                            (uint32_t)(n0 + RowsS::frag_col(2 * jp)), drop.thr)
+              << (8 * (2 * i + jp));
+      }
+  }
+  static_assert(RowsS::MT * RowsS::NT / 2 * 8 <= 32, "keep bits in one word");
   RowsS::Acc s, dh;
   RowsS::zero(s);
   RowsS::zero(dh);
@@ -674,8 +732,14 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int e = 0; e < 2; ++e) {
           const float sv = s[i][j][2 * h + e] + (e ? bias1 : bias0);
           const float sig = 1.0f / (1.0f + __expf(-sv));
+          float dhv = dh[i][j][2 * h + e];
           hv[e] = sv * sig;
-          dv[e] = dh[i][j][2 * h + e] * sig * (1.0f + sv * (1.0f - sig));
+          if constexpr (DROP) {
+            const bool keep = philox::kept(kb >> (8 * (2 * i + (j >> 1))), h, j & 1, e);
+            hv[e] = keep ? hv[e] * drop.inv : 0.0f;
+            dhv = keep ? dhv * drop.inv : 0.0f;
+          }
+          dv[e] = dhv * sig * (1.0f + sv * (1.0f - sig));
         }
         if (r < n) {
           if (col_ok) {
@@ -799,20 +863,22 @@ __global__ void __launch_bounds__(kThreads, 2)
 // nsplit each; hd and ds are [n, f] scratch.
 inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const bf16* g,
                   bf16* dx, bf16* hd, bf16* ds, float* dw1p, float* db1p, float* dw2p,
-                  float* db2p, int nsplit, int n, int d, int f, int d2, cudaStream_t stream) {
+                  float* db2p, int nsplit, int n, int d, int f, int d2,
+                  const philox::Dropout& drop, cudaStream_t stream) {
   const long row_tiles = cdiv(n, kRowTile);
   if (n <= 0 || d % 16 || d2 % 16 || f % kRowsF || nsplit <= 0 || nsplit > 65535 ||
       row_tiles > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const long kchunk = cdiv(cdiv(n, nsplit), 32) * 32;
-  cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
+  const auto rows = drop.seed ? rows_kernel<true> : rows_kernel<false>;
+  cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
   cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)Dx::kSmemBytes);
   cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)Dw::kSmemBytes);
-  rows_kernel<<<dim3((unsigned)cdiv(f, kRowsF), (unsigned)row_tiles), kThreads, kRowsSmem,
-                stream>>>(x, w1, b1, w2, g, hd, ds, db1p, n, d, f, d2);
+  rows<<<dim3((unsigned)cdiv(f, kRowsF), (unsigned)row_tiles), kThreads, kRowsSmem, stream>>>(
+      x, w1, b1, w2, g, hd, ds, db1p, n, d, f, d2, drop);
   if (int err = (int)cudaGetLastError()) return err;
   dx_kernel<<<dim3((unsigned)cdiv(d, 128), (unsigned)row_tiles), kThreads, Dx::kSmemBytes,
               stream>>>(ds, w1, dx, n, d, f);
@@ -829,19 +895,21 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 
 // dtype: 0 = float32, 1 = bfloat16. part: fp32 [nsplit, N, D2] scratch of
 // the bf16 path when nsplit > 1 (espnet_fused_ffn_fwd_splits gives nsplit;
-// fp32 takes nsplit 1 and no scratch). Returns a cudaError_t code (0 =
-// launched).
+// fp32 takes nsplit 1 and no scratch). seed: int32 [1] on the device, or
+// null for no dropout (bf16 only); thr = floor(rate * 2^16), inv = 1 / (1 -
+// rate). Returns a cudaError_t code (0 = launched).
 extern "C" int espnet_fused_ffn_fwd(int dtype, const void* x, const void* w1, const float* b1,
                                     const void* w2, const float* b2, void* out, float* part,
-                                    int nsplit, int n, int d, int f, int d2, void* stream) {
+                                    int nsplit, int n, int d, int f, int d2, const int* seed,
+                                    unsigned thr, float inv, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   using espnet::bf16;
   if (dtype == 1) {
     return espnet::ffn_fwd::launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
                                    static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), part,
-                                   nsplit, n, d, f, d2, s);
+                                   nsplit, n, d, f, d2, {seed, thr, inv}, s);
   }
-  if (dtype == 0 && nsplit == 1) {
+  if (dtype == 0 && nsplit == 1 && !seed) {
     return espnet::launch_ffn<float, 32, 32>(x, w1, b1, w2, b2, out, n, d, f, d2, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -854,13 +922,31 @@ extern "C" int espnet_fused_ffn_fwd_splits(int n, int d, int f, int d2) {
   return espnet::ffn_fwd::splits(n, d, f, d2);
 }
 
+// 1 when both directions' launches of this dtype take the widths (and the
+// shared memory they need fits a block), else 0: the route test of
+// models/conformer.py:FeedForward, decided before any launch.
+extern "C" int espnet_fused_ffn_takes(int dtype, int n, int d, int f, int d2) {
+  if (n <= 0 || d <= 0 || d % 16 || d2 <= 0 || d2 % 16) return 0;
+  if (dtype == 1) {
+    return f % espnet::ffn_bwd::kRowsF == 0 && espnet::ffn_fwd::splits(n, d, f, d2) > 0;
+  }
+  if (dtype != 0 || f % 32) return 0;
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t need[] = {espnet::FfnLayout(d, d2, 32, 32, 4).total,
+                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, false).total,
+                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, true).total};
+  for (size_t b : need) {
+    if (b > (size_t)max_smem) return 0;
+  }
+  return 1;
+}
+
 // Blocks of the bf16 forward kernel that fit one SM at widths D, D2.
 extern "C" int espnet_fused_ffn_fwd_blocks_per_sm(int d, int d2) {
   return espnet::ffn_fwd::blocks_per_sm(d, d2);
 }
-
-// Row-chunk width over F that the kernel requires F to be a multiple of.
-extern "C" int espnet_fused_ffn_f_multiple(int dtype) { return dtype == 1 ? 64 : 32; }
 
 extern "C" const char* espnet_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -873,11 +959,13 @@ extern "C" int espnet_fused_ffn_bwd_row_tile() { return espnet::ffn_bwd::kRowTil
 // caller: dw1p [nsplit, D, F], dw2p [nsplit, F, D2], db2p [nsplit, D2], and
 // db1p [parts, F] with parts = cdiv(N, espnet_fused_ffn_bwd_row_tile()) in
 // bf16 and nsplit in fp32. hd and ds: bf16 [N, F] scratch of the bf16 path
-// (unused in fp32). Returns a cudaError_t code.
+// (unused in fp32). seed, thr, inv: the forward's dropout (bf16 only; seed
+// null for none). Returns a cudaError_t code.
 extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, const float* b1,
                                     const void* w2, const void* g, void* dx, void* hd, void* ds,
                                     float* dw1p, float* db1p, float* dw2p, float* db2p,
-                                    int nsplit, int n, int d, int f, int d2, void* stream) {
+                                    int nsplit, int n, int d, int f, int d2, const int* seed,
+                                    unsigned thr, float inv, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   using espnet::bf16;
   if (dtype == 1) {
@@ -885,9 +973,9 @@ extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, co
         static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
         static_cast<const bf16*>(w2), static_cast<const bf16*>(g), static_cast<bf16*>(dx),
         static_cast<bf16*>(hd), static_cast<bf16*>(ds), dw1p, db1p, dw2p, db2p, nsplit, n, d, f,
-        d2, s);
+        d2, {seed, thr, inv}, s);
   }
-  if (dtype == 0) {
+  if (dtype == 0 && !seed) {
     return espnet::launch_ffn_bwd<float, 16, 32>(x, w1, b1, w2, g, dx, dw1p, db1p, dw2p, db2p,
                                                  nsplit, n, d, f, d2, s);
   }

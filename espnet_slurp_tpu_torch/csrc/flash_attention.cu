@@ -36,8 +36,15 @@
 // past T are dropped from the softmax, so any T works. No [T, T] or
 // [T, 2T - 1] buffer reaches global memory. WMMA tiles staged through shared
 // memory, no pipelining.
+//
+// Dropout on the probabilities (the reference's _dropout_keep) is drawn in
+// the three bf16 launches at Dh 32 / 64 only (rel_fwd, rel_dkv, rel_dq),
+// from philox.cuh with (b * H + h, query, key) as the element's
+// coordinates; the WMMA kernels run at rate 0, and the C entries refuse a
+// seed on their routes.
 #include "common.cuh"
 #include "mma_gemm.cuh"
+#include "philox.cuh"
 
 namespace espnet {
 
@@ -528,6 +535,10 @@ __global__ void __launch_bounds__(kThreads)
 // Shared memory: k, v, 2 ring stages, raw fp32 [BQ, 104], P, ds and rawg:
 // 103,424 bytes at Dh 64 (70,656 at Dh 32), so two blocks share an SM
 // (__launch_bounds__(256, 2): at most 128 registers a thread).
+// Dropout (DROP, reference :208-222): one Philox call a lane a query tile
+// gives the keep bits of its 8 S-fragment elements; dv takes the dropped
+// P (keep ? P / (1 - rate) : 0), and dP is masked and scaled the same way
+// before ds = P (dP - delta) scale, P itself undropped.
 namespace rel_dkv {
 
 using mma::Major;
@@ -568,7 +579,7 @@ __device__ __forceinline__ void load_rows_async(bf16* s, int ld, const bf16* g, 
   }
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
     dkv_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
                const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -576,7 +587,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                const bf16* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
                float* __restrict__ dp, int h, int t, float scale, int chunk_size,
-               int left_chunks) {
+               int left_chunks, philox::Dropout drop) {
   using L = Layout<DH>;
   constexpr int NKV = DH / 16;  // n8 tiles of a dk / dv warp tile (16 x DH/2)
   constexpr int NSL = DH / 32;  // n8 tiles of a dslab warp tile (3 m16 tiles x DH/4)
@@ -642,6 +653,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int km = (warp >> 1) * 16, kn = (warp & 1) * (DH / 2);    // dk, dv
   const int lm = warp >> 2, ln = (warp & 3) * (DH / 4);           // dslab m16 tiles lm + 2i
   const int nq = (t + BQ - 1) / BQ;
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
 
   // dslab rows of slot i (m16 tile lm + 2i) into dp: one red.v4 per 4
   // columns. Lanes tq and tq ^ 1 trade halves: the even lane takes row g,
@@ -681,6 +693,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bf16 *qus = sq + L::QU, *qvs = sq + L::QV, *dos = sq + L::DO, *slab = sq + L::SLAB;
     const float* lse_s = reinterpret_cast<const float*>(sq + (3 * BQ + SW) * L::LDQ);
     const float* delta_s = lse_s + BQ;
+    // Keep bits of the lane's S elements: rows sm + g (+ 8), n8 tiles 0, 1.
+    const uint32_t kb = DROP ? philox::keep8(seed, (uint32_t)bh, (uint32_t)(i0 + sm + g),
+                                             (uint32_t)(j0 + sn + 2 * tq), drop.thr)
+                             : 0u;
 
     float s[1][2][4], dpr[1][2][4], rw[1][3][4];
 #pragma unroll
@@ -718,6 +734,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int jj = j0 + c + e;
+          const bool keep = !DROP || philox::kept(kb, hf, j, e);
           pv[e] = 0.0f;
           dsv[e] = 0.0f;
           if (i < t && jj < t) {
@@ -725,9 +742,12 @@ __global__ void __launch_bounds__(kThreads, 2)
               pv[e] = 1.0f / (float)t;  // fully masked row: uniform weights, no ds
             } else if (pair.visible(i, jj)) {
               const float sv = (s[0][j][2 * hf + e] + raw[r * L::LDR + (BQ - 1 - r + c + e)]) * scale;
+              float dpv = dpr[0][j][2 * hf + e];
+              if (DROP) dpv = keep ? dpv * drop.inv : 0.0f;
               pv[e] = expf(sv - l);
-              dsv[e] = pv[e] * (dpr[0][j][2 * hf + e] - dl) * scale;
+              dsv[e] = pv[e] * (dpv - dl) * scale;
             }
+            if (DROP) pv[e] = keep ? pv[e] * drop.inv : 0.0f;  // dv takes the dropped P
           }
           rawg[r * L::LDG + (BQ - 1 - r + c + e)] = __float2bfloat16(dsv[e]);
         }
@@ -777,13 +797,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
 }
 
-// Sets dkv_kernel<DH>'s shared-memory attributes; returns its bytes.
+// Sets dkv_kernel<DH, *>'s shared-memory attributes; returns its bytes.
 template <int DH>
 size_t configure() {
   constexpr size_t bytes = Layout<DH>::kBytes;
-  cudaFuncSetAttribute(dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  cudaFuncSetAttribute(dkv_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
+  for (auto kernel : {dkv_kernel<DH, false>, dkv_kernel<DH, true>}) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+  }
   return bytes;
 }
 
@@ -791,19 +813,21 @@ template <int DH>
 int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
            const int* lengths, const void* dout, const float* lse, const float* delta, void* dk,
            void* dv, float* dp, int b, int h, int t, float scale, int chunk_size, int left_chunks,
-           cudaStream_t stream) {
+           const philox::Dropout& drop, cudaStream_t stream) {
   const size_t bytes = configure<DH>();
   auto in = [](const void* x) { return static_cast<const bf16*>(x); };
-  dkv_kernel<DH><<<dim3((t + BK - 1) / BK, b * h), kThreads, bytes, stream>>>(
+  const auto kernel = drop.seed ? dkv_kernel<DH, true> : dkv_kernel<DH, false>;
+  kernel<<<dim3((t + BK - 1) / BK, b * h), kThreads, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), dp, h, t, scale, chunk_size, left_chunks);
+      static_cast<bf16*>(dv), dp, h, t, scale, chunk_size, left_chunks, drop);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int blocks_per_sm() {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<DH>, kThreads, configure<DH>());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<DH, false>, kThreads,
+                                                configure<DH>());
   return n;
 }
 
@@ -862,6 +886,11 @@ int blocks_per_sm() {
 // (B 8, H 4, T' 471) the grid is 8 x 32 = 256 blocks: one wave on 132 SMs.
 // rel_dq::dq_kernel below walks the same (b, h, query tile) over the key
 // tiles with this loop (ring, raw slice, masks).
+// Dropout (DROP, reference :159-165): four Philox calls a lane a key tile,
+// before its products, give the keep bits of the lane's 32 S elements; P
+// is added into the row sum l first, then dropped (keep ? P / (1 - rate) :
+// 0) as it is packed for P v, so the normaliser and lse are the undropped
+// ones. A fully masked row's uniform weights are dropped alike.
 namespace rel_fwd {
 
 using mma::Major;
@@ -931,13 +960,13 @@ __device__ __forceinline__ void raw_slice(float* raw, const uint32_t (&qa_v)[DH 
   }
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kThreadsFwd, 2)
     fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
                const bf16* __restrict__ k, const bf16* __restrict__ v,
                const bf16* __restrict__ p, const int* __restrict__ lengths,
                bf16* __restrict__ out, float* __restrict__ lse, int h, int t, float scale,
-               int chunk_size, int left_chunks) {
+               int chunk_size, int left_chunks, philox::Dropout drop) {
   using L = Layout<DH>;
   constexpr int KS = DH / 16;  // k-steps over Dh
   constexpr int NO = DH / 8;   // n8 tiles of a warp's O (16 x DH)
@@ -1000,6 +1029,8 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
   const int sw0 = BQ - 16 - 16 * warp;  // the warp's first slab row
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
+  const uint32_t krow = (uint32_t)(i0 + warp * 16 + g);  // the lane's first row
 
   for (int kt = 0; kt < nk; ++kt) {
     mma::cp_async_wait<0>();
@@ -1011,6 +1042,17 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     mma::cp_async_commit();
     const bf16* ks = tile(L::kK, kt & 1);
     const bf16* vs = tile(L::kV, kt & 1);
+    const int j0 = kt * BK;
+    // Keep bits of the lane's S elements: n8 tiles (2 kk, 2 kk + 1) in bits
+    // 8 kk .. 8 kk + 7.
+    uint32_t kb = 0;
+    if constexpr (DROP) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        kb |= philox::keep8(seed, (uint32_t)bh, krow, (uint32_t)(j0 + 16 * kk + 2 * tq), drop.thr)
+              << (8 * kk);
+      }
+    }
 
     raw_slice<DH, L::LDQ, L::LDR>(raw, qa_v, tile(L::kSlab, 0), kt, sw0);
 
@@ -1024,7 +1066,6 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     __syncwarp();  // rawW visible to the warp
 
     // Scores in log2 units, masked; the tile's row max.
-    const int j0 = kt * BK;
     float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int j = 0; j < NS; ++j)
@@ -1065,9 +1106,14 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
       for (int q = 0; q < 2; ++q)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          const float p0 = exp2f(s[2 * kk + q][2 * hf] - m2[hf]);
-          const float p1 = exp2f(s[2 * kk + q][2 * hf + 1] - m2[hf]);
+          float p0 = exp2f(s[2 * kk + q][2 * hf] - m2[hf]);
+          float p1 = exp2f(s[2 * kk + q][2 * hf + 1] - m2[hf]);
           l[hf] += p0 + p1;
+          if constexpr (DROP) {
+            const uint32_t k8 = kb >> (8 * kk);
+            p0 = philox::kept(k8, hf, q, 0) ? p0 * drop.inv : 0.0f;
+            p1 = philox::kept(k8, hf, q, 1) ? p1 * drop.inv : 0.0f;
+          }
           __nv_bfloat162 pk = __floats2bfloat162_rn(p0, p1);
           a[2 * q + hf] = *reinterpret_cast<uint32_t*>(&pk);
         }
@@ -1092,32 +1138,36 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
   }
 }
 
-// Sets fwd_kernel<DH>'s shared-memory attributes; returns its bytes.
+// Sets fwd_kernel<DH, *>'s shared-memory attributes; returns its bytes.
 template <int DH>
 size_t configure() {
   constexpr size_t bytes = Layout<DH>::kBytes;
-  cudaFuncSetAttribute(fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  cudaFuncSetAttribute(fwd_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
+  for (auto kernel : {fwd_kernel<DH, false>, fwd_kernel<DH, true>}) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+  }
   return bytes;
 }
 
 template <int DH>
 int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
            const int* lengths, void* out, float* lse, int b, int h, int t, float scale,
-           int chunk_size, int left_chunks, cudaStream_t stream) {
+           int chunk_size, int left_chunks, const philox::Dropout& drop, cudaStream_t stream) {
   const size_t bytes = configure<DH>();
   auto in = [](const void* x) { return static_cast<const bf16*>(x); };
-  fwd_kernel<DH><<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
+  const auto kernel = drop.seed ? fwd_kernel<DH, true> : fwd_kernel<DH, false>;
+  kernel<<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, static_cast<bf16*>(out), lse, h, t, scale,
-      chunk_size, left_chunks);
+      chunk_size, left_chunks, drop);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int blocks_per_sm() {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fwd_kernel<DH>, kThreadsFwd, configure<DH>());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fwd_kernel<DH, false>, kThreadsFwd,
+                                                configure<DH>());
   return n;
 }
 
@@ -1169,6 +1219,9 @@ int blocks_per_sm() {
 // 88 fp32 raw slices, plus 4 x 16 x 88 bf16 rawg regions (q_u, q_v and
 // dO's staging reuses raw and rawg): 98,304 B at Dh 64 (69,632 at Dh 32),
 // so two blocks share an SM.
+// Dropout (DROP, reference :262-265): four Philox calls a lane a key tile,
+// before its products, give the keep bits of the lane's 32 elements; dP is
+// masked and scaled (keep ? dP / (1 - rate) : 0) before ds.
 namespace rel_dq {
 
 using mma::Major;
@@ -1200,14 +1253,14 @@ struct Layout {
                 "16-byte aligned regions; q_u, q_v and dO's staging fits raw and rawg");
 };
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kThreadsFwd, 2)
     dq_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
               const bf16* __restrict__ k, const bf16* __restrict__ v,
               const bf16* __restrict__ p, const int* __restrict__ lengths,
               const bf16* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, bf16* __restrict__ dqu, bf16* __restrict__ dqv,
-              int h, int t, float scale, int chunk_size, int left_chunks) {
+              int h, int t, float scale, int chunk_size, int left_chunks, philox::Dropout drop) {
   using L = Layout<DH>;
   constexpr int KS = DH / 16;   // k-steps over Dh
   constexpr int NO = DH / 8;    // n8 tiles of a warp's dq_u / dq_v (16 x DH)
@@ -1286,6 +1339,8 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_u[j][e] = acc_v[j][e] = 0.0f;
   const int sw0 = BQ - 16 - 16 * warp;  // the warp's first slab row
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
+  const uint32_t krow = (uint32_t)(i0 + warp * 16 + g);  // the lane's first row
 
   for (int kt = 0; kt < nk; ++kt) {
     mma::cp_async_wait<0>();
@@ -1298,10 +1353,20 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
     const bf16* ks = tile(L::kK, kt & 1);
     const bf16* vs = tile(L::kV, kt & 1);
     const bf16* slab = tile(L::kSlab, 0);
+    const int j0 = kt * BK;
+    // Keep bits of the lane's elements: n8 tiles (2 m, 2 m + 1) of the tile
+    // (m = 2 hv + jp over the halves) in bits 8 m .. 8 m + 7.
+    uint32_t kb = 0;
+    if constexpr (DROP) {
+#pragma unroll
+      for (int m = 0; m < BK / 16; ++m) {
+        kb |= philox::keep8(seed, (uint32_t)bh, krow, (uint32_t)(j0 + 16 * m + 2 * tq), drop.thr)
+              << (8 * m);
+      }
+    }
     raw_slice<DH, L::LDQ, L::LDR>(raw, qa_v, slab, kt, sw0);
     __syncwarp();  // rawW visible to the warp
 
-    const int j0 = kt * BK;
 #pragma unroll
     for (int hv = 0; hv < BK / HALF; ++hv) {
       const int n0 = hv * HALF;
@@ -1326,7 +1391,12 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
             float ds = 0.0f;
             if (jj >= jlo[hf] && jj < jhi[hf]) {
               const float x = (s[j][2 * hf + e] + raw[r * L::LDR + 15 - r + c]) * sl2 - lse2[hf];
-              ds = exp2f(x) * (dpv[j][2 * hf + e] - dl[hf]) * scale;
+              float dpk = dpv[j][2 * hf + e];
+              if constexpr (DROP) {
+                const uint32_t k8 = kb >> (8 * ((n0 + 8 * j) / 16));
+                dpk = philox::kept(k8, hf, j & 1, e) ? dpk * drop.inv : 0.0f;
+              }
+              ds = exp2f(x) * (dpk - dl[hf]) * scale;
             }
             s[j][2 * hf + e] = ds;
             rg[r * L::LDG + 15 - r + c] = __float2bfloat16(ds);
@@ -1374,13 +1444,15 @@ __global__ void __launch_bounds__(kThreadsFwd, 2)
   }
 }
 
-// Sets dq_kernel<DH>'s shared-memory attributes; returns its bytes.
+// Sets dq_kernel<DH, *>'s shared-memory attributes; returns its bytes.
 template <int DH>
 size_t configure() {
   constexpr size_t bytes = Layout<DH>::kBytes;
-  cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
+  for (auto kernel : {dq_kernel<DH, false>, dq_kernel<DH, true>}) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+  }
   return bytes;
 }
 
@@ -1388,19 +1460,21 @@ template <int DH>
 int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
            const int* lengths, const void* dout, const float* lse, const float* delta, void* dqu,
            void* dqv, int b, int h, int t, float scale, int chunk_size, int left_chunks,
-           cudaStream_t stream) {
+           const philox::Dropout& drop, cudaStream_t stream) {
   const size_t bytes = configure<DH>();
   auto in = [](const void* x) { return static_cast<const bf16*>(x); };
-  dq_kernel<DH><<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
+  const auto kernel = drop.seed ? dq_kernel<DH, true> : dq_kernel<DH, false>;
+  kernel<<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, static_cast<bf16*>(dqu),
-      static_cast<bf16*>(dqv), h, t, scale, chunk_size, left_chunks);
+      static_cast<bf16*>(dqv), h, t, scale, chunk_size, left_chunks, drop);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int blocks_per_sm() {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dq_kernel<DH>, kThreadsFwd, configure<DH>());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dq_kernel<DH, false>, kThreadsFwd,
+                                                configure<DH>());
   return n;
 }
 
@@ -1457,20 +1531,25 @@ int launch_rel_flash_bwd(const void* qu, const void* qv, const void* k, const vo
 }  // namespace espnet
 
 // dtype: 0 = float32, 1 = bfloat16. q_u, q_v, k, v, out: [B, H, T, Dh];
-// p: [H, 2T, Dh]; lengths: int32 [B]; lse: fp32 [B, H, T].
-// Returns a cudaError_t code (0 = launched).
+// p: [H, 2T, Dh]; lengths: int32 [B]; lse: fp32 [B, H, T]. seed: int32 [1]
+// on the device, or null for no dropout (bf16 at Dh 32 / 64 only); thr =
+// floor(rate * 2^16), inv = 1 / (1 - rate). Returns a cudaError_t code (0 =
+// launched).
 extern "C" int espnet_rel_flash_fwd(int dtype, const void* qu, const void* qv, const void* k,
                                     const void* v, const void* p, const int* lengths, void* out,
                                     float* lse, int b, int h, int t, int dh, float scale,
-                                    int chunk_size, int left_chunks, void* stream) {
+                                    int chunk_size, int left_chunks, const int* seed,
+                                    unsigned thr, float inv, void* stream) {
   if (b <= 0 || h <= 0 || t <= 0 || dh % 16 || (long)b * h > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && (dh == 64 || dh == 32)) {
     const auto fwd = dh == 64 ? espnet::rel_fwd::launch<64> : espnet::rel_fwd::launch<32>;
-    return fwd(qu, qv, k, v, p, lengths, out, lse, b, h, t, scale, chunk_size, left_chunks, s);
+    return fwd(qu, qv, k, v, p, lengths, out, lse, b, h, t, scale, chunk_size, left_chunks,
+               {seed, thr, inv}, s);
   }
+  if (seed) return (int)cudaErrorInvalidValue;  // the WMMA kernel draws no dropout
   if (dtype == 1) {
     return espnet::launch_rel_flash<espnet::bf16, 64, 64>(qu, qv, k, v, p, lengths, out, lse, b, h,
                                                           t, dh, scale, chunk_size, left_chunks, s);
@@ -1484,27 +1563,31 @@ extern "C" int espnet_rel_flash_fwd(int dtype, const void* qu, const void* qv, c
 
 // Backward. dout: [B, H, T, Dh]; lse, delta: fp32 [B, H, T]; dq_u, dq_v, dk,
 // dv: [B, H, T, Dh] (the inputs' type); dp: fp32 [H, 2T, Dh], zeroed by the
-// caller and accumulated into. Returns a cudaError_t code (0 = launched).
+// caller and accumulated into. seed, thr, inv: the forward's dropout.
+// Returns a cudaError_t code (0 = launched).
 extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, const void* k,
                                     const void* v, const void* p, const int* lengths,
                                     const void* dout, const float* lse, const float* delta,
                                     void* dqu, void* dqv, void* dk, void* dv, float* dp, int b,
                                     int h, int t, int dh, float scale, int chunk_size,
-                                    int left_chunks, void* stream) {
+                                    int left_chunks, const int* seed, unsigned thr, float inv,
+                                    void* stream) {
   if (b <= 0 || h <= 0 || t <= 0 || dh % 16 || (long)b * h > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
+  const espnet::philox::Dropout drop{seed, thr, inv};
   if (dtype == 1 && (dh == 64 || dh == 32)) {
     const auto dkv = dh == 64 ? espnet::rel_dkv::launch<64> : espnet::rel_dkv::launch<32>;
     const auto dq = dh == 64 ? espnet::rel_dq::launch<64> : espnet::rel_dq::launch<32>;
     if (int err = dkv(qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, b, h, t, scale,
-                      chunk_size, left_chunks, s)) {
+                      chunk_size, left_chunks, drop, s)) {
       return err;
     }
     return dq(qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, b, h, t, scale, chunk_size,
-              left_chunks, s);
+              left_chunks, drop, s);
   }
+  if (seed) return (int)cudaErrorInvalidValue;  // the WMMA kernels draw no dropout
   if (dtype == 1) {
     return espnet::launch_rel_flash_bwd<espnet::bf16, 32, 32>(
         qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, dk, dv, dp, b, h, t, dh, scale,

@@ -89,7 +89,8 @@ def build_encoder(cfg: ASRConfig) -> ConformerEncoder:
         cfg.frontend.n_mels, cfg.d_model, cfg.n_head, cfg.d_ff,
         cfg.num_encoder_blocks, cfg.kernel_size, chunk_size=cfg.chunk_size,
         left_chunks=cfg.left_chunks, flash=cfg.flash_attention,
-        subsampling_factor=cfg.subsampling_factor, fused_conv=cfg.fused_conv)
+        subsampling_factor=cfg.subsampling_factor, fused_conv=cfg.fused_conv,
+        dropout_rate=cfg.dropout_rate)
 
 
 def encode_speech(cfg: ASRConfig, encoder: ConformerEncoder,
@@ -97,8 +98,9 @@ def encode_speech(cfg: ASRConfig, encoder: ConformerEncoder,
                   mvn_stats=None, train: bool = False,
                   generator: Optional[torch.Generator] = None):
     """Frontend -> SpecAug (when ``train`` with ``cfg.specaug`` and a
-    ``generator``) -> MVN -> ``encoder``, in ``cfg.dtype``: the encode of
-    every model built on the ASR stack."""
+    ``generator``) -> MVN -> ``encoder`` (with ``train``, dropout at
+    ``cfg.dropout_rate`` drawn from ``generator``), in ``cfg.dtype``: the
+    encode of every model built on the ASR stack."""
     feats, feat_lengths = default_frontend(speech, speech_lengths,
                                            cfg.frontend)
     if train and cfg.specaug is not None and generator is not None:
@@ -107,7 +109,7 @@ def encode_speech(cfg: ASRConfig, encoder: ConformerEncoder,
         feats = global_mvn(feats, feat_lengths, *mvn_stats)
     elif cfg.use_mvn == "utterance":
         feats = utterance_mvn(feats, feat_lengths)
-    return encoder(feats.to(cfg.torch_dtype), feat_lengths)
+    return encoder(feats.to(cfg.torch_dtype), feat_lengths, train, generator)
 
 
 def add_sos_eos(ys: torch.Tensor, ys_lengths: torch.Tensor, sos: int,
@@ -173,7 +175,8 @@ class ASRModel(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Raw waveform [B, N] -> (hs [B, T', D], h_lengths [B]). With
         ``train``, ``cfg.specaug`` and a ``generator`` the features are
-        augmented (every draw from the generator)."""
+        augmented, and with ``train`` the encoder drops at
+        ``cfg.dropout_rate`` (every draw from the generator)."""
         return encode_speech(self.cfg, self.encoder, speech, speech_lengths,
                              mvn_stats, train, generator)
 
@@ -200,13 +203,10 @@ class ASRModel(nn.Module):
                 mvn_stats=None):
         """Training forward -> (loss, stats) with loss_ctc, loss_att, acc,
         loss: ctc_weight * CTC + (1 - ctc_weight) * label-smoothed CE.
-        ``generator`` draws SpecAug's masks when ``train``."""
+        ``generator`` draws SpecAug's masks and the encoder's dropout (its
+        kernels' seeds) when ``train``. The decoder takes no dropout, as the
+        reference's (ROADMAP.md queue 3)."""
         c = self.cfg
-        if train and c.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "ASRModel: training with dropout needs the dropout kernels "
-                "(in-kernel Philox for K2/K3), which come with the next "
-                "training slice; use dropout_rate=0.0")
         if c.interctc_weight > 0.0:
             raise NotImplementedError("ASRModel: interCTC is not ported yet")
         hs, h_lengths = self.encode(speech, speech_lengths, mvn_stats,

@@ -1,50 +1,75 @@
 """Conformer encoder. Port of espnet_slurp_tpu/models/conformer.py.
 
-Macaron FFN halves (kernel K2), rel-pos MHSA (kernel K3), a depthwise conv
-module with LayerNorm (with ``fused_conv``, kernel K6), and Conv2d
-subsampling. Unlike the reference's TPU path, T' is not padded to a tile
+Macaron FFN halves (kernel K2 where it takes the widths), rel-pos MHSA
+(kernel K3), a depthwise conv module with LayerNorm (with ``fused_conv``,
+kernel K6), and Conv2d subsampling. Unlike the reference's TPU path, T' is not padded to a tile
 multiple: the kernels mask the ragged edge. ``fused_conv`` is the port's
 form of the reference's ``ESPNET_TPU_FUSED_CONV=1`` (models/conformer.py:
 184-191): off by default, and in effect only on the kernel path
 (``flash != "off"``). MoE, interCTC, self-conditioning, stochastic depth,
-BatchNorm and remat wait for later slices.
+BatchNorm and remat wait for later slices. Dropout (``dropout_rate``, when
+``train``) acts where the reference's does: on the FFN hidden (in K2 or
+after the eager swish) and on the attention probabilities (in K3 or on the
+eager softmax); each kernel call draws its seed from the generator passed
+down from the model.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv_module import fused_conv_module
-from ..ops.kernels.ffn import fused_ffn
+from ..ops.kernels.ffn import fused_ffn, fused_ffn_takes
+from ..ops.kernels.philox import draw_seed
 from ..ops.masks import attention_bias, chunk_mask, length_mask
 from .attention import RelPosMultiHeadAttention
 from .embedding import Conv2dSubsampling, rel_positional_embedding
-from .layers import Conv1d, LayerNorm, Linear
+from .layers import Conv1d, LayerNorm, Linear, dropout
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default epsilon
 
 
 class FeedForward(nn.Module):
-    """swish(x W1 + b1) W2 + b2; with ``use_flash`` through kernel K2."""
+    """dropout(swish(x W1 + b1)) W2 + b2; with ``use_flash`` through kernel
+    K2 where it takes the shape (on the CPU: always, its plain version),
+    else eager Linear -> silu -> dropout -> Linear. The route is decided
+    from the shape before any launch, as the reference's 128-multiple rule
+    (espnet_slurp_tpu/models/conformer.py:40-42) is; K2 masks ragged rows
+    itself, so the rule here is the widths its launches take."""
 
-    def __init__(self, d_model: int, d_ff: int, use_flash: bool = False):
+    def __init__(self, d_model: int, d_ff: int, use_flash: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
-        self.use_flash = use_flash
+        self.use_flash, self.dropout_rate = use_flash, dropout_rate
         self.w1 = Linear(d_model, d_ff)
         self.w2 = Linear(d_ff, d_model)
 
-    def forward(self, x):
-        if self.use_flash:
+    def _takes_kernel(self, x) -> bool:
+        if not self.use_flash:
+            return False
+        if x.device.type == "cpu":
+            return True
+        d, f = self.w1.in_features, self.w1.out_features
+        return fused_ffn_takes(x.numel() // d, d, f, self.w2.out_features,
+                               x.dtype)
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        rate = self.dropout_rate if train else 0.0
+        if self._takes_kernel(x):
             # The kernel takes the reference's [in, out] weight layout, in
             # the compute dtype; the fp32 parameters get fp32 gradients.
             wt = lambda w: w.t().to(x.dtype).contiguous()
+            seed = draw_seed(generator, x.device) if rate > 0.0 else None
             return fused_ffn(
                 x.contiguous(), wt(self.w1.weight), self.w1.bias.float(),
-                wt(self.w2.weight), self.w2.bias.float())
-        return self.w2(F.silu(self.w1(x)))
+                wt(self.w2.weight), self.w2.bias.float(), seed,
+                dropout_rate=rate)
+        return self.w2(dropout(F.silu(self.w1(x)), rate, generator))
 
 
 class ConvModule(nn.Module):
@@ -91,28 +116,33 @@ class ConformerBlock(nn.Module):
     def __init__(self, d_model: int, n_head: int, d_ff: int,
                  kernel_size: int = 31, causal_conv: bool = False,
                  use_flash: bool = False, chunk_size: int = 0,
-                 left_chunks: int = -1, fused_conv: bool = False):
+                 left_chunks: int = -1, fused_conv: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         ln = lambda: LayerNorm(d_model, eps=LN_EPS)
         self.norm_ff1 = ln()
-        self.ff1 = FeedForward(d_model, d_ff, use_flash)
+        self.ff1 = FeedForward(d_model, d_ff, use_flash, dropout_rate)
         self.norm_mha = ln()
-        self.self_attn = RelPosMultiHeadAttention(n_head, d_model, use_flash)
+        self.self_attn = RelPosMultiHeadAttention(n_head, d_model, use_flash,
+                                                  dropout_rate)
         self.norm_conv = ln()
         self.conv = ConvModule(d_model, kernel_size, causal_conv,
                                fused=fused_conv and use_flash)
         self.norm_ff2 = ln()
-        self.ff2 = FeedForward(d_model, d_ff, use_flash)
+        self.ff2 = FeedForward(d_model, d_ff, use_flash, dropout_rate)
         self.norm_final = ln()
 
-    def forward(self, x, pos_emb, mask_bias, pad_mask, lengths=None):
-        x = x + 0.5 * self.ff1(self.norm_ff1(x))
+    def forward(self, x, pos_emb, mask_bias, pad_mask, lengths=None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x + 0.5 * self.ff1(self.norm_ff1(x), train, generator)
         x = x + self.self_attn(self.norm_mha(x), pos_emb, mask_bias,
                                lengths=lengths, chunk_size=self.chunk_size,
-                               left_chunks=self.left_chunks)
+                               left_chunks=self.left_chunks, train=train,
+                               generator=generator)
         x = x + self.conv(self.norm_conv(x), pad_mask, lengths)
-        x = x + 0.5 * self.ff2(self.norm_ff2(x))
+        x = x + 0.5 * self.ff2(self.norm_ff2(x), train, generator)
         return self.norm_final(x)
 
 
@@ -124,13 +154,16 @@ class ConformerEncoder(nn.Module):
     FFNs and attention through kernels K2/K3 (whose plain versions run on
     the CPU); "off" takes the eager paths with an additive mask bias.
     ``fused_conv`` (kernel path only) runs each conv module through K6.
+    With ``train`` the FFN hiddens and attention probabilities take
+    ``dropout_rate``'s dropout, drawn from ``generator``.
     """
 
     def __init__(self, idim: int, d_model: int = 256, n_head: int = 4,
                  d_ff: int = 2048, num_blocks: int = 12,
                  kernel_size: int = 31, chunk_size: int = 0,
                  left_chunks: int = -1, flash: str = "auto",
-                 subsampling_factor: int = 4, fused_conv: bool = False):
+                 subsampling_factor: int = 4, fused_conv: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if flash not in ("auto", "on", "off"):
             raise ValueError(f"flash must be auto|on|off, got {flash!r}")
@@ -144,10 +177,11 @@ class ConformerEncoder(nn.Module):
                 d_model, n_head, d_ff, kernel_size,
                 causal_conv=chunk_size > 0, use_flash=self.use_flash,
                 chunk_size=chunk_size, left_chunks=left_chunks,
-                fused_conv=fused_conv))
+                fused_conv=fused_conv, dropout_rate=dropout_rate))
         self.after_norm = LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, feats, feat_lengths):
+    def forward(self, feats, feat_lengths, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         x = self.embed(feats)
         olens = Conv2dSubsampling.out_length(feat_lengths,
                                              self.subsampling_factor)
@@ -164,6 +198,7 @@ class ConformerEncoder(nn.Module):
             bias = attention_bias(att_mask)
         for i in range(self.num_blocks):
             x = getattr(self, f"block_{i}")(x, pos_emb, bias, pad,
-                                            lengths=olens)
+                                            lengths=olens, train=train,
+                                            generator=generator)
         x = self.after_norm(x)
         return torch.where(pad[..., None], x, torch.zeros_like(x)), olens

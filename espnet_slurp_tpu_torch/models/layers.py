@@ -6,8 +6,13 @@ used, and Adam updates fp32 master weights. These subclasses do the same:
 the parameters stay as they were built (fp32), and each call casts them to
 the input's dtype. ``LayerNorm`` matches flax's: statistics in fp32, output
 in the input's dtype. The state_dict keys are torch's own.
+
+``dropout`` is the eager dropout that the attention and FFN modules share
+on the routes that do not run a kernel (flax's nn.Dropout).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,3 +46,14 @@ class LayerNorm(nn.LayerNorm):
                             _cast(self.weight, torch.float32),
                             _cast(self.bias, torch.float32),
                             self.eps).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x / (1 - rate) where a uniform draw from ``generator`` (on x's
+    device) is at least ``rate``, else 0, as flax's nn.Dropout; x itself at
+    rate 0. Autograd keeps the mask for the backward."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

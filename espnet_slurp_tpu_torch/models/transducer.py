@@ -9,7 +9,7 @@ through kernel K1) and the time-synchronous greedy decode. The model's
 ``train/state.py:make_train_step`` drives it unchanged. Parameters are fp32
 and every layer computes in ``cfg.asr.dtype``, as the flax modules do; the
 LSTM's cell state stays fp32 (flax's ``nn.RNN`` carry). The TCPGen branch
-of the reference's loss (:168-186) and training at dropout > 0 raise.
+of the reference's loss (:168-186) raises.
 """
 from __future__ import annotations
 
@@ -43,13 +43,11 @@ class TransducerConfig:
 def transducer_flagship_config() -> TransducerConfig:
     """conf/train_transducer.yaml: a 12 x 256 Conformer (4 heads, d_ff 1024,
     kernel 31), a 1 x 256 LSTM prediction network, joint 256, BPE vocab 600,
-    auxiliary CTC 0.3, bf16 compute. Dropout is 0, not the yaml's 0.1:
-    training at dropout > 0 raises until the dropout kernels (in-kernel
-    Philox for K2/K3) land."""
+    auxiliary CTC 0.3, the yaml's dropout 0.1 (:15), bf16 compute."""
     return TransducerConfig(
         asr=ASRConfig(vocab_size=600, d_model=256, n_head=4, d_ff=1024,
                       num_encoder_blocks=12, kernel_size=31,
-                      dropout_rate=0.0, ctc_weight=0.0, dtype="bfloat16"),
+                      dropout_rate=0.1, ctc_weight=0.0, dtype="bfloat16"),
         prediction="lstm", pred_layers=1, pred_dim=256, joint_dim=256,
         aux_ctc_weight=0.3)
 
@@ -203,13 +201,9 @@ class TransducerModel(nn.Module):
                 mvn_stats=None):
         """Training forward -> (loss, stats) with loss_transducer, loss_ctc
         (when aux_ctc_weight > 0) and loss = RNN-T + aux_ctc_weight * CTC.
-        ``generator`` draws SpecAug's masks when ``train``."""
+        ``generator`` draws SpecAug's masks and the encoder's dropout when
+        ``train``."""
         a = self.cfg.asr
-        if train and a.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "TransducerModel: training with dropout needs the dropout "
-                "kernels (in-kernel Philox for K2/K3), which come with the "
-                "next training slice; use dropout_rate=0.0")
         hs, h_lengths = self.encode(speech, speech_lengths, mvn_stats,
                                     train=train, generator=generator)
         labels = text.clamp_min(0).long()

@@ -94,25 +94,27 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's C signature set."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    u = ctypes.c_uint
     lib.espnet_fused_ffn_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i,
-                                         p]
+                                         p, u, f, p]
     lib.espnet_fused_ffn_fwd.restype = i
     lib.espnet_fused_ffn_fwd_splits.argtypes = [i, i, i, i]
     lib.espnet_fused_ffn_fwd_splits.restype = i
+    lib.espnet_fused_ffn_takes.argtypes = [i, i, i, i, i]
+    lib.espnet_fused_ffn_takes.restype = i
     lib.espnet_fused_ffn_fwd_blocks_per_sm.argtypes = [i, i]
     lib.espnet_fused_ffn_fwd_blocks_per_sm.restype = i
-    lib.espnet_fused_ffn_f_multiple.argtypes = [i]
-    lib.espnet_fused_ffn_f_multiple.restype = i
     lib.espnet_rel_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i,
-                                         f, i, i, p]
+                                         f, i, i, p, u, f, p]
     lib.espnet_rel_flash_fwd.restype = i
     lib.espnet_fused_ffn_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, p]
+                                         i, i, i, i, i, p, u, f, p]
     lib.espnet_fused_ffn_bwd.restype = i
     lib.espnet_fused_ffn_bwd_row_tile.argtypes = []
     lib.espnet_fused_ffn_bwd_row_tile.restype = i
     lib.espnet_rel_flash_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p,
-                                         p, p, p, i, i, i, i, f, i, i, p]
+                                         p, p, p, i, i, i, i, f, i, i, p, u, f,
+                                         p]
     lib.espnet_rel_flash_bwd.restype = i
     lib.espnet_rel_flash_dkv_blocks_per_sm.argtypes = [i]
     lib.espnet_rel_flash_dkv_blocks_per_sm.restype = i
@@ -141,6 +143,10 @@ def library() -> ctypes.CDLL:
     lib.espnet_conv_module_bwd.restype = i
     lib.espnet_conv_module_rows_tile.argtypes = [i]
     lib.espnet_conv_module_rows_tile.restype = i
+    lib.espnet_philox4x32_10.argtypes = [p, p, i, p]
+    lib.espnet_philox4x32_10.restype = i
+    lib.espnet_philox_keep_mask.argtypes = [p, u, i, i, i, p, p]
+    lib.espnet_philox_keep_mask.restype = i
     lib.espnet_error_string.argtypes = [i]
     lib.espnet_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,7 @@
 """Fused position-wise feed-forward (kernel K2), forward and backward.
 
-Port of espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn. On a CUDA tensor the
+dropout(swish(x W1 + b1)) W2 + b2. Port of
+espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn. On a CUDA tensor the
 wrapper is a ``torch.autograd.Function`` that launches the hand-written
 kernels in ``csrc/ffn.cu``: the forward, which writes no [N, d_ff] hidden to
 device memory (the autograd context keeps only the inputs), and a backward.
@@ -12,29 +13,52 @@ In bf16 the forward keeps the hidden tile, its swish and the output
 accumulator in registers (``ffn_fwd::fwd_kernel``) and takes D2 of 32, 64,
 128 or 256. On a CPU tensor the wrapper runs ``fused_ffn_plain``, the same
 function in plain PyTorch, whose gradients are PyTorch's autograd. There is
-no other route: a CUDA tensor the kernel does not take raises.
+no other route: a CUDA tensor the kernel does not take raises;
+``fused_ffn_takes`` says beforehand whether it takes a shape.
+
+Dropout: the bf16 launches (the forward and the backward's ``rows``) draw
+the keep mask of hidden element (n, f) in the kernel from Philox4x32-10
+(csrc/philox.cuh) under a seed read from device memory, so the backward
+regenerates the forward's mask; the plain versions take the same mask from
+ops/kernels/philox.py. The fp32 launches refuse a rate above 0.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, philox
+
+
+def _keep(x, f, seed, dropout_rate, keep):
+    """The [..., F] keep mask of the hidden: ``keep`` when given, else the
+    kernels' Philox mask of (seed, row, column)."""
+    if keep is None:
+        keep = philox.keep_mask(seed, dropout_rate, x.numel() // x.shape[-1],
+                                f)
+    return keep.reshape(*x.shape[:-1], f)
 
 
 def fused_ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """swish(x @ w1 + b1) @ w2 + b2 in fp32, with the hidden rounded to
-    x.dtype before the second product, as the kernel does."""
-    h = F.silu(x.float() @ w1.float() + b1.float()).to(x.dtype)
+                    w2: torch.Tensor, b2: torch.Tensor, seed=None, *,
+                    dropout_rate: float = 0.0,
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout(swish(x @ w1 + b1)) @ w2 + b2 in fp32, with the hidden
+    rounded to x.dtype before the second product, as the kernel does. At a
+    rate above 0 the hidden is scaled by 1 / (1 - rate) where ``keep``
+    ([..., F] bool; by default the kernels' mask of ``seed``) holds and
+    zeroed elsewhere, before the rounding."""
+    h = F.silu(x.float() @ w1.float() + b1.float())
+    if dropout_rate > 0.0:
+        h = philox.apply_keep(h, _keep(x, h.shape[-1], seed, dropout_rate,
+                                       keep), dropout_rate)
+    h = h.to(x.dtype)
     return (h.float() @ w2.float() + b2.float()).to(x.dtype)
 
 
-def _check(x, w1, b1, w2, b2, dropout_rate):
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "fused_ffn: dropout in the kernel (Philox, forward and backward) "
-            "comes with the next training slice; train at dropout_rate 0")
+def _check(x, w1, b1, w2, b2):
     d = x.shape[-1]
     if w1.ndim != 2 or w1.shape[0] != d:
         raise ValueError(f"fused_ffn: w1 {tuple(w1.shape)} does not match "
@@ -56,20 +80,30 @@ def _check(x, w1, b1, w2, b2, dropout_rate):
 
 
 def fused_ffn_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                        w2: torch.Tensor, g: torch.Tensor):
+                        w2: torch.Tensor, g: torch.Tensor, seed=None, *,
+                        dropout_rate: float = 0.0,
+                        keep: Optional[torch.Tensor] = None):
     """The backward of fused_ffn at the kernel's rounding points: (dx, dW1,
     db1, dW2, db2) for the output cotangent g [..., D2] (x.dtype).
 
     As espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel: products in fp32 of
-    x.dtype operands; the hidden hd and ds rounded to x.dtype before the
-    products that take them; db1 summed from the unrounded ds; dx, dW1 and
-    dW2 returned in x.dtype, the bias gradients in fp32."""
+    x.dtype operands; the hidden hd (dropped: scaled by 1 / (1 - rate)
+    where kept, else 0) and ds rounded to x.dtype before the products that
+    take them, dh = g W2^T masked and scaled the same way before the swish
+    derivative; db1 summed from the unrounded ds; dx, dW1 and dW2 returned
+    in x.dtype, the bias gradients in fp32. ``seed``, ``dropout_rate`` and
+    ``keep`` as in fused_ffn_plain."""
     d = x.shape[-1]
     xf, gf = x.reshape(-1, d).float(), g.reshape(-1, g.shape[-1]).float()
     s = xf @ w1.float() + b1.float()
     sig = torch.sigmoid(s)
-    hd = (s * sig).to(x.dtype).float()
-    ds = (gf @ w2.float().t()) * (sig * (1.0 + s * (1.0 - sig)))
+    h, dh = s * sig, gf @ w2.float().t()
+    if dropout_rate > 0.0:
+        k = _keep(xf, s.shape[-1], seed, dropout_rate, keep)
+        h = philox.apply_keep(h, k, dropout_rate)
+        dh = philox.apply_keep(dh, k, dropout_rate)
+    hd = h.to(x.dtype).float()
+    ds = dh * (sig * (1.0 + s * (1.0 - sig)))
     ds_c = ds.to(x.dtype).float()
     dx = (ds_c @ w1.float().t()).to(x.dtype).reshape(x.shape)
     return (dx, (xf.t() @ ds_c).to(w1.dtype), ds.sum(0),
@@ -85,7 +119,7 @@ BF16_DW_SPLITS = 8
 BF16_D2 = (32, 64, 128, 256)
 
 
-def _launch_fwd(x, w1, b1, w2, b2):
+def _launch_fwd(x, w1, b1, w2, b2, seed=None, rate=0.0):
     lib = build.library()
     d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
     n = x.numel() // d
@@ -104,12 +138,12 @@ def _launch_fwd(x, w1, b1, w2, b2):
         build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), nsplit, n, d, f, d2,
-        build.stream_ptr(x)), "fused_ffn")
+        *philox.launch_args(seed, rate), build.stream_ptr(x)), "fused_ffn")
     fused_ffn.launches += 1
     return out
 
 
-def _launch_bwd(x, w1, b1, w2, g):
+def _launch_bwd(x, w1, b1, w2, g, seed=None, rate=0.0):
     d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
     n = x.numel() // d
     dev = x.device
@@ -139,7 +173,8 @@ def _launch_bwd(x, w1, b1, w2, g):
         build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(), *scratch,
         dw1p.data_ptr(), db1p.data_ptr(), dw2p.data_ptr(), db2p.data_ptr(),
-        nsplit, n, d, f, d2, build.stream_ptr(x)), "fused_ffn backward")
+        nsplit, n, d, f, d2, *philox.launch_args(seed, rate),
+        build.stream_ptr(x)), "fused_ffn backward")
     fused_ffn.bwd_launches += 1
     # dW back in the weights' dtype, as the reference returns them.
     return (dx, dw1p.sum(0).to(w1.dtype), db1p.sum(0),
@@ -148,49 +183,64 @@ def _launch_bwd(x, w1, b1, w2, g):
 
 class _FusedFfn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2)
-        return _launch_fwd(x, w1, b1, w2, b2)
+    def forward(ctx, x, w1, b1, w2, b2, seed, rate):
+        ctx.save_for_backward(x, w1, b1, w2, seed)
+        ctx.rate = rate
+        return _launch_fwd(x, w1, b1, w2, b2, seed, rate)
 
     @staticmethod
     def backward(ctx, g):
-        x, w1, b1, w2 = ctx.saved_tensors
-        return _launch_bwd(x, w1, b1, w2, g.to(x.dtype).contiguous())
+        x, w1, b1, w2, seed = ctx.saved_tensors
+        return (*_launch_bwd(x, w1, b1, w2, g.to(x.dtype).contiguous(), seed,
+                             ctx.rate), None, None)
+
+
+def fused_ffn_takes(n: int, d: int, f: int, d2: int,
+                    dtype: torch.dtype) -> bool:
+    """Whether both directions' launches on the card take N rows of widths
+    D, F, D2 in ``dtype`` (the bf16 forward's output widths, every launch's
+    multiples, the shared memory of the fp32 launches): the shape route of
+    models/conformer.py:FeedForward, asked of the built library."""
+    if dtype not in build.DTYPE_CODES:
+        return False
+    return bool(build.library().espnet_fused_ffn_takes(
+        build.DTYPE_CODES[dtype], max(1, n), d, f, d2))
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, seed=None, *,
               dropout_rate: float = 0.0) -> torch.Tensor:
-    """swish(x @ w1 + b1) @ w2 + b2 without a device-memory hidden.
+    """dropout(swish(x @ w1 + b1)) @ w2 + b2 without a device-memory hidden.
 
     x: [..., D]; w1: [D, F]; b1: float32 [F]; w2: [F, D2]; b2: float32 [D2].
     x, w1, w2 are float32 or bfloat16 (fp32 accumulation). Any number of
     rows. Returns [..., D2] in x.dtype, differentiable in every argument
-    (on the card through the backward kernels). ``seed`` and
-    ``dropout_rate`` keep the reference's signature; a rate above 0 raises
-    until the dropout kernels land.
+    (on the card through the backward kernels). ``seed`` (int32 [1] on x's
+    device; zeros when None, as the reference) and ``dropout_rate`` (in [0,
+    1)) keep the reference's signature; on the card a rate above 0 takes
+    the bf16 launches and raises NotImplementedError in fp32.
     """
-    _check(x, w1, b1, w2, b2, dropout_rate)
+    rate = float(dropout_rate)
+    seed = philox.checked_seed(seed, rate, x.device, "fused_ffn")
+    _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
-        return fused_ffn_plain(x, w1, b1, w2, b2)
+        return fused_ffn_plain(x, w1, b1, w2, b2, seed, dropout_rate=rate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn: unsupported device {x.device}")
-    lib = build.library()
-    code = build.DTYPE_CODES[x.dtype]
+    if rate > 0.0 and x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "fused_ffn: dropout in the fp32 launches is not ported "
+            f"({philox.DROPOUT_ITEM}); train in bfloat16 or at dropout_rate 0")
     d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
-    f_mult = lib.espnet_fused_ffn_f_multiple(code)
-    if d % 16 or d2 % 16 or f % f_mult:
-        raise ValueError(f"fused_ffn kernel: needs D, D2 % 16 == 0 and "
-                         f"F % {f_mult} == 0, got D={d} F={f} D2={d2}")
-    if x.dtype == torch.bfloat16 and not lib.espnet_fused_ffn_fwd_splits(
-            max(1, x.numel() // d), d, f, d2):
-        raise ValueError(f"fused_ffn bf16 kernel: needs D2 in {BF16_D2} "
-                         f"and its tiles in shared memory, got D={d} "
-                         f"D2={d2}")
+    if not fused_ffn_takes(x.numel() // d, d, f, d2, x.dtype):
+        raise ValueError(
+            f"fused_ffn kernel: does not take D={d} F={f} D2={d2} in "
+            f"{x.dtype} (D, D2 % 16 == 0; F % 64 == 0 and D2 in {BF16_D2} "
+            "in bf16; F % 32 == 0 and the tiles in shared memory in fp32)")
     for name, t in (("x", x), ("w1", w1), ("w2", w2), ("b1", b1),
                     ("b2", b2)):
         build.check_aligned(name, t)
-    return _FusedFfn.apply(x, w1, b1, w2, b2)
+    return _FusedFfn.apply(x, w1, b1, w2, b2, seed, rate)
 
 
 fused_ffn.launches = 0

@@ -13,14 +13,22 @@ PyTorch, whose gradients are PyTorch's autograd. A CUDA tensor the kernel
 does not take raises. ``rel_flash_attention_fwd_tiled_plain`` and
 ``rel_flash_attention_bwd_plain`` are the forward and the backward at the
 kernels' rounding points.
+
+Dropout on the probabilities: the three bf16 launches at Dh 32 / 64 draw
+the keep mask of (b * H + h, query, key) in the kernel from Philox4x32-10
+(csrc/philox.cuh) under a seed read from device memory, so the backward
+regenerates the forward's mask; the forward drops P after adding it into
+the softmax's normaliser, so lse is the undropped one. The plain versions
+take the same mask from ops/kernels/philox.py. The WMMA launches (fp32,
+other Dh) refuse a rate above 0.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, philox
 
 NEG = -1e30
 # Key tile of the bf16 forward kernel at Dh 32 and 64
@@ -51,13 +59,27 @@ def rel_shift_index(t: int, device) -> torch.Tensor:
     return (t - 1) - ar[:, None] + ar[None, :]
 
 
-def rel_flash_attention_plain(q_u, q_v, k, v, p, lengths, *, scale: float,
+def dropout_keep(seed, dropout_rate: float, b: int, h: int, t: int,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, H, T, T] keep mask of the probabilities: ``keep`` when given,
+    else the kernels' Philox mask of (seed, b * H + h, query, key)."""
+    if keep is None:
+        keep = philox.keep_mask(seed, dropout_rate, t, t, planes=b * h)
+    return keep.reshape(b, h, t, t)
+
+
+def rel_flash_attention_plain(q_u, q_v, k, v, p, lengths, seed=None, *,
+                              scale: float, dropout_rate: float = 0.0,
+                              keep: Optional[torch.Tensor] = None,
                               chunk_size: int = 0, left_chunks: int = -1
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (out [B,H,T,Dh], lse [B,H,T]).
 
-    Scores and softmax in fp32; the probabilities are rounded to v.dtype
-    before the value product, as the kernel does."""
+    Scores and softmax in fp32; at a rate above 0 the probabilities are
+    scaled by 1 / (1 - rate) where ``keep`` ([B, H, T, T] bool; by default
+    the kernels' mask of ``seed``) holds and zeroed elsewhere (lse stays
+    the undropped one); they are rounded to v.dtype before the value
+    product, as the kernel does."""
     b, h, t, dh = q_u.shape
     ac = q_u.float() @ k.float().transpose(-1, -2)
     raw = q_v.float() @ p[:, : 2 * t - 1].float().transpose(-1, -2)
@@ -65,12 +87,20 @@ def rel_flash_attention_plain(q_u, q_v, k, v, p, lengths, *, scale: float,
     s = (ac + bd) * scale
     s = s.masked_fill(~allowed_mask(t, lengths, chunk_size, left_chunks), NEG)
     lse = torch.logsumexp(s, dim=-1)
-    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    probs = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0:
+        probs = philox.apply_keep(
+            probs, dropout_keep(seed, dropout_rate, b, h, t, keep),
+            dropout_rate)
+    probs = probs.to(v.dtype)
     return (probs.float() @ v.float()).to(q_u.dtype), lse
 
 
-def rel_flash_attention_fwd_tiled_plain(q_u, q_v, k, v, p, lengths, *,
-                                        scale: float, chunk_size: int = 0,
+def rel_flash_attention_fwd_tiled_plain(q_u, q_v, k, v, p, lengths,
+                                        seed=None, *, scale: float,
+                                        dropout_rate: float = 0.0,
+                                        keep: Optional[torch.Tensor] = None,
+                                        chunk_size: int = 0,
                                         left_chunks: int = -1,
                                         block_k: int = FWD_BLOCK_K
                                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,6 +110,7 @@ def rel_flash_attention_fwd_tiled_plain(q_u, q_v, k, v, p, lengths, *,
     in fp32 from q_u.dtype operands, masked scores NEG, then an online
     softmax over key tiles of ``block_k`` (the running max starts at NEG;
     key columns past T are no part of any tile) with exp(s - m_running)
+    added into l, then dropped as in rel_flash_attention_plain, and
     rounded to v.dtype before P v, and l and the output accumulator in
     fp32. Nothing on the main path calls it."""
     b, h, t, dh = q_u.shape
@@ -88,6 +119,8 @@ def rel_flash_attention_fwd_tiled_plain(q_u, q_v, k, v, p, lengths, *,
         -1, rel_shift_index(t, q_u.device).expand(b, h, t, t))
     s = (qu @ kf.transpose(-1, -2) + bd) * scale
     s = s.masked_fill(~allowed_mask(t, lengths, chunk_size, left_chunks), NEG)
+    if dropout_rate > 0.0:
+        keep = dropout_keep(seed, dropout_rate, b, h, t, keep)
     m = torch.full((b, h, t, 1), NEG, device=q_u.device)
     l = torch.zeros(b, h, t, 1, device=q_u.device)
     acc = torch.zeros(b, h, t, dh, device=q_u.device)
@@ -97,15 +130,20 @@ def rel_flash_attention_fwd_tiled_plain(q_u, q_v, k, v, p, lengths, *,
         alpha = torch.exp(m - m_new)
         pt = torch.exp(st - m_new)
         l = l * alpha + pt.sum(-1, keepdim=True)
+        if dropout_rate > 0.0:
+            pt = philox.apply_keep(pt, keep[..., j0:j0 + block_k],
+                                   dropout_rate)
         acc = acc * alpha + pt.to(v.dtype).float() @ vf[..., j0:j0 + block_k, :]
         m = m_new
     l = l.clamp_min(1e-30)
     return (acc / l).to(q_u.dtype), (m + torch.log(l))[..., 0]
 
 
-def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g, *,
-                                  scale: float, chunk_size: int = 0,
-                                  left_chunks: int = -1):
+def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g,
+                                  seed=None, *, scale: float,
+                                  dropout_rate: float = 0.0,
+                                  keep: Optional[torch.Tensor] = None,
+                                  chunk_size: int = 0, left_chunks: int = -1):
     """The backward at the kernels' rounding points: (dq_u, dq_v, dk, dv, dp)
     for the output cotangent g [B, H, T, Dh] (q_u.dtype), given the
     forward's out and lse.
@@ -118,7 +156,10 @@ def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g, *,
     fp32 accumulation, dp summed over the batch; dp returned in p.dtype,
     the rest in q_u.dtype. A query row with no visible key (lse at NEG)
     takes P = 1/T and ds = 0 (the plain autograd's gradient; the reference
-    differs there, ROADMAP.md queue 3). Nothing on the main path calls it."""
+    differs there, ROADMAP.md queue 3). At a rate above 0 (``seed``,
+    ``keep`` as in rel_flash_attention_plain) dv takes the dropped P and dP
+    is masked and scaled the same way before ds; P in ds stays undropped.
+    Nothing on the main path calls it."""
     b, h, t, _ = q_u.shape
     dt = q_u.dtype
     qu, qv, kf, vf, pf, gf = (x.float() for x in (q_u, q_v, k, v, p, g))
@@ -130,11 +171,16 @@ def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g, *,
     prob = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
     prob = torch.where(dead, 1.0 / t, prob)
     delta = (gf * out.float()).sum(-1, keepdim=True)
-    ds = prob * (gf @ vf.transpose(-1, -2) - delta) * scale
+    dprob, pd = gf @ vf.transpose(-1, -2), prob
+    if dropout_rate > 0.0:
+        kp = dropout_keep(seed, dropout_rate, b, h, t, keep)
+        dprob = philox.apply_keep(dprob, kp, dropout_rate)
+        pd = philox.apply_keep(prob, kp, dropout_rate)
+    ds = prob * (dprob - delta) * scale
     ds = torch.where(ok & ~dead, ds, 0.0).to(dt).float()
     rawg = torch.zeros(b, h, t, 2 * t, device=q_u.device).scatter_(-1, idx,
                                                                   ds)
-    dv = prob.to(dt).float().transpose(-1, -2) @ gf
+    dv = pd.to(dt).float().transpose(-1, -2) @ gf
     dp = (rawg.transpose(-1, -2) @ qv).sum(0)
     return ((ds @ kf).to(dt), (rawg @ pf).to(dt),
             (ds.transpose(-1, -2) @ qu).to(dt), dv.to(dt), dp.to(p.dtype))
@@ -166,7 +212,8 @@ def _check(q_u, q_v, k, v, p, lengths):
                          "contiguous")
 
 
-def _launch_fwd(q_u, q_v, k, v, p, lengths, scale, chunk_size, left_chunks):
+def _launch_fwd(q_u, q_v, k, v, p, lengths, scale, chunk_size, left_chunks,
+                seed=None, rate=0.0):
     b, h, t, dh = q_u.shape
     out = torch.empty_like(q_u)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q_u.device)
@@ -174,14 +221,14 @@ def _launch_fwd(q_u, q_v, k, v, p, lengths, scale, chunk_size, left_chunks):
         build.DTYPE_CODES[q_u.dtype], q_u.data_ptr(), q_v.data_ptr(),
         k.data_ptr(), v.data_ptr(), p.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, t, dh, float(scale),
-        int(chunk_size), int(left_chunks), build.stream_ptr(q_u)),
-        "rel_flash_attention")
+        int(chunk_size), int(left_chunks), *philox.launch_args(seed, rate),
+        build.stream_ptr(q_u)), "rel_flash_attention")
     rel_flash_attention_fwd.launches += 1
     return out, lse
 
 
 def _launch_bwd(q_u, q_v, k, v, p, lengths, out, lse, g, scale, chunk_size,
-                left_chunks):
+                left_chunks, seed=None, rate=0.0):
     b, h, t, dh = q_u.shape
     # delta = rowsum(dO * out), outside the kernels as in the reference.
     delta = (g.float() * out.float()).sum(-1).contiguous()
@@ -193,31 +240,39 @@ def _launch_bwd(q_u, q_v, k, v, p, lengths, out, lse, g, scale, chunk_size,
         g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         *(x.data_ptr() for x in grads), dp.data_ptr(), b, h, t, dh,
         float(scale), int(chunk_size), int(left_chunks),
-        build.stream_ptr(q_u)), "rel_flash_attention backward")
+        *philox.launch_args(seed, rate), build.stream_ptr(q_u)),
+        "rel_flash_attention backward")
     rel_flash_attention_fwd.bwd_launches += 1
     return (*grads, dp.to(p.dtype))
 
 
 class _RelFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q_u, q_v, k, v, p, lengths, scale, chunk_size,
-                left_chunks):
+    def forward(ctx, q_u, q_v, k, v, p, lengths, seed, scale, rate,
+                chunk_size, left_chunks):
         out, lse = _launch_fwd(q_u, q_v, k, v, p, lengths, scale,
-                               chunk_size, left_chunks)
-        ctx.save_for_backward(q_u, q_v, k, v, p, lengths, out, lse)
+                               chunk_size, left_chunks, seed, rate)
+        ctx.save_for_backward(q_u, q_v, k, v, p, lengths, out, lse, seed)
         ctx.args = (scale, chunk_size, left_chunks)
+        ctx.rate = rate
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g, _g_lse):
-        q_u, q_v, k, v, p, lengths, out, lse = ctx.saved_tensors
+        q_u, q_v, k, v, p, lengths, out, lse, seed = ctx.saved_tensors
         grads = _launch_bwd(q_u, q_v, k, v, p, lengths, out, lse,
-                            g.to(q_u.dtype).contiguous(), *ctx.args)
-        return (*grads, None, None, None, None)
+                            g.to(q_u.dtype).contiguous(), *ctx.args, seed,
+                            ctx.rate)
+        return (*grads, None, None, None, None, None, None)
 
 
-def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
+# Head widths of the bf16 launches that draw dropout.
+DROPOUT_DH = (32, 64)
+
+
+def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, seed=None, *,
+                            scale: float, dropout_rate: float = 0.0,
                             chunk_size: int = 0, left_chunks: int = -1
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, H, T, Dh], lse fp32 [B, H, T]) for any T.
@@ -227,12 +282,18 @@ def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
     2T-1 unused); lengths: int32 [B] valid keys. Padded query rows hold
     values for a row with the same keys; mask them outside. ``out`` is
     differentiable in q_u, q_v, k, v and p (on the card through the
-    backward kernels; ``lse`` is not)."""
+    backward kernels; ``lse`` is not). ``dropout_rate`` (in [0, 1)) drops
+    the probabilities under ``seed`` (int32 [1] on the inputs' device;
+    zeros when None, as the reference); on the card only the bf16 launches
+    at Dh 32 / 64 take a rate above 0, the others raise
+    NotImplementedError."""
+    rate = float(dropout_rate)
+    seed = philox.checked_seed(seed, rate, q_u.device, "rel_flash_attention")
     _check(q_u, q_v, k, v, p, lengths)
     if q_u.device.type == "cpu":
-        return rel_flash_attention_plain(q_u, q_v, k, v, p, lengths,
-                                         scale=scale, chunk_size=chunk_size,
-                                         left_chunks=left_chunks)
+        return rel_flash_attention_plain(
+            q_u, q_v, k, v, p, lengths, seed, scale=scale, dropout_rate=rate,
+            chunk_size=chunk_size, left_chunks=left_chunks)
     if q_u.device.type != "cuda":
         raise ValueError(f"rel_flash_attention: unsupported device "
                          f"{q_u.device}")
@@ -240,10 +301,15 @@ def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, *, scale: float,
     if dh % 16:
         raise ValueError(f"rel_flash_attention kernel: needs Dh % 16 == 0, "
                          f"got {dh}")
+    if rate > 0.0 and (q_u.dtype != torch.bfloat16 or dh not in DROPOUT_DH):
+        raise NotImplementedError(
+            f"rel_flash_attention: dropout in the WMMA launches ({q_u.dtype},"
+            f" Dh {dh}) is not ported ({philox.DROPOUT_ITEM}); it is drawn "
+            f"in bfloat16 at Dh {DROPOUT_DH}")
     for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
         build.check_aligned(name, x)
-    return _RelFlash.apply(q_u, q_v, k, v, p, lengths, float(scale),
-                           int(chunk_size), int(left_chunks))
+    return _RelFlash.apply(q_u, q_v, k, v, p, lengths, seed, float(scale),
+                           rate, int(chunk_size), int(left_chunks))
 
 
 rel_flash_attention_fwd.launches = 0
@@ -254,13 +320,8 @@ def rel_flash_attention(q_u, q_v, k, v, p, lengths, seed=None, *,
                         scale: float, dropout_rate: float = 0.0,
                         chunk_size: int = 0, left_chunks: int = -1
                         ) -> torch.Tensor:
-    """The reference's signature: returns out [B, H, T, Dh] only. A dropout
-    rate above 0 raises until the dropout kernels land."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "rel_flash_attention: dropout in the kernel (Philox, forward and "
-            "backward) comes with the next training slice; train at "
-            "dropout_rate 0")
-    return rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, scale=scale,
+    """The reference's signature: returns out [B, H, T, Dh] only."""
+    return rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, seed,
+                                   scale=scale, dropout_rate=dropout_rate,
                                    chunk_size=chunk_size,
                                    left_chunks=left_chunks)[0]

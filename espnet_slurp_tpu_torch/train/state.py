@@ -7,9 +7,10 @@ non-finite skip. Here the same step runs eagerly: the model's own
 parameters (fp32 masters; the layers compute in ``cfg.dtype``) are updated
 in place, and ``TrainState`` holds the rest: the step counter, the
 optimizer state, one ``torch.Generator`` on the model's device for SpecAug
-(and, later, dropout), the optional EMA shadow and the divergence guard's
-``lr_scale`` / grad-norm EMA. bf16 compute with fp32 parameters needs no
-GradScaler.
+and dropout (the seed of each K2 / K3 call, the eager routes' masks; a
+step draws them on the device, with no host sync), the optional EMA
+shadow and the divergence guard's ``lr_scale`` / grad-norm EMA. bf16
+compute with fp32 parameters needs no GradScaler.
 
 Semantics kept from the reference:
 - a step whose loss or gradient norm is not finite, or (with

@@ -4,7 +4,9 @@ widths, T shorter than a tile or just past one, Dh 32 to 128, key lengths
 of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
 passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
 for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
-conv module k 3 to 31, SAME and causal, lengths 0, 1 and full.
+conv module k 3 to 31, SAME and causal, lengths 0, 1 and full; for K2's
+and K3's bf16 launches the dropout at rate 0.1 and its Philox mask, and
+the routes that refuse dropout; FeedForward's width route.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -390,6 +392,183 @@ def test_rel_flash_attention_dkv_two_blocks_per_sm(gen):
     assert lib.espnet_rel_flash_dkv_blocks_per_sm(64) >= 2
     assert lib.espnet_rel_flash_dkv_blocks_per_sm(32) >= 2
     assert lib.espnet_rel_flash_dkv_blocks_per_sm(128) == 0
+
+
+# ---- Dropout: the Philox keep mask in K2's and K3's bf16 launches --------
+# Each dropout launch against its plain version with the same seed (the
+# kernels' rounding points, the mask from ops/kernels/philox.py): within
+# BWD_PLAIN_TOL, as at rate 0. The WMMA routes refuse a rate above 0.
+
+DROP_RATE, DROP_SEED = 0.1, 20241017
+
+
+def _drop_seed():
+    return torch.tensor([DROP_SEED], dtype=torch.int32, device="cuda")
+
+
+def test_philox_answer_vectors_on_the_card(gen):
+    """csrc/philox.cuh reproduces Random123's Philox4x32-10 answers."""
+    import numpy as np
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    kat = np.asarray([[0] * 6, [0xFFFFFFFF] * 6,
+                      [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344,
+                       0xA4093822, 0x299F31D0]], np.uint32)
+    want = np.asarray([[0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+                       [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD],
+                       [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]],
+                      np.uint32)
+    ck = torch.from_numpy(kat.view(np.int32)).cuda()
+    out = torch.empty(3, 4, dtype=torch.int32, device="cuda")
+    build.check(build.library().espnet_philox4x32_10(
+        ck.data_ptr(), out.data_ptr(), 3, build.stream_ptr(out)), "philox")
+    assert np.array_equal(out.cpu().numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("planes,rows,cols", [
+    (1, 29952, 1024), (1, 33, 70), (8, 65, 130), (256, 468, 468)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_philox_device_mask_equals_the_torch_mask(gen, planes, rows, cols,
+                                                  rate):
+    """The keep mask the dropout launches draw, written out by the
+    library's test entry, equals ops/kernels/philox.py's bit for bit,
+    ragged rows and columns included."""
+    from espnet_slurp_tpu_torch.ops.kernels import build, philox
+    seed = _drop_seed()
+    dev = torch.empty(planes, rows, cols, dtype=torch.uint8, device="cuda")
+    build.check(build.library().espnet_philox_keep_mask(
+        seed.data_ptr(), philox.threshold(rate), planes, rows, cols,
+        dev.data_ptr(), build.stream_ptr(dev)), "philox keep mask")
+    assert torch.equal(dev.bool(), philox.keep_mask(seed, rate, rows, cols,
+                                                    planes=planes))
+
+
+@pytest.mark.parametrize("n,d,f,d2", [
+    (1, 256, 1024, 256), (129, 128, 256, 128), (4097, 256, 1024, 256),
+    (3768, 256, 1024, 256), (200, 256, 192, 32)])
+def test_fused_ffn_dropout_bf16(gen, n, d, f, d2):
+    """K2's bf16 forward (F split or not) and backward at rate 0.1 against
+    fused_ffn_plain / fused_ffn_bwd_plain with the same seed, each output
+    within BWD_PLAIN_TOL of max |ref| (floored at 1e-3); the wrapper's
+    autograd path launches once each way and agrees with the plain
+    version's autograd within TOL."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    bf = torch.bfloat16
+    args = (r(n, d).to(bf), (r(d, f) * d ** -0.5).to(bf), r(f) * 0.1,
+            (r(f, d2) * f ** -0.5).to(bf), r(d2) * 0.1)
+    g = r(n, d2).to(bf)
+    seed = _drop_seed()
+    kw = dict(dropout_rate=DROP_RATE)
+    out = ffn._launch_fwd(*args, seed, DROP_RATE)
+    x, w1, b1, w2, _ = args
+    grads = ffn._launch_bwd(x, w1, b1, w2, g, seed, DROP_RATE)
+    refs = (ffn.fused_ffn_plain(*args, seed, **kw),
+            *ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed, **kw))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"),
+                          (out, *grads), refs):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b, floor=1e-3) <= BWD_PLAIN_TOL, name
+    before = (ffn.fused_ffn.launches, ffn.fused_ffn.bwd_launches)
+    _check_grads(lambda *a: ffn.fused_ffn(*a, seed, **kw),
+                 lambda *a: ffn.fused_ffn_plain(*a, seed, **kw), args,
+                 g.float(), TOL[bf], ("dx", "dw1", "db1", "dw2", "db2"))
+    assert (ffn.fused_ffn.launches, ffn.fused_ffn.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("t", [1, 65, 129, 468])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 4)])
+def test_rel_flash_attention_dropout_bf16(gen, t, dh, chunk):
+    """K3's three bf16 launches at rate 0.1 (key lengths t, t - 7, 0 and
+    -1: fully masked rows included) against rel_flash_attention_fwd_tiled_
+    plain and rel_flash_attention_bwd_plain with the same seed: out, dq_u,
+    dq_v, dk, dv and dp each within BWD_PLAIN_TOL of max |ref| (floored at
+    1e-3); lse the undropped one (rate 0's within 1e-4 on rows with a
+    visible key)."""
+    cs, lc = chunk
+    args = _attention_case(gen, t, dh)
+    scale = dh ** -0.5
+    seed = _drop_seed()
+    kw = dict(scale=scale, chunk_size=cs, left_chunks=lc)
+    out, lse = fa._launch_fwd(*args, scale, cs, lc, seed, DROP_RATE)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         .to(torch.bfloat16))
+    got = fa._launch_bwd(*args, out, lse, g, scale, cs, lc, seed, DROP_RATE)
+    ref, _ = fa.rel_flash_attention_fwd_tiled_plain(
+        *args, seed, dropout_rate=DROP_RATE, block_k=fa.FWD_BLOCK_K, **kw)
+    refs = fa.rel_flash_attention_bwd_plain(*args, out, lse, g, seed,
+                                            dropout_rate=DROP_RATE, **kw)
+    _, lse0 = fa._launch_fwd(*args, scale, cs, lc)
+    torch.cuda.synchronize()
+    seen = lse0 > -1e29
+    assert _rel(lse[seen], lse0[seen]) <= 1e-4
+    for name, a, r in zip(("out", "dq_u", "dq_v", "dk", "dv", "dp"),
+                          (out, *got), (ref, *refs)):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
+
+
+def test_dropout_is_refused_on_the_wmma_routes(gen):
+    """K2's fp32 launches and K3's WMMA launches (fp32; bf16 at Dh 128)
+    draw no dropout: a rate above 0 raises NotImplementedError naming the
+    ROADMAP item, and their C entries refuse a seed."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    seed = _drop_seed()
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        ffn.fused_ffn(r(8, 64), r(64, 128), r(128), r(128, 64), r(64), seed,
+                      dropout_rate=DROP_RATE)
+    lengths = torch.tensor([8], dtype=torch.int32, device="cuda")
+    for dt, dh in ((torch.float32, 64), (torch.bfloat16, 128)):
+        q = r(1, 2, 8, dh).to(dt)
+        with pytest.raises(NotImplementedError, match="queue 2"):
+            fa.rel_flash_attention(q, q, q, q, r(2, 16, dh).to(dt), lengths,
+                                   seed, scale=1.0, dropout_rate=DROP_RATE)
+        with pytest.raises(RuntimeError):
+            fa._launch_fwd(q, q, q, q, r(2, 16, dh).to(dt), lengths, 1.0, 0,
+                           -1, seed, DROP_RATE)
+    with pytest.raises(RuntimeError):
+        ffn._launch_fwd(r(8, 64), r(64, 128), r(128), r(128, 64), r(64),
+                        seed, DROP_RATE)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,f,routes", [
+    (512, 2048, {torch.bfloat16: "eager", torch.float32: "eager"}),
+    (256, 1024, {torch.bfloat16: "K2", torch.float32: "K2"}),
+    (48, 128, {torch.bfloat16: "eager", torch.float32: "K2"})])
+def test_feedforward_routes_by_width(gen, dtype, d, f, routes):
+    """models/conformer.py:FeedForward asks fused_ffn_takes before any
+    launch: d_model 512 / d_ff 2048 (bench.py's 17 x 512 config) takes the
+    eager route in both dtypes (bf16: output width 512 has no register
+    tile; fp32: 281,088 B of shared memory), D2 48 in bf16 too; the
+    flagship's widths take K2. Forward and backward within TOL of the plain
+    version's autograd on the same weights."""
+    from espnet_slurp_tpu_torch.models.conformer import FeedForward
+    torch.manual_seed(0)
+    mod = FeedForward(d, f, use_flash=True).cuda()
+    x0 = torch.randn(4, 100, d, generator=gen, device="cuda")
+    cot = torch.randn(4, 100, d, generator=gen, device="cuda").to(dtype)
+    x = x0.to(dtype).requires_grad_(True)
+    before = (ffn.fused_ffn.launches, ffn.fused_ffn.bwd_launches)
+    out = mod(x)
+    out.backward(cot)
+    moved = (ffn.fused_ffn.launches - before[0],
+             ffn.fused_ffn.bwd_launches - before[1])
+    assert moved == ((1, 1) if routes[dtype] == "K2" else (0, 0))
+    w = [mod.w1.weight, mod.w1.bias, mod.w2.weight, mod.w2.bias]
+    leaves = [x0.to(dtype).requires_grad_(True)] + [
+        p.detach().clone().requires_grad_(True) for p in w]
+    ref = ffn.fused_ffn_plain(leaves[0], leaves[1].t().to(dtype), leaves[2],
+                              leaves[3].t().to(dtype), leaves[4])
+    ref.backward(cot)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= TOL[dtype]
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                          [x.grad] + [p.grad for p in w],
+                          [a.grad for a in leaves]):
+        assert _rel(a, r, floor=1e-3) <= TOL[dtype], name
 
 
 def _lattice_case(gen, t, u_lens, v=9):

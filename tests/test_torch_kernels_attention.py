@@ -11,6 +11,12 @@ kernels' rounding points, is held to jax.vjp of the Pallas kernel in fp32
 and bf16, and to the plain version's autograd; its forward counterpart
 rel_flash_attention_fwd_tiled_plain to the Pallas forward in fp32 and bf16,
 and to the plain version.
+At dropout 0.1 (the reference's K3 mask has no CPU path,
+ops/pallas/flash_attention.py:110-115) the masked plain version is held to
+jax.vjp of the reference's eager rel-pos composition (models/attention.py:
+rel_shift) with the same mask on the softmax, and the masked backward and
+tiled forward to the plain version's autograd, fully masked rows included;
+the modules' kernel and eager routes draw from the generator.
 """
 import jax
 import jax.numpy as jnp
@@ -22,8 +28,9 @@ from espnet_slurp_tpu.models import attention as jatt
 from espnet_slurp_tpu.ops.pallas.flash_attention import (
     rel_flash_attention as jax_rel_flash)
 from espnet_slurp_tpu_torch.models import attention as tatt
+from espnet_slurp_tpu_torch.ops.kernels import philox
 from espnet_slurp_tpu_torch.ops.kernels.flash_attention import (
-    rel_flash_attention, rel_flash_attention_bwd_plain,
+    allowed_mask, rel_flash_attention, rel_flash_attention_bwd_plain,
     rel_flash_attention_fwd, rel_flash_attention_fwd_tiled_plain,
     rel_flash_attention_plain)
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
@@ -72,8 +79,16 @@ def test_wrapper_on_cpu_is_plain_and_not_counted(data):
     assert rel_flash_attention_fwd.launches == before
     torch.testing.assert_close(
         out, rel_flash_attention_plain(*args, scale=SCALE)[0], atol=0, rtol=0)
-    with pytest.raises(NotImplementedError):
-        rel_flash_attention(*args, scale=SCALE, dropout_rate=0.1)
+    # At dropout the CPU wrapper is the plain version with the kernels'
+    # Philox mask of the seed; a rate outside [0, 1) is refused.
+    seed = torch.tensor([77], dtype=torch.int32)
+    out = rel_flash_attention(*args, seed, scale=SCALE, dropout_rate=0.1)
+    assert rel_flash_attention_fwd.launches == before
+    keep = philox.keep_mask(seed, 0.1, T, T, planes=B * H)
+    torch.testing.assert_close(out, rel_flash_attention_plain(
+        *args, scale=SCALE, dropout_rate=0.1, keep=keep)[0], atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        rel_flash_attention(*args, seed, scale=SCALE, dropout_rate=1.0)
     with pytest.raises(ValueError):
         rel_flash_attention(*args[:4], args[4][:, :-1], args[5], scale=SCALE)
 
@@ -345,3 +360,192 @@ def test_fwd_tiled_plain_matches_plain(chunk):
     seen = ref_lse > 0.5 * NEG
     assert torch.equal(seen, lse > 0.5 * NEG) and not seen.all()
     torch.testing.assert_close(lse[seen], ref_lse[seen], rtol=1e-5, atol=0)
+
+
+RATE = 0.1
+
+
+def _jax_rel_attention(qu, qv, k, v, p, allowed, keep, scale):
+    """The reference's eager rel-pos attention (models/attention.py:
+    RelPosMultiHeadAttention's materialised path) with a given keep mask on
+    the softmax: softmax((q_u k^T + rel_shift(q_v p^T)) scale, masked) ->
+    dropout -> @ v. p: [H, 2T, Dh], its last row unused."""
+    t = qu.shape[2]
+    ac = jnp.einsum("bhqd,bhkd->bhqk", qu, k)
+    bd = jatt.rel_shift(jnp.einsum("bhqd,hkd->bhqk", qv, p[:, :2 * t - 1]))
+    s = jnp.where(allowed, (ac + bd) * scale, NEG)
+    probs = jax.nn.softmax(s, axis=-1)
+    probs = jnp.where(keep, probs / (1.0 - RATE), 0.0)
+    return jnp.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (16, 2)])
+def test_plain_dropout_matches_jax_eager_vjp(chunk):
+    """rel_flash_attention_plain at rate 0.1 against jax.vjp of the
+    reference's eager composition with the same mask (the kernels' Philox
+    mask of a seed), T = 96, key lengths 96, 45 and 0 (a fully masked
+    utterance): out and dq_u, dq_v, dk, dv, dp in fp32, out to atol 1e-5 /
+    rtol 1e-4 and each gradient within 1e-4 of its max |ref|, as at rate
+    0."""
+    cs, lc = chunk
+    b, h, tl, dh = 3, 2, 96, 16
+    rng = np.random.RandomState(21)
+    f = lambda *s: rng.randn(*s).astype(np.float32) * 0.5
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = np.asarray([tl, 45, 0], np.int32)
+    cot = f(b, h, tl, dh)
+    seed = torch.tensor([5], dtype=torch.int32)
+    keep = philox.keep_mask(seed, RATE, tl, tl, planes=b * h).reshape(
+        b, h, tl, tl)
+    allowed = allowed_mask(tl, t(lens), cs, lc)
+    ref, vjp = jax.vjp(lambda *a: _jax_rel_attention(
+        *a, jnp.asarray(allowed.numpy()), jnp.asarray(keep.numpy()),
+        dh ** -0.5), *map(jnp.asarray, args))
+    ref_grads = vjp(jnp.asarray(cot))
+    leaves = [t(a).requires_grad_(True) for a in args]
+    out, _ = rel_flash_attention_plain(*leaves, t(lens), scale=dh ** -0.5,
+                                       dropout_rate=RATE, keep=keep,
+                                       chunk_size=cs, left_chunks=lc)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-4)
+    (out * t(cot)).sum().backward()
+    for name, a, r in zip(GRAD_NAMES, leaves, ref_grads):
+        r = np.asarray(r)
+        np.testing.assert_allclose(a.grad.numpy(), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (5, 0)])
+def test_bwd_plain_dropout_matches_masked_autograd(chunk):
+    """rel_flash_attention_bwd_plain at rate 0.1 against the masked plain
+    version's autograd (the same seed), fp32, T = 70, lengths 70, 0 and 33:
+    every gradient within 1e-5 of max |ref|, fully masked rows (uniform
+    weights, dropped like any row) included."""
+    cs, lc = chunk
+    kw = dict(scale=0.25, dropout_rate=RATE, chunk_size=cs, left_chunks=lc)
+    b, h, tl, dh = 3, 2, 70, 16
+    rng = np.random.RandomState(22)
+    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5)
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = t(np.asarray([tl, 0, 33], np.int32))
+    seed = torch.tensor([9], dtype=torch.int32)
+    cot = f(b, h, tl, dh)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out, lse = rel_flash_attention_plain(*leaves, lens, seed, **kw)
+    (out * cot).sum().backward()
+    got = rel_flash_attention_bwd_plain(*args, lens, out.detach(),
+                                        lse.detach(), cot, seed, **kw)
+    for name, a, r in zip(GRAD_NAMES, got, leaves):
+        r = r.grad.numpy()
+        np.testing.assert_allclose(a.numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+    # The dropped uniform weights of the fully masked utterance still feed
+    # dv; its score gradients stay 0.
+    assert float(got[3][1].abs().max()) > 0.0
+    assert float(got[0][1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("chunk", [(0, -1), (5, 0)])
+def test_fwd_tiled_plain_dropout_matches_plain(chunk):
+    """rel_flash_attention_fwd_tiled_plain at rate 0.1 over key tiles of 32
+    (a ragged last tile) against rel_flash_attention_plain with the same
+    seed, fp32, lengths 70, 0 and 33: out within 1e-5 of max |ref| on every
+    row, and lse the undropped one (equal to rate 0's within 1e-5)."""
+    cs, lc = chunk
+    kw = dict(scale=0.25, chunk_size=cs, left_chunks=lc)
+    b, h, tl, dh = 3, 2, 70, 16
+    rng = np.random.RandomState(23)
+    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5)
+    args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
+    lens = t(np.asarray([tl, 0, 33], np.int32))
+    seed = torch.tensor([10], dtype=torch.int32)
+    out, lse = rel_flash_attention_fwd_tiled_plain(
+        *args, lens, seed, dropout_rate=RATE, block_k=32, **kw)
+    ref, ref_lse = rel_flash_attention_plain(*args, lens, seed,
+                                             dropout_rate=RATE, **kw)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+    _, lse0 = rel_flash_attention_plain(*args, lens, **kw)
+    seen = lse0 > 0.5 * NEG
+    torch.testing.assert_close(lse[seen], lse0[seen], rtol=1e-5, atol=0)
+    torch.testing.assert_close(ref_lse, lse0, rtol=0, atol=0)
+    assert not torch.allclose(ref, rel_flash_attention_plain(*args, lens,
+                                                             **kw)[0])
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_rel_pos_mha_dropout_routes(use_flash):
+    """RelPosMultiHeadAttention at rate 0.1 with train and a generator: the
+    kernel route draws one seed and equals rel_flash_attention with it (its
+    plain version on the CPU); the eager route drops the softmax with
+    torch.rand from the generator. Without train both equal the flax
+    module's output."""
+    x, pos, lens, bias, params, ref = _rel_mha_case()
+    mod = tatt.RelPosMultiHeadAttention(4, 32, use_flash=use_flash,
+                                        dropout_rate=RATE)
+    mod.load_state_dict(flax_to_torch(params))
+    with torch.no_grad():
+        out0 = mod(t(x), t(pos), t(bias), lengths=t(lens))
+        np.testing.assert_allclose(out0.numpy(), ref, atol=1e-5, rtol=1e-4)
+        g1 = torch.Generator().manual_seed(8)
+        g2 = torch.Generator().manual_seed(8)
+        out = mod(t(x), t(pos), t(bias), lengths=t(lens), train=True,
+                  generator=g1)
+        b, tl, d = x.shape
+        if use_flash:
+            seed = philox.draw_seed(g2, torch.device("cpu"))
+            keep = philox.keep_mask(seed, RATE, tl, tl, planes=b * 4)
+        else:
+            keep = torch.rand(b, 4, tl, tl, generator=g2) >= RATE
+        drop = keep.reshape(b, 4, tl, tl).float() / (1 - RATE)
+        # The same attention with the mask folded into v's weights: redo
+        # the eager composition by hand.
+        h, dh = 4, d // 4
+        q = mod.linear_q(t(x)).reshape(b, tl, h, dh)
+        k = mod.linear_k(t(x)).reshape(b, tl, h, dh).transpose(1, 2)
+        v = mod.linear_v(t(x)).reshape(b, tl, h, dh).transpose(1, 2)
+        p = mod.linear_pos(t(pos)).reshape(1, -1, h, dh).transpose(1, 2)
+        q_u = (q + mod.pos_bias_u).transpose(1, 2)
+        q_v = (q + mod.pos_bias_v).transpose(1, 2)
+        s = (q_u @ k.transpose(-1, -2)
+             + tatt.rel_shift(q_v @ p.transpose(-1, -2))) * dh ** -0.5
+        allowed = allowed_mask(tl, t(lens))
+        attn = torch.softmax(s.masked_fill(~allowed, NEG), -1) * drop
+        want = mod.linear_out((attn @ v).transpose(1, 2).reshape(b, tl, d))
+        if not use_flash:
+            # The eager route adds the bias rather than masking.
+            attn = torch.softmax(s + t(bias), -1) * drop
+            want = mod.linear_out((attn @ v).transpose(1, 2).reshape(
+                b, tl, d))
+        np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+        assert not np.allclose(out.numpy(), ref, atol=1e-3)
+
+
+def test_abs_mha_dropout():
+    """MultiHeadAttention at rate 0.1 (reference :42-43): without train the
+    flax output; with train the softmax dropped by torch.rand from the
+    generator."""
+    rng = np.random.RandomState(4)
+    q = rng.randn(2, 5, 32).astype(np.float32)
+    kv = rng.randn(2, 7, 32).astype(np.float32)
+    mod = jatt.MultiHeadAttention(4, 32)
+    params = mod.init(jax.random.PRNGKey(0), q, kv, kv)["params"]
+    ref = mod.apply({"params": params}, q, kv, kv)
+    port = tatt.MultiHeadAttention(4, 32, dropout_rate=RATE)
+    port.load_state_dict(flax_to_torch(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        np.testing.assert_allclose(port(t(q), t(kv), t(kv)).numpy(),
+                                   np.asarray(ref), atol=1e-5, rtol=1e-4)
+        g1 = torch.Generator().manual_seed(2)
+        g2 = torch.Generator().manual_seed(2)
+        out = port(t(q), t(kv), t(kv), train=True, generator=g1)
+        split = lambda x: x.reshape(2, -1, 4, 8).transpose(1, 2)
+        qq, kk, vv = (split(port.linear_q(t(q))), split(port.linear_k(t(kv))),
+                      split(port.linear_v(t(kv))))
+        attn = torch.softmax(qq @ kk.transpose(-1, -2) / 8 ** 0.5, -1)
+        keep = torch.rand(attn.shape, generator=g2) >= RATE
+        attn = torch.where(keep, attn / (1 - RATE), 0.0)
+        want = port.linear_out((attn @ vv).transpose(1, 2).reshape(2, 5, 32))
+        np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-4)

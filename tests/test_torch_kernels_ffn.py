@@ -9,6 +9,13 @@ In bf16, fused_ffn_plain (the forward at the bf16 kernel's rounding points)
 is held to the Pallas forward in bf16, and fused_ffn_bwd_plain, the backward
 at the bf16 kernels' rounding points, to jax.vjp of the Pallas kernel in
 bf16 and fp32.
+At dropout 0.1 the plain versions take the keep mask explicitly: held to
+the Pallas kernel in interpret mode with the mask of its own interpret draw
+(threefry keyed by seed + row tile, ops/pallas/ffn.py:50-52), forward and
+vjp in fp32 with the rate-0 tolerances; fused_ffn_bwd_plain with the mask
+to the masked plain version's autograd; the CPU wrapper with a seed to the
+kernels' Philox mask (ops/kernels/philox.py); FeedForward's kernel and
+eager routes at dropout.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +26,7 @@ import torch
 from espnet_slurp_tpu.models.conformer import FeedForward as JaxFeedForward
 from espnet_slurp_tpu.ops.pallas.ffn import fused_ffn as jax_fused_ffn
 from espnet_slurp_tpu_torch.models.conformer import FeedForward
+from espnet_slurp_tpu_torch.ops.kernels import philox
 from espnet_slurp_tpu_torch.ops.kernels.ffn import (fused_ffn,
                                                      fused_ffn_bwd_plain,
                                                      fused_ffn_plain)
@@ -99,9 +107,15 @@ def test_bf16_plain_matches_pallas_forward(seed, t_len):
 
 
 def test_rejects_bad_arguments():
+    """Shapes, dtypes and layouts the kernel does not take, a dropout rate
+    outside [0, 1) and a seed that is no int32 [1] tensor are refused."""
     x, w1, b1, w2, b2 = map(t, _inputs(seed=3))
-    with pytest.raises(NotImplementedError):
-        fused_ffn(x, w1, b1, w2, b2, dropout_rate=0.1)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError):
+            fused_ffn(x, w1, b1, w2, b2, dropout_rate=rate)
+    with pytest.raises(ValueError):
+        fused_ffn(x, w1, b1, w2, b2, torch.zeros(1, dtype=torch.int64),
+                  dropout_rate=0.1)
     with pytest.raises(ValueError):
         fused_ffn(x, w1.t(), b1, w2, b2)
     with pytest.raises(TypeError):
@@ -153,3 +167,121 @@ def test_bwd_plain_matches_pallas_vjp(dtype):
         assert a.shape == r.shape, name
         err = np.abs(a.float().numpy() - r).max() / np.abs(r).max()
         assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+RATE, SEED = 0.1, 1234
+
+
+def _reference_keep(seed, n, f, d=D, block_rows=512):
+    """The keep mask the reference's interpret mode draws
+    (ops/pallas/ffn.py:_keep_mask): threefry bits keyed by seed + row tile
+    over [tn, F] tiles, tn chosen as fused_ffn chooses it (:145-153)."""
+    tn = block_rows
+    if d * f >= 512 * 2048:
+        tn = min(tn, 256)
+    while tn > 128 and n % tn != 0:
+        tn //= 2
+    thresh = jnp.uint32(int(RATE * float(2 ** 32)))
+    tiles = [jax.random.bits(jax.random.key(jnp.uint32(seed + i)), (tn, f),
+                             jnp.uint32) >= thresh for i in range(n // tn)]
+    return t(jnp.concatenate(tiles))
+
+
+def test_plain_dropout_matches_pallas_interpret():
+    """fused_ffn_plain at rate 0.1 with the reference's interpret mask
+    against the Pallas kernel in interpret mode, N = 768 rows in three row
+    tiles of 256: the output and every gradient of the vjp, fp32, with the
+    rate-0 tests' tolerances (atol 1e-5 / rtol 1e-4; 5e-4)."""
+    args = _inputs(seed=10, t_len=384)
+    n = B * 384
+    keep = _reference_keep(SEED, n, F)
+    assert 0.85 < float(keep.float().mean()) < 0.95
+    cot = np.random.RandomState(11).randn(B, 384, D).astype(np.float32)
+    seed = jnp.asarray([SEED], jnp.int32)
+    ref, vjp = jax.vjp(lambda *a: jax_fused_ffn(
+        *a, seed, dropout_rate=RATE, interpret=True), *map(jnp.asarray, args))
+    ref_grads = vjp(jnp.asarray(cot))
+    leaves = [t(a).requires_grad_(True) for a in args]
+    out = fused_ffn_plain(*leaves, dropout_rate=RATE, keep=keep)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-4)
+    (out * t(cot)).sum().backward()
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), leaves,
+                          ref_grads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(r), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_plain_dropout_matches_masked_autograd(dtype):
+    """fused_ffn_bwd_plain at rate 0.1 (the kernels' Philox mask of a seed)
+    against autograd of fused_ffn_plain with the same mask: fp32 within
+    1e-5 of max |ref| (sums in another order); bf16, where both round the
+    hidden to bf16 but autograd differentiates through the unrounded ds,
+    within 2^-7."""
+    tdt = getattr(torch, dtype)
+    x, w1, b1, w2, b2 = map(t, _inputs(seed=12))
+    x, w1, w2 = x.to(tdt), w1.to(tdt), w2.to(tdt)
+    g = t(np.random.RandomState(13).randn(B, T, D).astype(np.float32)).to(tdt)
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    got = fused_ffn_bwd_plain(x, w1, b1, w2, g, seed, dropout_rate=RATE)
+    leaves = [a.clone().requires_grad_(True) for a in (x, w1, b1, w2, b2)]
+    out = fused_ffn_plain(*leaves, seed, dropout_rate=RATE)
+    out.backward(g)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, leaves):
+        r = r.grad.float()
+        err = float((a.float() - r).abs().max() / r.abs().max())
+        assert err <= tol, f"{name}: {err:.3e}"
+    # The mask reaches every gradient: a zero mask leaves only the biases'.
+    none = torch.zeros(B * T, F, dtype=torch.bool)
+    dx, dw1, db1, dw2, db2 = fused_ffn_bwd_plain(x, w1, b1, w2, g,
+                                                 dropout_rate=RATE, keep=none)
+    assert float(dx.abs().max()) == float(dw2.abs().max()) == 0.0
+    assert float(db2.abs().max()) > 0.0
+
+
+def test_wrapper_on_cpu_drops_with_the_kernels_mask():
+    """On the CPU fused_ffn(.., seed, dropout_rate) is fused_ffn_plain with
+    the Philox mask of (seed, row, column); another seed moves the output,
+    rate 0 ignores the seed, and about 10% of the hidden is dropped."""
+    x, w1, b1, w2, b2 = map(t, _inputs(seed=14))
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    out = fused_ffn(x, w1, b1, w2, b2, seed, dropout_rate=RATE)
+    keep = philox.keep_mask(seed, RATE, B * T, F)
+    torch.testing.assert_close(out, fused_ffn_plain(
+        x, w1, b1, w2, b2, dropout_rate=RATE, keep=keep), atol=0, rtol=0)
+    other = fused_ffn(x, w1, b1, w2, b2, seed + 1, dropout_rate=RATE)
+    assert not torch.equal(out, other)
+    torch.testing.assert_close(fused_ffn(x, w1, b1, w2, b2, seed),
+                               fused_ffn_plain(x, w1, b1, w2, b2), atol=0,
+                               rtol=0)
+    assert abs(float(keep.float().mean()) - 0.9) < 0.01
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_feedforward_dropout_routes(use_flash):
+    """FeedForward at rate 0.1: with train and a generator, the kernel route
+    draws one seed from the generator and equals fused_ffn with it; the
+    eager route drops the silu hidden with torch.rand from the generator
+    (flax's nn.Dropout). Without train both equal the rate-0 module."""
+    x = t(np.random.RandomState(15).randn(B, 40, D).astype(np.float32))
+    mod = FeedForward(D, F, use_flash=use_flash, dropout_rate=RATE)
+    g1 = torch.Generator().manual_seed(4)
+    g2 = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        out = mod(x, train=True, generator=g1)
+        w = lambda lin: lin.weight.t().contiguous()
+        if use_flash:
+            seed = philox.draw_seed(g2, x.device)
+            ref = fused_ffn(x, w(mod.w1), mod.w1.bias, w(mod.w2),
+                            mod.w2.bias, seed, dropout_rate=RATE)
+        else:
+            h = torch.nn.functional.silu(mod.w1(x))
+            keep = torch.rand(h.shape, generator=g2) >= RATE
+            ref = mod.w2(torch.where(keep, h / (1 - RATE), 0.0))
+        torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-6)
+        plain = FeedForward(D, F, use_flash=use_flash)
+        plain.load_state_dict(mod.state_dict())
+        torch.testing.assert_close(mod(x), plain(x), atol=0, rtol=0)
+        assert not torch.allclose(out, plain(x))

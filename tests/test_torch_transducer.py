@@ -323,3 +323,25 @@ def test_three_cpu_train_steps_lower_the_loss(case):
         assert float(stats["skipped"]) == 0.0
         losses.append(float(stats["loss"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+@pytest.mark.parametrize("fused_conv", [False, True])
+def test_train_step_at_the_recipes_dropout(case, fused_conv):
+    """conf/train_transducer.yaml:15 trains at dropout 0.1, and so does
+    transducer_flagship_config. One tiny train step at 0.1 (the encoder's
+    K2 and K3 by their plain versions with the Philox masks): loss and
+    grad norm finite, nothing skipped, the loss differs from rate 0, and
+    the same generator seed repeats it."""
+    _, params, batch = case
+    assert transducer_flagship_config().asr.dropout_rate == 0.1
+    tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
+    runs = []
+    for rate, seed in ((0.1, 0), (0.1, 0), (0.0, 0)):
+        model = _port_model(params, fused_conv=fused_conv, dropout_rate=rate)
+        state = TrainState.create(model, tx, seed=seed)
+        state, stats = make_train_step(model, tx)(state, _tbatch(batch))
+        assert float(stats["skipped"]) == 0.0
+        assert np.isfinite(float(stats["grad_norm"]))
+        runs.append(float(stats["loss"]))
+    assert np.isfinite(runs).all()
+    assert runs[0] == runs[1] != runs[2]
