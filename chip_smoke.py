@@ -69,11 +69,13 @@ or the port's package is not beside it. Phases, each of which fails the run:
    The same phase then runs at dropout 0, and its step wall and busy time
    are printed beside.
 6. One fp32 forward + backward of the same flagship weights on two short
-   utterances (3 s, 2.1 s; SpecAug off) on the CPU (plain versions) and on
-   the card (kernels): the loss within 1e-4 relative, every parameter
-   gradient within 1e-3 of its max |ref| (floored at 1e-4 of the largest
-   gradient entry of the model: the key projections' biases have gradient
-   0 in exact arithmetic and hold only rounding noise).
+   utterances (3 s, 2.1 s; SpecAug off) at the recipe's dropout 0.1 on the
+   CPU (plain versions) and on the card (kernels), each side's dropout
+   seeds drawn from an equally seeded CPU generator (the same Philox masks
+   on both): the loss within 1e-4 relative, every parameter gradient
+   within 1e-3 of its max |ref| (floored at 1e-4 of the largest gradient
+   entry of the model: the key projections' biases have gradient 0 in
+   exact arithmetic and hold only rounding noise).
 7. The dropout kernels at the flagship train shape (B 64 x T' 468, D 256,
    F 1024, H 4, Dh 64, bf16, rate 0.1): csrc/philox.cuh reproduces
    Random123's Philox4x32-10 answer vectors on the card; the keep mask the
@@ -109,8 +111,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    loss finite, nothing skipped, the last loss below the first, and per step
    exactly 24 K2, 12 K3 and 12 K6 launches each way, 1 K5 and 1 K1 each way
    and no K4.
-10. One fp32 transducer forward + backward (fused_conv, SpecAug off,
-   dropout 0: the fp32 launches draw none) of the same weights on phase
+10. One fp32 transducer forward + backward (fused_conv, SpecAug off, the
+   yaml's dropout 0.1 with phase 6's seeds) of the same weights on phase
    6's two short utterances, CPU (plain versions) against the card
    (kernels): loss within 1e-4 relative, every gradient within 1e-3 of its
    max |ref| with phase 6's floor.
@@ -118,10 +120,34 @@ or the port's package is not beside it. Phases, each of which fails the run:
    serving traffic on the card; its RTF is printed, and the encode must
    launch 24 K2, 12 K3 and 12 K6.
 
+12. The WMMA launches at rate 0.1 at the flagship train shape (run after
+   phase 7): K2 fp32 (ffn_fwd_kernel, ffn_bwd_dx_kernel, ffn_bwd_dw_kernel;
+   N 64 x T', D 256, d_ff 2048: the default ASRConfig's widths), K3 fp32
+   (rel_flash_fwd_kernel, rel_flash_dkv_kernel, rel_flash_dq_kernel; B 64,
+   H 4, T', Dh 64) and K3 bf16 at Dh 128 (B 64, H 2, T'), each direction
+   against its plain version with the same seed (fp32 within 1e-4, bf16
+   within 2e-2 of max |ref| per output and gradient); the dropout and
+   rate-0 instantiations by profiler name, each launch's device time at
+   0.1 beside 0 and its bound; each direction timed beside its plain
+   version (K3 fp32 also beside SDPA over the precomputed bias).
+13. The default ASRConfig() (fp32 compute, dropout 0.1, d_ff 2048, 12 x
+   256, 6-block decoder, SpecAug on, seeded random weights) through
+   make_train_step with Adam at constant lr 1e-3 on phase 5's traffic: one
+   warm-up step and 5 timed steps (3 if 7 steps at the warm-up's time would
+   pass 60 s); losses and grad norms finite, nothing skipped, the loss
+   falls, and per step exactly 24 K2 and 12 K3 launches each way (all fp32
+   WMMA launches with dropout) and 1 of K4 (its fp32 route) and K1 each
+   way; step seconds, audio-s/s, busy ms of one profiled step and peak
+   memory printed, and the time phases 12 and 13 add.
+
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
-K3's entries carry phase 7's ``dropout`` record; their launches are those
-of phase 5's run at dropout 0.1); the last line is ``{"ok": true,
-"device": {...}}``.
+K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
+pair in it; their launches are those of phase 5's run at dropout 0.1;
+every entry whose timed instance a default-ASRConfig step runs also
+carries its launches a default step: not the bf16-timed K2, K3 and K4
+entries, whose default-step launches go to their fp32 routes), then
+phase 12's fp32 entries (``*_fp32``), whose launches are those of phase
+13's timed steps; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -202,6 +228,45 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def att_bounds(b, h, t, dh, pairs, esize, peak):
+    """Bounds (ms, by) of K3's forward, dkv and dq launches and of its
+    backward: the products over the visible (query, key) pairs against
+    each launch's compulsory bytes, operands in ``esize`` bytes (lse,
+    delta and dkv's dp in fp32). Forward: q_u k^T, the skewed q_v p^T and
+    P v; q_u, q_v, k, v, p, lengths in, out and lse out. dkv alone: S, dP,
+    the skewed q_v p^T, dv, dk and dp; q_u, q_v, dO, k, v, p, lse, delta
+    in, dk, dv, dp out. dq alone: S, dP, the skewed q_v p^T, dq_u, dq_v."""
+    qkv, pt = b * h * t * dh, h * 2 * t * dh
+    return {
+        "fwd": bound(6.0 * pairs * dh, esize * (5 * qkv + pt) + 4 * b * h * t
+                     + 4 * b, peak),
+        "dkv": bound(12.0 * pairs * dh, esize * (5 * qkv + pt)
+                     + 8 * b * h * t + esize * 2 * qkv + 4 * pt, peak),
+        "dq": bound(10.0 * pairs * dh, esize * (5 * qkv + pt)
+                    + 8 * b * h * t + esize * 2 * qkv, peak),
+        "bwd": bound(16.0 * pairs * dh, esize * (6 * qkv + pt)
+                     + 4 * b * h * t + esize * (4 * qkv + pt), peak),
+    }
+
+
+def ffn_bounds(n, d, f, d2, esize, peak=PEAK_BF16_FLOPS):
+    """Bounds (ms, by) of K2's forward, its backward (dx, dW1, dW2, db1,
+    db2 from x, g, W1, W2, b1: five products, D2 = D) and, for the fp32
+    launches, dx alone (S, dh, dx) and dW alone (S, dh, dW1, dW2);
+    operands in ``esize`` bytes, biases in fp32."""
+    return {
+        "fwd": bound(2.0 * n * f * (d + d2), esize * (n * d + n * d2 + d * f
+                                                     + f * d2)
+                     + 4 * (f + d2), peak),
+        "bwd": bound(10.0 * n * d * f, esize * (3 * n * d + 4 * d * f)
+                     + 4 * (2 * f + d), peak),
+        "dx": bound(6.0 * n * d * f, esize * (3 * n * d + 2 * d * f) + 4 * f,
+                    peak),
+        "dw": bound(8.0 * n * d * f, esize * (2 * n * d + 4 * d * f)
+                    + 4 * (2 * f + d), peak),
+    }
 
 
 def rel_err(out, ref):
@@ -370,8 +435,7 @@ def ffn_fwd_detail(torch, ffn, args, what):
                              "fused_ffn_plain or took another kernel")
     ms, dev = median_ms(torch, call), sum(per_kernel.values())
     plain = median_ms(torch, lambda: ffn.fused_ffn_plain(*args))
-    bnd = bound(2.0 * n * f * (d + d2),
-                2 * (n * d + n * d2 + d * f + f * d2) + 4 * (f + d2))
+    bnd = ffn_bounds(n, d, f, d2, 2)["fwd"]
     print(f"K2 fused_ffn bfloat16 N={n} {what}: {ms:.4f} ms (launch "
           f"alone), device {dev:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]})")
@@ -464,9 +528,7 @@ def kernel_phase(torch, t_prime):
     # (query, visible key) pairs; the mask broadcasts over the query axis
     # when there is no chunking.
     pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
-    att_bytes = 2 * (5 * b * h * t * dh + h * 2 * t * dh) + 4 * b * h * t \
-        + 4 * b
-    att_bound = bound(3 * 2.0 * pairs * dh, att_bytes)
+    att_bound = att_bounds(b, h, t, dh, pairs, 2, PEAK_BF16_FLOPS)["fwd"]
     del raw, bd, bias
     return [
         dict(name="fused_ffn", route="cuda",
@@ -1065,9 +1127,7 @@ def train_kernel_phase(torch, t_prime):
     ms, launch_ms, peak_mb = ffn_bwd_detail(torch, ffn, args, gb, n)
     print(f"K2 fused_ffn backward bfloat16 N={n}: plain composition "
           f"{plain_ms:.4f} ms in the same call")
-    # in: x, g, W1, W2, b1; out: dx, dW1, dW2, db1, db2
-    bnd = bound(10.0 * n * d * f,
-                2 * (3 * n * d + 4 * d * f) + 4 * (2 * f + d))
+    bnd = ffn_bounds(n, d, f, d, 2)["bwd"]
     out.append(dict(
         name="fused_ffn_bwd", route="cuda",
         source="espnet_slurp_tpu_torch/csrc/ffn.cu",
@@ -1108,24 +1168,9 @@ def train_kernel_phase(torch, t_prime):
         sd, leaves, gb, retain_graph=True))
     del sd, leaves, bias
     pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
-    # The forward: q_u k^T, the skewed q_v p^T and P v over the visible
-    # pairs; q_u, q_v, k, v, p, lengths in, out and lse out.
-    att_fwd_bound = bound(3 * 2.0 * pairs * dh,
-                          2 * (5 * b * h * t * dh + h * 2 * t * dh)
-                          + 4 * b * h * t + 4 * b)
-    bnd = bound(16.0 * pairs * dh,
-                2 * (6 * b * h * t * dh + 2 * h * t * dh) + 4 * b * h * t
-                + 2 * (4 * b * h * t * dh + 2 * h * t * dh))
-    # dkv alone: S, dP, the skewed q_v p^T, dv, dk and dp over the visible
-    # pairs; q_u, q_v, dO, k, v, p, lse, delta in, dk, dv, dp (fp32) out.
-    dkv_bnd = bound(12.0 * pairs * dh,
-                    2 * (5 * b * h * t * dh + 2 * h * t * dh) + 8 * b * h * t
-                    + 2 * 2 * b * h * t * dh + 4 * 2 * h * t * dh)
-    # dq alone: S, dP, the skewed q_v p^T, dq_u and dq_v over the visible
-    # pairs; q_u, q_v, dO, k, v, p, lse, delta in, dq_u, dq_v out.
-    dq_bnd = bound(10.0 * pairs * dh,
-                   2 * (5 * b * h * t * dh + 2 * h * t * dh) + 8 * b * h * t
-                   + 2 * 2 * b * h * t * dh)
+    att = att_bounds(b, h, t, dh, pairs, 2, PEAK_BF16_FLOPS)
+    att_fwd_bound, bnd, dkv_bnd, dq_bnd = (att[k] for k in ("fwd", "bwd",
+                                                            "dkv", "dq"))
     out.append(dict(
         name="rel_flash_attention_bwd", route="cuda",
         source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
@@ -1301,17 +1346,20 @@ def read_counts(names=COUNTED):
                        COUNTED[n][2]) for n in names}
 
 
-def run_train_steps(torch, what, model, batch, card, audio_s):
-    """One warm-up step, then TRAIN_STEPS timed ones with every launch
-    count zeroed just before and read just after; checks finite losses,
-    nothing skipped and a falling loss; then one more step under
-    torch.profiler for the device's busy time (the sum of its kernels'
-    times). Returns (launches, step s, busy ms)."""
+def run_train_steps(torch, what, model, batch, card, audio_s,
+                    budget_s=None):
+    """One warm-up step, then TRAIN_STEPS timed ones (3 when ``budget_s``
+    is given and TRAIN_STEPS + 2 steps at the warm-up's time would run past
+    it) with every launch count zeroed just before and read just after;
+    checks finite losses, nothing skipped and a falling loss; then one
+    more step under torch.profiler for the device's busy time (the sum of
+    its kernels' times). Returns (launches, step s, busy ms, steps)."""
     from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
     from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
 
     if not all(p.dtype == torch.float32 for p in model.parameters()):
-        raise AssertionError("the bf16 model must keep fp32 parameters")
+        raise AssertionError("the model must keep fp32 parameters")
+    compute = getattr(model.cfg, "asr", model.cfg).dtype
     tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
     state = TrainState.create(model, tx, seed=0)
     step = make_train_step(model, tx)
@@ -1320,10 +1368,13 @@ def run_train_steps(torch, what, model, batch, card, audio_s):
     state, st = step(state, batch)  # warm-up: cuBLAS/cuDNN, the allocator
     first_loss = float(st["loss"])
     warm_s = time.perf_counter() - t0
+    steps = TRAIN_STEPS
+    if budget_s is not None and warm_s * (TRAIN_STEPS + 2) > budget_s:
+        steps = 3
 
     zero_counts()
     losses, norms, skipped, times = [], [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, st = step(state, batch)
         losses.append(float(st["loss"]))  # synchronises
@@ -1333,15 +1384,15 @@ def run_train_steps(torch, what, model, batch, card, audio_s):
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = float(np.median(times))
-    print(f"{what}: bf16 compute / fp32 parameters, Adam lr 1e-3: step "
-          f"{step_s:.4f} s (median of {TRAIN_STEPS}; steps {times}; warm-up "
+    print(f"{what}: {compute} compute / fp32 parameters, Adam lr 1e-3: step "
+          f"{step_s:.4f} s (median of {steps}; steps {times}; warm-up "
           f"{warm_s:.3f} s), {audio_s / step_s:.1f} audio-s/s, peak memory "
           f"{peak_gb:.2f} GB on {card}")
     extra = ", ".join(f"{k} {float(v):.4f}" for k, v in st.items()
                       if k.startswith("loss_"))
     print(f"{what}: losses {[first_loss] + losses}, grad norms {norms}, "
           f"skipped {skipped}, {extra}")
-    print(f"{what}: launches over {TRAIN_STEPS} steps {launches}")
+    print(f"{what}: launches over {steps} steps {launches}")
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and losses[-1] < first_loss):
         raise AssertionError(f"{what}: non-finite, skipped or not falling")
@@ -1352,13 +1403,20 @@ def run_train_steps(torch, what, model, batch, card, audio_s):
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if not e.key.startswith("train_step.")) / 1e3
     print(f"{what}: device busy {busy_ms:.2f} ms in one profiled step")
-    return launches, step_s, busy_ms
+    return launches, step_s, busy_ms, steps
 
 
-def check_per_step(what, launches, per_step):
-    """Every counted kernel launched exactly TRAIN_STEPS x per_step times
-    (0 for those not named)."""
-    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in COUNTED}
+# The kernels line's entries timed in bf16 only; a default ASRConfig()
+# step (fp32) launches other instances of these wrappers.
+BF16_TIMED = ("fused_ffn", "fused_ffn_bwd", "rel_flash_attention",
+              "rel_flash_attention_bwd", "fused_ctc_head_emit",
+              "fused_ctc_head_emit_bwd")
+
+
+def check_per_step(what, launches, per_step, steps=TRAIN_STEPS):
+    """Every counted kernel launched exactly steps x per_step times (0 for
+    those not named)."""
+    want = {k: steps * per_step.get(k, 0) for k in COUNTED}
     if launches != want:
         raise AssertionError(f"{what} launches {launches}, expected "
                              f"{per_step} per step")
@@ -1379,7 +1437,7 @@ def train_phase(torch, card):
         batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
                             FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size,
                             "cuda")
-        launches, step_s, busy_ms = run_train_steps(
+        launches, step_s, busy_ms, _ = run_train_steps(
             torch, f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, "
             f"U={TRAIN_U}, dropout {rate}", model, batch, card,
             TRAIN_B * TRAIN_SECONDS)
@@ -1620,7 +1678,7 @@ def transducer_train_phase(torch, card):
     model = init_random_(TransducerModel(cfg, device="cuda"), seed=0)
     batch = train_batch(torch, np.random.RandomState(1), TR_B,
                         FS * TRAIN_SECONDS, TR_U, cfg.asr.vocab_size, "cuda")
-    launches, step_s, _ = run_train_steps(
+    launches, step_s, _, _ = run_train_steps(
         torch, f"transducer train: B={TR_B} x {TRAIN_SECONDS} s, U={TR_U}, "
         f"V={cfg.asr.vocab_size}, fused_conv, dropout "
         f"{cfg.asr.dropout_rate}", model, batch, card, TR_B * TRAIN_SECONDS)
@@ -1635,12 +1693,14 @@ def transducer_train_phase(torch, card):
 
 
 def transducer_cpu_vs_card(torch):
-    """One fp32 transducer forward + backward (fused_conv, SpecAug off),
-    CPU (plain versions) against the card (kernels), same weights."""
+    """One fp32 transducer forward + backward (fused_conv, SpecAug off, the
+    yaml's dropout DROPOUT with the same masks on both sides), CPU (plain
+    versions) against the card (kernels), same weights."""
     from espnet_slurp_tpu_torch.models.transducer import TransducerModel
     from espnet_slurp_tpu_torch.utils.params import init_random_
 
-    cfg = transducer_config(dtype="float32", specaug=None, dropout_rate=0.0)
+    cfg = transducer_config(dtype="float32", specaug=None,
+                            dropout_rate=DROPOUT)
     state = init_random_(TransducerModel(cfg, device="cpu"),
                          seed=0).state_dict()
     compare_cpu_card(torch, "fp32 transducer step", TransducerModel, cfg,
@@ -1664,14 +1724,21 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
     """loss within 1e-4 relative and every gradient within 1e-3 of max |ref|
     (floored at 1e-4 of the largest gradient entry), CPU against card.
 
+    Each side's train forward draws its dropout seeds from a CPU generator
+    seeded with DROPOUT_SEED (ops/kernels/philox.py:draw_seed draws on the
+    CPU and copies the seed to the card), so both sides draw the same
+    seeds, hence the same Philox masks; the two generators must end in the
+    same state, advanced from their seed.
+
     A subsampling ReLU input that lies within fp32 rounding of 0 can fall
     on either side on the two devices; its gradient is then the upstream
     one on one side and 0 on the other, which moves the first conv's
     weight and bias gradients by up to 7e-3 of max |ref| (measured on other
     draws). Such kinks get gradient 0 on both sides: their forward value is
     ~0 either way, and the comparison no longer depends on the draw."""
-    runs = {}
+    runs, gens = {}, {}
     for dev in ("cpu", "cuda"):
+        gens[dev] = torch.Generator().manual_seed(DROPOUT_SEED)
         model = model_cls(cfg, device=dev)
         model.load_state_dict(state)
         batch = {"speech": torch.from_numpy(speech).to(dev),
@@ -1681,10 +1748,13 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
         embed, pre = model.encoder.embed, []
         hooks = [getattr(embed, f"conv{i + 1}").register_forward_hook(
             lambda m, i, o: pre.append(o)) for i in range(embed.n_convs)]
-        loss, _ = model(**batch, train=True)
+        loss, _ = model(**batch, train=True, generator=gens[dev])
         for hk in hooks:
             hk.remove()
         runs[dev] = (model, loss, pre)
+    fresh = torch.Generator().manual_seed(DROPOUT_SEED).get_state()
+    same_draws = torch.equal(gens["cpu"].get_state(), gens["cuda"].get_state())
+    drew = not torch.equal(gens["cpu"].get_state(), fresh)
     flips = []
     for z_c, z_g in zip(runs["cpu"][2], runs["cuda"][2]):
         flip = (z_c > 0) != (z_g > 0).cpu()
@@ -1706,8 +1776,9 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
     print(f"{what} card vs CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
           f"(rel {rel:.3e}, tolerance 1e-4); worst gradient {worst[1]} "
           f"{worst[0]:.3e} of max|ref| (tolerance 1e-3) over {len(g_c)} "
-          f"tensors; subsampling ReLU kinks on opposite sides {flips}")
-    if not (rel <= 1e-4 and worst[0] <= 1e-3):
+          f"tensors; subsampling ReLU kinks on opposite sides {flips}; "
+          f"dropout seeds drawn {drew}, the same on both sides {same_draws}")
+    if not (rel <= 1e-4 and worst[0] <= 1e-3 and same_draws and drew):
         raise AssertionError(f"{what} card vs CPU")
 
 
@@ -1758,17 +1829,286 @@ def transducer_decode_phase(torch, card):
 
 
 def train_cpu_vs_card(torch):
-    """One fp32 forward + backward, CPU (plain versions) against the card
-    (kernels), same flagship weights, two short utterances."""
+    """One fp32 forward + backward at the recipe's dropout DROPOUT (the same
+    masks on both sides), CPU (plain versions) against the card (kernels),
+    same flagship weights, two short utterances."""
     from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
                                                           flagship_config)
     from espnet_slurp_tpu_torch.utils.params import init_random_
 
     cfg = dataclasses.replace(flagship_config(), dtype="float32",
-                              specaug=None)
+                              specaug=None, dropout_rate=DROPOUT)
     state = init_random_(ASRModel(cfg, device="cpu"), seed=0).state_dict()
     compare_cpu_card(torch, "fp32 train step", ASRModel, cfg, state,
                      *short_batch(cfg.vocab_size))
+
+
+# The default ASRConfig's FFN width (the flagship's d_ff is 1024).
+DEFAULT_D_FF = 2048
+
+
+def wmma_launch_ms(torch, what, call, kernels):
+    """torch.profiler's device ms a launch of each of ``kernels`` (name
+    prefixes) that call(rate) launches, at rate 0 and at DROPOUT: the
+    rate-0 instantiation (``..., false>``) at 0 and the dropout one
+    (``..., true>``) at DROPOUT, each launched, else the run fails.
+    Returns {kernel: [ms at 0, ms at DROPOUT]}."""
+    ms = {k: [] for k in kernels}
+    for rate in (0.0, DROPOUT):
+        got = port_kernels_ms(torch, lambda: call(rate), n=3)
+        flag = "true>" if rate else "false>"
+        for k in kernels:
+            hit = [v for name, v in got.items() if k in name and flag in name]
+            if len(hit) != 1:
+                raise AssertionError(f"{what} at rate {rate}: {k}... {flag} "
+                                     f"not launched: {sorted(got)}")
+            ms[k].append(hit[0])
+    return ms
+
+
+def ffn_wmma_dropout(torch, ffn, n, d, f, r):
+    """K2's fp32 launches (ffn_fwd_kernel, ffn_bwd_dx_kernel,
+    ffn_bwd_dw_kernel) at rate DROPOUT on N rows of widths D, F: forward and
+    backward against fused_ffn_plain / fused_ffn_bwd_plain with the same
+    seed, within TOL["float32"] of max |ref| per output and gradient; the
+    launches by profiler name; each launch's device time at rate 0 beside
+    DROPOUT, and its bound (fp32 operands: PEAK_FP32_FLOPS); each
+    direction's time (CUDA events) at DROPOUT beside its plain version's.
+    Returns the two kernels-line entries. The inputs are
+    bin/time_kernels.py's WMMA case at these widths."""
+    from espnet_slurp_tpu_torch.bin.time_kernels import ffn_wmma_inputs
+
+    args, g = ffn_wmma_inputs(r, n, d, f)
+    x, w1, b1, w2, _ = args
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
+    fwd = lambda rate=DROPOUT: ffn._launch_fwd(*args, seed if rate else None,
+                                               rate)
+    bwd = lambda rate=DROPOUT: ffn._launch_bwd(
+        x, w1, b1, w2, g, seed if rate else None, rate)
+    plain_fwd = lambda: ffn.fused_ffn_plain(*args, seed, dropout_rate=DROPOUT)
+    plain_bwd = lambda: ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
+                                                dropout_rate=DROPOUT)
+    got, ref = (fwd(), *bwd()), (plain_fwd(), *plain_bwd())
+    torch.cuda.synchronize()
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+    errs = [rel_err(a, b_) for a, b_ in zip(got, ref)]
+    print(f"K2 fused_ffn float32 (WMMA) N={n} D={d} F={f} dropout {DROPOUT} "
+          "against its plain versions, same seed: " + ", ".join(
+              f"{k} {e[1]:.3e}" for k, e in zip(names, errs))
+          + f" of max|ref| (tolerance {TOL['float32']})")
+    if not (max(e[1] for e in errs) <= TOL["float32"]
+            and all(torch.isfinite(a).all() for a in got)):
+        raise AssertionError("K2 fp32 with dropout disagrees with its plain "
+                             "versions")
+    del got, ref
+    launch = wmma_launch_ms(
+        torch, "K2 fp32", lambda rate: (fwd(rate), bwd(rate)),
+        ("ffn_fwd_kernel<float, 32, 32,", "ffn_bwd_dx_kernel<float, 16, 32,",
+         "ffn_bwd_dw_kernel<float, 16, 32,"))
+    bnd = ffn_bounds(n, d, f, d, 4, PEAK_FP32_FLOPS)
+    for (k, (m0, m1)), part in zip(launch.items(), ("fwd", "dx", "dw")):
+        print(f"K2 fp32 launch {k.split('<')[0]}: device {m0:.4f} ms at rate "
+              f"0 -> {m1:.4f} ms at {DROPOUT}; bound {bnd[part][0]:.4f} ms "
+              f"({bnd[part][1]})")
+    ms_f = median_ms(torch, fwd, warmup=1, reps=5)
+    ms_b = median_ms(torch, bwd, warmup=1, reps=5)
+    plain_f = median_ms(torch, plain_fwd, warmup=1, reps=5)
+    plain_b = median_ms(torch, plain_bwd, warmup=1, reps=5)
+    print(f"K2 fused_ffn float32 N={n} F={f} at dropout {DROPOUT}: forward "
+          f"{ms_f:.4f} ms (plain {plain_f:.4f}), backward {ms_b:.4f} ms "
+          f"(plain {plain_b:.4f})")
+    common = dict(route="cuda", source="espnet_slurp_tpu_torch/csrc/ffn.cu",
+                  launches=None, library_ms=None, dtype="float32",
+                  rate=DROPOUT, shape=f"N {n}, D {d}, F {f}")
+    devs = {k.split("<")[0]: v for k, v in launch.items()}
+    return [
+        dict(name="fused_ffn_fp32", **common,
+             replaces="espnet_slurp_tpu/ops/pallas/ffn.py:186",
+             max_abs_err=errs[0][0], ms=ms_f, plain_ms=plain_f,
+             bound_ms=bnd["fwd"][0], bound_by=bnd["fwd"][1],
+             device_ms_rate0_vs_dropout={
+                 k: v for k, v in devs.items() if "fwd" in k}),
+        dict(name="fused_ffn_bwd_fp32", **common,
+             replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
+             max_abs_err=max(e[0] for e in errs[1:]), ms=ms_b,
+             plain_ms=plain_b, bound_ms=bnd["bwd"][0],
+             bound_by=bnd["bwd"][1],
+             device_ms_rate0_vs_dropout={
+                 k: v for k, v in devs.items() if "bwd" in k},
+             launch_bounds_ms={k: bnd[k][0] for k in ("dx", "dw")}),
+    ]
+
+
+def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label,
+                           library=False):
+    """K3's WMMA launches (rel_flash_fwd_kernel, rel_flash_dkv_kernel,
+    rel_flash_dq_kernel) in ``dtype`` at rate DROPOUT (B x H x T x Dh, key
+    lengths T - 3 b): out and lse against rel_flash_attention_plain (fp32)
+    or rel_flash_attention_fwd_tiled_plain at the kernel's key tile of 64
+    (bf16), the backward against rel_flash_attention_bwd_plain, same seed,
+    within TOL[dtype] of max |ref| per output and gradient (lse within
+    1e-4); the launches by profiler name; each launch's device time at
+    rate 0 beside DROPOUT, and its bound; each direction's time (CUDA
+    events) at DROPOUT beside its plain version's and, with ``library``,
+    SDPA's over the precomputed bias. Returns the two kernels-line
+    entries, named with ``label``. The inputs are bin/time_kernels.py's
+    WMMA case at these shapes."""
+    from espnet_slurp_tpu_torch.bin.time_kernels import attention_wmma_inputs
+
+    name = str(dtype).split(".")[-1]
+    tname = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    tile = 32 if dtype == torch.float32 else 64
+    args, g = attention_wmma_inputs(r, dtype, h, dh, b, t)
+    lengths = args[-1]
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
+    scale = dh ** -0.5
+    kw = dict(scale=scale, dropout_rate=DROPOUT)
+    fwd = lambda rate=DROPOUT: fa._launch_fwd(*args, scale, 0, -1,
+                                              seed if rate else None, rate)
+    out, lse = fwd()
+    bwd = lambda rate=DROPOUT: fa._launch_bwd(
+        *args, out, lse, g, scale, 0, -1, seed if rate else None, rate)
+    if dtype == torch.float32:
+        plain_fwd = lambda: fa.rel_flash_attention_plain(*args, seed, **kw)
+    else:
+        plain_fwd = lambda: fa.rel_flash_attention_fwd_tiled_plain(
+            *args, seed, block_k=tile, **kw)
+    plain_bwd = lambda: fa.rel_flash_attention_bwd_plain(*args, out, lse, g,
+                                                         seed, **kw)
+    grads = bwd()
+    ref, ref_lse = plain_fwd()
+    ref_grads = plain_bwd()
+    torch.cuda.synchronize()
+    names = ("out", "dq_u", "dq_v", "dk", "dv", "dp")
+    errs = [rel_err(a, b_) for a, b_ in zip((out, *grads), (ref, *ref_grads))]
+    rel_lse = rel_err(lse, ref_lse)[1]
+    print(f"K3 rel_flash_attention {name} (WMMA) B={b} H={h} T={t} Dh={dh} "
+          f"dropout {DROPOUT} against its plain versions, same seed: "
+          + ", ".join(f"{k} {e[1]:.3e}" for k, e in zip(names, errs))
+          + f" of max|ref| (tolerance {TOL[name]}); lse {rel_lse:.3e} "
+          "(undropped; tolerance 1e-4)")
+    if not (max(e[1] for e in errs) <= TOL[name] and rel_lse <= 1e-4
+            and all(torch.isfinite(a).all() for a in (out, *grads))):
+        raise AssertionError(f"K3 {name} Dh {dh} with dropout disagrees with "
+                             "its plain versions")
+    del grads, ref, ref_lse, ref_grads
+    launch = wmma_launch_ms(
+        torch, f"K3 {name} Dh {dh}", lambda rate: (fwd(rate), bwd(rate)),
+        (f"rel_flash_fwd_kernel<{tname}, {tile}, {tile},",
+         f"rel_flash_dkv_kernel<{tname}, 32, 32,",
+         f"rel_flash_dq_kernel<{tname}, 32, 32,"))
+    allowed = fa.allowed_mask(t, lengths)
+    pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
+    esize = 4 if dtype == torch.float32 else 2
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    bnd = att_bounds(b, h, t, dh, pairs, esize, peak)
+    for (k, (m0, m1)), part in zip(launch.items(), ("fwd", "dkv", "dq")):
+        print(f"K3 {name} Dh {dh} launch {k.split('<')[0]}: device "
+              f"{m0:.4f} ms at rate 0 -> {m1:.4f} ms at {DROPOUT}; bound "
+              f"{bnd[part][0]:.4f} ms ({bnd[part][1]})")
+    ms_f = median_ms(torch, fwd, warmup=1, reps=5)
+    ms_b = median_ms(torch, bwd, warmup=1, reps=5)
+    plain_f = median_ms(torch, plain_fwd, warmup=1, reps=3)
+    plain_b = median_ms(torch, plain_bwd, warmup=1, reps=3)
+    lib_f = lib_b = None
+    if library:
+        q_u, q_v, k, v, pp, _ = args
+        raw = q_v @ pp[:, :2 * t - 1].transpose(-1, -2)
+        bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(
+            b, h, t, t))
+        bias = torch.where(allowed, bd * scale, fa.NEG).to(dtype)
+        del raw, bd
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.no_grad():
+            lib_f = median_ms(torch, lambda: sdpa(q_u, k, v, attn_mask=bias,
+                                                  scale=scale),
+                              warmup=1, reps=5)
+        leaves = [a.detach().requires_grad_(True) for a in (q_u, k, v)]
+        sd = sdpa(*leaves, attn_mask=bias, scale=scale)
+        lib_b = median_ms(torch, lambda: torch.autograd.grad(
+            sd, leaves, g, retain_graph=True), warmup=1, reps=5)
+        del sd, leaves, bias
+    print(f"K3 rel_flash_attention {name} Dh {dh} at dropout {DROPOUT}: "
+          f"forward {ms_f:.4f} ms (plain {plain_f:.4f}, SDPA {lib_f}), "
+          f"backward {ms_b:.4f} ms (plain {plain_b:.4f}, SDPA {lib_b})")
+    common = dict(route="cuda",
+                  source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
+                  launches=None, dtype=name, rate=DROPOUT,
+                  shape=f"B {b}, H {h}, T {t}, Dh {dh}")
+    devs = {k.split("<")[0]: v for k, v in launch.items()}
+    return [
+        dict(name=f"rel_flash_attention_{label}", **common,
+             replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:336",
+             max_abs_err=errs[0][0], ms=ms_f, plain_ms=plain_f,
+             bound_ms=bnd["fwd"][0], bound_by=bnd["fwd"][1], library_ms=lib_f,
+             device_ms_rate0_vs_dropout={
+                 k: v for k, v in devs.items() if "fwd" in k}),
+        dict(name=f"rel_flash_attention_bwd_{label}", **common,
+             replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:379",
+             max_abs_err=max(e[0] for e in errs[1:]), ms=ms_b,
+             plain_ms=plain_b, bound_ms=bnd["bwd"][0],
+             bound_by=bnd["bwd"][1], library_ms=lib_b,
+             device_ms_rate0_vs_dropout={
+                 k: v for k, v in devs.items() if "fwd" not in k},
+             launch_bounds_ms={k: bnd[k][0] for k in ("dkv", "dq")}),
+    ]
+
+
+def wmma_dropout_phase(torch, t_prime):
+    """The WMMA launches at the flagship train shape at rate DROPOUT: K2 fp32
+    (N 64 x T', D 256, F DEFAULT_D_FF), K3 fp32 (B 64, H 4, T', Dh 64) and
+    K3 bf16 at Dh 128 (B 64, H 2, T'), both ways. Returns the kernels-line
+    entries of the fp32 launches (the default ASRConfig's path) and the
+    records of the Dh-128 pair (on no model's path), by kernel name."""
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    entries = ffn_wmma_dropout(torch, ffn, TRAIN_B * t_prime, 256,
+                               DEFAULT_D_FF, r)
+    torch.cuda.empty_cache()
+    entries += attention_wmma_dropout(torch, fa, TRAIN_B, 4, t_prime, 64,
+                                      torch.float32, r, "fp32", library=True)
+    torch.cuda.empty_cache()
+    wide = attention_wmma_dropout(torch, fa, TRAIN_B, 2, t_prime, 128,
+                                  torch.bfloat16, r, "bf16_dh128")
+    torch.cuda.empty_cache()
+    return entries, {k["name"].replace("_bf16_dh128", ""): k for k in wide}
+
+
+def default_train_phase(torch, card):
+    """The default ASRConfig() (fp32, dropout 0.1, d_ff 2048, 12 x 256, a
+    6-block decoder, SpecAug on, flash "auto"; seeded random weights)
+    through make_train_step with Adam at constant lr 1e-3 on the flagship
+    bench traffic (64 x 15 s, U 64): a warm-up step, then TRAIN_STEPS timed
+    ones (3 if more would run past ~60 s), with exactly 24 K2 and 12 K3
+    launches each way and 1 K4 and 1 K1 each way a step. Returns the
+    launch counts of the timed steps, per step."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRConfig, ASRModel
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = ASRConfig()
+    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
+    launches, step_s, busy_ms, steps = run_train_steps(
+        torch, f"default ASRConfig train: {cfg.dtype}, d_ff {cfg.d_ff}, "
+        f"dropout {cfg.dropout_rate}, B={TRAIN_B} x {TRAIN_SECONDS} s, "
+        f"U={TRAIN_U}", model, batch, card, TRAIN_B * TRAIN_SECONDS,
+        budget_s=60.0)
+    n_blocks = cfg.num_encoder_blocks
+    check_per_step("default ASRConfig train", launches, {
+        "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+        "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
+        "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+        "ctc_lattice": 1, "ctc_lattice_bwd": 1}, steps)
+    print(f"default ASRConfig train: step {step_s:.4f} s, "
+          f"{TRAIN_B * TRAIN_SECONDS / step_s:.1f} audio-s/s, device busy "
+          f"{busy_ms:.2f} ms a profiled step, on {card}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {k: v // steps for k, v in launches.items()}, launches
 
 
 def main() -> int:
@@ -1812,12 +2152,19 @@ def main() -> int:
     train_launches, _ = train_phase(torch, card)
     train_cpu_vs_card(torch)
     dropout = dropout_phase(torch, t_train)
+    t_added = time.perf_counter()
+    wmma_kernels, wmma_dh128 = wmma_dropout_phase(torch, t_train)
+    default_per_step, default_launches = default_train_phase(torch, card)
+    t_added = time.perf_counter() - t_added
+    print(f"WMMA dropout and default ASRConfig train phases: {t_added:.1f} s")
     tr_kernels, at_tr_shape = transducer_kernel_phase(torch, t_train, t_prime)
     kernels += tr_kernels
     for kern in kernels:
         kern.update(at_tr_shape.get(kern["name"], {}))
         if kern["name"] in dropout:
             kern["dropout"] = dropout[kern["name"]]
+        if kern["name"] in wmma_dh128:
+            kern["dropout"]["wmma_bf16_dh128"] = wmma_dh128[kern["name"]]
         if kern["name"] == "rel_flash_attention":
             kern["blocks_per_sm"] = blocks["fwd Dh 64"]
         if kern["name"] == "fused_ffn":
@@ -1842,9 +2189,20 @@ def main() -> int:
             kern.update(fwd_train[name])
         if name in tr_decode:
             kern["launches_per_transducer_decode"] = tr_decode[name]
-        print(f"{name}: {kern['ms']:.4f} ms (plain {kern['plain_ms']:.4f}"
-              f" ms, library {kern['library_ms']}, bound {kern['bound_ms']:.4f}"
-              f" ms by {kern['bound_by']}) on {card}")
+        if name not in BF16_TIMED:
+            kern["launches_per_default_train_step"] = default_per_step[name]
+    for kern in wmma_kernels:
+        # The default ASRConfig's step launches K2 and K3 in fp32 only: the
+        # wrappers' counts are these kernels'.
+        base = kern["name"].replace("_fp32", "")
+        kern["launches"] = default_launches[base]
+        kern["launches_per_default_train_step"] = default_per_step[base]
+    kernels += wmma_kernels
+    for kern in kernels:
+        print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
+              f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "
+              f"bound {kern['bound_ms']:.4f} ms by {kern['bound_by']}; "
+              f"launches {kern['launches']}) on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

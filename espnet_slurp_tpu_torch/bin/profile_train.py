@@ -1,17 +1,20 @@
 """Where the time of one train step goes, on the card.
 
     python -m espnet_slurp_tpu_torch.bin.profile_train \
-        [--model asr|transducer] [--fused-conv] [--dropout RATE] [--out FILE]
+        [--model asr|default|transducer] [--fused-conv] [--dropout RATE]
+        [--out FILE]
 
 Builds the flagship ASRModel (``asr``, models/asr_model.py:flagship_config,
-on the traffic of bench.py:43-58: 64 synthetic 15 s utterances, U = 64) or
-the Conformer-transducer (``transducer``, models/transducer.py:
-transducer_flagship_config, conf/train_transducer.yaml: 32 x 15 s, U = 64,
-vocab 600), fp32 parameters, bf16 compute, dropout ``--dropout`` (default 0;
-the recipes train at 0.1), SpecAug on, random weights from a seeded
-torch.Generator; ``--fused-conv`` routes the conv modules through kernel
-K6. The port's make_train_step runs Adam at constant
-lr 1e-3. Runs two warm-up steps, times three more on the host
+on the traffic of bench.py:43-58: 64 synthetic 15 s utterances, U = 64), the
+default ASRConfig() (``default``: fp32 compute, d_ff 2048, its dropout 0.1,
+on the same traffic) or the Conformer-transducer (``transducer``,
+models/transducer.py:transducer_flagship_config, conf/train_transducer.yaml:
+32 x 15 s, U = 64, vocab 600; bf16 compute like the flagship), fp32
+parameters, dropout ``--dropout`` (default 0 for the flagship and the
+transducer, 0.1 for ``default``; the recipes train at 0.1), SpecAug on,
+random weights from a seeded torch.Generator; ``--fused-conv`` routes the
+conv modules through kernel K6. The port's make_train_step runs Adam at
+constant lr 1e-3. Runs two warm-up steps, times three more on the host
 clock (each ended by a synchronise), then profiles one with torch.profiler.
 Prints one JSON line: the unprofiled step seconds and audio-seconds per
 second; for the profiled step its wall, device busy time (sum of kernel
@@ -35,14 +38,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..models.asr_model import ASRModel, flagship_config
+from ..models.asr_model import ASRConfig, ASRModel, flagship_config
 from ..models.transducer import TransducerModel, transducer_flagship_config
 from ..train.optim import OptimConfig, build_optimizer
 from ..train.state import TrainState, make_train_step
 from ..utils.params import init_random_
 
 SECONDS, U, FS = 15, 64, 16000
-BATCH = {"asr": 64, "transducer": 32}
+BATCH = {"asr": 64, "default": 64, "transducer": 32}
 RANGES = ("train_step.forward", "train_step.backward", "train_step.update")
 KINDS = (("matmul", ("gemm", "sm90_", "cutlass", "xmma", "cublas")),
          ("conv", ("conv", "cudnn", "implicit", "winograd", "fft")),
@@ -66,8 +69,9 @@ def main() -> None:
     ap.add_argument("--model", choices=sorted(BATCH), default="asr")
     ap.add_argument("--fused-conv", action="store_true",
                     help="conv modules through kernel K6")
-    ap.add_argument("--dropout", type=float, default=0.0,
-                    help="the encoder's dropout rate")
+    ap.add_argument("--dropout", type=float, default=None,
+                    help="the encoder's dropout rate (default: 0, or 0.1 "
+                         "for --model default)")
     ap.add_argument("--out", help="also write the JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -78,16 +82,18 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.model == "asr":
-        cfg = dataclasses.replace(flagship_config(),
-                                  fused_conv=args.fused_conv,
-                                  dropout_rate=args.dropout)
+    if args.model in ("asr", "default"):
+        base = flagship_config() if args.model == "asr" else ASRConfig()
+        rate = args.dropout if args.dropout is not None else (
+            base.dropout_rate if args.model == "default" else 0.0)
+        cfg = dataclasses.replace(base, fused_conv=args.fused_conv,
+                                  dropout_rate=rate)
         model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
     else:
         base = transducer_flagship_config()
         cfg = dataclasses.replace(base, asr=dataclasses.replace(
             base.asr, fused_conv=args.fused_conv,
-            dropout_rate=args.dropout)).asr
+            dropout_rate=args.dropout or 0.0)).asr
         model = init_random_(TransducerModel(
             dataclasses.replace(base, asr=cfg), device="cuda"), seed=0)
     B = BATCH[args.model]
@@ -148,6 +154,8 @@ def main() -> None:
         "card": card,
         "model": args.model,
         "fused_conv": args.fused_conv,
+        "dtype": cfg.dtype,
+        "dropout": cfg.dropout_rate,
         "batch": f"{B} x {SECONDS} s, U {U}, V {cfg.vocab_size}",
         "step_s": step_s,
         "steps_s": times,

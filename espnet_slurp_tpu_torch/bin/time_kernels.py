@@ -1,6 +1,8 @@
-"""Times kernel K2's forward (fused FFN) and K4's backward (fused CTC head).
+"""Times kernel K2's forward (fused FFN) and K4's backward (fused CTC head),
+or with ``--wmma`` the WMMA launches of K2 and K3.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
+    python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
 
 bf16, inputs from a seeded torch.Generator. K2's forward (``_launch_fwd``,
 D 256, F 1024) at N = 8 x 471 (serving), 64 x 468 (flagship train step)
@@ -16,10 +18,16 @@ launch of each of the port's kernels over 10 calls, and ``device_ms``,
 their sum (each kernel launches once a call); ``peak_mb``, what one call
 adds to peak memory; ``plain_ms``, the plain composition's time (K2:
 fused_ffn_plain; K4: autograd's backward of fused_ctc_head_emit_plain) by
-the same events. Prints one JSON line with the card's name and power limit
-(nvidia-smi) and the kernel modules' paths. To time another checkout's
-kernels, run this file with that checkout's root as the working directory
-and ``PYTHONPATH=.``. Needs a CUDA device.
+the same events. ``--wmma`` instead times, at rate 0 and (``--rate`` above
+0) at that dropout rate, each direction's launch of K2's fp32 route (N 64
+x 468, D 256, d_ff 2048: the default ASRConfig's train step) and of K3's
+WMMA routes (B 64, T' 468, key lengths T' - 3 b: fp32 at H 4, Dh 64, the
+default ASRConfig's; bf16 at H 2, Dh 128): ``ms`` (the median of two event
+medians of 3 runs after one warm-up) and ``kernels_ms`` / ``device_ms``
+(torch.profiler over 5 calls). Prints one JSON line with the card's name
+and power limit (nvidia-smi) and the kernel modules' paths. To time
+another checkout's kernels, run this file with that checkout's root as
+the working directory and ``PYTHONPATH=.``. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,12 +41,19 @@ import torch
 from espnet_slurp_tpu_torch.bin.time_attention import batched_ms, median_ms
 from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
 from espnet_slurp_tpu_torch.ops.kernels import ffn
+from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
 
 D, F_FF, V, U = 256, 1024, 5000, 64
 # name: rows of K2's forward
 FFN_CASES = {"ffn_fwd_serving": 8 * 471, "ffn_fwd_train": 64 * 468,
              "ffn_fwd_transducer": 32 * 468}
 HEAD_B, HEAD_T = 64, 468
+# --wmma: rows and width of K2's fp32 launches; (dtype, H, Dh) of K3's
+# WMMA launches at B 64, T' 468.
+WMMA_N, WMMA_F, WMMA_B, WMMA_T = 64 * 468, 2048, 64, 468
+WMMA_ATT = {"fp32_dh64": (torch.float32, 4, 64),
+            "bf16_dh128": (torch.bfloat16, 2, 128)}
+WMMA_SEED = 20241017
 
 
 def kernels_ms(fn, n=10) -> dict:
@@ -73,6 +88,61 @@ def timed(call, plain) -> dict:
             "peak_mb": peak_mb(call), "plain_ms": median_ms(plain)}
 
 
+def ffn_wmma_inputs(r, n=WMMA_N, d=D, f=WMMA_F):
+    """K2's fp32 WMMA case from the draw ``r``: (x [N, D], W1 [D, F], b1,
+    W2 [F, D], b2) and a cotangent [N, D], fp32."""
+    x, g = r(n, d), r(n, d)
+    return (x, r(d, f) * d ** -0.5, r(f) * 0.1, r(f, d) * f ** -0.5,
+            r(d) * 0.1), g
+
+
+def attention_wmma_inputs(r, dtype, h, dh, b=WMMA_B, t=WMMA_T):
+    """K3's WMMA case from the draw ``r``: (q_u, q_v, k, v [B, H, T, Dh], p
+    [H, 2T, Dh] with its unused last row 0, in ``dtype``; key lengths
+    T - 3 b) and a cotangent [B, H, T, Dh] in ``dtype``."""
+    lengths = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                           device="cuda")
+    p = r(h, 2 * t, dh) * 0.5
+    p[:, -1] = 0.0
+    args = [(r(b, h, t, dh) * 0.5).to(dtype) for _ in range(4)] + [
+        p.to(dtype), lengths]
+    return args, r(b, h, t, dh).to(dtype)
+
+
+def wmma_cases(gen, rate):
+    """(name, call) of each WMMA launch at ``rate``: K2 fp32 forward and
+    backward, then K3's forward and backward per WMMA_ATT entry."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    seed = torch.tensor([WMMA_SEED], dtype=torch.int32, device="cuda") \
+        if rate > 0 else None
+    (x, w1, b1, w2, b2), g = ffn_wmma_inputs(r)
+    cases = [("k2_fp32_fwd", lambda: ffn._launch_fwd(x, w1, b1, w2, b2, seed,
+                                                     rate)),
+             ("k2_fp32_bwd", lambda: ffn._launch_bwd(x, w1, b1, w2, g, seed,
+                                                     rate))]
+    for name, (dt, h, dh) in WMMA_ATT.items():
+        args, go = attention_wmma_inputs(r, dt, h, dh)
+        scale = dh ** -0.5
+        out, lse = fa._launch_fwd(*args, scale, 0, -1, seed, rate)
+        cases += [
+            (f"k3_{name}_fwd", lambda a=args, s=scale: fa._launch_fwd(
+                *a, s, 0, -1, seed, rate)),
+            (f"k3_{name}_bwd", lambda a=args, s=scale, o=out, l=lse, c=go:
+             fa._launch_bwd(*a, o, l, c, s, 0, -1, seed, rate))]
+    return cases
+
+
+def wmma_timings(gen, rate) -> dict:
+    out = {}
+    for name, call in wmma_cases(gen, rate):
+        times = [median_ms(call, warmup=1, reps=3) for _ in range(2)]
+        per_kernel = kernels_ms(call, n=5)
+        out[name] = {"rate": rate, "ms": float(np.median(times)),
+                     "runs_ms": times, "device_ms": sum(per_kernel.values()),
+                     "kernels_ms": per_kernel}
+    return out
+
+
 def head_case(gen):
     """K4's backward inputs at the flagship train shape, and the autograd
     backward of its plain version on them."""
@@ -97,6 +167,10 @@ def head_case(gen):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--wmma", action="store_true",
+                    help="time the WMMA launches of K2 and K3 instead")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="with --wmma, also time them at this dropout rate")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -106,6 +180,12 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"card": card, "modules": [ffn.__file__, kh.__file__]}
+    if args.wmma:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        result["rate_0"] = wmma_timings(gen, 0.0)
+        if args.rate > 0:
+            result[f"rate_{args.rate}"] = wmma_timings(gen, args.rate)
+        return emit(result, args.out)
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     bf = torch.bfloat16
     w1, b1 = (r(D, F_FF) * D ** -0.5).to(bf), r(F_FF) * 0.1
@@ -118,10 +198,14 @@ def main() -> int:
     call, plain = head_case(gen)
     result["ctc_head_bwd_train"] = {"B": HEAD_B, "T": HEAD_T, "V": V,
                                     **timed(call, plain)}
+    return emit(result, args.out)
+
+
+def emit(result, out) -> int:
     line = json.dumps(result)
     print(line)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(line + "\n")
     return 0
 

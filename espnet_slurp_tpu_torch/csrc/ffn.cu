@@ -12,25 +12,29 @@
 // composition instead writes and re-reads an [N, F] hidden (4x the size of x)
 // and its activation, which is what the TPU kernel was written to avoid.
 //
-// The float32 forward (ffn_fwd_kernel<float>) serves the fp32 card-against-CPU
-// checks: one block owns BM rows of x in shared memory and walks F in chunks
-// of BF, the hidden chunk formed and passed through swish in shared memory and
-// multiplied at once into a [BM, D2] accumulator there (plain FMAs, no
-// pipelining). The bf16 forward is the register-resident ffn_fwd::fwd_kernel
-// further below. Neither writes an [N, F] hidden to global memory.
+// The float32 forward (ffn_fwd_kernel<float>) is the route of fp32 training
+// (the default ASRConfig) and of the fp32 card-against-CPU checks: one block
+// owns BM rows of x in shared memory and walks F in chunks of BF, the hidden
+// chunk formed and passed through swish in shared memory and multiplied at
+// once into a [BM, D2] accumulator there (plain FMAs, no pipelining). The
+// bf16 forward is the register-resident ffn_fwd::fwd_kernel further below.
+// Neither writes an [N, F] hidden to global memory.
 //
-// Dropout on the hidden (the reference's _keep_mask) is drawn in the bf16
-// launches only, from philox.cuh; the fp32 launches run at rate 0, and
-// their C entries refuse a seed.
+// Dropout on the hidden (the reference's _keep_mask) is drawn in every
+// launch, from philox.cuh, at the element's global (row, column): the bf16
+// kernels per lane with keep8, the fp32 ones (DROP) into a BM x BF byte
+// tile in shared memory per hidden chunk with fill_keep_tile. Each kernel
+// has a rate-0 instantiation without the draw.
 #include "common.cuh"
 #include "mma_gemm.cuh"
 #include "philox.cuh"
 
 namespace espnet {
 
+// drop: a BM x BF keep tile (bytes) after the accumulator.
 struct FfnLayout {
-  size_t xs, w1s, hf, hs, w2s, acc, total;
-  __host__ __device__ FfnLayout(int d, int d2, int bm, int bf, int esize) {
+  size_t xs, w1s, hf, hs, w2s, acc, keep, total;
+  __host__ __device__ FfnLayout(int d, int d2, int bm, int bf, int esize, bool drop) {
     const int p = 16 / esize;
     xs = 0;
     w1s = align128(xs + (size_t)bm * (d + p) * esize);
@@ -38,39 +42,47 @@ struct FfnLayout {
     hs = align128(hf + (size_t)bm * (bf + 4) * 4);
     w2s = align128(hs + (size_t)bm * (bf + p) * esize);
     acc = align128(w2s + (size_t)bf * (d2 + p) * esize);
-    total = align128(acc + (size_t)bm * (d2 + 4) * 4);
+    keep = align128(acc + (size_t)bm * (d2 + 4) * 4);
+    total = align128(keep + (drop ? (size_t)bm * bf : 0));
   }
 };
 
-template <typename T, int BM, int BF>
+template <typename T, int BM, int BF, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __restrict__ b1,
                    const T* __restrict__ w2, const float* __restrict__ b2, T* __restrict__ out,
-                   int n, int d, int f, int d2) {
+                   int n, int d, int f, int d2, philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
-  const FfnLayout L(d, d2, BM, BF, sizeof(T));
+  const FfnLayout L(d, d2, BM, BF, sizeof(T), DROP);
   T* xs = reinterpret_cast<T*>(smem + L.xs);
   T* w1s = reinterpret_cast<T*>(smem + L.w1s);
   float* hf = reinterpret_cast<float*>(smem + L.hf);
   T* hs = reinterpret_cast<T*>(smem + L.hs);
   T* w2s = reinterpret_cast<T*>(smem + L.w2s);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
+  unsigned char* keep = smem + L.keep;  // [BM][BF], DROP only
   const int ldx = d + P, ldw1 = BF + P, ldhf = BF + 4, ldh = BF + P, ldw2 = d2 + P,
             ldacc = d2 + 4;
 
   const long row0 = (long)blockIdx.x * BM;
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
   load_rows(xs, ldx, x, d, row0, BM, d, 0, n);
   for (int f0 = 0; f0 < f; f0 += BF) {
     load_rows(w1s, ldw1, w1 + f0, f, 0, d, BF, 0, d);
     load_rows(w2s, ldw2, w2, d2, f0, BF, d2, 0, f);
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BM, BF>(keep, BF, seed, 0u, (uint32_t)row0, (uint32_t)f0, drop.thr);
+    }
     __syncthreads();
     smem_gemm<false>(xs, ldx, w1s, ldw1, hf, ldhf, BM, BF, d, false);
     for (int idx = threadIdx.x; idx < BM * BF; idx += blockDim.x) {
       const int r = idx / BF;
       const int c = idx - r * BF;
       const float s = hf[r * ldhf + c] + b1[f0 + c];
-      hs[r * ldh + c] = from_f32<T>(s / (1.0f + expf(-s)));
+      float h = s / (1.0f + expf(-s));
+      if constexpr (DROP) h = keep[r * BF + c] ? h * drop.inv : 0.0f;
+      hs[r * ldh + c] = from_f32<T>(h);
     }
     __syncthreads();
     smem_gemm<false>(hs, ldh, w2s, ldw2, acc, ldacc, BM, d2, BF, f0 > 0);
@@ -83,21 +95,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// drop.seed null: the rate-0 instantiation.
 template <typename T, int BM, int BF>
 int launch_ffn(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-               void* out, int n, int d, int f, int d2, cudaStream_t stream) {
+               void* out, int n, int d, int f, int d2, const philox::Dropout& drop,
+               cudaStream_t stream) {
   if (n <= 0 || d % 16 || d2 % 16 || f % BF) return (int)cudaErrorInvalidValue;
-  const FfnLayout L(d, d2, BM, BF, sizeof(T));
+  const bool dropping = drop.seed != nullptr;
+  const FfnLayout L(d, d2, BM, BF, sizeof(T), dropping);
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (L.total > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = ffn_fwd_kernel<T, BM, BF>;
+  auto kernel = dropping ? ffn_fwd_kernel<T, BM, BF, true> : ffn_fwd_kernel<T, BM, BF, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   const dim3 grid((n + BM - 1) / BM);
   kernel<<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2,
-      static_cast<T*>(out), n, d, f, d2);
+      static_cast<T*>(out), n, d, f, d2, drop);
   return (int)cudaGetLastError();
 }
 
@@ -415,12 +430,15 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 // ---- Backward, float32 ----------------------------------------------------
 //
 // The fp32 instantiation of espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel,
-// which serves the fp32 card-against-CPU checks (the bf16 backward is the
-// tensor-core version further below). From the output cotangent g it
-// recomputes s = x W1 + b1 chunk by chunk over F and forms
-//   dW2 = hd^T g, db2 = sum g, dh = g W2^T, ds = dh * swish'(s),
+// the route of fp32 training and of the fp32 card-against-CPU checks (the
+// bf16 backward is the tensor-core version further below). From the output
+// cotangent g it recomputes s = x W1 + b1 chunk by chunk over F and forms
+//   hd = keep ? s sig(s) / (1 - rate) : 0, dW2 = hd^T g, db2 = sum g,
+//   dh = keep ? (g W2^T) / (1 - rate) : 0, ds = dh * swish'(s),
 //   dW1 = x^T ds, db1 = sum ds, dx = ds W1^T,
-// with swish'(s) = sig(s) (1 + s (1 - sig(s))). Two kernels, each
+// with swish'(s) = sig(s) (1 + s (1 - sig(s))) and keep the forward's mask
+// (DROP: drawn again into a BM x BF byte tile per row tile and hidden
+// chunk, as the forward draws it). Two kernels, each
 // recomputing s and dh: dx (one block per BM rows, F walked in BF chunks, the
 // [BM, D] accumulator in shared memory) and dw (one block per (F chunk, row
 // split), dW1^T / dW2 / db1 / db2 accumulated over the split's row tiles in
@@ -428,8 +446,9 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 // deterministic, no atomics).
 
 struct FfnBwdLayout {
-  size_t xs, gs, w1s, w2s, sf, dhf, t1, t2, acc1, acc2, db1, db2, total;
-  __host__ __device__ FfnBwdLayout(int d, int d2, int bm, int bf, int esize, bool dw) {
+  size_t xs, gs, w1s, w2s, sf, dhf, t1, t2, acc1, acc2, db1, db2, keep, total;
+  __host__ __device__ FfnBwdLayout(int d, int d2, int bm, int bf, int esize, bool dw,
+                                   bool drop) {
     const int p = 16 / esize;
     xs = 0;
     gs = align128(xs + (size_t)bm * (d + p) * esize);
@@ -446,18 +465,20 @@ struct FfnBwdLayout {
     acc2 = align128(acc1 + (size_t)(dw ? bf : bm) * (d + 4) * 4);
     db1 = align128(acc2 + (dw ? (size_t)bf * (d2 + 4) * 4 : 0));
     db2 = align128(db1 + (size_t)bf * 4);
-    total = align128(db2 + (dw ? (size_t)d2 * 4 : 0));
+    keep = align128(db2 + (dw ? (size_t)d2 * 4 : 0));  // [BM][BF] bytes, drop only
+    total = align128(keep + (drop ? (size_t)bm * bf : 0));
   }
 };
 
-template <typename T, int BM, int BF>
+template <typename T, int BM, int BF, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                       const float* __restrict__ b1, const T* __restrict__ w2,
-                      const T* __restrict__ g, T* __restrict__ dx, int n, int d, int f, int d2) {
+                      const T* __restrict__ g, T* __restrict__ dx, int n, int d, int f, int d2,
+                      philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
-  const FfnBwdLayout L(d, d2, BM, BF, sizeof(T), false);
+  const FfnBwdLayout L(d, d2, BM, BF, sizeof(T), false, DROP);
   T* xs = reinterpret_cast<T*>(smem + L.xs);
   T* gs = reinterpret_cast<T*>(smem + L.gs);
   T* w1s = reinterpret_cast<T*>(smem + L.w1s);
@@ -466,15 +487,20 @@ __global__ void __launch_bounds__(kThreads)
   float* dhf = reinterpret_cast<float*>(smem + L.dhf);
   T* dss = reinterpret_cast<T*>(smem + L.t1);
   float* acc = reinterpret_cast<float*>(smem + L.acc1);
+  unsigned char* keep = smem + L.keep;  // [BM][BF], DROP only
   const int ldx = d + P, ldg = d2 + P, ldw1 = BF + P, ldw2 = d2 + P, ldf = BF + 4, ldds = BF + P,
             ldacc = d + 4;
 
   const long row0 = (long)blockIdx.x * BM;
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
   load_rows(xs, ldx, x, d, row0, BM, d, 0, n);
   load_rows(gs, ldg, g, d2, row0, BM, d2, 0, n);
   for (int f0 = 0; f0 < f; f0 += BF) {
     load_rows(w1s, ldw1, w1 + f0, f, 0, d, BF, 0, d);
     load_rows(w2s, ldw2, w2, d2, f0, BF, d2, 0, f);
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BM, BF>(keep, BF, seed, 0u, (uint32_t)row0, (uint32_t)f0, drop.thr);
+    }
     __syncthreads();
     smem_gemm<false>(xs, ldx, w1s, ldw1, sf, ldf, BM, BF, d, false);
     smem_gemm<true>(gs, ldg, w2s, ldw2, dhf, ldf, BM, BF, d2, false);
@@ -483,7 +509,9 @@ __global__ void __launch_bounds__(kThreads)
       const int c = idx - r * BF;
       const float s = sf[r * ldf + c] + b1[f0 + c];
       const float sig = 1.0f / (1.0f + expf(-s));
-      dss[r * ldds + c] = from_f32<T>(dhf[r * ldf + c] * sig * (1.0f + s * (1.0f - sig)));
+      float dh = dhf[r * ldf + c];
+      if constexpr (DROP) dh = keep[r * BF + c] ? dh * drop.inv : 0.0f;
+      dss[r * ldds + c] = from_f32<T>(dh * sig * (1.0f + s * (1.0f - sig)));
     }
     __syncthreads();
     smem_gemm<true>(dss, ldds, w1s, ldw1, acc, ldacc, BM, d, BF, f0 > 0);
@@ -496,16 +524,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BM, int BF>
+template <typename T, int BM, int BF, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     ffn_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                       const float* __restrict__ b1, const T* __restrict__ w2,
                       const T* __restrict__ g, float* __restrict__ dw1p, float* __restrict__ db1p,
                       float* __restrict__ dw2p, float* __restrict__ db2p, int n, int d, int f,
-                      int d2) {
+                      int d2, philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
-  const FfnBwdLayout L(d, d2, BM, BF, sizeof(T), true);
+  const FfnBwdLayout L(d, d2, BM, BF, sizeof(T), true, DROP);
   T* xs = reinterpret_cast<T*>(smem + L.xs);
   T* gs = reinterpret_cast<T*>(smem + L.gs);
   T* w1s = reinterpret_cast<T*>(smem + L.w1s);
@@ -518,6 +546,8 @@ __global__ void __launch_bounds__(kThreads)
   float* acc2 = reinterpret_cast<float*>(smem + L.acc2);
   float* db1 = reinterpret_cast<float*>(smem + L.db1);
   float* db2 = reinterpret_cast<float*>(smem + L.db2);
+  unsigned char* keep = smem + L.keep;  // [BM][BF], DROP only
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
   const int ldx = d + P, ldg = d2 + P, ldw1 = BF + P, ldw2 = d2 + P, ldf = BF + 4, ldt = BM + P,
             lda1 = d + 4, lda2 = d2 + 4;
   const int f0 = blockIdx.x * BF;
@@ -540,6 +570,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's readers of xs / gs are done
     load_rows(xs, ldx, x, d, row0, BM, d, 0, n);
     load_rows(gs, ldg, g, d2, row0, BM, d2, 0, n);
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BM, BF>(keep, BF, seed, 0u, (uint32_t)row0, (uint32_t)f0, drop.thr);
+    }
     __syncthreads();
     smem_gemm<false>(xs, ldx, w1s, ldw1, sf, ldf, BM, BF, d, false);
     smem_gemm<true>(gs, ldg, w2s, ldw2, dhf, ldf, BM, BF, d2, false);
@@ -551,8 +584,14 @@ __global__ void __launch_bounds__(kThreads)
       if (r < valid) {
         const float s = sf[r * ldf + c] + b1[f0 + c];
         const float sig = 1.0f / (1.0f + expf(-s));
+        float dh = dhf[r * ldf + c];
         h = s * sig;
-        ds = dhf[r * ldf + c] * sig * (1.0f + s * (1.0f - sig));
+        if constexpr (DROP) {
+          const bool on = keep[r * BF + c];
+          h = on ? h * drop.inv : 0.0f;
+          dh = on ? dh * drop.inv : 0.0f;
+        }
+        ds = dh * sig * (1.0f + s * (1.0f - sig));
       }
       hdt[c * ldt + r] = from_f32<T>(h);
       dst[c * ldt + r] = from_f32<T>(ds);
@@ -591,23 +630,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// drop.seed null: the rate-0 instantiations.
 template <typename T, int BM, int BF>
 int launch_ffn_bwd(const void* x, const void* w1, const float* b1, const void* w2, const void* g,
                    void* dx, float* dw1p, float* db1p, float* dw2p, float* db2p, int nsplit,
-                   int n, int d, int f, int d2, cudaStream_t stream) {
+                   int n, int d, int f, int d2, const philox::Dropout& drop,
+                   cudaStream_t stream) {
   if (n <= 0 || d % 16 || d2 % 16 || f % BF || nsplit <= 0 || nsplit > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const FfnBwdLayout Lx(d, d2, BM, BF, sizeof(T), false);
-  const FfnBwdLayout Lw(d, d2, BM, BF, sizeof(T), true);
+  const bool dropping = drop.seed != nullptr;
+  const FfnBwdLayout Lx(d, d2, BM, BF, sizeof(T), false, dropping);
+  const FfnBwdLayout Lw(d, d2, BM, BF, sizeof(T), true, dropping);
   if (Lx.total > (size_t)max_smem || Lw.total > (size_t)max_smem) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  auto kx = ffn_bwd_dx_kernel<T, BM, BF>;
-  auto kw = ffn_bwd_dw_kernel<T, BM, BF>;
+  auto kx = dropping ? ffn_bwd_dx_kernel<T, BM, BF, true> : ffn_bwd_dx_kernel<T, BM, BF, false>;
+  auto kw = dropping ? ffn_bwd_dw_kernel<T, BM, BF, true> : ffn_bwd_dw_kernel<T, BM, BF, false>;
   cudaFuncSetAttribute(kx, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lx.total);
   cudaFuncSetAttribute(kw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lw.total);
   const T* xt = static_cast<const T*>(x);
@@ -615,10 +657,10 @@ int launch_ffn_bwd(const void* x, const void* w1, const float* b1, const void* w
   const T* w2t = static_cast<const T*>(w2);
   const T* gt = static_cast<const T*>(g);
   kx<<<(n + BM - 1) / BM, kThreads, Lx.total, stream>>>(xt, w1t, b1, w2t, gt, static_cast<T*>(dx),
-                                                        n, d, f, d2);
+                                                        n, d, f, d2, drop);
   if (int err = (int)cudaGetLastError()) return err;
   kw<<<dim3(f / BF, nsplit), kThreads, Lw.total, stream>>>(xt, w1t, b1, w2t, gt, dw1p, db1p, dw2p,
-                                                          db2p, n, d, f, d2);
+                                                          db2p, n, d, f, d2, drop);
   return (int)cudaGetLastError();
 }
 
@@ -896,8 +938,8 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 // dtype: 0 = float32, 1 = bfloat16. part: fp32 [nsplit, N, D2] scratch of
 // the bf16 path when nsplit > 1 (espnet_fused_ffn_fwd_splits gives nsplit;
 // fp32 takes nsplit 1 and no scratch). seed: int32 [1] on the device, or
-// null for no dropout (bf16 only); thr = floor(rate * 2^16), inv = 1 / (1 -
-// rate). Returns a cudaError_t code (0 = launched).
+// null for no dropout; thr = floor(rate * 2^16), inv = 1 / (1 - rate).
+// Returns a cudaError_t code (0 = launched).
 extern "C" int espnet_fused_ffn_fwd(int dtype, const void* x, const void* w1, const float* b1,
                                     const void* w2, const float* b2, void* out, float* part,
                                     int nsplit, int n, int d, int f, int d2, const int* seed,
@@ -909,8 +951,9 @@ extern "C" int espnet_fused_ffn_fwd(int dtype, const void* x, const void* w1, co
                                    static_cast<const bf16*>(w2), b2, static_cast<bf16*>(out), part,
                                    nsplit, n, d, f, d2, {seed, thr, inv}, s);
   }
-  if (dtype == 0 && nsplit == 1 && !seed) {
-    return espnet::launch_ffn<float, 32, 32>(x, w1, b1, w2, b2, out, n, d, f, d2, s);
+  if (dtype == 0 && nsplit == 1) {
+    return espnet::launch_ffn<float, 32, 32>(x, w1, b1, w2, b2, out, n, d, f, d2,
+                                             {seed, thr, inv}, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -934,9 +977,10 @@ extern "C" int espnet_fused_ffn_takes(int dtype, int n, int d, int f, int d2) {
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t need[] = {espnet::FfnLayout(d, d2, 32, 32, 4).total,
-                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, false).total,
-                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, true).total};
+  // With the keep tiles of a rate above 0 (the larger layouts).
+  const size_t need[] = {espnet::FfnLayout(d, d2, 32, 32, 4, true).total,
+                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, false, true).total,
+                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, true, true).total};
   for (size_t b : need) {
     if (b > (size_t)max_smem) return 0;
   }
@@ -959,8 +1003,8 @@ extern "C" int espnet_fused_ffn_bwd_row_tile() { return espnet::ffn_bwd::kRowTil
 // caller: dw1p [nsplit, D, F], dw2p [nsplit, F, D2], db2p [nsplit, D2], and
 // db1p [parts, F] with parts = cdiv(N, espnet_fused_ffn_bwd_row_tile()) in
 // bf16 and nsplit in fp32. hd and ds: bf16 [N, F] scratch of the bf16 path
-// (unused in fp32). seed, thr, inv: the forward's dropout (bf16 only; seed
-// null for none). Returns a cudaError_t code.
+// (unused in fp32). seed, thr, inv: the forward's dropout (seed null for
+// none). Returns a cudaError_t code.
 extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, const float* b1,
                                     const void* w2, const void* g, void* dx, void* hd, void* ds,
                                     float* dw1p, float* db1p, float* dw2p, float* db2p,
@@ -975,9 +1019,9 @@ extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, co
         static_cast<bf16*>(hd), static_cast<bf16*>(ds), dw1p, db1p, dw2p, db2p, nsplit, n, d, f,
         d2, {seed, thr, inv}, s);
   }
-  if (dtype == 0 && !seed) {
+  if (dtype == 0) {
     return espnet::launch_ffn_bwd<float, 16, 32>(x, w1, b1, w2, g, dx, dw1p, db1p, dw2p, db2p,
-                                                 nsplit, n, d, f, d2, s);
+                                                 nsplit, n, d, f, d2, {seed, thr, inv}, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -38,19 +38,21 @@
 // memory, no pipelining.
 //
 // Dropout on the probabilities (the reference's _dropout_keep) is drawn in
-// the three bf16 launches at Dh 32 / 64 only (rel_fwd, rel_dkv, rel_dq),
-// from philox.cuh with (b * H + h, query, key) as the element's
-// coordinates; the WMMA kernels run at rate 0, and the C entries refuse a
-// seed on their routes.
+// every launch, from philox.cuh with (b * H + h, query, key) as the
+// element's coordinates: the bf16 kernels at Dh 32 / 64 (rel_fwd, rel_dkv,
+// rel_dq) per lane with keep8, the WMMA kernels (DROP) into a BQ x BK byte
+// tile in shared memory per (query tile, key tile) pair with
+// fill_keep_tile. Each kernel has a rate-0 instantiation without the draw.
 #include "common.cuh"
 #include "mma_gemm.cuh"
 #include "philox.cuh"
 
 namespace espnet {
 
+// drop: a BQ x BK keep tile (bytes) at the end.
 struct FlashLayout {
-  size_t qus, qvs, ks, vs, slab, raw, sc, ps, o, m, l, alpha, total;
-  __host__ __device__ FlashLayout(int dh, int bq, int bk, int esize) {
+  size_t qus, qvs, ks, vs, slab, raw, sc, ps, o, m, l, alpha, keep, total;
+  __host__ __device__ FlashLayout(int dh, int bq, int bk, int esize, bool drop) {
     const int p = 16 / esize;
     const size_t row = (size_t)(dh + p) * esize;
     qus = 0;
@@ -65,20 +67,24 @@ struct FlashLayout {
     m = align128(o + (size_t)bq * (dh + 4) * 4);
     l = align128(m + (size_t)bq * 4);
     alpha = align128(l + (size_t)bq * 4);
-    total = align128(alpha + (size_t)bq * 4);
+    keep = align128(alpha + (size_t)bq * 4);
+    total = align128(keep + (drop ? (size_t)bq * bk : 0));
   }
 };
 
-template <typename T, int BQ, int BK>
+// DROP: P is dropped (kept entries scaled by 1 / (1 - rate), the others 0)
+// before it multiplies v, after its undropped value went into l, so lse
+// stays the undropped one, as in rel_fwd::fwd_kernel and the reference.
+template <typename T, int BQ, int BK, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     rel_flash_fwd_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                          const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ p, const int* __restrict__ lengths,
                          T* __restrict__ out, float* __restrict__ lse, int h, int t, int dh,
-                         float scale, int chunk_size, int left_chunks) {
+                         float scale, int chunk_size, int left_chunks, philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
-  const FlashLayout L(dh, BQ, BK, sizeof(T));
+  const FlashLayout L(dh, BQ, BK, sizeof(T), DROP);
   T* qus = reinterpret_cast<T*>(smem + L.qus);
   T* qvs = reinterpret_cast<T*>(smem + L.qvs);
   T* ks = reinterpret_cast<T*>(smem + L.ks);
@@ -91,6 +97,7 @@ __global__ void __launch_bounds__(kThreads)
   float* m = reinterpret_cast<float*>(smem + L.m);
   float* l = reinterpret_cast<float*>(smem + L.l);
   float* alpha = reinterpret_cast<float*>(smem + L.alpha);
+  unsigned char* keep = smem + L.keep;  // [BQ][BK], DROP only
   const int ld = dh + P, ldraw = BQ + BK + 4, ldsc = BK + 4, ldps = BK + P, ldo = dh + 4;
 
   const int bh = blockIdx.y;
@@ -101,6 +108,7 @@ __global__ void __launch_bounds__(kThreads)
   const long base = (long)bh * t * dh;
   const T* pb = p + (long)hh * 2 * t * dh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
 
   load_rows(qus, ld, qu + base, dh, i0, BQ, dh, 0, t);
   load_rows(qvs, ld, qv + base, dh, i0, BQ, dh, 0, t);
@@ -118,6 +126,10 @@ __global__ void __launch_bounds__(kThreads)
     load_rows(ks, ld, k + base, dh, j0, BK, dh, 0, t);
     load_rows(vs, ld, v + base, dh, j0, BK, dh, 0, t);
     load_rows(slab, ld, pb, dh, (long)t - BQ - i0 + j0, BQ + BK, dh, 0, 2L * t);
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BQ, BK>(keep, BK, seed, (uint32_t)bh, (uint32_t)i0, (uint32_t)j0,
+                                     drop.thr);
+    }
     __syncthreads();
     smem_gemm<true>(qus, ld, ks, ld, sc, ldsc, BQ, BK, dh, false);
     smem_gemm<true>(qvs, ld, slab, ld, raw, ldraw, BQ, BQ + BK, dh, false);
@@ -148,7 +160,9 @@ __global__ void __launch_bounds__(kThreads)
       float sum = 0.0f;
       for (int c = lane; c < BK; c += 32) {
         const float e = expf(sc[r * ldsc + c] - m_new);
-        ps[r * ldps + c] = from_f32<T>(e);
+        float pe = e;
+        if constexpr (DROP) pe = keep[r * BK + c] ? e * drop.inv : 0.0f;
+        ps[r * ldps + c] = from_f32<T>(pe);
         sum += e;
       }
       sum = warp_sum(sum);
@@ -182,22 +196,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// drop.seed null: the rate-0 instantiation.
 template <typename T, int BQ, int BK>
 int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* v, const void* p,
                      const int* lengths, void* out, float* lse, int b, int h, int t, int dh,
-                     float scale, int chunk_size, int left_chunks, cudaStream_t stream) {
-  const FlashLayout L(dh, BQ, BK, sizeof(T));
+                     float scale, int chunk_size, int left_chunks, const philox::Dropout& drop,
+                     cudaStream_t stream) {
+  const bool dropping = drop.seed != nullptr;
+  const FlashLayout L(dh, BQ, BK, sizeof(T), dropping);
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (L.total > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = rel_flash_fwd_kernel<T, BQ, BK>;
+  auto kernel =
+      dropping ? rel_flash_fwd_kernel<T, BQ, BK, true> : rel_flash_fwd_kernel<T, BQ, BK, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   const dim3 grid((t + BQ - 1) / BQ, b * h);
   kernel<<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(p), lengths, static_cast<T*>(out), lse, h,
-      t, dh, scale, chunk_size, left_chunks);
+      t, dh, scale, chunk_size, left_chunks, drop);
   return (int)cudaGetLastError();
 }
 
@@ -212,7 +230,11 @@ int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* 
 //   dv = P^T dO,  dp[T-1-i+j] += ds[i, j] q_v[i]  (summed over the batch).
 // A fully masked query row (no visible key) has lse at NEG; its forward
 // weights are uniform over the T keys, so P = 1/T there and ds = 0: the
-// gradient the plain version's autograd gives.
+// gradient the plain version's autograd gives. With dropout (DROP) the
+// forward's keep tile is drawn again per pair: dP is masked and scaled
+// before ds (ds = P (keep ? dP / (1 - rate) : 0 - delta) scale, with the
+// undropped P) and dv takes the dropped P, fully masked rows included, as
+// in rel_dkv::dkv_kernel.
 // The skewed diagonal is scattered, like the forward gathers it, through the
 // slab of BQ + BK position rows a (query tile, key tile) pair touches:
 // rawg[r, BQ-1-r+c] = ds[r, c], then dq_v += rawg slab and
@@ -226,8 +248,8 @@ int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* 
 // q, dO, S, dP and dq); the WMMA kernels here serve fp32 and every other Dh.
 
 struct FlashBwdLayout {
-  size_t qu, qv, dout, k, v, slab, sc, dpf, raw, t1, t2, t3, acc1, acc2, lse, delta, total;
-  __host__ __device__ FlashBwdLayout(int dh, int bq, int bk, int esize, bool dkv) {
+  size_t qu, qv, dout, k, v, slab, sc, dpf, raw, t1, t2, t3, acc1, acc2, lse, delta, keep, total;
+  __host__ __device__ FlashBwdLayout(int dh, int bq, int bk, int esize, bool dkv, bool drop) {
     const int p = 16 / esize;
     const size_t row = (size_t)(dh + p) * esize;
     const int sw = bq + bk;
@@ -258,7 +280,8 @@ struct FlashBwdLayout {
       lse = align128(acc2 + (size_t)bq * (dh + 4) * 4);
     }
     delta = align128(lse + (size_t)bq * 4);
-    total = align128(delta + (size_t)bq * 4);
+    keep = align128(delta + (size_t)bq * 4);  // [BQ][BK] bytes, drop only
+    total = align128(keep + (drop ? (size_t)bq * bk : 0));
   }
 };
 
@@ -277,10 +300,14 @@ struct PairScores {
     }
     return ok;
   }
-  template <int BQ>
+  // DROP: `on` is the element's keep bit and inv = 1 / (1 - rate); p_out
+  // is then the dropped P (dv's operand), ds the undropped P times the
+  // dropped dP's difference.
+  template <int BQ, bool DROP>
   __device__ __forceinline__ void at(const float* sc, int ldsc, const float* raw, int ldraw,
                                      const float* dpf, const float* lse, const float* delta,
-                                     int r, int c, float* p_out, float* ds_out) const {
+                                     int r, int c, bool on, float inv, float* p_out,
+                                     float* ds_out) const {
     const int i = i0 + r, j = j0 + c;
     float pv = 0.0f, ds = 0.0f;
     if (i < t && j < t) {
@@ -289,16 +316,19 @@ struct PairScores {
         pv = 1.0f / (float)t;  // fully masked row: uniform weights, no ds
       } else if (visible(i, j)) {
         const float s = (sc[r * ldsc + c] + raw[r * ldraw + (BQ - 1 - r + c)]) * scale;
+        float dpv = dpf[r * ldsc + c];
+        if constexpr (DROP) dpv = on ? dpv * inv : 0.0f;
         pv = expf(s - l);
-        ds = pv * (dpf[r * ldsc + c] - delta[r]) * scale;
+        ds = pv * (dpv - delta[r]) * scale;
       }
+      if constexpr (DROP) pv = on ? pv * inv : 0.0f;  // dv takes the dropped P
     }
     *p_out = pv;
     *ds_out = ds;
   }
 };
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     rel_flash_dq_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                         const T* __restrict__ k, const T* __restrict__ v,
@@ -306,11 +336,11 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dqu,
                         T* __restrict__ dqv, int h, int t, int dh, float scale, int chunk_size,
-                        int left_chunks) {
+                        int left_chunks, philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
   constexpr int SW = BQ + BK;
-  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), false);
+  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), false, DROP);
   T* qus = reinterpret_cast<T*>(smem + L.qu);
   T* qvs = reinterpret_cast<T*>(smem + L.qv);
   T* dos = reinterpret_cast<T*>(smem + L.dout);
@@ -326,6 +356,8 @@ __global__ void __launch_bounds__(kThreads)
   float* acc_v = reinterpret_cast<float*>(smem + L.acc2);
   float* lse_s = reinterpret_cast<float*>(smem + L.lse);
   float* delta_s = reinterpret_cast<float*>(smem + L.delta);
+  unsigned char* keep = smem + L.keep;  // [BQ][BK], DROP only
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
   const int ld = dh + P, ldsc = BK + 4, ldraw = SW + 4, ldds = BK + P, ldrg = SW + P,
             ldacc = dh + 4;
 
@@ -353,6 +385,10 @@ __global__ void __launch_bounds__(kThreads)
     load_rows(ks, ld, k + base, dh, j0, BK, dh, 0, t);
     load_rows(vs, ld, v + base, dh, j0, BK, dh, 0, t);
     load_rows(slab, ld, pb, dh, (long)t - BQ - i0 + j0, SW, dh, 0, 2L * t);
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BQ, BK>(keep, BK, seed, (uint32_t)bh, (uint32_t)i0, (uint32_t)j0,
+                                     drop.thr);
+    }
     __syncthreads();
     smem_gemm<true>(qus, ld, ks, ld, sc, ldsc, BQ, BK, dh, false);
     smem_gemm<true>(qvs, ld, slab, ld, raw, ldraw, BQ, SW, dh, false);
@@ -366,7 +402,8 @@ __global__ void __launch_bounds__(kThreads)
       float ds = 0.0f;
       if (c >= 0 && c < BK) {
         float pv;
-        pair.at<BQ>(sc, ldsc, raw, ldraw, dpf, lse_s, delta_s, r, c, &pv, &ds);
+        pair.at<BQ, DROP>(sc, ldsc, raw, ldraw, dpf, lse_s, delta_s, r, c,
+                          DROP && keep[r * BK + c], drop.inv, &pv, &ds);
         dsb[r * ldds + c] = from_f32<T>(ds);
       }
       rawg[r * ldrg + col] = from_f32<T>(ds);
@@ -385,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     rel_flash_dkv_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                          const T* __restrict__ k, const T* __restrict__ v,
@@ -393,11 +430,11 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, float* __restrict__ dp, int h, int t, int dh,
-                         float scale, int chunk_size, int left_chunks) {
+                         float scale, int chunk_size, int left_chunks, philox::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
   constexpr int SW = BQ + BK;
-  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), true);
+  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), true, DROP);
   T* qus = reinterpret_cast<T*>(smem + L.qu);
   T* qvs = reinterpret_cast<T*>(smem + L.qv);
   T* dos = reinterpret_cast<T*>(smem + L.dout);
@@ -415,6 +452,8 @@ __global__ void __launch_bounds__(kThreads)
   float* acc_v = reinterpret_cast<float*>(smem + L.acc2);
   float* lse_s = reinterpret_cast<float*>(smem + L.lse);
   float* delta_s = reinterpret_cast<float*>(smem + L.delta);
+  unsigned char* keep = smem + L.keep;  // [BQ][BK], DROP only
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
   const int ld = dh + P, ldsc = BK + 4, ldraw = SW + 4, ldt = BQ + P, ldacc = dh + 4,
             ldslab = dh + 4;
 
@@ -443,6 +482,10 @@ __global__ void __launch_bounds__(kThreads)
       lse_s[r] = in ? lse[(long)bh * t + i0 + r] : 0.0f;
       delta_s[r] = in ? delta[(long)bh * t + i0 + r] : 0.0f;
     }
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BQ, BK>(keep, BK, seed, (uint32_t)bh, (uint32_t)i0, (uint32_t)j0,
+                                     drop.thr);
+    }
     __syncthreads();
     smem_gemm<true>(qus, ld, ks, ld, sc, ldsc, BQ, BK, dh, false);
     smem_gemm<true>(qvs, ld, slab, ld, raw, ldraw, BQ, SW, dh, false);
@@ -455,7 +498,8 @@ __global__ void __launch_bounds__(kThreads)
       float ds = 0.0f;
       if (c >= 0 && c < BK) {
         float pv;
-        pair.at<BQ>(sc, ldsc, raw, ldraw, dpf, lse_s, delta_s, r, c, &pv, &ds);
+        pair.at<BQ, DROP>(sc, ldsc, raw, ldraw, dpf, lse_s, delta_s, r, c,
+                          DROP && keep[r * BK + c], drop.inv, &pv, &ds);
         pt[c * ldt + r] = from_f32<T>(pv);
         dst[c * ldt + r] = from_f32<T>(ds);
       }
@@ -1486,8 +1530,9 @@ int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, c
                                 const float* lse, const float* delta, void* dq_or_dk,
                                 void* dqv_or_dv, float* dp, int b, int h, int t, int dh,
                                 float scale, int chunk_size, int left_chunks,
-                                cudaStream_t stream) {
-  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), DKV);
+                                const philox::Dropout& drop, cudaStream_t stream) {
+  const bool dropping = drop.seed != nullptr;
+  const FlashBwdLayout L(dh, BQ, BK, sizeof(T), DKV, dropping);
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -1496,45 +1541,48 @@ int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, c
           *kt = static_cast<const T*>(k), *vt = static_cast<const T*>(v),
           *pt = static_cast<const T*>(p), *dot = static_cast<const T*>(dout);
   if constexpr (DKV) {
-    auto kk = rel_flash_dkv_kernel<T, BQ, BK>;
+    auto kk = dropping ? rel_flash_dkv_kernel<T, BQ, BK, true>
+                       : rel_flash_dkv_kernel<T, BQ, BK, false>;
     cudaFuncSetAttribute(kk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     kk<<<dim3((t + BK - 1) / BK, b * h), kThreads, L.total, stream>>>(
         qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dq_or_dk),
-        static_cast<T*>(dqv_or_dv), dp, h, t, dh, scale, chunk_size, left_chunks);
+        static_cast<T*>(dqv_or_dv), dp, h, t, dh, scale, chunk_size, left_chunks, drop);
   } else {
-    auto kq = rel_flash_dq_kernel<T, BQ, BK>;
+    auto kq = dropping ? rel_flash_dq_kernel<T, BQ, BK, true>
+                       : rel_flash_dq_kernel<T, BQ, BK, false>;
     cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     kq<<<dim3((t + BQ - 1) / BQ, b * h), kThreads, L.total, stream>>>(
         qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dq_or_dk),
-        static_cast<T*>(dqv_or_dv), h, t, dh, scale, chunk_size, left_chunks);
+        static_cast<T*>(dqv_or_dv), h, t, dh, scale, chunk_size, left_chunks, drop);
   }
   return (int)cudaGetLastError();
 }
 
-// dkv, then dq, with the tiles of rel_flash_dkv_kernel / rel_flash_dq_kernel.
+// dkv, then dq, with the tiles of rel_flash_dkv_kernel / rel_flash_dq_kernel;
+// drop.seed null: the rate-0 instantiations.
 template <typename T, int BQ, int BK>
 int launch_rel_flash_bwd(const void* qu, const void* qv, const void* k, const void* v,
                          const void* p, const int* lengths, const void* dout, const float* lse,
                          const float* delta, void* dqu, void* dqv, void* dk, void* dv, float* dp,
                          int b, int h, int t, int dh, float scale, int chunk_size,
-                         int left_chunks, cudaStream_t stream) {
+                         int left_chunks, const philox::Dropout& drop, cudaStream_t stream) {
   if (int err = launch_rel_flash_bwd_kernel<T, BQ, BK, true>(
           qu, qv, k, v, p, lengths, dout, lse, delta, dk, dv, dp, b, h, t, dh, scale,
-          chunk_size, left_chunks, stream)) {
+          chunk_size, left_chunks, drop, stream)) {
     return err;
   }
   return launch_rel_flash_bwd_kernel<T, BQ, BK, false>(qu, qv, k, v, p, lengths, dout, lse,
                                                        delta, dqu, dqv, nullptr, b, h, t, dh,
-                                                       scale, chunk_size, left_chunks, stream);
+                                                       scale, chunk_size, left_chunks, drop,
+                                                       stream);
 }
 
 }  // namespace espnet
 
 // dtype: 0 = float32, 1 = bfloat16. q_u, q_v, k, v, out: [B, H, T, Dh];
 // p: [H, 2T, Dh]; lengths: int32 [B]; lse: fp32 [B, H, T]. seed: int32 [1]
-// on the device, or null for no dropout (bf16 at Dh 32 / 64 only); thr =
-// floor(rate * 2^16), inv = 1 / (1 - rate). Returns a cudaError_t code (0 =
-// launched).
+// on the device, or null for no dropout; thr = floor(rate * 2^16), inv = 1 /
+// (1 - rate). Returns a cudaError_t code (0 = launched).
 extern "C" int espnet_rel_flash_fwd(int dtype, const void* qu, const void* qv, const void* k,
                                     const void* v, const void* p, const int* lengths, void* out,
                                     float* lse, int b, int h, int t, int dh, float scale,
@@ -1544,19 +1592,20 @@ extern "C" int espnet_rel_flash_fwd(int dtype, const void* qu, const void* qv, c
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
+  const espnet::philox::Dropout drop{seed, thr, inv};
   if (dtype == 1 && (dh == 64 || dh == 32)) {
     const auto fwd = dh == 64 ? espnet::rel_fwd::launch<64> : espnet::rel_fwd::launch<32>;
-    return fwd(qu, qv, k, v, p, lengths, out, lse, b, h, t, scale, chunk_size, left_chunks,
-               {seed, thr, inv}, s);
+    return fwd(qu, qv, k, v, p, lengths, out, lse, b, h, t, scale, chunk_size, left_chunks, drop,
+               s);
   }
-  if (seed) return (int)cudaErrorInvalidValue;  // the WMMA kernel draws no dropout
   if (dtype == 1) {
     return espnet::launch_rel_flash<espnet::bf16, 64, 64>(qu, qv, k, v, p, lengths, out, lse, b, h,
-                                                          t, dh, scale, chunk_size, left_chunks, s);
+                                                          t, dh, scale, chunk_size, left_chunks,
+                                                          drop, s);
   }
   if (dtype == 0) {
     return espnet::launch_rel_flash<float, 32, 32>(qu, qv, k, v, p, lengths, out, lse, b, h, t, dh,
-                                                   scale, chunk_size, left_chunks, s);
+                                                   scale, chunk_size, left_chunks, drop, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1587,16 +1636,15 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
     return dq(qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, b, h, t, scale, chunk_size,
               left_chunks, drop, s);
   }
-  if (seed) return (int)cudaErrorInvalidValue;  // the WMMA kernels draw no dropout
   if (dtype == 1) {
     return espnet::launch_rel_flash_bwd<espnet::bf16, 32, 32>(
         qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, dk, dv, dp, b, h, t, dh, scale,
-        chunk_size, left_chunks, s);
+        chunk_size, left_chunks, drop, s);
   }
   if (dtype == 0) {
     return espnet::launch_rel_flash_bwd<float, 32, 32>(qu, qv, k, v, p, lengths, dout, lse, delta,
                                                        dqu, dqv, dk, dv, dp, b, h, t, dh, scale,
-                                                       chunk_size, left_chunks, s);
+                                                       chunk_size, left_chunks, drop, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // Test entries of philox.cuh: the generator on given counters and keys
 // (for the Random123 answer vectors) and the keep mask that the dropout
 // launches of K2 and K3 draw, written out for a [planes, rows, cols] block
-// (to hold against ops/kernels/philox.py bit for bit). Neither is on a
-// model's path: the kernels call keep8 themselves.
+// (to hold against ops/kernels/philox.py bit for bit), once as the mma.sync
+// launches draw it (keep8 a group of 8 elements) and once as the WMMA
+// launches do (fill_keep_tile into shared memory). None is on a model's
+// path: the kernels draw their masks themselves.
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
@@ -47,6 +49,24 @@ __global__ void mask_kernel(const int* __restrict__ seed, uint32_t thr, int rows
       }
 }
 
+// The same mask through fill_keep_tile: block (x, y) fills the 64 x 64 tile
+// at (64 y, 64 x) of plane blockIdx.z in shared memory, then writes out the
+// elements inside [rows, cols).
+constexpr int kTile = 64;
+__global__ void __launch_bounds__(256)
+    tile_mask_kernel(const int* __restrict__ seed, uint32_t thr, int rows, int cols,
+                     uint8_t* __restrict__ out) {
+  __shared__ unsigned char keep[kTile * kTile];
+  const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
+  fill_keep_tile<kTile, kTile>(keep, kTile, (uint32_t)seed[0], blockIdx.z, r0, c0, thr);
+  __syncthreads();
+  uint8_t* o = out + (long)blockIdx.z * rows * cols;
+  for (int idx = threadIdx.x; idx < kTile * kTile; idx += blockDim.x) {
+    const int r = r0 + idx / kTile, c = c0 + idx % kTile;
+    if (r < rows && c < cols) o[(long)r * cols + c] = keep[idx];
+  }
+}
+
 }  // namespace philox
 }  // namespace espnet
 
@@ -66,6 +86,21 @@ extern "C" int espnet_philox_keep_mask(const int* seed, unsigned thr, int planes
   const long groups = (long)(rows + 15) / 16 * 8 * ((cols + 15) / 16 * 4);
   espnet::philox::mask_kernel<<<dim3((unsigned)((groups + 255) / 256), planes), 256, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
+      seed, thr, rows, cols, static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The same mask as espnet_philox_keep_mask, drawn by fill_keep_tile (the
+// WMMA launches' draw).
+extern "C" int espnet_philox_keep_tiles(const int* seed, unsigned thr, int planes, int rows,
+                                        int cols, void* out, void* stream) {
+  using espnet::philox::kTile;
+  if (planes <= 0 || planes > 65535 || rows <= 0 || cols <= 0 || rows > 65535 * kTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)((cols + kTile - 1) / kTile), (unsigned)((rows + kTile - 1) / kTile),
+                  (unsigned)planes);
+  espnet::philox::tile_mask_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       seed, thr, rows, cols, static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }

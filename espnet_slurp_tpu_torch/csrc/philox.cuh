@@ -1,7 +1,7 @@
-// Counter-based dropout masks for the bf16 launches of K2 (fused FFN) and K3
-// (rel-pos flash attention): Philox4x32-10 (Salmon et al., "Parallel random
-// numbers: as easy as 1, 2, 3", SC 2011; the generator of Random123 and of
-// cuRAND's Philox), written out so that every kernel draws its own bits.
+// Counter-based dropout masks for K2 (fused FFN) and K3 (rel-pos flash
+// attention): Philox4x32-10 (Salmon et al., "Parallel random numbers: as
+// easy as 1, 2, 3", SC 2011; the generator of Random123 and of cuRAND's
+// Philox), written out so that every kernel draws its own bits.
 //
 // Replaces the TPU's in-kernel PRNG of espnet_slurp_tpu/ops/pallas/ffn.py:
 // _keep_mask and ops/pallas/flash_attention.py:_dropout_keep, which seed
@@ -12,8 +12,11 @@
 //   K3: plane b * H + h, (query i, key j) of the [B * H, T, T] probabilities.
 // It never depends on a tile, a block or the launch geometry, so K3's
 // forward, dkv and dq launches (whose tiles differ), K2's forward and its
-// backward `rows` launch, and the plain version in
-// ops/kernels/philox.py all draw the same bits.
+// backward launches, in every dtype, and the plain version in
+// ops/kernels/philox.py all draw the same bits. The mma.sync launches
+// (bf16) call keep8 for their lanes' own elements; the WMMA launches, which
+// stage every tile in shared memory, fill a keep tile there with
+// fill_keep_tile.
 //
 // Counter layout. An mma.sync m16n8 accumulator gives lane (g = lane / 4,
 // q = lane % 4) rows g and g + 8 of a 16-row tile and columns 2q, 2q + 1 of
@@ -81,6 +84,34 @@ __host__ __device__ __forceinline__ uint32_t keep8(uint32_t seed, uint32_t plane
 // Bit of element (hf, jj, e) in keep8's result.
 __host__ __device__ __forceinline__ bool kept(uint32_t bits, int hf, int jj, int e) {
   return (bits >> (4 * hf + 2 * jj + e)) & 1u;
+}
+
+// Fills keep[r * ldk + c] (1: kept, 0: dropped) for the R x C elements (r0 +
+// r, c0 + c) of `plane`, r0 and c0 multiples of 16: one keep8 call per 8
+// elements (rows {r, r + 8} x columns {c, c + 1, c + 8, c + 9} of a 16 x 16
+// block), the R * C / 8 calls spread over the block's threads. Elements past
+// the tensor's rows or columns are drawn like the others; the caller ignores
+// them. Called by the whole block; the caller synchronises before reading.
+template <int R, int C>
+__device__ __forceinline__ void fill_keep_tile(unsigned char* keep, int ldk, uint32_t seed,
+                                               uint32_t plane, uint32_t r0, uint32_t c0,
+                                               uint32_t thr) {
+  static_assert(R % 16 == 0 && C % 16 == 0, "keep tiles are whole 16 x 16 blocks");
+  constexpr int kGroups = R * C / 8, kBlocksC = C / 16;
+  for (int gi = threadIdx.x; gi < kGroups; gi += blockDim.x) {
+    // group gi: 16 x 16 block gi / 32 (row-major), its row g and pair q.
+    const int q = gi & 3, g = (gi >> 2) & 7, blk = gi >> 5;
+    const int r = 16 * (blk / kBlocksC) + g, c = 16 * (blk % kBlocksC) + 2 * q;
+    const uint32_t bits = keep8(seed, plane, r0 + r, c0 + c, thr);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          keep[(r + 8 * hf) * ldk + c + 8 * jj + e] = (unsigned char)kept(bits, hf, jj, e);
+        }
+  }
 }
 
 // The dropout of a launch: the seed (a device int32, read by the kernel),

@@ -147,6 +147,8 @@ def library() -> ctypes.CDLL:
     lib.espnet_philox4x32_10.restype = i
     lib.espnet_philox_keep_mask.argtypes = [p, u, i, i, i, p, p]
     lib.espnet_philox_keep_mask.restype = i
+    lib.espnet_philox_keep_tiles.argtypes = [p, u, i, i, i, p, p]
+    lib.espnet_philox_keep_tiles.restype = i
     lib.espnet_error_string.argtypes = [i]
     lib.espnet_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,11 +16,11 @@ function in plain PyTorch, whose gradients are PyTorch's autograd. There is
 no other route: a CUDA tensor the kernel does not take raises;
 ``fused_ffn_takes`` says beforehand whether it takes a shape.
 
-Dropout: the bf16 launches (the forward and the backward's ``rows``) draw
-the keep mask of hidden element (n, f) in the kernel from Philox4x32-10
-(csrc/philox.cuh) under a seed read from device memory, so the backward
-regenerates the forward's mask; the plain versions take the same mask from
-ops/kernels/philox.py. The fp32 launches refuse a rate above 0.
+Dropout: every launch (the bf16 forward and the backward's ``rows``; the
+fp32 forward, ``dx`` and ``dW``) draws the keep mask of hidden element (n,
+f) in the kernel from Philox4x32-10 (csrc/philox.cuh) under a seed read
+from device memory, so the backward regenerates the forward's mask; the
+plain versions take the same mask from ops/kernels/philox.py.
 """
 from __future__ import annotations
 
@@ -217,8 +217,8 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     rows. Returns [..., D2] in x.dtype, differentiable in every argument
     (on the card through the backward kernels). ``seed`` (int32 [1] on x's
     device; zeros when None, as the reference) and ``dropout_rate`` (in [0,
-    1)) keep the reference's signature; on the card a rate above 0 takes
-    the bf16 launches and raises NotImplementedError in fp32.
+    1)) keep the reference's signature; every launch takes them, in both
+    dtypes.
     """
     rate = float(dropout_rate)
     seed = philox.checked_seed(seed, rate, x.device, "fused_ffn")
@@ -227,10 +227,6 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return fused_ffn_plain(x, w1, b1, w2, b2, seed, dropout_rate=rate)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn: unsupported device {x.device}")
-    if rate > 0.0 and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "fused_ffn: dropout in the fp32 launches is not ported "
-            f"({philox.DROPOUT_ITEM}); train in bfloat16 or at dropout_rate 0")
     d, f, d2 = x.shape[-1], w1.shape[1], w2.shape[1]
     if not fused_ffn_takes(x.numel() // d, d, f, d2, x.dtype):
         raise ValueError(

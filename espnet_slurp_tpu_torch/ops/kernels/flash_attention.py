@@ -14,13 +14,13 @@ does not take raises. ``rel_flash_attention_fwd_tiled_plain`` and
 ``rel_flash_attention_bwd_plain`` are the forward and the backward at the
 kernels' rounding points.
 
-Dropout on the probabilities: the three bf16 launches at Dh 32 / 64 draw
-the keep mask of (b * H + h, query, key) in the kernel from Philox4x32-10
+Dropout on the probabilities: every launch (the three bf16 launches at Dh
+32 / 64, and the WMMA launches of fp32 and of bf16 at other Dh) draws the
+keep mask of (b * H + h, query, key) in the kernel from Philox4x32-10
 (csrc/philox.cuh) under a seed read from device memory, so the backward
 regenerates the forward's mask; the forward drops P after adding it into
 the softmax's normaliser, so lse is the undropped one. The plain versions
-take the same mask from ops/kernels/philox.py. The WMMA launches (fp32,
-other Dh) refuse a rate above 0.
+take the same mask from ops/kernels/philox.py.
 """
 from __future__ import annotations
 
@@ -267,10 +267,6 @@ class _RelFlash(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
-# Head widths of the bf16 launches that draw dropout.
-DROPOUT_DH = (32, 64)
-
-
 def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, seed=None, *,
                             scale: float, dropout_rate: float = 0.0,
                             chunk_size: int = 0, left_chunks: int = -1
@@ -284,9 +280,8 @@ def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, seed=None, *,
     differentiable in q_u, q_v, k, v and p (on the card through the
     backward kernels; ``lse`` is not). ``dropout_rate`` (in [0, 1)) drops
     the probabilities under ``seed`` (int32 [1] on the inputs' device;
-    zeros when None, as the reference); on the card only the bf16 launches
-    at Dh 32 / 64 take a rate above 0, the others raise
-    NotImplementedError."""
+    zeros when None, as the reference); every launch takes it, in both
+    dtypes and at every Dh."""
     rate = float(dropout_rate)
     seed = philox.checked_seed(seed, rate, q_u.device, "rel_flash_attention")
     _check(q_u, q_v, k, v, p, lengths)
@@ -301,11 +296,6 @@ def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, seed=None, *,
     if dh % 16:
         raise ValueError(f"rel_flash_attention kernel: needs Dh % 16 == 0, "
                          f"got {dh}")
-    if rate > 0.0 and (q_u.dtype != torch.bfloat16 or dh not in DROPOUT_DH):
-        raise NotImplementedError(
-            f"rel_flash_attention: dropout in the WMMA launches ({q_u.dtype},"
-            f" Dh {dh}) is not ported ({philox.DROPOUT_ITEM}); it is drawn "
-            f"in bfloat16 at Dh {DROPOUT_DH}")
     for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
         build.check_aligned(name, x)
     return _RelFlash.apply(q_u, q_v, k, v, p, lengths, seed, float(scale),

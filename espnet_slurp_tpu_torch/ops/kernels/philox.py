@@ -1,17 +1,20 @@
 """Philox4x32-10 dropout keep masks: the plain version of csrc/philox.cuh.
 
-The bf16 launches of K2 (fused FFN) and K3 (rel-pos flash attention) draw
-their dropout masks in the kernel from Philox4x32-10, the mask of an
-element a pure function of (seed, plane, row, column): K2's (n, f) of the
-[N, F] hidden on plane 0, K3's (i, j) of the [T, T] probabilities on plane
-b * H + h. This module computes the same bits with PyTorch integer ops (on
-int64 tensors holding uint32 values), on CPU and CUDA tensors alike; every
-plain version of those kernels takes its mask from ``keep_mask``. The
-counter layout and the 16-bit draw are documented in csrc/philox.cuh.
+Every launch of K2 (fused FFN) and K3 (rel-pos flash attention) draws its
+dropout mask in the kernel from Philox4x32-10, the mask of an element a
+pure function of (seed, plane, row, column): K2's (n, f) of the [N, F]
+hidden on plane 0, K3's (i, j) of the [T, T] probabilities on plane b * H
++ h. This module computes the same bits with PyTorch integer ops (on int64
+tensors holding uint32 values), on CPU and CUDA tensors alike; every plain
+version of those kernels takes its mask from ``keep_mask``. The counter
+layout and the 16-bit draw are documented in csrc/philox.cuh.
 
 The seed is a one-element int32 tensor on the compute device (the
 reference's ``seed_ref``), drawn by ``draw_seed`` from the training
-generator, so neither side ever reads it on the host.
+generator. A train step's generator lives on the compute device, so no
+side reads the seed on the host; a CPU generator serves another device's
+draws too (the seeds are then drawn on the CPU and copied), which gives a
+CPU run and a card run the same seeds, hence the same masks.
 """
 from __future__ import annotations
 
@@ -95,10 +98,6 @@ def keep_mask(seed: torch.Tensor, rate: float,
     return draw16(seed, p, r[None], c[None]) >= thr
 
 
-# The ROADMAP item that holds the dropout of the launches that refuse it.
-DROPOUT_ITEM = "ROADMAP.md queue 2, item 1"
-
-
 def checked_seed(seed: Optional[torch.Tensor], rate: float,
                  device: torch.device, what: str) -> Optional[torch.Tensor]:
     """A kernel call's seed: None at rate 0, zeros when None at a rate
@@ -127,10 +126,14 @@ def launch_args(seed: Optional[torch.Tensor], rate: float):
 def draw_seed(generator: Optional[torch.Generator],
               device: torch.device) -> torch.Tensor:
     """A dropout seed for one kernel call: int32 [1] on ``device``, drawn
-    from ``generator`` (which must live on that device) without a host
-    sync."""
+    from ``generator`` (the device's default generator when None). A
+    generator on ``device`` draws there, without a host sync; a CPU
+    generator draws on the CPU and the seed is copied to ``device``, so
+    that runs on two devices fed equally seeded CPU generators draw the
+    same seeds."""
+    where = generator.device if generator is not None else device
     return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                         device=device, dtype=torch.int32)
+                         device=where, dtype=torch.int32).to(device)
 
 
 def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float

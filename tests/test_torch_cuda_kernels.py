@@ -5,8 +5,8 @@ of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
 passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
 for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
 conv module k 3 to 31, SAME and causal, lengths 0, 1 and full; for K2's
-and K3's bf16 launches the dropout at rate 0.1 and its Philox mask, and
-the routes that refuse dropout; FeedForward's width route.
+and K3's launches, bf16 and the WMMA ones, the dropout at rate 0.1 (0.5
+for two WMMA cases) and its Philox mask; FeedForward's width route.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -394,10 +394,11 @@ def test_rel_flash_attention_dkv_two_blocks_per_sm(gen):
     assert lib.espnet_rel_flash_dkv_blocks_per_sm(128) == 0
 
 
-# ---- Dropout: the Philox keep mask in K2's and K3's bf16 launches --------
+# ---- Dropout: the Philox keep mask in K2's and K3's launches --------------
 # Each dropout launch against its plain version with the same seed (the
-# kernels' rounding points, the mask from ops/kernels/philox.py): within
-# BWD_PLAIN_TOL, as at rate 0. The WMMA routes refuse a rate above 0.
+# kernels' rounding points, the mask from ops/kernels/philox.py): the bf16
+# mma.sync launches within BWD_PLAIN_TOL, as at rate 0; the WMMA launches
+# within TOL.
 
 DROP_RATE, DROP_SEED = 0.1, 20241017
 
@@ -440,6 +441,23 @@ def test_philox_device_mask_equals_the_torch_mask(gen, planes, rows, cols,
         dev.data_ptr(), build.stream_ptr(dev)), "philox keep mask")
     assert torch.equal(dev.bool(), philox.keep_mask(seed, rate, rows, cols,
                                                     planes=planes))
+
+
+@pytest.mark.parametrize("planes,rows,cols", [
+    (1, 29952, 2048), (1, 33, 70), (8, 65, 130), (256, 468, 468)])
+def test_philox_tile_fill_equals_the_torch_mask(gen, planes, rows, cols):
+    """The keep mask as the WMMA launches draw it (philox.cuh:fill_keep_tile
+    into 64 x 64 shared tiles, written out by the library's test entry)
+    equals ops/kernels/philox.py's bit for bit, ragged rows and columns
+    included."""
+    from espnet_slurp_tpu_torch.ops.kernels import build, philox
+    seed = _drop_seed()
+    dev = torch.empty(planes, rows, cols, dtype=torch.uint8, device="cuda")
+    build.check(build.library().espnet_philox_keep_tiles(
+        seed.data_ptr(), philox.threshold(DROP_RATE), planes, rows, cols,
+        dev.data_ptr(), build.stream_ptr(dev)), "philox keep tiles")
+    assert torch.equal(dev.bool(), philox.keep_mask(
+        seed, DROP_RATE, rows, cols, planes=planes))
 
 
 @pytest.mark.parametrize("n,d,f,d2", [
@@ -510,27 +528,99 @@ def test_rel_flash_attention_dropout_bf16(gen, t, dh, chunk):
         assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
 
 
-def test_dropout_is_refused_on_the_wmma_routes(gen):
-    """K2's fp32 launches and K3's WMMA launches (fp32; bf16 at Dh 128)
-    draw no dropout: a rate above 0 raises NotImplementedError naming the
-    ROADMAP item, and their C entries refuse a seed."""
+# K2's fp32 launches and K3's WMMA launches (fp32; bf16 at Dh 128) at the
+# widths the default ASRConfig gives them (d_model 256, d_ff 2048, Dh 64)
+# and at Dh 128; one case each at rate 0.5, where a wrong mask moves the
+# output far outside the tolerance.
+WMMA_DROP_CASES = [
+    ("K2", torch.float32, 0, 0.1), ("K3", torch.float32, 64, 0.1),
+    ("K3", torch.bfloat16, 128, 0.1), ("K2", torch.float32, 0, 0.5),
+    ("K3", torch.float32, 64, 0.5)]
+
+
+def _wmma_drop_case(gen, kernel, dtype, dh, rate, direction, seed):
+    """(call, plain outputs, names, kernel names the call must launch) of
+    one WMMA dropout case."""
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    if kernel == "K2":
+        n, d, f = 300, 256, 2048
+        args = (r(n, d).to(dtype), (r(d, f) * d ** -0.5).to(dtype), r(f) * 0.1,
+                (r(f, d) * f ** -0.5).to(dtype), r(d) * 0.1)
+        if direction == "fwd":
+            return (lambda: (ffn._launch_fwd(*args, seed, rate),),
+                    (ffn.fused_ffn_plain(*args, seed, dropout_rate=rate),),
+                    ("out",), ("ffn_fwd_kernel<float, 32, 32, true>",))
+        x, w1, b1, w2, _ = args
+        g = r(n, d).to(dtype)
+        return (lambda: ffn._launch_bwd(x, w1, b1, w2, g, seed, rate),
+                ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
+                                        dropout_rate=rate),
+                ("dx", "dw1", "db1", "dw2", "db2"),
+                ("ffn_bwd_dx_kernel<float, 16, 32, true>",
+                 "ffn_bwd_dw_kernel<float, 16, 32, true>"))
+    t = 129
+    args = [a.to(dtype) if a.is_floating_point() else a
+            for a in _attention_case(gen, t, dh)]
+    scale = dh ** -0.5
+    tname = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    tile = 32 if dtype == torch.float32 else 64
+    kw = dict(scale=scale, dropout_rate=rate)
+    if direction == "fwd":
+        if dtype == torch.float32:
+            ref = fa.rel_flash_attention_plain(*args, seed, **kw)[0]
+        else:
+            ref = fa.rel_flash_attention_fwd_tiled_plain(*args, seed,
+                                                         block_k=tile, **kw)[0]
+        return (lambda: fa._launch_fwd(*args, scale, 0, -1, seed, rate)[:1],
+                (ref,), ("out",),
+                (f"rel_flash_fwd_kernel<{tname}, {tile}, {tile}, true>",))
+    out, lse = fa._launch_fwd(*args, scale, 0, -1, seed, rate)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return (lambda: fa._launch_bwd(*args, out, lse, g, scale, 0, -1, seed,
+                                   rate),
+            fa.rel_flash_attention_bwd_plain(*args, out, lse, g, seed, **kw),
+            ("dq_u", "dq_v", "dk", "dv", "dp"),
+            (f"rel_flash_dkv_kernel<{tname}, 32, 32, true>",
+             f"rel_flash_dq_kernel<{tname}, 32, 32, true>"))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("kernel,dtype,dh,rate", WMMA_DROP_CASES)
+def test_wmma_routes_draw_dropout(gen, kernel, dtype, dh, rate, direction):
+    """K2's fp32 launches (N 300, D 256, F 2048) and K3's WMMA launches (B 4,
+    H 2, T 129, key lengths T, T - 7, 0 and -1: fully masked rows included)
+    at a rate above 0 against their plain versions with the same seed (K3
+    in bf16 against the tiled forward at the kernel's key tile of 64 and
+    rel_flash_attention_bwd_plain, the kernels' rounding points): every
+    output within TOL of max |ref| (floored at 1e-3 for gradients, as in
+    _check_grads); the launches are the dropout instantiations, by their
+    profiler names."""
     seed = _drop_seed()
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        ffn.fused_ffn(r(8, 64), r(64, 128), r(128), r(128, 64), r(64), seed,
-                      dropout_rate=DROP_RATE)
-    lengths = torch.tensor([8], dtype=torch.int32, device="cuda")
-    for dt, dh in ((torch.float32, 64), (torch.bfloat16, 128)):
-        q = r(1, 2, 8, dh).to(dt)
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            fa.rel_flash_attention(q, q, q, q, r(2, 16, dh).to(dt), lengths,
-                                   seed, scale=1.0, dropout_rate=DROP_RATE)
-        with pytest.raises(RuntimeError):
-            fa._launch_fwd(q, q, q, q, r(2, 16, dh).to(dt), lengths, 1.0, 0,
-                           -1, seed, DROP_RATE)
-    with pytest.raises(RuntimeError):
-        ffn._launch_fwd(r(8, 64), r(64, 128), r(128), r(128, 64), r(64),
-                        seed, DROP_RATE)
+    call, refs, names, want = _wmma_drop_case(gen, kernel, dtype, dh, rate,
+                                              direction, seed)
+    got = call()
+    torch.cuda.synchronize()
+    for name, a, ref in zip(names, got, refs):
+        assert a.shape == ref.shape and a.dtype == ref.dtype, name
+        assert torch.isfinite(a).all(), name
+        floor = 1e-30 if name == "out" else 1e-3
+        assert _rel(a, ref, floor=floor) <= TOL[dtype], name
+    launched = _kernel_names(call)
+    assert all(any(w in k for k in launched) for w in want), launched
+
+
+def test_draw_seed_takes_a_cpu_generator_for_the_card(gen):
+    """A CPU generator draws the card's seeds on the CPU: equal to a CPU
+    draw from an equally seeded generator, int32 [1] on the card; a
+    generator on the card draws there."""
+    from espnet_slurp_tpu_torch.ops.kernels import philox
+    g1, g2 = (torch.Generator().manual_seed(7) for _ in range(2))
+    a = philox.draw_seed(g1, torch.device("cuda"))
+    assert a.device.type == "cuda" and a.dtype == torch.int32
+    assert tuple(a.shape) == (1,)
+    assert torch.equal(a.cpu(), philox.draw_seed(g2, torch.device("cpu")))
+    b = philox.draw_seed(gen, torch.device("cuda"))
+    assert b.device.type == "cuda" and tuple(b.shape) == (1,)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

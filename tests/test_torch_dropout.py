@@ -114,6 +114,39 @@ def test_kernel_route_draws_one_seed_per_kernel_call(case):
                         flash_attention.rel_flash_attention_fwd.launches)
 
 
+def test_equal_cpu_generators_repeat_the_seeds_and_the_loss(case):
+    """The seed path of the card-against-CPU checks: two train forwards
+    given equally seeded CPU generators draw the same six kernel seeds and
+    give the same loss bit for bit; another seed draws other seeds and
+    another loss."""
+    import espnet_slurp_tpu_torch.models.attention as att
+    import espnet_slurp_tpu_torch.models.conformer as conf
+    from espnet_slurp_tpu_torch.ops.kernels import philox
+    params, batch = case
+    model = _model(params, RATE)
+    real = philox.draw_seed
+    runs = []
+    for seed in (12, 12, 13):
+        seeds = []
+
+        def spy(generator, device):
+            seeds.append(real(generator, device))
+            return seeds[-1]
+
+        old = (att.draw_seed, conf.draw_seed)
+        att.draw_seed = conf.draw_seed = spy
+        try:
+            with torch.no_grad():
+                loss, _ = model(**batch, train=True,
+                                generator=torch.Generator().manual_seed(seed))
+        finally:
+            att.draw_seed, conf.draw_seed = old
+        runs.append((torch.cat(seeds), float(loss)))
+    (s1, l1), (s2, l2), (s3, l3) = runs
+    assert s1.numel() == 6 and torch.equal(s1, s2) and l1 == l2
+    assert not torch.equal(s1, s3) and l1 != l3
+
+
 @pytest.mark.parametrize("flash", ["auto", "off"])
 def test_loss_falls_over_three_steps(case, flash):
     """make_train_step at rate 0.1 (Adam at constant lr 1e-3, the state's

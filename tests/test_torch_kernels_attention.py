@@ -15,8 +15,9 @@ At dropout 0.1 (the reference's K3 mask has no CPU path,
 ops/pallas/flash_attention.py:110-115) the masked plain version is held to
 jax.vjp of the reference's eager rel-pos composition (models/attention.py:
 rel_shift) with the same mask on the softmax, and the masked backward and
-tiled forward to the plain version's autograd, fully masked rows included;
-the modules' kernel and eager routes draw from the generator.
+tiled forward to the plain version's autograd, fully masked rows included,
+at Dh 16 and at the WMMA routes' shapes (fp32 Dh 64, bf16 Dh 128); the
+modules' kernel and eager routes draw from the generator.
 """
 import jax
 import jax.numpy as jnp
@@ -379,18 +380,42 @@ def _jax_rel_attention(qu, qv, k, v, p, allowed, keep, scale):
     return jnp.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-@pytest.mark.parametrize("chunk", [(0, -1), (16, 2)])
-def test_plain_dropout_matches_jax_eager_vjp(chunk):
+def _shape_cases(chunks):
+    """The chunk settings at Dh 16 in fp32 (ids chunk0, chunk1), then each
+    again at the WMMA routes' shapes: fp32 at Dh 64 (the default
+    ASRConfig's) and bf16 at Dh 128."""
+    cases = [pytest.param(c, "float32", 16, id=f"chunk{i}")
+             for i, c in enumerate(chunks)]
+    cases += [pytest.param(c, dt, dh, id=f"chunk{i}-{dt}-dh{dh}")
+              for dt, dh in (("float32", 64), ("bfloat16", 128))
+              for i, c in enumerate(chunks)]
+    return cases
+
+
+def _max_rel(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+BF16_TOL = 2e-2  # of max |ref|, the card's tolerance for the bf16 launches
+
+
+@pytest.mark.parametrize("chunk,dtype,dh", _shape_cases([(0, -1), (16, 2)]))
+def test_plain_dropout_matches_jax_eager_vjp(chunk, dtype, dh):
     """rel_flash_attention_plain at rate 0.1 against jax.vjp of the
     reference's eager composition with the same mask (the kernels' Philox
     mask of a seed), T = 96, key lengths 96, 45 and 0 (a fully masked
-    utterance): out and dq_u, dq_v, dk, dv, dp in fp32, out to atol 1e-5 /
-    rtol 1e-4 and each gradient within 1e-4 of its max |ref|, as at rate
-    0."""
+    utterance): out and dq_u, dq_v, dk, dv, dp. fp32 (Dh 16, and Dh 64 of
+    K3's fp32 WMMA route): out to atol 1e-5 / rtol 1e-4 and each gradient
+    within 1e-4 of its max |ref|, as at rate 0. bf16 at Dh 128 (K3's bf16
+    WMMA route): the composition in fp32 on the same bf16 values, each
+    output within 2e-2 of its max |ref|."""
     cs, lc = chunk
-    b, h, tl, dh = 3, 2, 96, 16
+    tdt = getattr(torch, dtype)
+    b, h, tl = 3, 2, 96
     rng = np.random.RandomState(21)
-    f = lambda *s: rng.randn(*s).astype(np.float32) * 0.5
+    f = lambda *s: np.asarray(t(rng.randn(*s).astype(np.float32) * 0.5)
+                              .to(tdt).float())
     args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
     lens = np.asarray([tl, 45, 0], np.int32)
     cot = f(b, h, tl, dh)
@@ -402,30 +427,41 @@ def test_plain_dropout_matches_jax_eager_vjp(chunk):
         *a, jnp.asarray(allowed.numpy()), jnp.asarray(keep.numpy()),
         dh ** -0.5), *map(jnp.asarray, args))
     ref_grads = vjp(jnp.asarray(cot))
-    leaves = [t(a).requires_grad_(True) for a in args]
+    leaves = [t(a).to(tdt).requires_grad_(True) for a in args]
     out, _ = rel_flash_attention_plain(*leaves, t(lens), scale=dh ** -0.5,
                                        dropout_rate=RATE, keep=keep,
                                        chunk_size=cs, left_chunks=lc)
+    assert out.dtype == tdt
+    (out * t(cot).to(tdt)).sum().backward()
+    if dtype == "bfloat16":
+        for name, a, r in zip(("out",) + GRAD_NAMES,
+                              [out.detach()] + [a.grad for a in leaves],
+                              [ref] + list(ref_grads)):
+            err = _max_rel(a.float().numpy(), r)
+            assert err <= BF16_TOL, f"{name}: {err:.3e}"
+        return
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
                                atol=1e-5, rtol=1e-4)
-    (out * t(cot)).sum().backward()
     for name, a, r in zip(GRAD_NAMES, leaves, ref_grads):
         r = np.asarray(r)
         np.testing.assert_allclose(a.grad.numpy(), r, rtol=0,
                                    atol=1e-4 * np.abs(r).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("chunk", [(0, -1), (5, 0)])
-def test_bwd_plain_dropout_matches_masked_autograd(chunk):
+@pytest.mark.parametrize("chunk,dtype,dh", _shape_cases([(0, -1), (5, 0)]))
+def test_bwd_plain_dropout_matches_masked_autograd(chunk, dtype, dh):
     """rel_flash_attention_bwd_plain at rate 0.1 against the masked plain
-    version's autograd (the same seed), fp32, T = 70, lengths 70, 0 and 33:
-    every gradient within 1e-5 of max |ref|, fully masked rows (uniform
-    weights, dropped like any row) included."""
+    version's autograd (the same seed), T = 70, lengths 70, 0 and 33: every
+    gradient within 1e-5 of max |ref| in fp32 (Dh 16 and 64); in bf16 at
+    Dh 128, where both round P to bf16 but autograd differentiates through
+    the unrounded ds, within 2^-7 (as K2's bf16 case). Fully masked rows
+    (uniform weights, dropped like any row) included."""
     cs, lc = chunk
+    tdt = getattr(torch, dtype)
     kw = dict(scale=0.25, dropout_rate=RATE, chunk_size=cs, left_chunks=lc)
-    b, h, tl, dh = 3, 2, 70, 16
+    b, h, tl = 3, 2, 70
     rng = np.random.RandomState(22)
-    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5)
+    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5).to(tdt)
     args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
     lens = t(np.asarray([tl, 0, 33], np.int32))
     seed = torch.tensor([9], dtype=torch.int32)
@@ -435,36 +471,45 @@ def test_bwd_plain_dropout_matches_masked_autograd(chunk):
     (out * cot).sum().backward()
     got = rel_flash_attention_bwd_plain(*args, lens, out.detach(),
                                         lse.detach(), cot, seed, **kw)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
     for name, a, r in zip(GRAD_NAMES, got, leaves):
-        r = r.grad.numpy()
-        np.testing.assert_allclose(a.numpy(), r, rtol=0,
-                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+        assert a.dtype == tdt, name
+        r = r.grad.float().numpy()
+        np.testing.assert_allclose(a.float().numpy(), r, rtol=0,
+                                   atol=tol * np.abs(r).max(), err_msg=name)
     # The dropped uniform weights of the fully masked utterance still feed
     # dv; its score gradients stay 0.
     assert float(got[3][1].abs().max()) > 0.0
     assert float(got[0][1].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("chunk", [(0, -1), (5, 0)])
-def test_fwd_tiled_plain_dropout_matches_plain(chunk):
-    """rel_flash_attention_fwd_tiled_plain at rate 0.1 over key tiles of 32
-    (a ragged last tile) against rel_flash_attention_plain with the same
-    seed, fp32, lengths 70, 0 and 33: out within 1e-5 of max |ref| on every
-    row, and lse the undropped one (equal to rate 0's within 1e-5)."""
+@pytest.mark.parametrize("chunk,dtype,dh", _shape_cases([(0, -1), (5, 0)]))
+def test_fwd_tiled_plain_dropout_matches_plain(chunk, dtype, dh):
+    """rel_flash_attention_fwd_tiled_plain at rate 0.1 over the kernel's key
+    tiles (32 in fp32, 64 in bf16; a ragged last tile) against
+    rel_flash_attention_plain with the same seed, lengths 70, 0 and 33: out
+    within 1e-5 of max |ref| on every row in fp32 (Dh 16 and 64), within
+    2^-7 in bf16 at Dh 128 (the outputs' last-place rounding, as the bf16
+    rate-0 case), and lse the undropped one (equal to rate 0's within
+    1e-5)."""
     cs, lc = chunk
+    tdt = getattr(torch, dtype)
     kw = dict(scale=0.25, chunk_size=cs, left_chunks=lc)
-    b, h, tl, dh = 3, 2, 70, 16
+    b, h, tl = 3, 2, 70
     rng = np.random.RandomState(23)
-    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5)
+    f = lambda *s: t(rng.randn(*s).astype(np.float32) * 0.5).to(tdt)
     args = [f(b, h, tl, dh) for _ in range(4)] + [f(h, 2 * tl, dh)]
     lens = t(np.asarray([tl, 0, 33], np.int32))
     seed = torch.tensor([10], dtype=torch.int32)
     out, lse = rel_flash_attention_fwd_tiled_plain(
-        *args, lens, seed, dropout_rate=RATE, block_k=32, **kw)
+        *args, lens, seed, dropout_rate=RATE,
+        block_k=32 if dtype == "float32" else 64, **kw)
     ref, ref_lse = rel_flash_attention_plain(*args, lens, seed,
                                              dropout_rate=RATE, **kw)
-    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
-                               atol=1e-5 * ref.abs().max().item())
+    assert out.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               rtol=0, atol=tol * ref.abs().max().item())
     _, lse0 = rel_flash_attention_plain(*args, lens, **kw)
     seen = lse0 > 0.5 * NEG
     torch.testing.assert_close(lse[seen], lse0[seen], rtol=1e-5, atol=0)

@@ -15,7 +15,9 @@ the Pallas kernel in interpret mode with the mask of its own interpret draw
 vjp in fp32 with the rate-0 tolerances; fused_ffn_bwd_plain with the mask
 to the masked plain version's autograd; the CPU wrapper with a seed to the
 kernels' Philox mask (ops/kernels/philox.py); FeedForward's kernel and
-eager routes at dropout.
+eager routes at dropout. At the fp32 route's widths (d_ff 2048) both plain
+versions are held to jax.vjp of the reference's unfused composition with
+the Philox mask.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from espnet_slurp_tpu.models.conformer import FeedForward as JaxFeedForward
+from espnet_slurp_tpu.ops.pallas.ffn import _hidden as jax_ffn_hidden
 from espnet_slurp_tpu.ops.pallas.ffn import fused_ffn as jax_fused_ffn
 from espnet_slurp_tpu_torch.models.conformer import FeedForward
 from espnet_slurp_tpu_torch.ops.kernels import philox
@@ -285,3 +288,46 @@ def test_feedforward_dropout_routes(use_flash):
         plain.load_state_dict(mod.state_dict())
         torch.testing.assert_close(mod(x), plain(x), atol=0, rtol=0)
         assert not torch.allclose(out, plain(x))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_plain_at_the_fp32_route_widths_matches_an_unfused_composition(
+        direction):
+    """fused_ffn_plain (forward) and fused_ffn_bwd_plain (backward) at the
+    widths the default ASRConfig gives K2's fp32 launches (D 256, d_ff
+    2048), rate 0.1, against jax.vjp of the reference's unfused composition
+    (ops/pallas/ffn.py:_hidden, swish, the Philox mask of the same seed from
+    philox.keep_mask with kept entries scaled by 1 / (1 - rate), then
+    @ W2 + b2), fp32: every output within 1e-5 of max |ref|. The card test
+    holds the fp32 kernels to these plain versions."""
+    n, d, f = 48, 256, 2048
+    rng = np.random.RandomState(16)
+    args = (rng.randn(n, d).astype(np.float32) * 0.5,
+            (rng.randn(d, f) / np.sqrt(d)).astype(np.float32),
+            (rng.randn(f) * 0.1).astype(np.float32),
+            (rng.randn(f, d) / np.sqrt(f)).astype(np.float32),
+            (rng.randn(d) * 0.1).astype(np.float32))
+    g = rng.randn(n, d).astype(np.float32)
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    keep = philox.keep_mask(seed, RATE, n, f)
+    assert abs(float(keep.float().mean()) - 0.9) < 0.01
+    jkeep = jnp.asarray(keep.numpy())
+
+    def unfused(x, w1, b1, w2, b2):
+        hs, sig = jax_ffn_hidden(x, w1, b1[None])
+        h = jnp.where(jkeep, hs * sig / (1.0 - RATE), 0.0)
+        return h @ w2 + b2
+
+    ref, vjp = jax.vjp(unfused, *map(jnp.asarray, args))
+    x, w1, b1, w2, b2 = map(t, args)
+    if direction == "fwd":
+        got = (fused_ffn_plain(x, w1, b1, w2, b2, seed, dropout_rate=RATE),)
+        refs = (ref,)
+    else:
+        got = fused_ffn_bwd_plain(x, w1, b1, w2, t(g), seed,
+                                  dropout_rate=RATE)
+        refs = vjp(jnp.asarray(g))
+    for i, (a, r) in enumerate(zip(got, refs)):
+        r = np.asarray(r)
+        err = float(np.abs(a.numpy() - r).max() / np.abs(r).max())
+        assert err <= 1e-5, f"output {i}: {err:.3e}"

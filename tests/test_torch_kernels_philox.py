@@ -110,3 +110,25 @@ def test_draw_seed_follows_the_generator():
     with pytest.raises(ValueError):
         philox.threshold(1.0)
     assert np.isclose(philox.keep_probability(0.0), 1.0)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_draw_seed_draws_where_the_generator_lives(device):
+    """A CPU generator draws the seed on the CPU for any device and the seed
+    is moved there: int32 [1] on ``device``, the generator advanced exactly
+    as by a CPU draw (so two devices fed equally seeded CPU generators get
+    the same seeds; the card test checks the values on the card). A draw
+    for the generator's own device is torch.randint on that device, as
+    before."""
+    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    a = philox.draw_seed(g1, torch.device(device))
+    assert a.device.type == device and a.dtype == torch.int32
+    assert tuple(a.shape) == (1,)
+    first = torch.randint(0, 2 ** 31 - 1, (1,), generator=g2,
+                          dtype=torch.int32)
+    assert torch.equal(g1.get_state(), g2.get_state())
+    if device == "cpu":
+        assert torch.equal(a, first)
+    assert torch.equal(philox.draw_seed(g1, torch.device("cpu")),
+                       torch.randint(0, 2 ** 31 - 1, (1,), generator=g2,
+                                     dtype=torch.int32))

@@ -13,16 +13,23 @@ arithmetic, a softmax being blind to a per-row constant, and hold only
 rounding noise, ~1e-8), the schedules to rtol 1e-5, the
 3-step loss and grad-norm trajectory to rtol 1e-4.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from espnet_slurp_tpu.models.asr_model import ASRConfig as JaxASRConfig
+from espnet_slurp_tpu.models.transducer import \
+    TransducerConfig as JaxTransducerConfig
 from espnet_slurp_tpu.train import optim as joptim
 from espnet_slurp_tpu.train import state as jstate
-from espnet_slurp_tpu_torch.models.asr_model import (ASRModel, add_sos_eos,
+from espnet_slurp_tpu_torch.models.asr_model import (ASRConfig, ASRModel,
+                                                      add_sos_eos,
                                                       label_smoothing_loss)
+from espnet_slurp_tpu_torch.models.transducer import TransducerConfig
 from espnet_slurp_tpu_torch.train import optim as toptim
 from espnet_slurp_tpu_torch.train.state import (TrainState, make_eval_step,
                                                 make_train_step)
@@ -268,3 +275,39 @@ def test_ema_shadow_and_gradient_noise(case):
         ev = make_eval_step(model)(st, tb)
         assert np.isfinite(float(ev["loss"]))
     assert runs["noise"] == runs["noise_again"] != runs["plain"]
+
+
+def _shared_fields(port, ref, path=""):
+    """(name, port value, reference value) of every field the two config
+    dataclasses both have, nested configs walked."""
+    ref_names = {f.name for f in dataclasses.fields(ref)}
+    out = []
+    for f in dataclasses.fields(port):
+        if f.name not in ref_names:
+            continue
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+            out += _shared_fields(a, b, f"{path}{f.name}.")
+        else:
+            out.append((path + f.name, a, b))
+    return out
+
+
+@pytest.mark.parametrize("port,ref,pinned", [
+    (ASRConfig, JaxASRConfig, ""),
+    (TransducerConfig, JaxTransducerConfig, "asr.")])
+def test_default_configs_equal_the_references(port, ref, pinned):
+    """ASRConfig() and TransducerConfig() (the path that trains the default
+    configuration: fp32, dropout 0.1, kernels on "auto", 12 x 256, 4 heads,
+    d_ff 2048, a 6-block decoder, SpecAug on) equal the reference's
+    defaults in every field both have, nested configs included."""
+    shared = _shared_fields(port(), ref())
+    names = {n for n, _, _ in shared}
+    assert {pinned + k for k in (
+        "dtype", "dropout_rate", "flash_attention", "n_head", "d_ff",
+        "d_model", "num_encoder_blocks", "num_decoder_blocks",
+        "decoder_d_ff", "vocab_size", "kernel_size", "ctc_weight",
+        "lsm_weight", "use_mvn", "frontend.n_mels",
+        "specaug.num_time_mask")} <= names
+    for name, a, b in shared:
+        assert a == b, f"{name}: port {a!r}, reference {b!r}"
