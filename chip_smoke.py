@@ -7,8 +7,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
 
 1. The card's name and power limit; the hand-written kernels are built from
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
-   compiler's register report and the blocks per SM of K3's bf16 forward,
-   dkv and dq kernels and of K2's bf16 forward kernel printed.
+   compiler's register report and the blocks per SM of K3's bf16 and fp32
+   forward, dkv and dq kernels and of K2's bf16 forward kernel printed.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -120,16 +120,18 @@ or the port's package is not beside it. Phases, each of which fails the run:
    serving traffic on the card; its RTF is printed, and the encode must
    launch 24 K2, 12 K3 and 12 K6.
 
-12. The WMMA launches at rate 0.1 at the flagship train shape (run after
-   phase 7): K2 fp32 (ffn_fwd_kernel, ffn_bwd_dx_kernel, ffn_bwd_dw_kernel;
-   N 64 x T', D 256, d_ff 2048: the default ASRConfig's widths), K3 fp32
-   (rel_flash_fwd_kernel, rel_flash_dkv_kernel, rel_flash_dq_kernel; B 64,
-   H 4, T', Dh 64) and K3 bf16 at Dh 128 (B 64, H 2, T'), each direction
-   against its plain version with the same seed (fp32 within 1e-4, bf16
-   within 2e-2 of max |ref| per output and gradient); the dropout and
+12. The default ASRConfig's fp32 launches and the WMMA ones at rate 0.1 at
+   the flagship train shape (run after phase 7): K2 fp32 (ffn_fwd_kernel,
+   ffn_bwd_dx_kernel, ffn_bwd_dw_kernel; N 64 x T', D 256, d_ff 2048: the
+   default ASRConfig's widths), K3 fp32 (the register micro-tile kernels
+   rel_f32::fwd_kernel, dkv_kernel, dq_kernel; B 64, H 4, T', Dh 64) and
+   K3 bf16 at Dh 128 (the WMMA rel_flash_fwd_kernel, rel_flash_dkv_kernel,
+   rel_flash_dq_kernel; B 64, H 2, T'), each direction against its plain
+   version with the same seed (fp32 within 1e-4, bf16 within 2e-2 of max
+   |ref| per output and gradient; K3 at rate 0 as well); the dropout and
    rate-0 instantiations by profiler name, each launch's device time at
    0.1 beside 0 and its bound; each direction timed beside its plain
-   version (K3 fp32 also beside SDPA over the precomputed bias).
+   version (K3 also beside SDPA over the precomputed bias).
 13. The default ASRConfig() (fp32 compute, dropout 0.1, d_ff 2048, 12 x
    256, 6-block decoder, SpecAug on, seeded random weights) through
    make_train_step with Adam at constant lr 1e-3 on phase 5's traffic: one
@@ -456,8 +458,9 @@ def route_cases(torch, args):
 def attention_fwd_routes(torch, fa, args):
     """Which kernel espnet_rel_flash_fwd launches (torch.profiler's kernel
     names): bf16 at Dh 64 the register-resident rel_fwd::fwd_kernel, fp32
-    and bf16 at Dh 128 the WMMA rel_flash_fwd_kernel."""
-    want = ("rel_fwd::fwd_kernel<64, false>", "rel_flash_fwd_kernel<float",
+    at Dh 64 the register micro-tile rel_f32::fwd_kernel, bf16 at Dh 128
+    the WMMA rel_flash_fwd_kernel."""
+    want = ("rel_fwd::fwd_kernel<64, false>", "rel_f32::fwd_kernel<64, false>",
             "rel_flash_fwd_kernel<__nv_bfloat16")
     for (what, xs), w in zip(route_cases(torch, args), want):
         names = launched_kernels(torch, lambda: fa._launch_fwd(
@@ -469,9 +472,10 @@ def attention_fwd_routes(torch, fa, args):
 
 def attention_bwd_routes(torch, fa, args):
     """Which dq kernel espnet_rel_flash_bwd launches (torch.profiler's kernel
-    names): bf16 at Dh 64 the register-resident rel_dq::dq_kernel, fp32 and
-    bf16 at Dh 128 the WMMA rel_flash_dq_kernel."""
-    want = ("rel_dq::dq_kernel<64, false>", "rel_flash_dq_kernel<float",
+    names): bf16 at Dh 64 the register-resident rel_dq::dq_kernel, fp32 at
+    Dh 64 the register micro-tile rel_f32::dq_kernel, bf16 at Dh 128 the
+    WMMA rel_flash_dq_kernel."""
+    want = ("rel_dq::dq_kernel<64, false>", "rel_f32::dq_kernel<64, false>",
             "rel_flash_dq_kernel<__nv_bfloat16")
     for (what, xs), w in zip(route_cases(torch, args), want):
         scale = xs[0].shape[-1] ** -0.5
@@ -1939,64 +1943,72 @@ def ffn_wmma_dropout(torch, ffn, n, d, f, r):
     ]
 
 
-def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label,
-                           library=False):
-    """K3's WMMA launches (rel_flash_fwd_kernel, rel_flash_dkv_kernel,
-    rel_flash_dq_kernel) in ``dtype`` at rate DROPOUT (B x H x T x Dh, key
-    lengths T - 3 b): out and lse against rel_flash_attention_plain (fp32)
-    or rel_flash_attention_fwd_tiled_plain at the kernel's key tile of 64
+def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label):
+    """K3's launches in fp32 (the register micro-tile kernels
+    rel_f32::fwd_kernel, dkv_kernel, dq_kernel) or in bf16 at Dh 128 (the
+    WMMA rel_flash_fwd_kernel, rel_flash_dkv_kernel, rel_flash_dq_kernel)
+    at rates 0 and DROPOUT (B x H x T x Dh, key lengths T - 3 b): out and
+    lse against rel_flash_attention_plain (fp32) or
+    rel_flash_attention_fwd_tiled_plain at the kernel's key tile of 64
     (bf16), the backward against rel_flash_attention_bwd_plain, same seed,
     within TOL[dtype] of max |ref| per output and gradient (lse within
     1e-4); the launches by profiler name; each launch's device time at
     rate 0 beside DROPOUT, and its bound; each direction's time (CUDA
-    events) at DROPOUT beside its plain version's and, with ``library``,
-    SDPA's over the precomputed bias. Returns the two kernels-line
-    entries, named with ``label``. The inputs are bin/time_kernels.py's
-    WMMA case at these shapes."""
+    events) at DROPOUT beside its plain version's and SDPA's over the
+    precomputed bias. Returns the two kernels-line entries, named with
+    ``label``. The inputs are bin/time_kernels.py's WMMA case at these
+    shapes."""
     from espnet_slurp_tpu_torch.bin.time_kernels import attention_wmma_inputs
 
     name = str(dtype).split(".")[-1]
-    tname = "float" if dtype == torch.float32 else "__nv_bfloat16"
-    tile = 32 if dtype == torch.float32 else 64
+    if dtype == torch.float32:
+        kernels = tuple(f"rel_f32::{k}_kernel<{dh},"
+                        for k in ("fwd", "dkv", "dq"))
+    else:
+        kernels = ("rel_flash_fwd_kernel<__nv_bfloat16, 64, 64,",
+                   "rel_flash_dkv_kernel<__nv_bfloat16, 32, 32,",
+                   "rel_flash_dq_kernel<__nv_bfloat16, 32, 32,")
     args, g = attention_wmma_inputs(r, dtype, h, dh, b, t)
     lengths = args[-1]
     seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
     scale = dh ** -0.5
-    kw = dict(scale=scale, dropout_rate=DROPOUT)
     fwd = lambda rate=DROPOUT: fa._launch_fwd(*args, scale, 0, -1,
                                               seed if rate else None, rate)
-    out, lse = fwd()
-    bwd = lambda rate=DROPOUT: fa._launch_bwd(
-        *args, out, lse, g, scale, 0, -1, seed if rate else None, rate)
-    if dtype == torch.float32:
-        plain_fwd = lambda: fa.rel_flash_attention_plain(*args, seed, **kw)
-    else:
-        plain_fwd = lambda: fa.rel_flash_attention_fwd_tiled_plain(
-            *args, seed, block_k=tile, **kw)
-    plain_bwd = lambda: fa.rel_flash_attention_bwd_plain(*args, out, lse, g,
-                                                         seed, **kw)
-    grads = bwd()
-    ref, ref_lse = plain_fwd()
-    ref_grads = plain_bwd()
-    torch.cuda.synchronize()
     names = ("out", "dq_u", "dq_v", "dk", "dv", "dp")
-    errs = [rel_err(a, b_) for a, b_ in zip((out, *grads), (ref, *ref_grads))]
-    rel_lse = rel_err(lse, ref_lse)[1]
-    print(f"K3 rel_flash_attention {name} (WMMA) B={b} H={h} T={t} Dh={dh} "
-          f"dropout {DROPOUT} against its plain versions, same seed: "
-          + ", ".join(f"{k} {e[1]:.3e}" for k, e in zip(names, errs))
-          + f" of max|ref| (tolerance {TOL[name]}); lse {rel_lse:.3e} "
-          "(undropped; tolerance 1e-4)")
-    if not (max(e[1] for e in errs) <= TOL[name] and rel_lse <= 1e-4
-            and all(torch.isfinite(a).all() for a in (out, *grads))):
-        raise AssertionError(f"K3 {name} Dh {dh} with dropout disagrees with "
-                             "its plain versions")
-    del grads, ref, ref_lse, ref_grads
+    for rate in (0.0, DROPOUT):
+        kw = dict(scale=scale, dropout_rate=rate)
+        sd = seed if rate else None
+        out, lse = fwd(rate)
+        bwd = lambda rate=DROPOUT: fa._launch_bwd(
+            *args, out, lse, g, scale, 0, -1, seed if rate else None, rate)
+        if dtype == torch.float32:
+            plain_fwd = lambda: fa.rel_flash_attention_plain(*args, sd, **kw)
+        else:
+            plain_fwd = lambda: fa.rel_flash_attention_fwd_tiled_plain(
+                *args, sd, block_k=64, **kw)
+        plain_bwd = lambda: fa.rel_flash_attention_bwd_plain(
+            *args, out, lse, g, sd, **kw)
+        grads = bwd(rate)
+        ref, ref_lse = plain_fwd()
+        ref_grads = plain_bwd()
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b_)
+                for a, b_ in zip((out, *grads), (ref, *ref_grads))]
+        rel_lse = rel_err(lse, ref_lse)[1]
+        print(f"K3 rel_flash_attention {name} B={b} H={h} T={t} Dh={dh} "
+              f"dropout {rate} against its plain versions, same seed: "
+              + ", ".join(f"{k} {e[1]:.3e}" for k, e in zip(names, errs))
+              + f" of max|ref| (tolerance {TOL[name]}); lse {rel_lse:.3e} "
+              "(undropped; tolerance 1e-4)")
+        if not (max(e[1] for e in errs) <= TOL[name] and rel_lse <= 1e-4
+                and all(torch.isfinite(a).all() for a in (out, *grads))):
+            raise AssertionError(f"K3 {name} Dh {dh} at rate {rate} "
+                                 "disagrees with its plain versions")
+        del grads, ref, ref_lse, ref_grads
+    # out, lse, the plain versions and errs are those at DROPOUT.
     launch = wmma_launch_ms(
         torch, f"K3 {name} Dh {dh}", lambda rate: (fwd(rate), bwd(rate)),
-        (f"rel_flash_fwd_kernel<{tname}, {tile}, {tile},",
-         f"rel_flash_dkv_kernel<{tname}, 32, 32,",
-         f"rel_flash_dq_kernel<{tname}, 32, 32,"))
+        kernels)
     allowed = fa.allowed_mask(t, lengths)
     pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
     esize = 4 if dtype == torch.float32 else 2
@@ -2010,24 +2022,21 @@ def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label,
     ms_b = median_ms(torch, bwd, warmup=1, reps=5)
     plain_f = median_ms(torch, plain_fwd, warmup=1, reps=3)
     plain_b = median_ms(torch, plain_bwd, warmup=1, reps=3)
-    lib_f = lib_b = None
-    if library:
-        q_u, q_v, k, v, pp, _ = args
-        raw = q_v @ pp[:, :2 * t - 1].transpose(-1, -2)
-        bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(
-            b, h, t, t))
-        bias = torch.where(allowed, bd * scale, fa.NEG).to(dtype)
-        del raw, bd
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        with torch.no_grad():
-            lib_f = median_ms(torch, lambda: sdpa(q_u, k, v, attn_mask=bias,
-                                                  scale=scale),
-                              warmup=1, reps=5)
-        leaves = [a.detach().requires_grad_(True) for a in (q_u, k, v)]
-        sd = sdpa(*leaves, attn_mask=bias, scale=scale)
-        lib_b = median_ms(torch, lambda: torch.autograd.grad(
-            sd, leaves, g, retain_graph=True), warmup=1, reps=5)
-        del sd, leaves, bias
+    q_u, q_v, k, v, pp, _ = args
+    raw = q_v @ pp[:, :2 * t - 1].transpose(-1, -2)
+    bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(b, h, t, t))
+    bias = torch.where(allowed, bd * scale, fa.NEG).to(dtype)
+    del raw, bd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_f = median_ms(torch, lambda: sdpa(q_u, k, v, attn_mask=bias,
+                                              scale=scale),
+                          warmup=1, reps=5)
+    leaves = [a.detach().requires_grad_(True) for a in (q_u, k, v)]
+    sd = sdpa(*leaves, attn_mask=bias, scale=scale)
+    lib_b = median_ms(torch, lambda: torch.autograd.grad(
+        sd, leaves, g, retain_graph=True), warmup=1, reps=5)
+    del sd, leaves, bias
     print(f"K3 rel_flash_attention {name} Dh {dh} at dropout {DROPOUT}: "
           f"forward {ms_f:.4f} ms (plain {plain_f:.4f}, SDPA {lib_f}), "
           f"backward {ms_b:.4f} ms (plain {plain_b:.4f}, SDPA {lib_b})")
@@ -2055,9 +2064,11 @@ def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label,
 
 
 def wmma_dropout_phase(torch, t_prime):
-    """The WMMA launches at the flagship train shape at rate DROPOUT: K2 fp32
-    (N 64 x T', D 256, F DEFAULT_D_FF), K3 fp32 (B 64, H 4, T', Dh 64) and
-    K3 bf16 at Dh 128 (B 64, H 2, T'), both ways. Returns the kernels-line
+    """The launches of the default ASRConfig's fp32 path and the WMMA ones at
+    the flagship train shape, at rates 0 and DROPOUT: K2 fp32 (N 64 x T', D
+    256, F DEFAULT_D_FF), K3 fp32 (B 64, H 4, T', Dh 64: the register
+    micro-tile kernels) and K3 bf16 at Dh 128 (B 64, H 2, T'), both ways.
+    Returns the kernels-line
     entries of the fp32 launches (the default ASRConfig's path) and the
     records of the Dh-128 pair (on no model's path), by kernel name."""
     from espnet_slurp_tpu_torch.ops.kernels import ffn
@@ -2069,7 +2080,7 @@ def wmma_dropout_phase(torch, t_prime):
                                DEFAULT_D_FF, r)
     torch.cuda.empty_cache()
     entries += attention_wmma_dropout(torch, fa, TRAIN_B, 4, t_prime, 64,
-                                      torch.float32, r, "fp32", library=True)
+                                      torch.float32, r, "fp32")
     torch.cuda.empty_cache()
     wide = attention_wmma_dropout(torch, fa, TRAIN_B, 2, t_prime, 128,
                                   torch.bfloat16, r, "bf16_dh128")
@@ -2135,6 +2146,11 @@ def main() -> int:
         build.library(), f"espnet_rel_flash_{k}_blocks_per_sm")(dh)
         for k in ("fwd", "dkv", "dq") for dh in (64, 32)}
     print(f"K3 bf16 kernels, blocks per SM: {blocks}")
+    f32_blocks = {f"{k} Dh {dh}": build.library()
+                  .espnet_rel_flash_f32_blocks_per_sm(i, dh)
+                  for i, k in enumerate(("fwd", "dkv", "dq"))
+                  for dh in (64, 32, 128)}
+    print(f"K3 fp32 kernels, blocks per SM: {f32_blocks}")
     ffn_blocks = build.library().espnet_fused_ffn_fwd_blocks_per_sm(256, 256)
     print(f"K2 bf16 forward kernel (D 256, D2 256), blocks per SM: "
           f"{ffn_blocks}")
@@ -2197,6 +2213,11 @@ def main() -> int:
         base = kern["name"].replace("_fp32", "")
         kern["launches"] = default_launches[base]
         kern["launches_per_default_train_step"] = default_per_step[base]
+        if base == "rel_flash_attention":
+            kern["blocks_per_sm"] = f32_blocks["fwd Dh 64"]
+        if base == "rel_flash_attention_bwd":
+            kern["blocks_per_sm"] = {k: f32_blocks[f"{k} Dh 64"]
+                                     for k in ("dkv", "dq")}
     kernels += wmma_kernels
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "

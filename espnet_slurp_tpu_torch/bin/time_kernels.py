@@ -1,5 +1,6 @@
 """Times kernel K2's forward (fused FFN) and K4's backward (fused CTC head),
-or with ``--wmma`` the WMMA launches of K2 and K3.
+or with ``--wmma`` the launches of the default ASRConfig's fp32 path (K2's
+WMMA ones, K3's register micro-tile ones) and K3's bf16 WMMA launches.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
@@ -20,11 +21,12 @@ adds to peak memory; ``plain_ms``, the plain composition's time (K2:
 fused_ffn_plain; K4: autograd's backward of fused_ctc_head_emit_plain) by
 the same events. ``--wmma`` instead times, at rate 0 and (``--rate`` above
 0) at that dropout rate, each direction's launch of K2's fp32 route (N 64
-x 468, D 256, d_ff 2048: the default ASRConfig's train step) and of K3's
-WMMA routes (B 64, T' 468, key lengths T' - 3 b: fp32 at H 4, Dh 64, the
-default ASRConfig's; bf16 at H 2, Dh 128): ``ms`` (the median of two event
-medians of 3 runs after one warm-up) and ``kernels_ms`` / ``device_ms``
-(torch.profiler over 5 calls). Prints one JSON line with the card's name
+x 468, D 256, d_ff 2048: the default ASRConfig's train step) and of K3
+(B 64, T' 468, key lengths T' - 3 b: fp32 at H 4, Dh 64, the default
+ASRConfig's, through the rel_f32 kernels; bf16 at H 2, Dh 128, through
+the WMMA ones): ``ms`` (the median of two event medians of 3 runs after
+one warm-up) and ``kernels_ms`` / ``device_ms`` (torch.profiler over 5
+calls, by kernel name). Prints one JSON line with the card's name
 and power limit (nvidia-smi) and the kernel modules' paths. To time
 another checkout's kernels, run this file with that checkout's root as
 the working directory and ``PYTHONPATH=.``. Needs a CUDA device.
@@ -49,7 +51,7 @@ FFN_CASES = {"ffn_fwd_serving": 8 * 471, "ffn_fwd_train": 64 * 468,
              "ffn_fwd_transducer": 32 * 468}
 HEAD_B, HEAD_T = 64, 468
 # --wmma: rows and width of K2's fp32 launches; (dtype, H, Dh) of K3's
-# WMMA launches at B 64, T' 468.
+# fp32 and bf16 Dh-128 launches at B 64, T' 468.
 WMMA_N, WMMA_F, WMMA_B, WMMA_T = 64 * 468, 2048, 64, 468
 WMMA_ATT = {"fp32_dh64": (torch.float32, 4, 64),
             "bf16_dh128": (torch.bfloat16, 2, 128)}
@@ -168,7 +170,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--wmma", action="store_true",
-                    help="time the WMMA launches of K2 and K3 instead")
+                    help="time K2's and K3's fp32 launches and K3's bf16 "
+                    "Dh-128 ones instead")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="with --wmma, also time them at this dropout rate")
     args = ap.parse_args()

@@ -18,12 +18,14 @@
 // scores and probabilities and a [B, H, T, 2T-1] position score matrix,
 // which is what the TPU kernel was written to avoid.
 //
-// Two forward kernels. In bf16 at Dh 32 and 64 (both main-path models) the
-// forward is rel_fwd::fwd_kernel below: registers for q, S, P and O, one
-// fp32 shared trip a warp for the skewed slice, cp.async rings; its note
-// says what limits it and what its design does about that. Every other
-// case (fp32, bf16 at other Dh) takes rel_flash_fwd_kernel here, the first
-// version:
+// Three forward kernels. In bf16 at Dh 32 and 64 (both main-path models)
+// the forward is rel_fwd::fwd_kernel below: registers for q, S, P and O,
+// one fp32 shared trip a warp for the skewed slice, cp.async rings; in
+// fp32 at Dh 32, 64 and 128 (the default ASRConfig) it is
+// rel_f32::fwd_kernel below, register micro-tiles of fp32 FMAs; their
+// notes say what limits them and what their designs do about that. Every
+// other case (bf16 or fp32 at another Dh) takes rel_flash_fwd_kernel here,
+// the first version:
 //
 // one block owns BQ query rows of one (batch, head) and streams key
 // tiles of BK rows with an online softmax (running max m, sum l, fp32 output
@@ -40,9 +42,10 @@
 // Dropout on the probabilities (the reference's _dropout_keep) is drawn in
 // every launch, from philox.cuh with (b * H + h, query, key) as the
 // element's coordinates: the bf16 kernels at Dh 32 / 64 (rel_fwd, rel_dkv,
-// rel_dq) per lane with keep8, the WMMA kernels (DROP) into a BQ x BK byte
-// tile in shared memory per (query tile, key tile) pair with
-// fill_keep_tile. Each kernel has a rate-0 instantiation without the draw.
+// rel_dq) per lane with keep8, the fp32 ones (rel_f32) and the WMMA ones
+// (DROP) into a BQ x BK byte tile in shared memory per (query tile, key
+// tile) pair with fill_keep_tile. Each kernel has a rate-0 instantiation
+// without the draw.
 #include "common.cuh"
 #include "mma_gemm.cuh"
 #include "philox.cuh"
@@ -245,7 +248,9 @@ int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* 
 // dropped. In bf16 at Dh 32 and 64 the dkv launch is rel_dkv::dkv_kernel
 // below (register accumulators, cp.async ring, vector reductions) and the
 // dq launch rel_dq::dq_kernel (the forward's query-tile loop, registers for
-// q, dO, S, dP and dq); the WMMA kernels here serve fp32 and every other Dh.
+// q, dO, S, dP and dq); in fp32 at Dh 32, 64 and 128 they are
+// rel_f32::dkv_kernel and dq_kernel; the WMMA kernels here serve every
+// other Dh.
 
 struct FlashBwdLayout {
   size_t qu, qv, dout, k, v, slab, sc, dpf, raw, t1, t2, t3, acc1, acc2, lse, delta, keep, total;
@@ -1524,6 +1529,828 @@ int blocks_per_sm() {
 
 }  // namespace rel_dq
 
+// dst[0 : CW] += v in device memory: one red.global.add.v4.f32 (CW 4,
+// 16-byte aligned) or two scalar reductions (CW 2).
+template <int CW>
+__device__ __forceinline__ void red_add_f32(float* dst, const float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(dst), "f"(v[0]),
+                 "f"(v[1]), "f"(v[2]), "f"(v[3])
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int e = 0; e < CW; ++e) atomicAdd(dst + e, v[e]);
+  }
+}
+
+// ---- fp32 at Dh 32, 64 and 128: register micro-tiles of FMAs -----------
+//
+// Replace _fwd_kernel, _dq_kernel and _dkv_kernel
+// (espnet_slurp_tpu/ops/pallas/flash_attention.py:134 / :237 / :178,
+// called at :336 / :421 / :379) in fp32 where Dh is 32, 64 or 128 (the
+// default ASRConfig's Dh is 64, d_model 512 / 4 heads gives 128); fp32 at
+// any other Dh takes the WMMA-staged rel_flash_*_kernel<float, 32, 32>
+// above. They compute what those kernels compute, in exact fp32 (no TF32):
+// the same masks, dropout bits (philox::fill_keep_tile at 16-aligned tile
+// origins), rounding points (PairScores::at) and fully-masked-row rule;
+// only the fp32 summation order differs.
+//
+// Bound (default ASRConfig train shape, B 64, H 4, T' 468, Dh 64, ragged
+// key lengths): the products over the visible (query, key) pairs, ~17
+// GFLOP forward and ~46 GFLOP backward, at the 67 TFLOP/s of the fp32
+// units: 0.26 ms forward, 0.51 ms dkv and 0.43 ms dq (their compulsory
+// bytes take under 0.05 ms). The WMMA-staged kernels read both operands of
+// every FMA from shared memory, one output a thread, and run at 1.6-5.9
+// TFLOP/s: they wait on shared memory, not on the FMA units.
+//
+// Design. A block of 256 threads, a 16 x 16 grid (ty, tx); a warp holds 4
+// ty x 8 tx. Every product of the three kernels is a register micro-tile:
+//   - Scores (pair_products): thread (ty, tx) accumulates the TM x TN
+//     scores of query rows ty + 16 i and key columns tx + 16 j. Per 4 k it
+//     loads TM rows of q_u and of q_v, TN rows of k and, for the skewed
+//     term, TM + TN - 1 slab rows, each as one float4, and does 2 TM TN x 4
+//     FMAs (3 with dP = dO v^T): q_u k and q_v p go into the same
+//     accumulator, and the slab rows of element (i, j) are
+//     BQ - 1 - ty + tx + 16 (j - i), one band a thread, each row used by
+//     every element on its diagonal. No [BQ, BQ + BK] raw tile and no
+//     shared trip of the scores. Row strides of Dh + 4 floats put the 8
+//     consecutive rows a warp reads at once in 8 distinct 16-byte bank
+//     groups; q rows are broadcast over the 8 tx lanes.
+//   - The second products (rows_times: P v, ds k, rawg slab, P^T dO, ds^T
+//     q_u, rawg^T q_v): rows ty + 16 i of an operand in shared memory
+//     (float4 over the reduction axis, broadcast over tx) times a row of
+//     the other (each lane 2-4 consecutive columns: one 128-byte wavefront
+//     a warp), accumulated in registers.
+//   - Forward: the online softmax in registers, in log2 units; a row's
+//     16 columns threads sit in two warps, so its max goes through a
+//     [BQ][2] shared array once a key tile (three shuffles, then one read);
+//     l stays a per-thread partial sum, reduced at the end. P goes to
+//     shared memory once, into the k tile's region (k is read by then), and
+//     the slab of the next key tile is fetched while P v runs, v while the
+//     scores run (cp.async).
+//   - dq: P and ds from lse and delta (registers: a thread's rows are the
+//     same in every key tile); ds and the skewed rawg [BQ, BQ + BK] (its
+//     off-band zeros written once) to shared memory; dq_u += ds k and dq_v
+//     += rawg slab. v of the next key tile is fetched during those products.
+//   - dkv: one key tile, the query tiles walked; P^T, ds^T and rawg^T to
+//     shared memory ([BK or BQ + BK][BQ + 4]: conflict-free transposing
+//     stores); dk, dv and the [BQ + BK, Dh] dp slab accumulate in
+//     registers. The slab rows [BK, BQ + BK) are final after each query
+//     tile (the next tile's slab starts BQ rows lower): those are added to
+//     dp with red.global.add.v4.f32 (all rows after the last tile), the
+//     rest move up BQ rows in registers. The next tile's slab is fetched
+//     while the products run.
+//   - Zeros not formed: half of rawg and rawg^T is off the band, and a warp
+//     skips the 4-column steps of rawg slab and rawg^T q_v that miss the
+//     band of all its rows. Key tiles at or past the key length add exact
+//     zeros to every row that sees a key: the forward and dkv skip them
+//     unless a row may see none (no key, or a left-chunk window past the
+//     keys: those rows weigh all T keys), dq always (ds = 0 there).
+//   - Tiles: BQ = BK = 64 (BQ = 32 for dq and dkv at Dh 128, for their
+//     shared memory); BQ, BK and every tile origin multiples of 16, so the
+//     keep tile is filled at 16-aligned origins. Rows past T, and slab
+//     rows outside [0, 2T), are zero-filled by cp.async with a source size
+//     of 0.
+// Shared memory at Dh 64: forward 109,056 B (two blocks an SM), dq
+// 178,176 B, dkv 196,096 B. Each instantiation's attributes are set once.
+// On the H100 they reach 29-34% of these bounds (PERF.md §6). Deeper
+// unrolling, a second dq stage for k and the slab and fetching dkv's q
+// operands as soon as each product is done did not make them faster: load
+// latency does not hold them. The backward forms 11 products a (query,
+// key) pair (S and dP in both kernels; dp and dq_v from the band), SDPA's
+// backward over a precomputed bias 5.
+namespace rel_f32 {
+
+using mma::cp_async16;
+using mma::cp_async4;
+using rel_fwd::kLn2;
+using rel_fwd::kLog2e;
+using rel_fwd::visible_keys;
+constexpr int kThr = 256;  // the 16 x 16 thread grid
+constexpr int BK = 64;     // key tile of the three kernels
+constexpr int TN = BK / 16;
+
+// Query tile of the dq and dkv kernels.
+template <int DH>
+constexpr int bq_bwd() {
+  return DH == 128 ? 32 : 64;
+}
+
+__device__ __forceinline__ void grid_pos(int& ty, int& tx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ty = (warp >> 1) * 4 + (lane >> 3);
+  tx = (warp & 1) * 8 + (lane & 7);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// The thread's columns of a [*, DH] row: d = 16 CW m + CW tx + e, m < NCH,
+// e < CW (CW = 4, or 2 at Dh 32), held as acc[.][CW m + e].
+template <int DH>
+struct Cols {
+  static constexpr int DV = DH / 16, CW = DV < 4 ? DV : 4, NCH = DV / CW;
+  static __device__ __forceinline__ int col(int m, int tx) { return 16 * CW * m + CW * tx; }
+};
+
+template <int CW>
+__device__ __forceinline__ void load_cw(float (&d)[CW], const float* p) {
+  if constexpr (CW == 4) {
+    const float4 x = ld4(p);
+    d[0] = x.x, d[1] = x.y, d[2] = x.z, d[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    d[0] = x.x, d[1] = x.y;
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void store_cw(float* p, const float* d) {
+  if constexpr (CW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  }
+}
+
+// rows x DH floats of global rows [r0, r0 + rows) of g (row length DH) into
+// shared s (ld floats a row) by cp.async; rows outside [lo, hi) are
+// zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_rows(float* s, int ld, const float* g, long r0, int rows,
+                                          long lo, long hi) {
+  constexpr int CH = DH / 4;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += kThr) {
+    const int r = idx / CH;
+    const int c = (idx - r * CH) * 4;
+    const long gr = r0 + r;
+    const bool ok = gr >= lo && gr < hi;
+    cp_async16(s + r * ld + c, ok ? g + gr * DH + c : g, ok);
+  }
+}
+
+// The thread's TM x TN scores of one (query tile, key tile) pair, rows r_i
+// = ty + 16 i, columns c_j = tx + 16 j (BQ = 16 TM, all operands in shared
+// memory with rows of DH + 4 floats):
+//   s[i][j] += q_u[r_i] . k[c_j] + q_v[r_i] . slab[BQ - 1 - r_i + c_j],
+// and with DP dp[i][j] += dO[r_i] . v[c_j].
+template <int DH, int TM, bool DP>
+__device__ __forceinline__ void pair_products(float (&s)[TM][TN], float (&dp)[TM][TN],
+                                              const float* qu, const float* qv, const float* dO,
+                                              const float* k, const float* v, const float* slab,
+                                              int ty, int tx) {
+  constexpr int LD = DH + 4;
+  const float* band = slab + (16 * TM - 1 - ty + tx) * LD;  // slab row of (i, j) = band + 16 (j - i)
+#pragma unroll 2
+  for (int kk = 0; kk < DH; kk += 4) {
+    float4 a[TM], bb[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = ld4(qu + (ty + 16 * i) * LD + kk);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bb[j] = ld4(k + (tx + 16 * j) * LD + kk);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = dot4(a[i], bb[j], s[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = ld4(qv + (ty + 16 * i) * LD + kk);
+#pragma unroll
+    for (int u = 1 - TM; u < TN; ++u) {
+      const float4 w = ld4(band + 16 * u * LD + kk);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        if (u + i >= 0 && u + i < TN) s[i][u + i] = dot4(a[i], w, s[i][u + i]);
+      }
+    }
+    if constexpr (DP) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = ld4(dO + (ty + 16 * i) * LD + kk);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bb[j] = ld4(v + (tx + 16 * j) * LD + kk);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dp[i][j] = dot4(a[i], bb[j], dp[i][j]);
+    }
+  }
+}
+
+// acc[i][.] += sum_{x < n} a[ty + 16 i][x] * b[x][the thread's columns]:
+// a with rows of lda floats, b with rows of DH + 4, both in shared memory;
+// n a multiple of 4. With BAND, row `row` of a is zero outside columns
+// [BQ - 1 - row, BQ - 2 - row + BK] (the skewed rawg and rawg^T), and a
+// warp skips the 4-column steps that miss the band of all its rows.
+template <int DH, int R, int BQ = 0>
+__device__ __forceinline__ void rows_times(float (&acc)[R][DH / 16], const float* a, int lda,
+                                           const float* b, int n, int ty, int tx) {
+  using C = Cols<DH>;
+  constexpr int LD = DH + 4;
+  const int ty0 = ty & ~3;  // the warp's rows are ty0 .. ty0 + 3 (+ 16 i)
+#pragma unroll 4
+  for (int x = 0; x < n; x += 4) {
+    bool on[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      on[i] = BQ == 0 || (x + 3 >= BQ - 4 - ty0 - 16 * i && x <= BQ - 2 - ty0 - 16 * i + BK);
+    }
+    float4 ar[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (on[i]) ar[i] = ld4(a + (ty + 16 * i) * lda + x);
+    }
+#pragma unroll
+    for (int xx = 0; xx < 4; ++xx) {
+      float bv[C::NCH][C::CW];
+#pragma unroll
+      for (int m = 0; m < C::NCH; ++m) load_cw<C::CW>(bv[m], b + (x + xx) * LD + C::col(m, tx));
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!on[i]) continue;
+        const float av = comp(ar[i], xx);
+#pragma unroll
+        for (int m = 0; m < C::NCH; ++m)
+#pragma unroll
+          for (int e = 0; e < C::CW; ++e) {
+            acc[i][C::CW * m + e] = fmaf(av, bv[m][e], acc[i][C::CW * m + e]);
+          }
+      }
+    }
+  }
+}
+
+// Rows r_i of acc into global rows row0 + r_i < t of g ([*, DH]).
+template <int DH, int R>
+__device__ __forceinline__ void store_rows(float* g, const float (&acc)[R][DH / 16], long row0,
+                                           int t, int ty, int tx) {
+  using C = Cols<DH>;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const long row = row0 + ty + 16 * i;
+    if (row < t) {
+#pragma unroll
+      for (int m = 0; m < C::NCH; ++m) store_cw<C::CW>(g + row * DH + C::col(m, tx), &acc[i][C::CW * m]);
+    }
+  }
+}
+
+template <int DH>
+struct FwdLayout {
+  static constexpr int BQ = 64, SW = BQ + BK, LD = DH + 4, LDP = BK + 4;
+  static constexpr size_t kTileQ = (size_t)BQ * LD * 4,
+                          kKP = (size_t)(BK * LD > BQ * LDP ? BK * LD : BQ * LDP) * 4;
+  // q_u, q_v; k, then P; v; the slab; the row maxima [BQ][2]; the keep tile.
+  static constexpr size_t kQu = 0, kQv = kTileQ, kK = 2 * kTileQ, kV = kK + kKP,
+                          kSlab = kV + (size_t)BK * LD * 4, kRed = kSlab + (size_t)SW * LD * 4,
+                          kKeep = kRed + (size_t)BQ * 2 * 4, kBytes = kKeep + (size_t)BQ * BK;
+};
+
+// DROP: P is dropped after its undropped value went into l (lse undropped),
+// as in rel_flash_fwd_kernel.
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kThr, DH == 128 ? 1 : 2)
+    fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
+               const float* __restrict__ k, const float* __restrict__ v,
+               const float* __restrict__ p, const int* __restrict__ lengths,
+               float* __restrict__ out, float* __restrict__ lse, int h, int t, float scale,
+               int chunk_size, int left_chunks, philox::Dropout drop) {
+  using L = FwdLayout<DH>;
+  using C = Cols<DH>;
+  constexpr int BQ = L::BQ, SW = L::SW, LD = L::LD, LDP = L::LDP, TM = BQ / 16, DV = C::DV;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qus = reinterpret_cast<float*>(smem + L::kQu);
+  float* qvs = reinterpret_cast<float*>(smem + L::kQv);
+  float* ks = reinterpret_cast<float*>(smem + L::kK);
+  float* ps = ks;  // P [BQ][LDP] once the scores are formed
+  float* vs = reinterpret_cast<float*>(smem + L::kV);
+  float* slab = reinterpret_cast<float*>(smem + L::kSlab);
+  float* red = reinterpret_cast<float*>(smem + L::kRed);
+  unsigned char* keep = smem + L::kKeep;  // [BQ][BK], DROP only
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int i0 = blockIdx.x * BQ;
+  const long base = (long)bh * t * DH;
+  const float* pb = p + (long)hh * 2 * t * DH;
+  const long cb = (long)t - BQ - i0;  // p row of slab row 0 at key tile 0
+  // Key tiles at or past the key length add exact zeros to every row that
+  // sees a key; where a row may see none (no key, or a left-chunk window
+  // past the keys), all T keys weigh in.
+  const int klen = lengths[b];
+  const bool seen = klen >= 1 && (chunk_size <= 0 || left_chunks < 0);
+  const int nk = ((seen ? min(klen, t) : t) + BK - 1) / BK;
+  int ty, tx;
+  grid_pos(ty, tx);
+  const int half = (threadIdx.x >> 5) & 1;  // which of a row's two warps
+
+  load_rows<DH>(qus, LD, qu + base, i0, BQ, 0, t);
+  load_rows<DH>(qvs, LD, qv + base, i0, BQ, 0, t);
+  load_rows<DH>(ks, LD, k + base, 0, BK, 0, t);
+  load_rows<DH>(slab, LD, pb, cb, SW, 0, 2L * t);
+  mma::cp_async_commit();
+  load_rows<DH>(vs, LD, v + base, 0, BK, 0, t);
+  mma::cp_async_commit();
+
+  int jlo[TM], jhi[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    visible_keys(i0 + ty + 16 * i, klen, chunk_size, left_chunks, jlo[i], jhi[i]);
+  }
+  const float sl2 = scale * kLog2e, neg2 = kNeg * kLog2e;
+  float o[TM][DV], m2[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m2[i] = neg2;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DV; ++d) o[i][d] = 0.0f;
+  }
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int j0 = kt * BK;
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BQ, BK>(keep, BK, seed, (uint32_t)bh, (uint32_t)i0, (uint32_t)j0,
+                                     drop.thr);
+    }
+    mma::cp_async_wait<1>();
+    __syncthreads();  // k and the slab of tile kt landed (v may still fly)
+
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
+    pair_products<DH, TM, false>(s, s, qus, qvs, nullptr, ks, nullptr, slab, ty, tx);
+
+    // Scores in log2 units, masked; the row maxima over the row's threads.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mt = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int jj = j0 + tx + 16 * j;
+        float x = -CUDART_INF_F;  // key column past T: not part of the softmax
+        if (jj < t) x = jj >= jlo[i] && jj < jhi[i] ? s[i][j] * sl2 : neg2;
+        s[i][j] = x;
+        mt = fmaxf(mt, x);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      if ((threadIdx.x & 7) == 0) red[(ty + 16 * i) * 2 + half] = mt;
+    }
+    __syncthreads();  // k and the slab read; the row maxima visible
+    if (kt + 1 < nk) load_rows<DH>(slab, LD, pb, cb + j0 + BK, SW, 0, 2L * t);
+    mma::cp_async_commit();
+
+    // P = exp2(x - m) into l undropped, into shared memory dropped.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = ty + 16 * i;
+      const float m_new = fmaxf(m2[i], fmaxf(red[2 * r], red[2 * r + 1]));
+      const float alpha = exp2f(m2[i] - m_new);
+      m2[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < DV; ++d) o[i][d] *= alpha;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = tx + 16 * j;
+        float pe = exp2f(s[i][j] - m_new);
+        l[i] += pe;
+        if constexpr (DROP) pe = keep[r * BK + c] ? pe * drop.inv : 0.0f;
+        ps[r * LDP + c] = pe;
+      }
+    }
+    mma::cp_async_wait<1>();
+    __syncthreads();  // P and v visible
+    rows_times<DH, TM>(o, ps, LDP, vs, BK, ty, tx);
+    __syncthreads();  // P (k's region) and v read
+    if (kt + 1 < nk) load_rows<DH>(ks, LD, k + base, j0 + BK, BK, 0, t);
+    mma::cp_async_commit();
+    if (kt + 1 < nk) load_rows<DH>(vs, LD, v + base, j0 + BK, BK, 0, t);
+    mma::cp_async_commit();
+  }
+
+  // l over the row's 16 threads (the last reads of red were before the
+  // last tile's "P and v visible" barrier).
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    if ((threadIdx.x & 7) == 0) red[(ty + 16 * i) * 2 + half] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + 16 * i;
+    const float lt = fmaxf(red[2 * r] + red[2 * r + 1], 1e-30f);
+#pragma unroll
+    for (int d = 0; d < DV; ++d) o[i][d] /= lt;
+    if (tx == 0 && i0 + r < t) lse[(long)bh * t + i0 + r] = m2[i] * kLn2 + logf(lt);
+  }
+  store_rows<DH, TM>(out + base, o, i0, t, ty, tx);
+}
+
+template <int DH>
+struct DqLayout {
+  static constexpr int BQ = bq_bwd<DH>(), SW = BQ + BK, LD = DH + 4, LDS = BK + 8,
+                       LDG = SW + 4;
+  // q_u, q_v, dO; k, v; the slab; ds; the skewed rawg; the keep tile.
+  static constexpr size_t kTileQ = (size_t)BQ * LD * 4, kTileK = (size_t)BK * LD * 4;
+  static constexpr size_t kQu = 0, kQv = kTileQ, kDo = 2 * kTileQ, kK = 3 * kTileQ,
+                          kV = kK + kTileK, kSlab = kV + kTileK,
+                          kDs = kSlab + (size_t)SW * LD * 4, kRawg = kDs + (size_t)BQ * LDS * 4,
+                          kKeep = kRawg + (size_t)BQ * LDG * 4, kBytes = kKeep + (size_t)BQ * BK;
+};
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kThr, 1)
+    dq_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
+              const float* __restrict__ k, const float* __restrict__ v,
+              const float* __restrict__ p, const int* __restrict__ lengths,
+              const float* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, float* __restrict__ dqu, float* __restrict__ dqv,
+              int h, int t, float scale, int chunk_size, int left_chunks, philox::Dropout drop) {
+  using L = DqLayout<DH>;
+  constexpr int BQ = L::BQ, SW = L::SW, LD = L::LD, TM = BQ / 16, DV = Cols<DH>::DV;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qus = reinterpret_cast<float*>(smem + L::kQu);
+  float* qvs = reinterpret_cast<float*>(smem + L::kQv);
+  float* dos = reinterpret_cast<float*>(smem + L::kDo);
+  float* ks = reinterpret_cast<float*>(smem + L::kK);
+  float* vs = reinterpret_cast<float*>(smem + L::kV);
+  float* slab = reinterpret_cast<float*>(smem + L::kSlab);
+  float* dss = reinterpret_cast<float*>(smem + L::kDs);
+  float* rawg = reinterpret_cast<float*>(smem + L::kRawg);
+  unsigned char* keep = smem + L::kKeep;  // [BQ][BK], DROP only
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int i0 = blockIdx.x * BQ;
+  const long base = (long)bh * t * DH;
+  const float* pb = p + (long)hh * 2 * t * DH;
+  const long cb = (long)t - BQ - i0;
+  const int klen = min(lengths[b], t);  // keys at or past T are invisible
+  const int nk = (max(klen, 0) + BK - 1) / BK;  // later key tiles have ds = 0
+  int ty, tx;
+  grid_pos(ty, tx);
+
+  load_rows<DH>(qus, LD, qu + base, i0, BQ, 0, t);
+  load_rows<DH>(qvs, LD, qv + base, i0, BQ, 0, t);
+  load_rows<DH>(dos, LD, dout + base, i0, BQ, 0, t);
+  load_rows<DH>(ks, LD, k + base, 0, BK, 0, t);
+  load_rows<DH>(vs, LD, v + base, 0, BK, 0, t);
+  load_rows<DH>(slab, LD, pb, cb, SW, 0, 2L * t);
+  mma::cp_async_commit();
+  // rawg off the band is 0 for every tile: written once.
+  for (int idx = threadIdx.x; idx < BQ * L::LDG; idx += kThr) rawg[idx] = 0.0f;
+
+  // The thread's rows: lse in log2 units, delta, visible keys (none for a
+  // row past T or a fully masked one).
+  int jlo[TM], jhi[TM];
+  float lse2[TM], dl[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int ii = i0 + ty + 16 * i;
+    const float lv = ii < t ? lse[(long)bh * t + ii] : kNeg;
+    dl[i] = ii < t ? delta[(long)bh * t + ii] : 0.0f;
+    lse2[i] = lv * kLog2e;
+    visible_keys(ii, klen, chunk_size, left_chunks, jlo[i], jhi[i]);
+    if (ii >= t || lv < 0.5f * kNeg) jhi[i] = jlo[i];
+  }
+  const float sl2 = scale * kLog2e;
+  float acc_u[TM][DV], acc_v[TM][DV];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int d = 0; d < DV; ++d) acc_u[i][d] = acc_v[i][d] = 0.0f;
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int j0 = kt * BK;
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BQ, BK>(keep, BK, seed, (uint32_t)bh, (uint32_t)i0, (uint32_t)j0,
+                                     drop.thr);
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; the previous tile's readers are done
+
+    float s[TM][TN], dpv[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = dpv[i][j] = 0.0f;
+    pair_products<DH, TM, true>(s, dpv, qus, qvs, dos, ks, vs, slab, ty, tx);
+    // ds (PairScores::at) into ds and, skewed, rawg.
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j, jj = j0 + c;
+        float ds = 0.0f;
+        if (jj >= jlo[i] && jj < jhi[i]) {
+          float dpk = dpv[i][j];
+          if constexpr (DROP) dpk = keep[r * BK + c] ? dpk * drop.inv : 0.0f;
+          ds = exp2f(s[i][j] * sl2 - lse2[i]) * (dpk - dl[i]) * scale;
+        }
+        dss[r * L::LDS + c] = ds;
+        rawg[r * L::LDG + BQ - 1 - r + c] = ds;
+      }
+    __syncthreads();  // ds and rawg visible; v read
+    if (kt + 1 < nk) load_rows<DH>(vs, LD, v + base, j0 + BK, BK, 0, t);
+    mma::cp_async_commit();
+    rows_times<DH, TM>(acc_u, dss, L::LDS, ks, BK, ty, tx);
+    rows_times<DH, TM, BQ>(acc_v, rawg, L::LDG, slab, SW, ty, tx);
+    __syncthreads();  // k, the slab, ds and rawg read
+    if (kt + 1 < nk) {
+      load_rows<DH>(ks, LD, k + base, j0 + BK, BK, 0, t);
+      load_rows<DH>(slab, LD, pb, cb + j0 + BK, SW, 0, 2L * t);
+    }
+    mma::cp_async_commit();
+  }
+  mma::cp_async_wait<0>();  // the first tile's loads, when no tile ran
+  store_rows<DH, TM>(dqu + base, acc_u, i0, t, ty, tx);
+  store_rows<DH, TM>(dqv + base, acc_v, i0, t, ty, tx);
+}
+
+template <int DH>
+struct DkvLayout {
+  static constexpr int BQ = bq_bwd<DH>(), SW = BQ + BK, LD = DH + 4, LDT = BQ + 4;
+  // k, v; q_u, q_v, dO; the slab; P^T, ds^T, rawg^T; lse, delta; the keep
+  // tile.
+  static constexpr size_t kTileQ = (size_t)BQ * LD * 4, kTileK = (size_t)BK * LD * 4;
+  static constexpr size_t kK = 0, kV = kTileK, kQu = 2 * kTileK, kQv = kQu + kTileQ,
+                          kDo = kQv + kTileQ, kSlab = kDo + kTileQ,
+                          kPt = kSlab + (size_t)SW * LD * 4, kDst = kPt + (size_t)BK * LDT * 4,
+                          kRawgt = kDst + (size_t)BK * LDT * 4,
+                          kLse = kRawgt + (size_t)SW * LDT * 4, kDelta = kLse + (size_t)BQ * 4,
+                          kKeep = kDelta + (size_t)BQ * 4, kBytes = kKeep + (size_t)BQ * BK;
+};
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kThr, 1)
+    dkv_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
+               const float* __restrict__ k, const float* __restrict__ v,
+               const float* __restrict__ p, const int* __restrict__ lengths,
+               const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+               float* __restrict__ dp, int h, int t, float scale, int chunk_size, int left_chunks,
+               philox::Dropout drop) {
+  using L = DkvLayout<DH>;
+  using C = Cols<DH>;
+  constexpr int BQ = L::BQ, SW = L::SW, LD = L::LD, LDT = L::LDT, TM = BQ / 16, DV = C::DV;
+  constexpr int NS = SW / 16, NQ = BQ / 16;  // dp slab rows ty + 16 i, i < NS; a shift of NQ
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem + L::kK);
+  float* vs = reinterpret_cast<float*>(smem + L::kV);
+  float* qus = reinterpret_cast<float*>(smem + L::kQu);
+  float* qvs = reinterpret_cast<float*>(smem + L::kQv);
+  float* dos = reinterpret_cast<float*>(smem + L::kDo);
+  float* slab = reinterpret_cast<float*>(smem + L::kSlab);
+  float* pt = reinterpret_cast<float*>(smem + L::kPt);
+  float* dst = reinterpret_cast<float*>(smem + L::kDst);
+  float* rawgt = reinterpret_cast<float*>(smem + L::kRawgt);
+  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::kDelta);
+  unsigned char* keep = smem + L::kKeep;  // [BQ][BK], DROP only
+
+  const int bh = blockIdx.y;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int j0 = blockIdx.x * BK;
+  const long base = (long)bh * t * DH;
+  const float* pb = p + (long)hh * 2 * t * DH;
+  float* dpb = dp + (long)hh * 2 * t * DH;
+  const PairScores pair{t, 0, j0, lengths[b], chunk_size, left_chunks, scale};
+  const int nq = (t + BQ - 1) / BQ;
+  int ty, tx;
+  grid_pos(ty, tx);
+  if (j0 >= pair.klen && pair.klen >= 1 && (chunk_size <= 0 || left_chunks < 0)) {
+    // Every row sees a key, none of these: P = ds = 0, so dk = dv = 0 and
+    // no dp.
+    const float zero[TN][DV] = {};
+    store_rows<DH, TN>(dk + base, zero, j0, t, ty, tx);
+    store_rows<DH, TN>(dv + base, zero, j0, t, ty, tx);
+    return;
+  }
+
+  // q_u, q_v, dO, lse and delta of the query tile from row i0.
+  auto load_q = [&](int i0) {
+    load_rows<DH>(qus, LD, qu + base, i0, BQ, 0, t);
+    load_rows<DH>(qvs, LD, qv + base, i0, BQ, 0, t);
+    load_rows<DH>(dos, LD, dout + base, i0, BQ, 0, t);
+    if (threadIdx.x < 2 * BQ) {
+      const int r = threadIdx.x % BQ;
+      const float* src = threadIdx.x < BQ ? lse : delta;
+      const bool ok = i0 + r < t;
+      cp_async4((threadIdx.x < BQ ? lse_s : delta_s) + r, ok ? src + (long)bh * t + i0 + r : src,
+                ok);
+    }
+  };
+  load_rows<DH>(ks, LD, k + base, j0, BK, 0, t);
+  load_rows<DH>(vs, LD, v + base, j0, BK, 0, t);
+  load_q(0);
+  load_rows<DH>(slab, LD, pb, (long)t - BQ + j0, SW, 0, 2L * t);
+  mma::cp_async_commit();
+  // rawg^T off the band is 0 for every tile: written once.
+  for (int idx = threadIdx.x; idx < SW * LDT; idx += kThr) rawgt[idx] = 0.0f;
+
+  float acc_k[TN][DV], acc_v[TN][DV], sl[NS][DV];
+#pragma unroll
+  for (int d = 0; d < DV; ++d) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc_k[j][d] = acc_v[j][d] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sl[i][d] = 0.0f;
+  }
+  const float sl2 = scale * kLog2e;
+  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
+
+  // dp slab row ty + 16 i (p row c0 + ty + 16 i) into dp, then zeroed.
+  auto flush = [&](int i, long c0) {
+    const long prow = c0 + ty + 16 * i;
+#pragma unroll
+    for (int m = 0; m < C::NCH; ++m) {
+      float val[C::CW];
+      bool any = false;
+#pragma unroll
+      for (int e = 0; e < C::CW; ++e) {
+        val[e] = sl[i][C::CW * m + e];
+        any = any || val[e] != 0.0f;
+        sl[i][C::CW * m + e] = 0.0f;
+      }
+      if (any && prow >= 0 && prow < 2L * t) red_add_f32<C::CW>(dpb + prow * DH + C::col(m, tx), val);
+    }
+  };
+
+  for (int qt = 0; qt < nq; ++qt) {
+    const int i0 = qt * BQ;
+    const long c0 = (long)t - BQ - i0 + j0;
+    if constexpr (DROP) {
+      philox::fill_keep_tile<BQ, BK>(keep, BK, seed, (uint32_t)bh, (uint32_t)i0, (uint32_t)j0,
+                                     drop.thr);
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; the previous tile's readers are done
+
+    float s[TM][TN], dpv[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = dpv[i][j] = 0.0f;
+    pair_products<DH, TM, true>(s, dpv, qus, qvs, dos, ks, vs, slab, ty, tx);
+    // P and ds (PairScores::at) into P^T, ds^T and rawg^T.
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        const int ii = i0 + r, jj = j0 + c;
+        float pv = 0.0f, ds = 0.0f;
+        if (ii < t && jj < t) {
+          const float lv = lse_s[r];
+          const bool on = !DROP || keep[r * BK + c];
+          if (lv < 0.5f * kNeg) {
+            pv = 1.0f / (float)t;  // fully masked row: uniform weights, no ds
+          } else if (pair.visible(ii, jj)) {
+            float dpk = dpv[i][j];
+            if constexpr (DROP) dpk = on ? dpk * drop.inv : 0.0f;
+            pv = exp2f(s[i][j] * sl2 - lv * kLog2e);
+            ds = pv * (dpk - delta_s[r]) * scale;
+          }
+          if constexpr (DROP) pv = on ? pv * drop.inv : 0.0f;  // dv takes the dropped P
+        }
+        pt[c * LDT + r] = pv;
+        dst[c * LDT + r] = ds;
+        rawgt[(BQ - 1 - r + c) * LDT + r] = ds;
+      }
+    __syncthreads();  // P^T, ds^T and rawg^T visible; the slab read
+    if (qt + 1 < nq) load_rows<DH>(slab, LD, pb, c0 - BQ, SW, 0, 2L * t);
+    mma::cp_async_commit();
+    rows_times<DH, TN>(acc_v, pt, LDT, dos, BQ, ty, tx);
+    rows_times<DH, TN>(acc_k, dst, LDT, qus, BQ, ty, tx);
+    rows_times<DH, NS, BQ>(sl, rawgt, LDT, qvs, BQ, ty, tx);
+    if (qt + 1 < nq) {
+      // Rows [BK, SW) are final; the rest move up BQ rows (NQ slots).
+#pragma unroll
+      for (int i = BK / 16; i < NS; ++i) flush(i, c0);
+#pragma unroll
+      for (int i = NS - 1; i >= 0; --i)
+#pragma unroll
+        for (int d = 0; d < DV; ++d) sl[i][d] = i >= NQ ? sl[i >= NQ ? i - NQ : 0][d] : 0.0f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) flush(i, c0);
+    }
+    __syncthreads();  // q_u, q_v, dO, P^T, ds^T and rawg^T read
+    if (qt + 1 < nq) load_q(i0 + BQ);
+    mma::cp_async_commit();
+  }
+  store_rows<DH, TN>(dk + base, acc_k, j0, t, ty, tx);
+  store_rows<DH, TN>(dv + base, acc_v, j0, t, ty, tx);
+}
+
+// Launches.
+
+// Sets the kernels' shared-memory attributes, once per instantiation;
+// returns the bytes.
+template <class Kernel>
+size_t configure(Kernel no_drop, Kernel drop, size_t bytes) {
+  for (auto kernel : {no_drop, drop}) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+  }
+  return bytes;
+}
+
+template <int DH>
+size_t fwd_bytes() {
+  static const size_t bytes =
+      configure(fwd_kernel<DH, false>, fwd_kernel<DH, true>, FwdLayout<DH>::kBytes);
+  return bytes;
+}
+
+template <int DH>
+size_t dq_bytes() {
+  static const size_t bytes =
+      configure(dq_kernel<DH, false>, dq_kernel<DH, true>, DqLayout<DH>::kBytes);
+  return bytes;
+}
+
+template <int DH>
+size_t dkv_bytes() {
+  static const size_t bytes =
+      configure(dkv_kernel<DH, false>, dkv_kernel<DH, true>, DkvLayout<DH>::kBytes);
+  return bytes;
+}
+
+template <int DH>
+int launch_fwd(const void* qu, const void* qv, const void* k, const void* v, const void* p,
+               const int* lengths, void* out, float* lse, int b, int h, int t, float scale,
+               int chunk_size, int left_chunks, const philox::Dropout& drop, cudaStream_t stream) {
+  const size_t bytes = fwd_bytes<DH>();
+  auto in = [](const void* x) { return static_cast<const float*>(x); };
+  const auto kernel = drop.seed ? fwd_kernel<DH, true> : fwd_kernel<DH, false>;
+  kernel<<<dim3((t + FwdLayout<DH>::BQ - 1) / FwdLayout<DH>::BQ, b * h), kThr, bytes, stream>>>(
+      in(qu), in(qv), in(k), in(v), in(p), lengths, static_cast<float*>(out), lse, h, t, scale,
+      chunk_size, left_chunks, drop);
+  return (int)cudaGetLastError();
+}
+
+// dkv, then dq.
+template <int DH>
+int launch_bwd(const void* qu, const void* qv, const void* k, const void* v, const void* p,
+               const int* lengths, const void* dout, const float* lse, const float* delta,
+               void* dqu, void* dqv, void* dk, void* dv, float* dp, int b, int h, int t,
+               float scale, int chunk_size, int left_chunks, const philox::Dropout& drop,
+               cudaStream_t stream) {
+  constexpr int BQ = bq_bwd<DH>();
+  auto in = [](const void* x) { return static_cast<const float*>(x); };
+  auto o = [](void* x) { return static_cast<float*>(x); };
+  const size_t kv_bytes = dkv_bytes<DH>();
+  const auto kv = drop.seed ? dkv_kernel<DH, true> : dkv_kernel<DH, false>;
+  kv<<<dim3((t + BK - 1) / BK, b * h), kThr, kv_bytes, stream>>>(
+      in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, o(dk), o(dv), dp, h, t,
+      scale, chunk_size, left_chunks, drop);
+  if (int err = (int)cudaGetLastError()) return err;
+  const size_t q_bytes = dq_bytes<DH>();
+  const auto kq = drop.seed ? dq_kernel<DH, true> : dq_kernel<DH, false>;
+  kq<<<dim3((t + BQ - 1) / BQ, b * h), kThr, q_bytes, stream>>>(
+      in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, o(dqu), o(dqv), h, t,
+      scale, chunk_size, left_chunks, drop);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the fp32 forward (0), dkv (1) or dq (2) kernel one SM holds.
+template <int DH>
+int blocks_per_sm(int which) {
+  int n = 0;
+  if (which == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fwd_kernel<DH, false>, kThr, fwd_bytes<DH>());
+  } else if (which == 1) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dkv_kernel<DH, false>, kThr, dkv_bytes<DH>());
+  } else {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dq_kernel<DH, false>, kThr, dq_bytes<DH>());
+  }
+  return n;
+}
+
+}  // namespace rel_f32
+
 template <typename T, int BQ, int BK, bool DKV>
 int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, const void* v,
                                 const void* p, const int* lengths, const void* dout,
@@ -1603,6 +2430,13 @@ extern "C" int espnet_rel_flash_fwd(int dtype, const void* qu, const void* qv, c
                                                           t, dh, scale, chunk_size, left_chunks,
                                                           drop, s);
   }
+  if (dtype == 0 && (dh == 32 || dh == 64 || dh == 128)) {
+    const auto fwd = dh == 32   ? espnet::rel_f32::launch_fwd<32>
+                     : dh == 64 ? espnet::rel_f32::launch_fwd<64>
+                                : espnet::rel_f32::launch_fwd<128>;
+    return fwd(qu, qv, k, v, p, lengths, out, lse, b, h, t, scale, chunk_size, left_chunks, drop,
+               s);
+  }
   if (dtype == 0) {
     return espnet::launch_rel_flash<float, 32, 32>(qu, qv, k, v, p, lengths, out, lse, b, h, t, dh,
                                                    scale, chunk_size, left_chunks, drop, s);
@@ -1641,6 +2475,13 @@ extern "C" int espnet_rel_flash_bwd(int dtype, const void* qu, const void* qv, c
         qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, dk, dv, dp, b, h, t, dh, scale,
         chunk_size, left_chunks, drop, s);
   }
+  if (dtype == 0 && (dh == 32 || dh == 64 || dh == 128)) {
+    const auto bwd = dh == 32   ? espnet::rel_f32::launch_bwd<32>
+                     : dh == 64 ? espnet::rel_f32::launch_bwd<64>
+                                : espnet::rel_f32::launch_bwd<128>;
+    return bwd(qu, qv, k, v, p, lengths, dout, lse, delta, dqu, dqv, dk, dv, dp, b, h, t, scale,
+               chunk_size, left_chunks, drop, s);
+  }
   if (dtype == 0) {
     return espnet::launch_rel_flash_bwd<float, 32, 32>(qu, qv, k, v, p, lengths, dout, lse, delta,
                                                        dqu, dqv, dk, dv, dp, b, h, t, dh, scale,
@@ -1668,4 +2509,13 @@ extern "C" int espnet_rel_flash_fwd_blocks_per_sm(int dh) {
 extern "C" int espnet_rel_flash_dq_blocks_per_sm(int dh) {
   return dh == 64 ? espnet::rel_dq::blocks_per_sm<64>()
                   : dh == 32 ? espnet::rel_dq::blocks_per_sm<32>() : 0;
+}
+
+// Blocks of the fp32 forward (kernel 0), dkv (1) or dq (2) kernel that one
+// SM holds at once at this Dh (0 where those kernels do not take the Dh).
+extern "C" int espnet_rel_flash_f32_blocks_per_sm(int kernel, int dh) {
+  return dh == 32   ? espnet::rel_f32::blocks_per_sm<32>(kernel)
+         : dh == 64 ? espnet::rel_f32::blocks_per_sm<64>(kernel)
+         : dh == 128 ? espnet::rel_f32::blocks_per_sm<128>(kernel)
+                     : 0;
 }

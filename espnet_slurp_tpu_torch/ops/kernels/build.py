@@ -122,6 +122,8 @@ def library() -> ctypes.CDLL:
     lib.espnet_rel_flash_fwd_blocks_per_sm.restype = i
     lib.espnet_rel_flash_dq_blocks_per_sm.argtypes = [i]
     lib.espnet_rel_flash_dq_blocks_per_sm.restype = i
+    lib.espnet_rel_flash_f32_blocks_per_sm.argtypes = [i, i]
+    lib.espnet_rel_flash_f32_blocks_per_sm.restype = i
     lib.espnet_ctc_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.espnet_ctc_fwd.restype = i
     lib.espnet_ctc_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]

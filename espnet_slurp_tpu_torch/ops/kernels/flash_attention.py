@@ -6,16 +6,17 @@ that launches the hand-written kernels in ``csrc/flash_attention.cu``: the
 forward (online softmax over key tiles; the rel-shift is a skewed read of
 the [H, 2T, Dh] position table; key-length and chunk masks built in the
 kernel; no [T, T] or [T, 2T-1] buffer in device memory; in bf16 at Dh 32
-and 64 with q, S, P and O in registers) and the backward
-(dq_u / dq_v and dk / dv / dp kernels, dp summed over the batch). On CPU
+and 64 with q, S, P and O in registers, in fp32 at Dh 32, 64 and 128 on
+register micro-tiles of exact fp32 FMAs) and the backward (dq_u / dq_v
+and dk / dv / dp kernels, dp summed over the batch). On CPU
 tensors it runs ``rel_flash_attention_plain``, the same function in plain
 PyTorch, whose gradients are PyTorch's autograd. A CUDA tensor the kernel
 does not take raises. ``rel_flash_attention_fwd_tiled_plain`` and
 ``rel_flash_attention_bwd_plain`` are the forward and the backward at the
 kernels' rounding points.
 
-Dropout on the probabilities: every launch (the three bf16 launches at Dh
-32 / 64, and the WMMA launches of fp32 and of bf16 at other Dh) draws the
+Dropout on the probabilities: every launch (the three bf16 and the three
+fp32 launches at their Dh, and the WMMA launches of the other Dh) draws the
 keep mask of (b * H + h, query, key) in the kernel from Philox4x32-10
 (csrc/philox.cuh) under a seed read from device memory, so the backward
 regenerates the forward's mask; the forward drops P after adding it into

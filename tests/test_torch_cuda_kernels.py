@@ -5,8 +5,10 @@ of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
 passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
 for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
 conv module k 3 to 31, SAME and causal, lengths 0, 1 and full; for K2's
-and K3's launches, bf16 and the WMMA ones, the dropout at rate 0.1 (0.5
-for two WMMA cases) and its Philox mask; FeedForward's width route.
+and K3's launches, bf16, fp32 and the WMMA ones, the dropout at rate 0.1
+(0.5 for two fp32 cases) and its Philox mask; FeedForward's width route;
+K3's fp32 kernels at T 1 to 468, Dh 32 to 128, chunk masks and rates 0,
+0.1 and 0.5, and their route by Dh.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -394,6 +396,109 @@ def test_rel_flash_attention_dkv_two_blocks_per_sm(gen):
     assert lib.espnet_rel_flash_dkv_blocks_per_sm(128) == 0
 
 
+# ---- K3 in fp32 at Dh 32 / 64 / 128: csrc/flash_attention.cu:rel_f32 -----
+# The register micro-tile kernels (forward, dkv, dq) against
+# rel_flash_attention_plain and rel_flash_attention_bwd_plain: in fp32
+# there is no rounding point between them, only the summation order, so
+# TOL (1e-4 of max |ref|). At T = 1 every gradient but dv is the rounding
+# noise of dP - delta (a softmax over one key; the plain version gives
+# exactly 0 on the card), ~|dP| 2^-23 scale |k|: 1.6e-7 was seen at Dh 32,
+# where the kernel's dP (an fma chain over Dh) and the wrapper's delta (a
+# torch sum) differ in their last bits. Gradients are floored at
+# F32_GRAD_FLOOR, which admits 1e-6 of such noise; from T = 17 on max |ref|
+# is O(1) and the floor plays no part.
+F32_GRAD_FLOOR = 1e-2
+
+
+def _f32_case(gen, t, dh, b=4, h=2):
+    """fp32 q_u, q_v, k, v, p, key lengths t, t - 7, 0 and -1 (fully masked
+    rows), and a cotangent."""
+    args = [a.float() if a.is_floating_point() else a
+            for a in _attention_case(gen, t, dh, b=b, h=h)]
+    return args, torch.randn(b, h, t, dh, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("t", [1, 17, 65, 130, 468])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [(0, -1), (5, 0), (16, 2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_rel_flash_attention_fp32_kernels(gen, t, dh, chunk, rate):
+    """The fp32 forward (out, lse) and backward (dq_u, dq_v, dk, dv, dp) at
+    ragged T, key lengths with fully masked rows, chunk masks and dropout
+    rates 0, 0.1 and 0.5 (the same seed on both sides), within TOL of the
+    plain versions."""
+    cs, lc = chunk
+    args, g = _f32_case(gen, t, dh)
+    scale = dh ** -0.5
+    seed = _drop_seed() if rate else None
+    kw = dict(scale=scale, dropout_rate=rate, chunk_size=cs, left_chunks=lc)
+    out, lse = fa._launch_fwd(*args, scale, cs, lc, seed, rate)
+    got = fa._launch_bwd(*args, out, lse, g, scale, cs, lc, seed, rate)
+    ref, ref_lse = fa.rel_flash_attention_plain(*args, seed, **kw)
+    refs = fa.rel_flash_attention_bwd_plain(*args, out, lse, g, seed, **kw)
+    torch.cuda.synchronize()
+    seen = ref_lse > -1e29  # rows with a visible key (the rest sit at NEG)
+    assert _rel(out, ref) <= TOL[torch.float32], "out"
+    assert _rel(lse[seen], ref_lse[seen]) <= TOL[torch.float32], "lse"
+    assert (lse[~seen] < -1e29).all(), "lse of fully masked rows"
+    for name, a, r in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got, refs):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=F32_GRAD_FLOOR) <= TOL[torch.float32], name
+
+
+@pytest.mark.parametrize("dh,want", [
+    (32, "rel_f32::"), (64, "rel_f32::"), (128, "rel_f32::"),
+    (48, "rel_flash_")])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_rel_flash_attention_fp32_routes(gen, dh, want, rate):
+    """fp32 at Dh 32, 64 and 128 launches the register micro-tile kernels
+    (rel_f32::fwd_kernel, dkv_kernel, dq_kernel) and at any other Dh (48)
+    the WMMA float kernels (rel_flash_fwd_kernel<float, ...>,
+    rel_flash_dkv_kernel, rel_flash_dq_kernel), the dropout instantiation
+    at a rate above 0, by their profiler names; both agree with the plain
+    versions."""
+    args, g = _f32_case(gen, 65, dh)
+    scale = dh ** -0.5
+    seed = _drop_seed() if rate else None
+    kw = dict(scale=scale, dropout_rate=rate)
+    out, lse = fa._launch_fwd(*args, scale, 0, -1, seed, rate)
+    call = lambda: (fa._launch_fwd(*args, scale, 0, -1, seed, rate),
+                    fa._launch_bwd(*args, out, lse, g, scale, 0, -1, seed,
+                                   rate))
+    names = _kernel_names(call)
+    flag = "true>" if rate else "false>"
+    kinds = ("fwd_kernel", "dkv_kernel", "dq_kernel") if want == "rel_f32::" \
+        else ("rel_flash_fwd_kernel<float", "rel_flash_dkv_kernel<float",
+              "rel_flash_dq_kernel<float")
+    assert len(names) == 3, names
+    for kind in kinds:
+        assert any(want in k and kind in k and flag in k for k in names), \
+            names
+    ref, _ = fa.rel_flash_attention_plain(*args, seed, **kw)
+    refs = fa.rel_flash_attention_bwd_plain(*args, out, lse, g, seed, **kw)
+    got = fa._launch_bwd(*args, out, lse, g, scale, 0, -1, seed, rate)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= TOL[torch.float32]
+    for a, r in zip(got, refs):
+        assert _rel(a, r, floor=1e-3) <= TOL[torch.float32]
+
+
+def test_rel_flash_attention_fp32_blocks_per_sm(gen):
+    """The fp32 forward's shared memory and registers let two blocks share
+    an SM at Dh 32 and 64 (one at 128); dkv and dq fit one block at every
+    Dh they take; no fp32 micro-tile kernel takes Dh 48."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    assert lib.espnet_rel_flash_f32_blocks_per_sm(0, 64) >= 2
+    assert lib.espnet_rel_flash_f32_blocks_per_sm(0, 32) >= 2
+    for dh in (32, 64, 128):
+        for kernel in (0, 1, 2):
+            assert lib.espnet_rel_flash_f32_blocks_per_sm(kernel, dh) >= 1
+    for kernel in (0, 1, 2):
+        assert lib.espnet_rel_flash_f32_blocks_per_sm(kernel, 48) == 0
+
+
 # ---- Dropout: the Philox keep mask in K2's and K3's launches --------------
 # Each dropout launch against its plain version with the same seed (the
 # kernels' rounding points, the mask from ops/kernels/philox.py): the bf16
@@ -528,10 +633,11 @@ def test_rel_flash_attention_dropout_bf16(gen, t, dh, chunk):
         assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
 
 
-# K2's fp32 launches and K3's WMMA launches (fp32; bf16 at Dh 128) at the
-# widths the default ASRConfig gives them (d_model 256, d_ff 2048, Dh 64)
-# and at Dh 128; one case each at rate 0.5, where a wrong mask moves the
-# output far outside the tolerance.
+# K2's fp32 launches and K3's fp32 launches (the register micro-tile
+# kernels) at the widths the default ASRConfig gives them (d_model 256,
+# d_ff 2048, Dh 64), and K3's WMMA launches in bf16 at Dh 128; one case
+# each at rate 0.5, where a wrong mask moves the output far outside the
+# tolerance.
 WMMA_DROP_CASES = [
     ("K2", torch.float32, 0, 0.1), ("K3", torch.float32, 64, 0.1),
     ("K3", torch.bfloat16, 128, 0.1), ("K2", torch.float32, 0, 0.5),
@@ -540,7 +646,7 @@ WMMA_DROP_CASES = [
 
 def _wmma_drop_case(gen, kernel, dtype, dh, rate, direction, seed):
     """(call, plain outputs, names, kernel names the call must launch) of
-    one WMMA dropout case."""
+    one case of WMMA_DROP_CASES."""
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     if kernel == "K2":
         n, d, f = 300, 256, 2048
@@ -562,34 +668,39 @@ def _wmma_drop_case(gen, kernel, dtype, dh, rate, direction, seed):
     args = [a.to(dtype) if a.is_floating_point() else a
             for a in _attention_case(gen, t, dh)]
     scale = dh ** -0.5
-    tname = "float" if dtype == torch.float32 else "__nv_bfloat16"
-    tile = 32 if dtype == torch.float32 else 64
     kw = dict(scale=scale, dropout_rate=rate)
+    # fp32 at Dh 64 takes the register micro-tile kernels (rel_f32), bf16
+    # at Dh 128 the WMMA ones.
+    if dtype == torch.float32:
+        kernels = (f"rel_f32::fwd_kernel<{dh}, true>",
+                   f"rel_f32::dkv_kernel<{dh}, true>",
+                   f"rel_f32::dq_kernel<{dh}, true>")
+    else:
+        kernels = ("rel_flash_fwd_kernel<__nv_bfloat16, 64, 64, true>",
+                   "rel_flash_dkv_kernel<__nv_bfloat16, 32, 32, true>",
+                   "rel_flash_dq_kernel<__nv_bfloat16, 32, 32, true>")
     if direction == "fwd":
         if dtype == torch.float32:
             ref = fa.rel_flash_attention_plain(*args, seed, **kw)[0]
         else:
             ref = fa.rel_flash_attention_fwd_tiled_plain(*args, seed,
-                                                         block_k=tile, **kw)[0]
+                                                         block_k=64, **kw)[0]
         return (lambda: fa._launch_fwd(*args, scale, 0, -1, seed, rate)[:1],
-                (ref,), ("out",),
-                (f"rel_flash_fwd_kernel<{tname}, {tile}, {tile}, true>",))
+                (ref,), ("out",), kernels[:1])
     out, lse = fa._launch_fwd(*args, scale, 0, -1, seed, rate)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     return (lambda: fa._launch_bwd(*args, out, lse, g, scale, 0, -1, seed,
                                    rate),
             fa.rel_flash_attention_bwd_plain(*args, out, lse, g, seed, **kw),
-            ("dq_u", "dq_v", "dk", "dv", "dp"),
-            (f"rel_flash_dkv_kernel<{tname}, 32, 32, true>",
-             f"rel_flash_dq_kernel<{tname}, 32, 32, true>"))
+            ("dq_u", "dq_v", "dk", "dv", "dp"), kernels[1:])
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 @pytest.mark.parametrize("kernel,dtype,dh,rate", WMMA_DROP_CASES)
 def test_wmma_routes_draw_dropout(gen, kernel, dtype, dh, rate, direction):
-    """K2's fp32 launches (N 300, D 256, F 2048) and K3's WMMA launches (B 4,
-    H 2, T 129, key lengths T, T - 7, 0 and -1: fully masked rows included)
-    at a rate above 0 against their plain versions with the same seed (K3
+    """K2's fp32 launches (N 300, D 256, F 2048) and K3's fp32 and bf16
+    Dh-128 launches (B 4, H 2, T 129, key lengths T, T - 7, 0 and -1: fully
+    masked rows included) at a rate above 0 against their plain versions with the same seed (K3
     in bf16 against the tiled forward at the kernel's key tile of 64 and
     rel_flash_attention_bwd_plain, the kernels' rounding points): every
     output within TOL of max |ref| (floored at 1e-3 for gradients, as in
