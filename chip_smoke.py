@@ -8,7 +8,9 @@ or the port's package is not beside it. Phases, each of which fails the run:
 1. The card's name and power limit; the hand-written kernels are built from
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
    compiler's register report and the blocks per SM of K3's bf16 and fp32
-   forward, dkv and dq kernels and of K2's bf16 forward kernel printed.
+   forward, dkv and dq kernels and of K2's bf16 forward kernel printed, and
+   K2's fp32 kernels' registers, shared and local (spill) bytes and blocks
+   per SM.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -88,7 +90,7 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rate 0 (the Philox draws' cost). Then K2's width route: a d_model 512 /
    d_ff 2048 FeedForward (bench.py's 17 x 512 config) in bf16 and fp32,
    forward and backward, against its plain version, with the route each
-   dtype took read from K2's launch counter.
+   dtype took read from K2's launch counter: eager in bf16, K2 in fp32.
 8. Kernels at the shapes of the Conformer-transducer train step
    (conf/train_transducer.yaml: B 32 utterances of 15 s, T' 468, U 64):
    K2 and K3 both ways as in phase 4 (their backward passes timed beside
@@ -120,25 +122,33 @@ or the port's package is not beside it. Phases, each of which fails the run:
    serving traffic on the card; its RTF is printed, and the encode must
    launch 24 K2, 12 K3 and 12 K6.
 
-12. The default ASRConfig's fp32 launches and the WMMA ones at rate 0.1 at
-   the flagship train shape (run after phase 7): K2 fp32 (ffn_fwd_kernel,
-   ffn_bwd_dx_kernel, ffn_bwd_dw_kernel; N 64 x T', D 256, d_ff 2048: the
-   default ASRConfig's widths), K3 fp32 (the register micro-tile kernels
-   rel_f32::fwd_kernel, dkv_kernel, dq_kernel; B 64, H 4, T', Dh 64) and
-   K3 bf16 at Dh 128 (the WMMA rel_flash_fwd_kernel, rel_flash_dkv_kernel,
-   rel_flash_dq_kernel; B 64, H 2, T'), each direction against its plain
-   version with the same seed (fp32 within 1e-4, bf16 within 2e-2 of max
-   |ref| per output and gradient; K3 at rate 0 as well); the dropout and
-   rate-0 instantiations by profiler name, each launch's device time at
-   0.1 beside 0 and its bound; each direction timed beside its plain
-   version (K3 also beside SDPA over the precomputed bias).
+12. The default ASRConfig's fp32 launches and the WMMA ones at rates 0 and
+   0.1 at the flagship train shape (run after phase 7): K2 fp32 (the
+   register-tiled GEMM launches ffn_f32::hidden_kernel and out_kernel
+   forward, rows_kernel, dx_kernel and dw_kernel backward; N 64 x T', D
+   256, d_ff 2048: the default ASRConfig's widths), K3 fp32 (the register
+   micro-tile kernels rel_f32::fwd_kernel, dkv_kernel, dq_kernel; B 64, H
+   4, T', Dh 64) and K3 bf16 at Dh 128 (the WMMA rel_flash_fwd_kernel,
+   rel_flash_dkv_kernel, rel_flash_dq_kernel; B 64, H 2, T'), each
+   direction against its plain version with the same seed (fp32 within
+   1e-4, bf16 within 2e-2 of max |ref| per output and gradient); the
+   dropout and rate-0 instantiations by profiler name, each launch's
+   device time at 0.1 beside 0 and its bound (K2's also its share of it,
+   its registers, local bytes and blocks per SM); each direction timed
+   beside its plain version (K2 also beside the eager fp32 composition it
+   replaces, F.linear -> F.silu -> F.dropout -> F.linear; K3 beside SDPA
+   over the precomputed bias). Then K4's fp32 route (ctc_head_fwd_kernel,
+   ctc_head_dx_kernel, ctc_head_dw_kernel <float>; B 64, T', D 256, V
+   5000) against its plain version within 1e-4, its launches' device
+   times, each direction timed beside its plain version, its fp32 bound
+   and F.ctc_loss over a log-softmax of the same projection.
 13. The default ASRConfig() (fp32 compute, dropout 0.1, d_ff 2048, 12 x
    256, 6-block decoder, SpecAug on, seeded random weights) through
    make_train_step with Adam at constant lr 1e-3 on phase 5's traffic: one
    warm-up step and 5 timed steps (3 if 7 steps at the warm-up's time would
    pass 60 s); losses and grad norms finite, nothing skipped, the loss
    falls, and per step exactly 24 K2 and 12 K3 launches each way (all fp32
-   WMMA launches with dropout) and 1 of K4 (its fp32 route) and K1 each
+   launches with dropout) and 1 of K4 (its fp32 route) and K1 each
    way; step seconds, audio-s/s, busy ms of one profiled step and peak
    memory printed, and the time phases 12 and 13 add.
 
@@ -381,14 +391,15 @@ def check_attention_fwd_tiled(torch, fa, args, what):
     return worst
 
 
-def port_kernels_ms(torch, call, n=3, attempts=3):
+def port_kernels_ms(torch, call, n=3, attempts=3, complete=bool):
     """torch.profiler's device time per launch of each of the port's
     kernels that call() launches, by name, over n calls after one
     unprofiled call. Averaged over the launches the profiler recorded: on
-    the card it has been seen to drop some of a window's launches, and
-    once all of a window's (a serving-shape K2 forward of 0.045 ms), so
-    the count of calls is no divisor and a window that recorded no launch
-    of the port is profiled again, up to ``attempts`` windows."""
+    the card it has been seen to drop some of a window's launches, all of
+    one kernel's among them, and once all of a window's (a serving-shape K2
+    forward of 0.045 ms), so the count of calls is no divisor and a window
+    whose {name: ms} is not ``complete`` (by default: holds no launch of
+    the port) is profiled again, up to ``attempts`` windows."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -399,7 +410,7 @@ def port_kernels_ms(torch, call, n=3, attempts=3):
             torch.cuda.synchronize()
         got = {e.key: e.self_device_time_total / 1e3 / e.count
                for e in prof.key_averages() if "espnet" in e.key and e.count}
-        if got:
+        if complete(got):
             break
     return got
 
@@ -744,12 +755,19 @@ def attention_dropout_detail(torch, fa, b, h, t, dh, r):
                 unrounded_rel=max(unr), device_ms_rate0_vs_dropout=ms)
 
 
+# The route a d_model 512 / d_ff 2048 FeedForward takes by dtype: the bf16
+# forward holds no output width of 512 in registers, the fp32 launches take
+# any width.
+ROUTES_512 = {"bfloat16": "eager", "float32": "K2"}
+
+
 def ffn_route_phase(torch):
-    """The K2 width repair: a d_model 512 / d_ff 2048 FeedForward (the
+    """The K2 width route: a d_model 512 / d_ff 2048 FeedForward (the
     widths of bench.py's 17 x 512 config) on the card in bf16 and fp32,
     forward and backward, against the plain version of its function
     (fused_ffn_plain's autograd on the same weights) within TOL of max
-    |ref|; the route each dtype took, read from K2's launch counter."""
+    |ref|; the route each dtype took, read from K2's launch counter, is
+    ROUTES_512's."""
     from espnet_slurp_tpu_torch.models.conformer import FeedForward
     from espnet_slurp_tpu_torch.ops.kernels import ffn
     torch.manual_seed(0)
@@ -784,8 +802,10 @@ def ffn_route_phase(torch):
               f" (K2 launches {moved}); out, dx, dW1, db1, dW2, db2 "
               + ", ".join(f"{v:.3e}" for v in rels)
               + f" of max|ref| (tolerance {TOL[name]})")
-        if not (max(rels) <= TOL[name] and "mixed" not in routes[name]):
-            raise AssertionError(f"FeedForward 512 {name}")
+        if not (max(rels) <= TOL[name] and routes[name] == ROUTES_512[name]):
+            raise AssertionError(f"FeedForward 512 {name}: route "
+                                 f"{routes[name]}, expected "
+                                 f"{ROUTES_512[name]}")
     return routes
 
 
@@ -1217,7 +1237,7 @@ def train_kernel_phase(torch, t_prime):
             *args))
         plain_bwd_ms = median_ms(torch, plain_bwd)
         del plain_bwd
-        fbound = bound(2.0 * n * d * (v + s),
+        fbound = bound(2.0 * n * d * v,
                        2 * n * d + 2 * d * v + 4 * v + 4 * b * s
                        + 4 * n * s + 4 * n)
         bbound = bound(6.0 * n * d * v,
@@ -1853,16 +1873,21 @@ DEFAULT_D_FF = 2048
 
 def wmma_launch_ms(torch, what, call, kernels):
     """torch.profiler's device ms a launch of each of ``kernels`` (name
-    prefixes) that call(rate) launches, at rate 0 and at DROPOUT: the
-    rate-0 instantiation (``..., false>``) at 0 and the dropout one
-    (``..., true>``) at DROPOUT, each launched, else the run fails.
-    Returns {kernel: [ms at 0, ms at DROPOUT]}."""
+    prefixes) that call(rate) launches, at rate 0 and at DROPOUT. A prefix
+    ending in "(" names a kernel that draws no mask: its one instantiation
+    at both rates; any other, the rate-0 instantiation (``..., false>``) at
+    0 and the dropout one (``..., true>``) at DROPOUT. Each is launched, else
+    the run fails. Returns {kernel: [ms at 0, ms at DROPOUT]}."""
     ms = {k: [] for k in kernels}
     for rate in (0.0, DROPOUT):
-        got = port_kernels_ms(torch, lambda: call(rate), n=3)
         flag = "true>" if rate else "false>"
+        hits = lambda got, k: [v for name, v in got.items() if k in name and (
+            k.endswith("(") or flag in name)]
+        got = port_kernels_ms(torch, lambda: call(rate), n=3, complete=lambda
+                              got: all(len(hits(got, k)) == 1
+                                       for k in kernels))
         for k in kernels:
-            hit = [v for name, v in got.items() if k in name and flag in name]
+            hit = hits(got, k)
             if len(hit) != 1:
                 raise AssertionError(f"{what} at rate {rate}: {k}... {flag} "
                                      f"not launched: {sorted(got)}")
@@ -1870,76 +1895,266 @@ def wmma_launch_ms(torch, what, call, kernels):
     return ms
 
 
-def ffn_wmma_dropout(torch, ffn, n, d, f, r):
-    """K2's fp32 launches (ffn_fwd_kernel, ffn_bwd_dx_kernel,
-    ffn_bwd_dw_kernel) at rate DROPOUT on N rows of widths D, F: forward and
-    backward against fused_ffn_plain / fused_ffn_bwd_plain with the same
-    seed, within TOL["float32"] of max |ref| per output and gradient; the
-    launches by profiler name; each launch's device time at rate 0 beside
-    DROPOUT, and its bound (fp32 operands: PEAK_FP32_FLOPS); each
-    direction's time (CUDA events) at DROPOUT beside its plain version's.
-    Returns the two kernels-line entries. The inputs are
-    bin/time_kernels.py's WMMA case at these widths."""
+# K2's fp32 launches (csrc/ffn.cu, ffn_f32) by profiler name prefix: their
+# direction, their indices in espnet_fused_ffn_f32_info at rate 0 and with
+# dropout, and the products each forms.
+K2_F32_LAUNCHES = {
+    "ffn_f32::hidden_kernel<": ("fwd", (0, 1), 1),
+    "ffn_f32::out_kernel(": ("fwd", (2, 2), 1),
+    "ffn_f32::rows_kernel<": ("bwd", (3, 4), 2),
+    "ffn_f32::dx_kernel(": ("bwd", (5, 5), 1),
+    "ffn_f32::dw_kernel(": ("bwd", (6, 6), 2),
+}
+
+
+def ffn_f32_info():
+    """{kernel prefix: [(registers, static shared bytes, local bytes,
+    blocks per SM) at rate 0, the same with dropout]} of K2's fp32
+    launches, from the built library."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    out = {}
+    for k, (_, idx, _) in K2_F32_LAUNCHES.items():
+        rows = []
+        for i in idx:
+            buf = (ctypes.c_int * 4)()
+            build.check(build.library().espnet_fused_ffn_f32_info(i, buf),
+                        "fused_ffn fp32 kernel info")
+            rows.append(tuple(buf))
+        out[k] = rows
+    return out
+
+
+def ffn_f32_launch_bounds(n, d, f, d2, nsplit):
+    """Bound (ms, by) of each fp32 launch: its own products (fp32 operands)
+    and the bytes it must move, the [N, F] hidden scratch included."""
+    parts = -(-n // 128)
+    return {
+        "ffn_f32::hidden_kernel<": bound(2.0 * n * d * f, 4 * (
+            n * d + d * f + f + n * f), PEAK_FP32_FLOPS),
+        "ffn_f32::out_kernel(": bound(2.0 * n * f * d2, 4 * (
+            n * f + f * d2 + d2 + n * d2), PEAK_FP32_FLOPS),
+        "ffn_f32::rows_kernel<": bound(2.0 * n * f * (d + d2), 4 * (
+            n * d + d * f + f + f * d2 + n * d2 + 2 * n * f + parts * f),
+            PEAK_FP32_FLOPS),
+        "ffn_f32::dx_kernel(": bound(2.0 * n * f * d, 4 * (
+            n * f + d * f + n * d), PEAK_FP32_FLOPS),
+        "ffn_f32::dw_kernel(": bound(2.0 * n * f * (d + d2), 4 * (
+            n * d + 2 * n * f + n * d2 + nsplit * (d * f + f * d2 + d2)),
+            PEAK_FP32_FLOPS),
+    }
+
+
+def ffn_fp32_launches(torch, ffn, n, d, f, r):
+    """K2's fp32 launches (ffn_f32: hidden_kernel and out_kernel forward,
+    rows_kernel, dx_kernel and dw_kernel backward) on N rows of widths D,
+    F at rates 0 and DROPOUT: forward and backward against
+    fused_ffn_plain / fused_ffn_bwd_plain with the same seed, within
+    TOL["float32"] of max |ref| per output and gradient; the launches by
+    profiler name; each launch's device time at rate 0 beside DROPOUT, its
+    share of its bound (fp32 operands: PEAK_FP32_FLOPS), its registers and
+    blocks per SM; each direction's time (CUDA events) at DROPOUT beside
+    its plain version's and the eager fp32 composition it replaces
+    (F.linear -> F.silu -> F.dropout -> F.linear, no TF32; forward, and
+    autograd's backward). Returns the two kernels-line entries. The inputs
+    are bin/time_kernels.py's fp32 case at these widths."""
+    import torch.nn.functional as F
     from espnet_slurp_tpu_torch.bin.time_kernels import ffn_wmma_inputs
+    from espnet_slurp_tpu_torch.ops.kernels import build
 
     args, g = ffn_wmma_inputs(r, n, d, f)
-    x, w1, b1, w2, _ = args
+    x, w1, b1, w2, b2 = args
     seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
     fwd = lambda rate=DROPOUT: ffn._launch_fwd(*args, seed if rate else None,
                                                rate)
     bwd = lambda rate=DROPOUT: ffn._launch_bwd(
         x, w1, b1, w2, g, seed if rate else None, rate)
-    plain_fwd = lambda: ffn.fused_ffn_plain(*args, seed, dropout_rate=DROPOUT)
-    plain_bwd = lambda: ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
-                                                dropout_rate=DROPOUT)
-    got, ref = (fwd(), *bwd()), (plain_fwd(), *plain_bwd())
-    torch.cuda.synchronize()
     names = ("out", "dx", "dw1", "db1", "dw2", "db2")
-    errs = [rel_err(a, b_) for a, b_ in zip(got, ref)]
-    print(f"K2 fused_ffn float32 (WMMA) N={n} D={d} F={f} dropout {DROPOUT} "
-          "against its plain versions, same seed: " + ", ".join(
-              f"{k} {e[1]:.3e}" for k, e in zip(names, errs))
-          + f" of max|ref| (tolerance {TOL['float32']})")
-    if not (max(e[1] for e in errs) <= TOL["float32"]
-            and all(torch.isfinite(a).all() for a in got)):
-        raise AssertionError("K2 fp32 with dropout disagrees with its plain "
-                             "versions")
-    del got, ref
-    launch = wmma_launch_ms(
-        torch, "K2 fp32", lambda rate: (fwd(rate), bwd(rate)),
-        ("ffn_fwd_kernel<float, 32, 32,", "ffn_bwd_dx_kernel<float, 16, 32,",
-         "ffn_bwd_dw_kernel<float, 16, 32,"))
+    for rate in (0.0, DROPOUT):
+        sd = seed if rate else None
+        got = (fwd(rate), *bwd(rate))
+        ref = (ffn.fused_ffn_plain(*args, sd, dropout_rate=rate),
+               *ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, sd,
+                                        dropout_rate=rate))
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b_) for a, b_ in zip(got, ref)]
+        print(f"K2 fused_ffn float32 N={n} D={d} F={f} dropout {rate} "
+              "against its plain versions, same seed: " + ", ".join(
+                  f"{k} {e[1]:.3e}" for k, e in zip(names, errs))
+              + f" of max|ref| (tolerance {TOL['float32']})")
+        if not (max(e[1] for e in errs) <= TOL["float32"]
+                and all(torch.isfinite(a).all() for a in got)):
+            raise AssertionError(f"K2 fp32 at rate {rate} disagrees with its "
+                                 "plain versions")
+        del got, ref
+    # errs are those at DROPOUT.
+    launch = wmma_launch_ms(torch, "K2 fp32",
+                            lambda rate: (fwd(rate), bwd(rate)),
+                            tuple(K2_F32_LAUNCHES))
+    info = ffn_f32_info()
+    nsplit = build.library().espnet_fused_ffn_f32_dw_splits(
+        n, d, f, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    lb = ffn_f32_launch_bounds(n, d, f, d, nsplit)
     bnd = ffn_bounds(n, d, f, d, 4, PEAK_FP32_FLOPS)
-    for (k, (m0, m1)), part in zip(launch.items(), ("fwd", "dx", "dw")):
-        print(f"K2 fp32 launch {k.split('<')[0]}: device {m0:.4f} ms at rate "
-              f"0 -> {m1:.4f} ms at {DROPOUT}; bound {bnd[part][0]:.4f} ms "
-              f"({bnd[part][1]})")
+    launches = {}
+    for k, (m0, m1) in launch.items():
+        regs = [i[0] for i in info[k]]
+        blocks = [i[3] for i in info[k]]
+        spill = [i[2] for i in info[k]]
+        launches[k] = dict(device_ms_rate0_vs_dropout=[m0, m1],
+                           bound_ms=lb[k][0], bound_by=lb[k][1],
+                           registers=regs, static_smem_bytes=info[k][0][1],
+                           local_bytes=spill, blocks_per_sm=blocks)
+        print(f"K2 fp32 launch {k.rstrip('<(')}: device {m0:.4f} ms at rate "
+              f"0 -> {m1:.4f} ms at {DROPOUT}; bound {lb[k][0]:.4f} ms "
+              f"({lb[k][1]}), {100 * lb[k][0] / m1:.1f}% of it at "
+              f"{DROPOUT}; registers {regs}, local bytes {spill}, "
+              f"{info[k][0][1]} B of shared memory, blocks per SM {blocks} "
+              "(rate 0, dropout)")
+    dev = {p: [sum(v["device_ms_rate0_vs_dropout"][i]
+                   for k, v in launches.items()
+                   if K2_F32_LAUNCHES[k][0] == p) for i in (0, 1)]
+           for p in ("fwd", "bwd")}
+    for p in ("fwd", "bwd"):
+        print(f"K2 fp32 {p}: device {dev[p][0]:.4f} -> {dev[p][1]:.4f} ms "
+              f"at rate 0 -> {DROPOUT}; bound {bnd[p][0]:.4f} ms, "
+              f"{100 * bnd[p][0] / dev[p][1]:.1f}% of it at {DROPOUT}; "
+              f"dW split {nsplit} ways")
     ms_f = median_ms(torch, fwd, warmup=1, reps=5)
     ms_b = median_ms(torch, bwd, warmup=1, reps=5)
-    plain_f = median_ms(torch, plain_fwd, warmup=1, reps=5)
-    plain_b = median_ms(torch, plain_bwd, warmup=1, reps=5)
+    plain_f = median_ms(torch, lambda: ffn.fused_ffn_plain(
+        *args, seed, dropout_rate=DROPOUT), warmup=1, reps=5)
+    plain_b = median_ms(torch, lambda: ffn.fused_ffn_bwd_plain(
+        x, w1, b1, w2, g, seed, dropout_rate=DROPOUT), warmup=1, reps=5)
+    # The eager composition FeedForward's eager route runs (nn.Linear's
+    # weight layout), with autograd's graph, as in training.
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in (x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
+    eager = lambda: F.linear(F.dropout(F.silu(F.linear(
+        leaves[0], leaves[1], leaves[2])), DROPOUT, training=True),
+        leaves[3], leaves[4])
+    eager_f = median_ms(torch, eager, warmup=1, reps=5)
+    y = eager()
+    eager_b = median_ms(torch, lambda: torch.autograd.grad(
+        y, leaves, g, retain_graph=True), warmup=1, reps=5)
+    del y, leaves
     print(f"K2 fused_ffn float32 N={n} F={f} at dropout {DROPOUT}: forward "
-          f"{ms_f:.4f} ms (plain {plain_f:.4f}), backward {ms_b:.4f} ms "
-          f"(plain {plain_b:.4f})")
+          f"{ms_f:.4f} ms (plain {plain_f:.4f}, eager composition "
+          f"{eager_f:.4f}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, "
+          f"eager composition {eager_b:.4f})")
     common = dict(route="cuda", source="espnet_slurp_tpu_torch/csrc/ffn.cu",
-                  launches=None, library_ms=None, dtype="float32",
-                  rate=DROPOUT, shape=f"N {n}, D {d}, F {f}")
-    devs = {k.split("<")[0]: v for k, v in launch.items()}
+                  launches=None, dtype="float32", rate=DROPOUT,
+                  shape=f"N {n}, D {d}, F {f}",
+                  library_note="the eager fp32 composition F.linear -> "
+                               "F.silu -> F.dropout -> F.linear (autograd's "
+                               "backward), no TF32")
+    part = lambda p: {k.rstrip("<("): v for k, v in launches.items()
+                      if K2_F32_LAUNCHES[k][0] == p}
     return [
         dict(name="fused_ffn_fp32", **common,
              replaces="espnet_slurp_tpu/ops/pallas/ffn.py:186",
              max_abs_err=errs[0][0], ms=ms_f, plain_ms=plain_f,
              bound_ms=bnd["fwd"][0], bound_by=bnd["fwd"][1],
-             device_ms_rate0_vs_dropout={
-                 k: v for k, v in devs.items() if "fwd" in k}),
+             library_ms=eager_f, device_ms_rate0_vs_dropout=dev["fwd"],
+             launch_detail=part("fwd")),
         dict(name="fused_ffn_bwd_fp32", **common,
              replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
              max_abs_err=max(e[0] for e in errs[1:]), ms=ms_b,
              plain_ms=plain_b, bound_ms=bnd["bwd"][0],
-             bound_by=bnd["bwd"][1],
-             device_ms_rate0_vs_dropout={
-                 k: v for k, v in devs.items() if "bwd" in k},
-             launch_bounds_ms={k: bnd[k][0] for k in ("dx", "dw")}),
+             bound_by=bnd["bwd"][1], library_ms=eager_b,
+             device_ms_rate0_vs_dropout=dev["bwd"], dw_splits=nsplit,
+             launch_detail=part("bwd")),
+    ]
+
+
+def ctc_head_fp32(torch, kh, t_prime, r, gen):
+    """K4's fp32 route (ctc_head_fwd_kernel, ctc_head_dx_kernel and
+    ctc_head_dw_kernel <float>; the default ASRConfig's) at the flagship
+    train shape (B 64, T', D 256, V 5000, U 64, blanks between labels):
+    forward and backward against its plain version's output and autograd
+    gradients within TOL["float32"] of max |ref|; the launches by profiler
+    name with their device times; each direction timed (CUDA events)
+    beside its plain version, its fp32 bound and F.ctc_loss over a
+    log-softmax of the same projection (forward, and autograd's backward
+    to hs, W and the bias). Returns the two kernels-line entries."""
+    import torch.nn.functional as F
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+
+    cfg = flagship_config()
+    b, t, u, d, v = TRAIN_B, t_prime, TRAIN_U, cfg.d_model, cfg.vocab_size
+    n, s = b * t, 2 * u + 1
+    labels = torch.randint(1, v - 1, (b, u), generator=gen, device="cuda")
+    ulen = torch.tensor([u - (i % 5) for i in range(b)], device="cuda")
+    ext = kctc.extend_labels(labels, ulen)[0].to(torch.int32)
+    hs, w, bias = r(b, t, d) * 0.5, r(v, d) * d ** -0.5, r(v) * 0.1
+    cot = r(b, t, s)
+    args = (hs, w, bias, ext)
+    o, g, _ = grad_case(torch, kh.fused_ctc_head_emit, args, cot, 3)
+    ro, rg, plain_bwd = grad_case(torch, kh.fused_ctc_head_emit_plain, args,
+                                  cot, 3)
+    err_o, err_g = hold(torch, f"K4 fused_ctc_head_emit float32 B={b} T={t} "
+                        f"V={v} S={s}", o, ro, g, rg, ("dhs", "dw", "db"),
+                        TOL["float32"])
+    del o, g, ro, rg
+    _, z = kh._launch_fwd(*args)
+    fwd = lambda: kh._launch_fwd(*args)
+    bwd = lambda: kh._launch_bwd(hs, w, bias, ext, z, cot)
+    kernels = ("ctc_head_fwd_kernel<float,", "ctc_head_dx_kernel<float,",
+               "ctc_head_dw_kernel<float,")
+    got = port_kernels_ms(torch, lambda: (fwd(), bwd()), n=3)
+    dev = {}
+    for k in kernels:
+        hit = [ms for name, ms in got.items() if k in name]
+        if len(hit) != 1:
+            raise AssertionError(f"K4 fp32: {k} not launched: {sorted(got)}")
+        dev[k.split("<")[0]] = hit[0]
+    ms_f = median_ms(torch, fwd, warmup=1, reps=5)
+    ms_b = median_ms(torch, bwd, warmup=1, reps=5)
+    plain_f = median_ms(torch, lambda: kh.fused_ctc_head_emit_plain(*args),
+                        warmup=1, reps=5)
+    plain_b = median_ms(torch, plain_bwd, warmup=1, reps=5)
+    del plain_bwd
+    tlen = torch.full((b,), t, dtype=torch.long, device="cuda")
+    leaves = [a.detach().clone().requires_grad_(True) for a in (hs, w, bias)]
+    ctc = lambda: F.ctc_loss(F.log_softmax(F.linear(*leaves), -1)
+                             .transpose(0, 1), labels, tlen, ulen, blank=0,
+                             reduction="none", zero_infinity=True)
+    lib_f = median_ms(torch, ctc, warmup=1, reps=5)
+    loss = ctc()
+    lib_b = median_ms(torch, lambda: torch.autograd.grad(
+        loss, leaves, torch.ones_like(loss), retain_graph=True),
+        warmup=1, reps=5)
+    del loss, leaves
+    fbound = bound(2.0 * n * d * v, 4 * (n * d + d * v + v + n * s
+                                                + n) + 4 * b * s,
+                   PEAK_FP32_FLOPS)
+    bbound = bound(6.0 * n * d * v, 4 * (2 * n * d + 2 * d * v + 2 * v
+                                         + n * s + n) + 4 * b * s,
+                   PEAK_FP32_FLOPS)
+    print(f"K4 fused_ctc_head_emit float32 B={b} T={t} V={v}: forward "
+          f"{ms_f:.4f} ms (plain {plain_f:.4f}, F.ctc_loss over a "
+          f"log-softmax {lib_f:.4f}; bound {fbound[0]:.4f} ms by "
+          f"{fbound[1]}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, "
+          f"F.ctc_loss backward {lib_b:.4f}; bound {bbound[0]:.4f} ms by "
+          f"{bbound[1]}); device ms a launch "
+          + ", ".join(f"{k} {ms:.4f}" for k, ms in dev.items()))
+    common = dict(route="cuda", source="espnet_slurp_tpu_torch/csrc/ctc_head.cu",
+                  launches=None, dtype="float32",
+                  shape=f"B {b}, T {t}, D {d}, V {v}, S {s}",
+                  library_note="F.ctc_loss over log_softmax(hs W^T + b): the "
+                               "projection, the softmax and the lattice")
+    return [
+        dict(name="fused_ctc_head_emit_fp32", **common,
+             replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:160",
+             max_abs_err=err_o, ms=ms_f, plain_ms=plain_f,
+             bound_ms=fbound[0], bound_by=fbound[1], library_ms=lib_f,
+             device_ms={k: v_ for k, v_ in dev.items() if "fwd" in k}),
+        dict(name="fused_ctc_head_emit_bwd_fp32", **common,
+             replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:179",
+             max_abs_err=err_g, ms=ms_b, plain_ms=plain_b,
+             bound_ms=bbound[0], bound_by=bbound[1], library_ms=lib_b,
+             device_ms={k: v_ for k, v_ in dev.items() if "fwd" not in k}),
     ]
 
 
@@ -2066,24 +2281,28 @@ def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label):
 def wmma_dropout_phase(torch, t_prime):
     """The launches of the default ASRConfig's fp32 path and the WMMA ones at
     the flagship train shape, at rates 0 and DROPOUT: K2 fp32 (N 64 x T', D
-    256, F DEFAULT_D_FF), K3 fp32 (B 64, H 4, T', Dh 64: the register
-    micro-tile kernels) and K3 bf16 at Dh 128 (B 64, H 2, T'), both ways.
-    Returns the kernels-line
-    entries of the fp32 launches (the default ASRConfig's path) and the
-    records of the Dh-128 pair (on no model's path), by kernel name."""
+    256, F DEFAULT_D_FF: the ffn_f32 launches), K3 fp32 (B 64, H 4, T', Dh
+    64: the register micro-tile kernels) and K3 bf16 at Dh 128 (B 64, H 2,
+    T': the WMMA ones), both ways; then K4's fp32 route (no dropout).
+    Returns the kernels-line entries of the fp32 launches (the default
+    ASRConfig's path) and the records of the Dh-128 pair (on no model's
+    path), by kernel name."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
     from espnet_slurp_tpu_torch.ops.kernels import ffn
     from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    entries = ffn_wmma_dropout(torch, ffn, TRAIN_B * t_prime, 256,
-                               DEFAULT_D_FF, r)
+    entries = ffn_fp32_launches(torch, ffn, TRAIN_B * t_prime, 256,
+                                DEFAULT_D_FF, r)
     torch.cuda.empty_cache()
     entries += attention_wmma_dropout(torch, fa, TRAIN_B, 4, t_prime, 64,
                                       torch.float32, r, "fp32")
     torch.cuda.empty_cache()
     wide = attention_wmma_dropout(torch, fa, TRAIN_B, 2, t_prime, 128,
                                   torch.bfloat16, r, "bf16_dh128")
+    torch.cuda.empty_cache()
+    entries += ctc_head_fp32(torch, kh, t_prime, r, gen)
     torch.cuda.empty_cache()
     return entries, {k["name"].replace("_bf16_dh128", ""): k for k in wide}
 
@@ -2154,6 +2373,8 @@ def main() -> int:
     ffn_blocks = build.library().espnet_fused_ffn_fwd_blocks_per_sm(256, 256)
     print(f"K2 bf16 forward kernel (D 256, D2 256), blocks per SM: "
           f"{ffn_blocks}")
+    print("K2 fp32 kernels (registers, static shared bytes, local bytes, "
+          f"blocks per SM; rate 0, dropout): {ffn_f32_info()}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).

@@ -1,6 +1,8 @@
 """Times kernel K2's forward (fused FFN) and K4's backward (fused CTC head),
 or with ``--wmma`` the launches of the default ASRConfig's fp32 path (K2's
-WMMA ones, K3's register micro-tile ones) and K3's bf16 WMMA launches.
+register-tiled GEMM ones, ffn_f32::hidden_kernel and out_kernel forward,
+rows_kernel, dx_kernel and dw_kernel backward; K3's register micro-tile
+ones) and K3's bf16 WMMA launches.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
@@ -20,8 +22,8 @@ their sum (each kernel launches once a call); ``peak_mb``, what one call
 adds to peak memory; ``plain_ms``, the plain composition's time (K2:
 fused_ffn_plain; K4: autograd's backward of fused_ctc_head_emit_plain) by
 the same events. ``--wmma`` instead times, at rate 0 and (``--rate`` above
-0) at that dropout rate, each direction's launch of K2's fp32 route (N 64
-x 468, D 256, d_ff 2048: the default ASRConfig's train step) and of K3
+0) at that dropout rate, each direction's launches of K2's fp32 route (N
+64 x 468, D 256, d_ff 2048: the default ASRConfig's train step) and of K3
 (B 64, T' 468, key lengths T' - 3 b: fp32 at H 4, Dh 64, the default
 ASRConfig's, through the rel_f32 kernels; bf16 at H 2, Dh 128, through
 the WMMA ones): ``ms`` (the median of two event medians of 3 runs after
@@ -91,7 +93,7 @@ def timed(call, plain) -> dict:
 
 
 def ffn_wmma_inputs(r, n=WMMA_N, d=D, f=WMMA_F):
-    """K2's fp32 WMMA case from the draw ``r``: (x [N, D], W1 [D, F], b1,
+    """K2's fp32 case from the draw ``r``: (x [N, D], W1 [D, F], b1,
     W2 [F, D], b2) and a cotangent [N, D], fp32."""
     x, g = r(n, d), r(n, d)
     return (x, r(d, f) * d ** -0.5, r(f) * 0.1, r(f, d) * f ** -0.5,

@@ -12,110 +12,27 @@
 // composition instead writes and re-reads an [N, F] hidden (4x the size of x)
 // and its activation, which is what the TPU kernel was written to avoid.
 //
-// The float32 forward (ffn_fwd_kernel<float>) is the route of fp32 training
-// (the default ASRConfig) and of the fp32 card-against-CPU checks: one block
-// owns BM rows of x in shared memory and walks F in chunks of BF, the hidden
-// chunk formed and passed through swish in shared memory and multiplied at
-// once into a [BM, D2] accumulator there (plain FMAs, no pipelining). The
-// bf16 forward is the register-resident ffn_fwd::fwd_kernel further below.
-// Neither writes an [N, F] hidden to global memory.
+// Two routes by dtype. bf16 (the flagship's training and serving): the
+// register-resident forward ffn_fwd::fwd_kernel, which writes no [N, F]
+// hidden, and the tensor-core backward ffn_bwd. float32 (the default
+// ASRConfig's training and the fp32 card-against-CPU checks): ffn_f32, five
+// launches on the register-tiled fp32 GEMM mainloop of sgemm.cuh, the
+// hidden through fp32 scratch for the length of a call.
 //
 // Dropout on the hidden (the reference's _keep_mask) is drawn in every
-// launch, from philox.cuh, at the element's global (row, column): the bf16
-// kernels per lane with keep8, the fp32 ones (DROP) into a BM x BF byte
-// tile in shared memory per hidden chunk with fill_keep_tile. Each kernel
-// has a rate-0 instantiation without the draw.
+// launch that forms the hidden, from philox.cuh, at the element's global
+// (row, column): the bf16 kernels per lane with keep8, the fp32 ones (DROP)
+// into a byte tile of the block's outputs in shared memory with
+// fill_keep_tile. Each such kernel has a rate-0 instantiation without the
+// draw.
+#include <algorithm>
+
 #include "common.cuh"
 #include "mma_gemm.cuh"
 #include "philox.cuh"
+#include "sgemm.cuh"
 
 namespace espnet {
-
-// drop: a BM x BF keep tile (bytes) after the accumulator.
-struct FfnLayout {
-  size_t xs, w1s, hf, hs, w2s, acc, keep, total;
-  __host__ __device__ FfnLayout(int d, int d2, int bm, int bf, int esize, bool drop) {
-    const int p = 16 / esize;
-    xs = 0;
-    w1s = align128(xs + (size_t)bm * (d + p) * esize);
-    hf = align128(w1s + (size_t)d * (bf + p) * esize);
-    hs = align128(hf + (size_t)bm * (bf + 4) * 4);
-    w2s = align128(hs + (size_t)bm * (bf + p) * esize);
-    acc = align128(w2s + (size_t)bf * (d2 + p) * esize);
-    keep = align128(acc + (size_t)bm * (d2 + 4) * 4);
-    total = align128(keep + (drop ? (size_t)bm * bf : 0));
-  }
-};
-
-template <typename T, int BM, int BF, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-    ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const float* __restrict__ b1,
-                   const T* __restrict__ w2, const float* __restrict__ b2, T* __restrict__ out,
-                   int n, int d, int f, int d2, philox::Dropout drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int P = pad_of<T>();
-  const FfnLayout L(d, d2, BM, BF, sizeof(T), DROP);
-  T* xs = reinterpret_cast<T*>(smem + L.xs);
-  T* w1s = reinterpret_cast<T*>(smem + L.w1s);
-  float* hf = reinterpret_cast<float*>(smem + L.hf);
-  T* hs = reinterpret_cast<T*>(smem + L.hs);
-  T* w2s = reinterpret_cast<T*>(smem + L.w2s);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  unsigned char* keep = smem + L.keep;  // [BM][BF], DROP only
-  const int ldx = d + P, ldw1 = BF + P, ldhf = BF + 4, ldh = BF + P, ldw2 = d2 + P,
-            ldacc = d2 + 4;
-
-  const long row0 = (long)blockIdx.x * BM;
-  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
-  load_rows(xs, ldx, x, d, row0, BM, d, 0, n);
-  for (int f0 = 0; f0 < f; f0 += BF) {
-    load_rows(w1s, ldw1, w1 + f0, f, 0, d, BF, 0, d);
-    load_rows(w2s, ldw2, w2, d2, f0, BF, d2, 0, f);
-    if constexpr (DROP) {
-      philox::fill_keep_tile<BM, BF>(keep, BF, seed, 0u, (uint32_t)row0, (uint32_t)f0, drop.thr);
-    }
-    __syncthreads();
-    smem_gemm<false>(xs, ldx, w1s, ldw1, hf, ldhf, BM, BF, d, false);
-    for (int idx = threadIdx.x; idx < BM * BF; idx += blockDim.x) {
-      const int r = idx / BF;
-      const int c = idx - r * BF;
-      const float s = hf[r * ldhf + c] + b1[f0 + c];
-      float h = s / (1.0f + expf(-s));
-      if constexpr (DROP) h = keep[r * BF + c] ? h * drop.inv : 0.0f;
-      hs[r * ldh + c] = from_f32<T>(h);
-    }
-    __syncthreads();
-    smem_gemm<false>(hs, ldh, w2s, ldw2, acc, ldacc, BM, d2, BF, f0 > 0);
-  }
-  const int valid = min(BM, n - (int)row0);
-  for (int idx = threadIdx.x; idx < valid * d2; idx += blockDim.x) {
-    const int r = idx / d2;
-    const int c = idx - r * d2;
-    out[(row0 + r) * d2 + c] = from_f32<T>(acc[r * ldacc + c] + b2[c]);
-  }
-}
-
-// drop.seed null: the rate-0 instantiation.
-template <typename T, int BM, int BF>
-int launch_ffn(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-               void* out, int n, int d, int f, int d2, const philox::Dropout& drop,
-               cudaStream_t stream) {
-  if (n <= 0 || d % 16 || d2 % 16 || f % BF) return (int)cudaErrorInvalidValue;
-  const bool dropping = drop.seed != nullptr;
-  const FfnLayout L(d, d2, BM, BF, sizeof(T), dropping);
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (L.total > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = dropping ? ffn_fwd_kernel<T, BM, BF, true> : ffn_fwd_kernel<T, BM, BF, false>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  const dim3 grid((n + BM - 1) / BM);
-  kernel<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2,
-      static_cast<T*>(out), n, d, f, d2, drop);
-  return (int)cudaGetLastError();
-}
-
 
 // ---- Forward, bf16: S, hd and O in registers --------------------------------
 //
@@ -427,244 +344,6 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 
 }  // namespace ffn_fwd
 
-// ---- Backward, float32 ----------------------------------------------------
-//
-// The fp32 instantiation of espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel,
-// the route of fp32 training and of the fp32 card-against-CPU checks (the
-// bf16 backward is the tensor-core version further below). From the output
-// cotangent g it recomputes s = x W1 + b1 chunk by chunk over F and forms
-//   hd = keep ? s sig(s) / (1 - rate) : 0, dW2 = hd^T g, db2 = sum g,
-//   dh = keep ? (g W2^T) / (1 - rate) : 0, ds = dh * swish'(s),
-//   dW1 = x^T ds, db1 = sum ds, dx = ds W1^T,
-// with swish'(s) = sig(s) (1 + s (1 - sig(s))) and keep the forward's mask
-// (DROP: drawn again into a BM x BF byte tile per row tile and hidden
-// chunk, as the forward draws it). Two kernels, each
-// recomputing s and dh: dx (one block per BM rows, F walked in BF chunks, the
-// [BM, D] accumulator in shared memory) and dw (one block per (F chunk, row
-// split), dW1^T / dW2 / db1 / db2 accumulated over the split's row tiles in
-// shared memory and written as per-split partials that the wrapper sums:
-// deterministic, no atomics).
-
-struct FfnBwdLayout {
-  size_t xs, gs, w1s, w2s, sf, dhf, t1, t2, acc1, acc2, db1, db2, keep, total;
-  __host__ __device__ FfnBwdLayout(int d, int d2, int bm, int bf, int esize, bool dw,
-                                   bool drop) {
-    const int p = 16 / esize;
-    xs = 0;
-    gs = align128(xs + (size_t)bm * (d + p) * esize);
-    w1s = align128(gs + (size_t)bm * (d2 + p) * esize);
-    w2s = align128(w1s + (size_t)d * (bf + p) * esize);
-    sf = align128(w2s + (size_t)bf * (d2 + p) * esize);
-    dhf = align128(sf + (size_t)bm * (bf + 4) * 4);
-    t1 = align128(dhf + (size_t)bm * (bf + 4) * 4);
-    // dx: t1 = ds [BM, BF], acc1 = dx [BM, D]. dw: t1 = hd^T, t2 = ds^T
-    // [BF, BM]; acc1 = dW1^T [BF, D], acc2 = dW2 [BF, D2].
-    const size_t tb = dw ? (size_t)bf * (bm + p) * esize : (size_t)bm * (bf + p) * esize;
-    t2 = align128(t1 + tb);
-    acc1 = align128(t2 + (dw ? tb : 0));
-    acc2 = align128(acc1 + (size_t)(dw ? bf : bm) * (d + 4) * 4);
-    db1 = align128(acc2 + (dw ? (size_t)bf * (d2 + 4) * 4 : 0));
-    db2 = align128(db1 + (size_t)bf * 4);
-    keep = align128(db2 + (dw ? (size_t)d2 * 4 : 0));  // [BM][BF] bytes, drop only
-    total = align128(keep + (drop ? (size_t)bm * bf : 0));
-  }
-};
-
-template <typename T, int BM, int BF, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-    ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                      const float* __restrict__ b1, const T* __restrict__ w2,
-                      const T* __restrict__ g, T* __restrict__ dx, int n, int d, int f, int d2,
-                      philox::Dropout drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int P = pad_of<T>();
-  const FfnBwdLayout L(d, d2, BM, BF, sizeof(T), false, DROP);
-  T* xs = reinterpret_cast<T*>(smem + L.xs);
-  T* gs = reinterpret_cast<T*>(smem + L.gs);
-  T* w1s = reinterpret_cast<T*>(smem + L.w1s);
-  T* w2s = reinterpret_cast<T*>(smem + L.w2s);
-  float* sf = reinterpret_cast<float*>(smem + L.sf);
-  float* dhf = reinterpret_cast<float*>(smem + L.dhf);
-  T* dss = reinterpret_cast<T*>(smem + L.t1);
-  float* acc = reinterpret_cast<float*>(smem + L.acc1);
-  unsigned char* keep = smem + L.keep;  // [BM][BF], DROP only
-  const int ldx = d + P, ldg = d2 + P, ldw1 = BF + P, ldw2 = d2 + P, ldf = BF + 4, ldds = BF + P,
-            ldacc = d + 4;
-
-  const long row0 = (long)blockIdx.x * BM;
-  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
-  load_rows(xs, ldx, x, d, row0, BM, d, 0, n);
-  load_rows(gs, ldg, g, d2, row0, BM, d2, 0, n);
-  for (int f0 = 0; f0 < f; f0 += BF) {
-    load_rows(w1s, ldw1, w1 + f0, f, 0, d, BF, 0, d);
-    load_rows(w2s, ldw2, w2, d2, f0, BF, d2, 0, f);
-    if constexpr (DROP) {
-      philox::fill_keep_tile<BM, BF>(keep, BF, seed, 0u, (uint32_t)row0, (uint32_t)f0, drop.thr);
-    }
-    __syncthreads();
-    smem_gemm<false>(xs, ldx, w1s, ldw1, sf, ldf, BM, BF, d, false);
-    smem_gemm<true>(gs, ldg, w2s, ldw2, dhf, ldf, BM, BF, d2, false);
-    for (int idx = threadIdx.x; idx < BM * BF; idx += blockDim.x) {
-      const int r = idx / BF;
-      const int c = idx - r * BF;
-      const float s = sf[r * ldf + c] + b1[f0 + c];
-      const float sig = 1.0f / (1.0f + expf(-s));
-      float dh = dhf[r * ldf + c];
-      if constexpr (DROP) dh = keep[r * BF + c] ? dh * drop.inv : 0.0f;
-      dss[r * ldds + c] = from_f32<T>(dh * sig * (1.0f + s * (1.0f - sig)));
-    }
-    __syncthreads();
-    smem_gemm<true>(dss, ldds, w1s, ldw1, acc, ldacc, BM, d, BF, f0 > 0);
-  }
-  const int valid = min(BM, n - (int)row0);
-  for (int idx = threadIdx.x; idx < valid * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    dx[(row0 + r) * d + c] = from_f32<T>(acc[r * ldacc + c]);
-  }
-}
-
-template <typename T, int BM, int BF, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-    ffn_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                      const float* __restrict__ b1, const T* __restrict__ w2,
-                      const T* __restrict__ g, float* __restrict__ dw1p, float* __restrict__ db1p,
-                      float* __restrict__ dw2p, float* __restrict__ db2p, int n, int d, int f,
-                      int d2, philox::Dropout drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int P = pad_of<T>();
-  const FfnBwdLayout L(d, d2, BM, BF, sizeof(T), true, DROP);
-  T* xs = reinterpret_cast<T*>(smem + L.xs);
-  T* gs = reinterpret_cast<T*>(smem + L.gs);
-  T* w1s = reinterpret_cast<T*>(smem + L.w1s);
-  T* w2s = reinterpret_cast<T*>(smem + L.w2s);
-  float* sf = reinterpret_cast<float*>(smem + L.sf);
-  float* dhf = reinterpret_cast<float*>(smem + L.dhf);
-  T* hdt = reinterpret_cast<T*>(smem + L.t1);
-  T* dst = reinterpret_cast<T*>(smem + L.t2);
-  float* acc1 = reinterpret_cast<float*>(smem + L.acc1);
-  float* acc2 = reinterpret_cast<float*>(smem + L.acc2);
-  float* db1 = reinterpret_cast<float*>(smem + L.db1);
-  float* db2 = reinterpret_cast<float*>(smem + L.db2);
-  unsigned char* keep = smem + L.keep;  // [BM][BF], DROP only
-  const uint32_t seed = DROP ? (uint32_t)__ldg(drop.seed) : 0u;
-  const int ldx = d + P, ldg = d2 + P, ldw1 = BF + P, ldw2 = d2 + P, ldf = BF + 4, ldt = BM + P,
-            lda1 = d + 4, lda2 = d2 + 4;
-  const int f0 = blockIdx.x * BF;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const bool first_chunk = blockIdx.x == 0;
-  const int ntiles = (n + BM - 1) / BM;
-
-  for (int idx = threadIdx.x; idx < BF * d; idx += blockDim.x) {
-    acc1[(idx / d) * lda1 + idx % d] = 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < BF * d2; idx += blockDim.x) {
-    acc2[(idx / d2) * lda2 + idx % d2] = 0.0f;
-  }
-  for (int c = threadIdx.x; c < BF; c += blockDim.x) db1[c] = 0.0f;
-  for (int c = threadIdx.x; c < d2; c += blockDim.x) db2[c] = 0.0f;
-  load_rows(w1s, ldw1, w1 + f0, f, 0, d, BF, 0, d);
-  load_rows(w2s, ldw2, w2, d2, f0, BF, d2, 0, f);
-  for (int tile = split; tile < ntiles; tile += nsplit) {
-    const long row0 = (long)tile * BM;
-    __syncthreads();  // the previous tile's readers of xs / gs are done
-    load_rows(xs, ldx, x, d, row0, BM, d, 0, n);
-    load_rows(gs, ldg, g, d2, row0, BM, d2, 0, n);
-    if constexpr (DROP) {
-      philox::fill_keep_tile<BM, BF>(keep, BF, seed, 0u, (uint32_t)row0, (uint32_t)f0, drop.thr);
-    }
-    __syncthreads();
-    smem_gemm<false>(xs, ldx, w1s, ldw1, sf, ldf, BM, BF, d, false);
-    smem_gemm<true>(gs, ldg, w2s, ldw2, dhf, ldf, BM, BF, d2, false);
-    const int valid = min(BM, n - (int)row0);
-    for (int idx = threadIdx.x; idx < BM * BF; idx += blockDim.x) {
-      const int r = idx / BF;
-      const int c = idx - r * BF;
-      float h = 0.0f, ds = 0.0f;
-      if (r < valid) {
-        const float s = sf[r * ldf + c] + b1[f0 + c];
-        const float sig = 1.0f / (1.0f + expf(-s));
-        float dh = dhf[r * ldf + c];
-        h = s * sig;
-        if constexpr (DROP) {
-          const bool on = keep[r * BF + c];
-          h = on ? h * drop.inv : 0.0f;
-          dh = on ? dh * drop.inv : 0.0f;
-        }
-        ds = dh * sig * (1.0f + s * (1.0f - sig));
-      }
-      hdt[c * ldt + r] = from_f32<T>(h);
-      dst[c * ldt + r] = from_f32<T>(ds);
-      sf[r * ldf + c] = ds;
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < BF; c += blockDim.x) {
-      float sum = 0.0f;
-      for (int r = 0; r < valid; ++r) sum += sf[r * ldf + c];
-      db1[c] += sum;
-    }
-    if (first_chunk) {
-      for (int c = threadIdx.x; c < d2; c += blockDim.x) {
-        float sum = 0.0f;
-        for (int r = 0; r < valid; ++r) sum += to_f32(gs[r * ldg + c]);
-        db2[c] += sum;
-      }
-    }
-    smem_gemm<false>(hdt, ldt, gs, ldg, acc2, lda2, BF, d2, BM, true);
-    smem_gemm<false>(dst, ldt, xs, ldx, acc1, lda1, BF, d, BM, true);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BF * d; idx += blockDim.x) {
-    const int k = idx / BF;  // consecutive threads: consecutive F columns
-    const int c = idx - k * BF;
-    dw1p[((size_t)split * d + k) * f + f0 + c] = acc1[c * lda1 + k];
-  }
-  for (int idx = threadIdx.x; idx < BF * d2; idx += blockDim.x) {
-    const int c = idx / d2;
-    const int k = idx - c * d2;
-    dw2p[((size_t)split * f + f0 + c) * d2 + k] = acc2[c * lda2 + k];
-  }
-  for (int c = threadIdx.x; c < BF; c += blockDim.x) db1p[(size_t)split * f + f0 + c] = db1[c];
-  if (first_chunk) {
-    for (int c = threadIdx.x; c < d2; c += blockDim.x) db2p[(size_t)split * d2 + c] = db2[c];
-  }
-}
-
-// drop.seed null: the rate-0 instantiations.
-template <typename T, int BM, int BF>
-int launch_ffn_bwd(const void* x, const void* w1, const float* b1, const void* w2, const void* g,
-                   void* dx, float* dw1p, float* db1p, float* dw2p, float* db2p, int nsplit,
-                   int n, int d, int f, int d2, const philox::Dropout& drop,
-                   cudaStream_t stream) {
-  if (n <= 0 || d % 16 || d2 % 16 || f % BF || nsplit <= 0 || nsplit > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const bool dropping = drop.seed != nullptr;
-  const FfnBwdLayout Lx(d, d2, BM, BF, sizeof(T), false, dropping);
-  const FfnBwdLayout Lw(d, d2, BM, BF, sizeof(T), true, dropping);
-  if (Lx.total > (size_t)max_smem || Lw.total > (size_t)max_smem) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
-  auto kx = dropping ? ffn_bwd_dx_kernel<T, BM, BF, true> : ffn_bwd_dx_kernel<T, BM, BF, false>;
-  auto kw = dropping ? ffn_bwd_dw_kernel<T, BM, BF, true> : ffn_bwd_dw_kernel<T, BM, BF, false>;
-  cudaFuncSetAttribute(kx, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lx.total);
-  cudaFuncSetAttribute(kw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lw.total);
-  const T* xt = static_cast<const T*>(x);
-  const T* w1t = static_cast<const T*>(w1);
-  const T* w2t = static_cast<const T*>(w2);
-  const T* gt = static_cast<const T*>(g);
-  kx<<<(n + BM - 1) / BM, kThreads, Lx.total, stream>>>(xt, w1t, b1, w2t, gt, static_cast<T*>(dx),
-                                                        n, d, f, d2, drop);
-  if (int err = (int)cudaGetLastError()) return err;
-  kw<<<dim3(f / BF, nsplit), kThreads, Lw.total, stream>>>(xt, w1t, b1, w2t, gt, dw1p, db1p, dw2p,
-                                                          db2p, n, d, f, d2, drop);
-  return (int)cudaGetLastError();
-}
-
-
 // ---- Backward, bf16: three tensor-core GEMM kernels -------------------------
 //
 // Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_bwd_kernel (the pallas_call of
@@ -686,8 +365,8 @@ int launch_ffn_bwd(const void* x, const void* w1, const float* b1, const void* w
 // Why scratch, not the TPU's single pass: the TPU kernel walks row tiles in
 // order on one core and sums dW1 / dW2 in VMEM across its grid. 132 SMs
 // running blocks in no order cannot carry a sum from block to block, and a
-// block that recomputes s and dh for its own dW tile (the fp32 path above)
-// repeats two of the five products. So the hidden is formed once, by
+// block that recomputes s and dh for its own dW tile repeats two of the
+// five products. So the hidden is formed once, by
 // `rows`, and written as two bf16 [N, F] scratch tensors (hd and ds: 2 x 61
 // MB at the flagship shape, ~0.07 ms of extra traffic); `dx` and `dw` then
 // read them. Every product is the register-accumulator mainloop of
@@ -933,11 +612,373 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
 
 }  // namespace ffn_bwd
 
+// ---- float32: five launches on a register-tiled fp32 GEMM mainloop ---------
+//
+// Replaces espnet_slurp_tpu/ops/pallas/ffn.py:_fwd_kernel and _bwd_kernel
+// (the pallas_calls of fused_ffn at :186 and :206) in float32: the route of
+// the default ASRConfig's training and of the fp32 card-against-CPU checks.
+// Exact fp32 (FMAs, no TF32), with keep the forward's mask:
+//   forward   hd = keep ? swish(x W1 + b1) / (1 - rate) : 0; out = hd W2 + b2
+//   backward  s = x W1 + b1, sig = sigmoid(s), hd as above, dh = keep ?
+//             (g W2^T) / (1 - rate) : 0, ds = dh sig (1 + s (1 - sig));
+//             dx = ds W1^T, dW1 = x^T ds, db1 = sum ds, dW2 = hd^T g,
+//             db2 = sum g.
+//
+// Bound: the fp32 units. Each product is 2 N D F operations (D2 = D): 31.4
+// GFLOP at the default ASRConfig's train shape (N = 64 x 468, D 256, F
+// 2048), 0.469 ms at 67 TFLOP/s. The forward is 2 products (0.94 ms), the
+// backward 5 (2.34 ms), against ~16 and ~33 MB of compulsory traffic (0.005
+// and 0.01 ms at 3.35 TB/s).
+//
+// Design: every product is sgemm.cuh's mainloop (128-row block tiles, 8 x 8
+// register micro-tiles of FMAs, a 2-stage ring, one barrier per 16 of K),
+// and the [N, F] hidden goes through fp32 scratch that the wrapper holds for
+// the call, as the bf16 backward's does (245 MB in the forward and 2 x 245
+// in the backward at that shape: ~0.15 and ~0.4 ms of traffic against at
+// least 0.94 and 2.34 ms of products). Five launches, five products where
+// a kernel that recomputed s and dh for each of dx and dW would form seven:
+//   hidden  1-D grid of (N / 128) x (F / 128) tiles: S = x W1; the epilogue
+//           adds b1, applies swish and the mask, and writes hd.
+//   out     (N / 128) x (D2 / 128) tiles: hd W2 + b2.
+//   rows    (N / 128) x (F / 64) tiles: S = x W1 and DH = g W2^T into two
+//           8 x 4 micro-tiles a thread; the epilogue writes hd and ds and the
+//           tile's column sums of ds as one db1 partial per row tile.
+//   dx      (N / 128) x (D / 128) tiles: DS W1^T.
+//   dw      grid (dW1 tiles + dW2 tiles, S splits of N): x^T DS and hd^T g,
+//           both operands N-row-major (cp.async), fp32 partials per split;
+//           dW2's blocks of its first row of tiles also sum g's columns (db2)
+//           from the stages as they land.
+// The wrapper sums the partials in a fixed order (deterministic, no
+// atomics); the autograd forward keeps no hidden, and the backward forms it
+// again, as the TPU kernel does. The keep bits come from fill_keep_tile into
+// a byte tile of the block's outputs in the freed ring (one Philox call per
+// 8 elements). No shared memory grows with D or F: every width whose
+// contiguous axes are multiples of 16 (D, D2) and 32 (F) is taken, d_model
+// 512 / d_ff 2048 too.
+
+namespace ffn_f32 {
+
+using ffn_bwd::cdiv;
+using mma::Major;
+constexpr int BM = sgemm::BM;  // rows of N a block; rows of a db1 partial
+constexpr int BN = 128;        // columns of every block tile but rows'
+constexpr int kRowsF = 64;     // F columns of a rows block
+using Wide = sgemm::Gemm<BN, Major::K, Major::MN>;       // x W1, hd W2
+using RowsS = sgemm::Gemm<kRowsF, Major::K, Major::MN>;  // x W1
+using RowsDH = sgemm::Gemm<kRowsF, Major::K, Major::K>;  // g W2^T
+using Dx = sgemm::Gemm<BN, Major::K, Major::K>;          // DS W1^T
+using Dw = sgemm::Gemm<BN, Major::MN, Major::MN>;        // x^T DS, hd^T g
+static_assert(RowsS::kRingFloats == RowsDH::kRingFloats, "one ring for both products");
+static_assert(BM == ffn_bwd::kRowTile, "one db1 partial per 128 rows in both dtypes");
+
+template <bool DROP>
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    hidden_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                  const float* __restrict__ b1, float* __restrict__ hd, int n, int d, int f,
+                  philox::Dropout drop) {
+  __shared__ __align__(16) float ring[Wide::kRingFloats];
+  const long tn = cdiv(f, BN);
+  const long m0 = (long)(blockIdx.x / tn) * BM, n0 = (long)(blockIdx.x % tn) * BN;
+  Wide::Acc acc;
+  Wide::zero(acc);
+  Wide::run(acc, ring, x, d, w1, f, m0, n0, n, f, 0, d);  // x [N, D] . W1 [D, F]
+  unsigned char* keep = reinterpret_cast<unsigned char*>(ring);  // [BM][BN], DROP only
+  if constexpr (DROP) {
+    philox::fill_keep_tile<BM, BN>(keep, BN, (uint32_t)__ldg(drop.seed), 0u, (uint32_t)m0,
+                                   (uint32_t)n0, drop.thr);
+    __syncthreads();
+  }
+  Wide::epilogue(acc, [&](int r, int c, float4 v) {
+    const long row = m0 + r, col = n0 + c;
+    if (row >= n || col >= f) return;
+    const float4 bb = sgemm::ld4(b1 + col);
+    float h[4] = {v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = h[e] / (1.0f + expf(-h[e]));
+      if constexpr (DROP) h[e] = keep[r * BN + c + e] ? h[e] * drop.inv : 0.0f;
+    }
+    *reinterpret_cast<float4*>(hd + row * f + col) = make_float4(h[0], h[1], h[2], h[3]);
+  });
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    out_kernel(const float* __restrict__ hd, const float* __restrict__ w2,
+               const float* __restrict__ b2, float* __restrict__ out, int n, int f, int d2) {
+  __shared__ __align__(16) float ring[Wide::kRingFloats];
+  const long tn = cdiv(d2, BN);
+  const long m0 = (long)(blockIdx.x / tn) * BM, n0 = (long)(blockIdx.x % tn) * BN;
+  Wide::Acc acc;
+  Wide::zero(acc);
+  Wide::run(acc, ring, hd, f, w2, d2, m0, n0, n, d2, 0, f);  // hd [N, F] . W2 [F, D2]
+  Wide::epilogue(acc, [&](int r, int c, float4 v) {
+    const long row = m0 + r, col = n0 + c;
+    if (row >= n || col >= d2) return;
+    const float4 bb = sgemm::ld4(b2 + col);
+    *reinterpret_cast<float4*>(out + row * d2 + col) =
+        make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
+  });
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    rows_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                const float* __restrict__ b1, const float* __restrict__ w2,
+                const float* __restrict__ g, float* __restrict__ hd, float* __restrict__ ds,
+                float* __restrict__ db1p, int n, int d, int f, int d2, philox::Dropout drop) {
+  __shared__ __align__(16) float ring[RowsS::kRingFloats];
+  __shared__ float red[4][kRowsF];
+  const long tn = cdiv(f, kRowsF);
+  const long tile = blockIdx.x / tn;
+  const long m0 = tile * BM, n0 = (long)(blockIdx.x % tn) * kRowsF;
+  RowsS::Acc s, dh;
+  RowsS::zero(s);
+  RowsS::zero(dh);
+  RowsS::run(s, ring, x, d, w1, f, m0, n0, n, f, 0, d);      // x [N, D] . W1 [D, F]
+  RowsDH::run(dh, ring, g, d2, w2, d2, m0, n0, n, f, 0, d2);  // g [N, D2] . W2 [F, D2]^T
+  unsigned char* keep = reinterpret_cast<unsigned char*>(ring);  // [BM][kRowsF], DROP only
+  if constexpr (DROP) {
+    philox::fill_keep_tile<BM, kRowsF>(keep, kRowsF, (uint32_t)__ldg(drop.seed), 0u,
+                                       (uint32_t)m0, (uint32_t)n0, drop.thr);
+    __syncthreads();
+  }
+  const int c = RowsS::col(0);
+  const long col = n0 + c;
+  float csum[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the thread's rows < N
+  if (col < f) {
+    const float4 bb = sgemm::ld4(b1 + col);
+    const float bias[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+    for (int i = 0; i < RowsS::MI; ++i) {
+      const int r = RowsS::row(i);
+      const long row = m0 + r;
+      if (row >= n) continue;
+      float hv[4], dv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = s[i][e] + bias[e];
+        const float sig = 1.0f / (1.0f + expf(-sv));
+        float dhv = dh[i][e];
+        hv[e] = sv * sig;
+        if constexpr (DROP) {
+          const bool kept = keep[r * kRowsF + c + e];
+          hv[e] = kept ? hv[e] * drop.inv : 0.0f;
+          dhv = kept ? dhv * drop.inv : 0.0f;
+        }
+        dv[e] = dhv * (sig * (1.0f + sv * (1.0f - sig)));
+        csum[e] += dv[e];
+      }
+      *reinterpret_cast<float4*>(hd + row * f + col) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<float4*>(ds + row * f + col) = make_float4(dv[0], dv[1], dv[2], dv[3]);
+    }
+  }
+  // Column sums: over the 4 lanes of a warp that share tx, then over the 4
+  // warp rows (ty groups) through shared memory, in a fixed order.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v = csum[e];
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (lane < 8) red[warp >> 1][c + e] = v;
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < kRowsF && n0 + t < f) {
+    db1p[tile * f + n0 + t] = red[0][t] + red[1][t] + red[2][t] + red[3][t];
+  }
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    dx_kernel(const float* __restrict__ ds, const float* __restrict__ w1, float* __restrict__ dx,
+              int n, int d, int f) {
+  __shared__ __align__(16) float ring[Dx::kRingFloats];
+  const long tn = cdiv(d, BN);
+  const long m0 = (long)(blockIdx.x / tn) * BM, n0 = (long)(blockIdx.x % tn) * BN;
+  Dx::Acc acc;
+  Dx::zero(acc);
+  Dx::run(acc, ring, ds, f, w1, f, m0, n0, n, d, 0, f);  // DS [N, F] . W1 [D, F]^T
+  Dx::epilogue(acc, [&](int r, int c, float4 v) {
+    const long row = m0 + r, col = n0 + c;
+    if (row < n && col < d) *reinterpret_cast<float4*>(dx + row * d + col) = v;
+  });
+}
+
+// Column sums of dw's B stage (g rows [BK][128]): thread t sums column t %
+// 128 over half t / 128 of the stage's rows.
+struct ColumnSum {
+  bool on;
+  float sum;
+  __device__ __forceinline__ void operator()(const float*, const float* sb) {
+    if (!on) return;
+    constexpr int kHalf = sgemm::BK / 2;
+    const float* p = sb + (threadIdx.x >> 7) * kHalf * BN + (threadIdx.x & 127);
+#pragma unroll
+    for (int r = 0; r < kHalf; ++r) sum += p[r * BN];
+  }
+};
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    dw_kernel(const float* __restrict__ x, const float* __restrict__ ds,
+              const float* __restrict__ hd, const float* __restrict__ g,
+              float* __restrict__ dw1p, float* __restrict__ dw2p, float* __restrict__ db2p,
+              int n, int d, int f, int d2, long kchunk) {
+  static_assert(sgemm::kThreads == 2 * BN, "ColumnSum's thread map");
+  __shared__ __align__(16) float ring[Dw::kRingFloats];
+  const long split = blockIdx.y;
+  const long k0 = split * kchunk, k1 = k0 + kchunk < n ? k0 + kchunk : n;
+  const long tiles1 = cdiv(d, BN) * cdiv(f, BN);
+  const bool w1_tile = blockIdx.x < tiles1;  // else a dW2 tile
+  const long t = w1_tile ? blockIdx.x : blockIdx.x - tiles1;
+  const long tn = cdiv(w1_tile ? f : d2, BN);
+  const long m0 = (t / tn) * BN, n0 = (t % tn) * BN;
+  Dw::Acc acc;
+  Dw::zero(acc);
+  ColumnSum db2{!w1_tile && m0 == 0, 0.0f};
+  if (w1_tile) {  // dW1 [D, F] = x^T [D, N] . DS [N, F]
+    Dw::run(acc, ring, x, d, ds, f, m0, n0, d, f, k0, k1);
+  } else {  // dW2 [F, D2] = hd^T [F, N] . g [N, D2]
+    Dw::run(acc, ring, hd, f, g, d2, m0, n0, f, d2, k0, k1, db2);
+  }
+  const long rows = w1_tile ? d : f, cols = w1_tile ? f : d2;
+  float* out = w1_tile ? dw1p + split * d * f : dw2p + split * f * d2;
+  Dw::epilogue(acc, [&](int r, int c, float4 v) {
+    const long row = m0 + r, col = n0 + c;
+    if (row < rows && col < cols) *reinterpret_cast<float4*>(out + row * cols + col) = v;
+  });
+  if (db2.on) {  // block-uniform
+    float* red = ring;  // [2][128]; the ring is free after run
+    red[threadIdx.x] = db2.sum;
+    __syncthreads();
+    if (threadIdx.x < BN && n0 + threadIdx.x < d2) {
+      db2p[split * d2 + n0 + threadIdx.x] = red[threadIdx.x] + red[BN + threadIdx.x];
+    }
+  }
+}
+
+// Every width these launches take (the route test of FeedForward): D and
+// D2 multiples of 16, F of 32, and the largest 1-D grid within bounds.
+inline bool takes(int n, int d, int f, int d2) {
+  return n > 0 && d > 0 && d2 > 0 && f > 0 && d % 16 == 0 && d2 % 16 == 0 && f % 32 == 0 &&
+         cdiv(n, BM) * cdiv(f, kRowsF) <= 0x7fffffffL;
+}
+
+// The kernels, in the order of espnet_fused_ffn_f32_info's `which`.
+inline const void* kernel(int which) {
+  const void* all[] = {
+      reinterpret_cast<const void*>(hidden_kernel<false>),
+      reinterpret_cast<const void*>(hidden_kernel<true>),
+      reinterpret_cast<const void*>(out_kernel),
+      reinterpret_cast<const void*>(rows_kernel<false>),
+      reinterpret_cast<const void*>(rows_kernel<true>),
+      reinterpret_cast<const void*>(dx_kernel),
+      reinterpret_cast<const void*>(dw_kernel)};
+  return which >= 0 && which < 7 ? all[which] : nullptr;
+}
+
+// Prefers the largest shared-memory carveout for every kernel, once.
+inline void configure() {
+  static const bool done = [] {
+    for (int i = 0; i < 7; ++i) {
+      cudaFuncSetAttribute(kernel(i), cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+    }
+    return true;
+  }();
+  (void)done;
+}
+
+// hidden then out; hid is fp32 [n, f] scratch.
+inline int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
+                      const float* b2, float* out, float* hid, int n, int d, int f, int d2,
+                      const philox::Dropout& drop, cudaStream_t stream) {
+  if (!takes(n, d, f, d2) || !hid) return (int)cudaErrorInvalidValue;
+  configure();
+  const unsigned gh = (unsigned)(cdiv(n, BM) * cdiv(f, BN));
+  if (drop.seed) {
+    hidden_kernel<true><<<gh, sgemm::kThreads, 0, stream>>>(x, w1, b1, hid, n, d, f, drop);
+  } else {
+    hidden_kernel<false><<<gh, sgemm::kThreads, 0, stream>>>(x, w1, b1, hid, n, d, f, drop);
+  }
+  if (int err = (int)cudaGetLastError()) return err;
+  out_kernel<<<(unsigned)(cdiv(n, BM) * cdiv(d2, BN)), sgemm::kThreads, 0, stream>>>(
+      hid, w2, b2, out, n, f, d2);
+  return (int)cudaGetLastError();
+}
+
+// rows, dx, dw; hd and ds are fp32 [n, f] scratch, db1p [cdiv(n, BM), f],
+// dw1p / dw2p / db2p nsplit partials each.
+inline int launch_bwd(const float* x, const float* w1, const float* b1, const float* w2,
+                      const float* g, float* dx, float* hd, float* ds, float* dw1p, float* db1p,
+                      float* dw2p, float* db2p, int nsplit, int n, int d, int f, int d2,
+                      const philox::Dropout& drop, cudaStream_t stream) {
+  if (!takes(n, d, f, d2) || !hd || !ds || nsplit <= 0 || nsplit > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  configure();
+  const unsigned gr = (unsigned)(cdiv(n, BM) * cdiv(f, kRowsF));
+  if (drop.seed) {
+    rows_kernel<true><<<gr, sgemm::kThreads, 0, stream>>>(x, w1, b1, w2, g, hd, ds, db1p, n, d,
+                                                          f, d2, drop);
+  } else {
+    rows_kernel<false><<<gr, sgemm::kThreads, 0, stream>>>(x, w1, b1, w2, g, hd, ds, db1p, n,
+                                                           d, f, d2, drop);
+  }
+  if (int err = (int)cudaGetLastError()) return err;
+  dx_kernel<<<(unsigned)(cdiv(n, BM) * cdiv(d, BN)), sgemm::kThreads, 0, stream>>>(ds, w1, dx, n,
+                                                                                   d, f);
+  if (int err = (int)cudaGetLastError()) return err;
+  const long kchunk = cdiv(cdiv(n, nsplit), sgemm::BK) * sgemm::BK;
+  const long tiles = cdiv(d, BN) * cdiv(f, BN) + cdiv(f, BN) * cdiv(d2, BN);
+  dw_kernel<<<dim3((unsigned)tiles, (unsigned)nsplit), sgemm::kThreads, 0, stream>>>(
+      x, ds, hd, g, dw1p, dw2p, db2p, n, d, f, d2, kchunk);
+  return (int)cudaGetLastError();
+}
+
+// Splits of N for dw_kernel on a card of `sms` SMs: as many as fill its
+// block slots (sms x dw_kernel's blocks an SM) with (dW1 tiles + dW2 tiles)
+// x splits blocks, each split at least kDwMinRows rows; at least 1. A
+// negative value is a cudaError_t code, negated.
+constexpr int kDwMinRows = 1024;
+inline int dw_splits(int n, int d, int f, int d2, int sms) {
+  if (n <= 0 || d <= 0 || f <= 0 || d2 <= 0 || sms <= 0) return -(int)cudaErrorInvalidValue;
+  configure();
+  int per_sm = 0;
+  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dw_kernel,
+                                                                  sgemm::kThreads, 0)) {
+    return -err;
+  }
+  const long tiles = cdiv(d, BN) * cdiv(f, BN) + cdiv(f, BN) * cdiv(d2, BN);
+  const long s = std::min({(long)n / kDwMinRows, (long)sms * per_sm / tiles, 65535L});
+  return (int)std::max(1L, s);
+}
+
+// Registers, static shared bytes, local (spill) bytes and blocks per SM of
+// kernel `which`.
+inline int info(int which, int* out) {
+  const void* k = kernel(which);
+  if (!k) return (int)cudaErrorInvalidValue;
+  configure();
+  cudaFuncAttributes attr{};
+  if (int err = (int)cudaFuncGetAttributes(&attr, k)) return err;
+  int nb = 0;
+  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, k, sgemm::kThreads, 0)) {
+    return err;
+  }
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = nb;
+  return 0;
+}
+
+}  // namespace ffn_f32
+
 }  // namespace espnet
 
-// dtype: 0 = float32, 1 = bfloat16. part: fp32 [nsplit, N, D2] scratch of
-// the bf16 path when nsplit > 1 (espnet_fused_ffn_fwd_splits gives nsplit;
-// fp32 takes nsplit 1 and no scratch). seed: int32 [1] on the device, or
+// dtype: 0 = float32, 1 = bfloat16. part: fp32 scratch, in bf16 [nsplit,
+// N, D2] when nsplit > 1 (espnet_fused_ffn_fwd_splits gives nsplit), in
+// fp32 the [N, F] hidden (nsplit 1). seed: int32 [1] on the device, or
 // null for no dropout; thr = floor(rate * 2^16), inv = 1 / (1 - rate).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int espnet_fused_ffn_fwd(int dtype, const void* x, const void* w1, const float* b1,
@@ -952,8 +993,10 @@ extern "C" int espnet_fused_ffn_fwd(int dtype, const void* x, const void* w1, co
                                    nsplit, n, d, f, d2, {seed, thr, inv}, s);
   }
   if (dtype == 0 && nsplit == 1) {
-    return espnet::launch_ffn<float, 32, 32>(x, w1, b1, w2, b2, out, n, d, f, d2,
-                                             {seed, thr, inv}, s);
+    return espnet::ffn_f32::launch_fwd(static_cast<const float*>(x), static_cast<const float*>(w1),
+                                       b1, static_cast<const float*>(w2), b2,
+                                       static_cast<float*>(out), part, n, d, f, d2,
+                                       {seed, thr, inv}, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -965,26 +1008,15 @@ extern "C" int espnet_fused_ffn_fwd_splits(int n, int d, int f, int d2) {
   return espnet::ffn_fwd::splits(n, d, f, d2);
 }
 
-// 1 when both directions' launches of this dtype take the widths (and the
-// shared memory they need fits a block), else 0: the route test of
+// 1 when both directions' launches of this dtype take the widths (and, in
+// bf16, the forward's shared memory fits a block), else 0: the route test of
 // models/conformer.py:FeedForward, decided before any launch.
 extern "C" int espnet_fused_ffn_takes(int dtype, int n, int d, int f, int d2) {
   if (n <= 0 || d <= 0 || d % 16 || d2 <= 0 || d2 % 16) return 0;
   if (dtype == 1) {
     return f % espnet::ffn_bwd::kRowsF == 0 && espnet::ffn_fwd::splits(n, d, f, d2) > 0;
   }
-  if (dtype != 0 || f % 32) return 0;
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  // With the keep tiles of a rate above 0 (the larger layouts).
-  const size_t need[] = {espnet::FfnLayout(d, d2, 32, 32, 4, true).total,
-                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, false, true).total,
-                         espnet::FfnBwdLayout(d, d2, 16, 32, 4, true, true).total};
-  for (size_t b : need) {
-    if (b > (size_t)max_smem) return 0;
-  }
-  return 1;
+  return dtype == 0 && espnet::ffn_f32::takes(n, d, f, d2);
 }
 
 // Blocks of the bf16 forward kernel that fit one SM at widths D, D2.
@@ -992,18 +1024,31 @@ extern "C" int espnet_fused_ffn_fwd_blocks_per_sm(int d, int d2) {
   return espnet::ffn_fwd::blocks_per_sm(d, d2);
 }
 
+// Splits of N for the fp32 backward's dW launch (its nsplit) on a card of
+// `sms` SMs; a negative value is a cudaError_t code, negated.
+extern "C" int espnet_fused_ffn_f32_dw_splits(int n, int d, int f, int d2, int sms) {
+  return espnet::ffn_f32::dw_splits(n, d, f, d2, sms);
+}
+
+// info[0..3] <- registers a thread, static shared bytes, local (spill)
+// bytes and blocks per SM of fp32 kernel `which`: 0 / 1 hidden_kernel at
+// rate 0 / with dropout, 2 out_kernel, 3 / 4 rows_kernel, 5 dx_kernel, 6
+// dw_kernel. Returns a cudaError_t code.
+extern "C" int espnet_fused_ffn_f32_info(int which, int* info) {
+  return espnet::ffn_f32::info(which, info);
+}
+
 extern "C" const char* espnet_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Rows of N per db1 partial of the bf16 backward.
+// Rows of N per db1 partial of the backward (both dtypes).
 extern "C" int espnet_fused_ffn_bwd_row_tile() { return espnet::ffn_bwd::kRowTile; }
 
 // Backward. g: [N, D2] (x's type); dx: [N, D]; fp32 partials, summed by the
 // caller: dw1p [nsplit, D, F], dw2p [nsplit, F, D2], db2p [nsplit, D2], and
-// db1p [parts, F] with parts = cdiv(N, espnet_fused_ffn_bwd_row_tile()) in
-// bf16 and nsplit in fp32. hd and ds: bf16 [N, F] scratch of the bf16 path
-// (unused in fp32). seed, thr, inv: the forward's dropout (seed null for
+// db1p [cdiv(N, espnet_fused_ffn_bwd_row_tile()), F]. hd and ds: [N, F]
+// scratch in x's type. seed, thr, inv: the forward's dropout (seed null for
 // none). Returns a cudaError_t code.
 extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, const float* b1,
                                     const void* w2, const void* g, void* dx, void* hd, void* ds,
@@ -1020,8 +1065,10 @@ extern "C" int espnet_fused_ffn_bwd(int dtype, const void* x, const void* w1, co
         d2, {seed, thr, inv}, s);
   }
   if (dtype == 0) {
-    return espnet::launch_ffn_bwd<float, 16, 32>(x, w1, b1, w2, g, dx, dw1p, db1p, dw2p, db2p,
-                                                 nsplit, n, d, f, d2, {seed, thr, inv}, s);
+    auto in = [](const void* p) { return static_cast<const float*>(p); };
+    return espnet::ffn_f32::launch_bwd(in(x), in(w1), b1, in(w2), in(g), static_cast<float*>(dx),
+                                       static_cast<float*>(hd), static_cast<float*>(ds), dw1p,
+                                       db1p, dw2p, db2p, nsplit, n, d, f, d2, {seed, thr, inv}, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -104,6 +104,10 @@ def library() -> ctypes.CDLL:
     lib.espnet_fused_ffn_takes.restype = i
     lib.espnet_fused_ffn_fwd_blocks_per_sm.argtypes = [i, i]
     lib.espnet_fused_ffn_fwd_blocks_per_sm.restype = i
+    lib.espnet_fused_ffn_f32_info.argtypes = [i, ctypes.POINTER(i)]
+    lib.espnet_fused_ffn_f32_info.restype = i
+    lib.espnet_fused_ffn_f32_dw_splits.argtypes = [i, i, i, i, i]
+    lib.espnet_fused_ffn_f32_dw_splits.restype = i
     lib.espnet_rel_flash_fwd.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i,
                                          f, i, i, p, u, f, p]
     lib.espnet_rel_flash_fwd.restype = i

@@ -3,24 +3,27 @@
 dropout(swish(x W1 + b1)) W2 + b2. Port of
 espnet_slurp_tpu/ops/pallas/ffn.py:fused_ffn. On a CUDA tensor the
 wrapper is a ``torch.autograd.Function`` that launches the hand-written
-kernels in ``csrc/ffn.cu``: the forward, which writes no [N, d_ff] hidden to
-device memory (the autograd context keeps only the inputs), and a backward.
-In bf16 the backward is three tensor-core GEMM kernels (rows, dx, dW) that
-pass the rounded hidden and its gradient through [N, d_ff] scratch for the
-length of the call; in fp32 it recomputes the hidden chunk by chunk.
-``fused_ffn_bwd_plain`` is that backward at the kernel's rounding points.
-In bf16 the forward keeps the hidden tile, its swish and the output
-accumulator in registers (``ffn_fwd::fwd_kernel``) and takes D2 of 32, 64,
-128 or 256. On a CPU tensor the wrapper runs ``fused_ffn_plain``, the same
+kernels in ``csrc/ffn.cu``; the autograd context keeps only the inputs,
+and the backward forms the hidden again. In bf16 the forward keeps the
+hidden tile, its swish and the output accumulator in registers
+(``ffn_fwd::fwd_kernel``, D2 of 32, 64, 128 or 256), and the backward is
+three tensor-core GEMM kernels (rows, dx, dW) that pass the rounded hidden
+and its gradient through [N, d_ff] scratch for the length of the call. In
+fp32 both directions are launches of the register-tiled fp32 GEMM of
+``csrc/sgemm.cuh`` (``ffn_f32``: hidden and out forward, rows, dx and dw
+backward) with the hidden in fp32 [N, d_ff] scratch for the length of a
+call. ``fused_ffn_bwd_plain`` is the backward at the kernels' rounding
+points. On a CPU tensor the wrapper runs ``fused_ffn_plain``, the same
 function in plain PyTorch, whose gradients are PyTorch's autograd. There is
 no other route: a CUDA tensor the kernel does not take raises;
 ``fused_ffn_takes`` says beforehand whether it takes a shape.
 
-Dropout: every launch (the bf16 forward and the backward's ``rows``; the
-fp32 forward, ``dx`` and ``dW``) draws the keep mask of hidden element (n,
-f) in the kernel from Philox4x32-10 (csrc/philox.cuh) under a seed read
-from device memory, so the backward regenerates the forward's mask; the
-plain versions take the same mask from ops/kernels/philox.py.
+Dropout: every launch that forms the hidden (the bf16 forward, the fp32
+forward's ``hidden`` and the backward's ``rows`` in both dtypes) draws the
+keep mask of hidden element (n, f) in the kernel from Philox4x32-10
+(csrc/philox.cuh) under a seed read from device memory, so the backward
+regenerates the forward's mask; the plain versions take the same mask
+from ops/kernels/philox.py.
 """
 from __future__ import annotations
 
@@ -110,10 +113,9 @@ def fused_ffn_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             (hd.t() @ gf).to(w2.dtype), gf.sum(0))
 
 
-# Row splits of the fp32 path's dW/db reduction (per-split partials, summed
-# here); the bf16 path splits N into at most BF16_DW_SPLITS ranges of at
-# least 512 rows.
-DW_SPLITS = 16
+# Row splits of the bf16 backward's dW products (per-split fp32 partials,
+# summed here): N in at most BF16_DW_SPLITS ranges of at least 512 rows.
+# The fp32 path takes the library's plan (espnet_fused_ffn_f32_dw_splits).
 BF16_DW_SPLITS = 8
 # Output widths the bf16 forward kernel keeps in registers.
 BF16_D2 = (32, 64, 128, 256)
@@ -134,6 +136,9 @@ def _launch_fwd(x, w1, b1, w2, b2, seed=None, rate=0.0):
         if nsplit > 1:
             part = torch.empty(nsplit, n, d2, dtype=torch.float32,
                                device=x.device)
+    else:
+        # fp32: hidden -> out through the [N, F] hidden (freed at return).
+        part = torch.empty(n, f, dtype=torch.float32, device=x.device)
     build.check(lib.espnet_fused_ffn_fwd(
         build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -154,26 +159,29 @@ def _launch_bwd(x, w1, b1, w2, g, seed=None, rate=0.0):
     lib = build.library()
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=dev)
+    # rows -> dx -> dw: the hidden hd and ds go through [N, F] scratch in
+    # x's dtype (freed when the call returns); db1 is summed per row tile.
     if x.dtype == torch.bfloat16:
-        # rows -> dx -> dw: the hidden hd and ds go through [N, F] scratch
-        # (freed when the call returns); db1 is summed per row tile.
         nsplit = max(1, min(BF16_DW_SPLITS, n // 512))
-        parts = -(-n // lib.espnet_fused_ffn_bwd_row_tile())
-        hd = torch.empty(n, f, dtype=x.dtype, device=dev)
-        ds = torch.empty(n, f, dtype=x.dtype, device=dev)
-        scratch = (hd.data_ptr(), ds.data_ptr())
     else:
-        nsplit = parts = max(1, min(DW_SPLITS, n // 64))
-        scratch = (None, None)
+        nsplit = lib.espnet_fused_ffn_f32_dw_splits(
+            n, d, f, d2, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        if nsplit < 0:
+            build.check(-nsplit, "fused_ffn backward's dW splits")
+    parts = -(-n // lib.espnet_fused_ffn_bwd_row_tile())
+    hd = torch.empty(n, f, dtype=x.dtype, device=dev)
+    ds = torch.empty(n, f, dtype=x.dtype, device=dev)
     dw1p = torch.empty(nsplit, d, f, **f32)
     db1p = torch.empty(parts, f, **f32)
     dw2p = torch.empty(nsplit, f, d2, **f32)
     db2p = torch.empty(nsplit, d2, **f32)
     build.check(lib.espnet_fused_ffn_bwd(
         build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(), *scratch,
-        dw1p.data_ptr(), db1p.data_ptr(), dw2p.data_ptr(), db2p.data_ptr(),
-        nsplit, n, d, f, d2, *philox.launch_args(seed, rate),
+        b1.data_ptr(), w2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        hd.data_ptr(), ds.data_ptr(), dw1p.data_ptr(), db1p.data_ptr(),
+        dw2p.data_ptr(), db2p.data_ptr(), nsplit, n, d, f, d2,
+        *philox.launch_args(seed, rate),
         build.stream_ptr(x)), "fused_ffn backward")
     fused_ffn.bwd_launches += 1
     # dW back in the weights' dtype, as the reference returns them.
@@ -191,15 +199,16 @@ class _FusedFfn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, seed = ctx.saved_tensors
-        return (*_launch_bwd(x, w1, b1, w2, g.to(x.dtype).contiguous(), seed,
-                             ctx.rate), None, None)
+        g = g.to(x.dtype).contiguous()
+        build.check_aligned("g", g)
+        return (*_launch_bwd(x, w1, b1, w2, g, seed, ctx.rate), None, None)
 
 
 def fused_ffn_takes(n: int, d: int, f: int, d2: int,
                     dtype: torch.dtype) -> bool:
     """Whether both directions' launches on the card take N rows of widths
-    D, F, D2 in ``dtype`` (the bf16 forward's output widths, every launch's
-    multiples, the shared memory of the fp32 launches): the shape route of
+    D, F, D2 in ``dtype`` (the bf16 forward's output widths and shared
+    memory, every launch's multiples): the shape route of
     models/conformer.py:FeedForward, asked of the built library."""
     if dtype not in build.DTYPE_CODES:
         return False
@@ -232,7 +241,7 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(
             f"fused_ffn kernel: does not take D={d} F={f} D2={d2} in "
             f"{x.dtype} (D, D2 % 16 == 0; F % 64 == 0 and D2 in {BF16_D2} "
-            "in bf16; F % 32 == 0 and the tiles in shared memory in fp32)")
+            "in bf16; F % 32 == 0 in fp32)")
     for name, t in (("x", x), ("w1", w1), ("w2", w2), ("b1", b1),
                     ("b2", b2)):
         build.check_aligned(name, t)

@@ -6,7 +6,8 @@ passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
 for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
 conv module k 3 to 31, SAME and causal, lengths 0, 1 and full; for K2's
 and K3's launches, bf16, fp32 and the WMMA ones, the dropout at rate 0.1
-(0.5 for two fp32 cases) and its Philox mask; FeedForward's width route;
+(0.5 for two fp32 cases) and its Philox mask; K2's fp32 launches at N 1 to
+4097, widths 32 to 512 and F 128 to 2048; FeedForward's width route;
 K3's fp32 kernels at T 1 to 468, Dh 32 to 128, chunk masks and rates 0,
 0.1 and 0.5, and their route by Dh.
 Gradients are held to the plain versions' autograd gradients.
@@ -62,14 +63,20 @@ def test_fused_ffn(gen, dtype, n, d, f, d2):
     assert _rel(out, ffn.fused_ffn_plain(*args)) <= TOL[dtype]
 
 
-def _kernel_names(call):
-    """Names of the port's kernels that call() launches (torch.profiler)."""
+def _kernel_names(call, windows=3):
+    """Names of the port's kernels that call() launches (torch.profiler), over
+    ``windows`` profiled calls: on the card the profiler has been seen to
+    drop some or all of a short window's launches, so one window can miss a
+    kernel that ran, never show one that did not."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
+    names = set()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages() if "espnet" in e.key})
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages() if "espnet" in e.key}
+    return sorted(names)
 
 
 @pytest.mark.parametrize("n,d,f,d2", [
@@ -633,8 +640,8 @@ def test_rel_flash_attention_dropout_bf16(gen, t, dh, chunk):
         assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
 
 
-# K2's fp32 launches and K3's fp32 launches (the register micro-tile
-# kernels) at the widths the default ASRConfig gives them (d_model 256,
+# K2's fp32 launches (ffn_f32) and K3's fp32 launches (the register
+# micro-tile kernels) at the widths the default ASRConfig gives them (d_model 256,
 # d_ff 2048, Dh 64), and K3's WMMA launches in bf16 at Dh 128; one case
 # each at rate 0.5, where a wrong mask moves the output far outside the
 # tolerance.
@@ -655,15 +662,16 @@ def _wmma_drop_case(gen, kernel, dtype, dh, rate, direction, seed):
         if direction == "fwd":
             return (lambda: (ffn._launch_fwd(*args, seed, rate),),
                     (ffn.fused_ffn_plain(*args, seed, dropout_rate=rate),),
-                    ("out",), ("ffn_fwd_kernel<float, 32, 32, true>",))
+                    ("out",), ("ffn_f32::hidden_kernel<true>",
+                               "ffn_f32::out_kernel("))
         x, w1, b1, w2, _ = args
         g = r(n, d).to(dtype)
         return (lambda: ffn._launch_bwd(x, w1, b1, w2, g, seed, rate),
                 ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
                                         dropout_rate=rate),
                 ("dx", "dw1", "db1", "dw2", "db2"),
-                ("ffn_bwd_dx_kernel<float, 16, 32, true>",
-                 "ffn_bwd_dw_kernel<float, 16, 32, true>"))
+                ("ffn_f32::rows_kernel<true>", "ffn_f32::dx_kernel(",
+                 "ffn_f32::dw_kernel("))
     t = 129
     args = [a.to(dtype) if a.is_floating_point() else a
             for a in _attention_case(gen, t, dh)]
@@ -734,17 +742,183 @@ def test_draw_seed_takes_a_cpu_generator_for_the_card(gen):
     assert b.device.type == "cuda" and tuple(b.shape) == (1,)
 
 
+# K2's fp32 launches at N around the 128-row tile (one row, ragged on both
+# sides, many tiles), D = D2 from 32 to 512 and F from one 128-column tile
+# to the default ASRConfig's 2048, at rate 0 and at DROP_RATE.
+F32_FFN_N = (1, 127, 129, 4097)
+F32_FFN_D = (32, 64, 256, 512)
+F32_FFN_F = (128, 1024, 2048)
+
+
+def _ffn_f32_case(gen, n, d, f, d2):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    return ((r(n, d), r(d, f) * d ** -0.5, r(f) * 0.1, r(f, d2) * f ** -0.5,
+             r(d2) * 0.1), r(n, d2))
+
+
+def _hold_ffn_f32(args, g, rate):
+    """The fp32 launches both ways at ``rate`` against fused_ffn_plain /
+    fused_ffn_bwd_plain with the same seed: every output within TOL of max
+    |ref| (gradients floored at 1e-3)."""
+    seed = _drop_seed() if rate else None
+    x, w1, b1, w2, _ = args
+    got = (ffn._launch_fwd(*args, seed, rate),
+           *ffn._launch_bwd(x, w1, b1, w2, g, seed, rate))
+    refs = (ffn.fused_ffn_plain(*args, seed, dropout_rate=rate),
+            *ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
+                                     dropout_rate=rate))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dx", "dw1", "db1", "dw2", "db2"), got,
+                          refs):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        floor = 1e-30 if name == "out" else 1e-3
+        assert _rel(a, b, floor=floor) <= TOL[torch.float32], name
+
+
+@pytest.mark.parametrize("rate", [0.0, DROP_RATE])
+@pytest.mark.parametrize("f", F32_FFN_F)
+@pytest.mark.parametrize("d", F32_FFN_D)
+@pytest.mark.parametrize("n", F32_FFN_N)
+def test_fused_ffn_fp32_launches(gen, n, d, f, rate):
+    """K2's fp32 launches (ffn_f32, D2 = D) against the plain versions at
+    rate 0 and DROP_RATE with the same seed, within TOL."""
+    _hold_ffn_f32(*_ffn_f32_case(gen, n, d, f, d), rate)
+
+
+@pytest.mark.parametrize("n,d,f,d2", [
+    # D != D2, F ragged against the 128-column tile (160, 96) and the
+    # 64-column rows tile (96), widths that are not powers of two (48)
+    (129, 48, 160, 32), (300, 64, 96, 512), (4097, 512, 160, 48),
+    (200, 256, 2048, 64)])
+@pytest.mark.parametrize("rate", [0.0, DROP_RATE])
+def test_fused_ffn_fp32_uneven_widths(gen, n, d, f, d2, rate):
+    """The fp32 launches at uneven widths, within TOL of the plain versions;
+    every launch by its profiler name (hidden and out forward, rows, dx and
+    dw backward; the dropout instantiations at a rate above 0)."""
+    args, g = _ffn_f32_case(gen, n, d, f, d2)
+    _hold_ffn_f32(args, g, rate)
+    seed = _drop_seed() if rate else None
+    x, w1, b1, w2, _ = args
+    names = _kernel_names(lambda: (ffn._launch_fwd(*args, seed, rate),
+                                   ffn._launch_bwd(x, w1, b1, w2, g, seed,
+                                                   rate)))
+    flag = "true>" if rate else "false>"
+    for want in ("ffn_f32::hidden_kernel<" + flag, "ffn_f32::out_kernel(",
+                 "ffn_f32::rows_kernel<" + flag, "ffn_f32::dx_kernel(",
+                 "ffn_f32::dw_kernel("):
+        assert any(want in k for k in names), (want, names)
+
+
+@pytest.mark.parametrize("rate", [DROP_RATE, 0.5])
+def test_fused_ffn_fp32_draws_the_philox_mask(gen, rate):
+    """The fp32 forward's hidden launch keeps exactly the elements of
+    ops/kernels/philox.py:keep_mask: with W2 the identity and b2 0, out is
+    the dropped hidden itself (each output one exact product), zero where
+    the mask drops."""
+    from espnet_slurp_tpu_torch.ops.kernels import philox
+    n, d, f = 300, 64, 128
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x, w1, b1 = r(n, d), r(d, f) * d ** -0.5, r(f) * 0.1
+    eye, zero = torch.eye(f, device="cuda"), torch.zeros(f, device="cuda")
+    seed = _drop_seed()
+    out = ffn._launch_fwd(x, w1, b1, eye, zero, seed, rate)
+    torch.cuda.synchronize()
+    keep = philox.keep_mask(seed, rate, n, f)
+    assert torch.equal(out != 0, keep)
+    ref = ffn.fused_ffn_plain(x, w1, b1, eye, zero, seed, dropout_rate=rate)
+    assert _rel(out, ref) <= TOL[torch.float32]
+
+
+def test_fused_ffn_fp32_kernel_info(gen):
+    """Each fp32 launch (hidden and rows at rate 0 and with dropout, out,
+    dx, dw) reports its registers, a static shared-memory ring, no local
+    (spill) bytes and at least one block per SM; an unknown index is
+    refused."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    for which in range(7):
+        info = (ctypes.c_int * 4)()
+        assert lib.espnet_fused_ffn_f32_info(which, info) == 0
+        regs, smem, local, blocks = info
+        assert 0 < regs <= 255 and smem > 0 and local == 0 and blocks >= 1
+    assert lib.espnet_fused_ffn_f32_info(7, (ctypes.c_int * 4)()) != 0
+
+
+@pytest.mark.parametrize("n,d,f,d2,want", [
+    # the default ASRConfig's step on 132 SMs: 64 dW tiles x 4 splits fill
+    # 256 of 264 block slots
+    (64 * 468, 256, 2048, 256, 4),
+    # the flagship's widths in fp32: 32 tiles x 8
+    (64 * 468, 256, 1024, 256, 8),
+    # d_model 512: 128 tiles x 2
+    (64 * 468, 512, 2048, 512, 2),
+    # fewer rows than two splits take; narrow widths bound by rows
+    (2 * 150, 256, 2048, 256, 1), (5000, 48, 160, 32, 4),
+    # more tiles than slots
+    (64 * 468, 4096, 4096, 4096, 1)])
+def test_fused_ffn_fp32_dw_splits_fill_the_card(gen, n, d, f, d2, want):
+    """The library's plan of the fp32 dW launch's splits of N on a card of
+    132 SMs, dw_kernel at two blocks an SM: as many as fill the block slots
+    with (dW1 + dW2 tiles) x splits, each split at least 1024 rows, at
+    least one; bad arguments give a negated error code."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    info = (ctypes.c_int * 4)()
+    assert lib.espnet_fused_ffn_f32_info(6, info) == 0
+    assert info[3] == 2
+    got = lib.espnet_fused_ffn_f32_dw_splits(n, d, f, d2, 132)
+    assert got == want
+    tile = lambda a: -(-a // 128)
+    blocks = got * (tile(d) * tile(f) + tile(f) * tile(d2))
+    assert got == 1 or blocks <= 132 * info[3]
+    assert got == 1 or n // got >= 1024
+    assert lib.espnet_fused_ffn_f32_dw_splits(n, d, f, d2, 0) < 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ffn_backward_refuses_a_misaligned_cotangent(gen, dtype):
+    """A cotangent g that starts off a 16-byte boundary (a contiguous view
+    at an odd offset) raises before the backward launches: its loads are
+    16-byte vectors."""
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    x = rnd(256, 64).to(dtype).requires_grad_(True)
+    w1, w2 = (rnd(64, 128) * 0.1).to(dtype), (rnd(128, 64) * 0.1).to(dtype)
+    b1 = torch.zeros(128, device="cuda")
+    b2 = torch.zeros(64, device="cuda")
+    out = ffn.fused_ffn(x, w1, b1, w2, b2)
+    g = torch.ones(out.numel() + 1, dtype=dtype, device="cuda")[1:]
+    g = g.view_as(out)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    with pytest.raises(ValueError, match="g must start on a 16-byte"):
+        out.backward(g)
+
+
+def test_fused_ffn_fp32_takes_what_its_launches_take(gen):
+    """fused_ffn_takes in fp32: D and D2 multiples of 16 and F of 32, any
+    width (d_model 512 / d_ff 2048 too); F 80 and D 40 refused."""
+    f32 = torch.float32
+    assert ffn.fused_ffn_takes(29952, 256, 2048, 256, f32)
+    assert ffn.fused_ffn_takes(1, 512, 2048, 512, f32)
+    assert ffn.fused_ffn_takes(100, 48, 160, 16, f32)
+    assert not ffn.fused_ffn_takes(8, 64, 80, 64, f32)
+    assert not ffn.fused_ffn_takes(8, 40, 128, 64, f32)
+    assert not ffn.fused_ffn_takes(8, 64, 128, 40, f32)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d,f,routes", [
-    (512, 2048, {torch.bfloat16: "eager", torch.float32: "eager"}),
+    (512, 2048, {torch.bfloat16: "eager", torch.float32: "K2"}),
     (256, 1024, {torch.bfloat16: "K2", torch.float32: "K2"}),
     (48, 128, {torch.bfloat16: "eager", torch.float32: "K2"})])
 def test_feedforward_routes_by_width(gen, dtype, d, f, routes):
     """models/conformer.py:FeedForward asks fused_ffn_takes before any
     launch: d_model 512 / d_ff 2048 (bench.py's 17 x 512 config) takes the
-    eager route in both dtypes (bf16: output width 512 has no register
-    tile; fp32: 281,088 B of shared memory), D2 48 in bf16 too; the
-    flagship's widths take K2. Forward and backward within TOL of the plain
+    eager route in bf16 (output width 512 has no register tile) and K2 in
+    fp32 (its launches take any width whose multiples fit), D2 48 the
+    eager route in bf16 too; the flagship's widths take K2. Forward and backward within TOL of the plain
     version's autograd on the same weights."""
     from espnet_slurp_tpu_torch.models.conformer import FeedForward
     torch.manual_seed(0)

@@ -17,7 +17,8 @@ to the masked plain version's autograd; the CPU wrapper with a seed to the
 kernels' Philox mask (ops/kernels/philox.py); FeedForward's kernel and
 eager routes at dropout. At the fp32 route's widths (d_ff 2048) both plain
 versions are held to jax.vjp of the reference's unfused composition with
-the Philox mask.
+the Philox mask. ``build.check_aligned``, which refuses an operand off a
+16-byte boundary before any launch, at offsets of a contiguous view.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from espnet_slurp_tpu.ops.pallas.ffn import _hidden as jax_ffn_hidden
 from espnet_slurp_tpu.ops.pallas.ffn import fused_ffn as jax_fused_ffn
 from espnet_slurp_tpu_torch.models.conformer import FeedForward
 from espnet_slurp_tpu_torch.ops.kernels import philox
+from espnet_slurp_tpu_torch.ops.kernels import build
 from espnet_slurp_tpu_torch.ops.kernels.ffn import (fused_ffn,
                                                      fused_ffn_bwd_plain,
                                                      fused_ffn_plain)
@@ -331,3 +333,21 @@ def test_plain_at_the_fp32_route_widths_matches_an_unfused_composition(
         r = np.asarray(r)
         err = float(np.abs(a.numpy() - r).max() / np.abs(r).max())
         assert err <= 1e-5, f"output {i}: {err:.3e}"
+
+
+@pytest.mark.parametrize("offset,refused", [
+    (0, False), (1, True), (2, True), (3, True), (4, False), (6, True)])
+def test_check_aligned_refuses_views_off_16_bytes(offset, refused):
+    """build.check_aligned, which every K2 launch's operands pass (the
+    backward's cotangent g too): a contiguous fp32 view that starts
+    ``offset`` floats into its storage is refused unless it starts on a
+    16-byte boundary."""
+    base = torch.zeros(64, 16)
+    assert base.data_ptr() % 16 == 0
+    view = base.view(-1)[offset:offset + 32 * 16].view(32, 16)
+    assert view.is_contiguous()
+    if refused:
+        with pytest.raises(ValueError, match="g must start on a 16-byte"):
+            build.check_aligned("g", view)
+    else:
+        build.check_aligned("g", view)
