@@ -9,8 +9,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
    compiler's register report and the blocks per SM of K3's bf16 and fp32
    forward, dkv and dq kernels and of K2's bf16 forward kernel printed, and
-   K2's fp32 kernels' registers, shared and local (spill) bytes and blocks
-   per SM.
+   K2's and K4's fp32 kernels' registers, shared and local (spill) bytes
+   and blocks per SM.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -29,8 +29,10 @@ or the port's package is not beside it. Phases, each of which fails the run:
    also held to fused_ffn_plain (the same rounding points) within
    BWD_PLAIN_TOL, shown by torch.profiler to launch the register-resident
    ffn_fwd::fwd_kernel (with its reduction where F is split across
-   blocks), and timed as its launch alone beside its device time; the same
-   at the flagship and transducer train shapes in phases 4 and 7.
+   blocks), and timed as its launch alone beside its device time and the
+   eager bf16 composition it replaces (F.linear -> F.silu -> F.dropout ->
+   F.linear); the same at the flagship and transducer train shapes in
+   phases 4 and 7.
 3. The slice: a flagship-width Speech2Text (random weights from a seeded
    torch.Generator) decodes 8 synthetic 15 s utterances with beam 10,
    pre-beam 30, ctc_weight 0.3, max_len 96 (the traffic of bench.py). The
@@ -56,7 +58,10 @@ or the port's package is not beside it. Phases, each of which fails the run:
    get bounds of their own. K4's bf16 backward likewise: held to
    fused_ctc_head_emit_bwd_plain within BWD_PLAIN_TOL, its rows, dx and dw
    launches checked by name in torch.profiler and printed with their
-   device times and what one call adds to peak memory. K3's bf16 forward
+   device times and what one call adds to peak memory. K2's bf16 backward
+   and K4 both ways are also timed beside the eager bf16 composition of
+   their function (K2: F.linear -> F.silu -> F.dropout -> F.linear; K4:
+   F.linear -> log_softmax -> gather; autograd's backward). K3's bf16 forward
    is held on every row as in phase 2 and timed beside its plain version,
    SDPA over the precomputed bias and its bound at this shape.
 5. The train slice: a flagship ASRModel (fp32 parameters, bf16 compute,
@@ -137,11 +142,18 @@ or the port's package is not beside it. Phases, each of which fails the run:
    its registers, local bytes and blocks per SM); each direction timed
    beside its plain version (K2 also beside the eager fp32 composition it
    replaces, F.linear -> F.silu -> F.dropout -> F.linear; K3 beside SDPA
-   over the precomputed bias). Then K4's fp32 route (ctc_head_fwd_kernel,
-   ctc_head_dx_kernel, ctc_head_dw_kernel <float>; B 64, T', D 256, V
-   5000) against its plain version within 1e-4, its launches' device
-   times, each direction timed beside its plain version, its fp32 bound
-   and F.ctc_loss over a log-softmax of the same projection.
+   over the precomputed bias). Then K4's fp32 route (ctc_head_f32's
+   lse_kernel and gather_kernel forward, rows_kernel, dx_kernel and
+   dw_kernel backward, on the fp32 GEMM mainloop; B 64, T', D 256, V 5000)
+   against its plain version within 1e-4 both ways; the five launches by
+   profiler name (the first version's ctc_head_fwd_kernel<float>,
+   ctc_head_dx_kernel and ctc_head_dw_kernel absent) with the library's
+   plan, each launch's device time, bound, registers, shared bytes and
+   blocks per SM; each direction timed beside its plain version, its fp32
+   bound and the eager fp32 composition of its function (F.linear ->
+   log_softmax -> gather; autograd's backward), F.ctc_loss over a
+   log-softmax of the same projection (K4 and K1) as a note, and what one
+   backward call adds to peak memory.
 13. The default ASRConfig() (fp32 compute, dropout 0.1, d_ff 2048, 12 x
    256, 6-block decoder, SpecAug on, seeded random weights) through
    make_train_step with Adam at constant lr 1e-3 on phase 5's traffic: one
@@ -286,6 +298,47 @@ def rel_err(out, ref):
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
 
 
+def ffn_eager_ms(torch, args, g=None, rate=0.0, warmup=3, reps=25):
+    """The eager composition K2 replaces, F.linear -> F.silu -> F.dropout
+    -> F.linear (nn.Linear's weight layout), in x's dtype at dropout
+    ``rate``: its forward's time (CUDA events; with autograd's graph when a
+    cotangent g is given) and autograd's backward's (None without g)."""
+    import torch.nn.functional as F
+    x, w1, b1, w2, b2 = args
+    leaves = [a.detach().clone().to(x.dtype).requires_grad_(g is not None)
+              for a in (x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
+    eager = lambda: F.linear(F.dropout(F.silu(F.linear(
+        leaves[0], leaves[1], leaves[2])), rate, training=True),
+        leaves[3], leaves[4])
+    fwd = median_ms(torch, eager, warmup=warmup, reps=reps)
+    if g is None:
+        return fwd, None
+    y = eager()
+    bwd = median_ms(torch, lambda: torch.autograd.grad(
+        y, leaves, g, retain_graph=True), warmup=warmup, reps=reps)
+    return fwd, bwd
+
+
+def head_eager_ms(torch, args, g, warmup=3, reps=25):
+    """The eager composition of K4's function, F.linear -> log_softmax (in
+    fp32, as the model's unfused CTC branch) -> gather at ext, in hs's
+    dtype with autograd's graph: its forward's time (CUDA events) and
+    autograd's backward's to hs, W and the bias."""
+    import torch.nn.functional as F
+    hs, w, b, ext = args
+    bsz, t, _ = hs.shape
+    leaves = [a.detach().clone().to(hs.dtype).requires_grad_(True)
+              for a in (hs, w, b)]
+    idx = ext.long()[:, None, :].expand(bsz, t, -1)
+    eager = lambda: F.log_softmax(F.linear(*leaves).float(), -1).gather(
+        2, idx)
+    fwd = median_ms(torch, eager, warmup=warmup, reps=reps)
+    y = eager()
+    bwd = median_ms(torch, lambda: torch.autograd.grad(
+        y, leaves, g, retain_graph=True), warmup=warmup, reps=reps)
+    return fwd, bwd
+
+
 def check_ffn(torch, ffn, rows, d, f, gen):
     """K2 against its plain version in bf16 and fp32; returns bf16 inputs
     and the bf16 max abs error."""
@@ -391,15 +444,20 @@ def check_attention_fwd_tiled(torch, fa, args, what):
     return worst
 
 
-def port_kernels_ms(torch, call, n=3, attempts=3, complete=bool):
+def port_kernels_ms(torch, call, n=3, attempts=5, expect=(), complete=None):
     """torch.profiler's device time per launch of each of the port's
     kernels that call() launches, by name, over n calls after one
     unprofiled call. Averaged over the launches the profiler recorded: on
     the card it has been seen to drop some of a window's launches, all of
     one kernel's among them, and once all of a window's (a serving-shape K2
     forward of 0.045 ms), so the count of calls is no divisor and a window
-    whose {name: ms} is not ``complete`` (by default: holds no launch of
-    the port) is profiled again, up to ``attempts`` windows."""
+    whose {name: ms} is not ``complete`` is profiled again, up to
+    ``attempts`` windows. By default a window is complete when it holds a
+    launch of the port and, for each part in ``expect``, a kernel whose
+    name contains it."""
+    if complete is None:
+        complete = lambda got: bool(got) and all(
+            any(part in name for name in got) for part in expect)
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -415,9 +473,10 @@ def port_kernels_ms(torch, call, n=3, attempts=3, complete=bool):
     return got
 
 
-def launched_kernels(torch, call):
-    """Names of the port's kernels that call() launches (torch.profiler)."""
-    return sorted(port_kernels_ms(torch, call))
+def launched_kernels(torch, call, expect=()):
+    """Names of the port's kernels that call() launches (torch.profiler;
+    see port_kernels_ms for ``expect``)."""
+    return sorted(port_kernels_ms(torch, call, expect=expect))
 
 
 def ffn_fwd_detail(torch, ffn, args, what):
@@ -434,9 +493,10 @@ def ffn_fwd_detail(torch, ffn, args, what):
     out = call()
     torch.cuda.synchronize()
     rel = rel_err(out, ffn.fused_ffn_plain(*args))[1]
-    per_kernel = port_kernels_ms(torch, call, n=5)
-    names = sorted(per_kernel)
     splits = build.library().espnet_fused_ffn_fwd_splits(n, d, f, d2)
+    per_kernel = port_kernels_ms(torch, call, n=5, expect=(
+        "ffn_fwd::fwd_kernel<",) + (("reduce_kernel",) if splits > 1 else ()))
+    names = sorted(per_kernel)
     print(f"K2 fused_ffn bfloat16 N={n} {what}: {rel:.3e} of max|ref| "
           f"against fused_ffn_plain (tolerance {BWD_PLAIN_TOL}); F split "
           f"{splits} ways; kernels {names}")
@@ -475,7 +535,7 @@ def attention_fwd_routes(torch, fa, args):
             "rel_flash_fwd_kernel<__nv_bfloat16")
     for (what, xs), w in zip(route_cases(torch, args), want):
         names = launched_kernels(torch, lambda: fa._launch_fwd(
-            *xs, xs[0].shape[-1] ** -0.5, 0, -1))
+            *xs, xs[0].shape[-1] ** -0.5, 0, -1), expect=(w,))
         print(f"K3 forward route, {what}: {names}")
         if len(names) != 1 or w not in names[0]:
             raise AssertionError(f"K3 forward {what} did not launch {w}")
@@ -493,7 +553,7 @@ def attention_bwd_routes(torch, fa, args):
         out, lse = fa._launch_fwd(*xs, scale, 0, -1)
         g = torch.ones_like(out)
         names = launched_kernels(torch, lambda: fa._launch_bwd(
-            *xs, out, lse, g, scale, 0, -1))
+            *xs, out, lse, g, scale, 0, -1), expect=(w,))
         dq = [n for n in names if "dq_kernel" in n]
         print(f"K3 backward route, {what}: {names}")
         if len(dq) != 1 or w not in dq[0]:
@@ -519,8 +579,12 @@ def kernel_phase(torch, t_prime):
     attention_fwd_routes(torch, fa, att_args)
     attention_bwd_routes(torch, fa, att_args)
 
-    # K2: no single PyTorch call computes swish(x W1 + b1) W2 + b2.
+    # K2: no single PyTorch call computes swish(x W1 + b1) W2 + b2; its
+    # yardstick is the eager composition it replaces (no graph, as served).
     k2 = ffn_fwd_detail(torch, ffn, ffn_args, "(serving)")
+    k2_eager_ms = ffn_eager_ms(torch, ffn_args)[0]
+    print(f"K2 fused_ffn bfloat16 N={rows} (serving): eager composition "
+          f"{k2_eager_ms:.4f} ms")
 
     # K3 timings; the yardstick is SDPA over a precomputed additive bias
     # (rel-shifted position scores + mask), the bias build not timed.
@@ -551,7 +615,9 @@ def kernel_phase(torch, t_prime):
              replaces="espnet_slurp_tpu/ops/pallas/ffn.py:128",
              launches=None, max_abs_err=ffn_err, ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None,
+             bound_by=k2["bound_by"], library_ms=k2_eager_ms,
+             library_note="the eager bf16 composition F.linear -> F.silu "
+                          "-> F.dropout -> F.linear at rate 0",
              device_ms=k2["device_ms"], f_splits=k2["splits"]),
         dict(name="rel_flash_attention", route="cuda",
              source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
@@ -652,10 +718,13 @@ def ffn_dropout_detail(torch, ffn, n, d, f, r):
     times = {}
     for rate in (0.0, DROPOUT):
         sd = seed if rate else None
+        flag = "true>" if rate else "false>"
         fwd = port_kernels_ms(torch, lambda: ffn._launch_fwd(*args, sd, rate),
-                              n=5)
+                              n=5, expect=(f"ffn_fwd::fwd_kernel<256, {flag}",))
         bwd = port_kernels_ms(torch, lambda: ffn._launch_bwd(
-            x, w1, b1, w2, g, sd, rate), n=5)
+            x, w1, b1, w2, g, sd, rate), n=5, expect=(
+                f"ffn_bwd::rows_kernel<{flag}", "ffn_bwd::dx_kernel",
+                "ffn_bwd::dw_kernel"))
         times[rate] = {**fwd, **bwd}
     drop_names = sorted(times[DROPOUT])
     print(f"K2 fused_ffn bfloat16 N={n}: launches at dropout {DROPOUT} "
@@ -730,10 +799,14 @@ def attention_dropout_detail(torch, fa, b, h, t, dh, r):
     times = {}
     for rate in (0.0, DROPOUT):
         sd = seed if rate else None
+        flag = "true>" if rate else "false>"
         fwd = port_kernels_ms(torch, lambda: fa._launch_fwd(
-            *args, scale, 0, -1, sd, rate), n=5)
+            *args, scale, 0, -1, sd, rate), n=5, expect=(
+                f"rel_fwd::fwd_kernel<{dh}, {flag}",))
         bwd = port_kernels_ms(torch, lambda: fa._launch_bwd(
-            *args, out, lse, g, scale, 0, -1, sd, rate), n=5)
+            *args, out, lse, g, scale, 0, -1, sd, rate), n=5, expect=(
+                f"rel_dkv::dkv_kernel<{dh}, {flag}",
+                f"rel_dq::dq_kernel<{dh}, {flag}"))
         times[rate] = {**fwd, **bwd}
     drop_names = sorted(times[DROPOUT])
     print(f"K3 rel_flash_attention bfloat16 B={b} T={t}: launches at "
@@ -988,24 +1061,20 @@ def check_ffn_bwd(torch, ffn, n, d, f, r):
 
 def launch_detail(torch, call, kernels):
     """call()'s time (CUDA events), the device time of each of its launches
-    (torch.profiler over 5 calls; kernels maps a label to a part of the
+    (port_kernels_ms over 5 calls; kernels maps a label to a part of the
     kernel's name) and what one call adds to peak memory, in MB."""
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     call()
     torch.cuda.synchronize()
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            call()
-        torch.cuda.synchronize()
+    got = port_kernels_ms(torch, call, n=5, expect=tuple(kernels.values()))
     launch_ms = {}
-    for e in prof.key_averages():
+    for name, ms in got.items():
         for label, part in kernels.items():
-            if part in e.key and e.count:
-                launch_ms[label] = e.self_device_time_total / 1e3 / e.count
+            if part in name:
+                launch_ms[label] = ms
     if set(launch_ms) != set(kernels):
         print("the profiler showed no device time for "
               f"{sorted(set(kernels) - set(launch_ms))}")
@@ -1102,8 +1171,9 @@ def ctc_head_bwd_detail(torch, kh, call, args, n):
     ref = kh.fused_ctc_head_emit_bwd_plain(*args)
     torch.cuda.synchronize()
     rels = [rel_err(a, r)[1] for a, r in zip(got, ref)]
-    names = launched_kernels(torch, call)
     parts = ("rows", "dx", "dw")
+    names = launched_kernels(torch, call, expect=tuple(
+        f"ctc_head_bwd::{p}_kernel" for p in parts))
     print(f"K4 fused_ctc_head_emit backward bfloat16 N={n} against "
           "fused_ctc_head_emit_bwd_plain: " + ", ".join(
               f"{k} {v:.3e}" for k, v in zip(("dhs", "dw", "db"), rels))
@@ -1149,15 +1219,19 @@ def train_kernel_phase(torch, t_prime):
     k2 = ffn_fwd_detail(torch, ffn, args, "(flagship train)")
     plain_ms = median_ms(torch, plain_bwd)
     ms, launch_ms, peak_mb = ffn_bwd_detail(torch, ffn, args, gb, n)
+    k2_eager = ffn_eager_ms(torch, args, gb)
     print(f"K2 fused_ffn backward bfloat16 N={n}: plain composition "
-          f"{plain_ms:.4f} ms in the same call")
+          f"{plain_ms:.4f} ms, eager composition forward {k2_eager[0]:.4f} "
+          f"ms and backward {k2_eager[1]:.4f} ms in the same call")
     bnd = ffn_bounds(n, d, f, d, 2)["bwd"]
     out.append(dict(
         name="fused_ffn_bwd", route="cuda",
         source="espnet_slurp_tpu_torch/csrc/ffn.cu",
         replaces="espnet_slurp_tpu/ops/pallas/ffn.py:206",
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=k2_eager[1],
+        library_note="autograd's backward of the eager bf16 composition "
+                     "F.linear -> F.silu -> F.dropout -> F.linear at rate 0",
         launch_ms=launch_ms, peak_mb=peak_mb))
     del args, gb, x, w1, b1, w2, plain_bwd
 
@@ -1237,6 +1311,11 @@ def train_kernel_phase(torch, t_prime):
             *args))
         plain_bwd_ms = median_ms(torch, plain_bwd)
         del plain_bwd
+        eager_fwd_ms, eager_bwd_ms = head_eager_ms(torch, args, cot)
+        print(f"K4 fused_ctc_head_emit bfloat16 B={b} T={t} V={v}: forward "
+              f"{fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}, eager composition "
+              f"{eager_fwd_ms:.4f}), backward {bwd_ms:.4f} ms (plain "
+              f"{plain_bwd_ms:.4f}, eager composition {eager_bwd_ms:.4f})")
         fbound = bound(2.0 * n * d * v,
                        2 * n * d + 2 * d * v + 4 * v + 4 * b * s
                        + 4 * n * s + 4 * n)
@@ -1245,17 +1324,21 @@ def train_kernel_phase(torch, t_prime):
                        + 4 * n * s + 2 * n * d + 2 * d * v + 4 * v)
         common = dict(route="cuda",
                       source="espnet_slurp_tpu_torch/csrc/ctc_head.cu",
-                      launches=None, library_ms=None)
+                      launches=None,
+                      library_note="the eager bf16 composition F.linear -> "
+                                   "log_softmax (fp32) -> gather (autograd's "
+                                   "backward)")
         out.append(dict(name="fused_ctc_head_emit",
                         replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:160",
                         max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
-                        bound_ms=fbound[0], bound_by=fbound[1], **common))
+                        bound_ms=fbound[0], bound_by=fbound[1],
+                        library_ms=eager_fwd_ms, **common))
         out.append(dict(name="fused_ctc_head_emit_bwd",
                         replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:179",
                         max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
                         bound_ms=bbound[0], bound_by=bbound[1],
-                        launch_ms=head_launch_ms, peak_mb=head_peak_mb,
-                        **common))
+                        library_ms=eager_bwd_ms, launch_ms=head_launch_ms,
+                        peak_mb=head_peak_mb, **common))
     del hs0, w0, o, g, ro, rg
 
     # K1: emissions of log-softmaxed random logits, ragged T' and U.
@@ -1309,8 +1392,9 @@ def train_kernel_phase(torch, t_prime):
                     library_note="F.ctc_loss backward to [T', B, V] "
                                  "log-probs", **common))
     return out, {
-        "fused_ffn": {f"{k}_at_train_shape": k2[k] for k in (
+        "fused_ffn": {**{f"{k}_at_train_shape": k2[k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "splits")},
+            "library_ms_at_train_shape": k2_eager[0]},
         "rel_flash_attention": dict(
             ms_at_train_shape=att_fwd_ms,
             bound_ms_at_train_shape=att_fwd_bound[0],
@@ -1958,7 +2042,6 @@ def ffn_fp32_launches(torch, ffn, n, d, f, r):
     (F.linear -> F.silu -> F.dropout -> F.linear, no TF32; forward, and
     autograd's backward). Returns the two kernels-line entries. The inputs
     are bin/time_kernels.py's fp32 case at these widths."""
-    import torch.nn.functional as F
     from espnet_slurp_tpu_torch.bin.time_kernels import ffn_wmma_inputs
     from espnet_slurp_tpu_torch.ops.kernels import build
 
@@ -2026,18 +2109,9 @@ def ffn_fp32_launches(torch, ffn, n, d, f, r):
         *args, seed, dropout_rate=DROPOUT), warmup=1, reps=5)
     plain_b = median_ms(torch, lambda: ffn.fused_ffn_bwd_plain(
         x, w1, b1, w2, g, seed, dropout_rate=DROPOUT), warmup=1, reps=5)
-    # The eager composition FeedForward's eager route runs (nn.Linear's
-    # weight layout), with autograd's graph, as in training.
-    leaves = [a.detach().clone().requires_grad_(True)
-              for a in (x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
-    eager = lambda: F.linear(F.dropout(F.silu(F.linear(
-        leaves[0], leaves[1], leaves[2])), DROPOUT, training=True),
-        leaves[3], leaves[4])
-    eager_f = median_ms(torch, eager, warmup=1, reps=5)
-    y = eager()
-    eager_b = median_ms(torch, lambda: torch.autograd.grad(
-        y, leaves, g, retain_graph=True), warmup=1, reps=5)
-    del y, leaves
+    # The eager composition FeedForward's eager route runs, with autograd's
+    # graph, as in training.
+    eager_f, eager_b = ffn_eager_ms(torch, args, g, DROPOUT, warmup=1, reps=5)
     print(f"K2 fused_ffn float32 N={n} F={f} at dropout {DROPOUT}: forward "
           f"{ms_f:.4f} ms (plain {plain_f:.4f}, eager composition "
           f"{eager_f:.4f}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, "
@@ -2067,16 +2141,69 @@ def ffn_fp32_launches(torch, ffn, n, d, f, r):
     ]
 
 
+# K4's fp32 launches (csrc/ctc_head.cu, ctc_head_f32, on csrc/sgemm.cuh) by
+# profiler name, in the order of espnet_ctc_head_f32_info's `which`, and
+# their direction; the first version's fp32 kernels, which must not launch.
+K4_F32_LAUNCHES = {"ctc_head_f32::lse_kernel": "fwd",
+                   "ctc_head_f32::gather_kernel": "fwd",
+                   "ctc_head_f32::rows_kernel": "bwd",
+                   "ctc_head_f32::dx_kernel": "bwd",
+                   "ctc_head_f32::dw_kernel": "bwd"}
+K4_F32_GONE = ("ctc_head_fwd_kernel<float", "ctc_head_dx_kernel",
+               "ctc_head_dw_kernel")
+
+
+def ctc_head_f32_info():
+    """{kernel: (registers, shared bytes, local bytes, blocks per SM)} of
+    K4's fp32 launches, from the built library."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    out = {}
+    for which, k in enumerate(K4_F32_LAUNCHES):
+        buf = (ctypes.c_int * 4)()
+        build.check(build.library().espnet_ctc_head_f32_info(which, buf),
+                    "fused_ctc_head_emit fp32 kernel info")
+        out[k] = tuple(buf)
+    return out
+
+
+def ctc_head_f32_launch_bounds(b, t, d, v, s, plan):
+    """Bound (ms, by) of each fp32 launch: its own products (fp32 operands)
+    and the bytes it must move: lse's (max, sum) pairs, the dlg scratch [N,
+    V rounded up to 4] and the dbias and dW partials included."""
+    n, (vs, nsplit) = b * t, plan
+    vp, parts = -(-v // 4) * 4, -(-n // 128)
+    proj = 2.0 * n * d * v
+    return {
+        "ctc_head_f32::lse_kernel": bound(
+            proj, 4 * (n * d + d * v + v) + 8 * vs * n, PEAK_FP32_FLOPS),
+        "ctc_head_f32::gather_kernel": bound(
+            2.0 * n * d * s, 4 * (n * d + d * v + v + b * s + n * s + n)
+            + 8 * vs * n, PEAK_FP32_FLOPS),
+        "ctc_head_f32::rows_kernel": bound(
+            proj, 4 * (n * d + d * v + v + b * s + 2 * n + n * s + n * vp
+                       + parts * v), PEAK_FP32_FLOPS),
+        "ctc_head_f32::dx_kernel": bound(
+            proj, 4 * (n * vp + d * v + n * d), PEAK_FP32_FLOPS),
+        "ctc_head_f32::dw_kernel": bound(
+            proj, 4 * (n * vp + n * d + nsplit * v * d), PEAK_FP32_FLOPS),
+    }
+
+
 def ctc_head_fp32(torch, kh, t_prime, r, gen):
-    """K4's fp32 route (ctc_head_fwd_kernel, ctc_head_dx_kernel and
-    ctc_head_dw_kernel <float>; the default ASRConfig's) at the flagship
-    train shape (B 64, T', D 256, V 5000, U 64, blanks between labels):
-    forward and backward against its plain version's output and autograd
-    gradients within TOL["float32"] of max |ref|; the launches by profiler
-    name with their device times; each direction timed (CUDA events)
-    beside its plain version, its fp32 bound and F.ctc_loss over a
-    log-softmax of the same projection (forward, and autograd's backward
-    to hs, W and the bias). Returns the two kernels-line entries."""
+    """K4's fp32 route (ctc_head_f32: lse and gather forward, rows, dx and
+    dw backward, on csrc/sgemm.cuh's mainloop; the default ASRConfig's) at
+    the flagship train shape (B 64, T', D 256, V 5000, U 64, blanks between
+    labels): forward and backward against its plain version's output and
+    autograd gradients within TOL["float32"] of max |ref|; the five launches
+    by profiler name (the first version's fp32 kernels absent) with the
+    library's plan, each launch's device time, bound, registers, shared
+    bytes and blocks per SM; each direction timed (CUDA events) beside its
+    plain version, its fp32 bound and the eager composition of its function
+    (F.linear -> log_softmax -> gather, and autograd's backward of it to hs,
+    W and the bias), with F.ctc_loss over a log-softmax of the same
+    projection (K4 and K1 together) as a note; what one backward call adds
+    to peak memory. Returns the two kernels-line entries."""
     import torch.nn.functional as F
     from espnet_slurp_tpu_torch.models.asr_model import flagship_config
     from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
@@ -2100,29 +2227,52 @@ def ctc_head_fp32(torch, kh, t_prime, r, gen):
     _, z = kh._launch_fwd(*args)
     fwd = lambda: kh._launch_fwd(*args)
     bwd = lambda: kh._launch_bwd(hs, w, bias, ext, z, cot)
-    kernels = ("ctc_head_fwd_kernel<float,", "ctc_head_dx_kernel<float,",
-               "ctc_head_dw_kernel<float,")
-    got = port_kernels_ms(torch, lambda: (fwd(), bwd()), n=3)
-    dev = {}
-    for k in kernels:
+    plan = kh._f32_plan(n, d, v, hs.device)
+    got = port_kernels_ms(torch, lambda: (fwd(), bwd()), n=3, complete=lambda
+                          got: all(any(k in name for name in got)
+                                   for k in K4_F32_LAUNCHES))
+    gone = sorted(name for name in got if any(x in name for x in K4_F32_GONE))
+    if gone:
+        raise AssertionError(f"K4 fp32 launched the first version's {gone}")
+    info, lb = ctc_head_f32_info(), ctc_head_f32_launch_bounds(b, t, d, v, s,
+                                                               plan)
+    launches = {}
+    for k in K4_F32_LAUNCHES:
         hit = [ms for name, ms in got.items() if k in name]
         if len(hit) != 1:
             raise AssertionError(f"K4 fp32: {k} not launched: {sorted(got)}")
-        dev[k.split("<")[0]] = hit[0]
+        regs, smem, local, blocks = info[k]
+        launches[k] = dict(device_ms=hit[0], bound_ms=lb[k][0],
+                           bound_by=lb[k][1], registers=regs,
+                           smem_bytes=smem, local_bytes=local,
+                           blocks_per_sm=blocks)
+        print(f"K4 fp32 launch {k}: device {hit[0]:.4f} ms; bound "
+              f"{lb[k][0]:.4f} ms ({lb[k][1]}), {100 * lb[k][0] / hit[0]:.1f}% "
+              f"of it; registers {regs}, {smem} B of shared memory, local "
+              f"bytes {local}, blocks per SM {blocks}")
+    dev = {p: sum(x["device_ms"] for k, x in launches.items()
+                  if K4_F32_LAUNCHES[k] == p) for p in ("fwd", "bwd")}
     ms_f = median_ms(torch, fwd, warmup=1, reps=5)
     ms_b = median_ms(torch, bwd, warmup=1, reps=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bwd()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
     plain_f = median_ms(torch, lambda: kh.fused_ctc_head_emit_plain(*args),
                         warmup=1, reps=5)
     plain_b = median_ms(torch, plain_bwd, warmup=1, reps=5)
     del plain_bwd
+    eager_f, eager_b = head_eager_ms(torch, args, cot, warmup=1, reps=5)
     tlen = torch.full((b,), t, dtype=torch.long, device="cuda")
     leaves = [a.detach().clone().requires_grad_(True) for a in (hs, w, bias)]
     ctc = lambda: F.ctc_loss(F.log_softmax(F.linear(*leaves), -1)
                              .transpose(0, 1), labels, tlen, ulen, blank=0,
                              reduction="none", zero_infinity=True)
-    lib_f = median_ms(torch, ctc, warmup=1, reps=5)
+    ctc_f = median_ms(torch, ctc, warmup=1, reps=5)
     loss = ctc()
-    lib_b = median_ms(torch, lambda: torch.autograd.grad(
+    ctc_b = median_ms(torch, lambda: torch.autograd.grad(
         loss, leaves, torch.ones_like(loss), retain_graph=True),
         warmup=1, reps=5)
     del loss, leaves
@@ -2132,29 +2282,41 @@ def ctc_head_fp32(torch, kh, t_prime, r, gen):
     bbound = bound(6.0 * n * d * v, 4 * (2 * n * d + 2 * d * v + 2 * v
                                          + n * s + n) + 4 * b * s,
                    PEAK_FP32_FLOPS)
-    print(f"K4 fused_ctc_head_emit float32 B={b} T={t} V={v}: forward "
-          f"{ms_f:.4f} ms (plain {plain_f:.4f}, F.ctc_loss over a "
-          f"log-softmax {lib_f:.4f}; bound {fbound[0]:.4f} ms by "
-          f"{fbound[1]}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, "
-          f"F.ctc_loss backward {lib_b:.4f}; bound {bbound[0]:.4f} ms by "
-          f"{bbound[1]}); device ms a launch "
-          + ", ".join(f"{k} {ms:.4f}" for k, ms in dev.items()))
+    print(f"K4 fused_ctc_head_emit float32 B={b} T={t} V={v}: plan {plan} "
+          f"(lse's V splits, dW splits); forward "
+          f"{ms_f:.4f} ms, device {dev['fwd']:.4f} (plain {plain_f:.4f}, "
+          f"eager composition {eager_f:.4f}; bound {fbound[0]:.4f} ms by "
+          f"{fbound[1]}, {100 * fbound[0] / dev['fwd']:.1f}% of it), backward "
+          f"{ms_b:.4f} ms, device {dev['bwd']:.4f} (plain {plain_b:.4f}, "
+          f"eager composition {eager_b:.4f}; bound {bbound[0]:.4f} ms by "
+          f"{bbound[1]}, {100 * bbound[0] / dev['bwd']:.1f}% of it); one "
+          f"backward call adds {peak_mb:.1f} MB at its peak; F.ctc_loss over "
+          f"a log-softmax of the projection (K4 and K1) {ctc_f:.4f} / "
+          f"{ctc_b:.4f} ms")
     common = dict(route="cuda", source="espnet_slurp_tpu_torch/csrc/ctc_head.cu",
                   launches=None, dtype="float32",
-                  shape=f"B {b}, T {t}, D {d}, V {v}, S {s}",
-                  library_note="F.ctc_loss over log_softmax(hs W^T + b): the "
-                               "projection, the softmax and the lattice")
+                  shape=f"B {b}, T {t}, D {d}, V {v}, S {s}", plan=plan,
+                  library_note="the eager fp32 composition F.linear -> "
+                               "log_softmax -> gather (autograd's backward), "
+                               "no TF32",
+                  ctc_loss_note="F.ctc_loss over log_softmax(hs W^T + b): "
+                                "the projection, the softmax and the lattice "
+                                "(K4 and K1)")
+    part = lambda p: {k: x for k, x in launches.items()
+                      if K4_F32_LAUNCHES[k] == p}
     return [
         dict(name="fused_ctc_head_emit_fp32", **common,
              replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:160",
              max_abs_err=err_o, ms=ms_f, plain_ms=plain_f,
-             bound_ms=fbound[0], bound_by=fbound[1], library_ms=lib_f,
-             device_ms={k: v_ for k, v_ in dev.items() if "fwd" in k}),
+             bound_ms=fbound[0], bound_by=fbound[1], library_ms=eager_f,
+             device_ms=dev["fwd"], ctc_loss_ms=ctc_f,
+             launch_detail=part("fwd")),
         dict(name="fused_ctc_head_emit_bwd_fp32", **common,
              replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:179",
              max_abs_err=err_g, ms=ms_b, plain_ms=plain_b,
-             bound_ms=bbound[0], bound_by=bbound[1], library_ms=lib_b,
-             device_ms={k: v_ for k, v_ in dev.items() if "fwd" not in k}),
+             bound_ms=bbound[0], bound_by=bbound[1], library_ms=eager_b,
+             device_ms=dev["bwd"], ctc_loss_ms=ctc_b, peak_mb=peak_mb,
+             launch_detail=part("bwd")),
     ]
 
 
@@ -2375,6 +2537,8 @@ def main() -> int:
           f"{ffn_blocks}")
     print("K2 fp32 kernels (registers, static shared bytes, local bytes, "
           f"blocks per SM; rate 0, dropout): {ffn_f32_info()}")
+    print("K4 fp32 kernels (registers, shared bytes, local bytes, blocks "
+          f"per SM): {ctc_head_f32_info()}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).

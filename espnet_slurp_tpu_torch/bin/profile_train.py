@@ -15,9 +15,10 @@ transducer, 0.1 for ``default``; the recipes train at 0.1), SpecAug on,
 random weights from a seeded torch.Generator; ``--fused-conv`` routes the
 conv modules through kernel K6. The port's make_train_step runs Adam at
 constant lr 1e-3. Runs two warm-up steps, times three more on the host
-clock (each ended by a synchronise), then profiles one with torch.profiler.
-Prints one JSON line: the unprofiled step seconds and audio-seconds per
-second; for the profiled step its wall, device busy time (sum of kernel
+clock (each ended by a synchronise), then profiles one with
+torch.profiler. Prints one JSON line: the unprofiled step seconds and
+audio-seconds per second, the peak device memory of those steps; for the
+profiled step its wall, device busy time (sum of kernel
 times) and idle share, kernel launches, host and device milliseconds of the
 train_step.{forward,backward,update} ranges (the backward's kernels run on
 the autograd thread, so its device time is the busy time the other two
@@ -115,12 +116,14 @@ def main() -> None:
     for _ in range(2):
         state, st = step(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         state, st = step(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -160,6 +163,7 @@ def main() -> None:
         "step_s": step_s,
         "steps_s": times,
         "audio_s_per_s": B * SECONDS / step_s,
+        "peak_mb": peak_mb,
         "loss": float(st["loss"]),
         "profiled_wall_s": wall,
         "device_busy_ms": busy_ms,

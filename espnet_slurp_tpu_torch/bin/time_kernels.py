@@ -2,10 +2,12 @@
 or with ``--wmma`` the launches of the default ASRConfig's fp32 path (K2's
 register-tiled GEMM ones, ffn_f32::hidden_kernel and out_kernel forward,
 rows_kernel, dx_kernel and dw_kernel backward; K3's register micro-tile
-ones) and K3's bf16 WMMA launches.
+ones) and K3's bf16 WMMA launches, or with ``--head-fp32`` K4's fp32 route
+(the default ASRConfig's CTC head) both ways.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
+    python -m espnet_slurp_tpu_torch.bin.time_kernels --head-fp32
 
 bf16, inputs from a seeded torch.Generator. K2's forward (``_launch_fwd``,
 D 256, F 1024) at N = 8 x 471 (serving), 64 x 468 (flagship train step)
@@ -18,15 +20,18 @@ way), all four kept in ``runs_ms``; ``ms_batched``, the median of 5 event
 pairs around 20 back-to-back calls, over 20 (both timers are
 bin/time_attention.py's); ``kernels_ms``, torch.profiler's device time per
 launch of each of the port's kernels over 10 calls, and ``device_ms``,
-their sum (each kernel launches once a call); ``peak_mb``, what one call
-adds to peak memory; ``plain_ms``, the plain composition's time (K2:
-fused_ffn_plain; K4: autograd's backward of fused_ctc_head_emit_plain) by
-the same events. ``--wmma`` instead times, at rate 0 and (``--rate`` above
-0) at that dropout rate, each direction's launches of K2's fp32 route (N
-64 x 468, D 256, d_ff 2048: the default ASRConfig's train step) and of K3
-(B 64, T' 468, key lengths T' - 3 b: fp32 at H 4, Dh 64, the default
-ASRConfig's, through the rel_f32 kernels; bf16 at H 2, Dh 128, through
-the WMMA ones): ``ms`` (the median of two event medians of 3 runs after
+their sum; ``peak_mb``, what one call adds to peak memory; ``plain_ms``,
+the plain composition's time (K2: fused_ffn_plain; K4: autograd's backward
+of fused_ctc_head_emit_plain) by the same events; K4's ``eager_ms``,
+the eager composition of its function (F.linear -> log_softmax -> gather;
+autograd's backward of it). ``--head-fp32`` times K4 the same way in fp32
+at that shape, forward (``_launch_fwd``) and backward, each beside its
+plain version and the eager composition. ``--wmma`` instead times, at rate
+0 and (``--rate`` above 0) at that dropout rate, each direction's launches
+of K2's fp32 route (N 64 x 468, D 256, d_ff 2048: the default ASRConfig's
+train step) and of K3 (B 64, T' 468, key lengths T' - 3 b: fp32 at H 4,
+Dh 64, the default ASRConfig's, through the rel_f32 kernels; bf16 at H 2,
+Dh 128, through the WMMA ones): ``ms`` (the median of two event medians of 3 runs after
 one warm-up) and ``kernels_ms`` / ``device_ms`` (torch.profiler over 5
 calls, by kernel name). Prints one JSON line with the card's name
 and power limit (nvidia-smi) and the kernel modules' paths. To time
@@ -147,9 +152,13 @@ def wmma_timings(gen, rate) -> dict:
     return out
 
 
-def head_case(gen):
-    """K4's backward inputs at the flagship train shape, and the autograd
-    backward of its plain version on them."""
+def head_case(gen, dtype=torch.bfloat16):
+    """K4's inputs at the flagship train shape in ``dtype``: {name: call}
+    of its forward and backward launches (the backward fed the forward's
+    z), the plain version (its forward; autograd's backward of it) and the
+    eager composition F.linear -> log_softmax -> gather (its forward, with
+    autograd's graph as in training; autograd's backward of it)."""
+    import torch.nn.functional as F
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     b, t, s = HEAD_B, HEAD_T, 2 * U + 1
     ext = torch.zeros(b, s, dtype=torch.int32, device="cuda")
@@ -157,15 +166,26 @@ def head_case(gen):
                            dtype=torch.int32)
     labels[:, 1::7] = labels[:, ::7][:, :labels[:, 1::7].shape[1]]
     ext[:, 1::2] = labels
-    bf = torch.bfloat16
-    hs, w, bias = (r(b, t, D) * 0.5).to(bf), (r(V, D) * D ** -0.5).to(bf), \
-        r(V) * 0.1
+    hs, w, bias = (r(b, t, D) * 0.5).to(dtype), \
+        (r(V, D) * D ** -0.5).to(dtype), r(V) * 0.1
     g = r(b, t, s)
     _, z = kh._launch_fwd(hs, w, bias, ext)
     leaves = [x.detach().requires_grad_(True) for x in (hs, w, bias)]
     emit = kh.fused_ctc_head_emit_plain(*leaves, ext)
-    plain = lambda: torch.autograd.grad(emit, leaves, g, retain_graph=True)
-    return (lambda: kh._launch_bwd(hs, w, bias, ext, z, g)), plain
+    idx = ext.long()[:, None, :].expand(b, t, s)
+    lin = [x.detach().clone().requires_grad_(True)
+           for x in (hs, w, bias.to(dtype))]
+    eager = lambda: F.log_softmax(F.linear(*lin).float(), -1).gather(2, idx)
+    y = eager()
+    return {
+        "fwd": lambda: kh._launch_fwd(hs, w, bias, ext),
+        "bwd": lambda: kh._launch_bwd(hs, w, bias, ext, z, g),
+        "plain_fwd": lambda: kh.fused_ctc_head_emit_plain(hs, w, bias, ext),
+        "plain_bwd": lambda: torch.autograd.grad(emit, leaves, g,
+                                                 retain_graph=True),
+        "eager_fwd": eager,
+        "eager_bwd": lambda: torch.autograd.grad(y, lin, g,
+                                                 retain_graph=True)}
 
 
 def main() -> int:
@@ -176,6 +196,8 @@ def main() -> int:
                     "Dh-128 ones instead")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="with --wmma, also time them at this dropout rate")
+    ap.add_argument("--head-fp32", action="store_true",
+                    help="time K4's fp32 route both ways instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -191,6 +213,15 @@ def main() -> int:
         if args.rate > 0:
             result[f"rate_{args.rate}"] = wmma_timings(gen, args.rate)
         return emit(result, args.out)
+    if args.head_fp32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        case = head_case(gen, torch.float32)
+        for way in ("fwd", "bwd"):
+            result[f"ctc_head_fp32_{way}"] = {
+                "B": HEAD_B, "T": HEAD_T, "V": V,
+                **timed(case[way], case[f"plain_{way}"]),
+                "eager_ms": median_ms(case[f"eager_{way}"])}
+        return emit(result, args.out)
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     bf = torch.bfloat16
     w1, b1 = (r(D, F_FF) * D ** -0.5).to(bf), r(F_FF) * 0.1
@@ -200,9 +231,10 @@ def main() -> int:
         result[name] = {"N": n, **timed(
             lambda: ffn._launch_fwd(x, w1, b1, w2, b2),
             lambda: ffn.fused_ffn_plain(x, w1, b1, w2, b2))}
-    call, plain = head_case(gen)
+    case = head_case(gen)
     result["ctc_head_bwd_train"] = {"B": HEAD_B, "T": HEAD_T, "V": V,
-                                    **timed(call, plain)}
+                                    **timed(case["bwd"], case["plain_bwd"]),
+                                    "eager_ms": median_ms(case["eager_bwd"])}
     return emit(result, args.out)
 
 

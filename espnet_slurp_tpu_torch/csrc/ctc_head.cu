@@ -19,53 +19,42 @@
 // composition writes and re-reads fp32 [N, V] logits, softmax and their
 // gradient (~0.6 GB each), which is what the TPU kernel was written to avoid.
 //
-// Design of the forward and of the float32 backward (the simple first
-// version: WMMA tiles staged through shared memory, no pipelining):
-// - forward: one block per (batch row, tile of BM frames). Pass 1 walks V in
-//   chunks of BV rows of W: logits tile in shared memory, online max / sum per
-//   frame. Pass 2 multiplies the frames by the gathered rows W[ext[s]] (a
-//   lane gather is cheap here; the TPU's one-hot product is not needed) and
-//   writes emit. z is saved for the backward, so the backward needs no
-//   logsumexp pass.
-// - backward in float32 (it serves the fp32 card-against-CPU checks), two
-//   kernels that each recompute the logits tile by tile:
-//   dx: one block per (batch row, frame tile), accumulating dhs over the
-//   vocabulary chunks; dw: one block per (vocabulary chunk, row split),
-//   keeping that chunk of W resident and accumulating dW^T / dbias over its
-//   share of the frame tiles into per-split partials that the wrapper sums
-//   (deterministic: no atomics across blocks). Repeated labels add through
-//   shared-memory atomics in the scatter.
-// The bf16 backward is three tensor-core GEMM kernels (ctc_head_bwd below).
+// Two routes by dtype. bf16 (the flagship's training): the forward
+// ctc_head_fwd_kernel below (the simple first version: one block per (batch
+// row, tile of BM frames); pass 1 walks V in chunks of BV rows of W with the
+// logits tile in shared memory and an online max / sum per frame, pass 2
+// multiplies the frames by the gathered rows W[ext[s]] and writes emit; WMMA
+// tiles staged through shared memory, no pipelining) and the tensor-core
+// backward ctc_head_bwd. float32 (the default ASRConfig's training and the
+// fp32 card-against-CPU checks): ctc_head_f32, two forward and three
+// backward launches on the register-tiled fp32 GEMM mainloop of sgemm.cuh.
+// Both save z for the backward, so no backward runs a logsumexp pass.
 //
 // Rounding: the reference rounds the gathered logit (forward) and g before
 // its one-hot scatter (backward) to bf16, artifacts of doing the gather as a
 // matrix product on the TPU; the port gathers and scatters in fp32 (ROADMAP
 // queue 3). dlogits is rounded to the element type before the two products
 // and dbias summed from the unrounded values, as the reference does.
+#include <algorithm>
+
 #include "common.cuh"
 #include "mma_gemm.cuh"
+#include "sgemm.cuh"
 
 namespace espnet {
 
+// Shared-memory layout of the bf16 forward kernel.
 struct HeadLayout {
-  size_t xs, ws, lt, dl, acc, zr, dsum, db, ext, total;
-  __host__ __device__ HeadLayout(int d, int s, int bm, int bv, int esize, bool backward,
-                                 bool dw) {
+  size_t xs, ws, lt, zr, dsum, ext, total;
+  __host__ __device__ HeadLayout(int d, int s, int bm, int bv, int esize) {
     const int p = 16 / esize;
     const size_t row = (size_t)(d + p) * esize;
     xs = 0;
     ws = align128(xs + bm * row);
     lt = align128(ws + bv * row);
-    dl = align128(lt + (size_t)bm * (bv + 4) * 4);
-    // dx: dl is [BM, BV] and acc [BM, D]; dw: dl is [BV, BM] and acc [BV, D].
-    const size_t dl_bytes =
-        backward ? (dw ? (size_t)bv * (bm + p) * esize : (size_t)bm * (bv + p) * esize) : 0;
-    acc = align128(dl + dl_bytes);
-    const size_t acc_bytes = backward ? (size_t)(dw ? bv : bm) * (d + 4) * 4 : 0;
-    zr = align128(acc + acc_bytes);
+    zr = align128(lt + (size_t)bm * (bv + 4) * 4);
     dsum = align128(zr + (size_t)bm * 4);
-    db = align128(dsum + (size_t)bm * 4);
-    ext = align128(db + (size_t)bv * 4);
+    ext = align128(dsum + (size_t)bm * 4);
     total = align128(ext + (size_t)s * 4);
   }
 };
@@ -87,64 +76,6 @@ __device__ void load_gathered(T* s_dst, int lds, const T* w, int d, const int* e
   }
 }
 
-// Loads what every backward tile needs for batch row b, frames t0..t0+BM:
-// the frames, their z, sum_s g, and the row's ext (clamped to [0, V)).
-template <typename T, int BM>
-__device__ void load_bwd_tile(T* xs, int ldx, float* zr, float* dsum, int* exts, const T* hs,
-                              const float* z, const int* ext, const float* g, int b, int t0,
-                              int t, int d, int v, int s_len) {
-  load_rows(xs, ldx, hs + (size_t)b * t * d, d, t0, BM, d, 0, t);
-  for (int i = threadIdx.x; i < s_len; i += blockDim.x) {
-    exts[i] = min(max(ext[(size_t)b * s_len + i], 0), v - 1);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-  for (int r = warp; r < BM; r += nwarps) {
-    const int tt = t0 + r;
-    float sum = 0.0f;
-    if (tt < t) {
-      const float* gr = g + ((size_t)b * t + tt) * s_len;
-      for (int s = lane; s < s_len; s += 32) sum += gr[s];
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      dsum[r] = sum;
-      zr[r] = tt < t ? z[(size_t)b * t + tt] : 0.0f;
-    }
-  }
-  __syncthreads();
-}
-
-// lt <- dlogits of the tile (frames t0.., vocabulary rows v0.. held in ws):
-// scatter(g) - softmax * dsum, zero on frames past T and columns past V.
-template <typename T, int BM, int BV>
-__device__ void head_dlogits(const T* xs, int ldx, const T* ws, int ldw, float* lt, int ldl,
-                             const float* zr, const float* dsum, const int* exts,
-                             const float* bias, const float* g, int b, int t0, int v0, int t,
-                             int d, int v, int s_len) {
-  smem_gemm<true>(xs, ldx, ws, ldw, lt, ldl, BM, BV, d, false);
-  for (int idx = threadIdx.x; idx < BM * BV; idx += blockDim.x) {
-    const int r = idx / BV;
-    const int c = idx - r * BV;
-    float val = 0.0f;
-    if (t0 + r < t && v0 + c < v) {
-      val = -expf(lt[r * ldl + c] + bias[v0 + c] - zr[r]) * dsum[r];
-    }
-    lt[r * ldl + c] = val;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-  for (int r = warp; r < BM; r += nwarps) {
-    const int tt = t0 + r;
-    if (tt >= t) continue;
-    const float* gr = g + ((size_t)b * t + tt) * s_len;
-    for (int s = lane; s < s_len; s += 32) {
-      const int c = exts[s] - v0;
-      if (c >= 0 && c < BV) atomicAdd(&lt[r * ldl + c], gr[s]);
-    }
-  }
-  __syncthreads();
-}
-
 template <typename T, int BM, int BV>
 __global__ void __launch_bounds__(kThreads)
     ctc_head_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ w,
@@ -153,7 +84,7 @@ __global__ void __launch_bounds__(kThreads)
                         int s_len) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int P = pad_of<T>();
-  const HeadLayout L(d, s_len, BM, BV, sizeof(T), false, false);
+  const HeadLayout L(d, s_len, BM, BV, sizeof(T));
   T* xs = reinterpret_cast<T*>(smem + L.xs);
   T* ws = reinterpret_cast<T*>(smem + L.ws);
   float* lt = reinterpret_cast<float*>(smem + L.lt);
@@ -219,110 +150,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BM, int BV>
-__global__ void __launch_bounds__(kThreads)
-    ctc_head_dx_kernel(const T* __restrict__ hs, const T* __restrict__ w,
-                       const float* __restrict__ bias, const int* __restrict__ ext,
-                       const float* __restrict__ z, const float* __restrict__ g,
-                       T* __restrict__ dx, int t, int d, int v, int s_len) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int P = pad_of<T>();
-  const HeadLayout L(d, s_len, BM, BV, sizeof(T), true, false);
-  T* xs = reinterpret_cast<T*>(smem + L.xs);
-  T* ws = reinterpret_cast<T*>(smem + L.ws);
-  float* lt = reinterpret_cast<float*>(smem + L.lt);
-  T* dl = reinterpret_cast<T*>(smem + L.dl);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  float* zr = reinterpret_cast<float*>(smem + L.zr);
-  float* dsum = reinterpret_cast<float*>(smem + L.dsum);
-  int* exts = reinterpret_cast<int*>(smem + L.ext);
-  const int ld = d + P, ldl = BV + 4, ldd = BV + P, ldacc = d + 4;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * BM;
-
-  load_bwd_tile<T, BM>(xs, ld, zr, dsum, exts, hs, z, ext, g, b, t0, t, d, v, s_len);
-  for (int v0 = 0; v0 < v; v0 += BV) {
-    load_rows(ws, ld, w, d, v0, BV, d, 0, v);
-    __syncthreads();
-    head_dlogits<T, BM, BV>(xs, ld, ws, ld, lt, ldl, zr, dsum, exts, bias, g, b, t0, v0, t, d,
-                            v, s_len);
-    for (int idx = threadIdx.x; idx < BM * BV; idx += blockDim.x) {
-      const int r = idx / BV;
-      const int c = idx - r * BV;
-      dl[r * ldd + c] = from_f32<T>(lt[r * ldl + c]);
-    }
-    __syncthreads();
-    smem_gemm<false>(dl, ldd, ws, ld, acc, ldacc, BM, d, BV, v0 > 0);
-  }
-  const int valid = min(BM, t - t0);
-  for (int idx = threadIdx.x; idx < valid * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    dx[((size_t)b * t + t0 + r) * d + c] = from_f32<T>(acc[r * ldacc + c]);
-  }
-}
-
-template <typename T, int BM, int BV>
-__global__ void __launch_bounds__(kThreads)
-    ctc_head_dw_kernel(const T* __restrict__ hs, const T* __restrict__ w,
-                       const float* __restrict__ bias, const int* __restrict__ ext,
-                       const float* __restrict__ z, const float* __restrict__ g,
-                       float* __restrict__ dw_part, float* __restrict__ db_part, int bsz, int t,
-                       int d, int v, int s_len) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int P = pad_of<T>();
-  const HeadLayout L(d, s_len, BM, BV, sizeof(T), true, true);
-  T* xs = reinterpret_cast<T*>(smem + L.xs);
-  T* ws = reinterpret_cast<T*>(smem + L.ws);
-  float* lt = reinterpret_cast<float*>(smem + L.lt);
-  T* dlt = reinterpret_cast<T*>(smem + L.dl);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  float* zr = reinterpret_cast<float*>(smem + L.zr);
-  float* dsum = reinterpret_cast<float*>(smem + L.dsum);
-  float* db = reinterpret_cast<float*>(smem + L.db);
-  int* exts = reinterpret_cast<int*>(smem + L.ext);
-  const int ld = d + P, ldl = BV + 4, lddt = BM + P, ldacc = d + 4;
-  const int v0 = blockIdx.x * BV;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int ntt = (t + BM - 1) / BM;
-
-  for (int idx = threadIdx.x; idx < BV * d; idx += blockDim.x) {
-    acc[(idx / d) * ldacc + idx % d] = 0.0f;
-  }
-  for (int c = threadIdx.x; c < BV; c += blockDim.x) db[c] = 0.0f;
-  load_rows(ws, ld, w, d, v0, BV, d, 0, v);
-  for (int tile = split; tile < bsz * ntt; tile += nsplit) {
-    const int b = tile / ntt;
-    const int t0 = (tile - b * ntt) * BM;
-    __syncthreads();  // the previous tile's readers of xs / exts are done
-    load_bwd_tile<T, BM>(xs, ld, zr, dsum, exts, hs, z, ext, g, b, t0, t, d, v, s_len);
-    head_dlogits<T, BM, BV>(xs, ld, ws, ld, lt, ldl, zr, dsum, exts, bias, g, b, t0, v0, t, d,
-                            v, s_len);
-    for (int idx = threadIdx.x; idx < BM * BV; idx += blockDim.x) {
-      const int c = idx / BM;
-      const int r = idx - c * BM;
-      dlt[c * lddt + r] = from_f32<T>(lt[r * ldl + c]);
-    }
-    for (int c = threadIdx.x; c < BV; c += blockDim.x) {
-      float sum = 0.0f;
-      for (int r = 0; r < BM; ++r) sum += lt[r * ldl + c];
-      db[c] += sum;
-    }
-    __syncthreads();
-    smem_gemm<false>(dlt, lddt, xs, ld, acc, ldacc, BV, d, BM, true);
-  }
-  __syncthreads();
-  const int valid = min(BV, v - v0);
-  float* out = dw_part + ((size_t)split * v + v0) * d;
-  for (int idx = threadIdx.x; idx < valid * d; idx += blockDim.x) {
-    const int c = idx / d;
-    out[idx] = acc[c * ldacc + idx - c * d];
-  }
-  for (int c = threadIdx.x; c < valid; c += blockDim.x) {
-    db_part[(size_t)split * v + v0 + c] = db[c];
-  }
-}
-
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   int dev = 0, max_smem = 0;
@@ -337,33 +164,13 @@ template <typename T, int BM, int BV>
 int launch_head_fwd(const void* hs, const void* w, const float* bias, const int* ext,
                     float* emit, float* z, int b, int t, int d, int v, int s,
                     cudaStream_t stream) {
-  const HeadLayout L(d, s, BM, BV, sizeof(T), false, false);
+  const HeadLayout L(d, s, BM, BV, sizeof(T));
   auto kernel = ctc_head_fwd_kernel<T, BM, BV>;
   if (int err = prepare(kernel, L.total)) return err;
   const dim3 grid((t + BM - 1) / BM, b);
   kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const T*>(hs),
                                               static_cast<const T*>(w), bias, ext, emit, z, t,
                                               d, v, s);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BM, int BV>
-int launch_head_bwd(const void* hs, const void* w, const float* bias, const int* ext,
-                    const float* z, const float* g, void* dx, float* dw_part, float* db_part,
-                    int nsplit, int b, int t, int d, int v, int s, cudaStream_t stream) {
-  const HeadLayout Lx(d, s, BM, BV, sizeof(T), true, false);
-  auto kx = ctc_head_dx_kernel<T, BM, BV>;
-  if (int err = prepare(kx, Lx.total)) return err;
-  kx<<<dim3((t + BM - 1) / BM, b), kThreads, Lx.total, stream>>>(
-      static_cast<const T*>(hs), static_cast<const T*>(w), bias, ext, z, g, static_cast<T*>(dx),
-      t, d, v, s);
-  if (int err = (int)cudaGetLastError()) return err;
-  const HeadLayout Lw(d, s, BM, BV, sizeof(T), true, true);
-  auto kw = ctc_head_dw_kernel<T, BM, BV>;
-  if (int err = prepare(kw, Lw.total)) return err;
-  kw<<<dim3((v + BV - 1) / BV, nsplit), kThreads, Lw.total, stream>>>(
-      static_cast<const T*>(hs), static_cast<const T*>(w), bias, ext, z, g, dw_part, db_part, b,
-      t, d, v, s);
   return (int)cudaGetLastError();
 }
 
@@ -582,6 +389,493 @@ inline int launch(const bf16* hs, const bf16* w, const float* bias, const int* e
 
 }  // namespace ctc_head_bwd
 
+// ---- float32: five launches on the register-tiled fp32 GEMM mainloop -------
+//
+// Replaces espnet_slurp_tpu/ops/pallas/ctc_head.py:_fwd_kernel and
+// _bwd_kernel (the pallas_calls of fused_ctc_head_emit at :160 and :179) in
+// float32: the route of the default ASRConfig's training and of the fp32
+// card-against-CPU checks. Exact fp32 (FMAs, no TF32), the gather and the
+// scatter in fp32, dlg unrounded:
+//   forward   z = logsumexp_v(hs W^T + bias); emit = hs . W[ext] + bias[ext] - z
+//   backward  dlg = scatter_s(g) - exp(hs W^T + bias - z) dsum, dsum = sum_s g;
+//             dhs = dlg W, dW = dlg^T hs, dbias = sum over rows of dlg.
+//
+// Bound: the fp32 units. hs W^T is 2 N D V operations: 76.7 GFLOP at the
+// default ASRConfig's train shape (N = 64 x 468, D 256, V 5000), 1.144 ms at
+// 67 TFLOP/s; the label gather adds 2 N D S (2.0 GFLOP at S 129). The
+// forward is one such product, the backward three (3.43 ms), against ~51 and
+// ~87 MB of compulsory traffic (0.015 and 0.026 ms at 3.35 TB/s).
+//
+// Design: every product is sgemm.cuh's mainloop (128-row block tiles, 8 x 8
+// register micro-tiles of FMAs, a 2-stage ring, one barrier per 16 of K).
+//   lse     grid (N / 128 row tiles, V splits): a block walks its split of V
+//           in 128-column tiles of hs W^T (both operands K-major); after each
+//           tile the thread folds its 8 x 8 logits, bias added, into an
+//           online (max, sum) per row that it keeps beside the ring in
+//           (dynamic) shared memory; at the end the 16 threads of a row
+//           merge theirs (shuffles within a warp, then the two warps
+//           through shared memory) into one (max, sum) per row and split.
+//           The split (espnet_ctc_head_f32_plan) evens out the last wave:
+//           at the default train shape 234 row tiles alone fill 234 of 264
+//           block slots for all 40 V tiles; 10 splits of 4 V tiles run
+//           2,340 blocks in 9 waves (36 tile-times against 40).
+//   gather  grid (utterance x 64-frame tiles, 32-label tiles): z from the
+//           splits' (max, sum) in a fixed order, then emit as fp32 dot
+//           products of the frames with the gathered rows W[ext[b, s]], 4 x 2
+//           outputs a thread over 32-wide steps of D in shared memory (the
+//           TPU's one-hot product is not needed). No [N, V] logits.
+//   rows    grid (V / 128, N / 128): the logits tile again on the same
+//           mainloop; the epilogue forms -exp(lg + bias - z) dsum from the
+//           registers into an fp32 tile in shared memory (zero past N and
+//           V), adds g there by shared atomics for the labels that fall in
+//           the tile (listed once per utterance the tile's rows span, as
+//           ctc_head_bwd::rows_kernel does), then writes the tile to the fp32
+//           scratch dlg [N, VP] with float4 stores (VP = V rounded up to 4,
+//           pad columns zero) and its column sums as one dbias partial per
+//           128-row tile.
+//   dx      (N / 128) x (D / 128) tiles: dlg W, K = V (dlg K-major by
+//           register-staged transposes, W MN-major by cp.async).
+//   dw      grid (V / 128 x D / 128 tiles, splits of N): dlg^T hs, both
+//           operands MN-major (cp.async), fp32 partials per split.
+// Three products for the three the function needs (the first version formed
+// the logits once more for dx and once for dW). The scratch lives for the
+// call (599 MB at the default train shape; the backward runs after the
+// train step's peak of memory and does not raise it: PERF.md, PR 15). The
+// wrapper sums the partials in a fixed order (deterministic: no atomics
+// across blocks; the scatter's shared atomics order only the duplicates of
+// one label in one row).
+
+namespace ctc_head_f32 {
+
+using ctc_head_bwd::cdiv;
+using mma::Major;
+constexpr int BM = sgemm::BM;      // rows of N a block tile; rows of a dbias partial
+constexpr int BN = 128;            // columns of every block tile
+constexpr int LDT = BN + 4;        // rows of the fp32 dlg tile in shared memory
+constexpr int kList = 1024;        // labels of one utterance listed at a time
+constexpr int GR = 64;             // gather: frames a block
+constexpr int GS = 32;             // gather: labels a block
+constexpr int GK = 32;             // gather: D a step
+constexpr int kDwMinRows = 1024;   // rows of N a dW split takes at least
+constexpr int kKernels = 5;
+using Proj = sgemm::Gemm<BN, Major::K, Major::K>;  // hs [N, D] . W [V, D]^T
+using Dx = sgemm::Gemm<BN, Major::K, Major::MN>;   // dlg [N, VP] . W [V, D]
+using Dw = sgemm::Gemm<BN, Major::MN, Major::MN>;  // dlg^T [VP, N] . hs [N, D]
+static_assert(BM == ctc_head_bwd::BT, "one dbias partial per 128 rows in both dtypes");
+static_assert(sgemm::kThreads == 2 * BN && GR * GS == 8 * sgemm::kThreads,
+              "the thread maps of the dbias sums and of the gather");
+// lse's dynamic shared memory: the ring and each thread's (max, sum) pairs.
+constexpr size_t kLseSmem = (Proj::kRingFloats + 2 * Proj::MI * sgemm::kThreads) * sizeof(float);
+// rows' dynamic shared memory: the ring, then (after the products) the dlg
+// tile, the dbias halves, the label count and the label list.
+constexpr size_t kRowsSmem =
+    std::max(Proj::kRingFloats * sizeof(float),
+             (BM * LDT + 2 * BN + 4) * sizeof(float) + kList * sizeof(int2));
+
+// (m, l) <- the pair of (m, l) and (m2, l2), each a max and a sum of exp(x -
+// max); (-inf, 0) is the empty pair.
+__device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2) {
+  const float mm = fmaxf(m, m2);
+  if (mm == -CUDART_INF_F) return;
+  l = l * expf(m - mm) + l2 * expf(m2 - mm);
+  m = mm;
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    lse_kernel(const float* __restrict__ hs, const float* __restrict__ w,
+               const float* __restrict__ bias, float2* __restrict__ part, int n, int d, int v,
+               int vchunk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  // each thread's (max, sum) of its rows
+  auto ml = reinterpret_cast<float2(*)[sgemm::kThreads]>(ring + Proj::kRingFloats);
+  const int tid = threadIdx.x;
+  const long m0 = (long)blockIdx.x * BM;
+  const long v0 = (long)blockIdx.y * vchunk;
+  const long v1 = v0 + vchunk < v ? v0 + vchunk : v;
+#pragma unroll
+  for (int i = 0; i < Proj::MI; ++i) ml[i][tid] = make_float2(-CUDART_INF_F, 0.0f);
+  for (long n0 = v0; n0 < v1; n0 += BN) {
+    Proj::Acc acc;
+    Proj::zero(acc);
+    Proj::run(acc, ring, hs, d, w, d, m0, n0, n, v, 0, d);  // hs [N, D] . W [V, D]^T
+    float bb[Proj::NJ];  // the columns' bias, -inf past V
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < Proj::NJ; ++j) {
+      const long col = n0 + Proj::col(j >> 2) + (j & 3);
+      bb[j] = col < v ? bias[col] : -CUDART_INF_F;
+      any |= col < v;
+    }
+    if (!any) continue;
+#pragma unroll
+    for (int i = 0; i < Proj::MI; ++i) {
+      float mt = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < Proj::NJ; ++j) mt = fmaxf(mt, acc[i][j] + bb[j]);
+      const float2 p = ml[i][tid];
+      const float mm = fmaxf(p.x, mt);
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < Proj::NJ; ++j) s += expf(acc[i][j] + bb[j] - mm);
+      ml[i][tid] = make_float2(mm, p.y * expf(p.x - mm) + s);
+    }
+  }
+  // The 16 threads of a row: the 8 lanes of a warp that share its rows, then
+  // the two warps that do, through shared memory (the ring is free).
+  float2* red = reinterpret_cast<float2*>(ring);  // [BM][2]
+  const int lane = tid & 31, half = (tid >> 5) & 1;
+#pragma unroll
+  for (int i = 0; i < Proj::MI; ++i) {
+    float m = ml[i][tid].x, l = ml[i][tid].y;
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+      lse_merge(m, l, m2, l2);
+    }
+    if ((lane & 7) == 0) red[2 * Proj::row(i) + half] = make_float2(m, l);
+  }
+  __syncthreads();
+  if (tid < BM && m0 + tid < n) {
+    float2 a = red[2 * tid];
+    const float2 c = red[2 * tid + 1];
+    lse_merge(a.x, a.y, c.x, c.y);
+    part[(long)blockIdx.y * n + m0 + tid] = a;
+  }
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads)
+    gather_kernel(const float* __restrict__ hs, const float* __restrict__ w,
+                  const float* __restrict__ bias, const int* __restrict__ ext,
+                  const float2* __restrict__ part, int nsplit, float* __restrict__ emit,
+                  float* __restrict__ z, int n, int t, int d, int v, int s_len) {
+  __shared__ __align__(16) float xs[GR][GK + 4];
+  __shared__ __align__(16) float ws[GS][GK + 4];
+  __shared__ float zr[GR];
+  __shared__ int lab[GS];
+  const int tid = threadIdx.x;
+  const int tiles = (t + GR - 1) / GR;
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * GR;
+  const int s0 = blockIdx.y * GS;
+  const int rows = min(GR, t - t0);
+  const long row0 = (long)b * t + t0;
+  if (tid < GS) {
+    lab[tid] = s0 + tid < s_len ? min(max(ext[(long)b * s_len + s0 + tid], 0), v - 1) : 0;
+  } else if (tid < GS + GR) {  // z of a frame from the V splits, in order
+    const int r = tid - GS;
+    float m = -CUDART_INF_F, l = 0.0f;
+    for (int p = 0; r < rows && p < nsplit; ++p) {
+      const float2 q = part[(long)p * n + row0 + r];
+      lse_merge(m, l, q.x, q.y);
+    }
+    zr[r] = m + logf(l);
+    if (r < rows && blockIdx.y == 0) z[row0 + r] = zr[r];
+  }
+  // Thread (rg, lg) owns frames rg + 16 i (i < 4) and labels lg + 16 j (j <
+  // 2). Frame rows are 36 floats apart, so a warp's float4 loads of 16
+  // labels take two wavefronts and those of its 2 frames one.
+  const int lg = tid & 15, rg = tid >> 4;
+  float acc[4][2] = {};
+  for (int k0 = 0; k0 < d; k0 += GK) {
+    __syncthreads();  // lab and zr written; the previous step's tiles read
+    for (int idx = tid; idx < GR * GK / 4; idx += blockDim.x) {
+      const int r = idx / (GK / 4), c = (idx % (GK / 4)) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < rows && k0 + c < d) x = sgemm::ld4(hs + (row0 + r) * d + k0 + c);
+      *reinterpret_cast<float4*>(&xs[r][c]) = x;
+    }
+    for (int idx = tid; idx < GS * GK / 4; idx += blockDim.x) {
+      const int j = idx / (GK / 4), c = (idx % (GK / 4)) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (k0 + c < d) x = sgemm::ld4(w + (long)lab[j] * d + k0 + c);
+      *reinterpret_cast<float4*>(&ws[j][c]) = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GK; k += 4) {
+      float4 a[4], c[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sgemm::ld4(&xs[rg + 16 * i][k]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) c[j] = sgemm::ld4(&ws[lg + 16 * j][k]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float s = acc[i][j];
+          s = fmaf(a[i].x, c[j].x, s);
+          s = fmaf(a[i].y, c[j].y, s);
+          s = fmaf(a[i].z, c[j].z, s);
+          acc[i][j] = fmaf(a[i].w, c[j].w, s);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rg + 16 * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int sl = lg + 16 * j;
+      if (s0 + sl < s_len) {
+        emit[(row0 + r) * s_len + s0 + sl] = acc[i][j] + bias[lab[sl]] - zr[r];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    rows_kernel(const float* __restrict__ hs, const float* __restrict__ w,
+                const float* __restrict__ bias, const int* __restrict__ ext,
+                const float* __restrict__ z, const float* __restrict__ dsum,
+                const float* __restrict__ g, float* __restrict__ dlg, float* __restrict__ dbp,
+                int n, int t, int d, int v, int vp, int s_len) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);  // the ring, then the dlg tile
+  const long n0 = (long)blockIdx.x * BN;         // vocabulary columns
+  const long m0 = (long)blockIdx.y * BM;         // rows of hs
+  Proj::Acc acc;
+  Proj::zero(acc);
+  Proj::run(acc, tile, hs, d, w, d, m0, n0, n, v, 0, d);  // hs [N, D] . W [V, D]^T
+
+  // -exp(lg + bias - z) dsum into the fp32 tile (the ring is free after run).
+  Proj::epilogue(acc, [&](int r, int c, float4 x) {
+    const long row = m0 + r, col = n0 + c;
+    float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (row < n) {
+      const float zr = z[row], ds = dsum[row];
+      const float lg[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < v) o[e] = -expf(lg[e] + bias[col + e] - zr) * ds;
+      }
+    }
+    *reinterpret_cast<float4*>(tile + r * LDT + c) = make_float4(o[0], o[1], o[2], o[3]);
+  });
+  __syncthreads();
+
+  // scatter_s(g): for each utterance whose rows the tile holds, the labels
+  // that fall in this V tile are listed once, (column, s), kList at a time;
+  // then each of its rows adds g at those columns, neighbouring lanes on
+  // neighbouring rows (distinct addresses, also for the blank's many states).
+  const int rows = n - m0 < BM ? (int)(n - m0) : BM;
+  int* nlist = reinterpret_cast<int*>(tile + BM * LDT + 2 * BN);
+  int2* list = reinterpret_cast<int2*>(nlist + 4);
+  for (long bb = m0 / t; bb <= (m0 + rows - 1) / t; ++bb) {
+    const int r_lo = bb * t > m0 ? (int)(bb * t - m0) : 0;
+    const int nr = ((bb + 1) * t - m0 < rows ? (int)((bb + 1) * t - m0) : rows) - r_lo;
+    for (int s0 = 0; s0 < s_len; s0 += kList) {
+      if (threadIdx.x == 0) *nlist = 0;
+      __syncthreads();
+      for (int sl = s0 + threadIdx.x; sl < min(s_len, s0 + kList); sl += blockDim.x) {
+        const int lab = min(max(ext[bb * s_len + sl], 0), v - 1);
+        const long c = lab - n0;
+        if (c >= 0 && c < BN) list[atomicAdd(nlist, 1)] = make_int2((int)c, sl);
+      }
+      __syncthreads();
+      const int cnt = *nlist;
+      for (int idx = threadIdx.x; idx < nr * cnt; idx += blockDim.x) {
+        const int j = idx / nr;
+        const int r = r_lo + idx - j * nr;
+        atomicAdd(tile + r * LDT + list[j].x, g[(m0 + r) * s_len + list[j].y]);
+      }
+      __syncthreads();  // the list is rebuilt next; the tile is complete
+    }
+  }
+
+  // dlg into the scratch, 4 columns (16 bytes) a store; pad columns [V, VP)
+  // hold the epilogue's zeros.
+  constexpr int CH = BN / 4;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    const int r = idx / CH;
+    const int c = (idx - r * CH) * 4;
+    if (n0 + c >= vp) continue;
+    *reinterpret_cast<float4*>(dlg + (m0 + r) * vp + n0 + c) =
+        *reinterpret_cast<const float4*>(tile + r * LDT + c);
+  }
+
+  // dbias partial of this row tile (rows past N are zero): thread t sums
+  // column t % BN over half t / BN of the rows.
+  float* red = tile + BM * LDT;
+  {
+    const int c = threadIdx.x & (BN - 1), half = threadIdx.x / BN;
+    float sum = 0.0f;
+    for (int r = half * (BM / 2); r < (half + 1) * (BM / 2); ++r) sum += tile[r * LDT + c];
+    red[half * BN + c] = sum;
+  }
+  __syncthreads();
+  if (threadIdx.x < BN && n0 + threadIdx.x < v) {
+    dbp[(m0 / BM) * v + n0 + threadIdx.x] = red[threadIdx.x] + red[BN + threadIdx.x];
+  }
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    dx_kernel(const float* __restrict__ dlg, const float* __restrict__ w, float* __restrict__ dhs,
+              int n, int d, int v, int vp) {
+  __shared__ __align__(16) float ring[Dx::kRingFloats];
+  const long tn = cdiv(d, BN);
+  const long m0 = (long)(blockIdx.x / tn) * BM, n0 = (long)(blockIdx.x % tn) * BN;
+  Dx::Acc acc;
+  Dx::zero(acc);
+  // dlg [N, VP] . W [V, D]: K = V; W's rows past V read as zero.
+  Dx::run(acc, ring, dlg, vp, w, d, m0, n0, n, d, 0, v);
+  Dx::epilogue(acc, [&](int r, int c, float4 x) {
+    const long row = m0 + r, col = n0 + c;
+    if (row < n && col < d) *reinterpret_cast<float4*>(dhs + row * d + col) = x;
+  });
+}
+
+__global__ void __launch_bounds__(sgemm::kThreads, 2)
+    dw_kernel(const float* __restrict__ dlg, const float* __restrict__ hs, float* __restrict__ dwp,
+              int n, int d, int v, int vp, int kchunk) {
+  __shared__ __align__(16) float ring[Dw::kRingFloats];
+  const long split = blockIdx.y;
+  const long k0 = split * kchunk, k1 = k0 + kchunk < n ? k0 + kchunk : n;
+  const long tn = cdiv(d, BN);
+  const long m0 = (long)(blockIdx.x / tn) * BN;  // vocabulary rows of dW
+  const long n0 = (long)(blockIdx.x % tn) * BN;  // columns of D
+  Dw::Acc acc;
+  Dw::zero(acc);
+  // dlg^T [VP, N] . hs [N, D] over rows k0 .. k1 of this split.
+  Dw::run(acc, ring, dlg, vp, hs, d, m0, n0, v, d, k0, k1);
+  float* out = dwp + split * v * d;
+  Dw::epilogue(acc, [&](int r, int c, float4 x) {
+    const long row = m0 + r, col = n0 + c;
+    if (row < v && col < d) *reinterpret_cast<float4*>(out + row * d + col) = x;
+  });
+}
+
+// The kernels, in the order of espnet_ctc_head_f32_info's `which`.
+inline const void* kernel(int which) {
+  const void* all[kKernels] = {
+      reinterpret_cast<const void*>(lse_kernel), reinterpret_cast<const void*>(gather_kernel),
+      reinterpret_cast<const void*>(rows_kernel), reinterpret_cast<const void*>(dx_kernel),
+      reinterpret_cast<const void*>(dw_kernel)};
+  return which >= 0 && which < kKernels ? all[which] : nullptr;
+}
+
+// Prefers the largest shared-memory carveout for every kernel and lets lse
+// and rows take their dynamic shared memory, once.
+inline void configure() {
+  static const bool done = [] {
+    for (int i = 0; i < kKernels; ++i) {
+      cudaFuncSetAttribute(kernel(i), cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+    }
+    cudaFuncSetAttribute(lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)kLseSmem);
+    cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)kRowsSmem);
+    return true;
+  }();
+  (void)done;
+}
+
+inline size_t dynamic_smem(int which) {
+  return which == 0 ? kLseSmem : which == 2 ? kRowsSmem : 0;
+}
+
+inline int blocks_per_sm(int which, int* nb) {
+  configure();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      nb, kernel(which), sgemm::kThreads, dynamic_smem(which));
+}
+
+// The launches' plan on a card of `sms` SMs, for N rows and widths D, V:
+//   out[0] the V splits of lse: the count whose blocks (row tiles x splits,
+//          each split whole 128-column tiles) take the fewest tile-times when
+//          run in waves of sms x lse's blocks an SM, the smallest on a tie;
+//   out[1] the splits of N for dw: as many as fill the card's block slots
+//          with (V / 128 x D / 128 tiles) x splits blocks, each at least
+//          kDwMinRows rows; at least 1.
+inline int plan(int n, int d, int v, int sms, int* out) {
+  if (n <= 0 || d <= 0 || v <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
+  int lse_sm = 0, dw_sm = 0;
+  if (int err = blocks_per_sm(0, &lse_sm)) return err;
+  if (int err = blocks_per_sm(4, &dw_sm)) return err;
+  const long slots = (long)sms * std::max(lse_sm, 1);
+  const long rt = cdiv(n, BM), vt = cdiv(v, BN);
+  long best = 1, best_cost = -1;
+  for (long sp = 1; sp <= std::min(vt, 65535L); ++sp) {
+    const long per = cdiv(vt, sp);
+    if (cdiv(vt, per) != sp) continue;  // the same tiles a split as fewer splits
+    const long cost = cdiv(rt * sp, slots) * per;
+    if (best_cost < 0 || cost < best_cost) best = sp, best_cost = cost;
+  }
+  const long tiles = cdiv(v, BN) * cdiv(d, BN);
+  const long dw = std::min({(long)n / kDwMinRows, (long)sms * dw_sm / tiles, 65535L});
+  out[0] = (int)best;
+  out[1] = (int)std::max(1L, dw);
+  return 0;
+}
+
+// lse then gather; part: fp32 (max, sum) pairs [nsplit, N].
+inline int launch_fwd(const float* hs, const float* w, const float* bias, const int* ext,
+                      float2* part, int nsplit, float* emit, float* z, int b, int t, int d,
+                      int v, int s_len, cudaStream_t stream) {
+  const long n = (long)b * t, vt = cdiv(v, BN);
+  if (n > 0x7fffffffL || !part || nsplit <= 0 || nsplit > std::min(vt, 65535L) ||
+      cdiv(t, GR) * b > 0x7fffffffL || cdiv(s_len, GS) > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long vchunk = cdiv(vt, nsplit) * BN;
+  if (cdiv(v, vchunk) != nsplit) return (int)cudaErrorInvalidValue;
+  configure();
+  lse_kernel<<<dim3((unsigned)cdiv(n, BM), (unsigned)nsplit), sgemm::kThreads, kLseSmem,
+               stream>>>(
+      hs, w, bias, part, (int)n, d, v, (int)vchunk);
+  if (int err = (int)cudaGetLastError()) return err;
+  gather_kernel<<<dim3((unsigned)(cdiv(t, GR) * b), (unsigned)cdiv(s_len, GS)), sgemm::kThreads,
+                  0, stream>>>(hs, w, bias, ext, part, nsplit, emit, z, (int)n, t, d, v, s_len);
+  return (int)cudaGetLastError();
+}
+
+// rows, dx and dw; dlg: fp32 [N, vp] scratch; dbp: cdiv(N, BM) dbias
+// partials [., V]; dwp: nsplit dW partials [., V, D].
+inline int launch_bwd(const float* hs, const float* w, const float* bias, const int* ext,
+                      const float* z, const float* dsum, const float* g, float* dlg, int vp,
+                      float* dhs, float* dwp, float* dbp, int nsplit, int b, int t, int d, int v,
+                      int s_len, cudaStream_t stream) {
+  const long n = (long)b * t;
+  if (n > 0x7fffffffL || !dlg || !dsum || vp < v || vp % 4 || cdiv(n, BM) > 65535 ||
+      nsplit <= 0 || nsplit > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  configure();
+  const long vt = cdiv(v, BN), dt = cdiv(d, BN);
+  rows_kernel<<<dim3((unsigned)vt, (unsigned)cdiv(n, BM)), sgemm::kThreads, kRowsSmem,
+                stream>>>(hs, w, bias, ext, z, dsum, g, dlg, dbp, (int)n, t, d, v, vp, s_len);
+  if (int err = (int)cudaGetLastError()) return err;
+  dx_kernel<<<(unsigned)(cdiv(n, BM) * dt), sgemm::kThreads, 0, stream>>>(dlg, w, dhs, (int)n,
+                                                                         d, v, vp);
+  if (int err = (int)cudaGetLastError()) return err;
+  const long kchunk = cdiv(cdiv(n, nsplit), sgemm::BK) * sgemm::BK;
+  dw_kernel<<<dim3((unsigned)(vt * dt), (unsigned)nsplit), sgemm::kThreads, 0, stream>>>(
+      dlg, hs, dwp, (int)n, d, v, vp, (int)kchunk);
+  return (int)cudaGetLastError();
+}
+
+// Registers, shared bytes (static and dynamic), local (spill) bytes and
+// blocks per SM of kernel `which`.
+inline int info(int which, int* out) {
+  const void* k = kernel(which);
+  if (!k) return (int)cudaErrorInvalidValue;
+  configure();
+  cudaFuncAttributes attr{};
+  if (int err = (int)cudaFuncGetAttributes(&attr, k)) return err;
+  int nb = 0;
+  if (int err = blocks_per_sm(which, &nb)) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)(attr.sharedSizeBytes + dynamic_smem(which));
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = nb;
+  return 0;
+}
+
+}  // namespace ctc_head_f32
+
 inline bool head_args_ok(int b, int t, int d, int v, int s) {
   return b > 0 && t > 0 && v > 0 && s > 0 && d > 0 && d % 16 == 0 && b <= 65535;
 }
@@ -589,10 +883,13 @@ inline bool head_args_ok(int b, int t, int d, int v, int s) {
 }  // namespace espnet
 
 // dtype: 0 = float32, 1 = bfloat16. hs: [B, T, D]; w: [V, D]; bias: f32 [V];
-// ext: int32 [B, S]; emit: f32 [B, T, S]; z: f32 [B, T].
+// ext: int32 [B, S]; emit: f32 [B, T, S]; z: f32 [B, T]. The fp32 route
+// also takes part, fp32 [nsplit, B T, 2] scratch for lse's (max, sum) pairs,
+// with nsplit the plan's V splits (espnet_ctc_head_f32_plan's out[0]); bf16
+// takes neither.
 extern "C" int espnet_ctc_head_fwd(int dtype, const void* hs, const void* w, const float* bias,
-                                   const int* ext, float* emit, float* z, int b, int t, int d,
-                                   int v, int s, void* stream) {
+                                   const int* ext, float* emit, float* z, float* part, int nsplit,
+                                   int b, int t, int d, int v, int s, void* stream) {
   if (!espnet::head_args_ok(b, t, d, v, s)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -600,17 +897,18 @@ extern "C" int espnet_ctc_head_fwd(int dtype, const void* hs, const void* w, con
                                                          st);
   }
   if (dtype == 0) {
-    return espnet::launch_head_fwd<float, 32, 32>(hs, w, bias, ext, emit, z, b, t, d, v, s, st);
+    return espnet::ctc_head_f32::launch_fwd(
+        static_cast<const float*>(hs), static_cast<const float*>(w), bias, ext,
+        reinterpret_cast<float2*>(part), nsplit, emit, z, b, t, d, v, s, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// g: f32 [B, T, S] cotangent of emit; dx: [B, T, D] (hs's type);
-// dw_part: f32 [nsplit, V, D], summed by the caller. db_part: f32 [parts,
-// V], summed by the caller: parts = nsplit in fp32 and cdiv(B T,
-// espnet_ctc_head_bwd_row_tile()) in bf16. The bf16 path also takes dsum =
-// sum_s g (f32 [B, T]) and dlg, a bf16 [B T, vp] scratch (vp = V rounded up
-// to a multiple of 8); fp32 takes neither.
+// g: f32 [B, T, S] cotangent of emit; dsum = sum_s g (f32 [B, T]); dx: [B, T,
+// D] (hs's type); dw_part: f32 [nsplit, V, D] and db_part: f32
+// [cdiv(B T, espnet_ctc_head_bwd_row_tile()), V], summed by the caller. dlg:
+// [B T, vp] scratch in hs's type, vp = V rounded up to a multiple of 8
+// (bf16) or 4 (fp32).
 extern "C" int espnet_ctc_head_bwd(int dtype, const void* hs, const void* w, const float* bias,
                                    const int* ext, const float* z, const float* g,
                                    const float* dsum, void* dlg, int vp, void* dx,
@@ -630,11 +928,27 @@ extern "C" int espnet_ctc_head_bwd(int dtype, const void* hs, const void* w, con
         v, vp, s, st);
   }
   if (dtype == 0) {
-    return espnet::launch_head_bwd<float, 32, 32>(hs, w, bias, ext, z, g, dx, dw_part, db_part,
-                                                  nsplit, b, t, d, v, s, st);
+    auto in = [](const void* p) { return static_cast<const float*>(p); };
+    return espnet::ctc_head_f32::launch_bwd(in(hs), in(w), bias, ext, z, dsum, g,
+                                            static_cast<float*>(dlg), vp, static_cast<float*>(dx),
+                                            dw_part, db_part, nsplit, b, t, d, v, s, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Rows of B T per dbias partial of the bf16 backward.
+// Rows of B T per dbias partial of the backward (both dtypes).
 extern "C" int espnet_ctc_head_bwd_row_tile() { return espnet::ctc_head_bwd::BT; }
+
+// The fp32 route's plan for N = B T rows and widths D, V on a card of `sms`
+// SMs: out[0] <- lse's V splits, out[1] <- dw's splits of N. Returns a
+// cudaError_t code.
+extern "C" int espnet_ctc_head_f32_plan(int n, int d, int v, int sms, int* out) {
+  return espnet::ctc_head_f32::plan(n, d, v, sms, out);
+}
+
+// info[0..3] <- registers a thread, shared bytes (static and dynamic),
+// local (spill) bytes and blocks per SM of fp32 kernel `which`: 0 lse, 1
+// gather, 2 rows, 3 dx, 4 dw. Returns a cudaError_t code.
+extern "C" int espnet_ctc_head_f32_info(int which, int* info) {
+  return espnet::ctc_head_f32::info(which, info);
+}

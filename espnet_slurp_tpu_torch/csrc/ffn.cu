@@ -812,9 +812,9 @@ struct ColumnSum {
   __device__ __forceinline__ void operator()(const float*, const float* sb) {
     if (!on) return;
     constexpr int kHalf = sgemm::BK / 2;
-    const float* p = sb + (threadIdx.x >> 7) * kHalf * BN + (threadIdx.x & 127);
+    const float* p = sb + (threadIdx.x >> 7) * kHalf * Dw::LDB + (threadIdx.x & 127);
 #pragma unroll
-    for (int r = 0; r < kHalf; ++r) sum += p[r * BN];
+    for (int r = 0; r < kHalf; ++r) sum += p[r * Dw::LDB];
   }
 };
 

@@ -1,21 +1,27 @@
 // A float32 GEMM mainloop on the CUDA cores for the port's fp32 kernels: C
 // += A * B over a range of K, for one 128 x BN block tile (BN 128 or 64),
-// with exact fp32 FMAs (no TF32) into accumulators in registers. K2's fp32
-// launches (csrc/ffn.cu, ffn_f32) are built on it.
+// with exact fp32 FMAs (no TF32) into accumulators in registers. K2's and
+// K4's fp32 launches (csrc/ffn.cu, ffn_f32; csrc/ctc_head.cu, ctc_head_f32)
+// are built on it.
 //
 //   - 256 threads in a 16 x 16 grid. Thread (ty, tx) owns rows 64 p + 4 ty
 //     + i (p < 2, i < 4) and columns 64 q + 4 tx + j (q < BN / 64, j < 4):
 //     an 8 x 8 micro-tile (8 x 4 at BN 64) made of 2 x 2 (2 x 1) quads of
 //     4 x 4. A warp holds 4 ty x 8 tx.
-//   - Both shared tiles are k-major: A as [BK][128], B as [BK][BN]. Each k
-//     step reads the thread's 8 A values and 8 (4) B values as float4s: a
-//     warp's loads of one k row touch 4 (A) and 8 (B) distinct float4s, one
-//     wavefront each, no bank conflicts. 16 floats loaded per 64 FMAs.
+//   - Both shared tiles are k-major, each k row padded by 4 floats: A as
+//     [BK][128 + 4], B as [BK][BN + 4]. Each k step reads the thread's 8 A
+//     values and 8 (4) B values as float4s: a warp's loads of one k row
+//     touch 4 (A) and 8 (B) distinct float4s, one wavefront each, no bank
+//     conflicts. 16 floats loaded per 64 FMAs.
 //   - An operand whose K is its contiguous axis (Major::K) is read from
-//     global memory as float4s along K into registers and written
-//     transposed into its k-major tile (a warp writes 32 consecutive floats
-//     of one k row: no conflicts). An operand whose M (or N) is contiguous
-//     goes by cp.async, 16 bytes a thread, straight into place.
+//     global memory as float4s along K into registers, neighbouring lanes
+//     along K (a warp reads 64 contiguous bytes of each of 8 rows: whole
+//     sectors), and written transposed into its k-major tile; the padding
+//     puts those stores at most two to a bank. (Lanes along the rows, 16
+//     bytes of each of 32 rows a warp, read half sectors: the launches with
+//     a K-major operand took 3-18% longer that way; PERF.md, PR 15.) An
+//     operand whose M (or N) is contiguous goes by cp.async, 16 bytes a
+//     thread, straight into place.
 //   - A 2-stage ring: k tile t + 1's cp.async copies and register loads are
 //     in flight while tile t is multiplied; its registers are written to
 //     shared memory after the products. One barrier per k tile of 16.
@@ -29,7 +35,7 @@
 //
 // With 64 (32) accumulators, the fragments and the staged registers a
 // thread stays within 128 registers, so two blocks of 256 threads fit an SM
-// (32 KB of shared memory each at BN 128).
+// (33 KB of shared memory each at BN 128).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -66,8 +72,12 @@ struct Gemm {
   static constexpr int MI = 8;        // rows a thread
   static constexpr int NQ = BN / 64;  // column quads a thread
   static constexpr int NJ = 4 * NQ;   // columns a thread
-  static constexpr int A_ELEMS = BK * BM;
-  static constexpr int STAGE = A_ELEMS + BK * BN;  // floats
+  // Shared tile rows are padded by 4 floats: a K-major operand's transposed
+  // stores then meet at most two to a bank.
+  static constexpr int LDA = BM + 4;  // floats a k row of the A tile
+  static constexpr int LDB = BN + 4;  // floats a k row of the B tile
+  static constexpr int A_ELEMS = BK * LDA;
+  static constexpr int STAGE = A_ELEMS + BK * LDB;  // floats
   static constexpr int kRingFloats = 2 * STAGE;
   // float4s a thread stages through registers per k tile (1 when unused).
   static constexpr int AV = AL == Major::K ? BM * BK / 4 / kThreads : 1;
@@ -89,11 +99,11 @@ struct Gemm {
       for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
   }
 
-  // The k-major tile [BK][ROWS] of an MN-major operand X(i, k) = p[k * ld +
+  // The k-major tile [BK][LD] of an MN-major operand X(i, k) = p[k * ld +
   // i], p at the block tile's origin, k tile at kb, by cp.async; chunks at
   // or past irem rows or krem of K are zero-filled (reading p itself, which
   // lies inside the operand).
-  template <int ROWS>
+  template <int ROWS, int LD>
   __device__ __forceinline__ static void copy_mn(float* s, const float* p, int ld, int kb,
                                                  int irem, int krem) {
     constexpr int CH = ROWS / 4;
@@ -103,40 +113,41 @@ struct Gemm {
       const int k = idx / CH;
       const int c = (idx - k * CH) * 4;
       const bool ok = kb + k < krem && c < irem;
-      mma::cp_async16(s + k * ROWS + c, ok ? p + (long)(kb + k) * ld + c : p, ok);
+      mma::cp_async16(s + k * LD + c, ok ? p + (long)(kb + k) * ld + c : p, ok);
     }
   }
 
   // A K-major operand X(i, k) = p[i * ld + k], p at the block tile's
   // origin: the thread's float4s along K of the k tile at kb into registers
-  // (zero at or past irem rows or krem of K) ...
-  template <int ROWS, int V>
+  // (zero at or past irem rows or krem of K), neighbouring lanes along K (a
+  // warp reads 64 contiguous bytes of each of 8 rows) ...
+  template <int V>
   __device__ __forceinline__ static void fetch_k(float4 (&r)[V], const float* p, int ld, int kb,
                                                  int irem, int krem) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int idx = threadIdx.x + v * kThreads;
-      const int kq = idx / ROWS;
-      const int i = idx - kq * ROWS;
+      const int kq = idx % (BK / 4);
+      const int i = idx / (BK / 4);
       const bool ok = i < irem && kb + 4 * kq < krem;
       r[v] = ok ? __ldg(reinterpret_cast<const float4*>(p + (long)i * ld + kb + 4 * kq))
                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
 
-  // ... and written transposed into the k-major tile [BK][ROWS].
-  template <int ROWS, int V>
+  // ... and written transposed into the k-major tile [BK][LD].
+  template <int LD, int V>
   __device__ __forceinline__ static void put_k(float* s, const float4 (&r)[V]) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int idx = threadIdx.x + v * kThreads;
-      const int kq = idx / ROWS;
-      const int i = idx - kq * ROWS;
-      float* d = s + 4 * kq * ROWS + i;
+      const int kq = idx % (BK / 4);
+      const int i = idx / (BK / 4);
+      float* d = s + 4 * kq * LD + i;
       d[0] = r[v].x;
-      d[ROWS] = r[v].y;
-      d[2 * ROWS] = r[v].z;
-      d[3 * ROWS] = r[v].w;
+      d[LD] = r[v].y;
+      d[2 * LD] = r[v].z;
+      d[3 * LD] = r[v].w;
     }
   }
 
@@ -157,22 +168,22 @@ struct Gemm {
     float* sa = ring + slot * STAGE;
     float* sb = sa + A_ELEMS;
     if constexpr (AL == Major::K) {
-      fetch_k<BM>(ra, o.a, o.lda, kb, o.mrem, o.krem);
+      fetch_k(ra, o.a, o.lda, kb, o.mrem, o.krem);
     } else {
-      copy_mn<BM>(sa, o.a, o.lda, kb, o.mrem, o.krem);
+      copy_mn<BM, LDA>(sa, o.a, o.lda, kb, o.mrem, o.krem);
     }
     if constexpr (BL == Major::K) {
-      fetch_k<BN>(rb, o.b, o.ldb, kb, o.nrem, o.krem);
+      fetch_k(rb, o.b, o.ldb, kb, o.nrem, o.krem);
     } else {
-      copy_mn<BN>(sb, o.b, o.ldb, kb, o.nrem, o.krem);
+      copy_mn<BN, LDB>(sb, o.b, o.ldb, kb, o.nrem, o.krem);
     }
   }
 
   __device__ __forceinline__ static void put(float* ring, int slot, const float4 (&ra)[AV],
                                              const float4 (&rb)[BV]) {
     float* sa = ring + slot * STAGE;
-    if constexpr (AL == Major::K) put_k<BM>(sa, ra);
-    if constexpr (BL == Major::K) put_k<BN>(sa + A_ELEMS, rb);
+    if constexpr (AL == Major::K) put_k<LDA>(sa, ra);
+    if constexpr (BL == Major::K) put_k<LDB>(sa + A_ELEMS, rb);
   }
 
   // The thread's products over one landed stage.
@@ -184,12 +195,12 @@ struct Gemm {
       float a[MI], b[NJ];
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        const float4 v = ld4(pa + k * BM + 64 * p);
+        const float4 v = ld4(pa + k * LDA + 64 * p);
         a[4 * p] = v.x, a[4 * p + 1] = v.y, a[4 * p + 2] = v.z, a[4 * p + 3] = v.w;
       }
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
-        const float4 v = ld4(pb + k * BN + 64 * q);
+        const float4 v = ld4(pb + k * LDB + 64 * q);
         b[4 * q] = v.x, b[4 * q + 1] = v.y, b[4 * q + 2] = v.z, b[4 * q + 3] = v.w;
       }
 #pragma unroll

@@ -132,13 +132,18 @@ def library() -> ctypes.CDLL:
     lib.espnet_ctc_fwd.restype = i
     lib.espnet_ctc_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.espnet_ctc_bwd.restype = i
-    lib.espnet_ctc_head_fwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.espnet_ctc_head_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, p]
     lib.espnet_ctc_head_fwd.restype = i
     lib.espnet_ctc_head_bwd.argtypes = [i, p, p, p, p, p, p, p, p, i, p, p, p,
                                         i, i, i, i, i, i, p]
     lib.espnet_ctc_head_bwd.restype = i
     lib.espnet_ctc_head_bwd_row_tile.argtypes = []
     lib.espnet_ctc_head_bwd_row_tile.restype = i
+    lib.espnet_ctc_head_f32_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.espnet_ctc_head_f32_plan.restype = i
+    lib.espnet_ctc_head_f32_info.argtypes = [i, ctypes.POINTER(i)]
+    lib.espnet_ctc_head_f32_info.restype = i
     lib.espnet_rnnt_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.espnet_rnnt_fwd.restype = i
     lib.espnet_rnnt_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]

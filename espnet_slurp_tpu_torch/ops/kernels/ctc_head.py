@@ -5,24 +5,32 @@ Port of espnet_slurp_tpu/ops/pallas/ctc_head.py (``fused_ctc_head_emit``,
 t, ext[b, s]] without [B, T, V] logits in device memory; w is [V, D], the
 layout of ``nn.Linear``'s weight (the reference takes its transpose). On
 CUDA tensors ``fused_ctc_head_emit`` launches the hand-written kernels in
-``csrc/ctc_head.cu`` (forward; backward dx and dW/db: in bf16 three
-tensor-core GEMM kernels that pass the rounded dlogits through [B T, V]
-scratch for the length of the call); on CPU tensors it runs
-``fused_ctc_head_emit_plain``, the same function in plain PyTorch with
-autograd. ``fused_ctc_head_emit_bwd_plain`` is the backward at the bf16
-kernels' rounding points. No vocabulary padding: gradients come back for
-the true [V, D] and [V]. A CUDA tensor the kernels do not take raises.
+``csrc/ctc_head.cu``: in bf16 the forward kernel and three tensor-core GEMM
+kernels backward (rows, dx, dw) that pass the rounded dlogits through [B T,
+V] scratch for the length of the call; in fp32 (``ctc_head_f32``) two
+forward launches (lse, gather) and three backward ones (rows, dx, dw) on the
+fp32 GEMM mainloop, the dlogits through fp32 [B T, V] scratch for the
+length of the call. On CPU tensors it runs ``fused_ctc_head_emit_plain``,
+the same function in plain PyTorch with autograd.
+``fused_ctc_head_emit_bwd_plain`` is the backward at the kernels' rounding
+points. No vocabulary padding: gradients come back for the true
+[V, D] and [V]. Labels outside [0, V) are clamped into it, by the kernels
+and the plain versions alike. A CUDA tensor the kernels do not take raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import build
 from .ctc import extend_labels, lattice_loss
 
-# Row splits of the fp32 path's dW/db reduction (per-split fp32 partials,
-# summed here).
-DW_SPLITS = 8
+
+def _gather_index(ext, bsz, t, v):
+    """ext [B, S] as a gather index over [B, T, V], clamped into [0, V) as
+    the kernels clamp it."""
+    return ext.long().clamp(0, v - 1)[:, None, :].expand(bsz, t, -1)
 
 
 def fused_ctc_head_emit_plain(hs: torch.Tensor, w: torch.Tensor,
@@ -33,8 +41,7 @@ def fused_ctc_head_emit_plain(hs: torch.Tensor, w: torch.Tensor,
     logits = hs.float() @ w.float().t() + b.float()
     z = torch.logsumexp(logits, dim=-1, keepdim=True)
     bsz, t, _ = hs.shape
-    idx = ext.long()[:, None, :].expand(bsz, t, -1)
-    return logits.gather(2, idx) - z
+    return logits.gather(2, _gather_index(ext, bsz, t, w.shape[0])) - z
 
 
 def fused_ctc_head_emit_bwd_plain(hs: torch.Tensor, w: torch.Tensor,
@@ -47,7 +54,8 @@ def fused_ctc_head_emit_bwd_plain(hs: torch.Tensor, w: torch.Tensor,
     As espnet_slurp_tpu/ops/pallas/ctc_head.py:_bwd_kernel: dlg =
     scatter_s(g) - exp(lg - z) * sum_s g in fp32 (duplicate labels add),
     rounded to hs.dtype before dhs = dlg W and dW = dlg^T hs (fp32
-    products); db summed from the unrounded dlg. g is scattered as given:
+    products; in fp32 the rounding changes nothing); db summed from the
+    unrounded dlg. g is scattered as given:
     the reference rounds it to bf16 first, an artifact of its one-hot
     product (ROADMAP queue 3)."""
     bsz, t, d = hs.shape
@@ -55,7 +63,7 @@ def fused_ctc_head_emit_bwd_plain(hs: torch.Tensor, w: torch.Tensor,
     gf = g.float()
     dlg = torch.exp(hs.float() @ w.float().t() + b.float() - z[..., None])
     dlg.mul_(-gf.sum(-1, keepdim=True))
-    dlg.scatter_add_(2, ext.long()[:, None, :].expand(bsz, t, -1), gf)
+    dlg.scatter_add_(2, _gather_index(ext, bsz, t, v), gf)
     dlgc = dlg.to(hs.dtype).float()
     dhs = (dlgc @ w.float()).to(hs.dtype)
     dw = (dlgc.reshape(-1, v).t() @ hs.float().reshape(-1, d)).to(w.dtype)
@@ -82,15 +90,33 @@ def _check(hs, w, b, ext):
                          "device")
 
 
+def _f32_plan(n, d, v, dev):
+    """The fp32 launches' plan from the library: (V splits of lse, splits
+    of N for dw)."""
+    out = (ctypes.c_int * 2)()
+    build.check(build.library().espnet_ctc_head_f32_plan(
+        n, d, v, torch.cuda.get_device_properties(dev).multi_processor_count,
+        out), "fused_ctc_head_emit fp32 plan")
+    return tuple(out)
+
+
 def _launch_fwd(hs, w, b, ext):
     bsz, t, d = hs.shape
     v, s = w.shape[0], ext.shape[1]
     emit = torch.empty(bsz, t, s, dtype=torch.float32, device=hs.device)
     z = torch.empty(bsz, t, dtype=torch.float32, device=hs.device)
+    part, nsplit = None, 0
+    if hs.dtype == torch.float32:
+        # lse -> gather: each V split's (max, sum) a row goes through fp32
+        # [splits, B T, 2] scratch (freed when the call returns).
+        nsplit = _f32_plan(bsz * t, d, v, hs.device)[0]
+        part = torch.empty(nsplit, bsz * t, 2, dtype=torch.float32,
+                           device=hs.device)
     build.check(build.library().espnet_ctc_head_fwd(
         build.DTYPE_CODES[hs.dtype], hs.data_ptr(), w.data_ptr(),
-        b.data_ptr(), ext.data_ptr(), emit.data_ptr(), z.data_ptr(), bsz, t,
-        d, v, s, build.stream_ptr(hs)), "fused_ctc_head_emit forward")
+        b.data_ptr(), ext.data_ptr(), emit.data_ptr(), z.data_ptr(),
+        None if part is None else part.data_ptr(), nsplit, bsz, t, d, v, s,
+        build.stream_ptr(hs)), "fused_ctc_head_emit forward")
     fused_ctc_head_emit.launches += 1
     return emit, z
 
@@ -104,28 +130,29 @@ def _launch_bwd(hs, w, b, ext, z, g):
     dx = torch.empty_like(hs)
     f32 = dict(dtype=torch.float32, device=dev)
     lib = build.library()
+    # rows -> dx -> dw: dlogits goes through [B T, VP] scratch in hs's
+    # dtype (freed when the call returns); dW is split over N so that its
+    # tiles fill the card (in fp32 by the library's plan); db is summed per
+    # 128-row tile.
     if hs.dtype == torch.bfloat16:
-        # rows -> dx -> dw: dlogits goes through a bf16 [N, VP] scratch
-        # (freed when the call returns); dW is split over N so that its
-        # tiles fill two blocks an SM; db is summed per row tile.
         vp = -(-v // 8) * 8
         slots = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
         tiles = -(-v // 128) * -(-d // 128)
         nsplit = max(1, min(n // 512, slots // tiles))
-        parts = -(-n // lib.espnet_ctc_head_bwd_row_tile())
-        dsum = g.sum(-1)
-        dlg = torch.empty(n, vp, dtype=hs.dtype, device=dev)
-        extra = (dsum.data_ptr(), dlg.data_ptr(), vp)
     else:
-        nsplit = parts = max(1, min(DW_SPLITS, n))
-        extra = (None, None, 0)
+        vp = -(-v // 4) * 4
+        nsplit = _f32_plan(n, d, v, dev)[1]
+    parts = -(-n // lib.espnet_ctc_head_bwd_row_tile())
+    dsum = g.sum(-1)
+    dlg = torch.empty(n, vp, dtype=hs.dtype, device=dev)
     dw_part = torch.empty(nsplit, v, d, **f32)
     db_part = torch.empty(parts, v, **f32)
     build.check(lib.espnet_ctc_head_bwd(
         build.DTYPE_CODES[hs.dtype], hs.data_ptr(), w.data_ptr(),
-        b.data_ptr(), ext.data_ptr(), z.data_ptr(), g.data_ptr(), *extra,
-        dx.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), nsplit, bsz,
-        t, d, v, s, build.stream_ptr(hs)), "fused_ctc_head_emit backward")
+        b.data_ptr(), ext.data_ptr(), z.data_ptr(), g.data_ptr(),
+        dsum.data_ptr(), dlg.data_ptr(), vp, dx.data_ptr(),
+        dw_part.data_ptr(), db_part.data_ptr(), nsplit, bsz, t, d, v, s,
+        build.stream_ptr(hs)), "fused_ctc_head_emit backward")
     fused_ctc_head_emit.bwd_launches += 1
     return dx, dw_part.sum(0).to(w.dtype), db_part.sum(0)
 
@@ -150,9 +177,10 @@ def fused_ctc_head_emit(hs: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     hs: [B, T, D]; w: [V, D] (``nn.Linear``'s layout; hs and w float32 or
     bfloat16, fp32 accumulation); b: float32 [V]; ext: int32 [B, S] with
-    entries in [0, V). Differentiable in hs, w and b; on the card the
-    backward recomputes the logits tile by tile (dW comes back in w's
-    dtype, as the reference returns it, db in fp32)."""
+    entries in [0, V) (others are clamped into it). Differentiable in hs,
+    w and b; on the card the backward recomputes the logits tile by tile
+    (dW comes back in w's dtype, as the reference returns it, db in
+    fp32)."""
     _check(hs, w, b, ext)
     if hs.device.type == "cpu":
         return fused_ctc_head_emit_plain(hs, w, b, ext)

@@ -9,7 +9,8 @@ and K3's launches, bf16, fp32 and the WMMA ones, the dropout at rate 0.1
 (0.5 for two fp32 cases) and its Philox mask; K2's fp32 launches at N 1 to
 4097, widths 32 to 512 and F 128 to 2048; FeedForward's width route;
 K3's fp32 kernels at T 1 to 468, Dh 32 to 128, chunk masks and rates 0,
-0.1 and 0.5, and their route by Dh.
+0.1 and 0.5, and their route by Dh; K4's fp32 route from 128-row tiles
+that span 8 utterances to the default train shape, and its plan.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -1047,6 +1048,82 @@ def test_fused_ctc_head_bwd_bf16_at_its_rounding_points(gen, b, t, d, v):
         assert any(f"ctc_head_bwd::{part}_kernel" in k for k in names), names
     assert not any("ctc_head_dx_kernel" in k or "ctc_head_dw_kernel" in k
                    for k in names), names
+
+
+# K4's fp32 launches (csrc/ctc_head.cu, ctc_head_f32) by profiler name.
+CTC_HEAD_F32 = tuple(f"ctc_head_f32::{k}_kernel" for k in (
+    "lse", "gather", "rows", "dx", "dw"))
+# The first version's fp32 kernels, which must not launch.
+CTC_HEAD_F32_GONE = ("ctc_head_fwd_kernel<float", "ctc_head_dx_kernel",
+                     "ctc_head_dw_kernel")
+
+
+def _ctc_head_f32_case(gen, b, t, d, v, s=2 * 9 + 1):
+    """fp32 hs, w [V, D], bias, ext and a cotangent [B, T, S]: blanks on
+    every other state, a repeated label and the last, ragged column V - 1."""
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    ext = torch.randint(0, v, (b, s), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ext[:, ::2] = 0  # blanks: one label, many states
+    ext[:, 3] = ext[:, 5]  # a repeated label
+    ext[0, 1] = v - 1  # the last, ragged column
+    return (r(b, t, d) * 0.5, r(v, d) * d ** -0.5, r(v) * 0.1, ext), \
+        r(b, t, s)
+
+
+@pytest.mark.parametrize("b,t,d,v", [
+    # 128-row tiles that span 8 utterances (T 17) and two (T 100); V 77,
+    # 130 and 333 ragged against 128-column tiles and not multiples of 4,
+    # 333 in 3 V splits; the default train shape (lse in 10 V splits on 132
+    # SMs, dW in 3)
+    (8, 17, 128, 77), (3, 100, 256, 130), (2, 129, 64, 333),
+    (64, 468, 256, 5000)])
+def test_fused_ctc_head_fp32_route(gen, b, t, d, v):
+    """K4's fp32 route (ctc_head_f32: lse and gather forward, rows, dx and
+    dw backward, by their profiler names; the first version's kernels
+    absent) against fused_ctc_head_emit_plain's output and autograd
+    gradients within TOL of max |ref|, one launch each way a call."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    args, cot = _ctc_head_f32_case(gen, b, t, d, v)
+    before = (kh.fused_ctc_head_emit.launches,
+              kh.fused_ctc_head_emit.bwd_launches)
+    _check_grads(kh.fused_ctc_head_emit, kh.fused_ctc_head_emit_plain, args,
+                 cot, TOL[torch.float32], ("dhs", "dw", "db"))
+    assert (kh.fused_ctc_head_emit.launches,
+            kh.fused_ctc_head_emit.bwd_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    hs, w, bias, ext = args
+    _, z = kh._launch_fwd(*args)
+    names = _kernel_names(lambda: (kh._launch_fwd(*args),
+                                   kh._launch_bwd(hs, w, bias, ext, z, cot)))
+    for want in CTC_HEAD_F32:
+        assert any(want in k for k in names), (want, names)
+    assert not any(gone in k for k in names for gone in CTC_HEAD_F32_GONE)
+
+
+def test_fused_ctc_head_fp32_plan_and_kernel_info(gen):
+    """The library's plan at the default train shape on 132 SMs: lse in 10
+    V splits of 4 tiles (2,340 blocks in 9 waves of 264 against 40 tiles
+    for the 234 row tiles alone) and dW in 3 splits of N (240 of 264
+    slots); one row tile takes one split each. Each fp32 launch reports
+    registers, shared bytes, no spills and two blocks an SM (gather more);
+    an unknown index is refused."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    out = (ctypes.c_int * 2)()
+    assert lib.espnet_ctc_head_f32_plan(64 * 468, 256, 5000, 132, out) == 0
+    assert list(out) == [10, 3]
+    assert lib.espnet_ctc_head_f32_plan(100, 256, 77, 132, out) == 0
+    assert list(out) == [1, 1]
+    assert lib.espnet_ctc_head_f32_plan(64 * 468, 256, 5000, 0, out) != 0
+    for which in range(5):
+        info = (ctypes.c_int * 4)()
+        assert lib.espnet_ctc_head_f32_info(which, info) == 0
+        regs, smem, local, blocks = info
+        assert 0 < regs <= 255 and smem > 0 and local == 0, (which, *info)
+        assert blocks >= 2, (which, *info)
+    assert lib.espnet_ctc_head_f32_info(5, (ctypes.c_int * 4)()) != 0
 
 
 def test_fused_ctc_head_refuses_what_it_cannot_take(gen):

@@ -11,8 +11,10 @@ ctc_loss_pallas_head end to end (loss and gradients) against the JAX one.
 Tolerances as in tests/test_ctc_head.py: 1e-5 for values, gradients
 2e-4 * max(1, max |ref|) (fp32).
 
-fused_ctc_head_emit_bwd_plain, the backward at the bf16 kernels' rounding
-points, is held to jax.vjp of the Pallas kernel in bf16 and fp32. In bf16
+fused_ctc_head_emit_bwd_plain, the backward at the kernels' rounding
+points, is held to jax.vjp of the Pallas kernel in bf16 and fp32, in fp32
+also at the edges of the card's fp32 tiling (V 77 and 333, B 8 x T 17, a
+label over many states, labels outside [0, V), which the port clamps). In bf16
 the reference rounds two values that the port keeps in fp32, both artifacts
 of its one-hot gather / scatter product on the TPU's matrix unit: the
 gathered logit before z is subtracted, and the cotangent g before the
@@ -34,16 +36,16 @@ from torch_parity import t
 B, T, D, V, SP = 2, 37, 128, 77, 128
 
 
-def _inputs(seed=0, t_len=T, v=V):
+def _inputs(seed=0, t_len=T, v=V, bsz=B):
     rng = np.random.RandomState(seed)
-    hs = (rng.randn(B, t_len, D) * 0.3).astype(np.float32)
+    hs = (rng.randn(bsz, t_len, D) * 0.3).astype(np.float32)
     w = (rng.randn(D, v) * 0.1).astype(np.float32)
     b = (rng.randn(v) * 0.1).astype(np.float32)
-    ext = rng.randint(0, v, size=(B, SP)).astype(np.int32)
+    ext = rng.randint(0, v, size=(bsz, SP)).astype(np.int32)
     ext[:, 5] = ext[:, 3]  # duplicates must add in the scatter
     ext[:, 0] = 0
     ext[:, 2] = 0
-    g = rng.randn(B, t_len, SP).astype(np.float32)
+    g = rng.randn(bsz, t_len, SP).astype(np.float32)
     return hs, w, b, ext, g
 
 
@@ -173,6 +175,42 @@ def test_bwd_plain_matches_pallas_vjp(dtype, t_len, v):
         assert a.shape == r.shape, name
         err = np.abs(a - r).max() / np.abs(r).max()
         assert err <= tol, f"{name}: {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("bsz,t_len,v,labels", [
+    (B, T, 77, "repeated"), (B, T, 333, "repeated"), (8, 17, 130, "repeated"),
+    (B, T, 77, "out_of_range"), (8, 17, 333, "out_of_range")])
+def test_fp32_plain_matches_pallas_at_the_kernel_edges(bsz, t_len, v,
+                                                       labels):
+    """The fp32 plain forward and backward (fused_ctc_head_emit_plain and
+    fused_ctc_head_emit_bwd_plain, dlogits unrounded), which the card's fp32
+    route is held to, against jax.vjp of the Pallas kernel in interpret mode
+    at the edges of that route's tiling: V 77 and 333 (ragged against its
+    128-column tiles, not multiples of 4), B 8 x T 17 (one 128-row tile
+    spans all 8 utterances), a label repeated over 5 states besides the
+    file's duplicates, and labels below 0 and at or past V, which the port
+    (kernels and plain versions) clamps into [0, V): the reference, whose
+    contract is entries < V, is given them clamped. Tolerances: emit 1e-5
+    (as test_plain_matches_pallas_interpret), gradients 1e-5 of max |ref|
+    (fp32 summation order, as test_bwd_plain_matches_pallas_vjp)."""
+    hs, w, b, ext, g = _inputs(seed=4, t_len=t_len, v=v, bsz=bsz)
+    if labels == "repeated":
+        ext[:, 7:12] = ext[:, 6:7]
+    else:
+        ext[:, 9], ext[:, 11], ext[0, 13], ext[-1, 15] = -3, v + 5, v, v - 1
+    clamped = np.clip(ext, 0, v - 1)
+    ref, ref_grads = _pallas_vjp(jnp.asarray(hs), jnp.asarray(w), b, clamped,
+                                 g, v)
+    ths, tw = _as_port(hs, w, torch.float32)
+    out = kh.fused_ctc_head_emit_plain(ths, tw, t(b), t(ext))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+    grads = kh.fused_ctc_head_emit_bwd_plain(ths, tw, t(b), t(ext),
+                                             _z(ths, tw, t(b)), t(g))
+    for name, a, r in zip(("dhs", "dW", "db"), grads, ref_grads):
+        a = a.numpy().T if name == "dW" else a.numpy()
+        assert a.shape == r.shape, name
+        err = np.abs(a - r).max() / np.abs(r).max()
+        assert err <= 1e-5, f"{name}: {err:.3e}"
 
 
 def test_bf16_rounding_points_diverge_from_the_reference():
