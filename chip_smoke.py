@@ -9,8 +9,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
    compiler's register report and the blocks per SM of K3's bf16 and fp32
    forward, dkv and dq kernels and of K2's bf16 forward kernel printed, and
-   K2's and K4's fp32 kernels' registers, shared and local (spill) bytes
-   and blocks per SM.
+   K2's fp32 kernels', K4's kernels' (both dtypes) and K1's (S 129 and
+   401) registers, shared and local (spill) bytes and blocks per SM.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -58,7 +58,17 @@ or the port's package is not beside it. Phases, each of which fails the run:
    get bounds of their own. K4's bf16 backward likewise: held to
    fused_ctc_head_emit_bwd_plain within BWD_PLAIN_TOL, its rows, dx and dw
    launches checked by name in torch.profiler and printed with their
-   device times and what one call adds to peak memory. K2's bf16 backward
+   device times and what one call adds to peak memory. K4's bf16 forward
+   launches ctc_head_bf16::lse_kernel (the mma.sync mainloop) and the bf16
+   gather once each a call, by the library's host-side launch counts (the
+   first version's ctc_head_fwd_kernel absent from the build and from the
+   profiler's names), printed with the plan, each launch's device time,
+   bound, registers, shared bytes, spills and blocks per SM. K1 at S 129
+   launches the warp route's fwd_kernel and bwd_kernel (host counts),
+   printed likewise and as us a frame beside the byte bound a frame; then
+   K1 at U 200 (S 401, past the warp route's 256 states) both ways against
+   its plain version within 1e-4, on the block route (host counts), timed.
+   K2's bf16 backward
    and K4 both ways are also timed beside the eager bf16 composition of
    their function (K2: F.linear -> F.silu -> F.dropout -> F.linear; K4:
    F.linear -> log_softmax -> gather; autograd's backward). K3's bf16 forward
@@ -72,7 +82,9 @@ or the port's package is not beside it. Phases, each of which fails the run:
    and grad norm finite, nothing skipped, the last loss below the first,
    and per step exactly 24 K2 and 12 K3 launches forward and backward and 1
    of K4 and K1 each way (the counts zeroed just before the timed steps and
-   read just after); then one profiled step for the device's busy time.
+   read just after), K1's warp route and K4's bf16 launches (lse, gather;
+   rows, dx, dw) once each a step by the host counts; then one profiled
+   step for the device's busy time.
    The same phase then runs at dropout 0, and its step wall and busy time
    are printed beside.
 6. One fp32 forward + backward of the same flagship weights on two short
@@ -117,7 +129,7 @@ or the port's package is not beside it. Phases, each of which fails the run:
    15 s utterances with U = 64: one warm-up step, then 5 timed steps. Every
    loss finite, nothing skipped, the last loss below the first, and per step
    exactly 24 K2, 12 K3 and 12 K6 launches each way, 1 K5 and 1 K1 each way
-   and no K4.
+   (the warp route, by the host counts) and no K4.
 10. One fp32 transducer forward + backward (fused_conv, SpecAug off, the
    yaml's dropout 0.1 with phase 6's seeds) of the same weights on phase
    6's two short utterances, CPU (plain versions) against the card
@@ -143,10 +155,10 @@ or the port's package is not beside it. Phases, each of which fails the run:
    beside its plain version (K2 also beside the eager fp32 composition it
    replaces, F.linear -> F.silu -> F.dropout -> F.linear; K3 beside SDPA
    over the precomputed bias). Then K4's fp32 route (ctc_head_f32's
-   lse_kernel and gather_kernel forward, rows_kernel, dx_kernel and
+   lse_kernel, the fp32 gather forward, rows_kernel, dx_kernel and
    dw_kernel backward, on the fp32 GEMM mainloop; B 64, T', D 256, V 5000)
    against its plain version within 1e-4 both ways; the five launches by
-   profiler name (the first version's ctc_head_fwd_kernel<float>,
+   host counts and profiler names (the first versions' ctc_head_fwd_kernel,
    ctc_head_dx_kernel and ctc_head_dw_kernel absent) with the library's
    plan, each launch's device time, bound, registers, shared bytes and
    blocks per SM; each direction timed beside its plain version, its fp32
@@ -160,7 +172,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    warm-up step and 5 timed steps (3 if 7 steps at the warm-up's time would
    pass 60 s); losses and grad norms finite, nothing skipped, the loss
    falls, and per step exactly 24 K2 and 12 K3 launches each way (all fp32
-   launches with dropout) and 1 of K4 (its fp32 route) and K1 each
+   launches with dropout) and 1 of K4 (its fp32 route, by the host
+   counts) and K1 (the warp route) each
    way; step seconds, audio-s/s, busy ms of one profiled step and peak
    memory printed, and the time phases 12 and 13 add.
 
@@ -1195,6 +1208,198 @@ def ctc_head_bwd_detail(torch, kh, call, args, n):
     return ms, launch_ms, peak_mb
 
 
+# K1's and K4's kernels by their host-side launch counts (csrc/common.cuh's
+# counted_name; each is also a part of the kernel's profiler name).
+K1_WARP = ("ctc_warp::fwd_kernel", "ctc_warp::bwd_kernel")
+K1_BLOCK = ("ctc_block::fwd_kernel", "ctc_block::bwd_kernel")
+K4_BF16_LAUNCHES = {"ctc_head_bf16::lse_kernel": "fwd",
+                    "ctc_head_fwd::gather_kernel<__nv_bfloat16>": "fwd",
+                    "ctc_head_bwd::rows_kernel": "bwd",
+                    "ctc_head_bwd::dx_kernel": "bwd",
+                    "ctc_head_bwd::dw_kernel": "bwd"}
+# K4's fp32 launches (csrc/ctc_head.cu: ctc_head_f32 on csrc/sgemm.cuh, and
+# the gather), in the order of espnet_ctc_head_info's `which`, and their
+# direction; the first versions' kernels, which must not launch.
+K4_F32_LAUNCHES = {"ctc_head_f32::lse_kernel": "fwd",
+                   "ctc_head_fwd::gather_kernel<float>": "fwd",
+                   "ctc_head_f32::rows_kernel": "bwd",
+                   "ctc_head_f32::dx_kernel": "bwd",
+                   "ctc_head_f32::dw_kernel": "bwd"}
+K4_GONE = ("ctc_head_fwd_kernel", "ctc_head_dx_kernel", "ctc_head_dw_kernel")
+ROUTED = K1_WARP + K1_BLOCK + tuple(K4_BF16_LAUNCHES) + tuple(K4_F32_LAUNCHES)
+
+
+def route_counts(names=ROUTED):
+    """{kernel: launches so far} from the library's host-side counts."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    return {k: build.launch_count(k) for k in names}
+
+
+def routes_of(call, names=ROUTED):
+    """{kernel: launches} that call() makes, by the host-side counts."""
+    before = route_counts(names)
+    call()
+    after = route_counts(names)
+    return {k: after[k] - before[k] for k in names}
+
+
+def check_routes(what, got, want_each, times=1, names=ROUTED):
+    """Each kernel of want_each launched `times` times in got, the others
+    of names none."""
+    want = {k: times * int(k in want_each) for k in names}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+
+
+def ctc_head_info(dtype):
+    """{kernel: (registers, shared bytes, local bytes, blocks per SM)} of
+    K4's five launches in dtype (0 float32, 1 bfloat16), from the built
+    library."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    out = {}
+    names = K4_F32_LAUNCHES if dtype == 0 else K4_BF16_LAUNCHES
+    for which, k in enumerate(names):
+        buf = (ctypes.c_int * 4)()
+        build.check(build.library().espnet_ctc_head_info(dtype, which, buf),
+                    "fused_ctc_head_emit kernel info")
+        out[k] = tuple(buf)
+    return out
+
+
+def ctc_info(s):
+    """{kernel: (registers, shared bytes, local bytes, blocks per SM)} of
+    K1's forward and backward launches for S states."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    route = K1_WARP if s <= build.library().espnet_ctc_warp_states() \
+        else K1_BLOCK
+    out = {}
+    for which, k in enumerate(route):
+        buf = (ctypes.c_int * 4)()
+        build.check(build.library().espnet_ctc_info(which, s, buf),
+                    "ctc_lattice kernel info")
+        out[k] = tuple(buf)
+    return out
+
+
+def k4_gone_check(torch, names):
+    """The first versions' K4 kernels are not in the built library (the
+    compiler's entry list) nor among the profiler's names."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    entries = [ln for ln in build.build_log().splitlines()
+               if "Compiling entry" in ln]
+    gone = sorted({x for x in K4_GONE for ln in entries if x in ln}
+                  | {x for x in K4_GONE for n in names if x in n})
+    if gone:
+        raise AssertionError(f"K4's first-version kernels are still built "
+                             f"or launched: {gone}")
+
+
+def launch_table(what, got, info, bounds):
+    """{kernel: device ms, bound, registers, shared, local, blocks per SM}
+    from profiler times `got` (by name part), printed."""
+    out = {}
+    for k in info:
+        hit = [ms for name, ms in got.items() if k in name]
+        if len(hit) != 1:
+            raise AssertionError(f"{what}: {k} not timed: {sorted(got)}")
+        regs, smem, local, blocks = info[k]
+        bms, by = bounds[k]
+        out[k] = dict(device_ms=hit[0], bound_ms=bms, bound_by=by,
+                      registers=regs, smem_bytes=smem, local_bytes=local,
+                      blocks_per_sm=blocks)
+        print(f"{what} launch {k}: device {hit[0]:.4f} ms; bound {bms:.4f} "
+              f"ms ({by}), {100 * bms / hit[0]:.1f}% of it; registers "
+              f"{regs}, {smem} B of shared memory, local bytes {local}, "
+              f"blocks per SM {blocks}")
+    return out
+
+
+def ctc_head_bf16_fwd_detail(torch, kh, args, b, t, d, v, s):
+    """K4's bf16 forward at the flagship train shape: one call launches
+    ctc_head_bf16::lse_kernel and the bf16 gather once each and no fp32 or
+    first-version kernel (host counts; the first version absent from the
+    build); each launch's device time (torch.profiler), bound, registers,
+    shared bytes, spills and blocks per SM; the library's plan."""
+    hs, w, bias, ext = args
+    n = b * t
+    call = lambda: kh._launch_fwd(hs, w, bias, ext)
+    fwd = [k for k, p in K4_BF16_LAUNCHES.items() if p == "fwd"]
+    check_routes("K4 bf16 forward", routes_of(call), fwd)
+    plan = kh._plan(n, d, v, torch.bfloat16, hs.device)
+    got = port_kernels_ms(torch, call, n=5, expect=tuple(fwd))
+    k4_gone_check(torch, got)
+    info = {k: x for k, x in ctc_head_info(1).items() if k in fwd}
+    nsplit = plan[0]
+    bounds = {
+        fwd[0]: bound(2.0 * n * d * v,
+                      2 * n * d + 2 * d * v + 4 * v + 8 * nsplit * n),
+        fwd[1]: bound(2.0 * n * d * s,
+                      2 * n * d + 2 * d * v + 4 * v + 4 * b * s
+                      + 8 * nsplit * n + 4 * n * s + 4 * n, PEAK_FP32_FLOPS)}
+    launches = launch_table("K4 bf16", got, info, bounds)
+    dev = sum(x["device_ms"] for x in launches.values())
+    print(f"K4 fused_ctc_head_emit bfloat16 B={b} T={t} V={v}: plan {plan} "
+          f"(lse's V splits, dW splits); forward device {dev:.4f} ms")
+    return dict(device_ms=dev, launch_detail=launches, plan=plan)
+
+
+def ctc_lattice_detail(torch, kctc, largs, alpha, cot, b, t, s, fbound,
+                       bbound, fwd_ms, bwd_ms):
+    """K1 at the flagship train shape: the warp route's launches (host
+    counts, once each way a call, no block launch), each direction's device
+    time (torch.profiler), ms per frame beside the byte bound per frame,
+    registers, shared bytes, spills and blocks per SM."""
+    fwd = lambda: kctc._launch_fwd(*largs)
+    bwd = lambda: kctc._launch_bwd(*largs, alpha, cot)
+    check_routes("K1 forward and backward", routes_of(lambda: (fwd(), bwd())),
+                 K1_WARP)
+    got = port_kernels_ms(torch, lambda: (fwd(), bwd()), n=5, expect=K1_WARP)
+    launches = launch_table("K1", got, ctc_info(s), {
+        K1_WARP[0]: fbound, K1_WARP[1]: bbound})
+    for (k, x), ms, bnd in zip(launches.items(), (fwd_ms, bwd_ms),
+                               (fbound, bbound)):
+        x["ms_per_frame"] = ms / t
+        x["bound_ms_per_frame"] = bnd[0] / t
+        print(f"K1 {k} at S {s}: {1e3 * ms / t:.4f} us a frame over T' {t} "
+              f"(device {1e3 * x['device_ms'] / t:.4f}), byte bound "
+              f"{1e3 * bnd[0] / t:.4f} us a frame")
+    return launches
+
+
+def ctc_lattice_block_route(torch, kctc, lp, gen, b, t, u):
+    """K1 past the warp route's limit: U u labels (S = 2 u + 1 states) on
+    the same log-probs, both ways against ctc_lattice_plain within
+    TOL["float32"], launched as the block route (host counts), timed."""
+    v = lp.shape[-1]
+    labels = torch.randint(1, v - 1, (b, u), generator=gen, device="cuda")
+    ulen = torch.tensor([u - (i % 5) for i in range(b)], device="cuda")
+    ext, skip, smax, last = kctc.extend_labels(labels, ulen)
+    s = ext.shape[1]
+    tlen = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    emit = kctc.mask_emit(lp.gather(2, ext[:, None, :].expand(b, t, -1)),
+                          smax).contiguous()
+    cot = torch.rand(b, generator=gen, device="cuda")
+    largs = (emit, skip, tlen, last)
+    got = routes_of(lambda: grad_case(torch, kctc.ctc_lattice, largs, cot, 1))
+    check_routes(f"K1 at S {s}", got, K1_BLOCK)
+    o, g, _ = grad_case(torch, kctc.ctc_lattice, largs, cot, 1)
+    ro, rg, _ = grad_case(torch, kctc.ctc_lattice_plain, largs, cot, 1)
+    err_o, err_g = hold(torch, f"K1 ctc_lattice float32 B={b} T={t} S={s} "
+                        "(block route)", o, ro, g, rg, ("demit",),
+                        TOL["float32"])
+    _, alpha = kctc._launch_fwd(*largs)
+    fwd_ms = median_ms(torch, lambda: kctc._launch_fwd(*largs))
+    bwd_ms = median_ms(torch, lambda: kctc._launch_bwd(*largs, alpha, cot))
+    print(f"K1 ctc_lattice block route B={b} T={t} S={s}: forward "
+          f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms; {ctc_info(s)}")
+    return dict(s=s, max_abs_err=err_o, max_abs_err_bwd=err_g, ms=fwd_ms,
+                bwd_ms=bwd_ms)
+
+
 def train_kernel_phase(torch, t_prime):
     """K2 and K3 backward, K4 and K1 both ways, at the flagship train step's
     shapes; returns the kernels-line entries."""
@@ -1304,6 +1509,7 @@ def train_kernel_phase(torch, t_prime):
         hs, w, bb, _ = args
         _, z = kh._launch_fwd(hs, w, bb, ext32)
         fwd_ms = median_ms(torch, lambda: kh._launch_fwd(hs, w, bb, ext32))
+        fwd_detail = ctc_head_bf16_fwd_detail(torch, kh, args, b, t, d, v, s)
         head_bwd = lambda: kh._launch_bwd(hs, w, bb, ext32, z, cot)
         bwd_ms, head_launch_ms, head_peak_mb = ctc_head_bwd_detail(
             torch, kh, head_bwd, (hs, w, bb, ext32, z, cot), n)
@@ -1332,7 +1538,7 @@ def train_kernel_phase(torch, t_prime):
                         replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:160",
                         max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
                         bound_ms=fbound[0], bound_by=fbound[1],
-                        library_ms=eager_fwd_ms, **common))
+                        library_ms=eager_fwd_ms, **fwd_detail, **common))
         out.append(dict(name="fused_ctc_head_emit_bwd",
                         replaces="espnet_slurp_tpu/ops/pallas/ctc_head.py:179",
                         max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
@@ -1375,22 +1581,32 @@ def train_kernel_phase(torch, t_prime):
                    PEAK_FP32_FLOPS)
     bbound = bound(14.0 * states, 4 * b * t * s + 4 * b * s + 8 * b + 4 * b
                    + 4 * b * t * s, PEAK_FP32_FLOPS)
+    k1 = ctc_lattice_detail(torch, kctc, largs, alpha, cot, b, t, s, fbound,
+                            bbound, fwd_ms, bwd_ms)
+    block = ctc_lattice_block_route(torch, kctc, lp, gen, b, t, 200)
+    print(f"K1 ctc_lattice float32 B={b} T={t} S={s}: forward {fwd_ms:.4f} "
+          f"ms (plain {plain_fwd_ms:.4f}, F.ctc_loss {lib_fwd_ms:.4f}), "
+          f"backward {bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, F.ctc_loss "
+          f"{lib_bwd_ms:.4f})")
     common = dict(route="cuda", source="espnet_slurp_tpu_torch/csrc/ctc.cu",
-                  launches=None)
+                  launches=None, block_route=block)
     out.append(dict(name="ctc_lattice",
                     replaces="espnet_slurp_tpu/ops/pallas/ctc.py:195",
                     max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
                     bound_ms=fbound[0], bound_by=fbound[1],
                     library_ms=lib_fwd_ms,
                     library_note="F.ctc_loss forward on [T', B, V] log-probs",
-                    **common))
+                    device_ms=k1[K1_WARP[0]]["device_ms"],
+                    launch_detail={K1_WARP[0]: k1[K1_WARP[0]]}, **common))
     out.append(dict(name="ctc_lattice_bwd",
                     replaces="espnet_slurp_tpu/ops/pallas/ctc.py:236",
                     max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
                     bound_ms=bbound[0], bound_by=bbound[1],
                     library_ms=lib_bwd_ms,
                     library_note="F.ctc_loss backward to [T', B, V] "
-                                 "log-probs", **common))
+                                 "log-probs",
+                    device_ms=k1[K1_WARP[1]]["device_ms"],
+                    launch_detail={K1_WARP[1]: k1[K1_WARP[1]]}, **common))
     return out, {
         "fused_ffn": {**{f"{k}_at_train_shape": k2[k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "splits")},
@@ -1458,10 +1674,12 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
                     budget_s=None):
     """One warm-up step, then TRAIN_STEPS timed ones (3 when ``budget_s``
     is given and TRAIN_STEPS + 2 steps at the warm-up's time would run past
-    it) with every launch count zeroed just before and read just after;
-    checks finite losses, nothing skipped and a falling loss; then one
-    more step under torch.profiler for the device's busy time (the sum of
-    its kernels' times). Returns (launches, step s, busy ms, steps)."""
+    it) with every launch count zeroed just before and read just after
+    (the wrappers' counts, and K1's and K4's kernels by the library's
+    host-side counts); checks finite losses, nothing skipped and a falling
+    loss; then one more step under torch.profiler for the device's busy
+    time (the sum of its kernels' times). Returns (launches, step s, busy
+    ms, steps, kernel launches)."""
     from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
     from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
 
@@ -1481,6 +1699,7 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
         steps = 3
 
     zero_counts()
+    routes0 = route_counts()
     losses, norms, skipped, times = [], [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1490,6 +1709,7 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
         norms.append(float(st["grad_norm"]))
         skipped.append(float(st["skipped"]))
     launches = read_counts()
+    routes = {k: n - routes0[k] for k, n in route_counts().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = float(np.median(times))
     print(f"{what}: {compute} compute / fp32 parameters, Adam lr 1e-3: step "
@@ -1500,7 +1720,8 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
                       if k.startswith("loss_"))
     print(f"{what}: losses {[first_loss] + losses}, grad norms {norms}, "
           f"skipped {skipped}, {extra}")
-    print(f"{what}: launches over {steps} steps {launches}")
+    print(f"{what}: launches over {steps} steps {launches}; K1 and K4 "
+          f"kernels {routes}")
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and losses[-1] < first_loss):
         raise AssertionError(f"{what}: non-finite, skipped or not falling")
@@ -1511,7 +1732,7 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if not e.key.startswith("train_step.")) / 1e3
     print(f"{what}: device busy {busy_ms:.2f} ms in one profiled step")
-    return launches, step_s, busy_ms, steps
+    return launches, step_s, busy_ms, steps, routes
 
 
 # The kernels line's entries timed in bf16 only; a default ASRConfig()
@@ -1545,10 +1766,12 @@ def train_phase(torch, card):
         batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
                             FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size,
                             "cuda")
-        launches, step_s, busy_ms, _ = run_train_steps(
+        launches, step_s, busy_ms, _, routes = run_train_steps(
             torch, f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, "
             f"U={TRAIN_U}, dropout {rate}", model, batch, card,
             TRAIN_B * TRAIN_SECONDS)
+        check_routes("train", routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
+                     TRAIN_STEPS)
         n_blocks = cfg.num_encoder_blocks
         check_per_step("train", launches, {
             "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
@@ -1786,10 +2009,11 @@ def transducer_train_phase(torch, card):
     model = init_random_(TransducerModel(cfg, device="cuda"), seed=0)
     batch = train_batch(torch, np.random.RandomState(1), TR_B,
                         FS * TRAIN_SECONDS, TR_U, cfg.asr.vocab_size, "cuda")
-    launches, step_s, _, _ = run_train_steps(
+    launches, step_s, _, _, routes = run_train_steps(
         torch, f"transducer train: B={TR_B} x {TRAIN_SECONDS} s, U={TR_U}, "
         f"V={cfg.asr.vocab_size}, fused_conv, dropout "
         f"{cfg.asr.dropout_rate}", model, batch, card, TR_B * TRAIN_SECONDS)
+    check_routes("transducer train", routes, K1_WARP, TRAIN_STEPS)
     n_blocks = cfg.asr.num_encoder_blocks
     check_per_step("transducer train", launches, {
         "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
@@ -2141,32 +2365,6 @@ def ffn_fp32_launches(torch, ffn, n, d, f, r):
     ]
 
 
-# K4's fp32 launches (csrc/ctc_head.cu, ctc_head_f32, on csrc/sgemm.cuh) by
-# profiler name, in the order of espnet_ctc_head_f32_info's `which`, and
-# their direction; the first version's fp32 kernels, which must not launch.
-K4_F32_LAUNCHES = {"ctc_head_f32::lse_kernel": "fwd",
-                   "ctc_head_f32::gather_kernel": "fwd",
-                   "ctc_head_f32::rows_kernel": "bwd",
-                   "ctc_head_f32::dx_kernel": "bwd",
-                   "ctc_head_f32::dw_kernel": "bwd"}
-K4_F32_GONE = ("ctc_head_fwd_kernel<float", "ctc_head_dx_kernel",
-               "ctc_head_dw_kernel")
-
-
-def ctc_head_f32_info():
-    """{kernel: (registers, shared bytes, local bytes, blocks per SM)} of
-    K4's fp32 launches, from the built library."""
-    import ctypes
-    from espnet_slurp_tpu_torch.ops.kernels import build
-    out = {}
-    for which, k in enumerate(K4_F32_LAUNCHES):
-        buf = (ctypes.c_int * 4)()
-        build.check(build.library().espnet_ctc_head_f32_info(which, buf),
-                    "fused_ctc_head_emit fp32 kernel info")
-        out[k] = tuple(buf)
-    return out
-
-
 def ctc_head_f32_launch_bounds(b, t, d, v, s, plan):
     """Bound (ms, by) of each fp32 launch: its own products (fp32 operands)
     and the bytes it must move: lse's (max, sum) pairs, the dlg scratch [N,
@@ -2177,7 +2375,7 @@ def ctc_head_f32_launch_bounds(b, t, d, v, s, plan):
     return {
         "ctc_head_f32::lse_kernel": bound(
             proj, 4 * (n * d + d * v + v) + 8 * vs * n, PEAK_FP32_FLOPS),
-        "ctc_head_f32::gather_kernel": bound(
+        "ctc_head_fwd::gather_kernel<float>": bound(
             2.0 * n * d * s, 4 * (n * d + d * v + v + b * s + n * s + n)
             + 8 * vs * n, PEAK_FP32_FLOPS),
         "ctc_head_f32::rows_kernel": bound(
@@ -2227,29 +2425,14 @@ def ctc_head_fp32(torch, kh, t_prime, r, gen):
     _, z = kh._launch_fwd(*args)
     fwd = lambda: kh._launch_fwd(*args)
     bwd = lambda: kh._launch_bwd(hs, w, bias, ext, z, cot)
-    plan = kh._f32_plan(n, d, v, hs.device)
-    got = port_kernels_ms(torch, lambda: (fwd(), bwd()), n=3, complete=lambda
-                          got: all(any(k in name for name in got)
-                                   for k in K4_F32_LAUNCHES))
-    gone = sorted(name for name in got if any(x in name for x in K4_F32_GONE))
-    if gone:
-        raise AssertionError(f"K4 fp32 launched the first version's {gone}")
-    info, lb = ctc_head_f32_info(), ctc_head_f32_launch_bounds(b, t, d, v, s,
-                                                               plan)
-    launches = {}
-    for k in K4_F32_LAUNCHES:
-        hit = [ms for name, ms in got.items() if k in name]
-        if len(hit) != 1:
-            raise AssertionError(f"K4 fp32: {k} not launched: {sorted(got)}")
-        regs, smem, local, blocks = info[k]
-        launches[k] = dict(device_ms=hit[0], bound_ms=lb[k][0],
-                           bound_by=lb[k][1], registers=regs,
-                           smem_bytes=smem, local_bytes=local,
-                           blocks_per_sm=blocks)
-        print(f"K4 fp32 launch {k}: device {hit[0]:.4f} ms; bound "
-              f"{lb[k][0]:.4f} ms ({lb[k][1]}), {100 * lb[k][0] / hit[0]:.1f}% "
-              f"of it; registers {regs}, {smem} B of shared memory, local "
-              f"bytes {local}, blocks per SM {blocks}")
+    plan = kh._plan(n, d, v, torch.float32, hs.device)
+    check_routes("K4 fp32 both ways", routes_of(lambda: (fwd(), bwd())),
+                 K4_F32_LAUNCHES)
+    got = port_kernels_ms(torch, lambda: (fwd(), bwd()), n=3,
+                          expect=tuple(K4_F32_LAUNCHES))
+    k4_gone_check(torch, got)
+    launches = launch_table("K4 fp32", got, ctc_head_info(0),
+                            ctc_head_f32_launch_bounds(b, t, d, v, s, plan))
     dev = {p: sum(x["device_ms"] for k, x in launches.items()
                   if K4_F32_LAUNCHES[k] == p) for p in ("fwd", "bwd")}
     ms_f = median_ms(torch, fwd, warmup=1, reps=5)
@@ -2484,7 +2667,7 @@ def default_train_phase(torch, card):
     model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
     batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
                         FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
-    launches, step_s, busy_ms, steps = run_train_steps(
+    launches, step_s, busy_ms, steps, routes = run_train_steps(
         torch, f"default ASRConfig train: {cfg.dtype}, d_ff {cfg.d_ff}, "
         f"dropout {cfg.dropout_rate}, B={TRAIN_B} x {TRAIN_SECONDS} s, "
         f"U={TRAIN_U}", model, batch, card, TRAIN_B * TRAIN_SECONDS,
@@ -2495,6 +2678,8 @@ def default_train_phase(torch, card):
         "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
         "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
         "ctc_lattice": 1, "ctc_lattice_bwd": 1}, steps)
+    check_routes("default ASRConfig train", routes,
+                 K1_WARP + tuple(K4_F32_LAUNCHES), steps)
     print(f"default ASRConfig train: step {step_s:.4f} s, "
           f"{TRAIN_B * TRAIN_SECONDS / step_s:.1f} audio-s/s, device busy "
           f"{busy_ms:.2f} ms a profiled step, on {card}")
@@ -2538,7 +2723,11 @@ def main() -> int:
     print("K2 fp32 kernels (registers, static shared bytes, local bytes, "
           f"blocks per SM; rate 0, dropout): {ffn_f32_info()}")
     print("K4 fp32 kernels (registers, shared bytes, local bytes, blocks "
-          f"per SM): {ctc_head_f32_info()}")
+          f"per SM): {ctc_head_info(0)}")
+    print("K4 bf16 kernels (registers, shared bytes, local bytes, blocks "
+          f"per SM): {ctc_head_info(1)}")
+    print("K1 kernels at S 129 and 401 (registers, shared bytes, local "
+          f"bytes, blocks per SM): {ctc_info(129)} {ctc_info(401)}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).

@@ -3,11 +3,14 @@ or with ``--wmma`` the launches of the default ASRConfig's fp32 path (K2's
 register-tiled GEMM ones, ffn_f32::hidden_kernel and out_kernel forward,
 rows_kernel, dx_kernel and dw_kernel backward; K3's register micro-tile
 ones) and K3's bf16 WMMA launches, or with ``--head-fp32`` K4's fp32 route
-(the default ASRConfig's CTC head) both ways.
+(the default ASRConfig's CTC head) both ways, or with ``--head-lattice``
+K4's bf16 forward (the flagship's CTC head) and K1 (the CTC lattice) both
+ways.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-fp32
+    python -m espnet_slurp_tpu_torch.bin.time_kernels --head-lattice
 
 bf16, inputs from a seeded torch.Generator. K2's forward (``_launch_fwd``,
 D 256, F 1024) at N = 8 x 471 (serving), 64 x 468 (flagship train step)
@@ -26,7 +29,13 @@ of fused_ctc_head_emit_plain) by the same events; K4's ``eager_ms``,
 the eager composition of its function (F.linear -> log_softmax -> gather;
 autograd's backward of it). ``--head-fp32`` times K4 the same way in fp32
 at that shape, forward (``_launch_fwd``) and backward, each beside its
-plain version and the eager composition. ``--wmma`` instead times, at rate
+plain version and the eager composition. ``--head-lattice`` times K4's bf16
+forward (``_launch_fwd``) the same way beside its plain version and the
+eager composition, and K1's forward and backward (``_launch_fwd``,
+``_launch_bwd``: B 64, T' 468, key lengths T' - 3 b, S 129 from U 64
+labels over V 5000 log-probs) beside their plain versions (5 runs) and
+F.ctc_loss both ways (``library_ms``), with ``us_per_frame`` over T'.
+``--wmma`` instead times, at rate
 0 and (``--rate`` above 0) at that dropout rate, each direction's launches
 of K2's fp32 route (N 64 x 468, D 256, d_ff 2048: the default ASRConfig's
 train step) and of K3 (B 64, T' 468, key lengths T' - 3 b: fp32 at H 4,
@@ -188,6 +197,66 @@ def head_case(gen, dtype=torch.bfloat16):
                                                  retain_graph=True)}
 
 
+def lattice_case(gen):
+    """K1's inputs at the flagship train shape: {name: call} of its forward
+    and backward launches (the backward fed the forward's alpha), the plain
+    version (its forward; autograd's backward of it) and F.ctc_loss on the
+    log-probs the emissions were gathered from (its forward; autograd's
+    backward of it)."""
+    import torch.nn.functional as F
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    b, t = HEAD_B, HEAD_T
+    labels = torch.randint(1, V - 1, (b, U), generator=gen, device="cuda")
+    ulen = torch.tensor([U - (i % 5) for i in range(b)], device="cuda")
+    ext, skip, smax, last = kctc.extend_labels(labels, ulen)
+    tlen = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    lp = torch.log_softmax(torch.randn(b, t, V, generator=gen,
+                                       device="cuda") * 2.0, -1)
+    emit = kctc.mask_emit(lp.gather(2, ext[:, None, :].expand(b, t, -1)),
+                          smax).contiguous()
+    g = torch.rand(b, generator=gen, device="cuda")
+    args = (emit, skip, tlen, last)
+    _, alpha = kctc._launch_fwd(*args)
+    leaf = emit.detach().requires_grad_(True)
+    plain = kctc.ctc_lattice_plain(leaf, skip, tlen, last)
+    lpt = lp.transpose(0, 1).detach().requires_grad_(True)
+    ctc = lambda: F.ctc_loss(lpt, labels, tlen.long(), ulen, blank=0,
+                             reduction="none", zero_infinity=True)
+    lib = ctc()
+    return {
+        "fwd": lambda: kctc._launch_fwd(*args),
+        "bwd": lambda: kctc._launch_bwd(*args, alpha, g),
+        "plain_fwd": lambda: kctc.ctc_lattice_plain(*args),
+        "plain_bwd": lambda: torch.autograd.grad(plain, leaf, g,
+                                                 retain_graph=True),
+        "library_fwd": ctc,
+        "library_bwd": lambda: torch.autograd.grad(lib, lpt, g,
+                                                   retain_graph=True)}
+
+
+def head_lattice_timings(gen) -> dict:
+    """--head-lattice: K4's bf16 forward and K1 both ways."""
+    out = {}
+    case = head_case(gen)
+    out["ctc_head_bf16_fwd"] = {"B": HEAD_B, "T": HEAD_T, "V": V,
+                                **timed(case["fwd"], case["plain_fwd"]),
+                                "eager_ms": median_ms(case["eager_fwd"])}
+    del case
+    case = lattice_case(gen)
+    for way in ("fwd", "bwd"):
+        times = [median_ms(case[way]) for _ in range(4)]
+        per_kernel = kernels_ms(case[way])
+        ms = float(np.median(times))
+        out[f"ctc_lattice_{way}"] = {
+            "B": HEAD_B, "T": HEAD_T, "S": 2 * U + 1, "ms": ms,
+            "runs_ms": times, "us_per_frame": 1e3 * ms / HEAD_T,
+            "device_ms": sum(per_kernel.values()), "kernels_ms": per_kernel,
+            "plain_ms": median_ms(case[f"plain_{way}"], warmup=1, reps=5),
+            "library_ms": median_ms(case[f"library_{way}"])}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
@@ -198,6 +267,8 @@ def main() -> int:
                     help="with --wmma, also time them at this dropout rate")
     ap.add_argument("--head-fp32", action="store_true",
                     help="time K4's fp32 route both ways instead")
+    ap.add_argument("--head-lattice", action="store_true",
+                    help="time K4's bf16 forward and K1 both ways instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -212,6 +283,9 @@ def main() -> int:
         result["rate_0"] = wmma_timings(gen, 0.0)
         if args.rate > 0:
             result[f"rate_{args.rate}"] = wmma_timings(gen, args.rate)
+        return emit(result, args.out)
+    if args.head_lattice:
+        result.update(head_lattice_timings(gen))
         return emit(result, args.out)
     if args.head_fp32:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -114,6 +114,45 @@ __device__ void smem_gemm(const float* A, int lda, const float* B, int ldb, floa
   __syncthreads();
 }
 
+// Host-side launch counts. The entries of csrc/ctc.cu and csrc/ctc_head.cu
+// add one to a kernel's count each time they launch it, and
+// espnet_launch_count (csrc/ctc.cu) reads a count by the kernel's name: a
+// check of which kernels a call ran that does not depend on a torch.profiler
+// window (which has been seen to drop launches on the card). Each name is a
+// part of the kernel's name in the profiler, so that the two can be joined.
+enum class Counted : int {
+  kCtcWarpFwd, kCtcWarpBwd, kCtcBlockFwd, kCtcBlockBwd,
+  kHeadLseBf16, kHeadGatherBf16, kHeadRowsBf16, kHeadDxBf16, kHeadDwBf16,
+  kHeadLseF32, kHeadGatherF32, kHeadRowsF32, kHeadDxF32, kHeadDwF32,
+  kCount
+};
+
+inline const char* counted_name(int i) {
+  static const char* const names[(int)Counted::kCount] = {
+      "ctc_warp::fwd_kernel", "ctc_warp::bwd_kernel", "ctc_block::fwd_kernel",
+      "ctc_block::bwd_kernel", "ctc_head_bf16::lse_kernel",
+      "ctc_head_fwd::gather_kernel<__nv_bfloat16>", "ctc_head_bwd::rows_kernel",
+      "ctc_head_bwd::dx_kernel", "ctc_head_bwd::dw_kernel", "ctc_head_f32::lse_kernel",
+      "ctc_head_fwd::gather_kernel<float>", "ctc_head_f32::rows_kernel",
+      "ctc_head_f32::dx_kernel", "ctc_head_f32::dw_kernel"};
+  return i >= 0 && i < (int)Counted::kCount ? names[i] : nullptr;
+}
+
+// One array for the whole library (an inline function's static is shared by
+// every translation unit that includes this header).
+inline long long* counted_launches() {
+  static long long n[(int)Counted::kCount] = {};
+  return n;
+}
+
+// The launch just made, if it was accepted: counts it and returns 0, or
+// returns the launch's cudaError_t.
+inline int counted(Counted k) {
+  const int err = (int)cudaGetLastError();
+  if (err == 0) ++counted_launches()[(int)k];
+  return err;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;

@@ -19,15 +19,14 @@
 // composition writes and re-reads fp32 [N, V] logits, softmax and their
 // gradient (~0.6 GB each), which is what the TPU kernel was written to avoid.
 //
-// Two routes by dtype. bf16 (the flagship's training): the forward
-// ctc_head_fwd_kernel below (the simple first version: one block per (batch
-// row, tile of BM frames); pass 1 walks V in chunks of BV rows of W with the
-// logits tile in shared memory and an online max / sum per frame, pass 2
-// multiplies the frames by the gathered rows W[ext[s]] and writes emit; WMMA
-// tiles staged through shared memory, no pipelining) and the tensor-core
-// backward ctc_head_bwd. float32 (the default ASRConfig's training and the
-// fp32 card-against-CPU checks): ctc_head_f32, two forward and three
-// backward launches on the register-tiled fp32 GEMM mainloop of sgemm.cuh.
+// Two routes by dtype, each two launches forward and three backward, with
+// the same plan (espnet_ctc_head_plan) and the same gather launch:
+//   bf16 (the flagship's training): lse on the bf16 mma.sync mainloop of
+//     mma_gemm.cuh (ctc_head_bf16), gather (ctc_head_fwd, fp32 dot products
+//     of the widened rows), and the tensor-core backward ctc_head_bwd;
+//   float32 (the default ASRConfig's training and the fp32 card-against-CPU
+//     checks): ctc_head_f32, lse and the three backward launches on the
+//     register-tiled fp32 GEMM mainloop of sgemm.cuh, and the same gather.
 // Both save z for the backward, so no backward runs a logsumexp pass.
 //
 // Rounding: the reference rounds the gathered logit (forward) and g before
@@ -36,143 +35,13 @@
 // queue 3). dlogits is rounded to the element type before the two products
 // and dbias summed from the unrounded values, as the reference does.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma_gemm.cuh"
 #include "sgemm.cuh"
 
 namespace espnet {
-
-// Shared-memory layout of the bf16 forward kernel.
-struct HeadLayout {
-  size_t xs, ws, lt, zr, dsum, ext, total;
-  __host__ __device__ HeadLayout(int d, int s, int bm, int bv, int esize) {
-    const int p = 16 / esize;
-    const size_t row = (size_t)(d + p) * esize;
-    xs = 0;
-    ws = align128(xs + bm * row);
-    lt = align128(ws + bv * row);
-    zr = align128(lt + (size_t)bm * (bv + 4) * 4);
-    dsum = align128(zr + (size_t)bm * 4);
-    ext = align128(dsum + (size_t)bm * 4);
-    total = align128(ext + (size_t)s * 4);
-  }
-};
-
-// Rows ext[s0 + r] of W into shared memory (zeros past S).
-template <typename T>
-__device__ void load_gathered(T* s_dst, int lds, const T* w, int d, const int* ext, int s0,
-                              int rows, int s_len) {
-  constexpr int V = 16 / sizeof(T);
-  const int vpr = d / V;
-  for (int idx = threadIdx.x; idx < rows * vpr; idx += blockDim.x) {
-    const int r = idx / vpr;
-    const int c = (idx - r * vpr) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s0 + r < s_len) {
-      val = *reinterpret_cast<const uint4*>(w + (size_t)ext[s0 + r] * d + c);
-    }
-    *reinterpret_cast<uint4*>(s_dst + r * lds + c) = val;
-  }
-}
-
-template <typename T, int BM, int BV>
-__global__ void __launch_bounds__(kThreads)
-    ctc_head_fwd_kernel(const T* __restrict__ hs, const T* __restrict__ w,
-                        const float* __restrict__ bias, const int* __restrict__ ext,
-                        float* __restrict__ emit, float* __restrict__ z, int t, int d, int v,
-                        int s_len) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int P = pad_of<T>();
-  const HeadLayout L(d, s_len, BM, BV, sizeof(T));
-  T* xs = reinterpret_cast<T*>(smem + L.xs);
-  T* ws = reinterpret_cast<T*>(smem + L.ws);
-  float* lt = reinterpret_cast<float*>(smem + L.lt);
-  float* m = reinterpret_cast<float*>(smem + L.zr);
-  float* l = reinterpret_cast<float*>(smem + L.dsum);
-  int* exts = reinterpret_cast<int*>(smem + L.ext);
-  const int ld = d + P, ldl = BV + 4;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-
-  load_rows(xs, ld, hs + (size_t)b * t * d, d, t0, BM, d, 0, t);
-  for (int i = threadIdx.x; i < s_len; i += blockDim.x) {
-    exts[i] = min(max(ext[(size_t)b * s_len + i], 0), v - 1);
-  }
-  for (int r = threadIdx.x; r < BM; r += blockDim.x) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.0f;
-  }
-  // Pass 1: online logsumexp over the vocabulary.
-  for (int v0 = 0; v0 < v; v0 += BV) {
-    load_rows(ws, ld, w, d, v0, BV, d, 0, v);
-    __syncthreads();
-    smem_gemm<true>(xs, ld, ws, ld, lt, ldl, BM, BV, d, false);
-    for (int r = warp; r < BM; r += nwarps) {
-      float mt = -CUDART_INF_F;
-      for (int c = lane; c < BV && v0 + c < v; c += 32) {
-        mt = fmaxf(mt, lt[r * ldl + c] + bias[v0 + c]);
-      }
-      mt = warp_max(mt);
-      const float m_new = fmaxf(m[r], mt);
-      float sum = 0.0f;
-      for (int c = lane; c < BV && v0 + c < v; c += 32) {
-        sum += expf(lt[r * ldl + c] + bias[v0 + c] - m_new);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        l[r] = l[r] * expf(m[r] - m_new) + sum;
-        m[r] = m_new;
-      }
-    }
-    __syncthreads();
-  }
-  for (int r = threadIdx.x; r < BM; r += blockDim.x) {
-    const float zz = m[r] + logf(l[r]);
-    m[r] = zz;  // m now holds z
-    if (t0 + r < t) z[(size_t)b * t + t0 + r] = zz;
-  }
-  // Pass 2: the gathered logits, BV labels at a time.
-  for (int s0 = 0; s0 < s_len; s0 += BV) {
-    load_gathered(ws, ld, w, d, exts, s0, BV, s_len);
-    __syncthreads();
-    smem_gemm<true>(xs, ld, ws, ld, lt, ldl, BM, BV, d, false);
-    for (int idx = threadIdx.x; idx < BM * BV; idx += blockDim.x) {
-      const int r = idx / BV;
-      const int c = idx - r * BV;
-      const int s = s0 + c;
-      if (t0 + r < t && s < s_len) {
-        emit[((size_t)b * t + t0 + r) * s_len + s] = lt[r * ldl + c] + bias[exts[s]] - m[r];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
-template <typename T, int BM, int BV>
-int launch_head_fwd(const void* hs, const void* w, const float* bias, const int* ext,
-                    float* emit, float* z, int b, int t, int d, int v, int s,
-                    cudaStream_t stream) {
-  const HeadLayout L(d, s, BM, BV, sizeof(T));
-  auto kernel = ctc_head_fwd_kernel<T, BM, BV>;
-  if (int err = prepare(kernel, L.total)) return err;
-  const dim3 grid((t + BM - 1) / BM, b);
-  kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const T*>(hs),
-                                              static_cast<const T*>(w), bias, ext, emit, z, t,
-                                              d, v, s);
-  return (int)cudaGetLastError();
-}
 
 // ---- Backward, bf16: three tensor-core GEMM kernels ------------------------
 //
@@ -377,17 +246,296 @@ inline int launch(const bf16* hs, const bf16* w, const float* bias, const int* e
                        (int)Dw::kSmemBytes);
   rows_kernel<<<dim3((unsigned)cdiv(v, BT), (unsigned)row_tiles), 2 * BT, Rows::kSmemBytes,
                 stream>>>(hs, w, bias, ext, z, dsum, g, dlg, dbp, n, t, d, v, vp, s_len);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted(Counted::kHeadRowsBf16)) return err;
   dx_kernel<<<dim3((unsigned)cdiv(d, 128), (unsigned)row_tiles), 2 * BT, Dx::kSmemBytes,
               stream>>>(dlg, w, dhs, n, d, v, vp);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted(Counted::kHeadDxBf16)) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), 32) * 32;
   dw_kernel<<<dim3((unsigned)(cdiv(v, 128) * cdiv(d, 128)), (unsigned)nsplit), 2 * BT,
               Dw::kSmemBytes, stream>>>(dlg, hs, dwp, n, d, v, vp, kchunk);
-  return (int)cudaGetLastError();
+  return counted(Counted::kHeadDwBf16);
 }
 
 }  // namespace ctc_head_bwd
+
+// ---- Forward, both dtypes: lse (by dtype), then one gather -----------------
+//
+// Replaces espnet_slurp_tpu/ops/pallas/ctc_head.py:_fwd_kernel (the
+// pallas_call of fused_ctc_head_emit at :160):
+//   z = logsumexp_v(hs W^T + bias); emit = hs . W[ext] + bias[ext] - z.
+//   lse     grid (N / 128 row tiles, V splits): a block walks its split of V
+//           in 128-column tiles of hs W^T and folds each tile into an online
+//           (max, sum) per row; one (max, sum) per row and split goes to
+//           fp32 scratch part [splits, N]. bf16: ctc_head_bf16::lse_kernel
+//           below; fp32: ctc_head_f32::lse_kernel.
+//   gather  grid (utterance x 64-frame tiles, 32-label tiles), gather_kernel
+//           <T>: z from the splits' (max, sum) in a fixed order, then emit as
+//           fp32 dot products of the frames with the gathered rows W[ext[b,
+//           s]], both widened to fp32, 4 x 2 outputs a thread over 32-wide
+//           steps of D in shared memory (the TPU's one-hot product is not
+//           needed). No [N, V] logits in device memory.
+// The split (espnet_ctc_head_plan) evens out lse's last wave: at the flagship
+// train shape 234 row tiles alone fill 234 of 264 block slots for all 40 V
+// tiles; 10 splits of 4 V tiles run 2,340 blocks in 9 waves (36 tile-times
+// against 40).
+
+namespace ctc_head_fwd {
+
+using ctc_head_bwd::cdiv;
+constexpr int kThreads = 256;
+constexpr int GR = 64;  // gather: frames a block
+constexpr int GS = 32;  // gather: labels a block
+constexpr int GK = 32;  // gather: D a step
+static_assert(GR * GS == 8 * kThreads, "the gather's thread map: 4 x 2 outputs a thread");
+
+// (m, l) <- the pair of (m, l) and (m2, l2), each a max and a sum of exp(x -
+// max); (-inf, 0) is the empty pair.
+__device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2) {
+  const float mm = fmaxf(m, m2);
+  if (mm == -CUDART_INF_F) return;
+  l = l * expf(m - mm) + l2 * expf(m2 - mm);
+  m = mm;
+}
+
+// Four consecutive elements (16 / 8 bytes, aligned) widened to fp32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gather_kernel(const T* __restrict__ hs, const T* __restrict__ w,
+                  const float* __restrict__ bias, const int* __restrict__ ext,
+                  const float2* __restrict__ part, int nsplit, float* __restrict__ emit,
+                  float* __restrict__ z, int n, int t, int d, int v, int s_len) {
+  __shared__ __align__(16) float xs[GR][GK + 4];
+  __shared__ __align__(16) float ws[GS][GK + 4];
+  __shared__ float zr[GR];
+  __shared__ int lab[GS];
+  const int tid = threadIdx.x;
+  const int tiles = (t + GR - 1) / GR;
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * GR;
+  const int s0 = blockIdx.y * GS;
+  const int rows = min(GR, t - t0);
+  const long row0 = (long)b * t + t0;
+  if (tid < GS) {
+    lab[tid] = s0 + tid < s_len ? min(max(ext[(long)b * s_len + s0 + tid], 0), v - 1) : 0;
+  } else if (tid < GS + GR) {  // z of a frame from the V splits, in order
+    const int r = tid - GS;
+    float m = -CUDART_INF_F, l = 0.0f;
+    for (int p = 0; r < rows && p < nsplit; ++p) {
+      const float2 q = part[(long)p * n + row0 + r];
+      lse_merge(m, l, q.x, q.y);
+    }
+    zr[r] = m + logf(l);
+    if (r < rows && blockIdx.y == 0) z[row0 + r] = zr[r];
+  }
+  // Thread (rg, lg) owns frames rg + 16 i (i < 4) and labels lg + 16 j (j <
+  // 2). Frame rows are 36 floats apart, so a warp's float4 loads of 16
+  // labels take two wavefronts and those of its 2 frames one.
+  const int lg = tid & 15, rg = tid >> 4;
+  float acc[4][2] = {};
+  for (int k0 = 0; k0 < d; k0 += GK) {
+    __syncthreads();  // lab and zr written; the previous step's tiles read
+    for (int idx = tid; idx < GR * GK / 4; idx += blockDim.x) {
+      const int r = idx / (GK / 4), c = (idx % (GK / 4)) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < rows && k0 + c < d) x = load4(hs + (row0 + r) * d + k0 + c);
+      *reinterpret_cast<float4*>(&xs[r][c]) = x;
+    }
+    for (int idx = tid; idx < GS * GK / 4; idx += blockDim.x) {
+      const int j = idx / (GK / 4), c = (idx % (GK / 4)) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (k0 + c < d) x = load4(w + (long)lab[j] * d + k0 + c);
+      *reinterpret_cast<float4*>(&ws[j][c]) = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GK; k += 4) {
+      float4 a[4], c[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(&xs[rg + 16 * i][k]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) c[j] = *reinterpret_cast<const float4*>(&ws[lg + 16 * j][k]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float s = acc[i][j];
+          s = fmaf(a[i].x, c[j].x, s);
+          s = fmaf(a[i].y, c[j].y, s);
+          s = fmaf(a[i].z, c[j].z, s);
+          acc[i][j] = fmaf(a[i].w, c[j].w, s);
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rg + 16 * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int sl = lg + 16 * j;
+      if (s0 + sl < s_len) {
+        emit[(row0 + r) * s_len + s0 + sl] = acc[i][j] + bias[lab[sl]] - zr[r];
+      }
+    }
+  }
+}
+
+}  // namespace ctc_head_fwd
+
+// ---- lse, bf16: the logits tile on the mma.sync mainloop, folded in registers
+//
+// Bound: the tensor cores. hs W^T is 2 N D V operations: 76.7 GFLOP at the
+// flagship train shape (N = 64 x 468, D 256, V 5000), 0.0775 ms at 989
+// TFLOP/s, against ~31 MB of compulsory traffic (hs, W, bias in; emit, z
+// out: 0.009 ms). The first version (WMMA through shared memory, the logits
+// tile written to shared memory and read back row by row, a barrier after
+// every 64 columns, 512 blocks of 64 frames) took 1.82 ms.
+//
+// Design: ctc_head_bwd's Rows tile (128 x 128, 8 warps of 64 x 32, both
+// operands K-major, a 4-stage cp.async ring) forms each 128-column tile of
+// hs W^T into registers. The K steps of all the split's V tiles run as one
+// pipeline through the ring, so a tile's first stages are in flight while
+// the previous tile is folded. After a tile's last K step each thread folds
+// its accumulators in place: mma.sync's layout gives it rows lane / 4 and
+// lane / 4 + 8 of each of its 4 m16 tiles (8 rows) and 8 columns of each,
+// and it adds the columns' bias (-inf past V) and folds them into an online
+// (max, sum) per row kept beside the ring (the logits never leave the
+// registers). At the end the 4 lanes of a row merge theirs by shuffles and
+// the 4 warps that share those rows through shared memory, in a fixed order.
+
+namespace ctc_head_bf16 {
+
+using ctc_head_bwd::cdiv;
+using Rows = ctc_head_bwd::Rows;
+constexpr int BM = ctc_head_bwd::BT;  // rows of a block tile
+constexpr int BN = ctc_head_bwd::BT;  // V columns of a tile
+constexpr int kThreads = Rows::kThreads;
+constexpr int kOwned = 2 * Rows::MT;  // rows a thread owns
+static_assert(kThreads == ctc_head_fwd::kThreads, "one block shape");
+// Dynamic shared memory: the ring, then each thread's (max, sum) pairs.
+constexpr size_t kLseSmem = Rows::kSmemBytes + (size_t)kOwned * kThreads * sizeof(float2);
+
+__global__ void __launch_bounds__(kThreads, 2)
+    lse_kernel(const bf16* __restrict__ hs, const bf16* __restrict__ w,
+               const float* __restrict__ bias, float2* __restrict__ part, int n, int d, int v,
+               int vchunk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float2* ml = reinterpret_cast<float2*>(smem + Rows::kSmemBytes);  // [kOwned][kThreads]
+  const int tid = threadIdx.x;
+  const long m0 = (long)blockIdx.x * BM;
+  const long v0 = (long)blockIdx.y * vchunk;
+  const long v1 = v0 + vchunk < v ? v0 + vchunk : v;
+#pragma unroll
+  for (int r = 0; r < kOwned; ++r) ml[r * kThreads + tid] = make_float2(-CUDART_INF_F, 0.0f);
+
+  // Step q of the pipeline: K step q % ksteps of V tile q / ksteps.
+  const int ksteps = (int)cdiv(d, Rows::kBK);
+  const int total = (int)cdiv(v1 - v0, BN) * ksteps;
+  auto load = [&](int q) {
+    const int tile = q / ksteps;
+    Rows::load_stage(ring, q % Rows::kStages, hs, d, w, d, m0, v0 + (long)tile * BN, n, v,
+                     (long)(q - tile * ksteps) * Rows::kBK, d);
+  };
+  // The thread's accumulators of V tile n0, bias added, into its (max, sum)
+  // per row.
+  auto fold = [&](const Rows::Acc& acc, long n0) {
+    float bb[Rows::NT][2];
+#pragma unroll
+    for (int j = 0; j < Rows::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long col = n0 + Rows::frag_col(j) + e;
+        bb[j][e] = col < v ? bias[col] : -CUDART_INF_F;
+      }
+#pragma unroll
+    for (int i = 0; i < Rows::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mt = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < Rows::NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) mt = fmaxf(mt, acc[i][j][2 * h + e] + bb[j][e]);
+        float2* p = ml + (2 * i + h) * kThreads + tid;
+        const float2 old = *p;
+        const float mm = fmaxf(old.x, mt);
+        if (mm == -CUDART_INF_F) continue;  // nothing of this tile is in V
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < Rows::NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) s += __expf(acc[i][j][2 * h + e] + bb[j][e] - mm);
+        *p = make_float2(mm, old.y * __expf(old.x - mm) + s);
+      }
+  };
+
+  Rows::Acc acc;
+  Rows::zero(acc);
+#pragma unroll
+  for (int q = 0; q < Rows::kStages - 1; ++q) {
+    if (q < total) load(q);
+    mma::cp_async_commit();
+  }
+  for (int q = 0; q < total; ++q) {
+    mma::cp_async_wait<Rows::kStages - 2>();
+    __syncthreads();  // step q landed for all; step q - 1 read by all
+    if (q + Rows::kStages - 1 < total) load(q + Rows::kStages - 1);
+    mma::cp_async_commit();
+    const bf16* sa = ring + (q % Rows::kStages) * Rows::STAGE_ELEMS;
+    Rows::compute_stage(acc, sa, sa + Rows::A_ELEMS);
+    if ((q + 1) % ksteps == 0) {
+      fold(acc, v0 + (long)(q / ksteps) * BN);
+      Rows::zero(acc);
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // The 16 threads of a row: the 4 lanes of a warp that hold its columns,
+  // then the 4 warps that do, through shared memory (the ring is free).
+  float2* red = reinterpret_cast<float2*>(smem);  // [BM][kWarpsN]
+  const int lane = tid & 31, wn = (tid >> 5) % Rows::kWarpsN;
+#pragma unroll
+  for (int i = 0; i < Rows::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 p = ml[(2 * i + h) * kThreads + tid];
+      float m = p.x, l = p.y;
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+        const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+        ctc_head_fwd::lse_merge(m, l, m2, l2);
+      }
+      if ((lane & 3) == 0) red[Rows::frag_row(i, h) * Rows::kWarpsN + wn] = make_float2(m, l);
+    }
+  __syncthreads();
+  if (tid < BM && m0 + tid < n) {
+    float2 a = red[tid * Rows::kWarpsN];
+#pragma unroll
+    for (int k = 1; k < Rows::kWarpsN; ++k) {
+      const float2 c = red[tid * Rows::kWarpsN + k];
+      ctc_head_fwd::lse_merge(a.x, a.y, c.x, c.y);
+    }
+    part[(long)blockIdx.y * n + m0 + tid] = a;
+  }
+}
+
+static_assert((size_t)BM * Rows::kWarpsN * sizeof(float2) <= Rows::kSmemBytes,
+              "the merge's rows fit in the ring");
+
+}  // namespace ctc_head_bf16
 
 // ---- float32: five launches on the register-tiled fp32 GEMM mainloop -------
 //
@@ -415,15 +563,7 @@ inline int launch(const bf16* hs, const bf16* w, const float* bias, const int* e
 //           (dynamic) shared memory; at the end the 16 threads of a row
 //           merge theirs (shuffles within a warp, then the two warps
 //           through shared memory) into one (max, sum) per row and split.
-//           The split (espnet_ctc_head_f32_plan) evens out the last wave:
-//           at the default train shape 234 row tiles alone fill 234 of 264
-//           block slots for all 40 V tiles; 10 splits of 4 V tiles run
-//           2,340 blocks in 9 waves (36 tile-times against 40).
-//   gather  grid (utterance x 64-frame tiles, 32-label tiles): z from the
-//           splits' (max, sum) in a fixed order, then emit as fp32 dot
-//           products of the frames with the gathered rows W[ext[b, s]], 4 x 2
-//           outputs a thread over 32-wide steps of D in shared memory (the
-//           TPU's one-hot product is not needed). No [N, V] logits.
+//   gather  ctc_head_fwd::gather_kernel<float>.
 //   rows    grid (V / 128, N / 128): the logits tile again on the same
 //           mainloop; the epilogue forms -exp(lg + bias - z) dsum from the
 //           registers into an fp32 tile in shared memory (zero past N and
@@ -453,17 +593,12 @@ constexpr int BM = sgemm::BM;      // rows of N a block tile; rows of a dbias pa
 constexpr int BN = 128;            // columns of every block tile
 constexpr int LDT = BN + 4;        // rows of the fp32 dlg tile in shared memory
 constexpr int kList = 1024;        // labels of one utterance listed at a time
-constexpr int GR = 64;             // gather: frames a block
-constexpr int GS = 32;             // gather: labels a block
-constexpr int GK = 32;             // gather: D a step
-constexpr int kDwMinRows = 1024;   // rows of N a dW split takes at least
-constexpr int kKernels = 5;
 using Proj = sgemm::Gemm<BN, Major::K, Major::K>;  // hs [N, D] . W [V, D]^T
 using Dx = sgemm::Gemm<BN, Major::K, Major::MN>;   // dlg [N, VP] . W [V, D]
 using Dw = sgemm::Gemm<BN, Major::MN, Major::MN>;  // dlg^T [VP, N] . hs [N, D]
 static_assert(BM == ctc_head_bwd::BT, "one dbias partial per 128 rows in both dtypes");
-static_assert(sgemm::kThreads == 2 * BN && GR * GS == 8 * sgemm::kThreads,
-              "the thread maps of the dbias sums and of the gather");
+static_assert(sgemm::kThreads == 2 * BN && sgemm::kThreads == ctc_head_fwd::kThreads,
+              "the thread map of the dbias sums; one block shape");
 // lse's dynamic shared memory: the ring and each thread's (max, sum) pairs.
 constexpr size_t kLseSmem = (Proj::kRingFloats + 2 * Proj::MI * sgemm::kThreads) * sizeof(float);
 // rows' dynamic shared memory: the ring, then (after the products) the dlg
@@ -472,14 +607,7 @@ constexpr size_t kRowsSmem =
     std::max(Proj::kRingFloats * sizeof(float),
              (BM * LDT + 2 * BN + 4) * sizeof(float) + kList * sizeof(int2));
 
-// (m, l) <- the pair of (m, l) and (m2, l2), each a max and a sum of exp(x -
-// max); (-inf, 0) is the empty pair.
-__device__ __forceinline__ void lse_merge(float& m, float& l, float m2, float l2) {
-  const float mm = fmaxf(m, m2);
-  if (mm == -CUDART_INF_F) return;
-  l = l * expf(m - mm) + l2 * expf(m2 - mm);
-  m = mm;
-}
+using ctc_head_fwd::lse_merge;
 
 __global__ void __launch_bounds__(sgemm::kThreads, 2)
     lse_kernel(const float* __restrict__ hs, const float* __restrict__ w,
@@ -542,87 +670,6 @@ __global__ void __launch_bounds__(sgemm::kThreads, 2)
     const float2 c = red[2 * tid + 1];
     lse_merge(a.x, a.y, c.x, c.y);
     part[(long)blockIdx.y * n + m0 + tid] = a;
-  }
-}
-
-__global__ void __launch_bounds__(sgemm::kThreads)
-    gather_kernel(const float* __restrict__ hs, const float* __restrict__ w,
-                  const float* __restrict__ bias, const int* __restrict__ ext,
-                  const float2* __restrict__ part, int nsplit, float* __restrict__ emit,
-                  float* __restrict__ z, int n, int t, int d, int v, int s_len) {
-  __shared__ __align__(16) float xs[GR][GK + 4];
-  __shared__ __align__(16) float ws[GS][GK + 4];
-  __shared__ float zr[GR];
-  __shared__ int lab[GS];
-  const int tid = threadIdx.x;
-  const int tiles = (t + GR - 1) / GR;
-  const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - b * tiles) * GR;
-  const int s0 = blockIdx.y * GS;
-  const int rows = min(GR, t - t0);
-  const long row0 = (long)b * t + t0;
-  if (tid < GS) {
-    lab[tid] = s0 + tid < s_len ? min(max(ext[(long)b * s_len + s0 + tid], 0), v - 1) : 0;
-  } else if (tid < GS + GR) {  // z of a frame from the V splits, in order
-    const int r = tid - GS;
-    float m = -CUDART_INF_F, l = 0.0f;
-    for (int p = 0; r < rows && p < nsplit; ++p) {
-      const float2 q = part[(long)p * n + row0 + r];
-      lse_merge(m, l, q.x, q.y);
-    }
-    zr[r] = m + logf(l);
-    if (r < rows && blockIdx.y == 0) z[row0 + r] = zr[r];
-  }
-  // Thread (rg, lg) owns frames rg + 16 i (i < 4) and labels lg + 16 j (j <
-  // 2). Frame rows are 36 floats apart, so a warp's float4 loads of 16
-  // labels take two wavefronts and those of its 2 frames one.
-  const int lg = tid & 15, rg = tid >> 4;
-  float acc[4][2] = {};
-  for (int k0 = 0; k0 < d; k0 += GK) {
-    __syncthreads();  // lab and zr written; the previous step's tiles read
-    for (int idx = tid; idx < GR * GK / 4; idx += blockDim.x) {
-      const int r = idx / (GK / 4), c = (idx % (GK / 4)) * 4;
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r < rows && k0 + c < d) x = sgemm::ld4(hs + (row0 + r) * d + k0 + c);
-      *reinterpret_cast<float4*>(&xs[r][c]) = x;
-    }
-    for (int idx = tid; idx < GS * GK / 4; idx += blockDim.x) {
-      const int j = idx / (GK / 4), c = (idx % (GK / 4)) * 4;
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (k0 + c < d) x = sgemm::ld4(w + (long)lab[j] * d + k0 + c);
-      *reinterpret_cast<float4*>(&ws[j][c]) = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GK; k += 4) {
-      float4 a[4], c[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sgemm::ld4(&xs[rg + 16 * i][k]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) c[j] = sgemm::ld4(&ws[lg + 16 * j][k]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float s = acc[i][j];
-          s = fmaf(a[i].x, c[j].x, s);
-          s = fmaf(a[i].y, c[j].y, s);
-          s = fmaf(a[i].z, c[j].z, s);
-          acc[i][j] = fmaf(a[i].w, c[j].w, s);
-        }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int sl = lg + 16 * j;
-      if (s0 + sl < s_len) {
-        emit[(row0 + r) * s_len + s0 + sl] = acc[i][j] + bias[lab[sl]] - zr[r];
-      }
-    }
   }
 }
 
@@ -747,91 +794,6 @@ __global__ void __launch_bounds__(sgemm::kThreads, 2)
   });
 }
 
-// The kernels, in the order of espnet_ctc_head_f32_info's `which`.
-inline const void* kernel(int which) {
-  const void* all[kKernels] = {
-      reinterpret_cast<const void*>(lse_kernel), reinterpret_cast<const void*>(gather_kernel),
-      reinterpret_cast<const void*>(rows_kernel), reinterpret_cast<const void*>(dx_kernel),
-      reinterpret_cast<const void*>(dw_kernel)};
-  return which >= 0 && which < kKernels ? all[which] : nullptr;
-}
-
-// Prefers the largest shared-memory carveout for every kernel and lets lse
-// and rows take their dynamic shared memory, once.
-inline void configure() {
-  static const bool done = [] {
-    for (int i = 0; i < kKernels; ++i) {
-      cudaFuncSetAttribute(kernel(i), cudaFuncAttributePreferredSharedMemoryCarveout,
-                           (int)cudaSharedmemCarveoutMaxShared);
-    }
-    cudaFuncSetAttribute(lse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)kLseSmem);
-    cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)kRowsSmem);
-    return true;
-  }();
-  (void)done;
-}
-
-inline size_t dynamic_smem(int which) {
-  return which == 0 ? kLseSmem : which == 2 ? kRowsSmem : 0;
-}
-
-inline int blocks_per_sm(int which, int* nb) {
-  configure();
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      nb, kernel(which), sgemm::kThreads, dynamic_smem(which));
-}
-
-// The launches' plan on a card of `sms` SMs, for N rows and widths D, V:
-//   out[0] the V splits of lse: the count whose blocks (row tiles x splits,
-//          each split whole 128-column tiles) take the fewest tile-times when
-//          run in waves of sms x lse's blocks an SM, the smallest on a tie;
-//   out[1] the splits of N for dw: as many as fill the card's block slots
-//          with (V / 128 x D / 128 tiles) x splits blocks, each at least
-//          kDwMinRows rows; at least 1.
-inline int plan(int n, int d, int v, int sms, int* out) {
-  if (n <= 0 || d <= 0 || v <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
-  int lse_sm = 0, dw_sm = 0;
-  if (int err = blocks_per_sm(0, &lse_sm)) return err;
-  if (int err = blocks_per_sm(4, &dw_sm)) return err;
-  const long slots = (long)sms * std::max(lse_sm, 1);
-  const long rt = cdiv(n, BM), vt = cdiv(v, BN);
-  long best = 1, best_cost = -1;
-  for (long sp = 1; sp <= std::min(vt, 65535L); ++sp) {
-    const long per = cdiv(vt, sp);
-    if (cdiv(vt, per) != sp) continue;  // the same tiles a split as fewer splits
-    const long cost = cdiv(rt * sp, slots) * per;
-    if (best_cost < 0 || cost < best_cost) best = sp, best_cost = cost;
-  }
-  const long tiles = cdiv(v, BN) * cdiv(d, BN);
-  const long dw = std::min({(long)n / kDwMinRows, (long)sms * dw_sm / tiles, 65535L});
-  out[0] = (int)best;
-  out[1] = (int)std::max(1L, dw);
-  return 0;
-}
-
-// lse then gather; part: fp32 (max, sum) pairs [nsplit, N].
-inline int launch_fwd(const float* hs, const float* w, const float* bias, const int* ext,
-                      float2* part, int nsplit, float* emit, float* z, int b, int t, int d,
-                      int v, int s_len, cudaStream_t stream) {
-  const long n = (long)b * t, vt = cdiv(v, BN);
-  if (n > 0x7fffffffL || !part || nsplit <= 0 || nsplit > std::min(vt, 65535L) ||
-      cdiv(t, GR) * b > 0x7fffffffL || cdiv(s_len, GS) > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long vchunk = cdiv(vt, nsplit) * BN;
-  if (cdiv(v, vchunk) != nsplit) return (int)cudaErrorInvalidValue;
-  configure();
-  lse_kernel<<<dim3((unsigned)cdiv(n, BM), (unsigned)nsplit), sgemm::kThreads, kLseSmem,
-               stream>>>(
-      hs, w, bias, part, (int)n, d, v, (int)vchunk);
-  if (int err = (int)cudaGetLastError()) return err;
-  gather_kernel<<<dim3((unsigned)(cdiv(t, GR) * b), (unsigned)cdiv(s_len, GS)), sgemm::kThreads,
-                  0, stream>>>(hs, w, bias, ext, part, nsplit, emit, z, (int)n, t, d, v, s_len);
-  return (int)cudaGetLastError();
-}
-
 // rows, dx and dw; dlg: fp32 [N, vp] scratch; dbp: cdiv(N, BM) dbias
 // partials [., V]; dwp: nsplit dW partials [., V, D].
 inline int launch_bwd(const float* hs, const float* w, const float* bias, const int* ext,
@@ -843,38 +805,173 @@ inline int launch_bwd(const float* hs, const float* w, const float* bias, const 
       nsplit <= 0 || nsplit > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  configure();
   const long vt = cdiv(v, BN), dt = cdiv(d, BN);
   rows_kernel<<<dim3((unsigned)vt, (unsigned)cdiv(n, BM)), sgemm::kThreads, kRowsSmem,
                 stream>>>(hs, w, bias, ext, z, dsum, g, dlg, dbp, (int)n, t, d, v, vp, s_len);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted(Counted::kHeadRowsF32)) return err;
   dx_kernel<<<(unsigned)(cdiv(n, BM) * dt), sgemm::kThreads, 0, stream>>>(dlg, w, dhs, (int)n,
                                                                          d, v, vp);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted(Counted::kHeadDxF32)) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), sgemm::BK) * sgemm::BK;
   dw_kernel<<<dim3((unsigned)(vt * dt), (unsigned)nsplit), sgemm::kThreads, 0, stream>>>(
       dlg, hs, dwp, (int)n, d, v, vp, (int)kchunk);
-  return (int)cudaGetLastError();
+  return counted(Counted::kHeadDwF32);
+}
+
+}  // namespace ctc_head_f32
+
+// ---- Both dtypes: the launches' table, plan, forward entry and info --------
+
+namespace ctc_head {
+
+using ctc_head_bwd::cdiv;
+constexpr int kKernels = 5;  // lse, gather, rows, dx, dw
+constexpr int BM = 128;      // rows of an lse block tile (both dtypes)
+constexpr int BN = 128;      // V columns of an lse tile and of a dW tile
+static_assert(BM == ctc_head_bf16::BM && BM == ctc_head_f32::BM && BN == ctc_head_bf16::BN &&
+                  BN == ctc_head_f32::BN, "one plan for both dtypes");
+
+struct Launch {
+  const void* kernel;
+  int threads;
+  size_t smem;  // dynamic shared bytes
+};
+
+// Kernel `which` (0 lse, 1 gather, 2 rows, 3 dx, 4 dw) of dtype (0 float32,
+// 1 bfloat16).
+inline Launch launch_of(int dtype, int which) {
+  auto k = [](auto f) { return reinterpret_cast<const void*>(f); };
+  if (dtype == 1) {
+    using namespace ctc_head_bwd;
+    const Launch all[kKernels] = {
+        {k(ctc_head_bf16::lse_kernel), ctc_head_bf16::kThreads, ctc_head_bf16::kLseSmem},
+        {k(ctc_head_fwd::gather_kernel<bf16>), ctc_head_fwd::kThreads, 0},
+        {k(rows_kernel), 2 * BT, Rows::kSmemBytes},
+        {k(dx_kernel), 2 * BT, Dx::kSmemBytes},
+        {k(dw_kernel), 2 * BT, Dw::kSmemBytes}};
+    return which >= 0 && which < kKernels ? all[which] : Launch{nullptr, 0, 0};
+  }
+  if (dtype == 0) {
+    using namespace ctc_head_f32;
+    const Launch all[kKernels] = {{k(lse_kernel), sgemm::kThreads, kLseSmem},
+                                  {k(ctc_head_fwd::gather_kernel<float>), sgemm::kThreads, 0},
+                                  {k(rows_kernel), sgemm::kThreads, kRowsSmem},
+                                  {k(dx_kernel), sgemm::kThreads, 0},
+                                  {k(dw_kernel), sgemm::kThreads, 0}};
+    return which >= 0 && which < kKernels ? all[which] : Launch{nullptr, 0, 0};
+  }
+  return Launch{nullptr, 0, 0};
+}
+
+// Prefers the largest shared-memory carveout for every kernel and lets each
+// take its dynamic shared memory, once.
+inline void configure() {
+  static const bool done = [] {
+    for (int dtype = 0; dtype < 2; ++dtype) {
+      for (int i = 0; i < kKernels; ++i) {
+        const Launch l = launch_of(dtype, i);
+        cudaFuncSetAttribute(l.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+        if (l.smem > 0) {
+          cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)l.smem);
+        }
+      }
+    }
+    return true;
+  }();
+  (void)done;
+}
+
+inline int blocks_per_sm(int dtype, int which, int* nb) {
+  const Launch l = launch_of(dtype, which);
+  if (!l.kernel) return (int)cudaErrorInvalidValue;
+  configure();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, l.kernel, l.threads, l.smem);
+}
+
+// The launches' plan for dtype on a card of `sms` SMs, for N rows and widths
+// D, V:
+//   out[0] the V splits of lse: the count whose blocks (row tiles x splits,
+//          each split whole 128-column tiles) take the fewest tile-times when
+//          run in waves of sms x lse's blocks an SM, the smallest on a tie;
+//   out[1] the splits of N for dw: as many as fill the card's block slots
+//          with (V / 128 x D / 128 tiles) x splits blocks, each at least
+//          1024 rows (fp32) or 512 (bf16); at least 1.
+inline int plan(int dtype, int n, int d, int v, int sms, int* out) {
+  if (n <= 0 || d <= 0 || v <= 0 || sms <= 0 || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int lse_sm = 0, dw_sm = 0;
+  if (int err = blocks_per_sm(dtype, 0, &lse_sm)) return err;
+  if (int err = blocks_per_sm(dtype, 4, &dw_sm)) return err;
+  const long slots = (long)sms * std::max(lse_sm, 1);
+  const long rt = cdiv(n, BM), vt = cdiv(v, BN);
+  long best = 1, best_cost = -1;
+  for (long sp = 1; sp <= std::min(vt, 65535L); ++sp) {
+    const long per = cdiv(vt, sp);
+    if (cdiv(vt, per) != sp) continue;  // the same tiles a split as fewer splits
+    const long cost = cdiv(rt * sp, slots) * per;
+    if (best_cost < 0 || cost < best_cost) best = sp, best_cost = cost;
+  }
+  const long tiles = cdiv(v, BN) * cdiv(d, BN);
+  const long min_rows = dtype == 1 ? 512 : 1024;
+  const long dw = std::min({(long)n / min_rows, (long)sms * dw_sm / tiles, 65535L});
+  out[0] = (int)best;
+  out[1] = (int)std::max(1L, dw);
+  return 0;
+}
+
+// lse then gather; part: fp32 (max, sum) pairs [nsplit, N], nsplit the
+// plan's out[0].
+template <typename T>
+int launch_fwd(const T* hs, const T* w, const float* bias, const int* ext, float2* part,
+               int nsplit, float* emit, float* z, int b, int t, int d, int v, int s_len,
+               cudaStream_t stream) {
+  using ctc_head_fwd::GR;
+  using ctc_head_fwd::GS;
+  const long n = (long)b * t, vt = cdiv(v, BN);
+  if (n > 0x7fffffffL || !part || nsplit <= 0 || nsplit > std::min(vt, 65535L) ||
+      cdiv(t, GR) * b > 0x7fffffffL || cdiv(s_len, GS) > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long vchunk = cdiv(vt, nsplit) * BN;
+  if (cdiv(v, vchunk) != nsplit) return (int)cudaErrorInvalidValue;
+  configure();
+  const dim3 grid((unsigned)cdiv(n, BM), (unsigned)nsplit);
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if constexpr (f32) {
+    ctc_head_f32::lse_kernel<<<grid, sgemm::kThreads, ctc_head_f32::kLseSmem, stream>>>(
+        hs, w, bias, part, (int)n, d, v, (int)vchunk);
+  } else {
+    ctc_head_bf16::lse_kernel<<<grid, ctc_head_bf16::kThreads, ctc_head_bf16::kLseSmem,
+                                stream>>>(hs, w, bias, part, (int)n, d, v, (int)vchunk);
+  }
+  if (int err = counted(f32 ? Counted::kHeadLseF32 : Counted::kHeadLseBf16)) return err;
+  ctc_head_fwd::gather_kernel<T>
+      <<<dim3((unsigned)(cdiv(t, GR) * b), (unsigned)cdiv(s_len, GS)), ctc_head_fwd::kThreads, 0,
+         stream>>>(hs, w, bias, ext, part, nsplit, emit, z, (int)n, t, d, v, s_len);
+  return counted(f32 ? Counted::kHeadGatherF32 : Counted::kHeadGatherBf16);
 }
 
 // Registers, shared bytes (static and dynamic), local (spill) bytes and
-// blocks per SM of kernel `which`.
-inline int info(int which, int* out) {
-  const void* k = kernel(which);
-  if (!k) return (int)cudaErrorInvalidValue;
+// blocks per SM of kernel `which` of dtype.
+inline int info(int dtype, int which, int* out) {
+  const Launch l = launch_of(dtype, which);
+  if (!l.kernel) return (int)cudaErrorInvalidValue;
   configure();
   cudaFuncAttributes attr{};
-  if (int err = (int)cudaFuncGetAttributes(&attr, k)) return err;
+  if (int err = (int)cudaFuncGetAttributes(&attr, l.kernel)) return err;
   int nb = 0;
-  if (int err = blocks_per_sm(which, &nb)) return err;
+  if (int err = blocks_per_sm(dtype, which, &nb)) return err;
   out[0] = attr.numRegs;
-  out[1] = (int)(attr.sharedSizeBytes + dynamic_smem(which));
+  out[1] = (int)(attr.sharedSizeBytes + l.smem);
   out[2] = (int)attr.localSizeBytes;
   out[3] = nb;
   return 0;
 }
 
-}  // namespace ctc_head_f32
+}  // namespace ctc_head
 
 inline bool head_args_ok(int b, int t, int d, int v, int s) {
   return b > 0 && t > 0 && v > 0 && s > 0 && d > 0 && d % 16 == 0 && b <= 65535;
@@ -883,23 +980,23 @@ inline bool head_args_ok(int b, int t, int d, int v, int s) {
 }  // namespace espnet
 
 // dtype: 0 = float32, 1 = bfloat16. hs: [B, T, D]; w: [V, D]; bias: f32 [V];
-// ext: int32 [B, S]; emit: f32 [B, T, S]; z: f32 [B, T]. The fp32 route
-// also takes part, fp32 [nsplit, B T, 2] scratch for lse's (max, sum) pairs,
-// with nsplit the plan's V splits (espnet_ctc_head_f32_plan's out[0]); bf16
-// takes neither.
+// ext: int32 [B, S]; emit: f32 [B, T, S]; z: f32 [B, T]; part: fp32
+// [nsplit, B T, 2] scratch for lse's (max, sum) pairs, with nsplit the plan's
+// V splits (espnet_ctc_head_plan's out[0]).
 extern "C" int espnet_ctc_head_fwd(int dtype, const void* hs, const void* w, const float* bias,
                                    const int* ext, float* emit, float* z, float* part, int nsplit,
                                    int b, int t, int d, int v, int s, void* stream) {
-  if (!espnet::head_args_ok(b, t, d, v, s)) return (int)cudaErrorInvalidValue;
+  using namespace espnet;
+  if (!head_args_ok(b, t, d, v, s)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  auto pt = reinterpret_cast<float2*>(part);
   if (dtype == 1) {
-    return espnet::launch_head_fwd<espnet::bf16, 64, 64>(hs, w, bias, ext, emit, z, b, t, d, v, s,
-                                                         st);
+    return ctc_head::launch_fwd(static_cast<const bf16*>(hs), static_cast<const bf16*>(w), bias,
+                                ext, pt, nsplit, emit, z, b, t, d, v, s, st);
   }
   if (dtype == 0) {
-    return espnet::ctc_head_f32::launch_fwd(
-        static_cast<const float*>(hs), static_cast<const float*>(w), bias, ext,
-        reinterpret_cast<float2*>(part), nsplit, emit, z, b, t, d, v, s, st);
+    return ctc_head::launch_fwd(static_cast<const float*>(hs), static_cast<const float*>(w), bias,
+                                ext, pt, nsplit, emit, z, b, t, d, v, s, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -919,6 +1016,7 @@ extern "C" int espnet_ctc_head_bwd(int dtype, const void* hs, const void* w, con
   }
   auto st = static_cast<cudaStream_t>(stream);
   using espnet::bf16;
+  espnet::ctc_head::configure();
   if (dtype == 1) {
     const long n = (long)b * t;
     if (n > 0x7fffffffL || !dsum || !dlg) return (int)cudaErrorInvalidValue;
@@ -939,16 +1037,17 @@ extern "C" int espnet_ctc_head_bwd(int dtype, const void* hs, const void* w, con
 // Rows of B T per dbias partial of the backward (both dtypes).
 extern "C" int espnet_ctc_head_bwd_row_tile() { return espnet::ctc_head_bwd::BT; }
 
-// The fp32 route's plan for N = B T rows and widths D, V on a card of `sms`
-// SMs: out[0] <- lse's V splits, out[1] <- dw's splits of N. Returns a
-// cudaError_t code.
-extern "C" int espnet_ctc_head_f32_plan(int n, int d, int v, int sms, int* out) {
-  return espnet::ctc_head_f32::plan(n, d, v, sms, out);
+// The plan of dtype (0 float32, 1 bfloat16) for N = B T rows and widths D, V
+// on a card of `sms` SMs: out[0] <- lse's V splits, out[1] <- dw's splits of
+// N. Returns a cudaError_t code.
+extern "C" int espnet_ctc_head_plan(int dtype, int n, int d, int v, int sms, int* out) {
+  return espnet::ctc_head::plan(dtype, n, d, v, sms, out);
 }
 
 // info[0..3] <- registers a thread, shared bytes (static and dynamic),
-// local (spill) bytes and blocks per SM of fp32 kernel `which`: 0 lse, 1
-// gather, 2 rows, 3 dx, 4 dw. Returns a cudaError_t code.
-extern "C" int espnet_ctc_head_f32_info(int which, int* info) {
-  return espnet::ctc_head_f32::info(which, info);
+// local (spill) bytes and blocks per SM of kernel `which` of dtype (0
+// float32, 1 bfloat16): 0 lse, 1 gather, 2 rows, 3 dx, 4 dw. Returns a
+// cudaError_t code.
+extern "C" int espnet_ctc_head_info(int dtype, int which, int* info) {
+  return espnet::ctc_head::info(dtype, which, info);
 }

@@ -57,6 +57,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                "r"(valid ? 4 : 0)
                : "memory");
 }
+// 8 bytes global -> shared (cache-all), zero-filled when valid == false.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -184,6 +190,8 @@ struct NoHook {
 // walked in steps of BK through a ring of STAGES shared-memory stages.
 template <int BM, int BN, int BK, int WM, int WN, int STAGES, Major AL, Major BL>
 struct Gemm {
+  static constexpr int kBK = BK;
+  static constexpr int kStages = STAGES;
   static constexpr int kWarpsN = BN / WN;
   static constexpr int kThreads = (BM / WM) * kWarpsN * 32;
   static constexpr int MT = WM / 16;  // m16 tiles per warp

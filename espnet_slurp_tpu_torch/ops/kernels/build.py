@@ -132,6 +132,12 @@ def library() -> ctypes.CDLL:
     lib.espnet_ctc_fwd.restype = i
     lib.espnet_ctc_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.espnet_ctc_bwd.restype = i
+    lib.espnet_ctc_warp_states.argtypes = []
+    lib.espnet_ctc_warp_states.restype = i
+    lib.espnet_ctc_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.espnet_ctc_info.restype = i
+    lib.espnet_launch_count.argtypes = [ctypes.c_char_p]
+    lib.espnet_launch_count.restype = ctypes.c_longlong
     lib.espnet_ctc_head_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, p]
     lib.espnet_ctc_head_fwd.restype = i
@@ -140,10 +146,10 @@ def library() -> ctypes.CDLL:
     lib.espnet_ctc_head_bwd.restype = i
     lib.espnet_ctc_head_bwd_row_tile.argtypes = []
     lib.espnet_ctc_head_bwd_row_tile.restype = i
-    lib.espnet_ctc_head_f32_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
-    lib.espnet_ctc_head_f32_plan.restype = i
-    lib.espnet_ctc_head_f32_info.argtypes = [i, ctypes.POINTER(i)]
-    lib.espnet_ctc_head_f32_info.restype = i
+    lib.espnet_ctc_head_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+    lib.espnet_ctc_head_plan.restype = i
+    lib.espnet_ctc_head_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.espnet_ctc_head_info.restype = i
     lib.espnet_rnnt_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.espnet_rnnt_fwd.restype = i
     lib.espnet_rnnt_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
@@ -170,6 +176,17 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().espnet_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch_count(name: str) -> int:
+    """Launches so far of a kernel that counts them on the host (the
+    kernels of csrc/ctc.cu and csrc/ctc_head.cu, by the names in
+    csrc/common.cuh's ``counted_name``); raises for a name that is not
+    counted."""
+    n = library().espnet_launch_count(name.encode())
+    if n < 0:
+        raise KeyError(f"no launch count for kernel {name!r}")
+    return n
 
 
 def build_log() -> str:

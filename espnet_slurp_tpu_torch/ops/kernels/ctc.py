@@ -6,10 +6,13 @@ Port of espnet_slurp_tpu/ops/pallas/ctc.py (``_ctc_core`` with its
 ``ctc_loss_logits`` here). ``ctc_lattice`` takes the gathered emissions
 of the blank-interleaved label sequence and returns the per-row negative
 log-likelihood. On CUDA tensors it launches the hand-written kernels in
-``csrc/ctc.cu`` (alpha recursion forward, beta recursion and posterior
-backward); on CPU tensors it runs ``ctc_lattice_plain``, the same recursion
-in plain PyTorch, whose gradient is PyTorch's autograd. A CUDA tensor the
-kernel does not take raises.
+``csrc/ctc.cu``, a route by S: up to ``warp_states()`` (256) states one warp
+per utterance with the states in registers (``ctc_warp``), past it one
+block per utterance (``ctc_block``); forward the alpha recursion, backward
+the beta recursion and the posterior. On CPU tensors it runs
+``ctc_lattice_plain``, the same recursion in plain PyTorch (the same
+``_lse3`` arithmetic), whose gradient is PyTorch's autograd. A CUDA tensor
+the kernels do not take raises.
 
 One deliberate difference from the reference kernel: for an empty label
 sequence (``last == 0``) the reference counts ``alpha[last]`` twice
@@ -27,6 +30,20 @@ from . import build
 NEG = -1e30
 
 
+def _lse3(a, b, c):
+    """log(e^a + e^b + e^c) as csrc/ctc.cu:lse3_n forms it: the largest term
+    t plus log1p(exp(x - t) + exp(y - t)) of the other two, the largest
+    term's own exp being 1 (t floored at NEG, which the forward's values
+    never fall below). Its gradient is the softmax of the three, ties
+    included."""
+    m = torch.maximum(torch.maximum(a, b), c)
+    a_top, b_top = a == m, b == m
+    top = torch.where(a_top, a, torch.where(b_top, b, c)).clamp_min(NEG)
+    x = torch.where(a_top, b, a)
+    y = torch.where(a_top | b_top, c, b)
+    return top + torch.log1p(torch.exp(x - top) + torch.exp(y - top))
+
+
 def _lse(*xs):
     m = xs[0]
     for x in xs[1:]:
@@ -40,7 +57,8 @@ def ctc_lattice_plain(emit: torch.Tensor, skip: torch.Tensor,
     """Plain PyTorch version: loss [B] (fp32), differentiable in ``emit``.
 
     emit: f32 [B, T, S]; skip: f32 [B, S] (> 0: the s-2 -> s skip is
-    allowed); tlen: [B] valid frames (later frames are frozen); last: [B]
+    allowed); tlen: [B] valid frames (later frames are frozen and get no
+    gradient); last: [B]
     index of the trailing blank (2 U_b). The recursion runs in fp64, as the
     kernel's does: at T' ~ 470 the alphas reach ~ -4000, where fp32's
     spacing (~5e-4) shows up in the gradient."""
@@ -50,13 +68,16 @@ def ctc_lattice_plain(emit: torch.Tensor, skip: torch.Tensor,
     col = torch.arange(s, device=emit.device)
     allow = skip > 0
     neg = torch.full((b, 1), NEG, dtype=emit.dtype, device=emit.device)
-    alpha = torch.where(col < 2, emit[:, 0], NEG)
     tl = tlen.to(emit.device).long()
+    # A row with tlen 0 has no frame: its loss reads emit[:, 0], but its
+    # gradient is 0, as the kernels (and the reference kernel) give it.
+    e0 = torch.where((tl > 0)[:, None], emit[:, 0], emit[:, 0].detach())
+    alpha = torch.where(col < 2, e0, NEG)
     for i in range(1, t):
         a1 = torch.cat([neg, alpha[:, :-1]], 1)
         a2 = torch.where(allow, torch.cat([neg, neg, alpha[:, :-2]], 1)[:, :s],
                          NEG)
-        new = (_lse(alpha, a1, a2) + emit[:, i]).clamp_min(NEG)
+        new = (_lse3(alpha, a1, a2) + emit[:, i]).clamp_min(NEG)
         alpha = torch.where((i < tl)[:, None], new, alpha)
     lst = last.to(emit.device).long().clamp(0, s - 1)
     a_last = alpha.gather(1, lst[:, None])[:, 0]
@@ -78,6 +99,12 @@ def _check(emit, skip, tlen, last):
             raise ValueError(f"ctc_lattice: {name} must be int32 [B]")
     if len({x.device for x in (emit, skip, tlen, last)}) != 1:
         raise ValueError("ctc_lattice: all arguments must be on one device")
+
+
+def warp_states() -> int:
+    """The largest S the one-warp-per-utterance route takes (the kernels'
+    constant; larger S take the block route)."""
+    return build.library().espnet_ctc_warp_states()
 
 
 def _launch_fwd(emit, skip, tlen, last):

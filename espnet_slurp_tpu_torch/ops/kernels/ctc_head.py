@@ -5,12 +5,15 @@ Port of espnet_slurp_tpu/ops/pallas/ctc_head.py (``fused_ctc_head_emit``,
 t, ext[b, s]] without [B, T, V] logits in device memory; w is [V, D], the
 layout of ``nn.Linear``'s weight (the reference takes its transpose). On
 CUDA tensors ``fused_ctc_head_emit`` launches the hand-written kernels in
-``csrc/ctc_head.cu``: in bf16 the forward kernel and three tensor-core GEMM
-kernels backward (rows, dx, dw) that pass the rounded dlogits through [B T,
-V] scratch for the length of the call; in fp32 (``ctc_head_f32``) two
-forward launches (lse, gather) and three backward ones (rows, dx, dw) on the
-fp32 GEMM mainloop, the dlogits through fp32 [B T, V] scratch for the
-length of the call. On CPU tensors it runs ``fused_ctc_head_emit_plain``,
+``csrc/ctc_head.cu``, two forward launches and three backward ones in each
+dtype. Forward: lse (hs W^T tile by tile over a split of V, folded into a
+(max, sum) per row and split; in bf16 on the ``mma.sync`` mainloop, in
+fp32 on the fp32 GEMM mainloop) and gather (z from the splits, emit as
+fp32 dot products with the gathered rows of W), the splits' pairs through
+fp32 [splits, B T, 2] scratch for the length of the call. Backward: rows,
+dx, dw (tensor-core GEMMs in bf16, the fp32 mainloop in fp32), the
+dlogits (rounded to the dtype) through [B T, V] scratch for the length of
+the call. On CPU tensors it runs ``fused_ctc_head_emit_plain``,
 the same function in plain PyTorch with autograd.
 ``fused_ctc_head_emit_bwd_plain`` is the backward at the kernels' rounding
 points. No vocabulary padding: gradients come back for the true
@@ -90,13 +93,14 @@ def _check(hs, w, b, ext):
                          "device")
 
 
-def _f32_plan(n, d, v, dev):
-    """The fp32 launches' plan from the library: (V splits of lse, splits
-    of N for dw)."""
+def _plan(n, d, v, dtype, dev):
+    """The launches' plan from the library for ``dtype``: (V splits of
+    lse, splits of N for dw)."""
     out = (ctypes.c_int * 2)()
-    build.check(build.library().espnet_ctc_head_f32_plan(
-        n, d, v, torch.cuda.get_device_properties(dev).multi_processor_count,
-        out), "fused_ctc_head_emit fp32 plan")
+    build.check(build.library().espnet_ctc_head_plan(
+        build.DTYPE_CODES[dtype], n, d, v,
+        torch.cuda.get_device_properties(dev).multi_processor_count, out),
+        "fused_ctc_head_emit plan")
     return tuple(out)
 
 
@@ -105,18 +109,16 @@ def _launch_fwd(hs, w, b, ext):
     v, s = w.shape[0], ext.shape[1]
     emit = torch.empty(bsz, t, s, dtype=torch.float32, device=hs.device)
     z = torch.empty(bsz, t, dtype=torch.float32, device=hs.device)
-    part, nsplit = None, 0
-    if hs.dtype == torch.float32:
-        # lse -> gather: each V split's (max, sum) a row goes through fp32
-        # [splits, B T, 2] scratch (freed when the call returns).
-        nsplit = _f32_plan(bsz * t, d, v, hs.device)[0]
-        part = torch.empty(nsplit, bsz * t, 2, dtype=torch.float32,
-                           device=hs.device)
+    # lse -> gather: each V split's (max, sum) a row goes through fp32
+    # [splits, B T, 2] scratch (freed when the call returns).
+    nsplit = _plan(bsz * t, d, v, hs.dtype, hs.device)[0]
+    part = torch.empty(nsplit, bsz * t, 2, dtype=torch.float32,
+                       device=hs.device)
     build.check(build.library().espnet_ctc_head_fwd(
         build.DTYPE_CODES[hs.dtype], hs.data_ptr(), w.data_ptr(),
         b.data_ptr(), ext.data_ptr(), emit.data_ptr(), z.data_ptr(),
-        None if part is None else part.data_ptr(), nsplit, bsz, t, d, v, s,
-        build.stream_ptr(hs)), "fused_ctc_head_emit forward")
+        part.data_ptr(), nsplit, bsz, t, d, v, s, build.stream_ptr(hs)),
+        "fused_ctc_head_emit forward")
     fused_ctc_head_emit.launches += 1
     return emit, z
 
@@ -132,16 +134,11 @@ def _launch_bwd(hs, w, b, ext, z, g):
     lib = build.library()
     # rows -> dx -> dw: dlogits goes through [B T, VP] scratch in hs's
     # dtype (freed when the call returns); dW is split over N so that its
-    # tiles fill the card (in fp32 by the library's plan); db is summed per
-    # 128-row tile.
-    if hs.dtype == torch.bfloat16:
-        vp = -(-v // 8) * 8
-        slots = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-        tiles = -(-v // 128) * -(-d // 128)
-        nsplit = max(1, min(n // 512, slots // tiles))
-    else:
-        vp = -(-v // 4) * 4
-        nsplit = _f32_plan(n, d, v, dev)[1]
+    # tiles fill the card (the library's plan); db is summed per 128-row
+    # tile.
+    step = 8 if hs.dtype == torch.bfloat16 else 4  # 16-byte scratch rows
+    vp = -(-v // step) * step
+    nsplit = _plan(n, d, v, hs.dtype, dev)[1]
     parts = -(-n // lib.espnet_ctc_head_bwd_row_tile())
     dsum = g.sum(-1)
     dlg = torch.empty(n, vp, dtype=hs.dtype, device=dev)

@@ -10,7 +10,11 @@ and K3's launches, bf16, fp32 and the WMMA ones, the dropout at rate 0.1
 4097, widths 32 to 512 and F 128 to 2048; FeedForward's width route;
 K3's fp32 kernels at T 1 to 468, Dh 32 to 128, chunk masks and rates 0,
 0.1 and 0.5, and their route by Dh; K4's fp32 route from 128-row tiles
-that span 8 utterances to the default train shape, and its plan.
+that span 8 utterances to the default train shape, and its plan; K4's bf16
+forward (lse on the mma.sync mainloop, gather) at the same shapes; K1's
+two routes (one warp per utterance up to 256 states, one block past it)
+from S 1 to 3072, tlen 0, 1 and T, every skip off and empty labels. The
+routes of K1 and K4 are read from the library's host-side launch counts.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -1051,8 +1055,9 @@ def test_fused_ctc_head_bwd_bf16_at_its_rounding_points(gen, b, t, d, v):
 
 
 # K4's fp32 launches (csrc/ctc_head.cu, ctc_head_f32) by profiler name.
-CTC_HEAD_F32 = tuple(f"ctc_head_f32::{k}_kernel" for k in (
-    "lse", "gather", "rows", "dx", "dw"))
+CTC_HEAD_F32 = ("ctc_head_f32::lse_kernel", "ctc_head_fwd::gather_kernel<float>",
+                "ctc_head_f32::rows_kernel", "ctc_head_f32::dx_kernel",
+                "ctc_head_f32::dw_kernel")
 # The first version's fp32 kernels, which must not launch.
 CTC_HEAD_F32_GONE = ("ctc_head_fwd_kernel<float", "ctc_head_dx_kernel",
                      "ctc_head_dw_kernel")
@@ -1079,9 +1084,9 @@ def _ctc_head_f32_case(gen, b, t, d, v, s=2 * 9 + 1):
     (8, 17, 128, 77), (3, 100, 256, 130), (2, 129, 64, 333),
     (64, 468, 256, 5000)])
 def test_fused_ctc_head_fp32_route(gen, b, t, d, v):
-    """K4's fp32 route (ctc_head_f32: lse and gather forward, rows, dx and
-    dw backward, by their profiler names; the first version's kernels
-    absent) against fused_ctc_head_emit_plain's output and autograd
+    """K4's fp32 route (ctc_head_f32's lse, the fp32 gather forward,
+    ctc_head_f32's rows, dx and dw backward, by their host counts and
+    profiler names; the first version's kernels absent) against fused_ctc_head_emit_plain's output and autograd
     gradients within TOL of max |ref|, one launch each way a call."""
     from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
     args, cot = _ctc_head_f32_case(gen, b, t, d, v)
@@ -1094,6 +1099,11 @@ def test_fused_ctc_head_fp32_route(gen, b, t, d, v):
                                                      before[1] + 1)
     hs, w, bias, ext = args
     _, z = kh._launch_fwd(*args)
+    before = _counts(CTC_HEAD_F32)
+    kh._launch_fwd(*args)
+    kh._launch_bwd(hs, w, bias, ext, z, cot)
+    after = _counts(CTC_HEAD_F32)
+    assert all(after[k] == before[k] + 1 for k in CTC_HEAD_F32)
     names = _kernel_names(lambda: (kh._launch_fwd(*args),
                                    kh._launch_bwd(hs, w, bias, ext, z, cot)))
     for want in CTC_HEAD_F32:
@@ -1102,28 +1112,142 @@ def test_fused_ctc_head_fp32_route(gen, b, t, d, v):
 
 
 def test_fused_ctc_head_fp32_plan_and_kernel_info(gen):
-    """The library's plan at the default train shape on 132 SMs: lse in 10
-    V splits of 4 tiles (2,340 blocks in 9 waves of 264 against 40 tiles
-    for the 234 row tiles alone) and dW in 3 splits of N (240 of 264
-    slots); one row tile takes one split each. Each fp32 launch reports
-    registers, shared bytes, no spills and two blocks an SM (gather more);
-    an unknown index is refused."""
+    """The library's plan at the flagship / default train shape on 132 SMs,
+    in both dtypes: lse in 10 V splits of 4 tiles (2,340 blocks in 9 waves
+    of 264 against 40 tiles for the 234 row tiles alone) and dW in 3 splits
+    of N (240 of 264 slots); one row tile takes one split each. Each launch
+    of either dtype reports registers, shared bytes, no spills and two
+    blocks an SM (gather more); an unknown index or dtype is refused."""
     import ctypes
     from espnet_slurp_tpu_torch.ops.kernels import build
     lib = build.library()
     out = (ctypes.c_int * 2)()
-    assert lib.espnet_ctc_head_f32_plan(64 * 468, 256, 5000, 132, out) == 0
-    assert list(out) == [10, 3]
-    assert lib.espnet_ctc_head_f32_plan(100, 256, 77, 132, out) == 0
-    assert list(out) == [1, 1]
-    assert lib.espnet_ctc_head_f32_plan(64 * 468, 256, 5000, 0, out) != 0
-    for which in range(5):
-        info = (ctypes.c_int * 4)()
-        assert lib.espnet_ctc_head_f32_info(which, info) == 0
-        regs, smem, local, blocks = info
-        assert 0 < regs <= 255 and smem > 0 and local == 0, (which, *info)
-        assert blocks >= 2, (which, *info)
-    assert lib.espnet_ctc_head_f32_info(5, (ctypes.c_int * 4)()) != 0
+    for dtype in (0, 1):
+        assert lib.espnet_ctc_head_plan(dtype, 64 * 468, 256, 5000, 132,
+                                        out) == 0
+        assert list(out) == [10, 3]
+        assert lib.espnet_ctc_head_plan(dtype, 100, 256, 77, 132, out) == 0
+        assert list(out) == [1, 1]
+        assert lib.espnet_ctc_head_plan(dtype, 64 * 468, 256, 5000, 0,
+                                        out) != 0
+        for which in range(5):
+            info = (ctypes.c_int * 4)()
+            assert lib.espnet_ctc_head_info(dtype, which, info) == 0
+            regs, smem, local, blocks = info
+            assert 0 < regs <= 255 and smem > 0 and local == 0, (
+                dtype, which, *info)
+            assert blocks >= 2, (dtype, which, *info)
+        assert lib.espnet_ctc_head_info(dtype, 5, (ctypes.c_int * 4)()) != 0
+    assert lib.espnet_ctc_head_info(2, 0, (ctypes.c_int * 4)()) != 0
+
+
+def _counts(names):
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    return {k: build.launch_count(k) for k in names}
+
+
+K1_ROUTES = tuple(f"ctc_{r}::{k}_kernel" for r in ("warp", "block")
+                  for k in ("fwd", "bwd"))
+
+
+@pytest.mark.parametrize("s", [1, 3, 32, 33, 129, 255, 256, 257, 1000,
+                               3072])
+def test_ctc_lattice_routes(gen, s):
+    """K1 both ways against ctc_lattice_plain (loss and autograd gradient
+    within 1e-4 of max |ref|) on either side of the warp route's limit
+    (256 states): rows with every skip allowed (T = S / 2 + 40 frames make
+    the last state reachable), tlen 0 and 1, every skip off with empty
+    labels (last 0), a cotangent of 0; one launch each way, by the host
+    counts of the route the library takes for S."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    b, t = 5, s // 2 + 40
+    lp = torch.log_softmax(torch.randn(b, t, 7, generator=gen,
+                                       device="cuda") * 2, -1)
+    idx = torch.randint(0, 7, (b, s), generator=gen, device="cuda")
+    emit = lp.gather(2, idx[:, None, :].expand(b, t, s)).contiguous()
+    skip = (torch.rand(b, s, generator=gen, device="cuda") > 0.3).float()
+    skip[0] = 1.0
+    skip[2] = 0.0
+    tlen = torch.tensor([t, 0, 1, t - 3, t // 2], dtype=torch.int32,
+                        device="cuda")
+    last = torch.tensor([s - 1, min(s - 1, 4), 0, s // 2, s - 1],
+                        dtype=torch.int32, device="cuda")
+    ref_loss = kctc.ctc_lattice_plain(emit, skip, tlen, last)
+    cot = torch.rand(b, generator=gen, device="cuda")
+    cot[3] = 0.0
+    cot = torch.where(ref_loss < 1e29, cot, 0.0)
+    route = "warp" if s <= kctc.warp_states() else "block"
+    before = _counts(K1_ROUTES)
+    args = (emit, skip, tlen, last)
+    out, (g,) = _grads(kctc.ctc_lattice, args, cot, n_diff=1)
+    _, (g_ref,) = _grads(kctc.ctc_lattice_plain, args, cot, n_diff=1)
+    torch.cuda.synchronize()
+    after = _counts(K1_ROUTES)
+    assert {k: after[k] - before[k] for k in K1_ROUTES} == {
+        k: int(f"ctc_{route}::" in k) for k in K1_ROUTES}
+    ok = ref_loss < 1e29
+    assert ok[0] and ok[2], ref_loss
+    assert torch.equal(ok, out < 1e29)
+    assert _rel(out[ok], ref_loss[ok]) <= 1e-4
+    assert torch.isfinite(g).all()
+    assert torch.equal(g[1], torch.zeros_like(g[1]))  # tlen 0
+    assert torch.equal(g[3], torch.zeros_like(g[3]))  # g 0
+    assert torch.equal(g[4, t // 2:], torch.zeros_like(g[4, t // 2:]))
+    assert _rel(g, g_ref) <= 1e-4
+
+
+def test_ctc_lattice_kernel_info(gen):
+    """The warp route's kernels at the flagship S 129 (J 5 states a lane)
+    and the block route's at 257: registers, shared bytes, no spills, at
+    least one block an SM; an S past 3072 is refused."""
+    import ctypes
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    lib = build.library()
+    assert lib.espnet_ctc_warp_states() == 256
+    for s in (129, 256, 257, 3072):
+        for which in (0, 1):
+            info = (ctypes.c_int * 4)()
+            assert lib.espnet_ctc_info(which, s, info) == 0
+            regs, smem, local, blocks = info
+            assert 0 < regs <= 255 and local == 0 and blocks >= 1, (
+                s, which, *info)
+            assert smem > 0, (s, which, *info)
+    assert lib.espnet_ctc_info(0, 3073, (ctypes.c_int * 4)()) != 0
+
+
+# K4's bf16 forward launches by the names of their host counts (also parts
+# of their profiler names).
+CTC_HEAD_BF16_FWD = ("ctc_head_bf16::lse_kernel",
+                     "ctc_head_fwd::gather_kernel<__nv_bfloat16>")
+
+
+@pytest.mark.parametrize("b,t,d,v", [
+    # as test_fused_ctc_head_fp32_route: 128-row tiles over 8 utterances
+    # and over two, V ragged against 128-column tiles (333 in 3 V splits),
+    # and the flagship train shape (10 V splits on 132 SMs)
+    (8, 17, 128, 77), (3, 100, 256, 130), (2, 129, 64, 333),
+    (64, 468, 256, 5000)])
+def test_fused_ctc_head_bf16_forward(gen, b, t, d, v):
+    """K4's bf16 forward (lse on the mma.sync mainloop, then the gather)
+    against fused_ctc_head_emit_plain on the same bf16 operands, emit and
+    z: the same fp32 arithmetic up to summation order, within 1e-4 of max
+    |ref|. One launch of each a call, by the host counts; the fp32 route's
+    launches not."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    args, _ = _ctc_head_f32_case(gen, b, t, d, v)
+    hs, w, bias, ext = args[0].to(torch.bfloat16), args[1].to(
+        torch.bfloat16), args[2], args[3]
+    names = CTC_HEAD_BF16_FWD + ("ctc_head_f32::lse_kernel",
+                                 "ctc_head_fwd::gather_kernel<float>")
+    before = _counts(names)
+    emit, z = kh._launch_fwd(hs, w, bias, ext)
+    torch.cuda.synchronize()
+    after = _counts(names)
+    assert {k: after[k] - before[k] for k in names} == {
+        k: int(k in CTC_HEAD_BF16_FWD) for k in names}
+    assert _rel(emit, kh.fused_ctc_head_emit_plain(hs, w, bias, ext)) <= 1e-4
+    ref_z = torch.logsumexp(hs.float() @ w.float().t() + bias, -1)
+    assert _rel(z, ref_z) <= 1e-4
 
 
 def test_fused_ctc_head_refuses_what_it_cannot_take(gen):

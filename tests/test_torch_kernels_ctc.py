@@ -12,6 +12,11 @@ tests/test_pallas_ctc.py: loss rtol 1e-4, gradients atol 2e-4 (fp32).
 The one documented divergence (ROADMAP.md queue 3): for an empty label
 sequence the reference kernel counts the final state twice (loss log 2 too
 small); the port follows the reference scan and F.ctc_loss.
+
+ctc_lattice_plain, which the card's two routes (one warp per utterance up
+to 256 states, one block past it) are held to, is also held to the Pallas
+lattice itself (_ctc_core, interpret mode) at the routes' edges: S 1, 3,
+256 and 257, tlen 0, 1 and T, every skip off, last 0.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from espnet_slurp_tpu.ops import ctc as jctc
+from espnet_slurp_tpu.ops.pallas.ctc import _ctc_core as jax_lattice
 from espnet_slurp_tpu.ops.pallas.ctc import ctc_loss_pallas as jax_pallas
 from espnet_slurp_tpu_torch.ops import ctc as tctc
 from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
@@ -61,6 +67,60 @@ def test_plain_lattice_matches_pallas_interpret(seed):
     np.testing.assert_allclose(loss, ref_l, rtol=1e-4)
     np.testing.assert_allclose(grad, ref_g, atol=2e-4)
     assert loss[2] == 0.0 and np.all(grad[2] == 0.0)  # infeasible row
+
+
+@pytest.mark.parametrize("s", [1, 3, 256, 257])
+def test_plain_lattice_matches_pallas_at_the_kernel_edges(s):
+    """ctc_lattice_plain against the Pallas lattice (_ctc_core, interpret
+    mode; its caller's padding of S to 128 lanes with NEG emissions and no
+    skips) on [4, T, S] emissions at S 1 and 3 (one lane's states), 256
+    (the warp route's limit) and 257 (the block route): row 0 every skip
+    allowed over T = S / 2 + 8 frames, row 1 tlen 0, row 2 tlen 1 with
+    empty labels (last 0), row 3 every skip off (repeated labels) over T -
+    2 frames. Loss rtol 1e-4, gradient atol 2e-4, as the file's other
+    cases; a row whose likelihood saturates gets cotangent 0, as
+    zero_infinity gives it. Rows with last 0 keep the documented
+    divergence: the reference counts the final state twice, so its loss is
+    log 2 smaller and its gradient half."""
+    rng = np.random.RandomState(s)
+    b, t_len = 4, s // 2 + 8
+    lp = np.log(rng.dirichlet(np.ones(7), size=(b, t_len)))
+    idx = rng.randint(0, 7, size=(b, s))
+    emit = np.take_along_axis(lp, np.broadcast_to(idx[:, None, :],
+                                                  (b, t_len, s)), 2)
+    emit = emit.astype(np.float32)
+    skip = np.ones((b, s), np.float32)
+    skip[2:] = 0.0
+    tlen = np.asarray([t_len, 0, 1, t_len - 2], np.int32)
+    last = np.asarray([s - 1, min(s - 1, 2), 0,
+                       min(s - 1, t_len - 3) // 2 * 2], np.int32)
+    g = rng.rand(b).astype(np.float32)
+
+    e = t(emit).requires_grad_(True)
+    loss = kctc.ctc_lattice(e, t(skip), t(tlen), t(last))
+    g = np.where(loss.detach().numpy() < 1e29, g, 0.0).astype(np.float32)
+    (grad,) = torch.autograd.grad(loss, e, t(g))
+
+    sp = -(-s // 128) * 128
+    pe = np.full((b, t_len, sp), kctc.NEG, np.float32)
+    pe[..., :s] = emit
+    ps = np.zeros((b, sp), np.float32)
+    ps[:, :s] = skip
+    ref, vjp = jax.vjp(lambda x: jax_lattice(x, jnp.asarray(ps),
+                                             jnp.asarray(tlen),
+                                             jnp.asarray(last)),
+                       jnp.asarray(pe))
+    ref_g = np.asarray(vjp(jnp.asarray(g))[0])
+    assert (ref_g[..., s:] == 0).all()
+    ref, ref_g = np.asarray(ref), ref_g[..., :s]
+    empty = last == 0
+    ref = np.where(empty, ref + np.log(2.0), ref)
+    ref_g = np.where(empty[:, None, None], 2.0 * ref_g, ref_g)
+    assert (loss.detach().numpy()[[0, 2]] < 1e29).all()
+    np.testing.assert_allclose(loss.detach().numpy(), ref, rtol=1e-4)
+    np.testing.assert_allclose(grad.numpy(), ref_g, atol=2e-4)
+    assert np.all(grad.numpy()[1] == 0.0)  # tlen 0
+    assert np.all(grad.numpy()[2, 1:] == 0.0)  # past tlen 1
 
 
 def test_wrapper_on_cpu_is_plain_and_not_counted():
