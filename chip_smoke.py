@@ -9,8 +9,9 @@ or the port's package is not beside it. Phases, each of which fails the run:
    espnet_slurp_tpu_torch/csrc (nvcc, sm_90a) and the build time, the
    compiler's register report and the blocks per SM of K3's bf16 and fp32
    forward, dkv and dq kernels and of K2's bf16 forward kernel printed, and
-   K2's fp32 kernels', K4's kernels' (both dtypes) and K1's (S 129 and
-   401) registers, shared and local (spill) bytes and blocks per SM.
+   K2's fp32 kernels', K4's kernels' (both dtypes), K1's (S 129 and
+   401) and K6's bf16 kernels' (D 256, k 31) registers, shared and local
+   (spill) bytes and blocks per SM.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -117,10 +118,22 @@ or the port's package is not beside it. Phases, each of which fails the run:
    (x [32, 468, 256], k 31, SAME with ragged lengths in bf16 and fp32, and
    one causal case), each direction against its plain version's outputs
    and autograd gradients (bf16 within 2e-2, fp32 within 1e-4 of max
-   |ref|); K5 and K6 then timed as in phase 4 beside the plain version,
-   the bound and (K6) the eager ConvModule it replaces. Last, K6 forward
-   in bf16 at the greedy decode's shape (x [8, T', 256], 468 valid frames
-   each) against its plain version, within 2e-2.
+   |ref|), K6's bf16 backward also against fused_conv_module_bwd_plain
+   (its rounding points) within BWD_PLAIN_TOL, and each K6 call's launches
+   by the library's host-side counts (bf16: glu and out forward, glu_sig,
+   rows, du, dx, dw and sum backward, on csrc/conv_module.cu's conv_bf16;
+   fp32: the first version's kernels; the first version's bf16 kernels
+   absent from the build); K5 then timed as in phase 4 beside the plain
+   version and the bound; K6's bf16 directions timed by CUDA events and
+   device time (each launch's, torch.profiler) beside the plain version,
+   the eager ConvModule it replaces (events and device time), the bound
+   (products at the bf16 peak and the taps and elementwise work at the
+   fp32 peak, counted apart) and what one backward call adds to peak
+   memory, each launch with its bound, registers, shared bytes, spills and
+   blocks per SM; both directions again at the flagship's B 64 (timed
+   only). Last, K6 forward in bf16 at the greedy decode's shape (x [8, T',
+   256], 468 valid frames each) against its plain version, within 2e-2,
+   and timed.
 9. The transducer train slice: transducer_flagship_config() with
    fused_conv (fp32 parameters, bf16 compute, the yaml's dropout 0.1,
    SpecAug on, seeded random weights), Adam at constant lr 1e-3 (the
@@ -129,7 +142,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    15 s utterances with U = 64: one warm-up step, then 5 timed steps. Every
    loss finite, nothing skipped, the last loss below the first, and per step
    exactly 24 K2, 12 K3 and 12 K6 launches each way, 1 K5 and 1 K1 each way
-   (the warp route, by the host counts) and no K4.
+   and no K4; by the host counts K1 on the warp route and K6 on its bf16
+   launches (12 of each a step, no fp32 one).
 10. One fp32 transducer forward + backward (fused_conv, SpecAug off, the
    yaml's dropout 0.1 with phase 6's seeds) of the same weights on phase
    6's two short utterances, CPU (plain versions) against the card
@@ -137,7 +151,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    max |ref| with phase 6's floor.
 11. Greedy decode: Speech2TextTransducer (fused_conv) decodes the 8 x 15 s
    serving traffic on the card; its RTF is printed, and the encode must
-   launch 24 K2, 12 K3 and 12 K6.
+   launch 24 K2, 12 K3 and 12 K6, K6 on its bf16 forward (12 glu and 12
+   out launches by the host counts, no other counted kernel).
 
 12. The default ASRConfig's fp32 launches and the WMMA ones at rates 0 and
    0.1 at the flagship train shape (run after phase 7): K2 fp32 (the
@@ -1208,8 +1223,9 @@ def ctc_head_bwd_detail(torch, kh, call, args, n):
     return ms, launch_ms, peak_mb
 
 
-# K1's and K4's kernels by their host-side launch counts (csrc/common.cuh's
-# counted_name; each is also a part of the kernel's profiler name).
+# K1's, K4's and K6's kernels by their host-side launch counts
+# (csrc/common.cuh's counted_name; each is also a part of the kernel's
+# profiler name).
 K1_WARP = ("ctc_warp::fwd_kernel", "ctc_warp::bwd_kernel")
 K1_BLOCK = ("ctc_block::fwd_kernel", "ctc_block::bwd_kernel")
 K4_BF16_LAUNCHES = {"ctc_head_bf16::lse_kernel": "fwd",
@@ -1226,7 +1242,29 @@ K4_F32_LAUNCHES = {"ctc_head_f32::lse_kernel": "fwd",
                    "ctc_head_f32::dx_kernel": "bwd",
                    "ctc_head_f32::dw_kernel": "bwd"}
 K4_GONE = ("ctc_head_fwd_kernel", "ctc_head_dx_kernel", "ctc_head_dw_kernel")
-ROUTED = K1_WARP + K1_BLOCK + tuple(K4_BF16_LAUNCHES) + tuple(K4_F32_LAUNCHES)
+# K6's launches (csrc/conv_module.cu): bf16 in the order of
+# espnet_conv_bf16_info's `which`, then fp32 (the first version's kernels),
+# each with its direction; the first version's bf16 instantiations (their
+# mangled names in the compiler's report), which must not be built.
+K6_BF16_LAUNCHES = {"conv_bf16::glu_kernel": "fwd",
+                    "conv_bf16::out_kernel": "fwd",
+                    "conv_bf16::glu_sig_kernel": "bwd",
+                    "conv_bf16::rows_kernel": "bwd",
+                    "conv_bf16::du_kernel": "bwd",
+                    "conv_bf16::dx_kernel": "bwd",
+                    "conv_bf16::dw_kernel": "bwd",
+                    "conv_bf16::sum_kernel": "bwd"}
+K6_F32_LAUNCHES = {"conv_fwd_kernel<float": "fwd",
+                   "conv_bwd_rows_kernel<float": "bwd",
+                   "conv_bwd_dw2_kernel<float": "bwd",
+                   "conv_bwd_dw1_kernel<float": "bwd",
+                   "conv_bwd_dx_kernel<float": "bwd"}
+K6_GONE = tuple(f"{k}I13__nv_bfloat16" for k in (
+    "conv_fwd_kernel", "conv_bwd_rows_kernel", "conv_bwd_dw2_kernel",
+    "conv_bwd_dw1_kernel", "conv_bwd_dx_kernel"))
+K6_BF16_FWD = tuple(k for k, w in K6_BF16_LAUNCHES.items() if w == "fwd")
+ROUTED = (K1_WARP + K1_BLOCK + tuple(K4_BF16_LAUNCHES) + tuple(K4_F32_LAUNCHES)
+          + tuple(K6_BF16_LAUNCHES) + tuple(K6_F32_LAUNCHES))
 
 
 def route_counts(names=ROUTED):
@@ -1244,9 +1282,12 @@ def routes_of(call, names=ROUTED):
 
 
 def check_routes(what, got, want_each, times=1, names=ROUTED):
-    """Each kernel of want_each launched `times` times in got, the others
-    of names none."""
-    want = {k: times * int(k in want_each) for k in names}
+    """Each kernel of want_each launched `times` times in got (want_each
+    {kernel: int}: its count times `times`), the others of names none."""
+    counts = isinstance(want_each, dict) and all(
+        isinstance(v, int) for v in want_each.values())
+    per = want_each if counts else dict.fromkeys(want_each, 1)
+    want = {k: times * per.get(k, 0) for k in names}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
@@ -1295,6 +1336,104 @@ def k4_gone_check(torch, names):
     if gone:
         raise AssertionError(f"K4's first-version kernels are still built "
                              f"or launched: {gone}")
+
+
+def k6_gone_check(torch):
+    """The first version's bf16 K6 kernels are not in the built library
+    (the compiler's entry list)."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    gone = sorted({x for x in K6_GONE for ln in build.build_log().splitlines()
+                   if "Compiling entry" in ln and x in ln})
+    if gone:
+        raise AssertionError(f"K6's first-version bf16 kernels are still "
+                             f"built: {gone}")
+
+
+def k6_info(d, k):
+    """{kernel: (registers, shared bytes, local bytes, blocks per SM)} of
+    K6's bf16 launches at width d and k taps, from the built library."""
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    return {name: kc.info(which, d, k)
+            for which, name in enumerate(K6_BF16_LAUNCHES)}
+
+
+def bound2(products: float, fp32_ops: float, nbytes: float):
+    """bound() for work of two types: the tensor-core products at the bf16
+    peak plus the fp32 work (taps, elementwise) at the fp32 peak, counted
+    apart and added, against the bytes."""
+    t_ops = products / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# K6's fp32 work a [row, channel] element beyond the products and taps:
+# forward GLU (sigmoid as exp, add, reciprocal; product; mask) 5, LayerNorm
+# 7, swish 4; backward those again and swish' 5, LayerNorm backward 9, the
+# GLU backward 6, the column sums 5.
+K6_ELEM_FWD, K6_ELEM_BWD = 16, 41
+
+
+def k6_bounds(b, t, d, k, nsplit):
+    """Bounds (ms, by) of K6's bf16 directions and launches at B x T rows,
+    width d, k taps, dW in nsplit splits: products (bf16) and taps and
+    elementwise work (fp32) counted apart (bound2); bytes as each reads and
+    writes them, scratch included for a launch (g, sig, dc fp32; sw, du
+    bf16; the partials fp32), only the function's inputs and outputs for a
+    direction (x, lengths, the weights; out, or go in and dx and the
+    gradients out)."""
+    n = b * t
+    tiles = b * -(-t // 32)
+    nd, dd = n * d, d * d
+    params = 4 * (2 * d + d * k + 4 * d)  # b1, wdw, bdw, gamma, beta, b2
+    weights = 2 * 3 * dd
+    grads = 2 * 3 * dd + 4 * (2 * d + d * k + 4 * d)
+    taps = 2.0 * nd * k
+    part = 4 * (tiles * (4 * d + d * k + 2 * d) + nsplit * 3 * dd)
+    launches = {
+        "conv_bf16::glu_kernel": bound2(4.0 * nd * d, 5.0 * nd,
+                                        2 * nd + 4 * dd + 8 * d + 4 * b
+                                        + 4 * nd),
+        "conv_bf16::out_kernel": bound2(2.0 * nd * d, taps + 11.0 * nd,
+                                        4 * nd + 2 * dd + params + 2 * nd),
+        "conv_bf16::glu_sig_kernel": bound2(4.0 * nd * d, 5.0 * nd,
+                                            2 * nd + 4 * dd + 8 * d + 4 * b
+                                            + 8 * nd),
+        "conv_bf16::rows_kernel": bound2(
+            2.0 * nd * d, 2 * taps + 25.0 * nd,
+            4 * nd + 2 * nd + 2 * dd + params + 4 * nd + 2 * nd
+            + 4 * tiles * (4 * d + d * k)),
+        "conv_bf16::du_kernel": bound2(0.0, taps + 11.0 * nd,
+                                       12 * nd + 4 * d * k + 4 * b + 4 * nd
+                                       + 4 * tiles * 2 * d),
+        "conv_bf16::dx_kernel": bound2(4.0 * nd * d, 0.0,
+                                       4 * nd + 4 * dd + 2 * nd),
+        "conv_bf16::dw_kernel": bound2(6.0 * nd * d, 0.0,
+                                       4 * nd + 2 * nd + 4 * nd
+                                       + 4 * nsplit * 3 * dd),
+        "conv_bf16::sum_kernel": bound2(0.0, part / 4, part + grads)}
+    return {
+        "fwd": bound2(6.0 * nd * d, taps + K6_ELEM_FWD * nd,
+                      2 * nd + 4 * b + weights + params + 2 * nd),
+        "bwd": bound2(16.0 * nd * d, 3 * taps + K6_ELEM_BWD * nd,
+                      2 * nd + 4 * b + weights + params + 2 * nd + 2 * nd
+                      + grads),
+        "launches": launches}
+
+
+def device_total_ms(torch, call, n=5):
+    """torch.profiler's device time of everything call() launches, a call,
+    over n calls after one unprofiled call (an eager composition's time on
+    the card, apart from its host's pace)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) \
+        / 1e3 / n
 
 
 def launch_table(what, got, info, bounds):
@@ -1675,7 +1814,7 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
     """One warm-up step, then TRAIN_STEPS timed ones (3 when ``budget_s``
     is given and TRAIN_STEPS + 2 steps at the warm-up's time would run past
     it) with every launch count zeroed just before and read just after
-    (the wrappers' counts, and K1's and K4's kernels by the library's
+    (the wrappers' counts, and K1's, K4's and K6's kernels by the library's
     host-side counts); checks finite losses, nothing skipped and a falling
     loss; then one more step under torch.profiler for the device's busy
     time (the sum of its kernels' times). Returns (launches, step s, busy
@@ -1720,7 +1859,7 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
                       if k.startswith("loss_"))
     print(f"{what}: losses {[first_loss] + losses}, grad norms {norms}, "
           f"skipped {skipped}, {extra}")
-    print(f"{what}: launches over {steps} steps {launches}; K1 and K4 "
+    print(f"{what}: launches over {steps} steps {launches}; K1, K4 and K6 "
           f"kernels {routes}")
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and losses[-1] < first_loss):
@@ -1801,7 +1940,6 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     """K2 and K3 both ways, and K5 and K6 both ways, at the transducer
     step's shapes (T' t_prime), then K6 forward at the greedy decode's
     (N_UTT x t_serve, lengths t_prime); returns the kernels-line entries."""
-    from espnet_slurp_tpu_torch.models.conformer import ConvModule
     from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
     from espnet_slurp_tpu_torch.ops.kernels import ffn
     from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
@@ -1893,97 +2031,118 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
                     bound_ms=bbound[0], bound_by=bbound[1], **common))
     del blank, emit, o, g, ro, rg
 
+    out += conv_phase(torch, kc, b, t, t_serve, d, k, r)
+    return out, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
+                 "rel_flash_attention_bwd": att_bwd_tr}
+
+
+def conv_phase(torch, kc, b, t, t_serve, d, k, r):
+    """K6 both ways at the transducer step's shapes (B b, T' t, width d, k
+    taps; bf16 SAME and causal, fp32 SAME, ragged lengths), each call's
+    route by the host counts, the bf16 backward also against
+    fused_conv_module_bwd_plain; then timed at that shape and the
+    flagship's (B 64), the forward also at the greedy decode's (N_UTT x
+    t_serve, t valid frames). Returns the kernels-line entries."""
+    out = []
     # K6: x [B, T', D], k 31, ragged lengths; SAME in bf16 and fp32, and
-    # causal in bf16.
+    # causal in bf16; each call's launches by the host counts.
+    k6_gone_check(torch)
     lengths = torch.tensor([t - 7 * i for i in range(b)], dtype=torch.int32,
                            device="cuda")
-    x0 = r(b, t, d)
     params0 = (r(2 * d, d) * d ** -0.5, r(2 * d) * 0.1, r(d, k) * k ** -0.5,
                r(d) * 0.1, 1.0 + 0.1 * r(d), r(d) * 0.1, r(d, d) * d ** -0.5,
                r(d) * 0.1)
-    gout = r(b, t, d)
+    x0, gout = r(b, t, d), r(b, t, d)
     names = ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta", "dw2",
              "db2")
     for dt, causal in ((torch.bfloat16, False), (torch.float32, False),
                        (torch.bfloat16, True)):
         name = str(dt).split(".")[-1]
-        w1, b1, wdw, bdw, gamma, beta, w2, b2 = params0
-        args = (x0.to(dt), lengths, w1.to(dt), b1, wdw, bdw, gamma, beta,
-                w2.to(dt), b2)
+        args = k6_args(x0, lengths, params0, dt)
         kw = dict(kernel_size=k, causal=causal)
         fn = lambda *a: kc.fused_conv_module(*a, **kw)
         plain = lambda *a: kc.fused_conv_module_plain(*a, **kw)
         grad_args = (args[0],) + args[2:] + (args[1],)  # differentiable first
         reorder = lambda f: lambda x, *rest: f(x, rest[-1], *rest[:-1])
+        what = f"K6 fused_conv_module {name} B={b} T={t} D={d} k={k} " \
+               f"causal={causal}"
+        before = route_counts()
         o, g, _ = grad_case(torch, reorder(fn), grad_args, gout.to(dt), 9)
+        torch.cuda.synchronize()
+        got = {n: c - before[n] for n, c in route_counts().items()}
+        check_routes(what, got, K6_BF16_LAUNCHES if dt == torch.bfloat16
+                     else K6_F32_LAUNCHES)
         ro, rg, plain_bwd = grad_case(torch, reorder(plain), grad_args,
                                       gout.to(dt), 9)
-        err_o, err_g = hold(torch, f"K6 fused_conv_module {name} B={b} T={t} "
-                            f"D={d} k={k} causal={causal}", o, ro, g, rg,
-                            names, TOL[name])
+        err_o, err_g = hold(torch, what, o, ro, g, rg, names, TOL[name])
+        if dt == torch.bfloat16:
+            # The backward at the reference's rounding points.
+            bp = kc.fused_conv_module_bwd_plain(*args[:-1], gout.to(dt), **kw)
+            rels = [rel_err(a, p)[1] for a, p in zip(g, bp)]
+            print(f"{what} backward against fused_conv_module_bwd_plain: "
+                  + ", ".join(f"{n} {v:.3e}" for n, v in zip(names, rels))
+                  + f" of max|ref| (tolerance {BWD_PLAIN_TOL})")
+            if not max(rels) <= BWD_PLAIN_TOL:
+                raise AssertionError("K6 bf16 backward disagrees with "
+                                     "fused_conv_module_bwd_plain")
+            del bp
+        del o, g, ro, rg
         if dt != torch.bfloat16 or causal:
             del plain_bwd
             continue
-        pl = kc.left_pad(k, False)
         gb = gout.to(dt)
-        fwd_ms = median_ms(torch, lambda: kc._launch_fwd(*args, k, pl, 1e-6))
-        bwd_ms = median_ms(torch, lambda: kc._launch_bwd(*args[:-1], gb, k,
-                                                         pl, 1e-6))
+        timed = k6_timed(torch, kc, args, gb, k, "(transducer train)")
         plain_fwd_ms = median_ms(torch, lambda: plain(*args))
         plain_bwd_ms = median_ms(torch, plain_bwd)
         del plain_bwd
-        # The eager ConvModule with the same weights: what K6 replaces.
-        mod = ConvModule(d, k).cuda()
-        with torch.no_grad():
-            for p, v in zip((mod.pointwise1.weight, mod.pointwise1.bias,
-                             mod.depthwise.weight, mod.depthwise.bias,
-                             mod.norm.weight, mod.norm.bias,
-                             mod.pointwise2.weight, mod.pointwise2.bias),
-                            params0):
-                p.copy_(v.view_as(p))
-        mask = (torch.arange(t, device="cuda")[None, :]
-                < lengths.long()[:, None])
-        xe = args[0].detach().requires_grad_(True)
-        lib_fwd_ms = median_ms(torch, lambda: mod(xe, mask))
-        ye = mod(xe, mask)
-        leaves = [xe] + list(mod.parameters())
-        lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
-            ye, leaves, gb, retain_graph=True))
-        del ye, leaves, mod
-        n = b * t
-        wbytes = 2 * (2 * d * d + d * d) + 4 * (2 * d + d * k + 4 * d)
-        fbound = bound(2.0 * n * d * (2 * d + d + k), 2 * 2 * n * d + 4 * b
-                       + wbytes)
-        # recompute of pw1 + taps, then dsw, dW2, dW1, dx and the taps' two
-        # gradients; bytes: x, g in, dx out, weights in and gradients out.
-        bbound = bound(2.0 * n * d * (2 * d + k + d + d + 2 * d + 2 * d + 2 * k),
-                       3 * 2 * n * d + 4 * b + wbytes
-                       + 4 * (3 * d * d + 2 * d + d * k + 4 * d))
+        eager = k6_eager(torch, x0.to(dt), lengths, params0, gb, k)
+        info = k6_info(d, k)
+        bnd = k6_bounds(b, t, d, k, kc.dw_splits(b * t, d, x0.device))
+        k6_launches = launch_table("K6 bf16", {
+            **timed["fwd_launch_ms"], **timed["bwd_launch_ms"]}, info,
+            bnd["launches"])
+        flagship = k6_timed(torch, kc, k6_args(
+            r(TRAIN_B, t, d), torch.full((TRAIN_B,), t, dtype=torch.int32,
+                                         device="cuda"), params0, dt),
+            r(TRAIN_B, t, d).to(dt), k, f"(flagship shape, B={TRAIN_B})")
+        print(f"K6 fused_conv_module bfloat16 B={b} T={t}: forward "
+              f"{timed['fwd_ms']:.4f} ms (device {timed['fwd_device_ms']:.4f}"
+              f"), plain {plain_fwd_ms:.4f}, eager ConvModule "
+              f"{eager['fwd_ms']:.4f} (device {eager['fwd_device_ms']:.4f}), "
+              f"bound {bnd['fwd'][0]:.4f} ({bnd['fwd'][1]}); backward "
+              f"{timed['bwd_ms']:.4f} ms (device {timed['bwd_device_ms']:.4f}"
+              f"), plain {plain_bwd_ms:.4f}, eager ConvModule "
+              f"{eager['bwd_ms']:.4f} (device {eager['bwd_device_ms']:.4f}), "
+              f"bound {bnd['bwd'][0]:.4f} ({bnd['bwd'][1]}); one backward "
+              f"call adds {timed['bwd_peak_mb']:.1f} MB at its peak")
         common = dict(route="cuda",
                       source="espnet_slurp_tpu_torch/csrc/conv_module.cu",
                       launches=None,
                       library_note="the eager ConvModule (bf16), which K6 "
-                                   "replaces")
-        out.append(dict(name="fused_conv_module",
-                        replaces="espnet_slurp_tpu/ops/pallas/conv_module.py"
-                                 ":214",
-                        max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
-                        bound_ms=fbound[0], bound_by=fbound[1],
-                        library_ms=lib_fwd_ms, **common))
-        out.append(dict(name="fused_conv_module_bwd",
-                        replaces="espnet_slurp_tpu/ops/pallas/conv_module.py"
-                                 ":236",
-                        max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
-                        bound_ms=bbound[0], bound_by=bbound[1],
-                        library_ms=lib_bwd_ms, **common))
+                                   "replaces; library_device_ms is its "
+                                   "device time (torch.profiler)")
+        for way, entry, line, mx, pms in (
+                ("fwd", "fused_conv_module", 214, err_o, plain_fwd_ms),
+                ("bwd", "fused_conv_module_bwd", 236, err_g, plain_bwd_ms)):
+            out.append(dict(
+                name=entry, replaces="espnet_slurp_tpu/ops/pallas/"
+                f"conv_module.py:{line}", max_abs_err=mx,
+                ms=timed[f"{way}_ms"], device_ms=timed[f"{way}_device_ms"],
+                plain_ms=pms, bound_ms=bnd[way][0], bound_by=bnd[way][1],
+                library_ms=eager[f"{way}_ms"],
+                library_device_ms=eager[f"{way}_device_ms"],
+                peak_mb=timed[f"{way}_peak_mb"],
+                launch_detail={n: v for n, v in k6_launches.items()
+                               if K6_BF16_LAUNCHES[n] == way},
+                at_flagship_shape={key: flagship[f"{way}_{key}"] for key in (
+                    "ms", "device_ms", "launch_ms", "peak_mb")},
+                **common))
 
     # K6 forward as the greedy decode runs it: 8 utterances of 15 s padded
     # to T' t_serve, each with t_prime valid frames, bf16, no gradient.
-    w1, b1, wdw, bdw, gamma, beta, w2, b2 = params0
-    bf = torch.bfloat16
-    args = (r(N_UTT, t_serve, d).to(bf),
-            torch.full((N_UTT,), t, dtype=torch.int32, device="cuda"),
-            w1.to(bf), b1, wdw, bdw, gamma, beta, w2.to(bf), b2)
+    args = k6_args(r(N_UTT, t_serve, d), torch.full(
+        (N_UTT,), t, dtype=torch.int32, device="cuda"), params0,
+        torch.bfloat16)
     with torch.no_grad():
         o = kc.fused_conv_module(*args, kernel_size=k, causal=False)
         torch.cuda.synchronize()
@@ -1995,8 +2154,67 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     if not (torch.isfinite(o).all() and rel <= TOL["bfloat16"]):
         raise AssertionError("K6 at the decode's shape disagrees with its "
                              "plain version")
-    return out, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
-                 "rel_flash_attention_bwd": att_bwd_tr}
+    decode = k6_timed(torch, kc, args, None, k, f"(greedy decode, B={N_UTT} "
+                      f"T={t_serve})")
+    next(x for x in out if x["name"] == "fused_conv_module")[
+        "at_decode_shape"] = {key: decode[f"fwd_{key}"] for key in (
+            "ms", "device_ms", "launch_ms")}
+    return out
+
+
+def k6_args(x, lengths, params, dt):
+    """K6's arguments in dtype dt: x, w1 and w2 in dt, the rest fp32."""
+    w1, b1, wdw, bdw, gamma, beta, w2, b2 = params
+    return (x.to(dt), lengths, w1.to(dt), b1, wdw, bdw, gamma, beta,
+            w2.to(dt), b2)
+
+
+def k6_timed(torch, kc, args, gb, k, what):
+    """K6's forward (and, with a cotangent gb, backward) launches alone at
+    one shape: CUDA events, each launch's device time and their sum
+    (torch.profiler), what one call adds to peak memory."""
+    pl = kc.left_pad(k, False)
+    calls = {"fwd": lambda: kc._launch_fwd(*args, k, pl, 1e-6)}
+    if gb is not None:
+        calls["bwd"] = lambda: kc._launch_bwd(*args[:-1], gb, k, pl, 1e-6)
+    res = {}
+    for way, call in calls.items():
+        parts = {n: n for n, w in K6_BF16_LAUNCHES.items() if w == way}
+        ms, launch_ms, peak_mb = launch_detail(torch, call, parts)
+        res.update({f"{way}_ms": ms, f"{way}_launch_ms": launch_ms,
+                    f"{way}_device_ms": sum(launch_ms.values()),
+                    f"{way}_peak_mb": peak_mb})
+        print(f"K6 bf16 {way} {what}: {ms:.4f} ms, device "
+              f"{res[f'{way}_device_ms']:.4f} ms ("
+              + ", ".join(f"{n.split('::')[-1]} {v:.4f}"
+                          for n, v in launch_ms.items())
+              + f"); one call adds {peak_mb:.1f} MB at its peak")
+    return res
+
+
+def k6_eager(torch, x, lengths, params, gb, k):
+    """The eager ConvModule with K6's weights, which K6 replaces, on x (its
+    dtype, the pad mask from lengths): forward (with autograd's graph) and
+    autograd's backward, each by CUDA events and by device time."""
+    from espnet_slurp_tpu_torch.models.conformer import ConvModule
+    d, t = x.shape[-1], x.shape[1]
+    mod = ConvModule(d, k).cuda()
+    with torch.no_grad():
+        for p, v in zip((mod.pointwise1.weight, mod.pointwise1.bias,
+                         mod.depthwise.weight, mod.depthwise.bias,
+                         mod.norm.weight, mod.norm.bias,
+                         mod.pointwise2.weight, mod.pointwise2.bias), params):
+            p.copy_(v.view_as(p))
+    mask = torch.arange(t, device="cuda")[None, :] < lengths.long()[:, None]
+    xe = x.detach().requires_grad_(True)
+    fwd = lambda: mod(xe, mask)
+    ye = fwd()
+    leaves = [xe] + list(mod.parameters())
+    bwd = lambda: torch.autograd.grad(ye, leaves, gb, retain_graph=True)
+    return {"fwd_ms": median_ms(torch, fwd),
+            "fwd_device_ms": device_total_ms(torch, fwd),
+            "bwd_ms": median_ms(torch, bwd),
+            "bwd_device_ms": device_total_ms(torch, bwd)}
 
 
 def transducer_train_phase(torch, card):
@@ -2013,8 +2231,10 @@ def transducer_train_phase(torch, card):
         torch, f"transducer train: B={TR_B} x {TRAIN_SECONDS} s, U={TR_U}, "
         f"V={cfg.asr.vocab_size}, fused_conv, dropout "
         f"{cfg.asr.dropout_rate}", model, batch, card, TR_B * TRAIN_SECONDS)
-    check_routes("transducer train", routes, K1_WARP, TRAIN_STEPS)
     n_blocks = cfg.asr.num_encoder_blocks
+    check_routes("transducer train", routes, {
+        **dict.fromkeys(K1_WARP, 1),
+        **dict.fromkeys(K6_BF16_LAUNCHES, n_blocks)}, TRAIN_STEPS)
     check_per_step("transducer train", launches, {
         "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
         "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
@@ -2137,12 +2357,15 @@ def transducer_decode_phase(torch, card):
     warm_s = time.perf_counter() - t0
     names = ("fused_ffn", "rel_flash_attention", "fused_conv_module")
     zero_counts(names)
+    routes0 = route_counts()
     t0 = time.perf_counter()
     texts = s2t.decode_batch(speeches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(names)
+    routes = {k: n - routes0[k] for k, n in route_counts().items()}
     n_blocks = cfg.asr.num_encoder_blocks
+    check_routes("transducer encode", routes, K6_BF16_FWD, n_blocks)
     print(f"transducer greedy decode: {N_UTT} x {UTT_SECONDS} s, max_len "
           f"{s2t.max_len}, 4 symbols per frame: wall {wall:.3f} s (first "
           f"call {warm_s:.3f} s), RTF {wall / (N_UTT * UTT_SECONDS):.5f} on "
@@ -2728,6 +2951,8 @@ def main() -> int:
           f"per SM): {ctc_head_info(1)}")
     print("K1 kernels at S 129 and 401 (registers, shared bytes, local "
           f"bytes, blocks per SM): {ctc_info(129)} {ctc_info(401)}")
+    print("K6 bf16 kernels at D 256, k 31 (registers, shared bytes, local "
+          f"bytes, blocks per SM): {k6_info(256, 31)}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).

@@ -5,12 +5,13 @@ rows_kernel, dx_kernel and dw_kernel backward; K3's register micro-tile
 ones) and K3's bf16 WMMA launches, or with ``--head-fp32`` K4's fp32 route
 (the default ASRConfig's CTC head) both ways, or with ``--head-lattice``
 K4's bf16 forward (the flagship's CTC head) and K1 (the CTC lattice) both
-ways.
+ways, or with ``--conv`` K6 (the fused conv module) in bf16 both ways.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-fp32
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-lattice
+    python -m espnet_slurp_tpu_torch.bin.time_kernels --conv
 
 bf16, inputs from a seeded torch.Generator. K2's forward (``_launch_fwd``,
 D 256, F 1024) at N = 8 x 471 (serving), 64 x 468 (flagship train step)
@@ -35,6 +36,15 @@ eager composition, and K1's forward and backward (``_launch_fwd``,
 ``_launch_bwd``: B 64, T' 468, key lengths T' - 3 b, S 129 from U 64
 labels over V 5000 log-probs) beside their plain versions (5 runs) and
 F.ctc_loss both ways (``library_ms``), with ``us_per_frame`` over T'.
+``--conv`` times K6's bf16 forward (``_launch_fwd``) and backward
+(``_launch_bwd``; D 256, k 31, SAME, key lengths T' - 7 b) the same way
+at the transducer train step's shape (B 32, T' 468) and the flagship's
+(B 64, T' 468; the flagship trains with ``fused_conv`` off), the forward
+also at the greedy decode's (B 8, T' 471, 468 valid frames), each beside
+its plain version (the forward; autograd's backward of it) and, at the
+transducer shape, beside the eager ``ConvModule`` with the same weights
+(``eager_ms`` by events, ``eager_device_ms`` by torch.profiler: the sum of
+its kernels' times a call).
 ``--wmma`` instead times, at rate
 0 and (``--rate`` above 0) at that dropout rate, each direction's launches
 of K2's fp32 route (N 64 x 468, D 256, d_ff 2048: the default ASRConfig's
@@ -235,6 +245,82 @@ def lattice_case(gen):
                                                    retain_graph=True)}
 
 
+def device_ms(fn, n=10) -> float:
+    """torch.profiler's device time of everything fn launches, a call,
+    over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n
+
+
+CONV_K = 31
+# name: (B, T', valid frames of utterance b, directions timed)
+CONV_CASES = {"transducer": (32, 468, lambda b: 468 - 7 * b, ("fwd", "bwd")),
+              "flagship": (64, 468, lambda b: 468 - 7 * (b % 32),
+                           ("fwd", "bwd")),
+              "decode": (8, 471, lambda b: 468, ("fwd",))}
+
+
+def conv_timings(gen) -> dict:
+    """--conv: K6 in bf16 at CONV_CASES' shapes."""
+    from espnet_slurp_tpu_torch.models.conformer import ConvModule
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    bf, k = torch.bfloat16, CONV_K
+    params = (r(2 * D, D) * D ** -0.5, r(2 * D) * 0.1, r(D, k) * k ** -0.5,
+              r(D) * 0.1, 1.0 + 0.1 * r(D), r(D) * 0.1, r(D, D) * D ** -0.5,
+              r(D) * 0.1)
+    w1, b1, wdw, bdw, gamma, beta, w2, b2 = params
+    out = {}
+    for name, (b, t, valid, ways) in CONV_CASES.items():
+        lengths = torch.tensor([valid(i) for i in range(b)],
+                               dtype=torch.int32, device="cuda")
+        args = (r(b, t, D).to(bf), lengths, w1.to(bf), b1, wdw, bdw, gamma,
+                beta, w2.to(bf), b2)
+        g = r(b, t, D).to(bf)
+        leaves = [a.detach().clone().requires_grad_(a.is_floating_point())
+                  for a in args]
+        y = kc.fused_conv_module_plain(*leaves, kernel_size=k)
+        diff = [a for a in leaves if a.requires_grad]
+        calls = {"fwd": (lambda: kc._launch_fwd(*args, k, k // 2, 1e-6),
+                         lambda: kc.fused_conv_module_plain(*args,
+                                                            kernel_size=k)),
+                 "bwd": (lambda: kc._launch_bwd(*args[:-1], g, k, k // 2,
+                                                1e-6),
+                         lambda: torch.autograd.grad(y, diff, g,
+                                                     retain_graph=True))}
+        for way in ways:
+            out[f"conv_{way}_{name}"] = {"B": b, "T": t, "D": D, "k": k,
+                                         **timed(*calls[way])}
+        del y, leaves, diff
+        if name != "transducer":
+            continue
+        mod = ConvModule(D, k).cuda()
+        with torch.no_grad():
+            for p, v in zip((mod.pointwise1.weight, mod.pointwise1.bias,
+                             mod.depthwise.weight, mod.depthwise.bias,
+                             mod.norm.weight, mod.norm.bias,
+                             mod.pointwise2.weight, mod.pointwise2.bias),
+                            params):
+                p.copy_(v.view_as(p))
+        mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+        xe = args[0].detach().requires_grad_(True)
+        fwd = lambda: mod(xe, mask)
+        ye = fwd()
+        grads = [xe] + list(mod.parameters())
+        bwd = lambda: torch.autograd.grad(ye, grads, g, retain_graph=True)
+        for way, fn in (("fwd", fwd), ("bwd", bwd)):
+            out[f"conv_{way}_{name}"].update(eager_ms=median_ms(fn),
+                                             eager_device_ms=device_ms(fn))
+        del ye, grads, mod
+    return out
+
+
 def head_lattice_timings(gen) -> dict:
     """--head-lattice: K4's bf16 forward and K1 both ways."""
     out = {}
@@ -269,6 +355,8 @@ def main() -> int:
                     help="time K4's fp32 route both ways instead")
     ap.add_argument("--head-lattice", action="store_true",
                     help="time K4's bf16 forward and K1 both ways instead")
+    ap.add_argument("--conv", action="store_true",
+                    help="time K6's bf16 forward and backward instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -286,6 +374,9 @@ def main() -> int:
         return emit(result, args.out)
     if args.head_lattice:
         result.update(head_lattice_timings(gen))
+        return emit(result, args.out)
+    if args.conv:
+        result.update(conv_timings(gen))
         return emit(result, args.out)
     if args.head_fp32:
         torch.backends.cuda.matmul.allow_tf32 = False

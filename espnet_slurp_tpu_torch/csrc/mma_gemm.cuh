@@ -16,6 +16,11 @@
 //     functor that receives each thread's accumulator pairs with their
 //     (row, column), and a per-stage hook may read each landed stage (a
 //     column sum of an operand rides along for free).
+//   - A row map for a K-major B (the memory row of each of the tile's
+//     rows: K6's pw1 interleaves W1's GLU halves per n8 tile through it),
+//     and `run_ra`, the mainloop with A already resident in shared memory
+//     and only B streamed through the ring (K6's pw2 multiplies a tile the
+//     block formed itself).
 //   - `warp_mma_k16`, the mainloop's per-warp step on its own: one warp's
 //     products over one k-step from tiles a kernel already holds in shared
 //     memory, with runtime leading dimensions (K3's dkv kernel uses it), and
@@ -29,6 +34,8 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace espnet {
 namespace mma {
@@ -185,6 +192,11 @@ struct NoHook {
   __device__ __forceinline__ void operator()(const bf16*, const bf16*) {}
 };
 
+// The row map that changes nothing: a tile's row r is the operand's row r.
+struct SameRows {
+  __device__ __forceinline__ long operator()(long r) const { return r; }
+};
+
 // One block tile of BM x BN over warps of WM x WN (warp w owns rows
 // (w / (BN / WN)) * WM and columns (w % (BN / WN)) * WN of the tile), K
 // walked in steps of BK through a ring of STAGES shared-memory stages.
@@ -221,28 +233,48 @@ struct Gemm {
 
   // rows x cols (cols contiguous, a multiple of 8) of global p (leading
   // dimension ld) from (r0, c0) into the padded shared tile s; a 16-byte
-  // chunk with row >= rlim or column >= clim is zero-filled.
-  template <int ROWS, int COLS, int LD>
+  // chunk with row >= rlim or column >= clim is zero-filled. Tile row r is
+  // p's row rows(r0 + r).
+  template <int ROWS, int COLS, int LD, class RowMap = SameRows>
   __device__ __forceinline__ static void load_tile(bf16* s, const bf16* p, long ld, long r0,
-                                                   long c0, long rlim, long clim) {
+                                                   long c0, long rlim, long clim,
+                                                   const RowMap& rows = RowMap()) {
     constexpr int CH = COLS / 8;
     constexpr int TOTAL = ROWS * CH;
-    static_assert(TOTAL % kThreads == 0, "tile chunks per thread");
+    static_assert(TOTAL % kThreads == 0 || TOTAL < kThreads, "tile chunks per thread");
 #pragma unroll
-    for (int i = 0; i < TOTAL / kThreads; ++i) {
+    for (int i = 0; i < (TOTAL + kThreads - 1) / kThreads; ++i) {
       const int idx = threadIdx.x + i * kThreads;
+      if (TOTAL % kThreads != 0 && idx >= TOTAL) break;  // a tile smaller than the block
       const int r = idx / CH;
       const int c = (idx - r * CH) * 8;
       const long gr = r0 + r, gc = c0 + c;
       const bool ok = gr < rlim && gc < clim;
-      cp_async16(s + r * LD + c, ok ? p + gr * ld + gc : p, ok);
+      cp_async16(s + r * LD + c, ok ? p + rows(gr) * ld + gc : p, ok);
+    }
+  }
+
+  // B's part of a stage at sb <- the K step starting at kb; brows maps the
+  // tile's N rows to B's rows (a K-major B only).
+  template <class BRows = SameRows>
+  __device__ __forceinline__ static void load_b(bf16* sb, const bf16* B, long ldb, long n0,
+                                                long nlim, long kb, long klim,
+                                                const BRows& brows = BRows()) {
+    static_assert(BL == Major::K || std::is_same<BRows, SameRows>::value,
+                  "a row map needs a K-major B");
+    if constexpr (BL == Major::K) {
+      load_tile<BN, BK, B_LD>(sb, B, ldb, n0, kb, nlim, klim, brows);
+    } else {
+      load_tile<BK, BN, B_LD>(sb, B, ldb, kb, n0, klim, nlim);
     }
   }
 
   // Stage `slot` <- the K step starting at kb.
+  template <class BRows = SameRows>
   __device__ __forceinline__ static void load_stage(bf16* ring, int slot, const bf16* A, long lda,
                                                     const bf16* B, long ldb, long m0, long n0,
-                                                    long mlim, long nlim, long kb, long klim) {
+                                                    long mlim, long nlim, long kb, long klim,
+                                                    const BRows& brows = BRows()) {
     bf16* sa = ring + slot * STAGE_ELEMS;
     bf16* sb = sa + A_ELEMS;
     if constexpr (AL == Major::K) {
@@ -250,11 +282,7 @@ struct Gemm {
     } else {
       load_tile<BK, BM, A_LD>(sa, A, lda, kb, m0, klim, mlim);
     }
-    if constexpr (BL == Major::K) {
-      load_tile<BN, BK, B_LD>(sb, B, ldb, n0, kb, nlim, klim);
-    } else {
-      load_tile<BK, BN, B_LD>(sb, B, ldb, kb, n0, klim, nlim);
-    }
+    load_b(sb, B, ldb, n0, nlim, kb, klim, brows);
   }
 
   // The warp's products over one landed stage.
@@ -279,16 +307,18 @@ struct Gemm {
     run(acc, ring, A, lda, B, ldb, m0, n0, mlim, nlim, k0, k1, none);
   }
 
-  // (Inlined, so that the accumulators stay in registers.)
-  template <class Hook>
+  // (Inlined, so that the accumulators stay in registers.) brows: see
+  // load_b.
+  template <class Hook, class BRows = SameRows>
   __device__ __forceinline__ static void run(Acc& acc, bf16* ring, const bf16* A, long lda,
                                              const bf16* B, long ldb, long m0, long n0, long mlim,
-                                             long nlim, long k0, long k1, Hook& hook) {
+                                             long nlim, long k0, long k1, Hook& hook,
+                                             const BRows& brows = BRows()) {
     const int kt_total = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < kt_total) {
-        load_stage(ring, s, A, lda, B, ldb, m0, n0, mlim, nlim, k0 + (long)s * BK, k1);
+        load_stage(ring, s, A, lda, B, ldb, m0, n0, mlim, nlim, k0 + (long)s * BK, k1, brows);
       }
       cp_async_commit();
     }
@@ -298,12 +328,51 @@ struct Gemm {
       const int next = kt + STAGES - 1;
       if (next < kt_total) {
         load_stage(ring, next % STAGES, A, lda, B, ldb, m0, n0, mlim, nlim, k0 + (long)next * BK,
-                   k1);
+                   k1, brows);
       }
       cp_async_commit();
       const bf16* sa = ring + (kt % STAGES) * STAGE_ELEMS;
       hook(sa, sa + A_ELEMS);
       compute_stage(acc, sa, sa + A_ELEMS);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // Shared bytes of run_ra's ring (B stages only).
+  static constexpr int B_ELEMS = B_ROWS * B_LD;
+  static constexpr size_t kSmemBytesB = (size_t)STAGES * B_ELEMS * sizeof(bf16);
+
+  // acc += A_s[0 : BM, 0 : k1 - k0] * B[k0 : k1, n0 : n0 + BN] with A already
+  // in shared memory (K-major, leading dimension lda_s in elements, 16-byte
+  // rows, every column up to k1 - k0 rounded up to BK written) and only B
+  // streamed through `ring` (kSmemBytesB). Called by the whole block; ends
+  // with the ring free for reuse.
+  __device__ __forceinline__ static void run_ra(Acc& acc, bf16* ring, const bf16* sa, int lda_s,
+                                                const bf16* B, long ldb, long n0, long nlim,
+                                                long k0, long k1) {
+    static_assert(AL == Major::K, "a resident A is K-major");
+    const int kt_total = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < kt_total) load_b(ring + s * B_ELEMS, B, ldb, n0, nlim, k0 + (long)s * BK, k1);
+      cp_async_commit();
+    }
+    const int warp = threadIdx.x >> 5;
+    const int wm = (warp / kWarpsN) * WM, wn = (warp % kWarpsN) * WN;
+    for (int kt = 0; kt < kt_total; ++kt) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int next = kt + STAGES - 1;
+      if (next < kt_total) {
+        load_b(ring + (next % STAGES) * B_ELEMS, B, ldb, n0, nlim, k0 + (long)next * BK, k1);
+      }
+      cp_async_commit();
+      const bf16* sb = ring + (kt % STAGES) * B_ELEMS;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        warp_mma_k16<MT, NT, Major::K, BL>(acc, sa + kt * BK, lda_s, sb, B_LD, wm, wn, kk);
+      }
     }
     cp_async_wait<0>();
     __syncthreads();

@@ -154,12 +154,21 @@ def library() -> ctypes.CDLL:
     lib.espnet_rnnt_fwd.restype = i
     lib.espnet_rnnt_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.espnet_rnnt_bwd.restype = i
-    lib.espnet_conv_module_fwd.argtypes = [i] + [p] * 11 + [i] * 5 + [f, p]
-    lib.espnet_conv_module_fwd.restype = i
-    lib.espnet_conv_module_bwd.argtypes = [i] + [p] * 18 + [i] * 6 + [f, p]
-    lib.espnet_conv_module_bwd.restype = i
+    lib.espnet_conv_f32_fwd.argtypes = [p] * 11 + [i] * 5 + [f, p]
+    lib.espnet_conv_f32_fwd.restype = i
+    lib.espnet_conv_f32_bwd.argtypes = [p] * 18 + [i] * 6 + [f, p]
+    lib.espnet_conv_f32_bwd.restype = i
     lib.espnet_conv_module_rows_tile.argtypes = [i]
     lib.espnet_conv_module_rows_tile.restype = i
+    lib.espnet_conv_bf16_fwd.argtypes = [p] * 12 + [i] * 5 + [f, p]
+    lib.espnet_conv_bf16_fwd.restype = i
+    lib.espnet_conv_bf16_bwd.argtypes = [p] * 21 + [i] + [p] * 5 + [i] * 5 + [
+        f, p]
+    lib.espnet_conv_bf16_bwd.restype = i
+    lib.espnet_conv_bf16_dw_splits.argtypes = [i, i, i]
+    lib.espnet_conv_bf16_dw_splits.restype = i
+    lib.espnet_conv_bf16_info.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.espnet_conv_bf16_info.restype = i
     lib.espnet_philox4x32_10.argtypes = [p, p, i, p]
     lib.espnet_philox4x32_10.restype = i
     lib.espnet_philox_keep_mask.argtypes = [p, u, i, i, i, p, p]
@@ -180,7 +189,8 @@ def check(code: int, what: str) -> None:
 
 def launch_count(name: str) -> int:
     """Launches so far of a kernel that counts them on the host (the
-    kernels of csrc/ctc.cu and csrc/ctc_head.cu, by the names in
+    kernels of csrc/ctc.cu, csrc/ctc_head.cu and csrc/conv_module.cu, by
+    the names in
     csrc/common.cuh's ``counted_name``); raises for a name that is not
     counted."""
     n = library().espnet_launch_count(name.encode())

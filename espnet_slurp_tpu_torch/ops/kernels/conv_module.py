@@ -5,10 +5,15 @@ pointwise1 [D -> 2D] -> GLU -> prefix pad mask -> depthwise conv (flax SAME
 for odd k, or causal) -> LayerNorm (eps 1e-6) -> swish -> pointwise2, every
 intermediate in fp32. On a CUDA tensor the wrapper is a
 ``torch.autograd.Function`` that launches the hand-written kernels in
-``csrc/conv_module.cu`` (no [B, T, 2D] hidden in device memory, either
-way); on a CPU tensor it runs ``fused_conv_module_plain``, the same
-fp32-intermediate composition in plain PyTorch, whose gradients are
-PyTorch's autograd. A CUDA tensor the kernel does not take raises.
+``csrc/conv_module.cu``: in bfloat16 two forward launches and six
+backward ones, each product formed once on the ``mma.sync`` mainloop, with
+g = GLU(pw1(x)), sigmoid(gate), dc and du through scratch that lives for
+the call (no [B, T, 2D] hidden kept between forward and backward); in
+float32 the first version (one forward launch, four backward ones). On a
+CPU tensor it runs ``fused_conv_module_plain``, the same fp32-intermediate
+composition in plain PyTorch, whose gradients are PyTorch's autograd;
+``fused_conv_module_bwd_plain`` is the backward at the reference's
+rounding points. A CUDA tensor the kernels do not take raises.
 
 Unlike the reference, the weights come in PyTorch's layouts, as the port's
 ConvModule holds them (no transpose per call): w1 [2D, D] and w2 [D, D]
@@ -18,12 +23,16 @@ D % 64 == 0, and masks a ragged T itself.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import build
 
-# Row splits of the dW1 / dW2 reductions (per-split fp32 partials).
+# Row splits of the float32 route's dW1 / dW2 reductions (per-split fp32
+# partials).
 DW_SPLITS = 16
 
 
@@ -60,6 +69,68 @@ def fused_conv_module_plain(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2,
     return (sw.float() @ w2.float().t() + b2.float()).to(x.dtype)
 
 
+def fused_conv_module_bwd_plain(x, lengths, w1, b1, wdw, bdw, gamma, beta,
+                                w2, go, *, kernel_size: int,
+                                causal: bool = False, eps: float = 1e-6):
+    """The backward of fused_conv_module at the reference's rounding points
+    (espnet_slurp_tpu/ops/pallas/conv_module.py:_bwd_kernel) in plain
+    PyTorch: (dx, dw1, db1, dwdw, dbdw, dgamma, dbeta, dw2, db2) for the
+    cotangent go of the output, in the port's layouts, dx in x.dtype and
+    dW1 / dW2 in the weights' dtypes.
+
+    Every intermediate is fp32; go and the swish output sw are rounded to
+    x.dtype before the products dsw = go W2 and dW2 = go^T sw, and du =
+    (da, dgate) is rounded to x.dtype before dx = du W1 and dW1 = du^T x;
+    db1 sums the unrounded du."""
+    _, t, d = x.shape
+    k = kernel_size
+    pl = left_pad(k, causal)
+    pr = k - 1 - pl
+    dt = x.dtype
+    xf = x.float()
+    u = xf @ w1.float().t() + b1.float()
+    a, sig = u[..., :d], torch.sigmoid(u[..., d:])
+    m = torch.ones(x.shape[:2], device=x.device) if lengths is None else (
+        torch.arange(t, device=x.device)[None, :]
+        < lengths.to(x.device)[:, None]).float()
+    g = a * sig * m[..., None]
+    gp = F.pad(g, (0, 0, pl, pr))
+    wf = wdw.float()
+    c = bdw.float().expand_as(g)
+    for j in range(k):
+        c = c + wf[:, j] * gp[:, j:j + t]
+    mu = c.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((c - mu).square().mean(-1, keepdim=True) + eps)
+    chat = (c - mu) * rstd
+    nrm = chat * gamma.float() + beta.float()
+    sig_n = torch.sigmoid(nrm)
+    swc = (nrm * sig_n).to(dt).float()
+    goc = go.to(dt).float()
+    dw2 = goc.reshape(-1, d).t() @ swc.reshape(-1, d)
+    db2 = goc.sum((0, 1))
+    dsw = goc @ w2.to(dt).float()
+    dn = dsw * (sig_n * (1.0 + nrm * (1.0 - sig_n)))
+    dgamma = (dn * chat).sum((0, 1))
+    dbeta = dn.sum((0, 1))
+    dchat = dn * gamma.float()
+    dc = rstd * (dchat - dchat.mean(-1, keepdim=True)
+                 - chat * (dchat * chat).mean(-1, keepdim=True))
+    dbdw = dc.sum((0, 1))
+    dwdw = torch.stack([(dc * gp[:, j:j + t]).sum((0, 1))
+                        for j in range(k)], -1)
+    dcp = F.pad(dc, (0, 0, pr, pl))
+    dg = torch.zeros_like(dc)
+    for j in range(k):
+        dg = dg + wf[:, j] * dcp[:, k - 1 - j:k - 1 - j + t]
+    dg = dg * m[..., None]
+    du = torch.cat([dg * sig, dg * a * sig * (1.0 - sig)], -1)
+    duc = du.to(dt).float()
+    dx = (duc @ w1.to(dt).float()).to(dt)
+    dw1 = duc.reshape(-1, 2 * d).t() @ xf.reshape(-1, d)
+    return (dx, dw1.to(w1.dtype), du.sum((0, 1)), dwdw, dbdw, dgamma, dbeta,
+            dw2.to(w2.dtype), db2)
+
+
 def _check(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, b2, k, causal):
     if x.ndim != 3:
         raise ValueError("fused_conv_module: x must be [B, T, D]")
@@ -90,16 +161,49 @@ def _check(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, b2, k, causal):
                          "device")
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dw_splits(n: int, d: int, device) -> int:
+    """Splits of N = B T for the bf16 backward's dW launch (the library's
+    plan for this card)."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    s = build.library().espnet_conv_bf16_dw_splits(n, d, _sms(idx))
+    if s < 0:
+        build.check(-s, "fused_conv_module plan")
+    return s
+
+
+def info(which: int, d: int, k: int):
+    """(registers, shared bytes, local bytes, blocks per SM) of the bf16
+    route's launch ``which`` (0 glu, 1 out, 2 glu_sig, 3 rows, 4 du, 5 dx,
+    6 dw, 7 sum) at width d and k taps."""
+    buf = (ctypes.c_int * 4)()
+    build.check(build.library().espnet_conv_bf16_info(which, d, k, buf),
+                "fused_conv_module info")
+    return tuple(buf)
+
+
 def _launch_fwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, b2, k, pl,
                 eps):
     b, t, d = x.shape
     out = torch.empty_like(x)
-    build.check(build.library().espnet_conv_module_fwd(
-        build.DTYPE_CODES[x.dtype], x.data_ptr(), lengths.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), wdw.data_ptr(), bdw.data_ptr(),
-        gamma.data_ptr(), beta.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, t, d, k, pl, eps, build.stream_ptr(x)),
-        "fused_conv_module")
+    args = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            wdw.data_ptr(), bdw.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), w2.data_ptr(), b2.data_ptr())
+    if x.dtype == torch.bfloat16:
+        # g = mask(GLU(pw1(x))) in fp32 between the two launches.
+        g = torch.empty(b, t, d, dtype=torch.float32, device=x.device)
+        code = build.library().espnet_conv_bf16_fwd(
+            *args, g.data_ptr(), out.data_ptr(), b, t, d, k, pl, eps,
+            build.stream_ptr(x))
+    else:
+        code = build.library().espnet_conv_f32_fwd(
+            *args, out.data_ptr(), b, t, d, k, pl, eps, build.stream_ptr(x))
+    build.check(code, "fused_conv_module")
     fused_conv_module.launches += 1
     return out
 
@@ -108,10 +212,12 @@ def _launch_bwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, g, k, pl,
                 eps):
     """(dx, dw1, db1, dwdw, dbdw, dgamma, dbeta, dw2, db2); dW1 and dW2 in
     the weights' dtype, as the reference returns them."""
+    if x.dtype == torch.bfloat16:
+        return _launch_bwd_bf16(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2,
+                                g, k, pl, eps)
     lib = build.library()
-    code = build.DTYPE_CODES[x.dtype]
     b, t, d = x.shape
-    rows_tile = lib.espnet_conv_module_rows_tile(code)
+    rows_tile = lib.espnet_conv_module_rows_tile(build.DTYPE_CODES[x.dtype])
     nblk = b * -(-t // rows_tile)
     nsplit = max(1, min(DW_SPLITS, nblk))
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -123,8 +229,8 @@ def _launch_bwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, g, k, pl,
     db1p = torch.empty(nsplit, 2 * d, **f32)
     dwdwp = torch.empty(nsplit, d, k, **f32)
     dw2p = torch.empty(nsplit, d, d, **f32)
-    build.check(lib.espnet_conv_module_bwd(
-        code, x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+    build.check(lib.espnet_conv_f32_bwd(
+        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         wdw.data_ptr(), bdw.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         w2.data_ptr(), g.data_ptr(), dx.data_ptr(), dc.data_ptr(),
         sw.data_ptr(), vecp.data_ptr(), dw1p.data_ptr(), db1p.data_ptr(),
@@ -134,6 +240,44 @@ def _launch_bwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, g, k, pl,
     db2, dgamma, dbeta, dbdw = vecp.sum(0)
     return (dx, dw1p.sum(0).to(w1.dtype), db1p.sum(0), dwdwp.sum(0), dbdw,
             dgamma, dbeta, dw2p.sum(0).to(w2.dtype), db2)
+
+
+def _launch_bwd_bf16(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, go, k,
+                     pl, eps):
+    lib = build.library()
+    b, t, d = x.shape
+    n = b * t
+    tiles = b * -(-t // lib.espnet_conv_module_rows_tile(1))
+    nsplit = dw_splits(n, d, x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # Scratch for the call: g and sigmoid(gate) from the pw1 launch, dc
+    # (rows -> du), sw (rows -> dW2), du (du -> dx, dW1).
+    g, sig, dc = (torch.empty(b, t, d, **f32) for _ in range(3))
+    sw = torch.empty_like(x)
+    du = torch.empty(b, t, 2 * d, dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    vecp = torch.empty(tiles, 4, d, **f32)
+    dwdwp = torch.empty(tiles, k, d, **f32)
+    db1p = torch.empty(tiles, 2 * d, **f32)
+    dw1p = torch.empty(nsplit, 2 * d, d, **f32)
+    dw2p = torch.empty(nsplit, d, d, **f32)
+    # The partials' sums (the library's last launch, in a fixed order).
+    vec = torch.empty(4, d, **f32)
+    dwdw = torch.empty(d, k, **f32)
+    db1 = torch.empty(2 * d, **f32)
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    build.check(lib.espnet_conv_bf16_bwd(
+        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        wdw.data_ptr(), bdw.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        w2.data_ptr(), go.data_ptr(), g.data_ptr(), sig.data_ptr(),
+        dc.data_ptr(), sw.data_ptr(), du.data_ptr(), dx.data_ptr(),
+        vecp.data_ptr(), dwdwp.data_ptr(), db1p.data_ptr(), dw1p.data_ptr(),
+        dw2p.data_ptr(), nsplit, vec.data_ptr(), dwdw.data_ptr(),
+        db1.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), b, t, d, k, pl, eps,
+        build.stream_ptr(x)), "fused_conv_module backward")
+    fused_conv_module.bwd_launches += 1
+    db2, dgamma, dbeta, dbdw = vec
+    return dx, dw1, db1, dwdw, dbdw, dgamma, dbeta, dw2, db2
 
 
 class _FusedConv(torch.autograd.Function):

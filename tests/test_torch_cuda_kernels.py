@@ -4,7 +4,9 @@ widths, T shorter than a tile or just past one, Dh 32 to 128, key lengths
 of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
 passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
 for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
-conv module k 3 to 31, SAME and causal, lengths 0, 1 and full; for K2's
+conv module k 3 to 33, SAME and causal, lengths 0, 1, full and None, its
+route by host counts and its bf16 backward against the plain backward at
+its rounding points; for K2's
 and K3's launches, bf16, fp32 and the WMMA ones, the dropout at rate 0.1
 (0.5 for two fp32 cases) and its Philox mask; K2's fp32 launches at N 1 to
 4097, widths 32 to 512 and F 128 to 2048; FeedForward's width route;
@@ -14,7 +16,8 @@ that span 8 utterances to the default train shape, and its plan; K4's bf16
 forward (lse on the mma.sync mainloop, gather) at the same shapes; K1's
 two routes (one warp per utterance up to 256 states, one block past it)
 from S 1 to 3072, tlen 0, 1 and T, every skip off and empty labels. The
-routes of K1 and K4 are read from the library's host-side launch counts.
+routes of K1, K4 and K6 are read from the library's host-side launch
+counts.
 Gradients are held to the plain versions' autograd gradients.
 
 Needs a CUDA device and nvcc; skips otherwise. The tests directory's
@@ -1298,34 +1301,90 @@ def test_rnnt_lattice(gen, u1):
                            torch.zeros_like(g[dead.expand_as(g)])), name
 
 
+# K6's launches by dtype and direction, by their host-side launch counts
+# (csrc/common.cuh's counted_name).
+K6_LAUNCHES = {
+    torch.bfloat16: (("conv_bf16::glu_kernel", "conv_bf16::out_kernel"),
+                     ("conv_bf16::glu_sig_kernel", "conv_bf16::rows_kernel",
+                      "conv_bf16::du_kernel", "conv_bf16::dx_kernel",
+                      "conv_bf16::dw_kernel", "conv_bf16::sum_kernel")),
+    torch.float32: (("conv_fwd_kernel<float",),
+                    ("conv_bwd_rows_kernel<float", "conv_bwd_dw2_kernel<float",
+                     "conv_bwd_dw1_kernel<float", "conv_bwd_dx_kernel<float"))}
+K6_NAMES = ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta", "dw2",
+            "db2")
+
+
+def _conv_case(gen, dtype, b, t, d, k):
+    """(x, w1, b1, wdw, bdw, gamma, beta, w2, b2) and a cotangent."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    args = (r(b, t, d).to(dtype), (r(2 * d, d) * d ** -0.5).to(dtype),
+            r(2 * d) * 0.1,
+            r(d, k) * k ** -0.5, r(d) * 0.1, 1.0 + 0.1 * r(d), r(d) * 0.1,
+            (r(d, d) * d ** -0.5).to(dtype), r(d) * 0.1)
+    return args, r(b, t, d)
+
+
+def _check_conv(kc, args, lengths, cot, dtype, kw):
+    """K6 both ways against the plain version's autograd (TOL), the bf16
+    backward also against fused_conv_module_bwd_plain (BWD_PLAIN_TOL), and
+    its route: each of dtype's launches once each way (host counts), no
+    other K6 launch."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    every = [n for ways in K6_LAUNCHES.values() for w in ways for n in w]
+    before = {n: build.launch_count(n) for n in every}
+    calls = (kc.fused_conv_module.launches,
+             kc.fused_conv_module.bwd_launches)
+    out, grads = _grads(
+        lambda x, *p: kc.fused_conv_module(x, lengths, *p, **kw), args, cot)
+    torch.cuda.synchronize()
+    got = {n: build.launch_count(n) - before[n] for n in every}
+    want = {n: int(n in K6_LAUNCHES[dtype][0] + K6_LAUNCHES[dtype][1])
+            for n in every}
+    assert got == want
+    assert (kc.fused_conv_module.launches,
+            kc.fused_conv_module.bwd_launches) == (calls[0] + 1, calls[1] + 1)
+    ref, ref_grads = _grads(
+        lambda x, *p: kc.fused_conv_module_plain(x, lengths, *p, **kw), args,
+        cot)
+    assert _rel(out, ref) <= TOL[dtype], "output"
+    for name, a, r in zip(K6_NAMES, grads, ref_grads):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r, floor=1e-3) <= TOL[dtype], name
+    if dtype == torch.bfloat16:
+        plain = kc.fused_conv_module_bwd_plain(
+            args[0], lengths, *args[1:-1], cot.to(dtype), **kw)
+        for name, a, r in zip(K6_NAMES, grads, plain):
+            assert _rel(a, r, floor=1e-3) <= BWD_PLAIN_TOL, name
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,causal", [(3, False), (15, False), (31, False),
-                                      (15, True), (31, True)])
+                                      (3, True), (15, True), (31, True),
+                                      (33, True)])
 @pytest.mark.parametrize("t,d", [(37, 64), (100, 256)])
 def test_fused_conv_module(gen, dtype, k, causal, t, d):
     """K6 forward and backward against its plain version: T not a tile
     multiple, lengths 0, 1 and full, every gradient (x and the nine
-    parameters)."""
+    parameters), k past one 32-tap chunk (33), the route by host counts;
+    bf16 also against the backward at the reference's rounding points."""
     from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
-    b = 4
-    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     lengths = torch.tensor([t, 1, 0, t - 5], dtype=torch.int32,
                            device="cuda")
-    args = (r(b, t, d).to(dtype), lengths,
-            (r(2 * d, d) * d ** -0.5).to(dtype), r(2 * d) * 0.1,
-            r(d, k) * k ** -0.5, r(d) * 0.1, 1.0 + 0.1 * r(d), r(d) * 0.1,
-            (r(d, d) * d ** -0.5).to(dtype), r(d) * 0.1)
-    kw = dict(kernel_size=k, causal=causal)
-    before = (kc.fused_conv_module.launches,
-              kc.fused_conv_module.bwd_launches)
-    _check_grads(lambda *a: kc.fused_conv_module(*a, **kw),
-                 lambda *a: kc.fused_conv_module_plain(*a, **kw), args,
-                 r(b, t, d), TOL[dtype],
-                 ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta",
-                  "dw2", "db2"))
-    assert (kc.fused_conv_module.launches,
-            kc.fused_conv_module.bwd_launches) == (before[0] + 1,
-                                                   before[1] + 1)
+    args, cot = _conv_case(gen, dtype, 4, t, d, k)
+    _check_conv(kc, args, lengths, cot, dtype,
+                dict(kernel_size=k, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d", [(2, 64, 128), (3, 468, 256)])
+def test_fused_conv_module_without_lengths(gen, dtype, b, t, d):
+    """lengths=None (every frame valid), T a tile multiple and the
+    transducer's T' 468."""
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    args, cot = _conv_case(gen, dtype, b, t, d, 31)
+    _check_conv(kc, args, None, cot, dtype,
+                dict(kernel_size=31, causal=False))
 
 
 def test_fused_conv_module_refuses_what_it_cannot_take(gen):

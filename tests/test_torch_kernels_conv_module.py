@@ -151,3 +151,71 @@ def test_fused_module_path_matches_eager_module(causal):
     mask = torch.arange(t)[None, :] < lens[:, None]
     torch.testing.assert_close(fused(x, mask, lens), eager(x, mask, lens),
                                rtol=1e-5, atol=1e-5)
+
+
+
+def _jax_vjp(x, lens, params, k, causal, gvec, dtype=jnp.float32):
+    """{port name: grad} plus "x" of the Pallas kernel's vjp (interpret
+    mode) at cotangent gvec, with x and gvec in ``dtype``; fp32 numpy."""
+    fused, p = _jax_fused(x, lens, params, k, causal)
+    _, vjp = jax.vjp(fused, p, jnp.asarray(x, dtype))
+    gp, gx = vjp(jnp.asarray(gvec, dtype))
+    grads = flax_to_torch(jax.tree.map(
+        lambda v: np.asarray(v, np.float32), gp))
+    grads = {n: v.numpy() for n, v in grads.items()}
+    grads["x"] = np.asarray(gx, np.float32)
+    return grads
+
+
+def _bwd_plain(x, lens, params, k, causal, gvec, dtype):
+    """fused_conv_module_bwd_plain's gradients as {port name: grad} plus
+    "x" (fp32 numpy), with x, w1, w2 and the cotangent in ``dtype``."""
+    from espnet_slurp_tpu_torch.ops.kernels.conv_module import \
+        fused_conv_module_bwd_plain
+    sd = flax_to_torch(params["params"])
+    d = x.shape[-1]
+    grads = fused_conv_module_bwd_plain(
+        torch.from_numpy(x.copy()).to(dtype),
+        None if lens is None else torch.from_numpy(lens),
+        sd["pointwise1.weight"].to(dtype), sd["pointwise1.bias"],
+        sd["depthwise.weight"].view(d, k), sd["depthwise.bias"],
+        sd["norm.weight"], sd["norm.bias"], sd["pointwise2.weight"].to(dtype),
+        torch.from_numpy(gvec.copy()).to(dtype), kernel_size=k, causal=causal)
+    out = dict(zip(("x",) + PARAM_NAMES, (g.float().numpy() for g in grads)))
+    out["depthwise.weight"] = out["depthwise.weight"].reshape(d, 1, k)
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_plain_matches_pallas_vjp_fp32(causal):
+    """fused_conv_module_bwd_plain (the kernels' rounding points, which in
+    fp32 round nothing) against the Pallas vjp, at the file's tolerances."""
+    k = 15
+    x, lens, _, params, gvec = _mk(causal=causal)
+    got = _bwd_plain(x, lens, params, k, causal, gvec, torch.float32)
+    ref = _jax_vjp(x, lens, params, k, causal, gvec)
+    np.testing.assert_allclose(got["x"], ref["x"], rtol=0, atol=3e-4)
+    for n in PARAM_NAMES:
+        np.testing.assert_allclose(
+            got[n], ref[n], rtol=0,
+            atol=3e-3 * max(1.0, float(np.abs(ref[n]).max())), err_msg=n)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_plain_matches_pallas_vjp_bf16(causal):
+    """bf16 x, w1, w2 and a cotangent exact in bf16: both sides round sw and
+    du to bf16 at the same points and differ only in fp32 summation order,
+    which can move a bf16 rounding (du, dx, dW1, dW2) by one unit in the
+    last place, 2^-8 of an element: each gradient within 1e-2 of its max
+    |ref| (the card tests' BWD_PLAIN_TOL)."""
+    k = 15
+    x, lens, _, params, gvec = _mk(causal=causal)
+    bf = jnp.bfloat16
+    xb = np.asarray(jnp.asarray(x, bf).astype(jnp.float32))
+    gb = np.asarray(jnp.asarray(gvec, bf).astype(jnp.float32))
+    got = _bwd_plain(xb, lens, params, k, causal, gb, torch.bfloat16)
+    ref = _jax_vjp(xb, lens, params, k, causal, gb, bf)
+    for n in ("x",) + PARAM_NAMES:
+        err = float(np.abs(got[n] - ref[n]).max()) / float(
+            np.abs(ref[n]).max())
+        assert err <= 1e-2, (n, err)
