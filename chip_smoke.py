@@ -114,7 +114,12 @@ or the port's package is not beside it. Phases, each of which fails the run:
    K2 and K3 both ways as in phase 4 (their backward passes timed beside
    the plain composition, with their launches and peak memory, as in
    phase 4), K5 RNN-T lattice (fp32
-   tables [32, 468, 65], ragged T' and U) and K6 fused conv module
+   tables [32, 468, 65], ragged T' and U, one row with a zero cotangent,
+   on its one-warp-per-utterance route; then test_rnnt_lattice's edge
+   cases, U1 1 to 300 at B 5, T' 40, on both routes; then the block route
+   at [8, 468, 300]; each with its route by the host counts and exact zero
+   gradients at frames past tlen and on zero-cotangent rows) and K6 fused
+   conv module
    (x [32, 468, 256], k 31, SAME with ragged lengths in bf16 and fp32, and
    one causal case), each direction against its plain version's outputs
    and autograd gradients (bf16 within 2e-2, fp32 within 1e-4 of max
@@ -124,14 +129,18 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rows, du, dx, dw and sum backward, on csrc/conv_module.cu's conv_bf16;
    fp32: the first version's kernels; the first version's bf16 kernels
    absent from the build); K5 then timed as in phase 4 beside the plain
-   version and the bound; K6's bf16 directions timed by CUDA events and
-   device time (each launch's, torch.profiler) beside the plain version,
+   version and the bound, with us per anti-diagonal step and each route's
+   registers, shared bytes, spills and blocks per SM; K6's bf16 directions
+   timed by CUDA events and device time (each launch's, torch.profiler)
+   beside the plain version,
    the eager ConvModule it replaces (events and device time), the bound
    (products at the bf16 peak and the taps and elementwise work at the
    fp32 peak, counted apart) and what one backward call adds to peak
    memory, each launch with its bound, registers, shared bytes, spills and
    blocks per SM; both directions again at the flagship's B 64 (timed
-   only). Last, K6 forward in bf16 at the greedy decode's shape (x [8, T',
+   only); K6's fp32 route (the first version) timed at B 32 beside its
+   plain version, the eager fp32 ConvModule and its bound (all work at the
+   fp32 peak). Last, K6 forward in bf16 at the greedy decode's shape (x [8, T',
    256], 468 valid frames each) against its plain version, within 2e-2,
    and timed.
 9. The transducer train slice: transducer_flagship_config() with
@@ -142,8 +151,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    15 s utterances with U = 64: one warm-up step, then 5 timed steps. Every
    loss finite, nothing skipped, the last loss below the first, and per step
    exactly 24 K2, 12 K3 and 12 K6 launches each way, 1 K5 and 1 K1 each way
-   and no K4; by the host counts K1 on the warp route and K6 on its bf16
-   launches (12 of each a step, no fp32 one).
+   and no K4; by the host counts K1 and K5 on their warp routes and K6 on
+   its bf16 launches (12 of each a step, no fp32 one).
 10. One fp32 transducer forward + backward (fused_conv, SpecAug off, the
    yaml's dropout 0.1 with phase 6's seeds) of the same weights on phase
    6's two short utterances, CPU (plain versions) against the card
@@ -1223,11 +1232,18 @@ def ctc_head_bwd_detail(torch, kh, call, args, n):
     return ms, launch_ms, peak_mb
 
 
-# K1's, K4's and K6's kernels by their host-side launch counts
+# K1's, K4's, K5's and K6's kernels by their host-side launch counts
 # (csrc/common.cuh's counted_name; each is also a part of the kernel's
 # profiler name).
 K1_WARP = ("ctc_warp::fwd_kernel", "ctc_warp::bwd_kernel")
 K1_BLOCK = ("ctc_block::fwd_kernel", "ctc_block::bwd_kernel")
+# K5's routes (csrc/transducer.cu): one warp per utterance up to 256 states
+# (U1), one block per utterance past it.
+K5_WARP = ("rnnt_warp::fwd_kernel", "rnnt_warp::bwd_kernel")
+K5_BLOCK = ("rnnt_block::fwd_kernel", "rnnt_block::bwd_kernel")
+# tests/test_torch_cuda_kernels.py:test_rnnt_lattice's U1: within a warp,
+# across its slots, the warp route's limit and past it.
+K5_EDGE_U1 = (1, 2, 33, 65, 129, 256, 257, 300)
 K4_BF16_LAUNCHES = {"ctc_head_bf16::lse_kernel": "fwd",
                     "ctc_head_fwd::gather_kernel<__nv_bfloat16>": "fwd",
                     "ctc_head_bwd::rows_kernel": "bwd",
@@ -1264,7 +1280,8 @@ K6_GONE = tuple(f"{k}I13__nv_bfloat16" for k in (
     "conv_bwd_dw1_kernel", "conv_bwd_dx_kernel"))
 K6_BF16_FWD = tuple(k for k, w in K6_BF16_LAUNCHES.items() if w == "fwd")
 ROUTED = (K1_WARP + K1_BLOCK + tuple(K4_BF16_LAUNCHES) + tuple(K4_F32_LAUNCHES)
-          + tuple(K6_BF16_LAUNCHES) + tuple(K6_F32_LAUNCHES))
+          + tuple(K6_BF16_LAUNCHES) + tuple(K6_F32_LAUNCHES) + K5_WARP
+          + K5_BLOCK)
 
 
 def route_counts(names=ROUTED):
@@ -1533,10 +1550,18 @@ def ctc_lattice_block_route(torch, kctc, lp, gen, b, t, u):
     _, alpha = kctc._launch_fwd(*largs)
     fwd_ms = median_ms(torch, lambda: kctc._launch_fwd(*largs))
     bwd_ms = median_ms(torch, lambda: kctc._launch_bwd(*largs, alpha, cot))
+    # The warp route's bounds (train_kernel_phase) at this S and these tlen.
+    states = float((tlen.long() * s).sum().item())
+    fbound = bound(10.0 * states, 4 * b * t * s + 4 * b * s + 8 * b + 4 * b,
+                   PEAK_FP32_FLOPS)
+    bbound = bound(14.0 * states, 4 * b * t * s + 4 * b * s + 8 * b + 4 * b
+                   + 4 * b * t * s, PEAK_FP32_FLOPS)
     print(f"K1 ctc_lattice block route B={b} T={t} S={s}: forward "
-          f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms; {ctc_info(s)}")
+          f"{fwd_ms:.4f} ms (bound {fbound[0]:.4f}, {fbound[1]}), backward "
+          f"{bwd_ms:.4f} ms (bound {bbound[0]:.4f}, {bbound[1]}); "
+          f"{ctc_info(s)}")
     return dict(s=s, max_abs_err=err_o, max_abs_err_bwd=err_g, ms=fwd_ms,
-                bwd_ms=bwd_ms)
+                bwd_ms=bwd_ms, bound_ms=fbound[0], bwd_bound_ms=bbound[0])
 
 
 def train_kernel_phase(torch, t_prime):
@@ -1814,10 +1839,10 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
     """One warm-up step, then TRAIN_STEPS timed ones (3 when ``budget_s``
     is given and TRAIN_STEPS + 2 steps at the warm-up's time would run past
     it) with every launch count zeroed just before and read just after
-    (the wrappers' counts, and K1's, K4's and K6's kernels by the library's
-    host-side counts); checks finite losses, nothing skipped and a falling
-    loss; then one more step under torch.profiler for the device's busy
-    time (the sum of its kernels' times). Returns (launches, step s, busy
+    (the wrappers' counts, and K1's, K4's, K5's and K6's kernels by the
+    library's host-side counts); checks finite losses, nothing skipped and
+    a falling loss; then one more step under torch.profiler for the
+    device's busy time (the sum of its kernels' times). Returns (launches, step s, busy
     ms, steps, kernel launches)."""
     from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
     from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
@@ -1859,8 +1884,8 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
                       if k.startswith("loss_"))
     print(f"{what}: losses {[first_loss] + losses}, grad norms {norms}, "
           f"skipped {skipped}, {extra}")
-    print(f"{what}: launches over {steps} steps {launches}; K1, K4 and K6 "
-          f"kernels {routes}")
+    print(f"{what}: launches over {steps} steps {launches}; K1, K4, K5 and "
+          f"K6 kernels {routes}")
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and losses[-1] < first_loss):
         raise AssertionError(f"{what}: non-finite, skipped or not falling")
@@ -1980,22 +2005,77 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
                   "peak_mb_at_transducer_shape": peak_mb}
     del args, gb
 
-    # K5: tables of log-softmaxed logits, ragged T' and U, fp32 only.
-    lp = torch.log_softmax(r(b, t, u1, 8) * 2.0, -1)
-    blank = lp[..., 0].contiguous()
+    out += rnnt_phase(torch, kt, gen, b, t, u1)
+
+    out += conv_phase(torch, kc, b, t, t_serve, d, k, r)
+    return out, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
+                 "rel_flash_attention_bwd": att_bwd_tr}
+
+
+def rnnt_tables(torch, kt, gen, b, t, u1):
+    """K5's blank and emit tables [b, t, u1] of log-softmaxed logits, emit's
+    last column NEG (as ops/transducer.py pads it)."""
+    lp = torch.log_softmax(torch.randn(b, t, u1, 8, generator=gen,
+                                       device="cuda") * 2.0, -1)
     emit = lp[..., 1].clone()
     emit[..., -1] = kt.NEG
-    del lp
+    return lp[..., 0].contiguous(), emit
+
+
+def check_rnnt(torch, kt, what, largs, cot, route):
+    """K5 both ways against rnnt_lattice_plain within TOL["float32"] of max
+    |ref|; one launch each way, of `route`, by the host counts; gradients
+    exactly 0 at frames past tlen and on rows whose cotangent is 0. Returns
+    (output error, gradient error, the plain version's backward)."""
+    got = routes_of(lambda: grad_case(torch, kt.rnnt_lattice, largs, cot, 2))
+    check_routes(what, got, route)
+    o, g, _ = grad_case(torch, kt.rnnt_lattice, largs, cot, 2)
+    ro, rg, plain_bwd = grad_case(torch, kt.rnnt_lattice_plain, largs, cot,
+                                  2)
+    err_o, err_g = hold(torch, what, o, ro, g, rg, ("dblank", "demit"),
+                        TOL["float32"])
+    frames = torch.arange(largs[0].shape[1], device="cuda")
+    dead = ((frames[None, :, None] >= largs[2].long()[:, None, None])
+            | (cot == 0)[:, None, None]).expand_as(g[0])
+    for name, x in zip(("dblank", "demit"), g):
+        if (x[dead] != 0).any():
+            raise AssertionError(f"{what}: {name} is not exactly 0 at dead "
+                                 "frames and rows with a zero cotangent")
+    return err_o, err_g, plain_bwd
+
+
+def rnnt_phase(torch, kt, gen, b, t, u1):
+    """K5 at the transducer step's shape (B b, T' t, U1 u1; ragged T' and
+    U, one row with a zero cotangent) on its warp route, at
+    test_rnnt_lattice's U1 on both routes, and the block route at B 8, T'
+    t, U1 300: each against rnnt_lattice_plain, its route by host counts;
+    the warp route timed beside the plain version and the bound, both
+    routes' us per anti-diagonal step, registers, shared bytes, spills and
+    blocks per SM. Returns the kernels-line entries."""
+    for ue in K5_EDGE_U1:
+        be, te = 5, 40
+        blank, emit = rnnt_tables(torch, kt, gen, be, te, ue)
+        tlen = torch.tensor([te, 1, 0, te - 13, te], dtype=torch.int32,
+                            device="cuda")
+        ulen = torch.tensor([ue - 1, min(3, ue - 1), 0, 0, (ue - 1) // 2],
+                            dtype=torch.int32, device="cuda")
+        cot = torch.rand(be, generator=gen, device="cuda")
+        cot[4] = 0.0
+        route = K5_WARP if ue <= kt.warp_states() else K5_BLOCK
+        check_rnnt(torch, kt, f"K5 rnnt_lattice B={be} T={te} U1={ue}",
+                   (blank, emit, tlen, ulen), cot, route)
+
+    blank, emit = rnnt_tables(torch, kt, gen, b, t, u1)
     tlen = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
                         device="cuda")
     ulen = torch.tensor([TR_U - (i % 5) for i in range(b)],
                         dtype=torch.int32, device="cuda")
     cot = torch.rand(b, generator=gen, device="cuda")
+    cot[-1] = 0.0
     largs = (blank, emit, tlen, ulen)
-    o, g, _ = grad_case(torch, kt.rnnt_lattice, largs, cot, 2)
-    ro, rg, plain_bwd = grad_case(torch, kt.rnnt_lattice_plain, largs, cot, 2)
-    err_o, err_g = hold(torch, f"K5 rnnt_lattice float32 B={b} T={t} U1={u1}",
-                        o, ro, g, rg, ("dblank", "demit"), TOL["float32"])
+    err_o, err_g, plain_bwd = check_rnnt(
+        torch, kt, f"K5 rnnt_lattice float32 B={b} T={t} U1={u1}", largs,
+        cot, K5_WARP)
     _, alpha = kt._launch_fwd(*largs)
     fwd_ms = median_ms(torch, lambda: kt._launch_fwd(*largs))
     bwd_ms = median_ms(torch, lambda: kt._launch_bwd(*largs, alpha, cot))
@@ -2012,28 +2092,61 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
     bbound = bound(14.0 * states, 2 * table + 12 * b + 2 * table,
                    PEAK_FP32_FLOPS)
     chain = t + u1 - 1
-    print(f"K5 rnnt_lattice: forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} "
-          f"ms over a chain of {chain} dependent anti-diagonal steps "
-          f"({1e3 * fwd_ms / chain:.3f} / {1e3 * bwd_ms / chain:.3f} us a "
-          f"step); bytes bound {fbound[0]:.4f} / {bbound[0]:.4f} ms")
+    info = {k: kt.info(w, u1) for w, k in enumerate(K5_WARP)}
+    print(f"K5 rnnt_lattice warp route: forward {fwd_ms:.4f} ms, backward "
+          f"{bwd_ms:.4f} ms over a chain of {chain} dependent anti-diagonal "
+          f"steps ({1e3 * fwd_ms / chain:.4f} / {1e3 * bwd_ms / chain:.4f} "
+          f"us a step); bytes bound {fbound[0]:.4f} / {bbound[0]:.4f} ms; "
+          "(registers, shared bytes, local bytes, blocks per SM) "
+          f"{info}")
+    del blank, emit
+
+    # The block route past the warp route's limit, timed.
+    bb, ub = 8, 300
+    blank, emit = rnnt_tables(torch, kt, gen, bb, t, ub)
+    btlen = torch.tensor([t - 5 * i for i in range(bb)], dtype=torch.int32,
+                         device="cuda")
+    bulen = torch.tensor([ub - 1 - 7 * i for i in range(bb)],
+                         dtype=torch.int32, device="cuda")
+    bcot = torch.rand(bb, generator=gen, device="cuda")
+    bargs = (blank, emit, btlen, bulen)
+    berr_o, berr_g, _ = check_rnnt(
+        torch, kt, f"K5 rnnt_lattice float32 B={bb} T={t} U1={ub} (block "
+        "route)", bargs, bcot, K5_BLOCK)
+    _, alpha = kt._launch_fwd(*bargs)
+    bchain = t + ub - 1
+    block = dict(B=bb, T=t, U1=ub, max_abs_err=berr_o, max_abs_err_bwd=berr_g,
+                 ms=median_ms(torch, lambda: kt._launch_fwd(*bargs)),
+                 bwd_ms=median_ms(torch, lambda: kt._launch_bwd(
+                     *bargs, alpha, bcot)),
+                 info={k: kt.info(w, ub) for w, k in enumerate(K5_BLOCK)})
+    block["us_per_step"] = 1e3 * block["ms"] / bchain
+    block["bwd_us_per_step"] = 1e3 * block["bwd_ms"] / bchain
+    print(f"K5 rnnt_lattice block route B={bb} T={t} U1={ub}: forward "
+          f"{block['ms']:.4f} ms, backward {block['bwd_ms']:.4f} ms "
+          f"({block['us_per_step']:.4f} / {block['bwd_us_per_step']:.4f} us "
+          f"a step over {bchain}); {block['info']}")
+    del blank, emit, alpha
+
     common = dict(route="cuda",
                   source="espnet_slurp_tpu_torch/csrc/transducer.cu",
                   launches=None, library_ms=None,
                   library_note="torch has no RNN-T loss of its own",
-                  dependency_chain_steps=chain)
-    out.append(dict(name="rnnt_lattice",
-                    replaces="espnet_slurp_tpu/ops/pallas/transducer.py:134",
-                    max_abs_err=err_o, ms=fwd_ms, plain_ms=plain_fwd_ms,
-                    bound_ms=fbound[0], bound_by=fbound[1], **common))
-    out.append(dict(name="rnnt_lattice_bwd",
-                    replaces="espnet_slurp_tpu/ops/pallas/transducer.py:183",
-                    max_abs_err=err_g, ms=bwd_ms, plain_ms=plain_bwd_ms,
-                    bound_ms=bbound[0], bound_by=bbound[1], **common))
-    del blank, emit, o, g, ro, rg
-
-    out += conv_phase(torch, kc, b, t, t_serve, d, k, r)
-    return out, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
-                 "rel_flash_attention_bwd": att_bwd_tr}
+                  dependency_chain_steps=chain, edge_u1_checked=K5_EDGE_U1,
+                  block_route=block)
+    return [
+        dict(name="rnnt_lattice",
+             replaces="espnet_slurp_tpu/ops/pallas/transducer.py:134",
+             kernel=K5_WARP[0], info=info[K5_WARP[0]], max_abs_err=err_o,
+             ms=fwd_ms, us_per_step=1e3 * fwd_ms / chain,
+             plain_ms=plain_fwd_ms, bound_ms=fbound[0], bound_by=fbound[1],
+             **common),
+        dict(name="rnnt_lattice_bwd",
+             replaces="espnet_slurp_tpu/ops/pallas/transducer.py:183",
+             kernel=K5_WARP[1], info=info[K5_WARP[1]], max_abs_err=err_g,
+             ms=bwd_ms, us_per_step=1e3 * bwd_ms / chain,
+             plain_ms=plain_bwd_ms, bound_ms=bbound[0], bound_by=bbound[1],
+             **common)]
 
 
 def conv_phase(torch, kc, b, t, t_serve, d, k, r):
@@ -2087,6 +2200,9 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
                                      "fused_conv_module_bwd_plain")
             del bp
         del o, g, ro, rg
+        if dt == torch.float32:
+            f32 = k6_fp32_timed(torch, kc, args, plain, plain_bwd,
+                                gout.to(dt), params0, k)
         if dt != torch.bfloat16 or causal:
             del plain_bwd
             continue
@@ -2138,6 +2254,10 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
                     "ms", "device_ms", "launch_ms", "peak_mb")},
                 **common))
 
+    for entry in out:
+        entry["fp32_at_transducer_shape"] = f32[
+            "bwd" if entry["name"].endswith("_bwd") else "fwd"]
+
     # K6 forward as the greedy decode runs it: 8 utterances of 15 s padded
     # to T' t_serve, each with t_prime valid frames, bf16, no gradient.
     args = k6_args(r(N_UTT, t_serve, d), torch.full(
@@ -2160,6 +2280,47 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
         "at_decode_shape"] = {key: decode[f"fwd_{key}"] for key in (
             "ms", "device_ms", "launch_ms")}
     return out
+
+
+def k6_fp32_timed(torch, kc, args, plain, plain_bwd, gout, params, k):
+    """K6's fp32 route (csrc/conv_module.cu's first-version kernels) at
+    args' shape, each direction by CUDA events and device time (the sum of
+    its launches', torch.profiler) beside its plain version, the eager fp32
+    ConvModule (events and device time) and the bound: all work (products,
+    taps, elementwise) at the fp32 peak, fp32 operands, the function's
+    inputs and outputs only."""
+    x, lengths = args[0], args[1]
+    b, t, d = x.shape
+    pl = kc.left_pad(k, False)
+    fwd = lambda: kc._launch_fwd(*args, k, pl, 1e-6)
+    bwd = lambda: kc._launch_bwd(*args[:-1], gout, k, pl, 1e-6)
+    eager = k6_eager(torch, x, lengths, params, gout, k)
+    nd, dd = b * t * d, d * d
+    small = 4 * (2 * d + d * k + 4 * d)  # b1, wdw, bdw, gamma, beta, b2
+    taps = 2.0 * nd * k
+    ins = 4 * nd + 4 * b + 4 * 3 * dd + small
+    bounds = {"fwd": bound(6.0 * nd * d + taps + K6_ELEM_FWD * nd,
+                           ins + 4 * nd, PEAK_FP32_FLOPS),
+              "bwd": bound(16.0 * nd * d + 3 * taps + K6_ELEM_BWD * nd,
+                           ins + 4 * nd + 4 * nd + 4 * 3 * dd + small,
+                           PEAK_FP32_FLOPS)}
+    res = {}
+    for way, call, plain_call in (("fwd", fwd, lambda: plain(*args)),
+                                  ("bwd", bwd, plain_bwd)):
+        bnd = bounds[way]
+        res[way] = dict(ms=median_ms(torch, call),
+                        device_ms=device_total_ms(torch, call),
+                        plain_ms=median_ms(torch, plain_call),
+                        bound_ms=bnd[0], bound_by=bnd[1],
+                        eager_ms=eager[f"{way}_ms"],
+                        eager_device_ms=eager[f"{way}_device_ms"])
+        r = res[way]
+        print(f"K6 fused_conv_module float32 {way} B={b} T={t} D={d} k={k}: "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f}, eager fp32 ConvModule {r['eager_ms']:.4f}"
+              f" (device {r['eager_device_ms']:.4f}), bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return res
 
 
 def k6_args(x, lengths, params, dt):
@@ -2219,7 +2380,8 @@ def k6_eager(torch, x, lengths, params, gb, k):
 
 def transducer_train_phase(torch, card):
     """The transducer train step (fused_conv, the yaml's dropout 0.1) on 32
-    x 15 s, U 64; returns the launch counts of the timed steps."""
+    x 15 s, U 64; returns the launch counts of the timed steps and the
+    routed kernels' host counts over them."""
     from espnet_slurp_tpu_torch.models.transducer import TransducerModel
     from espnet_slurp_tpu_torch.utils.params import init_random_
 
@@ -2233,7 +2395,7 @@ def transducer_train_phase(torch, card):
         f"{cfg.asr.dropout_rate}", model, batch, card, TR_B * TRAIN_SECONDS)
     n_blocks = cfg.asr.num_encoder_blocks
     check_routes("transducer train", routes, {
-        **dict.fromkeys(K1_WARP, 1),
+        **dict.fromkeys(K1_WARP, 1), **dict.fromkeys(K5_WARP, 1),
         **dict.fromkeys(K6_BF16_LAUNCHES, n_blocks)}, TRAIN_STEPS)
     check_per_step("transducer train", launches, {
         "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
@@ -2241,7 +2403,7 @@ def transducer_train_phase(torch, card):
         "fused_conv_module": n_blocks, "fused_conv_module_bwd": n_blocks,
         "rnnt_lattice": 1, "rnnt_lattice_bwd": 1,
         "ctc_lattice": 1, "ctc_lattice_bwd": 1})
-    return launches, step_s
+    return launches, routes
 
 
 def transducer_cpu_vs_card(torch):
@@ -2953,6 +3115,10 @@ def main() -> int:
           f"bytes, blocks per SM): {ctc_info(129)} {ctc_info(401)}")
     print("K6 bf16 kernels at D 256, k 31 (registers, shared bytes, local "
           f"bytes, blocks per SM): {k6_info(256, 31)}")
+    from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
+    print("K5 kernels at U1 65 and 300 (registers, shared bytes, local "
+          f"bytes, blocks per SM): {[kt.info(w, 65) for w in (0, 1)]} "
+          f"{[kt.info(w, 300) for w in (0, 1)]}")
 
     # T' of a 15 s utterance as Speech2Text pads it (bucket of 4096 samples,
     # hop 128, x4 subsampling).
@@ -2987,7 +3153,7 @@ def main() -> int:
         if kern["name"] == "rel_flash_attention_bwd":
             kern["blocks_per_sm"] = {k: blocks[f"{k} Dh 64"]
                                      for k in ("dkv", "dq")}
-    tr_launches, _ = transducer_train_phase(torch, card)
+    tr_launches, tr_routes = transducer_train_phase(torch, card)
     transducer_cpu_vs_card(torch)
     tr_decode = transducer_decode_phase(torch, card)
     for kern in kernels:
@@ -3004,6 +3170,9 @@ def main() -> int:
             kern.update(fwd_train[name])
         if name in tr_decode:
             kern["launches_per_transducer_decode"] = tr_decode[name]
+        if name.startswith("rnnt"):
+            kern["route_launches"] = {k: tr_routes[k]
+                                      for k in K5_WARP + K5_BLOCK}
         if name not in BF16_TIMED:
             kern["launches_per_default_train_step"] = default_per_step[name]
     for kern in wmma_kernels:

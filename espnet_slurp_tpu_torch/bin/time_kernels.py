@@ -5,13 +5,15 @@ rows_kernel, dx_kernel and dw_kernel backward; K3's register micro-tile
 ones) and K3's bf16 WMMA launches, or with ``--head-fp32`` K4's fp32 route
 (the default ASRConfig's CTC head) both ways, or with ``--head-lattice``
 K4's bf16 forward (the flagship's CTC head) and K1 (the CTC lattice) both
-ways, or with ``--conv`` K6 (the fused conv module) in bf16 both ways.
+ways, or with ``--conv`` K6 (the fused conv module) in bf16 both ways, or
+with ``--rnnt`` K5 (the RNN-T lattice) both ways.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-fp32
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-lattice
     python -m espnet_slurp_tpu_torch.bin.time_kernels --conv
+    python -m espnet_slurp_tpu_torch.bin.time_kernels --rnnt
 
 bf16, inputs from a seeded torch.Generator. K2's forward (``_launch_fwd``,
 D 256, F 1024) at N = 8 x 471 (serving), 64 x 468 (flagship train step)
@@ -45,6 +47,13 @@ its plain version (the forward; autograd's backward of it) and, at the
 transducer shape, beside the eager ``ConvModule`` with the same weights
 (``eager_ms`` by events, ``eager_device_ms`` by torch.profiler: the sum of
 its kernels' times a call).
+``--rnnt`` times K5's forward (``_launch_fwd``) and backward
+(``_launch_bwd``, fed the forward's alpha residual) at the transducer train
+step's lattice (B 32, T' 468, U1 65, fp32 tables of log-softmaxed logits,
+T'_b = 468 - 3 b, U_b = 64 - b % 5) the same way (``ms``, ``runs_ms``,
+``kernels_ms``, ``device_ms``, ``peak_mb``), with ``us_per_step`` over the
+T' + U1 - 1 anti-diagonals, beside the plain version (5 runs; autograd's
+backward of it).
 ``--wmma`` instead times, at rate
 0 and (``--rate`` above 0) at that dropout rate, each direction's launches
 of K2's fp32 route (N 64 x 468, D 256, d_ff 2048: the default ASRConfig's
@@ -321,6 +330,47 @@ def conv_timings(gen) -> dict:
     return out
 
 
+RNNT_B, RNNT_T, RNNT_U = 32, 468, 64
+
+
+def rnnt_timings(gen) -> dict:
+    """--rnnt: K5 both ways at the transducer train step's lattice."""
+    from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
+    b, t, u1 = RNNT_B, RNNT_T, RNNT_U + 1
+    lp = torch.log_softmax(torch.randn(b, t, u1, 8, generator=gen,
+                                       device="cuda") * 2.0, -1)
+    blank = lp[..., 0].contiguous()
+    emit = lp[..., 1].clone()
+    emit[..., -1] = kt.NEG
+    del lp
+    tlen = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    ulen = torch.tensor([RNNT_U - (i % 5) for i in range(b)],
+                        dtype=torch.int32, device="cuda")
+    g = torch.rand(b, generator=gen, device="cuda")
+    args = (blank, emit, tlen, ulen)
+    _, alpha = kt._launch_fwd(*args)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (blank, emit)]
+    plain = kt.rnnt_lattice_plain(*leaves, tlen, ulen)
+    calls = {"fwd": (lambda: kt._launch_fwd(*args),
+                     lambda: kt.rnnt_lattice_plain(*args)),
+             "bwd": (lambda: kt._launch_bwd(*args, alpha, g),
+                     lambda: torch.autograd.grad(plain, leaves, g,
+                                                 retain_graph=True))}
+    out = {}
+    for way, (call, plain_call) in calls.items():
+        times = [median_ms(call) for _ in range(4)]
+        per_kernel = kernels_ms(call)
+        ms = float(np.median(times))
+        out[f"rnnt_{way}"] = {
+            "B": b, "T": t, "U1": u1, "ms": ms, "runs_ms": times,
+            "us_per_step": 1e3 * ms / (t + u1 - 1),
+            "device_ms": sum(per_kernel.values()), "kernels_ms": per_kernel,
+            "peak_mb": peak_mb(call),
+            "plain_ms": median_ms(plain_call, warmup=1, reps=5)}
+    return out
+
+
 def head_lattice_timings(gen) -> dict:
     """--head-lattice: K4's bf16 forward and K1 both ways."""
     out = {}
@@ -357,6 +407,8 @@ def main() -> int:
                     help="time K4's bf16 forward and K1 both ways instead")
     ap.add_argument("--conv", action="store_true",
                     help="time K6's bf16 forward and backward instead")
+    ap.add_argument("--rnnt", action="store_true",
+                    help="time K5's forward and backward instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -377,6 +429,9 @@ def main() -> int:
         return emit(result, args.out)
     if args.conv:
         result.update(conv_timings(gen))
+        return emit(result, args.out)
+    if args.rnnt:
+        result.update(rnnt_timings(gen))
         return emit(result, args.out)
     if args.head_fp32:
         torch.backends.cuda.matmul.allow_tf32 = False

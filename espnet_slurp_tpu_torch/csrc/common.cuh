@@ -114,10 +114,9 @@ __device__ void smem_gemm(const float* A, int lda, const float* B, int ldb, floa
   __syncthreads();
 }
 
-// Host-side launch counts. The entries of csrc/ctc.cu, csrc/ctc_head.cu and
-// csrc/conv_module.cu add one to a kernel's count each time they launch it,
-// and
-// espnet_launch_count (csrc/ctc.cu) reads a count by the kernel's name: a
+// Host-side launch counts. The entries of csrc/ctc.cu, csrc/ctc_head.cu,
+// csrc/conv_module.cu and csrc/transducer.cu add one to a kernel's count each
+// time they launch it, and espnet_launch_count (csrc/ctc.cu) reads a count by the kernel's name: a
 // check of which kernels a call ran that does not depend on a torch.profiler
 // window (which has been seen to drop launches on the card). Each name is a
 // part of the kernel's name in the profiler, so that the two can be joined.
@@ -127,6 +126,7 @@ enum class Counted : int {
   kHeadLseF32, kHeadGatherF32, kHeadRowsF32, kHeadDxF32, kHeadDwF32,
   kConvGluBf16, kConvOutBf16, kConvGluSigBf16, kConvRowsBf16, kConvDuBf16, kConvDxBf16,
   kConvDwBf16, kConvSumBf16, kConvFwdF32, kConvRowsF32, kConvDw2F32, kConvDw1F32, kConvDxF32,
+  kRnntWarpFwd, kRnntWarpBwd, kRnntBlockFwd, kRnntBlockBwd,
   kCount
 };
 
@@ -141,7 +141,9 @@ inline const char* counted_name(int i) {
       "conv_bf16::out_kernel", "conv_bf16::glu_sig_kernel", "conv_bf16::rows_kernel",
       "conv_bf16::du_kernel", "conv_bf16::dx_kernel", "conv_bf16::dw_kernel",
       "conv_bf16::sum_kernel", "conv_fwd_kernel<float", "conv_bwd_rows_kernel<float",
-      "conv_bwd_dw2_kernel<float", "conv_bwd_dw1_kernel<float", "conv_bwd_dx_kernel<float"};
+      "conv_bwd_dw2_kernel<float", "conv_bwd_dw1_kernel<float", "conv_bwd_dx_kernel<float",
+      "rnnt_warp::fwd_kernel", "rnnt_warp::bwd_kernel", "rnnt_block::fwd_kernel",
+      "rnnt_block::bwd_kernel"};
   return i >= 0 && i < (int)Counted::kCount ? names[i] : nullptr;
 }
 

@@ -653,8 +653,8 @@ extern "C" int espnet_ctc_info(int which, int s, int* info) {
 }
 
 // Launches so far of the counted kernel `name` (common.cuh's Counted: the
-// kernels of csrc/ctc.cu, csrc/ctc_head.cu and csrc/conv_module.cu), or -1
-// for a name that is not counted.
+// kernels of csrc/ctc.cu, csrc/ctc_head.cu, csrc/conv_module.cu and
+// csrc/transducer.cu), or -1 for a name that is not counted.
 extern "C" long long espnet_launch_count(const char* name) {
   using namespace espnet;
   for (int i = 0; i < (int)Counted::kCount; ++i) {

@@ -154,6 +154,10 @@ def library() -> ctypes.CDLL:
     lib.espnet_rnnt_fwd.restype = i
     lib.espnet_rnnt_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.espnet_rnnt_bwd.restype = i
+    lib.espnet_rnnt_warp_states.argtypes = []
+    lib.espnet_rnnt_warp_states.restype = i
+    lib.espnet_rnnt_info.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.espnet_rnnt_info.restype = i
     lib.espnet_conv_f32_fwd.argtypes = [p] * 11 + [i] * 5 + [f, p]
     lib.espnet_conv_f32_fwd.restype = i
     lib.espnet_conv_f32_bwd.argtypes = [p] * 18 + [i] * 6 + [f, p]
@@ -189,10 +193,9 @@ def check(code: int, what: str) -> None:
 
 def launch_count(name: str) -> int:
     """Launches so far of a kernel that counts them on the host (the
-    kernels of csrc/ctc.cu, csrc/ctc_head.cu and csrc/conv_module.cu, by
-    the names in
-    csrc/common.cuh's ``counted_name``); raises for a name that is not
-    counted."""
+    kernels of csrc/ctc.cu, csrc/ctc_head.cu, csrc/conv_module.cu and
+    csrc/transducer.cu, by the names in csrc/common.cuh's
+    ``counted_name``); raises for a name that is not counted."""
     n = library().espnet_launch_count(name.encode())
     if n < 0:
         raise KeyError(f"no launch count for kernel {name!r}")

@@ -5,16 +5,21 @@ Port of espnet_slurp_tpu/ops/pallas/transducer.py:rnnt_lattice_pallas
 ``rnnt_lattice`` takes the gathered blank and emit log-prob tables and
 returns the per-row negative log-likelihood. On CUDA tensors it launches
 the hand-written kernels in ``csrc/transducer.cu`` (alpha along the
-lattice's anti-diagonals forward; beta and the posteriors backward); on CPU
-tensors it runs ``rnnt_lattice_plain``, the same recursion in plain PyTorch,
-whose gradient is PyTorch's autograd. A CUDA tensor the kernel does not take
-raises.
+lattice's anti-diagonals forward; beta and the posteriors backward), a
+route by U1: up to ``warp_states()`` (256) one warp per utterance with the
+states in registers (``rnnt_warp``), past it one block per utterance
+(``rnnt_block``). The alpha residual the forward keeps for the backward is
+diagonal-major, [B, T + U1 - 1, U1] fp64. On CPU tensors it runs
+``rnnt_lattice_plain``, the same recursion in plain PyTorch, whose gradient
+is PyTorch's autograd. A CUDA tensor the kernels do not take raises.
 
 Unlike the reference, the tables are not padded to 128 lanes, and a row
 with ``tlen < 1`` (no frame) gives loss 0 and gradient 0 instead of reading
 ``alpha[-1]``; the caller's feasibility mask zeroes such rows in both.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -79,10 +84,27 @@ def _check(blank, emit, tlen, ulen):
         raise ValueError("rnnt_lattice: all arguments must be on one device")
 
 
+def warp_states() -> int:
+    """The largest U1 the one-warp-per-utterance route takes (the kernels'
+    constant; larger U1 take the block route)."""
+    return build.library().espnet_rnnt_warp_states()
+
+
+def info(which: int, u1: int) -> tuple:
+    """(registers a thread, shared bytes, local (spill) bytes, blocks per
+    SM) of the forward (``which`` 0) or backward (1) kernel that launches
+    for U1 states, from the built library."""
+    buf = (ctypes.c_int * 4)()
+    build.check(build.library().espnet_rnnt_info(which, u1, buf),
+                "rnnt_lattice kernel info")
+    return tuple(buf)
+
+
 def _launch_fwd(blank, emit, tlen, ulen):
     b, t, u1 = blank.shape
     loss = torch.empty(b, dtype=torch.float32, device=blank.device)
-    alpha = torch.empty(b, t, u1, dtype=torch.float64, device=blank.device)
+    alpha = torch.empty(b, t + u1 - 1, u1, dtype=torch.float64,
+                        device=blank.device)
     build.check(build.library().espnet_rnnt_fwd(
         blank.data_ptr(), emit.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
         loss.data_ptr(), alpha.data_ptr(), b, t, u1, build.stream_ptr(blank)),

@@ -3,7 +3,9 @@ edge shapes the smoke run does not reach: a single row, ragged N, narrow
 widths, T shorter than a tile or just past one, Dh 32 to 128, key lengths
 of 0 and below (Speech2Text's padding rows), chunk masks; for the backward
 passes and the CTC kernels also U = 0, U > T and duplicate labels in ext;
-for the RNN-T lattice U1 from 1 to 300 and tlen 0, 1 and T; for the fused
+for the RNN-T lattice U1 from 1 to 300 (both routes: one warp per utterance
+up to 256, one block past it) and tlen 0, 1 and T, and the transducer
+train step's lattice; for the fused
 conv module k 3 to 33, SAME and causal, lengths 0, 1, full and None, its
 route by host counts and its bf16 backward against the plain backward at
 its rounding points; for K2's
@@ -16,7 +18,7 @@ that span 8 utterances to the default train shape, and its plan; K4's bf16
 forward (lse on the mma.sync mainloop, gather) at the same shapes; K1's
 two routes (one warp per utterance up to 256 states, one block past it)
 from S 1 to 3072, tlen 0, 1 and T, every skip off and empty labels. The
-routes of K1, K4 and K6 are read from the library's host-side launch
+routes of K1, K4, K5 and K6 are read from the library's host-side launch
 counts.
 Gradients are held to the plain versions' autograd gradients.
 
@@ -1266,32 +1268,53 @@ def test_fused_ctc_head_refuses_what_it_cannot_take(gen):
 # ---- The transducer slice's kernels (K5, K6) ---------------------------------
 
 
-@pytest.mark.parametrize("u1", [1, 2, 33, 65, 129, 300])
-def test_rnnt_lattice(gen, u1):
-    """K5 against its plain version: U1 within a warp, across warps and
-    past the 256-thread mark; rows with tlen 0, 1 and T, ulen 0, and a zero
-    cotangent (exact zero gradients there and at frames past tlen)."""
+K5_ROUTES = tuple(f"rnnt_{r}::{k}_kernel" for r in ("warp", "block")
+                  for k in ("fwd", "bwd"))
+
+
+@pytest.mark.parametrize("b,t,u1", [
+    (5, 40, 1), (5, 40, 2), (5, 40, 33), (5, 40, 65), (5, 40, 129),
+    (5, 40, 256), (5, 40, 257), (5, 40, 300),
+    (32, 468, 65)])  # the transducer train step's lattice
+def test_rnnt_lattice(gen, b, t, u1):
+    """K5 against its plain version: U1 within a warp, across warps, at the
+    warp route's limit (256) and past it, and at the transducer train
+    step's lattice (B 32, T' 468, U1 65, tlen T' - 3 b, ulen 64 - b % 5);
+    the small cases with rows of tlen 0, 1 and T and ulen 0; a zero
+    cotangent on the last row (exact zero gradients there and at frames
+    past tlen). One launch each way, by the host counts of the route the
+    library takes for U1: one warp per utterance up to 256, one block past
+    it."""
     from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
-    b, t = 5, 40
     lp = torch.log_softmax(torch.randn(b, t, u1, 6, generator=gen,
                                        device="cuda"), -1)
     blank = lp[..., 0].contiguous()
     emit = lp[..., 1].clone()
     emit[..., -1] = kt.NEG
-    tlen = torch.tensor([t, 1, 0, t - 13, t], dtype=torch.int32,
-                        device="cuda")
-    ulen = torch.tensor([u1 - 1, min(3, u1 - 1), 0, 0, (u1 - 1) // 2],
-                        dtype=torch.int32, device="cuda")
+    if b == 5:
+        tlen = [t, 1, 0, t - 13, t]
+        ulen = [u1 - 1, min(3, u1 - 1), 0, 0, (u1 - 1) // 2]
+    else:
+        tlen = [t - 3 * i for i in range(b)]
+        ulen = [u1 - 1 - i % 5 for i in range(b)]
+    tlen = torch.tensor(tlen, dtype=torch.int32, device="cuda")
+    ulen = torch.tensor(ulen, dtype=torch.int32, device="cuda")
     cot = torch.rand(b, generator=gen, device="cuda")
-    cot[4] = 0.0
+    cot[-1] = 0.0
     args = (blank, emit, tlen, ulen)
+    route = "warp" if u1 <= kt.warp_states() else "block"
     before = (kt.rnnt_lattice.launches, kt.rnnt_lattice.bwd_launches)
+    counts = _counts(K5_ROUTES)
     out, grads = _grads(kt.rnnt_lattice, args, cot, n_diff=2)
-    ref, ref_grads = _grads(kt.rnnt_lattice_plain, args, cot, n_diff=2)
     torch.cuda.synchronize()
+    after = _counts(K5_ROUTES)
+    ref, ref_grads = _grads(kt.rnnt_lattice_plain, args, cot, n_diff=2)
     assert (kt.rnnt_lattice.launches, kt.rnnt_lattice.bwd_launches) == (
         before[0] + 1, before[1] + 1)
-    assert _rel(out, ref) <= 1e-4 and float(out[2]) == 0.0
+    assert {k: after[k] - counts[k] for k in K5_ROUTES} == {
+        k: int(f"rnnt_{route}::" in k) for k in K5_ROUTES}
+    assert _rel(out, ref) <= 1e-4
+    assert all(float(out[i]) == 0.0 for i in range(b) if tlen[i] == 0)
     frames = torch.arange(t, device="cuda")[None, :, None]
     dead = (frames >= tlen.long()[:, None, None]) | (cot == 0)[:, None, None]
     for name, g, r in zip(("dblank", "demit"), grads, ref_grads):
@@ -1299,6 +1322,22 @@ def test_rnnt_lattice(gen, u1):
         assert _rel(g, r, floor=1e-3) <= 1e-4, name
         assert torch.equal(g[dead.expand_as(g)],
                            torch.zeros_like(g[dead.expand_as(g)])), name
+
+
+def test_rnnt_lattice_kernel_info(gen):
+    """The warp route's kernels at U1 65 (J 3 states a lane) and 256 (J 8)
+    and the block route's at 257 and 3072: registers, shared bytes, no
+    spills, at least one block an SM; a U1 past 3072 is refused."""
+    from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
+    assert kt.warp_states() == 256
+    for u1 in (65, 256, 257, 3072):
+        for which in (0, 1):
+            regs, smem, local, blocks = kt.info(which, u1)
+            assert 0 < regs <= 255 and smem > 0 and local == 0, (
+                u1, which, regs, smem, local)
+            assert blocks >= 1, (u1, which, blocks)
+    with pytest.raises(RuntimeError):
+        kt.info(0, 3073)
 
 
 # K6's launches by dtype and direction, by their host-side launch counts

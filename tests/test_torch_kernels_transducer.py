@@ -159,3 +159,54 @@ def test_plain_lattice_is_the_alpha_recursion():
         tl, ul = tlens[i], ulens[i]
         ref = -(al[tl - 1, ul] + blank[i, tl - 1, ul])
         np.testing.assert_allclose(float(out[i]), ref, rtol=1e-6)
+
+
+def test_plain_lattice_at_the_train_shape_matches_the_reference_scan():
+    """rnnt_lattice_plain at the transducer train step's lattice (T' 468,
+    U1 65; two rows, ragged: tlen 468 / 401, ulen 64 / 47) against the
+    reference's anti-diagonal scan (espnet_slurp_tpu/ops/transducer.py) on
+    the same seeded tables: the loss, and the gradients of a weighted loss
+    sum w.r.t. both tables. The reference takes [B, T, U1, V] log-probs, so
+    its input stacks the tables as V 2 with every label 1: log_probs[..., 0]
+    is the blank table, log_probs[..., 1] at u < U the emit table (it pads
+    emit's last column with NEG itself, as the port's caller does).
+    Tolerances: the loss (~1e3 in magnitude) to rtol 1e-5, the scan
+    accumulating fp32 rounding over 532 steps; the gradients (posteriors
+    times the weights, max |ref| ~1) to atol 1e-4, rtol 1e-3, as in the
+    tests above (fp32 autodiff of the scan against the port's fp64
+    recursion)."""
+    rng = np.random.RandomState(7)
+    b, t, u1, v = 2, 468, 65, 8
+    logits = rng.randn(b, t, u1, v).astype(np.float32) * 2.0
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    blank, emit = lp[..., 0].copy(), lp[..., 1].copy()
+    emit[..., -1] = NEG
+    tlens = np.asarray([468, 401], np.int32)
+    ulens = np.asarray([64, 47], np.int32)
+    w = rng.rand(b).astype(np.float32) + 0.5
+
+    def ref(tables):
+        loss = jtr.rnnt_loss_from_logprobs(
+            tables, jnp.ones((b, u1 - 1), jnp.int32), jnp.asarray(tlens),
+            jnp.asarray(ulens))
+        return jnp.sum(loss * jnp.asarray(w)), loss
+
+    (_, ref_loss), ref_g = jax.jit(jax.value_and_grad(ref, has_aux=True))(
+        jnp.asarray(np.stack([blank, emit], -1)))
+    ref_g = np.asarray(ref_g)
+
+    tb = torch.from_numpy(blank).requires_grad_(True)
+    te = torch.from_numpy(emit).requires_grad_(True)
+    loss = rnnt_lattice_plain(tb, te, torch.from_numpy(tlens),
+                              torch.from_numpy(ulens))
+    (loss * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(ref_loss),
+                               rtol=1e-5)
+    np.testing.assert_allclose(tb.grad.numpy(), ref_g[..., 0], rtol=1e-3,
+                               atol=1e-4)
+    # emit's last column is the pad: the reference's gradient does not
+    # reach it, and the port's is an exact zero (its entries are NEG).
+    np.testing.assert_allclose(te.grad.numpy()[..., :-1],
+                               ref_g[..., :-1, 1], rtol=1e-3, atol=1e-4)
+    assert not te.grad.numpy()[..., -1].any()
+    assert np.abs(ref_g[..., 0]).max() > 0.1
