@@ -10,8 +10,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    compiler's register report and the blocks per SM of K3's bf16 and fp32
    forward, dkv and dq kernels and of K2's bf16 forward kernel printed, and
    K2's fp32 kernels', K4's kernels' (both dtypes), K1's (S 129 and
-   401) and K6's bf16 kernels' (D 256, k 31) registers, shared and local
-   (spill) bytes and blocks per SM.
+   401) and K6's kernels' (both dtypes, D 256, k 31) registers, shared and
+   local (spill) bytes and blocks per SM.
 2. Kernels at the flagship shapes the serving path gives them: K2 fused FFN
    (N = 8 utterances x T' rows, D 256, F 1024) and K3 rel-pos flash
    attention (B 8, H 4, T', Dh 64, ragged lengths, unchunked and chunk 16 /
@@ -68,7 +68,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    launches the warp route's fwd_kernel and bwd_kernel (host counts),
    printed likewise and as us a frame beside the byte bound a frame; then
    K1 at U 200 (S 401, past the warp route's 256 states) both ways against
-   its plain version within 1e-4, on the block route (host counts), timed.
+   its plain version within 1e-4, on the block route (host counts), timed
+   beside F.ctc_loss both ways.
    K2's bf16 backward
    and K4 both ways are also timed beside the eager bf16 composition of
    their function (K2: F.linear -> F.silu -> F.dropout -> F.linear; K4:
@@ -120,15 +121,16 @@ or the port's package is not beside it. Phases, each of which fails the run:
    at [8, 468, 300]; each with its route by the host counts and exact zero
    gradients at frames past tlen and on zero-cotangent rows) and K6 fused
    conv module
-   (x [32, 468, 256], k 31, SAME with ragged lengths in bf16 and fp32, and
-   one causal case), each direction against its plain version's outputs
+   (x [32, 468, 256], k 31, SAME and causal with ragged lengths in bf16
+   and fp32), each direction against its plain version's outputs
    and autograd gradients (bf16 within 2e-2, fp32 within 1e-4 of max
    |ref|), K6's bf16 backward also against fused_conv_module_bwd_plain
    (its rounding points) within BWD_PLAIN_TOL, and each K6 call's launches
    by the library's host-side counts (bf16: glu and out forward, glu_sig,
    rows, du, dx, dw and sum backward, on csrc/conv_module.cu's conv_bf16;
-   fp32: the first version's kernels; the first version's bf16 kernels
-   absent from the build); K5 then timed as in phase 4 beside the plain
+   fp32: glu, norm and out forward, glu_sig, dsw, rows, du, dx, dw and sum
+   backward, on conv_f32; the first version's kernels absent from the
+   build); K5 then timed as in phase 4 beside the plain
    version and the bound, with us per anti-diagonal step and each route's
    registers, shared bytes, spills and blocks per SM; K6's bf16 directions
    timed by CUDA events and device time (each launch's, torch.profiler)
@@ -138,9 +140,10 @@ or the port's package is not beside it. Phases, each of which fails the run:
    fp32 peak, counted apart) and what one backward call adds to peak
    memory, each launch with its bound, registers, shared bytes, spills and
    blocks per SM; both directions again at the flagship's B 64 (timed
-   only); K6's fp32 route (the first version) timed at B 32 beside its
-   plain version, the eager fp32 ConvModule and its bound (all work at the
-   fp32 peak). Last, K6 forward in bf16 at the greedy decode's shape (x [8, T',
+   only); K6's fp32 directions the same way at B 32 and, checked again
+   within 1e-4 first, at B 64 (ragged lengths), beside the plain version,
+   the eager fp32 ConvModule and the bound (all work at the fp32 peak).
+   Last, K6 forward in bf16 at the greedy decode's shape (x [8, T',
    256], 468 valid frames each) against its plain version, within 2e-2,
    and timed.
 9. The transducer train slice: transducer_flagship_config() with
@@ -200,6 +203,13 @@ or the port's package is not beside it. Phases, each of which fails the run:
    counts) and K1 (the warp route) each
    way; step seconds, audio-s/s, busy ms of one profiled step and peak
    memory printed, and the time phases 12 and 13 add.
+14. ASRConfig(fused_conv=True) (phase 13's config with its conv modules
+   on K6's fp32 route) the same way, one warm-up and 5 timed steps:
+   losses finite, nothing skipped, the loss falls, per step exactly 24 K2,
+   12 K3 and 12 K6 launches each way and 1 K4 (fp32) and 1 K1 (warp route)
+   each way, K6 on conv_f32's launches only by the host counts (no bf16
+   one); step seconds, audio-s/s, busy ms and peak memory printed beside
+   phase 13's, with what one K6 backward call holds in scratch.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -208,7 +218,9 @@ every entry whose timed instance a default-ASRConfig step runs also
 carries its launches a default step: not the bf16-timed K2, K3 and K4
 entries, whose default-step launches go to their fp32 routes), then
 phase 12's fp32 entries (``*_fp32``), whose launches are those of phase
-13's timed steps; the last line is ``{"ok": true, "device": {...}}``.
+13's timed steps, then phase 8's K6 fp32 entries
+(``fused_conv_module*_fp32``), whose launches are those of phase 14's
+timed steps; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1258,10 +1270,10 @@ K4_F32_LAUNCHES = {"ctc_head_f32::lse_kernel": "fwd",
                    "ctc_head_f32::dx_kernel": "bwd",
                    "ctc_head_f32::dw_kernel": "bwd"}
 K4_GONE = ("ctc_head_fwd_kernel", "ctc_head_dx_kernel", "ctc_head_dw_kernel")
-# K6's launches (csrc/conv_module.cu): bf16 in the order of
-# espnet_conv_bf16_info's `which`, then fp32 (the first version's kernels),
-# each with its direction; the first version's bf16 instantiations (their
-# mangled names in the compiler's report), which must not be built.
+# K6's launches (csrc/conv_module.cu), each with its direction: bf16 in the
+# order of espnet_conv_bf16_info's `which`, fp32 in that of
+# espnet_conv_f32_info's; the first version's kernels (either dtype, by the
+# names in the compiler's report), which must not be built.
 K6_BF16_LAUNCHES = {"conv_bf16::glu_kernel": "fwd",
                     "conv_bf16::out_kernel": "fwd",
                     "conv_bf16::glu_sig_kernel": "bwd",
@@ -1270,14 +1282,18 @@ K6_BF16_LAUNCHES = {"conv_bf16::glu_kernel": "fwd",
                     "conv_bf16::dx_kernel": "bwd",
                     "conv_bf16::dw_kernel": "bwd",
                     "conv_bf16::sum_kernel": "bwd"}
-K6_F32_LAUNCHES = {"conv_fwd_kernel<float": "fwd",
-                   "conv_bwd_rows_kernel<float": "bwd",
-                   "conv_bwd_dw2_kernel<float": "bwd",
-                   "conv_bwd_dw1_kernel<float": "bwd",
-                   "conv_bwd_dx_kernel<float": "bwd"}
-K6_GONE = tuple(f"{k}I13__nv_bfloat16" for k in (
-    "conv_fwd_kernel", "conv_bwd_rows_kernel", "conv_bwd_dw2_kernel",
-    "conv_bwd_dw1_kernel", "conv_bwd_dx_kernel"))
+K6_F32_LAUNCHES = {"conv_f32::glu_kernel": "fwd",
+                   "conv_f32::norm_kernel": "fwd",
+                   "conv_f32::out_kernel": "fwd",
+                   "conv_f32::glu_sig_kernel": "bwd",
+                   "conv_f32::dsw_kernel": "bwd",
+                   "conv_f32::rows_kernel": "bwd",
+                   "conv_f32::du_kernel": "bwd",
+                   "conv_f32::dx_kernel": "bwd",
+                   "conv_f32::dw_kernel": "bwd",
+                   "conv_f32::sum_kernel": "bwd"}
+K6_GONE = ("conv_fwd_kernel", "conv_bwd_rows_kernel", "conv_bwd_dw2_kernel",
+           "conv_bwd_dw1_kernel", "conv_bwd_dx_kernel")
 K6_BF16_FWD = tuple(k for k, w in K6_BF16_LAUNCHES.items() if w == "fwd")
 ROUTED = (K1_WARP + K1_BLOCK + tuple(K4_BF16_LAUNCHES) + tuple(K4_F32_LAUNCHES)
           + tuple(K6_BF16_LAUNCHES) + tuple(K6_F32_LAUNCHES) + K5_WARP
@@ -1356,22 +1372,26 @@ def k4_gone_check(torch, names):
 
 
 def k6_gone_check(torch):
-    """The first version's bf16 K6 kernels are not in the built library
-    (the compiler's entry list)."""
+    """The first version's K6 kernels (either dtype) are not in the built
+    library (the compiler's entry list)."""
     from espnet_slurp_tpu_torch.ops.kernels import build
     gone = sorted({x for x in K6_GONE for ln in build.build_log().splitlines()
                    if "Compiling entry" in ln and x in ln})
     if gone:
-        raise AssertionError(f"K6's first-version bf16 kernels are still "
-                             f"built: {gone}")
+        raise AssertionError(f"K6's first-version kernels are still built: "
+                             f"{gone}")
 
 
-def k6_info(d, k):
+def k6_info(d, k, fp32=False):
     """{kernel: (registers, shared bytes, local bytes, blocks per SM)} of
-    K6's bf16 launches at width d and k taps, from the built library."""
+    K6's bf16 (or fp32) launches at width d and k taps, from the built
+    library."""
+    import torch
     from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
-    return {name: kc.info(which, d, k)
-            for which, name in enumerate(K6_BF16_LAUNCHES)}
+    names = K6_F32_LAUNCHES if fp32 else K6_BF16_LAUNCHES
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    return {name: kc.info(which, d, k, dtype)
+            for which, name in enumerate(names)}
 
 
 def bound2(products: float, fp32_ops: float, nbytes: float):
@@ -1438,19 +1458,50 @@ def k6_bounds(b, t, d, k, nsplit):
         "launches": launches}
 
 
-def device_total_ms(torch, call, n=5):
-    """torch.profiler's device time of everything call() launches, a call,
-    over n calls after one unprofiled call (an eager composition's time on
-    the card, apart from its host's pace)."""
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) \
-        / 1e3 / n
+def k6_f32_bounds(b, t, d, k, nsplit):
+    """Bounds (ms, by) of K6's fp32 directions and launches at B x T rows,
+    width d, k taps, dW in nsplit splits: all work (products, taps,
+    elementwise) at the fp32 peak; bytes as each launch reads and writes
+    them, scratch included (g, sig, sw, dsw then dc fp32 [N, D], du fp32
+    [N, 2D], the partials), only the function's inputs and outputs for a
+    direction (x, lengths, the weights; out, or go in and dx and the
+    gradients out)."""
+    n = b * t
+    tiles = b * -(-t // 32)
+    nd, dd = n * d, d * d
+    params = 4 * (2 * d + d * k + 4 * d)  # b1, wdw, bdw, gamma, beta, b2
+    taps = 2.0 * nd * k
+    grads = 4 * 3 * dd + params
+    ins = 4 * nd + 4 * b + 4 * 3 * dd + params
+    part = 4 * (tiles * (3 * d + d * k + 2 * d) + nsplit * (3 * dd + d))
+    w1_in = 8 * dd + 8 * d + 4 * b  # W1, b1, lengths
+    fp32 = lambda ops, nbytes: bound(ops, nbytes, PEAK_FP32_FLOPS)
+    launches = {
+        "conv_f32::glu_kernel": fp32(4.0 * nd * d + 5.0 * nd,
+                                     4 * nd + w1_in + 4 * nd),
+        "conv_f32::norm_kernel": fp32(taps + 11.0 * nd,
+                                      4 * nd + params + 4 * nd),
+        "conv_f32::out_kernel": fp32(2.0 * nd * d,
+                                     4 * nd + 4 * dd + 4 * d + 4 * nd),
+        "conv_f32::glu_sig_kernel": fp32(4.0 * nd * d + 5.0 * nd,
+                                         4 * nd + w1_in + 8 * nd),
+        "conv_f32::dsw_kernel": fp32(2.0 * nd * d, 4 * nd + 4 * dd + 4 * nd),
+        "conv_f32::rows_kernel": fp32(
+            taps + 25.0 * nd,
+            8 * nd + params + 8 * nd + 4 * tiles * 3 * d),
+        "conv_f32::du_kernel": fp32(
+            2 * taps + 11.0 * nd,
+            12 * nd + 4 * d * k + 4 * b + 8 * nd
+            + 4 * tiles * (2 * d + d * k)),
+        "conv_f32::dx_kernel": fp32(4.0 * nd * d, 8 * nd + 8 * dd + 4 * nd),
+        "conv_f32::dw_kernel": fp32(6.0 * nd * d + nd,
+                                    20 * nd + 4 * nsplit * (3 * dd + d)),
+        "conv_f32::sum_kernel": fp32(part / 4, part + grads)}
+    return {
+        "fwd": fp32(6.0 * nd * d + taps + K6_ELEM_FWD * nd, ins + 4 * nd),
+        "bwd": fp32(16.0 * nd * d + 3 * taps + K6_ELEM_BWD * nd,
+                    ins + 4 * nd + 4 * nd + grads),
+        "launches": launches}
 
 
 def launch_table(what, got, info, bounds):
@@ -1528,7 +1579,9 @@ def ctc_lattice_detail(torch, kctc, largs, alpha, cot, b, t, s, fbound,
 def ctc_lattice_block_route(torch, kctc, lp, gen, b, t, u):
     """K1 past the warp route's limit: U u labels (S = 2 u + 1 states) on
     the same log-probs, both ways against ctc_lattice_plain within
-    TOL["float32"], launched as the block route (host counts), timed."""
+    TOL["float32"], launched as the block route (host counts), timed
+    beside F.ctc_loss on the same log-probs and labels."""
+    import torch.nn.functional as F
     v = lp.shape[-1]
     labels = torch.randint(1, v - 1, (b, u), generator=gen, device="cuda")
     ulen = torch.tensor([u - (i % 5) for i in range(b)], device="cuda")
@@ -1556,12 +1609,21 @@ def ctc_lattice_block_route(torch, kctc, lp, gen, b, t, u):
                    PEAK_FP32_FLOPS)
     bbound = bound(14.0 * states, 4 * b * t * s + 4 * b * s + 8 * b + 4 * b
                    + 4 * b * t * s, PEAK_FP32_FLOPS)
+    lpt = lp.transpose(0, 1).detach().requires_grad_(True)
+    ctc = lambda: F.ctc_loss(lpt, labels, tlen.long(), ulen, blank=0,
+                             reduction="none", zero_infinity=True)
+    lib_fwd_ms = median_ms(torch, ctc)
+    lib_loss = ctc()
+    lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
+        lib_loss, lpt, cot, retain_graph=True))
     print(f"K1 ctc_lattice block route B={b} T={t} S={s}: forward "
-          f"{fwd_ms:.4f} ms (bound {fbound[0]:.4f}, {fbound[1]}), backward "
-          f"{bwd_ms:.4f} ms (bound {bbound[0]:.4f}, {bbound[1]}); "
+          f"{fwd_ms:.4f} ms (bound {fbound[0]:.4f}, {fbound[1]}; F.ctc_loss "
+          f"{lib_fwd_ms:.4f}), backward {bwd_ms:.4f} ms (bound "
+          f"{bbound[0]:.4f}, {bbound[1]}; F.ctc_loss {lib_bwd_ms:.4f}); "
           f"{ctc_info(s)}")
     return dict(s=s, max_abs_err=err_o, max_abs_err_bwd=err_g, ms=fwd_ms,
-                bwd_ms=bwd_ms, bound_ms=fbound[0], bwd_bound_ms=bbound[0])
+                bwd_ms=bwd_ms, bound_ms=fbound[0], bwd_bound_ms=bbound[0],
+                library_ms=lib_fwd_ms, bwd_library_ms=lib_bwd_ms)
 
 
 def train_kernel_phase(torch, t_prime):
@@ -1964,7 +2026,9 @@ def transducer_config(**asr):
 def transducer_kernel_phase(torch, t_prime, t_serve):
     """K2 and K3 both ways, and K5 and K6 both ways, at the transducer
     step's shapes (T' t_prime), then K6 forward at the greedy decode's
-    (N_UTT x t_serve, lengths t_prime); returns the kernels-line entries."""
+    (N_UTT x t_serve, lengths t_prime); returns the kernels-line entries,
+    the records at the transducer shape of the entries timed elsewhere and
+    K6's fp32 entries."""
     from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
     from espnet_slurp_tpu_torch.ops.kernels import ffn
     from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
@@ -2007,9 +2071,9 @@ def transducer_kernel_phase(torch, t_prime, t_serve):
 
     out += rnnt_phase(torch, kt, gen, b, t, u1)
 
-    out += conv_phase(torch, kc, b, t, t_serve, d, k, r)
-    return out, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
-                 "rel_flash_attention_bwd": att_bwd_tr}
+    k6, k6_fp32 = conv_phase(torch, kc, b, t, t_serve, d, k, r)
+    return out + k6, {"fused_ffn": ffn_fwd_tr, "fused_ffn_bwd": ffn_bwd_tr,
+                      "rel_flash_attention_bwd": att_bwd_tr}, k6_fp32
 
 
 def rnnt_tables(torch, kt, gen, b, t, u1):
@@ -2151,14 +2215,15 @@ def rnnt_phase(torch, kt, gen, b, t, u1):
 
 def conv_phase(torch, kc, b, t, t_serve, d, k, r):
     """K6 both ways at the transducer step's shapes (B b, T' t, width d, k
-    taps; bf16 SAME and causal, fp32 SAME, ragged lengths), each call's
+    taps; bf16 and fp32, SAME and causal, ragged lengths), each call's
     route by the host counts, the bf16 backward also against
     fused_conv_module_bwd_plain; then timed at that shape and the
-    flagship's (B 64), the forward also at the greedy decode's (N_UTT x
-    t_serve, t valid frames). Returns the kernels-line entries."""
+    flagship's (B 64), fp32 also checked there, the bf16 forward also at
+    the greedy decode's (N_UTT x t_serve, t valid frames). Returns the
+    kernels-line entries of the bf16 route and of the fp32 one."""
     out = []
-    # K6: x [B, T', D], k 31, ragged lengths; SAME in bf16 and fp32, and
-    # causal in bf16; each call's launches by the host counts.
+    # K6: x [B, T', D], k 31, ragged lengths; SAME and causal in bf16 and
+    # fp32; each call's launches by the host counts.
     k6_gone_check(torch)
     lengths = torch.tensor([t - 7 * i for i in range(b)], dtype=torch.int32,
                            device="cuda")
@@ -2169,7 +2234,7 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
     names = ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta", "dw2",
              "db2")
     for dt, causal in ((torch.bfloat16, False), (torch.float32, False),
-                       (torch.bfloat16, True)):
+                       (torch.bfloat16, True), (torch.float32, True)):
         name = str(dt).split(".")[-1]
         args = k6_args(x0, lengths, params0, dt)
         kw = dict(kernel_size=k, causal=causal)
@@ -2200,9 +2265,10 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
                                      "fused_conv_module_bwd_plain")
             del bp
         del o, g, ro, rg
-        if dt == torch.float32:
+        if dt == torch.float32 and not causal:
+            f32_err = (err_o, err_g)
             f32 = k6_fp32_timed(torch, kc, args, plain, plain_bwd,
-                                gout.to(dt), params0, k)
+                                gout.to(dt), params0, k, "(transducer train)")
         if dt != torch.bfloat16 or causal:
             del plain_bwd
             continue
@@ -2254,9 +2320,48 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
                     "ms", "device_ms", "launch_ms", "peak_mb")},
                 **common))
 
-    for entry in out:
-        entry["fp32_at_transducer_shape"] = f32[
-            "bwd" if entry["name"].endswith("_bwd") else "fwd"]
+    # fp32 at the flagship's B 64 (the shape of ASRConfig(fused_conv=True)'s
+    # train step): checked and timed.
+    bf = TRAIN_B
+    lengths = torch.tensor([t - 7 * i for i in range(bf)], dtype=torch.int32,
+                           device="cuda")
+    args = k6_args(r(bf, t, d), lengths, params0, torch.float32)
+    gf = r(bf, t, d)
+    kw = dict(kernel_size=k, causal=False)
+    fn = lambda *a: kc.fused_conv_module(*a, **kw)
+    plain = lambda *a: kc.fused_conv_module_plain(*a, **kw)
+    grad_args = (args[0],) + args[2:] + (args[1],)
+    reorder = lambda f: lambda x, *rest: f(x, rest[-1], *rest[:-1])
+    what = f"K6 fused_conv_module float32 B={bf} T={t} D={d} k={k}"
+    before = route_counts()
+    o, g, _ = grad_case(torch, reorder(fn), grad_args, gf, 9)
+    torch.cuda.synchronize()
+    got = {n: c - before[n] for n, c in route_counts().items()}
+    check_routes(what, got, K6_F32_LAUNCHES)
+    ro, rg, plain_bwd = grad_case(torch, reorder(plain), grad_args, gf, 9)
+    err_o, err_g = hold(torch, what, o, ro, g, rg, names, TOL["float32"])
+    del o, g, ro, rg
+    f32_b64 = k6_fp32_timed(torch, kc, args, plain, plain_bwd, gf, params0,
+                            k, f"(flagship shape, B={bf})")
+    del plain_bwd, args, gf
+    f32_out = []
+    for way, entry, line, mx, mx64 in (
+            ("fwd", "fused_conv_module_fp32", 214, f32_err[0], err_o),
+            ("bwd", "fused_conv_module_bwd_fp32", 236, f32_err[1], err_g)):
+        e = f32[way]
+        f32_out.append(dict(
+            name=entry, route="cuda",
+            source="espnet_slurp_tpu_torch/csrc/conv_module.cu",
+            replaces=f"espnet_slurp_tpu/ops/pallas/conv_module.py:{line}",
+            launches=None, max_abs_err=mx, ms=e["ms"],
+            device_ms=e["device_ms"], plain_ms=e["plain_ms"],
+            bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+            library_ms=e["eager_ms"], library_device_ms=e["eager_device_ms"],
+            library_note="the eager fp32 ConvModule, which K6 replaces; "
+                         "library_device_ms is its device time "
+                         "(torch.profiler)",
+            peak_mb=e["peak_mb"], launch_detail=e["launch_detail"],
+            at_flagship_shape={"max_abs_err": mx64, **f32_b64[way]}))
 
     # K6 forward as the greedy decode runs it: 8 utterances of 15 s padded
     # to T' t_serve, each with t_prime valid frames, bf16, no gradient.
@@ -2279,47 +2384,44 @@ def conv_phase(torch, kc, b, t, t_serve, d, k, r):
     next(x for x in out if x["name"] == "fused_conv_module")[
         "at_decode_shape"] = {key: decode[f"fwd_{key}"] for key in (
             "ms", "device_ms", "launch_ms")}
-    return out
+    return out, f32_out
 
 
-def k6_fp32_timed(torch, kc, args, plain, plain_bwd, gout, params, k):
-    """K6's fp32 route (csrc/conv_module.cu's first-version kernels) at
-    args' shape, each direction by CUDA events and device time (the sum of
-    its launches', torch.profiler) beside its plain version, the eager fp32
-    ConvModule (events and device time) and the bound: all work (products,
-    taps, elementwise) at the fp32 peak, fp32 operands, the function's
-    inputs and outputs only."""
+def k6_fp32_timed(torch, kc, args, plain, plain_bwd, gout, params, k, what):
+    """K6's fp32 route (csrc/conv_module.cu's conv_f32) at args' shape: each
+    direction by CUDA events, each launch's device time and their sum
+    (torch.profiler) and what one call adds to peak memory, beside its
+    plain version, the eager fp32 ConvModule (events and device time) and
+    the bound (k6_f32_bounds: all work at the fp32 peak); each launch with
+    its bound, registers, shared bytes, spills and blocks per SM."""
     x, lengths = args[0], args[1]
     b, t, d = x.shape
-    pl = kc.left_pad(k, False)
-    fwd = lambda: kc._launch_fwd(*args, k, pl, 1e-6)
-    bwd = lambda: kc._launch_bwd(*args[:-1], gout, k, pl, 1e-6)
+    timed = k6_timed(torch, kc, args, gout, k, what, K6_F32_LAUNCHES)
     eager = k6_eager(torch, x, lengths, params, gout, k)
-    nd, dd = b * t * d, d * d
-    small = 4 * (2 * d + d * k + 4 * d)  # b1, wdw, bdw, gamma, beta, b2
-    taps = 2.0 * nd * k
-    ins = 4 * nd + 4 * b + 4 * 3 * dd + small
-    bounds = {"fwd": bound(6.0 * nd * d + taps + K6_ELEM_FWD * nd,
-                           ins + 4 * nd, PEAK_FP32_FLOPS),
-              "bwd": bound(16.0 * nd * d + 3 * taps + K6_ELEM_BWD * nd,
-                           ins + 4 * nd + 4 * nd + 4 * 3 * dd + small,
-                           PEAK_FP32_FLOPS)}
+    bnd = k6_f32_bounds(b, t, d, k, kc.dw_splits(b * t, d, x.device,
+                                                 torch.float32))
+    table = launch_table(f"K6 fp32 {what}", {
+        **timed["fwd_launch_ms"], **timed["bwd_launch_ms"]},
+        k6_info(d, k, fp32=True), bnd["launches"])
     res = {}
-    for way, call, plain_call in (("fwd", fwd, lambda: plain(*args)),
-                                  ("bwd", bwd, plain_bwd)):
-        bnd = bounds[way]
-        res[way] = dict(ms=median_ms(torch, call),
-                        device_ms=device_total_ms(torch, call),
-                        plain_ms=median_ms(torch, plain_call),
-                        bound_ms=bnd[0], bound_by=bnd[1],
-                        eager_ms=eager[f"{way}_ms"],
-                        eager_device_ms=eager[f"{way}_device_ms"])
-        r = res[way]
-        print(f"K6 fused_conv_module float32 {way} B={b} T={t} D={d} k={k}: "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f}, eager fp32 ConvModule {r['eager_ms']:.4f}"
-              f" (device {r['eager_device_ms']:.4f}), bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    for way, plain_call in (("fwd", lambda: plain(*args)),
+                            ("bwd", plain_bwd)):
+        r = res[way] = dict(
+            ms=timed[f"{way}_ms"], device_ms=timed[f"{way}_device_ms"],
+            peak_mb=timed[f"{way}_peak_mb"],
+            plain_ms=median_ms(torch, plain_call),
+            bound_ms=bnd[way][0], bound_by=bnd[way][1],
+            eager_ms=eager[f"{way}_ms"],
+            eager_device_ms=eager[f"{way}_device_ms"],
+            launch_detail={n: v for n, v in table.items()
+                           if K6_F32_LAUNCHES[n] == way})
+        print(f"K6 fused_conv_module float32 {way} {what} B={b} T={t} D={d} "
+              f"k={k}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of the bound), "
+              f"plain {r['plain_ms']:.4f}, eager fp32 ConvModule "
+              f"{r['eager_ms']:.4f} (device {r['eager_device_ms']:.4f}), "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}); one call adds "
+              f"{r['peak_mb']:.1f} MB at its peak")
     return res
 
 
@@ -2330,7 +2432,7 @@ def k6_args(x, lengths, params, dt):
             w2.to(dt), b2)
 
 
-def k6_timed(torch, kc, args, gb, k, what):
+def k6_timed(torch, kc, args, gb, k, what, launches=K6_BF16_LAUNCHES):
     """K6's forward (and, with a cotangent gb, backward) launches alone at
     one shape: CUDA events, each launch's device time and their sum
     (torch.profiler), what one call adds to peak memory."""
@@ -2339,13 +2441,14 @@ def k6_timed(torch, kc, args, gb, k, what):
     if gb is not None:
         calls["bwd"] = lambda: kc._launch_bwd(*args[:-1], gb, k, pl, 1e-6)
     res = {}
+    route = "fp32" if launches is K6_F32_LAUNCHES else "bf16"
     for way, call in calls.items():
-        parts = {n: n for n, w in K6_BF16_LAUNCHES.items() if w == way}
+        parts = {n: n for n, w in launches.items() if w == way}
         ms, launch_ms, peak_mb = launch_detail(torch, call, parts)
         res.update({f"{way}_ms": ms, f"{way}_launch_ms": launch_ms,
                     f"{way}_device_ms": sum(launch_ms.values()),
                     f"{way}_peak_mb": peak_mb})
-        print(f"K6 bf16 {way} {what}: {ms:.4f} ms, device "
+        print(f"K6 {route} {way} {what}: {ms:.4f} ms, device "
               f"{res[f'{way}_device_ms']:.4f} ms ("
               + ", ".join(f"{n.split('::')[-1]} {v:.4f}"
                           for n, v in launch_ms.items())
@@ -2356,7 +2459,10 @@ def k6_timed(torch, kc, args, gb, k, what):
 def k6_eager(torch, x, lengths, params, gb, k):
     """The eager ConvModule with K6's weights, which K6 replaces, on x (its
     dtype, the pad mask from lengths): forward (with autograd's graph) and
-    autograd's backward, each by CUDA events and by device time."""
+    autograd's backward, each by CUDA events and by device time
+    (time_kernels.device_ms: a profiler window whose launches match an
+    earlier window's)."""
+    from espnet_slurp_tpu_torch.bin.time_kernels import device_ms
     from espnet_slurp_tpu_torch.models.conformer import ConvModule
     d, t = x.shape[-1], x.shape[1]
     mod = ConvModule(d, k).cuda()
@@ -2372,10 +2478,17 @@ def k6_eager(torch, x, lengths, params, gb, k):
     ye = fwd()
     leaves = [xe] + list(mod.parameters())
     bwd = lambda: torch.autograd.grad(ye, leaves, gb, retain_graph=True)
-    return {"fwd_ms": median_ms(torch, fwd),
-            "fwd_device_ms": device_total_ms(torch, fwd),
-            "bwd_ms": median_ms(torch, bwd),
-            "bwd_device_ms": device_total_ms(torch, bwd)}
+    out = {}
+    for way, call in (("fwd", fwd), ("bwd", bwd)):
+        dev, launches, windows = device_ms(call)
+        odd = {k[:80]: c for k, c in launches.items() if c != int(c)}
+        print(f"eager ConvModule {way} B={x.shape[0]} {x.dtype}: device "
+              f"{dev:.4f} ms, {sum(launches.values()):g} launches a call "
+              f"(the profiler window taken: number {windows}; kernels with "
+              f"launches a call not whole: {odd})")
+        out.update({f"{way}_ms": median_ms(torch, call),
+                    f"{way}_device_ms": dev})
+    return out
 
 
 def transducer_train_phase(torch, card):
@@ -3065,12 +3178,72 @@ def default_train_phase(torch, card):
         "ctc_lattice": 1, "ctc_lattice_bwd": 1}, steps)
     check_routes("default ASRConfig train", routes,
                  K1_WARP + tuple(K4_F32_LAUNCHES), steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"default ASRConfig train: step {step_s:.4f} s, "
           f"{TRAIN_B * TRAIN_SECONDS / step_s:.1f} audio-s/s, device busy "
           f"{busy_ms:.2f} ms a profiled step, on {card}")
     del model, batch
     torch.cuda.empty_cache()
+    return ({k: v // steps for k, v in launches.items()}, launches,
+            dict(step_s=step_s, busy_ms=busy_ms, peak_gb=peak_gb))
+
+
+def fused_conv_train_phase(torch, card, default, t_prime):
+    """ASRConfig(fused_conv=True) (the default config with its conv modules
+    on K6's fp32 route) through make_train_step as default_train_phase
+    runs ASRConfig(), one warm-up and TRAIN_STEPS timed steps (the loss on
+    this traffic rises at the third of them with or without fused_conv,
+    and falls by the fifth): losses finite, nothing
+    skipped, the loss falls, and per step exactly 24 K2, 12 K3 and 12 K6
+    launches each way and 1 K4 (fp32) and 1 K1 (warp route) each way; by
+    the host counts K6 on conv_f32's launches only (12 of each a step, no
+    bf16 one). Prints the step beside ``default`` (default_train_phase's
+    step s, busy ms and peak GB) and what one K6 backward call holds in
+    scratch at T' t_prime. Returns the launch counts of the timed steps,
+    per step and in all."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRConfig, ASRModel
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = ASRConfig(fused_conv=True)
+    model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
+    what = "ASRConfig(fused_conv=True) train"
+    launches, step_s, busy_ms, steps, routes = run_train_steps(
+        torch, f"{what}: {cfg.dtype}, d_ff {cfg.d_ff}, dropout "
+        f"{cfg.dropout_rate}, B={TRAIN_B} x {TRAIN_SECONDS} s, U={TRAIN_U}",
+        model, batch, card, TRAIN_B * TRAIN_SECONDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_blocks = cfg.num_encoder_blocks
+    check_per_step(what, launches, {
+        "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+        "rel_flash_attention": n_blocks, "rel_flash_attention_bwd": n_blocks,
+        "fused_conv_module": n_blocks, "fused_conv_module_bwd": n_blocks,
+        "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+        "ctc_lattice": 1, "ctc_lattice_bwd": 1}, steps)
+    check_routes(what, routes, {
+        **dict.fromkeys(K1_WARP + tuple(K4_F32_LAUNCHES), 1),
+        **dict.fromkeys(K6_F32_LAUNCHES, n_blocks)}, steps)
+    # A K6 backward call's scratch at this shape: g, sig, dc, sw [N, D] and
+    # du [N, 2D] fp32, and its partials.
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    n, d, k = TRAIN_B * t_prime, cfg.d_model, cfg.kernel_size
+    tiles = TRAIN_B * -(-t_prime // 32)
+    nsplit = kc.dw_splits(n, d, "cuda", torch.float32)
+    scratch_mb = 4 * (6 * n * d + tiles * (3 * d + d * k + 2 * d)
+                      + nsplit * (3 * d * d + d)) / 1e6
+    print(f"{what}: step {step_s:.4f} s, {TRAIN_B * TRAIN_SECONDS / step_s:.1f}"
+          f" audio-s/s, device busy {busy_ms:.2f} ms, peak {peak_gb:.2f} GB; "
+          f"ASRConfig() in the same run: step {default['step_s']:.4f} s "
+          f"({100 * (step_s / default['step_s'] - 1):+.1f}%), busy "
+          f"{default['busy_ms']:.2f} ms, peak {default['peak_gb']:.2f} GB "
+          f"({1e3 * (peak_gb - default['peak_gb']):+.1f} MB); one K6 "
+          f"backward call holds {scratch_mb:.1f} MB of scratch (g, sig, dc, "
+          f"sw, du and the partials) on {card}")
+    del model, batch
+    torch.cuda.empty_cache()
     return {k: v // steps for k, v in launches.items()}, launches
+
 
 
 def main() -> int:
@@ -3115,6 +3288,8 @@ def main() -> int:
           f"bytes, blocks per SM): {ctc_info(129)} {ctc_info(401)}")
     print("K6 bf16 kernels at D 256, k 31 (registers, shared bytes, local "
           f"bytes, blocks per SM): {k6_info(256, 31)}")
+    print("K6 fp32 kernels at D 256, k 31 (registers, shared bytes, local "
+          f"bytes, blocks per SM): {k6_info(256, 31, fp32=True)}")
     from espnet_slurp_tpu_torch.ops.kernels import transducer as kt
     print("K5 kernels at U1 65 and 300 (registers, shared bytes, local "
           f"bytes, blocks per SM): {[kt.info(w, 65) for w in (0, 1)]} "
@@ -3135,10 +3310,17 @@ def main() -> int:
     dropout = dropout_phase(torch, t_train)
     t_added = time.perf_counter()
     wmma_kernels, wmma_dh128 = wmma_dropout_phase(torch, t_train)
-    default_per_step, default_launches = default_train_phase(torch, card)
+    default_per_step, default_launches, default_stats = default_train_phase(
+        torch, card)
     t_added = time.perf_counter() - t_added
     print(f"WMMA dropout and default ASRConfig train phases: {t_added:.1f} s")
-    tr_kernels, at_tr_shape = transducer_kernel_phase(torch, t_train, t_prime)
+    t_added = time.perf_counter()
+    fused_per_step, fused_launches = fused_conv_train_phase(
+        torch, card, default_stats, t_train)
+    print(f"ASRConfig(fused_conv=True) train phase: "
+          f"{time.perf_counter() - t_added:.1f} s")
+    tr_kernels, at_tr_shape, k6_fp32 = transducer_kernel_phase(
+        torch, t_train, t_prime)
     kernels += tr_kernels
     for kern in kernels:
         kern.update(at_tr_shape.get(kern["name"], {}))
@@ -3187,6 +3369,12 @@ def main() -> int:
             kern["blocks_per_sm"] = {k: f32_blocks[f"{k} Dh 64"]
                                      for k in ("dkv", "dq")}
     kernels += wmma_kernels
+    for kern in k6_fp32:
+        # ASRConfig(fused_conv=True)'s step launches K6 in fp32 only.
+        base = kern["name"].replace("_fp32", "")
+        kern["launches"] = fused_launches[base]
+        kern["launches_per_fused_conv_train_step"] = fused_per_step[base]
+    kernels += k6_fp32
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

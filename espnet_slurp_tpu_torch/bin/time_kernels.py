@@ -6,13 +6,15 @@ ones) and K3's bf16 WMMA launches, or with ``--head-fp32`` K4's fp32 route
 (the default ASRConfig's CTC head) both ways, or with ``--head-lattice``
 K4's bf16 forward (the flagship's CTC head) and K1 (the CTC lattice) both
 ways, or with ``--conv`` K6 (the fused conv module) in bf16 both ways, or
-with ``--rnnt`` K5 (the RNN-T lattice) both ways.
+with ``--conv-fp32`` K6 in fp32 both ways, or with ``--rnnt`` K5 (the RNN-T
+lattice) both ways.
 
     python -m espnet_slurp_tpu_torch.bin.time_kernels [--out FILE]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --wmma [--rate R]
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-fp32
     python -m espnet_slurp_tpu_torch.bin.time_kernels --head-lattice
     python -m espnet_slurp_tpu_torch.bin.time_kernels --conv
+    python -m espnet_slurp_tpu_torch.bin.time_kernels --conv-fp32
     python -m espnet_slurp_tpu_torch.bin.time_kernels --rnnt
 
 bf16, inputs from a seeded torch.Generator. K2's forward (``_launch_fwd``,
@@ -46,7 +48,12 @@ also at the greedy decode's (B 8, T' 471, 468 valid frames), each beside
 its plain version (the forward; autograd's backward of it) and, at the
 transducer shape, beside the eager ``ConvModule`` with the same weights
 (``eager_ms`` by events, ``eager_device_ms`` by torch.profiler: the sum of
-its kernels' times a call).
+its kernels' times a call, from a window whose launches match an earlier
+window's, ``eager_launches`` a call). ``--conv-fp32`` times K6's fp32 route
+(``conv_f32``: the default ASRConfig's with ``fused_conv``) the same way at
+the transducer and flagship shapes, each beside the eager fp32
+``ConvModule``, with TF32 off for products and convolutions (the eager
+module's depthwise conv is cuDNN's).
 ``--rnnt`` times K5's forward (``_launch_fwd``) and backward
 (``_launch_bwd``, fed the forward's alpha residual) at the transducer train
 step's lattice (B 32, T' 468, U1 65, fp32 tables of log-softmaxed logits,
@@ -254,17 +261,39 @@ def lattice_case(gen):
                                                    retain_graph=True)}
 
 
-def device_ms(fn, n=10) -> float:
-    """torch.profiler's device time of everything fn launches, a call,
-    over n calls."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, n=10, windows=5) -> tuple:
+    """torch.profiler's device time of everything fn launches, a call, over
+    n calls: (ms, {kernel name: launches a call}, windows profiled). On the
+    card the profiler has been seen to lose all of a window's kernel
+    records, or all of one kernel's, while it kept the window's runtime
+    calls, and to lose the first few records of a window that tracing
+    starts with. So each window traces one call (the schedule's warm-up)
+    before the n it keeps, each call synchronised so that none runs into
+    the next step, and a window is taken only when its launches by kernel
+    name equal those of an earlier window; after ``windows`` windows with
+    no two alike this raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n
+    seen = []
+    for w in range(windows):
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n),
+                     on_trace_ready=lambda p: got.extend(p.key_averages())
+                     ) as prof:
+            for _ in range(n + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in got if e.self_device_time_total > 0]
+        counts = {e.key: e.count for e in kernels}
+        if counts and counts in seen:
+            return (sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+                    {k: c / n for k, c in counts.items()}, w + 1)
+        seen.append(counts)
+    raise RuntimeError(f"no two of {windows} profiler windows recorded the "
+                       "same launches")
 
 
 CONV_K = 31
@@ -275,23 +304,28 @@ CONV_CASES = {"transducer": (32, 468, lambda b: 468 - 7 * b, ("fwd", "bwd")),
               "decode": (8, 471, lambda b: 468, ("fwd",))}
 
 
-def conv_timings(gen) -> dict:
-    """--conv: K6 in bf16 at CONV_CASES' shapes."""
+def conv_timings(gen, dt=torch.bfloat16) -> dict:
+    """--conv: K6 in bf16 at CONV_CASES' shapes, the eager ConvModule at
+    the transducer's; --conv-fp32: in fp32 at its train shapes, the eager
+    fp32 ConvModule at both."""
     from espnet_slurp_tpu_torch.models.conformer import ConvModule
     from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    bf, k = torch.bfloat16, CONV_K
+    k = CONV_K
     params = (r(2 * D, D) * D ** -0.5, r(2 * D) * 0.1, r(D, k) * k ** -0.5,
               r(D) * 0.1, 1.0 + 0.1 * r(D), r(D) * 0.1, r(D, D) * D ** -0.5,
               r(D) * 0.1)
     w1, b1, wdw, bdw, gamma, beta, w2, b2 = params
+    fp32 = dt == torch.float32
+    cases = {n: c for n, c in CONV_CASES.items()
+             if not fp32 or n != "decode"}
     out = {}
-    for name, (b, t, valid, ways) in CONV_CASES.items():
+    for name, (b, t, valid, ways) in cases.items():
         lengths = torch.tensor([valid(i) for i in range(b)],
                                dtype=torch.int32, device="cuda")
-        args = (r(b, t, D).to(bf), lengths, w1.to(bf), b1, wdw, bdw, gamma,
-                beta, w2.to(bf), b2)
-        g = r(b, t, D).to(bf)
+        args = (r(b, t, D).to(dt), lengths, w1.to(dt), b1, wdw, bdw, gamma,
+                beta, w2.to(dt), b2)
+        g = r(b, t, D).to(dt)
         leaves = [a.detach().clone().requires_grad_(a.is_floating_point())
                   for a in args]
         y = kc.fused_conv_module_plain(*leaves, kernel_size=k)
@@ -303,11 +337,12 @@ def conv_timings(gen) -> dict:
                                                 1e-6),
                          lambda: torch.autograd.grad(y, diff, g,
                                                      retain_graph=True))}
+        key = "conv_fp32" if fp32 else "conv"
         for way in ways:
-            out[f"conv_{way}_{name}"] = {"B": b, "T": t, "D": D, "k": k,
-                                         **timed(*calls[way])}
+            out[f"{key}_{way}_{name}"] = {"B": b, "T": t, "D": D, "k": k,
+                                          **timed(*calls[way])}
         del y, leaves, diff
-        if name != "transducer":
+        if name != "transducer" and not fp32:
             continue
         mod = ConvModule(D, k).cuda()
         with torch.no_grad():
@@ -324,8 +359,11 @@ def conv_timings(gen) -> dict:
         grads = [xe] + list(mod.parameters())
         bwd = lambda: torch.autograd.grad(ye, grads, g, retain_graph=True)
         for way, fn in (("fwd", fwd), ("bwd", bwd)):
-            out[f"conv_{way}_{name}"].update(eager_ms=median_ms(fn),
-                                             eager_device_ms=device_ms(fn))
+            dev, launches, _ = device_ms(fn)
+            out[f"{key}_{way}_{name}"].update(eager_ms=median_ms(fn),
+                                              eager_device_ms=dev,
+                                              eager_launches=sum(
+                                                  launches.values()))
         del ye, grads, mod
     return out
 
@@ -407,6 +445,8 @@ def main() -> int:
                     help="time K4's bf16 forward and K1 both ways instead")
     ap.add_argument("--conv", action="store_true",
                     help="time K6's bf16 forward and backward instead")
+    ap.add_argument("--conv-fp32", action="store_true",
+                    help="time K6's fp32 forward and backward instead")
     ap.add_argument("--rnnt", action="store_true",
                     help="time K5's forward and backward instead")
     args = ap.parse_args()
@@ -429,6 +469,11 @@ def main() -> int:
         return emit(result, args.out)
     if args.conv:
         result.update(conv_timings(gen))
+        return emit(result, args.out)
+    if args.conv_fp32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        result.update(conv_timings(gen, torch.float32))
         return emit(result, args.out)
     if args.rnnt:
         result.update(rnnt_timings(gen))

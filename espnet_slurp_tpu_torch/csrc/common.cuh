@@ -1,12 +1,13 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// Both kernels stage their operands in shared memory and multiply tiles with
-// `smem_gemm`: WMMA (mma.sync) 16x16x16 bf16 tiles with fp32 accumulation for
-// the bf16 instantiation, and plain fp32 FMAs for the float instantiation
-// (which exists so the whole encoder can be held against the CPU in fp32).
-// Every shared tile row is padded by 16 bytes: rows stay 16-byte aligned for
-// vector loads and WMMA's 32-byte pointer rule, and the row stride is staggered
-// across banks.
+// K3's WMMA kernels (csrc/flash_attention.cu: rel_flash_*_kernel) stage their
+// operands in shared memory and multiply tiles with `smem_gemm`: WMMA
+// (mma.sync) 16x16x16 bf16 tiles with fp32 accumulation for the bf16
+// instantiation, and plain fp32 FMAs for the float instantiation. Every
+// shared tile row is padded by 16 bytes: rows stay 16-byte aligned for
+// vector loads and WMMA's 32-byte pointer rule, and the row stride is
+// staggered across banks. Also here: the host-side launch counts, and warp
+// reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -125,7 +126,8 @@ enum class Counted : int {
   kHeadLseBf16, kHeadGatherBf16, kHeadRowsBf16, kHeadDxBf16, kHeadDwBf16,
   kHeadLseF32, kHeadGatherF32, kHeadRowsF32, kHeadDxF32, kHeadDwF32,
   kConvGluBf16, kConvOutBf16, kConvGluSigBf16, kConvRowsBf16, kConvDuBf16, kConvDxBf16,
-  kConvDwBf16, kConvSumBf16, kConvFwdF32, kConvRowsF32, kConvDw2F32, kConvDw1F32, kConvDxF32,
+  kConvDwBf16, kConvSumBf16, kConvGluF32, kConvNormF32, kConvOutF32, kConvGluSigF32,
+  kConvDswF32, kConvRowsF32, kConvDuF32, kConvDxF32, kConvDwF32, kConvSumF32,
   kRnntWarpFwd, kRnntWarpBwd, kRnntBlockFwd, kRnntBlockBwd,
   kCount
 };
@@ -140,8 +142,10 @@ inline const char* counted_name(int i) {
       "ctc_head_f32::dx_kernel", "ctc_head_f32::dw_kernel", "conv_bf16::glu_kernel",
       "conv_bf16::out_kernel", "conv_bf16::glu_sig_kernel", "conv_bf16::rows_kernel",
       "conv_bf16::du_kernel", "conv_bf16::dx_kernel", "conv_bf16::dw_kernel",
-      "conv_bf16::sum_kernel", "conv_fwd_kernel<float", "conv_bwd_rows_kernel<float",
-      "conv_bwd_dw2_kernel<float", "conv_bwd_dw1_kernel<float", "conv_bwd_dx_kernel<float",
+      "conv_bf16::sum_kernel", "conv_f32::glu_kernel", "conv_f32::norm_kernel",
+      "conv_f32::out_kernel", "conv_f32::glu_sig_kernel", "conv_f32::dsw_kernel",
+      "conv_f32::rows_kernel", "conv_f32::du_kernel", "conv_f32::dx_kernel",
+      "conv_f32::dw_kernel", "conv_f32::sum_kernel",
       "rnnt_warp::fwd_kernel", "rnnt_warp::bwd_kernel", "rnnt_block::fwd_kernel",
       "rnnt_block::bwd_kernel"};
   return i >= 0 && i < (int)Counted::kCount ? names[i] : nullptr;

@@ -31,7 +31,9 @@
 //   - Layouts are template parameters (mma_gemm.cuh's Major), the epilogue
 //     a functor that receives each thread's accumulators four columns at a
 //     time with their (row, column), and a per-stage hook may read each
-//     landed stage (dW2's blocks sum g's columns from it).
+//     landed stage (dW2's blocks sum g's columns from it). A K-major B may
+//     take a row map: the block tile's row n reads B's row brows(n) past
+//     the tile's origin (K6's GLU product pairs W1's a and gate rows so).
 //
 // With 64 (32) accumulators, the fragments and the staged registers a
 // thread stays within 128 registers, so two blocks of 256 threads fit an SM
@@ -39,6 +41,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "mma_gemm.cuh"
 
@@ -64,6 +68,12 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // A per-stage hook that does nothing.
 struct NoHook {
   __device__ __forceinline__ void operator()(const float*, const float*) {}
+};
+
+// The row map that changes nothing: tile row i is the operand's row i past
+// the tile's origin.
+struct SameRows {
+  __device__ __forceinline__ int operator()(int i) const { return i; }
 };
 
 template <int BN, Major AL, Major BL>
@@ -119,18 +129,20 @@ struct Gemm {
 
   // A K-major operand X(i, k) = p[i * ld + k], p at the block tile's
   // origin: the thread's float4s along K of the k tile at kb into registers
-  // (zero at or past irem rows or krem of K), neighbouring lanes along K (a
-  // warp reads 64 contiguous bytes of each of 8 rows) ...
-  template <int V>
+  // (zero at or past irem rows or krem of K; tile row i reads p's row
+  // rows(i)), neighbouring lanes along K (a warp reads 64 contiguous bytes
+  // of each of 8 rows) ...
+  template <int V, class RowMap = SameRows>
   __device__ __forceinline__ static void fetch_k(float4 (&r)[V], const float* p, int ld, int kb,
-                                                 int irem, int krem) {
+                                                 int irem, int krem,
+                                                 const RowMap& rows = RowMap()) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int idx = threadIdx.x + v * kThreads;
       const int kq = idx % (BK / 4);
       const int i = idx / (BK / 4);
       const bool ok = i < irem && kb + 4 * kq < krem;
-      r[v] = ok ? __ldg(reinterpret_cast<const float4*>(p + (long)i * ld + kb + 4 * kq))
+      r[v] = ok ? __ldg(reinterpret_cast<const float4*>(p + (long)rows(i) * ld + kb + 4 * kq))
                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
@@ -163,8 +175,10 @@ struct Gemm {
 
   // Stage `slot` <- the k tile at kb (relative to the origin): the cp.async
   // part now, the register part into ra / rb (written by put).
+  template <class BRows>
   __device__ __forceinline__ static void load_stage(float* ring, int slot, const Operands& o,
-                                                    int kb, float4 (&ra)[AV], float4 (&rb)[BV]) {
+                                                    int kb, float4 (&ra)[AV], float4 (&rb)[BV],
+                                                    const BRows& brows) {
     float* sa = ring + slot * STAGE;
     float* sb = sa + A_ELEMS;
     if constexpr (AL == Major::K) {
@@ -173,7 +187,7 @@ struct Gemm {
       copy_mn<BM, LDA>(sa, o.a, o.lda, kb, o.mrem, o.krem);
     }
     if constexpr (BL == Major::K) {
-      fetch_k(rb, o.b, o.ldb, kb, o.nrem, o.krem);
+      fetch_k(rb, o.b, o.ldb, kb, o.nrem, o.krem, brows);
     } else {
       copy_mn<BN, LDB>(sb, o.b, o.ldb, kb, o.nrem, o.krem);
     }
@@ -216,12 +230,16 @@ struct Gemm {
   // from (m0, n0, k0) below 2^31). A(m, k) = A[m * lda + k] (AL K-major) or A[k * lda + m]; B(k,
   // n) = B[n * ldb + k] (BL K-major) or B[k * ldb + n]. `ring` holds
   // kRingFloats floats of 16-byte aligned shared memory; hook(sa, sb) sees
-  // every landed stage before its products. Called by the whole block;
-  // ends with the ring free for reuse.
-  template <class Hook>
+  // every landed stage before its products; a K-major B's tile row n is B's
+  // row n0 + brows(n) (nlim - n0 bounds n, not the mapped row). Called by
+  // the whole block; ends with the ring free for reuse.
+  template <class Hook, class BRows = SameRows>
   __device__ __forceinline__ static void run(Acc& acc, float* ring, const float* A, long lda,
                                              const float* B, long ldb, long m0, long n0,
-                                             long mlim, long nlim, long k0, long k1, Hook& hook) {
+                                             long mlim, long nlim, long k0, long k1, Hook& hook,
+                                             const BRows& brows = BRows()) {
+    static_assert(BL == Major::K || std::is_same<BRows, SameRows>::value,
+                  "a row map needs a K-major B");
     const int kt_total = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
     if (kt_total == 0) return;
     // The block tile's origin lies inside both operands (m0 < mlim, n0 <
@@ -230,7 +248,7 @@ struct Gemm {
                      BL == Major::K ? B + n0 * ldb + k0 : B + k0 * ldb + n0,
                      (int)lda, (int)ldb, (int)(mlim - m0), (int)(nlim - n0), (int)(k1 - k0)};
     float4 ra[AV], rb[BV];
-    load_stage(ring, 0, o, 0, ra, rb);
+    load_stage(ring, 0, o, 0, ra, rb, brows);
     mma::cp_async_commit();
     put(ring, 0, ra, rb);
     mma::cp_async_wait<0>();
@@ -238,7 +256,7 @@ struct Gemm {
     for (int kt = 0; kt < kt_total; ++kt) {
       const int cur = kt & 1;
       const bool more = kt + 1 < kt_total;
-      if (more) load_stage(ring, cur ^ 1, o, (kt + 1) * BK, ra, rb);
+      if (more) load_stage(ring, cur ^ 1, o, (kt + 1) * BK, ra, rb, brows);
       mma::cp_async_commit();
       const float* sa = ring + cur * STAGE;
       hook(sa, sa + A_ELEMS);

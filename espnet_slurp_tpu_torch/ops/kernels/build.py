@@ -158,12 +158,17 @@ def library() -> ctypes.CDLL:
     lib.espnet_rnnt_warp_states.restype = i
     lib.espnet_rnnt_info.argtypes = [i, i, ctypes.POINTER(i)]
     lib.espnet_rnnt_info.restype = i
-    lib.espnet_conv_f32_fwd.argtypes = [p] * 11 + [i] * 5 + [f, p]
+    lib.espnet_conv_f32_fwd.argtypes = [p] * 13 + [i] * 5 + [f, p]
     lib.espnet_conv_f32_fwd.restype = i
-    lib.espnet_conv_f32_bwd.argtypes = [p] * 18 + [i] * 6 + [f, p]
+    lib.espnet_conv_f32_bwd.argtypes = [p] * 22 + [i] + [p] * 6 + [i] * 5 + [
+        f, p]
     lib.espnet_conv_f32_bwd.restype = i
-    lib.espnet_conv_module_rows_tile.argtypes = [i]
-    lib.espnet_conv_module_rows_tile.restype = i
+    lib.espnet_conv_f32_dw_splits.argtypes = [i, i, i]
+    lib.espnet_conv_f32_dw_splits.restype = i
+    lib.espnet_conv_f32_info.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.espnet_conv_f32_info.restype = i
+    lib.espnet_conv_rows_tile.argtypes = []
+    lib.espnet_conv_rows_tile.restype = i
     lib.espnet_conv_bf16_fwd.argtypes = [p] * 12 + [i] * 5 + [f, p]
     lib.espnet_conv_bf16_fwd.restype = i
     lib.espnet_conv_bf16_bwd.argtypes = [p] * 21 + [i] + [p] * 5 + [i] * 5 + [

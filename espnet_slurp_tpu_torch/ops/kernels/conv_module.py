@@ -5,21 +5,23 @@ pointwise1 [D -> 2D] -> GLU -> prefix pad mask -> depthwise conv (flax SAME
 for odd k, or causal) -> LayerNorm (eps 1e-6) -> swish -> pointwise2, every
 intermediate in fp32. On a CUDA tensor the wrapper is a
 ``torch.autograd.Function`` that launches the hand-written kernels in
-``csrc/conv_module.cu``: in bfloat16 two forward launches and six
-backward ones, each product formed once on the ``mma.sync`` mainloop, with
+``csrc/conv_module.cu``, each product formed once over the B T rows, with
 g = GLU(pw1(x)), sigmoid(gate), dc and du through scratch that lives for
-the call (no [B, T, 2D] hidden kept between forward and backward); in
-float32 the first version (one forward launch, four backward ones). On a
+the call (no [B, T, 2D] hidden kept between forward and backward): in
+bfloat16 (``conv_bf16``) two forward launches and six backward ones on the
+``mma.sync`` mainloop; in float32 (``conv_f32``) three forward launches and
+seven backward ones on the fp32 FMA mainloop of ``csrc/sgemm.cuh``. On a
 CPU tensor it runs ``fused_conv_module_plain``, the same fp32-intermediate
 composition in plain PyTorch, whose gradients are PyTorch's autograd;
 ``fused_conv_module_bwd_plain`` is the backward at the reference's
-rounding points. A CUDA tensor the kernels do not take raises.
+rounding points. A CUDA tensor the kernels do not take (D not a multiple
+of 64 or past 512, a halo past the card's shared memory) raises.
 
 Unlike the reference, the weights come in PyTorch's layouts, as the port's
 ConvModule holds them (no transpose per call): w1 [2D, D] and w2 [D, D]
 (nn.Linear's [out, in]), the depthwise taps [D, k] (Conv1d's [D, 1, k]).
-The reference's D % 128 rule is a TPU lane rule; the kernel needs
-D % 64 == 0, and masks a ragged T itself.
+The reference's D % 128 rule is a TPU lane rule; the kernels need
+D % 64 == 0, and mask a ragged T themselves.
 """
 from __future__ import annotations
 
@@ -30,10 +32,6 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-
-# Row splits of the float32 route's dW1 / dW2 reductions (per-split fp32
-# partials).
-DW_SPLITS = 16
 
 
 def left_pad(kernel_size: int, causal: bool) -> int:
@@ -166,24 +164,30 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def dw_splits(n: int, d: int, device) -> int:
-    """Splits of N = B T for the bf16 backward's dW launch (the library's
-    plan for this card)."""
+def dw_splits(n: int, d: int, device, dtype=torch.bfloat16) -> int:
+    """Splits of N = B T for the backward's dW launch in dtype (the
+    library's plan for this card)."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    s = build.library().espnet_conv_bf16_dw_splits(n, d, _sms(idx))
+    lib = build.library()
+    plan = lib.espnet_conv_f32_dw_splits if dtype == torch.float32 \
+        else lib.espnet_conv_bf16_dw_splits
+    s = plan(n, d, _sms(idx))
     if s < 0:
         build.check(-s, "fused_conv_module plan")
     return s
 
 
-def info(which: int, d: int, k: int):
-    """(registers, shared bytes, local bytes, blocks per SM) of the bf16
-    route's launch ``which`` (0 glu, 1 out, 2 glu_sig, 3 rows, 4 du, 5 dx,
-    6 dw, 7 sum) at width d and k taps."""
+def info(which: int, d: int, k: int, dtype=torch.bfloat16):
+    """(registers, shared bytes, local bytes, blocks per SM) of launch
+    ``which`` at width d and k taps: in bf16 0 glu, 1 out, 2 glu_sig, 3
+    rows, 4 du, 5 dx, 6 dw, 7 sum; in fp32 0 glu, 1 norm, 2 out, 3
+    glu_sig, 4 dsw, 5 rows, 6 du, 7 dx, 8 dw, 9 sum."""
     buf = (ctypes.c_int * 4)()
-    build.check(build.library().espnet_conv_bf16_info(which, d, k, buf),
-                "fused_conv_module info")
+    lib = build.library()
+    entry = lib.espnet_conv_f32_info if dtype == torch.float32 \
+        else lib.espnet_conv_bf16_info
+    build.check(entry(which, d, k, buf), "fused_conv_module info")
     return tuple(buf)
 
 
@@ -194,69 +198,45 @@ def _launch_fwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, b2, k, pl,
     args = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             wdw.data_ptr(), bdw.data_ptr(), gamma.data_ptr(),
             beta.data_ptr(), w2.data_ptr(), b2.data_ptr())
+    # g = mask(GLU(pw1(x))) in fp32 between the launches; in fp32 also the
+    # swish output sw between the conv pass and pw2.
+    g = torch.empty(b, t, d, dtype=torch.float32, device=x.device)
     if x.dtype == torch.bfloat16:
-        # g = mask(GLU(pw1(x))) in fp32 between the two launches.
-        g = torch.empty(b, t, d, dtype=torch.float32, device=x.device)
         code = build.library().espnet_conv_bf16_fwd(
             *args, g.data_ptr(), out.data_ptr(), b, t, d, k, pl, eps,
             build.stream_ptr(x))
     else:
+        sw = torch.empty_like(g)
         code = build.library().espnet_conv_f32_fwd(
-            *args, out.data_ptr(), b, t, d, k, pl, eps, build.stream_ptr(x))
+            *args, g.data_ptr(), sw.data_ptr(), out.data_ptr(), b, t, d, k,
+            pl, eps, build.stream_ptr(x))
     build.check(code, "fused_conv_module")
     fused_conv_module.launches += 1
     return out
 
 
-def _launch_bwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, g, k, pl,
+def _launch_bwd(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, go, k, pl,
                 eps):
-    """(dx, dw1, db1, dwdw, dbdw, dgamma, dbeta, dw2, db2); dW1 and dW2 in
-    the weights' dtype, as the reference returns them."""
-    if x.dtype == torch.bfloat16:
-        return _launch_bwd_bf16(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2,
-                                g, k, pl, eps)
+    """(dx, dw1, db1, dwdw, dbdw, dgamma, dbeta, dw2, db2) for the
+    cotangent go; dW1 and dW2 in the weights' dtype, as the reference
+    returns them."""
     lib = build.library()
     b, t, d = x.shape
-    rows_tile = lib.espnet_conv_module_rows_tile(build.DTYPE_CODES[x.dtype])
-    nblk = b * -(-t // rows_tile)
-    nsplit = max(1, min(DW_SPLITS, nblk))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    dc = torch.empty(b, t, d, **f32)
-    sw = torch.empty_like(x)
-    vecp = torch.empty(nblk, 4, d, **f32)
-    dw1p = torch.empty(nsplit, 2 * d, d, **f32)
-    db1p = torch.empty(nsplit, 2 * d, **f32)
-    dwdwp = torch.empty(nsplit, d, k, **f32)
-    dw2p = torch.empty(nsplit, d, d, **f32)
-    build.check(lib.espnet_conv_f32_bwd(
-        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        wdw.data_ptr(), bdw.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), dc.data_ptr(),
-        sw.data_ptr(), vecp.data_ptr(), dw1p.data_ptr(), db1p.data_ptr(),
-        dwdwp.data_ptr(), dw2p.data_ptr(), nsplit, b, t, d, k, pl, eps,
-        build.stream_ptr(x)), "fused_conv_module backward")
-    fused_conv_module.bwd_launches += 1
-    db2, dgamma, dbeta, dbdw = vecp.sum(0)
-    return (dx, dw1p.sum(0).to(w1.dtype), db1p.sum(0), dwdwp.sum(0), dbdw,
-            dgamma, dbeta, dw2p.sum(0).to(w2.dtype), db2)
-
-
-def _launch_bwd_bf16(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, go, k,
-                     pl, eps):
-    lib = build.library()
-    b, t, d = x.shape
-    n = b * t
-    tiles = b * -(-t // lib.espnet_conv_module_rows_tile(1))
-    nsplit = dw_splits(n, d, x.device)
+    bf16 = x.dtype == torch.bfloat16
+    tiles = b * -(-t // lib.espnet_conv_rows_tile())
+    nsplit = dw_splits(b * t, d, x.device, x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     # Scratch for the call: g and sigmoid(gate) from the pw1 launch, dc
-    # (rows -> du), sw (rows -> dW2), du (du -> dx, dW1).
+    # (rows -> du; in fp32 it holds dsw before), sw (rows -> dW2), du (du
+    # -> dx, dW1); sw and du in x's type.
     g, sig, dc = (torch.empty(b, t, d, **f32) for _ in range(3))
     sw = torch.empty_like(x)
     du = torch.empty(b, t, 2 * d, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    vecp = torch.empty(tiles, 4, d, **f32)
+    # Partials: column sums a row tile (bf16: db2, dgamma, dbeta, dbdw;
+    # fp32: dgamma, dbeta, dbdw, with db2 a split of N), the tap gradient
+    # and db1 a row tile, dW1 and dW2 a split.
+    vecp = torch.empty(tiles, 4 if bf16 else 3, d, **f32)
     dwdwp = torch.empty(tiles, k, d, **f32)
     db1p = torch.empty(tiles, 2 * d, **f32)
     dw1p = torch.empty(nsplit, 2 * d, d, **f32)
@@ -266,17 +246,21 @@ def _launch_bwd_bf16(x, lengths, w1, b1, wdw, bdw, gamma, beta, w2, go, k,
     dwdw = torch.empty(d, k, **f32)
     db1 = torch.empty(2 * d, **f32)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
-    build.check(lib.espnet_conv_bf16_bwd(
-        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        wdw.data_ptr(), bdw.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        w2.data_ptr(), go.data_ptr(), g.data_ptr(), sig.data_ptr(),
-        dc.data_ptr(), sw.data_ptr(), du.data_ptr(), dx.data_ptr(),
-        vecp.data_ptr(), dwdwp.data_ptr(), db1p.data_ptr(), dw1p.data_ptr(),
-        dw2p.data_ptr(), nsplit, vec.data_ptr(), dwdw.data_ptr(),
-        db1.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), b, t, d, k, pl, eps,
-        build.stream_ptr(x)), "fused_conv_module backward")
+    ptrs = [p.data_ptr() for p in (x, lengths, w1, b1, wdw, bdw, gamma, beta,
+                                   w2, go, g, sig, dc, sw, du, dx, vecp,
+                                   dwdwp, db1p, dw1p, dw2p)]
+    sums = [p.data_ptr() for p in (vec, dwdw, db1, dw1, dw2)]
+    shape = (b, t, d, k, pl, eps, build.stream_ptr(x))
+    if bf16:
+        code = lib.espnet_conv_bf16_bwd(*ptrs, nsplit, *sums, *shape)
+        db2, dgamma, dbeta, dbdw = vec
+    else:
+        db2p = torch.empty(nsplit, d, **f32)
+        code = lib.espnet_conv_f32_bwd(*ptrs, db2p.data_ptr(), nsplit, *sums,
+                                       vec[3].data_ptr(), *shape)
+        dgamma, dbeta, dbdw, db2 = vec
+    build.check(code, "fused_conv_module backward")
     fused_conv_module.bwd_launches += 1
-    db2, dgamma, dbeta, dbdw = vec
     return dx, dw1, db1, dwdw, dbdw, dgamma, dbeta, dw2, db2
 
 

@@ -1347,9 +1347,12 @@ K6_LAUNCHES = {
                      ("conv_bf16::glu_sig_kernel", "conv_bf16::rows_kernel",
                       "conv_bf16::du_kernel", "conv_bf16::dx_kernel",
                       "conv_bf16::dw_kernel", "conv_bf16::sum_kernel")),
-    torch.float32: (("conv_fwd_kernel<float",),
-                    ("conv_bwd_rows_kernel<float", "conv_bwd_dw2_kernel<float",
-                     "conv_bwd_dw1_kernel<float", "conv_bwd_dx_kernel<float"))}
+    torch.float32: (("conv_f32::glu_kernel", "conv_f32::norm_kernel",
+                     "conv_f32::out_kernel"),
+                    ("conv_f32::glu_sig_kernel", "conv_f32::dsw_kernel",
+                     "conv_f32::rows_kernel", "conv_f32::du_kernel",
+                     "conv_f32::dx_kernel", "conv_f32::dw_kernel",
+                     "conv_f32::sum_kernel"))}
 K6_NAMES = ("dx", "dw1", "db1", "dwdw", "dbdw", "dgamma", "dbeta", "dw2",
             "db2")
 
@@ -1426,6 +1429,18 @@ def test_fused_conv_module_without_lengths(gen, dtype, b, t, d):
                 dict(kernel_size=31, causal=False))
 
 
+@pytest.mark.parametrize("k,causal", [(31, False), (33, True)])
+def test_fused_conv_module_fp32_at_d512(gen, k, causal):
+    """The fp32 route at its widest D (512: rows_kernel's 512 threads, a
+    channel each), ragged lengths, k 31 and past one 32-tap chunk."""
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    t = 70
+    lengths = torch.tensor([t, 33], dtype=torch.int32, device="cuda")
+    args, cot = _conv_case(gen, torch.float32, 2, t, 512, k)
+    _check_conv(kc, args, lengths, cot, torch.float32,
+                dict(kernel_size=k, causal=causal))
+
+
 def test_fused_conv_module_refuses_what_it_cannot_take(gen):
     from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -1437,3 +1452,5 @@ def test_fused_conv_module_refuses_what_it_cannot_take(gen):
         kc.fused_conv_module(*args(96, 3), kernel_size=3)
     with pytest.raises(ValueError):  # SAME padding with an even kernel
         kc.fused_conv_module(*args(64, 4), kernel_size=4)
+    with pytest.raises(RuntimeError):  # D past the routes' 512
+        kc.fused_conv_module(*args(576, 3), kernel_size=3)

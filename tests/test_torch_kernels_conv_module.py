@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from espnet_slurp_tpu.models.conformer import ConvModule as JaxConvModule
 from espnet_slurp_tpu.ops.pallas.conv_module import \
@@ -219,3 +220,104 @@ def test_bwd_plain_matches_pallas_vjp_bf16(causal):
         err = float(np.abs(got[n] - ref[n]).max()) / float(
             np.abs(ref[n]).max())
         assert err <= 1e-2, (n, err)
+
+
+def _fixed_order_sum(parts):
+    """Sum over parts[p] in csrc/conv_module.cu's sum launch's order: lane
+    group w adds the parts p = w, w + 8, ... in turn, then the 8 group sums
+    are added in order."""
+    groups = [torch.zeros_like(parts[0]) for _ in range(8)]
+    for p in range(parts.shape[0]):
+        groups[p % 8] = groups[p % 8] + parts[p]
+    total = groups[0]
+    for w in range(1, 8):
+        total = total + groups[w]
+    return total
+
+
+def _bwd_f32_mirror(x, lens, sd, k, causal, go, nsplit, tile=32):
+    """The fp32 backward as csrc/conv_module.cu's conv_f32 decomposes it,
+    in plain PyTorch: g and sigmoid(gate) from pw1 (glu_sig), dsw = go W2,
+    the conv and LayerNorm again and dc (rows), the transposed conv, the
+    mask and the GLU backward into du [N, 2D] (du), dx = du W1; the row
+    tiles' partial sums of dgamma, dbeta, dbdw, db1 and of the tap
+    gradient (the tile's frames of g against dc), dW1 = du^T x, dW2 = go^T
+    sw and db2 over splits of N (kchunk rows, rounded up to 16), each
+    summed in the sum launch's fixed order."""
+    from espnet_slurp_tpu_torch.ops.kernels.conv_module import left_pad
+    b, t, d = x.shape
+    pl = left_pad(k, causal)
+    pr = k - 1 - pl
+    w1, b1 = sd["pointwise1.weight"], sd["pointwise1.bias"]
+    wdw, bdw = sd["depthwise.weight"].view(d, k), sd["depthwise.bias"]
+    gamma, beta = sd["norm.weight"], sd["norm.bias"]
+    w2 = sd["pointwise2.weight"]
+    m = (torch.arange(t)[None, :] < lens[:, None]).float()[..., None]
+    u = x @ w1.t() + b1
+    sig = torch.sigmoid(u[..., d:])
+    g = u[..., :d] * sig * m
+    dsw = go @ w2
+    gp = F.pad(g, (0, 0, pl, pr))
+    c = bdw.expand_as(g)
+    for j in range(k):
+        c = c + wdw[:, j] * gp[:, j:j + t]
+    mu = c.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((c - mu).square().mean(-1, keepdim=True) + 1e-6)
+    chat = (c - mu) * rstd
+    nrm = chat * gamma + beta
+    sn = torch.sigmoid(nrm)
+    sw = nrm * sn
+    dn = dsw * sn * (1.0 + nrm * (1.0 - sn))
+    dchat = dn * gamma
+    dc = rstd * (dchat - dchat.mean(-1, keepdim=True)
+                 - chat * (dchat * chat).mean(-1, keepdim=True))
+    dcp = F.pad(dc, (0, 0, pr, pl))
+    dg = torch.zeros_like(dc)
+    for j in range(k):
+        dg = dg + wdw[:, j] * dcp[:, k - 1 - j:k - 1 - j + t]
+    dg = dg * m
+    du = torch.cat([dg * sig, dg * g * (1.0 - sig)], -1)
+    dx = du @ w1
+    # Row-tile partials: [tiles, ...] in the order b ceil(T / tile) + i.
+    tiles = [(i, r0) for i in range(b) for r0 in range(0, t, tile)]
+    taps = torch.stack([g * dcp[:, k - 1 - j:k - 1 - j + t]
+                        for j in range(k)], -1)  # [B, T, D, k]
+    per_tile = {name: torch.stack([v[i, r0:r0 + tile].sum(0)
+                                   for i, r0 in tiles])
+                for name, v in (("dgamma", dn * chat), ("dbeta", dn),
+                                ("dbdw", dc), ("db1", du), ("dwdw", taps))}
+    # Split partials over the N = B T rows.
+    n = b * t
+    cdiv = lambda a, q: -(-a // q)
+    kchunk = cdiv(cdiv(n, nsplit), 16) * 16
+    flat = lambda v: v.reshape(n, -1)
+    splits = [(s * kchunk, min(n, (s + 1) * kchunk)) for s in range(nsplit)]
+    dw1p = torch.stack([flat(du)[a:e].t() @ flat(x)[a:e] for a, e in splits])
+    dw2p = torch.stack([flat(go)[a:e].t() @ flat(sw)[a:e] for a, e in splits])
+    db2p = torch.stack([flat(go)[a:e].sum(0) for a, e in splits])
+    sums = {name: _fixed_order_sum(v) for name, v in per_tile.items()}
+    return {"x": dx, "pointwise1.weight": _fixed_order_sum(dw1p),
+            "pointwise1.bias": sums["db1"],
+            "depthwise.weight": sums["dwdw"].view(d, 1, k),
+            "depthwise.bias": sums["dbdw"], "norm.weight": sums["dgamma"],
+            "norm.bias": sums["dbeta"],
+            "pointwise2.weight": _fixed_order_sum(dw2p),
+            "pointwise2.bias": _fixed_order_sum(db2p)}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_backward_decomposition_matches_pallas_vjp(causal):
+    """The fp32 card route's backward decomposition (scratch g, sigmoid
+    (gate), dc, du; row-tile partials; dW over 3 splits of N = 111 rows,
+    not a multiple of the 48-row split) against the Pallas vjp, every
+    gradient within 1e-5 of its max |ref|."""
+    k = 15
+    x, lens, _, params, gvec = _mk(causal=causal)
+    sd = flax_to_torch(params["params"])
+    got = _bwd_f32_mirror(torch.from_numpy(x), torch.from_numpy(lens), sd, k,
+                          causal, torch.from_numpy(gvec), nsplit=3)
+    ref = _jax_vjp(x, lens, params, k, causal, gvec)
+    for n in ("x",) + PARAM_NAMES:
+        err = float(np.abs(got[n].numpy() - ref[n]).max()) / float(
+            np.abs(ref[n]).max())
+        assert err <= 1e-5, (n, err)
