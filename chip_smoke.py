@@ -24,13 +24,13 @@ or the port's package is not beside it. Phases, each of which fails the run:
    on every row (fully masked rows included) to
    rel_flash_attention_fwd_tiled_plain at the kernel's key tile (the same
    rounding points) within BWD_PLAIN_TOL and to rel_flash_attention_plain
-   within 2e-2, unchunked and chunked, and torch.profiler shows which
-   forward and which dq kernel bf16 at Dh 64 (the register-resident ones),
-   fp32 and bf16 at Dh 128 (the WMMA ones) launch. K2's bf16 forward is
-   also held to fused_ffn_plain (the same rounding points) within
-   BWD_PLAIN_TOL, shown by torch.profiler to launch the register-resident
-   ffn_fwd::fwd_kernel (with its reduction where F is split across
-   blocks), and timed as its launch alone beside its device time and the
+   within 2e-2, unchunked and chunked, and the library's host-side counts
+   (K2's and K3's by instance) show which forward, dkv and dq kernels bf16
+   at Dh 64 (the register-resident ones), fp32 and bf16 at Dh 128 (the
+   WMMA ones) launch. K2's bf16 forward is also held to fused_ffn_plain
+   (the same rounding points) within BWD_PLAIN_TOL, shown by the host
+   counts to launch the register-resident ffn_fwd::fwd_kernel once (with
+   its reduction where F is split across blocks), and timed as its launch alone beside its device time and the
    eager bf16 composition it replaces (F.linear -> F.silu -> F.dropout ->
    F.linear); the same at the flagship and transducer train shapes in
    phases 4 and 7.
@@ -104,8 +104,8 @@ or the port's package is not beside it. Phases, each of which fails the run:
    and K3's [B * H, T', T'], its keep rate within 6 sigma of 0.9; K2 and
    K3 each way against their plain versions with the same seed, within
    BWD_PLAIN_TOL at the kernels' rounding points and within 2e-2 of the
-   unrounded (fp32) plain version per output and gradient; the dropout
-   launches by profiler name, and each launch's device time at 0.1 beside
+   unrounded (fp32) plain version per output and gradient; the launches at
+   both rates by the host counts, and each launch's device time at 0.1 beside
    rate 0 (the Philox draws' cost). Then K2's width route: a d_model 512 /
    d_ff 2048 FeedForward (bench.py's 17 x 512 config) in bf16 and fp32,
    forward and backward, against its plain version, with the route each
@@ -176,7 +176,7 @@ or the port's package is not beside it. Phases, each of which fails the run:
    rel_flash_dkv_kernel, rel_flash_dq_kernel; B 64, H 2, T'), each
    direction against its plain version with the same seed (fp32 within
    1e-4, bf16 within 2e-2 of max |ref| per output and gradient); the
-   dropout and rate-0 instantiations by profiler name, each launch's
+   dropout and rate-0 instantiations by the host counts, each launch's
    device time at 0.1 beside 0 and its bound (K2's also its share of it,
    its registers, local bytes and blocks per SM); each direction timed
    beside its plain version (K2 also beside the eager fp32 composition it
@@ -210,6 +210,28 @@ or the port's package is not beside it. Phases, each of which fails the run:
    each way, K6 on conv_f32's launches only by the host counts (no bf16
    one); step seconds, audio-s/s, busy ms and peak memory printed beside
    phase 13's, with what one K6 backward call holds in scratch.
+15. The flagship through the port's own CLIs: a synthetic corpus of 128
+   train and 16 dev utterances of 15 s (data/mini_corpus.py's tones under
+   noise, ~64 char tokens each) under the gitignored build/;
+   bin/asr_train trains flagship_config() at dropout 0.1 with SpecAug on
+   (Adam at a constant 1e-3, sorted batches of 64) for 2 epochs, then a
+   second call with max_epoch 3 resumes from epoch 2; bin/asr_inference
+   decodes 8 dev utterances (beam 10, ctc_weight 0.3, max_len 96) from
+   valid.loss.ave_3best. Fails unless reporter.json holds 3 epochs of
+   finite losses with nothing skipped, the epoch checkpoints, latest.json
+   and the averages exist, every train step makes exactly 24 K2 and 12 K3
+   launches each way and 1 K4 and 1 K1 each way (the wrappers' counts, and
+   by the host counts the dropout instances of K2 and K3, K4's bf16 route
+   and K1's warp route), the decode's launches are phase 3's an encode,
+   K4 (both dtypes) and K1 at this corpus's V and S (the first batch's
+   int32 labels) hold to their plain versions within phase 4's tolerances,
+   and score.txt has WER, CER and RTF. Then one epoch of 1024 train
+   utterances (16 steps) through bin/asr_train, each step's launches held
+   the same way. Prints each epoch's step_time and iter_time from the
+   reporter, the CLI's audio-s/s beside phase 5's make_train_step, the
+   16-step epoch's host wait and host time per step after its first and
+   its audio-s/s over them, the CLI decode's RTF beside phase 3's, and the
+   phase's seconds.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -522,19 +544,25 @@ def port_kernels_ms(torch, call, n=3, attempts=5, expect=(), complete=None):
     return got
 
 
-def launched_kernels(torch, call, expect=()):
-    """Names of the port's kernels that call() launches (torch.profiler;
-    see port_kernels_ms for ``expect``)."""
-    return sorted(port_kernels_ms(torch, call, expect=expect))
+def instance_launches(torch, call):
+    """{kernel instance: launches} that call() makes, by the library's
+    host-side counts (build.launch_counts: each kernel by its name with its
+    template arguments), with no profiler window."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    before = build.launch_counts()
+    call()
+    torch.cuda.synchronize()
+    return build.launch_delta(before, build.launch_counts())
 
 
 def ffn_fwd_detail(torch, ffn, args, what):
     """K2's bf16 forward at one shape: held to fused_ffn_plain (the kernel's
-    rounding points) within BWD_PLAIN_TOL, launched as ffn_fwd::fwd_kernel
-    (torch.profiler's names; with ffn_fwd::reduce_kernel where F is split
-    across blocks), then the launch alone timed (CUDA events) beside its
-    device time (torch.profiler: the sum of its kernels' times a launch),
-    the plain version's time and its bound. Returns a dict of those."""
+    rounding points) within BWD_PLAIN_TOL, launched as
+    ffn_fwd::fwd_kernel<D2, false> once (the host counts; with
+    ffn_fwd::reduce_kernel where F is split across blocks), then the launch
+    alone timed (CUDA events) beside its device time (torch.profiler: the
+    sum of its kernels' times a launch), the plain version's time and its
+    bound. Returns a dict of those."""
     from espnet_slurp_tpu_torch.ops.kernels import build
     x, w1, b1, w2, b2 = args
     (n, d), f, d2 = x.shape, w1.shape[1], w2.shape[1]
@@ -543,18 +571,18 @@ def ffn_fwd_detail(torch, ffn, args, what):
     torch.cuda.synchronize()
     rel = rel_err(out, ffn.fused_ffn_plain(*args))[1]
     splits = build.library().espnet_fused_ffn_fwd_splits(n, d, f, d2)
-    per_kernel = port_kernels_ms(torch, call, n=5, expect=(
-        "ffn_fwd::fwd_kernel<",) + (("reduce_kernel",) if splits > 1 else ()))
-    names = sorted(per_kernel)
+    launched = instance_launches(torch, call)
+    want = {f"ffn_fwd::fwd_kernel<{d2}, false>": 1}
+    if splits > 1:
+        want["ffn_fwd::reduce_kernel"] = 1
     print(f"K2 fused_ffn bfloat16 N={n} {what}: {rel:.3e} of max|ref| "
           f"against fused_ffn_plain (tolerance {BWD_PLAIN_TOL}); F split "
-          f"{splits} ways; kernels {names}")
+          f"{splits} ways; kernels {launched}")
     if not (torch.isfinite(out).all() and rel <= BWD_PLAIN_TOL
-            and any("ffn_fwd::fwd_kernel<" in k for k in names)
-            and all("ffn_fwd::" in k for k in names)
-            and any("reduce_kernel" in k for k in names) == (splits > 1)):
+            and launched == want):
         raise AssertionError(f"K2 bf16 forward N={n} disagrees with "
                              "fused_ffn_plain or took another kernel")
+    per_kernel = port_kernels_ms(torch, call, n=5, expect=tuple(want))
     ms, dev = median_ms(torch, call), sum(per_kernel.values())
     plain = median_ms(torch, lambda: ffn.fused_ffn_plain(*args))
     bnd = ffn_bounds(n, d, f, d2, 2)["fwd"]
@@ -576,36 +604,38 @@ def route_cases(torch, args):
 
 
 def attention_fwd_routes(torch, fa, args):
-    """Which kernel espnet_rel_flash_fwd launches (torch.profiler's kernel
-    names): bf16 at Dh 64 the register-resident rel_fwd::fwd_kernel, fp32
-    at Dh 64 the register micro-tile rel_f32::fwd_kernel, bf16 at Dh 128
-    the WMMA rel_flash_fwd_kernel."""
+    """Which kernel espnet_rel_flash_fwd launches (the host counts): bf16 at
+    Dh 64 the register-resident rel_fwd::fwd_kernel, fp32 at Dh 64 the
+    register micro-tile rel_f32::fwd_kernel, bf16 at Dh 128 the WMMA
+    rel_flash_fwd_kernel, each once and alone."""
     want = ("rel_fwd::fwd_kernel<64, false>", "rel_f32::fwd_kernel<64, false>",
-            "rel_flash_fwd_kernel<__nv_bfloat16")
+            "rel_flash_fwd_kernel<__nv_bfloat16, 64, 64, false>")
     for (what, xs), w in zip(route_cases(torch, args), want):
-        names = launched_kernels(torch, lambda: fa._launch_fwd(
-            *xs, xs[0].shape[-1] ** -0.5, 0, -1), expect=(w,))
-        print(f"K3 forward route, {what}: {names}")
-        if len(names) != 1 or w not in names[0]:
+        got = instance_launches(torch, lambda: fa._launch_fwd(
+            *xs, xs[0].shape[-1] ** -0.5, 0, -1))
+        print(f"K3 forward route, {what}: {got}")
+        if got != {w: 1}:
             raise AssertionError(f"K3 forward {what} did not launch {w}")
 
 
 def attention_bwd_routes(torch, fa, args):
-    """Which dq kernel espnet_rel_flash_bwd launches (torch.profiler's kernel
-    names): bf16 at Dh 64 the register-resident rel_dq::dq_kernel, fp32 at
-    Dh 64 the register micro-tile rel_f32::dq_kernel, bf16 at Dh 128 the
-    WMMA rel_flash_dq_kernel."""
-    want = ("rel_dq::dq_kernel<64, false>", "rel_f32::dq_kernel<64, false>",
-            "rel_flash_dq_kernel<__nv_bfloat16")
+    """Which kernels espnet_rel_flash_bwd launches (the host counts): bf16
+    at Dh 64 the register-resident rel_dkv::dkv_kernel and
+    rel_dq::dq_kernel, fp32 at Dh 64 the register micro-tile
+    rel_f32::dkv_kernel and dq_kernel, bf16 at Dh 128 the WMMA
+    rel_flash_dkv_kernel and rel_flash_dq_kernel, each once and alone."""
+    want = (("rel_dkv::dkv_kernel<64, false>", "rel_dq::dq_kernel<64, false>"),
+            ("rel_f32::dkv_kernel<64, false>", "rel_f32::dq_kernel<64, false>"),
+            ("rel_flash_dkv_kernel<__nv_bfloat16, 32, 32, false>",
+             "rel_flash_dq_kernel<__nv_bfloat16, 32, 32, false>"))
     for (what, xs), w in zip(route_cases(torch, args), want):
         scale = xs[0].shape[-1] ** -0.5
         out, lse = fa._launch_fwd(*xs, scale, 0, -1)
         g = torch.ones_like(out)
-        names = launched_kernels(torch, lambda: fa._launch_bwd(
-            *xs, out, lse, g, scale, 0, -1), expect=(w,))
-        dq = [n for n in names if "dq_kernel" in n]
-        print(f"K3 backward route, {what}: {names}")
-        if len(dq) != 1 or w not in dq[0]:
+        got = instance_launches(torch, lambda: fa._launch_bwd(
+            *xs, out, lse, g, scale, 0, -1))
+        print(f"K3 backward route, {what}: {got}")
+        if got != dict.fromkeys(w, 1):
             raise AssertionError(f"K3 backward {what} did not launch {w}")
         del out, lse, g
 
@@ -730,8 +760,10 @@ def ffn_dropout_detail(torch, ffn, n, d, f, r):
     held to fused_ffn_plain / fused_ffn_bwd_plain with the same seed (the
     kernels' rounding points) within BWD_PLAIN_TOL, and to the unrounded
     plain version (fp32, autograd) within TOL of max |ref| per output and
-    gradient; the dropout launches by profiler name; each launch's device
-    time at DROPOUT beside rate 0. Returns a dict of those."""
+    gradient; the launches at both rates by the host counts (the dropout
+    instantiations at DROPOUT); each launch's device time at DROPOUT
+    beside rate 0. Returns a dict of those."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
     bf = torch.bfloat16
     args = (r(n, d).to(bf), (r(d, f) * d ** -0.5).to(bf), r(f) * 0.1,
             (r(f, d) * f ** -0.5).to(bf), r(d) * 0.1)
@@ -765,23 +797,29 @@ def ffn_dropout_detail(torch, ffn, n, d, f, r):
                                                (un.detach(), *un_grads)))
     del at_rp, bwd_rp, un, un_grads, leaves, grads
     times = {}
+    splits = build.library().espnet_fused_ffn_fwd_splits(n, d, f, d)
     for rate in (0.0, DROPOUT):
         sd = seed if rate else None
         flag = "true>" if rate else "false>"
-        fwd = port_kernels_ms(torch, lambda: ffn._launch_fwd(*args, sd, rate),
-                              n=5, expect=(f"ffn_fwd::fwd_kernel<256, {flag}",))
-        bwd = port_kernels_ms(torch, lambda: ffn._launch_bwd(
-            x, w1, b1, w2, g, sd, rate), n=5, expect=(
-                f"ffn_bwd::rows_kernel<{flag}", "ffn_bwd::dx_kernel",
-                "ffn_bwd::dw_kernel"))
+        fwd_call = lambda: ffn._launch_fwd(*args, sd, rate)
+        bwd_call = lambda: ffn._launch_bwd(x, w1, b1, w2, g, sd, rate)
+        launched = instance_launches(torch, lambda: (fwd_call(), bwd_call()))
+        want = {f"ffn_fwd::fwd_kernel<{d}, {flag}": 1,
+                f"ffn_bwd::rows_kernel<{flag}": 1, "ffn_bwd::dx_kernel": 1,
+                "ffn_bwd::dw_kernel": 1}
+        if splits > 1:
+            want["ffn_fwd::reduce_kernel"] = 1
+        print(f"K2 fused_ffn bfloat16 N={n}: launches at rate {rate} "
+              f"{launched}")
+        if launched != want:
+            raise AssertionError(f"K2 at rate {rate} launched {launched}, "
+                                 f"expected {want}")
+        fwd = port_kernels_ms(torch, fwd_call, n=5,
+                              expect=(f"ffn_fwd::fwd_kernel<{d}, {flag}",))
+        bwd = port_kernels_ms(torch, bwd_call, n=5, expect=(
+            f"ffn_bwd::rows_kernel<{flag}", "ffn_bwd::dx_kernel",
+            "ffn_bwd::dw_kernel"))
         times[rate] = {**fwd, **bwd}
-    drop_names = sorted(times[DROPOUT])
-    print(f"K2 fused_ffn bfloat16 N={n}: launches at dropout {DROPOUT} "
-          f"{drop_names}")
-    if not (any("ffn_fwd::fwd_kernel<256, true>" in k for k in drop_names)
-            and any("ffn_bwd::rows_kernel<true>" in k for k in drop_names)):
-        raise AssertionError("K2 with dropout did not launch its dropout "
-                             "kernels")
     ms = {}
     for part in ("ffn_fwd::fwd_kernel", "ffn_bwd::rows_kernel",
                  "ffn_bwd::dx_kernel", "ffn_bwd::dw_kernel"):
@@ -800,9 +838,10 @@ def attention_dropout_detail(torch, fa, b, h, t, dh, r):
     the backward to rel_flash_attention_bwd_plain with the same seed (the
     kernels' rounding points) within BWD_PLAIN_TOL, both to the unrounded
     plain version (fp32, autograd) within TOL of max |ref| per output and
-    gradient, lse to the plain version's within 1e-4; the dropout launches
-    by profiler name; each launch's device time at DROPOUT beside rate 0.
-    Returns a dict of those."""
+    gradient, lse to the plain version's within 1e-4; the launches at both
+    rates by the host counts (the dropout instantiations at DROPOUT); each
+    launch's device time at DROPOUT beside rate 0. Returns a dict of
+    those."""
     bf = torch.bfloat16
     lengths = torch.tensor([t - 3 * i for i in range(b)], dtype=torch.int32,
                            device="cuda")
@@ -849,22 +888,24 @@ def attention_dropout_detail(torch, fa, b, h, t, dh, r):
     for rate in (0.0, DROPOUT):
         sd = seed if rate else None
         flag = "true>" if rate else "false>"
-        fwd = port_kernels_ms(torch, lambda: fa._launch_fwd(
-            *args, scale, 0, -1, sd, rate), n=5, expect=(
-                f"rel_fwd::fwd_kernel<{dh}, {flag}",))
-        bwd = port_kernels_ms(torch, lambda: fa._launch_bwd(
-            *args, out, lse, g, scale, 0, -1, sd, rate), n=5, expect=(
-                f"rel_dkv::dkv_kernel<{dh}, {flag}",
-                f"rel_dq::dq_kernel<{dh}, {flag}"))
+        fwd_call = lambda: fa._launch_fwd(*args, scale, 0, -1, sd, rate)
+        bwd_call = lambda: fa._launch_bwd(*args, out, lse, g, scale, 0, -1,
+                                          sd, rate)
+        launched = instance_launches(torch, lambda: (fwd_call(), bwd_call()))
+        want = dict.fromkeys((f"rel_fwd::fwd_kernel<{dh}, {flag}",
+                              f"rel_dkv::dkv_kernel<{dh}, {flag}",
+                              f"rel_dq::dq_kernel<{dh}, {flag}"), 1)
+        print(f"K3 rel_flash_attention bfloat16 B={b} T={t}: launches at "
+              f"rate {rate} {launched}")
+        if launched != want:
+            raise AssertionError(f"K3 at rate {rate} launched {launched}, "
+                                 f"expected {want}")
+        fwd = port_kernels_ms(torch, fwd_call, n=5, expect=(
+            f"rel_fwd::fwd_kernel<{dh}, {flag}",))
+        bwd = port_kernels_ms(torch, bwd_call, n=5, expect=(
+            f"rel_dkv::dkv_kernel<{dh}, {flag}",
+            f"rel_dq::dq_kernel<{dh}, {flag}"))
         times[rate] = {**fwd, **bwd}
-    drop_names = sorted(times[DROPOUT])
-    print(f"K3 rel_flash_attention bfloat16 B={b} T={t}: launches at "
-          f"dropout {DROPOUT} {drop_names}")
-    if not all(any(f"{k}<{dh}, true>" in n for n in drop_names)
-               for k in ("rel_fwd::fwd_kernel", "rel_dkv::dkv_kernel",
-                         "rel_dq::dq_kernel")):
-        raise AssertionError("K3 with dropout did not launch its dropout "
-                             "kernels")
     ms = {}
     for part in ("rel_fwd::fwd_kernel", "rel_dkv::dkv_kernel",
                  "rel_dq::dq_kernel"):
@@ -1214,22 +1255,20 @@ def ctc_head_bwd_detail(torch, kh, call, args, n):
     """K4's bf16 backward at the flagship train shape: held to
     fused_ctc_head_emit_bwd_plain (the kernels' rounding points) within
     BWD_PLAIN_TOL per output, launched as ctc_head_bwd's rows, dx and dw
-    kernels (torch.profiler's names), then its time, each launch's device
+    kernels once each (the host counts), then its time, each launch's device
     time and what one call adds to peak memory."""
     got = call()
     ref = kh.fused_ctc_head_emit_bwd_plain(*args)
     torch.cuda.synchronize()
     rels = [rel_err(a, r)[1] for a, r in zip(got, ref)]
     parts = ("rows", "dx", "dw")
-    names = launched_kernels(torch, call, expect=tuple(
-        f"ctc_head_bwd::{p}_kernel" for p in parts))
+    launched = instance_launches(torch, call)
+    want = {f"ctc_head_bwd::{p}_kernel": 1 for p in parts}
     print(f"K4 fused_ctc_head_emit backward bfloat16 N={n} against "
           "fused_ctc_head_emit_bwd_plain: " + ", ".join(
               f"{k} {v:.3e}" for k, v in zip(("dhs", "dw", "db"), rels))
-          + f" of max|ref| (tolerance {BWD_PLAIN_TOL}); kernels {names}")
-    if not (max(rels) <= BWD_PLAIN_TOL and len(names) == 3 and all(
-            any(f"ctc_head_bwd::{p}_kernel" in k for k in names)
-            for p in parts)):
+          + f" of max|ref| (tolerance {BWD_PLAIN_TOL}); kernels {launched}")
+    if not (max(rels) <= BWD_PLAIN_TOL and launched == want):
         raise AssertionError("K4 bf16 backward disagrees with "
                              "fused_ctc_head_emit_bwd_plain or took another "
                              "kernel")
@@ -1245,8 +1284,7 @@ def ctc_head_bwd_detail(torch, kh, call, args, n):
 
 
 # K1's, K4's, K5's and K6's kernels by their host-side launch counts
-# (csrc/common.cuh's counted_name; each is also a part of the kernel's
-# profiler name).
+# (csrc/common.cuh's counted: each name is also the kernel's profiler name).
 K1_WARP = ("ctc_warp::fwd_kernel", "ctc_warp::bwd_kernel")
 K1_BLOCK = ("ctc_block::fwd_kernel", "ctc_block::bwd_kernel")
 # K5's routes (csrc/transducer.cu): one warp per utterance up to 256 states
@@ -2677,15 +2715,30 @@ def train_cpu_vs_card(torch):
 DEFAULT_D_FF = 2048
 
 
+def instance_of(prefix, rate):
+    """The instance name (build.launch_counts) of a kernels' name prefix at
+    a rate: a prefix ending in "(" names a kernel that draws no mask (its
+    one instantiation), any other the rate-0 instantiation (``...,
+    false>``) at 0 and the dropout one (``..., true>``) above 0."""
+    flag = "true>" if rate else "false>"
+    if prefix.endswith("("):
+        return prefix[:-1]
+    return prefix + (flag if prefix.endswith("<") else " " + flag)
+
+
 def wmma_launch_ms(torch, what, call, kernels):
-    """torch.profiler's device ms a launch of each of ``kernels`` (name
-    prefixes) that call(rate) launches, at rate 0 and at DROPOUT. A prefix
-    ending in "(" names a kernel that draws no mask: its one instantiation
-    at both rates; any other, the rate-0 instantiation (``..., false>``) at
-    0 and the dropout one (``..., true>``) at DROPOUT. Each is launched, else
-    the run fails. Returns {kernel: [ms at 0, ms at DROPOUT]}."""
+    """The launches of call(rate) at rate 0 and at DROPOUT by the host
+    counts: each of ``kernels`` (name prefixes, see instance_of) once and
+    nothing else of K2 or K3, else the run fails; then torch.profiler's
+    device ms a launch of each (None where 5 windows showed none). Returns
+    {kernel: [ms at 0, ms at DROPOUT]}."""
     ms = {k: [] for k in kernels}
     for rate in (0.0, DROPOUT):
+        want = {instance_of(k, rate): 1 for k in kernels}
+        launched = instance_launches(torch, lambda: call(rate))
+        if launched != want:
+            raise AssertionError(f"{what} at rate {rate}: launched "
+                                 f"{launched}, expected {want}")
         flag = "true>" if rate else "false>"
         hits = lambda got, k: [v for name, v in got.items() if k in name and (
             k.endswith("(") or flag in name)]
@@ -2694,11 +2747,18 @@ def wmma_launch_ms(torch, what, call, kernels):
                                        for k in kernels))
         for k in kernels:
             hit = hits(got, k)
-            if len(hit) != 1:
-                raise AssertionError(f"{what} at rate {rate}: {k}... {flag} "
-                                     f"not launched: {sorted(got)}")
-            ms[k].append(hit[0])
+            ms[k].append(hit[0] if len(hit) == 1 else None)
     return ms
+
+
+def ms_text(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def total(values):
+    """The sum of device times, None if one of them was not measured."""
+    values = list(values)
+    return None if None in values else sum(values)
 
 
 # K2's fp32 launches (csrc/ffn.cu, ffn_f32) by profiler name prefix: their
@@ -2810,20 +2870,23 @@ def ffn_fp32_launches(torch, ffn, n, d, f, r):
                            bound_ms=lb[k][0], bound_by=lb[k][1],
                            registers=regs, static_smem_bytes=info[k][0][1],
                            local_bytes=spill, blocks_per_sm=blocks)
-        print(f"K2 fp32 launch {k.rstrip('<(')}: device {m0:.4f} ms at rate "
-              f"0 -> {m1:.4f} ms at {DROPOUT}; bound {lb[k][0]:.4f} ms "
-              f"({lb[k][1]}), {100 * lb[k][0] / m1:.1f}% of it at "
+        share = "?" if m1 is None else f"{100 * lb[k][0] / m1:.1f}"
+        print(f"K2 fp32 launch {k.rstrip('<(')}: device {ms_text(m0)} ms at "
+              f"rate 0 -> {ms_text(m1)} ms at {DROPOUT}; bound "
+              f"{lb[k][0]:.4f} ms ({lb[k][1]}), {share}% of it at "
               f"{DROPOUT}; registers {regs}, local bytes {spill}, "
               f"{info[k][0][1]} B of shared memory, blocks per SM {blocks} "
               "(rate 0, dropout)")
-    dev = {p: [sum(v["device_ms_rate0_vs_dropout"][i]
-                   for k, v in launches.items()
-                   if K2_F32_LAUNCHES[k][0] == p) for i in (0, 1)]
+    dev = {p: [total(v["device_ms_rate0_vs_dropout"][i]
+                     for k, v in launches.items()
+                     if K2_F32_LAUNCHES[k][0] == p) for i in (0, 1)]
            for p in ("fwd", "bwd")}
     for p in ("fwd", "bwd"):
-        print(f"K2 fp32 {p}: device {dev[p][0]:.4f} -> {dev[p][1]:.4f} ms "
-              f"at rate 0 -> {DROPOUT}; bound {bnd[p][0]:.4f} ms, "
-              f"{100 * bnd[p][0] / dev[p][1]:.1f}% of it at {DROPOUT}; "
+        share = "?" if dev[p][1] is None else \
+            f"{100 * bnd[p][0] / dev[p][1]:.1f}"
+        print(f"K2 fp32 {p}: device {ms_text(dev[p][0])} -> "
+              f"{ms_text(dev[p][1])} ms at rate 0 -> {DROPOUT}; bound "
+              f"{bnd[p][0]:.4f} ms, {share}% of it at {DROPOUT}; "
               f"dW split {nsplit} ways")
     ms_f = median_ms(torch, fwd, warmup=1, reps=5)
     ms_b = median_ms(torch, bwd, warmup=1, reps=5)
@@ -3074,8 +3137,8 @@ def attention_wmma_dropout(torch, fa, b, h, t, dh, dtype, r, label):
     bnd = att_bounds(b, h, t, dh, pairs, esize, peak)
     for (k, (m0, m1)), part in zip(launch.items(), ("fwd", "dkv", "dq")):
         print(f"K3 {name} Dh {dh} launch {k.split('<')[0]}: device "
-              f"{m0:.4f} ms at rate 0 -> {m1:.4f} ms at {DROPOUT}; bound "
-              f"{bnd[part][0]:.4f} ms ({bnd[part][1]})")
+              f"{ms_text(m0)} ms at rate 0 -> {ms_text(m1)} ms at {DROPOUT}; "
+              f"bound {bnd[part][0]:.4f} ms ({bnd[part][1]})")
     ms_f = median_ms(torch, fwd, warmup=1, reps=5)
     ms_b = median_ms(torch, bwd, warmup=1, reps=5)
     plain_f = median_ms(torch, plain_fwd, warmup=1, reps=3)
@@ -3246,6 +3309,414 @@ def fused_conv_train_phase(torch, card, default, t_prime):
 
 
 
+# Phase 15: the flagship through the port's own CLIs on a synthetic corpus
+# (written under the gitignored build/, removed at the end of the phase):
+# CLI_TRAIN train and CLI_DEV dev utterances of UTT_SECONDS s, CLI_WORDS
+# words each (about 64 char tokens), batches of CLI_BATCH; then one epoch
+# of CLI_PACE_TRAIN train utterances (16 steps), whose steps after the
+# first show whether the data producer or the step paces an epoch.
+CLI_TRAIN, CLI_DEV, CLI_WORDS, CLI_BATCH = 128, 16, 10, 64
+CLI_PACE_TRAIN = 1024
+CLI_ROOT = "build/chip_smoke_cli"
+
+
+def cli_split(d, split, count, rng):
+    """d/{wav.scp,text} (data/mini_corpus.py's layout and tones): count
+    utterances of CLI_WORDS words each, a tone per word at its frequency,
+    under noise."""
+    from espnet_slurp_tpu_torch.data.fileio import DatadirWriter, write_wav
+    from espnet_slurp_tpu_torch.data.mini_corpus import WORDS
+
+    freqs = {w: 220.0 * 2 ** (i / 4.0) for i, w in enumerate(WORDS)}
+    n, seg = FS * UTT_SECONDS, FS * UTT_SECONDS // CLI_WORDS
+    t = np.arange(seg) / FS
+    (d / "wav").mkdir(parents=True, exist_ok=True)
+    with DatadirWriter(d) as w:
+        for i in range(count):
+            words = [WORDS[j] for j in rng.randint(len(WORDS),
+                                                   size=CLI_WORDS)]
+            wav = np.concatenate([0.3 * np.sin(2 * np.pi * freqs[x] * t)
+                                  for x in words])
+            wav = np.pad(wav, (0, n - len(wav))) + 0.01 * rng.randn(n)
+            uid = f"{split}_{i:04d}"
+            path = (d / "wav" / f"{uid}.wav").resolve()
+            write_wav(str(path), wav.astype(np.float32), FS)
+            w["wav.scp"][uid] = str(path)
+            w["text"][uid] = " ".join(words)
+    return d
+
+
+def cli_corpus(root):
+    """root/{train,dev}: CLI_TRAIN and CLI_DEV utterances (cli_split), plus
+    dev8/, the first N_UTT dev utterances. Returns the three directories."""
+    rng = np.random.RandomState(7)
+    dirs = [cli_split(root / split, split, count, rng)
+            for split, count in (("train", CLI_TRAIN), ("dev", CLI_DEV))]
+    dev8 = root / "dev8"
+    dev8.mkdir()
+    for name in ("wav.scp", "text"):
+        lines = (root / "dev" / name).read_text().splitlines()[:N_UTT]
+        (dev8 / name).write_text("\n".join(lines) + "\n")
+    return dirs + [dev8]
+
+
+def cli_train_yaml(root, train_dir, dev_dir, max_epoch, exp="exp"):
+    """The train config into root/exp: flagship_config()'s model at dropout
+    DROPOUT with SpecAug on (its vocab from the corpus), Adam at a constant
+    1e-3 (phase 5's optimizer), char tokens, sorted batches of
+    CLI_BATCH."""
+    import yaml
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.utils.config import to_dict
+
+    model = to_dict(dataclasses.replace(flagship_config(),
+                                        dropout_rate=DROPOUT))
+    del model["vocab_size"]
+    cfg = {"exp_dir": str(root / exp), "max_epoch": max_epoch,
+           "model": model,
+           "optim": {"name": "adam", "lr": 1e-3, "scheduler": "constant"},
+           "data": {"train_dir": str(train_dir), "valid_dir": str(dev_dir),
+                    "token_type": "char", "batch_type": "sorted",
+                    "batch_size": CLI_BATCH}}
+    path = root / f"train_{exp}_{max_epoch}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def step_recorder(torch, per_step, clock):
+    """Wraps tasks/asr.py's make_train_step so that every train step of the
+    CLI appends its launches to per_step: (the wrappers' counts, the host
+    counts by instance, the step's N = B x T' rows), and (entry, exit) host
+    times to clock. Returns the original."""
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    from espnet_slurp_tpu_torch.tasks import asr as task
+
+    make = task.make_train_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def counted_step(state, batch):
+            t0 = time.perf_counter()
+            wrappers, hosts = read_counts(), build.launch_counts()
+            out = step(state, batch)
+            clock.append((t0, time.perf_counter()))
+            b, n = batch["speech"].shape
+            t_prime = Conv2dSubsampling.out_length_static(1 + n // 128)
+            per_step.append((
+                {k: v - wrappers[k] for k, v in read_counts().items()},
+                build.launch_delta(hosts, build.launch_counts()),
+                b * t_prime))
+            return out
+        return counted_step
+
+    task.make_train_step = recording
+    return make
+
+
+def cli_step_want(n_rows, n_blocks):
+    """The launches of one flagship train step at dropout DROPOUT on n_rows
+    rows: by the wrappers' counts, and by the host counts (K2 and K3 by
+    instance, the dropout ones; K4's bf16 route; K1's warp route)."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    wrappers = {"fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+                "rel_flash_attention": n_blocks,
+                "rel_flash_attention_bwd": n_blocks,
+                "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    hosts = {"ffn_fwd::fwd_kernel<256, true>": 2 * n_blocks,
+             "ffn_bwd::rows_kernel<true>": 2 * n_blocks,
+             "ffn_bwd::dx_kernel": 2 * n_blocks,
+             "ffn_bwd::dw_kernel": 2 * n_blocks,
+             "rel_fwd::fwd_kernel<64, true>": n_blocks,
+             "rel_dkv::dkv_kernel<64, true>": n_blocks,
+             "rel_dq::dq_kernel<64, true>": n_blocks,
+             **dict.fromkeys(K4_BF16_LAUNCHES, 1),
+             **dict.fromkeys(K1_WARP, 1)}
+    if build.library().espnet_fused_ffn_fwd_splits(n_rows, 256, 1024,
+                                                   256) > 1:
+        hosts["ffn_fwd::reduce_kernel"] = 2 * n_blocks
+    return {k: wrappers.get(k, 0) for k in COUNTED}, hosts
+
+
+def cli_kernel_check(torch, exp):
+    """K4 (both dtypes) and K1 at this corpus's V and S: hs [CLI_BATCH, T',
+    256] and the first train batch's labels (data/collate.py's int32), each
+    against its plain version both ways within phase 4's tolerances, on
+    K4's bf16 / fp32 routes and K1's warp route by the host counts."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, load_task_config
+
+    from espnet_slurp_tpu_torch.data.prefetch import to_device
+
+    cfg = load_task_config(str(exp / "config.yaml"))
+    tok, conv, mcfg = ASRTask.prepare_vocab(cfg)
+    ds = ASRTask.build_dataset(cfg.data.train_dir, tok, conv)
+    t0 = time.perf_counter()
+    batch = next(iter(ASRTask.build_iter_factory(cfg, ds, shuffle=False)(1)))
+    t1 = time.perf_counter()
+    to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"phase 15: one batch of {CLI_BATCH} x {UTT_SECONDS} s on the "
+          f"host alone: read, tokenised and collated {t1 - t0:.4f} s, to the "
+          f"card through pinned memory {t2 - t1:.4f} s")
+    labels = torch.from_numpy(batch["text"]).cuda()
+    ulen = torch.from_numpy(batch["text_lengths"]).cuda()
+    b, u, v, d = labels.shape[0], int(ulen.max()), mcfg.vocab_size, 256
+    t = bucket_t_prime(batch["speech"].shape[1])
+    s = 2 * u + 1
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    ext, skip, smax, last = kctc.extend_labels(labels, ulen)
+    ext32 = ext.to(torch.int32)
+    hs0, w0, b0 = r(b, t, d) * 0.5, r(v, d) * d ** -0.5, r(v) * 0.1
+    cot = r(b, t, ext.shape[1])
+    for dt, launches in ((torch.bfloat16, K4_BF16_LAUNCHES),
+                         (torch.float32, K4_F32_LAUNCHES)):
+        name = str(dt).split(".")[-1]
+        args = (hs0.to(dt), w0.to(dt), b0, ext32)
+        before = route_counts()
+        o, g, _ = grad_case(torch, kh.fused_ctc_head_emit, args, cot, 3)
+        after = route_counts()
+        ro, rg, _ = grad_case(torch, kh.fused_ctc_head_emit_plain, args,
+                              cot, 3)
+        hold(torch, f"phase 15 K4 fused_ctc_head_emit {name} B={b} T={t} "
+             f"V={v} S={ext.shape[1]}", o, ro, g, rg, ("dhs", "dw", "db"),
+             TOL[name])
+        check_routes(f"phase 15 K4 {name}", {k: after[k] - before[k]
+                                             for k in ROUTED}, launches)
+    tlen = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    lp = torch.log_softmax(r(b, t, v) * 2.0, -1)
+    emit = kctc.mask_emit(lp.gather(2, ext[:, None, :].expand(b, t, -1)),
+                          smax).contiguous()
+    largs = (emit, skip, tlen, last)
+    lcot = torch.rand(b, generator=gen, device="cuda")
+    before = route_counts()
+    o, g, _ = grad_case(torch, kctc.ctc_lattice, largs, lcot, 1)
+    after = route_counts()
+    ro, rg, _ = grad_case(torch, kctc.ctc_lattice_plain, largs, lcot, 1)
+    hold(torch, f"phase 15 K1 ctc_lattice float32 B={b} T={t} S={s} (U "
+         f"{u})", o, ro, g, rg, ("demit",), TOL["float32"])
+    check_routes("phase 15 K1", {k: after[k] - before[k] for k in ROUTED},
+                 K1_WARP)
+    return dict(vocab=v, u_max=u, s_max=s, t_prime=t)
+
+
+def bucket_t_prime(n_samples):
+    """T' of a batch padded to n_samples (hop 128, x4 subsampling)."""
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    return Conv2dSubsampling.out_length_static(1 + n_samples // 128)
+
+
+def epoch_figures(hist):
+    """{epoch: (steps, s an epoch, step_time, iter_time, audio-s/s)} of a
+    reporter history's train phases."""
+    out = {}
+    for e in hist:
+        tr = e["train"]
+        out[e["epoch"]] = (tr["steps"], tr["time_s"], tr["step_time"],
+                           tr["iter_time"], tr["steps"] * CLI_BATCH
+                           * UTT_SECONDS / tr["time_s"])
+    return out
+
+
+def cli_pace(torch, card, root, dev_dir, n_blocks, train_step_s):
+    """One epoch of CLI_PACE_TRAIN utterances through bin/asr_train, 16
+    steps of CLI_BATCH. Fails unless every step makes its launches and the
+    epoch's losses are finite with nothing skipped. Prints, for the steps
+    after the epoch's first, the host wait before each (the Trainer's
+    iter_time: what of the producer's read and collate the previous step
+    did not hide), each step's host time and the audio-s/s over them,
+    beside make_train_step's (``train_step_s``, phase 5)."""
+    import json
+
+    from espnet_slurp_tpu_torch.bin import asr_train
+    from espnet_slurp_tpu_torch.tasks import asr as task
+
+    t0 = time.perf_counter()
+    train_dir = cli_split(root / "pace_train", "pace", CLI_PACE_TRAIN,
+                          np.random.RandomState(11))
+    written = time.perf_counter() - t0
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock)
+    try:
+        asr_train.main(["--config", cli_train_yaml(
+            root, train_dir, dev_dir, 1, exp="exp_pace")])
+    finally:
+        task.make_train_step = make
+    hist = json.loads((root / "exp_pace" / "reporter.json").read_text()
+                      )["history"]
+    steps = -(-CLI_PACE_TRAIN // CLI_BATCH)
+    tr = hist[0]["train"]
+    if not (len(hist) == 1 and tr["steps"] == steps == len(per_step)
+            and tr["skipped"] == 0
+            and np.isfinite([tr["loss"], hist[0]["valid"]["loss"]]).all()):
+        raise AssertionError(f"phase 15 pace: {len(per_step)} steps, "
+                             f"reporter {hist}")
+    for i, (wrappers, hosts, n_rows) in enumerate(per_step):
+        want_w, want_h = cli_step_want(n_rows, n_blocks)
+        if wrappers != want_w or hosts != want_h:
+            raise AssertionError(
+                f"phase 15 pace step {i}: launches {wrappers} and {hosts}, "
+                f"expected {want_w} and {want_h}")
+    gaps = [clock[i][0] - clock[i - 1][1] for i in range(1, steps)]
+    host = [b - a for a, b in clock]
+    span = clock[-1][1] - clock[0][1]
+    rate = (steps - 1) * CLI_BATCH * UTT_SECONDS / span
+    print(f"phase 15 pace: {CLI_PACE_TRAIN} x {UTT_SECONDS} s written in "
+          f"{written:.1f} s; one epoch of {steps} steps in "
+          f"{tr['time_s']:.3f} s (reporter: step_time {tr['step_time']:.4f}"
+          f" s, iter_time {tr['iter_time']:.4f} s), each step's launches "
+          f"held; first step's host s {host[0]:.4f}")
+    print(f"phase 15 pace, steps 2-{steps}: host wait before each (s) "
+          f"{[round(g, 4) for g in gaps]}; mean {np.mean(gaps):.4f} s, "
+          f"{100 * sum(gaps) / span:.1f}% of their span; each step's host s "
+          f"{[round(h, 4) for h in host[1:]]}, mean "
+          f"{np.mean(host[1:]):.4f} s; {span / (steps - 1):.4f} s a step, "
+          f"{rate:.1f} audio-s/s through the CLI beside make_train_step's "
+          f"{TRAIN_B * TRAIN_SECONDS / train_step_s:.1f} on {card}")
+
+
+def cli_phase(torch, card, decode_launches, decode_wall, train_step_s):
+    """Phase 15: bin/asr_train trains the flagship (bf16, 12 x 256, dropout
+    DROPOUT, SpecAug on) for 2 epochs on the card, then a third run with
+    max_epoch 3 resumes from epoch 2; bin/asr_inference decodes N_UTT dev
+    utterances with beam BEAM, ctc_weight CTC_WEIGHT, max_len MAX_LEN from
+    the n-best average. Fails unless the reporter holds 3 epochs of finite
+    losses with nothing skipped, the checkpoints, latest.json and the
+    averages exist, every train step makes exactly its launches (wrappers'
+    and host counts), the decode's K2 / K3 launches are phase 3's a encode
+    (``decode_launches``), K4 and K1 at this V and S hold to their plain
+    versions, and score.txt has WER, CER and RTF; then cli_pace's epoch of
+    16 steps. Prints the step time and iter_time from the reporter, the
+    CLI's audio-s/s beside make_train_step's (``train_step_s``, phase 5),
+    the CLI decode's RTF beside phase 3's (``decode_wall``) and the phase's
+    seconds."""
+    import json
+    import shutil
+    from pathlib import Path
+
+    from espnet_slurp_tpu_torch.bin import asr_inference, asr_train
+
+    t_phase = time.perf_counter()
+    root = Path(CLI_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    train_dir, dev_dir, dev8 = cli_corpus(root)
+    exp = root / "exp"
+    n_blocks = 12
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock)
+    try:
+        zero_counts()
+        asr_train.main(["--config", cli_train_yaml(root, train_dir, dev_dir,
+                                                     2)])
+        two = json.loads((exp / "reporter.json").read_text())["history"]
+        steps_two = len(per_step)
+        for name in ("1epoch", "2epoch", "latest.json",
+                     "valid.loss.ave_2best"):
+            if not (exp / name).exists():
+                raise AssertionError(f"phase 15: {name} missing after 2 "
+                                     "epochs")
+        asr_train.main(["--config", cli_train_yaml(root, train_dir, dev_dir,
+                                                     3)])
+        launches = read_counts()
+    finally:
+        from espnet_slurp_tpu_torch.tasks import asr as task
+        task.make_train_step = make
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    per_epoch = -(-CLI_TRAIN // CLI_BATCH)
+    print(f"phase 15: reporter epochs {[e['epoch'] for e in hist]}; steps "
+          f"{steps_two} in the 2-epoch run, {len(per_step) - steps_two} in "
+          f"the resumed run; launches of both runs {launches}")
+    if not ([e["epoch"] for e in hist] == [1, 2, 3] and hist[:2] == two
+            and steps_two == 2 * per_epoch
+            and len(per_step) == 3 * per_epoch
+            and json.loads((exp / "latest.json").read_text())
+            == {"epoch": 3}):
+        raise AssertionError("phase 15: the resumed run did not continue "
+                             "from epoch 2 to 3")
+    for e in hist:
+        for phase in ("train", "valid"):
+            vals = [e[phase][k] for k in ("loss", "loss_ctc", "loss_att")]
+            if not all(np.isfinite(vals)):
+                raise AssertionError(f"phase 15: epoch {e['epoch']} {phase} "
+                                     f"losses {vals}")
+        if e["train"]["skipped"] != 0 or e["train"]["steps"] != per_epoch:
+            raise AssertionError(f"phase 15: epoch {e['epoch']} skipped or "
+                                 f"short: {e['train']}")
+    for name in ("1epoch", "2epoch", "3epoch", "valid.loss.ave_3best"):
+        if not (exp / name / "checkpoint.pth").exists():
+            raise AssertionError(f"phase 15: {name} missing")
+    for i, (wrappers, hosts, n_rows) in enumerate(per_step):
+        want_w, want_h = cli_step_want(n_rows, n_blocks)
+        if wrappers != want_w or hosts != want_h:
+            raise AssertionError(
+                f"phase 15 step {i}: launches {wrappers} and {hosts}, "
+                f"expected {want_w} and {want_h}")
+    print(f"phase 15: every one of the {len(per_step)} train steps made "
+          f"{per_step[0][0]} launches; by instance {per_step[0][1]}")
+    losses = [(e["epoch"], round(e["train"]["loss"], 4),
+               round(e["valid"]["loss"], 4)) for e in hist]
+    print(f"phase 15: (epoch, train loss, valid loss) {losses}")
+    figs = epoch_figures(hist)
+    for ep, (steps, secs, step_t, iter_t, rate) in figs.items():
+        print(f"phase 15 train epoch {ep}: {steps} steps of {CLI_BATCH} x "
+              f"{UTT_SECONDS} s in {secs:.3f} s; step_time {step_t:.4f} s, "
+              f"iter_time {iter_t:.4f} s ({100 * iter_t / (iter_t + step_t):.1f}"
+              f"% of their sum), {rate:.1f} audio-s/s through the CLI on "
+              f"{card}")
+    # Within an epoch, the host time between one step's return and the
+    # next's call: the Trainer's wait for the batch (its iter_time), its
+    # copy call and the reporter.
+    gaps = [round(clock[i][0] - clock[i - 1][1], 4)
+            for i in range(len(clock)) if i % per_epoch]
+    print(f"phase 15: host s between consecutive steps of an epoch {gaps}; "
+          f"steps' host s {[round(b - a, 4) for a, b in clock]}")
+    print(f"phase 15: make_train_step (phase 5, dropout {DROPOUT}, one "
+          f"resident batch): {TRAIN_B * TRAIN_SECONDS / train_step_s:.1f} "
+          f"audio-s/s ({train_step_s:.4f} s a step)")
+
+    kern = cli_kernel_check(torch, exp)
+    print(f"phase 15: K4 and K1 at V {kern['vocab']}, U up to "
+          f"{kern['u_max']} (S {kern['s_max']}), T' {kern['t_prime']}: "
+          "within phase 4's tolerances")
+
+    dec = root / "decode"
+    zero_counts()
+    t0 = time.perf_counter()
+    asr_inference.main([
+        "--exp_dir", str(exp), "--data_dir", str(dev8), "--output_dir",
+        str(dec), "--beam_size", str(BEAM), "--ctc_weight", str(CTC_WEIGHT),
+        "--max_len", str(MAX_LEN), "--batch_size", str(N_UTT),
+        "--ckpt", "valid.loss.ave_3best"])
+    dec_s = time.perf_counter() - t0
+    dlaunch = read_counts()
+    want = {k: decode_launches.get(k, 0) for k in COUNTED}
+    score = dict(line.split() for line in
+                 (dec / "score.txt").read_text().splitlines())
+    hyps = (dec / "text").read_text().splitlines()
+    print(f"phase 15 decode: {N_UTT} x {UTT_SECONDS} s, beam {BEAM}, ctc "
+          f"{CTC_WEIGHT}, max_len {MAX_LEN} from valid.loss.ave_3best: "
+          f"score.txt {score}; CLI RTF {score.get('RTF')} beside phase 3's "
+          f"{decode_wall / (N_UTT * UTT_SECONDS):.5f}; the whole CLI call "
+          f"{dec_s:.2f} s; launches {dlaunch} (phase 3's a encode: "
+          f"{decode_launches}) on {card}")
+    if dlaunch != want:
+        raise AssertionError(f"phase 15 decode launches {dlaunch}, expected "
+                             f"{want}")
+    if sorted(score) != ["CER", "RTF", "WER"] or len(hyps) != N_UTT:
+        raise AssertionError(f"phase 15 decode: score.txt {score}, "
+                             f"{len(hyps)} hypotheses")
+    cli_pace(torch, card, root, dev_dir, n_blocks, train_step_s)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return figs
+
+
 def main() -> int:
     import torch
 
@@ -3300,12 +3771,12 @@ def main() -> int:
     n = bucket_length(FS * UTT_SECONDS, 4096)
     t_prime = Conv2dSubsampling.out_length_static(1 + n // 128)
     kernels = kernel_phase(torch, t_prime)
-    decode_launches, _ = slice_phase(torch, card)
+    decode_launches, decode_wall = slice_phase(torch, card)
     t_train = Conv2dSubsampling.out_length_static(
         1 + FS * TRAIN_SECONDS // 128)
     train_kernels, fwd_train = train_kernel_phase(torch, t_train)
     kernels += train_kernels
-    train_launches, _ = train_phase(torch, card)
+    train_launches, train_step_s = train_phase(torch, card)
     train_cpu_vs_card(torch)
     dropout = dropout_phase(torch, t_train)
     t_added = time.perf_counter()
@@ -3375,6 +3846,7 @@ def main() -> int:
         kern["launches"] = fused_launches[base]
         kern["launches_per_fused_conv_train_step"] = fused_per_step[base]
     kernels += k6_fp32
+    cli_phase(torch, card, decode_launches, decode_wall, train_step_s)
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

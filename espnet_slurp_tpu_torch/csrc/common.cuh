@@ -16,6 +16,11 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <string>
+#include <type_traits>
+
 namespace espnet {
 
 using bf16 = __nv_bfloat16;
@@ -115,54 +120,48 @@ __device__ void smem_gemm(const float* A, int lda, const float* B, int ldb, floa
   __syncthreads();
 }
 
-// Host-side launch counts. The entries of csrc/ctc.cu, csrc/ctc_head.cu,
-// csrc/conv_module.cu and csrc/transducer.cu add one to a kernel's count each
-// time they launch it, and espnet_launch_count (csrc/ctc.cu) reads a count by the kernel's name: a
-// check of which kernels a call ran that does not depend on a torch.profiler
-// window (which has been seen to drop launches on the card). Each name is a
-// part of the kernel's name in the profiler, so that the two can be joined.
-enum class Counted : int {
-  kCtcWarpFwd, kCtcWarpBwd, kCtcBlockFwd, kCtcBlockBwd,
-  kHeadLseBf16, kHeadGatherBf16, kHeadRowsBf16, kHeadDxBf16, kHeadDwBf16,
-  kHeadLseF32, kHeadGatherF32, kHeadRowsF32, kHeadDxF32, kHeadDwF32,
-  kConvGluBf16, kConvOutBf16, kConvGluSigBf16, kConvRowsBf16, kConvDuBf16, kConvDxBf16,
-  kConvDwBf16, kConvSumBf16, kConvGluF32, kConvNormF32, kConvOutF32, kConvGluSigF32,
-  kConvDswF32, kConvRowsF32, kConvDuF32, kConvDxF32, kConvDwF32, kConvSumF32,
-  kRnntWarpFwd, kRnntWarpBwd, kRnntBlockFwd, kRnntBlockBwd,
-  kCount
-};
-
-inline const char* counted_name(int i) {
-  static const char* const names[(int)Counted::kCount] = {
-      "ctc_warp::fwd_kernel", "ctc_warp::bwd_kernel", "ctc_block::fwd_kernel",
-      "ctc_block::bwd_kernel", "ctc_head_bf16::lse_kernel",
-      "ctc_head_fwd::gather_kernel<__nv_bfloat16>", "ctc_head_bwd::rows_kernel",
-      "ctc_head_bwd::dx_kernel", "ctc_head_bwd::dw_kernel", "ctc_head_f32::lse_kernel",
-      "ctc_head_fwd::gather_kernel<float>", "ctc_head_f32::rows_kernel",
-      "ctc_head_f32::dx_kernel", "ctc_head_f32::dw_kernel", "conv_bf16::glu_kernel",
-      "conv_bf16::out_kernel", "conv_bf16::glu_sig_kernel", "conv_bf16::rows_kernel",
-      "conv_bf16::du_kernel", "conv_bf16::dx_kernel", "conv_bf16::dw_kernel",
-      "conv_bf16::sum_kernel", "conv_f32::glu_kernel", "conv_f32::norm_kernel",
-      "conv_f32::out_kernel", "conv_f32::glu_sig_kernel", "conv_f32::dsw_kernel",
-      "conv_f32::rows_kernel", "conv_f32::du_kernel", "conv_f32::dx_kernel",
-      "conv_f32::dw_kernel", "conv_f32::sum_kernel",
-      "rnnt_warp::fwd_kernel", "rnnt_warp::bwd_kernel", "rnnt_block::fwd_kernel",
-      "rnnt_block::bwd_kernel"};
-  return i >= 0 && i < (int)Counted::kCount ? names[i] : nullptr;
+// Host-side launch counts: every kernel entry of the library adds one to a
+// kernel's count each time it launches it, under the kernel's name with its
+// template arguments as the profiler writes it (e.g. "ctc_warp::fwd_kernel",
+// "ffn_fwd::fwd_kernel<256, true>", "rel_flash_fwd_kernel<__nv_bfloat16, 64,
+// 64, false>"), so that a check of which kernels a call ran tells the route,
+// dropout, dtype and head-width instances apart without a torch.profiler
+// window (which has been seen to drop launches on the card).
+// espnet_launch_names (csrc/ctc.cu) lists them with their counts.
+inline std::mutex& launch_mutex() {
+  static std::mutex m;
+  return m;
 }
 
-// One array for the whole library (an inline function's static is shared by
+// One map for the whole library (an inline function's static is shared by
 // every translation unit that includes this header).
-inline long long* counted_launches() {
-  static long long n[(int)Counted::kCount] = {};
+inline std::map<std::string, long long>& launch_counts() {
+  static std::map<std::string, long long> n;
   return n;
 }
 
-// The launch just made, if it was accepted: counts it and returns 0, or
-// returns the launch's cudaError_t.
-inline int counted(Counted k) {
+inline std::string template_arg(bool b) { return b ? "true" : "false"; }
+inline std::string template_arg(int v) { return std::to_string(v); }
+inline std::string template_arg(const char* s) { return s; }
+
+template <typename T>
+inline const char* type_name() {
+  return std::is_same<T, float>::value ? "float" : "__nv_bfloat16";
+}
+
+// The launch just made of `kernel<args...>`, if it was accepted: counts it
+// and returns 0, or returns the launch's cudaError_t.
+template <typename... A>
+inline int counted(const char* kernel, A... args) {
   const int err = (int)cudaGetLastError();
-  if (err == 0) ++counted_launches()[(int)k];
+  if (err == 0) {
+    std::string name = kernel;
+    const char* sep = "<";
+    ((name += sep, name += template_arg(args), sep = ", "), ...);
+    if (sizeof...(A) > 0) name += ">";
+    std::lock_guard<std::mutex> lock(launch_mutex());
+    ++launch_counts()[name];
+  }
   return err;
 }
 

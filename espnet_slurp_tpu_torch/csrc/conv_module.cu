@@ -371,7 +371,7 @@ inline int launch_info(const Launch& l, int* out) {
 //     sum_kernel      every partial sum over its tiles or splits, in a fixed
 //                     order (deterministic, no float atomics); dW1 and dW2
 //                     rounded to bf16.
-// Every launch counts itself on the host (common.cuh:Counted).
+// Every launch counts itself on the host (common.cuh:counted).
 
 namespace conv_bf16 {
 
@@ -901,10 +901,10 @@ inline int launch_fwd(const bf16* x, const int* lengths, const bf16* w1, const f
   const long n = (long)nb * t;
   glu_kernel<<<dim3((unsigned)cdiv(2L * d, kTile), (unsigned)cdiv(n, kTile)), kThreads,
                Glu::kSmemBytes, stream>>>(x, lengths, w1, b1, g, n, t, d);
-  if (int err = counted(Counted::kConvGluBf16)) return err;
+  if (int err = counted("conv_bf16::glu_kernel")) return err;
   out_kernel<<<dim3((unsigned)cdiv(t, BT), (unsigned)nb), kThreads, OutSmem(d, k).total,
                stream>>>(g, wdw, bdw, gamma, beta, w2, b2, out, t, d, k, pl, eps);
-  return counted(Counted::kConvOutBf16);
+  return counted("conv_bf16::out_kernel");
 }
 
 inline int launch_bwd(const bf16* x, const int* lengths, const bf16* w1, const float* b1,
@@ -919,23 +919,23 @@ inline int launch_bwd(const bf16* x, const int* lengths, const bf16* w1, const f
   const dim3 row_tiles((unsigned)cdiv(t, BT), (unsigned)nb);
   glu_sig_kernel<<<dim3((unsigned)cdiv(2L * d, kTile), (unsigned)cdiv(n, kTile)), kThreads,
                    Glu::kSmemBytes, stream>>>(x, lengths, w1, b1, g, sig, n, t, d);
-  if (int err = counted(Counted::kConvGluSigBf16)) return err;
+  if (int err = counted("conv_bf16::glu_sig_kernel")) return err;
   (d <= 256 ? rows_kernel<1> : rows_kernel<2>)<<<row_tiles, kThreads, RowsSmem(d, k).total,
                                                   stream>>>(g, wdw, bdw, gamma, beta, w2, go,
                                                             dc, sw, vecp, dwdwp, t, d, k, pl,
                                                             eps);
-  if (int err = counted(Counted::kConvRowsBf16)) return err;
+  if (int err = counted("conv_bf16::rows_kernel")) return err;
   du_kernel<<<row_tiles, kThreads, du_smem(d, k), stream>>>(dc, g, sig, lengths, wdw, du, db1p,
                                                              t, d, k, pl);
-  if (int err = counted(Counted::kConvDuBf16)) return err;
+  if (int err = counted("conv_bf16::du_kernel")) return err;
   dx_kernel<<<dim3((unsigned)cdiv(d, kTile), (unsigned)cdiv(n, kTile)), kThreads, Dx::kSmemBytes,
               stream>>>(du, w1, dx, n, d);
-  if (int err = counted(Counted::kConvDxBf16)) return err;
+  if (int err = counted("conv_bf16::dx_kernel")) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), 32) * 32;
   const long tiles = cdiv(2L * d, kTile) * cdiv(d, kTile) + cdiv(d, kTile) * cdiv(d, kTile);
   dw_kernel<<<dim3((unsigned)tiles, (unsigned)nsplit), kThreads, Dw::kSmemBytes, stream>>>(
       du, x, go, sw, dw1p, dw2p, n, d, kchunk);
-  if (int err = counted(Counted::kConvDwBf16)) return err;
+  if (int err = counted("conv_bf16::dw_kernel")) return err;
   const int ntiles = row_tiles.x * row_tiles.y;
   SumJobs<kSumJobs> jobs{{{vecp, vec, nullptr, 4 * d, ntiles, 0, 0},
                 {dwdwp, dwdw, nullptr, d * k, ntiles, d, 0},  // [tile][k][D] -> [D, k]
@@ -943,7 +943,7 @@ inline int launch_bwd(const bf16* x, const int* lengths, const bf16* w1, const f
                 {dw1p, nullptr, dw1, 2 * d * d, nsplit, 0, 0},
                 {dw2p, nullptr, dw2, d * d, nsplit, 0, 0}}};
   sum_kernel<<<(unsigned)sum_blocks(jobs), kThreads, 0, stream>>>(jobs);
-  return counted(Counted::kConvSumBf16);
+  return counted("conv_bf16::sum_kernel");
 }
 
 }  // namespace conv_bf16
@@ -1005,7 +1005,7 @@ inline int launch_bwd(const bf16* x, const int* lengths, const bf16* w1, const f
 //                     sums go's columns (db2) from the stages as they land.
 //     sum_kernel      every partial over its tiles or splits in a fixed
 //                     order (no float atomics).
-// Every launch counts itself on the host (common.cuh:Counted).
+// Every launch counts itself on the host (common.cuh:counted).
 
 namespace conv_f32 {
 
@@ -1442,12 +1442,12 @@ inline int launch_fwd(const float* x, const int* lengths, const float* w1, const
   const int n = nb * t;
   const unsigned mt = (unsigned)cdiv(n, BM);
   glu_kernel<<<mt * (unsigned)(d / kGluC), kThreads, 0, stream>>>(x, lengths, w1, b1, g, n, t, d);
-  if (int err = counted(Counted::kConvGluF32)) return err;
+  if (int err = counted("conv_f32::glu_kernel")) return err;
   norm_kernel<<<dim3((unsigned)cdiv(t, BT), (unsigned)nb), kThreads, halo_bytes(d, k), stream>>>(
       g, wdw, bdw, gamma, beta, sw, t, d, k, pl, eps);
-  if (int err = counted(Counted::kConvNormF32)) return err;
+  if (int err = counted("conv_f32::norm_kernel")) return err;
   out_kernel<<<mt * (unsigned)cdiv(d, BN), kThreads, 0, stream>>>(sw, w2, b2, out, n, d);
-  return counted(Counted::kConvOutF32);
+  return counted("conv_f32::out_kernel");
 }
 
 inline int launch_bwd(const float* x, const int* lengths, const float* w1, const float* b1,
@@ -1463,22 +1463,22 @@ inline int launch_bwd(const float* x, const int* lengths, const float* w1, const
   const dim3 row_tiles((unsigned)cdiv(t, BT), (unsigned)nb);
   glu_sig_kernel<<<mt * (unsigned)(d / kGluC), kThreads, 0, stream>>>(x, lengths, w1, b1, g, sig,
                                                                        n, t, d);
-  if (int err = counted(Counted::kConvGluSigF32)) return err;
+  if (int err = counted("conv_f32::glu_sig_kernel")) return err;
   dsw_kernel<<<mt * (unsigned)cdiv(d, BN), kThreads, 0, stream>>>(go, w2, dc, n, d);
-  if (int err = counted(Counted::kConvDswF32)) return err;
+  if (int err = counted("conv_f32::dsw_kernel")) return err;
   rows_kernel<<<row_tiles, d, rows_smem(d, k), stream>>>(g, wdw, bdw, gamma, beta, dc, sw, vecp,
                                                          t, d, k, pl, eps);
-  if (int err = counted(Counted::kConvRowsF32)) return err;
+  if (int err = counted("conv_f32::rows_kernel")) return err;
   du_kernel<<<row_tiles, kThreads, halo_bytes(d, k), stream>>>(dc, g, sig, lengths, wdw, du, db1p,
                                                                dwdwp, t, d, k, pl);
-  if (int err = counted(Counted::kConvDuF32)) return err;
+  if (int err = counted("conv_f32::du_kernel")) return err;
   dx_kernel<<<mt * (unsigned)cdiv(d, BN), kThreads, 0, stream>>>(du, w1, dx, n, d);
-  if (int err = counted(Counted::kConvDxF32)) return err;
+  if (int err = counted("conv_f32::dx_kernel")) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), sgemm::BK) * sgemm::BK;
   const long tiles = cdiv(2L * d, BM) * cdiv(d, BN) + cdiv(d, BM) * cdiv(d, BN);
   dw_kernel<<<dim3((unsigned)tiles, (unsigned)nsplit), kThreads, 0, stream>>>(
       du, x, go, sw, dw1p, dw2p, db2p, n, d, kchunk);
-  if (int err = counted(Counted::kConvDwF32)) return err;
+  if (int err = counted("conv_f32::dw_kernel")) return err;
   const int ntiles = row_tiles.x * row_tiles.y;
   SumJobs<kSumJobs> jobs{{{vecp, vec, nullptr, 3 * d, ntiles, 0, 0},
                           {dwdwp, dwdw, nullptr, d * k, ntiles, d, 0},  // [tile][k][D] -> [D, k]
@@ -1487,7 +1487,7 @@ inline int launch_bwd(const float* x, const int* lengths, const float* w1, const
                           {dw2p, dw2, nullptr, d * d, nsplit, 0, 0},
                           {db2p, db2, nullptr, d, nsplit, 0, 0}}};
   sum_kernel<<<(unsigned)sum_blocks(jobs), kThreads, 0, stream>>>(jobs);
-  return counted(Counted::kConvSumF32);
+  return counted("conv_f32::sum_kernel");
 }
 
 }  // namespace conv_f32

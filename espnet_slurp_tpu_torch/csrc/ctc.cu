@@ -595,13 +595,13 @@ extern "C" int espnet_ctc_fwd(const float* emit, const float* skip, const int* t
     return by_lanes(s, [&](auto j) {
       constexpr int J = decltype(j)::value;
       ctc_warp::fwd_kernel<J><<<b, 32, 0, st>>>(emit, skip, tlen, last, loss, alpha, t, s);
-      return counted(Counted::kCtcWarpFwd);
+      return counted("ctc_warp::fwd_kernel");
     });
   }
   ctc_block::configure();
   ctc_block::fwd_kernel<<<b, ctc_block::threads(s), ctc_block::smem(s), st>>>(
       emit, skip, tlen, last, loss, alpha, t, s);
-  return counted(Counted::kCtcBlockFwd);
+  return counted("ctc_block::fwd_kernel");
 }
 
 // alpha: the forward's; grad: f32 [B] cotangent of loss; demit: f32
@@ -616,13 +616,13 @@ extern "C" int espnet_ctc_bwd(const float* emit, const float* skip, const int* t
     return by_lanes(s, [&](auto j) {
       constexpr int J = decltype(j)::value;
       ctc_warp::bwd_kernel<J><<<b, 32, 0, st>>>(emit, skip, tlen, last, alpha, grad, demit, t, s);
-      return counted(Counted::kCtcWarpBwd);
+      return counted("ctc_warp::bwd_kernel");
     });
   }
   ctc_block::configure();
   ctc_block::bwd_kernel<<<b, ctc_block::threads(s), ctc_block::smem(s), st>>>(
       emit, skip, tlen, last, alpha, grad, demit, t, s);
-  return counted(Counted::kCtcBlockBwd);
+  return counted("ctc_block::bwd_kernel");
 }
 
 // The warp route's limit on S (larger S take the block route).
@@ -652,16 +652,21 @@ extern "C" int espnet_ctc_info(int which, int s, int* info) {
   return 0;
 }
 
-// Launches so far of the counted kernel `name` (common.cuh's Counted: the
-// kernels of csrc/ctc.cu, csrc/ctc_head.cu, csrc/conv_module.cu and
-// csrc/transducer.cu), or -1 for a name that is not counted.
-extern "C" long long espnet_launch_count(const char* name) {
+// Every host-side launch count (common.cuh:counted) as "name\tcount\n"
+// lines into buf (cap bytes, NUL-terminated when it fits), one for each
+// kernel instance launched so far. Returns the length the whole list needs,
+// without its NUL.
+extern "C" int espnet_launch_names(char* buf, int cap) {
   using namespace espnet;
-  for (int i = 0; i < (int)Counted::kCount; ++i) {
-    const char* c = counted_name(i);
-    int k = 0;
-    while (c[k] && c[k] == name[k]) ++k;
-    if (c[k] == 0 && name[k] == 0) return counted_launches()[i];
+  std::string out;
+  {
+    std::lock_guard<std::mutex> lock(launch_mutex());
+    for (const auto& kv : launch_counts()) {
+      out += kv.first + '\t' + std::to_string(kv.second) + '\n';
+    }
   }
-  return -1;
+  if ((long)out.size() < (long)cap) {
+    for (size_t i = 0; i <= out.size(); ++i) buf[i] = out.c_str()[i];
+  }
+  return (int)out.size();
 }

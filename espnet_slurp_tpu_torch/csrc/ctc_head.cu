@@ -246,14 +246,14 @@ inline int launch(const bf16* hs, const bf16* w, const float* bias, const int* e
                        (int)Dw::kSmemBytes);
   rows_kernel<<<dim3((unsigned)cdiv(v, BT), (unsigned)row_tiles), 2 * BT, Rows::kSmemBytes,
                 stream>>>(hs, w, bias, ext, z, dsum, g, dlg, dbp, n, t, d, v, vp, s_len);
-  if (int err = counted(Counted::kHeadRowsBf16)) return err;
+  if (int err = counted("ctc_head_bwd::rows_kernel")) return err;
   dx_kernel<<<dim3((unsigned)cdiv(d, 128), (unsigned)row_tiles), 2 * BT, Dx::kSmemBytes,
               stream>>>(dlg, w, dhs, n, d, v, vp);
-  if (int err = counted(Counted::kHeadDxBf16)) return err;
+  if (int err = counted("ctc_head_bwd::dx_kernel")) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), 32) * 32;
   dw_kernel<<<dim3((unsigned)(cdiv(v, 128) * cdiv(d, 128)), (unsigned)nsplit), 2 * BT,
               Dw::kSmemBytes, stream>>>(dlg, hs, dwp, n, d, v, vp, kchunk);
-  return counted(Counted::kHeadDwBf16);
+  return counted("ctc_head_bwd::dw_kernel");
 }
 
 }  // namespace ctc_head_bwd
@@ -808,14 +808,14 @@ inline int launch_bwd(const float* hs, const float* w, const float* bias, const 
   const long vt = cdiv(v, BN), dt = cdiv(d, BN);
   rows_kernel<<<dim3((unsigned)vt, (unsigned)cdiv(n, BM)), sgemm::kThreads, kRowsSmem,
                 stream>>>(hs, w, bias, ext, z, dsum, g, dlg, dbp, (int)n, t, d, v, vp, s_len);
-  if (int err = counted(Counted::kHeadRowsF32)) return err;
+  if (int err = counted("ctc_head_f32::rows_kernel")) return err;
   dx_kernel<<<(unsigned)(cdiv(n, BM) * dt), sgemm::kThreads, 0, stream>>>(dlg, w, dhs, (int)n,
                                                                          d, v, vp);
-  if (int err = counted(Counted::kHeadDxF32)) return err;
+  if (int err = counted("ctc_head_f32::dx_kernel")) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), sgemm::BK) * sgemm::BK;
   dw_kernel<<<dim3((unsigned)(vt * dt), (unsigned)nsplit), sgemm::kThreads, 0, stream>>>(
       dlg, hs, dwp, (int)n, d, v, vp, (int)kchunk);
-  return counted(Counted::kHeadDwF32);
+  return counted("ctc_head_f32::dw_kernel");
 }
 
 }  // namespace ctc_head_f32
@@ -947,11 +947,11 @@ int launch_fwd(const T* hs, const T* w, const float* bias, const int* ext, float
     ctc_head_bf16::lse_kernel<<<grid, ctc_head_bf16::kThreads, ctc_head_bf16::kLseSmem,
                                 stream>>>(hs, w, bias, part, (int)n, d, v, (int)vchunk);
   }
-  if (int err = counted(f32 ? Counted::kHeadLseF32 : Counted::kHeadLseBf16)) return err;
+  if (int err = counted(f32 ? "ctc_head_f32::lse_kernel" : "ctc_head_bf16::lse_kernel")) return err;
   ctc_head_fwd::gather_kernel<T>
       <<<dim3((unsigned)(cdiv(t, GR) * b), (unsigned)cdiv(s_len, GS)), ctc_head_fwd::kThreads, 0,
          stream>>>(hs, w, bias, ext, part, nsplit, emit, z, (int)n, t, d, v, s_len);
-  return counted(f32 ? Counted::kHeadGatherF32 : Counted::kHeadGatherBf16);
+  return counted("ctc_head_fwd::gather_kernel", type_name<T>());
 }
 
 // Registers, shared bytes (static and dynamic), local (spill) bytes and

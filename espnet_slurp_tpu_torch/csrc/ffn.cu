@@ -315,7 +315,7 @@ int launch_d2(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, co
     fwd_kernel<D2, false><<<grid, kThreadsFwd, bytes, stream>>>(x, w1, b1, w2, b2, out, part, n,
                                                                 d, f, drop);
   }
-  return (int)cudaGetLastError();
+  return counted("ffn_fwd::fwd_kernel", D2, drop.seed != nullptr);
 }
 
 inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
@@ -339,7 +339,7 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
   const long total = (long)n * d2;
   reduce_kernel<<<(unsigned)((total / 4 + 255) / 256), 256, 0, stream>>>(part, b2, out, total,
                                                                          d2, nsplit);
-  return (int)cudaGetLastError();
+  return counted("ffn_fwd::reduce_kernel");
 }
 
 }  // namespace ffn_fwd
@@ -600,14 +600,14 @@ inline int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2
                        (int)Dw::kSmemBytes);
   rows<<<dim3((unsigned)cdiv(f, kRowsF), (unsigned)row_tiles), kThreads, kRowsSmem, stream>>>(
       x, w1, b1, w2, g, hd, ds, db1p, n, d, f, d2, drop);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted("ffn_bwd::rows_kernel", drop.seed != nullptr)) return err;
   dx_kernel<<<dim3((unsigned)cdiv(d, 128), (unsigned)row_tiles), kThreads, Dx::kSmemBytes,
               stream>>>(ds, w1, dx, n, d, f);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted("ffn_bwd::dx_kernel")) return err;
   const long tiles = cdiv(d, 128) * cdiv(f, 128) + cdiv(f, 128) * cdiv(d2, 128);
   dw_kernel<<<dim3((unsigned)tiles, (unsigned)nsplit), kThreads, Dw::kSmemBytes, stream>>>(
       x, ds, hd, g, dw1p, dw2p, db2p, n, d, f, d2, kchunk);
-  return (int)cudaGetLastError();
+  return counted("ffn_bwd::dw_kernel");
 }
 
 }  // namespace ffn_bwd
@@ -900,10 +900,10 @@ inline int launch_fwd(const float* x, const float* w1, const float* b1, const fl
   } else {
     hidden_kernel<false><<<gh, sgemm::kThreads, 0, stream>>>(x, w1, b1, hid, n, d, f, drop);
   }
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted("ffn_f32::hidden_kernel", drop.seed != nullptr)) return err;
   out_kernel<<<(unsigned)(cdiv(n, BM) * cdiv(d2, BN)), sgemm::kThreads, 0, stream>>>(
       hid, w2, b2, out, n, f, d2);
-  return (int)cudaGetLastError();
+  return counted("ffn_f32::out_kernel");
 }
 
 // rows, dx, dw; hd and ds are fp32 [n, f] scratch, db1p [cdiv(n, BM), f],
@@ -924,15 +924,15 @@ inline int launch_bwd(const float* x, const float* w1, const float* b1, const fl
     rows_kernel<false><<<gr, sgemm::kThreads, 0, stream>>>(x, w1, b1, w2, g, hd, ds, db1p, n,
                                                            d, f, d2, drop);
   }
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted("ffn_f32::rows_kernel", drop.seed != nullptr)) return err;
   dx_kernel<<<(unsigned)(cdiv(n, BM) * cdiv(d, BN)), sgemm::kThreads, 0, stream>>>(ds, w1, dx, n,
                                                                                    d, f);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted("ffn_f32::dx_kernel")) return err;
   const long kchunk = cdiv(cdiv(n, nsplit), sgemm::BK) * sgemm::BK;
   const long tiles = cdiv(d, BN) * cdiv(f, BN) + cdiv(f, BN) * cdiv(d2, BN);
   dw_kernel<<<dim3((unsigned)tiles, (unsigned)nsplit), sgemm::kThreads, 0, stream>>>(
       x, ds, hd, g, dw1p, dw2p, db2p, n, d, f, d2, kchunk);
-  return (int)cudaGetLastError();
+  return counted("ffn_f32::dw_kernel");
 }
 
 // Splits of N for dw_kernel on a card of `sms` SMs: as many as fill its

@@ -219,7 +219,7 @@ int launch_rel_flash(const void* qu, const void* qv, const void* k, const void* 
       static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(p), lengths, static_cast<T*>(out), lse, h,
       t, dh, scale, chunk_size, left_chunks, drop);
-  return (int)cudaGetLastError();
+  return counted("rel_flash_fwd_kernel", type_name<T>(), BQ, BK, dropping);
 }
 
 
@@ -869,7 +869,7 @@ int launch(const void* qu, const void* qv, const void* k, const void* v, const v
   kernel<<<dim3((t + BK - 1) / BK, b * h), kThreads, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), dp, h, t, scale, chunk_size, left_chunks, drop);
-  return (int)cudaGetLastError();
+  return counted("rel_dkv::dkv_kernel", DH, drop.seed != nullptr);
 }
 
 template <int DH>
@@ -1209,7 +1209,7 @@ int launch(const void* qu, const void* qv, const void* k, const void* v, const v
   kernel<<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, static_cast<bf16*>(out), lse, h, t, scale,
       chunk_size, left_chunks, drop);
-  return (int)cudaGetLastError();
+  return counted("rel_fwd::fwd_kernel", DH, drop.seed != nullptr);
 }
 
 template <int DH>
@@ -1516,7 +1516,7 @@ int launch(const void* qu, const void* qv, const void* k, const void* v, const v
   kernel<<<dim3((t + BQ - 1) / BQ, b * h), kThreadsFwd, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, static_cast<bf16*>(dqu),
       static_cast<bf16*>(dqv), h, t, scale, chunk_size, left_chunks, drop);
-  return (int)cudaGetLastError();
+  return counted("rel_dq::dq_kernel", DH, drop.seed != nullptr);
 }
 
 template <int DH>
@@ -2308,7 +2308,7 @@ int launch_fwd(const void* qu, const void* qv, const void* k, const void* v, con
   kernel<<<dim3((t + FwdLayout<DH>::BQ - 1) / FwdLayout<DH>::BQ, b * h), kThr, bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, static_cast<float*>(out), lse, h, t, scale,
       chunk_size, left_chunks, drop);
-  return (int)cudaGetLastError();
+  return counted("rel_f32::fwd_kernel", DH, drop.seed != nullptr);
 }
 
 // dkv, then dq.
@@ -2326,13 +2326,13 @@ int launch_bwd(const void* qu, const void* qv, const void* k, const void* v, con
   kv<<<dim3((t + BK - 1) / BK, b * h), kThr, kv_bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, o(dk), o(dv), dp, h, t,
       scale, chunk_size, left_chunks, drop);
-  if (int err = (int)cudaGetLastError()) return err;
+  if (int err = counted("rel_f32::dkv_kernel", DH, drop.seed != nullptr)) return err;
   const size_t q_bytes = dq_bytes<DH>();
   const auto kq = drop.seed ? dq_kernel<DH, true> : dq_kernel<DH, false>;
   kq<<<dim3((t + BQ - 1) / BQ, b * h), kThr, q_bytes, stream>>>(
       in(qu), in(qv), in(k), in(v), in(p), lengths, in(dout), lse, delta, o(dqu), o(dqv), h, t,
       scale, chunk_size, left_chunks, drop);
-  return (int)cudaGetLastError();
+  return counted("rel_f32::dq_kernel", DH, drop.seed != nullptr);
 }
 
 // Blocks of the fp32 forward (0), dkv (1) or dq (2) kernel one SM holds.
@@ -2374,6 +2374,7 @@ int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, c
     kk<<<dim3((t + BK - 1) / BK, b * h), kThreads, L.total, stream>>>(
         qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dq_or_dk),
         static_cast<T*>(dqv_or_dv), dp, h, t, dh, scale, chunk_size, left_chunks, drop);
+    return counted("rel_flash_dkv_kernel", type_name<T>(), BQ, BK, dropping);
   } else {
     auto kq = dropping ? rel_flash_dq_kernel<T, BQ, BK, true>
                        : rel_flash_dq_kernel<T, BQ, BK, false>;
@@ -2381,8 +2382,8 @@ int launch_rel_flash_bwd_kernel(const void* qu, const void* qv, const void* k, c
     kq<<<dim3((t + BQ - 1) / BQ, b * h), kThreads, L.total, stream>>>(
         qut, qvt, kt, vt, pt, lengths, dot, lse, delta, static_cast<T*>(dq_or_dk),
         static_cast<T*>(dqv_or_dv), h, t, dh, scale, chunk_size, left_chunks, drop);
+    return counted("rel_flash_dq_kernel", type_name<T>(), BQ, BK, dropping);
   }
-  return (int)cudaGetLastError();
 }
 
 // dkv, then dq, with the tiles of rel_flash_dkv_kernel / rel_flash_dq_kernel;

@@ -538,12 +538,12 @@ extern "C" int espnet_rnnt_fwd(const float* blank, const float* emit, const int*
     return rnnt_by_lanes(u1, [&](auto j) {
       constexpr int J = decltype(j)::value;
       rnnt_warp::fwd_kernel<J><<<b, 32, 0, st>>>(blank, emit, tlen, ulen, loss, alpha, t, u1);
-      return counted(Counted::kRnntWarpFwd);
+      return counted("rnnt_warp::fwd_kernel");
     });
   }
   rnnt_block::fwd_kernel<<<b, rnnt_block::threads(u1), rnnt_block::smem(u1), st>>>(
       blank, emit, tlen, ulen, loss, alpha, t, u1);
-  return counted(Counted::kRnntBlockFwd);
+  return counted("rnnt_block::fwd_kernel");
 }
 
 // alpha: the forward's; grad: f32 [B] cotangent of the loss; dblank, demit:
@@ -559,12 +559,12 @@ extern "C" int espnet_rnnt_bwd(const float* blank, const float* emit, const int*
       constexpr int J = decltype(j)::value;
       rnnt_warp::bwd_kernel<J><<<b, 32, 0, st>>>(blank, emit, tlen, ulen, alpha, grad, dblank,
                                                  demit, t, u1);
-      return counted(Counted::kRnntWarpBwd);
+      return counted("rnnt_warp::bwd_kernel");
     });
   }
   rnnt_block::bwd_kernel<<<b, rnnt_block::threads(u1), rnnt_block::smem(u1), st>>>(
       blank, emit, tlen, ulen, alpha, grad, dblank, demit, t, u1);
-  return counted(Counted::kRnntBlockBwd);
+  return counted("rnnt_block::bwd_kernel");
 }
 
 // The warp route's limit on U1 (larger U1 take the block route).

@@ -1,5 +1,6 @@
 """Tokenizers + token<->id conversion: this package's own copy of
-espnet_slurp_tpu/data/tokenizer.py (char, word, BPE, TokenIDConverter).
+espnet_slurp_tpu/data/tokenizer.py (char, word, BPE with its trainer,
+phoneme, TokenIDConverter, build_token_list).
 
 BPE is backed by HuggingFace `tokenizers`, imported only when a BPE
 tokenizer is built; char/word are native. A token list file has one token
@@ -102,10 +103,74 @@ class BpeTokenizer(AbsTokenizer):
         # both conventions detokenize identically: ▁ -> space
         return "".join(tokens).replace("▁", " ").strip()
 
+    @staticmethod
+    def train(texts: Iterable[str], vocab_size: int, out_path: str,
+              character_coverage: float = 1.0,
+              marker: str = "prefix") -> "BpeTokenizer":
+        """Train a BPE model over an iterator of raw text lines."""
+        from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+        tok = Tokenizer(models.BPE(unk_token=None))
+        tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁")
+        trainer = trainers.BpeTrainer(vocab_size=vocab_size,
+                                      special_tokens=[], show_progress=False)
+        tok.train_from_iterator(texts, trainer)
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        tok.save(str(out_path))
+        return BpeTokenizer(out_path, marker=marker)
+
+
+class PhonemeTokenizer(AbsTokenizer):
+    """Grapheme-to-phoneme tokenizer (espnet2/text/phoneme_tokenizer.py).
+
+    The reference wraps external g2p libraries (g2p_en, pyopenjtalk, ...).
+    Here the primary backend is a pronunciation lexicon file ('word PH ONE
+    MES' per line, kaldi lexicon.txt convention) with per-letter fallback
+    for OOV words; if the optional ``g2p_en`` package is installed it is
+    used for OOVs instead of the letter fallback.
+    """
+
+    def __init__(self, lexicon: str | None = None,
+                 word_separator: str | None = None):
+        self.lex = {}
+        if lexicon:
+            with open(lexicon, encoding="utf-8") as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) >= 2 and parts[0] not in self.lex:
+                        self.lex[parts[0]] = parts[1:]
+        self.word_separator = word_separator
+        try:  # optional external g2p (not in the base image)
+            from g2p_en import G2p  # type: ignore
+            self._g2p = G2p()
+        except Exception:
+            self._g2p = None
+
+    def _word(self, w: str) -> List[str]:
+        if w in self.lex:
+            return list(self.lex[w])
+        if w.lower() in self.lex:
+            return list(self.lex[w.lower()])
+        if self._g2p is not None:
+            return [p for p in self._g2p(w) if p.strip()]
+        return list(w)  # letter fallback
+
+    def text2tokens(self, line: str) -> List[str]:
+        out: List[str] = []
+        for i, w in enumerate(line.split()):
+            if i > 0 and self.word_separator is not None:
+                out.append(self.word_separator)
+            out.extend(self._word(w))
+        return out
+
+    def tokens2text(self, tokens: Iterable[str]) -> str:
+        # phones are not invertible; mirror the reference (join w/ spaces)
+        return " ".join(tokens)
+
 
 def build_tokenizer(token_type: str, bpemodel: str | None = None,
                     non_linguistic_symbols: Sequence[str] = (),
                     delimiter: str | None = None,
+                    g2p_lexicon: str | None = None,
                     bpe_marker: str = "prefix") -> AbsTokenizer:
     """espnet2/text/build_tokenizer.py analogue."""
     if token_type == "char":
@@ -116,6 +181,8 @@ def build_tokenizer(token_type: str, bpemodel: str | None = None,
         if bpemodel is None:
             raise ValueError("token_type='bpe' needs bpemodel")
         return BpeTokenizer(bpemodel, marker=bpe_marker)
+    if token_type == "phn":
+        return PhonemeTokenizer(lexicon=g2p_lexicon)
     raise ValueError(f"unknown token_type {token_type}")
 
 
@@ -149,3 +216,19 @@ class TokenIDConverter:
 
     def ids2tokens(self, ids: Iterable[int]) -> List[str]:
         return [self.token_list[int(i)] for i in ids]
+
+
+def build_token_list(texts: Iterable[str], tokenizer: AbsTokenizer,
+                     blank: str = "<blank>", unk: str = "<unk>",
+                     sos_eos: str = "<sos/eos>",
+                     extra_symbols: Sequence[str] = ()) -> List[str]:
+    """Collect vocabulary: <blank>, <unk>, [extra], tokens..., <sos/eos>.
+
+    Matches asr.sh stage-5 token list layout (blank first, sos/eos last).
+    """
+    seen = {}
+    for line in texts:
+        for t in tokenizer.text2tokens(line):
+            seen[t] = seen.get(t, 0) + 1
+    toks = sorted(seen)
+    return [blank, unk, *extra_symbols, *toks, sos_eos]

@@ -23,6 +23,7 @@ from ..ops.kernels.ctc_head import ctc_loss_pallas_head
 from ..ops.masks import length_mask
 from ..ops.normalize import global_mvn, utterance_mvn
 from ..ops.specaug import SpecAugConfig, specaug
+from ..utils.config import PORT_ONLY
 from ..utils.device import resolve_device
 from .conformer import ConformerEncoder
 from .layers import Linear
@@ -54,7 +55,7 @@ class ASRConfig:
     flash_attention: str = "auto"  # "auto"/"on": kernels K2/K3; "off": eager
     # Conv modules through kernel K6 (kernel path only): the port's form of
     # the reference's ESPNET_TPU_FUSED_CONV=1, off by default as there.
-    fused_conv: bool = False
+    fused_conv: bool = dataclasses.field(default=False, metadata=PORT_ONLY)
     subsampling_factor: int = 4
     frontend: FrontendConfig = FrontendConfig()
     specaug: Optional[SpecAugConfig] = SpecAugConfig()

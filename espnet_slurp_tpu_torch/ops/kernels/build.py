@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
 import torch
 
@@ -136,8 +137,8 @@ def library() -> ctypes.CDLL:
     lib.espnet_ctc_warp_states.restype = i
     lib.espnet_ctc_info.argtypes = [i, i, ctypes.POINTER(i)]
     lib.espnet_ctc_info.restype = i
-    lib.espnet_launch_count.argtypes = [ctypes.c_char_p]
-    lib.espnet_launch_count.restype = ctypes.c_longlong
+    lib.espnet_launch_names.argtypes = [ctypes.c_char_p, i]
+    lib.espnet_launch_names.restype = i
     lib.espnet_ctc_head_fwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, p]
     lib.espnet_ctc_head_fwd.restype = i
@@ -196,15 +197,34 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def launch_counts() -> Dict[str, int]:
+    """Every host-side launch count so far (csrc/common.cuh:counted): each
+    kernel instance that has launched, by its name with its template
+    arguments as the profiler writes it (e.g. ``"ctc_warp::fwd_kernel"``,
+    ``"ffn_fwd::fwd_kernel<256, true>"``); an instance not listed has not
+    launched."""
+    lib = library()
+    n = lib.espnet_launch_names(None, 0)
+    buf = ctypes.create_string_buffer(n + 1)
+    lib.espnet_launch_names(buf, n + 1)
+    out = {}
+    for line in buf.value.decode().splitlines():
+        name, count = line.rsplit("\t", 1)
+        out[name] = int(count)
+    return out
+
+
 def launch_count(name: str) -> int:
-    """Launches so far of a kernel that counts them on the host (the
-    kernels of csrc/ctc.cu, csrc/ctc_head.cu, csrc/conv_module.cu and
-    csrc/transducer.cu, by the names in csrc/common.cuh's
-    ``counted_name``); raises for a name that is not counted."""
-    n = library().espnet_launch_count(name.encode())
-    if n < 0:
-        raise KeyError(f"no launch count for kernel {name!r}")
-    return n
+    """Launches so far of the kernel instance ``name`` (see
+    ``launch_counts``)."""
+    return launch_counts().get(name, 0)
+
+
+def launch_delta(before: Dict[str, int], after: Dict[str, int]
+                 ) -> Dict[str, int]:
+    """{name: launches} between two ``launch_counts()``, the nonzero ones."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
 
 
 def build_log() -> str:

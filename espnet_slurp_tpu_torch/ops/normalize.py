@@ -1,9 +1,26 @@
 """Feature normalisation. Port of espnet_slurp_tpu/ops/normalize.py."""
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from .masks import length_mask
+
+
+def global_mvn_params(stats: dict | str, eps: float = 1.0e-20
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Load (mean, inv_std) from a collect-stats npz (keys: count, sum,
+    sum_square), given as a path or an in-memory dict; global_mvn.py:37-74
+    math, in float64, returned as float32."""
+    if isinstance(stats, str):
+        stats = dict(np.load(stats))
+    count = np.asarray(stats["count"], dtype=np.float64)
+    mean = np.asarray(stats["sum"], dtype=np.float64) / count
+    var = np.asarray(stats["sum_square"], dtype=np.float64) / count - mean**2
+    std = np.sqrt(np.maximum(var, eps))
+    return mean.astype(np.float32), (1.0 / std).astype(np.float32)
 
 
 def global_mvn(x: torch.Tensor, lengths: torch.Tensor, mean: torch.Tensor,

@@ -1,27 +1,436 @@
-"""Inference wrapper: waveforms in, text out.
+"""ASR task: config-driven wiring of data + model + trainer + inference.
 
-Port of espnet_slurp_tpu/tasks/asr.py:Speech2Text (``decode_batch`` and
-``__call__``). It is built from an ``ASRConfig``, a state_dict and a token
-list; loading an experiment directory and the CLI come with the training
-slice, which writes the port's own checkpoints.
+Port of espnet_slurp_tpu/tasks/asr.py: ``DataConfig``, ``ASRTaskConfig`` and
+``load_task_config`` (field for field, with the reference's defaults);
+``ASRTask`` (vocabulary, datasets, the bucketed batch iterator, the model,
+global MVN stats, the reference's parameter init, and ``train``, which runs
+the Trainer); and ``Speech2Text``, built from a config, a state_dict and a
+token list, or from an experiment directory (``Speech2Text.from_exp_dir``).
 
-Padding follows the reference exactly, because the STFT reflect-pads the
+The YAML layout is the reference's:
+
+    model:   {ASRConfig fields}
+    optim:   {OptimConfig fields}
+    data:    {DataConfig fields}
+    max_epoch, keep_nbest, ...: the Trainer's options
+
+Config values that select paths not ported yet raise, naming their queue
+item in ROADMAP.md: ``model_arch: maskctc``, ``mbr.weight > 0``,
+``pipeline_stages > 1``, ``num_att_plot > 0``, ``data.resident_corpus``,
+``data.multichannel`` and a ``data.feats_type`` other than ``raw``.
+
+Speech2Text pads as the reference does, because the STFT reflect-pads the
 padded [B, N] buffer and the padded length therefore changes the last frames
 of shorter utterances: the batch is padded to a power of two (padding rows
 get length 1) and the samples to ``bucket_length(max_len, 4096)``.
 """
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Sequence
+import dataclasses
+import logging
+from pathlib import Path
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..data.sampler import bucket_length
-from ..data.tokenizer import TokenIDConverter, build_tokenizer
+from ..data.cleaner import TextCleaner
+from ..data.collate import asr_batch, common_collate
+from ..data.dataset import CommonPreprocessor, SpeechDataset
+from ..data.fileio import read_2column_text
+from ..data.prefetch import prefetch_to_device
+from ..data.sampler import build_batches, bucket_length, epoch_shuffle
+from ..data.tokenizer import (BpeTokenizer, TokenIDConverter,
+                              build_token_list, build_tokenizer)
 from ..decode.beam import BeamSearchConfig, batch_beam_search
 from ..decode.greedy import attention_greedy_decode
 from ..models.asr_model import ASRConfig, ASRModel
+from ..train.checkpoint import CKPT_FILE, CheckpointManager
+from ..train.optim import OptimConfig, build_optimizer
+from ..train.state import TrainState, make_eval_step, make_train_step
+from ..train.trainer import Trainer, TrainerOptions
+from ..utils.config import from_dict, load_yaml, merge_dicts, save_yaml
+from ..utils.device import resolve_device
+
+log = logging.getLogger("espnet_slurp_tpu_torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    train_dir: str = ""
+    valid_dir: str = ""
+    token_type: str = "char"  # char | word | bpe | phn
+    # Text cleaner applied before tokenization AND before token-list/BPE
+    # building: "" | tacotron | jaconv | lowercase | uppercase | whitespace
+    # (espnet2/text/cleaner.py --cleaner flag analogue).
+    text_cleaner: str = ""
+    bpemodel: Optional[str] = None
+    bpe_vocab_size: int = 300
+    # "prefix" (HF Metaspace '▁ca t') | "suffix" ('ca t▁' — the fork's
+    # TCPGen dictionary convention).
+    bpe_marker: str = "prefix"
+    # Multichannel audio (the reference's WPE/MVDR frontend path): not
+    # ported yet, raises when set.
+    multichannel: bool = False
+    # "raw" decodes wav.scp on the fly; the reference's feature dumps
+    # ("fbank", "fbank_pitch", "ssl") are not ported yet and raise.
+    feats_type: str = "raw"
+    batch_type: str = "numel"
+    batch_size: int = 16
+    batch_bins: int = 2_000_000
+    speech_bucket_multiple: int = 4096
+    text_bucket_multiple: int = 8
+    # Round numel/length batch sizes down to this multiple (tail carries
+    # into the next batch) so B is bucketed like the padded lengths
+    # (data/sampler.py).
+    batch_size_multiple: int = 1
+    num_iters_per_epoch: Optional[int] = None
+    seed: int = 0
+    # The reference's device-resident corpus (data/resident.py): not ported
+    # yet, raises when set.
+    resident_corpus: bool = False
+    resident_workers: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MBRConfig:
+    """The fields of the reference's train/mbr.py:MBRConfig, so that its
+    configs load; MBR training is not ported yet (weight > 0 raises)."""
+    weight: float = 0.0
+    beam_size: int = 4
+    pre_beam_size: int = 12
+    max_len: int = 96
+    ctc_weight: float = 0.0
+    mwe_factor: float = 1.0
+    include_gt: bool = True
+    rare_weight: float = 0.0
+    kb_tokens: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class ASRTaskConfig:
+    exp_dir: str = "exp/asr"
+    # "asr" (hybrid CTC/attention) | "maskctc" (not ported yet)
+    model_arch: str = "asr"
+    model: ASRConfig = ASRConfig()
+    optim: OptimConfig = OptimConfig()
+    data: DataConfig = DataConfig()
+    mbr: MBRConfig = MBRConfig()
+    # Pipeline parallelism (the reference's parallel/pipelined_asr.py): not
+    # ported yet, > 1 raises.
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 4
+    max_epoch: int = 40
+    # Attention heat-maps per epoch (train/attention_plot.py): not ported
+    # yet, > 0 raises.
+    num_att_plot: int = 0
+    patience: Optional[int] = None
+    keep_nbest: int = 10
+    nbest_average: int = 5
+    log_interval: int = 50
+    resume: bool = True
+    # Warm-start: a params-only checkpoint directory of this package's
+    # format (e.g. a prior run's 'valid.loss.ave_5best') loaded into the
+    # fresh model when no resume checkpoint exists — reference --init_param.
+    # Optimizer state starts fresh (fine-tune semantics).
+    init_params_from: str = ""
+
+
+def load_task_config(path: str | None = None, overrides: Dict | None = None
+                     ) -> ASRTaskConfig:
+    d = load_yaml(path) if path else {}
+    if overrides:
+        d = merge_dicts(d, overrides)
+    return from_dict(ASRTaskConfig, d)
+
+
+def refuse_unported(cfg: ASRTaskConfig) -> None:
+    """Raises for a config value that selects a path not ported yet."""
+    todo = []
+    if cfg.model_arch != "asr":
+        todo.append(f"model_arch {cfg.model_arch!r} (MaskCTC: ROADMAP.md "
+                    "queue 1 item 15)")
+    if cfg.mbr.weight > 0:
+        todo.append("mbr.weight > 0 (MBR training: queue 1 item 11)")
+    if cfg.pipeline_stages > 1:
+        todo.append("pipeline_stages > 1 (pipeline parallelism: queue 1 "
+                    "item 17)")
+    if cfg.num_att_plot > 0:
+        todo.append("num_att_plot > 0 (train/attention_plot.py: queue 1 "
+                    "item 17)")
+    if cfg.data.resident_corpus:
+        todo.append("data.resident_corpus (data/resident.py: queue 1 item 2)")
+    if cfg.data.multichannel:
+        todo.append("data.multichannel (the WPE / beamformer frontends: "
+                    "queue 1 item 15)")
+    if cfg.data.feats_type != "raw":
+        todo.append(f"data.feats_type {cfg.data.feats_type!r} (feature "
+                    "dumps and the model's input_feats: queue 1 item 9)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations,
+# rescaled so that the truncated draw has variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+class ASRTask:
+    """Builds every component from an ASRTaskConfig and runs training."""
+
+    # ---------- vocabulary ----------
+
+    @staticmethod
+    def prepare_vocab(cfg: ASRTaskConfig):
+        """Build tokenizer + token list from the training text. Returns
+        (tokenizer, converter, resolved ASRConfig with true vocab_size)."""
+        data = cfg.data
+        # Lazy train-text read: an exp dir carries tokens.txt (+ bpe.json)
+        # and inference must not touch data.train_dir then.
+        _texts_cache = {}
+
+        def texts():
+            if "t" not in _texts_cache:
+                t = read_2column_text(Path(data.train_dir) / "text")
+                if data.text_cleaner:
+                    clean = TextCleaner(data.text_cleaner)
+                    t = {k: clean(v) for k, v in t.items()}
+                _texts_cache["t"] = t
+            return _texts_cache["t"]
+
+        if data.token_type == "bpe":
+            bpe_path = data.bpemodel or str(Path(cfg.exp_dir) / "bpe.json")
+            if not Path(bpe_path).exists():
+                BpeTokenizer.train(texts().values(), data.bpe_vocab_size,
+                                   bpe_path)
+            tokenizer = build_tokenizer("bpe", bpemodel=bpe_path,
+                                        bpe_marker=data.bpe_marker)
+        else:
+            tokenizer = build_tokenizer(data.token_type)
+        token_list_path = Path(cfg.exp_dir) / "tokens.txt"
+        if token_list_path.exists():
+            converter = TokenIDConverter(token_list_path)
+        else:
+            tl = build_token_list(texts().values(), tokenizer)
+            token_list_path.parent.mkdir(parents=True, exist_ok=True)
+            token_list_path.write_text(
+                "\n".join(tl) + "\n", encoding="utf-8")
+            converter = TokenIDConverter(tl)
+        model_cfg = dataclasses.replace(cfg.model,
+                                        vocab_size=converter.vocab_size)
+        return tokenizer, converter, model_cfg
+
+    # ---------- data ----------
+
+    @staticmethod
+    def build_dataset(data_dir: str, tokenizer, converter,
+                      text_cleaner: str = "") -> SpeechDataset:
+        streams = [(str(Path(data_dir) / "wav.scp"), "speech", "sound"),
+                   (str(Path(data_dir) / "text"), "text", "text")]
+        cleaner = TextCleaner(text_cleaner) if text_cleaner else None
+        pre = CommonPreprocessor(tokenizer, converter, text_names=("text",),
+                                 cleaner=cleaner)
+        ds = SpeechDataset(streams, preprocess=pre)
+        ds.data_dir = data_dir
+        return ds
+
+    @staticmethod
+    def collect_shapes(dataset: SpeechDataset):
+        """(speech_shapes, text_shapes) WITHOUT decoding any audio.
+
+        Priority (abs_task.py:1477-1553 shape-file semantics): a
+        ``utt2num_samples`` file next to the data, else wav HEADER reads
+        (loader.shape), else a full decode as last resort. Text lengths
+        come from tokenizing the text stream only.
+        """
+        speech_shapes, text_shapes = {}, {}
+        samples = None
+        data_dir = getattr(dataset, "data_dir", None)
+        if data_dir and (Path(data_dir) / "utt2num_samples").exists():
+            samples = {k: (int(v),) for k, v in read_2column_text(
+                Path(data_dir) / "utt2num_samples").items()}
+        sound = dataset.loaders.get("speech")
+        for uid in dataset.keys:
+            if samples is not None and uid in samples:
+                speech_shapes[uid] = samples[uid]
+            elif hasattr(sound, "shape"):
+                speech_shapes[uid] = (sound.shape(uid),)
+            else:
+                _, d = dataset[uid]
+                speech_shapes[uid] = (len(d["speech"]),)
+            txt = dataset.loaders["text"][uid]
+            if dataset.preprocess is not None:
+                txt = dataset.preprocess(uid, {"text": txt})["text"]
+            text_shapes[uid] = (len(txt),)
+        return speech_shapes, text_shapes
+
+    @classmethod
+    def build_iter_factory(cls, cfg: ASRTaskConfig, dataset: SpeechDataset,
+                           shuffle: bool = True):
+        """Epoch-seeded bucketed batch iterator factory (SURVEY.md §2.2):
+        epoch -> iterator of numpy batches (``data/collate.py:asr_batch``),
+        the reference's batches for the same corpus and seed."""
+        data = cfg.data
+        speech_shapes, text_shapes = cls.collect_shapes(dataset)
+        # utt2category file next to the data keeps categories unmixed
+        # within batches (samplers/build_batch_sampler.py utt2category).
+        u2c = None
+        data_dir = getattr(dataset, "data_dir", None)
+        if data_dir and (Path(data_dir) / "utt2category").exists():
+            u2c = read_2column_text(Path(data_dir) / "utt2category")
+        batches = build_batches(
+            [speech_shapes, text_shapes], batch_type=data.batch_type,
+            batch_size=data.batch_size, batch_bins=data.batch_bins,
+            utt2category=u2c, batch_size_multiple=data.batch_size_multiple)
+        buckets = {"speech": data.speech_bucket_multiple,
+                   "text": data.text_bucket_multiple}
+
+        def factory(epoch: int):
+            bs = epoch_shuffle(batches, data.seed, epoch) if shuffle \
+                else batches
+            if data.num_iters_per_epoch:
+                k = data.num_iters_per_epoch
+                bs = bs[(epoch - 1) * k % max(len(bs), 1):][:k] or bs[:k]
+            for batch_utts in bs:
+                items = [dataset[u] for u in batch_utts]
+                uids, coll = common_collate(items, bucket_multiples=buckets)
+                yield asr_batch(uids, coll)
+
+        return factory
+
+    # ---------- model/training ----------
+
+    @staticmethod
+    def build_model(model_cfg: ASRConfig, arch: str = "asr",
+                    device=None) -> ASRModel:
+        if arch != "asr":
+            raise NotImplementedError(
+                f"model_arch {arch!r} is not ported yet (ROADMAP.md queue 1 "
+                "item 15)")
+        return ASRModel(model_cfg, device=device)
+
+    @staticmethod
+    def load_mvn_stats(cfg: ASRTaskConfig, device=None):
+        """(mean, inv_std) tensors on ``device`` from the collect-stats
+        output, if GlobalMVN; else None."""
+        if cfg.model.use_mvn != "global":
+            return None
+        stats_path = Path(cfg.exp_dir) / "stats" / "feats_stats.npz"
+        if not stats_path.exists():
+            log.warning("use_mvn=global but %s missing; run collect-stats "
+                        "first", stats_path)
+            return None
+        from ..ops.normalize import global_mvn_params
+        mean, inv_std = global_mvn_params(str(stats_path))
+        dev = resolve_device(device)
+        return (torch.from_numpy(mean).to(dev),
+                torch.from_numpy(inv_std).to(dev))
+
+    @staticmethod
+    def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+        """Draws every parameter from the reference's flax initializers,
+        with a CPU ``torch.Generator`` seeded by ``seed`` (so the card and
+        the CPU start from the same values): Linear and Conv weights
+        lecun_normal (fan_in = in_features, or in_channels / groups x the
+        kernel's taps), their biases 0; LayerNorm scale 1, bias 0; Embedding
+        N(0, 1 / features) (flax's Embed default); the attention's
+        pos_bias_u / pos_bias_v 0. Any other parameter raises. Returns the
+        model."""
+        gen = torch.Generator().manual_seed(seed)
+        done = set()
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                    w = torch.empty(m.weight.shape)
+                    std = (1.0 / m.weight[0].numel()) ** 0.5 / _TRUNC_STD
+                    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                          generator=gen)
+                    m.weight.copy_(w)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, nn.LayerNorm):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                elif isinstance(m, nn.Embedding):
+                    m.weight.copy_(torch.randn(
+                        m.weight.shape, generator=gen)
+                        * m.weight.shape[1] ** -0.5)
+                else:
+                    continue
+                done.update(id(p) for p in m.parameters(recurse=False))
+            for name, p in model.named_parameters():
+                if id(p) in done:
+                    continue
+                if name.rsplit(".", 1)[-1] not in ("pos_bias_u",
+                                                   "pos_bias_v"):
+                    raise ValueError(f"init_params: no initializer for {name}")
+                p.zero_()
+        return model
+
+    @staticmethod
+    def load_init_params(model: nn.Module, path: str) -> None:
+        """Warm start from a params-only checkpoint directory: every tensor
+        whose key and shape the checkpoint has is loaded (cast to the
+        model's dtype), the others keep their fresh values — the
+        reference's leaf-wise merge, key-wise."""
+        loaded = torch.load(Path(path) / CKPT_FILE, map_location="cpu",
+                            weights_only=True)["params"]
+        own = model.state_dict()
+        hits = {k: loaded[k].to(v.dtype) for k, v in own.items()
+                if k in loaded and loaded[k].shape == v.shape}
+        model.load_state_dict({**own, **hits})
+        log.info("init_params_from %s: %d/%d tensors loaded", path,
+                 len(hits), len(own))
+
+    @classmethod
+    def train(cls, cfg: ASRTaskConfig, device=None) -> TrainState:
+        """Trains on ``device`` (the card unless given, e.g. "cpu"):
+        config.yaml and tokens.txt into exp_dir, then the Trainer with
+        its checkpoints and n-best average. Returns the final TrainState;
+        the model's parameters are those of the last epoch."""
+        refuse_unported(cfg)
+        dev = resolve_device(device)
+        exp = Path(cfg.exp_dir)
+        exp.mkdir(parents=True, exist_ok=True)
+        tokenizer, converter, model_cfg = cls.prepare_vocab(cfg)
+        resolved = dataclasses.replace(cfg, model=model_cfg)
+        save_yaml(resolved, exp / "config.yaml")
+
+        model = cls.build_model(model_cfg, cfg.model_arch, dev)
+        cls.init_params(model, cfg.data.seed)
+        if cfg.init_params_from and not (exp / "latest.json").exists():
+            cls.load_init_params(model, cfg.init_params_from)
+        tx = build_optimizer(cfg.optim)
+        state = TrainState.create(model, tx, seed=cfg.data.seed,
+                                  ema=cfg.optim.ema_decay > 0,
+                                  guard=cfg.optim.spike_factor > 0)
+
+        train_ds, valid_ds = (
+            cls.build_dataset(d, tokenizer, converter,
+                              text_cleaner=cfg.data.text_cleaner)
+            for d in (cfg.data.train_dir, cfg.data.valid_dir))
+        train_if = cls.build_iter_factory(cfg, train_ds, shuffle=True)
+        valid_if = cls.build_iter_factory(cfg, valid_ds, shuffle=False)
+        mvn_stats = cls.load_mvn_stats(cfg, dev)
+        ckpt = CheckpointManager(exp, cfg.keep_nbest)
+        trainer = Trainer(
+            model,
+            make_train_step(model, tx, mvn_stats=mvn_stats,
+                            grad_noise_eta=cfg.optim.grad_noise_eta,
+                            ema_decay=cfg.optim.ema_decay,
+                            spike_factor=cfg.optim.spike_factor),
+            make_eval_step(model, mvn_stats=mvn_stats), ckpt,
+            TrainerOptions(max_epoch=cfg.max_epoch, patience=cfg.patience,
+                           keep_nbest=cfg.keep_nbest,
+                           nbest_average=cfg.nbest_average,
+                           log_interval=cfg.log_interval,
+                           resume=cfg.resume))
+        # Batches are read, collated and sent to the device (pinned host
+        # memory, non_blocking) two steps ahead on a producer thread.
+        return trainer.run(
+            state, lambda epoch: prefetch_to_device(train_if(epoch), dev),
+            valid_if)
 
 
 def pad_speech_batch(speeches: Sequence[np.ndarray], multiple: int = 4096):
@@ -43,21 +452,57 @@ def pad_speech_batch(speeches: Sequence[np.ndarray], multiple: int = 4096):
 
 class Speech2Text:
     """Batched ASR decoding with the attention decoder (greedy when
-    ``beam_size <= 1``) or joint CTC/attention beam search."""
+    ``beam_size <= 1``) or joint CTC/attention beam search.
+
+    ``mvn_stats``: (mean, inv_std) of a ``use_mvn: global`` model, as
+    arrays or tensors; ``tokenizer``, when given, replaces the one built
+    from ``token_type`` / ``bpemodel``.
+    """
 
     def __init__(self, cfg: ASRConfig, state_dict: Mapping[str, torch.Tensor],
                  token_list: Sequence[str], token_type: str = "char",
                  bpemodel: Optional[str] = None, max_len: int = 128,
                  beam_size: int = 1, ctc_weight: float = 0.0,
-                 speech_bucket_multiple: int = 4096, device=None):
+                 speech_bucket_multiple: int = 4096, device=None,
+                 mvn_stats=None, tokenizer=None):
         self.model = ASRModel(cfg, device=device)
         self.model.load_state_dict(state_dict)
-        self.tokenizer = build_tokenizer(token_type, bpemodel)
+        self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
         self.converter = TokenIDConverter(list(token_list))
         self.max_len = max_len
         self.beam_size = beam_size
         self.ctc_weight = ctc_weight
         self.speech_bucket_multiple = speech_bucket_multiple
+        self.mvn_stats = None if mvn_stats is None else tuple(
+            torch.as_tensor(x, dtype=torch.float32, device=self.model.device)
+            for x in mvn_stats)
+        self.task_cfg: Optional[ASRTaskConfig] = None
+
+    @classmethod
+    def from_exp_dir(cls, exp_dir: str, ckpt_name: Optional[str] = None,
+                     max_len: int = 128, beam_size: int = 1,
+                     ctc_weight: float = 0.0, device=None) -> "Speech2Text":
+        """An experiment directory of ``ASRTask.train`` (the reference's
+        constructor): its config.yaml and tokens.txt, the checkpoint
+        ``ckpt_name`` (default: the n-best average ``valid.*best`` if there
+        is one, else the latest epoch) and the global MVN stats."""
+        exp = Path(exp_dir)
+        cfg = load_task_config(exp / "config.yaml")
+        refuse_unported(cfg)
+        tokenizer, converter, model_cfg = ASRTask.prepare_vocab(cfg)
+        mgr = CheckpointManager(exp, cfg.keep_nbest)
+        if ckpt_name is None:
+            cands = sorted(exp.glob("valid.*best"))
+            ckpt_name = cands[0].name if cands \
+                else f"{mgr.latest_epoch()}epoch"
+        s2t = cls(model_cfg, mgr.load_params(ckpt_name), converter.token_list,
+                  max_len=max_len, beam_size=beam_size,
+                  ctc_weight=ctc_weight,
+                  speech_bucket_multiple=cfg.data.speech_bucket_multiple,
+                  device=device, mvn_stats=ASRTask.load_mvn_stats(
+                      cfg, resolve_device(device)), tokenizer=tokenizer)
+        s2t.task_cfg = cfg
+        return s2t
 
     def __call__(self, speech: np.ndarray) -> str:
         """Single utterance: [N] float waveform -> text."""
@@ -73,7 +518,8 @@ class Speech2Text:
         buf, lens = self.pad_batch(speeches)
         dev = self.model.device
         hs, h_lengths = self.model.encode(torch.from_numpy(buf).to(dev),
-                                          torch.from_numpy(lens).to(dev))
+                                          torch.from_numpy(lens).to(dev),
+                                          self.mvn_stats)
         if self.beam_size <= 1:
             tokens, lengths = attention_greedy_decode(
                 self.model, hs, h_lengths, self.max_len)

@@ -21,11 +21,12 @@ optax is followed:
 Ported: adam / adamw (the reference chains both the same way), global-norm
 clipping, weight decay, and the constant / warmuplr / noam schedules. The
 other optimizers and schedules and ``accum_grad`` > 1 raise
-(ROADMAP.md queue 1); the reference's fields for them (decay_rate,
-decay_steps, momentum, rho) come with them. Gradient noise, the EMA shadow
-and the spike guard are arguments of ``make_train_step``, as in the
-reference's make_train_step; its OptimConfig carries them for the epoch
-Trainer, which is not ported yet.
+(ROADMAP.md queue 1); ``OptimConfig`` has every field of the reference's,
+with its defaults, so a reference config loads. Gradient noise, the EMA
+shadow and the spike guard (``grad_noise_eta``, ``ema_decay``,
+``spike_factor``, on by default as there) are arguments of
+``make_train_step``, which ``tasks/asr.py:ASRTask.train`` passes from the
+config, as the reference's does.
 """
 from __future__ import annotations
 
@@ -42,11 +43,23 @@ class OptimConfig:
     scheduler: str = "warmuplr"
     warmup_steps: int = 25000
     d_model: int = 256  # used by "noam"
+    # Read by the optimizers and schedules that are not ported yet (they
+    # raise): exponential / warmup_step decay, sgd / rmsprop momentum,
+    # adadelta's rho. Kept so that a reference config loads.
+    decay_rate: float = 0.96
+    decay_steps: int = 10000
+    momentum: float = 0.0
+    rho: float = 0.95
     weight_decay: float = 0.0
     betas: tuple = (0.9, 0.98)
     eps: float = 1e-9
     grad_clip: float = 5.0
     accum_grad: int = 1
+    grad_noise_eta: float = 0.0   # trainer.py add_gradient_noise analogue
+    ema_decay: float = 0.0        # v1 EMA wrapper analogue (asr.py:713-715)
+    # Divergence guard: skip updates whose grad norm exceeds spike_factor x
+    # the accepted-step EMA (train/state.py). 0 disables.
+    spike_factor: float = 10.0
 
 
 def build_schedule(cfg: OptimConfig) -> Callable:

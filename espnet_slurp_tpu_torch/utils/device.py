@@ -16,3 +16,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                                "run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def cli_device(name: str) -> torch.device:
+    """A CLI's ``--device``: a CUDA device raises when there is no card (the
+    CLIs default to "cuda" and never fall back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available; pass "
+                           "--device cpu to run on the CPU")
+    return device

@@ -73,20 +73,15 @@ def test_fused_ffn(gen, dtype, n, d, f, d2):
     assert _rel(out, ffn.fused_ffn_plain(*args)) <= TOL[dtype]
 
 
-def _kernel_names(call, windows=3):
-    """Names of the port's kernels that call() launches (torch.profiler), over
-    ``windows`` profiled calls: on the card the profiler has been seen to
-    drop some or all of a short window's launches, so one window can miss a
-    kernel that ran, never show one that did not."""
-    from torch.profiler import ProfilerActivity, profile
-    names = set()
-    for _ in range(windows):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        names |= {e.key for e in prof.key_averages() if "espnet" in e.key}
-    return sorted(names)
+def _instances(call):
+    """{kernel instance: launches} that call() makes, by the library's
+    host-side counts (build.launch_counts: each kernel by its name with its
+    template arguments), with no profiler window."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    before = build.launch_counts()
+    call()
+    torch.cuda.synchronize()
+    return build.launch_delta(before, build.launch_counts())
 
 
 @pytest.mark.parametrize("n,d,f,d2", [
@@ -96,7 +91,8 @@ def _kernel_names(call, windows=3):
     (29952, 256, 1024, 256), (3768, 256, 192, 256), (100, 64, 128, 32),
     (300, 128, 256, 64), (200, 512, 512, 128)])
 def test_fused_ffn_fwd_bf16_kernel(gen, n, d, f, d2):
-    """The bf16 forward is ffn_fwd::fwd_kernel (by its profiler name), within
+    """The bf16 forward is ffn_fwd::fwd_kernel<D2, false> (by the host
+    counts), with ffn_fwd::reduce_kernel where F is split, within
     BWD_PLAIN_TOL of fused_ffn_plain, which rounds hd and the output where
     the kernel does."""
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -110,9 +106,12 @@ def test_fused_ffn_fwd_bf16_kernel(gen, n, d, f, d2):
     assert out.shape == (n, d2) and out.dtype == bf
     assert torch.isfinite(out).all()
     assert _rel(out, ffn.fused_ffn_plain(*args)) <= BWD_PLAIN_TOL
-    names = _kernel_names(lambda: ffn._launch_fwd(*args))
-    assert any("ffn_fwd::fwd_kernel" in k for k in names), names
-    assert not any("ffn_fwd_kernel" in k for k in names), names
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    splits = build.library().espnet_fused_ffn_fwd_splits(n, d, f, d2)
+    want = {f"ffn_fwd::fwd_kernel<{d2}, false>": 1}
+    if splits > 1:
+        want["ffn_fwd::reduce_kernel"] = 1
+    assert _instances(lambda: ffn._launch_fwd(*args)) == want
 
 
 def test_fused_ffn_refuses_what_it_cannot_take(gen):
@@ -473,7 +472,7 @@ def test_rel_flash_attention_fp32_routes(gen, dh, want, rate):
     (rel_f32::fwd_kernel, dkv_kernel, dq_kernel) and at any other Dh (48)
     the WMMA float kernels (rel_flash_fwd_kernel<float, ...>,
     rel_flash_dkv_kernel, rel_flash_dq_kernel), the dropout instantiation
-    at a rate above 0, by their profiler names; both agree with the plain
+    at a rate above 0, by the host counts; both agree with the plain
     versions."""
     args, g = _f32_case(gen, 65, dh)
     scale = dh ** -0.5
@@ -483,12 +482,13 @@ def test_rel_flash_attention_fp32_routes(gen, dh, want, rate):
     call = lambda: (fa._launch_fwd(*args, scale, 0, -1, seed, rate),
                     fa._launch_bwd(*args, out, lse, g, scale, 0, -1, seed,
                                    rate))
-    names = _kernel_names(call)
+    launched = _instances(call)
+    names = sorted(launched)
     flag = "true>" if rate else "false>"
     kinds = ("fwd_kernel", "dkv_kernel", "dq_kernel") if want == "rel_f32::" \
         else ("rel_flash_fwd_kernel<float", "rel_flash_dkv_kernel<float",
               "rel_flash_dq_kernel<float")
-    assert len(names) == 3, names
+    assert len(names) == 3 and set(launched.values()) == {1}, launched
     for kind in kinds:
         assert any(want in k and kind in k and flag in k for k in names), \
             names
@@ -673,15 +673,15 @@ def _wmma_drop_case(gen, kernel, dtype, dh, rate, direction, seed):
             return (lambda: (ffn._launch_fwd(*args, seed, rate),),
                     (ffn.fused_ffn_plain(*args, seed, dropout_rate=rate),),
                     ("out",), ("ffn_f32::hidden_kernel<true>",
-                               "ffn_f32::out_kernel("))
+                               "ffn_f32::out_kernel"))
         x, w1, b1, w2, _ = args
         g = r(n, d).to(dtype)
         return (lambda: ffn._launch_bwd(x, w1, b1, w2, g, seed, rate),
                 ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
                                         dropout_rate=rate),
                 ("dx", "dw1", "db1", "dw2", "db2"),
-                ("ffn_f32::rows_kernel<true>", "ffn_f32::dx_kernel(",
-                 "ffn_f32::dw_kernel("))
+                ("ffn_f32::rows_kernel<true>", "ffn_f32::dx_kernel",
+                 "ffn_f32::dw_kernel"))
     t = 129
     args = [a.to(dtype) if a.is_floating_point() else a
             for a in _attention_case(gen, t, dh)]
@@ -722,8 +722,8 @@ def test_wmma_routes_draw_dropout(gen, kernel, dtype, dh, rate, direction):
     in bf16 against the tiled forward at the kernel's key tile of 64 and
     rel_flash_attention_bwd_plain, the kernels' rounding points): every
     output within TOL of max |ref| (floored at 1e-3 for gradients, as in
-    _check_grads); the launches are the dropout instantiations, by their
-    profiler names."""
+    _check_grads); the launches are the dropout instantiations, each once,
+    by the host counts."""
     seed = _drop_seed()
     call, refs, names, want = _wmma_drop_case(gen, kernel, dtype, dh, rate,
                                               direction, seed)
@@ -734,8 +734,7 @@ def test_wmma_routes_draw_dropout(gen, kernel, dtype, dh, rate, direction):
         assert torch.isfinite(a).all(), name
         floor = 1e-30 if name == "out" else 1e-3
         assert _rel(a, ref, floor=floor) <= TOL[dtype], name
-    launched = _kernel_names(call)
-    assert all(any(w in k for k in launched) for w in want), launched
+    assert _instances(call) == dict.fromkeys(want, 1)
 
 
 def test_draw_seed_takes_a_cpu_generator_for_the_card(gen):
@@ -804,20 +803,20 @@ def test_fused_ffn_fp32_launches(gen, n, d, f, rate):
 @pytest.mark.parametrize("rate", [0.0, DROP_RATE])
 def test_fused_ffn_fp32_uneven_widths(gen, n, d, f, d2, rate):
     """The fp32 launches at uneven widths, within TOL of the plain versions;
-    every launch by its profiler name (hidden and out forward, rows, dx and
-    dw backward; the dropout instantiations at a rate above 0)."""
+    every launch once by the host counts (hidden and out forward, rows, dx
+    and dw backward; the dropout instantiations at a rate above 0)."""
     args, g = _ffn_f32_case(gen, n, d, f, d2)
     _hold_ffn_f32(args, g, rate)
     seed = _drop_seed() if rate else None
     x, w1, b1, w2, _ = args
-    names = _kernel_names(lambda: (ffn._launch_fwd(*args, seed, rate),
+    launched = _instances(lambda: (ffn._launch_fwd(*args, seed, rate),
                                    ffn._launch_bwd(x, w1, b1, w2, g, seed,
                                                    rate)))
     flag = "true>" if rate else "false>"
-    for want in ("ffn_f32::hidden_kernel<" + flag, "ffn_f32::out_kernel(",
-                 "ffn_f32::rows_kernel<" + flag, "ffn_f32::dx_kernel(",
-                 "ffn_f32::dw_kernel("):
-        assert any(want in k for k in names), (want, names)
+    assert launched == dict.fromkeys((
+        "ffn_f32::hidden_kernel<" + flag, "ffn_f32::out_kernel",
+        "ffn_f32::rows_kernel<" + flag, "ffn_f32::dx_kernel",
+        "ffn_f32::dw_kernel"), 1)
 
 
 @pytest.mark.parametrize("rate", [DROP_RATE, 0.5])
@@ -1028,8 +1027,8 @@ def test_fused_ctc_head(gen, dtype, t, d, v):
     (8, 17, 128, 77), (3, 100, 256, 130), (2, 129, 64, 333),
     (64, 468, 256, 5000)])
 def test_fused_ctc_head_bwd_bf16_at_its_rounding_points(gen, b, t, d, v):
-    """The bf16 backward (ctc_head_bwd's rows, dx and dw kernels, by their
-    profiler names) against fused_ctc_head_emit_bwd_plain, which rounds dlg
+    """The bf16 backward (ctc_head_bwd's rows, dx and dw kernels once each,
+    by the host counts) against fused_ctc_head_emit_bwd_plain, which rounds dlg
     where they do: within BWD_PLAIN_TOL of max |ref| per output."""
     from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
     r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
@@ -1052,20 +1051,14 @@ def test_fused_ctc_head_bwd_bf16_at_its_rounding_points(gen, b, t, d, v):
         assert a.shape == e.shape and a.dtype == e.dtype, name
         assert torch.isfinite(a).all(), name
         assert _rel(a, e) <= BWD_PLAIN_TOL, name
-    names = _kernel_names(lambda: kh._launch_bwd(hs, w, bias, ext, z, g))
-    for part in ("rows", "dx", "dw"):
-        assert any(f"ctc_head_bwd::{part}_kernel" in k for k in names), names
-    assert not any("ctc_head_dx_kernel" in k or "ctc_head_dw_kernel" in k
-                   for k in names), names
+    assert _instances(lambda: kh._launch_bwd(hs, w, bias, ext, z, g)) == {
+        f"ctc_head_bwd::{part}_kernel": 1 for part in ("rows", "dx", "dw")}
 
 
-# K4's fp32 launches (csrc/ctc_head.cu, ctc_head_f32) by profiler name.
+# K4's fp32 launches (csrc/ctc_head.cu, ctc_head_f32) by their host counts.
 CTC_HEAD_F32 = ("ctc_head_f32::lse_kernel", "ctc_head_fwd::gather_kernel<float>",
                 "ctc_head_f32::rows_kernel", "ctc_head_f32::dx_kernel",
                 "ctc_head_f32::dw_kernel")
-# The first version's fp32 kernels, which must not launch.
-CTC_HEAD_F32_GONE = ("ctc_head_fwd_kernel<float", "ctc_head_dx_kernel",
-                     "ctc_head_dw_kernel")
 
 
 def _ctc_head_f32_case(gen, b, t, d, v, s=2 * 9 + 1):
@@ -1090,8 +1083,8 @@ def _ctc_head_f32_case(gen, b, t, d, v, s=2 * 9 + 1):
     (64, 468, 256, 5000)])
 def test_fused_ctc_head_fp32_route(gen, b, t, d, v):
     """K4's fp32 route (ctc_head_f32's lse, the fp32 gather forward,
-    ctc_head_f32's rows, dx and dw backward, by their host counts and
-    profiler names; the first version's kernels absent) against fused_ctc_head_emit_plain's output and autograd
+    ctc_head_f32's rows, dx and dw backward, once each and nothing else by
+    the host counts) against fused_ctc_head_emit_plain's output and autograd
     gradients within TOL of max |ref|, one launch each way a call."""
     from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
     args, cot = _ctc_head_f32_case(gen, b, t, d, v)
@@ -1104,16 +1097,8 @@ def test_fused_ctc_head_fp32_route(gen, b, t, d, v):
                                                      before[1] + 1)
     hs, w, bias, ext = args
     _, z = kh._launch_fwd(*args)
-    before = _counts(CTC_HEAD_F32)
-    kh._launch_fwd(*args)
-    kh._launch_bwd(hs, w, bias, ext, z, cot)
-    after = _counts(CTC_HEAD_F32)
-    assert all(after[k] == before[k] + 1 for k in CTC_HEAD_F32)
-    names = _kernel_names(lambda: (kh._launch_fwd(*args),
-                                   kh._launch_bwd(hs, w, bias, ext, z, cot)))
-    for want in CTC_HEAD_F32:
-        assert any(want in k for k in names), (want, names)
-    assert not any(gone in k for k in names for gone in CTC_HEAD_F32_GONE)
+    assert _instances(lambda: (kh._launch_fwd(*args), kh._launch_bwd(
+        hs, w, bias, ext, z, cot))) == {k: 1 for k in CTC_HEAD_F32}
 
 
 def test_fused_ctc_head_fp32_plan_and_kernel_info(gen):
@@ -1341,7 +1326,7 @@ def test_rnnt_lattice_kernel_info(gen):
 
 
 # K6's launches by dtype and direction, by their host-side launch counts
-# (csrc/common.cuh's counted_name).
+# (csrc/common.cuh's counted).
 K6_LAUNCHES = {
     torch.bfloat16: (("conv_bf16::glu_kernel", "conv_bf16::out_kernel"),
                      ("conv_bf16::glu_sig_kernel", "conv_bf16::rows_kernel",
