@@ -232,6 +232,36 @@ or the port's package is not beside it. Phases, each of which fails the run:
    16-step epoch's host wait and host time per step after its first and
    its audio-s/s over them, the CLI decode's RTF beside phase 3's, and the
    phase's seconds.
+16. The flagship's own recipe through recipe/asr_pipeline.py:run_pipeline
+   on the card, stages 1-15: conf/train_ls100_conformer.yaml loaded as
+   written (12 x 256, 6 decoder blocks, bf16, dropout 0.1, use_mvn global,
+   warmuplr), with only exp_dir, the data dirs, char tokens, phase 15's
+   sorted batches of 64 and max_epoch 2 overridden, on phase 15's corpus
+   with speed perturbation 0.9 / 1.0 / 1.1. Fails unless stage 10's
+   feats_stats.npz matches collect-stats over the same batches on the CPU
+   (count exactly, sum and sum_square within STATS_TOL of max |ref|), the
+   trained Speech2Text carries the stats, every train step makes phase
+   15's launches (wrappers' and host counts), score.txt has WER and CER,
+   and stage 15 decodes the unpacked model as the exp dir. Prints each
+   stage's seconds, collect-stats' seconds and audio-s/s, and the phase's.
+17. The transducer recipe through bin/asr_transducer_train and
+   bin/asr_transducer_inference on the card: conf/train_transducer.yaml
+   (12 x 256, a 1 x 256 LSTM, joint 256, auxiliary CTC 0.3, bf16, dropout
+   0.1) with only the data dirs, char tokens, max_epoch 2, sorted batches
+   of 32 and the port-only model.asr.fused_conv set on the command line;
+   a second call with max_epoch 3 resumes; then one decode of the 8 dev
+   utterances with each of greedy, alsa, default, maes, tsd and nsc at
+   beam 5. Fails unless reporter.json holds 3 epochs of finite losses,
+   every train step makes phase 9's launches of K2, K3, K5, K6 and the
+   auxiliary CTC's K1 (wrappers' counts; K1's and K5's warp routes and
+   K6's bf16 launches by the host counts), each search writes text and
+   score.txt, and each beam search gives the same tokens and lengths, and
+   scores within 1e-4, on the card and on the CPU from the same fp32
+   encoder output (the trained weights in fp32 with the joint sharpened
+   and blank's bias shifted so that the searches emit varied lengths, hs
+   computed once on the card), with lengths strictly between 0 and
+   max_len. Prints each search's
+   decode wall, RTF and host syncs an utterance, and the phase's seconds.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -242,7 +272,10 @@ entries, whose default-step launches go to their fp32 routes), then
 phase 12's fp32 entries (``*_fp32``), whose launches are those of phase
 13's timed steps, then phase 8's K6 fp32 entries
 (``fused_conv_module*_fp32``), whose launches are those of phase 14's
-timed steps; the last line is ``{"ok": true, "device": {...}}``.
+timed steps. The bf16 entries also carry their launches a train step of
+phase 16 (``launches_per_recipe_step``) and of phase 17
+(``launches_per_transducer_cli_step``) where those steps launch them; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3383,14 +3416,15 @@ def cli_train_yaml(root, train_dir, dev_dir, max_epoch, exp="exp"):
     return str(path)
 
 
-def step_recorder(torch, per_step, clock):
-    """Wraps tasks/asr.py's make_train_step so that every train step of the
-    CLI appends its launches to per_step: (the wrappers' counts, the host
-    counts by instance, the step's N = B x T' rows), and (entry, exit) host
-    times to clock. Returns the original."""
+def step_recorder(torch, per_step, clock, task=None):
+    """Wraps the make_train_step of ``task`` (default tasks/asr.py) so that
+    every train step of the CLI appends its launches to per_step: (the
+    wrappers' counts, the host counts by instance, the step's N = B x T'
+    rows), and (entry, exit) host times to clock. Returns the original."""
     from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
     from espnet_slurp_tpu_torch.ops.kernels import build
-    from espnet_slurp_tpu_torch.tasks import asr as task
+    if task is None:
+        from espnet_slurp_tpu_torch.tasks import asr as task
 
     make = task.make_train_step
 
@@ -3717,6 +3751,376 @@ def cli_phase(torch, card, decode_launches, decode_wall, train_step_s):
     return figs
 
 
+# Phase 16: the flagship recipe (conf/train_ls100_conformer.yaml as written,
+# global MVN included) through recipe/asr_pipeline.py:run_pipeline, stages
+# 1-15, on phase 15's synthetic corpus with speed perturbation 0.9 / 1.0 /
+# 1.1; phase 17: the transducer recipe (conf/train_transducer.yaml) through
+# bin/asr_transducer_train and bin/asr_transducer_inference.
+RECIPE_ROOT = "build/chip_smoke_recipe"
+RECIPE_EPOCHS = 2
+SP_FACTORS = (0.9, 1.0, 1.1)
+# Collect-stats on the card against the same batches on the CPU, each of
+# sum and sum_square within this share of its max |ref|: fp32 per-batch
+# sums (and an fp32 frontend) in another order, accumulated in fp64. An
+# H100 run read 9.6e-8 (sum) and 8.0e-8 (sum_square).
+STATS_TOL = 1e-6
+TR_CLI_BATCH, TR_SEARCH_BEAM = 32, 5
+TR_SEARCHES = ("greedy", "alsa", "default", "maes", "tsd", "nsc")
+# transducer_search_check: the share of valid frames at which a label
+# leads blank from the start state once blank's bias is shifted (on an
+# H100, shares of 5% and 10% gave ALSA and mAES 3 of their 16 rows a
+# length strictly between 0 and max_len, 20% 1, 35% and 50% none), and the
+# tolerance of the chosen hypotheses' fp32 scores card vs CPU (a sum of
+# ~T' log probabilities, from a joint whose products add in another order;
+# H100 runs read 1.7e-7 to 4.6e-7).
+EMIT_SHARE = 0.05
+SCORE_RTOL = 1e-4
+
+
+def recipe_phase(torch, card, root, corpus):
+    """Phase 16: run_pipeline on the card, stages 1-15, of the flagship's
+    own recipe loaded through tasks/asr.py:load_task_config, with only
+    exp_dir, the data dirs, char tokens, phase 15's sorted batches of
+    CLI_BATCH and max_epoch RECIPE_EPOCHS overridden. Fails unless stage
+    10's stats match collect-stats over the same batches on the CPU (count
+    exactly, sum and sum_square within STATS_TOL of max |ref|), the trained
+    Speech2Text carries them, every train step makes phase 15's launches
+    (cli_step_want: wrappers' and host counts), score.txt has WER and CER
+    and stage 15 decodes the unpacked model as the exp dir. Returns the
+    launches per train step."""
+    from espnet_slurp_tpu_torch.recipe.asr_pipeline import (PipelineOptions,
+                                                            run_pipeline)
+    from espnet_slurp_tpu_torch.tasks import asr as task
+    from espnet_slurp_tpu_torch.train.collect_stats import collect_stats
+
+    t_phase = time.perf_counter()
+    train_dir, dev_dir, _ = corpus
+    exp = root / "exp_recipe"
+    cfg = task.load_task_config("conf/train_ls100_conformer.yaml", {
+        "exp_dir": str(exp), "max_epoch": RECIPE_EPOCHS,
+        "data": {"train_dir": str(train_dir), "valid_dir": str(dev_dir),
+                 "token_type": "char", "batch_type": "sorted",
+                 "batch_size": CLI_BATCH}})
+    m = cfg.model
+    print(f"phase 16: conf/train_ls100_conformer.yaml: {m.encoder} "
+          f"{m.num_encoder_blocks} x {m.d_model}, d_ff {m.d_ff}, "
+          f"{m.num_decoder_blocks} decoder blocks, {m.dtype}, dropout "
+          f"{m.dropout_rate}, use_mvn {m.use_mvn}, {cfg.optim.scheduler} lr "
+          f"{cfg.optim.lr}; overridden: exp_dir, data dirs, char tokens, "
+          f"sorted batches of {CLI_BATCH}, max_epoch {RECIPE_EPOCHS}")
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock)
+    try:
+        zero_counts()
+        results = run_pipeline(
+            cfg, PipelineOptions(speed_perturb_factors=SP_FACTORS), stage=1,
+            stop_stage=15)
+        launches = read_counts()
+    finally:
+        task.make_train_step = make
+    secs = results["stage_seconds"]
+    stage_s = {k: round(v, 2) for k, v in secs.items()}
+    print(f"phase 16: seconds by stage {stage_s}; launches over the "
+          f"pipeline {launches}")
+    for name in ("rel_flash_attention", "fused_ffn", "fused_ctc_head_emit",
+                 "ctc_lattice", "rel_flash_attention_bwd", "fused_ffn_bwd",
+                 "fused_ctc_head_emit_bwd", "ctc_lattice_bwd"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 16: {name} never launched")
+    sp_dir = exp / "data" / "train_filtered"
+    n_utt = len((sp_dir / "wav.scp").read_text().splitlines())
+    steps = RECIPE_EPOCHS * -(-n_utt // CLI_BATCH)
+    if len(per_step) != steps:
+        raise AssertionError(f"phase 16: {len(per_step)} train steps, "
+                             f"expected {steps}")
+    for i, (wrappers, hosts, n_rows) in enumerate(per_step):
+        want_w, want_h = cli_step_want(n_rows, m.num_encoder_blocks)
+        if wrappers != want_w or hosts != want_h:
+            raise AssertionError(
+                f"phase 16 step {i}: launches {wrappers} and {hosts}, "
+                f"expected {want_w} and {want_h}")
+    print(f"phase 16: each of the {steps} train steps ({n_utt} utterances "
+          f"after speed perturbation {SP_FACTORS}) made {per_step[0][0]}")
+
+    # Stage 10 again on the CPU over the same batches.
+    tcfg = task.load_task_config(str(exp / "config.yaml"))
+    tok, conv, _ = task.ASRTask.prepare_vocab(tcfg)
+    ds = task.ASRTask.build_dataset(str(sp_dir), tok, conv)
+    batches = task.ASRTask.build_iter_factory(tcfg, ds, shuffle=False)(1)
+    t0 = time.perf_counter()
+    ref = collect_stats(batches, tcfg.model.frontend, root / "stats_cpu",
+                        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got = np.load(exp / "stats" / "feats_stats.npz")
+    errs = {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+            for k in ("sum", "sum_square")}
+    audio_s = int(ref["count"]) * tcfg.model.frontend.hop_length / FS
+    print(f"phase 16: collect-stats on the card {secs[10]:.2f} s (stage 10, "
+          f"with the vocabulary and the dataset), {audio_s / secs[10]:.1f} "
+          f"audio-s/s over {int(got['count'])} frames ({audio_s:.0f} s of "
+          f"audio); on the CPU {cpu_s:.2f} s; card vs CPU: count "
+          f"{int(got['count'])} vs {int(ref['count'])}, worst error of max "
+          f"|ref| {errs} (tolerance {STATS_TOL}) on {card}")
+    if int(got["count"]) != int(ref["count"]) or max(errs.values()) > \
+            STATS_TOL:
+        raise AssertionError("phase 16: collect-stats card vs CPU")
+    s2t = task.Speech2Text.from_exp_dir(str(exp), device="cuda")
+    if s2t.mvn_stats is None:
+        raise AssertionError("phase 16: the trained Speech2Text has no MVN "
+                             "stats")
+    del s2t
+    score = dict(line.split() for line in
+                 (exp / "decode_dev" / "score.txt").read_text().splitlines())
+    print(f"phase 16: score.txt {score}; wer {results['wer_dev']:.4f} cer "
+          f"{results['cer_dev']:.4f}; unpack_decode_match "
+          f"{results['unpack_decode_match']}")
+    if sorted(score) != ["CER", "WER"] or \
+            results["unpack_decode_match"] is not True:
+        raise AssertionError(f"phase 16: score {score}, results {results}")
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    losses = [(e["epoch"], round(e["train"]["loss"], 4),
+               round(e["valid"]["loss"], 4)) for e in hist]
+    if not (len(hist) == RECIPE_EPOCHS and all(
+            np.isfinite([e[p]["loss"] for p in ("train", "valid")]).all()
+            for e in hist)):
+        raise AssertionError(f"phase 16: reporter {hist}")
+    print(f"phase 16: (epoch, train loss, valid loss) {losses}")
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in per_step[0][0].items() if v}
+
+
+def tr_step_want(n_blocks):
+    """One transducer train step's launches (phase 9's): the wrappers'
+    counts, and the routed kernels by the host counts (K1 and K5 on their
+    warp routes, K6's bf16 launches)."""
+    wrappers = {"fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+                "rel_flash_attention": n_blocks,
+                "rel_flash_attention_bwd": n_blocks,
+                "fused_conv_module": n_blocks,
+                "fused_conv_module_bwd": n_blocks,
+                "rnnt_lattice": 1, "rnnt_lattice_bwd": 1,
+                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    hosts = {**dict.fromkeys(K1_WARP, 1), **dict.fromkeys(K5_WARP, 1),
+             **dict.fromkeys(K6_BF16_LAUNCHES, n_blocks)}
+    return ({k: wrappers.get(k, 0) for k in COUNTED},
+            {k: hosts.get(k, 0) for k in ROUTED})
+
+
+def transducer_search_check(torch, exp, dev8):
+    """Each beam search at beam TR_SEARCH_BEAM on the card and on the CPU
+    from the same fp32 encoder output (the trained model in fp32, hs of the
+    8 dev utterances computed once on the card, copied to the CPU), with
+    the joint sharpened as tests/test_torch_transducer_task.py's
+    search_models does (lin_out's weight x 3, lin_pred's x 4) and blank's
+    bias shifted so that blank loses to the best label at EMIT_SHARE of
+    the valid frames from the start state: the trained model alone emits
+    almost nothing, and lengths of 0 (or max_len) would hide a fault that
+    shows only where hypotheses compete. Fails unless each search gives
+    the same tokens and lengths on both sides, its card lengths include one
+    strictly between 0 and max_len, the searches' lengths are not all
+    alike, and the chosen hypotheses' scores agree within SCORE_RTOL of
+    max(1, |CPU score|). Returns {search: (card s, CPU s)}."""
+    from espnet_slurp_tpu_torch.data.fileio import load_wav, read_2column_text
+    from espnet_slurp_tpu_torch.decode.transducer_beam import run_search
+    from espnet_slurp_tpu_torch.tasks.asr_transducer import \
+        Speech2TextTransducer
+
+    s2t = Speech2TextTransducer.from_exp_dir(str(exp), device="cuda")
+    cfg = s2t.model.cfg
+    cfg32 = dataclasses.replace(cfg, asr=dataclasses.replace(
+        cfg.asr, dtype="float32"))
+    state = {k: v.cpu() for k, v in s2t.model.state_dict().items()}
+    state["joint.lin_out.weight"] = state["joint.lin_out.weight"] * 3.0
+    state["joint.lin_pred.weight"] = state["joint.lin_pred.weight"] * 4.0
+    sides = {"card": "cuda", "host": "cpu"}
+    models = {}
+    for side, dev in sides.items():
+        models[side] = type(s2t.model)(cfg32, device=dev)
+        models[side].load_state_dict(state)
+    wavs = [load_wav(p)[0] for _, p in sorted(read_2column_text(
+        dev8 / "wav.scp").items())]
+    s2t.model = models["card"]
+    hs, hl = s2t.encode_batch(wavs)
+    hs = hs.float()
+    blank = cfg.asr.blank_id
+    with torch.inference_mode():
+        card = models["card"]
+        n = hs.shape[0]
+        g, _ = card.prediction.step(
+            torch.full((n,), blank, dtype=torch.long, device="cuda"),
+            card.prediction.init_carry(n, "cuda"))
+        z = card.joint(hs, g[:, None, :]).float()  # [B, T', V]
+        rest = z.clone()
+        rest[..., blank] = float("-inf")
+        gap = z[..., blank] - rest.max(-1).values
+        valid = torch.arange(hs.shape[1], device="cuda")[None] < hl[:, None]
+        shift = -float(torch.quantile(gap[valid], EMIT_SHARE))
+    for m in models.values():
+        with torch.no_grad():
+            m.joint.lin_out.bias[blank] += shift
+    print(f"phase 17 searches: joint sharpened (lin_out x 3, lin_pred x 4), "
+          f"blank's bias {shift:+.4f} so that a label leads at "
+          f"{EMIT_SHARE:.0%} of the {int(valid.sum())} valid frames")
+    inputs = {"card": (hs, hl),
+              "host": (hs.to(sides["host"]), hl.to(sides["host"]))}
+    out, lengths = {}, set()
+    for search in TR_SEARCHES[1:]:
+        res, secs = {}, {}
+        for side, (h, l) in inputs.items():
+            t0 = time.perf_counter()
+            res[side] = [x.cpu() for x in run_search(
+                models[side], h, l, search, TR_SEARCH_BEAM, s2t.max_len,
+                with_score=True)]
+            secs[side] = time.perf_counter() - t0
+        (ct, cl, cs), (ht, hl_, hsc) = res["card"], res["host"]
+        same = torch.equal(ct, ht) and torch.equal(cl, hl_)
+        score_err = float(((cs.double() - hsc.double()).abs()
+                           / hsc.double().abs().clamp_min(1.0)).max())
+        varied = bool(((cl > 0) & (cl < s2t.max_len)).any())
+        lengths |= set(cl.tolist())
+        print(f"phase 17 {search}: fp32 search from the card's hs, card "
+              f"{secs['card']:.2f} s, CPU {secs['host']:.2f} s; lengths card "
+              f"{cl.tolist()} CPU {hl_.tolist()}; the same tokens and "
+              f"lengths: {same}; scores card {[round(x, 4) for x in cs.tolist()]}"
+              f", worst |card - CPU| / max(1, |CPU|) {score_err:.3e} "
+              f"(tolerance {SCORE_RTOL})")
+        if not same:
+            raise AssertionError(f"phase 17 {search}: card and CPU differ")
+        if not varied:
+            raise AssertionError(f"phase 17 {search}: no length strictly "
+                                 f"between 0 and {s2t.max_len}")
+        if not score_err <= SCORE_RTOL:
+            raise AssertionError(f"phase 17 {search}: scores differ by "
+                                 f"{score_err:.3e}")
+        out[search] = (secs["card"], secs["host"])
+    if len(lengths) < 2:
+        raise AssertionError(f"phase 17: every search gave lengths {lengths}")
+    del models, s2t
+    torch.cuda.empty_cache()
+    return out
+
+
+def transducer_cli_phase(torch, card, root, corpus):
+    """Phase 17: bin/asr_transducer_train on conf/train_transducer.yaml as
+    written, with only the data dirs, char tokens, max_epoch 2, sorted
+    batches of TR_CLI_BATCH and the port-only model.asr.fused_conv true set
+    on the command line; a second call with max_epoch 3 resumes; then
+    bin/asr_transducer_inference with each of TR_SEARCHES at beam
+    TR_SEARCH_BEAM on the 8 dev utterances. Fails unless the reporter holds
+    3 epochs of finite losses, every train step makes phase 9's launches
+    (tr_step_want), each search writes text and score.txt, and each beam
+    search agrees on the card and the CPU from the same fp32 hs
+    (transducer_search_check). Returns the launches per
+    train step."""
+    from espnet_slurp_tpu_torch.bin import (asr_transducer_inference,
+                                            asr_transducer_train)
+    from espnet_slurp_tpu_torch.tasks import asr_transducer as ttask
+    from espnet_slurp_tpu_torch.utils import device as devmod
+
+    t_phase = time.perf_counter()
+    train_dir, dev_dir, dev8 = corpus
+    exp = root / "exp_transducer"
+    sets = [f"exp_dir={exp}", f"data.train_dir={train_dir}",
+            f"data.valid_dir={dev_dir}", "data.token_type=char",
+            "data.batch_type=sorted", f"data.batch_size={TR_CLI_BATCH}",
+            "model.asr.fused_conv=true"]
+    per_step, clock, routes = [], [], []
+    make = step_recorder(torch, per_step, clock, task=ttask)
+    try:
+        zero_counts()
+        r0 = route_counts()
+        asr_transducer_train.main(["--config", "conf/train_transducer.yaml",
+                                   "--set", *sets, "max_epoch=2"])
+        two = json.loads((exp / "reporter.json").read_text())["history"]
+        steps_two = len(per_step)
+        asr_transducer_train.main(["--config", "conf/train_transducer.yaml",
+                                   "--set", *sets, "max_epoch=3"])
+        launches = read_counts()
+        r1 = route_counts()
+    finally:
+        ttask.make_train_step = make
+    cfg = ttask.load_transducer_config(str(exp / "config.yaml"))
+    a = cfg.model.asr
+    print(f"phase 17: conf/train_transducer.yaml: {a.num_encoder_blocks} x "
+          f"{a.d_model}, {cfg.model.pred_layers} x {cfg.model.pred_dim} "
+          f"{cfg.model.prediction}, joint {cfg.model.joint_dim}, aux CTC "
+          f"{cfg.model.aux_ctc_weight}, {a.dtype}, dropout {a.dropout_rate}, "
+          f"fused_conv {a.fused_conv}, vocab {a.vocab_size}; launches of "
+          f"both runs {launches}; routed kernels "
+          f"{ {k: r1[k] - r0[k] for k in ROUTED if r1[k] - r0[k]} }")
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    per_epoch = -(-CLI_TRAIN // TR_CLI_BATCH)
+    if not ([e["epoch"] for e in hist] == [1, 2, 3] and hist[:2] == two
+            and steps_two == 2 * per_epoch
+            and len(per_step) == 3 * per_epoch):
+        raise AssertionError(f"phase 17: epochs {[e['epoch'] for e in hist]}"
+                             f", steps {steps_two} then {len(per_step)}")
+    for e in hist:
+        vals = [e[p][k] for p in ("train", "valid")
+                for k in ("loss", "loss_transducer", "loss_ctc")]
+        if not np.isfinite(vals).all() or e["train"]["skipped"] != 0:
+            raise AssertionError(f"phase 17: epoch {e['epoch']}: {vals}")
+    want_w, want_h = tr_step_want(a.num_encoder_blocks)
+    for i, (wrappers, hosts, _) in enumerate(per_step):
+        routed = {k: hosts.get(k, 0) for k in ROUTED}
+        if wrappers != want_w or routed != want_h:
+            raise AssertionError(f"phase 17 step {i}: launches {wrappers} "
+                                 f"and {routed}, expected {want_w} and "
+                                 f"{want_h}")
+    losses = [(e["epoch"], round(e["train"]["loss"], 4),
+               round(e["valid"]["loss"], 4)) for e in hist]
+    figs = {e["epoch"]: (e["train"]["steps"], e["train"]["time_s"],
+                         e["train"]["step_time"]) for e in hist}
+    print(f"phase 17: each of the {len(per_step)} train steps made "
+          f"{per_step[0][0]}; (epoch, train loss, valid loss) {losses}; "
+          f"(steps, s, step_time) by epoch {figs} on {card}")
+
+    for search in TR_SEARCHES:
+        dec = root / f"dec_{search}"
+        syncs = devmod.host_syncs
+        t0 = time.perf_counter()
+        asr_transducer_inference.main([
+            "--exp_dir", str(exp), "--data_dir", str(dev8), "--output_dir",
+            str(dec), "--search", search, "--beam_size", str(TR_SEARCH_BEAM),
+            "--batch_size", str(N_UTT)])
+        wall = time.perf_counter() - t0
+        syncs = devmod.host_syncs - syncs
+        score = dict(line.split() for line in
+                     (dec / "score.txt").read_text().splitlines())
+        hyps = (dec / "text").read_text().splitlines()
+        print(f"phase 17 decode {search}: {N_UTT} x {UTT_SECONDS} s in one "
+              f"batch, beam {TR_SEARCH_BEAM}: score.txt {score}; the CLI call "
+              f"{wall:.2f} s; host syncs {syncs} ({syncs / N_UTT:.1f} an "
+              f"utterance) on {card}")
+        if sorted(score) != ["CER", "RTF", "WER"] or len(hyps) != N_UTT:
+            raise AssertionError(f"phase 17 decode {search}: {score}, "
+                                 f"{len(hyps)} hypotheses")
+    transducer_search_check(torch, exp, dev8)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in per_step[0][0].items() if v}
+
+
+def recipe_phases(torch, card):
+    """Phases 16 and 17 on one synthetic corpus (cli_corpus) under
+    RECIPE_ROOT, removed at the end. Returns their launches per train
+    step."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(RECIPE_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    corpus = cli_corpus(root)
+    print(f"phases 16-17: corpus of {CLI_TRAIN} + {CLI_DEV} x {UTT_SECONDS} "
+          f"s written in {time.perf_counter() - t0:.1f} s")
+    recipe = recipe_phase(torch, card, root, corpus)
+    transducer = transducer_cli_phase(torch, card, root, corpus)
+    shutil.rmtree(root, ignore_errors=True)
+    return recipe, transducer
+
+
 def main() -> int:
     import torch
 
@@ -3847,6 +4251,15 @@ def main() -> int:
         kern["launches_per_fused_conv_train_step"] = fused_per_step[base]
     kernels += k6_fp32
     cli_phase(torch, card, decode_launches, decode_wall, train_step_s)
+    t_added = time.perf_counter()
+    recipe_steps, tr_cli_steps = recipe_phases(torch, card)
+    print(f"phases 16-17: {time.perf_counter() - t_added:.1f} s")
+    for kern in kernels:
+        base = kern["name"].replace("_fp32", "")
+        if base in recipe_steps and not kern["name"].endswith("_fp32"):
+            kern["launches_per_recipe_step"] = recipe_steps[base]
+        if base in tr_cli_steps and not kern["name"].endswith("_fp32"):
+            kern["launches_per_transducer_cli_step"] = tr_cli_steps[base]
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..ops.ctc import ctc_loss_mean_logits
 from ..ops.transducer import rnnt_loss_mean
+from ..utils import device as device_mod
 from ..utils.device import resolve_device
 from .asr_model import ASRConfig, build_encoder, encode_speech
 from .layers import Linear
@@ -38,6 +39,7 @@ class TransducerConfig:
     joint_dim: int = 256
     aux_ctc_weight: float = 0.0  # auxiliary CTC on the encoder output
     use_tcpgen: bool = False  # KB-aware transducer: not ported, raises
+    tcpgen_gcn_layers: int = 2
 
 
 def transducer_flagship_config() -> TransducerConfig:
@@ -168,7 +170,8 @@ class TransducerModel(nn.Module):
         if cfg.use_tcpgen:
             raise NotImplementedError(
                 "TransducerModel: the KB-aware transducer (TCPGen in the "
-                "loss) is not ported yet")
+                "loss) is not ported yet (use_tcpgen: ROADMAP.md queue 1 "
+                "item 10)")
         self.cfg = cfg
         a = cfg.asr
         dt = a.torch_dtype
@@ -231,7 +234,8 @@ def transducer_greedy_decode(model: TransducerModel, hs: torch.Tensor,
 
     Per frame, every row emits up to ``max_symbols_per_frame`` non-blank
     labels; the frame advances only when no row emits (the reference's
-    while-loop, :202-268). One host sync per iteration (the advance test)."""
+    while-loop, :202-268). One host sync per iteration (the advance test),
+    counted in utils/device.py:host_syncs."""
     blank = model.cfg.asr.blank_id
     b, t_max, _ = hs.shape
     dev = hs.device
@@ -256,7 +260,7 @@ def transducer_greedy_decode(model: TransducerModel, hs: torch.Tensor,
         tokens[rows, slot] = torch.where(emit, y, tokens[rows, slot])
         n_emit += emit.long()
         sym += emit.long()
-        if not bool(emit.any()):
+        if not device_mod.host_bool(emit.any()):
             t += 1
             sym.zero_()
     return tokens, n_emit

@@ -1,8 +1,10 @@
 """Default acoustic frontend: STFT -> power -> log-mel, in fp32.
 
-Port of espnet_slurp_tpu/ops/frontend.py: FrontendConfig (the fields of
-the default log-mel frontend) and default_frontend. The sliding-window and
-fused frontends and delta features wait for a later slice.
+Port of espnet_slurp_tpu/ops/frontend.py: FrontendConfig (every field of
+the reference's) and default_frontend. The sliding-window and fused
+frontends (``type``) and delta features (``delta_order``) are not ported
+yet (ROADMAP.md queue 1 item 9): models/asr_model.py:unported_options
+refuses them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ from .mel import logmel
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
+    # "default" (log-mel) | "sliding_window" | "fused": the port computes
+    # the default.
+    type: str = "default"
     fs: int = 16000
     n_fft: int = 512
     win_length: int | None = None
@@ -27,6 +32,9 @@ class FrontendConfig:
     fmin: float = 0.0
     fmax: float | None = None
     htk: bool = False
+    # Regression delta features: 0 = off, 1 = +delta, 2 = +delta+delta2.
+    delta_order: int = 0
+    delta_window: int = 2
 
 
 def default_frontend(speech: torch.Tensor, speech_lengths: torch.Tensor,

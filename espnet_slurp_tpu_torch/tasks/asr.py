@@ -17,7 +17,8 @@ The YAML layout is the reference's:
 Config values that select paths not ported yet raise, naming their queue
 item in ROADMAP.md: ``model_arch: maskctc``, ``mbr.weight > 0``,
 ``pipeline_stages > 1``, ``num_att_plot > 0``, ``data.resident_corpus``,
-``data.multichannel`` and a ``data.feats_type`` other than ``raw``.
+``data.multichannel``, a ``data.feats_type`` other than ``raw``, and the
+model values of models/asr_model.py:unported_options.
 
 Speech2Text pads as the reference does, because the STFT reflect-pads the
 padded [B, N] buffer and the padded length therefore changes the last frames
@@ -45,7 +46,8 @@ from ..data.tokenizer import (BpeTokenizer, TokenIDConverter,
                               build_token_list, build_tokenizer)
 from ..decode.beam import BeamSearchConfig, batch_beam_search
 from ..decode.greedy import attention_greedy_decode
-from ..models.asr_model import ASRConfig, ASRModel
+from ..models.asr_model import ASRConfig, ASRModel, unported_options
+from ..models.transducer import LSTMLayer
 from ..train.checkpoint import CKPT_FILE, CheckpointManager
 from ..train.optim import OptimConfig, build_optimizer
 from ..train.state import TrainState, make_eval_step, make_train_step
@@ -167,6 +169,7 @@ def refuse_unported(cfg: ASRTaskConfig) -> None:
     if cfg.data.feats_type != "raw":
         todo.append(f"data.feats_type {cfg.data.feats_type!r} (feature "
                     "dumps and the model's input_feats: queue 1 item 9)")
+    todo += unported_options(cfg.model)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -334,9 +337,10 @@ class ASRTask:
         the CPU start from the same values): Linear and Conv weights
         lecun_normal (fan_in = in_features, or in_channels / groups x the
         kernel's taps), their biases 0; LayerNorm scale 1, bias 0; Embedding
-        N(0, 1 / features) (flax's Embed default); the attention's
-        pos_bias_u / pos_bias_v 0. Any other parameter raises. Returns the
-        model."""
+        N(0, 1 / features) (flax's Embed default); an LSTM layer as flax's
+        OptimizedLSTMCell (input kernels lecun_normal, each gate's
+        recurrent kernel orthogonal, bias 0); the attention's pos_bias_u /
+        pos_bias_v 0. Any other parameter raises. Returns the model."""
         gen = torch.Generator().manual_seed(seed)
         done = set()
         with torch.no_grad():
@@ -356,6 +360,17 @@ class ASRTask:
                     m.weight.copy_(torch.randn(
                         m.weight.shape, generator=gen)
                         * m.weight.shape[1] ** -0.5)
+                elif isinstance(m, LSTMLayer):
+                    w = torch.empty(m.weight_ih.shape)
+                    std = m.weight_ih.shape[1] ** -0.5 / _TRUNC_STD
+                    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                          generator=gen)
+                    m.weight_ih.copy_(w)
+                    for gate in m.weight_hh.view(4, m.hidden, m.hidden):
+                        w = torch.empty(gate.shape)
+                        nn.init.orthogonal_(w, generator=gen)
+                        gate.copy_(w)
+                    m.bias_hh.zero_()
                 else:
                     continue
                 done.update(id(p) for p in m.parameters(recurse=False))

@@ -1,46 +1,174 @@
-"""Transducer inference wrapper: waveforms in, text out.
+"""Transducer ASR task. Port of espnet_slurp_tpu/tasks/asr_transducer.py.
 
-Port of espnet_slurp_tpu/tasks/asr_transducer.py:Speech2TextTransducer,
-greedy decoding only. Like the port's Speech2Text it is built from a
-config, a state_dict and a token list (loading an experiment directory comes
-with the port's checkpoints), and pads as the reference does
-(tasks/asr.py:pad_speech_batch; one utterance is padded to
-bucket_length(len, 4096), as the reference's ``__call__`` pads it). The
-transducer beam searches (ALSA, default, mAES, TSD, NSC) are not ported yet:
-``beam_size > 1`` raises.
+``TransducerTaskConfig`` / ``load_transducer_config`` (the reference's
+fields and YAML layout: ``model`` is a TransducerConfig with the ASR stack
+under ``model.asr``), ``ASRTransducerTask.train`` (the ASR task's
+vocabulary and data pipeline, TransducerModel, the Trainer with its
+checkpoints) and ``Speech2TextTransducer``: greedy or one of the beam
+searches of decode/transducer_beam.py, built from a config and a
+state_dict, or from an experiment directory (``from_exp_dir``). It pads as
+the port's Speech2Text does (tasks/asr.py:pad_speech_batch).
+
+Config values that select paths not ported yet raise, naming their
+ROADMAP.md queue 1 item: ``model.use_tcpgen`` (item 10) and those of
+tasks/asr.py:refuse_unported.
 """
 from __future__ import annotations
 
+import dataclasses
+from pathlib import Path
 from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.prefetch import prefetch_to_device
 from ..data.tokenizer import TokenIDConverter, build_tokenizer
-from ..models.transducer import (TransducerConfig, TransducerModel,
-                                 transducer_greedy_decode)
-from .asr import pad_speech_batch
+from ..decode.transducer_beam import SEARCHES, run_search
+from ..models.transducer import TransducerConfig, TransducerModel
+from ..train.checkpoint import CheckpointManager
+from ..train.optim import OptimConfig, build_optimizer
+from ..train.state import TrainState, make_eval_step, make_train_step
+from ..train.trainer import Trainer, TrainerOptions
+from ..utils.config import from_dict, load_yaml, merge_dicts, save_yaml
+from ..utils.device import resolve_device
+from .asr import (ASRTask, ASRTaskConfig, DataConfig, pad_speech_batch,
+                  refuse_unported)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransducerTaskConfig:
+    exp_dir: str = "exp/transducer"
+    model: TransducerConfig = TransducerConfig()
+    optim: OptimConfig = OptimConfig()
+    data: DataConfig = DataConfig()
+    max_epoch: int = 40
+    patience: Optional[int] = None
+    keep_nbest: int = 10
+    nbest_average: int = 5
+    log_interval: int = 50
+    resume: bool = True
+
+
+def load_transducer_config(path=None, overrides=None) -> TransducerTaskConfig:
+    d = load_yaml(path) if path else {}
+    if overrides:
+        d = merge_dicts(d, overrides)
+    return from_dict(TransducerTaskConfig, d)
+
+
+def _as_asr_cfg(cfg: TransducerTaskConfig) -> ASRTaskConfig:
+    """The ASR task config that shares cfg's vocabulary and data."""
+    return ASRTaskConfig(exp_dir=cfg.exp_dir, model=cfg.model.asr,
+                         optim=cfg.optim, data=cfg.data,
+                         max_epoch=cfg.max_epoch, keep_nbest=cfg.keep_nbest)
+
+
+def refuse_unported_transducer(cfg: TransducerTaskConfig) -> None:
+    """Raises for a config value that selects a path not ported yet."""
+    if cfg.model.use_tcpgen:
+        raise NotImplementedError(
+            "not ported yet: model.use_tcpgen (the KB-aware transducer, "
+            "TCPGen in the loss: ROADMAP.md queue 1 item 10)")
+    refuse_unported(_as_asr_cfg(cfg))
+
+
+class ASRTransducerTask:
+    """Trains a TransducerModel from a TransducerTaskConfig."""
+
+    init_params = staticmethod(ASRTask.init_params)
+
+    @classmethod
+    def train(cls, cfg: TransducerTaskConfig, device=None) -> TrainState:
+        """Trains on ``device`` (the card unless given, e.g. "cpu"):
+        config.yaml and tokens.txt into exp_dir, then the Trainer (resuming
+        from latest.json when there is one). Returns the final TrainState;
+        the model's parameters are those of the last epoch."""
+        refuse_unported_transducer(cfg)
+        dev = resolve_device(device)
+        exp = Path(cfg.exp_dir)
+        exp.mkdir(parents=True, exist_ok=True)
+        asr_like = _as_asr_cfg(cfg)
+        tokenizer, converter, asr_model_cfg = ASRTask.prepare_vocab(asr_like)
+        model_cfg = dataclasses.replace(cfg.model, asr=asr_model_cfg)
+        save_yaml(dataclasses.replace(cfg, model=model_cfg),
+                  exp / "config.yaml")
+        model = TransducerModel(model_cfg, device=dev)
+        cls.init_params(model, cfg.data.seed)
+        train_ds, valid_ds = (ASRTask.build_dataset(d, tokenizer, converter)
+                              for d in (cfg.data.train_dir,
+                                        cfg.data.valid_dir))
+        train_if = ASRTask.build_iter_factory(asr_like, train_ds,
+                                              shuffle=True)
+        valid_if = ASRTask.build_iter_factory(asr_like, valid_ds,
+                                              shuffle=False)
+        tx = build_optimizer(cfg.optim)
+        state = TrainState.create(model, tx, seed=cfg.data.seed,
+                                  ema=cfg.optim.ema_decay > 0)
+        trainer = Trainer(
+            model,
+            make_train_step(model, tx, grad_noise_eta=cfg.optim.grad_noise_eta,
+                            ema_decay=cfg.optim.ema_decay),
+            make_eval_step(model), CheckpointManager(exp, cfg.keep_nbest),
+            TrainerOptions(max_epoch=cfg.max_epoch, patience=cfg.patience,
+                           keep_nbest=cfg.keep_nbest,
+                           nbest_average=cfg.nbest_average,
+                           log_interval=cfg.log_interval, resume=cfg.resume))
+        return trainer.run(
+            state, lambda epoch: prefetch_to_device(train_if(epoch), dev),
+            valid_if)
 
 
 class Speech2TextTransducer:
-    """Batched time-synchronous greedy transducer decoding."""
+    """Batched transducer decoding: ``search`` is one of greedy | alsa |
+    default | maes | tsd | nsc (decode/transducer_beam.py); greedy whenever
+    ``beam_size <= 1``. ``tokenizer``, when given, replaces the one built
+    from ``token_type`` / ``bpemodel``."""
 
     def __init__(self, cfg: TransducerConfig,
                  state_dict: Mapping[str, torch.Tensor],
                  token_list: Sequence[str], token_type: str = "char",
                  bpemodel: Optional[str] = None, max_len: int = 128,
                  beam_size: int = 1, speech_bucket_multiple: int = 4096,
-                 device=None):
-        if beam_size > 1:
-            raise NotImplementedError(
-                "Speech2TextTransducer: the transducer beam searches are not "
-                "ported yet; use beam_size=1 (greedy)")
+                 device=None, search: str = "alsa", tokenizer=None):
+        if search not in SEARCHES:
+            raise ValueError(f"search {search!r}: one of {SEARCHES}")
         self.model = TransducerModel(cfg, device=device)
         self.model.load_state_dict(state_dict)
-        self.tokenizer = build_tokenizer(token_type, bpemodel)
+        self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
         self.converter = TokenIDConverter(list(token_list))
         self.max_len = max_len
+        self.beam_size = beam_size
+        self.search = search
         self.speech_bucket_multiple = speech_bucket_multiple
+        self.task_cfg: Optional[TransducerTaskConfig] = None
+
+    @classmethod
+    def from_exp_dir(cls, exp_dir: str, ckpt_name: Optional[str] = None,
+                     beam_size: int = 1, max_len: int = 128,
+                     search: str = "alsa",
+                     device=None) -> "Speech2TextTransducer":
+        """An experiment directory of ``ASRTransducerTask.train``: its
+        config.yaml and tokens.txt and the checkpoint ``ckpt_name``
+        (default: the n-best average ``valid.*best`` if there is one, else
+        the latest epoch)."""
+        exp = Path(exp_dir)
+        cfg = load_transducer_config(exp / "config.yaml")
+        refuse_unported_transducer(cfg)
+        asr_like = dataclasses.replace(_as_asr_cfg(cfg), exp_dir=str(exp))
+        tokenizer, converter, asr_model_cfg = ASRTask.prepare_vocab(asr_like)
+        mgr = CheckpointManager(exp, cfg.keep_nbest)
+        if ckpt_name is None:
+            cands = sorted(exp.glob("valid.*best"))
+            ckpt_name = cands[0].name if cands \
+                else f"{mgr.latest_epoch()}epoch"
+        s2t = cls(dataclasses.replace(cfg.model, asr=asr_model_cfg),
+                  mgr.load_params(ckpt_name), converter.token_list,
+                  max_len=max_len, beam_size=beam_size,
+                  speech_bucket_multiple=cfg.data.speech_bucket_multiple,
+                  device=device, search=search, tokenizer=tokenizer)
+        s2t.task_cfg = cfg
+        return s2t
 
     def __call__(self, speech: np.ndarray) -> str:
         """Single utterance: [N] float waveform -> text."""
@@ -50,14 +178,20 @@ class Speech2TextTransducer:
         return pad_speech_batch(speeches, self.speech_bucket_multiple)
 
     @torch.inference_mode()
-    def decode_batch(self, speeches: Sequence[np.ndarray]) -> List[str]:
-        """List of [N_i] waveforms -> list of texts, in one batched decode."""
+    def encode_batch(self, speeches: Sequence[np.ndarray]):
+        """(hs [bb, T', D], h_lengths [bb]) of the padded batch."""
         buf, lens = self.pad_batch(speeches)
         dev = self.model.device
-        hs, h_lengths = self.model.encode(torch.from_numpy(buf).to(dev),
-                                          torch.from_numpy(lens).to(dev))
-        tokens, lengths = transducer_greedy_decode(self.model, hs, h_lengths,
-                                                   max_len=self.max_len)
+        return self.model.encode(torch.from_numpy(buf).to(dev),
+                                 torch.from_numpy(lens).to(dev))
+
+    @torch.inference_mode()
+    def decode_batch(self, speeches: Sequence[np.ndarray]) -> List[str]:
+        """List of [N_i] waveforms -> list of texts, in one batched
+        decode."""
+        hs, h_lengths = self.encode_batch(speeches)
+        tokens, lengths = run_search(self.model, hs, h_lengths, self.search,
+                                     self.beam_size, self.max_len)
         tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         return [self.tokenizer.tokens2text(
                     self.converter.ids2tokens(tokens[i, :lengths[i]]))

@@ -26,3 +26,16 @@ def cli_device(name: str) -> torch.device:
         raise RuntimeError(f"--device {name}: CUDA is not available; pass "
                            "--device cpu to run on the CPU")
     return device
+
+
+# Host syncs of the decode loops whose trip count depends on the data (the
+# transducer's greedy decode and beam searches): each ``host_bool`` call
+# copies one value from the device and adds one here.
+host_syncs = 0
+
+
+def host_bool(x: torch.Tensor) -> bool:
+    """bool(x), counted in ``host_syncs``."""
+    global host_syncs
+    host_syncs += 1
+    return bool(x)

@@ -1,0 +1,190 @@
+"""The port's configs take every field the reference's take.
+
+Field names, defaults and type annotations of each config dataclass
+against its reference class (``fused_conv`` is the one port-only field,
+utils/config.py:PORT_ONLY); every asr-task ``conf/train_*.yaml`` and
+``conf/train_transducer.yaml`` load in the port and either build or raise
+NotImplementedError naming a ROADMAP.md queue 1 item; a config.yaml the
+reference writes loads in the port, and the loader still refuses an
+unknown key."""
+import dataclasses
+from pathlib import Path
+
+import pytest
+
+from espnet_slurp_tpu.models import asr_model as jmodel
+from espnet_slurp_tpu.models import transducer as jtd
+from espnet_slurp_tpu.models.wav2vec2 import Wav2Vec2Config as JW2V
+from espnet_slurp_tpu.ops import frontend as jfront
+from espnet_slurp_tpu.tasks import asr as jasr
+from espnet_slurp_tpu.tasks import asr_transducer as jtask
+from espnet_slurp_tpu.train import mbr as jmbr
+from espnet_slurp_tpu.train import optim as joptim
+from espnet_slurp_tpu.utils.config import save_yaml as j_save_yaml
+from espnet_slurp_tpu.utils.config import to_dict as j_to_dict
+from espnet_slurp_tpu_torch.models import asr_model as pmodel
+from espnet_slurp_tpu_torch.models import transducer as ptd
+from espnet_slurp_tpu_torch.ops import frontend as pfront
+from espnet_slurp_tpu_torch.tasks import asr as pasr
+from espnet_slurp_tpu_torch.tasks import asr_transducer as ptask
+from espnet_slurp_tpu_torch.train import optim as poptim
+from espnet_slurp_tpu_torch.utils.config import to_dict
+
+CONF = Path(__file__).resolve().parent.parent / "conf"
+PAIRS = [
+    (pmodel.ASRConfig, jmodel.ASRConfig),
+    (pmodel.Wav2Vec2Config, JW2V),
+    (pfront.FrontendConfig, jfront.FrontendConfig),
+    (ptd.TransducerConfig, jtd.TransducerConfig),
+    (pasr.ASRTaskConfig, jasr.ASRTaskConfig),
+    (pasr.DataConfig, jasr.DataConfig),
+    (poptim.OptimConfig, joptim.OptimConfig),
+    (pasr.MBRConfig, jmbr.MBRConfig),
+    (ptask.TransducerTaskConfig, jtask.TransducerTaskConfig),
+]
+
+
+def _fields(cls):
+    return {f.name: f for f in dataclasses.fields(cls)}
+
+
+def _plain(value):
+    """A default as the YAML would hold it (nested configs as dicts)."""
+    if dataclasses.is_dataclass(value):
+        return {f.name: _plain(getattr(value, f.name))
+                for f in dataclasses.fields(value)
+                if not f.metadata.get("port_only")}
+    if isinstance(value, (list, tuple)):
+        return [_plain(x) for x in value]
+    return value
+
+
+@pytest.mark.parametrize("port,ref", PAIRS,
+                         ids=[p.__name__ for p, _ in PAIRS])
+def test_fields_defaults_and_types_equal_the_references(port, ref):
+    pf, jf = _fields(port), _fields(ref)
+    port_only = {n for n, f in pf.items() if f.metadata.get("port_only")}
+    assert port_only == ({"fused_conv"} if port is pmodel.ASRConfig
+                         else set())
+    assert sorted(set(pf) - port_only) == sorted(jf)
+    for name, f in jf.items():
+        assert pf[name].type == f.type, name
+        assert _plain(getattr(port(), name)) == _plain(
+            getattr(ref(), name)), name
+
+
+def test_the_loader_still_refuses_an_unknown_key():
+    with pytest.raises(ValueError, match="unknown config keys"):
+        pasr.load_task_config(None, {"model": {"encoders": "conformer"}})
+    with pytest.raises(ValueError, match="unknown config keys"):
+        ptask.load_transducer_config(None, {"model": {"asr": {"x": 1}}})
+
+
+# conf/*.yaml of the ASR task: (file, None if it builds, else the queue 1
+# item its NotImplementedError names).
+ASR_RECIPES = [
+    ("train_ls100_conformer.yaml", None),
+    ("train_streaming.yaml", None),
+    ("train_moe.yaml", "item 9"),
+    ("train_mbr_kb.yaml", "item 10"),
+    ("train_asr_pipeline.yaml", "item 17"),
+]
+
+
+def test_every_asr_recipe_is_listed():
+    """Every conf/train_*.yaml is an ASR recipe above, the transducer's, or
+    the SLU task's (queue 1 item 12, not an ASR config)."""
+    names = {p.name for p in CONF.glob("train_*.yaml")}
+    assert names == {n for n, _ in ASR_RECIPES} | {
+        "train_transducer.yaml", "train_slu_tcpgen_gcn.yaml"}
+
+
+@pytest.mark.parametrize("name,item", ASR_RECIPES)
+def test_asr_recipe_loads_then_builds_or_names_its_item(name, item):
+    cfg = pasr.load_task_config(str(CONF / name))
+    ref = jasr.load_task_config(str(CONF / name))
+    assert to_dict(cfg) == j_to_dict(ref)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            pasr.refuse_unported(cfg)
+        with pytest.raises(NotImplementedError, match=item):
+            pasr.ASRTask.train(dataclasses.replace(cfg, exp_dir="unused"),
+                               device="cpu")
+        return
+    pasr.refuse_unported(cfg)
+    model = pasr.ASRTask.build_model(cfg.model, cfg.model_arch, "cpu")
+    assert model.encoder.num_blocks == cfg.model.num_encoder_blocks == 12
+    assert model.ctc_proj.out_features == cfg.model.vocab_size == 5000
+    assert (cfg.model.chunk_size, cfg.model.use_mvn) == (
+        (40, "global") if name == "train_streaming.yaml" else (0, "global"))
+
+
+def test_transducer_recipe_loads_and_builds():
+    cfg = ptask.load_transducer_config(str(CONF / "train_transducer.yaml"))
+    ref = jtask.load_transducer_config(str(CONF / "train_transducer.yaml"))
+    assert to_dict(cfg) == j_to_dict(ref)
+    ptask.refuse_unported_transducer(cfg)
+    model = ptd.TransducerModel(cfg.model, device="cpu")
+    a = cfg.model.asr
+    assert (a.d_model, a.num_encoder_blocks, a.dtype, a.dropout_rate) == (
+        256, 12, "bfloat16", 0.1)
+    assert (cfg.model.pred_dim, cfg.model.joint_dim,
+            cfg.model.aux_ctc_weight) == (256, 256, 0.3)
+    assert model.joint.lin_out.out_features == a.vocab_size
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"encoder": "ebranchformer"}, "items 9 and 15"),
+    ({"decoder": "rnn"}, "items 9 and 15"),
+    ({"preencoder": "linear"}, "items 9 and 15"),
+    ({"input_layer": "linear"}, "items 9 and 15"),
+    ({"input_feats": True}, "items 9 and 15"),
+    ({"interctc_layers": [3]}, "item 9"),
+    ({"self_conditioning": True}, "item 9"),
+    ({"stochastic_depth_rate": 0.1}, "item 9"),
+    ({"remat_encoder": True}, "item 9"),
+    ({"use_tcpgen": True}, "item 10"),
+    ({"use_wpe": True}, "items 15 and 16"),
+    ({"num_ref": 2}, "items 15 and 16"),
+    ({"frontend": {"type": "fused"}}, "item 9"),
+    ({"frontend": {"delta_order": 2}}, "item 9"),
+])
+def test_unported_model_values_raise_naming_their_item(override, match):
+    cfg = pasr.load_task_config(None, {"model": override})
+    with pytest.raises(NotImplementedError, match=match):
+        pasr.refuse_unported(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        pmodel.ASRModel(cfg.model, device="cpu")
+
+
+def test_a_reference_config_yaml_loads_in_the_port(tmp_path):
+    """A config.yaml written by the reference's save_yaml, with values away
+    from the defaults in every nested config, loads in the port to the same
+    values; and a port config written back loads in the reference."""
+    ref = jasr.ASRTaskConfig(
+        exp_dir="exp/x",
+        model=jmodel.ASRConfig(
+            vocab_size=77, d_model=64, chunk_size=16, left_chunks=2,
+            interctc_layers=(3, 6), rnn_encoder_subsample=(1, 2),
+            use_mvn="global", dtype="bfloat16",
+            wav2vec2=JW2V(d_model=96, conv_dim=(32, 32)),
+            frontend=jfront.FrontendConfig(n_mels=40, delta_order=1)),
+        data=jasr.DataConfig(token_type="bpe", bpe_vocab_size=99),
+        optim=joptim.OptimConfig(lr=2e-3, scheduler="warmuplr"),
+        mbr=jmbr.MBRConfig(weight=0.0, kb_tokens=(4, 5)), max_epoch=7)
+    j_save_yaml(ref, tmp_path / "config.yaml")
+    port = pasr.load_task_config(str(tmp_path / "config.yaml"))
+    assert to_dict(port) == j_to_dict(ref)
+    assert port.model.wav2vec2.d_model == 96
+    assert port.model.frontend.delta_order == 1
+    from espnet_slurp_tpu_torch.utils.config import save_yaml
+    save_yaml(port, tmp_path / "back.yaml")
+    assert j_to_dict(jasr.load_task_config(str(tmp_path / "back.yaml"))) \
+        == j_to_dict(ref)
+    tref = jtask.TransducerTaskConfig(model=jtd.TransducerConfig(
+        use_tcpgen=True, tcpgen_gcn_layers=3))
+    j_save_yaml(tref, tmp_path / "t.yaml")
+    tport = ptask.load_transducer_config(str(tmp_path / "t.yaml"))
+    assert to_dict(tport) == j_to_dict(tref)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ptask.refuse_unported_transducer(tport)

@@ -65,13 +65,18 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert '"ok"' not in proc.stdout
 
 
-# The training runtime, the data pipeline, the task and the CLIs: host-side
-# code whose reference modules import numpy only, copied into the port.
+# The training runtime, the data pipeline, the tasks, the recipe and the
+# CLIs: host-side code (much of it copied from reference modules that import
+# numpy only) and the transducer's beam searches.
 RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     "native", "utils.config", "utils.metrics", "data.fileio", "data.cleaner",
     "data.collate", "data.mini_corpus", "data.sampler", "data.dataset",
     "data.prefetch", "data.tokenizer", "train.reporter", "train.checkpoint",
-    "train.trainer", "tasks.asr", "bin.asr_train", "bin.asr_inference"))
+    "train.trainer", "tasks.asr", "bin.asr_train", "bin.asr_inference",
+    "ops.resample", "train.collect_stats", "bin.aggregate_stats_dirs",
+    "recipe.asr_pipeline", "bin.pack", "tasks.asr_transducer",
+    "decode.transducer_beam", "bin.asr_transducer_train",
+    "bin.asr_transducer_inference"))
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():

@@ -1,0 +1,314 @@
+"""The port's recipe layer against the JAX package, on the CPU:
+ops/resample.py (speed perturbation), bin/aggregate_stats_dirs.py,
+train/collect_stats.py (global MVN stats) and recipe/asr_pipeline.py
+(stages 1-15, with bin/pack.py's pack / unpack / publish / fetch).
+
+Both pipelines run tests/test_recipe.py's tiny config (d_model 32, one
+block each side, n_fft 128 / hop 64 / 16 mels, no SpecAug, global MVN,
+word tokens, speed perturbation 0.9 / 1.0, one epoch, beam 2, max_len 8)
+without the LM and the n-gram, over the same mini corpus. The JAX pipeline
+runs on one CPU device, as the recipe runs; its initial parameters reach
+the port's through ``init_params_from`` (converted by utils/params.py).
+Tolerances: the speed-perturbed waveforms exactly (the same numpy code);
+the stats' count exactly, sum and sum_square within STATS_RTOL of max |ref|
+(fp32 batch sums in another order, accumulated in fp64 on both sides); the
+per-epoch losses within LOSS_RTOL (as tests/test_torch_cli.py); token
+lists and decoded texts exactly."""
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from espnet_slurp_tpu.data.mini_corpus import make_mini_corpus
+from espnet_slurp_tpu.models.asr_model import ASRConfig as JASRConfig
+from espnet_slurp_tpu.models.asr_model import ASRModel as JaxASRModel
+from espnet_slurp_tpu.ops import resample as jres
+from espnet_slurp_tpu.ops.frontend import FrontendConfig as JFrontend
+from espnet_slurp_tpu.recipe import asr_pipeline as jpipe
+from espnet_slurp_tpu.tasks import asr as jasr
+from espnet_slurp_tpu.train.collect_stats import collect_stats as j_collect
+from espnet_slurp_tpu.train.optim import OptimConfig as JOptim
+from espnet_slurp_tpu_torch.bin import aggregate_stats_dirs as p_agg
+from espnet_slurp_tpu_torch.bin import pack as p_pack
+from espnet_slurp_tpu_torch.ops import resample as pres
+from espnet_slurp_tpu_torch.recipe import asr_pipeline as ppipe
+from espnet_slurp_tpu_torch.tasks import asr as pasr
+from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
+from espnet_slurp_tpu_torch.train.collect_stats import collect_stats
+from espnet_slurp_tpu_torch.utils.config import from_dict
+from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+
+STATS_RTOL = 1e-5
+LOSS_RTOL = 1e-5
+MODEL = dict(d_model=32, n_head=2, d_ff=64, num_encoder_blocks=1,
+             num_decoder_blocks=1, decoder_d_ff=64, kernel_size=7,
+             dropout_rate=0.0, ctc_weight=0.3, use_mvn="global",
+             specaug=None)
+FRONT = dict(n_fft=128, hop_length=64, n_mels=16)
+DATA = dict(token_type="word", batch_type="sorted", batch_size=8,
+            speech_bucket_multiple=2048, text_bucket_multiple=4)
+OPTS = dict(speed_perturb_factors=(0.9, 1.0), decode_beam_size=2,
+            decode_max_len=8)
+
+
+@pytest.mark.parametrize("factor", [0.9, 1.0, 1.1, 1.37])
+def test_speed_perturb_equals_the_references(factor):
+    """Exactly, over several of the port's blocks of output samples."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(20001).astype(np.float32)
+    y = pres.speed_perturb(x, factor)
+    np.testing.assert_array_equal(y, jres.speed_perturb(x, factor))
+    assert y.dtype == np.float32 and abs(len(y) - 20001 / factor) < 1
+
+
+def test_speed_perturbation_holds_a_window_of_utterances(tmp_path,
+                                                        monkeypatch):
+    """Stage 2 with a window of 2 over 7 utterances: no more than 2 read
+    and not yet written at once, and the same data dir as the reference's
+    (its lists in the same order, every copy's samples exactly)."""
+    from espnet_slurp_tpu_torch.data.fileio import load_wav
+    train, _ = make_mini_corpus(tmp_path / "c", n_train=7, n_dev=1)
+    factors = (0.9, 1.0, 1.1)
+    held, peak = [0, 0], [0]  # utterances read, copies written
+
+    def counted_load(path):
+        held[0] += 1
+        peak[0] = max(peak[0], held[0] - held[1] // 2)
+        return load_wav(path)
+
+    def counted_write(path, x, sr):
+        held[1] += 1
+        return write_wav(path, x, sr)
+
+    write_wav = ppipe.write_wav
+    monkeypatch.setattr(ppipe, "SP_WINDOW", 2)
+    monkeypatch.setattr(ppipe, "load_wav", counted_load)
+    monkeypatch.setattr(ppipe, "write_wav", counted_write)
+    got = ppipe.stage2_speed_perturb(train, tmp_path / "port", factors)
+    want = jpipe.stage2_speed_perturb(train, tmp_path / "ref", factors)
+    assert held == [7, 14] and peak[0] == 2
+    for name in ("wav.scp", "text"):
+        lines = [(g.split(maxsplit=1), w.split(maxsplit=1)) for g, w in zip(
+            (got / name).read_text().splitlines(),
+            (want / name).read_text().splitlines(), strict=True)]
+        assert [g[0] for g, _ in lines] == [w[0] for _, w in lines]
+        for g, w in lines:
+            if name == "text":
+                assert g == w
+            else:
+                np.testing.assert_array_equal(load_wav(g[1])[0],
+                                              load_wav(w[1])[0])
+
+
+def test_resample_linear_device_equals_the_references():
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 3001).astype(np.float32)
+    want = np.asarray(jres.resample_linear_device(x, 1.1, 2700))
+    got = pres.resample_linear_device(torch.from_numpy(x), 1.1, 2700)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def _stats_dir(d, utts, seed):
+    rng = np.random.RandomState(seed)
+    d.mkdir(parents=True)
+    (d / "speech_shape").write_text(
+        "".join(f"{u} {rng.randint(3, 99)},16\n" for u in utts))
+    np.savez(d / "feats_stats.npz", count=np.asarray(rng.randint(9, 99)),
+             sum=rng.randn(16), sum_square=rng.rand(16))
+
+
+@pytest.mark.parametrize("sub", ["", "train"])
+def test_aggregate_stats_dirs_equals_the_references(tmp_path, sub):
+    from espnet_slurp_tpu.bin.aggregate_stats_dirs import main as j_main
+    ins = []
+    for i, utts in enumerate((["c", "a"], ["b"], ["e", "d"])):
+        _stats_dir(tmp_path / f"s{i}" / sub, utts, i)
+        ins += ["--input_dir", str(tmp_path / f"s{i}")]
+    assert j_main(ins + ["--output_dir", str(tmp_path / "j")]) == 0
+    assert p_agg.main(ins + ["--output_dir", str(tmp_path / "p")]) == 0
+    j, p = tmp_path / "j" / sub, tmp_path / "p" / sub
+    assert (p / "speech_shape").read_text() == (j / "speech_shape").read_text()
+    assert [ln.split()[0] for ln in (p / "speech_shape").read_text()
+            .splitlines()] == ["a", "b", "c", "d", "e"]
+    pj, pp = np.load(j / "feats_stats.npz"), np.load(p / "feats_stats.npz")
+    assert sorted(pp) == sorted(pj) == ["count", "sum", "sum_square"]
+    for k in pj:
+        np.testing.assert_array_equal(pp[k], pj[k])
+
+
+def _close(got, want, what):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=STATS_RTOL * scale,
+                               err_msg=what)
+
+
+def test_collect_stats_equals_the_references(tmp_path):
+    """The same batches (the port's iterator factory at epoch 1, unshuffled,
+    as the pipeline's stage 10 takes them) through both collect_stats."""
+    train, _ = make_mini_corpus(tmp_path / "c", n_train=10, n_dev=1)
+    cfg = pasr.load_task_config(None, {
+        "exp_dir": str(tmp_path / "exp"),
+        "model": {**{k: v for k, v in MODEL.items()}, "frontend": FRONT},
+        "data": {**DATA, "train_dir": str(train)}})
+    tok, conv, _ = pasr.ASRTask.prepare_vocab(cfg)
+    ds = pasr.ASRTask.build_dataset(str(train), tok, conv)
+    batches = list(pasr.ASRTask.build_iter_factory(cfg, ds, False)(1))
+    assert len(batches) == 2
+    for i, b in enumerate(batches):  # ids for the shape file
+        b["uids"] = [f"b{i}u{j}" for j in range(len(b["speech"]))]
+    got = collect_stats(batches, cfg.model.frontend, tmp_path / "p",
+                        device="cpu")
+    want = j_collect(batches, JFrontend(**FRONT), tmp_path / "j")
+    assert int(got["count"]) == int(want["count"]) > 0
+    for k in ("sum", "sum_square"):
+        assert got[k].dtype == np.float64
+        _close(got[k], np.asarray(want[k]), k)
+    saved = np.load(tmp_path / "p" / "feats_stats.npz")
+    assert sorted(saved) == ["count", "sum", "sum_square"]
+    assert ((tmp_path / "p" / "speech_shape").read_text()
+            == (tmp_path / "j" / "speech_shape").read_text())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        collect_stats(batches, cfg.model.frontend, tmp_path / "x",
+                      input_feats=True, device="cpu")
+
+
+def _task_cfgs(root, corpus):
+    """(reference ASRTaskConfig, port ASRTaskConfig) of the tiny recipe."""
+    jcfg = jasr.ASRTaskConfig(
+        exp_dir=str(root / "jexp"),
+        model=JASRConfig(frontend=JFrontend(**FRONT), **MODEL),
+        optim=JOptim(lr=1e-3, scheduler="constant"),
+        data=jasr.DataConfig(train_dir=str(corpus[0]),
+                             valid_dir=str(corpus[1]), **DATA),
+        max_epoch=1, keep_nbest=1, nbest_average=1)
+    from espnet_slurp_tpu.utils.config import to_dict as j_to_dict
+    d = j_to_dict(jcfg)
+    d["exp_dir"] = str(root / "pexp")
+    return jcfg, from_dict(pasr.ASRTaskConfig, d)
+
+
+@pytest.fixture(scope="module")
+def pipelines(tmp_path_factory):
+    root = tmp_path_factory.mktemp("recipe")
+    corpus = make_mini_corpus(root / "corpus", n_train=10, n_dev=3)
+    jcfg, pcfg = _task_cfgs(root, corpus)
+    single = jax.devices()[:1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "devices", lambda *a, **k: single)
+        jres_ = jpipe.run_pipeline(jcfg, jpipe.PipelineOptions(**OPTS),
+                                   stage=1, stop_stage=15)
+    # The reference's initial parameters for the same config and seed.
+    jtrained = jasr.load_task_config(str(root / "jexp" / "config.yaml"))
+    params = jasr.ASRTask.init_params(JaxASRModel(jtrained.model),
+                                      jtrained.data.seed)
+    init_dir = root / "init"
+    init_dir.mkdir()
+    torch.save({"params": flax_to_torch(jax.tree.map(np.asarray, params))},
+               init_dir / CKPT_FILE)
+    import dataclasses
+    pcfg = dataclasses.replace(pcfg, init_params_from=str(init_dir))
+    pres_ = ppipe.run_pipeline(pcfg, ppipe.PipelineOptions(**OPTS), stage=1,
+                               stop_stage=15, device="cpu")
+    return dict(root=root, corpus=corpus, j=jres_, p=pres_,
+                jexp=root / "jexp", pexp=root / "pexp")
+
+
+def test_pipeline_runs_every_stage_and_scores(pipelines):
+    res, exp = pipelines["p"], pipelines["pexp"]
+    assert res["unpack_decode_match"] is True
+    assert sorted(res["stage_seconds"]) == [1, 2, 4, 5, 10, 11, 12, 13, 14,
+                                            15]
+    assert np.isfinite([res["wer_dev"], res["cer_dev"]]).all()
+    score = dict(ln.split() for ln in
+                 (exp / "decode_dev" / "score.txt").read_text().splitlines())
+    assert sorted(score) == ["CER", "WER"]
+    sp = (exp / "data" / "train_sp" / "wav.scp").read_text().splitlines()
+    assert len(sp) == 20
+    assert sum(ln.startswith("sp0.9-train_") for ln in sp) == 10
+    s2t = pasr.Speech2Text.from_exp_dir(str(exp), device="cpu")
+    assert s2t.mvn_stats is not None
+    assert not list(exp.glob("valid.*best"))  # one epoch: nothing averaged
+    for name in ("config.yaml", "tokens.txt", "stats/feats_stats.npz",
+                 f"1epoch/{CKPT_FILE}"):
+        assert (exp / "unpacked" / name).exists(), name
+    # the latest epoch's archive carries the latest.json that names it
+    assert json.loads((exp / "unpacked" / "latest.json").read_text()) == {
+        "epoch": 1}
+
+
+def test_pipeline_matches_the_references(pipelines):
+    jexp, pexp = pipelines["jexp"], pipelines["pexp"]
+    assert ((pexp / "tokens.txt").read_text()
+            == (jexp / "tokens.txt").read_text())
+    js, ps = (np.load(e / "stats" / "feats_stats.npz") for e in (jexp, pexp))
+    assert int(ps["count"]) == int(js["count"])
+    for k in ("sum", "sum_square"):
+        _close(ps[k], js[k], k)
+    jh, ph = (json.loads((e / "reporter.json").read_text())["history"]
+              for e in (jexp, pexp))
+    assert len(jh) == len(ph) == 1
+    for je, pe in zip(jh, ph):
+        for phase in ("train", "valid"):
+            for key in ("loss", "loss_ctc", "loss_att", "acc"):
+                np.testing.assert_allclose(
+                    pe[phase][key], je[phase][key], rtol=LOSS_RTOL,
+                    err_msg=f"epoch {je['epoch']} {phase} {key}")
+    assert ((pexp / "decode_dev" / "text").read_text()
+            == (jexp / "decode_dev" / "text").read_text())
+    j, p = pipelines["j"], pipelines["p"]
+    assert p["unpack_decode_match"] is j["unpack_decode_match"] is True
+    for k in ("wer_dev", "cer_dev"):
+        assert p[k] == pytest.approx(j[k], abs=0)
+
+
+def test_pack_cli_publishes_fetches_and_decodes(pipelines, tmp_path):
+    exp = pipelines["pexp"]
+    archive = tmp_path / "m.zip"
+    assert p_pack.main(["pack", "--exp_dir", str(exp), "--out",
+                        str(archive)]) == 0
+    zoo = tmp_path / "zoo"
+    assert p_pack.main(["publish", "--archive", str(archive), "--name", "m",
+                        "--zoo_dir", str(zoo)]) == 0
+    index = json.loads((zoo / "index.json").read_text())
+    assert index["m"]["bytes"] == archive.stat().st_size
+    out = tmp_path / "fetched"
+    assert p_pack.main(["fetch", "--name", "m", "--out_dir", str(out),
+                        "--zoo_dir", str(zoo), "--verify_data_dir",
+                        str(pipelines["corpus"][1]), "--device", "cpu"]) == 0
+    cfg = pasr.load_task_config(str(out / "config.yaml"))
+    assert cfg.exp_dir == str(out)
+    dev = pipelines["corpus"][1]
+    assert (p_pack.verify(out, dev, "cpu")
+            == p_pack.verify(exp / "unpacked", dev, "cpu"))
+    (zoo / "m.zip").write_bytes(b"changed")
+    with pytest.raises(ValueError, match="sha256"):
+        p_pack.main(["fetch", "--name", "m", "--out_dir", str(tmp_path / "x"),
+                     "--zoo_dir", str(zoo)])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            p_pack.main(["unpack", "--archive", str(archive), "--out_dir",
+                         str(tmp_path / "u"), "--verify_data_dir", str(dev)])
+
+
+@pytest.mark.parametrize("opts,match", [
+    ({"feats_type": "fbank"}, "item 9"),
+    ({"feats_type": "fbank_pitch"}, "item 15"),
+    ({"train_lm": True}, "item 11"),
+    ({"train_ngram": True}, "item 11"),
+])
+def test_unported_stages_raise_naming_their_item(tmp_path, opts, match):
+    cfg = pasr.load_task_config(None, {"exp_dir": str(tmp_path / "exp")})
+    with pytest.raises(NotImplementedError, match=match):
+        ppipe.run_pipeline(cfg, ppipe.PipelineOptions(**opts), stage=1,
+                           stop_stage=15, device="cpu")
+    assert not (tmp_path / "exp").exists()
+
+
+def test_pipeline_raises_without_a_card_unless_given_a_device(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the pipeline would run on it")
+    cfg = pasr.load_task_config(None, {"exp_dir": str(tmp_path / "exp")})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ppipe.run_pipeline(cfg, stage=1, stop_stage=15)

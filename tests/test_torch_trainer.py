@@ -515,20 +515,15 @@ def _configs(**kw):
     return port, ref
 
 
-def test_init_params_follows_the_references_distributions():
-    """Every tensor of ASRTask.init_params against the reference's flax init
-    of the same config: zeros and ones exactly where the reference has them,
-    else mean and std within 5 standard errors of the reference's sample,
-    and the truncation at 2 std of lecun_normal."""
-    cfg, jcfg = _configs(vocab_size=100, d_model=64, n_head=4, d_ff=256,
-                         num_encoder_blocks=2, num_decoder_blocks=1,
-                         decoder_d_ff=256, kernel_size=15)
-    ref = flax_to_torch(jax.tree.map(np.asarray, jasr.ASRTask.init_params(
-        JaxASRModel(jcfg), 0)))
-    model = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
+def _assert_init_follows(model, again, ref, embeds, orthogonal=()):
+    """The port's init ``model`` (and ``again``, the same seed) against the
+    reference's converted init ``ref``: zeros and ones exactly where the
+    reference has them, else mean and std within 5 standard errors of the
+    reference's sample; lecun_normal's truncation at 2 std for every
+    matrix but the ``embeds``; each [P, P] gate block of the ``orthogonal``
+    recurrent kernels orthogonal on both sides."""
     got = model.state_dict()
     assert sorted(got) == sorted(ref)
-    again = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
     for k, v in got.items():
         r = ref[k].double()
         p = v.double()
@@ -541,11 +536,59 @@ def test_init_params_follows_the_references_distributions():
         assert abs(float(p.mean()) - float(r.mean())) < 5 * 2 ** 0.5 * se, k
         assert abs(float(p.std()) - float(r.std())) < 5 * float(r.std()) \
             * (1.0 / n) ** 0.5, k
-        if p.dim() >= 2 and k != "decoder.embed.weight":  # lecun_normal
+        if k in orthogonal:
+            eye = torch.eye(p.shape[1], dtype=torch.float64)
+            for side in (p, r):
+                for gate in side.view(4, p.shape[1], p.shape[1]):
+                    torch.testing.assert_close(gate @ gate.T, eye,
+                                               atol=1e-5, rtol=0)
+        elif p.dim() >= 2 and k not in embeds:  # lecun_normal
             fan_in = v[0].numel()
             limit = 2 * fan_in ** -0.5 / 0.87962566103423978
             assert float(p.abs().max()) <= limit * (1 + 1e-6), k
             assert float(r.abs().max()) <= limit * (1 + 1e-6), k
+
+
+def test_init_params_follows_the_references_distributions():
+    """Every tensor of ASRTask.init_params against the reference's flax init
+    of the same config (_assert_init_follows)."""
+    cfg, jcfg = _configs(vocab_size=100, d_model=64, n_head=4, d_ff=256,
+                         num_encoder_blocks=2, num_decoder_blocks=1,
+                         decoder_d_ff=256, kernel_size=15)
+    ref = flax_to_torch(jax.tree.map(np.asarray, jasr.ASRTask.init_params(
+        JaxASRModel(jcfg), 0)))
+    model = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
+    again = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
+    _assert_init_follows(model, again, ref, embeds={"decoder.embed.weight"})
+
+
+def test_transducer_init_params_follows_the_references_distributions():
+    """ASRTransducerTask.init_params (the init of every transducer run:
+    bin/asr_transducer_train) against the reference task's flax init of
+    the same TransducerModel: the encoder, the joint, the prediction
+    network's embedding and its LSTM layer (flax's OptimizedLSTMCell:
+    lecun_normal input kernels, an orthogonal recurrent kernel per gate,
+    zero bias), by _assert_init_follows."""
+    from espnet_slurp_tpu.models import transducer as jtd
+    from espnet_slurp_tpu_torch.models.transducer import (TransducerConfig,
+                                                          TransducerModel)
+    from espnet_slurp_tpu_torch.tasks.asr_transducer import \
+        ASRTransducerTask
+    cfg, jcfg = _configs(vocab_size=100, d_model=64, n_head=4, d_ff=256,
+                         num_encoder_blocks=2, kernel_size=15)
+    head = dict(pred_dim=64, joint_dim=96)
+    params = jtd.TransducerModel(jtd.TransducerConfig(asr=jcfg, **head)).init(
+        jax.random.PRNGKey(0), np.zeros((2, 2400), np.float32),
+        np.asarray([2400, 1700], np.int32), np.ones((2, 3), np.int32),
+        np.asarray([3, 3], np.int32))["params"]
+    ref = flax_to_torch(jax.tree.map(np.asarray, params))
+    models = [ASRTransducerTask.init_params(TransducerModel(
+        TransducerConfig(asr=cfg, **head), device="cpu"), seed=0)
+        for _ in range(2)]
+    lstm = [k for k in ref if k.endswith("weight_hh")]
+    assert lstm
+    _assert_init_follows(*models, ref, embeds={"prediction.embed.weight"},
+                         orthogonal=set(lstm))
 
 
 # ---------------------------------------------------------------------------

@@ -295,9 +295,9 @@ def test_unported_branches_raise(case):
     with pytest.raises(NotImplementedError, match="TCPGen"):
         TransducerModel(dataclasses.replace(_port_cfg(), use_tcpgen=True),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
+    with pytest.raises(ValueError, match="search"):
         Speech2TextTransducer(_port_cfg(), flax_to_torch(params), TOKENS,
-                              beam_size=4, device="cpu")
+                              beam_size=4, search="beam", device="cpu")
     flagship = transducer_flagship_config()
     assert (flagship.asr.vocab_size, flagship.asr.num_encoder_blocks,
             flagship.aux_ctc_weight, flagship.asr.fused_conv) == (600, 12,
