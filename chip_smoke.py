@@ -262,6 +262,36 @@ or the port's package is not beside it. Phases, each of which fails the run:
    computed once on the card), with lengths strictly between 0 and
    max_len. Prints each search's
    decode wall, RTF and host syncs an utterance, and the phase's seconds.
+18. The routed-MoE recipe and the interCTC options, on phase 15's corpus:
+   (a) conf/train_moe.yaml (12 x 256, 8 experts on every 2nd block's
+   second FFN, bf16, dropout 0.1, global MVN, warmuplr) through
+   run_pipeline stages 1-15 with phase 16's overrides (no speed
+   perturbation): every train step makes 18 K2 launches each way (the six
+   routed FFNs are no K2 launch), 12 K3 and 1 K4 and K1 each way, by the
+   wrappers' and the host counts; finite losses, loss_moe_aux in the
+   reporter, the unpacked model decodes as the exp dir. (b) The same model
+   (the reference's initialisation from a seed) through make_train_step
+   on phase 5's traffic: those launches every step, step seconds,
+   audio-s/s and peak memory (under MOE_PEAK_GB) beside phase 5's
+   flagship. (c) The flagship with interCTC taps after blocks 3, 6 and 9
+   (weight 0.3), without and with self-conditioning, on phase 5's
+   traffic: per step 24 K2 and 12 K3 each way, and K4 / K1 4 / 4 each way
+   without self-conditioning, 1 / 4 with it (the taps' CTC from the
+   shared head's logits), by the wrappers' and the host counts; then
+   phase 6's fp32 forward and backward card vs CPU for each. (d) The MoE
+   layer in fp32, x [64, 468, 256] with ragged lengths, card vs CPU: the
+   expert of every token and the kept count of every expert equal, the
+   output within 1e-4 of max |ref|, with tokens dropped (a tilted
+   router). (e) bin/asr_inference decodes the 8
+   dev utterances (beam 10, ctc 0.3, max_len 96) with the MoE recipe's
+   model and with a self-conditioned flagship that bin/asr_train trained
+   one epoch: the RTF of each; then, in fp32 from one card encode, the
+   beam search on the card and on the CPU gives the same tokens and
+   lengths. (f) remat_encoder with stochastic depth 0.1 on the card (fp32,
+   dropout 0.1): the loss and gradients equal the run without remat from
+   an equally seeded generator on the card, which ends in the same state,
+   and the recompute launches K2 and K3 forward twice a block. Prints the
+   phase's seconds.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -274,8 +304,11 @@ phase 12's fp32 entries (``*_fp32``), whose launches are those of phase
 (``fused_conv_module*_fp32``), whose launches are those of phase 14's
 timed steps. The bf16 entries also carry their launches a train step of
 phase 16 (``launches_per_recipe_step``) and of phase 17
-(``launches_per_transducer_cli_step``) where those steps launch them; the
-last line is ``{"ok": true, "device": {...}}``.
+(``launches_per_transducer_cli_step``) where those steps launch them, and
+the K1-K4 entries their launches a step of phase 18's MoE model
+(``launches_per_moe_step``) and of its interCTC models
+(``launches_per_interctc_step``: ``interctc`` and ``self-conditioning``);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3449,20 +3482,24 @@ def step_recorder(torch, per_step, clock, task=None):
     return make
 
 
-def cli_step_want(n_rows, n_blocks):
+def cli_step_want(n_rows, n_blocks, n_ffn=None):
     """The launches of one flagship train step at dropout DROPOUT on n_rows
     rows: by the wrappers' counts, and by the host counts (K2 and K3 by
-    instance, the dropout ones; K4's bf16 route; K1's warp route)."""
+    instance, the dropout ones; K4's bf16 route; K1's warp route). K2
+    runs n_ffn times each way (two FFNs a block unless given: a routed MoE
+    second FFN is no K2 launch)."""
     from espnet_slurp_tpu_torch.ops.kernels import build
-    wrappers = {"fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
+    if n_ffn is None:
+        n_ffn = 2 * n_blocks
+    wrappers = {"fused_ffn": n_ffn, "fused_ffn_bwd": n_ffn,
                 "rel_flash_attention": n_blocks,
                 "rel_flash_attention_bwd": n_blocks,
                 "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
                 "ctc_lattice": 1, "ctc_lattice_bwd": 1}
-    hosts = {"ffn_fwd::fwd_kernel<256, true>": 2 * n_blocks,
-             "ffn_bwd::rows_kernel<true>": 2 * n_blocks,
-             "ffn_bwd::dx_kernel": 2 * n_blocks,
-             "ffn_bwd::dw_kernel": 2 * n_blocks,
+    hosts = {"ffn_fwd::fwd_kernel<256, true>": n_ffn,
+             "ffn_bwd::rows_kernel<true>": n_ffn,
+             "ffn_bwd::dx_kernel": n_ffn,
+             "ffn_bwd::dw_kernel": n_ffn,
              "rel_fwd::fwd_kernel<64, true>": n_blocks,
              "rel_dkv::dkv_kernel<64, true>": n_blocks,
              "rel_dq::dq_kernel<64, true>": n_blocks,
@@ -3470,7 +3507,7 @@ def cli_step_want(n_rows, n_blocks):
              **dict.fromkeys(K1_WARP, 1)}
     if build.library().espnet_fused_ffn_fwd_splits(n_rows, 256, 1024,
                                                    256) > 1:
-        hosts["ffn_fwd::reduce_kernel"] = 2 * n_blocks
+        hosts["ffn_fwd::reduce_kernel"] = n_ffn
     return {k: wrappers.get(k, 0) for k in COUNTED}, hosts
 
 
@@ -4101,10 +4138,428 @@ def transducer_cli_phase(torch, card, root, corpus):
     return {k: v for k, v in per_step[0][0].items() if v}
 
 
-def recipe_phases(torch, card):
-    """Phases 16 and 17 on one synthetic corpus (cli_corpus) under
-    RECIPE_ROOT, removed at the end. Returns their launches per train
-    step."""
+# Phase 18: conf/train_moe.yaml (routed MoE) and the interCTC options the
+# other configs use. MOE_ROOT holds its exp dirs (under RECIPE_ROOT, on
+# phase 15's corpus); the fp32 beam searches of (e) run on MOE_CMP_UTT of
+# the decode's utterances on both devices from one encoder output.
+INTERCTC_LAYERS, INTERCTC_WEIGHT = (3, 6, 9), 0.3
+MOE_CMP_UTT = N_UTT
+# The MoE step at 64 x 15 s must stay under this peak (ISSUE budget: the
+# reference's one-hot [S, E, C] dispatch alone would take 4.5 GB a layer).
+MOE_PEAK_GB = 16.0
+# (d): the MoE router's top two gates of every token differ by more than
+# this (tokens below it are drawn again from the seeded generator), so
+# that fp32 rounding on either device cannot send a token elsewhere.
+ROUTE_MARGIN = 1e-4
+
+
+MOE_YAML = "conf/train_moe.yaml"
+
+
+def moe_config(**model):
+    """conf/train_moe.yaml's model, as written (its vocab 5000), with
+    ``model`` overridden."""
+    from espnet_slurp_tpu_torch.tasks import asr as task
+    return dataclasses.replace(task.load_task_config(MOE_YAML).model,
+                               **model)
+
+
+def moe_blocks(cfg):
+    """(blocks, MoE blocks) of an encoder config."""
+    n = cfg.num_encoder_blocks
+    moe = n // max(cfg.moe_every, 1) if cfg.moe_experts > 0 else 0
+    return n, moe
+
+
+def moe_recipe_phase(torch, card, root, corpus):
+    """Phase 18 (a): conf/train_moe.yaml through run_pipeline on the card,
+    stages 1-15, with phase 16's overrides on phase 15's corpus (no speed
+    perturbation). Every train step makes 2 x 12 - 6 = 18 K2 launches each
+    way (the second FFN of every 2nd block is the routed MoE), 12 K3 and
+    one K4 and K1 each way (wrappers' and host counts). Returns (exp dir,
+    launches per train step)."""
+    from espnet_slurp_tpu_torch.recipe.asr_pipeline import (PipelineOptions,
+                                                            run_pipeline)
+    from espnet_slurp_tpu_torch.tasks import asr as task
+
+    t0 = time.perf_counter()
+    train_dir, dev_dir, _ = corpus
+    exp = root / "exp_moe"
+    cfg = task.load_task_config(MOE_YAML, {
+        "exp_dir": str(exp), "max_epoch": RECIPE_EPOCHS,
+        "data": {"train_dir": str(train_dir), "valid_dir": str(dev_dir),
+                 "token_type": "char", "batch_type": "sorted",
+                 "batch_size": CLI_BATCH}})
+    m = cfg.model
+    n_blocks, n_moe = moe_blocks(m)
+    print(f"phase 18 (a): {MOE_YAML}: {m.num_encoder_blocks} x {m.d_model}, "
+          f"{m.moe_experts} experts on every {m.moe_every}nd block "
+          f"(capacity {m.moe_capacity_factor}, aux weight "
+          f"{m.moe_aux_weight}), {m.dtype}, dropout {m.dropout_rate}, "
+          f"use_mvn {m.use_mvn}, {cfg.optim.scheduler}; overridden: "
+          f"exp_dir, data dirs, char tokens, sorted batches of {CLI_BATCH}, "
+          f"max_epoch {RECIPE_EPOCHS}")
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock)
+    try:
+        results = run_pipeline(cfg, PipelineOptions(), stage=1,
+                               stop_stage=15)
+    finally:
+        task.make_train_step = make
+    steps = RECIPE_EPOCHS * -(-CLI_TRAIN // CLI_BATCH)
+    if len(per_step) != steps:
+        raise AssertionError(f"phase 18 (a): {len(per_step)} train steps, "
+                             f"expected {steps}")
+    for i, (wrappers, hosts, n_rows) in enumerate(per_step):
+        want_w, want_h = cli_step_want(n_rows, n_blocks,
+                                       2 * n_blocks - n_moe)
+        if wrappers != want_w or hosts != want_h:
+            raise AssertionError(
+                f"phase 18 (a) step {i}: launches {wrappers} and {hosts}, "
+                f"expected {want_w} and {want_h}")
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    aux = [e["train"].get("loss_moe_aux") for e in hist]
+    if not (len(hist) == RECIPE_EPOCHS and results["unpack_decode_match"]
+            is True and all(np.isfinite(
+                [e[p]["loss"] for e in hist for p in ("train", "valid")]
+                + aux))):
+        raise AssertionError(f"phase 18 (a): reporter {hist}, results "
+                             f"{results}")
+    stage_s = {k: round(v, 2) for k, v in results["stage_seconds"].items()}
+    print(f"phase 18 (a): each of the {steps} train steps made "
+          f"{per_step[0][0]}; loss_moe_aux by epoch {aux}; wer "
+          f"{results['wer_dev']:.4f} cer {results['cer_dev']:.4f}; "
+          f"seconds by stage {stage_s}; {time.perf_counter() - t0:.1f} s "
+          f"on {card}")
+    return exp, {k: v for k, v in per_step[0][0].items() if v}
+
+
+def moe_train_phase(torch, card, train_step_s):
+    """Phase 18 (b): conf/train_moe.yaml's model (bf16, dropout 0.1,
+    SpecAug on, the reference's initialisation from a seed) through
+    make_train_step on phase 5's traffic; per step 18 K2, 12 K3 and 1 K4
+    and K1 launches each way; step seconds, audio-s/s and peak memory
+    beside phase 5's flagship. Returns the launches per step."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = moe_config()
+    n_blocks, n_moe = moe_blocks(cfg)
+    state = ASRTask.init_params(ASRModel(cfg, device="cpu"), 0).state_dict()
+    model = ASRModel(cfg, device="cuda")
+    model.load_state_dict(state)
+    batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
+    what = (f"phase 18 (b): {MOE_YAML}, B={TRAIN_B} x {TRAIN_SECONDS} s, "
+            f"U={TRAIN_U}")
+    launches, step_s, busy_ms, _, routes = run_train_steps(
+        torch, what, model, batch, card, TRAIN_B * TRAIN_SECONDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"fused_ffn": 2 * n_blocks - n_moe,
+                "fused_ffn_bwd": 2 * n_blocks - n_moe,
+                "rel_flash_attention": n_blocks,
+                "rel_flash_attention_bwd": n_blocks,
+                "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    check_per_step(what, launches, per_step)
+    check_routes(what, routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
+                 TRAIN_STEPS)
+    print(f"{what}: step {step_s:.4f} s, "
+          f"{TRAIN_B * TRAIN_SECONDS / step_s:.1f} audio-s/s, busy "
+          f"{busy_ms:.2f} ms, peak {peak_gb * 1e3:.1f} MB (limit "
+          f"{MOE_PEAK_GB:.0f} GB) beside phase 5's flagship "
+          f"{train_step_s:.4f} s ({TRAIN_B * TRAIN_SECONDS / train_step_s:.1f}"
+          f" audio-s/s) on {card}")
+    if peak_gb >= MOE_PEAK_GB:
+        raise AssertionError(f"{what}: peak {peak_gb:.2f} GB")
+    del model, batch
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def interctc_phase(torch, card):
+    """Phase 18 (c): the flagship with interCTC taps after blocks
+    INTERCTC_LAYERS (weight INTERCTC_WEIGHT), without and with
+    self-conditioning, bf16 at dropout 0.1 through make_train_step on phase
+    5's traffic: per step 24 K2 and 12 K3 launches each way, and K4 / K1 4
+    / 4 each way without self-conditioning (the final CTC and a tap each
+    through the fused head), 1 / 4 with it (the taps' CTC from the shared
+    head's logits); then phase 6's fp32 forward and backward card vs CPU
+    at dropout 0.1 for each. Returns the launches per step of each."""
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    out = {}
+    for sc in (False, True):
+        kw = dict(interctc_layers=INTERCTC_LAYERS,
+                  interctc_weight=INTERCTC_WEIGHT, self_conditioning=sc,
+                  dropout_rate=DROPOUT)
+        cfg = dataclasses.replace(flagship_config(), **kw)
+        label = "self-conditioning" if sc else "interctc"
+        what = (f"phase 18 (c) {label} at {INTERCTC_LAYERS}, weight "
+                f"{INTERCTC_WEIGHT}")
+        model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
+        batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
+                            FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size,
+                            "cuda")
+        launches, step_s, _, _, routes = run_train_steps(
+            torch, what, model, batch, card, TRAIN_B * TRAIN_SECONDS)
+        taps = len(INTERCTC_LAYERS)
+        head = 1 if sc else 1 + taps
+        n = cfg.num_encoder_blocks
+        per_step = {"fused_ffn": 2 * n, "fused_ffn_bwd": 2 * n,
+                    "rel_flash_attention": n, "rel_flash_attention_bwd": n,
+                    "fused_ctc_head_emit": head,
+                    "fused_ctc_head_emit_bwd": head,
+                    "ctc_lattice": 1 + taps, "ctc_lattice_bwd": 1 + taps}
+        check_per_step(what, launches, per_step)
+        check_routes(what, routes, {**dict.fromkeys(K1_WARP, 1 + taps),
+                                    **dict.fromkeys(K4_BF16_LAUNCHES, head)},
+                     TRAIN_STEPS)
+        out[label] = per_step
+        del model, batch
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32", specaug=None)
+        state = init_random_(ASRModel(cfg32, device="cpu"),
+                             seed=0).state_dict()
+        compare_cpu_card(torch, f"{what}, fp32 step", ASRModel, cfg32, state,
+                         *short_batch(cfg.vocab_size))
+    return out
+
+
+def moe_routing_phase(torch, card):
+    """Phase 18 (d): conf/train_moe.yaml's MoE layer (D 256, d_ff 1024, 8
+    experts, capacity 1.25; the reference's initialisation, the router's
+    bias tilted from 0.6 to -0.6 so that tokens are dropped) in fp32 on x
+    [64, 468, 256] with ragged lengths, card against CPU: the expert of every token and the kept
+    count of every expert exactly, the output and aux loss within 1e-4 of
+    max |ref|. Tokens whose top two gates differ by less than ROUTE_MARGIN
+    are drawn again (seeded), so that rounding cannot flip a route."""
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    from espnet_slurp_tpu_torch.models.moe import MoEFeedForward
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = moe_config()
+    t_train = Conv2dSubsampling.out_length_static(
+        1 + FS * TRAIN_SECONDS // 128)
+    gen = torch.Generator().manual_seed(DROPOUT_SEED)
+    layer = ASRTask.init_params(MoEFeedForward(
+        cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.moe_capacity_factor), 0)
+    with torch.no_grad():  # a lopsided router: the first experts overflow
+        layer.router.bias.copy_(torch.linspace(0.6, -0.6, cfg.moe_experts))
+    x = torch.randn(TRAIN_B, t_train, cfg.d_model, generator=gen)
+    lens = torch.randint(t_train // 2, t_train + 1, (TRAIN_B,),
+                         generator=gen)
+    lens[0] = t_train
+    pad = torch.arange(t_train)[None, :] < lens[:, None]
+    redrawn = 0
+    with torch.no_grad():
+        for _ in range(20):
+            gates = layer.route(x, pad)[0]
+            top2 = gates.topk(2, dim=-1).values
+            close = ((top2[:, 0] - top2[:, 1]) < ROUTE_MARGIN).view(
+                TRAIN_B, t_train)
+            if not close.any():
+                break
+            redrawn += int(close.sum())
+            x[close] = torch.randn(int(close.sum()), cfg.d_model,
+                                   generator=gen)
+        else:
+            raise AssertionError("phase 18 (d): no input clear of ties")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = MoEFeedForward(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                           cfg.moe_capacity_factor).to(dev)
+        m.load_state_dict(layer.state_dict())
+        with torch.no_grad():
+            _, expert, _, keep, _ = m.route(x.to(dev), pad.to(dev))
+            y, aux = m(x.to(dev), pad.to(dev))
+        res[dev] = (expert.cpu(), keep.cpu(), y.cpu(), float(aux))
+    (e_c, k_c, y_c, a_c), (e_g, k_g, y_g, a_g) = res["cpu"], res["cuda"]
+    valid = pad.reshape(-1)
+    kept = [torch.bincount(e[k], minlength=cfg.moe_experts).tolist()
+            for e, k in ((e_c, k_c), (e_g, k_g))]
+    err = rel_err(y_g, y_c)[1]
+    print(f"phase 18 (d): MoE layer fp32, {int(valid.sum())} valid tokens "
+          f"of {valid.numel()}, capacity {m.capacity(valid.numel())}, "
+          f"{redrawn} tokens drawn again (gate margin {ROUTE_MARGIN}): "
+          f"experts equal {torch.equal(e_c[valid], e_g[valid])}, kept "
+          f"counts card {kept[1]} CPU {kept[0]}, dropped "
+          f"{int(valid.sum()) - int(k_c.sum())}; output {err:.3e} of "
+          f"max|ref|, aux {a_g:.6f} vs {a_c:.6f} on {card}")
+    if not (torch.equal(e_c[valid], e_g[valid]) and torch.equal(k_c, k_g)
+            and kept[0] == kept[1] and err <= 1e-4
+            and abs(a_g - a_c) <= 1e-4 * abs(a_c)
+            and int(k_c.sum()) < int(valid.sum())):
+        raise AssertionError("phase 18 (d): MoE routing card vs CPU")
+
+
+def remat_phase(torch, card):
+    """Phase 18 (f): remat_encoder with stochastic depth 0.1 on the card.
+    The flagship in fp32 at dropout 0.1 on phase 6's two utterances, one
+    forward and backward without and one with remat, from the same weights
+    and an equally seeded generator on the card: the loss equal within
+    1e-6, every gradient within 1e-4 of its max |ref| (floored as phase
+    6's: K3's dp adds in an order of its own), the generators in the same
+    state after, and the recompute's launches: K2 and K3 forward twice a
+    block, their backward, K4 and K1 once."""
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    cfg = dataclasses.replace(flagship_config(), dtype="float32",
+                              specaug=None, dropout_rate=DROPOUT,
+                              stochastic_depth_rate=0.1)
+    state = init_random_(ASRModel(cfg, device="cpu"), seed=0).state_dict()
+    speech, lens, text, tlens = short_batch(cfg.vocab_size)
+    batch = {"speech": speech, "speech_lengths": lens, "text": text,
+             "text_lengths": tlens}
+    res = {}
+    for remat in (False, True):
+        model = ASRModel(dataclasses.replace(cfg, remat_encoder=remat),
+                         device="cuda")
+        model.load_state_dict(state)
+        gen = torch.Generator(device="cuda").manual_seed(DROPOUT_SEED)
+        zero_counts()
+        loss, _ = model(**{k: torch.from_numpy(v).cuda()
+                           for k, v in batch.items()},
+                        train=True, generator=gen)
+        loss.backward()
+        res[remat] = (float(loss.detach()), {
+            k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            read_counts(), gen.get_state())
+        del model
+    (l0, g0, n0, s0), (l1, g1, n1, s1) = res[False], res[True]
+    floor = 1e-4 * max(float(x.abs().max()) for x in g0.values())
+    worst = max((float((g1[k] - r).abs().max())
+                 / max(float(r.abs().max()), floor), k)
+                for k, r in g0.items())
+    n = cfg.num_encoder_blocks
+    want = dict(n0, fused_ffn=2 * n0["fused_ffn"],
+                rel_flash_attention=2 * n0["rel_flash_attention"])
+    print(f"phase 18 (f): remat at stochastic depth 0.1, dropout {DROPOUT}, "
+          f"fp32: loss {l1:.6f} vs {l0:.6f}; worst gradient {worst[1]} "
+          f"{worst[0]:.3e} of max|ref| (tolerance 1e-4); generators equal "
+          f"{torch.equal(s0, s1)}; launches without {n0}, with {n1} on "
+          f"{card}")
+    if not (abs(l1 - l0) <= 1e-6 * abs(l0) and worst[0] <= 1e-4
+            and torch.equal(s0, s1) and n1 == want
+            and n0["fused_ffn"] == 2 * n and n0["ctc_lattice"] == 1):
+        raise AssertionError("phase 18 (f): remat")
+
+
+def selfcond_cli_train(torch, root, corpus):
+    """A self-conditioned flagship (interCTC taps INTERCTC_LAYERS, bf16,
+    dropout 0.1) trained 1 epoch by bin/asr_train on phase 15's corpus,
+    for (e)'s decode. Returns its exp dir."""
+    from pathlib import Path
+
+    import yaml
+    from espnet_slurp_tpu_torch.bin import asr_train
+
+    train_dir, dev_dir, _ = corpus
+    path = Path(cli_train_yaml(root, train_dir, dev_dir, 1, exp="exp_sc"))
+    cfg = yaml.safe_load(path.read_text())
+    cfg["model"].update(interctc_layers=list(INTERCTC_LAYERS),
+                        interctc_weight=INTERCTC_WEIGHT,
+                        self_conditioning=True)
+    path.write_text(yaml.safe_dump(cfg))
+    asr_train.main(["--config", str(path)])
+    return root / "exp_sc"
+
+
+def decode_phase(torch, card, exp, dev8, what):
+    """Phase 18 (e): bin/asr_inference on ``exp`` (its n-best average)
+    decodes the N_UTT dev utterances at beam BEAM, ctc_weight CTC_WEIGHT,
+    max_len MAX_LEN: RTF from score.txt. Then the same weights in fp32:
+    one encoder output on the card, and the beam search from it on the
+    card and on the CPU over MOE_CMP_UTT of the utterances; tokens and
+    lengths equal."""
+    from espnet_slurp_tpu_torch.bin import asr_inference
+    from espnet_slurp_tpu_torch.data.fileio import load_wav, \
+        read_2column_text
+    from espnet_slurp_tpu_torch.decode.beam import (BeamSearchConfig,
+                                                    batch_beam_search)
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import Speech2Text
+
+    dec = exp.parent / f"decode_{exp.name}"
+    t0 = time.perf_counter()
+    asr_inference.main([
+        "--exp_dir", str(exp), "--data_dir", str(dev8), "--output_dir",
+        str(dec), "--beam_size", str(BEAM), "--ctc_weight", str(CTC_WEIGHT),
+        "--max_len", str(MAX_LEN), "--batch_size", str(N_UTT)])
+    call_s = time.perf_counter() - t0
+    score = dict(line.split() for line in
+                 (dec / "score.txt").read_text().splitlines())
+    if sorted(score) != ["CER", "RTF", "WER"]:
+        raise AssertionError(f"phase 18 (e) {what}: score.txt {score}")
+    s2t = Speech2Text.from_exp_dir(str(exp), device="cuda")
+    cfg = dataclasses.replace(s2t.model.cfg, dtype="float32")
+    state = s2t.model.state_dict()
+    wavs = sorted(read_2column_text(dev8 / "wav.scp").items())[:MOE_CMP_UTT]
+    buf, lens = s2t.pad_batch([load_wav(p)[0] for _, p in wavs])
+    beam = BeamSearchConfig(beam_size=BEAM, max_len=MAX_LEN,
+                            ctc_weight=CTC_WEIGHT)
+    got, secs = {}, {}
+    with torch.inference_mode():
+        model = ASRModel(cfg, device="cuda")
+        model.load_state_dict(state)
+        hs, hl = model.encode(torch.from_numpy(buf).cuda(),
+                              torch.from_numpy(lens).cuda(), s2t.mvn_stats)
+        for dev in ("cuda", "cpu"):
+            if dev == "cpu":
+                model = ASRModel(cfg, device="cpu")
+                model.load_state_dict(state)
+            t0 = time.perf_counter()
+            tokens, lengths = batch_beam_search(model, hs.to(dev),
+                                                hl.to(dev), beam)
+            got[dev] = (tokens.cpu(), lengths.cpu())
+            secs[dev] = time.perf_counter() - t0
+    (tc, lc), (tg, lg) = got["cpu"], got["cuda"]
+    n = len(wavs)
+    same = torch.equal(lc[:n], lg[:n]) and all(
+        torch.equal(tc[i, :lc[i]], tg[i, :lg[i]]) for i in range(n))
+    print(f"phase 18 (e) {what}: bin/asr_inference {N_UTT} x {UTT_SECONDS} "
+          f"s, beam {BEAM}, ctc {CTC_WEIGHT}, max_len {MAX_LEN}: score.txt "
+          f"{score} (RTF {score['RTF']}; the whole CLI call {call_s:.2f} s) "
+          f"on {card}; fp32 beam search from one card encode, {n} "
+          f"utterances: lengths {lg[:n].tolist()}, card {secs['cuda']:.2f} "
+          f"s, CPU {secs['cpu']:.2f} s, hypotheses equal {same}")
+    if not same:
+        raise AssertionError(f"phase 18 (e) {what}: card {tg[:n]} {lg[:n]}"
+                             f" vs CPU {tc[:n]} {lc[:n]}")
+    return float(score["RTF"])
+
+
+def moe_phases(torch, card, root, corpus, train_step_s):
+    """Phase 18, (a)-(f), on phases 16-17's corpus under ``root``. Returns
+    the launches per step of the MoE model's and the interCTC models'
+    steps."""
+    t_phase = time.perf_counter()
+    exp_moe, recipe_step = moe_recipe_phase(torch, card, root, corpus)
+    moe_step = moe_train_phase(torch, card, train_step_s)
+    if moe_step != recipe_step:
+        raise AssertionError(f"phase 18: (a)'s step {recipe_step} against "
+                             f"(b)'s {moe_step}")
+    inter = interctc_phase(torch, card)
+    moe_routing_phase(torch, card)
+    remat_phase(torch, card)
+    exp_sc = selfcond_cli_train(torch, root, corpus)
+    rtf = {what: decode_phase(torch, card, exp, corpus[2], what)
+           for what, exp in (("MoE", exp_moe),
+                             ("self-conditioning", exp_sc))}
+    print(f"phase 18: decode RTF {rtf}; {time.perf_counter() - t_phase:.1f} "
+          f"s on {card}")
+    return moe_step, inter
+
+
+
+def recipe_phases(torch, card, train_step_s):
+    """Phases 16, 17 and 18 on one synthetic corpus (cli_corpus) under
+    RECIPE_ROOT, removed at the end. Returns the launches per train step
+    of phases 16 and 17, and phase 18's (moe_phases)."""
     import shutil
     from pathlib import Path
 
@@ -4113,12 +4568,13 @@ def recipe_phases(torch, card):
     root.mkdir(parents=True)
     t0 = time.perf_counter()
     corpus = cli_corpus(root)
-    print(f"phases 16-17: corpus of {CLI_TRAIN} + {CLI_DEV} x {UTT_SECONDS} "
+    print(f"phases 16-18: corpus of {CLI_TRAIN} + {CLI_DEV} x {UTT_SECONDS} "
           f"s written in {time.perf_counter() - t0:.1f} s")
     recipe = recipe_phase(torch, card, root, corpus)
     transducer = transducer_cli_phase(torch, card, root, corpus)
+    moe = moe_phases(torch, card, root, corpus, train_step_s)
     shutil.rmtree(root, ignore_errors=True)
-    return recipe, transducer
+    return recipe, transducer, moe
 
 
 def main() -> int:
@@ -4252,14 +4708,21 @@ def main() -> int:
     kernels += k6_fp32
     cli_phase(torch, card, decode_launches, decode_wall, train_step_s)
     t_added = time.perf_counter()
-    recipe_steps, tr_cli_steps = recipe_phases(torch, card)
-    print(f"phases 16-17: {time.perf_counter() - t_added:.1f} s")
+    recipe_steps, tr_cli_steps, (moe_step, inter_steps) = recipe_phases(
+        torch, card, train_step_s)
+    print(f"phases 16-18: {time.perf_counter() - t_added:.1f} s")
     for kern in kernels:
-        base = kern["name"].replace("_fp32", "")
-        if base in recipe_steps and not kern["name"].endswith("_fp32"):
+        base = kern["name"]
+        if base.endswith("_fp32"):
+            continue
+        if base in recipe_steps:
             kern["launches_per_recipe_step"] = recipe_steps[base]
-        if base in tr_cli_steps and not kern["name"].endswith("_fp32"):
+        if base in tr_cli_steps:
             kern["launches_per_transducer_cli_step"] = tr_cli_steps[base]
+        if base in moe_step:
+            kern["launches_per_moe_step"] = moe_step[base]
+            kern["launches_per_interctc_step"] = {
+                label: per[base] for label, per in inter_steps.items()}
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

@@ -2,15 +2,18 @@
 
 Port of espnet_slurp_tpu/models/asr_model.py: ``ASRConfig`` (with the
 reference's fields and defaults) and the field set of ``Wav2Vec2Config``,
-``add_sos_eos``, ``label_smoothing_loss`` and ``ASRModel`` with ``encode``
-(frontend -> SpecAug when training -> MVN -> Conformer), ``ctc_logprobs``,
-``decoder_logits`` and ``forward`` (the training loss: CTC through the
-fused head K4 and the lattice K1, plus label-smoothed CE on the decoder).
-``ASRConfig`` has every field of the reference's; ``unported_options``
-names the values that select a path not ported yet.
-Parameters are fp32 and every layer computes in ``cfg.dtype``, as the flax
-modules do (models/layers.py). The TCPGen, interCTC and MoE branches of the
-reference's loss raise where the model is built.
+``build_encoder`` (the encoder choice: conformer, transformer, longformer
+or one registered in utils/registry.py), ``add_sos_eos``,
+``label_smoothing_loss`` and ``ASRModel`` with ``encode`` (frontend, or a
+feature dump with ``input_feats`` -> SpecAug when training -> MVN ->
+encoder), ``ctc_logprobs``, ``decoder_logits`` and ``forward`` (the
+training loss: CTC through the fused head K4 and the lattice K1, the
+interCTC taps through K4 and K1 (with self-conditioning through K1 from
+the taps' logits), the MoE load-balance loss, and label-smoothed CE on
+the decoder). ``unported_options`` names the values that select a path
+not ported yet. Parameters are fp32 and every layer computes in
+``cfg.dtype``, as the flax modules do (models/layers.py). The TCPGen
+branch of the reference's loss raises where the model is built.
 """
 from __future__ import annotations
 
@@ -20,16 +23,18 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.frontend import FrontendConfig, default_frontend
+from ..ops.ctc import ctc_loss_mean_logits
+from ..ops.frontend import FrontendConfig, default_frontend, feature_dim
 from ..ops.kernels.ctc_head import ctc_loss_pallas_head
 from ..ops.masks import length_mask
 from ..ops.normalize import global_mvn, utterance_mvn
 from ..ops.specaug import SpecAugConfig, specaug
 from ..utils.config import PORT_ONLY
 from ..utils.device import resolve_device
+from ..utils.registry import encoders
 from .conformer import ConformerEncoder
 from .layers import Linear
-from .transformer import TransformerDecoder
+from .transformer import TransformerDecoder, TransformerEncoder
 
 IGNORE_ID = -1
 
@@ -69,10 +74,12 @@ class ASRConfig:
     not ported yet raise in ``build_encoder`` (``unported_options``)."""
     vocab_size: int = 5000
     # conformer | ebranchformer | transformer | longformer |
-    # contextual_block_conformer | rnn | vgg_rnn | wav2vec2: the port
-    # builds the conformer.
+    # contextual_block_conformer | rnn | vgg_rnn | wav2vec2, or one
+    # registered in utils/registry.py: the port builds conformer,
+    # transformer, longformer and registered ones.
     encoder: str = "conformer"
-    # Precomputed-feature input (feature dumps): not ported yet.
+    # Precomputed-feature input (a stage-3 feature dump): ``speech`` is a
+    # [B, T, input_feats_dim or n_mels] matrix past the frontend.
     input_feats: bool = False
     input_feats_dim: int = 0
     ssl_num_layers: int = 0
@@ -104,7 +111,8 @@ class ASRConfig:
     interctc_weight: float = 0.0
     interctc_layers: Tuple[int, ...] = ()
     self_conditioning: bool = False
-    # "conv2d" (x subsampling_factor) | "linear": the port builds conv2d.
+    # "conv2d" (x subsampling_factor in 2, 4, 6, 8) | "linear" (no time
+    # reduction).
     input_layer: str = "conv2d"
     subsampling_factor: int = 4
     stochastic_depth_rate: float = 0.0
@@ -178,36 +186,27 @@ def flagship_config() -> ASRConfig:
                      dtype="bfloat16")
 
 
+# The reference's built-in encoders that the port does not build yet.
+UNPORTED_ENCODERS = ("ebranchformer", "wav2vec2", "rnn", "vgg_rnn",
+                     "contextual_block_conformer")
+
+
 def unported_options(cfg: ASRConfig) -> List[str]:
     """The values of ``cfg`` that select a path not ported yet, each naming
     its ROADMAP.md queue 1 item; empty when the port builds ``cfg``."""
     todo = []
-    if cfg.encoder != "conformer":
-        todo.append(f"encoder {cfg.encoder!r} (the encoder choice: queue 1 "
-                    "items 9 and 15)")
+    if cfg.encoder in UNPORTED_ENCODERS:
+        todo.append(f"encoder {cfg.encoder!r} (the other encoders: queue 1 "
+                    "item 15)")
     if cfg.decoder != "transformer":
         todo.append(f"decoder {cfg.decoder!r} (rnn / lightconv decoders: "
-                    "queue 1 items 9 and 15)")
+                    "queue 1 item 15)")
     if cfg.preencoder or cfg.postencoder:
-        todo.append("preencoder / postencoder (queue 1 items 9 and 15)")
+        todo.append("preencoder / postencoder (queue 1 item 15)")
     if cfg.wav2vec2 is not None:
-        todo.append("wav2vec2 (the SSL encoder: queue 1 items 9 and 15)")
-    if cfg.input_layer != "conv2d" or cfg.subsampling_factor not in (
-            2, 4, 6, 8):
-        todo.append(f"input_layer {cfg.input_layer!r} x "
-                    f"{cfg.subsampling_factor} (queue 1 items 9 and 15)")
-    if cfg.input_feats or cfg.ssl_num_layers > 0:
-        todo.append("input_feats (feature dumps: queue 1 items 9 and 15)")
-    if cfg.interctc_layers or cfg.interctc_weight > 0 \
-            or cfg.self_conditioning:
-        todo.append("interctc_layers / self_conditioning (interCTC: queue 1 "
-                    "item 9)")
-    if cfg.moe_experts > 0:
-        todo.append("moe_experts > 0 (MoE: queue 1 item 9)")
-    if cfg.stochastic_depth_rate > 0:
-        todo.append("stochastic_depth_rate > 0 (queue 1 item 9)")
-    if cfg.remat_encoder:
-        todo.append("remat_encoder (queue 1 item 9)")
+        todo.append("wav2vec2 (the SSL encoder: queue 1 item 15)")
+    if cfg.ssl_num_layers > 0:
+        todo.append("ssl_num_layers > 0 (SSL feature dumps: queue 1 item 15)")
     if cfg.use_tcpgen:
         todo.append("use_tcpgen (TCPGen: queue 1 item 10)")
     if cfg.use_wpe or cfg.use_beamformer:
@@ -215,38 +214,72 @@ def unported_options(cfg: ASRConfig) -> List[str]:
                     "queue 1 items 15 and 16)")
     if cfg.num_ref > 1:
         todo.append("num_ref > 1 (PIT: queue 1 items 15 and 16)")
-    if cfg.frontend.type != "default":
-        todo.append(f"frontend.type {cfg.frontend.type!r} (queue 1 item 9)")
-    if cfg.frontend.delta_order > 0:
-        todo.append("frontend.delta_order > 0 (delta features: queue 1 "
-                    "item 9)")
     return todo
 
 
-def build_encoder(cfg: ASRConfig) -> ConformerEncoder:
-    """The Conformer encoder of ``cfg`` (fp32 parameters); raises for a
-    value of ``cfg`` that selects a path not ported yet."""
+def input_dim(cfg: ASRConfig) -> int:
+    """The width of the features the encoder takes: the dump's with
+    ``input_feats``, else the frontend's (ops/frontend.py:feature_dim)."""
+    if cfg.input_feats:
+        return cfg.input_feats_dim or cfg.frontend.n_mels
+    return feature_dim(cfg.frontend)
+
+
+def build_encoder(cfg: ASRConfig) -> nn.Module:
+    """The encoder of ``cfg`` (fp32 parameters), chosen by ``cfg.encoder``
+    as the reference's build_encoder chooses it; raises for a value of
+    ``cfg`` that selects a path not ported yet. Its forward returns (hs,
+    h_lengths, taps)."""
     todo = unported_options(cfg)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
-    return ConformerEncoder(
-        cfg.frontend.n_mels, cfg.d_model, cfg.n_head, cfg.d_ff,
-        cfg.num_encoder_blocks, cfg.kernel_size, chunk_size=cfg.chunk_size,
-        left_chunks=cfg.left_chunks, flash=cfg.flash_attention,
-        subsampling_factor=cfg.subsampling_factor, fused_conv=cfg.fused_conv,
-        dropout_rate=cfg.dropout_rate)
+    c, idim = cfg, input_dim(cfg)
+    if c.encoder == "conformer":
+        return ConformerEncoder(
+            idim, c.d_model, c.n_head, c.d_ff, c.num_encoder_blocks,
+            c.kernel_size, chunk_size=c.chunk_size,
+            left_chunks=c.left_chunks, flash=c.flash_attention,
+            subsampling_factor=c.subsampling_factor, fused_conv=c.fused_conv,
+            dropout_rate=c.dropout_rate, interctc_layers=c.interctc_layers,
+            remat=c.remat_encoder, moe_experts=c.moe_experts,
+            moe_every=c.moe_every,
+            moe_capacity_factor=c.moe_capacity_factor,
+            input_layer=c.input_layer,
+            stochastic_depth_rate=c.stochastic_depth_rate,
+            self_cond_vocab=c.vocab_size if c.self_conditioning else 0)
+    if c.encoder == "transformer":
+        return TransformerEncoder(idim, c.d_model, c.n_head, c.d_ff,
+                                  c.num_encoder_blocks, c.dropout_rate)
+    if c.encoder == "longformer":
+        # The sliding-window conformer: the band is an additive mask over
+        # the eager attention, as the reference's (flash "off").
+        return ConformerEncoder(
+            idim, c.d_model, c.n_head, c.d_ff, c.num_encoder_blocks,
+            c.kernel_size, flash="off", dropout_rate=c.dropout_rate,
+            interctc_layers=c.interctc_layers,
+            attention_window=c.attention_window, remat=c.remat_encoder)
+    if c.encoder in encoders:
+        return encoders.get(c.encoder)(c, idim)
+    raise ValueError(
+        f"unknown encoder {c.encoder!r}; builtins: conformer, transformer, "
+        f"longformer; registered: {encoders.choices()}")
 
 
-def encode_speech(cfg: ASRConfig, encoder: ConformerEncoder,
+def encode_speech(cfg: ASRConfig, encoder: nn.Module,
                   speech: torch.Tensor, speech_lengths: torch.Tensor,
                   mvn_stats=None, train: bool = False,
                   generator: Optional[torch.Generator] = None):
-    """Frontend -> SpecAug (when ``train`` with ``cfg.specaug`` and a
+    """Frontend (or, with ``cfg.input_feats``, the [B, T, D] feature dump
+    as given) -> SpecAug (when ``train`` with ``cfg.specaug`` and a
     ``generator``) -> MVN -> ``encoder`` (with ``train``, dropout at
     ``cfg.dropout_rate`` drawn from ``generator``), in ``cfg.dtype``: the
-    encode of every model built on the ASR stack."""
-    feats, feat_lengths = default_frontend(speech, speech_lengths,
-                                           cfg.frontend)
+    encode of every model built on the ASR stack. Returns the encoder's
+    (hs, h_lengths, taps)."""
+    if cfg.input_feats:
+        feats, feat_lengths = speech.float(), speech_lengths
+    else:
+        feats, feat_lengths = default_frontend(speech, speech_lengths,
+                                               cfg.frontend)
     if train and cfg.specaug is not None and generator is not None:
         feats = specaug(feats, feat_lengths, cfg.specaug, generator)
     if cfg.use_mvn == "global" and mvn_stats is not None:
@@ -317,12 +350,16 @@ class ASRModel(nn.Module):
                *, train: bool = False,
                generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Raw waveform [B, N] -> (hs [B, T', D], h_lengths [B]). With
-        ``train``, ``cfg.specaug`` and a ``generator`` the features are
-        augmented, and with ``train`` the encoder drops at
-        ``cfg.dropout_rate`` (every draw from the generator)."""
-        return encode_speech(self.cfg, self.encoder, speech, speech_lengths,
-                             mvn_stats, train, generator)
+        """Raw waveform [B, N] (or, with ``cfg.input_feats``, features [B,
+        T, D]) -> (hs [B, T', D], h_lengths [B]); self-conditioning, if
+        any, runs inside the encoder. With ``train``, ``cfg.specaug`` and
+        a ``generator`` the features are augmented, and with ``train`` the
+        encoder drops at ``cfg.dropout_rate`` (every draw from the
+        generator)."""
+        hs, h_lengths, _ = encode_speech(self.cfg, self.encoder, speech,
+                                         speech_lengths, mvn_stats, train,
+                                         generator)
+        return hs, h_lengths
 
     def ctc_logprobs(self, hs: torch.Tensor) -> torch.Tensor:
         return torch.log_softmax(self.ctc_proj(hs).float(), dim=-1)
@@ -346,20 +383,40 @@ class ASRModel(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 mvn_stats=None):
         """Training forward -> (loss, stats) with loss_ctc, loss_att, acc,
-        loss: ctc_weight * CTC + (1 - ctc_weight) * label-smoothed CE.
-        ``generator`` draws SpecAug's masks and the encoder's dropout (its
-        kernels' seeds) when ``train``. The decoder takes no dropout, as the
-        reference's (ROADMAP.md queue 3)."""
+        loss, and loss_moe_aux (MoE) and loss_interctc (interCTC) where
+        they apply: moe_aux_weight * aux + ctc_weight * ((1 -
+        interctc_weight) * CTC + interctc_weight * mean tap CTC) + (1 -
+        ctc_weight) * label-smoothed CE, as the reference assembles it.
+        Each tap's CTC is K4 then K1 from its after_norm states, or, with
+        self-conditioning, K1 from its logits (ops/ctc.py:
+        ctc_loss_mean_logits). ``generator`` draws SpecAug's masks and the
+        encoder's dropout (its kernels' seeds) and stochastic depth when
+        ``train``. The decoder takes no dropout, as the reference's
+        (ROADMAP.md queue 3)."""
         c = self.cfg
-        if c.interctc_weight > 0.0:
-            raise NotImplementedError("ASRModel: interCTC is not ported yet")
-        hs, h_lengths = self.encode(speech, speech_lengths, mvn_stats,
-                                    train=train, generator=generator)
+        hs, h_lengths, taps = encode_speech(
+            c, self.encoder, speech, speech_lengths, mvn_stats, train,
+            generator)
         stats = {}
         loss = torch.zeros((), device=hs.device)
+        moe_aux = dict(taps).get("moe_aux")
+        taps = [(k, x) for k, x in taps if k != "moe_aux"]
+        if moe_aux is not None and c.moe_aux_weight > 0.0:
+            stats["loss_moe_aux"] = moe_aux
+            loss = loss + c.moe_aux_weight * moe_aux
         if c.ctc_weight > 0.0:
             loss_ctc = self._ctc_loss_mean(hs, h_lengths, text, text_lengths)
             stats["loss_ctc"] = loss_ctc
+            if c.interctc_weight > 0.0 and taps:
+                inter = sum(
+                    ctc_loss_mean_logits(xs, h_lengths, text.clamp_min(0),
+                                         text_lengths, c.blank_id)
+                    if c.self_conditioning else
+                    self._ctc_loss_mean(xs, h_lengths, text, text_lengths)
+                    for _, xs in taps) / len(taps)
+                stats["loss_interctc"] = inter
+                loss_ctc = ((1.0 - c.interctc_weight) * loss_ctc
+                            + c.interctc_weight * inter)
             loss = loss + c.ctc_weight * loss_ctc
         if c.ctc_weight < 1.0:
             text_lengths = text_lengths.to(text.device)

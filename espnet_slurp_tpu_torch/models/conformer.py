@@ -2,33 +2,41 @@
 
 Macaron FFN halves (kernel K2 where it takes the widths), rel-pos MHSA
 (kernel K3), a depthwise conv module with LayerNorm (with ``fused_conv``,
-kernel K6), and Conv2d subsampling. Unlike the reference's TPU path, T' is not padded to a tile
-multiple: the kernels mask the ragged edge. ``fused_conv`` is the port's
-form of the reference's ``ESPNET_TPU_FUSED_CONV=1`` (models/conformer.py:
-184-191): off by default, and in effect only on the kernel path
-(``flash != "off"``). MoE, interCTC, self-conditioning, stochastic depth,
-BatchNorm and remat wait for later slices. Dropout (``dropout_rate``, when
-``train``) acts where the reference's does: on the FFN hidden (in K2 or
-after the eager swish) and on the attention probabilities (in K3 or on the
-eager softmax); each kernel call draws its seed from the generator passed
-down from the model.
+kernel K6), and Conv2d subsampling or a linear input layer. Unlike the
+reference's TPU path, T' is not padded to a tile multiple: the kernels
+mask the ragged edge (so the MoE's capacity follows the unpadded T', as
+on the reference's CPU path). ``fused_conv`` is the port's form of the
+reference's ``ESPNET_TPU_FUSED_CONV=1`` (models/conformer.py:184-191): off
+by default, and in effect only on the kernel path (``flash != "off"``).
+The encoder's options are the reference's: routed MoE second FFNs
+(models/moe.py) on every ``moe_every``-th block, stochastic depth, the
+interCTC taps through the shared ``after_norm`` and self-conditioning,
+``attention_window`` (the longformer's band, on the eager attention) and
+``remat``. BatchNorm in the conv module waits for a later slice. Dropout
+(``dropout_rate``, when ``train``) acts where the reference's does: on the
+FFN hidden (in K2 or after the eager swish) and on the attention
+probabilities (in K3 or on the eager softmax); each kernel call draws its
+seed from the generator passed down from the model.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.kernels.conv_module import fused_conv_module
 from ..ops.kernels.ffn import fused_ffn, fused_ffn_takes
 from ..ops.kernels.philox import draw_seed
-from ..ops.masks import attention_bias, chunk_mask, length_mask
+from ..ops.masks import attention_bias, band_mask, chunk_mask, length_mask
 from .attention import RelPosMultiHeadAttention
 from .embedding import Conv2dSubsampling, rel_positional_embedding
 from .layers import Conv1d, LayerNorm, Linear, dropout
+from .moe import MoEFeedForward
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default epsilon
 
@@ -113,11 +121,17 @@ class ConvModule(nn.Module):
 
 
 class ConformerBlock(nn.Module):
+    """Macaron FFN half, rel-pos MHSA, conv module, second FFN half (a
+    routed MoE with ``moe_experts`` > 0, when forward returns (x, aux)),
+    then ``norm_final``. ``coeff`` (stochastic depth's 1 / (1 - rate) when
+    training) scales every residual branch."""
+
     def __init__(self, d_model: int, n_head: int, d_ff: int,
                  kernel_size: int = 31, causal_conv: bool = False,
                  use_flash: bool = False, chunk_size: int = 0,
                  left_chunks: int = -1, fused_conv: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
         ln = lambda: LayerNorm(d_model, eps=LN_EPS)
@@ -130,32 +144,82 @@ class ConformerBlock(nn.Module):
         self.conv = ConvModule(d_model, kernel_size, causal_conv,
                                fused=fused_conv and use_flash)
         self.norm_ff2 = ln()
-        self.ff2 = FeedForward(d_model, d_ff, use_flash, dropout_rate)
+        if moe_experts > 0:
+            self.moe = MoEFeedForward(d_model, d_ff, moe_experts,
+                                      moe_capacity_factor)
+        else:
+            self.ff2 = FeedForward(d_model, d_ff, use_flash, dropout_rate)
         self.norm_final = ln()
 
     def forward(self, x, pos_emb, mask_bias, pad_mask, lengths=None,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None):
-        x = x + 0.5 * self.ff1(self.norm_ff1(x), train, generator)
-        x = x + self.self_attn(self.norm_mha(x), pos_emb, mask_bias,
-                               lengths=lengths, chunk_size=self.chunk_size,
-                               left_chunks=self.left_chunks, train=train,
-                               generator=generator)
-        x = x + self.conv(self.norm_conv(x), pad_mask, lengths)
-        x = x + 0.5 * self.ff2(self.norm_ff2(x), train, generator)
+                generator: Optional[torch.Generator] = None,
+                coeff: float = 1.0):
+        x = x + coeff * 0.5 * self.ff1(self.norm_ff1(x), train, generator)
+        x = x + coeff * self.self_attn(
+            self.norm_mha(x), pos_emb, mask_bias, lengths=lengths,
+            chunk_size=self.chunk_size, left_chunks=self.left_chunks,
+            train=train, generator=generator)
+        x = x + coeff * self.conv(self.norm_conv(x), pad_mask, lengths)
+        h = self.norm_ff2(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h, pad_mask)
+            return self.norm_final(x + coeff * 0.5 * y), aux
+        x = x + coeff * 0.5 * self.ff2(h, train, generator)
         return self.norm_final(x)
 
 
+def _replay_draws(generator: Optional[torch.Generator]):
+    """``torch.utils.checkpoint``'s context_fn for a block that draws from
+    ``generator`` (its K2 / K3 seeds, the eager dropout masks): checkpoint
+    restores the default RNGs only, so the recompute sets the generator
+    back to its state at the block's forward, then returns it to where it
+    was, and the recompute draws the forward's masks."""
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward():
+        if generator is not None:
+            saved["state"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        if generator is None:
+            yield
+            return
+        now = generator.get_state()
+        generator.set_state(saved["state"])
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return forward(), recompute()
+
+
 class ConformerEncoder(nn.Module):
-    """Conv2d subsampling + N Conformer blocks + after_norm.
+    """Conv2d subsampling (or ``input_layer="linear"``: Linear +
+    LayerNorm, no time reduction) + N Conformer blocks + after_norm.
 
     forward: (feats [B, T, idim], feat_lengths [B]) -> (hs [B, T', D] with
-    padded frames zeroed, h_lengths [B]). ``flash``: "auto"/"on" route the
-    FFNs and attention through kernels K2/K3 (whose plain versions run on
-    the CPU); "off" takes the eager paths with an additive mask bias.
-    ``fused_conv`` (kernel path only) runs each conv module through K6.
-    With ``train`` the FFN hiddens and attention probabilities take
-    ``dropout_rate``'s dropout, drawn from ``generator``.
+    padded frames zeroed, h_lengths [B], taps). ``taps`` holds (layer,
+    after_norm(x)) after each block of ``interctc_layers`` (with
+    ``self_cond_vocab`` > 0: (layer, logits [B, T', V]) of the shared
+    ``sc_ctc`` head, whose softmax ``sc_cond`` projects back into the
+    stream), not zeroed at padded frames, then ("moe_aux", the summed
+    load-balance loss) when ``moe_experts`` > 0, as the reference's list.
+    ``flash``: "auto"/"on" route the FFNs and attention through kernels
+    K2/K3 (whose plain versions run on the CPU); "off" and
+    ``attention_window`` > 0 take the eager paths with an additive mask
+    bias. ``fused_conv`` (kernel path only) runs each conv module through
+    K6. With ``train`` the FFN hiddens and attention probabilities take
+    ``dropout_rate``'s dropout, drawn from ``generator``, and each block
+    is kept with probability 1 - ``stochastic_depth_rate`` (one draw on
+    the device a block for the whole batch; the block is computed either
+    way and selected, as the reference does). ``remat`` recomputes each
+    block in the backward (torch.utils.checkpoint) with the forward's
+    draws.
     """
 
     def __init__(self, idim: int, d_model: int = 256, n_head: int = 4,
@@ -163,28 +227,59 @@ class ConformerEncoder(nn.Module):
                  kernel_size: int = 31, chunk_size: int = 0,
                  left_chunks: int = -1, flash: str = "auto",
                  subsampling_factor: int = 4, fused_conv: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, interctc_layers=(),
+                 attention_window: int = 0, remat: bool = False,
+                 moe_experts: int = 0, moe_every: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 input_layer: str = "conv2d",
+                 stochastic_depth_rate: float = 0.0,
+                 self_cond_vocab: int = 0):
         super().__init__()
         if flash not in ("auto", "on", "off"):
             raise ValueError(f"flash must be auto|on|off, got {flash!r}")
+        if input_layer not in ("conv2d", "linear"):
+            raise ValueError(f"input_layer must be conv2d|linear, got "
+                             f"{input_layer!r}")
         self.d_model, self.num_blocks = d_model, num_blocks
         self.chunk_size, self.left_chunks = chunk_size, left_chunks
-        self.use_flash = flash != "off"
+        self.attention_window = attention_window
+        self.use_flash = flash != "off" and attention_window <= 0
         self.subsampling_factor = subsampling_factor
-        self.embed = Conv2dSubsampling(idim, d_model, subsampling_factor)
+        self.input_layer = input_layer
+        self.interctc_layers = tuple(interctc_layers)
+        self.remat, self.moe_experts = remat, moe_experts
+        self.stochastic_depth_rate = stochastic_depth_rate
+        if input_layer == "linear":
+            self.embed = Linear(idim, d_model)
+            self.embed_norm = LayerNorm(d_model, eps=LN_EPS)
+        else:
+            self.embed = Conv2dSubsampling(idim, d_model, subsampling_factor)
         for i in range(num_blocks):
+            moe_e = moe_experts if (
+                moe_experts > 0 and (i + 1) % max(moe_every, 1) == 0) else 0
             self.add_module(f"block_{i}", ConformerBlock(
                 d_model, n_head, d_ff, kernel_size,
                 causal_conv=chunk_size > 0, use_flash=self.use_flash,
                 chunk_size=chunk_size, left_chunks=left_chunks,
-                fused_conv=fused_conv, dropout_rate=dropout_rate))
+                fused_conv=fused_conv, dropout_rate=dropout_rate,
+                moe_experts=moe_e, moe_capacity_factor=moe_capacity_factor))
         self.after_norm = LayerNorm(d_model, eps=LN_EPS)
+        self.self_cond = self_cond_vocab > 0 and bool(self.interctc_layers)
+        if self.self_cond:
+            # One CTC head shared by the conditioning and the model's
+            # intermediate CTC loss, as the reference's.
+            self.sc_ctc = Linear(d_model, self_cond_vocab)
+            self.sc_cond = Linear(self_cond_vocab, d_model)
 
     def forward(self, feats, feat_lengths, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        x = self.embed(feats)
-        olens = Conv2dSubsampling.out_length(feat_lengths,
-                                             self.subsampling_factor)
+        if self.input_layer == "linear":
+            x = self.embed_norm(self.embed(feats))
+            olens = feat_lengths
+        else:
+            x = self.embed(feats)
+            olens = Conv2dSubsampling.out_length(feat_lengths,
+                                                 self.subsampling_factor)
         t = x.shape[1]
         x = x * math.sqrt(self.d_model)
         pos_emb = rel_positional_embedding(t, self.d_model, x.dtype, x.device)
@@ -195,10 +290,47 @@ class ConformerEncoder(nn.Module):
             if self.chunk_size > 0:
                 att_mask = att_mask & chunk_mask(
                     t, self.chunk_size, self.left_chunks, x.device)[None, None]
+            if self.attention_window > 0:
+                att_mask = att_mask & band_mask(
+                    t, self.attention_window, x.device)[None, None]
             bias = attention_bias(att_mask)
+        sd_rate = self.stochastic_depth_rate if train else 0.0
+        coeff = 1.0 / (1.0 - sd_rate) if sd_rate > 0.0 else 1.0
+        remat = self.remat and torch.is_grad_enabled()
+        taps = []
+        moe_aux = torch.zeros((), device=x.device)
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, pos_emb, bias, pad,
-                                            lengths=olens, train=train,
-                                            generator=generator)
+            block = getattr(self, f"block_{i}")
+            args = (x, pos_emb, bias, pad, olens, train, generator, coeff)
+            if remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    block, *args, use_reentrant=False,
+                    context_fn=lambda: _replay_draws(generator))
+            else:
+                out = block(*args)
+            y, aux = out if isinstance(out, tuple) else (out, None)
+            if sd_rate > 0.0:
+                # Whole-batch layer drop: one draw from the generator (on
+                # the device when the generator is there: no sync).
+                where = x.device if generator is None else generator.device
+                keep = (torch.rand((), generator=generator, device=where)
+                        >= sd_rate).to(x.device)
+                y = torch.where(keep, y, x)
+                if aux is not None:
+                    aux = torch.where(keep, aux, torch.zeros_like(aux))
+            x = y
+            if aux is not None:
+                moe_aux = moe_aux + aux
+            if (i + 1) in self.interctc_layers:
+                if self.self_cond:
+                    logits = self.sc_ctc(self.after_norm(x))
+                    taps.append((i + 1, logits))
+                    x = x + self.sc_cond(torch.softmax(
+                        logits.float(), dim=-1).to(x.dtype))
+                else:
+                    taps.append((i + 1, self.after_norm(x)))
         x = self.after_norm(x)
-        return torch.where(pad[..., None], x, torch.zeros_like(x)), olens
+        x = torch.where(pad[..., None], x, torch.zeros_like(x))
+        if self.moe_experts > 0:
+            taps.append(("moe_aux", moe_aux))
+        return x, olens, taps

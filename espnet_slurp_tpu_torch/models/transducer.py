@@ -195,8 +195,10 @@ class TransducerModel(nn.Module):
                generator: Optional[torch.Generator] = None):
         """Raw waveform [B, N] -> (hs [B, T', D], h_lengths [B]), as
         ASRModel.encode."""
-        return encode_speech(self.cfg.asr, self.encoder, speech,
-                             speech_lengths, mvn_stats, train, generator)
+        hs, h_lengths, _ = encode_speech(self.cfg.asr, self.encoder, speech,
+                                         speech_lengths, mvn_stats, train,
+                                         generator)
+        return hs, h_lengths
 
     def forward(self, speech, speech_lengths, text, text_lengths, *,
                 train: bool = False,

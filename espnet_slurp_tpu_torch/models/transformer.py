@@ -1,7 +1,11 @@
-"""Transformer decoder with an explicit KV cache for incremental decoding.
+"""Transformer decoder with an explicit KV cache for incremental decoding,
+and the abs-pos Transformer encoder.
 
 Port of espnet_slurp_tpu/models/transformer.py (CachedAttention, the relu
-FeedForward, DecoderLayer and TransformerDecoder). The cache is a dict of
+FeedForward, DecoderLayer, TransformerDecoder and TransformerEncoder; the
+encoder has no kernel of its own: its attention is the eager
+models/attention.py:MultiHeadAttention, as the reference's has no Pallas
+call). The cache is a dict of
 fixed-shape [B, Lmax, H, Dh] tensors per layer. Unlike the reference's pure
 functions, ``step`` writes the new key/value row into the cache tensors in
 place (and returns them), which saves a copy of every layer's cache per step.
@@ -16,8 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masks import attention_bias, causal_mask, length_mask
+from .attention import MultiHeadAttention
 from .conformer import LN_EPS
-from .embedding import abs_positional_encoding, sinusoid_table
+from .embedding import (Conv2dSubsampling, abs_positional_encoding,
+                        sinusoid_table)
 from .layers import LayerNorm, Linear
 
 
@@ -176,3 +182,40 @@ class TransformerDecoder(nn.Module):
             x, c["k"], c["v"] = layer.step(x, c["k"], c["v"], step_idx,
                                            self_bias, m["k"], m["v"], mem_bias)
         return self.output(self.after_norm(x)[:, 0]), cache
+
+
+class TransformerEncoder(nn.Module):
+    """Conv2d x4 subsampling, absolute sinusoidal positions, N pre-norm
+    blocks (MHSA, relu FFN), after_norm; ``dropout_rate`` on the attention
+    probabilities when ``train``, as the reference's. forward: (feats [B,
+    T, idim], feat_lengths) -> (hs [B, T', D] with padded frames zeroed,
+    h_lengths, []): no interCTC taps, as the reference's."""
+
+    def __init__(self, idim: int, d_model: int = 256, n_head: int = 4,
+                 d_ff: int = 2048, num_blocks: int = 12,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.num_blocks = num_blocks
+        self.embed = Conv2dSubsampling(idim, d_model)
+        for i in range(num_blocks):
+            self.add_module(f"norm1_{i}", LayerNorm(d_model, eps=LN_EPS))
+            self.add_module(f"self_attn_{i}", MultiHeadAttention(
+                n_head, d_model, dropout_rate))
+            self.add_module(f"norm2_{i}", LayerNorm(d_model, eps=LN_EPS))
+            self.add_module(f"ff1_{i}", Linear(d_model, d_ff))
+            self.add_module(f"ff2_{i}", Linear(d_ff, d_model))
+        self.after_norm = LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, feats, feat_lengths, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = abs_positional_encoding(self.embed(feats), scale=True)
+        olens = Conv2dSubsampling.out_length(feat_lengths)
+        pad = length_mask(olens, x.shape[1])
+        bias = attention_bias(pad[:, None, None, :])
+        for i in range(self.num_blocks):
+            m = lambda name: getattr(self, f"{name}_{i}")
+            h = m("norm1")(x)
+            x = x + m("self_attn")(h, h, h, bias, train, generator)
+            x = x + m("ff2")(F.relu(m("ff1")(m("norm2")(x))))
+        x = self.after_norm(x)
+        return torch.where(pad[..., None], x, torch.zeros_like(x)), olens, []

@@ -23,6 +23,13 @@ def attention_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return torch.where(mask, zero, torch.full_like(zero, -1e9))
 
 
+def band_mask(size: int, window: int, device=None) -> torch.Tensor:
+    """[size, size] bool sliding-window mask: frame i sees the frames j
+    with |i - j| <= window (the longformer encoder's attention_window)."""
+    ar = torch.arange(size, device=device)
+    return (ar[:, None] - ar[None, :]).abs() <= window
+
+
 def chunk_mask(size: int, chunk_size: int, left_chunks: int = -1,
                device=None) -> torch.Tensor:
     """[size, size] bool streaming mask: frame i sees its own chunk and up to

@@ -5,8 +5,9 @@ The reference's stage numbers:
 
   1  data validation            (wav.scp / text agree)
   2  speed perturbation         (resample_sinc copies, e.g. x0.9/1.0/1.1)
-  3  feature dump               (feats_type fbank / fbank_pitch: not
-                                 ported yet, raises)
+  3  feature dump               (feats_type fbank: the frontend on the
+                                 device, .npy per utterance + feats.scp;
+                                 fbank_pitch: not ported yet, raises)
   4  length filtering           (min / max audio seconds)
   5  token list / BPE training
   7  LM training, 8 perplexity  (train_lm: not ported yet, raises)
@@ -21,7 +22,7 @@ The reference's stage numbers:
 
 ``publish`` / ``fetch`` keep a local model registry (a directory with an
 index of sha256 digests), with no network, as the reference's do. The
-stages that need the card (10-12 and 15) run on ``device``: the card
+stages that need the card (3, 10-12 and 15) run on ``device``: the card
 unless the caller passes e.g. "cpu"; with no card and no device the
 pipeline raises before any stage runs. A stage never skips on an error.
 """
@@ -39,8 +40,12 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
 from ..data.fileio import (DatadirWriter, load_wav, read_2column_text,
                            write_wav)
+from ..ops.frontend import default_frontend, feature_dim
 from ..ops.resample import speed_perturb
 from ..tasks.asr import ASRTask, ASRTaskConfig, Speech2Text, load_task_config
 from ..utils.config import save_yaml
@@ -53,8 +58,8 @@ log = logging.getLogger("espnet_slurp_tpu_torch")
 @dataclasses.dataclass
 class PipelineOptions:
     speed_perturb_factors: tuple = ()  # e.g. (0.9, 1.0, 1.1)
-    # "raw" | "fbank" | "fbank_pitch" (asr.sh feats_type): only raw is
-    # ported; the others raise at stage 3.
+    # "raw" | "fbank" | "fbank_pitch" (asr.sh feats_type): fbank_pitch
+    # raises at stage 3.
     feats_type: str = "raw"
     min_audio_sec: float = 0.05
     max_audio_sec: float = 30.0
@@ -74,9 +79,6 @@ def refuse_unported_stages(opts: PipelineOptions, stage: int,
     item."""
     on = lambda s: stage <= s <= stop_stage
     todo = []
-    if on(3) and opts.feats_type == "fbank":
-        todo.append("stage 3 feats_type 'fbank' (feature dumps and the "
-                    "model's input_feats: queue 1 item 9)")
     if on(3) and opts.feats_type == "fbank_pitch":
         todo.append("stage 3 feats_type 'fbank_pitch' (ops/pitch.py: queue "
                     "1 item 15)")
@@ -142,13 +144,46 @@ def stage2_speed_perturb(src_dir: str | Path, out_dir: str | Path,
     return out
 
 
+@torch.inference_mode()
+def stage3_dump_feats(src_dir: str | Path, out_dir: str | Path,
+                      frontend_cfg, device=None) -> Path:
+    """Stage 3 with feats_type fbank (asr.sh:472-543): the frontend the raw
+    path runs (ops/frontend.py:default_frontend, on ``device``) computes
+    each utterance's [T, D] features, saved as out_dir/feats/<uid>.npy
+    and listed in feats.scp; text is copied and wav.scp kept, so later
+    stages still reach the audio."""
+    src, out = Path(src_dir), Path(out_dir)
+    feat_dir = out / "feats"
+    feat_dir.mkdir(parents=True, exist_ok=True)
+    wavs = read_2column_text(src / "wav.scp")
+    texts = read_2column_text(src / "text")
+    dev = resolve_device(device)
+    with DatadirWriter(out) as w:
+        for uid, path in wavs.items():
+            x, _ = load_wav(path)
+            feats, flens = default_frontend(
+                torch.as_tensor(np.asarray(x, np.float32), device=dev)[None],
+                torch.tensor([len(x)], device=dev), frontend_cfg)
+            npy = feat_dir / f"{uid}.npy"
+            np.save(npy, feats[0, :int(flens[0])].cpu().numpy())
+            w["feats.scp"][uid] = str(npy)
+            w["wav.scp"][uid] = path
+            w["text"][uid] = texts[uid]
+    log.info("stage3: dumped fbank features for %d utts -> %s", len(wavs),
+             out)
+    return out
+
+
 def stage4_filter(src_dir: str | Path, out_dir: str | Path,
                   min_sec: float, max_sec: float, fs: int) -> Path:
     """Length filtering (asr.sh:575): keeps utterances of [min_sec,
-    max_sec] seconds with a non-empty text."""
+    max_sec] seconds with a non-empty text (and their feats.scp entries,
+    after a stage-3 dump)."""
     src, out = Path(src_dir), Path(out_dir)
     wavs = read_2column_text(src / "wav.scp")
     texts = read_2column_text(src / "text")
+    feats = (read_2column_text(src / "feats.scp")
+             if (src / "feats.scp").exists() else None)
     kept = 0
     with DatadirWriter(out) as w:
         for uid, path in wavs.items():
@@ -156,6 +191,8 @@ def stage4_filter(src_dir: str | Path, out_dir: str | Path,
             if min_sec <= len(x) / sr <= max_sec and texts[uid].strip():
                 w["wav.scp"][uid] = path
                 w["text"][uid] = texts[uid]
+                if feats is not None:
+                    w["feats.scp"][uid] = feats[uid]
                 kept += 1
     log.info("stage4: kept %d/%d utts", kept, len(wavs))
     return out
@@ -212,6 +249,32 @@ def run_pipeline(cfg: ASRTaskConfig, opts: PipelineOptions = PipelineOptions(),
             train_dir, work / "train_sp", opts.speed_perturb_factors, opts.fs)
         seconds[2] = clock() - t0
 
+    valid_dir = cfg.data.valid_dir
+    if on(3) and opts.feats_type == "fbank":
+        t0 = clock()
+        # The dumped dirs keep the source's basename, so that the decode
+        # and score keys (wer_<dirname>) do not change with feats_type.
+        train_dir = stage3_dump_feats(train_dir, work / "fbank" / "train",
+                                      cfg.model.frontend, dev)
+        valid_dir = str(stage3_dump_feats(
+            cfg.data.valid_dir, work / "fbank" / Path(valid_dir).name,
+            cfg.model.frontend, dev))
+        # The task on the dump: the npy loader, the model past the
+        # frontend, length buckets in frames. The dump's width is the
+        # frontend's (the reference writes n_mels, which its flax layers
+        # ignore; the port's input layer is built to it).
+        cfg = dataclasses.replace(
+            cfg,
+            model=dataclasses.replace(
+                cfg.model, input_feats=True,
+                input_feats_dim=feature_dim(cfg.model.frontend)),
+            data=dataclasses.replace(
+                cfg.data, feats_type="fbank",
+                speech_bucket_multiple=max(
+                    cfg.data.speech_bucket_multiple
+                    // cfg.model.frontend.hop_length, 16)))
+        seconds[3] = clock() - t0
+
     if on(4):
         t0 = clock()
         train_dir = stage4_filter(train_dir, work / "train_filtered",
@@ -220,7 +283,8 @@ def run_pipeline(cfg: ASRTaskConfig, opts: PipelineOptions = PipelineOptions(),
         seconds[4] = clock() - t0
 
     cfg = dataclasses.replace(
-        cfg, data=dataclasses.replace(cfg.data, train_dir=str(train_dir)))
+        cfg, data=dataclasses.replace(cfg.data, train_dir=str(train_dir),
+                                      valid_dir=str(valid_dir)))
 
     if on(5):
         t0 = clock()
@@ -233,7 +297,8 @@ def run_pipeline(cfg: ASRTaskConfig, opts: PipelineOptions = PipelineOptions(),
         t0 = clock()
         tokenizer, converter, _ = ASRTask.prepare_vocab(cfg)
         ds = ASRTask.build_dataset(str(train_dir), tokenizer, converter,
-                                   text_cleaner=cfg.data.text_cleaner)
+                                   text_cleaner=cfg.data.text_cleaner,
+                                   feats_type=cfg.data.feats_type)
         factory = ASRTask.build_iter_factory(cfg, ds, shuffle=False)
         collect_stats(factory(1), cfg.model.frontend, exp / "stats",
                       input_feats=cfg.model.input_feats, device=dev)

@@ -14,11 +14,15 @@ The YAML layout is the reference's:
     data:    {DataConfig fields}
     max_epoch, keep_nbest, ...: the Trainer's options
 
-Config values that select paths not ported yet raise, naming their queue
-item in ROADMAP.md: ``model_arch: maskctc``, ``mbr.weight > 0``,
-``pipeline_stages > 1``, ``num_att_plot > 0``, ``data.resident_corpus``,
-``data.multichannel``, a ``data.feats_type`` other than ``raw``, and the
-model values of models/asr_model.py:unported_options.
+``data.feats_type: fbank`` trains on a stage-3 feature dump (feats.scp of
+.npy [T, D] matrices, the npy loader) with the model's ``input_feats``;
+Speech2Text then turns waveforms into the same features on the model's
+device before it decodes, as the reference's does. Config values that
+select paths not ported yet raise, naming their queue item in ROADMAP.md:
+``model_arch: maskctc``, ``mbr.weight > 0``, ``pipeline_stages > 1``,
+``num_att_plot > 0``, ``data.resident_corpus``, ``data.multichannel``,
+``data.feats_type`` ``fbank_pitch`` or ``ssl``, and the model values of
+models/asr_model.py:unported_options.
 
 Speech2Text pads as the reference does, because the STFT reflect-pads the
 padded [B, N] buffer and the padded length therefore changes the last frames
@@ -47,7 +51,9 @@ from ..data.tokenizer import (BpeTokenizer, TokenIDConverter,
 from ..decode.beam import BeamSearchConfig, batch_beam_search
 from ..decode.greedy import attention_greedy_decode
 from ..models.asr_model import ASRConfig, ASRModel, unported_options
+from ..models.moe import MoEFeedForward
 from ..models.transducer import LSTMLayer
+from ..ops.frontend import default_frontend
 from ..train.checkpoint import CKPT_FILE, CheckpointManager
 from ..train.optim import OptimConfig, build_optimizer
 from ..train.state import TrainState, make_eval_step, make_train_step
@@ -75,8 +81,10 @@ class DataConfig:
     # Multichannel audio (the reference's WPE/MVDR frontend path): not
     # ported yet, raises when set.
     multichannel: bool = False
-    # "raw" decodes wav.scp on the fly; the reference's feature dumps
-    # ("fbank", "fbank_pitch", "ssl") are not ported yet and raise.
+    # "raw" decodes wav.scp on the fly; "fbank" reads a stage-3 feature
+    # dump (feats.scp of .npy [T, D] matrices; pair with model.input_feats).
+    # "fbank_pitch" and "ssl" (pitch, SSL dumps) are not ported yet and
+    # raise.
     feats_type: str = "raw"
     batch_type: str = "numel"
     batch_size: int = 16
@@ -166,9 +174,9 @@ def refuse_unported(cfg: ASRTaskConfig) -> None:
     if cfg.data.multichannel:
         todo.append("data.multichannel (the WPE / beamformer frontends: "
                     "queue 1 item 15)")
-    if cfg.data.feats_type != "raw":
-        todo.append(f"data.feats_type {cfg.data.feats_type!r} (feature "
-                    "dumps and the model's input_feats: queue 1 item 9)")
+    if cfg.data.feats_type not in ("raw", "fbank"):
+        todo.append(f"data.feats_type {cfg.data.feats_type!r} (pitch and "
+                    "SSL feature dumps: queue 1 item 15)")
     todo += unported_options(cfg.model)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
@@ -228,8 +236,13 @@ class ASRTask:
 
     @staticmethod
     def build_dataset(data_dir: str, tokenizer, converter,
-                      text_cleaner: str = "") -> SpeechDataset:
-        streams = [(str(Path(data_dir) / "wav.scp"), "speech", "sound"),
+                      text_cleaner: str = "",
+                      feats_type: str = "raw") -> SpeechDataset:
+        """The speech stream is wav.scp, or with ``feats_type`` fbank the
+        dump's feats.scp (npy [T, D] matrices)."""
+        speech = (("feats.scp", "npy") if feats_type != "raw"
+                  else ("wav.scp", "sound"))
+        streams = [(str(Path(data_dir) / speech[0]), "speech", speech[1]),
                    (str(Path(data_dir) / "text"), "text", "text")]
         cleaner = TextCleaner(text_cleaner) if text_cleaner else None
         pre = CommonPreprocessor(tokenizer, converter, text_names=("text",),
@@ -339,8 +352,10 @@ class ASRTask:
         kernel's taps), their biases 0; LayerNorm scale 1, bias 0; Embedding
         N(0, 1 / features) (flax's Embed default); an LSTM layer as flax's
         OptimizedLSTMCell (input kernels lecun_normal, each gate's
-        recurrent kernel orthogonal, bias 0); the attention's pos_bias_u /
-        pos_bias_v 0. Any other parameter raises. Returns the model."""
+        recurrent kernel orthogonal, bias 0); the MoE's expert kernels [E,
+        in, out] lecun_normal with flax's fan_in of E x in, their biases
+        0; the attention's pos_bias_u / pos_bias_v 0. Any other parameter
+        raises. Returns the model."""
         gen = torch.Generator().manual_seed(seed)
         done = set()
         with torch.no_grad():
@@ -371,6 +386,15 @@ class ASRTask:
                         nn.init.orthogonal_(w, generator=gen)
                         gate.copy_(w)
                     m.bias_hh.zero_()
+                elif isinstance(m, MoEFeedForward):
+                    for w in (m.w1, m.w2):
+                        std = (w.shape[0] * w.shape[1]) ** -0.5 / _TRUNC_STD
+                        x = torch.empty(w.shape)
+                        nn.init.trunc_normal_(x, 0.0, std, -2 * std,
+                                              2 * std, generator=gen)
+                        w.copy_(x)
+                    m.b1.zero_()
+                    m.b2.zero_()
                 else:
                     continue
                 done.update(id(p) for p in m.parameters(recurse=False))
@@ -423,7 +447,8 @@ class ASRTask:
 
         train_ds, valid_ds = (
             cls.build_dataset(d, tokenizer, converter,
-                              text_cleaner=cfg.data.text_cleaner)
+                              text_cleaner=cfg.data.text_cleaner,
+                              feats_type=cfg.data.feats_type)
             for d in (cfg.data.train_dir, cfg.data.valid_dir))
         train_if = cls.build_iter_factory(cfg, train_ds, shuffle=True)
         valid_if = cls.build_iter_factory(cfg, valid_ds, shuffle=False)
@@ -449,15 +474,16 @@ class ASRTask:
 
 
 def pad_speech_batch(speeches: Sequence[np.ndarray], multiple: int = 4096):
-    """(buf [bb, n] float32, lens [bb] int32) padded as the reference pads:
-    bb the next power of two (padding rows get length 1), n =
-    bucket_length(longest, multiple)."""
+    """(buf [bb, n, ...] float32, lens [bb] int32) padded as the reference
+    pads: bb the next power of two (padding rows get length 1), n =
+    bucket_length(longest, multiple); feature matrices [T, D] keep their
+    trailing width."""
     b = len(speeches)
     bb = 1
     while bb < b:
         bb *= 2
     n = bucket_length(max(len(s) for s in speeches), multiple)
-    buf = np.zeros((bb, n), np.float32)
+    buf = np.zeros((bb, n) + np.shape(speeches[0])[1:], np.float32)
     lens = np.ones((bb,), np.int32)
     for i, s in enumerate(speeches):
         buf[i, :len(s)] = s
@@ -527,9 +553,22 @@ class Speech2Text:
         """(buf [bb, n] float32, lens [bb] int32): ``pad_speech_batch``."""
         return pad_speech_batch(speeches, self.speech_bucket_multiple)
 
+    def wav_to_feats(self, wav: np.ndarray) -> np.ndarray:
+        """[N] waveform -> [T, D] features as stage 3 dumps them (the
+        model's frontend on its device), for an ``input_feats`` model."""
+        dev = self.model.device
+        x = torch.as_tensor(np.asarray(wav, np.float32), device=dev)[None]
+        feats, flens = default_frontend(
+            x, torch.tensor([len(wav)], device=dev), self.model.cfg.frontend)
+        return feats[0, :int(flens[0])].cpu().numpy()
+
     @torch.inference_mode()
     def decode_batch(self, speeches: Sequence[np.ndarray]) -> List[str]:
-        """List of [N_i] waveforms -> list of texts, in one batched search."""
+        """List of [N_i] waveforms -> list of texts, in one batched search.
+        A model on a feature dump (``input_feats``) decodes the waveforms'
+        features (``wav_to_feats``)."""
+        if self.model.cfg.input_feats:
+            speeches = [self.wav_to_feats(s) for s in speeches]
         buf, lens = self.pad_batch(speeches)
         dev = self.model.device
         hs, h_lengths = self.model.encode(torch.from_numpy(buf).to(dev),

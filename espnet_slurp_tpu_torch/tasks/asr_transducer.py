@@ -11,7 +11,14 @@ the port's Speech2Text does (tasks/asr.py:pad_speech_batch).
 
 Config values that select paths not ported yet raise, naming their
 ROADMAP.md queue 1 item: ``model.use_tcpgen`` (item 10) and those of
-tasks/asr.py:refuse_unported.
+tasks/asr.py:refuse_unported. The reference's transducer builds its
+encoder from seven ASRConfig fields (models/transducer.py:112-115) and
+reads its features through the frontend, so the encoder options it
+ignores (MoE, interCTC, self-conditioning, stochastic depth, remat,
+``input_layer``, the encoder choice) and feature dumps raise here too
+(ROADMAP.md queue 3): a transducer with an MoE encoder would train
+without its aux loss, which the reference does not do either. The
+frontend's ``type`` and deltas, which its frontend reads, are taken.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from ..data.prefetch import prefetch_to_device
 from ..data.tokenizer import TokenIDConverter, build_tokenizer
 from ..decode.transducer_beam import SEARCHES, run_search
+from ..models.asr_model import ASRConfig
 from ..models.transducer import TransducerConfig, TransducerModel
 from ..train.checkpoint import CheckpointManager
 from ..train.optim import OptimConfig, build_optimizer
@@ -64,12 +72,33 @@ def _as_asr_cfg(cfg: TransducerTaskConfig) -> ASRTaskConfig:
                          max_epoch=cfg.max_epoch, keep_nbest=cfg.keep_nbest)
 
 
+def _encoder_options_the_reference_ignores(cfg: TransducerTaskConfig
+                                           ) -> List[str]:
+    a, d = cfg.model.asr, ASRConfig()
+    fields = ("encoder", "moe_experts", "interctc_layers", "interctc_weight",
+              "self_conditioning", "stochastic_depth_rate", "remat_encoder",
+              "input_layer", "input_feats")
+    out = [f"model.asr.{f}" for f in fields
+           if getattr(a, f) != getattr(d, f)]
+    if cfg.data.feats_type != "raw":
+        out.append("data.feats_type")
+    return out
+
+
 def refuse_unported_transducer(cfg: TransducerTaskConfig) -> None:
-    """Raises for a config value that selects a path not ported yet."""
+    """Raises for a config value that selects a path not ported yet, or an
+    encoder option that the reference's transducer ignores."""
     if cfg.model.use_tcpgen:
         raise NotImplementedError(
             "not ported yet: model.use_tcpgen (the KB-aware transducer, "
             "TCPGen in the loss: ROADMAP.md queue 1 item 10)")
+    ignored = _encoder_options_the_reference_ignores(cfg)
+    if ignored:
+        raise NotImplementedError(
+            "the transducer takes no " + ", ".join(ignored) + ": the "
+            "reference's transducer builds its encoder from seven fields "
+            "and its frontend, and ignores these (ROADMAP.md queue 3, the "
+            "transducer's refusals)")
     refuse_unported(_as_asr_cfg(cfg))
 
 

@@ -2,8 +2,9 @@
 the per-utterance shape file. Port of
 espnet_slurp_tpu/train/collect_stats.py.
 
-Each batch runs the default frontend on ``device`` (the card unless given,
-e.g. "cpu"); its masked fp32 ``sum`` and ``sum_square`` over the valid
+Each batch runs the frontend on ``device`` (the card unless given, e.g.
+"cpu"), or with ``input_feats`` takes the batch's dumped feature matrices
+as they are; the masked fp32 ``sum`` and ``sum_square`` over the valid
 frames come to the host and are accumulated in fp64 in batch order, as the
 reference accumulates them.
 """
@@ -28,13 +29,9 @@ def collect_stats(batches: Iterable[dict], frontend_cfg: FrontendConfig,
     """batches: host batches {speech, speech_lengths, (uids)}.
 
     Writes {output_dir}/feats_stats.npz (count, sum, sum_square) and
-    speech_shape ("<frames>,<n_mels>" per utterance); returns the stats.
-    ``input_feats`` (a feature dump in place of waveforms) is not ported
-    yet and raises."""
-    if input_feats:
-        raise NotImplementedError(
-            "collect_stats: input_feats (feature dumps) is not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
+    speech_shape ("<frames>,<n_mels>" per utterance, as the reference
+    writes it); returns the stats. With ``input_feats`` the batches' speech
+    is a [B, T, D] feature dump, aggregated directly."""
     dev = resolve_device(device)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -44,7 +41,10 @@ def collect_stats(batches: Iterable[dict], frontend_cfg: FrontendConfig,
     for batch in batches:
         speech = torch.as_tensor(np.asarray(batch["speech"])).to(dev)
         lens = torch.as_tensor(np.asarray(batch["speech_lengths"])).to(dev)
-        feats, flens = default_frontend(speech, lens, frontend_cfg)
+        if input_feats:
+            feats, flens = speech.float(), lens
+        else:
+            feats, flens = default_frontend(speech, lens, frontend_cfg)
         mask = length_mask(flens, feats.shape[1])[..., None]
         zero = torch.zeros((), device=dev)
         s = torch.where(mask, feats, zero).sum(dim=(0, 1))

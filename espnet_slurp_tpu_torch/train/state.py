@@ -16,7 +16,9 @@ Semantics kept from the reference:
 - a step whose loss or gradient norm is not finite, or (with
   ``spike_factor``, after step 20) whose norm exceeds spike_factor times
   the accepted-step EMA, changes neither the parameters nor the optimizer
-  state (moments and its "step" count); ``TrainState.step`` still counts it;
+  state (moments, its "step" count and, with ``accum_grad``, the running
+  mean and the mini-step count, as the reference's ``jnp.where`` over the
+  whole optax.MultiSteps state); ``TrainState.step`` still counts it;
 - the grad-norm EMA moves on accepted steps only;
 - ``lr_scale`` multiplies the final update; the EMA shadow follows the
   (possibly unchanged) parameters;
@@ -70,8 +72,9 @@ def make_train_step(model: nn.Module, tx: Optimizer, mvn_stats=None,
     """(state, batch) -> (state, stats). ``batch`` holds the keyword
     arguments of ``model.forward`` (speech, speech_lengths, text,
     text_lengths) on the model's device. stats: the model's (loss,
-    loss_ctc, loss_att, acc) plus grad_norm and skipped (and
-    spike_skipped with ``spike_factor``), as 0-d tensors."""
+    loss_ctc, loss_att, acc, and loss_moe_aux / loss_interctc where the
+    model has them) plus grad_norm and skipped (and spike_skipped with
+    ``spike_factor``), as 0-d tensors."""
     params = [p for p in model.parameters() if p.requires_grad]
     sizes = [p.numel() for p in params]
 

@@ -10,6 +10,9 @@ does, so the key is the flax path joined by "." with the leaf renamed:
 - LayerNorm ``scale`` -> ``weight`` (``bias`` stays);
 - Embed ``embedding`` -> Embedding ``weight``;
 - ``pos_bias_u`` / ``pos_bias_v`` unchanged;
+- the MoE's expert tensors ``w1`` [E, D, F], ``b1`` [E, F], ``w2`` [E, F,
+  D], ``b2`` [E, D] unchanged (models/moe.py keeps the reference's
+  layout; its ``router`` is a Dense like any other);
 - an ``nn.OptimizedLSTMCell`` (``<rnn>/cell/{ii,if,ig,io}/kernel``,
   ``{hi,hf,hg,ho}/{kernel,bias}``; no input-side bias) -> the port's
   ``LSTMLayer`` ``<rnn>.weight_ih`` [4P, in], ``weight_hh`` [4P, P] and
@@ -50,7 +53,7 @@ def _convert_leaf(name: str, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim}")
     if name in ("scale", "embedding"):
         return "weight", value
-    if name in ("bias", "pos_bias_u", "pos_bias_v"):
+    if name in ("bias", "pos_bias_u", "pos_bias_v", "w1", "b1", "w2", "b2"):
         return name, value
     raise ValueError(f"no conversion for flax leaf {name!r}")
 

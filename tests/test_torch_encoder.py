@@ -88,7 +88,8 @@ def test_conformer_encoder(flash):
     port = tconf.ConformerEncoder(16, D, H, FF, 2, K, flash=flash)
     port.load_state_dict(flax_to_torch(params))
     with torch.no_grad():
-        hs, ol = port(t(feats), t(flens))
+        hs, ol, taps = port(t(feats), t(flens))
+    assert taps == []
     np.testing.assert_array_equal(ol.numpy(), np.asarray(ol_ref))
     np.testing.assert_array_equal(
         ol.numpy(), Conv2dSubsampling.out_length(t(flens)).numpy())

@@ -76,7 +76,12 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     "ops.resample", "train.collect_stats", "bin.aggregate_stats_dirs",
     "recipe.asr_pipeline", "bin.pack", "tasks.asr_transducer",
     "decode.transducer_beam", "bin.asr_transducer_train",
-    "bin.asr_transducer_inference"))
+    "bin.asr_transducer_inference",
+    # The encoder options: the registry (a copy of the reference's, which
+    # imports nothing of JAX), the routed MoE, the frontends and the
+    # optimizers.
+    "utils.registry", "models.moe", "models.conformer", "models.transformer",
+    "ops.frontend", "train.optim", "train.state"))
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():

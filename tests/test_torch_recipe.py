@@ -146,7 +146,9 @@ def _close(got, want, what):
 
 def test_collect_stats_equals_the_references(tmp_path):
     """The same batches (the port's iterator factory at epoch 1, unshuffled,
-    as the pipeline's stage 10 takes them) through both collect_stats."""
+    as the pipeline's stage 10 takes them) through both collect_stats; then
+    two batches of feature matrices with ``input_feats`` (a stage-3 dump's
+    statistics), through both."""
     train, _ = make_mini_corpus(tmp_path / "c", n_train=10, n_dev=1)
     cfg = pasr.load_task_config(None, {
         "exp_dir": str(tmp_path / "exp"),
@@ -169,9 +171,20 @@ def test_collect_stats_equals_the_references(tmp_path):
     assert sorted(saved) == ["count", "sum", "sum_square"]
     assert ((tmp_path / "p" / "speech_shape").read_text()
             == (tmp_path / "j" / "speech_shape").read_text())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        collect_stats(batches, cfg.model.frontend, tmp_path / "x",
-                      input_feats=True, device="cpu")
+    # input_feats: the batches' speech is a feature dump, taken as it is.
+    rng = np.random.RandomState(1)
+    fb = [{"speech": rng.randn(3, 40, 16).astype(np.float32),
+           "speech_lengths": np.asarray([40, 31, 9], np.int32),
+           "uids": [f"f{i}u{j}" for j in range(3)]} for i in range(2)]
+    got = collect_stats(fb, cfg.model.frontend, tmp_path / "pf",
+                        input_feats=True, device="cpu")
+    want = j_collect(fb, JFrontend(**FRONT), tmp_path / "jf",
+                     input_feats=True)
+    assert int(got["count"]) == int(want["count"]) == 2 * (40 + 31 + 9)
+    for k in ("sum", "sum_square"):
+        _close(got[k], np.asarray(want[k]), k)
+    assert ((tmp_path / "pf" / "speech_shape").read_text()
+            == (tmp_path / "jf" / "speech_shape").read_text())
 
 
 def _task_cfgs(root, corpus):
@@ -293,7 +306,6 @@ def test_pack_cli_publishes_fetches_and_decodes(pipelines, tmp_path):
 
 
 @pytest.mark.parametrize("opts,match", [
-    ({"feats_type": "fbank"}, "item 9"),
     ({"feats_type": "fbank_pitch"}, "item 15"),
     ({"train_lm": True}, "item 11"),
     ({"train_ngram": True}, "item 11"),
@@ -304,6 +316,77 @@ def test_unported_stages_raise_naming_their_item(tmp_path, opts, match):
         ppipe.run_pipeline(cfg, ppipe.PipelineOptions(**opts), stage=1,
                            stop_stage=15, device="cpu")
     assert not (tmp_path / "exp").exists()
+
+
+def test_fbank_stage3_and_stats_equal_the_references(tmp_path):
+    """feats_type fbank (the case that raised naming queue 1 item 9):
+    stages 1-10 of both pipelines on one corpus; stage 3's dumps (the same
+    utterances, every [T, 16] matrix within STATS_RTOL of its max |ref|),
+    the task each flips to the dump (input_feats, the npy loader, frame
+    buckets) and stage 10's collect-stats over the dump, as the
+    reference's."""
+    corpus = make_mini_corpus(tmp_path / "c", n_train=6, n_dev=2)
+    jcfg, pcfg = _task_cfgs(tmp_path, corpus)
+    opts = dict(feats_type="fbank")
+    jpipe.run_pipeline(jcfg, jpipe.PipelineOptions(**opts), stage=1,
+                       stop_stage=10)
+    ppipe.run_pipeline(pcfg, ppipe.PipelineOptions(**opts), stage=1,
+                       stop_stage=10, device="cpu")
+    for split in ("train", "dev"):
+        jd, pd = (tmp_path / e / "data" / "fbank" / split
+                  for e in ("jexp", "pexp"))
+        from espnet_slurp_tpu_torch.data.fileio import read_2column_text
+        jf, pf = (read_2column_text(d / "feats.scp") for d in (jd, pd))
+        assert sorted(jf) == sorted(pf) and len(pf) > 0
+        for uid in pf:
+            want, got = np.load(jf[uid]), np.load(pf[uid])
+            assert got.shape == want.shape and got.shape[1] == 16
+            _close(got, want, uid)
+    js, ps = (np.load(tmp_path / e / "stats" / "feats_stats.npz")
+              for e in ("jexp", "pexp"))
+    assert int(ps["count"]) == int(js["count"]) > 0
+    for k in ("sum", "sum_square"):
+        _close(ps[k], js[k], k)
+
+
+def test_train_moe_yaml_runs_through_the_pipeline(tmp_path):
+    """conf/train_moe.yaml as written (8 routed experts on every 2nd
+    block, moe_aux_weight 0.01, bf16, dropout 0.1, global MVN, warmuplr)
+    with only exp_dir, the data dirs, word tokens, sorted batches, one
+    epoch and the widths cut to the tiny flagship's overridden: stages
+    1-15 on the CPU. Its reporter holds a finite loss_moe_aux beside the
+    CTC and attention losses, and the unpacked model decodes as the exp
+    dir."""
+    import yaml
+    corpus = make_mini_corpus(tmp_path / "c", n_train=8, n_dev=2)
+    widths = dict(d_model=32, n_head=2, d_ff=64, num_encoder_blocks=2,
+                  num_decoder_blocks=1, decoder_d_ff=64, kernel_size=7,
+                  frontend=FRONT)
+    over = {"exp_dir": str(tmp_path / "exp"), "max_epoch": 1,
+            "model": widths,
+            "data": {"train_dir": str(corpus[0]), "valid_dir": str(corpus[1]),
+                     **DATA}}
+    cfg = pasr.load_task_config("conf/train_moe.yaml", over)
+    ref = jasr.load_task_config("conf/train_moe.yaml", over)
+    from espnet_slurp_tpu.utils.config import to_dict as j_to_dict
+    from espnet_slurp_tpu_torch.utils.config import to_dict
+    assert to_dict(cfg) == j_to_dict(ref)
+    m = cfg.model
+    assert (m.moe_experts, m.moe_every, m.moe_aux_weight, m.dtype,
+            m.dropout_rate, m.use_mvn) == (8, 2, 0.01, "bfloat16", 0.1,
+                                           "global")
+    res = ppipe.run_pipeline(cfg, ppipe.PipelineOptions(decode_beam_size=2,
+                                                        decode_max_len=8),
+                             stage=1, stop_stage=15, device="cpu")
+    assert res["unpack_decode_match"] is True
+    assert np.isfinite([res["wer_dev"], res["cer_dev"]]).all()
+    hist = json.loads((tmp_path / "exp" / "reporter.json").read_text())
+    train = hist["history"][0]["train"]
+    for key in ("loss", "loss_ctc", "loss_att", "loss_moe_aux"):
+        assert np.isfinite(train[key]), key
+    assert train["loss_moe_aux"] >= 1.0  # E * sum density * gate >= 1
+    saved = yaml.safe_load((tmp_path / "exp" / "config.yaml").read_text())
+    assert saved["model"]["moe_experts"] == 8
 
 
 def test_pipeline_raises_without_a_card_unless_given_a_device(tmp_path):

@@ -479,7 +479,7 @@ def test_task_config_and_trainer_option_defaults():
     ({"num_att_plot": 3}, "item 17"),
     ({"data": {"resident_corpus": True}}, "item 2"),
     ({"data": {"multichannel": True}}, "item 15"),
-    ({"data": {"feats_type": "fbank"}}, "item 9"),
+    ({"data": {"feats_type": "fbank_pitch"}}, "item 15"),
 ])
 def test_unported_task_options_raise_naming_their_queue_item(
         tmp_path, override, match):
@@ -515,13 +515,15 @@ def _configs(**kw):
     return port, ref
 
 
-def _assert_init_follows(model, again, ref, embeds, orthogonal=()):
+def _assert_init_follows(model, again, ref, embeds, orthogonal=(),
+                         fan_ins=None):
     """The port's init ``model`` (and ``again``, the same seed) against the
     reference's converted init ``ref``: zeros and ones exactly where the
     reference has them, else mean and std within 5 standard errors of the
     reference's sample; lecun_normal's truncation at 2 std for every
-    matrix but the ``embeds``; each [P, P] gate block of the ``orthogonal``
-    recurrent kernels orthogonal on both sides."""
+    matrix but the ``embeds`` (its fan_in the row's size, or ``fan_ins``'
+    entry for a tensor laid out otherwise); each [P, P] gate block of the
+    ``orthogonal`` recurrent kernels orthogonal on both sides."""
     got = model.state_dict()
     assert sorted(got) == sorted(ref)
     for k, v in got.items():
@@ -543,7 +545,7 @@ def _assert_init_follows(model, again, ref, embeds, orthogonal=()):
                     torch.testing.assert_close(gate @ gate.T, eye,
                                                atol=1e-5, rtol=0)
         elif p.dim() >= 2 and k not in embeds:  # lecun_normal
-            fan_in = v[0].numel()
+            fan_in = (fan_ins or {}).get(k, v[0].numel())
             limit = 2 * fan_in ** -0.5 / 0.87962566103423978
             assert float(p.abs().max()) <= limit * (1 + 1e-6), k
             assert float(r.abs().max()) <= limit * (1 + 1e-6), k
@@ -560,6 +562,30 @@ def test_init_params_follows_the_references_distributions():
     model = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
     again = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
     _assert_init_follows(model, again, ref, embeds={"decoder.embed.weight"})
+
+
+def test_moe_and_self_conditioning_init_follows_the_references():
+    """ASRTask.init_params on an encoder with routed MoE blocks and
+    self-conditioning (the router, the [E, in, out] expert kernels with
+    flax's lecun_normal fan_in of E x in, their zero biases, sc_ctc and
+    sc_cond) against the reference's flax init of the same config, by
+    _assert_init_follows."""
+    cfg, jcfg = _configs(vocab_size=100, d_model=64, n_head=4, d_ff=256,
+                         num_encoder_blocks=2, num_decoder_blocks=1,
+                         decoder_d_ff=256, kernel_size=15, moe_experts=4,
+                         moe_every=1, interctc_layers=(1,),
+                         interctc_weight=0.3, self_conditioning=True)
+    ref = flax_to_torch(jax.tree.map(np.asarray, jasr.ASRTask.init_params(
+        JaxASRModel(jcfg), 0)))
+    assert {"encoder.block_0.moe.w1", "encoder.sc_cond.weight"} <= set(ref)
+    model = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
+    again = pasr.ASRTask.init_params(ASRModel(cfg, device="cpu"), seed=0)
+    # The expert kernels are [E, in, out]: flax's fan_in is E x in.
+    experts = {k: v.shape[0] * v.shape[1] for k, v in ref.items()
+               if k.endswith((".moe.w1", ".moe.w2"))}
+    assert len(experts) == 4
+    _assert_init_follows(model, again, ref, embeds={"decoder.embed.weight"},
+                         fan_ins=experts)
 
 
 def test_transducer_init_params_follows_the_references_distributions():

@@ -183,7 +183,7 @@ def test_clis_raise_without_a_card_and_for_unported_options(runs, tmp_path):
         p_train.main(["--config", runs["pyaml"], "--set",
                       f"exp_dir={tmp_path / 'exp'}", "model.use_tcpgen=true",
                       "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="queue 3"):
         p_train.main(["--config", runs["pyaml"], "--set",
                       f"exp_dir={tmp_path / 'exp'}",
                       "model.asr.moe_experts=4", "--device", "cpu"])
