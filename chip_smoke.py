@@ -282,16 +282,51 @@ or the port's package is not beside it. Phases, each of which fails the run:
    layer in fp32, x [64, 468, 256] with ragged lengths, card vs CPU: the
    expert of every token and the kept count of every expert equal, the
    output within 1e-4 of max |ref|, with tokens dropped (a tilted
-   router). (e) bin/asr_inference decodes the 8
-   dev utterances (beam 10, ctc 0.3, max_len 96) with the MoE recipe's
-   model and with a self-conditioned flagship that bin/asr_train trained
-   one epoch: the RTF of each; then, in fp32 from one card encode, the
-   beam search on the card and on the CPU gives the same tokens and
-   lengths. (f) remat_encoder with stochastic depth 0.1 on the card (fp32,
-   dropout 0.1): the loss and gradients equal the run without remat from
-   an equally seeded generator on the card, which ends in the same state,
-   and the recompute launches K2 and K3 forward twice a block. Prints the
-   phase's seconds.
+   router). (e) bin/asr_inference decodes the 8 dev utterances (beam 10,
+   ctc 0.3, max_len 96) with the MoE recipe's model and with a
+   self-conditioned flagship that bin/asr_train trained one epoch: the
+   RTF of each; then, in fp32 from one card encode, the beam search on
+   the card and on the CPU gives the same tokens and lengths on every
+   row but proved near-ties, the card's choices and scores replayed on
+   the CPU (search_parity). (f) remat_encoder with stochastic depth 0.1
+   on the card (fp32, dropout 0.1): the loss and gradients equal the run
+   without remat from an equally seeded generator on the card, which
+   ends in the same state, and the recompute launches K2 and K3 forward
+   twice a block. Prints the phase's seconds.
+19. The fork's contextual biasing and KB-MBR (conf/train_mbr_kb.yaml), over
+   KB_WORDS synthetic words in a suffix-marked token list, every train
+   batch through slu/kb.py:TCPGenBatchAugmenter (kb_len 30, db_drop 0.3, a
+   3-epoch ramp, as the reference's ablation_run.py:484-487): (a) the
+   yaml's model (12 x 256, d_ff 2048, bf16, use_tcpgen with the gcn tree
+   encoder, ctc 0.3, dropout 0.1, the pointer and gate losses at 1.0 and
+   0.2) through make_train_step on phase 5's traffic with labels over the
+   list: per step the flagship's launches (K2 24, K3 12, K4 and K1 1 each
+   way; K1's warp route, K4's bf16 launches by the host counts), step
+   seconds, audio-s/s and peak memory beside phase 5's, a profiled step's
+   device busy ms, the augmenter's host ms a batch; (b) the same with the
+   yaml's MBR term (weight 0.5, beam 4, pre-beam 12, max_len 96,
+   rare_weight 0.5 over the list's tokens): its re-encode doubles K2 and K3
+   each way (48 and 24), K4 and K1 stay 1; step seconds, busy ms, peak and
+   the n-best search's share; (c) fp32 card against CPU at phase 6's short
+   batch: the TCPGen loss, its stats (1e-4 relative; the CPU's loss_ptr,
+   loss_gate and p_gen_bias above 0) and gradients (1e-3 of max |ref|) for
+   each tree encoder (gcn at the yaml's depth, gat, sage and treelstm on 2
+   encoder blocks), the same with the KB-MBR term, and the biased beam
+   search (beam 10, ctc 0.3) from one card encode in both boundary
+   conventions and with force_p_gen: tokens and lengths equal but on proved
+   near-ties, the card's choices and scores replayed on the CPU
+   (search_parity); (d) transducer_flagship_config() with use_tcpgen and
+   fused_conv on phase 9's traffic (V 600, a list over its pieces): phase
+   9's launches (K2 24, K3 12, K6 12, K5 and K1 1 each way; K5 and K1 on
+   their warp routes, K6 on its bf16 launches), step seconds, busy ms and
+   peak memory against the plain transducer's (PERF.md §5); (e) Speech2Text
+   on the yaml's model decodes the serving traffic with and without the
+   1,000-word biasing list: each encode K2 24, K3 12, nothing else counted,
+   and the RTF of each; (f) conf/train_mbr_kb.yaml as written through
+   bin/asr_train on phase 15's corpus (32 train utterances: two steps at
+   its batch_bins), only exp_dir, the data dirs, init_params_from (phase
+   15's n-best average) and max_epoch 1 overridden: every step (b)'s
+   launches, finite loss_mbr and mbr_expected_risk in reporter.json.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -307,17 +342,23 @@ phase 16 (``launches_per_recipe_step``) and of phase 17
 (``launches_per_transducer_cli_step``) where those steps launch them, and
 the K1-K4 entries their launches a step of phase 18's MoE model
 (``launches_per_moe_step``) and of its interCTC models
-(``launches_per_interctc_step``: ``interctc`` and ``self-conditioning``);
-the last line is ``{"ok": true, "device": {...}}``.
+(``launches_per_interctc_step``: ``interctc`` and ``self-conditioning``),
+and of phase 19's TCPGen and KB-MBR steps (``launches_per_tcpgen_step``,
+``launches_per_mbr_step``); the entries of K1, K2, K3, K5 and K6 their
+launches a step of phase 19's KB-aware transducer
+(``launches_per_kb_transducer_step``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -2000,28 +2041,51 @@ def read_counts(names=COUNTED):
                        COUNTED[n][2]) for n in names}
 
 
+class StepRun(NamedTuple):
+    """What run_train_steps measured: the timed steps' launches, median step
+    seconds, the profiled step's device busy ms, the number of timed steps,
+    the host-counted routes, the peak MB since the warm-up, the last step's
+    stats, the batch maker's median host ms (0 for a fixed batch) and every
+    timed step's seconds."""
+    launches: dict
+    step_s: float
+    busy_ms: float
+    steps: int
+    routes: dict
+    peak_mb: float
+    stats: dict
+    host_ms: float
+    times: list
+
+
 def run_train_steps(torch, what, model, batch, card, audio_s,
-                    budget_s=None):
+                    budget_s=None, aux=None, falls=True) -> StepRun:
     """One warm-up step, then TRAIN_STEPS timed ones (3 when ``budget_s``
     is given and TRAIN_STEPS + 2 steps at the warm-up's time would run past
     it) with every launch count zeroed just before and read just after
     (the wrappers' counts, and K1's, K4's, K5's and K6's kernels by the
     library's host-side counts); checks finite losses, nothing skipped and
-    a falling loss; then one more step under torch.profiler for the
-    device's busy time (the sum of its kernels' times). Returns (launches, step s, busy
-    ms, steps, kernel launches)."""
+    (with ``falls``) a falling loss; then one more step under
+    torch.profiler for the device's busy time (the sum of its kernels'
+    times). ``batch`` is a batch, or a callable that makes a fresh one a
+    step and returns it with its host ms (the biasing augmenter), outside
+    the step's time; ``aux`` (model -> aux_loss_fn) adds a term to the
+    loss (the MBR term)."""
     from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
     from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
 
     if not all(p.dtype == torch.float32 for p in model.parameters()):
         raise AssertionError("the model must keep fp32 parameters")
     compute = getattr(model.cfg, "asr", model.cfg).dtype
+    make = batch if callable(batch) else (lambda: (batch, 0.0))
     tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
     state = TrainState.create(model, tx, seed=0)
-    step = make_train_step(model, tx)
+    step = make_train_step(model, tx,
+                           aux_loss_fn=None if aux is None else aux(model))
     torch.cuda.reset_peak_memory_stats()
+    b, _ = make()
     t0 = time.perf_counter()
-    state, st = step(state, batch)  # warm-up: cuBLAS/cuDNN, the allocator
+    state, st = step(state, b)  # warm-up: cuBLAS/cuDNN, the allocator
     first_loss = float(st["loss"])
     warm_s = time.perf_counter() - t0
     steps = TRAIN_STEPS
@@ -2030,39 +2094,48 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
 
     zero_counts()
     routes0 = route_counts()
-    losses, norms, skipped, times = [], [], [], []
+    losses, norms, skipped, times, host_ms = [], [], [], [], []
     for _ in range(steps):
+        b, ms = make()
+        host_ms.append(ms)
         t0 = time.perf_counter()
-        state, st = step(state, batch)
+        state, st = step(state, b)
         losses.append(float(st["loss"]))  # synchronises
         times.append(time.perf_counter() - t0)
         norms.append(float(st["grad_norm"]))
         skipped.append(float(st["skipped"]))
     launches = read_counts()
     routes = {k: n - routes0[k] for k, n in route_counts().items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
     step_s = float(np.median(times))
+    stats = {k: round(float(v), 5) for k, v in st.items()}
     print(f"{what}: {compute} compute / fp32 parameters, Adam lr 1e-3: step "
           f"{step_s:.4f} s (median of {steps}; steps {times}; warm-up "
           f"{warm_s:.3f} s), {audio_s / step_s:.1f} audio-s/s, peak memory "
-          f"{peak_gb:.2f} GB on {card}")
+          f"{peak_mb / 1e3:.2f} GB on {card}")
     extra = ", ".join(f"{k} {float(v):.4f}" for k, v in st.items()
                       if k.startswith("loss_"))
     print(f"{what}: losses {[first_loss] + losses}, grad norms {norms}, "
           f"skipped {skipped}, {extra}")
+    if callable(batch):
+        print(f"{what}: a fresh batch a step, {np.median(host_ms):.2f} ms "
+              f"on the host ({[round(x, 2) for x in host_ms]}); last stats "
+              f"{stats}")
     print(f"{what}: launches over {steps} steps {launches}; K1, K4, K5 and "
           f"K6 kernels {routes}")
     if not (all(np.isfinite(losses + norms + [first_loss]))
-            and sum(skipped) == 0 and losses[-1] < first_loss):
+            and sum(skipped) == 0 and (losses[-1] < first_loss or not falls)):
         raise AssertionError(f"{what}: non-finite, skipped or not falling")
     from torch.profiler import ProfilerActivity, profile
+    b, _ = make()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, st = step(state, batch)
+        state, st = step(state, b)
         torch.cuda.synchronize()
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if not e.key.startswith("train_step.")) / 1e3
     print(f"{what}: device busy {busy_ms:.2f} ms in one profiled step")
-    return launches, step_s, busy_ms, steps, routes
+    return StepRun(launches, step_s, busy_ms, steps, routes, peak_mb, stats,
+                   float(np.median(host_ms)), times)
 
 
 # The kernels line's entries timed in bf16 only; a default ASRConfig()
@@ -2081,10 +2154,25 @@ def check_per_step(what, launches, per_step, steps=TRAIN_STEPS):
                              f"{per_step} per step")
 
 
+def flagship_step_want(n_blocks, times=1, n_ffn=None):
+    """A flagship ASR step's launches each way by the wrappers' counts: K2
+    n_ffn times (two FFNs a block unless given: a routed MoE second FFN is
+    no K2 launch), K3 once a block, K4 and K1 once; ``times`` encoder
+    passes (the MBR term's re-encode is a second)."""
+    if n_ffn is None:
+        n_ffn = 2 * n_blocks
+    return {"fused_ffn": n_ffn * times, "fused_ffn_bwd": n_ffn * times,
+            "rel_flash_attention": n_blocks * times,
+            "rel_flash_attention_bwd": n_blocks * times,
+            "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+            "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+
+
 def train_phase(torch, card):
     """The flagship train step on the bench traffic at the recipe's dropout
     (DROPOUT), then the same phase at dropout 0 for its step wall and busy
-    time; returns the launch counts of the dropout run's timed steps."""
+    time; returns the launch counts of the dropout run's timed steps, its
+    step seconds and its peak MB."""
     from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
                                                           flagship_config)
     from espnet_slurp_tpu_torch.utils.params import init_random_
@@ -2096,27 +2184,23 @@ def train_phase(torch, card):
         batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
                             FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size,
                             "cuda")
-        launches, step_s, busy_ms, _, routes = run_train_steps(
+        run = run_train_steps(
             torch, f"train: flagship, B={TRAIN_B} x {TRAIN_SECONDS} s, "
             f"U={TRAIN_U}, dropout {rate}", model, batch, card,
             TRAIN_B * TRAIN_SECONDS)
-        check_routes("train", routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
+        check_routes("train", run.routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
                      TRAIN_STEPS)
-        n_blocks = cfg.num_encoder_blocks
-        check_per_step("train", launches, {
-            "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
-            "rel_flash_attention": n_blocks,
-            "rel_flash_attention_bwd": n_blocks,
-            "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
-            "ctc_lattice": 1, "ctc_lattice_bwd": 1})
-        runs[rate] = (launches, step_s, busy_ms)
+        check_per_step("train", run.launches,
+                       flagship_step_want(cfg.num_encoder_blocks))
+        runs[rate] = (run.launches, run.step_s, run.busy_ms, run.peak_mb)
         del model, batch
         torch.cuda.empty_cache()
-    (launches, step_s, busy), (_, step0, busy0) = runs[DROPOUT], runs[0.0]
+    (launches, step_s, busy, peak_mb), (_, step0, busy0, _) = (
+        runs[DROPOUT], runs[0.0])
     print(f"train: flagship step at dropout {DROPOUT} {step_s:.4f} s, "
           f"device busy {busy:.2f} ms; at dropout 0 {step0:.4f} s, "
           f"{busy0:.2f} ms (same call, {card})")
-    return launches, step_s
+    return launches, step_s, peak_mb
 
 
 def transducer_config(**asr):
@@ -2606,10 +2690,11 @@ def transducer_train_phase(torch, card):
     model = init_random_(TransducerModel(cfg, device="cuda"), seed=0)
     batch = train_batch(torch, np.random.RandomState(1), TR_B,
                         FS * TRAIN_SECONDS, TR_U, cfg.asr.vocab_size, "cuda")
-    launches, step_s, _, _, routes = run_train_steps(
+    run = run_train_steps(
         torch, f"transducer train: B={TR_B} x {TRAIN_SECONDS} s, U={TR_U}, "
         f"V={cfg.asr.vocab_size}, fused_conv, dropout "
         f"{cfg.asr.dropout_rate}", model, batch, card, TR_B * TRAIN_SECONDS)
+    launches, routes = run.launches, run.routes
     n_blocks = cfg.asr.num_encoder_blocks
     check_routes("transducer train", routes, {
         **dict.fromkeys(K1_WARP, 1), **dict.fromkeys(K5_WARP, 1),
@@ -2651,9 +2736,13 @@ def short_batch(vocab: int):
 
 
 def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
-                     tlens):
+                     tlens, extra=None, aux=None):
     """loss within 1e-4 relative and every gradient within 1e-3 of max |ref|
     (floored at 1e-4 of the largest gradient entry), CPU against card.
+    ``extra`` adds batch keys (a biasing batch's trie and walk) and ``aux``
+    (model -> aux_loss_fn) an MBR term to the loss; then every stat of the
+    loss's but acc within 1e-4 relative too, and with ``extra`` the CPU's
+    loss_ptr, loss_gate and p_gen_bias above 0.
 
     Each side's train forward draws its dropout seeds from a CPU generator
     seeded with DROPOUT_SEED (ops/kernels/philox.py:draw_seed draws on the
@@ -2676,24 +2765,33 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
                  "speech_lengths": torch.from_numpy(lens).to(dev),
                  "text": torch.from_numpy(text).to(dev),
                  "text_lengths": torch.from_numpy(tlens).to(dev)}
+        batch.update({k: torch.as_tensor(v).to(dev)
+                      for k, v in (extra or {}).items()})
         embed, pre = model.encoder.embed, []
         hooks = [getattr(embed, f"conv{i + 1}").register_forward_hook(
             lambda m, i, o: pre.append(o)) for i in range(embed.n_convs)]
-        loss, _ = model(**batch, train=True, generator=gens[dev])
+        loss, stats = model(**batch, train=True, generator=gens[dev])
+        if aux is not None:  # its re-encode's convs are hooked too
+            term, aux_stats = aux(model)(batch)
+            loss, stats = loss + term, {**stats, **aux_stats}
         for hk in hooks:
             hk.remove()
-        runs[dev] = (model, loss, pre)
+        runs[dev] = (model, loss, pre, stats)
     fresh = torch.Generator().manual_seed(DROPOUT_SEED).get_state()
     same_draws = torch.equal(gens["cpu"].get_state(), gens["cuda"].get_state())
     drew = not torch.equal(gens["cpu"].get_state(), fresh)
     flips = []
+    st_c, st_g = runs["cpu"][3], runs["cuda"][3]
+    stat_err = {k: abs(float(st_g[k].detach()) - float(v.detach()))
+                / max(abs(float(v.detach())), 1e-6)
+                for k, v in st_c.items() if k != "acc"}
     for z_c, z_g in zip(runs["cpu"][2], runs["cuda"][2]):
         flip = (z_c > 0) != (z_g > 0).cpu()
         flips.append(int(flip.sum()))
         for z in (z_c, z_g):
             z.register_hook(lambda g, f=flip.to(z.device): g.masked_fill(f, 0))
     res = {}
-    for dev, (model, loss, _) in runs.items():
+    for dev, (model, loss, _, _) in runs.items():
         loss.backward()
         res[dev] = (float(loss.detach()), {k: p.grad.detach().cpu()
                                   for k, p in model.named_parameters()})
@@ -2709,6 +2807,18 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
           f"{worst[0]:.3e} of max|ref| (tolerance 1e-3) over {len(g_c)} "
           f"tensors; subsampling ReLU kinks on opposite sides {flips}; "
           f"dropout seeds drawn {drew}, the same on both sides {same_draws}")
+    if extra is not None or aux is not None:
+        shown = {k: round(float(v.detach()), 6) for k, v in st_g.items()}
+        errs = {k: f"{e:.2e}" for k, e in stat_err.items()}
+        print(f"{what} card vs CPU stats: {shown}; relative errors {errs} "
+              f"(tolerance 1e-4)")
+        if max(stat_err.values()) > 1e-4:
+            raise AssertionError(f"{what} card vs CPU stats")
+    # the pointer and the gate must have worked, or their terms compare 0
+    idle = [k for k in ("loss_ptr", "loss_gate", "p_gen_bias")
+            if extra is not None and not float(st_c[k].detach()) > 0]
+    if idle:
+        raise AssertionError(f"{what}: {idle} not above 0 on the CPU")
     if not (rel <= 1e-4 and worst[0] <= 1e-3 and same_draws and drew):
         raise AssertionError(f"{what} card vs CPU")
 
@@ -3294,11 +3404,12 @@ def default_train_phase(torch, card):
     model = init_random_(ASRModel(cfg, device="cuda"), seed=0)
     batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
                         FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
-    launches, step_s, busy_ms, steps, routes = run_train_steps(
+    run = run_train_steps(
         torch, f"default ASRConfig train: {cfg.dtype}, d_ff {cfg.d_ff}, "
         f"dropout {cfg.dropout_rate}, B={TRAIN_B} x {TRAIN_SECONDS} s, "
         f"U={TRAIN_U}", model, batch, card, TRAIN_B * TRAIN_SECONDS,
         budget_s=60.0)
+    launches, step_s, busy_ms, steps, routes = run[:5]
     n_blocks = cfg.num_encoder_blocks
     check_per_step("default ASRConfig train", launches, {
         "fused_ffn": 2 * n_blocks, "fused_ffn_bwd": 2 * n_blocks,
@@ -3341,7 +3452,7 @@ def fused_conv_train_phase(torch, card, default, t_prime):
     launches, step_s, busy_ms, steps, routes = run_train_steps(
         torch, f"{what}: {cfg.dtype}, d_ff {cfg.d_ff}, dropout "
         f"{cfg.dropout_rate}, B={TRAIN_B} x {TRAIN_SECONDS} s, U={TRAIN_U}",
-        model, batch, card, TRAIN_B * TRAIN_SECONDS)
+        model, batch, card, TRAIN_B * TRAIN_SECONDS)[:5]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_blocks = cfg.num_encoder_blocks
     check_per_step(what, launches, {
@@ -3491,11 +3602,7 @@ def cli_step_want(n_rows, n_blocks, n_ffn=None):
     from espnet_slurp_tpu_torch.ops.kernels import build
     if n_ffn is None:
         n_ffn = 2 * n_blocks
-    wrappers = {"fused_ffn": n_ffn, "fused_ffn_bwd": n_ffn,
-                "rel_flash_attention": n_blocks,
-                "rel_flash_attention_bwd": n_blocks,
-                "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
-                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    wrappers = flagship_step_want(n_blocks, n_ffn=n_ffn)
     hosts = {"ffn_fwd::fwd_kernel<256, true>": n_ffn,
              "ffn_bwd::rows_kernel<true>": n_ffn,
              "ffn_bwd::dx_kernel": n_ffn,
@@ -3783,6 +3890,10 @@ def cli_phase(torch, card, decode_launches, decode_wall, train_step_s):
         raise AssertionError(f"phase 15 decode: score.txt {score}, "
                              f"{len(hyps)} hypotheses")
     cli_pace(torch, card, root, dev_dir, n_blocks, train_step_s)
+    # phase 19 (f) warm-starts from this run's n-best average
+    shutil.rmtree(KB_INIT, ignore_errors=True)
+    shutil.copytree(exp / "valid.loss.ave_3best",
+                    Path(KB_INIT) / "valid.loss.ave_3best")
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return figs
@@ -4253,14 +4364,9 @@ def moe_train_phase(torch, card, train_step_s):
     what = (f"phase 18 (b): {MOE_YAML}, B={TRAIN_B} x {TRAIN_SECONDS} s, "
             f"U={TRAIN_U}")
     launches, step_s, busy_ms, _, routes = run_train_steps(
-        torch, what, model, batch, card, TRAIN_B * TRAIN_SECONDS)
+        torch, what, model, batch, card, TRAIN_B * TRAIN_SECONDS)[:5]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {"fused_ffn": 2 * n_blocks - n_moe,
-                "fused_ffn_bwd": 2 * n_blocks - n_moe,
-                "rel_flash_attention": n_blocks,
-                "rel_flash_attention_bwd": n_blocks,
-                "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
-                "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    per_step = flagship_step_want(n_blocks, n_ffn=2 * n_blocks - n_moe)
     check_per_step(what, launches, per_step)
     check_routes(what, routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
                  TRAIN_STEPS)
@@ -4303,8 +4409,9 @@ def interctc_phase(torch, card):
         batch = train_batch(torch, np.random.RandomState(0), TRAIN_B,
                             FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size,
                             "cuda")
-        launches, step_s, _, _, routes = run_train_steps(
+        run = run_train_steps(
             torch, what, model, batch, card, TRAIN_B * TRAIN_SECONDS)
+        launches, routes = run.launches, run.routes
         taps = len(INTERCTC_LAYERS)
         head = 1 if sc else 1 + taps
         n = cfg.num_encoder_blocks
@@ -4469,13 +4576,111 @@ def selfcond_cli_train(torch, root, corpus):
     return root / "exp_sc"
 
 
+# Card-vs-CPU searches: the CPU's search runs a second time with each of
+# its pre-beam and beam choices (decode/beam.py:_top_k) taken from the
+# card's, and the card's search must prove a valid beam search under the
+# CPU's arithmetic: each choice a top-k of the CPU's own scores but by at
+# most TIE_RTOL of the k-th score (floored at 1 nat), and the replay's
+# hypotheses and scores the card's, the scores within TIE_RTOL relative.
+# Each row's best hypothesis must be the same on both devices, or the
+# replay proves the row a near-tie that fp32 rounding decides either way;
+# such rows may be at most half of the rows. (A 4-step model's 95-token
+# hypotheses, cycles of a few tokens, parted at token 63 of one row in 8
+# on an H100.)
+TIE_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def top_k_as(wrap):
+    """decode/beam.py:_top_k replaced by ``wrap(_top_k)`` inside."""
+    from espnet_slurp_tpu_torch.decode import beam as beam_mod
+    top_k = beam_mod._top_k
+    beam_mod._top_k = wrap(top_k)
+    try:
+        yield
+    finally:
+        beam_mod._top_k = top_k
+
+
+def recording(picks):
+    """A _top_k wrapper that appends each call's indices to ``picks``."""
+    def wrap(top_k):
+        def rec(x, k):
+            vals, idx = top_k(x, k)
+            picks.append(idx)
+            return vals, idx
+        return rec
+    return wrap
+
+
+def search_parity(torch, search, card, cpu, picks, n):
+    """Holds the card's search against the CPU's on the first n rows
+    (each batch_beam_search(..., return_nbest=True) on the CPU; ``picks``
+    the card search's _top_k indices by ``recording``; ``search()`` runs
+    the CPU search again) and returns a note; raises unless the replay
+    holds and at most half of the rows differ."""
+    def hyp(res, i):
+        return res[0][i, :res[1][i]]
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(a, b)
+
+    margins = []
+
+    def replay(top_k):
+        def rep(x, k):
+            if len(margins) == len(picks):
+                raise AssertionError("the replay outran the card's search")
+            sel = picks[len(margins)].to(x.device)
+            chosen = x.gather(-1, sel)
+            weakest = chosen.min(-1).values
+            strongest = x.scatter(-1, sel, -float("inf")).max(-1).values
+            margins.append(float(((strongest - weakest)
+                                  / weakest.abs().clamp_min(1.0)).max()))
+            return chosen, sel
+        return rep
+
+    with top_k_as(replay):
+        res = tuple(x.cpu() for x in search())
+
+    def beam(r, i):  # the live hypotheses of row i -> their scores
+        return {tuple(r[2][i, j, :r[3][i, j]].tolist()): float(r[4][i, j])
+                for j in range(r[2].shape[1]) if abs(float(r[4][i, j])) < 1e29}
+
+    # the replay must hold the card's beam; the last choice, the best,
+    # is held like the others
+    follows, score_err = len(margins) == len(picks), 0.0
+    for i in range(n):
+        got, rep = beam(card, i), beam(res, i)
+        follows = follows and got.keys() == rep.keys()
+        score_err = max([score_err] + [
+            abs(v - rep[h]) / max(abs(rep[h]), 1.0)
+            for h, v in got.items() if h in rep])
+        best = rep.get(tuple(hyp(card, i).tolist()))
+        margins.append(float("inf") if best is None else
+                       (max(rep.values()) - best) / max(abs(best), 1.0))
+    differ = [i for i in range(n) if not same(hyp(card, i), hyp(cpu, i))]
+    note = (f"rows that differ {differ} (best scores card "
+            f"{card[4][differ, 0].tolist()}, CPU {cpu[4][differ, 0].tolist()}"
+            f"); the CPU replaying the card's {len(picks)} choices ends in "
+            f"its hypotheses {follows}, {sum(m > 0 for m in margins)} "
+            f"choices not the CPU's own top-k, the largest margin "
+            f"{max(margins):.3e} of the k-th score, scores within "
+            f"{score_err:.3e} of the card's (tolerance {TIE_RTOL:.0e})")
+    if not (follows and max(margins) <= TIE_RTOL and score_err <= TIE_RTOL
+            and len(differ) <= n // 2):
+        raise AssertionError(f"card vs CPU search: {note}")
+    return note
+
+
 def decode_phase(torch, card, exp, dev8, what):
     """Phase 18 (e): bin/asr_inference on ``exp`` (its n-best average)
     decodes the N_UTT dev utterances at beam BEAM, ctc_weight CTC_WEIGHT,
     max_len MAX_LEN: RTF from score.txt. Then the same weights in fp32:
     one encoder output on the card, and the beam search from it on the
     card and on the CPU over MOE_CMP_UTT of the utterances; tokens and
-    lengths equal."""
+    lengths equal on every row but proved near-ties, the card's choices and
+    scores replayed on the CPU (search_parity)."""
     from espnet_slurp_tpu_torch.bin import asr_inference
     from espnet_slurp_tpu_torch.data.fileio import load_wav, \
         read_2column_text
@@ -4508,28 +4713,30 @@ def decode_phase(torch, card, exp, dev8, what):
         model.load_state_dict(state)
         hs, hl = model.encode(torch.from_numpy(buf).cuda(),
                               torch.from_numpy(lens).cuda(), s2t.mvn_stats)
+        picks = []
         for dev in ("cuda", "cpu"):
             if dev == "cpu":
                 model = ASRModel(cfg, device="cpu")
                 model.load_state_dict(state)
             t0 = time.perf_counter()
-            tokens, lengths = batch_beam_search(model, hs.to(dev),
-                                                hl.to(dev), beam)
-            got[dev] = (tokens.cpu(), lengths.cpu())
+            with (top_k_as(recording(picks)) if dev == "cuda" else
+                  contextlib.nullcontext()):
+                res = batch_beam_search(model, hs.to(dev), hl.to(dev), beam,
+                                        return_nbest=True)
+            got[dev] = tuple(x.cpu() for x in res)
             secs[dev] = time.perf_counter() - t0
-    (tc, lc), (tg, lg) = got["cpu"], got["cuda"]
-    n = len(wavs)
-    same = torch.equal(lc[:n], lg[:n]) and all(
-        torch.equal(tc[i, :lc[i]], tg[i, :lg[i]]) for i in range(n))
+        n = len(wavs)
+        note = search_parity(
+            torch, lambda: batch_beam_search(model, hs.cpu(), hl.cpu(), beam,
+                                             return_nbest=True),
+            got["cuda"], got["cpu"], picks, n)
+    lg = got["cuda"][1]
     print(f"phase 18 (e) {what}: bin/asr_inference {N_UTT} x {UTT_SECONDS} "
           f"s, beam {BEAM}, ctc {CTC_WEIGHT}, max_len {MAX_LEN}: score.txt "
           f"{score} (RTF {score['RTF']}; the whole CLI call {call_s:.2f} s) "
           f"on {card}; fp32 beam search from one card encode, {n} "
           f"utterances: lengths {lg[:n].tolist()}, card {secs['cuda']:.2f} "
-          f"s, CPU {secs['cpu']:.2f} s, hypotheses equal {same}")
-    if not same:
-        raise AssertionError(f"phase 18 (e) {what}: card {tg[:n]} {lg[:n]}"
-                             f" vs CPU {tc[:n]} {lc[:n]}")
+          f"s, CPU {secs['cpu']:.2f} s; {note}")
     return float(score["RTF"])
 
 
@@ -4556,10 +4763,484 @@ def moe_phases(torch, card, root, corpus, train_step_s):
 
 
 
+# Phase 19: the fork's contextual biasing and KB-MBR (conf/train_mbr_kb.yaml)
+# and the KB-aware transducer. Biasing lists are KB_WORDS synthetic words
+# over a suffix-marked token list (the fork's dictionary convention): word
+# pieces p{j}, those with j odd ending a word ("p{j}▁"). Each train batch
+# goes through TCPGenBatchAugmenter with recipe/ablation_run.py:484-487's
+# settings. The MBR term runs with the yaml's beam 4 and pre-beam 12, the
+# reference's max_len 96 and rare_weight 0.5 over the list's token set.
+KB_YAML = "conf/train_mbr_kb.yaml"
+KB_WORDS, KB_LEN, KB_DB_DROP, KB_SCHED = 1000, 30, 0.3, 3
+# A word of a batch's text is a biasing word with this probability, else a
+# common one (a second synthetic list, disjoint from the first).
+KB_SHARE = 0.3
+KB_INIT = "build/chip_smoke_kb_init"  # (f): phase 15's n-best average
+# (c): the biased searches card vs CPU (fp32, one card encode).
+KB_CMP_MAX_LEN = 32
+
+
+class PieceTokenizer:
+    """Word <-> pieces through a lexicon ({word: pieces}), for Speech2Text's
+    biasing list: text2tokens splits on spaces and spells each word by its
+    pieces; tokens2text joins pieces and ends a word at a '▁'."""
+
+    def __init__(self, lexicon):
+        self.lexicon = lexicon
+
+    def text2tokens(self, line):
+        return [p for w in line.split() for p in self.lexicon[w]]
+
+    def tokens2text(self, tokens):
+        return "".join(t.replace("▁", " ") for t in tokens).strip()
+
+
+def suffix_token_list(vocab):
+    """<blank>, <unk>, pieces p0..p{vocab-4} (odd ones end a word:
+    "p{j}▁"), <sos/eos>: a suffix-convention list for
+    slu/kb.py:boundary_token_ids."""
+    return (["<blank>", "<unk>"]
+            + [f"p{j}▁" if j % 2 else f"p{j}" for j in range(vocab - 3)]
+            + ["<sos/eos>"])
+
+
+def kb_lexicons(vocab, rng):
+    """(biasing words, common words) as piece-id tuples, KB_WORDS each,
+    disjoint: 0-3 inner pieces and a word-final one."""
+    inner = np.arange(2, vocab - 1)[0::2]  # p{even}
+    final = np.arange(3, vocab - 1)[0::2]  # p{odd}▁
+    seen, out = set(), []
+    while len(out) < 2 * KB_WORDS:
+        w = tuple(int(x) for x in rng.choice(inner, rng.randint(4))) \
+            + (int(rng.choice(final)),)
+        if w not in seen:
+            seen.add(w)
+            out.append(w)
+    return out[:KB_WORDS], out[KB_WORDS:]
+
+
+def kb_text(rng, b, u, words, common):
+    """[b, u] label ids: words drawn from the biasing list with probability
+    KB_SHARE, else from the common list, cut at u."""
+    rows = []
+    for _ in range(b):
+        seq = []
+        while len(seq) < u:
+            pool = words if rng.rand() < KB_SHARE else common
+            seq.extend(pool[rng.randint(len(pool))])
+        rows.append(seq[:u])
+    return np.asarray(rows, np.int64)
+
+
+def kb_augmenter(vocab, words, prefix=False):
+    """TCPGenBatchAugmenter over ``words`` at ablation_run.py's settings,
+    with the suffix (or prefix) convention's boundary ids."""
+    from espnet_slurp_tpu_torch.slu.kb import (TCPGenBatchAugmenter,
+                                               boundary_token_ids)
+    bset, conv = boundary_token_ids(suffix_token_list(vocab))
+    if conv:
+        raise AssertionError("the synthetic token list is suffix-marked")
+    if prefix:  # word-initial pieces instead: the prefix convention's ids
+        bset = {w[0] for w in words}
+    return TCPGenBatchAugmenter(words, bset, vocab - 1, vocab - 1,
+                                prefix_boundary=prefix, kb_len=KB_LEN,
+                                db_drop=KB_DB_DROP, sched_epochs=KB_SCHED,
+                                seed=7), bset
+
+
+def kb_batches(torch, b, seconds, u, vocab, words, common, aug, epoch=2,
+               keys=None):
+    """A train batch on the card (train_batch's speech, kb_text's labels)
+    and a callable that augments it anew (a fresh trie, walk and labels a
+    call, on the host, then to the card); the callable returns the batch
+    and the augmenter's host ms. ``keys`` limits the augmenter's keys
+    taken (the transducer takes the trie and the walk only)."""
+    rng = np.random.RandomState(0)
+    base = train_batch(torch, rng, b, FS * seconds, u, vocab, "cuda")
+    text = kb_text(rng, b, u, words, common)
+    base["text"] = torch.from_numpy(text).cuda()
+
+    def make():
+        t0 = time.perf_counter()
+        extra = aug.augment({"text": text}, epoch)
+        ms = (time.perf_counter() - t0) * 1e3
+        out = dict(base)
+        out.update({k: v.cuda(non_blocking=True) for k, v in extra.items()
+                    if k != "text" and (keys is None or k in keys)})
+        return out, ms
+    return make
+
+
+def kb_config(**model):
+    """conf/train_mbr_kb.yaml's model (12 x 256, d_ff 2048, bf16, use_tcpgen,
+    ctc 0.3, its vocab 5000) with ablation_run.py's pointer and gate loss
+    weights, SpecAug on, and ``model``."""
+    from espnet_slurp_tpu_torch.tasks import asr as task
+    return dataclasses.replace(
+        task.load_task_config(KB_YAML).model, tcpgen_ptr_loss_weight=1.0,
+        tcpgen_gate_loss_weight=0.2, **model)
+
+
+def kb_mbr_config(vocab_words, **kw):
+    """The yaml's MBR section (weight 0.5, beam 4, pre-beam 12, rare_weight
+    0.5) with kb_tokens the biasing list's token set, and ``kw``."""
+    from espnet_slurp_tpu_torch.tasks import asr as task
+    tokens = tuple(sorted({p for w in vocab_words for p in w}))
+    return dataclasses.replace(task.load_task_config(KB_YAML).mbr,
+                               kb_tokens=tokens, **kw)
+
+
+def kb_aux(mbr, vocab):
+    """model -> the MBR aux_loss_fn with mbr's KB token mask, as
+    ASRTask.train builds it."""
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, ASRTaskConfig
+    from espnet_slurp_tpu_torch.train.mbr import make_mbr_aux_loss
+
+    def make(model):
+        mask = ASRTask._kb_token_mask(ASRTaskConfig(mbr=mbr), vocab)
+        return make_mbr_aux_loss(model, mbr, kb_token_mask=mask.to(
+            model.device))
+    return make
+
+
+def kb_train_phase(torch, card, train_step_s, flagship_peak_mb):
+    """Phase 19 (a) and (b): the TCPGen step and the KB-MBR step on phase
+    5's traffic with labels over the biasing list, each batch augmented
+    anew; their launches by the wrappers' and host counts. Returns
+    (tcpgen launches a step, MBR launches a step)."""
+    from espnet_slurp_tpu_torch.decode import beam as beam_mod
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = kb_config()
+    v, n = cfg.vocab_size, cfg.num_encoder_blocks
+    words, common = kb_lexicons(v, np.random.RandomState(3))
+    aug, _ = kb_augmenter(v, words)
+    state = ASRTask.init_params(ASRModel(cfg, device="cpu"), 0).state_dict()
+    audio_s = TRAIN_B * TRAIN_SECONDS
+    mbr = kb_mbr_config(words, weight=0.5)
+    out = {}
+    for label, aux, times in (("tcpgen", None, 1),
+                              ("mbr", kb_aux(mbr, v), 2)):
+        model = ASRModel(cfg, device="cuda")
+        model.load_state_dict(state)
+        make = kb_batches(torch, TRAIN_B, TRAIN_SECONDS, TRAIN_U, v, words,
+                          common, aug)
+        what = (f"phase 19 ({'a' if aux is None else 'b'}) {label} step: "
+                f"{KB_YAML}'s model ({cfg.num_encoder_blocks} x "
+                f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.dtype}, dropout "
+                f"{cfg.dropout_rate}, {cfg.tcpgen_tree_encoder} tree "
+                f"encoder), B={TRAIN_B} x {TRAIN_SECONDS} s, U={TRAIN_U}, "
+                f"kb_len {KB_LEN}")
+        search_s = []
+        search = beam_mod.batch_beam_search
+
+        def timed_search(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = search(*a, **kw)
+            torch.cuda.synchronize()
+            search_s.append(time.perf_counter() - t0)
+            return res
+
+        beam_mod.batch_beam_search = timed_search
+        try:
+            run = run_train_steps(torch, what, model, make, card, audio_s,
+                                  aux=aux, falls=aux is None)
+        finally:
+            beam_mod.batch_beam_search = search
+        want = flagship_step_want(n, times)
+        check_per_step(what, run.launches, want)
+        check_routes(what, run.routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
+                     TRAIN_STEPS)
+        print(f"{what}: step {run.step_s:.4f} s, device busy "
+              f"{run.busy_ms:.2f} ms, augmenter {run.host_ms:.2f} ms a "
+              f"batch on the host, peak {run.peak_mb:.1f} MB on {card}")
+        if aux is None:
+            print(f"{what}: {run.step_s:.4f} s against phase 5's flagship "
+                  f"{train_step_s:.4f} s ({run.step_s / train_step_s:.2f}x),"
+                  f" peak {run.peak_mb:.1f} MB against "
+                  f"{flagship_peak_mb:.1f}; launches a step {want} held on "
+                  f"{card}")
+        else:
+            # the warm-up's, the timed steps' and the profiled step's
+            timed = search_s[1:1 + TRAIN_STEPS]
+            share = sum(timed) / sum(run.times)
+            keys = ("loss_mbr", "mbr_expected_risk", "mbr_rare_risk")
+            if len(search_s) != TRAIN_STEPS + 2 or not all(
+                    k in run.stats for k in keys):
+                raise AssertionError(f"{what}: searches {len(search_s)}, "
+                                     f"stats {run.stats}")
+            print(f"{what}: MBR beam {mbr.beam_size}, pre-beam "
+                  f"{mbr.pre_beam_size}, max_len {mbr.max_len}, rare_weight "
+                  f"{mbr.rare_weight} over {len(mbr.kb_tokens)} KB tokens: "
+                  f"n-best search s by step {[round(x, 4) for x in timed]}, "
+                  f"{100 * share:.1f}% of the steps' time; launches a step "
+                  f"{want} (the re-encode doubles K2 and K3 each way) held "
+                  f"on {card}")
+        out[label] = want
+        del model
+        torch.cuda.empty_cache()
+    return out["tcpgen"], out["mbr"]
+
+
+def kb_fp32_phase(torch, card):
+    """Phase 19 (c): fp32 card against CPU at phase 6's short batch (labels
+    over the biasing list, one augmented trie, dropout 0.1 with phase 6's
+    seeds, SpecAug off): the TCPGen loss, its stats and its gradients for
+    each tree encoder; the same with the KB-MBR term (without the ground
+    truth among the hypotheses); then the biased beam search (beam BEAM,
+    ctc CTC_WEIGHT, max_len KB_CMP_MAX_LEN) from one card encode on both
+    devices, in the suffix and the prefix convention and with force_p_gen:
+    tokens and lengths equal on every row but proved near-ties, the card's
+    choices and scores replayed on the CPU (search_parity)."""
+    from espnet_slurp_tpu_torch.decode.beam import (BeamSearchConfig,
+                                                    batch_beam_search)
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.slu.kb import build_trie
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    speech, lens, _, tlens = short_batch(5000)
+    words, _ = kb_lexicons(5000, np.random.RandomState(3))
+    # labels of biasing words only, so that the pointer and gate losses
+    # have pointed steps in two short rows
+    text = kb_text(np.random.RandomState(4), 2, int(tlens.max()), words,
+                   words)
+    text[1, tlens[1]:] = -1
+    aug, _ = kb_augmenter(5000, words)
+    extra = {k: v.numpy() for k, v in aug.augment({"text": text}, 2).items()
+             if k != "text"}
+    # Without the ground truth as hypothesis 0: its teacher-forced score
+    # leads an untrained model's n-best by tens of nats, so the softmax
+    # over hypotheses would saturate and the MBR gradient vanish.
+    mbr = kb_mbr_config(words, weight=0.5, include_gt=False)
+    # The yaml's gcn at full depth; the other tree encoders on a 2-block
+    # encoder (the pointer sits after the decoder, whose 6 blocks stay).
+    for enc, aux, blocks in (("gcn", None, 12), ("gat", None, 2),
+                             ("sage", None, 2), ("treelstm", None, 2),
+                             ("gcn", kb_aux(mbr, 5000), 12)):
+        cfg = kb_config(dtype="float32", specaug=None, dropout_rate=DROPOUT,
+                        tcpgen_tree_encoder=enc, num_encoder_blocks=blocks)
+        state = ASRTask.init_params(ASRModel(cfg, device="cpu"),
+                                    0).state_dict()
+        compare_cpu_card(
+            torch, f"phase 19 (c) fp32 TCPGen step, {enc} tree encoder, "
+            f"{blocks} encoder blocks"
+            + (", with the KB-MBR term" if aux else ""), ASRModel, cfg,
+            state, speech, lens, text, tlens, extra=extra, aux=aux)
+    cfg = kb_config(dtype="float32")
+    state = ASRTask.init_params(ASRModel(cfg, device="cpu"), 0).state_dict()
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = ASRModel(cfg, device=dev)
+        models[dev].load_state_dict(state)
+    trie = build_trie(words)
+    beam = BeamSearchConfig(beam_size=BEAM, max_len=KB_CMP_MAX_LEN,
+                            ctc_weight=CTC_WEIGHT)
+    with torch.inference_mode():
+        hs, hl = models["cuda"].encode(torch.from_numpy(speech).cuda(),
+                                       torch.from_numpy(lens).cuda())
+        for prefix, force in ((False, None), (True, None), (False, 0.9)):
+            _, bset = kb_augmenter(5000, words, prefix=prefix)
+            mask = torch.zeros(5001, dtype=torch.bool)
+            mask[sorted(bset)] = True
+            got, picks = {}, []
+            for dev, model in models.items():
+                biasing = {
+                    "trie": {f"trie_{k}": torch.from_numpy(getattr(t, k))
+                             .to(dev) for t in (trie,) for k in (
+                                 "token", "children_tok", "children_node",
+                                 "n_children")},
+                    "boundary_mask": mask.to(dev), "dead": trie.dead,
+                    "prefix_boundary": prefix, "smoothprob": 1.0,
+                    "force_p_gen": force}
+                with (top_k_as(recording(picks)) if dev == "cuda" else
+                      contextlib.nullcontext()):
+                    res = batch_beam_search(model, hs.to(dev), hl.to(dev),
+                                            beam, biasing=biasing,
+                                            return_nbest=True)
+                got[dev] = tuple(x.cpu() for x in res)
+            lg, lc = got["cuda"][1], got["cpu"][1]
+            note = search_parity(
+                torch, lambda: batch_beam_search(
+                    models["cpu"], hs.cpu(), hl.cpu(), beam, biasing=biasing,
+                    return_nbest=True),
+                got["cuda"], got["cpu"], picks, len(lens))
+            print(f"phase 19 (c) biased beam search fp32, "
+                  f"{'prefix' if prefix else 'suffix'} convention, "
+                  f"force_p_gen {force}: lengths card {lg.tolist()} CPU "
+                  f"{lc.tolist()}; {note} on {card}")
+    del models
+
+
+# The transducer step's peak in PERF.md §5 (transducer_flagship_config()
+# with fused_conv, 32 x 15 s, bf16, dropout 0.1; PRs 17-18's chip runs).
+TR_PEAK_MB = 10613.1
+
+
+def kb_transducer_phase(torch, card):
+    """Phase 19 (d): transducer_flagship_config() with use_tcpgen and
+    fused_conv (bf16, dropout 0.1, SpecAug on, the reference's init from a
+    seed) on 32 x 15 s, U 64, V 600, each batch augmented anew over a
+    600-token biasing list: per step phase 9's launches (K2 24, K3 12, K6
+    12 each way, K5 and the auxiliary CTC's K1 once; K5 and K1 on their
+    warp routes, K6 on its bf16 launches by the host counts); step
+    seconds and peak memory beside TR_PEAK_MB. Returns the launches a
+    step."""
+    from espnet_slurp_tpu_torch.models.transducer import TransducerModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = dataclasses.replace(transducer_config(), use_tcpgen=True)
+    v, n = cfg.asr.vocab_size, cfg.asr.num_encoder_blocks
+    words, common = kb_lexicons(v, np.random.RandomState(5))
+    aug, _ = kb_augmenter(v, words)
+    state = ASRTask.init_params(TransducerModel(cfg, device="cpu"),
+                                0).state_dict()
+    model = TransducerModel(cfg, device="cuda")
+    model.load_state_dict(state)
+    what = (f"phase 19 (d) KB-aware transducer: B={TR_B} x {TRAIN_SECONDS} "
+            f"s, U={TR_U}, V={v}, fused_conv, bf16, dropout "
+            f"{cfg.asr.dropout_rate}, kb_len {KB_LEN}")
+    make = kb_batches(torch, TR_B, TRAIN_SECONDS, TR_U, v, words, common,
+                      aug, keys=("trie_token", "trie_children_tok",
+                                 "trie_children_node", "trie_n_children",
+                                 "node", "p_gen_mask"))
+    run = run_train_steps(torch, what, model, make, card,
+                          TR_B * TRAIN_SECONDS)
+    launches, step_s, peak, routes = (run.launches, run.step_s, run.peak_mb,
+                                      run.routes)
+    want = {"fused_ffn": 2 * n, "fused_ffn_bwd": 2 * n,
+            "rel_flash_attention": n, "rel_flash_attention_bwd": n,
+            "fused_conv_module": n, "fused_conv_module_bwd": n,
+            "rnnt_lattice": 1, "rnnt_lattice_bwd": 1,
+            "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+    check_per_step(what, launches, want)
+    check_routes(what, routes, {**dict.fromkeys(K1_WARP, 1),
+                                **dict.fromkeys(K5_WARP, 1),
+                                **dict.fromkeys(K6_BF16_LAUNCHES, n)},
+                 TRAIN_STEPS)
+    print(f"{what}: peak {peak:.1f} MB against the plain transducer step's "
+          f"{TR_PEAK_MB} (PERF.md §5), step {step_s:.4f} s, device busy "
+          f"{run.busy_ms:.2f} ms, augmenter {run.host_ms:.2f} ms a batch on "
+          f"the host; launches a step {want} held on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return want
+
+
+def kb_decode_phase(torch, card):
+    """Phase 19 (e): Speech2Text on conf/train_mbr_kb.yaml's model (the
+    reference's init from a seed, bf16) decodes the serving traffic (N_UTT x
+    UTT_SECONDS s, beam BEAM, ctc CTC_WEIGHT, max_len MAX_LEN) without and
+    with biasing_words (the KB_WORDS-word list, spelled by PieceTokenizer);
+    each encode launches K2 24 and K3 12 and nothing else counted; RTF of
+    each, in the same call."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, Speech2Text
+
+    cfg = kb_config()
+    v, n = cfg.vocab_size, cfg.num_encoder_blocks
+    state = ASRTask.init_params(ASRModel(cfg, device="cpu"), 0).state_dict()
+    tokens = suffix_token_list(v)
+    words, _ = kb_lexicons(v, np.random.RandomState(3))
+    lexicon = {f"kw{i}": [tokens[p] for p in w] for i, w in enumerate(words)}
+    rng = np.random.RandomState(0)
+    speeches = [rng.randn(FS * UTT_SECONDS).astype(np.float32) * 0.1
+                for _ in range(N_UTT)]
+    rtf = {}
+    for biased in (False, True):
+        s2t = Speech2Text(cfg, state, tokens, max_len=MAX_LEN,
+                          beam_size=BEAM, ctc_weight=CTC_WEIGHT,
+                          device="cuda", tokenizer=PieceTokenizer(lexicon),
+                          biasing_words=list(lexicon) if biased else None)
+        s2t.decode_batch(speeches)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        texts = s2t.decode_batch(speeches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c for k, c in read_counts().items() if c}
+        label = "biased" if biased else "unbiased"
+        rtf[label] = wall / (N_UTT * UTT_SECONDS)
+        print(f"phase 19 (e) Speech2Text {label}: {N_UTT} x {UTT_SECONDS} "
+              f"s, beam {BEAM}, ctc {CTC_WEIGHT}, max_len {MAX_LEN}"
+              + (f", {len(lexicon)} biasing words (trie of "
+                 f"{s2t.biasing['dead'] + 1} nodes)" if biased else "")
+              + f": wall {wall:.3f} s, RTF {rtf[label]:.5f}, hypothesis "
+              f"words {[len(x.split()) for x in texts]}; launches "
+              f"{launches} on {card}")
+        if launches != {"fused_ffn": 2 * n, "rel_flash_attention": n} \
+                or len(texts) != N_UTT:
+            raise AssertionError(f"phase 19 (e) {label}: launches "
+                                 f"{launches}, {len(texts)} texts")
+        del s2t
+    print(f"phase 19 (e): RTF biased {rtf['biased']:.5f} against unbiased "
+          f"{rtf['unbiased']:.5f} ({rtf['biased'] / rtf['unbiased']:.2f}x) "
+          f"on {card}")
+    return rtf
+
+
+# (f): a train subset of phase 15's corpus at the yaml's batch_bins: two
+# steps in its one epoch.
+KB_F_TRAIN = 32
+
+
+def kb_recipe_phase(torch, card, root, corpus):
+    """Phase 19 (f): conf/train_mbr_kb.yaml through bin/asr_train on the
+    card on phase 15's corpus (KB_F_TRAIN train utterances, its 16 dev
+    ones), overriding only exp_dir, the data dirs, init_params_from (phase
+    15's n-best average, KB_INIT) and max_epoch 1. Fails unless the epoch
+    makes at least 2 steps, each with the KB-MBR step's launches
+    (flagship_step_want(12, 2)), and reporter.json carries finite
+    loss_mbr and mbr_expected_risk."""
+    import shutil
+    from pathlib import Path
+
+    from espnet_slurp_tpu_torch.bin import asr_train
+
+    t0 = time.perf_counter()
+    train_dir, dev_dir, _ = corpus
+    sub = root / "train_kb"
+    sub.mkdir()
+    for name in ("wav.scp", "text"):
+        lines = (train_dir / name).read_text().splitlines()[:KB_F_TRAIN]
+        (sub / name).write_text("\n".join(lines) + "\n")
+    exp = root / "exp_mbr_kb"
+    init = Path(KB_INIT).resolve() / "valid.loss.ave_3best"
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock)
+    try:
+        asr_train.main(["--config", KB_YAML, "--set", f"exp_dir={exp}",
+                        f"data.train_dir={sub}", f"data.valid_dir={dev_dir}",
+                        f"init_params_from={init}", "max_epoch=1"])
+    finally:
+        from espnet_slurp_tpu_torch.tasks import asr as task
+        task.make_train_step = make
+    shutil.rmtree(KB_INIT, ignore_errors=True)
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    train = hist[-1]["train"] if hist else {}
+    want = flagship_step_want(12, 2)
+    want = {k: want.get(k, 0) for k in COUNTED}
+    bad = [i for i, (w, _, _) in enumerate(per_step) if w != want]
+    keys = ("loss", "loss_mbr", "mbr_expected_risk")
+    print(f"phase 19 (f): {KB_YAML} through bin/asr_train (exp_dir, data "
+          f"dirs, init_params_from {init.name}, max_epoch 1 overridden): "
+          f"{len(per_step)} steps, launches a step "
+          f"{per_step[0][0] if per_step else None}, by instance "
+          f"{per_step[0][1] if per_step else None}; train "
+          f"{ {k: train.get(k) for k in keys + ('step_time', 'iter_time')} }"
+          f"; {time.perf_counter() - t0:.1f} s on {card}")
+    if not (len(hist) == 1 and len(per_step) >= 2 and not bad
+            and all(np.isfinite(train.get(k, np.nan)) for k in keys)):
+        raise AssertionError(f"phase 19 (f): steps {per_step}, reporter "
+                             f"{hist}")
+
+
 def recipe_phases(torch, card, train_step_s):
-    """Phases 16, 17 and 18 on one synthetic corpus (cli_corpus) under
-    RECIPE_ROOT, removed at the end. Returns the launches per train step
-    of phases 16 and 17, and phase 18's (moe_phases)."""
+    """Phases 16, 17, 18 and 19 (f) on one synthetic corpus (cli_corpus)
+    under RECIPE_ROOT, removed at the end. Returns the launches per train
+    step of phases 16 and 17, and phase 18's (moe_phases)."""
     import shutil
     from pathlib import Path
 
@@ -4573,6 +5254,7 @@ def recipe_phases(torch, card, train_step_s):
     recipe = recipe_phase(torch, card, root, corpus)
     transducer = transducer_cli_phase(torch, card, root, corpus)
     moe = moe_phases(torch, card, root, corpus, train_step_s)
+    kb_recipe_phase(torch, card, root, corpus)
     shutil.rmtree(root, ignore_errors=True)
     return recipe, transducer, moe
 
@@ -4636,7 +5318,7 @@ def main() -> int:
         1 + FS * TRAIN_SECONDS // 128)
     train_kernels, fwd_train = train_kernel_phase(torch, t_train)
     kernels += train_kernels
-    train_launches, train_step_s = train_phase(torch, card)
+    train_launches, train_step_s, train_peak_mb = train_phase(torch, card)
     train_cpu_vs_card(torch)
     dropout = dropout_phase(torch, t_train)
     t_added = time.perf_counter()
@@ -4710,7 +5392,19 @@ def main() -> int:
     t_added = time.perf_counter()
     recipe_steps, tr_cli_steps, (moe_step, inter_steps) = recipe_phases(
         torch, card, train_step_s)
-    print(f"phases 16-18: {time.perf_counter() - t_added:.1f} s")
+    print(f"phases 16-18 and 19 (f): {time.perf_counter() - t_added:.1f} s")
+    t_added = time.perf_counter()
+    tcpgen_step, mbr_step = kb_train_phase(torch, card, train_step_s,
+                                           train_peak_mb)
+    lap = time.perf_counter()
+    kb_fp32_phase(torch, card)
+    print(f"phase 19 (a)-(b): {lap - t_added:.1f} s, (c): "
+          f"{time.perf_counter() - lap:.1f} s")
+    lap = time.perf_counter()
+    kb_tr_step = kb_transducer_phase(torch, card)
+    kb_decode_phase(torch, card)
+    print(f"phase 19 (d)-(e): {time.perf_counter() - lap:.1f} s; (a)-(e): "
+          f"{time.perf_counter() - t_added:.1f} s")
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):
@@ -4723,6 +5417,11 @@ def main() -> int:
             kern["launches_per_moe_step"] = moe_step[base]
             kern["launches_per_interctc_step"] = {
                 label: per[base] for label, per in inter_steps.items()}
+        if base in tcpgen_step:
+            kern["launches_per_tcpgen_step"] = tcpgen_step[base]
+            kern["launches_per_mbr_step"] = mbr_step[base]
+        if base in kb_tr_step:
+            kern["launches_per_kb_transducer_step"] = kb_tr_step[base]
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

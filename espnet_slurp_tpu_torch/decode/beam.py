@@ -5,8 +5,16 @@ Port of espnet_slurp_tpu/decode/beam.py:batch_beam_search: fixed-shape
 scores on a pre-beam of P candidates (eos always forced into the last slot),
 length bonus, ended hypotheses frozen proposing only eos at delta 0, and eos
 forced on the last step. The reference's ``lax.while_loop`` is a Python loop
-that stops once every hypothesis has ended. Shallow-fusion LMs, internal-LM
-subtraction and TCPGen biasing are not ported yet and raise.
+that stops once every hypothesis has ended.
+
+TCPGen biasing (``biasing``): each hypothesis carries its trie node, the
+pointer's distribution is mixed into the decoder's scores every step
+(models/tcpgen.py), and the node advances by the vectorised ``trie_step``
+(the fork's per-hypothesis dict walk, decoders.py:recognize_beam, as
+gathers). Shallow-fusion LMs, internal-LM subtraction and the biasing
+selection LM (``biasing["selection"]``) are not ported yet and raise
+(ROADMAP.md queue 1 item 11); internal-LM subtraction is off under
+biasing, as in the reference.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Tuple
 import torch
 
 from ..models.asr_model import ASRModel
+from ..models.tcpgen import tcpgen_final_logprobs, trie_step
 from . import ctc_prefix
 from .greedy import eos_lengths, init_decoder_cache
 
@@ -46,12 +55,23 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
                       return_nbest: bool = False) -> Tuple[torch.Tensor, ...]:
     """Returns (tokens [B, max_len] eos-padded, lengths [B]) of the best
     hypotheses; with ``return_nbest`` also the ranked beam (nb_tokens
-    [B, K, L], nb_lengths [B, K], nb_scores [B, K])."""
+    [B, K, L], nb_lengths [B, K], nb_scores [B, K]).
+
+    ``biasing`` enables TCPGen contextual biasing (a model with
+    ``use_tcpgen``): {"trie": {trie_token, trie_children_tok,
+    trie_children_node, trie_n_children tensors}, "boundary_mask": [V+1]
+    bool tensor, "dead": int, "prefix_boundary": bool, "smoothprob":
+    float, "force_p_gen": float or None}; ``force_p_gen`` pins p_gen
+    where the walk is live (a diagnostic of the reference's)."""
     if (lm_step is not None or lm_init is not None or cfg.lm_weight > 0.0
-            or cfg.ilm_weight > 0.0):
-        raise NotImplementedError("LM / internal-LM fusion is not ported yet")
-    if biasing is not None:
-        raise NotImplementedError("TCPGen biasing is not ported yet")
+            or (cfg.ilm_weight > 0.0 and biasing is None)):
+        raise NotImplementedError("LM / internal-LM fusion is not ported "
+                                  "yet (ROADMAP.md queue 1 item 11)")
+    if biasing is not None and biasing.get("selection") is not None:
+        raise NotImplementedError(
+            "biasing['selection'] (the selection-LM KB choice, "
+            "decode/word_lm.py) is not ported yet (ROADMAP.md queue 1 item "
+            "11)")
     mcfg = model.cfg
     dev = hs.device
     b = hs.shape[0]
@@ -71,6 +91,13 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
         ctc_lp_beam = model.ctc_logprobs(hs).repeat_interleave(k, dim=0)
         ctc = ctc_prefix.init_state(ctc_lp_beam, h_lengths_beam, blank)
     cache = init_decoder_cache(model, n, l)
+    if biasing is not None:
+        trie = {key: x.to(dev) for key, x in biasing["trie"].items()}
+        tree_encs = model.tcpgen_tree_encs(trie)
+        boundary = biasing["boundary_mask"].to(dev)
+        node = torch.zeros(n, dtype=torch.long, device=dev)
+        pmask = torch.zeros(n, dtype=torch.long, device=dev)
+        force = biasing.get("force_p_gen")
 
     total = torch.full((b, k), NEG, device=dev)
     total[:, 0] = 0.0
@@ -86,9 +113,21 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
     for i in range(l):
         if bool(ended.all()):
             break
-        logits, cache = model.decoder.step(y_prev.reshape(n), i, cache,
-                                           mem_kv, h_lengths_beam, l)
-        att_lp = torch.log_softmax(logits.float(), dim=-1)
+        if biasing is None:
+            logits, cache = model.decoder.step(y_prev.reshape(n), i, cache,
+                                               mem_kv, h_lengths_beam, l)
+            att_lp = torch.log_softmax(logits.float(), dim=-1)
+        else:
+            logits, cache, hidden = model.decoder.step(
+                y_prev.reshape(n), i, cache, mem_kv, h_lengths_beam, l,
+                return_hidden=True)
+            ptr_dist, kb_emb = model.tcpgen(hidden, node, trie, tree_encs)
+            if force is None:
+                p_gen = model.tcpgen.gen_prob(
+                    hidden, kb_emb, pmask, biasing.get("smoothprob", 1.0))
+            else:
+                p_gen = torch.where(pmask > 0, 0.0, float(force))
+            att_lp = tcpgen_final_logprobs(logits, ptr_dist, p_gen)
         fused = att_lp * w_att
         # Pre-beam: top-(P-1) without eos, then the forced eos slot, so eos
         # is never a candidate twice.
@@ -134,6 +173,11 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
                 r=torch.where(e[:, None, None], ctc.r[parent_n], new.r),
                 psi=torch.where(e, ctc.psi[parent_n], new.psi),
                 last=torch.where(e, ctc.last[parent_n], new.last))
+        if biasing is not None:
+            node, pmask = trie_step(
+                trie, node[parent_n], tok.reshape(n), boundary, eos,
+                biasing["dead"],
+                prefix_boundary=biasing.get("prefix_boundary", False))
         total, y_prev = total_new, tok
 
     best = total.argmax(dim=1)

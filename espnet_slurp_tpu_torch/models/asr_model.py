@@ -10,10 +10,12 @@ encoder), ``ctc_logprobs``, ``decoder_logits`` and ``forward`` (the
 training loss: CTC through the fused head K4 and the lattice K1, the
 interCTC taps through K4 and K1 (with self-conditioning through K1 from
 the taps' logits), the MoE load-balance loss, and label-smoothed CE on
-the decoder). ``unported_options`` names the values that select a path
-not ported yet. Parameters are fp32 and every layer computes in
-``cfg.dtype``, as the flax modules do (models/layers.py). The TCPGen
-branch of the reference's loss raises where the model is built.
+the decoder, or with ``use_tcpgen`` and a biasing batch the TCPGen
+branch: the decoder's hidden queries the pointer over the batch's trie,
+the mixed distribution takes the CE, and the pointer and gate losses join
+it). ``unported_options`` names the values that select a path not ported
+yet. Parameters are fp32 and every layer computes in ``cfg.dtype``, as
+the flax modules do (models/layers.py).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..utils.device import resolve_device
 from ..utils.registry import encoders
 from .conformer import ConformerEncoder
 from .layers import Linear
+from .tcpgen import TCPGen, tcpgen_final_logprobs
 from .transformer import TransformerDecoder, TransformerEncoder
 
 IGNORE_ID = -1
@@ -207,8 +210,6 @@ def unported_options(cfg: ASRConfig) -> List[str]:
         todo.append("wav2vec2 (the SSL encoder: queue 1 item 15)")
     if cfg.ssl_num_layers > 0:
         todo.append("ssl_num_layers > 0 (SSL feature dumps: queue 1 item 15)")
-    if cfg.use_tcpgen:
-        todo.append("use_tcpgen (TCPGen: queue 1 item 10)")
     if cfg.use_wpe or cfg.use_beamformer:
         todo.append("use_wpe / use_beamformer (the multichannel frontends: "
                     "queue 1 items 15 and 16)")
@@ -311,12 +312,15 @@ def add_sos_eos(ys: torch.Tensor, ys_lengths: torch.Tensor, sos: int,
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
-                         smoothing: float, ignore_id: int = IGNORE_ID):
+                         smoothing: float, ignore_id: int = IGNORE_ID,
+                         logits_are_logprobs: bool = False):
     """Label-smoothed CE, mean over valid tokens (the reference's
-    token-mean form): (loss, accuracy)."""
+    token-mean form): (loss, accuracy). With ``logits_are_logprobs`` the
+    input is taken as log-probabilities (TCPGen's mixed distribution)."""
     valid = targets != ignore_id
     tgt = torch.where(valid, targets, torch.zeros_like(targets)).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = (logits.float() if logits_are_logprobs
+            else torch.log_softmax(logits.float(), dim=-1))
     nll = -logp.gather(-1, tgt[..., None])[..., 0]
     loss = (1.0 - smoothing) * nll - smoothing * logp.mean(dim=-1)
     denom = valid.sum().clamp_min(1)
@@ -339,6 +343,11 @@ class ASRModel(nn.Module):
         self.decoder = TransformerDecoder(c.vocab_size, c.d_model, c.n_head,
                                           c.decoder_d_ff, c.num_decoder_blocks,
                                           dtype=c.torch_dtype)
+        if c.use_tcpgen:
+            self.tcpgen = TCPGen(c.d_model, c.vocab_size,
+                                 c.tcpgen_gcn_layers,
+                                 tree_encoder=c.tcpgen_tree_encoder,
+                                 dtype=c.torch_dtype)
         self.to(device=resolve_device(device))
 
     @property
@@ -367,6 +376,13 @@ class ASRModel(nn.Module):
     def decoder_logits(self, ys_in, ys_in_lengths, hs, h_lengths):
         return self.decoder(ys_in, ys_in_lengths, hs, h_lengths)
 
+    def tcpgen_tree_encs(self, trie) -> torch.Tensor:
+        """Every node of ``trie`` encoded by TCPGen's tree encoder from the
+        decoder's embedding of its incoming token."""
+        token_embs = self.decoder.embed(trie["trie_token"].long())
+        return self.tcpgen.encode_tree(token_embs.to(self.cfg.torch_dtype),
+                                       trie)
+
     def _ctc_loss_mean(self, hs, h_lengths, text, text_lengths):
         """Batch-mean CTC loss from encoder states through the fused head
         (K4) and the lattice (K1): on the card their kernels, on the CPU
@@ -379,6 +395,9 @@ class ASRModel(nn.Module):
         return per.sum() / per.shape[0]
 
     def forward(self, speech, speech_lengths, text, text_lengths, *,
+                trie_token=None, trie_children_tok=None,
+                trie_children_node=None, trie_n_children=None, node=None,
+                p_gen_mask=None, ptr_label_mask=None, smoothprob_scale=None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 mvn_stats=None):
@@ -392,7 +411,17 @@ class ASRModel(nn.Module):
         ctc_loss_mean_logits). ``generator`` draws SpecAug's masks and the
         encoder's dropout (its kernels' seeds) and stochastic depth when
         ``train``. The decoder takes no dropout, as the reference's
-        (ROADMAP.md queue 3)."""
+        (ROADMAP.md queue 3).
+
+        The trie_* / node / p_gen_mask keywords are a TCPGen biasing batch
+        (slu/kb.py:TCPGenBatchAugmenter): a flat trie shared by the batch
+        and the teacher-forced walk [B, U+1]. With ``use_tcpgen`` they
+        switch the CE onto TCPGen's mixed distribution and add the stats
+        p_gen (and p_gen_bias with ``ptr_label_mask``); with
+        ``ptr_label_mask`` the class-balanced pointer loss (loss_ptr,
+        weight tcpgen_ptr_loss_weight) and gate loss (loss_gate, weight
+        tcpgen_gate_loss_weight, scaled by ``smoothprob_scale``) join the
+        loss. ``smoothprob_scale`` scales p_gen (the pointer ramp)."""
         c = self.cfg
         hs, h_lengths, taps = encode_speech(
             c, self.encoder, speech, speech_lengths, mvn_stats, train,
@@ -422,11 +451,76 @@ class ASRModel(nn.Module):
             text_lengths = text_lengths.to(text.device)
             ys_in, ys_out = add_sos_eos(text.clamp_min(0).long(),
                                         text_lengths, c.sos_id, c.eos_id)
-            logits = self.decoder(ys_in, text_lengths + 1, hs, h_lengths)
-            loss_att, acc = label_smoothing_loss(logits, ys_out,
-                                                 c.lsm_weight)
+            if c.use_tcpgen and trie_token is not None:
+                trie = {"trie_token": trie_token,
+                        "trie_children_tok": trie_children_tok,
+                        "trie_children_node": trie_children_node,
+                        "trie_n_children": trie_n_children}
+                loss_att, acc, extra = self._tcpgen_loss(
+                    ys_in, ys_out, text_lengths, hs, h_lengths, trie, node,
+                    p_gen_mask, ptr_label_mask, smoothprob_scale, stats)
+                loss = loss + extra
+            else:
+                logits = self.decoder(ys_in, text_lengths + 1, hs, h_lengths)
+                loss_att, acc = label_smoothing_loss(logits, ys_out,
+                                                     c.lsm_weight)
             stats["loss_att"] = loss_att
             stats["acc"] = acc
             loss = loss + (1.0 - c.ctc_weight) * loss_att
         stats["loss"] = loss
         return loss, stats
+
+    def _tcpgen_loss(self, ys_in, ys_out, text_lengths, hs, h_lengths, trie,
+                     node, p_gen_mask, ptr_label_mask, smoothprob_scale,
+                     stats):
+        """The biased decoder loss (reference asr_model.py:566-614): the
+        label-smoothed CE on TCPGen's mixed log-probs, the p_gen stats into
+        ``stats``, and the weighted pointer and gate losses. Returns
+        (loss_att, acc, the pointer and gate terms to add)."""
+        c = self.cfg
+        logits, hidden = self.decoder(ys_in, text_lengths + 1, hs, h_lengths,
+                                      return_hidden=True)
+        ptr_dist, kb_emb = self.tcpgen(hidden, node, trie,
+                                       self.tcpgen_tree_encs(trie))
+        sp = c.tcpgen_smoothprob
+        if smoothprob_scale is not None:
+            sp = sp * smoothprob_scale
+        p_gen = self.tcpgen.gen_prob(hidden, kb_emb, p_gen_mask, sp)
+        loss_att, acc = label_smoothing_loss(
+            tcpgen_final_logprobs(logits, ptr_dist, p_gen), ys_out,
+            c.lsm_weight, logits_are_logprobs=True)
+        stats["p_gen"] = p_gen.mean()
+        extra = torch.zeros((), device=hs.device)
+        if ptr_label_mask is None:
+            return loss_att, acc, extra
+        m1 = (ptr_label_mask == 1).float()
+        m2 = (ptr_label_mask == 2).float()
+        n1, n2 = m1.sum(), m2.sum()
+        # gate openness where pointing is right: the mean over all steps
+        # hides a contextual gate (biased steps are a few % of a batch)
+        stats["p_gen_bias"] = (p_gen * m1).sum() / n1.clamp_min(1.0)
+        if c.tcpgen_ptr_loss_weight > 0.0:
+            # label 1: -log ptr(target child); label 2: -log ptr(OOKB),
+            # the classes balanced so the attention does not collapse onto
+            # the sink
+            tgt = ys_out.clamp(0, c.vocab_size - 1).long()
+            p_child = ptr_dist[..., :c.vocab_size].gather(
+                -1, tgt[..., None])[..., 0]
+            w = m1 + m2 * (n1 / n2.clamp_min(1.0))
+            p_tgt = torch.where(ptr_label_mask == 1, p_child,
+                                ptr_dist[..., c.vocab_size])
+            loss_ptr = ((-torch.log(p_tgt + 1e-9) * w).sum()
+                        / w.sum().clamp_min(1.0))
+            stats["loss_ptr"] = loss_ptr
+            extra = extra + c.tcpgen_ptr_loss_weight * loss_ptr
+        if c.tcpgen_gate_loss_weight > 0.0:
+            # class-balanced oracle-gate BCE: open where pointing, shut at
+            # OOKB steps; scaled as the ramp scales p_gen
+            w = m1 + m2 * (n1 / n2.clamp_min(1.0))
+            bce = -(m1 * torch.log(p_gen + 1e-6)
+                    + m2 * torch.log(1.0 - p_gen + 1e-6))
+            loss_gate = (bce * w).sum() / w.sum().clamp_min(1.0)
+            stats["loss_gate"] = loss_gate
+            scale = 1.0 if smoothprob_scale is None else smoothprob_scale
+            extra = extra + c.tcpgen_gate_loss_weight * scale * loss_gate
+        return loss_att, acc, extra

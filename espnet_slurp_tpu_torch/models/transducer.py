@@ -8,8 +8,11 @@ through kernel K1) and the time-synchronous greedy decode. The model's
 ``forward`` takes the keywords of ``ASRModel.forward``, so
 ``train/state.py:make_train_step`` drives it unchanged. Parameters are fp32
 and every layer computes in ``cfg.asr.dtype``, as the flax modules do; the
-LSTM's cell state stays fp32 (flax's ``nn.RNN`` carry). The TCPGen branch
-of the reference's loss (:168-186) raises.
+LSTM's cell state stays fp32 (flax's ``nn.RNN`` carry). With
+``use_tcpgen`` and a biasing batch the loss is the KB-aware transducer's
+(reference :168-186): TCPGen, queried by the prediction network, mixes its
+pointer into the joint's distribution inside the RNN-T loss, blank's mass
+kept, and the mixed log-probs go through K5 as any others.
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.ctc import ctc_loss_mean_logits
-from ..ops.transducer import rnnt_loss_mean
+from ..ops.transducer import rnnt_loss_from_logprobs, rnnt_loss_mean
 from ..utils import device as device_mod
 from ..utils.device import resolve_device
 from .asr_model import ASRConfig, build_encoder, encode_speech
 from .layers import Linear
+from .tcpgen import TCPGen
 
 Carry = List[Tuple[torch.Tensor, torch.Tensor]]  # per layer (c, h), fp32
 
@@ -38,7 +42,7 @@ class TransducerConfig:
     pred_dim: int = 256
     joint_dim: int = 256
     aux_ctc_weight: float = 0.0  # auxiliary CTC on the encoder output
-    use_tcpgen: bool = False  # KB-aware transducer: not ported, raises
+    use_tcpgen: bool = False  # KB-aware transducer (TCPGen in the loss)
     tcpgen_gcn_layers: int = 2
 
 
@@ -167,11 +171,6 @@ class TransducerModel(nn.Module):
 
     def __init__(self, cfg: TransducerConfig, device=None):
         super().__init__()
-        if cfg.use_tcpgen:
-            raise NotImplementedError(
-                "TransducerModel: the KB-aware transducer (TCPGen in the "
-                "loss) is not ported yet (use_tcpgen: ROADMAP.md queue 1 "
-                "item 10)")
         self.cfg = cfg
         a = cfg.asr
         dt = a.torch_dtype
@@ -183,6 +182,9 @@ class TransducerModel(nn.Module):
                                   cfg.joint_dim, dtype=dt)
         if cfg.aux_ctc_weight > 0:
             self.ctc_proj = Linear(a.d_model, a.vocab_size)
+        if cfg.use_tcpgen:
+            self.tcpgen = TCPGen(cfg.pred_dim, a.vocab_size,
+                                 cfg.tcpgen_gcn_layers, dtype=dt)
         self.to(device=resolve_device(device))
 
     @property
@@ -201,13 +203,19 @@ class TransducerModel(nn.Module):
         return hs, h_lengths
 
     def forward(self, speech, speech_lengths, text, text_lengths, *,
-                train: bool = False,
+                trie_token=None, trie_children_tok=None,
+                trie_children_node=None, trie_n_children=None, node=None,
+                p_gen_mask=None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 mvn_stats=None):
         """Training forward -> (loss, stats) with loss_transducer, loss_ctc
         (when aux_ctc_weight > 0) and loss = RNN-T + aux_ctc_weight * CTC.
         ``generator`` draws SpecAug's masks and the encoder's dropout when
-        ``train``."""
+        ``train``. The trie_* / node / p_gen_mask keywords (a biasing
+        batch, node and mask [B, U+1]) make a ``use_tcpgen`` model's loss
+        the KB-aware one: p_final = [p_blank, ptr p_gen (1 - p_blank) +
+        p_model (1 - p_gen + p_gen p_ookb)] (the fork's
+        transducer/loss.py:26-90)."""
         a = self.cfg.asr
         hs, h_lengths = self.encode(speech, speech_lengths, mvn_stats,
                                     train=train, generator=generator)
@@ -215,8 +223,18 @@ class TransducerModel(nn.Module):
         text_lengths = text_lengths.to(hs.device)
         g = self.prediction(F.pad(labels, (1, 0), value=a.blank_id))
         logits = self.joint.full(hs, g)  # [B, T', U+1, V]
-        loss = rnnt_loss_mean(logits, labels, h_lengths, text_lengths,
-                              a.blank_id)
+        if self.cfg.use_tcpgen and trie_token is not None:
+            trie = {"trie_token": trie_token,
+                    "trie_children_tok": trie_children_tok,
+                    "trie_children_node": trie_children_node,
+                    "trie_n_children": trie_n_children}
+            lp = self._kb_logprobs(logits, g, trie, node, p_gen_mask)
+            loss = rnnt_loss_from_logprobs(lp, labels, h_lengths,
+                                           text_lengths, a.blank_id).sum() \
+                / labels.shape[0]
+        else:
+            loss = rnnt_loss_mean(logits, labels, h_lengths, text_lengths,
+                                  a.blank_id)
         stats = {"loss_transducer": loss}
         if self.cfg.aux_ctc_weight > 0:
             loss_ctc = ctc_loss_mean_logits(self.ctc_proj(hs), h_lengths,
@@ -225,6 +243,24 @@ class TransducerModel(nn.Module):
             loss = loss + self.cfg.aux_ctc_weight * loss_ctc
         stats["loss"] = loss
         return loss, stats
+
+    def _kb_logprobs(self, logits, g, trie, node, p_gen_mask):
+        """log p_final [B, T', U+1, V] fp32 of the KB-aware loss: TCPGen
+        over the trie queried by the prediction network's output g [B,
+        U+1, P]."""
+        a = self.cfg.asr
+        v, blank = a.vocab_size, a.blank_id
+        embs = self.prediction.embed(trie["trie_token"].long())
+        tree_encs = self.tcpgen.encode_tree(embs.to(a.torch_dtype), trie)
+        ptr, kb = self.tcpgen(g, node, trie, tree_encs)  # [B, U+1, V+1]
+        pg = self.tcpgen.gen_prob(g, kb, p_gen_mask)[:, None, :, None]
+        p_model = torch.softmax(logits.float(), dim=-1)
+        p_blank = p_model[..., blank:blank + 1]
+        p_final = (ptr[:, None, :, :v] * pg * (1.0 - p_blank)
+                   + p_model * (1.0 - pg + pg * ptr[:, None, :, v:v + 1]))
+        # blank keeps the model's mass (in place: no fifth [B, T', U+1, V])
+        p_final[..., blank] = p_model[..., blank]
+        return torch.log(p_final + 1e-9)
 
 
 @torch.no_grad()

@@ -129,8 +129,11 @@ class TransformerDecoder(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.num_blocks)]
 
     def forward(self, ys, ys_lengths, memory, memory_lengths,
-                memory_mask: Optional[torch.Tensor] = None):
-        """Scoring forward: [B, L] ids -> [B, L, V] logits (causal)."""
+                memory_mask: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
+        """Scoring forward: [B, L] ids -> [B, L, V] logits (causal); with
+        ``return_hidden`` also the pre-output hidden [B, L, D] (TCPGen's
+        query)."""
         l = ys.shape[1]
         x = abs_positional_encoding(self.embed(ys).to(self.dtype), scale=True)
         self_mask = length_mask(ys_lengths, l)[:, None, None, :] \
@@ -141,7 +144,10 @@ class TransformerDecoder(nn.Module):
         mem_bias = attention_bias(memory_mask[:, None, None, :])
         for layer in self.layers:
             x = layer(x, self_bias, memory, mem_bias)
-        return self.output(self.after_norm(x))
+        hidden = self.after_norm(x)
+        if return_hidden:
+            return self.output(hidden), hidden
+        return self.output(hidden)
 
     # ---- incremental decoding -------------------------------------------
 
@@ -162,10 +168,12 @@ class TransformerDecoder(nn.Module):
                 for i, layer in enumerate(self.layers)}
 
     def step(self, y_t, step_idx: int, cache, mem_kv, memory_lengths,
-             max_len: int, memory_mask: Optional[torch.Tensor] = None):
+             max_len: int, memory_mask: Optional[torch.Tensor] = None,
+             return_hidden: bool = False):
         """One step: y_t [B] token ids at position ``step_idx``.
 
-        Returns ([B, V] logits, cache) with the cache updated in place."""
+        Returns ([B, V] logits, cache) with the cache updated in place, and
+        with ``return_hidden`` the pre-output hidden [B, D] third."""
         emb = self.embed(y_t[:, None]).to(self.dtype) * math.sqrt(self.d_model)
         pe = sinusoid_table(1, self.d_model, offset=step_idx)
         emb = emb + torch.from_numpy(pe).to(emb.device, emb.dtype)
@@ -181,7 +189,10 @@ class TransformerDecoder(nn.Module):
             c, m = cache[f"layer_{i}"], mem_kv[f"layer_{i}"]
             x, c["k"], c["v"] = layer.step(x, c["k"], c["v"], step_idx,
                                            self_bias, m["k"], m["v"], mem_bias)
-        return self.output(self.after_norm(x)[:, 0]), cache
+        hidden = self.after_norm(x)[:, 0]
+        if return_hidden:
+            return self.output(hidden), cache, hidden
+        return self.output(hidden), cache
 
 
 class TransformerEncoder(nn.Module):

@@ -17,9 +17,12 @@ The YAML layout is the reference's:
 ``data.feats_type: fbank`` trains on a stage-3 feature dump (feats.scp of
 .npy [T, D] matrices, the npy loader) with the model's ``input_feats``;
 Speech2Text then turns waveforms into the same features on the model's
-device before it decodes, as the reference's does. Config values that
-select paths not ported yet raise, naming their queue item in ROADMAP.md:
-``model_arch: maskctc``, ``mbr.weight > 0``, ``pipeline_stages > 1``,
+device before it decodes, as the reference's does. ``mbr.weight > 0`` adds
+the MBR / KB-MBR term to the step (train/mbr.py), and ``Speech2Text``
+decodes with TCPGen biasing over ``biasing_words`` (a ``use_tcpgen``
+model, beam search). Config values that select paths not ported yet
+raise, naming their queue item in ROADMAP.md: ``model_arch: maskctc``,
+``pipeline_stages > 1``,
 ``num_att_plot > 0``, ``data.resident_corpus``, ``data.multichannel``,
 ``data.feats_type`` ``fbank_pitch`` or ``ssl``, and the model values of
 models/asr_model.py:unported_options.
@@ -52,9 +55,12 @@ from ..decode.beam import BeamSearchConfig, batch_beam_search
 from ..decode.greedy import attention_greedy_decode
 from ..models.asr_model import ASRConfig, ASRModel, unported_options
 from ..models.moe import MoEFeedForward
+from ..models.tcpgen import GATTreeEncoder, TCPGen
 from ..models.transducer import LSTMLayer
 from ..ops.frontend import default_frontend
+from ..slu.kb import boundary_token_ids, build_trie
 from ..train.checkpoint import CKPT_FILE, CheckpointManager
+from ..train.mbr import MBRConfig, make_mbr_aux_loss
 from ..train.optim import OptimConfig, build_optimizer
 from ..train.state import TrainState, make_eval_step, make_train_step
 from ..train.trainer import Trainer, TrainerOptions
@@ -104,21 +110,6 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class MBRConfig:
-    """The fields of the reference's train/mbr.py:MBRConfig, so that its
-    configs load; MBR training is not ported yet (weight > 0 raises)."""
-    weight: float = 0.0
-    beam_size: int = 4
-    pre_beam_size: int = 12
-    max_len: int = 96
-    ctc_weight: float = 0.0
-    mwe_factor: float = 1.0
-    include_gt: bool = True
-    rare_weight: float = 0.0
-    kb_tokens: tuple = ()
-
-
-@dataclasses.dataclass(frozen=True)
 class ASRTaskConfig:
     exp_dir: str = "exp/asr"
     # "asr" (hybrid CTC/attention) | "maskctc" (not ported yet)
@@ -161,8 +152,6 @@ def refuse_unported(cfg: ASRTaskConfig) -> None:
     if cfg.model_arch != "asr":
         todo.append(f"model_arch {cfg.model_arch!r} (MaskCTC: ROADMAP.md "
                     "queue 1 item 15)")
-    if cfg.mbr.weight > 0:
-        todo.append("mbr.weight > 0 (MBR training: queue 1 item 11)")
     if cfg.pipeline_stages > 1:
         todo.append("pipeline_stages > 1 (pipeline parallelism: queue 1 "
                     "item 17)")
@@ -354,8 +343,9 @@ class ASRTask:
         OptimizedLSTMCell (input kernels lecun_normal, each gate's
         recurrent kernel orthogonal, bias 0); the MoE's expert kernels [E,
         in, out] lecun_normal with flax's fan_in of E x in, their biases
-        0; the attention's pos_bias_u / pos_bias_v 0. Any other parameter
-        raises. Returns the model."""
+        0; the attention's pos_bias_u / pos_bias_v 0; TCPGen's ooKBemb
+        N(0, 0.02^2) and its GAT tree encoder's a_src / a_tgt N(0, 0.1^2),
+        bias 0. Any other parameter raises. Returns the model."""
         gen = torch.Generator().manual_seed(seed)
         done = set()
         with torch.no_grad():
@@ -395,6 +385,15 @@ class ASRTask:
                         w.copy_(x)
                     m.b1.zero_()
                     m.b2.zero_()
+                elif isinstance(m, TCPGen):
+                    m.ooKBemb.copy_(torch.randn(m.ooKBemb.shape,
+                                                generator=gen) * 0.02)
+                elif isinstance(m, GATTreeEncoder):
+                    for name, p in m.named_parameters(recurse=False):
+                        if name.startswith("bias_l"):
+                            p.zero_()
+                        else:  # a_src_l*, a_tgt_l*
+                            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
                 else:
                     continue
                 done.update(id(p) for p in m.parameters(recurse=False))
@@ -422,12 +421,31 @@ class ASRTask:
         log.info("init_params_from %s: %d/%d tensors loaded", path,
                  len(hits), len(own))
 
+    @staticmethod
+    def _kb_token_mask(cfg: ASRTaskConfig, vocab_size: int):
+        """[vocab_size] bool tensor of KB-member subword ids for KB-MBR (the
+        fork's KBwplist membership, by token), or None without
+        ``mbr.rare_weight`` and ``mbr.kb_tokens``. Ids past the vocabulary
+        are dropped, as the reference's scatter drops them."""
+        if cfg.mbr.rare_weight <= 0 or not cfg.mbr.kb_tokens:
+            return None
+        ids = torch.tensor([i for i in cfg.mbr.kb_tokens
+                            if 0 <= i < vocab_size], dtype=torch.long)
+        mask = torch.zeros(vocab_size, dtype=torch.bool)
+        mask[ids] = True
+        return mask
+
     @classmethod
     def train(cls, cfg: ASRTaskConfig, device=None) -> TrainState:
         """Trains on ``device`` (the card unless given, e.g. "cpu"):
         config.yaml and tokens.txt into exp_dir, then the Trainer with
         its checkpoints and n-best average. Returns the final TrainState;
-        the model's parameters are those of the last epoch."""
+        the model's parameters are those of the last epoch. With
+        ``mbr.weight > 0`` each step adds the MBR term (train/mbr.py). A
+        ``use_tcpgen`` model trains its pointer only on batches that carry
+        a trie, as the reference's: wrap ``build_iter_factory`` with
+        slu/kb.py:TCPGenBatchAugmenter.wrap (the reference's
+        recipe/ablation_run.py does)."""
         refuse_unported(cfg)
         dev = resolve_device(device)
         exp = Path(cfg.exp_dir)
@@ -454,12 +472,18 @@ class ASRTask:
         valid_if = cls.build_iter_factory(cfg, valid_ds, shuffle=False)
         mvn_stats = cls.load_mvn_stats(cfg, dev)
         ckpt = CheckpointManager(exp, cfg.keep_nbest)
+        aux = None
+        if cfg.mbr.weight > 0:
+            aux = make_mbr_aux_loss(
+                model, cfg.mbr, mvn_stats=mvn_stats,
+                kb_token_mask=cls._kb_token_mask(cfg, model_cfg.vocab_size))
         trainer = Trainer(
             model,
             make_train_step(model, tx, mvn_stats=mvn_stats,
                             grad_noise_eta=cfg.optim.grad_noise_eta,
                             ema_decay=cfg.optim.ema_decay,
-                            spike_factor=cfg.optim.spike_factor),
+                            spike_factor=cfg.optim.spike_factor,
+                            aux_loss_fn=aux),
             make_eval_step(model, mvn_stats=mvn_stats), ckpt,
             TrainerOptions(max_epoch=cfg.max_epoch, patience=cfg.patience,
                            keep_nbest=cfg.keep_nbest,
@@ -497,7 +521,12 @@ class Speech2Text:
 
     ``mvn_stats``: (mean, inv_std) of a ``use_mvn: global`` model, as
     arrays or tensors; ``tokenizer``, when given, replaces the one built
-    from ``token_type`` / ``bpemodel``.
+    from ``token_type`` / ``bpemodel``. ``biasing_words`` (a ``use_tcpgen``
+    model) builds the decode-time biasing trie from raw words (the fork's
+    asr_recog.py --meetingKB) and the beam search mixes TCPGen's pointer
+    in, p_gen scaled by ``tcpgen_smoothprob`` or pinned to
+    ``tcpgen_force_p_gen``; greedy decoding ignores it, as the
+    reference's.
     """
 
     def __init__(self, cfg: ASRConfig, state_dict: Mapping[str, torch.Tensor],
@@ -505,7 +534,9 @@ class Speech2Text:
                  bpemodel: Optional[str] = None, max_len: int = 128,
                  beam_size: int = 1, ctc_weight: float = 0.0,
                  speech_bucket_multiple: int = 4096, device=None,
-                 mvn_stats=None, tokenizer=None):
+                 mvn_stats=None, tokenizer=None, biasing_words=None,
+                 tcpgen_smoothprob: float = 1.0,
+                 tcpgen_force_p_gen: Optional[float] = None):
         self.model = ASRModel(cfg, device=device)
         self.model.load_state_dict(state_dict)
         self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
@@ -518,15 +549,43 @@ class Speech2Text:
             torch.as_tensor(x, dtype=torch.float32, device=self.model.device)
             for x in mvn_stats)
         self.task_cfg: Optional[ASRTaskConfig] = None
+        self.biasing = None
+        if biasing_words:
+            self.biasing = self._biasing(biasing_words, tcpgen_smoothprob,
+                                         tcpgen_force_p_gen)
+
+    def _biasing(self, words: Sequence[str], smoothprob: float = 1.0,
+                 force_p_gen: Optional[float] = None) -> Dict:
+        """The beam search's ``biasing`` for ``words``: their pieces' trie
+        (slu/kb.py:build_trie), the word-boundary tokens of the token list
+        and their convention (slu/kb.py:boundary_token_ids)."""
+        pieces = [self.converter.tokens2ids(self.tokenizer.text2tokens(w))
+                  for w in words]
+        t = build_trie(pieces)
+        bset, prefix = boundary_token_ids(self.converter.token_list)
+        boundary = torch.zeros(self.model.cfg.vocab_size + 1,
+                               dtype=torch.bool)
+        boundary[sorted(bset)] = True
+        dev = self.model.device
+        trie = {f"trie_{k}": torch.from_numpy(getattr(t, k)).to(dev)
+                for k in ("token", "children_tok", "children_node",
+                          "n_children")}
+        return {"trie": trie, "boundary_mask": boundary.to(dev),
+                "prefix_boundary": prefix, "dead": t.dead,
+                "smoothprob": smoothprob, "force_p_gen": force_p_gen}
 
     @classmethod
     def from_exp_dir(cls, exp_dir: str, ckpt_name: Optional[str] = None,
                      max_len: int = 128, beam_size: int = 1,
-                     ctc_weight: float = 0.0, device=None) -> "Speech2Text":
+                     ctc_weight: float = 0.0, device=None,
+                     biasing_words=None, tcpgen_smoothprob: float = 1.0,
+                     tcpgen_force_p_gen: Optional[float] = None
+                     ) -> "Speech2Text":
         """An experiment directory of ``ASRTask.train`` (the reference's
         constructor): its config.yaml and tokens.txt, the checkpoint
         ``ckpt_name`` (default: the n-best average ``valid.*best`` if there
-        is one, else the latest epoch) and the global MVN stats."""
+        is one, else the latest epoch) and the global MVN stats; the
+        biasing arguments as the constructor's."""
         exp = Path(exp_dir)
         cfg = load_task_config(exp / "config.yaml")
         refuse_unported(cfg)
@@ -541,7 +600,10 @@ class Speech2Text:
                   ctc_weight=ctc_weight,
                   speech_bucket_multiple=cfg.data.speech_bucket_multiple,
                   device=device, mvn_stats=ASRTask.load_mvn_stats(
-                      cfg, resolve_device(device)), tokenizer=tokenizer)
+                      cfg, resolve_device(device)), tokenizer=tokenizer,
+                  biasing_words=biasing_words,
+                  tcpgen_smoothprob=tcpgen_smoothprob,
+                  tcpgen_force_p_gen=tcpgen_force_p_gen)
         s2t.task_cfg = cfg
         return s2t
 
@@ -582,7 +644,8 @@ class Speech2Text:
                 self.model, hs, h_lengths,
                 BeamSearchConfig(beam_size=self.beam_size,
                                  max_len=self.max_len,
-                                 ctc_weight=self.ctc_weight))
+                                 ctc_weight=self.ctc_weight),
+                biasing=self.biasing)
         tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         return [self.tokenizer.tokens2text(
                     self.converter.ids2tokens(tokens[i, :lengths[i]]))

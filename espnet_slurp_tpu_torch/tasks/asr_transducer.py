@@ -10,8 +10,10 @@ state_dict, or from an experiment directory (``from_exp_dir``). It pads as
 the port's Speech2Text does (tasks/asr.py:pad_speech_batch).
 
 Config values that select paths not ported yet raise, naming their
-ROADMAP.md queue 1 item: ``model.use_tcpgen`` (item 10) and those of
-tasks/asr.py:refuse_unported. The reference's transducer builds its
+ROADMAP.md queue 1 item: those of tasks/asr.py:refuse_unported.
+``model.use_tcpgen`` raises too (ROADMAP.md queue 3): the reference's task
+attaches no tries and creates no TCPGen parameters, so under that flag it
+trains a plain transducer. The reference's transducer builds its
 encoder from seven ASRConfig fields (models/transducer.py:112-115) and
 reads its features through the frontend, so the encoder options it
 ignores (MoE, interCTC, self-conditioning, stochastic depth, remat,
@@ -89,9 +91,15 @@ def refuse_unported_transducer(cfg: TransducerTaskConfig) -> None:
     """Raises for a config value that selects a path not ported yet, or an
     encoder option that the reference's transducer ignores."""
     if cfg.model.use_tcpgen:
+        # models/transducer.py builds the KB-aware loss; the reference's
+        # task would train a plain transducer under this flag.
         raise NotImplementedError(
-            "not ported yet: model.use_tcpgen (the KB-aware transducer, "
-            "TCPGen in the loss: ROADMAP.md queue 1 item 10)")
+            "model.use_tcpgen: the reference's ASRTransducerTask attaches "
+            "no tries and creates no TCPGen parameters, so it trains a "
+            "plain transducer under this flag; the port's task refuses it "
+            "(ROADMAP.md queue 3, the transducer's TCPGen). Train the "
+            "KB-aware loss through models/transducer.py:TransducerModel "
+            "with a biasing batch (slu/kb.py:TCPGenBatchAugmenter)")
     ignored = _encoder_options_the_reference_ignores(cfg)
     if ignored:
         raise NotImplementedError(

@@ -68,13 +68,18 @@ class TrainState:
 
 def make_train_step(model: nn.Module, tx: Optimizer, mvn_stats=None,
                     grad_noise_eta: float = 0.0, ema_decay: float = 0.0,
-                    spike_factor: float = 0.0) -> Callable:
+                    spike_factor: float = 0.0,
+                    aux_loss_fn: Optional[Callable] = None) -> Callable:
     """(state, batch) -> (state, stats). ``batch`` holds the keyword
     arguments of ``model.forward`` (speech, speech_lengths, text,
-    text_lengths) on the model's device. stats: the model's (loss,
-    loss_ctc, loss_att, acc, and loss_moe_aux / loss_interctc where the
-    model has them) plus grad_norm and skipped (and spike_skipped with
-    ``spike_factor``), as 0-d tensors."""
+    text_lengths, and a biasing batch's trie keys) on the model's device.
+    stats: the model's (loss, loss_ctc, loss_att, acc, and loss_moe_aux /
+    loss_interctc where the model has them) plus grad_norm and skipped
+    (and spike_skipped with ``spike_factor``), as 0-d tensors.
+
+    ``aux_loss_fn(batch) -> (loss, stats)`` adds a differentiable term to
+    the same step (MBR's expected risk, train/mbr.py:make_mbr_aux_loss);
+    its stats join the step's and ``loss`` is the sum."""
     params = [p for p in model.parameters() if p.requires_grad]
     sizes = [p.numel() for p in params]
 
@@ -85,6 +90,10 @@ def make_train_step(model: nn.Module, tx: Optimizer, mvn_stats=None,
             loss, stats = model(**batch, train=True,
                                 generator=state.generator,
                                 mvn_stats=mvn_stats)
+            if aux_loss_fn is not None:
+                aux, aux_stats = aux_loss_fn(batch)
+                loss = loss + aux
+                stats = {**stats, **aux_stats, "loss": loss}
         with record_function("train_step.backward"):
             loss.backward()
         with torch.no_grad(), record_function("train_step.update"):

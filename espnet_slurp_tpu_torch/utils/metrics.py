@@ -1,7 +1,8 @@
 """Error-rate scoring (WER/CER) — the sclite/sctk replacement. Port of
 espnet_slurp_tpu/utils/metrics.py: ``ErrorStats``, ``align_stats`` and
-``error_rate`` with its native fast path (native/edit_distance.cpp); the
-rare-word scorer and BLEU come with the tasks that use them.
+``error_rate`` with its native fast path (native/edit_distance.cpp) and
+``rare_word_error_rate`` (how contextual biasing is scored); BLEU comes
+with the tasks that use it.
 
 Parity target: stage-13 scoring in egs2/TEMPLATE/asr1/asr.sh:1276-1396 (sclite
 alignment + WER). Pure-python Levenshtein with alignment counts.
@@ -101,3 +102,51 @@ def error_rate(refs: Dict[str, str], hyps: Dict[str, str],
         for r, h in pairs:
             total = total + align_stats(r, h)
     return total.error_rate, total
+
+
+def rare_word_error_rate(refs: Dict[str, str], hyps: Dict[str, str],
+                         rare_words) -> Tuple[float, float, ErrorStats,
+                                              ErrorStats]:
+    """WER split into rare (biasing-list) vs common words.
+
+    Parity target: the fork's rare-word scorer
+    espnet/nets/pytorch_backend/KB_utils/wer.py (197 LoC): aligns ref/hyp,
+    then attributes each ref-word slot to the rare or common bucket.
+    Returns (rare_wer, common_wer, rare_stats, common_stats).
+    """
+    rare_set = set(rare_words)
+    rare = ErrorStats()
+    common = ErrorStats()
+    for uid, ref in refs.items():
+        r = ref.split()
+        h = hyps.get(uid, "").split()
+        # alignment backtrace
+        n, m = len(r), len(h)
+        dp = [[0] * (m + 1) for _ in range(n + 1)]
+        for i in range(n + 1):
+            dp[i][0] = i
+        for j in range(m + 1):
+            dp[0][j] = j
+        for i in range(1, n + 1):
+            for j in range(1, m + 1):
+                dp[i][j] = min(
+                    dp[i - 1][j - 1] + (r[i - 1] != h[j - 1]),
+                    dp[i - 1][j] + 1, dp[i][j - 1] + 1)
+        i, j = n, m
+        while i > 0 or j > 0:
+            if i > 0 and j > 0 and \
+                    dp[i][j] == dp[i - 1][j - 1] + (r[i - 1] != h[j - 1]):
+                bucket = rare if r[i - 1] in rare_set else common
+                if r[i - 1] == h[j - 1]:
+                    bucket.hits += 1
+                else:
+                    bucket.substitutions += 1
+                i, j = i - 1, j - 1
+            elif i > 0 and dp[i][j] == dp[i - 1][j] + 1:
+                bucket = rare if r[i - 1] in rare_set else common
+                bucket.deletions += 1
+                i -= 1
+            else:
+                common.insertions += 1
+                j -= 1
+    return rare.error_rate, common.error_rate, rare, common

@@ -13,6 +13,9 @@ does, so the key is the flax path joined by "." with the leaf renamed:
 - the MoE's expert tensors ``w1`` [E, D, F], ``b1`` [E, F], ``w2`` [E, F,
   D], ``b2`` [E, D] unchanged (models/moe.py keeps the reference's
   layout; its ``router`` is a Dense like any other);
+- TCPGen's raw parameters ``ooKBemb`` [1, D] and the GAT tree encoder's
+  ``a_src_l{i}`` / ``a_tgt_l{i}`` [heads, D] and ``bias_l{i}`` unchanged
+  (models/tcpgen.py names them as the flax tree does);
 - an ``nn.OptimizedLSTMCell`` (``<rnn>/cell/{ii,if,ig,io}/kernel``,
   ``{hi,hf,hg,ho}/{kernel,bias}``; no input-side bias) -> the port's
   ``LSTMLayer`` ``<rnn>.weight_ih`` [4P, in], ``weight_hh`` [4P, P] and
@@ -25,11 +28,17 @@ from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
 
 _TOP_LEVEL_RENAMES = {"ctc": "ctc_proj"}
+# Leaves kept as they are: attention biases, the MoE's expert tensors and
+# TCPGen's raw parameters.
+_RAW_LEAF = re.compile(r"(bias|pos_bias_[uv]|[wb][12]|ooKBemb"
+                       r"|(a_src|a_tgt|bias)_l\d+)$")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -53,7 +62,7 @@ def _convert_leaf(name: str, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim}")
     if name in ("scale", "embedding"):
         return "weight", value
-    if name in ("bias", "pos_bias_u", "pos_bias_v", "w1", "b1", "w2", "b2"):
+    if _RAW_LEAF.match(name):
         return name, value
     raise ValueError(f"no conversion for flax leaf {name!r}")
 

@@ -86,7 +86,7 @@ ASR_RECIPES = [
     ("train_ls100_conformer.yaml", None),
     ("train_streaming.yaml", None),
     ("train_moe.yaml", None),
-    ("train_mbr_kb.yaml", "item 10"),
+    ("train_mbr_kb.yaml", None),
     ("train_asr_pipeline.yaml", "item 17"),
 ]
 
@@ -115,8 +115,47 @@ def test_asr_recipe_loads_then_builds_or_names_its_item(name, item):
     model = pasr.ASRTask.build_model(cfg.model, cfg.model_arch, "cpu")
     assert model.encoder.num_blocks == cfg.model.num_encoder_blocks == 12
     assert model.ctc_proj.out_features == cfg.model.vocab_size == 5000
-    assert (cfg.model.chunk_size, cfg.model.use_mvn) == (
-        (40, "global") if name == "train_streaming.yaml" else (0, "global"))
+    assert (cfg.model.chunk_size, cfg.model.use_mvn) == {
+        "train_streaming.yaml": (40, "global"),
+        "train_mbr_kb.yaml": (0, "utterance")}.get(name, (0, "global"))
+    # train_mbr_kb.yaml: TCPGen (gcn over the trie) and the MBR term
+    assert hasattr(model, "tcpgen") == cfg.model.use_tcpgen \
+        == (name == "train_mbr_kb.yaml")
+    assert (cfg.mbr.weight > 0) == (name == "train_mbr_kb.yaml")
+
+
+@pytest.mark.parametrize("encoder", ["gcn", "gat", "sage", "treelstm"])
+def test_use_tcpgen_builds_with_every_tree_encoder(encoder):
+    """ASRConfig(use_tcpgen=True) builds with each tree encoder, its TCPGen
+    parameters those of the reference's flax tree at the same widths."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from espnet_slurp_tpu.models.tcpgen import TCPGen as JTCPGen
+    from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+    cfg = pasr.load_task_config(None, {"model": {
+        "use_tcpgen": True, "tcpgen_tree_encoder": encoder, "d_model": 32,
+        "n_head": 2, "vocab_size": 40, "tcpgen_gcn_layers": 3}})
+    pasr.refuse_unported(cfg)
+    model = pmodel.ASRModel(cfg.model, device="cpu")
+    from espnet_slurp_tpu_torch.slu.kb import build_trie
+    t8 = build_trie([[1, 2], [3]], pad_nodes_multiple=8)
+    trie = {k: jnp.asarray(getattr(t8, k[5:])) for k in (
+        "trie_token", "trie_children_tok", "trie_children_node",
+        "trie_n_children")}
+
+    def fwd(m, x):
+        ptr, kb = m(x[:3], jnp.zeros(3, jnp.int32), trie,
+                    m.encode_tree(x, trie))
+        return m.gen_prob(x[:3], kb, jnp.zeros(3, jnp.int32))
+
+    jp = JTCPGen(32, 40, 3, tree_encoder=encoder).init(
+        jax.random.PRNGKey(0), jnp.ones((8, 32)), method=fwd)["params"]
+    want = {f"tcpgen.{k}": tuple(v.shape) for k, v in flax_to_torch(
+        jax.tree.map(np.asarray, jp)).items()}
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()
+           if k.startswith("tcpgen.")}
+    assert got == want
 
 
 def test_transducer_recipe_loads_and_builds():
@@ -138,12 +177,18 @@ def test_transducer_recipe_loads_and_builds():
     ({"decoder": "rnn"}, "item 15"),
     ({"preencoder": "linear"}, "item 15"),
     ({"ssl_num_layers": 2, "input_feats": True}, "item 15"),
-    ({"use_tcpgen": True}, "item 10"),
+    ({"use_tcpgen": True}, None),
     ({"use_wpe": True}, "items 15 and 16"),
     ({"num_ref": 2}, "items 15 and 16"),
 ])
 def test_unported_model_values_raise_naming_their_item(override, match):
     cfg = pasr.load_task_config(None, {"model": override})
+    if match is None:  # ported since
+        pasr.refuse_unported(cfg)
+        model = pmodel.ASRModel(cfg.model, device="cpu")
+        assert model.tcpgen.tree_encoder.__class__.__name__ \
+            == "GCNTreeEncoder"
+        return
     with pytest.raises(NotImplementedError, match=match):
         pasr.refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match=match):
@@ -230,5 +275,9 @@ def test_a_reference_config_yaml_loads_in_the_port(tmp_path):
     j_save_yaml(tref, tmp_path / "t.yaml")
     tport = ptask.load_transducer_config(str(tmp_path / "t.yaml"))
     assert to_dict(tport) == j_to_dict(tref)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the task refuses TCPGen (the reference's task would train a plain
+    # transducer under it); the model builds the KB-aware loss
+    with pytest.raises(NotImplementedError, match="queue 3"):
         ptask.refuse_unported_transducer(tport)
+    kb = ptd.TransducerModel(tport.model, device="cpu")
+    assert kb.tcpgen.tree_encoder.num_layers == 3

@@ -81,7 +81,12 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     # imports nothing of JAX), the routed MoE, the frontends and the
     # optimizers.
     "utils.registry", "models.moe", "models.conformer", "models.transformer",
-    "ops.frontend", "train.optim", "train.state"))
+    "ops.frontend", "train.optim", "train.state",
+    # Contextual biasing and MBR: the knowledge base (a copy of the
+    # reference's numpy module), TCPGen, the biased search, the KB-aware
+    # transducer and the MBR term.
+    "slu", "slu.kb", "models.tcpgen", "decode.beam", "models.asr_model",
+    "models.transducer", "train.mbr"))
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():

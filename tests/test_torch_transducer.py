@@ -292,9 +292,29 @@ def test_unported_branches_raise(case):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TransducerModel(_port_cfg())
-    with pytest.raises(NotImplementedError, match="TCPGen"):
-        TransducerModel(dataclasses.replace(_port_cfg(), use_tcpgen=True),
-                        device="cpu")
+    # use_tcpgen builds the KB-aware transducer: its TCPGen (queried by
+    # the prediction network, so pred_dim wide) has the reference's
+    # parameters (tests/test_torch_tcpgen.py holds its loss)
+    kb = TransducerModel(dataclasses.replace(_port_cfg(), use_tcpgen=True),
+                         device="cpu")
+    from espnet_slurp_tpu.models.tcpgen import TCPGen as JaxTCPGen
+    from espnet_slurp_tpu_torch.slu.kb import build_trie
+    t8 = build_trie([[1, 2], [3]], pad_nodes_multiple=8)
+    trie = {k: jnp.asarray(getattr(t8, k[5:])) for k in (
+        "trie_token", "trie_children_tok", "trie_children_node",
+        "trie_n_children")}
+    jp = JaxTCPGen(HEAD["pred_dim"], VOCAB, 2).init(
+        jax.random.PRNGKey(0), jnp.ones((3, HEAD["pred_dim"])),
+        method=lambda m, g: m.gen_prob(g, m(g, jnp.zeros(3, jnp.int32), trie,
+                                            m.encode_tree(
+                                                jnp.ones((8, g.shape[-1])),
+                                                trie))[1],
+                                       jnp.zeros(3, jnp.int32)))["params"]
+    want = {f"tcpgen.{k}": tuple(v.shape) for k, v in flax_to_torch(
+        jax.tree.map(np.asarray, jp)).items()}
+    got = {k: tuple(v.shape) for k, v in kb.state_dict().items()
+           if k.startswith("tcpgen.")}
+    assert got == want
     with pytest.raises(ValueError, match="search"):
         Speech2TextTransducer(_port_cfg(), flax_to_torch(params), TOKENS,
                               beam_size=4, search="beam", device="cpu")

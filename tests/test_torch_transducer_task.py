@@ -179,7 +179,8 @@ def test_clis_raise_without_a_card_and_for_unported_options(runs, tmp_path):
                       str(runs["corpus"][1]), "--output_dir",
                       str(tmp_path / "dec"), "--streaming", "--device",
                       "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="attaches no tries.*queue 3"):
         p_train.main(["--config", runs["pyaml"], "--set",
                       f"exp_dir={tmp_path / 'exp'}", "model.use_tcpgen=true",
                       "--device", "cpu"])
