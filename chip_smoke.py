@@ -285,9 +285,9 @@ or the port's package is not beside it. Phases, each of which fails the run:
    router). (e) bin/asr_inference decodes the 8 dev utterances (beam 10,
    ctc 0.3, max_len 96) with the MoE recipe's model and with a
    self-conditioned flagship that bin/asr_train trained one epoch: the
-   RTF of each; then, in fp32 from one card encode, the beam search on
-   the card and on the CPU gives the same tokens and lengths on every
-   row but proved near-ties, the card's choices and scores replayed on
+   RTF of each; then, in fp32 from one card encode of MOE_CMP_UTT of
+   them, the beam search on the card and on the CPU gives the same tokens
+   and lengths on every row but proved near-ties, the card's choices and scores replayed on
    the CPU (search_parity). (f) remat_encoder with stochastic depth 0.1
    on the card (fp32, dropout 0.1): the loss and gradients equal the run
    without remat from an equally seeded generator on the card, which
@@ -327,6 +327,26 @@ or the port's package is not beside it. Phases, each of which fails the run:
    its batch_bins), only exp_dir, the data dirs, init_params_from (phase
    15's n-best average) and max_epoch 1 overridden: every step (b)'s
    launches, finite loss_mbr and mbr_expected_risk in reporter.json.
+20. Two-pass SLU with the BERT postdecoder (conf/train_slu_tcpgen_gcn.yaml:
+   12 x 256, d_ff 2048, 6 decoder blocks, bf16, dropout 0.1, BERT 4 x d_ff
+   1024 over the transcript, 2 deliberation blocks over the fused memory)
+   on a synthetic SLURP-entity corpus (SLU_TRAIN + SLU_DEV utterances of
+   1.5-6 s, 3-20 words over SLU_WORDS words, in
+   recipe/prepare_slurp.py:format_text's layout): (a) the yaml's model
+   (the reference's init from a seed) through make_train_step on the
+   first batch of the yaml's numel sampler (batch_bins 8,000,000): per
+   step K2 24, K3 12 and K1 1 each way by the wrappers' and the host
+   counts, K4, K5 and K6 none; step seconds, audio-s/s, peak memory and a
+   profiled step's busy ms; (b) its fp32 step card against CPU on phase
+   6's short batch with transcripts of 8 and 3 words (loss and stats
+   1e-4 relative, gradients 1e-3 of max |ref|); (c) the yaml as written
+   through bin/slu_train (exp_dir, the data dirs and max_epoch 1
+   overridden; at least two steps, each with (a)'s launches), then
+   bin/slu_inference with GT transcripts, with a first pass (a flagship
+   that bin/asr_train trains one epoch on the transcripts, beam 5) and
+   with dialogue history: score.txt written, every encode K2 24 and K3
+   12, the RTF and the host syncs an utterance of each; (d)
+   recipe/slu_pipeline.py:run_slu_pipeline stages 1-13 with the yaml.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -346,8 +366,9 @@ the K1-K4 entries their launches a step of phase 18's MoE model
 and of phase 19's TCPGen and KB-MBR steps (``launches_per_tcpgen_step``,
 ``launches_per_mbr_step``); the entries of K1, K2, K3, K5 and K6 their
 launches a step of phase 19's KB-aware transducer
-(``launches_per_kb_transducer_step``); the last line is ``{"ok": true,
-"device": {...}}``.
+(``launches_per_kb_transducer_step``), and the K1-K3 entries their
+launches a step of phase 20's SLU model (``launches_per_slu_step``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2741,8 +2762,8 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
     (floored at 1e-4 of the largest gradient entry), CPU against card.
     ``extra`` adds batch keys (a biasing batch's trie and walk) and ``aux``
     (model -> aux_loss_fn) an MBR term to the loss; then every stat of the
-    loss's but acc within 1e-4 relative too, and with ``extra`` the CPU's
-    loss_ptr, loss_gate and p_gen_bias above 0.
+    loss's but acc within 1e-4 relative too, and with a biasing batch in
+    ``extra`` the CPU's loss_ptr, loss_gate and p_gen_bias above 0.
 
     Each side's train forward draws its dropout seeds from a CPU generator
     seeded with DROPOUT_SEED (ops/kernels/philox.py:draw_seed draws on the
@@ -2767,7 +2788,8 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
                  "text_lengths": torch.from_numpy(tlens).to(dev)}
         batch.update({k: torch.as_tensor(v).to(dev)
                       for k, v in (extra or {}).items()})
-        embed, pre = model.encoder.embed, []
+        # an SLU model's acoustic encoder is its ASR model's
+        embed, pre = getattr(model, "asr", model).encoder.embed, []
         hooks = [getattr(embed, f"conv{i + 1}").register_forward_hook(
             lambda m, i, o: pre.append(o)) for i in range(embed.n_convs)]
         loss, stats = model(**batch, train=True, generator=gens[dev])
@@ -2816,7 +2838,8 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
             raise AssertionError(f"{what} card vs CPU stats")
     # the pointer and the gate must have worked, or their terms compare 0
     idle = [k for k in ("loss_ptr", "loss_gate", "p_gen_bias")
-            if extra is not None and not float(st_c[k].detach()) > 0]
+            if "trie_token" in (extra or {})
+            and not float(st_c[k].detach()) > 0]
     if idle:
         raise AssertionError(f"{what}: {idle} not above 0 on the CPU")
     if not (rel <= 1e-4 and worst[0] <= 1e-3 and same_draws and drew):
@@ -4254,7 +4277,10 @@ def transducer_cli_phase(torch, card, root, corpus):
 # phase 15's corpus); the fp32 beam searches of (e) run on MOE_CMP_UTT of
 # the decode's utterances on both devices from one encoder output.
 INTERCTC_LAYERS, INTERCTC_WEIGHT = (3, 6, 9), 0.3
-MOE_CMP_UTT = N_UTT
+# Half the decode's utterances: at N_UTT the CPU's fp32 searches and their
+# replays took ~95 s of a whole run beside an NVIDIA H100 80GB HBM3 (700 W)
+# on a slow host, and the script must end within its time limit there too.
+MOE_CMP_UTT = N_UTT // 2
 # The MoE step at 64 x 15 s must stay under this peak (ISSUE budget: the
 # reference's one-hot [S, E, C] dispatch alone would take 4.5 GB a layer).
 MOE_PEAK_GB = 16.0
@@ -5259,6 +5285,386 @@ def recipe_phases(torch, card, train_step_s):
     return recipe, transducer, moe
 
 
+# Phase 20: two-pass SLU with the BERT postdecoder
+# (conf/train_slu_tcpgen_gcn.yaml) on a synthetic SLURP-entity corpus
+# written under the gitignored build/ (removed at the end): SLU_TRAIN train
+# and SLU_DEV dev utterances of 1.5-6 s, transcripts of 3-20 words over
+# SLU_WORDS synthetic words, an intent of SLU_INTENTS and 0-2 entities
+# each, in recipe/prepare_slurp.py:format_text's layout. The first pass of
+# (c) is a flagship that bin/asr_train trains one epoch on the train
+# split's transcripts (phase 15's config: char tokens, sorted batches of
+# CLI_BATCH).
+SLU_YAML = "conf/train_slu_tcpgen_gcn.yaml"
+SLU_ROOT = "build/chip_smoke_slu"
+SLU_WORDS, SLU_TRAIN, SLU_DEV, SLU_INTENTS = 2000, 200, 4, 60
+SLU_SCENARIOS = ("alarm", "audio", "calendar", "cooking", "datetime",
+                 "email", "general", "iot", "lists", "music", "news", "play",
+                 "qa", "recommendation", "social", "takeaway", "transport",
+                 "weather")
+SLU_ACTIONS = ("set", "query", "remove", "volume_up", "volume_mute",
+               "factoid", "hue_lightoff", "quirky", "recipe", "ticket",
+               "podcasts", "radio", "sendemail", "createoradd", "order",
+               "events", "traffic", "convert")
+SLU_ENTITY_TYPES = ("date", "time", "place_name", "person", "event_name",
+                    "business_name", "device_type", "food_type", "media_type",
+                    "artist_name", "song_name", "weather_descriptor",
+                    "timeofday", "relation", "house_place", "transport_type",
+                    "currency_name", "list_name", "color_type", "player_setting")
+# Each encode of the yaml's model: K2 twice and K3 once a block.
+SLU_BLOCKS = 12
+SLU_REPORTED = ("loss", "loss_ctc", "loss_att", "step_time", "iter_time")
+
+
+def slu_split(d, split, count, rng, intents):
+    """d/{wav.scp,text,transcript}: count utterances of 1.5-6 s, 3-20 words
+    of w0000..w{SLU_WORDS - 1} (a tone a word), an intent and 0-2 entities
+    of 1-2 words, written by recipe/prepare_slurp.py:format_text."""
+    from espnet_slurp_tpu_torch.data.fileio import DatadirWriter, write_wav
+    from espnet_slurp_tpu_torch.recipe.prepare_slurp import format_text
+
+    (d / "wav").mkdir(parents=True, exist_ok=True)
+    with DatadirWriter(d) as w:
+        for i in range(count):
+            n_words = rng.randint(3, 21)
+            ids = rng.randint(SLU_WORDS, size=n_words)
+            words = [f"w{j:04d}" for j in ids]
+            spans, taken = [], set()
+            for _ in range(rng.randint(3)):
+                start, width = rng.randint(n_words), rng.randint(1, 3)
+                cells = set(range(start, min(start + width, n_words)))
+                if cells & taken:
+                    continue
+                taken |= cells
+                spans.append((min(cells), max(cells) + 1,
+                              SLU_ENTITY_TYPES[rng.randint(
+                                  len(SLU_ENTITY_TYPES))]))
+            annotated, k = [], 0
+            for start, end, typ in sorted(spans):
+                annotated += words[k:start]
+                annotated.append(f"[{typ} : {' '.join(words[start:end])}]")
+                k = end
+            annotated += words[k:]
+            scenario, action = intents[rng.randint(len(intents))]
+            rec = {"sentence": " ".join(words),
+                   "sentence_annotation": " ".join(annotated),
+                   "scenario": scenario, "action": action}
+            n = int(FS * rng.uniform(1.5, 6.0))
+            seg = n // n_words
+            t = np.arange(seg) / FS
+            wav = np.concatenate([0.3 * np.sin(2 * np.pi * (200 + 2 * j) * t)
+                                  for j in ids])
+            wav = np.pad(wav, (0, n - len(wav))) + 0.01 * rng.randn(n)
+            uid = f"slurp_{split}_{i:04d}"
+            path = (d / "wav" / f"{uid}.wav").resolve()
+            write_wav(str(path), wav.astype(np.float32), FS)
+            w["wav.scp"][uid] = str(path)
+            w["text"][uid] = format_text(rec, "entity")
+            w["transcript"][uid] = format_text(rec, "transcript")
+    return d
+
+
+def slu_corpus(root):
+    """root/{train,dev} (slu_split) over SLU_INTENTS scenario_action pairs;
+    returns both directories."""
+    rng = np.random.RandomState(11)
+    pairs = [(s, a) for s in SLU_SCENARIOS for a in SLU_ACTIONS]
+    intents = [pairs[i] for i in rng.permutation(len(pairs))[:SLU_INTENTS]]
+    dirs = [slu_split(root / split, split, count, rng, intents)
+            for split, count in (("train", SLU_TRAIN), ("dev", SLU_DEV))]
+    return dirs
+
+
+def slu_config(**over):
+    """conf/train_slu_tcpgen_gcn.yaml as written, with ``over`` (nested
+    dicts) merged into it."""
+    from espnet_slurp_tpu_torch.tasks.slu import load_slu_config
+    return load_slu_config(SLU_YAML, over)
+
+
+def slu_step_want():
+    """An SLU train step's launches each way by the wrappers' counts: the
+    acoustic encoder's K2 and K3, the CTC term's K1 (from the head's
+    logits: no K4); the deliberation blocks and the BERT are eager."""
+    return {"fused_ffn": 2 * SLU_BLOCKS, "fused_ffn_bwd": 2 * SLU_BLOCKS,
+            "rel_flash_attention": SLU_BLOCKS,
+            "rel_flash_attention_bwd": SLU_BLOCKS,
+            "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+
+
+def slu_host_want(n_rows):
+    """The host counts of one SLU train step on n_rows = B x T' rows: the
+    flagship step's at dropout DROPOUT (cli_step_want) without K4's."""
+    _, hosts = cli_step_want(n_rows, SLU_BLOCKS)
+    return {k: v for k, v in hosts.items() if k not in K4_BF16_LAUNCHES}
+
+
+def slu_train_phase(torch, card, root, corpus, train_step_s):
+    """Phase 20 (a): the yaml's model (the reference's initialisation from
+    a seed) through make_train_step on the first batch of the yaml's numel
+    sampler over the train split (batch_bins 8,000,000 samples): every
+    step K2 24, K3 12 and K1 1 each way by the wrappers' and the host
+    counts, K4, K5 and K6 none; step seconds, audio-s/s, peak memory and
+    a profiled step's busy ms beside phase 5's flagship. Returns the
+    launches a step and the vocabulary sizes."""
+    from espnet_slurp_tpu_torch.data.prefetch import to_device
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    from espnet_slurp_tpu_torch.slu.model import SLUModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+    from espnet_slurp_tpu_torch.tasks.slu import SLUTask
+
+    train_dir, dev_dir = corpus
+    cfg = slu_config(exp_dir=str(root / "exp_a"), data={
+        "train_dir": str(train_dir), "valid_dir": str(dev_dir)})
+    tok, conv, extra, mcfg = SLUTask.prepare_vocab(cfg)
+    ds = SLUTask.build_dataset(cfg, cfg.data.train_dir, tok, conv, extra)
+    t0 = time.perf_counter()
+    np_batch = next(iter(SLUTask.build_iter_factory(cfg, ds, True)(1)))
+    host_s = time.perf_counter() - t0
+    batch = to_device(np_batch, "cuda")
+    b, n = np_batch["speech"].shape
+    audio_s = float(np_batch["speech_lengths"].sum()) / FS
+    model = ASRTask.init_params(SLUModel(mcfg, device="cuda"), cfg.data.seed)
+    a = mcfg.asr
+    what = (f"phase 20 (a) {SLU_YAML}: {a.num_encoder_blocks} x {a.d_model},"
+            f" d_ff {a.d_ff}, {a.num_decoder_blocks} decoder blocks, "
+            f"{a.dtype}, dropout {a.dropout_rate}, {mcfg.postdecoder} "
+            f"postdecoder {mcfg.text_encoder_blocks} x d_ff "
+            f"{mcfg.text_encoder_d_ff}, {mcfg.deliberation_blocks} "
+            f"deliberation blocks; V {a.vocab_size}, transcript V "
+            f"{mcfg.transcript_vocab_size}; a numel batch of B={b} (padded "
+            f"to {n} samples, {audio_s:.1f} audio-s; transcripts up to "
+            f"{int(np_batch['transcript_lengths'].max())} words, labels up "
+            f"to {int(np_batch['text_lengths'].max())})")
+    print(f"{what}: the batch read and collated in {host_s:.2f} s on the "
+          f"host")
+    hosts0 = build.launch_counts()
+    run = run_train_steps(torch, what, model, batch, card, audio_s)
+    hosts = build.launch_delta(hosts0, build.launch_counts())
+    want = slu_step_want()
+    check_per_step(what, run.launches, want)
+    check_routes(what, run.routes, K1_WARP, TRAIN_STEPS)
+    t_prime = Conv2dSubsampling.out_length_static(1 + n // 128)
+    steps = TRAIN_STEPS + 2  # the warm-up and the profiled step too
+    host_want = {k: v * steps for k, v in
+                 slu_host_want(b * t_prime).items()}
+    host_got = {k: hosts.get(k, 0) for k in host_want}
+    stray = {k: v for k, v in hosts.items() if k not in host_want}
+    print(f"{what}: host counts over {steps} steps {hosts}")
+    if host_got != host_want or stray:
+        raise AssertionError(f"{what}: host counts {hosts}, expected "
+                             f"{host_want}")
+    ratio = audio_s / (TRAIN_B * TRAIN_SECONDS)
+    print(f"{what}: step {run.step_s:.4f} s, "
+          f"{audio_s / run.step_s:.1f} audio-s/s ({ratio:.2f}x phase 5's "
+          f"audio a batch; phase 5's flagship step "
+          f"{train_step_s:.4f} s), device busy {run.busy_ms:.2f} ms, peak "
+          f"{run.peak_mb:.1f} MB; launches a step {want} and K4, K5, K6 "
+          f"none, held on {card}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return want, (a.vocab_size, mcfg.transcript_vocab_size)
+
+
+def slu_fp32_phase(torch, card, vocab, t_vocab):
+    """Phase 20 (b): the yaml's model in fp32 (SpecAug off, its dropout 0.1
+    with phase 6's seeds) on phase 6's short batch with transcripts of 8
+    and 3 words (the fused memory's mask has a hole): the loss, every stat
+    (1e-4 relative) and every gradient (1e-3 of max |ref|), card against
+    CPU."""
+    from espnet_slurp_tpu_torch.slu.model import SLUModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    base = slu_config().model
+    cfg = dataclasses.replace(
+        base, transcript_vocab_size=t_vocab, asr=dataclasses.replace(
+            base.asr, vocab_size=vocab, dtype="float32", specaug=None))
+    state = ASRTask.init_params(SLUModel(cfg, device="cpu"), 0).state_dict()
+    speech, lens, text, tlens = short_batch(vocab)
+    rng = np.random.RandomState(5)
+    extra = {"transcript": rng.randint(1, t_vocab, (2, 8)).astype(np.int64),
+             "transcript_lengths": np.asarray([8, 3], np.int32)}
+    compare_cpu_card(
+        torch, f"phase 20 (b) fp32 two-pass SLU step ({SLU_YAML}'s model, "
+        f"{cfg.asr.num_encoder_blocks} encoder blocks, dropout "
+        f"{cfg.asr.dropout_rate}, transcripts of 8 and 3 words)", SLUModel,
+        cfg, state, speech, lens, text, tlens, extra=extra)
+
+
+def slu_decode_cli(torch, card, exp, dev_dir, out, flags, encodes):
+    """bin/slu_inference on dev_dir with ``flags``; each utterance's call
+    timed, its launches and host syncs counted (every call ``encodes``
+    encodes: K2 24 and K3 12 each, nothing else counted). Returns (RTF,
+    host syncs an utterance, score)."""
+    from espnet_slurp_tpu_torch.bin import slu_inference
+    from espnet_slurp_tpu_torch.tasks import slu as task
+    from espnet_slurp_tpu_torch.utils import device as devmod
+
+    call = task.Speech2Understand.__call__
+    walls, counts, audio = [], [], []
+
+    def counted(self, speech, transcript=None):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, speech, transcript)
+        walls.append(time.perf_counter() - t0)  # `out` is a host string
+        counts.append({k: v for k, v in read_counts().items() if v})
+        audio.append(len(speech) / FS)
+        return out
+
+    task.Speech2Understand.__call__ = counted
+    syncs0 = devmod.host_syncs
+    try:
+        slu_inference.main(["--exp_dir", str(exp), "--data_dir",
+                            str(dev_dir), "--output_dir", str(out)] + flags)
+    finally:
+        task.Speech2Understand.__call__ = call
+    syncs = devmod.host_syncs - syncs0
+    want = {"fused_ffn": 2 * SLU_BLOCKS * encodes,
+            "rel_flash_attention": SLU_BLOCKS * encodes}
+    score = dict(line.split() for line in
+                 (out / "score.txt").read_text().splitlines())
+    rtf = sum(walls) / sum(audio)
+    hyps = (out / "text").read_text().splitlines()
+    print(f"phase 20 (c) bin/slu_inference {' '.join(flags)}: "
+          f"{len(walls)} utterances, {sum(audio):.1f} audio-s in "
+          f"{sum(walls):.3f} s (RTF {rtf:.5f}), host syncs "
+          f"{syncs / len(walls):.2f} an utterance, launches a call "
+          f"{counts[0]}; score.txt {score}; hypothesis words "
+          f"{[len(h.split()) - 1 for h in hyps]} on {card}")
+    if any(c != want for c in counts) or sorted(score) != [
+            "intent_acc", "precision", "recall", "slu_f1"] \
+            or len(hyps) != len(walls):
+        raise AssertionError(f"phase 20 (c) {flags}: launches {counts} "
+                             f"(expected {want}), score {score}")
+    return rtf, syncs / len(walls), score
+
+
+def slu_first_pass(root, corpus):
+    """The first-pass recognizer's experiment: bin/asr_train trains the
+    flagship (cli_train_yaml: dropout DROPOUT, char tokens, sorted batches
+    of CLI_BATCH) one epoch on the splits with text := transcript."""
+    import shutil
+    from espnet_slurp_tpu_torch.bin import asr_train
+
+    dirs = []
+    for d in corpus:
+        a = root / f"{d.name}_asr"
+        a.mkdir()
+        shutil.copy(d / "wav.scp", a / "wav.scp")
+        shutil.copy(d / "transcript", a / "text")
+        dirs.append(a)
+    t0 = time.perf_counter()
+    asr_train.main(["--config", cli_train_yaml(root, *dirs, 1,
+                                               exp="exp_asr")])
+    print(f"phase 20 (c): the first pass (the flagship, one epoch on the "
+          f"transcripts through bin/asr_train) trained in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return root / "exp_asr"
+
+
+def slu_cli_phase(torch, card, root, corpus):
+    """Phase 20 (c): the yaml as written through bin/slu_train on the card
+    (only exp_dir, the data dirs and max_epoch 1 overridden): at least two
+    steps, each with (a)'s launches by the wrappers' and the host counts,
+    finite losses in reporter.json; then bin/slu_inference with GT
+    transcripts, with phase 15's flagship experiment as the first pass
+    (beam 5) and with dialogue history: RTF, host syncs an utterance and
+    score.txt of each."""
+    from espnet_slurp_tpu_torch.bin import slu_train
+    from espnet_slurp_tpu_torch.tasks import slu as task
+
+    t0 = time.perf_counter()
+    train_dir, dev_dir = corpus
+    exp = root / "exp_c"
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock, task=task)
+    try:
+        slu_train.main(["--config", SLU_YAML, "--set", f"exp_dir={exp}",
+                        f"data.train_dir={train_dir}",
+                        f"data.valid_dir={dev_dir}", "max_epoch=1"])
+    finally:
+        task.make_train_step = make
+    train_s = time.perf_counter() - t0
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    train = hist[-1]["train"] if hist else {}
+    want = {k: slu_step_want().get(k, 0) for k in COUNTED}
+    bad = [i for i, (w, h, rows) in enumerate(per_step)
+           if w != want or h != slu_host_want(rows)]
+    print(f"phase 20 (c) {SLU_YAML} through bin/slu_train (exp_dir, data "
+          f"dirs, max_epoch 1 overridden): {len(per_step)} steps of B x T' "
+          f"{[rows for _, _, rows in per_step]} rows, launches a step "
+          f"{per_step[0][0] if per_step else None}, by instance "
+          f"{per_step[0][1] if per_step else None}; train "
+          f"{ {k: train.get(k) for k in SLU_REPORTED} }; {train_s:.1f} s "
+          f"on {card}")
+    if not (len(hist) == 1 and len(per_step) >= 2 and not bad
+            and all(np.isfinite(train.get(k, np.nan))
+                    for k in ("loss", "loss_ctc", "loss_att"))):
+        raise AssertionError(f"phase 20 (c): steps {per_step}, reporter "
+                             f"{hist}")
+    first = slu_first_pass(root, corpus)
+    decodes = {}
+    for name, flags, encodes in (
+            ("gt", ["--use_transcript"], 1),
+            ("first_pass", ["--asr_exp_dir", str(first),
+                            "--asr_beam_size", "5"], 2),
+            ("history", ["--use_transcript", "--use_history"], 1)):
+        decodes[name] = slu_decode_cli(torch, card, exp, dev_dir,
+                                       root / f"dec_{name}", flags, encodes)
+    print(f"phase 20 (c): RTF and host syncs an utterance "
+          f"{ {k: (round(r, 5), s) for k, (r, s, _) in decodes.items()} }; "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+
+
+def slu_recipe_phase(torch, card, root, corpus):
+    """Phase 20 (d): recipe/slu_pipeline.py:run_slu_pipeline stages 1-13 on
+    the card with the yaml (exp_dir, the data dirs and max_epoch 1
+    overridden): intent accuracy and SLU-F1 of the dev split with GT
+    transcripts, score.txt written."""
+    from espnet_slurp_tpu_torch.recipe.slu_pipeline import run_slu_pipeline
+
+    t0 = time.perf_counter()
+    train_dir, dev_dir = corpus
+    cfg = slu_config(exp_dir=str(root / "exp_d"), max_epoch=1, data={
+        "train_dir": str(train_dir), "valid_dir": str(dev_dir)})
+    results = run_slu_pipeline(cfg, stage=1, stop_stage=13, device="cuda")
+    score = root / "exp_d" / "decode_dev" / "score.txt"
+    print(f"phase 20 (d) run_slu_pipeline stages 1-13: {results}; "
+          f"score.txt {score.read_text().split()}; "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    if sorted(results) != ["intent_acc_dev", "slu_f1_dev"]:
+        raise AssertionError(f"phase 20 (d): {results}")
+
+
+def slu_phases(torch, card, train_step_s):
+    """Phase 20 (a)-(d) on one synthetic corpus under SLU_ROOT, removed at
+    the end. Returns the launches of an SLU train step."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(SLU_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    corpus = slu_corpus(root)
+    print(f"phase 20: corpus of {SLU_TRAIN} + {SLU_DEV} utterances written "
+          f"in {time.perf_counter() - t0:.1f} s")
+    lap = time.perf_counter()
+    step, (vocab, t_vocab) = slu_train_phase(torch, card, root, corpus,
+                                             train_step_s)
+    print(f"phase 20 (a): {time.perf_counter() - lap:.1f} s")
+    lap = time.perf_counter()
+    slu_fp32_phase(torch, card, vocab, t_vocab)
+    print(f"phase 20 (b): {time.perf_counter() - lap:.1f} s")
+    slu_cli_phase(torch, card, root, corpus)
+    slu_recipe_phase(torch, card, root, corpus)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return step
+
+
 def main() -> int:
     import torch
 
@@ -5405,6 +5811,7 @@ def main() -> int:
     kb_decode_phase(torch, card)
     print(f"phase 19 (d)-(e): {time.perf_counter() - lap:.1f} s; (a)-(e): "
           f"{time.perf_counter() - t_added:.1f} s")
+    slu_step = slu_phases(torch, card, train_step_s)
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):
@@ -5422,6 +5829,8 @@ def main() -> int:
             kern["launches_per_mbr_step"] = mbr_step[base]
         if base in kb_tr_step:
             kern["launches_per_kb_transducer_step"] = kb_tr_step[base]
+        if base in slu_step:
+            kern["launches_per_slu_step"] = slu_step[base]
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

@@ -1,13 +1,17 @@
 """Batched greedy attention decoding. Port of espnet_slurp_tpu/decode/greedy.py
 (the beam-size-1 path): [B] hypotheses advance in lockstep, finished ones
-freeze at eos, and the loop stops once all have ended."""
+freeze at eos, and the loop stops once all have ended: one host sync a
+step, counted in utils/device.py:host_syncs. A ``memory_mask`` decodes
+over a memory that is not a length prefix (the SLU fused memory,
+tasks/slu.py:_greedy_over_memory)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..models.asr_model import ASRModel
+from ..utils.device import host_bool
 
 
 def init_decoder_cache(model: ASRModel, batch: int, max_len: int):
@@ -22,9 +26,12 @@ def eos_lengths(tokens: torch.Tensor, eos: int) -> torch.Tensor:
 
 @torch.inference_mode()
 def attention_greedy_decode(model: ASRModel, hs: torch.Tensor,
-                            h_lengths: torch.Tensor, max_len: int = 128
+                            h_lengths: torch.Tensor, max_len: int = 128,
+                            memory_mask: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (tokens [B, max_len] eos-padded, lengths [B] without sos/eos)."""
+    """-> (tokens [B, max_len] eos-padded, lengths [B] without sos/eos).
+    The decoder reads ``hs`` through ``memory_mask`` [B, T] when given,
+    else through ``h_lengths``."""
     cfg = model.cfg
     b = hs.shape[0]
     sos, eos = cfg.sos_id, cfg.eos_id
@@ -35,10 +42,10 @@ def attention_greedy_decode(model: ASRModel, hs: torch.Tensor,
     ended = torch.zeros(b, dtype=torch.bool, device=hs.device)
     for i in range(max_len):
         logits, cache = model.decoder.step(y, i, cache, mem_kv, h_lengths,
-                                           max_len)
+                                           max_len, memory_mask=memory_mask)
         y = torch.where(ended, eos, logits.argmax(dim=-1))
         tokens[:, i] = y
         ended = ended | (y == eos)
-        if bool(ended.all()):
+        if host_bool(ended.all()):
             break
     return tokens, eos_lengths(tokens, eos)

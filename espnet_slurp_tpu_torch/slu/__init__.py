@@ -1,2 +1,3 @@
-"""Spoken-language understanding and contextual biasing. So far the biasing
-knowledge base (``kb.py``)."""
+"""Spoken-language understanding and contextual biasing: the SLU model
+(``model.py``), its scoring (``metrics.py``), a synthetic SLURP-style
+corpus (``mini_corpus.py``) and the biasing knowledge base (``kb.py``)."""

@@ -22,7 +22,11 @@ does, so the key is the flax path joined by "." with the leaf renamed:
   ``bias_hh`` [4P], gates stacked in the order i, f, g, o (torch's): the
   same scalars, in 3 tensors instead of 12.
 
-The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here.
+The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here,
+at the top of an ASR tree and under ``asr`` in an SLU tree (slu/model.py
+holds its ASR model there). An SLU tree's BERT postdecoder
+(models/hf_transformer.py) and text encoder are Dense, LayerNorm and Embed
+leaves like any other.
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ import numpy as np
 import torch
 from torch import nn
 
-_TOP_LEVEL_RENAMES = {"ctc": "ctc_proj"}
+# The CTC head's flax name -> the port's, at the top of a tree or under
+# the module that holds an ASR model (an SLU tree's ``asr``).
+_CTC_RENAMES = {("ctc",): ("ctc_proj",), ("asr", "ctc"): ("asr", "ctc_proj")}
 # Leaves kept as they are: attention biases, the MoE's expert tensors and
 # TCPGen's raw parameters.
 _RAW_LEAF = re.compile(r"(bias|pos_bias_[uv]|[wb][12]|ooKBemb"
@@ -82,11 +88,18 @@ def _lstm_leaves(cells: Dict[tuple, Dict[str, np.ndarray]]):
         yield prefix + ".bias_hh", stack("h", "bias")
 
 
+def _rename(path: tuple) -> tuple:
+    for n in (1, 2):
+        if path[:n] in _CTC_RENAMES and len(path) > n:
+            return _CTC_RENAMES[path[:n]] + path[n:]
+    return path
+
+
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested flax params (np.ndarray leaves) -> this port's state_dict."""
     out, cells = {}, {}
     for path, value in _flatten(params).items():
-        path = (_TOP_LEVEL_RENAMES.get(path[0], path[0]),) + path[1:]
+        path = _rename(path)
         if len(path) >= 3 and path[-3] == "cell":
             cells.setdefault(path[:-3], {})["/".join(path[-2:])] = value
             continue

@@ -16,8 +16,10 @@ from espnet_slurp_tpu.models import asr_model as jmodel
 from espnet_slurp_tpu.models import transducer as jtd
 from espnet_slurp_tpu.models.wav2vec2 import Wav2Vec2Config as JW2V
 from espnet_slurp_tpu.ops import frontend as jfront
+from espnet_slurp_tpu.slu import model as jslu
 from espnet_slurp_tpu.tasks import asr as jasr
 from espnet_slurp_tpu.tasks import asr_transducer as jtask
+from espnet_slurp_tpu.tasks import slu as jslutask
 from espnet_slurp_tpu.train import mbr as jmbr
 from espnet_slurp_tpu.train import optim as joptim
 from espnet_slurp_tpu.utils.config import save_yaml as j_save_yaml
@@ -25,8 +27,10 @@ from espnet_slurp_tpu.utils.config import to_dict as j_to_dict
 from espnet_slurp_tpu_torch.models import asr_model as pmodel
 from espnet_slurp_tpu_torch.models import transducer as ptd
 from espnet_slurp_tpu_torch.ops import frontend as pfront
+from espnet_slurp_tpu_torch.slu import model as pslu
 from espnet_slurp_tpu_torch.tasks import asr as pasr
 from espnet_slurp_tpu_torch.tasks import asr_transducer as ptask
+from espnet_slurp_tpu_torch.tasks import slu as pslutask
 from espnet_slurp_tpu_torch.train import optim as poptim
 from espnet_slurp_tpu_torch.utils.config import to_dict
 
@@ -41,6 +45,8 @@ PAIRS = [
     (poptim.OptimConfig, joptim.OptimConfig),
     (pasr.MBRConfig, jmbr.MBRConfig),
     (ptask.TransducerTaskConfig, jtask.TransducerTaskConfig),
+    (pslu.SLUConfig, jslu.SLUConfig),
+    (pslutask.SLUTaskConfig, jslutask.SLUTaskConfig),
 ]
 
 
@@ -93,7 +99,7 @@ ASR_RECIPES = [
 
 def test_every_asr_recipe_is_listed():
     """Every conf/train_*.yaml is an ASR recipe above, the transducer's, or
-    the SLU task's (queue 1 item 12, not an ASR config)."""
+    the SLU task's (test_slu_recipe_loads_and_builds)."""
     names = {p.name for p in CONF.glob("train_*.yaml")}
     assert names == {n for n, _ in ASR_RECIPES} | {
         "train_transducer.yaml", "train_slu_tcpgen_gcn.yaml"}
@@ -156,6 +162,38 @@ def test_use_tcpgen_builds_with_every_tree_encoder(encoder):
     got = {k: tuple(v.shape) for k, v in model.state_dict().items()
            if k.startswith("tcpgen.")}
     assert got == want
+
+
+def test_slu_recipe_loads_and_builds():
+    """conf/train_slu_tcpgen_gcn.yaml loads in the port to the reference's
+    values, field by field, and builds: two-pass with the BERT postdecoder
+    (4 x d_ff 1024) and 2 deliberation blocks over the 12 x 256 bf16
+    Conformer, TCPGen off in the SLU model although the yaml sets
+    use_tcpgen (ROADMAP.md queue 3)."""
+    name = str(CONF / "train_slu_tcpgen_gcn.yaml")
+    cfg = pslutask.load_slu_config(name)
+    assert to_dict(cfg) == j_to_dict(jslutask.load_slu_config(name))
+    pslutask.refuse_unported_slu(cfg)
+    m = cfg.model
+    assert (m.two_pass, m.postdecoder, m.text_encoder_blocks,
+            m.text_encoder_d_ff, m.deliberation_blocks) == (
+        True, "bert", 4, 1024, 2)
+    a = m.asr
+    assert (a.d_model, a.num_encoder_blocks, a.d_ff, a.num_decoder_blocks,
+            a.dtype, a.dropout_rate, a.use_tcpgen,
+            a.tcpgen_tree_encoder) == (256, 12, 2048, 6, "bfloat16", 0.1,
+                                       True, "gcn")
+    assert (cfg.optim.scheduler, cfg.data.batch_type, cfg.data.batch_bins,
+            cfg.data.token_type) == ("warmuplr", "numel", 8_000_000, "bpe")
+    model = pslu.SLUModel(dataclasses.replace(
+        m, transcript_vocab_size=100), device="cpu")
+    assert type(model.text_encoder).__name__ == "BertPostdecoder"
+    assert model.text_encoder.bert.cfg.num_hidden_layers == 4
+    assert model.deliberation.num_blocks == 2
+    assert model.asr.encoder.num_blocks == 12
+    assert not any(k.startswith("asr.tcpgen") for k in model.state_dict())
+    with pytest.raises(ValueError, match="unknown config keys"):
+        pslutask.load_slu_config(name, {"model": {"postdecoders": "bert"}})
 
 
 def test_transducer_recipe_loads_and_builds():

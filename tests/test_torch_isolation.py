@@ -1,5 +1,7 @@
 """The port stands alone: espnet_slurp_tpu_torch imports neither JAX/flax nor
-anything of espnet_slurp_tpu (only the tests import both)."""
+anything of espnet_slurp_tpu (only the tests import both), and neither
+``transformers`` nor ``safetensors`` (models/hf_transformer.py reads HF
+model directories itself)."""
 import pathlib
 import re
 import subprocess
@@ -19,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in set(sys.modules) - before
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "espnet_slurp_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "espnet_slurp_tpu",
+                                    "transformers", "safetensors"))
 print(len(names), bad)
 """
 
@@ -43,6 +46,17 @@ def test_no_source_names_the_reference_package():
     offenders = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
                  if _REFERENCE_IMPORT.search(p.read_text())]
     assert offenders == []
+
+
+_HF_IMPORT = re.compile(r"^\s*(from|import)\s+(transformers|safetensors)\b",
+                        re.M)
+
+
+def test_no_source_imports_transformers_or_safetensors():
+    offenders = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
+                 if _HF_IMPORT.search(p.read_text())]
+    assert offenders == []
+    assert not _HF_IMPORT.search(SMOKE.read_text())
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
@@ -86,7 +100,13 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     # reference's numpy module), TCPGen, the biased search, the KB-aware
     # transducer and the MBR term.
     "slu", "slu.kb", "models.tcpgen", "decode.beam", "models.asr_model",
-    "models.transducer", "train.mbr"))
+    "models.transducer", "train.mbr",
+    # SLU: BERT / GPT-2 and the HF bridge, the two-pass model, its scoring
+    # and corpus (copies of the reference's numpy modules), the task, its
+    # CLIs and the recipe.
+    "models.hf_transformer", "slu.model", "slu.metrics", "slu.mini_corpus",
+    "tasks.slu", "bin.slu_train", "bin.slu_inference",
+    "recipe.prepare_slurp", "recipe.slu_pipeline"))
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():
