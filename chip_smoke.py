@@ -347,6 +347,23 @@ or the port's package is not beside it. Phases, each of which fails the run:
    with dialogue history: score.txt written, every encode K2 24 and K3
    12, the RTF and the host syncs an utterance of each; (d)
    recipe/slu_pipeline.py:run_slu_pipeline stages 1-13 with the yaml.
+21. The language models and shallow fusion (conf/decode.yaml's lm_weight
+   0.3): (a) LMConfig() (a 16 x 512 Transformer LM, 8 heads, d_ff 2048,
+   fp32) over the flagship's 5,000-token list through bin/lm_train on a
+   synthetic text (LM_TRAIN lines of up to 127 words, B 32, 2 epochs):
+   finite, falling loss, bin/lm_calc_perplexity, timed steps (step
+   seconds, tokens/s, peak MB) and one step card vs CPU (loss 1e-5
+   relative, gradients 1e-4 of max |ref|); (b) the same step of a 2 x 512
+   LSTM LM card vs CPU; (c) phase 3's Speech2Text and traffic with no LM,
+   with (a)'s LM at 0.3, with the stage-9 trigram added at 0.3 and with
+   ILM 0.1 added: each decode's RTF beside the no-LM one, each encode K2
+   24 and K3 12 and the same kernel instances as the no-LM decode by the
+   host counts; the fused fp32 search from one card encode replayed on the
+   CPU (2 utterances, max_len 32, search_parity); (d) run_pipeline stages
+   1-13 with train_lm and train_ngram on a small cli_split corpus, then
+   bin/asr_inference with --lm_exp_dir and --ngram_file; (e) one
+   LookAhead, one MultiLevel and one TCPGen decode with the selection LM
+   on a small fp32 model, card vs CPU (search_parity).
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -367,8 +384,10 @@ and of phase 19's TCPGen and KB-MBR steps (``launches_per_tcpgen_step``,
 ``launches_per_mbr_step``); the entries of K1, K2, K3, K5 and K6 their
 launches a step of phase 19's KB-aware transducer
 (``launches_per_kb_transducer_step``), and the K1-K3 entries their
-launches a step of phase 20's SLU model (``launches_per_slu_step``); the
-last line is ``{"ok": true, "device": {...}}``.
+launches a step of phase 20's SLU model (``launches_per_slu_step``), and
+the K2 and K3 entries their launches in phase 21's LM-fused decode
+(``launches_per_lm_decode``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -5665,6 +5684,518 @@ def slu_phases(torch, card, train_step_s):
     return step
 
 
+# Phase 21: the language models and shallow fusion. (a)-(c) under LM_ROOT
+# (the gitignored build/, removed at the end): a synthetic text over phase
+# 3's word list (a Zipf-like unigram and 4 likely successors a word, so that
+# a few steps move the loss), LM_TRAIN train and LM_VALID valid lines of up
+# to LM_MAX_LEN - 1 words, batches of LM_BATCH; (d) a corpus of
+# LM_CLI_TRAIN train and N_UTT dev utterances (cli_split) under LM_ROOT;
+# (e) a small model (LM_SMALL) over a suffix-marked token list.
+LM_ROOT = "build/chip_smoke_lm"
+LM_TRAIN, LM_VALID, LM_BATCH, LM_MAX_LEN = 256, 32, 32, 128
+LM_EPOCHS, LM_TIMED_STEPS, LM_CMP_ROWS = 2, 5, 8
+LM_WEIGHT, NGRAM_WEIGHT, ILM_WEIGHT = 0.3, 0.3, 0.1
+LM_LOSS_RTOL, LM_GRAD_TOL = 1e-5, 1e-4
+LM_CMP_UTT, LM_CMP_MAX_LEN = 2, 32  # the CPU replays, as phase 19's
+LM_CLI_TRAIN = 32
+LM_SMALL = dict(vocab_size=64, d_model=64, n_head=2, d_ff=128,
+                num_encoder_blocks=2, num_decoder_blocks=1,
+                decoder_d_ff=128, dtype="float32", specaug=None)
+
+
+def lm_text(path, rng, n, words):
+    """n Kaldi-style lines of 8 to LM_MAX_LEN - 1 words over ``words``."""
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    p /= p.sum()
+    succ = np.random.RandomState(1).randint(len(words), size=(len(words), 4))
+    lines = []
+    for i in range(n):
+        seq = [rng.choice(len(words), p=p)]
+        for _ in range(rng.randint(8, LM_MAX_LEN) - 1):
+            seq.append(succ[seq[-1], rng.randint(4)] if rng.rand() < 0.6
+                       else rng.choice(len(words), p=p))
+        lines.append(f"lm{i:04d} " + " ".join(words[j] for j in seq))
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def lm_step_card_vs_cpu(torch, what, card, model_cfg, seed, batch):
+    """One LM train step's forward and backward (lm_loss, as
+    tasks/lm.py:make_lm_train_step takes them) on the card and on the CPU
+    from the same initial parameters (the reference's initializers,
+    seeded) on ``batch``: loss within LM_LOSS_RTOL relative, every
+    gradient within LM_GRAD_TOL of its max |ref| (floored at 1e-4 of the
+    largest gradient entry, as compare_cpu_card). A ReLU input of the
+    Transformer's FFNs within fp32 rounding of 0 can fall on either side
+    on the two devices and move a w1 gradient row by its token's share;
+    such kinks get gradient 0 on both sides, as compare_cpu_card's."""
+    from espnet_slurp_tpu_torch.models.lm import lm_loss
+    from espnet_slurp_tpu_torch.models.transformer import FeedForward
+    from espnet_slurp_tpu_torch.tasks.lm import LMTask
+
+    state = LMTask.init_model(model_cfg, seed, "cpu").state_dict()
+    runs, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = LMTask.init_model(model_cfg, seed, dev)
+        model.load_state_dict(state)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        pre = []
+        hooks = [m.w1.register_forward_hook(lambda m, i, o: pre.append(o))
+                 for m in model.modules() if isinstance(m, FeedForward)]
+        t0 = time.perf_counter()
+        loss, _, _ = lm_loss(model(b["ys"], b["ys_lengths"]), b["targets"],
+                             b["ys_lengths"])
+        for hk in hooks:
+            hk.remove()
+        runs[dev] = (model, loss, pre)
+        secs[dev] = time.perf_counter() - t0
+    flips, n_relu = [], sum(z.numel() for z in runs["cpu"][2])
+    for z_c, z_g in zip(runs["cpu"][2], runs["cuda"][2]):
+        flip = (z_c > 0) != (z_g > 0).cpu()
+        flips.append(int(flip.sum()))
+        for z in (z_c, z_g):
+            z.register_hook(lambda g, f=flip.to(z.device): g.masked_fill(f, 0))
+    res = {}
+    for dev, (model, loss, _) in runs.items():
+        t0 = time.perf_counter()
+        loss.backward()
+        res[dev] = (float(loss.detach()), {k: p.grad.detach().cpu()
+                                           for k, p in
+                                           model.named_parameters()})
+        secs[dev] += time.perf_counter() - t0
+    del runs
+    (loss_c, g_c), (loss_g, g_g) = res["cpu"], res["cuda"]
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    floor = 1e-4 * max(float(x.abs().max()) for x in g_c.values())
+    worst = max(((float((g_g[k] - r).abs().max())
+                  / max(float(r.abs().max()), floor)), k)
+                for k, r in g_c.items())
+    print(f"{what} card vs CPU, one step on {tuple(batch['ys'].shape)} "
+          f"tokens: loss {loss_g:.7f} vs {loss_c:.7f} (rel {rel:.3e}, "
+          f"tolerance {LM_LOSS_RTOL:.0e}); worst gradient {worst[1]} "
+          f"{worst[0]:.3e} of max|ref| (tolerance {LM_GRAD_TOL:.0e}) over "
+          f"{len(g_c)} tensors; FFN ReLU kinks on opposite sides "
+          f"{sum(flips)} of {n_relu}; CPU {secs['cpu']:.2f} s, card "
+          f"{secs['cuda']:.3f} s on {card}")
+    if not (np.isfinite(loss_g) and rel <= LM_LOSS_RTOL
+            and worst[0] <= LM_GRAD_TOL):
+        raise AssertionError(f"{what} card vs CPU")
+
+
+def lm_train_phase(torch, card, root, tokens):
+    """Phase 21 (a)-(b): LMConfig() (transformer, 16 x 512, 8 heads, d_ff
+    2048, fp32) over the flagship's 5,000-token list, written into the
+    LM's exp_dir/tokens.txt first, through bin/lm_train (LM_EPOCHS epochs
+    of LM_TRAIN lines at B LM_BATCH, Adam at a constant 1e-3): reporter
+    epochs, finite and falling train loss; then LM_TIMED_STEPS timed
+    steps of make_lm_train_step on the card (step seconds, tokens/s, peak
+    MB); one step card vs CPU on LM_CMP_ROWS rows of the first batch; the
+    same step of a 2 x 512 LSTM LM card vs CPU. Returns the LM's exp dir
+    and the train text."""
+    import io
+
+    import yaml
+    from espnet_slurp_tpu_torch.bin import lm_calc_perplexity, lm_train
+    from espnet_slurp_tpu_torch.models.lm import LMConfig
+    from espnet_slurp_tpu_torch.tasks.lm import (LMTask, load_lm_config,
+                                                 make_lm_train_step)
+    from espnet_slurp_tpu_torch.train.optim import build_optimizer
+    from espnet_slurp_tpu_torch.train.state import TrainState
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(21)
+    words = tokens[2:-1]
+    train = lm_text(root / "lm_train", rng, LM_TRAIN, words)
+    valid = lm_text(root / "lm_valid", rng, LM_VALID, words)
+    exp = root / "lm_exp"
+    exp.mkdir()
+    (exp / "tokens.txt").write_text("\n".join(tokens) + "\n")
+    cfg_path = root / "lm.yaml"
+    cfg_path.write_text(yaml.safe_dump({
+        "exp_dir": str(exp), "max_epoch": LM_EPOCHS, "keep_nbest": 1,
+        "optim": {"name": "adam", "lr": 1e-3, "scheduler": "constant"},
+        "data": {"train_text": str(train), "valid_text": str(valid),
+                 "token_type": "word", "batch_size": LM_BATCH,
+                 "max_len": LM_MAX_LEN, "seed": 0}}))
+    t0 = time.perf_counter()
+    lm_train.main(["--config", str(cfg_path)])
+    cli_s = time.perf_counter() - t0
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    cfg = load_lm_config(exp / "config.yaml")
+    losses = [(e["train"]["loss"], e["valid"]["loss"]) for e in hist]
+    if cfg.model != LMConfig() or [e["epoch"] for e in hist] != list(
+            range(1, LM_EPOCHS + 1)) or not np.isfinite(losses).all() \
+            or not losses[-1][0] < losses[0][0]:
+        raise AssertionError(f"phase 21 (a) bin/lm_train: model {cfg.model}, "
+                             f"(train, valid) losses {losses}")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        lm_calc_perplexity.main(["--exp_dir", str(exp), "--text", str(valid)])
+    ppl = float(out.getvalue().split()[-1])
+    steps = hist[0]["train"]["steps"]
+    print(f"phase 21 (a) bin/lm_train: LMConfig() {cfg.model.num_blocks} x "
+          f"{cfg.model.d_model}, {cfg.model.n_head} heads, d_ff "
+          f"{cfg.model.d_ff}, vocab {cfg.model.vocab_size}, fp32; "
+          f"{LM_EPOCHS} epochs of {steps} steps at B {LM_BATCH} x up to "
+          f"{LM_MAX_LEN} tokens in {cli_s:.1f} s; (train, valid) loss by "
+          f"epoch {[(round(a, 4), round(b, 4)) for a, b in losses]}; "
+          f"bin/lm_calc_perplexity {ppl} on {card}")
+
+    tokenizer, conv, model_cfg = LMTask.prepare_vocab(cfg)
+    batches = list(LMTask.batches(str(train), tokenizer, conv, cfg, 1, True,
+                                  "cuda"))
+    model = LMTask.init_model(model_cfg, 0, "cuda")
+    tx = build_optimizer(cfg.optim)
+    state = TrainState.create(model, tx)
+    step = make_lm_train_step(model, tx)
+    state, _ = step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, ntok = [], []
+    for b in batches[1:1 + LM_TIMED_STEPS]:
+        t0 = time.perf_counter()
+        state, stats = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        ntok.append(int(b["ys_lengths"].sum()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_s = float(np.median(times))
+    print(f"phase 21 (a) LMConfig() make_lm_train_step, {len(times)} steps "
+          f"at B {LM_BATCH}: step {step_s:.4f} s (median; "
+          f"{[round(x, 4) for x in times]}), {sum(ntok) / sum(times):.0f} "
+          f"tokens/s ({ntok} valid tokens a step), peak {peak:.1f} MB, "
+          f"last loss {float(stats['loss']):.4f} on {card}")
+    del model, state, tx
+    torch.cuda.empty_cache()
+    rows = {k: v[:LM_CMP_ROWS].cpu() for k, v in batches[0].items()}
+    lm_step_card_vs_cpu(torch, "phase 21 (a) LMConfig() fp32", card,
+                        model_cfg, 0, rows)
+    lm_step_card_vs_cpu(torch, "phase 21 (b) LSTM LM 2 x 512 fp32", card,
+                        dataclasses.replace(model_cfg, arch="lstm",
+                                            num_layers=2), 0, rows)
+    print(f"phase 21 (a)-(b): {time.perf_counter() - t_phase:.1f} s")
+    return exp, train
+
+
+def lm_decode_phase(torch, card, root, tokens, exp, train):
+    """Phase 21 (c): phase 3's Speech2Text (flagship, bf16, random weights
+    from seed 0, beam BEAM, ctc CTC_WEIGHT, max_len MAX_LEN) on phase 3's
+    traffic with no LM, with (a)'s LM at LM_WEIGHT, with the stage-9
+    trigram (train_arpa over (a)'s text, its .npz cache) added at
+    NGRAM_WEIGHT, and with ILM_WEIGHT added: each decode's RTF beside the
+    no-LM one; each encode launches K2 24 and K3 12 by the wrappers'
+    counts and the same kernel instances by the host counts as the no-LM
+    decode (the LMs launch none of the port's kernels). Then the fp32
+    model's beam search with all three from one card encode of
+    LM_CMP_UTT utterances (max_len LM_CMP_MAX_LEN) on the card and on the
+    CPU: equal but on proved near-ties, the card's choices replayed on the
+    CPU (search_parity). Returns the wrappers' launches of the fused
+    decode."""
+    from espnet_slurp_tpu_torch.data.fileio import read_2column_text
+    from espnet_slurp_tpu_torch.decode.beam import (BeamSearchConfig,
+                                                    batch_beam_search)
+    from espnet_slurp_tpu_torch.decode.ngram import ArpaLM
+    from espnet_slurp_tpu_torch.decode.ngram_train import train_arpa
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    from espnet_slurp_tpu_torch.tasks.asr import Speech2Text
+    from espnet_slurp_tpu_torch.utils.params import init_random_
+
+    t_phase = time.perf_counter()
+    cfg = flagship_config()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    state = init_random_(ASRModel(cfg32, device="cpu"), seed=0).state_dict()
+    t0 = time.perf_counter()
+    arpa = train_arpa([text.split() for text in
+                       read_2column_text(train).values()],
+                      root / "train.arpa")
+    tok2id = {tok: i for i, tok in enumerate(tokens)}
+    tok2id.setdefault("<s>", cfg.sos_id)
+    tok2id.setdefault("</s>", cfg.eos_id)
+    npz = root / "train_ngram.npz"
+    ArpaLM(str(arpa), tok2id, cfg.vocab_size).save_binary(str(npz))
+    print(f"phase 21 (c) stage-9 trigram over (a)'s text: ARPA and .npz "
+          f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    speeches = [rng.randn(FS * UTT_SECONDS).astype(np.float32) * 0.1
+                for _ in range(N_UTT)]
+    n = cfg.num_encoder_blocks
+    runs = (("no LM", {}),
+            (f"lm_weight {LM_WEIGHT}", dict(lm_exp_dir=str(exp),
+                                            lm_weight=LM_WEIGHT)),
+            (f"+ ngram_weight {NGRAM_WEIGHT}", dict(
+                lm_exp_dir=str(exp), lm_weight=LM_WEIGHT,
+                ngram_file=str(npz), ngram_weight=NGRAM_WEIGHT)),
+            (f"+ ilm_weight {ILM_WEIGHT}", dict(
+                lm_exp_dir=str(exp), lm_weight=LM_WEIGHT,
+                ngram_file=str(npz), ngram_weight=NGRAM_WEIGHT,
+                ilm_weight=ILM_WEIGHT)))
+    rtf, host0, fused = {}, None, None
+    for label, fusion in runs:
+        s2t = Speech2Text(cfg, state, tokens, token_type="word",
+                          max_len=MAX_LEN, beam_size=BEAM,
+                          ctc_weight=CTC_WEIGHT, device="cuda", **fusion)
+        if host0 is None:
+            s2t.decode_batch(speeches)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        before = build.launch_counts()
+        t0 = time.perf_counter()
+        texts = s2t.decode_batch(speeches)  # host strings: the card is done
+        wall = time.perf_counter() - t0
+        host = build.launch_delta(before, build.launch_counts())
+        launches = {k: c for k, c in read_counts().items() if c}
+        host0 = host if host0 is None else host0
+        rtf[label] = wall / (N_UTT * UTT_SECONDS)
+        print(f"phase 21 (c) Speech2Text {label}: {N_UTT} x {UTT_SECONDS} "
+              f"s, beam {BEAM}, ctc {CTC_WEIGHT}, max_len {MAX_LEN}: wall "
+              f"{wall:.3f} s, RTF {rtf[label]:.5f} (no LM "
+              f"{rtf['no LM']:.5f}, {rtf[label] / rtf['no LM']:.2f}x), "
+              f"hypothesis words {[len(x.split()) for x in texts]}; "
+              f"launches {launches}, by instance {host} on {card}")
+        if launches != {"fused_ffn": 2 * n, "rel_flash_attention": n} \
+                or host != host0 or len(texts) != N_UTT:
+            raise AssertionError(f"phase 21 (c) {label}: launches "
+                                 f"{launches}, {host} (no LM {host0})")
+        fused = launches
+        del s2t
+        torch.cuda.empty_cache()
+
+    # fp32 replay on the CPU of the card's fused search
+    models, hooks = {}, {}
+    for dev in ("cuda", "cpu"):
+        s2t = Speech2Text(cfg32, state, tokens, token_type="word",
+                          max_len=LM_CMP_MAX_LEN, beam_size=BEAM,
+                          ctc_weight=CTC_WEIGHT, device=dev,
+                          **dict(runs[-1][1]))
+        models[dev], hooks[dev] = s2t.model, s2t._fusion()
+    beam = BeamSearchConfig(beam_size=BEAM, max_len=LM_CMP_MAX_LEN,
+                            ctc_weight=CTC_WEIGHT, lm_weight=1.0,
+                            ilm_weight=ILM_WEIGHT)
+    buf, lens = s2t.pad_batch(speeches[:LM_CMP_UTT])
+    got, picks, secs = {}, [], {}
+    with torch.inference_mode():
+        hs, hl = models["cuda"].encode(torch.from_numpy(buf).cuda(),
+                                       torch.from_numpy(lens).cuda())
+        for dev in ("cuda", "cpu"):
+            step, init = hooks[dev]
+            t0 = time.perf_counter()
+            with (top_k_as(recording(picks)) if dev == "cuda" else
+                  contextlib.nullcontext()):
+                res = batch_beam_search(models[dev], hs.to(dev), hl.to(dev),
+                                        beam, lm_step=step, lm_init=init,
+                                        return_nbest=True)
+            got[dev] = tuple(x.cpu() for x in res)
+            secs[dev] = time.perf_counter() - t0
+        step, init = hooks["cpu"]
+        note = search_parity(
+            torch, lambda: batch_beam_search(
+                models["cpu"], hs.cpu(), hl.cpu(), beam, lm_step=step,
+                lm_init=init, return_nbest=True),
+            got["cuda"], got["cpu"], picks, LM_CMP_UTT)
+    print(f"phase 21 (c) fp32 beam search with the LM, the trigram and the "
+          f"ILM from one card encode, {LM_CMP_UTT} x {UTT_SECONDS} s, max_len "
+          f"{LM_CMP_MAX_LEN}: lengths card {got['cuda'][1].tolist()} CPU "
+          f"{got['cpu'][1].tolist()}, card {secs['cuda']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s; {note} on {card}")
+    del models, hooks
+    torch.cuda.empty_cache()
+    print(f"phase 21 (c): {time.perf_counter() - t_phase:.1f} s")
+    return fused
+
+
+def lm_cli_phase(torch, card, root):
+    """Phase 21 (d): on LM_CLI_TRAIN + N_UTT utterances (cli_split),
+    recipe/asr_pipeline.py:run_pipeline stages 1-13 with train_lm and
+    train_ngram (the flagship of cli_train_yaml, 1 epoch; stage 7's LM,
+    stage 8's perplexity, stage 9's trigram fused at stage 12), then
+    bin/asr_inference on the dev set with --lm_exp_dir (stage 7's LM) and
+    --ngram_file (stage 9's cache) at weight 0.3 each: score.txt, the RTF,
+    one encode's K2 24 and K3 12 and nothing else counted."""
+    from espnet_slurp_tpu_torch.bin import asr_inference
+    from espnet_slurp_tpu_torch.recipe.asr_pipeline import (PipelineOptions,
+                                                            run_pipeline)
+    from espnet_slurp_tpu_torch.tasks.asr import load_task_config
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(8)
+    train, dev = (cli_split(root / "cli" / s, s, count, rng)
+                  for s, count in (("train", LM_CLI_TRAIN), ("dev", N_UTT)))
+    cfg = load_task_config(cli_train_yaml(root / "cli", train, dev, 1))
+    t0 = time.perf_counter()
+    res = run_pipeline(cfg, PipelineOptions(
+        train_lm=True, train_ngram=True, ngram_weight=NGRAM_WEIGHT,
+        decode_beam_size=BEAM, decode_ctc_weight=CTC_WEIGHT,
+        decode_max_len=MAX_LEN, decode_batch_size=N_UTT), stage=1,
+        stop_stage=13, device="cuda")
+    pipe_s = time.perf_counter() - t0
+    secs = {k: round(v, 2) for k, v in res["stage_seconds"].items()}
+    print(f"phase 21 (d) run_pipeline stages 1-13 with train_lm and "
+          f"train_ngram: {pipe_s:.1f} s, seconds by stage {secs}; LM "
+          f"perplexity {res['lm_ppl']:.3f}; wer {res['wer_dev']:.4f} cer "
+          f"{res['cer_dev']:.4f} with the trigram at {NGRAM_WEIGHT} on "
+          f"{card}")
+    if not {7, 8, 9, 11, 12, 13} <= set(secs) or not np.isfinite(
+            [res["lm_ppl"], res["wer_dev"]]).all():
+        raise AssertionError(f"phase 21 (d) pipeline: {res}")
+    exp = root / "cli" / "exp"
+    out = root / "cli" / "decode_lm"
+    zero_counts()
+    asr_inference.main([
+        "--exp_dir", str(exp), "--data_dir", str(dev), "--output_dir",
+        str(out), "--beam_size", str(BEAM), "--ctc_weight", str(CTC_WEIGHT),
+        "--max_len", str(MAX_LEN), "--batch_size", str(N_UTT),
+        "--lm_exp_dir", str(exp / "lm"), "--lm_weight", str(LM_WEIGHT),
+        "--ngram_file", str(exp / "train_ngram.npz"), "--ngram_weight",
+        str(NGRAM_WEIGHT)])
+    launches = {k: c for k, c in read_counts().items() if c}
+    score = dict(line.split() for line in
+                 (out / "score.txt").read_text().splitlines())
+    n = cfg.model.num_encoder_blocks
+    print(f"phase 21 (d) bin/asr_inference --lm_exp_dir --ngram_file: "
+          f"{N_UTT} x {UTT_SECONDS} s in one batch: score.txt {score}; "
+          f"launches {launches} on {card}")
+    if launches != {"fused_ffn": 2 * n, "rel_flash_attention": n} \
+            or sorted(score) != ["CER", "RTF", "WER"]:
+        raise AssertionError(f"phase 21 (d) asr_inference: {launches}, "
+                             f"{score}")
+    print(f"phase 21 (d): {time.perf_counter() - t_phase:.1f} s")
+
+
+def small_lstm(torch, vocab, seed):
+    """An LSTM LM (vocab, 1 x 32) from the reference's initializers on the
+    CPU, and its copy on the card."""
+    from espnet_slurp_tpu_torch.models.lm import LMConfig
+    from espnet_slurp_tpu_torch.tasks.lm import LMTask
+    cfg = LMConfig(vocab_size=vocab, arch="lstm", d_model=32, num_layers=1)
+    cpu = LMTask.init_model(cfg, seed, "cpu").eval()
+    card = LMTask.init_model(cfg, seed, "cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    return {"cpu": cpu, "cuda": card}
+
+
+def word_lm_phase(torch, card):
+    """Phase 21 (e): a small fp32 model (LM_SMALL over suffix_token_list,
+    random weights) on 2 utterances; one LookAhead decode (an LSTM word LM
+    over 24 words of 1-3 pieces), one MultiLevel decode (the same word LM
+    and an LSTM subword LM) and one TCPGen decode (use_tcpgen) with
+    biasing["selection"] (an LSTM selection LM over the words choosing
+    among 4 class roots), each at lm_weight 0.5, beam 4, pre-beam 16, ctc
+    0.3, max_len 16, from one card encode: card against CPU by
+    search_parity."""
+    from espnet_slurp_tpu_torch.decode import word_lm
+    from espnet_slurp_tpu_torch.decode.beam import (BeamSearchConfig,
+                                                    batch_beam_search)
+    from espnet_slurp_tpu_torch.models.asr_model import ASRConfig, ASRModel
+    from espnet_slurp_tpu_torch.slu.kb import boundary_token_ids, build_trie
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+    from espnet_slurp_tpu_torch.tasks.lm import make_lm_fusion
+
+    t_phase = time.perf_counter()
+    v = LM_SMALL["vocab_size"]
+    tokens = suffix_token_list(v)
+    bset, _ = boundary_token_ids(tokens)
+    bnd = np.zeros(v, bool)
+    bnd[sorted(bset)] = True
+    rng = np.random.RandomState(5)
+    inner = np.arange(2, v - 1)[0::2]
+    words = []
+    while len(words) < 24:
+        w = [int(x) for x in rng.choice(inner, rng.randint(1, 4))]
+        if w not in words:
+            words.append(w)
+    n_words = len(words) + 3  # 0 pad, 1 unk, 2.. words, last eos
+    wtrie = word_lm.build_word_trie(words, list(range(2, 2 + len(words))))
+    fusion = dict(trie=wtrie, vocab_size=v, space_id=int(sorted(bset)[0]),
+                  eos_id=v - 1, boundary_mask=bnd, word_eos=n_words - 1,
+                  word_unk=1)
+    wlm, slm = small_lstm(torch, n_words, 1), small_lstm(torch, v, 2)
+    beam = BeamSearchConfig(beam_size=4, pre_beam_size=16, max_len=16,
+                            ctc_weight=0.3, lm_weight=0.5)
+    x = rng.randn(2, FS * 3).astype(np.float32) * 0.1
+    lens = np.array([FS * 3, FS * 2], np.int32)
+    for label, tcpgen in (("LookAhead", False), ("MultiLevel", False),
+                          ("selection", True)):
+        cfg = ASRConfig(use_tcpgen=tcpgen, **LM_SMALL)
+        state = ASRTask.init_params(ASRModel(cfg, device="cpu"),
+                                    3).state_dict()
+        models, args = {}, {}
+        for dev in ("cuda", "cpu"):
+            models[dev] = ASRModel(cfg, device=dev)
+            models[dev].load_state_dict(state)
+            wstep, winit = make_lm_fusion(wlm[dev], 64)
+            if label == "LookAhead":
+                step, init = word_lm.make_lookahead_fusion(
+                    wstep, winit, device=dev, **fusion)
+                args[dev] = dict(lm_step=step, lm_init=init)
+            elif label == "MultiLevel":
+                sstep, sinit = make_lm_fusion(slm[dev], 64)
+                step, init = word_lm.make_multilevel_fusion(
+                    wstep, winit, sstep, sinit, device=dev, **fusion)
+                args[dev] = dict(lm_step=step, lm_init=init)
+            else:
+                trie = build_trie([w + [int(sorted(bset)[i % len(bset)])]
+                                   for i, w in enumerate(words)])
+                kids = trie.children_node[0][:trie.n_children[0]]
+                mask = torch.zeros(v + 1, dtype=torch.bool)
+                mask[sorted(bset)] = True
+                args[dev] = dict(biasing={
+                    "trie": {f"trie_{k}": torch.from_numpy(getattr(trie, k))
+                             .to(dev) for k in ("token", "children_tok",
+                                                "children_node",
+                                                "n_children")},
+                    "boundary_mask": mask.to(dev), "dead": trie.dead,
+                    "prefix_boundary": False, "smoothprob": 1.0,
+                    "selection": {
+                        "word_trie": wtrie, "word_unk": 1,
+                        "sel_step": wstep, "sel_init": winit,
+                        "class_roots": np.array(
+                            [0] + [int(k) for k in kids[:3]] * n_words)[
+                                :n_words]}})
+        got, picks = {}, []
+        with torch.inference_mode():
+            hs, hl = models["cuda"].encode(torch.from_numpy(x).cuda(),
+                                           torch.from_numpy(lens).cuda())
+            for dev in ("cuda", "cpu"):
+                with (top_k_as(recording(picks)) if dev == "cuda" else
+                      contextlib.nullcontext()):
+                    res = batch_beam_search(models[dev], hs.to(dev),
+                                            hl.to(dev), beam,
+                                            return_nbest=True, **args[dev])
+                got[dev] = tuple(r.cpu() for r in res)
+            note = search_parity(
+                torch, lambda: batch_beam_search(
+                    models["cpu"], hs.cpu(), hl.cpu(), beam,
+                    return_nbest=True, **args["cpu"]),
+                got["cuda"], got["cpu"], picks, 2)
+        print(f"phase 21 (e) {label} decode fp32 "
+              f"({LM_SMALL['num_encoder_blocks']} x {LM_SMALL['d_model']}, "
+              f"V {v}): lengths card "
+              f"{got['cuda'][1].tolist()} CPU {got['cpu'][1].tolist()}; "
+              f"{note} on {card}")
+    print(f"phase 21 (e): {time.perf_counter() - t_phase:.1f} s")
+
+
+def lm_phases(torch, card):
+    """Phase 21 (a)-(e) under LM_ROOT, removed at the end. Returns the
+    wrappers' launches of (c)'s fused decode."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(LM_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    tokens = token_list(5000)
+    exp, train = lm_train_phase(torch, card, root, tokens)
+    fused = lm_decode_phase(torch, card, root, tokens, exp, train)
+    lm_cli_phase(torch, card, root)
+    word_lm_phase(torch, card)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return fused
+
+
 def main() -> int:
     import torch
 
@@ -5812,6 +6343,7 @@ def main() -> int:
     print(f"phase 19 (d)-(e): {time.perf_counter() - lap:.1f} s; (a)-(e): "
           f"{time.perf_counter() - t_added:.1f} s")
     slu_step = slu_phases(torch, card, train_step_s)
+    lm_decode = lm_phases(torch, card)
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):
@@ -5831,6 +6363,8 @@ def main() -> int:
             kern["launches_per_kb_transducer_step"] = kb_tr_step[base]
         if base in slu_step:
             kern["launches_per_slu_step"] = slu_step[base]
+        if base in lm_decode:
+            kern["launches_per_lm_decode"] = lm_decode[base]
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

@@ -5,9 +5,11 @@ Parity target: reference espnet2/bin/asr_inference.py (Speech2Text over a
 data dir, writing exp/.../text) + asr.sh stage 12-13 scoring. Writes
 ``<output_dir>/text`` and, when the data dir has references,
 ``score.txt`` (WER, CER, RTF). Decodes on the card unless ``--device``
-names another device; with no card and no ``--device cpu`` it raises. The
-LM / n-gram fusion, the time-synchronous and the lattice decodes are not
-ported yet: their options raise when set.
+names another device; with no card and no ``--device cpu`` it raises.
+``--lm_exp_dir`` / ``--lm_weight`` (a bin/lm_train experiment) and
+``--ngram_file`` / ``--ngram_weight`` (an ARPA file or its
+bin/ngram_compile cache) fuse into the beam search. The time-synchronous
+and the lattice decodes are not ported yet: their options raise when set.
 """
 from __future__ import annotations
 
@@ -32,12 +34,11 @@ def get_parser():
     p.add_argument("--batch_size", type=int, default=8,
                    help="utterances per batched beam-search call")
     p.add_argument("--lm_exp_dir", default=None,
-                   help="trained LM exp dir for shallow fusion (not ported "
-                        "yet: raises)")
+                   help="trained LM exp dir for shallow fusion")
     p.add_argument("--lm_weight", type=float, default=0.0)
     p.add_argument("--ngram_file", default=None,
-                   help="ARPA n-gram LM for shallow fusion (not ported yet: "
-                        "raises)")
+                   help="ARPA n-gram LM (or its .npz cache) for shallow "
+                        "fusion")
     p.add_argument("--ngram_weight", type=float, default=0.0)
     p.add_argument("--ctc_timesync", action="store_true",
                    help="frame-synchronous CTC prefix beam search (not "
@@ -56,10 +57,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = get_parser().parse_args(argv)
     unported = [opt for opt, on in (
-        ("--lm_exp_dir (LM fusion: ROADMAP.md queue 1 item 11)",
-         args.lm_exp_dir),
-        ("--ngram_file (n-gram fusion: queue 1 item 11)", args.ngram_file),
-        ("--ctc_timesync (queue 1 item 15)", args.ctc_timesync),
+        ("--ctc_timesync (ROADMAP.md queue 1 item 15)", args.ctc_timesync),
         ("--lattice (queue 1 item 15)", args.lattice)) if on]
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
@@ -71,7 +69,9 @@ def main(argv=None):
     s2t = Speech2Text.from_exp_dir(
         args.exp_dir, ckpt_name=args.ckpt, max_len=args.max_len,
         beam_size=args.beam_size, ctc_weight=args.ctc_weight,
-        device=cli_device(args.device))
+        device=cli_device(args.device), lm_exp_dir=args.lm_exp_dir,
+        lm_weight=args.lm_weight, ngram_file=args.ngram_file,
+        ngram_weight=args.ngram_weight)
     hyps = {}
     audio_sec = 0.0
     decode_sec = 0.0

@@ -7,14 +7,26 @@ length bonus, ended hypotheses frozen proposing only eos at delta 0, and eos
 forced on the last step. The reference's ``lax.while_loop`` is a Python loop
 that stops once every hypothesis has ended.
 
+Shallow fusion (``lm_step`` / ``lm_init``, reference :240-245): the scorer's
+log-probs join the decoder's as ``att_lp * (1 - ctc_weight) + lm_weight *
+lm_lp``; its state (a Transformer LM's 2 x num_blocks K/V caches, an LSTM's
+carry, an n-gram's context, nested dicts / lists of tensors) is gathered
+along the beam's back-pointers every step, also for ended hypotheses,
+which the reference does not freeze either. Internal-LM subtraction
+(``ilm_weight``, :221-233) runs the decoder a second time against the
+zeroed encoder memory with its own self-attention cache and scores
+``log p_att - ilm_weight * log p_ilm``; it is off under biasing, as in the
+reference, and skipped at weight 0, where the reference's pass changes no
+score (``ilm_weight * log p_ilm`` is 0).
+
 TCPGen biasing (``biasing``): each hypothesis carries its trie node, the
 pointer's distribution is mixed into the decoder's scores every step
 (models/tcpgen.py), and the node advances by the vectorised ``trie_step``
 (the fork's per-hypothesis dict walk, decoders.py:recognize_beam, as
-gathers). Shallow-fusion LMs, internal-LM subtraction and the biasing
-selection LM (``biasing["selection"]``) are not ported yet and raise
-(ROADMAP.md queue 1 item 11); internal-LM subtraction is off under
-biasing, as in the reference.
+gathers). ``biasing["selection"]`` adds the selection LM's KB-class choice
+(:331-357): a walk of the word trie (decode/word_lm.py), and at each word
+boundary the selection LM steps on the finished word and its argmax class's
+root becomes the hypothesis's reset root of ``trie_step``.
 """
 from __future__ import annotations
 
@@ -25,8 +37,10 @@ import torch
 
 from ..models.asr_model import ASRModel
 from ..models.tcpgen import tcpgen_final_logprobs, trie_step
+from ..utils.tree import tree_map
 from . import ctc_prefix
 from .greedy import eos_lengths, init_decoder_cache
+from .word_lm import _select, _walk, select_class_roots, trie_tensors
 
 NEG = -1e30
 
@@ -52,26 +66,29 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def batch_beam_search(model: ASRModel, hs: torch.Tensor,
                       h_lengths: torch.Tensor, cfg: BeamSearchConfig,
                       lm_step=None, lm_init=None, biasing=None,
-                      return_nbest: bool = False) -> Tuple[torch.Tensor, ...]:
+                      return_nbest: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
     """Returns (tokens [B, max_len] eos-padded, lengths [B]) of the best
     hypotheses; with ``return_nbest`` also the ranked beam (nb_tokens
     [B, K, L], nb_lengths [B, K], nb_scores [B, K]).
+
+    ``lm_step(y_prev [N], state) -> (log-probs [N, V], state)`` and
+    ``lm_init(N) -> state`` (N = B K) enable shallow fusion at
+    ``cfg.lm_weight``; ``cfg.ilm_weight`` > 0 the internal-LM
+    subtraction. (The reference's ``lm_weight`` / ``ilm_weight``
+    arguments, there to trace the weights into one compiled program, are
+    the config's fields here.)
 
     ``biasing`` enables TCPGen contextual biasing (a model with
     ``use_tcpgen``): {"trie": {trie_token, trie_children_tok,
     trie_children_node, trie_n_children tensors}, "boundary_mask": [V+1]
     bool tensor, "dead": int, "prefix_boundary": bool, "smoothprob":
     float, "force_p_gen": float or None}; ``force_p_gen`` pins p_gen
-    where the walk is live (a diagnostic of the reference's)."""
-    if (lm_step is not None or lm_init is not None or cfg.lm_weight > 0.0
-            or (cfg.ilm_weight > 0.0 and biasing is None)):
-        raise NotImplementedError("LM / internal-LM fusion is not ported "
-                                  "yet (ROADMAP.md queue 1 item 11)")
-    if biasing is not None and biasing.get("selection") is not None:
-        raise NotImplementedError(
-            "biasing['selection'] (the selection-LM KB choice, "
-            "decode/word_lm.py) is not ported yet (ROADMAP.md queue 1 item "
-            "11)")
+    where the walk is live (a diagnostic of the reference's). An optional
+    "selection": {"word_trie": decode/word_lm.py WordTrie, "word_unk": int,
+    "sel_step": (word ids [N], state) -> (class logits [N, C], state),
+    "sel_init": N -> state, "class_roots": [C] ints} chooses each
+    hypothesis's KB class at its word boundaries."""
     mcfg = model.cfg
     dev = hs.device
     b = hs.shape[0]
@@ -81,16 +98,33 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
     sos, eos, blank = mcfg.sos_id, mcfg.eos_id, mcfg.blank_id
     w_ctc = cfg.ctc_weight
     w_att = 1.0 - w_ctc
+    w_lm, w_ilm = cfg.lm_weight, cfg.ilm_weight
     n = b * k
 
-    mem_kv = {name: {kv: x.repeat_interleave(k, dim=0) for kv, x in m.items()}
-              for name, m in model.decoder.precompute_memory(hs).items()}
+    def beam_memory(x):
+        return {name: {kv: y.repeat_interleave(k, dim=0)
+                       for kv, y in m.items()}
+                for name, m in model.decoder.precompute_memory(x).items()}
+
+    mem_kv = beam_memory(hs)
     h_lengths_beam = h_lengths.repeat_interleave(k)
+    use_ilm = biasing is None and w_ilm > 0.0
+    if use_ilm:
+        # the same decoder against a zeroed memory: cross-attention sees
+        # only the memory projections' biases
+        mem_kv_zero = beam_memory(torch.zeros_like(hs))
     use_ctc = w_ctc > 0.0
     if use_ctc:
         ctc_lp_beam = model.ctc_logprobs(hs).repeat_interleave(k, dim=0)
         ctc = ctc_prefix.init_state(ctc_lp_beam, h_lengths_beam, blank)
     cache = init_decoder_cache(model, n, l)
+    if use_ilm:
+        # the ILM pass's layer inputs part from the main pass's after the
+        # first cross-attention: it keeps its own self-attention cache
+        cache = {"main": cache, "ilm": init_decoder_cache(model, n, l)}
+    lm_state = lm_init(n) if lm_init is not None else None
+    use_lm = lm_step is not None and w_lm > 0.0
+    sel = None if biasing is None else biasing.get("selection")
     if biasing is not None:
         trie = {key: x.to(dev) for key, x in biasing["trie"].items()}
         tree_encs = model.tcpgen_tree_encs(trie)
@@ -98,6 +132,12 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
         node = torch.zeros(n, dtype=torch.long, device=dev)
         pmask = torch.zeros(n, dtype=torch.long, device=dev)
         force = biasing.get("force_p_gen")
+    if sel is not None:
+        wtrie = trie_tensors(sel["word_trie"], dev)
+        class_roots = torch.as_tensor(sel["class_roots"]).long().to(dev)
+        root = torch.zeros(n, dtype=torch.long, device=dev)
+        word_node = torch.zeros(n, dtype=torch.long, device=dev)
+        sel_state = sel["sel_init"](n)
 
     total = torch.full((b, k), NEG, device=dev)
     total[:, 0] = 0.0
@@ -113,14 +153,10 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
     for i in range(l):
         if bool(ended.all()):
             break
-        if biasing is None:
-            logits, cache = model.decoder.step(y_prev.reshape(n), i, cache,
-                                               mem_kv, h_lengths_beam, l)
-            att_lp = torch.log_softmax(logits.float(), dim=-1)
-        else:
+        y_n = y_prev.reshape(n)
+        if biasing is not None:
             logits, cache, hidden = model.decoder.step(
-                y_prev.reshape(n), i, cache, mem_kv, h_lengths_beam, l,
-                return_hidden=True)
+                y_n, i, cache, mem_kv, h_lengths_beam, l, return_hidden=True)
             ptr_dist, kb_emb = model.tcpgen(hidden, node, trie, tree_encs)
             if force is None:
                 p_gen = model.tcpgen.gen_prob(
@@ -128,7 +164,22 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
             else:
                 p_gen = torch.where(pmask > 0, 0.0, float(force))
             att_lp = tcpgen_final_logprobs(logits, ptr_dist, p_gen)
+        elif use_ilm:
+            logits, main = model.decoder.step(y_n, i, cache["main"], mem_kv,
+                                              h_lengths_beam, l)
+            ilm_logits, ilm = model.decoder.step(
+                y_n, i, cache["ilm"], mem_kv_zero, h_lengths_beam, l)
+            cache = {"main": main, "ilm": ilm}
+            att_lp = (torch.log_softmax(logits.float(), dim=-1)
+                      - w_ilm * torch.log_softmax(ilm_logits.float(), dim=-1))
+        else:
+            logits, cache = model.decoder.step(y_n, i, cache, mem_kv,
+                                               h_lengths_beam, l)
+            att_lp = torch.log_softmax(logits.float(), dim=-1)
         fused = att_lp * w_att
+        if use_lm:
+            lm_lp, lm_state = lm_step(y_n, lm_state)
+            fused = fused + w_lm * lm_lp
         # Pre-beam: top-(P-1) without eos, then the forced eos slot, so eos
         # is never a candidate twice.
         _, cand = _top_k(fused.index_fill(1, torch.tensor([eos], device=dev),
@@ -164,8 +215,9 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
         att = torch.where(ended_parent, att_parent, att_parent + step_att)
         ended = ended_parent | (tok == eos)
 
-        cache = {name: {kv: x[parent_n] for kv, x in c.items()}
-                 for name, c in cache.items()}
+        gather_n = lambda x: x[parent_n]
+        cache = tree_map(gather_n, cache)
+        lm_state = tree_map(gather_n, lm_state)
         if use_ctc:
             new = ctc_prefix.select(r_new, psi_new, cand, parent_n, choice_n)
             e = ended.reshape(n)
@@ -173,10 +225,27 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
                 r=torch.where(e[:, None, None], ctc.r[parent_n], new.r),
                 psi=torch.where(e, ctc.psi[parent_n], new.psi),
                 last=torch.where(e, ctc.last[parent_n], new.last))
+        tok_n = tok.reshape(n)
+        if sel is not None:
+            # the word-trie walk, and the selection LM's class choice at
+            # each word boundary
+            wnode_g = word_node[parent_n]
+            is_b = boundary[tok_n]
+            wid_here = wtrie["wid"][wnode_g]
+            w = torch.where(wid_here >= 0, wid_here, sel["word_unk"])
+            sel_state_g = tree_map(gather_n, sel_state)
+            cls_logits, sel_new = sel["sel_step"](w, sel_state_g)
+            sel_state = _select(is_b, sel_new, sel_state_g)
+            root = torch.where(is_b, select_class_roots(cls_logits,
+                                                        class_roots),
+                               root[parent_n])
+            child, found = _walk(wtrie, wnode_g, tok_n)
+            word_node = torch.where(is_b, 0, torch.where(
+                found, child, sel["word_trie"].dead))
         if biasing is not None:
             node, pmask = trie_step(
-                trie, node[parent_n], tok.reshape(n), boundary, eos,
-                biasing["dead"],
+                trie, node[parent_n], tok_n, boundary, eos, biasing["dead"],
+                root=root if sel is not None else 0,
                 prefix_boundary=biasing.get("prefix_boundary", False))
         total, y_prev = total_new, tok
 

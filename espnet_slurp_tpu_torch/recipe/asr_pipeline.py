@@ -10,20 +10,26 @@ The reference's stage numbers:
                                  fbank_pitch: not ported yet, raises)
   4  length filtering           (min / max audio seconds)
   5  token list / BPE training
-  7  LM training, 8 perplexity  (train_lm: not ported yet, raises)
-  9  n-gram training            (train_ngram: not ported yet, raises)
+  7  LM training, 8 perplexity  (train_lm: tasks/lm.py on the train text,
+                                 on the device; perplexity of the valid
+                                 text into results["lm_ppl"])
+  9  n-gram training            (train_ngram: decode/ngram_train.py over
+                                 the decode token units, then the .npz
+                                 cache that stage 12 fuses at
+                                 ngram_weight)
   10 collect-stats              (global MVN stats, on the device)
   11 ASR training               (ASRTask.train)
   12 decoding                   (Speech2Text.from_exp_dir, length-sorted
-                                 batches)
+                                 batches; the stage-9 n-gram fused; the
+                                 stage-7 LM is not, as in the reference)
   13 scoring (WER / CER)
   14 pack                       (model.zip: what from_exp_dir needs)
   15 unpack + verify            (the unpacked dir decodes as exp_dir does)
 
 ``publish`` / ``fetch`` keep a local model registry (a directory with an
 index of sha256 digests), with no network, as the reference's do. The
-stages that need the card (3, 10-12 and 15) run on ``device``: the card
-unless the caller passes e.g. "cpu"; with no card and no device the
+stages that need the card (3, 7-8, 10-12 and 15) run on ``device``: the
+card unless the caller passes e.g. "cpu"; with no card and no device the
 pipeline raises before any stage runs. A stage never skips on an error.
 """
 from __future__ import annotations
@@ -64,8 +70,14 @@ class PipelineOptions:
     min_audio_sec: float = 0.05
     max_audio_sec: float = 30.0
     fs: int = 16000
-    train_lm: bool = False  # stages 7-8: not ported yet, raises
-    train_ngram: bool = False  # stage 9: not ported yet, raises
+    # Stages 7-8: train a small Transformer LM on the train text and
+    # report its validation perplexity.
+    train_lm: bool = False
+    # Stage 9 (asr.sh's n-gram stage): an ARPA n-gram over the decode token
+    # units (decode/ngram_train.py) + its binary cache, fused at decode.
+    train_ngram: bool = False
+    ngram_order: int = 3
+    ngram_weight: float = 0.3
     decode_beam_size: int = 5
     decode_ctc_weight: float = 0.3
     decode_max_len: int = 128
@@ -84,10 +96,6 @@ def refuse_unported_stages(opts: PipelineOptions, stage: int,
                     "1 item 15)")
     if on(3) and opts.feats_type not in ("raw", "fbank", "fbank_pitch"):
         raise ValueError(f"feats_type {opts.feats_type!r}")
-    if (on(7) or on(8)) and opts.train_lm:
-        todo.append("stages 7-8 train_lm (the LM task: queue 1 item 11)")
-    if on(9) and opts.train_ngram:
-        todo.append("stage 9 train_ngram (n-gram training: queue 1 item 11)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -221,9 +229,9 @@ def run_pipeline(cfg: ASRTaskConfig, opts: PipelineOptions = PipelineOptions(),
                  test_dirs: Optional[List[str]] = None,
                  device=None) -> Dict[str, object]:
     """Runs stages [stage, stop_stage] with the card (or ``device``) for
-    stages 10-12 and 15. Returns the scores (``wer_<dir>``, ``cer_<dir>``),
-    ``pack_path``, ``unpack_decode_match`` and ``stage_seconds`` {stage:
-    seconds}."""
+    stages 3, 7-8, 10-12 and 15. Returns the scores (``wer_<dir>``,
+    ``cer_<dir>``), ``lm_ppl`` (stage 8), ``pack_path``,
+    ``unpack_decode_match`` and ``stage_seconds`` {stage: seconds}."""
     refuse_unported_stages(opts, stage, stop_stage)
     dev = resolve_device(device)
     results: Dict[str, object] = {}
@@ -292,6 +300,49 @@ def run_pipeline(cfg: ASRTaskConfig, opts: PipelineOptions = PipelineOptions(),
         seconds[5] = clock() - t0
         log.info("stage5: vocabulary ready")
 
+    if opts.train_lm and on(7):
+        from ..models.lm import LMConfig
+        from ..tasks.lm import LMDataConfig, LMTask, LMTaskConfig
+        t0 = clock()
+        valid_text = str(Path(cfg.data.valid_dir) / "text")
+        lm_cfg = LMTaskConfig(
+            exp_dir=str(exp / "lm"),
+            model=LMConfig(d_model=128, n_head=4, d_ff=512, num_blocks=4),
+            data=LMDataConfig(train_text=str(Path(train_dir) / "text"),
+                              valid_text=valid_text,
+                              token_type=cfg.data.token_type),
+            max_epoch=min(cfg.max_epoch, 10))
+        LMTask.train(lm_cfg, device=dev)
+        seconds[7] = clock() - t0
+        if on(8):
+            t0 = clock()
+            results["lm_ppl"] = LMTask.perplexity(lm_cfg.exp_dir, valid_text,
+                                                  device=dev)
+            seconds[8] = clock() - t0
+            log.info("stage8: LM ppl %.2f", results["lm_ppl"])
+
+    ngram_file = None
+    if opts.train_ngram and on(9):
+        # over the decode token units (the scorer fuses token ids), as the
+        # reference's BPE-tokenized lmplz input (asr.sh stage 9)
+        from ..decode.ngram import ArpaLM
+        from ..decode.ngram_train import train_arpa
+        t0 = clock()
+        tokenizer, conv, _ = ASRTask.prepare_vocab(cfg)
+        sents = [tokenizer.text2tokens(text) for text in
+                 read_2column_text(Path(train_dir) / "text").values()]
+        arpa = exp / "train.arpa"
+        train_arpa(sents, str(arpa), order=opts.ngram_order)
+        ngram_file = str(exp / "train_ngram.npz")
+        tok2id = {tok: i for i, tok in enumerate(conv.token_list)}
+        sos = len(conv.token_list) - 1
+        tok2id.setdefault("<s>", sos)
+        tok2id.setdefault("</s>", sos)
+        ArpaLM(str(arpa), tok2id, len(conv.token_list)).save_binary(
+            ngram_file)
+        seconds[9] = clock() - t0
+        log.info("stage9: ngram trained -> %s", ngram_file)
+
     if on(10) and cfg.model.use_mvn == "global":
         from ..train.collect_stats import collect_stats
         t0 = clock()
@@ -316,7 +367,10 @@ def run_pipeline(cfg: ASRTaskConfig, opts: PipelineOptions = PipelineOptions(),
                      max_len=opts.decode_max_len, device=dev)
     if on(12):
         t0 = clock()
-        s2t = Speech2Text.from_exp_dir(str(exp), **decode_kw)
+        s2t = Speech2Text.from_exp_dir(
+            str(exp), ngram_file=ngram_file,
+            ngram_weight=opts.ngram_weight if ngram_file else 0.0,
+            **decode_kw)
         scored = 0.0
         for dname in [cfg.data.valid_dir] + list(test_dirs or []):
             dname = Path(dname)

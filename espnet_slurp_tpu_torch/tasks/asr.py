@@ -20,8 +20,9 @@ Speech2Text then turns waveforms into the same features on the model's
 device before it decodes, as the reference's does. ``mbr.weight > 0`` adds
 the MBR / KB-MBR term to the step (train/mbr.py), and ``Speech2Text``
 decodes with TCPGen biasing over ``biasing_words`` (a ``use_tcpgen``
-model, beam search). Config values that select paths not ported yet
-raise, naming their queue item in ROADMAP.md: ``model_arch: maskctc``,
+model, beam search), with shallow fusion of a tasks/lm.py LM and an ARPA
+n-gram and with internal-LM subtraction. Config values that select paths
+not ported yet raise, naming their queue item in ROADMAP.md: ``model_arch: maskctc``,
 ``pipeline_stages > 1``,
 ``num_att_plot > 0``, ``data.resident_corpus``, ``data.multichannel``,
 ``data.feats_type`` ``fbank_pitch`` or ``ssl``, and the model values of
@@ -53,6 +54,7 @@ from ..data.tokenizer import (BpeTokenizer, TokenIDConverter,
                               build_token_list, build_tokenizer)
 from ..decode.beam import BeamSearchConfig, batch_beam_search
 from ..decode.greedy import attention_greedy_decode
+from ..decode.ngram import ArpaLM, make_ngram_fusion
 from ..models.asr_model import ASRConfig, ASRModel, unported_options
 from ..models.moe import MoEFeedForward
 from ..models.tcpgen import GATTreeEncoder, TCPGen
@@ -66,6 +68,7 @@ from ..train.state import TrainState, make_eval_step, make_train_step
 from ..train.trainer import Trainer, TrainerOptions
 from ..utils.config import from_dict, load_yaml, merge_dicts, save_yaml
 from ..utils.device import resolve_device
+from .lm import LMTask, make_lm_fusion
 
 log = logging.getLogger("espnet_slurp_tpu_torch")
 
@@ -527,6 +530,17 @@ class Speech2Text:
     in, p_gen scaled by ``tcpgen_smoothprob`` or pinned to
     ``tcpgen_force_p_gen``; greedy decoding ignores it, as the
     reference's.
+
+    Shallow fusion (the beam search only, reference tasks/asr.py:654-845):
+    ``lm_exp_dir`` (a tasks/lm.py experiment, fused at ``lm_weight`` when
+    it is > 0; its token list must be the ASR model's) and ``ngram_file``
+    (an ARPA file or its ``.npz`` cache, decode/ngram.py, fused at
+    ``ngram_weight`` when > 0; its ``<s>`` / ``</s>`` map to sos / eos).
+    Each scorer is scaled by its own weight, read at every decode, and the
+    beam adds their sum at weight 1. ``ilm_weight`` > 0 subtracts the
+    internal LM (not under biasing). ``set_fusion_weights`` changes the
+    weights between decodes; ``ilm_weight`` only with ``sweep_fusion`` or
+    a positive ``ilm_weight`` at construction, as the reference's.
     """
 
     def __init__(self, cfg: ASRConfig, state_dict: Mapping[str, torch.Tensor],
@@ -536,7 +550,11 @@ class Speech2Text:
                  speech_bucket_multiple: int = 4096, device=None,
                  mvn_stats=None, tokenizer=None, biasing_words=None,
                  tcpgen_smoothprob: float = 1.0,
-                 tcpgen_force_p_gen: Optional[float] = None):
+                 tcpgen_force_p_gen: Optional[float] = None,
+                 lm_exp_dir: Optional[str] = None, lm_weight: float = 0.0,
+                 ngram_file: Optional[str] = None,
+                 ngram_weight: float = 0.0, ilm_weight: float = 0.0,
+                 sweep_fusion: bool = False):
         self.model = ASRModel(cfg, device=device)
         self.model.load_state_dict(state_dict)
         self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
@@ -553,6 +571,64 @@ class Speech2Text:
         if biasing_words:
             self.biasing = self._biasing(biasing_words, tcpgen_smoothprob,
                                          tcpgen_force_p_gen)
+        self.lm_weight, self.ngram_weight = lm_weight, ngram_weight
+        self.ilm_weight = ilm_weight
+        self._ilm_settable = sweep_fusion or ilm_weight > 0.0
+        # (name of the weight attribute, lm_step, lm_init) per scorer
+        self._scorers = []
+        if lm_exp_dir and lm_weight > 0:
+            lm, _, lm_conv = LMTask.load(lm_exp_dir, device=self.model.device)
+            if lm_conv.token_list != self.converter.token_list:
+                raise ValueError(
+                    f"the LM of {lm_exp_dir} has a vocabulary of "
+                    f"{lm_conv.vocab_size} tokens, the ASR model one of "
+                    f"{len(self.converter.token_list)}: shallow fusion "
+                    "needs the ASR model's token list")
+            self._scorers.append(("lm_weight",) + make_lm_fusion(lm,
+                                                                 max_len))
+        if ngram_file and ngram_weight > 0:
+            tok2id = {tok: i for i, tok in
+                      enumerate(self.converter.token_list)}
+            tok2id.setdefault("<s>", cfg.sos_id)
+            tok2id.setdefault("</s>", cfg.eos_id)
+            self._scorers.append(("ngram_weight",) + make_ngram_fusion(
+                ArpaLM(ngram_file, tok2id, cfg.vocab_size), cfg.sos_id,
+                self.model.device))
+
+    def set_fusion_weights(self, lm_weight=None, ngram_weight=None,
+                           ilm_weight=None) -> None:
+        """New fusion weights for the next decodes. ``ilm_weight`` needs
+        ``sweep_fusion=True`` (or a positive ``ilm_weight``) at
+        construction, as the reference's."""
+        if lm_weight is not None:
+            self.lm_weight = float(lm_weight)
+        if ngram_weight is not None:
+            self.ngram_weight = float(ngram_weight)
+        if ilm_weight is not None:
+            if not self._ilm_settable:
+                raise ValueError("construct Speech2Text(sweep_fusion=True) "
+                                 "to sweep ilm_weight")
+            self.ilm_weight = float(ilm_weight)
+
+    def _fusion(self):
+        """(lm_step, lm_init) of the scorers, each row scaled by its
+        current weight, or (None, None) without a scorer."""
+        if not self._scorers:
+            return None, None
+        weights = [getattr(self, name) for name, _, _ in self._scorers]
+
+        def lm_init(n):
+            return [init(n) for _, _, init in self._scorers]
+
+        def lm_step(y_prev, states):
+            rows, new_states = [], []
+            for w, (_, step, _), st in zip(weights, self._scorers, states):
+                row, st = step(y_prev, st)
+                rows.append(w * row)
+                new_states.append(st)
+            return sum(rows), new_states
+
+        return lm_step, lm_init
 
     def _biasing(self, words: Sequence[str], smoothprob: float = 1.0,
                  force_p_gen: Optional[float] = None) -> Dict:
@@ -579,13 +655,17 @@ class Speech2Text:
                      max_len: int = 128, beam_size: int = 1,
                      ctc_weight: float = 0.0, device=None,
                      biasing_words=None, tcpgen_smoothprob: float = 1.0,
-                     tcpgen_force_p_gen: Optional[float] = None
-                     ) -> "Speech2Text":
+                     tcpgen_force_p_gen: Optional[float] = None,
+                     lm_exp_dir: Optional[str] = None,
+                     lm_weight: float = 0.0,
+                     ngram_file: Optional[str] = None,
+                     ngram_weight: float = 0.0, ilm_weight: float = 0.0,
+                     sweep_fusion: bool = False) -> "Speech2Text":
         """An experiment directory of ``ASRTask.train`` (the reference's
         constructor): its config.yaml and tokens.txt, the checkpoint
         ``ckpt_name`` (default: the n-best average ``valid.*best`` if there
         is one, else the latest epoch) and the global MVN stats; the
-        biasing arguments as the constructor's."""
+        biasing and fusion arguments as the constructor's."""
         exp = Path(exp_dir)
         cfg = load_task_config(exp / "config.yaml")
         refuse_unported(cfg)
@@ -603,7 +683,10 @@ class Speech2Text:
                       cfg, resolve_device(device)), tokenizer=tokenizer,
                   biasing_words=biasing_words,
                   tcpgen_smoothprob=tcpgen_smoothprob,
-                  tcpgen_force_p_gen=tcpgen_force_p_gen)
+                  tcpgen_force_p_gen=tcpgen_force_p_gen,
+                  lm_exp_dir=lm_exp_dir, lm_weight=lm_weight,
+                  ngram_file=ngram_file, ngram_weight=ngram_weight,
+                  ilm_weight=ilm_weight, sweep_fusion=sweep_fusion)
         s2t.task_cfg = cfg
         return s2t
 
@@ -640,12 +723,15 @@ class Speech2Text:
             tokens, lengths = attention_greedy_decode(
                 self.model, hs, h_lengths, self.max_len)
         else:
+            lm_step, lm_init = self._fusion()
             tokens, lengths = batch_beam_search(
                 self.model, hs, h_lengths,
                 BeamSearchConfig(beam_size=self.beam_size,
                                  max_len=self.max_len,
-                                 ctc_weight=self.ctc_weight),
-                biasing=self.biasing)
+                                 ctc_weight=self.ctc_weight,
+                                 lm_weight=1.0 if lm_step else 0.0,
+                                 ilm_weight=self.ilm_weight),
+                lm_step=lm_step, lm_init=lm_init, biasing=self.biasing)
         tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         return [self.tokenizer.tokens2text(
                     self.converter.ids2tokens(tokens[i, :lengths[i]]))

@@ -22,6 +22,10 @@ does, so the key is the flax path joined by "." with the leaf renamed:
   ``bias_hh`` [4P], gates stacked in the order i, f, g, o (torch's): the
   same scalars, in 3 tensors instead of 12.
 
+A language model's tree (models/lm.py: ``embed``, ``attn_{i}/linear_*``,
+``norm{1,2}_{i}``, ``ff_{i}/w{1,2}``, ``after_norm``, ``output`` and
+``rnn_{i}/cell``) converts by these rules, with no renaming.
+
 The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here,
 at the top of an ASR tree and under ``asr`` in an SLU tree (slu/model.py
 holds its ASR model there). An SLU tree's BERT postdecoder

@@ -162,11 +162,69 @@ def test_clis_raise_without_a_card_unless_asked_for_the_cpu(runs, tmp_path):
                       str(tmp_path / "dec")])
 
 
-@pytest.mark.parametrize("flag", [["--lm_exp_dir", "x"],
-                                  ["--ngram_file", "x"], ["--ctc_timesync"],
-                                  ["--lattice"]])
+@pytest.mark.parametrize("flag", [["--ctc_timesync"], ["--lattice"]])
 def test_unported_inference_options_raise(runs, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         p_infer.main(["--exp_dir", str(runs["pexp"]), "--data_dir",
                       str(runs["corpus"][1]), "--output_dir",
                       str(tmp_path / "dec"), "--device", "cpu", *flag])
+
+
+def _lm_exp(runs, root):
+    """A Transformer LM trained one epoch by bin/lm_train on the corpus's
+    train text, over the ASR experiment's token list."""
+    from espnet_slurp_tpu_torch.bin import lm_train
+    exp = root / "lm"
+    exp.mkdir()
+    (exp / "tokens.txt").write_text((runs["pexp"] / "tokens.txt").read_text())
+    text = str(runs["corpus"][0] / "text")
+    assert lm_train.main([
+        "--set", f"exp_dir={exp}", "data.token_type=word",
+        f"data.train_text={text}", f"data.valid_text={text}",
+        "model.d_model=16", "model.n_head=2", "model.d_ff=32",
+        "model.num_blocks=1", "max_epoch=1", "--device", "cpu"]) == 0
+    return exp
+
+
+def _ngram(runs, root):
+    """bin/ngram_compile's cache of a trigram over the train text."""
+    from espnet_slurp_tpu_torch.bin import ngram_compile
+    from espnet_slurp_tpu_torch.decode.ngram_train import train_arpa_from_file
+    arpa = train_arpa_from_file(runs["corpus"][0] / "text", root / "lm.arpa")
+    out = root / "lm.npz"
+    assert ngram_compile.main(["--arpa", str(arpa), "--tokens",
+                               str(runs["pexp"] / "tokens.txt"), "--output",
+                               str(out)]) == 0
+    return out
+
+
+@pytest.mark.parametrize("scorer", ["lm", "ngram"])
+def test_inference_cli_fuses_an_lm_or_an_ngram(runs, tmp_path, scorer):
+    """conf/decode.yaml's lm_weight 0.3 through bin/asr_inference on the
+    CPU (a bin/lm_train LM, or an n-gram cache of bin/ngram_compile): the
+    CLI's hypotheses are those of Speech2Text with the same fusion."""
+    flags = (["--lm_exp_dir", str(_lm_exp(runs, tmp_path)), "--lm_weight",
+              "0.3"] if scorer == "lm" else
+             ["--ngram_file", str(_ngram(runs, tmp_path)), "--ngram_weight",
+              "0.3"])
+    dec = tmp_path / "dec"
+    assert p_infer.main(["--exp_dir", str(runs["pexp"]), "--data_dir",
+                         str(runs["corpus"][1]), "--output_dir", str(dec),
+                         "--beam_size", "4", "--max_len", "12", "--device",
+                         "cpu", *flags]) == 0
+    kw = dict(zip([f[2:] for f in flags[::2]],
+                  [flags[1], float(flags[3])]))
+    s2t = pasr.Speech2Text.from_exp_dir(str(runs["pexp"]), device="cpu",
+                                        max_len=12, beam_size=4,
+                                        ctc_weight=0.3, **kw)
+    from espnet_slurp_tpu_torch.data.fileio import load_wav, read_2column_text
+    wavs = read_2column_text(runs["corpus"][1] / "wav.scp")
+    want = dict(zip(wavs, s2t.decode_batch([load_wav(p)[0]
+                                            for p in wavs.values()])))
+    got = dict(line.split(" ", 1) if " " in line else (line, "")
+               for line in (dec / "text").read_text().splitlines())
+    assert got == want
+    assert len(s2t._scorers) == 1
+    score = dict(line.split() for line in
+                 (dec / "score.txt").read_text().splitlines())
+    assert sorted(score) == ["CER", "RTF", "WER"]

@@ -106,7 +106,13 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     # CLIs and the recipe.
     "models.hf_transformer", "slu.model", "slu.metrics", "slu.mini_corpus",
     "tasks.slu", "bin.slu_train", "bin.slu_inference",
-    "recipe.prepare_slurp", "recipe.slu_pipeline"))
+    "recipe.prepare_slurp", "recipe.slu_pipeline",
+    # The language models and fusion: the LMs, their task and CLIs, the
+    # n-gram scorer and trainer (copies of the reference's host code beside
+    # torch scorers), the word-level fusions and the state tree helper.
+    "models.lm", "tasks.lm", "bin.lm_train", "bin.lm_calc_perplexity",
+    "decode.ngram", "decode.ngram_train", "bin.ngram_compile",
+    "decode.word_lm", "utils.tree"))
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():

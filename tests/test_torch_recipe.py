@@ -6,7 +6,9 @@ train/collect_stats.py (global MVN stats) and recipe/asr_pipeline.py
 Both pipelines run tests/test_recipe.py's tiny config (d_model 32, one
 block each side, n_fft 128 / hop 64 / 16 mels, no SpecAug, global MVN,
 word tokens, speed perturbation 0.9 / 1.0, one epoch, beam 2, max_len 8)
-without the LM and the n-gram, over the same mini corpus. The JAX pipeline
+without the LM and the n-gram, over the same mini corpus; stages 7-9 (the
+LM and the n-gram) and stage 12 with the n-gram then run on copies of the
+trained experiments. The JAX pipeline
 runs on one CPU device, as the recipe runs; its initial parameters reach
 the port's through ``init_params_from`` (converted by utils/params.py).
 Tolerances: the speed-perturbed waveforms exactly (the same numpy code);
@@ -14,6 +16,7 @@ the stats' count exactly, sum and sum_square within STATS_RTOL of max |ref|
 (fp32 batch sums in another order, accumulated in fp64 on both sides); the
 per-epoch losses within LOSS_RTOL (as tests/test_torch_cli.py); token
 lists and decoded texts exactly."""
+import dataclasses
 import json
 
 import jax
@@ -307,8 +310,6 @@ def test_pack_cli_publishes_fetches_and_decodes(pipelines, tmp_path):
 
 @pytest.mark.parametrize("opts,match", [
     ({"feats_type": "fbank_pitch"}, "item 15"),
-    ({"train_lm": True}, "item 11"),
-    ({"train_ngram": True}, "item 11"),
 ])
 def test_unported_stages_raise_naming_their_item(tmp_path, opts, match):
     cfg = pasr.load_task_config(None, {"exp_dir": str(tmp_path / "exp")})
@@ -395,3 +396,76 @@ def test_pipeline_raises_without_a_card_unless_given_a_device(tmp_path):
     cfg = pasr.load_task_config(None, {"exp_dir": str(tmp_path / "exp")})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ppipe.run_pipeline(cfg, stage=1, stop_stage=15)
+
+
+def _copy_exp(pipelines, tmp_path, side):
+    """A copy of one pipeline's trained experiment and its config there."""
+    import shutil
+    src = pipelines[f"{side}exp"]
+    dst = tmp_path / f"{side}exp"
+    shutil.copytree(src, dst)
+    mod = jasr if side == "j" else pasr
+    cfg = mod.load_task_config(str(dst / "config.yaml"))
+    return dataclasses.replace(cfg, exp_dir=str(dst), data=dataclasses.replace(
+        cfg.data, train_dir=str(pipelines["corpus"][0]),
+        valid_dir=str(pipelines["corpus"][1])))
+
+
+def test_lm_and_ngram_stages_match_the_references(pipelines, tmp_path):
+    """Stages 7-9 (train_lm, train_ngram) of both pipelines on the corpus:
+    the LM experiment's token list and model config equal, one epoch each
+    (max_epoch 1), a finite perplexity above 1 (the two LMs start from
+    different draws of the same initializers); the stage-9 ARPA byte for
+    byte and its .npz cache array for array."""
+    cfgs = {side: _copy_exp(pipelines, tmp_path, side) for side in "jp"}
+    opts = dict(OPTS, train_lm=True, train_ngram=True)
+    single = jax.devices()[:1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "devices", lambda *a, **k: single)
+        jres_ = jpipe.run_pipeline(cfgs["j"], jpipe.PipelineOptions(**opts),
+                                   stage=7, stop_stage=9)
+    pres_ = ppipe.run_pipeline(cfgs["p"], ppipe.PipelineOptions(**opts),
+                               stage=7, stop_stage=9, device="cpu")
+    assert sorted(pres_["stage_seconds"]) == [7, 8, 9]
+    for res in (jres_, pres_):
+        assert np.isfinite(res["lm_ppl"]) and res["lm_ppl"] > 1.0
+    jexp, pexp = (tmp_path / f"{s}exp" for s in "jp")
+    assert ((pexp / "lm" / "tokens.txt").read_text()
+            == (jexp / "lm" / "tokens.txt").read_text())
+    from espnet_slurp_tpu.tasks.lm import load_lm_config as j_lm_cfg
+    from espnet_slurp_tpu_torch.tasks.lm import load_lm_config as p_lm_cfg
+    jl, pl = (j_lm_cfg(jexp / "lm" / "config.yaml"),
+              p_lm_cfg(pexp / "lm" / "config.yaml"))
+    assert dataclasses.asdict(pl.model) == dataclasses.asdict(jl.model)
+    assert pl.max_epoch == jl.max_epoch == 1
+    hist = json.loads((pexp / "lm" / "reporter.json").read_text())["history"]
+    assert [e["epoch"] for e in hist] == [1]
+    assert ((pexp / "train.arpa").read_bytes()
+            == (jexp / "train.arpa").read_bytes())
+    a, b = (np.load(e / "train_ngram.npz") for e in (jexp, pexp))
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(b[k], a[k], k)
+
+
+def test_stage_12_fuses_the_stage_9_ngram_as_the_reference(pipelines,
+                                                          tmp_path):
+    """Stages 9-13 with train_ngram on copies of the trained experiments
+    (stage 10 recollects the stats, stage 11 resumes past max_epoch and
+    trains nothing): both decode the dev set with the trigram at
+    ngram_weight 0.3 to the same texts and scores."""
+    cfgs = {side: _copy_exp(pipelines, tmp_path, side) for side in "jp"}
+    opts = dict(OPTS, train_ngram=True, ngram_weight=0.3)
+    single = jax.devices()[:1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "devices", lambda *a, **k: single)
+        jres_ = jpipe.run_pipeline(cfgs["j"], jpipe.PipelineOptions(**opts),
+                                   stage=9, stop_stage=13)
+    pres_ = ppipe.run_pipeline(cfgs["p"], ppipe.PipelineOptions(**opts),
+                               stage=9, stop_stage=13, device="cpu")
+    jexp, pexp = (tmp_path / f"{s}exp" for s in "jp")
+    assert ((pexp / "decode_dev" / "text").read_text()
+            == (jexp / "decode_dev" / "text").read_text())
+    for k in ("wer_dev", "cer_dev"):
+        assert pres_[k] == pytest.approx(jres_[k], abs=0)
+    assert 9 in pres_["stage_seconds"] and 12 in pres_["stage_seconds"]

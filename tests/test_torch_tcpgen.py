@@ -17,7 +17,9 @@ transducer against the reference, on the CPU in fp32.
 - The KB-aware transducer's loss and gradients the same way, on K5's
   plain version.
 - The biased batch_beam_search: tokens and lengths equal to the
-  reference's, in both conventions and with force_p_gen.
+  reference's, in both conventions and with force_p_gen, and with the
+  selection LM's class choice (``biasing["selection"]``), also beside an
+  LM in shallow fusion.
 Weights come from the reference's init, converted by flax_to_torch.
 """
 import dataclasses
@@ -34,7 +36,9 @@ from espnet_slurp_tpu.models import tcpgen as jtcp
 from espnet_slurp_tpu.models.asr_model import ASRConfig as JASRConfig
 from espnet_slurp_tpu.models.asr_model import ASRModel as JASRModel
 from espnet_slurp_tpu.ops.frontend import FrontendConfig as JFront
+from espnet_slurp_tpu.decode import word_lm as jwl
 from espnet_slurp_tpu.slu import kb as jkb
+from espnet_slurp_tpu_torch.decode import word_lm as pwl
 from espnet_slurp_tpu_torch.decode.beam import (BeamSearchConfig,
                                                 batch_beam_search)
 from espnet_slurp_tpu_torch.models import tcpgen as ptcp
@@ -333,17 +337,95 @@ def test_biased_beam_search_matches(asr_case, prefix, force):
     assert not np.allclose(unbiased[4].numpy(), got[4].numpy())
 
 
-def test_biasing_selection_still_raises_naming_its_item(asr_case):
-    _, params, pcfg, batch, _ = asr_case
+def _selection(arch, trie, lm_hooks):
+    """A selection LM over the word trie of WORDS (word ids 2-9): an LSTM
+    of vocabulary 10 whose logits choose among class roots (the global root
+    and the subtrees under tokens 2, 5 and 7), or a stateless table."""
+    kids = dict(zip(trie.children_tok[0][:trie.n_children[0]].tolist(),
+                    trie.children_node[0][:trie.n_children[0]].tolist()))
+    roots = np.array([0, kids[2], kids[5], kids[7]] * 3)[:10]
+    if arch == "table":
+        table = np.random.RandomState(2).randn(10, 10).astype(np.float32)
+        jt, pt = jnp.asarray(table), torch.from_numpy(table)
+        hooks = ((lambda w, st: (jt[w], st),
+                  lambda n: jnp.zeros((n,), jnp.int32)),
+                 (lambda w, st: (pt[w], st), lambda n: torch.zeros(n).long()))
+    else:
+        hooks = lm_hooks(10)
+    return [{"word_trie": build(WORDS, list(range(2, 10))), "word_unk": 1,
+             "sel_step": h[0], "sel_init": h[1], "class_roots": roots}
+            for build, h in ((jwl.build_word_trie, hooks[0]),
+                             (pwl.build_word_trie, hooks[1]))]
+
+
+def _lstm_lm_hooks(vocab, max_len=8):
+    """(reference, port) make_lm_fusion hooks of one LSTM LM (flax init,
+    converted)."""
+    from espnet_slurp_tpu.models import lm as jlm
+    from espnet_slurp_tpu.tasks.lm import make_lm_fusion as j_fusion
+    from espnet_slurp_tpu_torch.models import lm as plm
+    from espnet_slurp_tpu_torch.tasks.lm import make_lm_fusion as p_fusion
+    widths = dict(vocab_size=vocab, arch="lstm", d_model=8, num_layers=1)
+    jm = jlm.LSTMLM(jlm.LMConfig(**widths))
+    lp = jax.jit(lambda r: jm.init(r, np.zeros((1, 2), np.int32),
+                                   np.array([2])))(jax.random.PRNGKey(3))
+    pm = plm.LSTMLM(plm.LMConfig(**widths), device="cpu")
+    pm.load_state_dict(flax_to_torch(jax.tree.map(np.asarray,
+                                                  lp["params"])))
+    return j_fusion(jm, lp["params"], 0, max_len), p_fusion(pm, max_len)
+
+
+@pytest.mark.parametrize("arch,with_lm", [("table", False), ("lstm", True)])
+def test_selection_lm_biased_beam_search_matches(asr_case, arch, with_lm):
+    """biasing["selection"] (the selection LM's KB-class choice at word
+    boundaries, resetting trie_step's root): tokens, lengths and n-best
+    equal to the reference's, n-best scores within 1e-4; with an LSTM
+    selection LM whose carry is kept at word boundaries only, beside an
+    LSTM LM in shallow fusion (ILM asked for, and ignored under biasing
+    by both)."""
+    jmodel, params, pcfg, batch, _ = asr_case
+    trie = jkb.build_trie(WORDS)
+    bmask = np.zeros(V + 1, bool)
+    bmask[list(BOUNDARY)] = True
+    jsel, psel = _selection(arch, trie, _lstm_lm_hooks)
+    common = dict(prefix_boundary=False, dead=trie.dead, smoothprob=0.9)
+    beam = dict(beam_size=3, pre_beam_size=8, ctc_weight=0.3, max_len=8)
+    fusion = dict(zip(("j", "p"), _lstm_lm_hooks(V))) if with_lm else {}
+    lm_args = lambda side: (dict(lm_step=fusion[side][0],
+                                 lm_init=fusion[side][1]) if with_lm else {})
+    weights = dict(lm_weight=0.4 * with_lm, ilm_weight=0.3 * with_lm)
+
+    @jax.jit
+    def run(params, speech, lens):
+        hs, hl, _ = jmodel.apply({"params": params}, speech, lens,
+                                 method=lambda m, s, sl: m.encode(s, sl))
+        return j_beam(jmodel, params, hs, hl, JBeamConfig(**weights, **beam),
+                      biasing=dict(common, trie=_trie_dict(trie),
+                                   boundary_mask=jnp.asarray(bmask),
+                                   selection=jsel),
+                      return_nbest=True, **lm_args("j"))
+
+    ref = jax.tree.map(np.asarray, run(params, batch["speech"],
+                                       batch["speech_lengths"]))
     model = ASRModel(pcfg, device="cpu")
-    hs = torch.zeros(1, 4, D)
-    trie = _trie_dict(jkb.build_trie(WORDS), as_torch=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        batch_beam_search(model, hs, torch.tensor([4]), BeamSearchConfig(),
-                          biasing={"trie": trie, "selection": {}})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        batch_beam_search(model, hs, torch.tensor([4]),
-                          BeamSearchConfig(lm_weight=0.3))
+    model.load_state_dict(flax_to_torch(params))
+    hs, hl = model.encode(t(batch["speech"]), t(batch["speech_lengths"]))
+    biasing = dict(common, trie=_trie_dict(trie, as_torch=True),
+                   boundary_mask=torch.from_numpy(bmask))
+    got = batch_beam_search(
+        model, hs, hl, BeamSearchConfig(**weights, **beam),
+        biasing=dict(biasing, selection=psel), return_nbest=True,
+        **lm_args("p"))
+    for i, what in enumerate(("tokens", "lengths", "n-best tokens",
+                              "n-best lengths")):
+        np.testing.assert_array_equal(got[i].numpy(), ref[i], err_msg=what)
+    np.testing.assert_allclose(got[4].numpy(), ref[4], rtol=1e-4)
+    # the class roots moved the walk: the search differs from one without
+    # the selection LM
+    plain = batch_beam_search(
+        model, hs, hl, BeamSearchConfig(**weights, **beam),
+        biasing=biasing, return_nbest=True, **lm_args("p"))
+    assert not np.allclose(plain[4].numpy(), got[4].numpy())
 
 
 # --- the KB-aware transducer ------------------------------------------------
