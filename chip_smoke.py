@@ -364,6 +364,27 @@ or the port's package is not beside it. Phases, each of which fails the run:
    bin/asr_inference with --lm_exp_dir and --ngram_file; (e) one
    LookAhead, one MultiLevel and one TCPGen decode with the selection LM
    on a small fp32 model, card vs CPU (search_parity).
+22. KA2G slot-value generation (recipe/ka2g_run.py's model as written:
+   Conformer 6 x 144, 4 heads, so Dh 36, d_ff 576, kernel 15, bf16,
+   dropout 0.1, CTC weight 1, utterance MVN, SpecAug; the generator 5
+   slots x 144, 2 blocks, d_ff 576, values of 2 words; B 48) on the
+   recipe's own synthetic corpus (make_ka2g_corpus, 240 + 48 + 50
+   utterances of ~1 s): (a) the nokb and the tcpgen arm two epochs each
+   through tasks/generic.py:run_training over a data/resident.py
+   ResidentCorpus: every step K3 6 (its Dh-64 instances: Dh 36
+   zero-padded), K4 1 and K1 1 each way by the wrappers' and the host
+   counts, K2 none (D2 144 is no bf16 K2 width); the last epoch's pace,
+   audio-s/s, peak memory, a profiled step's busy ms; K3 at (a)'s shape
+   (B 48, H 4, T', Dh 36) through the wrapper against its plain version
+   both ways in fp32 and bf16 at rates 0 and 0.1, each by the host
+   counts at the Dh-64 instances, timed beside the plain version, SDPA at
+   Dh 36 and the bound; (b) the model's fp32 step card against CPU with
+   TCPGen on the forest (loss and stats 1e-4 relative, gradients 1e-3 of
+   max |ref|) and generate() with and without the forest (the same
+   values); (c) the recipe's CLI end to end (one epoch an arm):
+   results.json and RESULTS_KA2G.md written, main's return code printed
+   and not judged; (d) ASRTask with data.resident_corpus: an epoch's
+   batches equal to the host pipeline's, then ASRTask.train one epoch.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -386,8 +407,11 @@ launches a step of phase 19's KB-aware transducer
 (``launches_per_kb_transducer_step``), and the K1-K3 entries their
 launches a step of phase 20's SLU model (``launches_per_slu_step``), and
 the K2 and K3 entries their launches in phase 21's LM-fused decode
-(``launches_per_lm_decode``); the last line is ``{"ok": true, "device":
-{...}}``.
+(``launches_per_lm_decode``), and every bf16 entry its launches a step of
+phase 22's KA2G model (``launches_per_ka2g_step``); then phase 22's K3
+entries at Dh 36 (``rel_flash_attention_dh36``,
+``rel_flash_attention_bwd_dh36``), whose launches are those of phase 22
+(a)'s runs; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2098,6 +2122,17 @@ class StepRun(NamedTuple):
     times: list
 
 
+def profiled_busy_ms(torch, step, state, batch):
+    """(the state after, the device's busy ms) of one train step under
+    torch.profiler: the sum of its kernels' device times."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    return state, sum(e.self_device_time_total for e in prof.key_averages()
+                      if not e.key.startswith("train_step.")) / 1e3
+
+
 def run_train_steps(torch, what, model, batch, card, audio_s,
                     budget_s=None, aux=None, falls=True) -> StepRun:
     """One warm-up step, then TRAIN_STEPS timed ones (3 when ``budget_s``
@@ -2166,13 +2201,8 @@ def run_train_steps(torch, what, model, batch, card, audio_s,
     if not (all(np.isfinite(losses + norms + [first_loss]))
             and sum(skipped) == 0 and (losses[-1] < first_loss or not falls)):
         raise AssertionError(f"{what}: non-finite, skipped or not falling")
-    from torch.profiler import ProfilerActivity, profile
     b, _ = make()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, st = step(state, b)
-        torch.cuda.synchronize()
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if not e.key.startswith("train_step.")) / 1e3
+    state, busy_ms = profiled_busy_ms(torch, step, state, b)
     print(f"{what}: device busy {busy_ms:.2f} ms in one profiled step")
     return StepRun(launches, step_s, busy_ms, steps, routes, peak_mb, stats,
                    float(np.median(host_ms)), times)
@@ -2708,7 +2738,9 @@ def k6_eager(torch, x, lengths, params, gb, k):
     bwd = lambda: torch.autograd.grad(ye, leaves, gb, retain_graph=True)
     out = {}
     for way, call in (("fwd", fwd), ("bwd", bwd)):
-        dev, launches, windows = device_ms(call)
+        # the profiler loses records (PERF.md §7): more windows, the same
+        # rule (two windows with equal launches by kernel name)
+        dev, launches, windows = device_ms(call, windows=10)
         odd = {k[:80]: c for k, c in launches.items() if c != int(c)}
         print(f"eager ConvModule {way} B={x.shape[0]} {x.dtype}: device "
               f"{dev:.4f} ms, {sum(launches.values()):g} launches a call "
@@ -2776,13 +2808,15 @@ def short_batch(vocab: int):
 
 
 def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
-                     tlens, extra=None, aux=None):
+                     tlens, extra=None, aux=None, pointer_stats=()):
     """loss within 1e-4 relative and every gradient within 1e-3 of max |ref|
-    (floored at 1e-4 of the largest gradient entry), CPU against card.
-    ``extra`` adds batch keys (a biasing batch's trie and walk) and ``aux``
-    (model -> aux_loss_fn) an MBR term to the loss; then every stat of the
-    loss's but acc within 1e-4 relative too, and with a biasing batch in
-    ``extra`` the CPU's loss_ptr, loss_gate and p_gen_bias above 0.
+    (floored at 1e-4 of the largest gradient entry), CPU against card; the
+    parameters without a gradient (a module the loss never calls) the same
+    on both sides, and named. ``extra`` adds batch keys (a biasing batch's
+    trie and walk) and ``aux`` (model -> aux_loss_fn) an MBR term to the
+    loss; then every stat of the loss's but acc within 1e-4 relative too.
+    Each stat of ``pointer_stats`` must be reported, and above 0 on the
+    CPU: the pointer and the gate worked, or their terms would compare 0.
 
     Each side's train forward draws its dropout seeds from a CPU generator
     seeded with DROPOUT_SEED (ops/kernels/philox.py:draw_seed draws on the
@@ -2831,13 +2865,23 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
         flips.append(int(flip.sum()))
         for z in (z_c, z_g):
             z.register_hook(lambda g, f=flip.to(z.device): g.masked_fill(f, 0))
-    res = {}
+    res, no_grad = {}, {}
     for dev, (model, loss, _, _) in runs.items():
         loss.backward()
         res[dev] = (float(loss.detach()), {k: p.grad.detach().cpu()
-                                  for k, p in model.named_parameters()})
+                                  for k, p in model.named_parameters()
+                                  if p.grad is not None})
+        no_grad[dev] = sorted(k for k, p in model.named_parameters()
+                              if p.grad is None)
     del runs
     (loss_c, g_c), (loss_g, g_g) = res["cpu"], res["cuda"]
+    if no_grad["cpu"]:
+        print(f"{what}: {len(no_grad['cpu'])} parameters without a gradient "
+              f"on the CPU, {len(no_grad['cuda'])} on the card: "
+              f"{no_grad['cpu']}")
+    if no_grad["cpu"] != no_grad["cuda"]:
+        raise AssertionError(f"{what}: parameters without a gradient differ: "
+                             f"CPU {no_grad['cpu']}, card {no_grad['cuda']}")
     rel = abs(loss_g - loss_c) / abs(loss_c)
     floor = 1e-4 * max(float(x.abs().max()) for x in g_c.values())
     worst = max(((float((g_g[k] - r).abs().max())
@@ -2855,10 +2899,10 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
               f"(tolerance 1e-4)")
         if max(stat_err.values()) > 1e-4:
             raise AssertionError(f"{what} card vs CPU stats")
-    # the pointer and the gate must have worked, or their terms compare 0
-    idle = [k for k in ("loss_ptr", "loss_gate", "p_gen_bias")
-            if "trie_token" in (extra or {})
-            and not float(st_c[k].detach()) > 0]
+    missing = [k for k in pointer_stats if k not in st_c or k not in st_g]
+    if missing:
+        raise AssertionError(f"{what}: the loss reports no {missing}")
+    idle = [k for k in pointer_stats if not float(st_c[k].detach()) > 0]
     if idle:
         raise AssertionError(f"{what}: {idle} not above 0 on the CPU")
     if not (rel <= 1e-4 and worst[0] <= 1e-3 and same_draws and drew):
@@ -3661,12 +3705,9 @@ def cli_step_want(n_rows, n_blocks, n_ffn=None):
 
 
 def cli_kernel_check(torch, exp):
-    """K4 (both dtypes) and K1 at this corpus's V and S: hs [CLI_BATCH, T',
-    256] and the first train batch's labels (data/collate.py's int32), each
-    against its plain version both ways within phase 4's tolerances, on
-    K4's bf16 / fp32 routes and K1's warp route by the host counts."""
-    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
-    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+    """K4 (both dtypes) and K1 at this corpus's V and S by
+    hold_ctc_kernels: hs [CLI_BATCH, T', 256] and the first train batch's
+    labels (data/collate.py's int32)."""
     from espnet_slurp_tpu_torch.tasks.asr import ASRTask, load_task_config
 
     from espnet_slurp_tpu_torch.data.prefetch import to_device
@@ -3685,15 +3726,30 @@ def cli_kernel_check(torch, exp):
           f"card through pinned memory {t2 - t1:.4f} s")
     labels = torch.from_numpy(batch["text"]).cuda()
     ulen = torch.from_numpy(batch["text_lengths"]).cuda()
-    b, u, v, d = labels.shape[0], int(ulen.max()), mcfg.vocab_size, 256
+    u, v = int(ulen.max()), mcfg.vocab_size
     t = bucket_t_prime(batch["speech"].shape[1])
-    s = 2 * u + 1
-    gen = torch.Generator(device="cuda").manual_seed(15)
+    hold_ctc_kernels(torch, "phase 15", labels, ulen, t, 256, v, 15)
+    return dict(vocab=v, u_max=u, s_max=2 * u + 1, t_prime=t)
+
+
+def hold_ctc_kernels(torch, what, labels, ulen, t, d, v, seed, tlen=None):
+    """K4 (both dtypes) and K1 at hs [B, t, d], W [v, d] and these labels
+    (int32, lengths ulen; S = 2 max(ulen) + 1): each against its plain
+    version both ways within phase 4's tolerances, K4's bf16 backward also
+    against fused_ctc_head_emit_bwd_plain (the kernels' rounding points)
+    within BWD_PLAIN_TOL, on K4's bf16 / fp32 routes and K1's warp route by
+    the host counts; K1 over frame lengths tlen (default all t)."""
+    from espnet_slurp_tpu_torch.ops.kernels import ctc as kctc
+    from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
+
+    b = labels.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     ext, skip, smax, last = kctc.extend_labels(labels, ulen)
     ext32 = ext.to(torch.int32)
+    s = ext.shape[1]
     hs0, w0, b0 = r(b, t, d) * 0.5, r(v, d) * d ** -0.5, r(v) * 0.1
-    cot = r(b, t, ext.shape[1])
+    cot = r(b, t, s)
     for dt, launches in ((torch.bfloat16, K4_BF16_LAUNCHES),
                          (torch.float32, K4_F32_LAUNCHES)):
         name = str(dt).split(".")[-1]
@@ -3703,12 +3759,28 @@ def cli_kernel_check(torch, exp):
         after = route_counts()
         ro, rg, _ = grad_case(torch, kh.fused_ctc_head_emit_plain, args,
                               cot, 3)
-        hold(torch, f"phase 15 K4 fused_ctc_head_emit {name} B={b} T={t} "
-             f"V={v} S={ext.shape[1]}", o, ro, g, rg, ("dhs", "dw", "db"),
+        hold(torch, f"{what} K4 fused_ctc_head_emit {name} B={b} T={t} "
+             f"D={d} V={v} S={s}", o, ro, g, rg, ("dhs", "dw", "db"),
              TOL[name])
-        check_routes(f"phase 15 K4 {name}", {k: after[k] - before[k]
-                                             for k in ROUTED}, launches)
-    tlen = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        check_routes(f"{what} K4 {name}", {k: after[k] - before[k]
+                                           for k in ROUTED}, launches)
+        if dt == torch.bfloat16:
+            _, z = kh._launch_fwd(*args)
+            got = kh._launch_bwd(*args, z, cot)
+            ref = kh.fused_ctc_head_emit_bwd_plain(*args, z, cot)
+            torch.cuda.synchronize()
+            rels = [rel_err(a, x)[1] for a, x in zip(got, ref)]
+            print(f"{what} K4 fused_ctc_head_emit backward bfloat16 D={d} "
+                  "against fused_ctc_head_emit_bwd_plain: " + ", ".join(
+                      f"{k} {x:.3e}" for k, x in zip(("dhs", "dw", "db"),
+                                                     rels))
+                  + f" of max|ref| (tolerance {BWD_PLAIN_TOL})")
+            if not max(rels) <= BWD_PLAIN_TOL:
+                raise AssertionError(f"{what} K4 bf16 backward disagrees "
+                                     "with fused_ctc_head_emit_bwd_plain")
+            del got, ref, z
+    if tlen is None:
+        tlen = torch.full((b,), t, dtype=torch.int32, device="cuda")
     lp = torch.log_softmax(r(b, t, v) * 2.0, -1)
     emit = kctc.mask_emit(lp.gather(2, ext[:, None, :].expand(b, t, -1)),
                           smax).contiguous()
@@ -3718,11 +3790,10 @@ def cli_kernel_check(torch, exp):
     o, g, _ = grad_case(torch, kctc.ctc_lattice, largs, lcot, 1)
     after = route_counts()
     ro, rg, _ = grad_case(torch, kctc.ctc_lattice_plain, largs, lcot, 1)
-    hold(torch, f"phase 15 K1 ctc_lattice float32 B={b} T={t} S={s} (U "
-         f"{u})", o, ro, g, rg, ("demit",), TOL["float32"])
-    check_routes("phase 15 K1", {k: after[k] - before[k] for k in ROUTED},
+    hold(torch, f"{what} K1 ctc_lattice float32 B={b} T={t} S={s} (U "
+         f"{int(ulen.max())})", o, ro, g, rg, ("demit",), TOL["float32"])
+    check_routes(f"{what} K1", {k: after[k] - before[k] for k in ROUTED},
                  K1_WARP)
-    return dict(vocab=v, u_max=u, s_max=s, t_prime=t)
 
 
 def bucket_t_prime(n_samples):
@@ -3964,6 +4035,10 @@ TR_SEARCHES = ("greedy", "alsa", "default", "maes", "tsd", "nsc")
 # ~T' log probabilities, from a joint whose products add in another order;
 # H100 runs read 1.7e-7 to 4.6e-7).
 EMIT_SHARE = 0.05
+# The default search compared on half the utterances: on all 8 its fp32
+# runs took 22.6 s on the card and 33.0 s on the CPU, 45% of phase 17, on
+# a whole run of 828.6 s beside an NVIDIA H100 80GB HBM3 (700 W).
+TR_DEFAULT_CMP_UTT = N_UTT // 2
 SCORE_RTOL = 1e-4
 
 
@@ -4100,7 +4175,8 @@ def tr_step_want(n_blocks):
 def transducer_search_check(torch, exp, dev8):
     """Each beam search at beam TR_SEARCH_BEAM on the card and on the CPU
     from the same fp32 encoder output (the trained model in fp32, hs of the
-    8 dev utterances computed once on the card, copied to the CPU), with
+    8 dev utterances computed once on the card, copied to the CPU; the
+    default search on the first TR_DEFAULT_CMP_UTT of them), with
     the joint sharpened as tests/test_torch_transducer_task.py's
     search_models does (lin_out's weight x 3, lin_pred's x 4) and blank's
     bias shifted so that blank loses to the best label at EMIT_SHARE of
@@ -4157,11 +4233,12 @@ def transducer_search_check(torch, exp, dev8):
     out, lengths = {}, set()
     for search in TR_SEARCHES[1:]:
         res, secs = {}, {}
+        rows = slice(TR_DEFAULT_CMP_UTT if search == "default" else None)
         for side, (h, l) in inputs.items():
             t0 = time.perf_counter()
             res[side] = [x.cpu() for x in run_search(
-                models[side], h, l, search, TR_SEARCH_BEAM, s2t.max_len,
-                with_score=True)]
+                models[side], h[rows], l[rows], search, TR_SEARCH_BEAM,
+                s2t.max_len, with_score=True)]
             secs[side] = time.perf_counter() - t0
         (ct, cl, cs), (ht, hl_, hsc) = res["card"], res["host"]
         same = torch.equal(ct, ht) and torch.equal(cl, hl_)
@@ -4296,10 +4373,12 @@ def transducer_cli_phase(torch, card, root, corpus):
 # phase 15's corpus); the fp32 beam searches of (e) run on MOE_CMP_UTT of
 # the decode's utterances on both devices from one encoder output.
 INTERCTC_LAYERS, INTERCTC_WEIGHT = (3, 6, 9), 0.3
-# Half the decode's utterances: at N_UTT the CPU's fp32 searches and their
-# replays took ~95 s of a whole run beside an NVIDIA H100 80GB HBM3 (700 W)
-# on a slow host, and the script must end within its time limit there too.
-MOE_CMP_UTT = N_UTT // 2
+# A quarter of the decode's utterances: at N_UTT the CPU's fp32 searches
+# and their replays took ~95 s of a whole run beside an NVIDIA H100 80GB
+# HBM3 (700 W) on a slow host, and at N_UTT // 2 ~24 s of each decode's
+# 31 s in a whole run of 828.6 s; the script must end within its time
+# limit there too.
+MOE_CMP_UTT = N_UTT // 4
 # The MoE step at 64 x 15 s must stay under this peak (ISSUE budget: the
 # reference's one-hot [S, E, C] dispatch alone would take 4.5 GB a layer).
 MOE_PEAK_GB = 16.0
@@ -5072,7 +5151,8 @@ def kb_fp32_phase(torch, card):
             torch, f"phase 19 (c) fp32 TCPGen step, {enc} tree encoder, "
             f"{blocks} encoder blocks"
             + (", with the KB-MBR term" if aux else ""), ASRModel, cfg,
-            state, speech, lens, text, tlens, extra=extra, aux=aux)
+            state, speech, lens, text, tlens, extra=extra, aux=aux,
+            pointer_stats=("loss_ptr", "loss_gate", "p_gen_bias"))
     cfg = kb_config(dtype="float32")
     state = ASRTask.init_params(ASRModel(cfg, device="cpu"), 0).state_dict()
     models = {}
@@ -6196,6 +6276,521 @@ def lm_phases(torch, card):
     return fused
 
 
+# Phase 22: KA2G slot-value generation (recipe/ka2g_run.py) on the recipe's
+# own synthetic corpus (make_ka2g_corpus: KA2G_TRAIN + KA2G_DEV + KA2G_TEST
+# utterances of ~1-3 s under KA2G_ROOT, the gitignored build/, removed at
+# the end), the model at the recipe's full width (build_cfg: Conformer 6 x
+# 144, 4 heads (Dh 36: K3 zero-padded to its Dh-64 route), d_ff 576,
+# kernel 15, bf16, dropout 0.1; the generator 5 slots x 144, 2 blocks, d_ff
+# 576, max_value_len 2) at the recipe's B 48.
+KA2G_ROOT = "build/chip_smoke_ka2g"
+KA2G_TRAIN, KA2G_DEV, KA2G_TEST, KA2G_B = 240, 48, 50, 48
+KA2G_EPOCHS = 2  # (a): the second epoch's steps meet no new shape
+KA2G_BLOCKS, KA2G_HEADS, KA2G_DH = 6, 4, 36
+
+
+def ka2g_step_want():
+    """A KA2G train step's launches each way by the wrappers' counts: K3
+    once a block, K4 and K1 once (the CTC term), K2 none (D2 144 is no
+    bf16 K2 width: the FFNs run eager), K5 and K6 none."""
+    return {"rel_flash_attention": KA2G_BLOCKS,
+            "rel_flash_attention_bwd": KA2G_BLOCKS,
+            "fused_ctc_head_emit": 1, "fused_ctc_head_emit_bwd": 1,
+            "ctc_lattice": 1, "ctc_lattice_bwd": 1}
+
+
+def ka2g_host_want():
+    """The same step by the host counts: K3's bf16 launches at Dh 64 (Dh
+    36 padded) with dropout, K4's bf16 route, K1's warp route."""
+    return {"rel_fwd::fwd_kernel<64, true>": KA2G_BLOCKS,
+            "rel_dkv::dkv_kernel<64, true>": KA2G_BLOCKS,
+            "rel_dq::dq_kernel<64, true>": KA2G_BLOCKS,
+            **dict.fromkeys(K4_BF16_LAUNCHES, 1),
+            **dict.fromkeys(K1_WARP, 1)}
+
+
+def ka2g_setup(corpus):
+    """(token list, tok2id, forest trie, roots) as the recipe builds them."""
+    from pathlib import Path
+    from espnet_slurp_tpu_torch.data.fileio import read_2column_text
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+    from espnet_slurp_tpu_torch.slu.generator import build_ontology_forest
+
+    train_dir, _, _, onto = corpus
+    tokens = kr.build_vocab(read_2column_text(Path(train_dir) / "text"),
+                            onto)
+    tok2id = {t: i for i, t in enumerate(tokens)}
+    trie, roots = build_ontology_forest(
+        [[[tok2id[w] for w in v] for v in sv] for sv in onto])
+    return tokens, tok2id, trie, roots
+
+
+def ka2g_busy_ms(torch, model, batch):
+    """The device's busy ms in one train step of ``model`` on ``batch``
+    (a warm-up step first), by profiled_busy_ms."""
+    from espnet_slurp_tpu_torch.data.prefetch import to_device
+    from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
+
+    tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
+    state = TrainState.create(model, tx, seed=0)
+    step = make_train_step(model, tx)
+    b = to_device(batch, "cuda")
+    state, _ = step(state, b)
+    torch.cuda.synchronize()
+    return profiled_busy_ms(torch, step, state, b)[1]
+
+
+def ka2g_train_phase(torch, card, root, corpus, train_step_s):
+    """Phase 22 (a): each arm (nokb, tcpgen) KA2G_EPOCHS epochs through
+    tasks/generic.py:run_training over a ResidentCorpus of the train and
+    dev splits (KA2G_TRAIN / KA2G_B steps and one valid batch an epoch),
+    every train step recorded: its launches by the wrappers' and the host
+    counts exactly ka2g_step_want / ka2g_host_want, the run's totals those
+    steps' plus the valid batches' forward ones; the pace (entry to entry
+    of the last epoch's steps, whose batch shapes the first epoch met),
+    audio-s/s, peak memory, the device's busy ms in a profiled step and
+    its idle share; finite train and valid losses. Returns (launches a
+    step, the K3 launches of both arms each way, the first train batch
+    (the same utterances, TCPGen's arrays left out), V)."""
+    import json as _json
+    from espnet_slurp_tpu_torch.data.resident import ResidentCorpus
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+    from espnet_slurp_tpu_torch.slu.ka2g import KA2GModel
+    from espnet_slurp_tpu_torch.tasks import generic
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+    from espnet_slurp_tpu_torch.train.optim import OptimConfig
+
+    train_dir, dev_dir, _, _ = corpus
+    tokens, tok2id, trie, roots = ka2g_setup(corpus)
+    t0 = time.perf_counter()
+    rc = ResidentCorpus.from_datadirs([str(train_dir), str(dev_dir)],
+                                      device="cuda")
+    rows = int(rc.buffer.shape[0])
+    print(f"phase 22 (a): ResidentCorpus of {len(rc.index)} utterances, "
+          f"{rows * rc.ROW * 2 / 1e6:.1f} MB of int16 on the card, decoded "
+          f"and copied in {time.perf_counter() - t0:.2f} s")
+    train_uids = [u for u in rc.index if u.startswith("train_")]
+    per_epoch = KA2G_TRAIN // KA2G_B
+    steps = KA2G_EPOCHS * per_epoch
+    audio_s = sum(rc.index[u][1] for u in train_uids) / FS / per_epoch
+    want, host_want = ka2g_step_want(), ka2g_host_want()
+    fwd_only = {k: v for k, v in want.items() if not k.endswith("_bwd")}
+    n_valid = KA2G_EPOCHS * (KA2G_DEV // KA2G_B)
+    k3_total, t_prime = {"fwd": 0, "bwd": 0}, None
+    for arm, tcp in (("nokb", False), ("tcpgen", True)):
+        cfg = kr.build_cfg(len(tokens), tcp)
+        what = (f"phase 22 (a) KA2G {arm}: Conformer {KA2G_BLOCKS} x "
+                f"{cfg.asr.d_model} ({cfg.asr.n_head} heads, Dh "
+                f"{cfg.asr.d_model // cfg.asr.n_head}), d_ff {cfg.asr.d_ff}, "
+                f"{cfg.asr.dtype}, dropout {cfg.asr.dropout_rate}; generator "
+                f"{cfg.gen.n_slots} slots x {cfg.gen.d_model}, "
+                f"{cfg.gen.num_blocks} blocks, TCPGen {tcp}; V "
+                f"{len(tokens)}; B {KA2G_B}, {audio_s:.1f} audio-s a batch")
+        per_step, clock = [], []
+        orig = step_recorder(torch, per_step, clock, task=generic)
+        model = KA2GModel(cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        hosts0 = build.launch_counts()
+        t0 = time.perf_counter()
+        try:
+            generic.run_training(
+                exp_dir=str(root / f"exp_a_{arm}"), model=model,
+                init_fn=lambda m, seed: ASRTask.init_params(m, seed),
+                train_factory=kr.make_factory(rc, train_dir, tok2id, KA2G_B,
+                                              tcp, True, trie, roots),
+                valid_factory=kr.make_factory(rc, dev_dir, tok2id, KA2G_B,
+                                              tcp, False, trie, roots),
+                optim=OptimConfig(lr=1e-3, scheduler="warmuplr",
+                                  warmup_steps=800),
+                run=generic.RunOptions(max_epoch=KA2G_EPOCHS, keep_nbest=1,
+                                       nbest_average=1, log_interval=100))
+        finally:
+            generic.make_train_step = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        total = read_counts()
+        hosts = build.launch_delta(hosts0, build.launch_counts())
+        hist = _json.loads((root / f"exp_a_{arm}" / "reporter.json")
+                           .read_text())["history"][-1]
+        bad = [i for i, (w, h, _) in enumerate(per_step)
+               if w != {k: want.get(k, 0) for k in COUNTED}
+               or h != host_want]
+        total_want = {k: steps * want.get(k, 0) + n_valid * fwd_only.get(k, 0)
+                      for k in COUNTED}
+        pace = [clock[i + 1][0] - clock[i][0]
+                for i in range(steps - per_epoch, steps - 1)]
+        pace_s = float(np.median(pace))
+        t_prime = per_step[0][2] // KA2G_B
+        busy_ms = ka2g_busy_ms(torch, model, next(iter(kr.make_factory(
+            rc, train_dir, tok2id, KA2G_B, tcp, False, trie, roots)(1))))
+        print(f"{what}: {len(per_step)} steps in {wall:.2f} s with the valid "
+              f"passes; a step every {pace_s:.4f} s in the last epoch "
+              f"({[round(x, 4) for x in pace]}), {audio_s / pace_s:.1f} "
+              f"audio-s/s (phase 5's flagship step {train_step_s:.4f} s), "
+              f"host s issuing each step "
+              f"{[round(b - a, 4) for a, b in clock]}; device busy "
+              f"{busy_ms:.2f} ms in a profiled step (idle "
+              f"{1 - busy_ms / 1e3 / pace_s:.0%} of the pace); peak "
+              f"{peak_mb:.1f} MB; T' {t_prime}; last epoch train "
+              f"{hist['train']}; valid {hist['valid']} on {card}")
+        print(f"{what}: launches a step {per_step[0][0]}, host counts "
+              f"{per_step[0][1]}; the epoch's {total}, host {hosts}")
+        if (len(per_step) != steps or bad or total != total_want
+                or not all(np.isfinite(v) for ph in ("train", "valid")
+                           for k, v in hist[ph].items()
+                           if k.startswith("loss"))):
+            raise AssertionError(f"{what}: steps {len(per_step)}, off-want "
+                                 f"steps {bad}, totals {total} against "
+                                 f"{total_want}, or a non-finite loss")
+        k3_total["fwd"] += total["rel_flash_attention"]
+        k3_total["bwd"] += total["rel_flash_attention_bwd"]
+        del model
+        torch.cuda.empty_cache()
+    first = next(iter(kr.make_factory(rc, train_dir, tok2id, KA2G_B, False,
+                                      True, trie, roots)(1)))
+    if bucket_t_prime(first["speech"].shape[1]) != t_prime:
+        raise AssertionError("phase 22 (a): the first batch's T' differs "
+                             "from the first step's")
+    return want, k3_total, first, len(tokens)
+
+
+def ka2g_ctc_check(torch, first, v):
+    """K4 and K1 at phase 22 (a)'s shape by hold_ctc_kernels: hs [KA2G_B,
+    T' of the first train batch, 144] (D 144: a 16-wide tail past the bf16
+    gemms' BK 32), the recipe's V, that batch's transcripts (S 2U + 1) and
+    its utterances' frame lengths."""
+    t = bucket_t_prime(first["speech"].shape[1])
+    tlen = torch.tensor([bucket_t_prime(int(n))
+                         for n in first["speech_lengths"]],
+                        dtype=torch.int32, device="cuda")
+    hold_ctc_kernels(torch, "phase 22", torch.from_numpy(
+        first["text"]).cuda(), torch.from_numpy(first["text_lengths"]).cuda(),
+        t, 144, v, 22, tlen=tlen)
+    return t
+
+
+def ka2g_slot_batch(trie, roots, onto_ids):
+    """Slot streams for phase 6's short batch: utterance 0 with slots 0 and
+    3 (an ontology value, then one outside the ontology: its walk goes
+    dead), utterance 1 with slot 4 (one word of a value), and the forest's
+    walk of them."""
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+    from espnet_slurp_tpu_torch.slu.generator import walk_forest
+    s, l = kr.N_SLOTS, kr.VALUE_LEN
+    present = np.zeros((2, s), np.int32)
+    values = np.full((2, s, l), -1, np.int32)
+    vlens = np.zeros((2, s), np.int32)
+    present[0, [0, 3]] = 1
+    values[0, 0] = onto_ids[0][12]
+    values[0, 3] = [onto_ids[3][0][0], onto_ids[1][5][1]]
+    vlens[0, [0, 3]] = 2
+    present[1, 4] = 1
+    values[1, 4, 0] = onto_ids[4][2][0]
+    vlens[1, 4] = 1
+    vals = np.maximum(values, 0).reshape(2 * s, l)
+    ys_in = np.pad(vals, ((0, 0), (1, 0)))[:, :l]
+    node, pmask = walk_forest(trie, roots, ys_in, np.tile(np.arange(s), 2))
+    return {"slot_present": present, "values": values,
+            "value_lengths": vlens, **kr.forest_arrays(trie),
+            "node": node.reshape(2, s * l),
+            "p_gen_mask": pmask.reshape(2, s * l)}
+
+
+def ka2g_fp32_phase(torch, card, corpus):
+    """Phase 22 (b): the recipe's model in fp32 (SpecAug off, dropout 0.1
+    with phase 6's seeds, TCPGen on) on phase 6's short batch with (a)'s
+    vocabulary and ka2g_slot_batch's slots: the loss, every stat (1e-4
+    relative) and every gradient (1e-3 of max |ref|), card against CPU;
+    then generate() from the same weights with and without the forest on
+    both: the same values, slot logits within 1e-4 of max |ref|."""
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+    from espnet_slurp_tpu_torch.slu.ka2g import KA2GModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    tokens, tok2id, trie, roots = ka2g_setup(corpus)
+    onto_ids = [[[tok2id[w] for w in v] for v in sv] for sv in corpus[3]]
+    base = kr.build_cfg(len(tokens), True)
+    cfg = dataclasses.replace(
+        base, asr=dataclasses.replace(base.asr, dtype="float32",
+                                      specaug=None),
+        gen=dataclasses.replace(base.gen, dtype="float32"))
+    state = ASRTask.init_params(KA2GModel(cfg, device="cpu"), 0).state_dict()
+    speech, lens, text, tlens = short_batch(len(tokens))
+    extra = ka2g_slot_batch(trie, roots, onto_ids)
+    compare_cpu_card(
+        torch, "phase 22 (b) fp32 KA2G step (the recipe's model, TCPGen on "
+        "the ontology forest, dropout 0.1)", KA2GModel, cfg, state, speech,
+        lens, text, tlens, extra=extra,
+        pointer_stats=("loss_ptr", "loss_gate", "p_gen_live"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = KA2GModel(cfg, device=dev)
+        model.load_state_dict(state)
+        forest = dict(
+            trie={k: torch.from_numpy(v).to(dev)
+                  for k, v in kr.forest_arrays(trie).items()},
+            roots=torch.from_numpy(roots).to(dev),
+            boundary_mask=torch.zeros(len(tokens) + 1, dtype=torch.bool,
+                                      device=dev),
+            dead=trie.dead)
+        sp, sl = (torch.from_numpy(x).to(dev) for x in (speech, lens))
+        out[dev] = [tuple(x.cpu() for x in model.generate(sp, sl, **kw))
+                    for kw in ({}, forest)]
+        del model
+    for label, (lc, vc), (lg, vg) in zip(("without", "with"), out["cpu"],
+                                         out["cuda"]):
+        err = rel_err(lg, lc)[1]
+        print(f"phase 22 (b) fp32 KA2G generate() {label} the forest card vs "
+              f"CPU: slot logits {err:.3e} of max|ref| (tolerance 1e-4); "
+              f"values equal {torch.equal(vg, vc)} ({vg.tolist()})")
+        if not (err <= 1e-4 and torch.equal(vg, vc)):
+            raise AssertionError(f"phase 22 (b) generate() {label} the "
+                                 "forest, card vs CPU")
+
+
+def ka2g_cli_phase(torch, card, root):
+    """Phase 22 (c): recipe/ka2g_run.py's CLI end to end on the corpus
+    under root (its arms trained one epoch each, evaluate on one batch of
+    KA2G_TEST): results.json with the three arms and RESULTS_KA2G.md
+    written; main's return code read and printed (1 when the KB arm does
+    not beat the no-KB arm: a one-epoch model says nothing of F1). No K2
+    launch."""
+    import json as _json
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+
+    out = root / "cli"
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = kr.main(["--out", str(out), "--corpus", str(root / "corpus"),
+                  "--n_train", str(KA2G_TRAIN), "--n_dev", str(KA2G_DEV),
+                  "--n_test", str(KA2G_TEST), "--max_epoch", "1",
+                  "--batch_size", str(KA2G_B), "--eval_batch",
+                  str(KA2G_TEST)])
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    results = _json.loads((out / "results.json").read_text())
+    md = (out / "RESULTS_KA2G.md").read_text()
+    print(f"phase 22 (c) recipe/ka2g_run.py main returned {rc} in "
+          f"{secs:.1f} s (1: the KB arm did not beat the no-KB arm after one "
+          f"epoch; not judged); results {results}; launches {launches} on "
+          f"{card}")
+    print("phase 22 (c) RESULTS_KA2G.md:\n" + md.strip())
+    if sorted(results) != ["nokb", "tcpgen_forest", "tcpgen_noforest"] or \
+            "| tcpgen_forest |" not in md or launches["fused_ffn"] or \
+            not launches["rel_flash_attention"]:
+        raise AssertionError("phase 22 (c): results, RESULTS_KA2G.md or "
+                             "launches")
+
+
+def ka2g_resident_task_phase(torch, card, root, corpus):
+    """Phase 22 (d): tasks/asr.py's ASRTask with data.resident_corpus (the
+    recipe's ASR model, CTC only, word tokens, sorted batches of KA2G_B):
+    every batch of an epoch's iterator through a ResidentCorpus equal to
+    the host pipeline's (speech bit for bit), then ASRTask.train one epoch
+    (KA2G_TRAIN / KA2G_B steps): reporter.json with finite losses."""
+    import json as _json
+    from espnet_slurp_tpu_torch.data.resident import ResidentCorpus
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+    from espnet_slurp_tpu_torch.tasks.asr import (ASRTask, ASRTaskConfig,
+                                                  DataConfig)
+    from espnet_slurp_tpu_torch.train.optim import OptimConfig
+
+    train_dir, dev_dir, _, _ = corpus
+    cfg = ASRTaskConfig(
+        exp_dir=str(root / "exp_d"), model=kr.build_cfg(1, False).asr,
+        optim=OptimConfig(scheduler="constant", lr=1e-3),
+        data=DataConfig(train_dir=str(train_dir), valid_dir=str(dev_dir),
+                        token_type="word", batch_type="sorted",
+                        batch_size=KA2G_B, resident_corpus=True),
+        max_epoch=1, keep_nbest=1, nbest_average=1)
+    tok, conv, _ = ASRTask.prepare_vocab(cfg)
+    ds = ASRTask.build_dataset(str(train_dir), tok, conv)
+    rc = ResidentCorpus.from_datadirs([str(train_dir)], device="cuda")
+    t0 = time.perf_counter()
+    plain = list(ASRTask.build_iter_factory(cfg, ds, True)(1))
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = list(ASRTask.build_iter_factory(
+        cfg, ds, True, speech_materializer=rc.materializer())(1))
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t0
+    same = len(plain) == len(res) > 0 and all(
+        sorted(a) == sorted(b) and b["speech"].is_cuda
+        and torch.equal(b["speech"].cpu(), torch.from_numpy(a["speech"]))
+        and all(np.array_equal(a[k], b[k]) for k in a if k != "speech")
+        for a, b in zip(plain, res))
+    print(f"phase 22 (d) ASRTask.build_iter_factory over {len(plain)} "
+          f"batches: host pipeline {t_plain:.2f} s, resident speech "
+          f"{t_res:.2f} s; every batch equal {same}")
+    if not same:
+        raise AssertionError("phase 22 (d): resident batches differ from the "
+                             "host pipeline's")
+    t0 = time.perf_counter()
+    ASRTask.train(cfg, device="cuda")
+    hist = _json.loads((root / "exp_d" / "reporter.json").read_text())[
+        "history"][0]
+    print(f"phase 22 (d) ASRTask.train with data.resident_corpus, one epoch "
+          f"of {len(plain)} steps: {time.perf_counter() - t0:.1f} s; train "
+          f"{hist['train']}, valid {hist['valid']} on {card}")
+    if not all(np.isfinite(hist[ph]["loss"]) for ph in ("train", "valid")):
+        raise AssertionError("phase 22 (d): non-finite loss")
+
+
+def ka2g_k3_entries(torch, card, t, launches):
+    """K3 at the KA2G encoder's shape (B KA2G_B, H 4, T' t, Dh 36, ragged
+    lengths) through the wrapper (zero-padded to the Dh-64 routes), both
+    ways, against the plain version at Dh 36: fp32 and bf16 at rate 0 and
+    bf16 at DROPOUT (the same Philox mask), each by the host counts the
+    Dh-64 instances once each way; then the bf16 rate-0 call and its
+    backward timed beside the plain version, SDPA at Dh 36 and the bound
+    of the Dh-36 work. Returns the two kernels-line entries."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    b, h, dh = KA2G_B, KA2G_HEADS, KA2G_DH
+    lengths = torch.tensor([t - 3 * (i % 9) for i in range(b)],
+                           dtype=torch.int32, device="cuda")
+    qkv = [r(b, h, t, dh) * 0.5 for _ in range(4)]
+    p = r(h, 2 * t, dh) * 0.5
+    p[:, -1] = 0.0
+    cot = r(b, h, t, dh)
+    scale = dh ** -0.5
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device="cuda")
+    kept = None
+    for dt, rate in ((torch.float32, 0.0), (torch.bfloat16, 0.0),
+                     (torch.bfloat16, DROPOUT)):
+        name = str(dt).split(".")[-1]
+        args = [x.to(dt) for x in qkv] + [p.to(dt), lengths]
+        kw = dict(scale=scale, dropout_rate=rate)
+        s = seed if rate else None
+        hosts0 = build.launch_counts()
+        o, g, again = grad_case(
+            torch, lambda *a: fa.rel_flash_attention_fwd(*a, s, **kw), args,
+            cot.to(dt), 5)
+        torch.cuda.synchronize()
+        hosts = build.launch_delta(hosts0, build.launch_counts())
+        flag = "true>" if rate else "false>"
+        inst = ({f"rel_f32::{k}_kernel<64, {flag}": 1
+                 for k in ("fwd", "dkv", "dq")} if dt == torch.float32 else
+                {f"rel_fwd::fwd_kernel<64, {flag}": 1,
+                 f"rel_dkv::dkv_kernel<64, {flag}": 1,
+                 f"rel_dq::dq_kernel<64, {flag}": 1})
+        ro, rg, plain_again = grad_case(
+            torch, lambda *a: fa.rel_flash_attention_plain(*a, s, **kw),
+            args, cot.to(dt), 5)
+        err_o, err_g = hold(torch, f"phase 22 K3 Dh {dh} (padded to 64) "
+                            f"{name} rate {rate} B={b} H={h} T={t}", o, ro,
+                            g, rg, ("dq_u", "dq_v", "dk", "dv", "dp"),
+                            TOL[name])
+        print(f"phase 22 K3 Dh {dh} {name} rate {rate}: host counts {hosts}")
+        if hosts != inst or o.shape[-1] != dh:
+            raise AssertionError(f"phase 22 K3 Dh {dh} {name}: launched "
+                                 f"{hosts}, expected {inst}")
+        if dt == torch.bfloat16 and not rate:
+            kept = (args, err_o, err_g, again, plain_again)
+        else:
+            del again, plain_again
+    args, err_o, err_g, again, plain_again = kept
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, lambda: fa.rel_flash_attention_fwd(
+            *args, scale=scale))
+        plain_fwd_ms = median_ms(torch, lambda: fa.rel_flash_attention_plain(
+            *args, scale=scale))
+    bwd_ms, plain_bwd_ms = median_ms(torch, again), median_ms(torch,
+                                                              plain_again)
+    q_u, q_v, k, vv, pp, lens = args
+    raw = q_v.float() @ pp[:, :2 * t - 1].float().transpose(-1, -2)
+    bd = raw.gather(-1, fa.rel_shift_index(t, raw.device).expand(b, h, t, t))
+    allowed = fa.allowed_mask(t, lens)
+    bias = torch.where(allowed, bd * scale, fa.NEG).to(q_u.dtype)
+    del raw, bd
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib_fwd = median_ms(torch, lambda: sdpa(q_u, k, vv, attn_mask=bias,
+                                                scale=scale))
+    leaves = [x.detach().requires_grad_(True) for x in (q_u, k, vv)]
+    sd = sdpa(*leaves, attn_mask=bias, scale=scale)
+    gb = cot.to(q_u.dtype)
+    lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
+        sd, leaves, gb, retain_graph=True))
+    del sd, leaves, bias
+    pairs = float(allowed.expand(b, 1, t, t).sum().item()) * h
+    att = att_bounds(b, h, t, dh, pairs, 2, PEAK_BF16_FLOPS)
+    print(f"phase 22 K3 Dh {dh} bfloat16 B={b} H={h} T={t}: forward "
+          f"{fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}, SDPA {lib_fwd:.4f}, "
+          f"bound {att['fwd'][0]:.4f} by {att['fwd'][1]}), backward "
+          f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, SDPA {lib_bwd:.4f}, "
+          f"bound {att['bwd'][0]:.4f} by {att['bwd'][1]}); the wrapper's "
+          f"pad and slice included, on {card}")
+    common = dict(route="cuda",
+                  source="espnet_slurp_tpu_torch/csrc/flash_attention.cu",
+                  note=f"Dh {dh} (the KA2G recipe's 144 / 4 heads) "
+                       "zero-padded to the bf16 mma.sync route at Dh 64 "
+                       "(ops/kernels/flash_attention.py:pad_heads); bound "
+                       f"of the Dh-{dh} work")
+    return [
+        dict(name="rel_flash_attention_dh36",
+             replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:336",
+             launches=launches["fwd"], max_abs_err=err_o, ms=fwd_ms,
+             plain_ms=plain_fwd_ms, bound_ms=att["fwd"][0],
+             bound_by=att["fwd"][1], library_ms=lib_fwd,
+             library_note=f"SDPA at Dh {dh} over a constant rel-shifted "
+                          "bias", **common),
+        dict(name="rel_flash_attention_bwd_dh36",
+             replaces="espnet_slurp_tpu/ops/pallas/flash_attention.py:379",
+             launches=launches["bwd"], max_abs_err=err_g, ms=bwd_ms,
+             plain_ms=plain_bwd_ms, bound_ms=att["bwd"][0],
+             bound_by=att["bwd"][1], library_ms=lib_bwd,
+             library_note=f"SDPA backward at Dh {dh} over a constant "
+                          "rel-shifted bias; computes no dp", **common)]
+
+
+def ka2g_phases(torch, card, train_step_s):
+    """Phase 22 (a)-(d) and K3's Dh-36 entries on one corpus under
+    KA2G_ROOT, removed at the end. Returns (the launches of a KA2G train
+    step, the kernels-line entries)."""
+    import shutil
+    from pathlib import Path
+    from espnet_slurp_tpu_torch.recipe import ka2g_run as kr
+
+    root = Path(KA2G_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    corpus = kr.make_ka2g_corpus(root / "corpus", n_train=KA2G_TRAIN,
+                                 n_dev=KA2G_DEV, n_test=KA2G_TEST)
+    print(f"phase 22: make_ka2g_corpus wrote {KA2G_TRAIN} + {KA2G_DEV} + "
+          f"{KA2G_TEST} utterances in {time.perf_counter() - t0:.1f} s")
+    lap = time.perf_counter()
+    step, k3_launches, first, v = ka2g_train_phase(torch, card, root, corpus,
+                                                   train_step_s)
+    print(f"phase 22 (a): {time.perf_counter() - lap:.1f} s")
+    lap = time.perf_counter()
+    t_prime = ka2g_ctc_check(torch, first, v)
+    entries = ka2g_k3_entries(torch, card, t_prime, k3_launches)
+    print(f"phase 22 K4, K1 at D 144 and K3 at Dh 36: "
+          f"{time.perf_counter() - lap:.1f} s")
+    lap = time.perf_counter()
+    ka2g_fp32_phase(torch, card, corpus)
+    print(f"phase 22 (b): {time.perf_counter() - lap:.1f} s")
+    lap = time.perf_counter()
+    ka2g_cli_phase(torch, card, root)
+    print(f"phase 22 (c): {time.perf_counter() - lap:.1f} s")
+    lap = time.perf_counter()
+    ka2g_resident_task_phase(torch, card, root, corpus)
+    print(f"phase 22 (d): {time.perf_counter() - lap:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return step, entries
+
+
 def main() -> int:
     import torch
 
@@ -6208,6 +6803,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = card_line()
     print(card)  # exactly as nvidia-smi gives it
     t0 = time.perf_counter()
@@ -6344,6 +6940,7 @@ def main() -> int:
           f"{time.perf_counter() - t_added:.1f} s")
     slu_step = slu_phases(torch, card, train_step_s)
     lm_decode = lm_phases(torch, card)
+    ka2g_step, ka2g_entries = ka2g_phases(torch, card, train_step_s)
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):
@@ -6365,6 +6962,11 @@ def main() -> int:
             kern["launches_per_slu_step"] = slu_step[base]
         if base in lm_decode:
             kern["launches_per_lm_decode"] = lm_decode[base]
+        if base in COUNTED:
+            kern["launches_per_ka2g_step"] = ka2g_step.get(base, 0)
+    kernels += ka2g_entries
+    print(f"chip_smoke.py: the whole run {time.perf_counter() - t_start:.1f} "
+          f"s (the kernel build included) on {card}")
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

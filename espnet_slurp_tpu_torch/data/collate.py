@@ -62,9 +62,13 @@ def common_collate(
 
 
 def asr_batch(uids, data) -> Dict[str, np.ndarray]:
-    """Rename streams to the ASRModel argument names."""
+    """Rename streams to the ASRModel argument names. A speech batch that
+    is not a numpy array (a device tensor of data/resident.py) is kept as
+    it is."""
+    speech = data["speech"]
     out = {
-        "speech": data["speech"].astype(np.float32),
+        "speech": (speech.astype(np.float32)
+                   if isinstance(speech, np.ndarray) else speech),
         "speech_lengths": data["speech_lengths"],
         "text": np.maximum(data["text"], 0).astype(np.int32),
         "text_lengths": data["text_lengths"],

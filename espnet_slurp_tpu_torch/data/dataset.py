@@ -1,7 +1,5 @@
 """Dataset over named streams + preprocessing: this package's own copy of
-espnet_slurp_tpu/data/dataset.py, without what only the waiting device-
-resident corpus and streaming inference use (``SpeechDataset.item_without``,
-``IterableSpeechDataset``: ROADMAP.md queue 1 item 2).
+espnet_slurp_tpu/data/dataset.py.
 
 Parity target: reference espnet2/train/dataset.py (ESPnetDataset: N named
 (path, name, type) loaders -> per-utt dict) and espnet2/train/preprocessor.py
@@ -347,3 +345,52 @@ class SpeechDataset:
         if self.preprocess is not None:
             data = self.preprocess(uid, data)
         return uid, data
+
+    def item_without(self, uid: str | int, skip: tuple = ("speech",)):
+        """Load all streams EXCEPT ``skip`` (the device-resident speech
+        path, data/resident.py: the waveform never touches the host
+        pipeline)."""
+        if isinstance(uid, int):
+            uid = self.keys[uid]
+        data = {name: loader[uid] for name, loader in self.loaders.items()
+                if name not in skip}
+        if self.preprocess is not None:
+            data = self.preprocess(uid, data)
+        return uid, data
+
+
+class IterableSpeechDataset:
+    """Order-following streaming dataset (espnet2/train/iterable_dataset.py
+    IterableESPnetDataset analogue): iterates manifests line-by-line in file
+    order without building an index, for inference / collect-stats over
+    corpora too large to enumerate up front."""
+
+    def __init__(self,
+                 path_name_type_list: Sequence[Tuple[str, str, str]],
+                 preprocess: Optional[Callable] = None):
+        self.specs = list(path_name_type_list)
+        self.preprocess = preprocess
+
+    def __iter__(self):
+        files = [open(path, encoding="utf-8") for path, _, _ in self.specs]
+        loaders = [build_loader(path, typ)
+                   for path, _, typ in self.specs]
+        try:
+            for lines in zip(*files):
+                uid = None
+                data = {}
+                for (path, name, typ), line, loader in zip(
+                        self.specs, lines, loaders):
+                    key = line.split(maxsplit=1)[0]
+                    if uid is None:
+                        uid = key
+                    elif key != uid:
+                        raise RuntimeError(
+                            f"stream order mismatch: {key} != {uid}")
+                    data[name] = loader[key]
+                if self.preprocess is not None:
+                    data = self.preprocess(uid, data)
+                yield uid, data
+        finally:
+            for f in files:
+                f.close()

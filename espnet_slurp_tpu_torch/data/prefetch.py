@@ -67,12 +67,17 @@ def to_device(batch, device):
     """A numpy batch {name: array} as tensors on ``device``: for a CUDA
     device each array is copied once into pinned host memory and sent with
     a ``non_blocking`` copy, so the transfer overlaps what the device is
-    running (the reference's pin_memory + non_blocking copy)."""
+    running (the reference's pin_memory + non_blocking copy). A value that
+    is already a tensor (a device-resident speech batch) is moved, or kept
+    where it is."""
     import torch
     device = torch.device(device)
     pin = device.type == "cuda"
     out = {}
     for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.to(device, non_blocking=True)
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         if pin:
             t = t.pin_memory()

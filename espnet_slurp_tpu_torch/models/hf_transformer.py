@@ -267,17 +267,28 @@ def load_bert_from_dir(model_dir, dtype: torch.dtype = torch.float32,
     return model, sd
 
 
-def load_gpt2_from_dir(model_dir, dtype: torch.dtype = torch.float32,
-                       device=None) -> Tuple[GPT2Model, Dict]:
-    """(GPT2Model on ``device``, its state_dict), as load_bert_from_dir."""
+def gpt2_config_from_dir(model_dir) -> GPT2Config:
+    """The GPT2Config of a HF model directory's config.json."""
     hf = json.loads((Path(model_dir) / "config.json").read_text())
-    cfg = GPT2Config(
+    return GPT2Config(
         vocab_size=hf["vocab_size"], n_embd=hf["n_embd"],
         n_layer=hf["n_layer"], n_head=hf["n_head"],
         n_positions=hf["n_positions"],
         layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5))
+
+
+def gpt2_state_dict_from_dir(model_dir, cfg: GPT2Config
+                             ) -> Dict[str, torch.Tensor]:
+    """GPT2Model's fp32 state_dict from a local HF model directory."""
     sd = gpt2_params_from_torch(_load_state_dict(model_dir), cfg)
-    sd = {k: v.float() for k, v in sd.items()}
+    return {k: v.float() for k, v in sd.items()}
+
+
+def load_gpt2_from_dir(model_dir, dtype: torch.dtype = torch.float32,
+                       device=None) -> Tuple[GPT2Model, Dict]:
+    """(GPT2Model on ``device``, its state_dict), as load_bert_from_dir."""
+    cfg = gpt2_config_from_dir(model_dir)
+    sd = gpt2_state_dict_from_dir(model_dir, cfg)
     model = GPT2Model(cfg, dtype=dtype, device=resolve_device(device))
     model.load_state_dict(sd)
     return model, sd

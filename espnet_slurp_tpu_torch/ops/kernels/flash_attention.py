@@ -11,7 +11,9 @@ register micro-tiles of exact fp32 FMAs) and the backward (dq_u / dq_v
 and dk / dv / dp kernels, dp summed over the batch). On CPU
 tensors it runs ``rel_flash_attention_plain``, the same function in plain
 PyTorch, whose gradients are PyTorch's autograd. A CUDA tensor the kernel
-does not take raises. ``rel_flash_attention_fwd_tiled_plain`` and
+does not take raises; a head width that is not a multiple of 16 runs
+zero-padded to the next width of a redesigned route (``kernel_head_width``,
+``pad_heads``: Dh 36 at 64). ``rel_flash_attention_fwd_tiled_plain`` and
 ``rel_flash_attention_bwd_plain`` are the forward and the backward at the
 kernels' rounding points.
 
@@ -247,6 +249,43 @@ def _launch_bwd(q_u, q_v, k, v, p, lengths, out, lse, g, scale, chunk_size,
     return (*grads, dp.to(p.dtype))
 
 
+# Head widths of the redesigned routes, by dtype: bf16 mma.sync at Dh 32 /
+# 64, fp32 register micro-tiles at Dh 32 / 64 / 128
+# (csrc/flash_attention.cu: rel_fwd / rel_dkv / rel_dq, rel_f32).
+PAD_WIDTHS = {torch.bfloat16: (32, 64), torch.float32: (32, 64, 128)}
+
+
+def kernel_head_width(dh: int, dtype: torch.dtype) -> int:
+    """The Dh the kernels run a head width ``dh`` at: ``dh`` itself when it
+    is a multiple of 16 (the WMMA routes take every such Dh); else the
+    next width of a redesigned route for ``dtype`` (the recipe's KA2G
+    encoder, 144 wide with 4 heads, has Dh 36 -> 64). Raises when no route
+    takes ``dh``."""
+    if dh % 16 == 0:
+        return dh
+    for w in PAD_WIDTHS.get(dtype, ()):
+        if dh < w:
+            return w
+    raise ValueError(f"rel_flash_attention kernel: no route takes Dh {dh} "
+                     f"in {dtype} (a multiple of 16, or up to "
+                     f"{max(PAD_WIDTHS.get(dtype, (0,)))} zero-padded)")
+
+
+def pad_heads(fn, q_u, q_v, k, v, p, width: int):
+    """``fn(q_u, q_v, k, v, p) -> (out, lse)`` at head width ``width``:
+    q_u, q_v, k, v and p zero-padded along Dh, out sliced back. The zero
+    columns add nothing to (q+u)·kᵀ or (q+v)·pᵀ (the caller passes the
+    scale of the true Dh) and make zero output columns, so out and lse are
+    those of the unpadded call; the pads' and the slice's backwards drop
+    the padded columns' gradients."""
+    dh = q_u.shape[-1]
+    if width == dh:
+        return fn(q_u, q_v, k, v, p)
+    pad = lambda x: torch.nn.functional.pad(x, (0, width - dh))
+    out, lse = fn(pad(q_u), pad(q_v), pad(k), pad(v), pad(p))
+    return out[..., :dh], lse
+
+
 class _RelFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_u, q_v, k, v, p, lengths, seed, scale, rate,
@@ -293,14 +332,17 @@ def rel_flash_attention_fwd(q_u, q_v, k, v, p, lengths, seed=None, *,
     if q_u.device.type != "cuda":
         raise ValueError(f"rel_flash_attention: unsupported device "
                          f"{q_u.device}")
-    dh = q_u.shape[-1]
-    if dh % 16:
-        raise ValueError(f"rel_flash_attention kernel: needs Dh % 16 == 0, "
-                         f"got {dh}")
-    for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
-        build.check_aligned(name, x)
-    return _RelFlash.apply(q_u, q_v, k, v, p, lengths, seed, float(scale),
-                           rate, int(chunk_size), int(left_chunks))
+    width = kernel_head_width(q_u.shape[-1], q_u.dtype)
+
+    def launch(q_u, q_v, k, v, p):
+        for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v),
+                        ("p", p)):
+            build.check_aligned(name, x)
+        return _RelFlash.apply(q_u, q_v, k, v, p, lengths, seed,
+                               float(scale), rate, int(chunk_size),
+                               int(left_chunks))
+
+    return pad_heads(launch, q_u, q_v, k, v, p, width)
 
 
 rel_flash_attention_fwd.launches = 0

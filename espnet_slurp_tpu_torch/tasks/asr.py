@@ -21,10 +21,12 @@ device before it decodes, as the reference's does. ``mbr.weight > 0`` adds
 the MBR / KB-MBR term to the step (train/mbr.py), and ``Speech2Text``
 decodes with TCPGen biasing over ``biasing_words`` (a ``use_tcpgen``
 model, beam search), with shallow fusion of a tasks/lm.py LM and an ARPA
-n-gram and with internal-LM subtraction. Config values that select paths
+n-gram and with internal-LM subtraction. ``data.resident_corpus`` keeps the
+train and valid waveforms in card memory (data/resident.py) and gathers
+each batch's speech there. Config values that select paths
 not ported yet raise, naming their queue item in ROADMAP.md: ``model_arch: maskctc``,
 ``pipeline_stages > 1``,
-``num_att_plot > 0``, ``data.resident_corpus``, ``data.multichannel``,
+``num_att_plot > 0``, ``data.multichannel``,
 ``data.feats_type`` ``fbank_pitch`` or ``ssl``, and the model values of
 models/asr_model.py:unported_options.
 
@@ -106,8 +108,8 @@ class DataConfig:
     batch_size_multiple: int = 1
     num_iters_per_epoch: Optional[int] = None
     seed: int = 0
-    # The reference's device-resident corpus (data/resident.py): not ported
-    # yet, raises when set.
+    # Keep the waveforms on the device (data/resident.py): batches gather
+    # their speech there; raw single-channel audio only.
     resident_corpus: bool = False
     resident_workers: int = 16
 
@@ -161,8 +163,6 @@ def refuse_unported(cfg: ASRTaskConfig) -> None:
     if cfg.num_att_plot > 0:
         todo.append("num_att_plot > 0 (train/attention_plot.py: queue 1 "
                     "item 17)")
-    if cfg.data.resident_corpus:
-        todo.append("data.resident_corpus (data/resident.py: queue 1 item 2)")
     if cfg.data.multichannel:
         todo.append("data.multichannel (the WPE / beamformer frontends: "
                     "queue 1 item 15)")
@@ -275,10 +275,14 @@ class ASRTask:
 
     @classmethod
     def build_iter_factory(cls, cfg: ASRTaskConfig, dataset: SpeechDataset,
-                           shuffle: bool = True):
+                           shuffle: bool = True, speech_materializer=None):
         """Epoch-seeded bucketed batch iterator factory (SURVEY.md §2.2):
         epoch -> iterator of numpy batches (``data/collate.py:asr_batch``),
-        the reference's batches for the same corpus and seed."""
+        the reference's batches for the same corpus and seed. With
+        ``speech_materializer(uids, t_pad) -> (speech, lengths)``
+        (data/resident.py:ResidentCorpus.materializer) only the token
+        streams are read on the host and the speech is gathered on the
+        device, padded to the same bucketed length."""
         data = cfg.data
         speech_shapes, text_shapes = cls.collect_shapes(dataset)
         # utt2category file next to the data keeps categories unmixed
@@ -301,8 +305,18 @@ class ASRTask:
                 k = data.num_iters_per_epoch
                 bs = bs[(epoch - 1) * k % max(len(bs), 1):][:k] or bs[:k]
             for batch_utts in bs:
-                items = [dataset[u] for u in batch_utts]
+                if speech_materializer is None:
+                    items = [dataset[u] for u in batch_utts]
+                else:
+                    items = [dataset.item_without(u, skip=("speech",))
+                             for u in batch_utts]
                 uids, coll = common_collate(items, bucket_multiples=buckets)
+                if speech_materializer is not None:
+                    t_pad = bucket_length(
+                        max(speech_shapes[u][0] for u in batch_utts),
+                        data.speech_bucket_multiple)
+                    coll["speech"], coll["speech_lengths"] = \
+                        speech_materializer(batch_utts, t_pad)
                 yield asr_batch(uids, coll)
 
         return factory
@@ -449,6 +463,10 @@ class ASRTask:
         a trie, as the reference's: wrap ``build_iter_factory`` with
         slu/kb.py:TCPGenBatchAugmenter.wrap (the reference's
         recipe/ablation_run.py does)."""
+        if cfg.data.resident_corpus and (cfg.data.multichannel
+                                         or cfg.data.feats_type != "raw"):
+            raise ValueError("resident_corpus supports single-process "
+                             "raw-audio runs")
         refuse_unported(cfg)
         dev = resolve_device(device)
         exp = Path(cfg.exp_dir)
@@ -471,8 +489,19 @@ class ASRTask:
                               text_cleaner=cfg.data.text_cleaner,
                               feats_type=cfg.data.feats_type)
             for d in (cfg.data.train_dir, cfg.data.valid_dir))
-        train_if = cls.build_iter_factory(cfg, train_ds, shuffle=True)
-        valid_if = cls.build_iter_factory(cfg, valid_ds, shuffle=False)
+        # Only a resident corpus passes the materializer, so a subclass
+        # that overrides build_iter_factory with the reference's
+        # (cfg, dataset, shuffle) signature keeps working.
+        resident = {}
+        if cfg.data.resident_corpus:
+            from ..data.resident import ResidentCorpus
+            resident["speech_materializer"] = ResidentCorpus.from_datadirs(
+                [cfg.data.train_dir, cfg.data.valid_dir],
+                workers=cfg.data.resident_workers, device=dev).materializer()
+        train_if = cls.build_iter_factory(cfg, train_ds, shuffle=True,
+                                          **resident)
+        valid_if = cls.build_iter_factory(cfg, valid_ds, shuffle=False,
+                                          **resident)
         mvn_stats = cls.load_mvn_stats(cfg, dev)
         ckpt = CheckpointManager(exp, cfg.keep_nbest)
         aux = None

@@ -30,17 +30,24 @@ The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here,
 at the top of an ASR tree and under ``asr`` in an SLU tree (slu/model.py
 holds its ASR model there). An SLU tree's BERT postdecoder
 (models/hf_transformer.py) and text encoder are Dense, LayerNorm and Embed
-leaves like any other.
+leaves like any other, and so are the KA2G trees (slu/generator.py's
+``SlotGenerator``, ``GPT2JointText``; slu/ka2g.py's ``KA2GModel``, whose
+``asr`` holds the CTC head too). A ``KA2GModel`` tree has no
+``asr/decoder`` subtree (its loss never calls the decoder, so flax makes
+none): ``ka2g_state_dict`` keeps the port's decoder at the model's own
+values and logs how many tensors it kept.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
-
+import logging
 import re
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+log = logging.getLogger("espnet_slurp_tpu_torch")
 
 # The CTC head's flax name -> the port's, at the top of a tree or under
 # the module that holds an ASR model (an SLU tree's ``asr``).
@@ -111,6 +118,28 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         out[".".join(path[:-1] + (leaf,))] = converted
     out.update(_lstm_leaves(cells))
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
+
+
+def ka2g_state_dict(params: Mapping, model: nn.Module
+                    ) -> Dict[str, torch.Tensor]:
+    """A reference ``KA2GModel`` tree -> the port's KA2GModel state_dict.
+    The tree's missing ``asr/decoder`` subtree keeps ``model``'s own values
+    (its initial ones), logged; any other key that the tree lacks or the
+    model does not have raises."""
+    sd = flax_to_torch(params)
+    own = model.state_dict()
+    kept = sorted(k for k in own if k not in sd
+                  and k.startswith("asr.decoder."))
+    missing = sorted(set(own) - set(sd) - set(kept))
+    unknown = sorted(set(sd) - set(own))
+    if missing or unknown:
+        raise ValueError(f"ka2g_state_dict: missing {missing[:5]}, unknown "
+                         f"{unknown[:5]}")
+    if kept:
+        log.info("ka2g_state_dict: the reference tree has no asr/decoder; "
+                 "%d decoder tensors keep the model's initial values",
+                 len(kept))
+    return {**{k: own[k] for k in kept}, **sd}
 
 
 def init_random_(model: nn.Module, seed: int) -> nn.Module:

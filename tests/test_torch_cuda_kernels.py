@@ -1000,7 +1000,10 @@ def test_ctc_lattice(gen, t, u_lens):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,d,v", [(1, 128, 77), (17, 256, 130),
-                                   (65, 128, 5000), (130, 256, 333)])
+                                   (65, 128, 5000), (130, 256, 333),
+                                   # the KA2G recipe's D: a 16-wide K tail
+                                   # past the bf16 gemms' BK 32
+                                   (37, 144, 301)])
 def test_fused_ctc_head(gen, dtype, t, d, v):
     from espnet_slurp_tpu_torch.ops.kernels import ctc_head as kh
     b, s = 3, 2 * 9 + 1
@@ -1216,7 +1219,9 @@ CTC_HEAD_BF16_FWD = ("ctc_head_bf16::lse_kernel",
     # and over two, V ragged against 128-column tiles (333 in 3 V splits),
     # and the flagship train shape (10 V splits on 132 SMs)
     (8, 17, 128, 77), (3, 100, 256, 130), (2, 129, 64, 333),
-    (64, 468, 256, 5000)])
+    (64, 468, 256, 5000),
+    # the KA2G recipe's D 144 (a K tail of 16 past BK 32) at its B 48
+    (48, 75, 144, 301)])
 def test_fused_ctc_head_bf16_forward(gen, b, t, d, v):
     """K4's bf16 forward (lse on the mma.sync mainloop, then the gather)
     against fused_ctc_head_emit_plain on the same bf16 operands, emit and

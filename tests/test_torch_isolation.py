@@ -112,7 +112,14 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     # torch scorers), the word-level fusions and the state tree helper.
     "models.lm", "tasks.lm", "bin.lm_train", "bin.lm_calc_perplexity",
     "decode.ngram", "decode.ngram_train", "bin.ngram_compile",
-    "decode.word_lm", "utils.tree"))
+    "decode.word_lm", "utils.tree",
+    # KA2G: the slot generator and the composite model, the device-resident
+    # corpus, chunked iteration, the generic task runner, the bridge and
+    # the two recipes (the corpora are copies of the reference's numpy
+    # code).
+    "slu.generator", "slu.ka2g", "data.resident", "data.chunk_iter",
+    "tasks.generic", "utils.params", "recipe.results_run",
+    "recipe.ka2g_run"))
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():
