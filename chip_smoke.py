@@ -385,6 +385,26 @@ or the port's package is not beside it. Phases, each of which fails the run:
    results.json and RESULTS_KA2G.md written, main's return code printed
    and not judged; (d) ASRTask with data.resident_corpus: an epoch's
    batches equal to the host pipeline's, then ASRTask.train one epoch.
+23. The remaining ASR decoders at conf/train_streaming.yaml's full width
+   (12 x 256, chunk 40 / left 1, global MVN over the phase's own streams,
+   bf16, random weights), on 4 synthetic 15 s streams fed 8192 samples a
+   call: (a) decode/incremental.py's frames against the full chunked
+   encode (bf16 2e-2, fp32 1e-4 of max |ref|), fp32 card vs CPU, an
+   incremental step's launches (K2 24, K3 12 by the wrappers' and host
+   counts), K3's window widths 40 / 80 / 120 and the ms a step; (b)
+   bin/asr_inference_streaming with and without --incremental (RTF, ms a
+   call: median, first, last; the fp32 modes' texts equal); (c)
+   transducer_flagship_config() chunked with fused_conv through
+   StreamingTransducerRecognizer on a stream's first 5 s (a re-encode's
+   K6 12 in its causal bf16 form; the fp32 ALSA final equal to the
+   non-streaming decode); (d) the
+   time-sync and lattice decodes (with LMConfig() and a trigram too) on 8
+   x 15 s at beam 10 (RTF), fp32 card vs CPU; (e) bin/asr_align card vs
+   CPU; (f) the flagship with model_arch: maskctc through bin/asr_train
+   (K1 1, K2 24, K3 12 each way a step, K4 0) and
+   bin/asr_inference_maskctc, its fp32 step card vs CPU; K3 at B 1, T 40
+   / 80 / 120 with chunk (40, 1) and K6's causal bf16 forward at B 1
+   against their plain versions.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -411,7 +431,11 @@ the K2 and K3 entries their launches in phase 21's LM-fused decode
 phase 22's KA2G model (``launches_per_ka2g_step``); then phase 22's K3
 entries at Dh 36 (``rel_flash_attention_dh36``,
 ``rel_flash_attention_bwd_dh36``), whose launches are those of phase 22
-(a)'s runs; the last line is ``{"ok": true, "device": {...}}``.
+(a)'s runs. Every counted entry also carries its launches an incremental
+step of phase 23 (a) (``launches_per_stream_step``), a re-encode of its
+streaming transducer (``launches_per_stream_transducer_encode``) and a
+MaskCTC step of (f) (``launches_per_maskctc_step``). The last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4035,10 +4059,11 @@ TR_SEARCHES = ("greedy", "alsa", "default", "maes", "tsd", "nsc")
 # ~T' log probabilities, from a joint whose products add in another order;
 # H100 runs read 1.7e-7 to 4.6e-7).
 EMIT_SHARE = 0.05
-# The default search compared on half the utterances: on all 8 its fp32
-# runs took 22.6 s on the card and 33.0 s on the CPU, 45% of phase 17, on
-# a whole run of 828.6 s beside an NVIDIA H100 80GB HBM3 (700 W).
-TR_DEFAULT_CMP_UTT = N_UTT // 2
+# The default search compared on a quarter of the utterances: on all 8 its
+# fp32 runs took 22.6 s on the card and 33.0 s on the CPU, 45% of phase
+# 17, on a whole run of 828.6 s beside an NVIDIA H100 80GB HBM3 (700 W);
+# on 4, 18.69 s and 26.29 s of a whole run of 801.2 s (phase 23 added).
+TR_DEFAULT_CMP_UTT = N_UTT // 4
 SCORE_RTOL = 1e-4
 
 
@@ -6791,6 +6816,667 @@ def ka2g_phases(torch, card, train_step_s):
     return step, entries
 
 
+# Phase 23: the remaining ASR decoders at conf/train_streaming.yaml's full
+# width (12 x 256, 4 heads, d_ff 1024, a 6-block decoder with d_ff 2048, V
+# 5000, chunk 40 / left 1, global MVN with stats of the phase's own corpus,
+# bf16), its weights random (ASRTask.init_params, seed 23): STREAM_N
+# streams of UTT_SECONDS s (cli_split's tones, word tokens over a 5000-entry
+# list) under STREAM_ROOT (the gitignored build/, removed at the end), fed
+# STREAM_CHUNK samples a call. (a) the incremental encoder, (b) the
+# streaming CLI both ways, (c) the streaming transducer
+# (transducer_flagship_config() chunked, fused_conv), (d) the time-sync and
+# lattice decodes on the serving traffic, (e) bin/asr_align, (f) MaskCTC at
+# the flagship's width through bin/asr_train and bin/asr_inference_maskctc.
+STREAM_YAML = "conf/train_streaming.yaml"
+STREAM_ROOT = "build/chip_smoke_stream"
+STREAM_N, STREAM_CHUNK = 4, 8192
+STREAM_MAX_LEN = 32  # the streaming decodes' last pass
+STREAM_TAIL = 512  # samples of silence ending each stream (> n_fft / 2)
+# (c): the streaming transducer's greedy partials sync once a frame and
+# re-decode the prefix each call (RTF 0.53 on a 15 s stream, an H100 run),
+# so it streams the first seconds of stream 0
+STREAM_TR_SECONDS = 5
+# The incremental step's window widths at chunk 40, left 1, kernel 31: the
+# valid cache (0, 40 or 80 frames: C = (1 + ceil(30 / 40)) x 40) + 40 new.
+STREAM_WIDTHS = {40, 80, 120}
+# (d): the CTC head's weights scaled by this in the fp32 card-vs-CPU
+# checks (d) and (e), so that a random model's posteriors are peaked and
+# no two competing paths lie within fp32 rounding of each other.
+SHARPEN = 8.0
+# (f): train and dev utterances of cli_split, batches of MASKCTC_B: two
+# steps an epoch, two epochs.
+MASKCTC_TRAIN, MASKCTC_DEV, MASKCTC_B, MASKCTC_EPOCHS = 16, 4, 8, 2
+
+
+def stream_config(dtype="bfloat16"):
+    """conf/train_streaming.yaml's model in ``dtype``."""
+    from espnet_slurp_tpu_torch.tasks.asr import load_task_config
+    return dataclasses.replace(load_task_config(STREAM_YAML).model,
+                               dtype=dtype)
+
+
+def stream_tokens():
+    """The 5000-entry word token list: cli_split's ten words first."""
+    from espnet_slurp_tpu_torch.data.mini_corpus import WORDS
+    fill = 5000 - 3 - len(WORDS)
+    return (["<blank>", "<unk>"] + list(WORDS)
+            + [f"w{i}" for i in range(fill)] + ["<sos/eos>"])
+
+
+def stream_setup(torch, root):
+    """The streams' data dir, their global MVN stats (count / sum /
+    sum_square of the fp32 log-mel frames, computed on the card), the
+    yaml's model state (random) and an experiment dir a dtype (config,
+    tokens, stats, checkpoint "init"). Returns (dev dir, waveforms, exp
+    dirs by dtype, the state, (mean, inv_std))."""
+    from espnet_slurp_tpu_torch.data.fileio import (load_wav,
+                                                    read_2column_text,
+                                                    write_wav)
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.ops.frontend import default_frontend
+    from espnet_slurp_tpu_torch.ops.normalize import global_mvn_params
+    from espnet_slurp_tpu_torch.tasks.asr import (ASRTask, ASRTaskConfig,
+                                                  DataConfig)
+    from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
+    from espnet_slurp_tpu_torch.utils.config import save_yaml
+
+    dev = cli_split(root / "dev", "dev", STREAM_N, np.random.RandomState(23))
+    wavs = []
+    for path in read_2column_text(dev / "wav.scp").values():
+        # digital silence at the end: the incremental encoder's end
+        # reflection and the re-encode's zero padding then see the same
+        # samples, and the two modes' final frames agree
+        wav = load_wav(path)[0]
+        wav[-STREAM_TAIL:] = 0.0
+        write_wav(path, wav, FS)
+        wavs.append(wav)
+    fc = stream_config().frontend
+    count, total, sq = 0, 0.0, 0.0
+    for wav in wavs:
+        x = torch.from_numpy(wav).cuda()[None]
+        feats, flens = default_frontend(x, torch.tensor([len(wav)],
+                                                        device="cuda"), fc)
+        f = feats[0, :int(flens[0])].double()
+        count, total = count + f.shape[0], total + f.sum(0)
+        sq = sq + (f * f).sum(0)
+    stats = {"count": np.asarray(count), "sum": total.cpu().numpy(),
+             "sum_square": sq.cpu().numpy()}
+    mvn = global_mvn_params(stats)
+    model = ASRModel(stream_config(), device="cuda")
+    state = {k: v.cpu() for k, v in ASRTask.init_params(model, 23)
+             .state_dict().items()}
+    del model
+    exps = {}
+    for dtype in ("bfloat16", "float32"):
+        exp = root / f"exp_{dtype}"
+        (exp / "init").mkdir(parents=True)
+        (exp / "stats").mkdir()
+        np.savez(exp / "stats" / "feats_stats.npz", **stats)
+        (exp / "tokens.txt").write_text("\n".join(stream_tokens()) + "\n")
+        save_yaml(ASRTaskConfig(exp_dir=str(exp), model=stream_config(dtype),
+                                data=DataConfig(token_type="word")),
+                  exp / "config.yaml")
+        torch.save({"params": state}, exp / "init" / CKPT_FILE)
+        exps[dtype] = exp
+    return dev, wavs, exps, state, mvn
+
+
+def stream_model(torch, state, dtype, device="cuda", sharpen=1.0):
+    """The yaml's ASRModel in ``dtype`` on ``device`` with ``state`` (its
+    CTC head's weights times ``sharpen``)."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    model = ASRModel(stream_config(dtype), device=device)
+    model.load_state_dict(state)
+    if sharpen != 1.0:
+        with torch.no_grad():
+            model.ctc_proj.weight.mul_(sharpen)
+    return model.eval()
+
+
+def incremental_frames(torch, model, wav, mvn, times=None):
+    """The incremental encoder's frames of one stream fed STREAM_CHUNK
+    samples a call, and the number of steps; ``times`` collects each
+    step's host ms (synchronised)."""
+    from espnet_slurp_tpu_torch.decode.incremental import (
+        IncrementalConformerEncoder)
+    inc = IncrementalConformerEncoder(model, mvn)
+    if times is not None:
+        step = inc._step
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        inc._step = timed
+    outs = [inc.feed(wav[off:off + STREAM_CHUNK],
+                     is_final=off + STREAM_CHUNK >= len(wav))
+            for off in range(0, len(wav), STREAM_CHUNK)]
+    return torch.cat(outs).float(), inc._mel_done // (4 * inc.s)
+
+
+def full_frames(torch, model, wav, mvn):
+    """The full chunked encode of one stream (B 1, no padding)."""
+    dev = model.device
+    mvn = tuple(torch.from_numpy(x).to(dev) for x in mvn)
+    with torch.inference_mode():
+        hs, hl = model.encode(torch.from_numpy(wav).to(dev)[None],
+                              torch.tensor([len(wav)], device=dev), mvn)
+    return hs[0, :int(hl[0])].float()
+
+
+@contextlib.contextmanager
+def k3_widths(seen):
+    """Records the T of every K3 call of the conformer's attention."""
+    from espnet_slurp_tpu_torch.models import attention
+    orig = attention.rel_flash_attention
+
+    def recording(q_u, *a, **kw):
+        seen.append(int(q_u.shape[2]))
+        return orig(q_u, *a, **kw)
+    attention.rel_flash_attention = recording
+    try:
+        yield seen
+    finally:
+        attention.rel_flash_attention = orig
+
+
+def stream_incremental_phase(torch, card, wavs, state, mvn):
+    """Phase 23 (a): every stream's incremental frames against its full
+    chunked encode on the card (bf16 within TOL of max |ref|, fp32 within
+    1e-4), the fp32 frames of stream 0 against the CPU's incremental
+    frames (1e-4); one bf16 stream's launches by the wrappers' and the host
+    counts (K2 24 and K3 12 a step, nothing else), K3's window widths
+    (STREAM_WIDTHS) and each step's host ms. Returns the launches a step."""
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    models = {dt: stream_model(torch, state, dt) for dt in ("bfloat16",
+                                                             "float32")}
+    for dt, model in models.items():
+        errs = []
+        for wav in wavs:
+            got, _ = incremental_frames(torch, model, wav, mvn)
+            want = full_frames(torch, model, wav, mvn)
+            if got.shape != want.shape:
+                raise AssertionError(f"phase 23 (a) {dt}: frames {got.shape}"
+                                     f" against {want.shape}")
+            errs.append(rel_err(got, want)[1])
+        print(f"phase 23 (a) {STREAM_YAML} {dt}: incremental frames against "
+              f"the full chunked encode, {STREAM_N} x {UTT_SECONDS} s fed "
+              f"{STREAM_CHUNK} samples a call: "
+              f"{[f'{e:.3e}' for e in errs]} of max|ref| (tolerance "
+              f"{TOL[dt]}) on {card}")
+        if max(errs) > TOL[dt]:
+            raise AssertionError(f"phase 23 (a) {dt} incremental frames")
+    cpu = stream_model(torch, state, "float32", "cpu")
+    card_f, _ = incremental_frames(torch, models["float32"], wavs[0], mvn)
+    cpu_f, _ = incremental_frames(torch, cpu, wavs[0], mvn)
+    err = rel_err(card_f.cpu(), cpu_f)[1]
+    print(f"phase 23 (a) fp32 incremental frames card vs CPU (stream 0): "
+          f"{err:.3e} of max|ref| (tolerance 1e-4)")
+    if err > 1e-4:
+        raise AssertionError("phase 23 (a) fp32 card vs CPU")
+    del cpu
+    times, seen = [], []
+    model = models["bfloat16"]
+    incremental_frames(torch, model, wavs[1], mvn)  # warm
+    zero_counts()
+    hosts0 = build.launch_counts()
+    with k3_widths(seen):
+        _, steps = incremental_frames(torch, model, wavs[1], mvn, times)
+    torch.cuda.synchronize()
+    total = read_counts()
+    hosts = build.launch_delta(hosts0, build.launch_counts())
+    per_step = {k: v // steps for k, v in total.items() if v}
+    k2 = sum(v for k, v in hosts.items() if k.startswith("ffn_fwd::fwd"))
+    k3 = sum(v for k, v in hosts.items() if k.startswith("rel_fwd::fwd"))
+    print(f"phase 23 (a) bf16 incremental step: {steps} steps a stream, "
+          f"launches {total} ({per_step} a step), host counts {hosts}; K3 "
+          f"window widths {sorted(set(seen))}; host ms a step median "
+          f"{np.median(times):.2f}, first {times[0]:.2f}, last "
+          f"{times[-1]:.2f} ({[round(x, 2) for x in times]}) on {card}")
+    want = {"fused_ffn": 24 * steps, "rel_flash_attention": 12 * steps}
+    if ({k: v for k, v in total.items() if v} != want or k2 != 24 * steps
+            or k3 != 12 * steps or set(seen) != STREAM_WIDTHS):
+        raise AssertionError(f"phase 23 (a): launches {total}, host K2 {k2} "
+                             f"K3 {k3}, widths {set(seen)}")
+    return per_step
+
+
+def chunk_figures(out):
+    """(RTF, and over the streams the medians of: the ms a call, the first
+    call's, the last partial call's, the slowest partial call's, the final
+    call's (the last pass included)) of a bin/asr_inference_streaming
+    output dir."""
+    score = dict(line.split() for line in
+                 (out / "score.txt").read_text().splitlines())
+    per = list(json.loads((out / "chunk_ms.json").read_text()).values())
+    med = lambda xs: float(np.median(xs))
+    return (float(score["RTF"]), med([x for ts in per for x in ts]),
+            med([ts[0] for ts in per]), med([ts[-2] for ts in per]),
+            med([max(ts[:-1]) for ts in per]), med([ts[-1] for ts in per]))
+
+
+def stream_cli_phase(torch, card, root, dev, exps):
+    """Phase 23 (b): bin/asr_inference_streaming with and without
+    --incremental over the streams in bf16, and over the first two in
+    fp32: each run's RTF, ms a call (chunk_figures) and launches; the fp32
+    runs' final texts equal."""
+    from espnet_slurp_tpu_torch.bin import asr_inference_streaming as cli
+    two = root / "dev2"
+    two.mkdir()
+    for name in ("wav.scp", "text"):
+        lines = (dev / name).read_text().splitlines()[:2]
+        (two / name).write_text("\n".join(lines) + "\n")
+    texts = {}
+    for dtype, exp in exps.items():
+        data = dev if dtype == "bfloat16" else two
+        for mode in ("re-encode", "incremental"):
+            out = root / f"dec_{dtype}_{mode}"
+            flags = ["--incremental"] if mode == "incremental" else []
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["--exp_dir", str(exp), "--ckpt", "init",
+                           "--data_dir", str(data), "--output_dir", str(out),
+                           "--sim_chunk_length", str(STREAM_CHUNK),
+                           "--max_len", str(STREAM_MAX_LEN), *flags])
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in read_counts().items() if v}
+            rtf, med, first, last, top, final = chunk_figures(out)
+            texts[dtype, mode] = (out / "text").read_text()
+            print(f"phase 23 (b) bin/asr_inference_streaming {dtype} {mode}: "
+                  f"RTF {rtf:.4f}; host ms a call: median {med:.2f}, a "
+                  f"stream's first {first:.2f}, its last partial {last:.2f}, "
+                  f"its slowest partial {top:.2f}, its final (the last pass "
+                  f"included) {final:.2f}; {wall:.1f} s; launches {launches} "
+                  f"on {card}")
+            if rc != 0 or not launches.get("rel_flash_attention"):
+                raise AssertionError(f"phase 23 (b) {dtype} {mode}")
+    same = texts["float32", "re-encode"] == texts["float32", "incremental"]
+    print(f"phase 23 (b) fp32 final texts of the two modes equal: {same}")
+    if not same:
+        raise AssertionError("phase 23 (b): fp32 texts differ by mode")
+
+
+def stream_transducer_phase(torch, card, wav):
+    """Phase 23 (c): transducer_flagship_config() chunked (40, left 1)
+    with fused_conv (random weights): one bf16 re-encode of a stream by
+    the wrappers' and the host counts (K6 12 in its causal bf16 form, K2
+    24, K3 12), the bf16 StreamingTransducerRecognizer (ALSA, beam 4) over
+    the stream with its RTF; then in fp32 its final result equal to the
+    non-streaming ALSA decode. Returns the re-encode's launches."""
+    from espnet_slurp_tpu_torch.decode.streaming import (
+        StreamingTransducerRecognizer)
+    from espnet_slurp_tpu_torch.decode.transducer_beam import run_search
+    from espnet_slurp_tpu_torch.models.transducer import (
+        TransducerModel, transducer_flagship_config)
+    from espnet_slurp_tpu_torch.ops.kernels import build
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, pad_speech_batch
+
+    base = transducer_flagship_config()
+    cfg = {dt: dataclasses.replace(base, asr=dataclasses.replace(
+        base.asr, chunk_size=40, left_chunks=1, fused_conv=True, dtype=dt))
+        for dt in ("bfloat16", "float32")}
+    model = ASRTask.init_params(TransducerModel(cfg["bfloat16"],
+                                                device="cuda"), 23).eval()
+    state = model.state_dict()
+    x = torch.from_numpy(wav).cuda()[None]
+    n = torch.tensor([len(wav)], device="cuda")
+    with torch.inference_mode():
+        model.encode(x, n)
+        torch.cuda.synchronize()
+        zero_counts()
+        hosts0 = build.launch_counts()
+        model.encode(x, n)
+        torch.cuda.synchronize()
+    enc = {k: v for k, v in read_counts().items() if v}
+    hosts = build.launch_delta(hosts0, build.launch_counts())
+    print(f"phase 23 (c) streaming transducer (12 x 256, chunk 40 / left 1, "
+          f"fused_conv, bf16): a re-encode's launches {enc}, host counts "
+          f"{hosts}")
+    want = {"fused_conv_module": 12, "fused_ffn": 24,
+            "rel_flash_attention": 12}
+    if (enc != want or hosts.get("conv_bf16::glu_kernel") != 12
+            or hosts.get("conv_bf16::out_kernel") != 12):
+        raise AssertionError(f"phase 23 (c): launches {enc}")
+    kw = dict(chunk_samples=STREAM_CHUNK, max_len=STREAM_MAX_LEN,
+              beam_size=4, search="alsa")
+    rec = StreamingTransducerRecognizer(model, **kw)
+    t0 = time.perf_counter()
+    for off in range(0, len(wav), STREAM_CHUNK):
+        ids, _ = rec(wav[off:off + STREAM_CHUNK],
+                     is_final=off + STREAM_CHUNK >= len(wav))
+    rtf = (time.perf_counter() - t0) / (len(wav) / FS)
+    m32 = TransducerModel(cfg["float32"], device="cuda").eval()
+    m32.load_state_dict(state)
+    rec = StreamingTransducerRecognizer(m32, **kw)
+    for off in range(0, len(wav), STREAM_CHUNK):
+        ids32, _ = rec(wav[off:off + STREAM_CHUNK],
+                       is_final=off + STREAM_CHUNK >= len(wav))
+    buf, lens = pad_speech_batch([wav])
+    with torch.inference_mode():
+        hs, hl = m32.encode(torch.from_numpy(buf).cuda(),
+                            torch.from_numpy(lens).cuda())
+        tok, ln = run_search(m32, hs, hl, "alsa", 4, STREAM_MAX_LEN)
+    want_ids = tok[0, :int(ln[0])].tolist()
+    print(f"phase 23 (c) bf16 streaming ALSA over {len(wav) / FS:.1f} s: RTF "
+          f"{rtf:.4f}, {len(ids)} tokens; fp32 streaming final {len(ids32)} "
+          f"tokens equal to the non-streaming decode: {ids32 == want_ids} "
+          f"on {card}")
+    if ids32 != want_ids:
+        raise AssertionError("phase 23 (c): fp32 streaming final differs")
+    return enc
+
+
+def stream_decode_phase(torch, card, root, wavs, state, mvn):
+    """Phase 23 (d): Speech2Text with ctc_timesync and with lattice (the
+    decoder at 0.3) on the serving traffic (N_UTT x UTT_SECONDS s: the
+    streams twice) at beam BEAM, and lattice_rescore_decode with
+    LMConfig() (random) at 0.3 and a trigram over the word list at 0.3:
+    each one's RTF. Then fp32 (the CTC head sharpened by SHARPEN) on 2
+    utterances from one card encode: the posteriors card vs CPU (1e-4 of
+    max |ref|), and, on the card's posteriors, the CPU's prefix beam and
+    lattice equal to the card's (tokens and lengths in every slot, scores
+    within 1e-4 relative)."""
+    from espnet_slurp_tpu_torch.data.tokenizer import build_tokenizer
+    from espnet_slurp_tpu_torch.decode import lattice as lat
+    from espnet_slurp_tpu_torch.decode import timesync as ts
+    from espnet_slurp_tpu_torch.decode.ngram import ArpaLM, make_ngram_fusion
+    from espnet_slurp_tpu_torch.decode.ngram_train import train_arpa
+    from espnet_slurp_tpu_torch.models.lm import LMConfig
+    from espnet_slurp_tpu_torch.tasks.asr import Speech2Text
+    from espnet_slurp_tpu_torch.tasks.lm import LMTask
+
+    tokens = stream_tokens()
+    speeches = (wavs * N_UTT)[:N_UTT]
+    audio_s = sum(len(w) for w in speeches) / FS
+    tok = build_tokenizer("word")
+    for label, kw in (("ctc_timesync", dict(ctc_timesync=True)),
+                      ("lattice", dict(lattice=True,
+                                       lattice_att_weight=0.3))):
+        s2t = Speech2Text(stream_config(), state, tokens, beam_size=BEAM,
+                          max_len=MAX_LEN, device="cuda", mvn_stats=mvn,
+                          tokenizer=tok, **kw)
+        s2t.decode_batch(speeches[:2])  # warm
+        zero_counts()
+        t0 = time.perf_counter()
+        texts = s2t.decode_batch(speeches)
+        secs = time.perf_counter() - t0
+        print(f"phase 23 (d) Speech2Text {label} {N_UTT} x {UTT_SECONDS} s at "
+              f"beam {BEAM}: RTF {secs / audio_s:.5f}, launches "
+              f"{ {k: v for k, v in read_counts().items() if v} }, words "
+              f"{[len(x.split()) for x in texts]} on {card}")
+    rng = np.random.RandomState(23)
+    sents = [list(rng.choice(tokens[2:200], rng.randint(3, 12)))
+             for _ in range(400)]
+    arpa = train_arpa(sents, root / "lm.arpa", order=3)
+    tok2id = {t: i for i, t in enumerate(tokens)}
+    tok2id.update({"<s>": 4999, "</s>": 4999})
+    ngram = make_ngram_fusion(ArpaLM(str(arpa), tok2id, 5000), 4999, "cuda")
+    lm = LMTask.init_model(LMConfig(vocab_size=5000), 23, "cuda").eval()
+    model = stream_model(torch, state, "bfloat16")
+    buf, lens = s2t.pad_batch(speeches)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        hs, hl = model.encode(torch.from_numpy(buf).cuda(),
+                              torch.from_numpy(lens).cuda(), s2t.mvn_stats)
+        out, out_len, det = lat.lattice_rescore_decode(
+            model, hs, hl, lat.LatticeConfig(
+                beam_size=BEAM, max_len=MAX_LEN, att_weight=0.3,
+                lm_weight=0.3, ngram_weight=0.3), lm_model=lm,
+            ngram_step_init=ngram)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase 23 (d) lattice with LMConfig() ({lm.cfg.num_blocks} x "
+          f"{lm.cfg.d_model}) and the trigram at 0.3 each: RTF "
+          f"{secs / audio_s:.5f}; components {sorted(det)}, lengths "
+          f"{out_len.tolist()} on {card}")
+    del lm, model
+    gpu = stream_model(torch, state, "float32", sharpen=SHARPEN)
+    cpu = stream_model(torch, state, "float32", "cpu", sharpen=SHARPEN)
+    b2, l2 = s2t.pad_batch(speeches[:2])
+    with torch.inference_mode():
+        hs, hl = gpu.encode(torch.from_numpy(b2).cuda(),
+                            torch.from_numpy(l2).cuda(), s2t.mvn_stats)
+        lp_card = gpu.ctc_logprobs(hs)
+        lp_cpu = cpu.ctc_logprobs(hs.cpu())
+    m = (torch.arange(hs.shape[1])[None, :] < hl.cpu()[:, None])[..., None]
+    lp_err = rel_err(torch.where(m, lp_card.cpu(), 0),
+                     torch.where(m, lp_cpu, 0))[1]
+    cpu.ctc_logprobs = lambda x: lp_card.cpu()
+    cfg = dict(beam_size=BEAM, max_len=MAX_LEN)
+    res = {}
+    for dev, mdl, h, l in (("cuda", gpu, hs, hl), ("cpu", cpu, hs.cpu(),
+                                                   hl.cpu())):
+        full = ts.ctc_prefix_beam_full(mdl, h, l, ts.TimeSyncConfig(**cfg))
+        _, _, det = lat.lattice_rescore_decode(
+            mdl, h, l, lat.LatticeConfig(att_weight=0.3, **cfg))
+        res[dev] = [x.cpu() for x in full] + [det["total"].cpu()]
+    same = all(torch.equal(res["cuda"][i], res["cpu"][i]) for i in (0, 1))
+    errs = [rel_err(res["cuda"][i], res["cpu"][i])[1] for i in (2, 3)]
+    print(f"phase 23 (d) fp32 (CTC head x{SHARPEN}) card vs CPU on 2 "
+          f"utterances: posteriors {lp_err:.3e} of max|ref| (tolerance "
+          f"1e-4); on the card's posteriors the prefix beam's tokens and "
+          f"lengths equal in all {BEAM} slots {same}, its scores "
+          f"{errs[0]:.3e} and the lattice's totals (decoder at 0.3) "
+          f"{errs[1]:.3e} relative (tolerance 1e-4); lengths "
+          f"{res['cuda'][1].tolist()}")
+    if not (lp_err <= 1e-4 and same and max(errs) <= 1e-4):
+        raise AssertionError("phase 23 (d) fp32 card vs CPU")
+
+
+def stream_align_phase(torch, card, root, dev, exp):
+    """Phase 23 (e): bin/asr_align on the streams (fp32, the CTC head
+    sharpened by SHARPEN) on the card and on the CPU: equal segments, one
+    line a transcript word."""
+    from espnet_slurp_tpu_torch.bin import asr_align
+    from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
+    ckpt = exp / "init" / CKPT_FILE
+    tree = torch.load(ckpt, weights_only=True)
+    sharp = dict(tree["params"])
+    sharp["ctc_proj.weight"] = sharp["ctc_proj.weight"] * SHARPEN
+    (exp / "sharp").mkdir()
+    torch.save({"params": sharp}, exp / "sharp" / CKPT_FILE)
+    segs, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rc = asr_align.main(["--exp_dir", str(exp), "--ckpt", "sharp",
+                             "--data_dir", str(dev), "--output_dir",
+                             str(root / f"ali_{device}"), "--device",
+                             device])
+        secs[device] = time.perf_counter() - t0
+        segs[device] = (root / f"ali_{device}" / "segments").read_text()
+        if rc != 0:
+            raise AssertionError(f"phase 23 (e) {device}")
+    words = sum(len(line.split()[1:]) for line in
+                (dev / "text").read_text().splitlines())
+    lines = segs["cuda"].splitlines()
+    print(f"phase 23 (e) bin/asr_align fp32 on {STREAM_N} x {UTT_SECONDS} s: "
+          f"card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s; {len(lines)} "
+          f"segments ({words} words); card equal to CPU "
+          f"{segs['cuda'] == segs['cpu']}; first {lines[:2]} on {card}")
+    if segs["cuda"] != segs["cpu"] or len(lines) != words:
+        raise AssertionError("phase 23 (e): segments differ")
+
+
+def maskctc_want(n_rows):
+    """A MaskCTC flagship step on n_rows rows, each way: phase 15's step
+    (cli_step_want: K2 24, K3 12, K1 1 by the wrappers' counts; their
+    dropout instances and K1's warp route by the host counts) without K4,
+    as the CTC loss reads the logits."""
+    wrappers, hosts = cli_step_want(n_rows, 12)
+    wrappers = {k: 0 if k.startswith("fused_ctc_head") else v
+                for k, v in wrappers.items()}
+    return wrappers, {k: v for k, v in hosts.items()
+                      if k not in K4_BF16_LAUNCHES}
+
+
+def maskctc_phase(torch, card, root):
+    """Phase 23 (f): the flagship with model_arch: maskctc (dropout
+    DROPOUT, SpecAug on, char tokens) MASKCTC_EPOCHS epochs through
+    bin/asr_train on cli_split's MASKCTC_TRAIN + MASKCTC_DEV utterances
+    (batches of MASKCTC_B), every step's launches by the wrappers' and the
+    host counts (maskctc_want), finite losses; bin/asr_inference_maskctc
+    on the dev set (its RTF); and a fp32 step card vs CPU at a fixed mask
+    (loss and gradients, compare_cpu_card). Returns the launches a
+    step."""
+    import yaml
+    from espnet_slurp_tpu_torch.bin import asr_inference_maskctc, asr_train
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.models.maskctc import MaskCTCModel
+    from espnet_slurp_tpu_torch.tasks import asr as task
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+    from espnet_slurp_tpu_torch.utils.config import to_dict
+
+    rng = np.random.RandomState(17)
+    train = cli_split(root / "mtrain", "train", MASKCTC_TRAIN, rng)
+    dev = cli_split(root / "mdev", "dev", MASKCTC_DEV, rng)
+    model = to_dict(dataclasses.replace(flagship_config(),
+                                        dropout_rate=DROPOUT))
+    del model["vocab_size"]
+    exp = root / "exp_maskctc"
+    cfg = {"exp_dir": str(exp), "model_arch": "maskctc",
+           "max_epoch": MASKCTC_EPOCHS, "model": model,
+           "optim": {"name": "adam", "lr": 1e-3, "scheduler": "constant"},
+           "data": {"train_dir": str(train), "valid_dir": str(dev),
+                    "token_type": "char", "batch_type": "sorted",
+                    "batch_size": MASKCTC_B}}
+    (root / "maskctc.yaml").write_text(yaml.safe_dump(cfg))
+    per_step, clock = [], []
+    orig = step_recorder(torch, per_step, clock, task=task)
+    t0 = time.perf_counter()
+    try:
+        rc = asr_train.main(["--config", str(root / "maskctc.yaml")])
+    finally:
+        task.make_train_step = orig
+    secs = time.perf_counter() - t0
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    bad = [i for i, (w, h, rows) in enumerate(per_step)
+           if (w, h) != maskctc_want(rows)]
+    losses = [e[ph][k] for e in hist for ph in ("train", "valid")
+              for k in ("loss", "loss_ctc", "loss_mlm")]
+    steps = MASKCTC_EPOCHS * (MASKCTC_TRAIN // MASKCTC_B)
+    print(f"phase 23 (f) MaskCTC (flagship 12 x 256, bf16, dropout {DROPOUT})"
+          f" through bin/asr_train: {len(per_step)} steps in {secs:.1f} s "
+          f"with the valid passes; a step's launches {per_step[0][0]}, host "
+          f"counts {per_step[0][1]}; losses by epoch "
+          f"{[{k: round(v, 4) for k, v in e['train'].items()
+               if k.startswith(('loss', 'acc'))} for e in hist]}"
+          f" on {card}")
+    if rc != 0 or len(per_step) != steps or bad or not np.isfinite(
+            losses).all():
+        raise AssertionError(f"phase 23 (f): steps {len(per_step)}, off-want "
+                             f"steps {bad}, losses {losses}")
+    out = root / "dec_maskctc"
+    zero_counts()
+    asr_inference_maskctc.main(["--exp_dir", str(exp), "--data_dir",
+                                str(dev), "--output_dir", str(out),
+                                "--max_len", str(MAX_LEN)])
+    score = dict(line.split() for line in
+                 (out / "score.txt").read_text().splitlines())
+    print(f"phase 23 (f) bin/asr_inference_maskctc on {MASKCTC_DEV} x "
+          f"{UTT_SECONDS} s: {score}; launches "
+          f"{ {k: v for k, v in read_counts().items() if v} } on {card}")
+    # fp32 step card vs CPU at a fixed mask of short_batch's targets
+    vocab = len((exp / "tokens.txt").read_text().split())
+    f32 = dataclasses.replace(flagship_config(), vocab_size=vocab,
+                              dropout_rate=DROPOUT, dtype="float32",
+                              specaug=None)
+    speech, lens, text, tlens = short_batch(vocab)
+    mask = (np.random.RandomState(5).rand(*text.shape) < 0.3) & (
+        np.arange(text.shape[1])[None, :] < tlens[:, None])
+
+    class Masked(MaskCTCModel):
+        def forward(self, *a, **kw):
+            return super().forward(*a, mask=torch.from_numpy(mask), **kw)
+
+    state = ASRTask.init_params(MaskCTCModel(f32, device="cpu"), 5)\
+        .state_dict()
+    compare_cpu_card(torch, f"phase 23 (f) fp32 MaskCTC step "
+                     f"({int(mask.sum())} of {int(tlens.sum())} targets "
+                     f"masked, dropout {DROPOUT})", Masked, f32, state,
+                     speech, lens, text, tlens)
+    return per_step[0][0]
+
+
+def stream_kernel_checks(torch, card):
+    """K3's forward at the incremental step's shapes (B 1, H 4, Dh 64, T
+    40 / 80 / 120, chunk (40, 1), the last chunk partial: lengths 3T / 4)
+    and K6's causal bf16 forward at B 1 (a stream's T' 468, D 256, k 31),
+    each against its plain version (bf16 TOL, fp32 1e-4 for K3)."""
+    from espnet_slurp_tpu_torch.ops.kernels import conv_module as kc
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    h, dh = 4, 64
+    for t in sorted(STREAM_WIDTHS):
+        n = t - t // 4  # the last chunk partial
+        lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
+        base = [r(1, h, t, dh) * 0.5 for _ in range(4)]
+        p = r(h, 2 * t, dh) * 0.5
+        p[:, -1] = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            args = [x.to(dt) for x in base] + [p.to(dt), lengths]
+            kw = dict(scale=dh ** -0.5, chunk_size=40, left_chunks=1)
+            out, _ = fa.rel_flash_attention_fwd(*args, **kw)
+            ref, _ = fa.rel_flash_attention_plain(*args, **kw)
+            rel = rel_err(out[:, :, :n], ref[:, :, :n])[1]
+            print(f"phase 23 K3 {name} B=1 H={h} T={t} Dh={dh} chunk (40, 1) "
+                  f"lengths {n}: {rel:.3e} of max|ref| (tolerance "
+                  f"{TOL[name]})")
+            if rel > TOL[name]:
+                raise AssertionError(f"phase 23 K3 {name} T {t}")
+    t, d, k = 468, 256, 31
+    params = (r(2 * d, d) * d ** -0.5, r(2 * d) * 0.1, r(d, k) * k ** -0.5,
+              r(d) * 0.1, 1.0 + 0.1 * r(d), r(d) * 0.1, r(d, d) * d ** -0.5,
+              r(d) * 0.1)
+    args = k6_args(r(1, t, d), torch.tensor([t], dtype=torch.int32,
+                                            device="cuda"), params,
+                   torch.bfloat16)
+    out = kc.fused_conv_module(*args, kernel_size=k, causal=True)
+    ref = kc.fused_conv_module_plain(*args, kernel_size=k, causal=True)
+    rel = rel_err(out, ref)[1]
+    print(f"phase 23 K6 causal bf16 forward B=1 T={t} D={d} k={k}: "
+          f"{rel:.3e} of max|ref| (tolerance {TOL['bfloat16']}) on {card}")
+    if rel > TOL["bfloat16"]:
+        raise AssertionError("phase 23 K6 causal bf16 at B 1")
+
+
+def stream_phases(torch, card):
+    """Phase 23 (a)-(f) and the kernel checks under STREAM_ROOT, removed at
+    the end. Returns (the incremental step's launches, the streaming
+    transducer re-encode's, the MaskCTC step's)."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(STREAM_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dev, wavs, exps, state, mvn = stream_setup(torch, root)
+    laps = {"setup": time.perf_counter() - t0}
+
+    def lap(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        laps[name] = time.perf_counter() - t
+        return out
+
+    step = lap("(a)", stream_incremental_phase, torch, card, wavs, state, mvn)
+    lap("(b)", stream_cli_phase, torch, card, root, dev, exps)
+    tr = lap("(c)", stream_transducer_phase, torch, card,
+             wavs[0][:STREAM_TR_SECONDS * FS])
+    lap("(d)", stream_decode_phase, torch, card, root, wavs, state, mvn)
+    lap("(e)", stream_align_phase, torch, card, root, dev, exps["float32"])
+    masked = lap("(f)", maskctc_phase, torch, card, root)
+    lap("kernels", stream_kernel_checks, torch, card)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s "
+          f"({ {k: round(v, 1) for k, v in laps.items()} })")
+    return step, tr, masked
+
+
 def main() -> int:
     import torch
 
@@ -6941,6 +7627,7 @@ def main() -> int:
     slu_step = slu_phases(torch, card, train_step_s)
     lm_decode = lm_phases(torch, card)
     ka2g_step, ka2g_entries = ka2g_phases(torch, card, train_step_s)
+    stream_step, stream_tr, maskctc_step = stream_phases(torch, card)
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):
@@ -6964,6 +7651,10 @@ def main() -> int:
             kern["launches_per_lm_decode"] = lm_decode[base]
         if base in COUNTED:
             kern["launches_per_ka2g_step"] = ka2g_step.get(base, 0)
+            kern["launches_per_stream_step"] = stream_step.get(base, 0)
+            kern["launches_per_stream_transducer_encode"] = stream_tr.get(
+                base, 0)
+            kern["launches_per_maskctc_step"] = maskctc_step.get(base, 0)
     kernels += ka2g_entries
     print(f"chip_smoke.py: the whole run {time.perf_counter() - t_start:.1f} "
           f"s (the kernel build included) on {card}")

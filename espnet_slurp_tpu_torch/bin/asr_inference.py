@@ -8,8 +8,11 @@ data dir, writing exp/.../text) + asr.sh stage 12-13 scoring. Writes
 names another device; with no card and no ``--device cpu`` it raises.
 ``--lm_exp_dir`` / ``--lm_weight`` (a bin/lm_train experiment) and
 ``--ngram_file`` / ``--ngram_weight`` (an ARPA file or its
-bin/ngram_compile cache) fuse into the beam search. The time-synchronous
-and the lattice decodes are not ported yet: their options raise when set.
+bin/ngram_compile cache) fuse into the beam search. ``--ctc_timesync``
+decodes by the frame-synchronous CTC prefix beam (no LM: a positive
+``--lm_weight`` or ``--ngram_weight`` raises with it) and ``--lattice`` by
+the CTC n-best lattice, rescored by the decoder at
+``--lattice_att_weight`` and by the LM and n-gram at their weights.
 """
 from __future__ import annotations
 
@@ -41,11 +44,10 @@ def get_parser():
                         "fusion")
     p.add_argument("--ngram_weight", type=float, default=0.0)
     p.add_argument("--ctc_timesync", action="store_true",
-                   help="frame-synchronous CTC prefix beam search (not "
-                        "ported yet: raises)")
+                   help="frame-synchronous CTC prefix beam search")
     p.add_argument("--lattice", action="store_true",
-                   help="CTC n-best lattice decode + LM rescoring (not "
-                        "ported yet: raises)")
+                   help="CTC n-best lattice decode + LM rescoring "
+                        "(asr_inference_k2.py analogue)")
     p.add_argument("--lattice_att_weight", type=float, default=0.3)
     p.add_argument("--device", default="cuda",
                    help="device to decode on (default cuda; cpu to run "
@@ -56,11 +58,6 @@ def get_parser():
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = get_parser().parse_args(argv)
-    unported = [opt for opt, on in (
-        ("--ctc_timesync (ROADMAP.md queue 1 item 15)", args.ctc_timesync),
-        ("--lattice (queue 1 item 15)", args.lattice)) if on]
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
     from ..data.fileio import DatadirWriter, load_wav, read_2column_text
     from ..tasks.asr import Speech2Text
     from ..utils.device import cli_device
@@ -71,7 +68,8 @@ def main(argv=None):
         beam_size=args.beam_size, ctc_weight=args.ctc_weight,
         device=cli_device(args.device), lm_exp_dir=args.lm_exp_dir,
         lm_weight=args.lm_weight, ngram_file=args.ngram_file,
-        ngram_weight=args.ngram_weight)
+        ngram_weight=args.ngram_weight, ctc_timesync=args.ctc_timesync,
+        lattice=args.lattice, lattice_att_weight=args.lattice_att_weight)
     hyps = {}
     audio_sec = 0.0
     decode_sec = 0.0

@@ -9,9 +9,13 @@ Port of espnet_slurp_tpu/bin/asr_transducer_inference.py.
 whenever ``--beam_size`` is 1). Writes ``<output_dir>/text`` and, when the
 data dir has references, ``score.txt`` (WER, CER, RTF). Decodes
 ``--batch_size`` utterances a call (1, as the reference decodes them, by
-default), length-sorted. Decodes on the card unless ``--device`` names
-another device; with no card and no ``--device cpu`` it raises.
-``--streaming`` is not ported yet and raises.
+default), length-sorted. ``--streaming`` feeds each utterance
+``--sim_chunk_length`` (``--chunk_samples``) samples a call to
+decode/streaming.py:StreamingTransducerRecognizer (a model trained with
+``asr.chunk_size > 0``: the buffered audio re-encoded each chunk, greedy
+partials, the final pass by ``--search``). Decodes on the card unless
+``--device`` names another device; with no card and no ``--device cpu``
+it raises.
 """
 from __future__ import annotations
 
@@ -36,8 +40,10 @@ def get_parser():
     p.add_argument("--batch_size", type=int, default=1,
                    help="utterances per batched decode call")
     p.add_argument("--streaming", action="store_true",
-                   help="chunked incremental decode (not ported yet: "
-                        "raises)")
+                   help="chunked incremental decode (requires a model "
+                        "trained with asr.chunk_size > 0)")
+    p.add_argument("--sim_chunk_length", "--chunk_samples", type=int,
+                   default=8192, help="samples fed per streaming call")
     p.add_argument("--device", default="cuda",
                    help="device to decode on (default cuda; cpu to run "
                         "without a card)")
@@ -47,10 +53,6 @@ def get_parser():
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = get_parser().parse_args(argv)
-    if args.streaming:
-        raise NotImplementedError(
-            "not ported yet: --streaming (decode/streaming.py: ROADMAP.md "
-            "queue 1 item 15)")
     from ..data.fileio import DatadirWriter, load_wav, read_2column_text
     from ..tasks.asr_transducer import Speech2TextTransducer
     from ..utils.device import cli_device
@@ -63,13 +65,22 @@ def main(argv=None):
     wavs = read_2column_text(Path(args.data_dir) / "wav.scp")
     loaded = sorted(((uid, *load_wav(path)) for uid, path in wavs.items()),
                     key=lambda x: len(x[1]))
+    decode = s2t.decode_batch
+    if args.streaming:
+        from ..decode.streaming import StreamingTransducerRecognizer
+        rec = StreamingTransducerRecognizer(
+            s2t.model, tokenizer=s2t.tokenizer, converter=s2t.converter,
+            chunk_samples=args.sim_chunk_length, max_len=args.max_len,
+            beam_size=args.beam_size, search=args.search)
+        decode = lambda wavs_: [_stream(rec, wav, args.sim_chunk_length)
+                                for wav in wavs_]
     hyps, audio_sec, decode_sec = {}, 0.0, 0.0
     with DatadirWriter(args.output_dir) as w:
         for i in range(0, len(loaded), args.batch_size):
             chunk = loaded[i:i + args.batch_size]
             t0 = time.perf_counter()
-            # decode_batch returns host strings: the device has finished.
-            texts = s2t.decode_batch([wav for _, wav, _ in chunk])
+            # the texts are host strings: the device has finished.
+            texts = decode([wav for _, wav, _ in chunk])
             decode_sec += time.perf_counter() - t0
             for (uid, wav, sr), text in zip(chunk, texts):
                 hyps[uid] = text
@@ -87,6 +98,15 @@ def main(argv=None):
         with open(Path(args.output_dir) / "score.txt", "w") as f:
             f.write(f"WER {wer:.4f}\nCER {cer:.4f}\nRTF {rtf:.4f}\n")
     return 0
+
+
+def _stream(rec, wav, n: int) -> str:
+    """One utterance through the streaming recognizer, n samples a call."""
+    rec.reset()
+    ids = []
+    for off in range(0, max(len(wav), 1), n):
+        ids, _ = rec(wav[off:off + n], is_final=off + n >= len(wav))
+    return rec.text(ids)
 
 
 if __name__ == "__main__":

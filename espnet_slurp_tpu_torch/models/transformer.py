@@ -130,14 +130,16 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, ys, ys_lengths, memory, memory_lengths,
                 memory_mask: Optional[torch.Tensor] = None,
-                return_hidden: bool = False):
-        """Scoring forward: [B, L] ids -> [B, L, V] logits (causal); with
+                return_hidden: bool = False, causal: bool = True):
+        """Scoring forward: [B, L] ids -> [B, L, V] logits; with
         ``return_hidden`` also the pre-output hidden [B, L, D] (TCPGen's
-        query)."""
+        query). ``causal=False`` lets every position see the whole
+        sequence (MaskCTC's bidirectional MLM decoder)."""
         l = ys.shape[1]
         x = abs_positional_encoding(self.embed(ys).to(self.dtype), scale=True)
-        self_mask = length_mask(ys_lengths, l)[:, None, None, :] \
-            & causal_mask(l, ys.device)[None, None]
+        self_mask = length_mask(ys_lengths, l)[:, None, None, :]
+        if causal:
+            self_mask = self_mask & causal_mask(l, ys.device)[None, None]
         self_bias = attention_bias(self_mask)
         if memory_mask is None:
             memory_mask = length_mask(memory_lengths, memory.shape[1])

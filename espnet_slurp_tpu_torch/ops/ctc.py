@@ -7,7 +7,8 @@ a per-frame logsumexp, and its backward recomputes the softmax from the
 saved logits, so no fp32 [B, T, V] log-probs are kept for the backward.
 zero_infinity: rows with U > T, or whose likelihood saturated at NEG
 (T < U + adjacent repeats), give loss 0 and gradient 0
-(espnet_slurp_tpu/ops/ctc.py:151-156).
+(espnet_slurp_tpu/ops/ctc.py:151-156). ``collapse_repeats`` is the
+reference's host-side best-path collapse.
 """
 from __future__ import annotations
 
@@ -64,3 +65,16 @@ def ctc_loss_mean_logits(logits, logit_lengths, labels, label_lengths,
     per = ctc_loss_logits(logits, logit_lengths, labels, label_lengths,
                           blank_id)
     return per.sum() / per.shape[0]
+
+
+def collapse_repeats(ids, blank_id: int = 0):
+    """Host-side best-path collapse of a frame-id sequence: repeats merged,
+    blanks dropped."""
+    out = []
+    prev = None
+    for i in ids:
+        i = int(i)
+        if i != blank_id and i != prev:
+            out.append(i)
+        prev = i
+    return out

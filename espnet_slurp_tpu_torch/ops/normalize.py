@@ -23,6 +23,15 @@ def global_mvn_params(stats: dict | str, eps: float = 1.0e-20
     return mean.astype(np.float32), (1.0 / std).astype(np.float32)
 
 
+def mvn_tensors(mvn_stats, device):
+    """(mean, inv_std) given as arrays or tensors -> fp32 tensors on
+    ``device``; None stays None."""
+    if mvn_stats is None:
+        return None
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=device)
+                 for x in mvn_stats)
+
+
 def global_mvn(x: torch.Tensor, lengths: torch.Tensor, mean: torch.Tensor,
                inv_std: torch.Tensor, norm_means: bool = True,
                norm_vars: bool = True) -> torch.Tensor:

@@ -384,10 +384,7 @@ def main(argv=None):
             return
         exp, model = train_arm("tcpgen" if use_tcpgen else "nokb",
                                use_tcpgen)
-        mgr = CheckpointManager(exp, 3)
-        cands = sorted(exp.glob("valid.*best"))
-        name = cands[0].name if cands else f"{mgr.latest_epoch()}epoch"
-        model.load_state_dict(mgr.load_params(name))
+        model.load_state_dict(CheckpointManager(exp, 3).load_params())
         results[tag] = evaluate(model, use_forest)
         results_json.write_text(json.dumps(results, indent=1))
         log.info("%s: %s", tag, results[tag])

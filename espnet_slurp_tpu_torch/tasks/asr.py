@@ -23,8 +23,11 @@ decodes with TCPGen biasing over ``biasing_words`` (a ``use_tcpgen``
 model, beam search), with shallow fusion of a tasks/lm.py LM and an ARPA
 n-gram and with internal-LM subtraction. ``data.resident_corpus`` keeps the
 train and valid waveforms in card memory (data/resident.py) and gathers
-each batch's speech there. Config values that select paths
-not ported yet raise, naming their queue item in ROADMAP.md: ``model_arch: maskctc``,
+each batch's speech there. ``model_arch: maskctc`` trains
+models/maskctc.py:MaskCTCModel (its target masks drawn from the train
+step's generator; no MBR term, as the reference's) and
+``Speech2TextMaskCTC`` decodes it. Config values that select paths
+not ported yet raise, naming their queue item in ROADMAP.md:
 ``pipeline_stages > 1``,
 ``num_att_plot > 0``, ``data.multichannel``,
 ``data.feats_type`` ``fbank_pitch`` or ``ssl``, and the model values of
@@ -56,12 +59,16 @@ from ..data.tokenizer import (BpeTokenizer, TokenIDConverter,
                               build_token_list, build_tokenizer)
 from ..decode.beam import BeamSearchConfig, batch_beam_search
 from ..decode.greedy import attention_greedy_decode
+from ..decode.lattice import LatticeConfig, lattice_rescore_decode
 from ..decode.ngram import ArpaLM, make_ngram_fusion
+from ..decode.timesync import TimeSyncConfig, ctc_timesync_beam_search
 from ..models.asr_model import ASRConfig, ASRModel, unported_options
+from ..models.maskctc import MaskCTCModel
 from ..models.moe import MoEFeedForward
 from ..models.tcpgen import GATTreeEncoder, TCPGen
 from ..models.transducer import LSTMLayer
 from ..ops.frontend import default_frontend
+from ..ops.normalize import mvn_tensors
 from ..slu.kb import boundary_token_ids, build_trie
 from ..train.checkpoint import CKPT_FILE, CheckpointManager
 from ..train.mbr import MBRConfig, make_mbr_aux_loss
@@ -117,7 +124,7 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class ASRTaskConfig:
     exp_dir: str = "exp/asr"
-    # "asr" (hybrid CTC/attention) | "maskctc" (not ported yet)
+    # "asr" (hybrid CTC/attention) | "maskctc" (mask-predict)
     model_arch: str = "asr"
     model: ASRConfig = ASRConfig()
     optim: OptimConfig = OptimConfig()
@@ -154,9 +161,6 @@ def load_task_config(path: str | None = None, overrides: Dict | None = None
 def refuse_unported(cfg: ASRTaskConfig) -> None:
     """Raises for a config value that selects a path not ported yet."""
     todo = []
-    if cfg.model_arch != "asr":
-        todo.append(f"model_arch {cfg.model_arch!r} (MaskCTC: ROADMAP.md "
-                    "queue 1 item 15)")
     if cfg.pipeline_stages > 1:
         todo.append("pipeline_stages > 1 (pipeline parallelism: queue 1 "
                     "item 17)")
@@ -325,11 +329,12 @@ class ASRTask:
 
     @staticmethod
     def build_model(model_cfg: ASRConfig, arch: str = "asr",
-                    device=None) -> ASRModel:
+                    device=None) -> nn.Module:
+        """ASRModel, or with ``arch`` "maskctc" MaskCTCModel."""
+        if arch == "maskctc":
+            return MaskCTCModel(model_cfg, device=device)
         if arch != "asr":
-            raise NotImplementedError(
-                f"model_arch {arch!r} is not ported yet (ROADMAP.md queue 1 "
-                "item 15)")
+            raise ValueError(f"model_arch {arch!r}: asr or maskctc")
         return ASRModel(model_cfg, device=device)
 
     @staticmethod
@@ -505,7 +510,7 @@ class ASRTask:
         mvn_stats = cls.load_mvn_stats(cfg, dev)
         ckpt = CheckpointManager(exp, cfg.keep_nbest)
         aux = None
-        if cfg.mbr.weight > 0:
+        if cfg.mbr.weight > 0 and cfg.model_arch == "asr":
             aux = make_mbr_aux_loss(
                 model, cfg.mbr, mvn_stats=mvn_stats,
                 kb_token_mask=cls._kb_token_mask(cfg, model_cfg.vocab_size))
@@ -560,6 +565,16 @@ class Speech2Text:
     ``tcpgen_force_p_gen``; greedy decoding ignores it, as the
     reference's.
 
+    ``ctc_timesync`` decodes by the frame-synchronous CTC prefix beam
+    (decode/timesync.py) and ``lattice`` by the CTC n-best lattice with
+    rescoring (decode/lattice.py: the decoder at ``lattice_att_weight``,
+    the LM and the n-gram at their current weights, read at every decode:
+    the reference reads them once, queue 3). The time-synchronous decode
+    fuses no LM, as the reference's, so a positive LM, n-gram or ILM weight
+    raises with it rather than being dropped; either decode refuses
+    ``biasing_words`` and ILM, which neither reference path reads, and the
+    two refuse each other.
+
     Shallow fusion (the beam search only, reference tasks/asr.py:654-845):
     ``lm_exp_dir`` (a tasks/lm.py experiment, fused at ``lm_weight`` when
     it is > 0; its token list must be the ASR model's) and ``ngram_file``
@@ -583,7 +598,8 @@ class Speech2Text:
                  lm_exp_dir: Optional[str] = None, lm_weight: float = 0.0,
                  ngram_file: Optional[str] = None,
                  ngram_weight: float = 0.0, ilm_weight: float = 0.0,
-                 sweep_fusion: bool = False):
+                 sweep_fusion: bool = False, ctc_timesync: bool = False,
+                 lattice: bool = False, lattice_att_weight: float = 0.3):
         self.model = ASRModel(cfg, device=device)
         self.model.load_state_dict(state_dict)
         self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
@@ -592,9 +608,7 @@ class Speech2Text:
         self.beam_size = beam_size
         self.ctc_weight = ctc_weight
         self.speech_bucket_multiple = speech_bucket_multiple
-        self.mvn_stats = None if mvn_stats is None else tuple(
-            torch.as_tensor(x, dtype=torch.float32, device=self.model.device)
-            for x in mvn_stats)
+        self.mvn_stats = mvn_tensors(mvn_stats, self.model.device)
         self.task_cfg: Optional[ASRTaskConfig] = None
         self.biasing = None
         if biasing_words:
@@ -603,8 +617,12 @@ class Speech2Text:
         self.lm_weight, self.ngram_weight = lm_weight, ngram_weight
         self.ilm_weight = ilm_weight
         self._ilm_settable = sweep_fusion or ilm_weight > 0.0
-        # (name of the weight attribute, lm_step, lm_init) per scorer
+        self.ctc_timesync, self.lattice = ctc_timesync, lattice
+        self.lattice_att_weight = lattice_att_weight
+        # (name of the weight attribute, lm_step, lm_init) per scorer; the
+        # LM itself and the n-gram's (step, init) for the lattice
         self._scorers = []
+        self._lm = self._ngram = None
         if lm_exp_dir and lm_weight > 0:
             lm, _, lm_conv = LMTask.load(lm_exp_dir, device=self.model.device)
             if lm_conv.token_list != self.converter.token_list:
@@ -613,6 +631,7 @@ class Speech2Text:
                     f"{lm_conv.vocab_size} tokens, the ASR model one of "
                     f"{len(self.converter.token_list)}: shallow fusion "
                     "needs the ASR model's token list")
+            self._lm = lm
             self._scorers.append(("lm_weight",) + make_lm_fusion(lm,
                                                                  max_len))
         if ngram_file and ngram_weight > 0:
@@ -620,9 +639,30 @@ class Speech2Text:
                       enumerate(self.converter.token_list)}
             tok2id.setdefault("<s>", cfg.sos_id)
             tok2id.setdefault("</s>", cfg.eos_id)
-            self._scorers.append(("ngram_weight",) + make_ngram_fusion(
+            self._ngram = make_ngram_fusion(
                 ArpaLM(ngram_file, tok2id, cfg.vocab_size), cfg.sos_id,
-                self.model.device))
+                self.model.device)
+            self._scorers.append(("ngram_weight",) + self._ngram)
+        self._check_decode()
+
+    def _check_decode(self) -> None:
+        """Raises ValueError for options that the time-synchronous or the
+        lattice decode would drop."""
+        if not (self.ctc_timesync or self.lattice):
+            return
+        if self.ctc_timesync and self.lattice:
+            raise ValueError("ctc_timesync and lattice are two decodes: "
+                             "choose one")
+        what = "ctc_timesync" if self.ctc_timesync else "lattice"
+        dropped = [name for name, on in (
+            ("biasing_words", self.biasing is not None),
+            ("ilm_weight > 0", self.ilm_weight > 0),
+            ("lm_weight > 0", self.ctc_timesync and self.lm_weight > 0),
+            ("ngram_weight > 0", self.ctc_timesync and self.ngram_weight > 0)
+        ) if on]
+        if dropped:
+            raise ValueError(f"{what} decodes without " + ", ".join(dropped)
+                             + " (the reference drops them)")
 
     def set_fusion_weights(self, lm_weight=None, ngram_weight=None,
                            ilm_weight=None) -> None:
@@ -689,21 +729,23 @@ class Speech2Text:
                      lm_weight: float = 0.0,
                      ngram_file: Optional[str] = None,
                      ngram_weight: float = 0.0, ilm_weight: float = 0.0,
-                     sweep_fusion: bool = False) -> "Speech2Text":
+                     sweep_fusion: bool = False, ctc_timesync: bool = False,
+                     lattice: bool = False,
+                     lattice_att_weight: float = 0.3) -> "Speech2Text":
         """An experiment directory of ``ASRTask.train`` (the reference's
         constructor): its config.yaml and tokens.txt, the checkpoint
         ``ckpt_name`` (default: the n-best average ``valid.*best`` if there
         is one, else the latest epoch) and the global MVN stats; the
-        biasing and fusion arguments as the constructor's."""
+        biasing, fusion and decode arguments as the constructor's. A
+        MaskCTC experiment decodes with Speech2TextMaskCTC."""
         exp = Path(exp_dir)
         cfg = load_task_config(exp / "config.yaml")
         refuse_unported(cfg)
+        if cfg.model_arch != "asr":
+            raise ValueError(f"{exp_dir} is a model_arch {cfg.model_arch!r} "
+                             "experiment: decode it with Speech2TextMaskCTC")
         tokenizer, converter, model_cfg = ASRTask.prepare_vocab(cfg)
         mgr = CheckpointManager(exp, cfg.keep_nbest)
-        if ckpt_name is None:
-            cands = sorted(exp.glob("valid.*best"))
-            ckpt_name = cands[0].name if cands \
-                else f"{mgr.latest_epoch()}epoch"
         s2t = cls(model_cfg, mgr.load_params(ckpt_name), converter.token_list,
                   max_len=max_len, beam_size=beam_size,
                   ctc_weight=ctc_weight,
@@ -715,7 +757,9 @@ class Speech2Text:
                   tcpgen_force_p_gen=tcpgen_force_p_gen,
                   lm_exp_dir=lm_exp_dir, lm_weight=lm_weight,
                   ngram_file=ngram_file, ngram_weight=ngram_weight,
-                  ilm_weight=ilm_weight, sweep_fusion=sweep_fusion)
+                  ilm_weight=ilm_weight, sweep_fusion=sweep_fusion,
+                  ctc_timesync=ctc_timesync, lattice=lattice,
+                  lattice_att_weight=lattice_att_weight)
         s2t.task_cfg = cfg
         return s2t
 
@@ -748,7 +792,21 @@ class Speech2Text:
         hs, h_lengths = self.model.encode(torch.from_numpy(buf).to(dev),
                                           torch.from_numpy(lens).to(dev),
                                           self.mvn_stats)
-        if self.beam_size <= 1:
+        self._check_decode()  # the weights may have changed since
+        if self.ctc_timesync:
+            tokens, lengths = ctc_timesync_beam_search(
+                self.model, hs, h_lengths,
+                TimeSyncConfig(beam_size=self.beam_size,
+                               max_len=self.max_len))
+        elif self.lattice:
+            tokens, lengths, _ = lattice_rescore_decode(
+                self.model, hs, h_lengths,
+                LatticeConfig(beam_size=self.beam_size, max_len=self.max_len,
+                              att_weight=self.lattice_att_weight,
+                              lm_weight=self.lm_weight,
+                              ngram_weight=self.ngram_weight),
+                lm_model=self._lm, ngram_step_init=self._ngram)
+        elif self.beam_size <= 1:
             tokens, lengths = attention_greedy_decode(
                 self.model, hs, h_lengths, self.max_len)
         else:
@@ -765,3 +823,73 @@ class Speech2Text:
         return [self.tokenizer.tokens2text(
                     self.converter.ids2tokens(tokens[i, :lengths[i]]))
                 for i in range(len(speeches))]
+
+
+class Speech2TextMaskCTC:
+    """Non-autoregressive mask-predict decoding of a ``model_arch: maskctc``
+    experiment (models/maskctc.py:MaskCTCModel.decode: CTC greedy, then
+    ``n_iterations`` refinement passes of the tokens below ``threshold``),
+    batched and padded as Speech2Text pads."""
+
+    def __init__(self, cfg: ASRConfig, state_dict: Mapping[str, torch.Tensor],
+                 token_list: Sequence[str], token_type: str = "char",
+                 bpemodel: Optional[str] = None, max_len: int = 128,
+                 n_iterations: int = 4, threshold: float = 0.99,
+                 speech_bucket_multiple: int = 4096, device=None,
+                 mvn_stats=None, tokenizer=None):
+        self.model = MaskCTCModel(cfg, device=device)
+        self.model.load_state_dict(state_dict)
+        self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
+        self.converter = TokenIDConverter(list(token_list))
+        self.max_len, self.n_iterations = max_len, n_iterations
+        self.threshold = threshold
+        self.speech_bucket_multiple = speech_bucket_multiple
+        self.mvn_stats = mvn_tensors(mvn_stats, self.model.device)
+        self.task_cfg: Optional[ASRTaskConfig] = None
+
+    @classmethod
+    def from_exp_dir(cls, exp_dir: str, ckpt_name: Optional[str] = None,
+                     max_len: int = 128, n_iterations: int = 4,
+                     threshold: float = 0.99,
+                     device=None) -> "Speech2TextMaskCTC":
+        """An experiment directory of ``ASRTask.train`` with ``model_arch:
+        maskctc``: its config, tokens, the checkpoint ``ckpt_name``
+        (default: the n-best average if there is one, else the latest
+        epoch) and the global MVN stats."""
+        exp = Path(exp_dir)
+        cfg = load_task_config(exp / "config.yaml")
+        refuse_unported(cfg)
+        if cfg.model_arch != "maskctc":
+            raise ValueError(f"{exp_dir} is a model_arch {cfg.model_arch!r} "
+                             "experiment: decode it with Speech2Text")
+        tokenizer, converter, model_cfg = ASRTask.prepare_vocab(cfg)
+        mgr = CheckpointManager(exp, cfg.keep_nbest)
+        s2t = cls(model_cfg, mgr.load_params(ckpt_name), converter.token_list,
+                  max_len=max_len, n_iterations=n_iterations,
+                  threshold=threshold,
+                  speech_bucket_multiple=cfg.data.speech_bucket_multiple,
+                  device=device, mvn_stats=ASRTask.load_mvn_stats(
+                      cfg, resolve_device(device)), tokenizer=tokenizer)
+        s2t.task_cfg = cfg
+        return s2t
+
+    def __call__(self, speech: np.ndarray) -> str:
+        return self.decode_batch([speech])[0]
+
+    @torch.inference_mode()
+    def decode_batch(self, speeches: Sequence[np.ndarray]) -> List[str]:
+        """List of [N_i] waveforms -> list of texts (blanks dropped)."""
+        buf, lens = pad_speech_batch(speeches, self.speech_bucket_multiple)
+        dev = self.model.device
+        tokens, lengths = self.model.decode(
+            torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev),
+            max_len=self.max_len, n_iterations=self.n_iterations,
+            threshold=self.threshold, mvn_stats=self.mvn_stats)
+        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        out = []
+        for i in range(len(speeches)):
+            ids = tokens[i, :lengths[i]]
+            ids = ids[ids != self.model.cfg.blank_id]
+            out.append(self.tokenizer.tokens2text(
+                self.converter.ids2tokens(ids)))
+        return out

@@ -195,10 +195,6 @@ class Speech2TextTransducer:
         asr_like = dataclasses.replace(_as_asr_cfg(cfg), exp_dir=str(exp))
         tokenizer, converter, asr_model_cfg = ASRTask.prepare_vocab(asr_like)
         mgr = CheckpointManager(exp, cfg.keep_nbest)
-        if ckpt_name is None:
-            cands = sorted(exp.glob("valid.*best"))
-            ckpt_name = cands[0].name if cands \
-                else f"{mgr.latest_epoch()}epoch"
         s2t = cls(dataclasses.replace(cfg.model, asr=asr_model_cfg),
                   mgr.load_params(ckpt_name), converter.token_list,
                   max_len=max_len, beam_size=beam_size,

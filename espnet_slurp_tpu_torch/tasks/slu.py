@@ -241,9 +241,6 @@ class Speech2Understand:
         self.extra = extra
         self.model = SLUModel(model_cfg, device=device)
         mgr = CheckpointManager(exp, self.cfg.keep_nbest)
-        if ckpt_name is None:
-            cands = sorted(exp.glob("valid.*best"))
-            ckpt_name = cands[0].name if cands else f"{mgr.latest_epoch()}epoch"
         self.model.load_state_dict(mgr.load_params(ckpt_name))
         self.max_len = max_len
         self.first_pass = None

@@ -168,7 +168,13 @@ class CheckpointManager:
         _save({"params": avg}, out / CKPT_FILE)
         return avg
 
-    def load_params(self, name: str) -> Dict[str, torch.Tensor]:
+    def load_params(self, name: Optional[str] = None
+                    ) -> Dict[str, torch.Tensor]:
         """The parameters (a state_dict on the CPU) of a checkpoint by its
-        directory name (e.g. '3epoch', 'valid.loss.ave_5best')."""
+        directory name (e.g. '3epoch', 'valid.loss.ave_5best'); without a
+        name, the n-best average ``valid.*best`` if there is one, else the
+        latest epoch (the decoders' default)."""
+        if name is None:
+            cands = sorted(self.exp_dir.glob("valid.*best"))
+            name = cands[0].name if cands else f"{self.latest_epoch()}epoch"
         return _load(self.exp_dir / name / CKPT_FILE)["params"]

@@ -27,15 +27,15 @@ A language model's tree (models/lm.py: ``embed``, ``attn_{i}/linear_*``,
 ``rnn_{i}/cell``) converts by these rules, with no renaming.
 
 The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here,
-at the top of an ASR tree and under ``asr`` in an SLU tree (slu/model.py
-holds its ASR model there). An SLU tree's BERT postdecoder
-(models/hf_transformer.py) and text encoder are Dense, LayerNorm and Embed
-leaves like any other, and so are the KA2G trees (slu/generator.py's
-``SlotGenerator``, ``GPT2JointText``; slu/ka2g.py's ``KA2GModel``, whose
-``asr`` holds the CTC head too). A ``KA2GModel`` tree has no
-``asr/decoder`` subtree (its loss never calls the decoder, so flax makes
-none): ``ka2g_state_dict`` keeps the port's decoder at the model's own
-values and logs how many tensors it kept.
+at the top of an ASR tree and under ``asr`` in an SLU or a MaskCTC tree
+(slu/model.py and models/maskctc.py hold their ASR model there). An SLU
+tree's BERT postdecoder (models/hf_transformer.py) and text encoder are
+Dense, LayerNorm and Embed leaves like any other, and so are the KA2G
+trees (slu/generator.py's ``SlotGenerator``, ``GPT2JointText``;
+slu/ka2g.py's ``KA2GModel``, whose ``asr`` holds the CTC head too). A
+``KA2GModel`` tree has no ``asr/decoder`` subtree (its loss never calls
+the decoder, so flax makes none): ``ka2g_state_dict`` keeps the port's
+decoder at the model's own values and logs how many tensors it kept.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ from torch import nn
 log = logging.getLogger("espnet_slurp_tpu_torch")
 
 # The CTC head's flax name -> the port's, at the top of a tree or under
-# the module that holds an ASR model (an SLU tree's ``asr``).
+# the module that holds an ASR model (an SLU or a MaskCTC tree's ``asr``).
 _CTC_RENAMES = {("ctc",): ("ctc_proj",), ("asr", "ctc"): ("asr", "ctc_proj")}
 # Leaves kept as they are: attention biases, the MoE's expert tensors and
 # TCPGen's raw parameters.

@@ -162,12 +162,47 @@ def test_clis_raise_without_a_card_unless_asked_for_the_cpu(runs, tmp_path):
                       str(tmp_path / "dec")])
 
 
+def _reference_weights_exp(runs, root):
+    """A port experiment holding the reference CLI's weights (its n-best
+    average, converted): the port's config and tokens, checkpoint "jax"."""
+    import shutil
+    ref = jasr.Speech2Text(str(runs["jexp"]))
+    exp = root / "jax_weights"
+    (exp / "jax").mkdir(parents=True)
+    for name in ("config.yaml", "tokens.txt"):
+        shutil.copy(runs["pexp"] / name, exp / name)
+    torch.save({"params": flax_to_torch(jax.tree.map(np.asarray,
+                                                     ref.params))},
+               exp / "jax" / CKPT_FILE)
+    return exp
+
+
 @pytest.mark.parametrize("flag", [["--ctc_timesync"], ["--lattice"]])
-def test_unported_inference_options_raise(runs, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        p_infer.main(["--exp_dir", str(runs["pexp"]), "--data_dir",
-                      str(runs["corpus"][1]), "--output_dir",
-                      str(tmp_path / "dec"), "--device", "cpu", *flag])
+def test_inference_cli_decodes_as_the_references_speech2text(runs, tmp_path,
+                                                             flag):
+    """--ctc_timesync and --lattice through the port's bin/asr_inference on
+    the CPU, from the reference CLI's weights: the texts of the reference's
+    Speech2Text with the same flag (beam 4, max_len 12; the lattice's
+    decoder at 0.3)."""
+    dec = tmp_path / "dec"
+    assert p_infer.main(["--exp_dir", str(_reference_weights_exp(
+        runs, tmp_path)), "--ckpt", "jax", "--data_dir",
+        str(runs["corpus"][1]), "--output_dir", str(dec), "--beam_size", "4",
+        "--max_len", "12", "--device", "cpu", *flag]) == 0
+    ref = jasr.Speech2Text(str(runs["jexp"]), max_len=12, beam_size=4,
+                           ctc_weight=0.3, **{flag[0][2:]: True})
+    from espnet_slurp_tpu_torch.data.fileio import load_wav, read_2column_text
+    wavs = read_2column_text(runs["corpus"][1] / "wav.scp")
+    audio = sorted(((uid, load_wav(p)[0]) for uid, p in wavs.items()),
+                   key=lambda x: len(x[1]))
+    want = dict(zip([u for u, _ in audio],
+                    ref.decode_batch([w for _, w in audio])))
+    got = dict((line.split(" ", 1) + [""])[:2]
+               for line in (dec / "text").read_text().splitlines())
+    assert got == want
+    score = dict(line.split() for line in
+                 (dec / "score.txt").read_text().splitlines())
+    assert sorted(score) == ["CER", "RTF", "WER"]
 
 
 def _lm_exp(runs, root):

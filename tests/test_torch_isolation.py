@@ -7,6 +7,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import espnet_slurp_tpu_torch
 
 PKG = pathlib.Path(espnet_slurp_tpu_torch.__file__).parent
@@ -68,7 +70,6 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     and prints no result line."""
     import torch
     if torch.cuda.is_available():
-        import pytest
         pytest.skip("a card is present: the script would run in full")
     alone = tmp_path / "chip_smoke.py"
     alone.write_text(SMOKE.read_text())
@@ -119,7 +120,30 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     # code).
     "slu.generator", "slu.ka2g", "data.resident", "data.chunk_iter",
     "tasks.generic", "utils.params", "recipe.results_run",
-    "recipe.ka2g_run"))
+    "recipe.ka2g_run",
+    # The remaining ASR decoders: streaming (re-encode and incremental)
+    # with its CLI, the time-synchronous and lattice decodes, CTC
+    # segmentation (a copy of the reference's numpy module) with its CLI,
+    # and MaskCTC with its CLI.
+    "decode.streaming", "decode.incremental", "bin.asr_inference_streaming",
+    "decode.timesync", "decode.lattice", "decode.ctc_segmentation",
+    "bin.asr_align", "models.maskctc", "bin.asr_inference_maskctc"))
+
+# Each module of the decoders' slice and the reference file it ports.
+DECODER_SLICE = {
+    "decode/streaming.py": "espnet_slurp_tpu/decode/streaming.py",
+    "decode/incremental.py": "espnet_slurp_tpu/decode/incremental.py",
+    "bin/asr_inference_streaming.py":
+        "espnet_slurp_tpu/bin/asr_inference_streaming.py",
+    "decode/timesync.py": "espnet_slurp_tpu/decode/timesync.py",
+    "decode/lattice.py": "espnet_slurp_tpu/decode/lattice.py",
+    "decode/ctc_segmentation.py":
+        "espnet_slurp_tpu/decode/ctc_segmentation.py",
+    "bin/asr_align.py": "espnet_slurp_tpu/bin/asr_align.py",
+    "models/maskctc.py": "espnet_slurp_tpu/models/maskctc.py",
+    "bin/asr_inference_maskctc.py":
+        "espnet_slurp_tpu/bin/asr_inference_maskctc.py",
+}
 
 
 def test_runtime_and_cli_modules_are_among_those_checked():
@@ -135,3 +159,17 @@ def test_runtime_and_cli_modules_are_among_those_checked():
         if not path.exists():
             path = PKG / rel / "__init__.py"
         assert not _REFERENCE_IMPORT.search(path.read_text()), name
+
+
+def _docstring(path):
+    import ast
+    return ast.get_docstring(ast.parse(path.read_text())) or ""
+
+
+@pytest.mark.parametrize("rel", sorted(DECODER_SLICE))
+def test_each_decoder_module_names_the_reference_file_it_ports(rel):
+    """Each module of the decoders' slice says in its docstring which
+    reference file it ports, and that file exists."""
+    ref = DECODER_SLICE[rel]
+    assert ref in " ".join(_docstring(PKG / rel).split()), rel
+    assert (PKG.parent / ref).exists(), ref

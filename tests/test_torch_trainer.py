@@ -472,16 +472,20 @@ def test_task_config_and_trainer_option_defaults():
     assert not any(po[k] for k in sinks)
 
 
+# The ids keep the cases' names. model_arch: maskctc (override0) is ported
+# (models/maskctc.py; tests/test_torch_maskctc.py trains it through
+# bin/asr_train).
 @pytest.mark.parametrize("override,match", [
-    ({"model_arch": "maskctc"}, "item 15"),
-    ({"mbr": {"weight": 0.5}}, None),
-    ({"pipeline_stages": 2}, "item 17"),
-    ({"num_att_plot": 3}, "item 17"),
-    # ported since (data/resident.py); the id keeps the case's name
+    pytest.param({"mbr": {"weight": 0.5}}, None, id="override1-None"),
+    pytest.param({"pipeline_stages": 2}, "item 17", id="override2-item 17"),
+    pytest.param({"num_att_plot": 3}, "item 17", id="override3-item 17"),
+    # ported since (data/resident.py)
     pytest.param({"data": {"resident_corpus": True}}, None,
                  id="override4-item 2"),
-    ({"data": {"multichannel": True}}, "item 15"),
-    ({"data": {"feats_type": "fbank_pitch"}}, "item 15"),
+    pytest.param({"data": {"multichannel": True}}, "item 15",
+                 id="override5-item 15"),
+    pytest.param({"data": {"feats_type": "fbank_pitch"}}, "item 15",
+                 id="override6-item 15"),
 ])
 def test_unported_task_options_raise_naming_their_queue_item(
         tmp_path, override, match):

@@ -174,7 +174,7 @@ def test_clis_raise_without_a_card_and_for_unported_options(runs, tmp_path):
             p_infer.main(["--exp_dir", str(runs["pexp"]), "--data_dir",
                           str(runs["corpus"][1]), "--output_dir",
                           str(tmp_path / "dec")])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="chunk_size > 0"):
         p_infer.main(["--exp_dir", str(runs["pexp"]), "--data_dir",
                       str(runs["corpus"][1]), "--output_dir",
                       str(tmp_path / "dec"), "--streaming", "--device",
@@ -188,6 +188,32 @@ def test_clis_raise_without_a_card_and_for_unported_options(runs, tmp_path):
         p_train.main(["--config", runs["pyaml"], "--set",
                       f"exp_dir={tmp_path / 'exp'}",
                       "model.asr.moe_experts=4", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("search", ["greedy", "alsa"])
+def test_streaming_cli_decodes_as_the_non_streaming_decode(runs, tmp_path,
+                                                           search):
+    """--streaming (in place of its refusal): a chunked model (chunk 4,
+    left 1) trained one epoch by bin/asr_transducer_train decodes the dev
+    set 2048 samples a call, and its final texts are the non-streaming
+    decode's (fp32: the chunked encoder's frames do not depend on the
+    audio after them)."""
+    exp = tmp_path / "exp"
+    assert p_train.main(["--config", runs["pyaml"], "--set",
+                         f"exp_dir={exp}", "max_epoch=1",
+                         "model.asr.chunk_size=4", "model.asr.left_chunks=1",
+                         "--device", "cpu"]) == 0
+    texts = {}
+    for flags in ([], ["--streaming", "--chunk_samples", "2048"]):
+        out = tmp_path / f"dec{len(flags)}"
+        assert p_infer.main(["--exp_dir", str(exp), "--data_dir",
+                             str(runs["corpus"][1]), "--output_dir",
+                             str(out), "--search", search, "--beam_size",
+                             "3", "--max_len", "12", "--device", "cpu",
+                             *flags]) == 0
+        texts[len(flags)] = (out / "text").read_text()
+        assert (out / "score.txt").exists()
+    assert texts[0] == texts[3]
 
 
 # --- the beam searches ------------------------------------------------------
