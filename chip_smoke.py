@@ -405,6 +405,26 @@ or the port's package is not beside it. Phases, each of which fails the run:
    bin/asr_inference_maskctc, its fp32 step card vs CPU; K3 at B 1, T 40
    / 80 / 120 with chunk (40, 1) and K6's causal bf16 forward at B 1
    against their plain versions.
+24. The remaining encoders and decoders: (a) the E-Branchformer at the
+   flagship's widths (cgMLP 2048, bf16, dropout 0.1, SpecAug) through
+   make_train_step on 64 x 15 s, U 64 (a warm-up, 3 timed steps, a
+   profiled one: step s, audio-s/s, peak MB, busy ms; a step K2 24, K3 12,
+   K4 1, K1 1 each way by the wrappers' counts, K1's warp route and K4's
+   bf16 launches by the host counts, nothing else), Speech2Text serving 8
+   x 15 s at beam 10 (RTF; K2 24, K3 12 an encode, nothing else), its fp32
+   step at 2 blocks card vs CPU; (b) the contextual-block Conformer (12 x
+   256, block 40 / hop 16 / look-ahead 16) one step on 16 x 15 s (K2 24
+   each way, K3 0: its blocks' attention is eager) and one encode of 8 x
+   15 s (K2 24), its fp32 step at 2 blocks card vs CPU; (c) vgg_rnn with
+   the LAS decoder and rnn with the dynamic 2-D conv decoder (320 units,
+   4 layers) one step each on 8 x 5 s (K4 1, K1 1 each way, no K2 or K3),
+   a greedy and a beam-10 decode each; the Sinc (sliding-window frames),
+   linear and BERT pre- / post-encoders around a 2-block Conformer, one
+   step each; each one's fp32 step card vs CPU (2 layers / blocks; VGG2L's
+   max-pool near-ties zeroed like the ReLU kinks); (d) every K2 / K3 call
+   of one (a) train forward (forward against the plain version, the
+   backward launches against the plain backward at the kernels' rounding
+   points) and of one (a) encode, on the recorded inputs and seeds.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -434,7 +454,12 @@ entries at Dh 36 (``rel_flash_attention_dh36``,
 (a)'s runs. Every counted entry also carries its launches an incremental
 step of phase 23 (a) (``launches_per_stream_step``), a re-encode of its
 streaming transducer (``launches_per_stream_transducer_encode``) and a
-MaskCTC step of (f) (``launches_per_maskctc_step``). The last line is
+MaskCTC step of (f) (``launches_per_maskctc_step``), and its launches a
+step of phase 24's E-Branchformer (``launches_per_ebranchformer_step``),
+an encode of it (``launches_per_ebranchformer_encode``), a step of the
+contextual block (``launches_per_contextual_block_step``) and of the
+VGG-RNN model (``launches_per_vgg_rnn_step``). The whole run's seconds and
+each phase's are printed before the kernels. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2848,12 +2873,20 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
     seeds, hence the same Philox masks; the two generators must end in the
     same state, advanced from their seed.
 
-    A subsampling ReLU input that lies within fp32 rounding of 0 can fall
-    on either side on the two devices; its gradient is then the upstream
-    one on one side and 0 on the other, which moves the first conv's
-    weight and bias gradients by up to 7e-3 of max |ref| (measured on other
-    draws). Such kinks get gradient 0 on both sides: their forward value is
-    ~0 either way, and the comparison no longer depends on the draw."""
+    A ReLU input (relu_inputs: the Conv2d subsampling's, VGG2L's, a
+    post-encoder's length adaptors', the decoder's FFNs'; and the leaky
+    ReLUs of the Sinc pre-encoder) that lies within fp32 rounding of 0 can
+    fall on either side on the two devices; its gradient is then the
+    upstream one on one side and 0 on the other, which moves the first
+    conv's weight and bias gradients by up to 7e-3 of max |ref| (measured
+    on other draws; a decoder FFN's w1 by 3.2e-2 in phase 24's Sinc model).
+    Such kinks get gradient 0 on both sides: their forward value is ~0
+    either way, and the comparison no longer depends on the draw. VGG2L's
+    max-pools have the like near-ties: a window whose two largest inputs
+    lie within rounding of each other routes its gradient to another
+    element on each side (3.0e-3 of max |ref| at its first conv, phase
+    24 (c));
+    such windows' inputs get gradient 0 on both sides too."""
     runs, gens = {}, {}
     for dev in ("cpu", "cuda"):
         gens[dev] = torch.Generator().manual_seed(DROPOUT_SEED)
@@ -2866,9 +2899,10 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
         batch.update({k: torch.as_tensor(v).to(dev)
                       for k, v in (extra or {}).items()})
         # an SLU model's acoustic encoder is its ASR model's
-        embed, pre = getattr(model, "asr", model).encoder.embed, []
-        hooks = [getattr(embed, f"conv{i + 1}").register_forward_hook(
-            lambda m, i, o: pre.append(o)) for i in range(embed.n_convs)]
+        pre = []
+        hooks = [m.register_forward_hook(
+            lambda m, i, o, pool=pool: pre.append((pool, o)))
+            for m, pool in relu_inputs(model)]
         loss, stats = model(**batch, train=True, generator=gens[dev])
         if aux is not None:  # its re-encode's convs are hooked too
             term, aux_stats = aux(model)(batch)
@@ -2879,16 +2913,22 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
     fresh = torch.Generator().manual_seed(DROPOUT_SEED).get_state()
     same_draws = torch.equal(gens["cpu"].get_state(), gens["cuda"].get_state())
     drew = not torch.equal(gens["cpu"].get_state(), fresh)
-    flips = []
+    flips, pooled = [], []
     st_c, st_g = runs["cpu"][3], runs["cuda"][3]
     stat_err = {k: abs(float(st_g[k].detach()) - float(v.detach()))
                 / max(abs(float(v.detach())), 1e-6)
                 for k, v in st_c.items() if k != "acc"}
-    for z_c, z_g in zip(runs["cpu"][2], runs["cuda"][2]):
+    for (pool, z_c), (_, z_g) in zip(runs["cpu"][2], runs["cuda"][2]):
         flip = (z_c > 0) != (z_g > 0).cpu()
         flips.append(int(flip.sum()))
+        if pool:
+            apart = pool_flips(torch, z_c, z_g.cpu())
+            pooled.append(int(apart.sum()) // 4)
+            flip = flip | apart
         for z in (z_c, z_g):
-            z.register_hook(lambda g, f=flip.to(z.device): g.masked_fill(f, 0))
+            if z.requires_grad:  # not a no-grad pass (MBR's n-best search)
+                z.register_hook(
+                    lambda g, f=flip.to(z.device): g.masked_fill(f, 0))
     res, no_grad = {}, {}
     for dev, (model, loss, _, _) in runs.items():
         loss.backward()
@@ -2914,7 +2954,9 @@ def compare_cpu_card(torch, what, model_cls, cfg, state, speech, lens, text,
     print(f"{what} card vs CPU: loss {loss_g:.6f} vs {loss_c:.6f} "
           f"(rel {rel:.3e}, tolerance 1e-4); worst gradient {worst[1]} "
           f"{worst[0]:.3e} of max|ref| (tolerance 1e-3) over {len(g_c)} "
-          f"tensors; subsampling ReLU kinks on opposite sides {flips}; "
+          f"tensors; ReLU kinks on opposite sides {flips}"
+          + (f", max-pool windows chosen apart {pooled}" if pooled else "")
+          + "; "
           f"dropout seeds drawn {drew}, the same on both sides {same_draws}")
     if extra is not None or aux is not None:
         shown = {k: round(float(v.detach()), 6) for k, v in st_g.items()}
@@ -5163,11 +5205,12 @@ def kb_fp32_phase(torch, card):
     # leads an untrained model's n-best by tens of nats, so the softmax
     # over hypotheses would saturate and the MBR gradient vanish.
     mbr = kb_mbr_config(words, weight=0.5, include_gt=False)
-    # The yaml's gcn at full depth; the other tree encoders on a 2-block
-    # encoder (the pointer sits after the decoder, whose 6 blocks stay).
-    for enc, aux, blocks in (("gcn", None, 12), ("gat", None, 2),
+    # Every tree encoder on a 2-block encoder (the pointer sits after the
+    # decoder, whose 6 blocks stay; the 12-block encoder's fp32 step is
+    # phase 6's).
+    for enc, aux, blocks in (("gcn", None, 2), ("gat", None, 2),
                              ("sage", None, 2), ("treelstm", None, 2),
-                             ("gcn", kb_aux(mbr, 5000), 12)):
+                             ("gcn", kb_aux(mbr, 5000), 2)):
         cfg = kb_config(dtype="float32", specaug=None, dropout_rate=DROPOUT,
                         tcpgen_tree_encoder=enc, num_encoder_blocks=blocks)
         state = ASRTask.init_params(ASRModel(cfg, device="cpu"),
@@ -7477,6 +7520,488 @@ def stream_phases(torch, card):
     return step, tr, masked
 
 
+# Phase 24: the remaining ASR encoders and decoders (ROADMAP.md item 15).
+# The flagship's widths with the E-Branchformer encoder (cgMLP 2 x d_ff).
+EB_B, EB_U = TRAIN_B, TRAIN_U
+# (b): the contextual block's step batch (16 x 15 s: its 30 blocks of 42
+# tokens an utterance hold 2.7x the Conformer's tokens).
+CB_B = 16
+# (c): the small models' traffic, 8 x 5 s, U 16; the decodes' max_len.
+SMALL_B, SMALL_SECONDS, SMALL_U, SMALL_MAX_LEN = 8, 5, 16, 32
+# The Sinc pre-encoder's sliding-window frames (400 samples, 10 ms hop).
+SINC_FRONT = dict(type="sliding_window", n_fft=512, win_length=400,
+                  hop_length=160)
+
+
+def relu_inputs(model):
+    """(module, pooled) for each module whose output goes through a ReLU or
+    a leaky ReLU: the Conv2d subsampling's convs or VGG2L's (pooled: a 2 x
+    2 ceil max-pool follows the ReLU of the second conv of each VGG block),
+    the Sinc pre-encoder's blocks, a post-encoder's length adaptors and
+    the attention decoder's FFNs."""
+    from espnet_slurp_tpu_torch.models.transformer import FeedForward
+    asr = getattr(model, "asr", model)
+    enc = asr.encoder
+    embed, vgg = getattr(enc, "embed", None), getattr(enc, "vgg", None)
+    mods = []
+    if hasattr(embed, "n_convs"):
+        mods += [(getattr(embed, f"conv{i + 1}"), False)
+                 for i in range(embed.n_convs)]
+    if vgg is not None:
+        mods += [(getattr(vgg, f"conv{i}_{j}"), j == 2) for i in range(2)
+                 for j in (1, 2)]
+    post = getattr(asr, "postencoder", None)
+    if post is not None:
+        mods += [(getattr(post, f"adaptor_{i}"), False)
+                 for i in range(post.n_adaptors)]
+    pre = getattr(asr, "preencoder", None)
+    for name, *_, pointwise, _, _ in getattr(pre, "blocks", ()):
+        mods.append((getattr(pre, f"{name}_{'pw' if pointwise else 'dw'}"),
+                     False))
+    decoder = getattr(asr, "decoder", None)  # a transducer has none
+    if decoder is not None:
+        mods += [(m.w1, False) for m in decoder.modules()
+                 if isinstance(m, FeedForward)]
+    return mods
+
+
+def pool_flips(torch, z_c, z_g):
+    """[..., H, W] bool: the elements of each 2 x 2 ceil max-pool window
+    over relu(z) whose chosen element differs between the two sides (a
+    near-tie within fp32 rounding; an all-zero window passes no gradient
+    and is left out)."""
+    pick = lambda z: torch.nn.functional.max_pool2d(
+        torch.relu(z.detach()), 2, 2, ceil_mode=True, return_indices=True)
+    (v_c, i_c), (_, i_g) = pick(z_c), pick(z_g)
+    apart = (i_c != i_g) & (v_c > 0)
+    h, w = z_c.shape[-2:]
+    return apart.repeat_interleave(2, -2).repeat_interleave(2, -1)[
+        ..., :h, :w]
+
+
+def eb_config(**kw):
+    """The flagship's widths (vocab 5000, 12 x 256, 4 heads, d_ff 1024,
+    cgMLP 2048, kernel 31, the 6-block decoder, bf16) with the
+    E-Branchformer encoder."""
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    return dataclasses.replace(flagship_config(), encoder="ebranchformer",
+                               **kw)
+
+
+class KernelCalls:
+    """Records every K2 / K3 call that the models make through
+    models/conformer.py:fused_ffn and models/attention.py:rel_flash_attention
+    while ``active``: the kind, the inputs (detached copies) and the
+    keywords; the wrappers themselves run as they would."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+        from espnet_slurp_tpu_torch.models import attention, conformer
+        ffn, att = conformer.fused_ffn, attention.rel_flash_attention
+
+        def rec(kind, fn):
+            def call(*a, **kw):
+                self.calls.append((kind, [
+                    x.detach().clone() if torch.is_tensor(x) else x
+                    for x in a], dict(kw)))
+                return fn(*a, **kw)
+            return call
+
+        conformer.fused_ffn = rec("K2", ffn)
+        attention.rel_flash_attention = rec("K3", att)
+        try:
+            yield self
+        finally:
+            conformer.fused_ffn, attention.rel_flash_attention = ffn, att
+
+
+def hold_calls(torch, what, calls, backward):
+    """Each recorded K2 / K3 call run again on its inputs and seed: the
+    wrapper's output (the kernel) within TOL of its plain version's (fp32
+    products); with ``backward`` also the backward launches on a random
+    cotangent, from the kernel's own forward, within BWD_PLAIN_TOL of the
+    plain backward at the kernels' rounding points (fused_ffn_bwd_plain,
+    rel_flash_attention_bwd_plain), as phase 4 holds them: against the
+    unrounded plain gradient a bf16 dq of real activations, which cancels,
+    is off by more than 2e-2 of its max |ref| while the terms it sums
+    agree (measured on an H100). Returns {kind: (calls, worst forward error,
+    worst backward error)}, each of max |ref|."""
+    from espnet_slurp_tpu_torch.ops.kernels import ffn
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    worst = {}
+    for kind, args, kw in calls:
+        rate = kw.get("dropout_rate", 0.0)
+        if kind == "K2":
+            diff, seed = args[:5], (args[5] if len(args) > 5 else None)
+            with torch.no_grad():
+                out = ffn.fused_ffn(*diff, seed, **kw)
+                ref = ffn.fused_ffn_plain(*diff, seed, **kw)
+        else:
+            diff, (lengths, seed) = args[:5], (args[5:7] + [None])[:2]
+            with torch.no_grad():
+                out = fa.rel_flash_attention(*diff, lengths, seed, **kw)
+                ref = fa.rel_flash_attention_plain(*diff, lengths, seed,
+                                                   **kw)[0]
+        name = str(diff[0].dtype).split(".")[-1]
+        rel_f, rel_b = rel_err(out, ref)[1], 0.0
+        if backward:
+            g = torch.randn(out.shape, generator=gen, device="cuda").to(
+                out.dtype)
+            if kind == "K2":
+                x, w1, b1, w2, _ = diff
+                got = ffn._launch_bwd(x, w1, b1, w2, g, seed, rate)
+                want = ffn.fused_ffn_bwd_plain(x, w1, b1, w2, g, seed,
+                                               dropout_rate=rate)
+            else:
+                ck = (kw.get("chunk_size", 0), kw.get("left_chunks", -1))
+                o, lse = fa._launch_fwd(*diff, lengths, kw["scale"], *ck,
+                                        seed, rate)
+                got = fa._launch_bwd(*diff, lengths, o, lse, g, kw["scale"],
+                                     *ck, seed, rate)
+                want = fa.rel_flash_attention_bwd_plain(
+                    *diff, lengths, o, lse, g, seed, scale=kw["scale"],
+                    dropout_rate=rate, chunk_size=ck[0], left_chunks=ck[1])
+            if not all(torch.isfinite(x).all() for x in got):
+                raise AssertionError(f"{what} {kind}: non-finite gradient")
+            rel_b = max(rel_err(a, r)[1] for a, r in zip(got, want))
+            del got, want
+        torch.cuda.synchronize()
+        n, wf, wb = worst.get(kind, (0, 0.0, 0.0))
+        worst[kind] = (n + 1, max(wf, rel_f), max(wb, rel_b))
+        if not (rel_f <= TOL[name] and rel_b <= BWD_PLAIN_TOL):
+            raise AssertionError(
+                f"{what} {kind} {name} {[tuple(x.shape) for x in diff]}: "
+                f"forward {rel_f:.3e}, backward {rel_b:.3e} of max|ref| "
+                "against the plain versions")
+    return worst
+
+
+def one_step(torch, what, model, batch, card, audio_s, warm=True):
+    """A warm-up train step (with ``warm``), then one step with every
+    launch count zeroed just before and read just after (the wrappers'
+    counts; K1's and K4's kernels by the library's host-side counts):
+    (launches, routes, step seconds, peak MB). The losses and grad norms
+    must be finite and nothing skipped."""
+    from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
+    tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
+    state = TrainState.create(model, tx, seed=0)
+    step = make_train_step(model, tx)
+    torch.cuda.reset_peak_memory_stats()
+    first = float("nan")
+    if warm:
+        state, st0 = step(state, batch)
+        first = float(st0["loss"])
+    zero_counts()
+    routes0 = route_counts()
+    t0 = time.perf_counter()
+    state, st = step(state, batch)
+    loss = float(st["loss"])
+    step_s = time.perf_counter() - t0
+    launches = read_counts()
+    routes = {k: n - routes0[k] for k, n in route_counts().items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    shown = {k: round(float(v), 4) for k, v in st.items()}
+    print(f"{what}: step {step_s:.4f} s{'' if warm else ' (the first)'}, "
+          f"{audio_s / step_s:.1f} audio-s/s, "
+          f"peak {peak_mb:.0f} MB; loss "
+          f"{f'{first:.4f} -> ' if warm else ''}{loss:.4f}; stats "
+          f"{shown}; launches { {k: v for k, v in launches.items() if v} }; "
+          f"K1 / K4 kernels { {k: v for k, v in routes.items() if v} } on "
+          f"{card}")
+    if not (np.isfinite([loss, float(st["grad_norm"])]).all()
+            and float(st["skipped"]) == 0
+            and (np.isfinite(first) or not warm)):
+        raise AssertionError(f"{what}: non-finite or skipped")
+    return launches, routes, step_s, peak_mb
+
+
+def eb_train_phase(torch, card):
+    """Phase 24 (a), training: eb_config at DROPOUT with SpecAug through
+    make_train_step on EB_B x TRAIN_SECONDS s, U EB_U (run_train_steps: a
+    warm-up, 3 timed steps, a profiled one); a step's launches each way
+    K2 24, K3 12, K4 and K1 1 by the wrappers' counts, K1's warp route and
+    K4's bf16 launches once by the host counts, nothing else. Then one
+    more training forward with every K2 / K3 call recorded. Returns (a
+    step's launches, the recorded calls, the StepRun)."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = eb_config(dropout_rate=DROPOUT)
+    model = ASRTask.init_params(ASRModel(cfg, device="cuda"), 0)
+    batch = train_batch(torch, np.random.RandomState(24), EB_B,
+                        FS * TRAIN_SECONDS, EB_U, cfg.vocab_size, "cuda")
+    run = run_train_steps(
+        torch, f"phase 24 (a) E-Branchformer train, B={EB_B} x "
+        f"{TRAIN_SECONDS} s, U={EB_U}, dropout {DROPOUT}", model, batch,
+        card, EB_B * TRAIN_SECONDS, budget_s=0.0)
+    check_routes("phase 24 (a) train", run.routes,
+                 K1_WARP + tuple(K4_BF16_LAUNCHES), run.steps)
+    check_per_step("phase 24 (a) train", run.launches,
+                   flagship_step_want(cfg.num_encoder_blocks), run.steps)
+    rec = KernelCalls()
+    gen = torch.Generator(device="cuda").manual_seed(DROPOUT_SEED)
+    with rec.active():
+        loss, _ = model(**batch, train=True, generator=gen)
+    del loss, model, batch
+    torch.cuda.empty_cache()
+    per_step = {k: v // run.steps for k, v in run.launches.items()}
+    return per_step, rec.calls, run
+
+
+def eb_serve_phase(torch, card):
+    """Phase 24 (a), serving: Speech2Text with eb_config (seeded weights)
+    on N_UTT x UTT_SECONDS s at beam BEAM, ctc CTC_WEIGHT, max_len MAX_LEN:
+    a warm-up decode, then one timed with the counts zeroed just before
+    and read just after (K2 24, K3 12, nothing else); then one encode of
+    the same batch with every K2 / K3 call recorded. Returns (the
+    decode's launches, its wall seconds, the recorded calls)."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, Speech2Text
+
+    cfg = eb_config()
+    state = ASRTask.init_params(ASRModel(dataclasses.replace(
+        cfg, dtype="float32"), device="cpu"), 0).state_dict()
+    tokens = token_list(cfg.vocab_size)
+    s2t = Speech2Text(cfg, state, tokens, token_type="word",
+                      max_len=MAX_LEN, beam_size=BEAM, ctc_weight=CTC_WEIGHT,
+                      device="cuda")
+    rng = np.random.RandomState(24)
+    speeches = [rng.randn(FS * UTT_SECONDS).astype(np.float32) * 0.1
+                for _ in range(N_UTT)]
+    s2t.max_len = 4  # warm-up: the encode and a few search steps
+    s2t.decode_batch(speeches)
+    s2t.max_len = MAX_LEN
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    texts = s2t.decode_batch(speeches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"phase 24 (a) E-Branchformer serving: {N_UTT} x {UTT_SECONDS} s, "
+          f"beam {BEAM}, ctc {CTC_WEIGHT}, max_len {MAX_LEN}: wall "
+          f"{wall:.3f} s, RTF {wall / (N_UTT * UTT_SECONDS):.5f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; hypothesis "
+          f"lengths {[len(x.split()) for x in texts]} on {card}")
+    vocab = set(tokens) - {"<blank>", "<sos/eos>"}
+    check_per_step("phase 24 (a) serving", launches,
+                   {"fused_ffn": 24, "rel_flash_attention": 12}, 1)
+    if not all(set(x.split()) <= vocab for x in texts) or len(
+            texts) != N_UTT:
+        raise AssertionError(f"phase 24 (a) serving: texts {texts!r:.300}")
+    buf, lens = s2t.pad_batch(speeches)
+    rec = KernelCalls()
+    with torch.inference_mode(), rec.active():
+        s2t.model.encode(torch.from_numpy(buf).cuda(),
+                         torch.from_numpy(lens).cuda())
+    del s2t
+    return launches, wall, rec.calls
+
+
+def short_fp32_check(torch, what, cfg):
+    """compare_cpu_card of ``cfg`` in fp32 at DROPOUT without SpecAug, on
+    short_batch, from seeded reference-initialised weights."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+    cfg = dataclasses.replace(cfg, dtype="float32", dropout_rate=DROPOUT,
+                              specaug=None)
+    state = ASRTask.init_params(ASRModel(cfg, device="cpu"), 0).state_dict()
+    compare_cpu_card(torch, what, ASRModel, cfg, state,
+                     *short_batch(cfg.vocab_size))
+
+
+def cb_phase(torch, card):
+    """Phase 24 (b): the contextual-block Conformer at the flagship's
+    widths (12 x 256, d_ff 1024, block 40 / hop 16 / look-ahead 16, bf16,
+    DROPOUT, SpecAug): one train step on CB_B x TRAIN_SECONDS s (K2 24
+    each way, K3 none: its blocks' attention takes the eager masked path;
+    K4 and K1 once), one encode of N_UTT x UTT_SECONDS s (K2 24, nothing
+    else), then the fp32 step at 2 blocks card vs CPU. Returns the step's
+    launches."""
+    from espnet_slurp_tpu_torch.models.asr_model import (ASRModel,
+                                                          flagship_config)
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = dataclasses.replace(flagship_config(), dropout_rate=DROPOUT,
+                              encoder="contextual_block_conformer")
+    model = ASRTask.init_params(ASRModel(cfg, device="cuda"), 0)
+    rng = np.random.RandomState(25)
+    batch = train_batch(torch, rng, CB_B, FS * TRAIN_SECONDS, TRAIN_U,
+                        cfg.vocab_size, "cuda")
+    what = (f"phase 24 (b) contextual block train, B={CB_B} x "
+            f"{TRAIN_SECONDS} s, U={TRAIN_U}, dropout {DROPOUT}")
+    launches, routes, _, _ = one_step(torch, what, model, batch, card,
+                                      CB_B * TRAIN_SECONDS)
+    check_per_step(what, launches, flagship_step_want(0, n_ffn=24), 1)
+    check_routes(what, routes, K1_WARP + tuple(K4_BF16_LAUNCHES), 1)
+    speech = train_batch(torch, rng, N_UTT, FS * UTT_SECONDS, 1,
+                         cfg.vocab_size, "cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        hs, hl = model.encode(speech["speech"], speech["speech_lengths"])
+        torch.cuda.synchronize()
+    enc = read_counts()
+    print(f"phase 24 (b) contextual block encode of {N_UTT} x {UTT_SECONDS} "
+          f"s: {time.perf_counter() - t0:.3f} s, hs {tuple(hs.shape)}; "
+          f"launches { {k: v for k, v in enc.items() if v} } on {card}")
+    check_per_step("phase 24 (b) encode", enc, {"fused_ffn": 24}, 1)
+    if not torch.isfinite(hs).all():
+        raise AssertionError("phase 24 (b) encode: non-finite")
+    del model, batch, hs
+    torch.cuda.empty_cache()
+    short_fp32_check(torch, "phase 24 (b) fp32 contextual block step, 2 "
+                     "blocks", dataclasses.replace(cfg, num_encoder_blocks=2))
+    return launches
+
+
+def small_configs():
+    """Phase 24 (c)'s models at the flagship's widths otherwise: the RNN
+    encoders at the reference's defaults (320 units, 4 layers, the rnn
+    encoder's subsampling 1 / 2 / 2 / 1) with the LAS decoder or the
+    dynamic 2-D conv decoder, and a 2-block Conformer behind the Sinc
+    pre-encoder (sliding-window frames), the linear one (80 wide), and
+    before the BERT post-encoder (2 x 256, from scratch)."""
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.ops.frontend import FrontendConfig
+    base = dataclasses.replace(flagship_config(), dropout_rate=DROPOUT)
+    two = dict(num_encoder_blocks=2)
+    return {
+        "vgg_rnn + rnn": dict(encoder="vgg_rnn", decoder="rnn"),
+        "rnn + dynamic_conv2d": dict(encoder="rnn", decoder="dynamic_conv2d"),
+        "sinc": dict(preencoder="sinc",
+                     frontend=FrontendConfig(**SINC_FRONT), **two),
+        "linear": dict(preencoder="linear", preencoder_dim=80, **two),
+        "hf_bert": dict(postencoder="hf_bert", **two),
+    }, base
+
+
+def small_decodes(torch, card, what, cfg, state):
+    """A greedy and a beam (BEAM) decode of SMALL_B x SMALL_SECONDS s
+    through Speech2Text (after the model's train step: the greedy one's
+    wall includes its first calls): each one's RTF, and no counted kernel
+    launched (CTC prefix scores and the decoder run no kernel)."""
+    from espnet_slurp_tpu_torch.tasks.asr import Speech2Text
+    rng = np.random.RandomState(26)
+    speeches = [rng.randn(FS * SMALL_SECONDS).astype(np.float32) * 0.1
+                for _ in range(SMALL_B)]
+    tokens = token_list(cfg.vocab_size)
+    vocab = set(tokens) - {"<sos/eos>"}  # a random decoder may emit blank
+    for beam in (1, BEAM):
+        s2t = Speech2Text(cfg, state, tokens, token_type="word",
+                          max_len=SMALL_MAX_LEN, beam_size=beam,
+                          ctc_weight=CTC_WEIGHT, device="cuda")
+        zero_counts()
+        t0 = time.perf_counter()
+        texts = s2t.decode_batch(speeches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_counts().items() if v}
+        print(f"{what} {'greedy' if beam == 1 else f'beam {beam}'} decode of "
+              f"{SMALL_B} x {SMALL_SECONDS} s: wall {wall:.3f} s, RTF "
+              f"{wall / (SMALL_B * SMALL_SECONDS):.5f}; hypothesis lengths "
+              f"{[len(x.split()) for x in texts]}; launches {launches} on "
+              f"{card}")
+        if not all(set(x.split()) <= vocab for x in texts) or len(
+                texts) != SMALL_B or launches:
+            raise AssertionError(f"{what} decode")
+
+
+def small_phase(torch, card):
+    """Phase 24 (c): each of small_configs() one train step on SMALL_B x
+    SMALL_SECONDS s, U SMALL_U (the RNN encoders: K4 and K1 once each way,
+    no K2 or K3; the 2-block Conformers: K2 4, K3 2, K4 and K1 once); the
+    two RNN models decoded greedily and by beam search; then each one's
+    fp32 step at 2 layers / blocks card vs CPU. Returns the vgg_rnn + rnn
+    step's launches."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cases, base = small_configs()
+    out, laps = None, {}
+    for name, kw in cases.items():
+        cfg = dataclasses.replace(base, **kw)
+        model = ASRTask.init_params(ASRModel(cfg, device="cuda"), 0)
+        batch = train_batch(torch, np.random.RandomState(27), SMALL_B,
+                            FS * SMALL_SECONDS, SMALL_U, cfg.vocab_size,
+                            "cuda")
+        what = f"phase 24 (c) {name}"
+        t0 = time.perf_counter()
+        launches, routes, _, _ = one_step(
+            torch, f"{what} train, B={SMALL_B} x {SMALL_SECONDS} s, "
+            f"U={SMALL_U}, dropout {DROPOUT}", model, batch, card,
+            SMALL_B * SMALL_SECONDS, warm=False)
+        rnn = cfg.encoder in ("rnn", "vgg_rnn")
+        check_per_step(what, launches,
+                       flagship_step_want(0 if rnn else 2), 1)
+        check_routes(what, routes, K1_WARP + tuple(K4_BF16_LAUNCHES), 1)
+        if rnn:
+            state = {k: v.float().cpu() for k, v in
+                     model.state_dict().items()}
+            small_decodes(torch, card, what, cfg, state)
+        if name == "vgg_rnn + rnn":
+            out = launches
+        del model, batch
+        torch.cuda.empty_cache()
+        lap = time.perf_counter()
+        small = dict(rnn_encoder_layers=2) if rnn else {}
+        short_fp32_check(torch, f"{what} fp32 step, 2 "
+                         f"{'layers' if rnn else 'blocks'}",
+                         dataclasses.replace(cfg, **small))
+        laps[name] = (round(lap - t0, 1), round(time.perf_counter() - lap, 1))
+    print(f"phase 24 (c) seconds (card, fp32 card vs CPU): {laps}")
+    return out
+
+
+def encoder_phases(torch, card):
+    """Phase 24 (a)-(d). Returns {column: a step's or an encode's
+    launches} for the kernels line."""
+    laps = {}
+    t0 = time.perf_counter()
+
+    def lap(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        laps[name] = round(time.perf_counter() - t, 1)
+        return res
+
+    eb_step, train_calls, _ = lap("(a) train", eb_train_phase, torch, card)
+    eb_encode, _, serve_calls = lap("(a) serve", eb_serve_phase, torch, card)
+    lap("(a) fp32", short_fp32_check, torch,
+        "phase 24 (a) fp32 E-Branchformer step, 2 blocks",
+        eb_config(num_encoder_blocks=2))
+    worst_train = lap("(d) train", hold_calls, torch, "phase 24 (d) train",
+                      train_calls, True)
+    worst_serve = lap("(d) serve", hold_calls, torch, "phase 24 (d) serve",
+                      serve_calls, False)
+    print(f"phase 24 (d): every K2 / K3 call of one E-Branchformer train "
+          f"forward (both ways) and of one serving encode (forward) against "
+          f"its plain version on the same inputs and seed: (calls, worst "
+          f"forward error, worst backward error, of max|ref|) train "
+          f"{worst_train}, serve {worst_serve} (tolerances "
+          f"{TOL['bfloat16']} and {BWD_PLAIN_TOL}) on {card}")
+    if worst_train.get("K2", (0,))[0] != 24 or worst_train.get(
+            "K3", (0,))[0] != 12 or worst_serve.get("K2", (0,))[0] != 24 \
+            or worst_serve.get("K3", (0,))[0] != 12:
+        raise AssertionError(f"phase 24 (d): calls {worst_train} "
+                             f"{worst_serve}")
+    del train_calls, serve_calls
+    torch.cuda.empty_cache()
+    cb_step = lap("(b)", cb_phase, torch, card)
+    rnn_step = lap("(c)", small_phase, torch, card)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s ({laps})")
+    return {"launches_per_ebranchformer_step": eb_step,
+            "launches_per_ebranchformer_encode": eb_encode,
+            "launches_per_contextual_block_step": cb_step,
+            "launches_per_vgg_rnn_step": rnn_step}
+
+
 def main() -> int:
     import torch
 
@@ -7492,9 +8017,18 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(card)  # exactly as nvidia-smi gives it
+    laps = {}  # phase -> seconds, printed at the end
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        laps[name] = round(time.perf_counter() - t, 1)
+        return out
+
     t0 = time.perf_counter()
     build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    laps["1 build"] = round(time.perf_counter() - t0, 1)
+    print(f"kernel build: {laps['1 build']:.1f} s")
     for line in build.build_log().splitlines():
         if re.search(r"Compiling entry|registers|spill", line):
             print("  " + line.strip())
@@ -7531,28 +8065,30 @@ def main() -> int:
     # hop 128, x4 subsampling).
     n = bucket_length(FS * UTT_SECONDS, 4096)
     t_prime = Conv2dSubsampling.out_length_static(1 + n // 128)
-    kernels = kernel_phase(torch, t_prime)
-    decode_launches, decode_wall = slice_phase(torch, card)
+    kernels = timed("2", kernel_phase, torch, t_prime)
+    decode_launches, decode_wall = timed("3", slice_phase, torch, card)
     t_train = Conv2dSubsampling.out_length_static(
         1 + FS * TRAIN_SECONDS // 128)
-    train_kernels, fwd_train = train_kernel_phase(torch, t_train)
+    train_kernels, fwd_train = timed("4", train_kernel_phase, torch, t_train)
     kernels += train_kernels
-    train_launches, train_step_s, train_peak_mb = train_phase(torch, card)
-    train_cpu_vs_card(torch)
-    dropout = dropout_phase(torch, t_train)
+    train_launches, train_step_s, train_peak_mb = timed("5", train_phase,
+                                                        torch, card)
+    timed("6", train_cpu_vs_card, torch)
+    dropout = timed("7", dropout_phase, torch, t_train)
     t_added = time.perf_counter()
     wmma_kernels, wmma_dh128 = wmma_dropout_phase(torch, t_train)
     default_per_step, default_launches, default_stats = default_train_phase(
         torch, card)
     t_added = time.perf_counter() - t_added
+    laps["12-13"] = round(t_added, 1)
     print(f"WMMA dropout and default ASRConfig train phases: {t_added:.1f} s")
     t_added = time.perf_counter()
     fused_per_step, fused_launches = fused_conv_train_phase(
         torch, card, default_stats, t_train)
-    print(f"ASRConfig(fused_conv=True) train phase: "
-          f"{time.perf_counter() - t_added:.1f} s")
-    tr_kernels, at_tr_shape, k6_fp32 = transducer_kernel_phase(
-        torch, t_train, t_prime)
+    laps["14"] = round(time.perf_counter() - t_added, 1)
+    print(f"ASRConfig(fused_conv=True) train phase: {laps['14']:.1f} s")
+    tr_kernels, at_tr_shape, k6_fp32 = timed(
+        "8", transducer_kernel_phase, torch, t_train, t_prime)
     kernels += tr_kernels
     for kern in kernels:
         kern.update(at_tr_shape.get(kern["name"], {}))
@@ -7567,9 +8103,9 @@ def main() -> int:
         if kern["name"] == "rel_flash_attention_bwd":
             kern["blocks_per_sm"] = {k: blocks[f"{k} Dh 64"]
                                      for k in ("dkv", "dq")}
-    tr_launches, tr_routes = transducer_train_phase(torch, card)
-    transducer_cpu_vs_card(torch)
-    tr_decode = transducer_decode_phase(torch, card)
+    tr_launches, tr_routes = timed("9", transducer_train_phase, torch, card)
+    timed("10", transducer_cpu_vs_card, torch)
+    tr_decode = timed("11", transducer_decode_phase, torch, card)
     for kern in kernels:
         name = kern["name"]
         # Each kernel's count from its own slice's train step: the flagship
@@ -7607,11 +8143,13 @@ def main() -> int:
         kern["launches"] = fused_launches[base]
         kern["launches_per_fused_conv_train_step"] = fused_per_step[base]
     kernels += k6_fp32
-    cli_phase(torch, card, decode_launches, decode_wall, train_step_s)
+    timed("15", cli_phase, torch, card, decode_launches, decode_wall,
+          train_step_s)
     t_added = time.perf_counter()
     recipe_steps, tr_cli_steps, (moe_step, inter_steps) = recipe_phases(
         torch, card, train_step_s)
-    print(f"phases 16-18 and 19 (f): {time.perf_counter() - t_added:.1f} s")
+    laps["16-18, 19 (f)"] = round(time.perf_counter() - t_added, 1)
+    print(f"phases 16-18 and 19 (f): {laps['16-18, 19 (f)']:.1f} s")
     t_added = time.perf_counter()
     tcpgen_step, mbr_step = kb_train_phase(torch, card, train_step_s,
                                            train_peak_mb)
@@ -7624,10 +8162,14 @@ def main() -> int:
     kb_decode_phase(torch, card)
     print(f"phase 19 (d)-(e): {time.perf_counter() - lap:.1f} s; (a)-(e): "
           f"{time.perf_counter() - t_added:.1f} s")
-    slu_step = slu_phases(torch, card, train_step_s)
-    lm_decode = lm_phases(torch, card)
-    ka2g_step, ka2g_entries = ka2g_phases(torch, card, train_step_s)
-    stream_step, stream_tr, maskctc_step = stream_phases(torch, card)
+    laps["19 (a)-(e)"] = round(time.perf_counter() - t_added, 1)
+    slu_step = timed("20", slu_phases, torch, card, train_step_s)
+    lm_decode = timed("21", lm_phases, torch, card)
+    ka2g_step, ka2g_entries = timed("22", ka2g_phases, torch, card,
+                                    train_step_s)
+    stream_step, stream_tr, maskctc_step = timed("23", stream_phases, torch,
+                                                 card)
+    encoder_cols = timed("24", encoder_phases, torch, card)
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):
@@ -7655,9 +8197,11 @@ def main() -> int:
             kern["launches_per_stream_transducer_encode"] = stream_tr.get(
                 base, 0)
             kern["launches_per_maskctc_step"] = maskctc_step.get(base, 0)
+            for col, per in encoder_cols.items():
+                kern[col] = per.get(base, 0)
     kernels += ka2g_entries
     print(f"chip_smoke.py: the whole run {time.perf_counter() - t_start:.1f} "
-          f"s (the kernel build included) on {card}")
+          f"s (the kernel build included) on {card}; by phase (s): {laps}")
     for kern in kernels:
         print(f"{kern['name']}: {kern['ms']:.4f} ms (plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "

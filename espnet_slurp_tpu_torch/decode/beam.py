@@ -4,8 +4,11 @@ Port of espnet_slurp_tpu/decode/beam.py:batch_beam_search: fixed-shape
 [B, K] hypothesis state, decoder scores on the whole vocabulary, CTC prefix
 scores on a pre-beam of P candidates (eos always forced into the last slot),
 length bonus, ended hypotheses frozen proposing only eos at delta 0, and eos
-forced on the last step. The reference's ``lax.while_loop`` is a Python loop
-that stops once every hypothesis has ended.
+forced on the last step. Every decoder's cache (the KV cache, a conv
+decoder's GLU rings, the LAS decoder's LSTM states and attention weights
+``att_prev``) is gathered leaf by leaf along the back-pointers. The
+reference's ``lax.while_loop`` is a Python loop that stops once every
+hypothesis has ended.
 
 Shallow fusion (``lm_step`` / ``lm_init``, reference :240-245): the scorer's
 log-probs join the decoder's as ``att_lp * (1 - ctc_weight) + lm_weight *
@@ -14,7 +17,8 @@ carry, an n-gram's context, nested dicts / lists of tensors) is gathered
 along the beam's back-pointers every step, also for ended hypotheses,
 which the reference does not freeze either. Internal-LM subtraction
 (``ilm_weight``, :221-233) runs the decoder a second time against the
-zeroed encoder memory with its own self-attention cache and scores
+zeroed encoder memory with its own cache (with every decoder: the LAS
+decoder's attends over zeros) and scores
 ``log p_att - ilm_weight * log p_ilm``; it is off under biasing, as in the
 reference, and skipped at weight 0, where the reference's pass changes no
 score (``ilm_weight * log p_ilm`` is 0).
@@ -102,9 +106,8 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
     n = b * k
 
     def beam_memory(x):
-        return {name: {kv: y.repeat_interleave(k, dim=0)
-                       for kv, y in m.items()}
-                for name, m in model.decoder.precompute_memory(x).items()}
+        return tree_map(lambda y: y.repeat_interleave(k, dim=0),
+                        model.decoder.precompute_memory(x))
 
     mem_kv = beam_memory(hs)
     h_lengths_beam = h_lengths.repeat_interleave(k)
@@ -117,11 +120,13 @@ def batch_beam_search(model: ASRModel, hs: torch.Tensor,
     if use_ctc:
         ctc_lp_beam = model.ctc_logprobs(hs).repeat_interleave(k, dim=0)
         ctc = ctc_prefix.init_state(ctc_lp_beam, h_lengths_beam, blank)
-    cache = init_decoder_cache(model, n, l)
+    t_enc = hs.shape[1]
+    cache = init_decoder_cache(model, n, l, t_enc, h_lengths_beam)
     if use_ilm:
         # the ILM pass's layer inputs part from the main pass's after the
         # first cross-attention: it keeps its own self-attention cache
-        cache = {"main": cache, "ilm": init_decoder_cache(model, n, l)}
+        cache = {"main": cache, "ilm": init_decoder_cache(
+            model, n, l, t_enc, h_lengths_beam)}
     lm_state = lm_init(n) if lm_init is not None else None
     use_lm = lm_step is not None and w_lm > 0.0
     sel = None if biasing is None else biasing.get("selection")

@@ -11,11 +11,19 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.asr_model import ASRModel
+from ..models.rnn_decoder import RNNDecoder
 from ..utils.device import host_bool
 
 
-def init_decoder_cache(model: ASRModel, batch: int, max_len: int):
-    """Zeroed self-attention KV cache of the model's decoder."""
+def init_decoder_cache(model: ASRModel, batch: int, max_len: int,
+                       t_enc: int = 0, memory_lengths=None):
+    """The decoder's initial cache: the Transformer decoder's zeroed
+    self-attention KV cache (or a conv decoder's GLU rings) for
+    ``max_len`` steps; the LAS decoder's zero LSTM states and its first
+    attention weights, uniform over the first memory_lengths of ``t_enc``
+    frames (over all of them without ``memory_lengths``)."""
+    if isinstance(model.decoder, RNNDecoder):
+        return model.decoder.init_cache(batch, t_enc, memory_lengths)
     return model.decoder.init_cache(batch, max_len)
 
 
@@ -36,7 +44,7 @@ def attention_greedy_decode(model: ASRModel, hs: torch.Tensor,
     b = hs.shape[0]
     sos, eos = cfg.sos_id, cfg.eos_id
     mem_kv = model.decoder.precompute_memory(hs)
-    cache = init_decoder_cache(model, b, max_len)
+    cache = init_decoder_cache(model, b, max_len, hs.shape[1], h_lengths)
     tokens = torch.full((b, max_len), eos, dtype=torch.long, device=hs.device)
     y = torch.full((b,), sos, dtype=torch.long, device=hs.device)
     ended = torch.zeros(b, dtype=torch.bool, device=hs.device)

@@ -2,11 +2,12 @@
 
 Port of espnet_slurp_tpu/models/asr_model.py: ``ASRConfig`` (with the
 reference's fields and defaults) and the field set of ``Wav2Vec2Config``,
-``build_encoder`` (the encoder choice: conformer, transformer, longformer
-or one registered in utils/registry.py), ``add_sos_eos``,
+``build_encoder`` (the encoder choice), ``build_decoder``, the pre- and
+post-encoder builders, ``add_sos_eos``,
 ``label_smoothing_loss`` and ``ASRModel`` with ``encode`` (frontend, or a
-feature dump with ``input_feats`` -> SpecAug when training -> MVN ->
-encoder), ``ctc_logprobs``, ``decoder_logits`` and ``forward`` (the
+feature dump with ``input_feats`` -> SpecAug when training -> MVN -> the
+pre-encoder, if any -> encoder -> the post-encoder, if any),
+``ctc_logprobs``, ``decoder_logits`` and ``forward`` (the
 training loss: CTC through the fused head K4 and the lattice K1, the
 interCTC taps through K4 and K1 (with self-conditioning through K1 from
 the taps' logits), the MoE load-balance loss, and label-smoothed CE on
@@ -14,8 +15,16 @@ the decoder, or with ``use_tcpgen`` and a biasing batch the TCPGen
 branch: the decoder's hidden queries the pointer over the batch's trie,
 the mixed distribution takes the CE, and the pointer and gate losses join
 it). ``unported_options`` names the values that select a path not ported
-yet. Parameters are fp32 and every layer computes in ``cfg.dtype``, as
-the flax modules do (models/layers.py).
+yet. The encoders are the reference's: conformer, E-Branchformer
+(models/branchformer.py), transformer, longformer, the contextual-block
+Conformer (models/contextual_block.py), RNN and VGG-RNN
+(models/rnn_encoders.py), or one registered in utils/registry.py; the
+decoders the Transformer decoder, with its self-attention or a lightweight
+/ dynamic conv (models/lightconv.py), and the LAS decoder
+(models/rnn_decoder.py); the pre-encoders sinc and linear
+(models/preencoder.py) and the BERT post-encoder (models/postencoder.py).
+Parameters are fp32 and every layer computes in ``cfg.dtype``, as the
+flax modules do (models/layers.py).
 """
 from __future__ import annotations
 
@@ -34,8 +43,14 @@ from ..ops.specaug import SpecAugConfig, specaug
 from ..utils.config import PORT_ONLY
 from ..utils.device import resolve_device
 from ..utils.registry import encoders
+from .branchformer import EBranchformerEncoder
 from .conformer import ConformerEncoder
+from .contextual_block import ContextualBlockConformerEncoder
 from .layers import Linear
+from .postencoder import HFTransformersPostencoder
+from .preencoder import LightweightSincConvs, LinearPreencoder
+from .rnn_decoder import RNNDecoder
+from .rnn_encoders import RNNEncoder, VGGRNNEncoder
 from .tcpgen import TCPGen, tcpgen_final_logprobs
 from .transformer import TransformerDecoder, TransformerEncoder
 
@@ -46,7 +61,8 @@ IGNORE_ID = -1
 class Wav2Vec2Config:
     """The fields of the reference's models/wav2vec2.py:Wav2Vec2Config, so
     that a config naming them loads. The wav2vec2 encoder is not ported yet
-    (ROADMAP.md queue 1 item 15): ``encoder: wav2vec2`` raises."""
+    (ROADMAP.md queue 1 item 15, slice 29): ``encoder: wav2vec2``
+    raises."""
     conv_dim: Sequence[int] = (512, 512, 512, 512, 512, 512, 512)
     conv_kernel: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
     conv_stride: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
@@ -78,8 +94,7 @@ class ASRConfig:
     vocab_size: int = 5000
     # conformer | ebranchformer | transformer | longformer |
     # contextual_block_conformer | rnn | vgg_rnn | wav2vec2, or one
-    # registered in utils/registry.py: the port builds conformer,
-    # transformer, longformer and registered ones.
+    # registered in utils/registry.py: the port builds all but wav2vec2.
     encoder: str = "conformer"
     # Precomputed-feature input (a stage-3 feature dump): ``speech`` is a
     # [B, T, input_feats_dim or n_mels] matrix past the frontend.
@@ -92,7 +107,7 @@ class ASRConfig:
     hop_size: int = 16
     look_ahead: int = 16
     # transformer | rnn | lightweight_conv | lightweight_conv2d |
-    # dynamic_conv | dynamic_conv2d: the port builds the transformer.
+    # dynamic_conv | dynamic_conv2d
     decoder: str = "transformer"
     decoder_conv_wshare: int = 4
     decoder_conv_kernel: int = 11
@@ -190,8 +205,42 @@ def flagship_config() -> ASRConfig:
 
 
 # The reference's built-in encoders that the port does not build yet.
-UNPORTED_ENCODERS = ("ebranchformer", "wav2vec2", "rnn", "vgg_rnn",
-                     "contextual_block_conformer")
+UNPORTED_ENCODERS = ("wav2vec2",)
+
+# The decoder choice -> the Transformer decoder's self-attention type, as
+# the reference's ASRModel maps it ("rnn" is the LAS decoder instead).
+DECODER_SELFATTN = {"transformer": "selfattn",
+                    "lightweight_conv": "lightconv",
+                    "lightweight_conv2d": "lightconv2d",
+                    "dynamic_conv": "dynamicconv",
+                    "dynamic_conv2d": "dynamicconv2d"}
+
+# ASRConfig's encoder options that the reference's encoder of each name
+# takes no notice of: a value away from the default raises
+# (``refuse_ignored_encoder_options``) rather than being dropped.
+_IGNORED = ("input_layer", "subsampling_factor", "moe_experts",
+            "stochastic_depth_rate", "remat_encoder", "self_conditioning",
+            "fused_conv")
+IGNORED_ENCODER_OPTIONS = {
+    "ebranchformer": _IGNORED,
+    "contextual_block_conformer": _IGNORED + ("interctc_layers",
+                                              "chunk_size"),
+    "rnn": _IGNORED + ("interctc_layers", "chunk_size"),
+    "vgg_rnn": _IGNORED + ("interctc_layers", "chunk_size"),
+}
+
+
+def refuse_ignored_encoder_options(cfg: ASRConfig) -> None:
+    """Raises naming the fields of ``cfg`` away from their defaults that its
+    encoder, as the reference builds it, ignores (ROADMAP.md queue 3)."""
+    d = ASRConfig()
+    ignored = [f for f in IGNORED_ENCODER_OPTIONS.get(cfg.encoder, ())
+               if getattr(cfg, f) != getattr(d, f)]
+    if ignored:
+        raise NotImplementedError(
+            f"encoder {cfg.encoder!r} takes no " + ", ".join(ignored)
+            + ": the reference's builds it without them and ignores them "
+            "(ROADMAP.md queue 3, the encoders' ignored options)")
 
 
 def unported_options(cfg: ASRConfig) -> List[str]:
@@ -199,13 +248,8 @@ def unported_options(cfg: ASRConfig) -> List[str]:
     its ROADMAP.md queue 1 item; empty when the port builds ``cfg``."""
     todo = []
     if cfg.encoder in UNPORTED_ENCODERS:
-        todo.append(f"encoder {cfg.encoder!r} (the other encoders: queue 1 "
+        todo.append(f"encoder {cfg.encoder!r} (the SSL encoders: queue 1 "
                     "item 15)")
-    if cfg.decoder != "transformer":
-        todo.append(f"decoder {cfg.decoder!r} (rnn / lightconv decoders: "
-                    "queue 1 item 15)")
-    if cfg.preencoder or cfg.postencoder:
-        todo.append("preencoder / postencoder (queue 1 item 15)")
     if cfg.wav2vec2 is not None:
         todo.append("wav2vec2 (the SSL encoder: queue 1 item 15)")
     if cfg.ssl_num_layers > 0:
@@ -219,11 +263,51 @@ def unported_options(cfg: ASRConfig) -> List[str]:
 
 
 def input_dim(cfg: ASRConfig) -> int:
-    """The width of the features the encoder takes: the dump's with
+    """The width of the features past the frontend: the dump's with
     ``input_feats``, else the frontend's (ops/frontend.py:feature_dim)."""
     if cfg.input_feats:
         return cfg.input_feats_dim or cfg.frontend.n_mels
     return feature_dim(cfg.frontend)
+
+
+def encoder_input_dim(cfg: ASRConfig) -> int:
+    """The width the encoder takes: the pre-encoder's output, if any, else
+    the features'."""
+    if cfg.preencoder == "linear":
+        return cfg.preencoder_dim
+    if cfg.preencoder == "sinc":
+        return (LightweightSincConvs.out_width(input_dim(cfg))
+                * cfg.preencoder_dim)
+    return input_dim(cfg)
+
+
+def build_preencoder(cfg: ASRConfig) -> Optional[nn.Module]:
+    """The pre-encoder of ``cfg``: "sinc" (over sliding-window frames),
+    "linear", or None for ""."""
+    if cfg.preencoder == "sinc":
+        return LightweightSincConvs(cfg.preencoder_dim,
+                                    fs=float(cfg.frontend.fs),
+                                    scale=cfg.preencoder_scale)
+    if cfg.preencoder == "linear":
+        return LinearPreencoder(input_dim(cfg), cfg.preencoder_dim)
+    if cfg.preencoder:
+        raise ValueError(f"preencoder must be sinc|linear, got "
+                         f"{cfg.preencoder!r}")
+    return None
+
+
+def build_postencoder(cfg: ASRConfig) -> Optional[nn.Module]:
+    """The post-encoder of ``cfg``: "hf_bert", or None for ""."""
+    if cfg.postencoder == "hf_bert":
+        return HFTransformersPostencoder(
+            cfg.d_model, cfg.postencoder_hidden, cfg.postencoder_layers,
+            cfg.postencoder_heads, cfg.postencoder_ff,
+            cfg.postencoder_length_adaptor, cfg.postencoder_hf_dir,
+            dtype=cfg.torch_dtype)
+    if cfg.postencoder:
+        raise ValueError(f"postencoder must be hf_bert, got "
+                         f"{cfg.postencoder!r}")
+    return None
 
 
 def build_encoder(cfg: ASRConfig) -> nn.Module:
@@ -234,7 +318,8 @@ def build_encoder(cfg: ASRConfig) -> nn.Module:
     todo = unported_options(cfg)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
-    c, idim = cfg, input_dim(cfg)
+    refuse_ignored_encoder_options(cfg)
+    c, idim = cfg, encoder_input_dim(cfg)
     if c.encoder == "conformer":
         return ConformerEncoder(
             idim, c.d_model, c.n_head, c.d_ff, c.num_encoder_blocks,
@@ -248,9 +333,31 @@ def build_encoder(cfg: ASRConfig) -> nn.Module:
             input_layer=c.input_layer,
             stochastic_depth_rate=c.stochastic_depth_rate,
             self_cond_vocab=c.vocab_size if c.self_conditioning else 0)
+    if c.encoder == "ebranchformer":
+        return EBranchformerEncoder(
+            idim, c.d_model, c.n_head, c.d_ff, c.num_encoder_blocks,
+            cgmlp_hidden=2 * c.d_ff, kernel_size=c.kernel_size,
+            dropout_rate=c.dropout_rate, interctc_layers=c.interctc_layers,
+            chunk_size=c.chunk_size, left_chunks=c.left_chunks,
+            flash=c.flash_attention)
     if c.encoder == "transformer":
         return TransformerEncoder(idim, c.d_model, c.n_head, c.d_ff,
                                   c.num_encoder_blocks, c.dropout_rate)
+    if c.encoder == "contextual_block_conformer":
+        return ContextualBlockConformerEncoder(
+            idim, c.d_model, c.n_head, c.d_ff, c.num_encoder_blocks,
+            c.kernel_size, c.dropout_rate, block_size=c.block_size,
+            hop_size=c.hop_size, look_ahead=c.look_ahead,
+            flash=c.flash_attention)
+    if c.encoder == "rnn":
+        return RNNEncoder(idim, c.d_model, c.rnn_encoder_units,
+                          c.rnn_encoder_layers,
+                          subsample=c.rnn_encoder_subsample,
+                          dropout_rate=c.dropout_rate)
+    if c.encoder == "vgg_rnn":
+        return VGGRNNEncoder(idim, c.d_model, c.rnn_encoder_units,
+                             c.rnn_encoder_layers,
+                             dropout_rate=c.dropout_rate)
     if c.encoder == "longformer":
         # The sliding-window conformer: the band is an additive mask over
         # the eager attention, as the reference's (flash "off").
@@ -262,20 +369,43 @@ def build_encoder(cfg: ASRConfig) -> nn.Module:
     if c.encoder in encoders:
         return encoders.get(c.encoder)(c, idim)
     raise ValueError(
-        f"unknown encoder {c.encoder!r}; builtins: conformer, transformer, "
-        f"longformer; registered: {encoders.choices()}")
+        f"unknown encoder {c.encoder!r}; builtins: conformer, ebranchformer, "
+        f"transformer, longformer, contextual_block_conformer, rnn, vgg_rnn; "
+        f"registered: {encoders.choices()}")
+
+
+def build_decoder(cfg: ASRConfig) -> nn.Module:
+    """The decoder of ``cfg.decoder``: the LAS decoder for "rnn", else the
+    Transformer decoder with DECODER_SELFATTN's self-attention type."""
+    c = cfg
+    if c.decoder == "rnn":
+        return RNNDecoder(c.vocab_size, c.d_model, c.rnn_decoder_units,
+                          c.rnn_decoder_layers, dtype=c.torch_dtype)
+    if c.decoder not in DECODER_SELFATTN:
+        raise ValueError(f"unknown decoder {c.decoder!r}; choices: rnn, "
+                         + ", ".join(DECODER_SELFATTN))
+    return TransformerDecoder(
+        c.vocab_size, c.d_model, c.n_head, c.decoder_d_ff,
+        c.num_decoder_blocks, dtype=c.torch_dtype,
+        selfattn_type=DECODER_SELFATTN[c.decoder],
+        conv_wshare=c.decoder_conv_wshare, conv_kernel=c.decoder_conv_kernel,
+        conv_usebias=c.decoder_conv_usebias)
 
 
 def encode_speech(cfg: ASRConfig, encoder: nn.Module,
                   speech: torch.Tensor, speech_lengths: torch.Tensor,
                   mvn_stats=None, train: bool = False,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  preencoder: Optional[nn.Module] = None,
+                  postencoder: Optional[nn.Module] = None):
     """Frontend (or, with ``cfg.input_feats``, the [B, T, D] feature dump
     as given) -> SpecAug (when ``train`` with ``cfg.specaug`` and a
-    ``generator``) -> MVN -> ``encoder`` (with ``train``, dropout at
-    ``cfg.dropout_rate`` drawn from ``generator``), in ``cfg.dtype``: the
-    encode of every model built on the ASR stack. Returns the encoder's
-    (hs, h_lengths, taps)."""
+    ``generator``) -> MVN -> ``preencoder`` (if given; its output cast to
+    ``cfg.dtype``) -> ``encoder`` (with ``train``, dropout at
+    ``cfg.dropout_rate`` drawn from ``generator``) -> ``postencoder`` (if
+    given), in ``cfg.dtype``: the encode of every model built on the ASR
+    stack. Returns the encoder's (hs, h_lengths, taps), hs and h_lengths
+    past the post-encoder."""
     if cfg.input_feats:
         feats, feat_lengths = speech.float(), speech_lengths
     else:
@@ -287,7 +417,13 @@ def encode_speech(cfg: ASRConfig, encoder: nn.Module,
         feats = global_mvn(feats, feat_lengths, *mvn_stats)
     elif cfg.use_mvn == "utterance":
         feats = utterance_mvn(feats, feat_lengths)
-    return encoder(feats.to(cfg.torch_dtype), feat_lengths, train, generator)
+    feats = feats.to(cfg.torch_dtype)
+    if preencoder is not None:
+        feats = preencoder(feats, train, generator).to(cfg.torch_dtype)
+    hs, h_lengths, taps = encoder(feats, feat_lengths, train, generator)
+    if postencoder is not None:
+        hs, h_lengths = postencoder(hs, h_lengths)
+    return hs, h_lengths, taps
 
 
 def add_sos_eos(ys: torch.Tensor, ys_lengths: torch.Tensor, sos: int,
@@ -339,10 +475,13 @@ class ASRModel(nn.Module):
         self.cfg = cfg
         c = cfg
         self.encoder = build_encoder(c)
+        pre, post = build_preencoder(c), build_postencoder(c)
+        if pre is not None:
+            self.preencoder = pre
+        if post is not None:
+            self.postencoder = post
         self.ctc_proj = Linear(c.d_model, c.vocab_size)
-        self.decoder = TransformerDecoder(c.vocab_size, c.d_model, c.n_head,
-                                          c.decoder_d_ff, c.num_decoder_blocks,
-                                          dtype=c.torch_dtype)
+        self.decoder = build_decoder(c)
         if c.use_tcpgen:
             self.tcpgen = TCPGen(c.d_model, c.vocab_size,
                                  c.tcpgen_gcn_layers,
@@ -353,6 +492,12 @@ class ASRModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.ctc_proj.weight.device
+
+    def _encode(self, speech, speech_lengths, mvn_stats, train, generator):
+        return encode_speech(self.cfg, self.encoder, speech, speech_lengths,
+                             mvn_stats, train, generator,
+                             getattr(self, "preencoder", None),
+                             getattr(self, "postencoder", None))
 
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                mvn_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -365,9 +510,8 @@ class ASRModel(nn.Module):
         a ``generator`` the features are augmented, and with ``train`` the
         encoder drops at ``cfg.dropout_rate`` (every draw from the
         generator)."""
-        hs, h_lengths, _ = encode_speech(self.cfg, self.encoder, speech,
-                                         speech_lengths, mvn_stats, train,
-                                         generator)
+        hs, h_lengths, _ = self._encode(speech, speech_lengths, mvn_stats,
+                                        train, generator)
         return hs, h_lengths
 
     def ctc_logprobs(self, hs: torch.Tensor) -> torch.Tensor:
@@ -423,9 +567,8 @@ class ASRModel(nn.Module):
         tcpgen_gate_loss_weight, scaled by ``smoothprob_scale``) join the
         loss. ``smoothprob_scale`` scales p_gen (the pointer ramp)."""
         c = self.cfg
-        hs, h_lengths, taps = encode_speech(
-            c, self.encoder, speech, speech_lengths, mvn_stats, train,
-            generator)
+        hs, h_lengths, taps = self._encode(speech, speech_lengths, mvn_stats,
+                                           train, generator)
         stats = {}
         loss = torch.zeros((), device=hs.device)
         moe_aux = dict(taps).get("moe_aux")

@@ -33,8 +33,7 @@ from ..ops.masks import attention_bias, causal_mask, length_mask
 from ..utils.device import resolve_device
 from .conformer import LN_EPS
 from .embedding import abs_positional_encoding, sinusoid_table
-from .layers import LayerNorm, Linear
-from .transducer import LSTMLayer
+from .layers import LSTMLayer, LayerNorm, Linear
 from .transformer import CachedAttention, FeedForward
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

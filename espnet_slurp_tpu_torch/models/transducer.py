@@ -28,7 +28,7 @@ from ..ops.transducer import rnnt_loss_from_logprobs, rnnt_loss_mean
 from ..utils import device as device_mod
 from ..utils.device import resolve_device
 from .asr_model import ASRConfig, build_encoder, encode_speech
-from .layers import Linear
+from .layers import Linear, LSTMLayer
 from .tcpgen import TCPGen
 
 Carry = List[Tuple[torch.Tensor, torch.Tensor]]  # per layer (c, h), fp32
@@ -56,50 +56,6 @@ def transducer_flagship_config() -> TransducerConfig:
                       dropout_rate=0.1, ctc_weight=0.0, dtype="bfloat16"),
         prediction="lstm", pred_layers=1, pred_dim=256, joint_dim=256,
         aux_ctc_weight=0.3)
-
-
-class LSTMLayer(nn.Module):
-    """One layer of flax's ``nn.OptimizedLSTMCell`` over time:
-    z = W_ih x + W_hh h + b_hh (no input-side bias), gates i, f, g, o in
-    that order; c' = f c + i g, h' = o tanh(c'). The products run in the
-    input's dtype, c and h in fp32."""
-
-    def __init__(self, in_dim: int, hidden: int):
-        super().__init__()
-        self.hidden = hidden
-        bound = hidden ** -0.5
-        self.weight_ih = nn.Parameter(
-            torch.empty(4 * hidden, in_dim).uniform_(-bound, bound))
-        self.weight_hh = nn.Parameter(
-            torch.empty(4 * hidden, hidden).uniform_(-bound, bound))
-        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
-
-    def project(self, x: torch.Tensor) -> torch.Tensor:
-        """W_ih x for every step at once, in x's dtype."""
-        return F.linear(x, self.weight_ih.to(x.dtype))
-
-    def cell(self, xp: torch.Tensor, carry: Tuple[torch.Tensor, torch.Tensor]):
-        """One step from the projected input xp [B, 4P]: -> (c', h')."""
-        c, h = carry
-        dt = xp.dtype
-        z = xp + F.linear(h.to(dt), self.weight_hh.to(dt), self.bias_hh.to(dt))
-        s = torch.sigmoid(z)
-        p = self.hidden
-        i, f, o = s[..., :p], s[..., p:2 * p], s[..., 3 * p:]
-        g = torch.tanh(z[..., 2 * p:3 * p])
-        c = f.float() * c + (i * g).float()
-        return c, o.float() * torch.tanh(c)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, L, in] -> [B, L, P] (fp32), from a zero carry."""
-        xp = self.project(x)
-        b = x.shape[0]
-        zero = torch.zeros(b, self.hidden, device=x.device)
-        carry, outs = (zero, zero), []
-        for t in range(x.shape[1]):
-            carry = self.cell(xp[:, t], carry)
-            outs.append(carry[1])
-        return torch.stack(outs, 1)
 
 
 class PredictionNetwork(nn.Module):

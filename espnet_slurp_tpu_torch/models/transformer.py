@@ -2,7 +2,9 @@
 and the abs-pos Transformer encoder.
 
 Port of espnet_slurp_tpu/models/transformer.py (CachedAttention, the relu
-FeedForward, DecoderLayer, TransformerDecoder and TransformerEncoder; the
+FeedForward, DecoderLayer and TransformerDecoder, with the self-attention
+or a lightweight / dynamic conv (models/lightconv.py) by
+``selfattn_type``, and TransformerEncoder; the
 encoder has no kernel of its own: its attention is the eager
 models/attention.py:MultiHeadAttention, as the reference's has no Pallas
 call). The cache is a dict of
@@ -25,6 +27,7 @@ from .conformer import LN_EPS
 from .embedding import (Conv2dSubsampling, abs_positional_encoding,
                         sinusoid_table)
 from .layers import LayerNorm, Linear
+from .lightconv import LightweightConvolution
 
 
 class CachedAttention(nn.Module):
@@ -73,13 +76,30 @@ class FeedForward(nn.Module):
         return self.w2(F.relu(self.w1(x)))
 
 
-class DecoderLayer(nn.Module):
-    """Pre-norm self-attention, cross-attention and relu FFN."""
+# The decoder's self-attention replacements (models/lightconv.py), by
+# ``selfattn_type``: (two_dim, dynamic).
+CONV_SELFATTN = {"lightconv": (False, False), "lightconv2d": (True, False),
+                 "dynamicconv": (False, True), "dynamicconv2d": (True, True)}
 
-    def __init__(self, d_model: int, n_head: int, d_ff: int):
+
+class DecoderLayer(nn.Module):
+    """Pre-norm self-attention (or, with ``selfattn_type`` other than
+    "selfattn", the causal lightweight / dynamic conv of CONV_SELFATTN),
+    cross-attention and relu FFN."""
+
+    def __init__(self, d_model: int, n_head: int, d_ff: int,
+                 selfattn_type: str = "selfattn", conv_wshare: int = 4,
+                 conv_kernel: int = 11, conv_usebias: bool = False):
         super().__init__()
+        self.selfattn_type = selfattn_type
         self.norm1 = LayerNorm(d_model, eps=LN_EPS)
-        self.self_attn = CachedAttention(n_head, d_model)
+        if selfattn_type == "selfattn":
+            self.self_attn = CachedAttention(n_head, d_model)
+        else:
+            two_dim, dynamic = CONV_SELFATTN[selfattn_type]
+            self.self_attn = LightweightConvolution(
+                conv_wshare, d_model, conv_kernel, use_bias=conv_usebias,
+                two_dim=two_dim, dynamic=dynamic)
         self.norm2 = LayerNorm(d_model, eps=LN_EPS)
         self.src_attn = CachedAttention(n_head, d_model)
         self.norm3 = LayerNorm(d_model, eps=LN_EPS)
@@ -87,7 +107,12 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, self_bias, memory, mem_bias):
         h = self.norm1(x)
-        x = x + self.self_attn(h, h, self_bias)
+        if self.selfattn_type == "selfattn":
+            x = x + self.self_attn(h, h, self_bias)
+        else:
+            # the causal conv is the autoregressive mask; padded tails
+            # reach only padded rows
+            x = x + self.self_attn(h)
         k, v = self.src_attn.project_kv(memory)
         x = x + self.src_attn.attend(self.norm2(x), k, v, mem_bias)
         return x + self.ff(self.norm3(x))
@@ -95,13 +120,18 @@ class DecoderLayer(nn.Module):
     def step(self, x_t, cache_k, cache_v, step_idx: int, self_bias, mem_k,
              mem_v, mem_bias):
         """One decode step; x_t [B, 1, D]. Writes row ``step_idx`` of
-        cache_k/cache_v [B, Lmax, H, Dh] in place. Returns (y_t, cache_k,
+        cache_k/cache_v [B, Lmax, H, Dh] in place (a conv layer: its GLU
+        ring in cache_k, cache_v unused). Returns (y_t, cache_k,
         cache_v)."""
         h = self.norm1(x_t)
-        k_t, v_t = self.self_attn.project_kv(h)
-        cache_k[:, step_idx] = k_t[:, 0]
-        cache_v[:, step_idx] = v_t[:, 0]
-        x_t = x_t + self.self_attn.attend(h, cache_k, cache_v, self_bias)
+        if self.selfattn_type == "selfattn":
+            k_t, v_t = self.self_attn.project_kv(h)
+            cache_k[:, step_idx] = k_t[:, 0]
+            cache_v[:, step_idx] = v_t[:, 0]
+            x_t = x_t + self.self_attn.attend(h, cache_k, cache_v, self_bias)
+        else:
+            y, cache_k = self.self_attn.step(h, cache_k, step_idx)
+            x_t = x_t + y
         x_t = x_t + self.src_attn.attend(self.norm2(x_t), mem_k, mem_v,
                                          mem_bias)
         return x_t + self.ff(self.norm3(x_t)), cache_k, cache_v
@@ -110,17 +140,23 @@ class DecoderLayer(nn.Module):
 class TransformerDecoder(nn.Module):
     """Pre-norm Transformer decoder with an embedding + abs-PE input.
     Parameters stay fp32; ``dtype`` is the compute dtype (the embedding's
-    output and the KV cache)."""
+    output and the KV cache). ``selfattn_type`` "selfattn" or one of
+    CONV_SELFATTN replaces every layer's self-attention."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_head: int = 4,
                  d_ff: int = 2048, num_blocks: int = 6,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 selfattn_type: str = "selfattn", conv_wshare: int = 4,
+                 conv_kernel: int = 11, conv_usebias: bool = False):
         super().__init__()
         self.vocab_size, self.d_model, self.n_head = vocab_size, d_model, n_head
         self.num_blocks, self.dtype = num_blocks, dtype
+        self.selfattn_type = selfattn_type
         self.embed = nn.Embedding(vocab_size, d_model)
         for i in range(num_blocks):
-            self.add_module(f"layer_{i}", DecoderLayer(d_model, n_head, d_ff))
+            self.add_module(f"layer_{i}", DecoderLayer(
+                d_model, n_head, d_ff, selfattn_type, conv_wshare,
+                conv_kernel, conv_usebias))
         self.after_norm = LayerNorm(d_model, eps=LN_EPS)
         self.output = Linear(d_model, vocab_size)
 
@@ -158,6 +194,13 @@ class TransformerDecoder(nn.Module):
         dh = self.d_model // self.n_head
         dtype = self.dtype
         device = device or self.output.weight.device
+        if self.selfattn_type != "selfattn":
+            # a GLU ring per layer; "v" an empty placeholder, so the cache
+            # keeps the self-attention layout
+            return {f"layer_{i}": {
+                "k": layer.self_attn.init_cache(batch, max_len, dtype, device),
+                "v": torch.zeros(batch, 0, dtype=dtype, device=device)}
+                for i, layer in enumerate(self.layers)}
         z = lambda: torch.zeros(batch, max_len, self.n_head, dh, dtype=dtype,
                                 device=device)
         return {f"layer_{i}": {"k": z(), "v": z()}

@@ -26,7 +26,10 @@ train and valid waveforms in card memory (data/resident.py) and gathers
 each batch's speech there. ``model_arch: maskctc`` trains
 models/maskctc.py:MaskCTCModel (its target masks drawn from the train
 step's generator; no MBR term, as the reference's) and
-``Speech2TextMaskCTC`` decodes it. Config values that select paths
+``Speech2TextMaskCTC`` decodes it. Every encoder, decoder, pre- and
+post-encoder of models/asr_model.py trains and decodes here (with
+``postencoder_hf_dir`` the BERT's weights are grafted in at the start of
+training). Config values that select paths
 not ported yet raise, naming their queue item in ROADMAP.md:
 ``pipeline_stages > 1``,
 ``num_att_plot > 0``, ``data.multichannel``,
@@ -62,11 +65,15 @@ from ..decode.greedy import attention_greedy_decode
 from ..decode.lattice import LatticeConfig, lattice_rescore_decode
 from ..decode.ngram import ArpaLM, make_ngram_fusion
 from ..decode.timesync import TimeSyncConfig, ctc_timesync_beam_search
-from ..models.asr_model import ASRConfig, ASRModel, unported_options
+from ..models.asr_model import (ASRConfig, ASRModel,
+                                refuse_ignored_encoder_options,
+                                unported_options)
+from ..models.lightconv import LightweightConvolution
 from ..models.maskctc import MaskCTCModel
 from ..models.moe import MoEFeedForward
+from ..models.preencoder import SincConv
 from ..models.tcpgen import GATTreeEncoder, TCPGen
-from ..models.transducer import LSTMLayer
+from ..models.layers import LSTMLayer
 from ..ops.frontend import default_frontend
 from ..ops.normalize import mvn_tensors
 from ..slu.kb import boundary_token_ids, build_trie
@@ -159,7 +166,9 @@ def load_task_config(path: str | None = None, overrides: Dict | None = None
 
 
 def refuse_unported(cfg: ASRTaskConfig) -> None:
-    """Raises for a config value that selects a path not ported yet."""
+    """Raises for a config value that selects a path not ported yet, and
+    for an encoder option that the chosen encoder ignores
+    (models/asr_model.py:refuse_ignored_encoder_options)."""
     todo = []
     if cfg.pipeline_stages > 1:
         todo.append("pipeline_stages > 1 (pipeline parallelism: queue 1 "
@@ -176,6 +185,7 @@ def refuse_unported(cfg: ASRTaskConfig) -> None:
     todo += unported_options(cfg.model)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    refuse_ignored_encoder_options(cfg.model)
 
 
 # flax's lecun_normal: a normal truncated at two standard deviations,
@@ -367,7 +377,10 @@ class ASRTask:
         in, out] lecun_normal with flax's fan_in of E x in, their biases
         0; the attention's pos_bias_u / pos_bias_v 0; TCPGen's ooKBemb
         N(0, 0.02^2) and its GAT tree encoder's a_src / a_tgt N(0, 0.1^2),
-        bias 0. Any other parameter raises. Returns the model."""
+        bias 0; a SincConv's band edges ``f`` its scale's bank over fs; a
+        lightweight conv's kernels ``weight`` / ``weight_f`` U[0, 1)
+        (flax's uniform(1.0)), its ``bias`` 0. Any other parameter raises.
+        Returns the model."""
         gen = torch.Generator().manual_seed(seed)
         done = set()
         with torch.no_grad():
@@ -410,6 +423,15 @@ class ASRTask:
                 elif isinstance(m, TCPGen):
                     m.ooKBemb.copy_(torch.randn(m.ooKBemb.shape,
                                                 generator=gen) * 0.02)
+                elif isinstance(m, SincConv):
+                    m.f.copy_(m.initial_bands())
+                elif isinstance(m, LightweightConvolution):
+                    for name in ("weight", "weight_f"):
+                        if hasattr(m, name):
+                            p = getattr(m, name)
+                            p.copy_(torch.rand(p.shape, generator=gen))
+                    if m.use_bias:
+                        m.bias.zero_()
                 elif isinstance(m, GATTreeEncoder):
                     for name, p in m.named_parameters(recurse=False):
                         if name.startswith("bias_l"):
@@ -427,6 +449,24 @@ class ASRTask:
                     raise ValueError(f"init_params: no initializer for {name}")
                 p.zero_()
         return model
+
+    @staticmethod
+    def load_postencoder_weights(model: nn.Module,
+                                 model_cfg: ASRConfig) -> None:
+        """Grafts the local HF BERT checkpoint ``postencoder_hf_dir`` into
+        the post-encoder's ``bert``, byte for byte (the reference's
+        load_postencoder_weights, the SLU postdecoder's graft path), but
+        the word embedding, which the post-encoder does not hold (it feeds
+        inputs_embeds); nothing without a directory."""
+        if model_cfg.postencoder != "hf_bert" \
+                or not model_cfg.postencoder_hf_dir:
+            return
+        from ..models.hf_transformer import load_bert_from_dir
+        _, sd = load_bert_from_dir(model_cfg.postencoder_hf_dir,
+                                   device="cpu")
+        model.postencoder.bert.load_state_dict(
+            {k: v for k, v in sd.items()
+             if not k.startswith("word_embeddings.")})
 
     @staticmethod
     def load_init_params(model: nn.Module, path: str) -> None:
@@ -482,6 +522,8 @@ class ASRTask:
 
         model = cls.build_model(model_cfg, cfg.model_arch, dev)
         cls.init_params(model, cfg.data.seed)
+        if cfg.model_arch == "asr":
+            cls.load_postencoder_weights(model, model_cfg)
         if cfg.init_params_from and not (exp / "latest.json").exists():
             cls.load_init_params(model, cfg.init_params_from)
         tx = build_optimizer(cfg.optim)

@@ -17,7 +17,8 @@ trains a plain transducer. The reference's transducer builds its
 encoder from seven ASRConfig fields (models/transducer.py:112-115) and
 reads its features through the frontend, so the encoder options it
 ignores (MoE, interCTC, self-conditioning, stochastic depth, remat,
-``input_layer``, the encoder choice) and feature dumps raise here too
+``input_layer``, the encoder choice, the pre- and post-encoder, the
+attention decoder's choice) and feature dumps raise here too
 (ROADMAP.md queue 3): a transducer with an MoE encoder would train
 without its aux loss, which the reference does not do either. The
 frontend's ``type`` and deltas, which its frontend reads, are taken.
@@ -79,7 +80,8 @@ def _encoder_options_the_reference_ignores(cfg: TransducerTaskConfig
     a, d = cfg.model.asr, ASRConfig()
     fields = ("encoder", "moe_experts", "interctc_layers", "interctc_weight",
               "self_conditioning", "stochastic_depth_rate", "remat_encoder",
-              "input_layer", "input_feats")
+              "input_layer", "input_feats", "preencoder", "postencoder",
+              "decoder")
     out = [f"model.asr.{f}" for f in fields
            if getattr(a, f) != getattr(d, f)]
     if cfg.data.feats_type != "raw":

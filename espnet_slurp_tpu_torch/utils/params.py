@@ -17,14 +17,29 @@ does, so the key is the flax path joined by "." with the leaf renamed:
   ``a_src_l{i}`` / ``a_tgt_l{i}`` [heads, D] and ``bias_l{i}`` unchanged
   (models/tcpgen.py names them as the flax tree does);
 - an ``nn.OptimizedLSTMCell`` (``<rnn>/cell/{ii,if,ig,io}/kernel``,
-  ``{hi,hf,hg,ho}/{kernel,bias}``; no input-side bias) -> the port's
-  ``LSTMLayer`` ``<rnn>.weight_ih`` [4P, in], ``weight_hh`` [4P, P] and
-  ``bias_hh`` [4P], gates stacked in the order i, f, g, o (torch's): the
-  same scalars, in 3 tensors instead of 12.
+  ``{hi,hf,hg,ho}/{kernel,bias}``; no input-side bias), under an
+  ``nn.RNN`` (the ``cell`` level: the LMs, the prediction network, both
+  directions of the RNN encoders' ``l{i}_fwd`` / ``l{i}_bwd``) or alone
+  (the LAS decoder's ``lstm_{i}``) -> the port's ``LSTMLayer``
+  ``<rnn>.weight_ih`` [4P, in], ``weight_hh`` [4P, P] and ``bias_hh``
+  [4P], gates stacked in the order i, f, g, o (torch's): the same
+  scalars, in 3 tensors instead of 12;
+- the raw parameters of the pre-encoder's ``SincConv`` (``f`` [C, 2]) and
+  of the decoders' lightweight convs (``weight`` [H, k], ``weight_f``
+  [k]) unchanged; their ``linear_weight`` / ``linear_weight_f`` are
+  Dense; the VGG front's 3x3 convs (HWIO -> OIHW) and the grouped 1-D
+  convs of the E-Branchformer, the Sinc blocks and the post-encoder's
+  length adaptors ([k, in/groups, out] -> [out, in/groups, k]) follow the
+  conv rule.
 
 A language model's tree (models/lm.py: ``embed``, ``attn_{i}/linear_*``,
 ``norm{1,2}_{i}``, ``ff_{i}/w{1,2}``, ``after_norm``, ``output`` and
 ``rnn_{i}/cell``) converts by these rules, with no renaming.
+
+A post-encoder's BERT (``postencoder/bert``) is Dense, LayerNorm and Embed
+leaves, as the SLU postdecoder's. A leaf with no rule raises here, and a
+key that the tree lacks or the model does not have raises in the model's
+(strict) ``load_state_dict``.
 
 The one module renamed is the CTC head: flax ``ctc`` is ``ctc_proj`` here,
 at the top of an ASR tree and under ``asr`` in an SLU or a MaskCTC tree
@@ -55,7 +70,7 @@ _CTC_RENAMES = {("ctc",): ("ctc_proj",), ("asr", "ctc"): ("asr", "ctc_proj")}
 # Leaves kept as they are: attention biases, the MoE's expert tensors and
 # TCPGen's raw parameters.
 _RAW_LEAF = re.compile(r"(bias|pos_bias_[uv]|[wb][12]|ooKBemb"
-                       r"|(a_src|a_tgt|bias)_l\d+)$")
+                       r"|(a_src|a_tgt|bias)_l\d+|weight(_f)?|f)$")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -85,6 +100,7 @@ def _convert_leaf(name: str, value: np.ndarray):
 
 
 _LSTM_GATES = "ifgo"
+_LSTM_LEAVES = {side + g for side in "ih" for g in _LSTM_GATES}
 
 
 def _lstm_leaves(cells: Dict[tuple, Dict[str, np.ndarray]]):
@@ -113,6 +129,9 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         path = _rename(path)
         if len(path) >= 3 and path[-3] == "cell":
             cells.setdefault(path[:-3], {})["/".join(path[-2:])] = value
+            continue
+        if len(path) >= 3 and path[-2] in _LSTM_LEAVES:  # a bare cell
+            cells.setdefault(path[:-2], {})["/".join(path[-2:])] = value
             continue
         leaf, converted = _convert_leaf(path[-1], value)
         out[".".join(path[:-1] + (leaf,))] = converted

@@ -11,6 +11,7 @@ import dataclasses
 from pathlib import Path
 
 import pytest
+import torch
 
 from espnet_slurp_tpu.models import asr_model as jmodel
 from espnet_slurp_tpu.models import transducer as jtd
@@ -210,22 +211,57 @@ def test_transducer_recipe_loads_and_builds():
     assert model.joint.lin_out.out_features == a.vocab_size
 
 
+# The ids keep the cases' names. The E-Branchformer, the LAS decoder and
+# the linear pre-encoder (override0-2) are ported since: each builds at
+# micro widths and takes one training step (their parity with the
+# reference: tests/test_torch_{branchformer,rnn_conv_decoders,
+# pre_post_encoders}.py).
 @pytest.mark.parametrize("override,match", [
-    ({"encoder": "ebranchformer"}, "item 15"),
-    ({"decoder": "rnn"}, "item 15"),
-    ({"preencoder": "linear"}, "item 15"),
-    ({"ssl_num_layers": 2, "input_feats": True}, "item 15"),
-    ({"use_tcpgen": True}, None),
-    ({"use_wpe": True}, "items 15 and 16"),
-    ({"num_ref": 2}, "items 15 and 16"),
+    pytest.param({"encoder": "ebranchformer"}, None,
+                 id="override0-item 15"),
+    pytest.param({"decoder": "rnn"}, None, id="override1-item 15"),
+    pytest.param({"preencoder": "linear"}, None, id="override2-item 15"),
+    pytest.param({"ssl_num_layers": 2, "input_feats": True}, "item 15",
+                 id="override3-item 15"),
+    pytest.param({"use_tcpgen": True}, None, id="override4-None"),
+    pytest.param({"use_wpe": True}, "items 15 and 16",
+                 id="override5-items 15 and 16"),
+    pytest.param({"num_ref": 2}, "items 15 and 16",
+                 id="override6-items 15 and 16"),
 ])
 def test_unported_model_values_raise_naming_their_item(override, match):
     cfg = pasr.load_task_config(None, {"model": override})
-    if match is None:  # ported since
+    if match is None and "use_tcpgen" in override:  # ported since
         pasr.refuse_unported(cfg)
         model = pmodel.ASRModel(cfg.model, device="cpu")
         assert model.tcpgen.tree_encoder.__class__.__name__ \
             == "GCNTreeEncoder"
+        return
+    if match is None:  # ported since: builds and trains a step
+        micro = dict(vocab_size=20, d_model=32, n_head=2, d_ff=64,
+                     num_encoder_blocks=1, num_decoder_blocks=1,
+                     decoder_d_ff=64, kernel_size=7, rnn_decoder_units=16,
+                     preencoder_dim=24, specaug=None,
+                     frontend={"n_fft": 128, "hop_length": 64, "n_mels": 16})
+        cfg = pasr.load_task_config(None, {"model": {**micro, **override}})
+        pasr.refuse_unported(cfg)
+        model = pasr.ASRTask.init_params(
+            pmodel.ASRModel(cfg.model, device="cpu"), 0)
+        from espnet_slurp_tpu_torch.train.optim import (OptimConfig,
+                                                        build_optimizer)
+        from espnet_slurp_tpu_torch.train.state import (TrainState,
+                                                        make_train_step)
+        tx = build_optimizer(OptimConfig(scheduler="constant", lr=1e-3))
+        state = TrainState.create(model, tx, seed=0)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = {"speech": torch.randn(2, 4096) * 0.1,
+                 "speech_lengths": torch.tensor([4096, 3000]),
+                 "text": torch.tensor([[3, 4, 5], [6, 7, -1]]),
+                 "text_lengths": torch.tensor([3, 2])}
+        state, stats = make_train_step(model, tx)(state, batch)
+        assert float(stats["loss"]) == float(stats["loss"])  # finite
+        after = model.state_dict()
+        assert any(not torch.equal(before[k], after[k]) for k in before)
         return
     with pytest.raises(NotImplementedError, match=match):
         pasr.refuse_unported(cfg)

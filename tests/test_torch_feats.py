@@ -193,7 +193,9 @@ def test_a_transducer_takes_the_frontend_type_and_deltas():
     for over in (dict(moe_experts=4), dict(interctc_layers=(1,)),
                  dict(stochastic_depth_rate=0.1), dict(remat_encoder=True),
                  dict(input_layer="linear"), dict(encoder="transformer"),
-                 dict(self_conditioning=True)):
+                 dict(self_conditioning=True), dict(encoder="ebranchformer"),
+                 dict(preencoder="linear"), dict(postencoder="hf_bert"),
+                 dict(decoder="rnn")):
         bad = dataclasses.replace(cfg, model=TransducerConfig(
             asr=dataclasses.replace(asr, **over)))
         with pytest.raises(NotImplementedError, match="queue 3"):
