@@ -424,7 +424,27 @@ or the port's package is not beside it. Phases, each of which fails the run:
    max-pool near-ties zeroed like the ReLU kinks); (d) every K2 / K3 call
    of one (a) train forward (forward against the plain version, the
    backward launches against the plain backward at the kernels' rounding
-   points) and of one (a) encode, on the recorded inputs and seeds.
+   points, the bf16 K3 backward element by element within
+   k3_bwd_rounding_bounds as in phase 25) and of one (a) encode, on the
+   recorded inputs and seeds.
+25. The SSL models: (a) the flagship's CTC head and 6-block decoder over
+   the wav2vec2-base encoder (7 x 512 convs, 12 x 768, bf16, attention
+   dropout 0.1) through make_train_step on 16 x 15 s, U 64 (step s,
+   audio-s/s, peak MB, busy ms, device ms by kernel; a step K4 1, K1 1
+   each way, K2 and K3 none), K4 at D 768 (both dtypes) and K1 at its
+   batch against their plain versions, Speech2Text serving 8 x 15 s at
+   beam 10 (RTF; no counted launch), its fp32 step at 2 wav2vec2 blocks
+   card vs CPU; (b) bin/ssl_dump at base width (--layer -1: [749, 13,
+   768] an utterance) of 40 x 15 s, bin/asr_train with feats_type ssl
+   and ssl_num_layers 13 on the flagship's Conformer (a step K2 24, K3
+   12, K4 1, K1 1 each way), bin/asr_inference from feats.scp, K4 and K1
+   at its first batch against their plain versions; (c) bin/hubert_train
+   with HubertConfig() (fp32) on 3 x 64 x 15 s with km ids (a step K2
+   12, K3 6 each way), its fp32 step at 2 blocks card vs CPU; (d) a
+   Wav2Vec2PretrainModel step at base width (bf16) on 8 x 15 s, no
+   counted launch, the fp32 objective at a small width card vs CPU at
+   given draws; then every K2 / K3 call of one train forward of (b)'s
+   and (c)'s models against its plain version both ways.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (K2's and
 K3's entries carry phase 7's ``dropout`` record, with phase 12's Dh-128
@@ -458,7 +478,13 @@ MaskCTC step of (f) (``launches_per_maskctc_step``), and its launches a
 step of phase 24's E-Branchformer (``launches_per_ebranchformer_step``),
 an encode of it (``launches_per_ebranchformer_encode``), a step of the
 contextual block (``launches_per_contextual_block_step``) and of the
-VGG-RNN model (``launches_per_vgg_rnn_step``). The whole run's seconds and
+VGG-RNN model (``launches_per_vgg_rnn_step``), and its launches a step of
+phase 25's wav2vec2 ASR model (``launches_per_wav2vec2_step``), a decode
+by it (``launches_per_wav2vec2_decode``), a step of the SSL-feature
+Conformer (``launches_per_ssl_conformer_step``), of HuBERT
+(``launches_per_hubert_step``, on the fp32 entries: it computes in fp32)
+and of the pretraining objective
+(``launches_per_wav2vec2_pretrain_step``). The whole run's seconds and
 each phase's are printed before the kernels. The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3716,7 +3742,8 @@ def step_recorder(torch, per_step, clock, task=None):
     """Wraps the make_train_step of ``task`` (default tasks/asr.py) so that
     every train step of the CLI appends its launches to per_step: (the
     wrappers' counts, the host counts by instance, the step's N = B x T'
-    rows), and (entry, exit) host times to clock. Returns the original."""
+    rows: of waveforms, or of a feature dump's frames), and (entry, exit)
+    host times to clock. Returns the original."""
     from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
     from espnet_slurp_tpu_torch.ops.kernels import build
     if task is None:
@@ -3732,8 +3759,10 @@ def step_recorder(torch, per_step, clock, task=None):
             wrappers, hosts = read_counts(), build.launch_counts()
             out = step(state, batch)
             clock.append((t0, time.perf_counter()))
-            b, n = batch["speech"].shape
-            t_prime = Conv2dSubsampling.out_length_static(1 + n // 128)
+            b, n = batch["speech"].shape[:2]
+            # waveforms (hop 128), or a feature dump's frames
+            frames = n if batch["speech"].ndim > 2 else 1 + n // 128
+            t_prime = Conv2dSubsampling.out_length_static(frames)
             per_step.append((
                 {k: v - wrappers[k] for k, v in read_counts().items()},
                 build.launch_delta(hosts, build.launch_counts()),
@@ -7619,7 +7648,81 @@ class KernelCalls:
             conformer.fused_ffn, attention.rel_flash_attention = ffn, att
 
 
-def hold_calls(torch, what, calls, backward):
+def ulp_bf16(torch, x):
+    """The bf16 unit in the last place of each |x| (0 at 0)."""
+    _, e = torch.frexp(x)
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(x), e - 8),
+                       torch.zeros_like(x))
+
+
+def k3_bwd_rounding_bounds(torch, q_u, q_v, k, v, p, lengths, out, lse, g,
+                           seed, *, scale, dropout_rate=0.0, chunk_size=0,
+                           left_chunks=-1):
+    """Elementwise bounds (dq_u, dq_v, dk, dv, dp) on how far two bf16
+    computations of K3's backward that round at the same points
+    (rel_flash_attention_bwd_plain's: ds, the skewed rawg, the dropped P)
+    but sum in another order can fall apart, in float64: the scores and
+    ds = P (dP - delta) scale carry the fp32 error of their sums (Dh 2^-24
+    of the sums of absolute terms; P through exp's relative error of the
+    scores'), each rounded operand moves by that and then one bf16 unit in
+    its last place, which reaches each output through the product that
+    takes it (T 2^-24 of the product for its own fp32 sum), and each
+    output's own rounding adds one unit of itself. Where dP and delta
+    nearly cancel (peaked attention), ds's fp32 error is large beside ds,
+    and a max|ref|-relative tolerance sits inside this noise."""
+    from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+    from espnet_slurp_tpu_torch.ops.kernels import philox
+    f64 = lambda x: x.double()
+    b, h, t, dh = q_u.shape
+    qu, qv, kf, vf, pf, gf, of = map(f64, (q_u, q_v, k, v, p, g, out))
+    idx = fa.rel_shift_index(t, q_u.device).expand(b, h, t, t)
+    eps, eps_t = dh * 2.0 ** -24, t * 2.0 ** -24
+    s = (qu @ kf.transpose(-1, -2)
+         + (qv @ pf.transpose(-1, -2)).gather(-1, idx)) * scale
+    s_abs = (qu.abs() @ kf.abs().transpose(-1, -2)
+             + (qv.abs() @ pf.abs().transpose(-1, -2)).gather(-1, idx)) * scale
+    ok = fa.allowed_mask(t, lengths, chunk_size, left_chunks)
+    prob = torch.where(ok, torch.exp(s - f64(lse)[..., None]), 0.0)
+    e_prob = prob * eps * (s_abs + f64(lse).abs()[..., None])
+    dprob = gf @ vf.transpose(-1, -2)
+    dprob_abs = gf.abs() @ vf.abs().transpose(-1, -2)
+    pd, e_pd = prob, e_prob
+    if dropout_rate > 0.0:
+        keep = fa.dropout_keep(seed, dropout_rate, b, h, t)
+        dprob = philox.apply_keep(dprob, keep, dropout_rate)
+        dprob_abs = philox.apply_keep(dprob_abs, keep, dropout_rate)
+        pd = philox.apply_keep(prob, keep, dropout_rate)
+        e_pd = philox.apply_keep(e_prob, keep, dropout_rate)
+    delta = (gf * of).sum(-1, keepdim=True)
+    delta_abs = (gf * of).abs().sum(-1, keepdim=True)
+    gap = dprob - delta
+    ds = prob * gap * scale
+    e_ds = scale * (prob * eps * (dprob_abs + delta_abs)
+                    + e_prob * gap.abs())
+    u_ds = torch.where(ok, e_ds + ulp_bf16(torch, ds.abs() + e_ds)
+                       + eps_t * ds.abs(), 0.0)
+    u_pd = e_pd + ulp_bf16(torch, pd + e_pd) + eps_t * pd
+    rawg = torch.zeros(b, h, t, 2 * t, dtype=torch.float64,
+                       device=q_u.device).scatter_(-1, idx, u_ds)
+    return (u_ds @ kf.abs(), rawg @ pf.abs(),
+            u_ds.transpose(-1, -2) @ qu.abs(),
+            u_pd.transpose(-1, -2) @ gf.abs(),
+            (rawg.transpose(-1, -2) @ qv.abs()).sum(0))
+
+
+def within_rounding(torch, got, want, bounds):
+    """max over elements of |got - want| / (bound + one bf16 unit of
+    want): at most 1 when the two differ by no more than the rounding
+    bounds allow."""
+    worst = 0.0
+    for a, r, u in zip(got, want, bounds):
+        r = r.double()
+        room = u + ulp_bf16(torch, r.abs()) + 1e-30
+        worst = max(worst, float(((a.double() - r).abs() / room).max()))
+    return worst
+
+
+def hold_calls(torch, what, calls, backward, k3_rounding=False):
     """Each recorded K2 / K3 call run again on its inputs and seed: the
     wrapper's output (the kernel) within TOL of its plain version's (fp32
     products); with ``backward`` also the backward launches on a random
@@ -7628,8 +7731,15 @@ def hold_calls(torch, what, calls, backward):
     rel_flash_attention_bwd_plain), as phase 4 holds them: against the
     unrounded plain gradient a bf16 dq of real activations, which cancels,
     is off by more than 2e-2 of its max |ref| while the terms it sums
-    agree (measured on an H100). Returns {kind: (calls, worst forward error,
-    worst backward error)}, each of max |ref|."""
+    agree (measured on an H100). With ``k3_rounding`` a bf16 K3 backward is
+    held instead element by element within k3_bwd_rounding_bounds of the
+    plain backward (within_rounding at most 1): on peaked attention two
+    correct computations between the same rounding points differ by about
+    BWD_PLAIN_TOL of max |ref| (the plain backward summed in fp32 and in
+    fp64, ``accumulate``, whose distance it reports too). Returns {kind:
+    (calls, worst forward error, worst backward error)}, each of max
+    |ref|, and with ``k3_rounding`` also the worst within_rounding ratio
+    and the worst distance of the two plain backwards, of max |ref|."""
     from espnet_slurp_tpu_torch.ops.kernels import ffn
     from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -7649,6 +7759,9 @@ def hold_calls(torch, what, calls, backward):
                                                    **kw)[0]
         name = str(diff[0].dtype).split(".")[-1]
         rel_f, rel_b = rel_err(out, ref)[1], 0.0
+        rounding = (backward and k3_rounding and kind == "K3"
+                    and name == "bfloat16")
+        ratio = spread = 0.0
         if backward:
             g = torch.randn(out.shape, generator=gen, device="cuda").to(
                 out.dtype)
@@ -7669,15 +7782,31 @@ def hold_calls(torch, what, calls, backward):
             if not all(torch.isfinite(x).all() for x in got):
                 raise AssertionError(f"{what} {kind}: non-finite gradient")
             rel_b = max(rel_err(a, r)[1] for a, r in zip(got, want))
+            if rounding:
+                kws = dict(scale=kw["scale"], dropout_rate=rate,
+                           chunk_size=ck[0], left_chunks=ck[1])
+                ratio = within_rounding(torch, got, want,
+                                        k3_bwd_rounding_bounds(
+                                            torch, *diff, lengths, o, lse, g,
+                                            seed, **kws))
+                want64 = fa.rel_flash_attention_bwd_plain(
+                    *diff, lengths, o, lse, g, seed,
+                    accumulate=torch.float64, **kws)
+                spread = max(rel_err(a, r)[1]
+                             for a, r in zip(want, want64))
             del got, want
         torch.cuda.synchronize()
-        n, wf, wb = worst.get(kind, (0, 0.0, 0.0))
-        worst[kind] = (n + 1, max(wf, rel_f), max(wb, rel_b))
-        if not (rel_f <= TOL[name] and rel_b <= BWD_PLAIN_TOL):
+        n, *w = worst.get(kind, (0,) + (0.0,) * (4 if k3_rounding else 2))
+        worst[kind] = (n + 1,) + tuple(
+            max(x, y) for x, y in zip(w, (rel_f, rel_b, ratio, spread)))
+        held_b = ratio <= 1.0 if rounding else rel_b <= BWD_PLAIN_TOL
+        if not (rel_f <= TOL[name] and held_b):
             raise AssertionError(
                 f"{what} {kind} {name} {[tuple(x.shape) for x in diff]}: "
                 f"forward {rel_f:.3e}, backward {rel_b:.3e} of max|ref| "
-                "against the plain versions")
+                "against the plain versions"
+                + (f", {ratio:.3f} of the rounding bounds"
+                   if rounding else ""))
     return worst
 
 
@@ -7977,15 +8106,18 @@ def encoder_phases(torch, card):
         "phase 24 (a) fp32 E-Branchformer step, 2 blocks",
         eb_config(num_encoder_blocks=2))
     worst_train = lap("(d) train", hold_calls, torch, "phase 24 (d) train",
-                      train_calls, True)
+                      train_calls, True, True)
     worst_serve = lap("(d) serve", hold_calls, torch, "phase 24 (d) serve",
                       serve_calls, False)
     print(f"phase 24 (d): every K2 / K3 call of one E-Branchformer train "
           f"forward (both ways) and of one serving encode (forward) against "
           f"its plain version on the same inputs and seed: (calls, worst "
-          f"forward error, worst backward error, of max|ref|) train "
-          f"{worst_train}, serve {worst_serve} (tolerances "
-          f"{TOL['bfloat16']} and {BWD_PLAIN_TOL}) on {card}")
+          f"forward error, worst backward error, of max|ref|, and in train "
+          f"the worst share of the bf16 K3 backward's rounding bounds and "
+          f"the worst distance of its plain backward summed in fp32 and in "
+          f"fp64, of max|ref|) train {worst_train}, serve {worst_serve} "
+          f"(tolerances {TOL['bfloat16']}, K2 backward {BWD_PLAIN_TOL}, "
+          f"the share 1) on {card}")
     if worst_train.get("K2", (0,))[0] != 24 or worst_train.get(
             "K3", (0,))[0] != 12 or worst_serve.get("K2", (0,))[0] != 24 \
             or worst_serve.get("K3", (0,))[0] != 12:
@@ -8000,6 +8132,495 @@ def encoder_phases(torch, card):
             "launches_per_ebranchformer_encode": eb_encode,
             "launches_per_contextual_block_step": cb_step,
             "launches_per_vgg_rnn_step": rnn_step}
+
+
+# Phase 25: the SSL models (ROADMAP.md item 15): the wav2vec2 ASR encoder,
+# the SSL feature dump and the Conformer on it, HuBERT and the wav2vec2
+# pretraining objective, under SSL_ROOT (removed at the end).
+SSL_ROOT = "build/chip_smoke_ssl"
+# (a): the wav2vec2 ASR model's train batch: 16 x 15 s (T' 749), U 64.
+W2V_B = 16
+# (b): the dump's corpus (cli_split's tones): SSL_TRAIN train and SSL_DEV
+# dev utterances of UTT_SECONDS s, batches of SSL_BATCH; the decode's
+# max_len; the dumping encoder's widths (wav2vec2-base's).
+SSL_TRAIN, SSL_DEV, SSL_BATCH, SSL_MAX_LEN = 32, 8, 16, 24
+SSL_DUMP = {"d_model": 768, "num_blocks": 12, "n_head": 12, "d_ff": 3072}
+# (c): HuBERT's batch, train steps (one epoch) and dev utterances; its
+# k-means clusters (HubertConfig().n_clusters).
+HUBERT_B, HUBERT_STEPS, HUBERT_DEV = 64, 3, 8
+# (d): the pretraining batch.
+PRETRAIN_B = 8
+# The card-vs-CPU checks' reduced depths: wav2vec2 and HuBERT blocks.
+SSL_CMP_BLOCKS = 2
+
+
+def w2v_config(**w2v):
+    """The flagship's CTC head and 6-block decoder (vocab 5000, d_model
+    256, bf16) at dropout DROPOUT over the wav2vec2-base encoder
+    (Wav2Vec2Config(): 7 x 512 convs, 12 x 768, 12 heads, d_ff 3072,
+    positional conv 128 / 16, attention dropout 0.1) in bf16."""
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    return dataclasses.replace(
+        flagship_config(), encoder="wav2vec2", dropout_rate=DROPOUT,
+        wav2vec2=Wav2Vec2Config(**{"dtype": "bfloat16", **w2v}))
+
+
+def w2v_step_kernels(torch, model, batch, top=10):
+    """A warm-up train step of ``model`` on ``batch``, then one under
+    torch.profiler: ([(kernel, device ms)] of its ``top`` kernels by
+    device time, the device ms of all of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from espnet_slurp_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from espnet_slurp_tpu_torch.train.state import TrainState, make_train_step
+    tx = build_optimizer(OptimConfig(lr=1e-3, scheduler="constant"))
+    state = TrainState.create(model, tx, seed=0)
+    step = make_train_step(model, tx)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and not e.key.startswith("train_step.")),
+                  key=lambda r: -r[1])
+    return rows[:top], sum(ms for _, ms in rows)
+
+
+def w2v_phase(torch, card):
+    """Phase 25 (a): w2v_config() through make_train_step on W2V_B x
+    TRAIN_SECONDS s, U TRAIN_U (run_train_steps); a step's launches each
+    way K4 1 and K1 1 (K4's bf16 launches and K1's warp route by the host
+    counts), K2 and K3 none; its device ms by kernel (w2v_step_kernels);
+    K4 (both dtypes, D 768, V 5000) and K1 at
+    the batch's labels held to their plain versions; Speech2Text serving
+    N_UTT x UTT_SECONDS s at beam BEAM (RTF; no counted launch: the search
+    reads the CTC head's logits); the fp32 step at SSL_CMP_BLOCKS blocks
+    and a 2-block decoder card vs CPU. Returns (a step's launches, the
+    decode's)."""
+    from espnet_slurp_tpu_torch.models.asr_model import ASRModel
+    from espnet_slurp_tpu_torch.models.wav2vec2 import conv_out_lengths
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, Speech2Text
+
+    cfg = w2v_config()
+    model = ASRTask.init_params(ASRModel(cfg, device="cuda"), 0)
+    batch = train_batch(torch, np.random.RandomState(25), W2V_B,
+                        FS * TRAIN_SECONDS, TRAIN_U, cfg.vocab_size, "cuda")
+    what = (f"phase 25 (a) wav2vec2 ASR train, B={W2V_B} x {TRAIN_SECONDS} "
+            f"s, U={TRAIN_U}, attention dropout {cfg.wav2vec2.dropout_rate}")
+    run = run_train_steps(torch, what, model, batch, card,
+                          W2V_B * TRAIN_SECONDS, budget_s=12.0)
+    check_routes(what, run.routes, K1_WARP + tuple(K4_BF16_LAUNCHES),
+                 run.steps)
+    check_per_step(what, run.launches, flagship_step_want(0, n_ffn=0),
+                   run.steps)
+    top, total = w2v_step_kernels(torch, model, batch)
+    print(f"{what}: device ms by kernel in one profiled step, {total:.2f} "
+          f"ms in all, the top {len(top)}: "
+          + "; ".join(f"{name[:80]} {ms:.2f}" for name, ms in top))
+    t = int(conv_out_lengths(batch["speech_lengths"][:1].cpu(),
+                             cfg.wav2vec2.conv_kernel,
+                             cfg.wav2vec2.conv_stride)[0])
+    hold_ctc_kernels(torch, "phase 25 (a)", batch["text"].to(torch.int32),
+                     batch["text_lengths"], t, cfg.wav2vec2.d_model,
+                     cfg.vocab_size, 25)
+    del model, batch
+    torch.cuda.empty_cache()
+    state = ASRTask.init_params(ASRModel(dataclasses.replace(
+        cfg, dtype="float32"), device="cpu"), 0).state_dict()
+    s2t = Speech2Text(cfg, state, token_list(cfg.vocab_size),
+                      token_type="word", max_len=MAX_LEN, beam_size=BEAM,
+                      ctc_weight=CTC_WEIGHT, device="cuda")
+    rng = np.random.RandomState(25)
+    speeches = [rng.randn(FS * UTT_SECONDS).astype(np.float32) * 0.1
+                for _ in range(N_UTT)]
+    s2t.max_len = 4  # warm-up: the encode and a few search steps
+    s2t.decode_batch(speeches)
+    s2t.max_len = MAX_LEN
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    texts = s2t.decode_batch(speeches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode = read_counts()
+    print(f"phase 25 (a) wav2vec2 ASR serving: {N_UTT} x {UTT_SECONDS} s, "
+          f"beam {BEAM}, ctc {CTC_WEIGHT}, max_len {MAX_LEN}: wall "
+          f"{wall:.3f} s, RTF {wall / (N_UTT * UTT_SECONDS):.5f}; "
+          f"hypothesis lengths {[len(x.split()) for x in texts]} on {card}")
+    check_per_step("phase 25 (a) serving", decode, {}, 1)
+    if len(texts) != N_UTT:
+        raise AssertionError(f"phase 25 (a) serving: {texts!r:.300}")
+    del s2t
+    torch.cuda.empty_cache()
+    short_fp32_check(torch, f"phase 25 (a) fp32 wav2vec2 ASR step, "
+                     f"{SSL_CMP_BLOCKS} wav2vec2 blocks, 2 decoder blocks",
+                     dataclasses.replace(
+                         w2v_config(num_blocks=SSL_CMP_BLOCKS,
+                                    dtype="float32"), num_decoder_blocks=2))
+    return {k: v // run.steps for k, v in run.launches.items()}, decode
+
+
+def ssl_train_yaml(root, train_dir, dev_dir):
+    """A feats_type ssl train config into root/exp: flagship_config()'s
+    Conformer at dropout DROPOUT with SpecAug over the dump's 13 layers of
+    768 (the softmax layer weighting, ssl_num_layers 13), Adam at a
+    constant 1e-3, char tokens, one epoch of sorted batches of
+    SSL_BATCH."""
+    import yaml
+    from espnet_slurp_tpu_torch.models.asr_model import flagship_config
+    from espnet_slurp_tpu_torch.utils.config import to_dict
+
+    model = to_dict(dataclasses.replace(
+        flagship_config(), dropout_rate=DROPOUT, input_feats=True,
+        input_feats_dim=SSL_DUMP["d_model"],
+        ssl_num_layers=SSL_DUMP["num_blocks"] + 1))
+    del model["vocab_size"]
+    cfg = {"exp_dir": str(root / "exp"), "max_epoch": 1, "model": model,
+           "optim": {"name": "adam", "lr": 1e-3, "scheduler": "constant"},
+           "data": {"train_dir": str(train_dir), "valid_dir": str(dev_dir),
+                    "feats_type": "ssl", "token_type": "char",
+                    "batch_type": "sorted", "batch_size": SSL_BATCH,
+                    "speech_bucket_multiple": 16}}
+    path = root / "train_ssl.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def ssl_cli_phase(torch, card, root):
+    """Phase 25 (b): bin/ssl_dump at wav2vec2-base's width (--layer -1:
+    [749, 13, 768] fp32 an utterance) of SSL_TRAIN + SSL_DEV utterances,
+    bin/asr_train (ssl_train_yaml: a step K2 24, K3 12, K4 1, K1 1 each way
+    by the wrappers' counts), bin/asr_inference from the dev dump's
+    feats.scp at beam BEAM; then one train forward of the trained model on
+    the first batch with every K2 / K3 call recorded, and K4 (D 256, this
+    vocabulary) and K1 at that batch's labels held to their plain
+    versions. Returns (a step's launches, the recorded calls)."""
+    from espnet_slurp_tpu_torch.bin import asr_inference, asr_train, ssl_dump
+    from espnet_slurp_tpu_torch.data.prefetch import to_device
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    from espnet_slurp_tpu_torch.models.wav2vec2 import (Wav2Vec2Config,
+                                                        conv_out_lengths)
+    from espnet_slurp_tpu_torch.tasks import asr as task
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask, load_task_config
+    from espnet_slurp_tpu_torch.train.checkpoint import CheckpointManager
+
+    rng = np.random.RandomState(25)
+    dirs = [cli_split(root / split, split, n, rng)
+            for split, n in (("train", SSL_TRAIN), ("dev", SSL_DEV))]
+    widths = [x for k, v in SSL_DUMP.items() for x in (f"--{k}", str(v))]
+    t0 = time.perf_counter()
+    for split, d in zip(("train", "dev"), dirs):
+        if ssl_dump.main([
+                "--data_dir", str(d), "--out_dir", str(root / "dump" / split),
+                *widths, "--layer", "-1", "--device", "cuda"]) != 0:
+            raise AssertionError("phase 25 (b): ssl_dump")
+    dump_s = time.perf_counter() - t0
+    mats = sorted((root / "dump" / "train" / "data").glob("*.npy"))
+    first = np.load(mats[0])
+    mb = sum(m.stat().st_size for m in mats) / 1e6
+    print(f"phase 25 (b) bin/ssl_dump of {SSL_TRAIN + SSL_DEV} x "
+          f"{UTT_SECONDS} s at wav2vec2-base width: {dump_s:.1f} s "
+          f"({(SSL_TRAIN + SSL_DEV) * UTT_SECONDS / dump_s:.1f} audio-s/s, "
+          f"the wav reads and .npy writes included); a matrix "
+          f"{first.shape} {first.dtype}, {mb:.0f} MB for the train split")
+    w = Wav2Vec2Config()
+    t = int(conv_out_lengths(torch.tensor([FS * UTT_SECONDS]),
+                             w.conv_kernel, w.conv_stride)[0])
+    if len(mats) != SSL_TRAIN or not np.isfinite(first).all() \
+            or first.shape != (t, SSL_DUMP["num_blocks"] + 1,
+                               SSL_DUMP["d_model"]):
+        raise AssertionError("phase 25 (b): the dump")
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock)
+    t0 = time.perf_counter()
+    try:
+        rc = asr_train.main(["--config", ssl_train_yaml(
+            root, root / "dump" / "train", root / "dump" / "dev"),
+            "--device", "cuda"])
+    finally:
+        task.make_train_step = make
+    train_s = time.perf_counter() - t0
+    exp = root / "exp"
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    steps = [round(b - a, 4) for a, b in clock]
+    print(f"phase 25 (b) bin/asr_train, feats_type ssl, ssl_num_layers 13: "
+          f"{train_s:.1f} s, {len(per_step)} steps of {SSL_BATCH} (step s "
+          f"{steps}); reporter {hist[-1]} on {card}")
+    want = flagship_step_want(12)
+    bad = [w for w, _, _ in per_step
+           if w != {k: want.get(k, 0) for k in COUNTED}]
+    if rc != 0 or len(per_step) != SSL_TRAIN // SSL_BATCH or bad:
+        raise AssertionError(f"phase 25 (b) train: rc {rc}, launches "
+                             f"{[w for w, _, _ in per_step]}")
+    out = root / "dec"
+    t0 = time.perf_counter()
+    if asr_inference.main([
+            "--exp_dir", str(exp), "--data_dir", str(root / "dump" / "dev"),
+            "--output_dir", str(out), "--beam_size", str(BEAM), "--max_len",
+            str(SSL_MAX_LEN), "--device", "cuda"]) != 0:
+        raise AssertionError("phase 25 (b): asr_inference")
+    wall = time.perf_counter() - t0
+    score = (out / "score.txt").read_text().split()
+    print(f"phase 25 (b) bin/asr_inference from feats.scp, {SSL_DEV} x "
+          f"{UTT_SECONDS} s at beam {BEAM}, max_len {SSL_MAX_LEN}: "
+          f"{wall:.2f} s with the model's load (RTF by its wall "
+          f"{wall / (SSL_DEV * UTT_SECONDS):.5f}); score.txt {score} (its "
+          f"RTF counts 100 frames a second, as the reference's) on {card}")
+    if len((out / "text").read_text().splitlines()) != SSL_DEV:
+        raise AssertionError("phase 25 (b): the decode's text")
+    cfg = load_task_config(str(exp / "config.yaml"))
+    tok, conv, mcfg = ASRTask.prepare_vocab(cfg)
+    ds = ASRTask.build_dataset(cfg.data.train_dir, tok, conv,
+                               feats_type="ssl")
+    batch = to_device(next(iter(ASRTask.build_iter_factory(
+        cfg, ds, shuffle=False)(1))), "cuda")
+    model = ASRTask.build_model(mcfg, device="cuda")
+    model.load_state_dict(CheckpointManager(exp, cfg.keep_nbest)
+                          .load_params(None))
+    rec = KernelCalls()
+    gen = torch.Generator(device="cuda").manual_seed(DROPOUT_SEED)
+    with rec.active():
+        model(**batch, train=True, generator=gen)
+    t_prime = Conv2dSubsampling.out_length_static(batch["speech"].shape[1])
+    hold_ctc_kernels(torch, "phase 25 (b)", batch["text"].to(torch.int32),
+                     batch["text_lengths"], t_prime, mcfg.d_model,
+                     mcfg.vocab_size, 26)
+    del model, batch
+    torch.cuda.empty_cache()
+    return per_step[-1][0], rec.calls
+
+
+def hubert_split(d, split, count, rng):
+    """d/{wav.scp,km}: count utterances of UTT_SECONDS s of noise and a
+    k-means id a frame at HubertConfig()'s encoder rate (x4 after hop
+    128: 468 for 15 s), uniform over its clusters."""
+    from espnet_slurp_tpu_torch.data.fileio import DatadirWriter, write_wav
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    from espnet_slurp_tpu_torch.models.hubert import HubertConfig
+
+    n = FS * UTT_SECONDS
+    t_enc = Conv2dSubsampling.out_length_static(1 + n // 128)
+    (d / "wav").mkdir(parents=True, exist_ok=True)
+    with DatadirWriter(d) as w:
+        for i in range(count):
+            uid = f"{split}_{i:04d}"
+            path = (d / "wav" / f"{uid}.wav").resolve()
+            write_wav(str(path), (rng.randn(n) * 0.1).astype(np.float32), FS)
+            w["wav.scp"][uid] = str(path)
+            w["km"][uid] = " ".join(map(str, rng.randint(
+                HubertConfig().n_clusters, size=t_enc)))
+    return d
+
+
+def hubert_loss_model(cfg, device=None):
+    """HubertModel under compare_cpu_card's keywords: ``text`` carries the
+    cluster ids."""
+    from espnet_slurp_tpu_torch.models.hubert import HubertModel
+
+    class HubertLoss(HubertModel):
+        def forward(self, speech, speech_lengths, text, text_lengths, **kw):
+            return super().forward(speech, speech_lengths, text, **kw)
+    return HubertLoss(cfg, device)
+
+
+def hubert_phase(torch, card, root):
+    """Phase 25 (c): bin/hubert_train with HubertConfig() (6 x 256, d_ff
+    1024, fp32; K2 and K3 fp32 on the card) on HUBERT_STEPS batches of
+    HUBERT_B x UTT_SECONDS s with km ids, one epoch (a step K2 12, K3 6
+    each way, nothing else, by the wrappers' counts); one train forward on
+    the first batch with every K2 / K3 call recorded; the fp32 step at
+    SSL_CMP_BLOCKS blocks card vs CPU (the span starts from one CPU
+    generator on both sides). Returns (a step's launches, the recorded
+    calls)."""
+    from espnet_slurp_tpu_torch.bin import hubert_train
+    from espnet_slurp_tpu_torch.data.collate import common_collate
+    from espnet_slurp_tpu_torch.data.prefetch import to_device
+    from espnet_slurp_tpu_torch.models.embedding import Conv2dSubsampling
+    from espnet_slurp_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from espnet_slurp_tpu_torch.tasks import generic
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+    from espnet_slurp_tpu_torch.tasks.hubert import HubertTask
+
+    rng = np.random.RandomState(27)
+    t0 = time.perf_counter()
+    train = hubert_split(root / "hubert_train", "train",
+                         HUBERT_B * HUBERT_STEPS, rng)
+    dev = hubert_split(root / "hubert_dev", "dev", HUBERT_DEV, rng)
+    write_s = time.perf_counter() - t0
+    exp = root / "hubert_exp"
+    per_step, clock = [], []
+    make = step_recorder(torch, per_step, clock, task=generic)
+    t0 = time.perf_counter()
+    try:
+        rc = hubert_train.main([
+            "--set", f"exp_dir={exp}", f"train_dir={train}",
+            f"valid_dir={dev}", f"batch_size={HUBERT_B}", "run.max_epoch=1",
+            "--device", "cuda"])
+    finally:
+        generic.make_train_step = make
+    train_s = time.perf_counter() - t0
+    hist = json.loads((exp / "reporter.json").read_text())["history"]
+    steps = [round(b - a, 4) for a, b in clock]
+    audio = HUBERT_B * UTT_SECONDS
+    print(f"phase 25 (c) bin/hubert_train, HubertConfig(), {HUBERT_STEPS} "
+          f"steps of {HUBERT_B} x {UTT_SECONDS} s (corpus written in "
+          f"{write_s:.1f} s): {train_s:.1f} s; step s {steps} "
+          f"({audio / np.median(steps):.1f} audio-s/s at the median); "
+          f"reporter {hist[-1]} on {card}")
+    want = {"fused_ffn": 12, "fused_ffn_bwd": 12, "rel_flash_attention": 6,
+            "rel_flash_attention_bwd": 6}
+    bad = [w for w, _, _ in per_step
+           if w != {k: want.get(k, 0) for k in COUNTED}]
+    if rc != 0 or len(per_step) != HUBERT_STEPS or bad or not np.isfinite(
+            hist[-1]["train"]["loss"]):
+        raise AssertionError(f"phase 25 (c) train: rc {rc}, launches "
+                             f"{[w for w, _, _ in per_step]}")
+    cfg = HubertConfig()
+    model = ASRTask.init_params(HubertModel(cfg, device="cuda"), 0)
+    ds = HubertTask.build_dataset(str(train))
+    batch = to_device(HubertTask.batch_adapter(*common_collate(
+        [ds[u] for u in sorted(ds.keys)[:HUBERT_B]])), "cuda")
+    rec = KernelCalls()
+    with rec.active():
+        model(**batch, train=True,
+              generator=torch.Generator(device="cuda").manual_seed(27))
+    del model, batch
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_blocks=SSL_CMP_BLOCKS)
+    state = ASRTask.init_params(hubert_loss_model(small, "cpu"),
+                                0).state_dict()
+    speech, lens, _, _ = short_batch(cfg.n_clusters)
+    t_enc = Conv2dSubsampling.out_length_static(1 + speech.shape[1] // 128)
+    ids = np.random.RandomState(28).randint(cfg.n_clusters,
+                                            size=(2, t_enc))
+    compare_cpu_card(torch, f"phase 25 (c) fp32 HuBERT step, "
+                     f"{SSL_CMP_BLOCKS} blocks", hubert_loss_model, small,
+                     state, speech, lens, ids, np.full(2, t_enc, np.int32))
+    return per_step[-1][0], rec.calls
+
+
+def _pretrain_loss_class(draws):
+    """compare_cpu_card's model class for the pretraining objective at the
+    given draws (numpy: starts, gumbel_u, neg_idx); ``text`` is unused."""
+    def make(cfg, device=None):
+        import torch
+        from espnet_slurp_tpu_torch.models.wav2vec2 import (
+            Wav2Vec2PretrainModel)
+
+        class PretrainLoss(Wav2Vec2PretrainModel):
+            def forward(self, speech, speech_lengths, text, text_lengths,
+                        **kw):
+                given = {k: torch.from_numpy(v) for k, v in draws.items()}
+                return super().forward(speech, speech_lengths, **given, **kw)
+        return PretrainLoss(cfg, device)
+    return make
+
+
+def pretrain_phase(torch, card):
+    """Phase 25 (d): one Wav2Vec2PretrainModel step at wav2vec2-base's
+    width in bf16 (the quantizer and the contrastive head in fp32; 100
+    distractors a frame from the generator) on PRETRAIN_B x TRAIN_SECONDS
+    s after a warm-up: a finite loss, no counted launch (no kernel on its
+    path); then the fp32 objective at a small width (7 x 128 convs, 2 x
+    128) card vs CPU at given draws (span starts, Gumbel noise,
+    distractors). Returns the step's launches."""
+    from espnet_slurp_tpu_torch.models.wav2vec2 import (
+        Wav2Vec2Config, Wav2Vec2PretrainModel, conv_out_lengths, span_mask)
+    from espnet_slurp_tpu_torch.tasks.asr import ASRTask
+
+    cfg = Wav2Vec2Config(dtype="bfloat16")
+    model = ASRTask.init_params(Wav2Vec2PretrainModel(cfg, device="cuda"), 0)
+    n = FS * TRAIN_SECONDS
+    rng = np.random.RandomState(29)
+    batch = {"speech": torch.from_numpy(
+        rng.randn(PRETRAIN_B, n).astype(np.float32) * 0.1).cuda(),
+        "speech_lengths": torch.full((PRETRAIN_B,), n, dtype=torch.int32,
+                                     device="cuda")}
+    what = (f"phase 25 (d) wav2vec2 pretraining, B={PRETRAIN_B} x "
+            f"{TRAIN_SECONDS} s, bf16")
+    launches, routes, _, _ = one_step(torch, what, model, batch, card,
+                                      PRETRAIN_B * TRAIN_SECONDS)
+    check_per_step(what, launches, {}, 1)
+    check_routes(what, routes, (), 1)
+    del model, batch
+    torch.cuda.empty_cache()
+    small = Wav2Vec2Config(conv_dim=(128,) * 7, d_model=128, n_head=4,
+                           d_ff=256, num_blocks=2, pos_conv_kernel=32,
+                           pos_conv_groups=4, n_negatives=20,
+                           quantizer_entries=40, vq_dim=64, final_dim=64)
+    state = ASRTask.init_params(Wav2Vec2PretrainModel(small, device="cpu"),
+                                0).state_dict()
+    speech, lens, _, _ = short_batch(10)
+    frames = conv_out_lengths(torch.from_numpy(lens), small.conv_kernel,
+                              small.conv_stride)
+    t = int(frames.max())
+    draws = {"starts": rng.rand(2, t) < 0.1,
+             "gumbel_u": rng.uniform(1e-6, 1 - 1e-6, (
+                 2, t, small.quantizer_groups,
+                 small.quantizer_entries)).astype(np.float32)}
+    masked = span_mask(torch.from_numpy(draws["starts"]), frames,
+                       small.mask_span).numpy()
+    draws["neg_idx"] = np.stack([rng.choice(np.flatnonzero(m), (
+        t, small.n_negatives)) for m in masked])
+    compare_cpu_card(torch, "phase 25 (d) fp32 wav2vec2 pretraining step, "
+                     "7 x 128 convs, 2 x 128, given draws",
+                     _pretrain_loss_class(draws), small, state, speech, lens,
+                     np.zeros((2, 1), np.int64), np.ones(2, np.int32))
+    return launches
+
+
+def ssl_phases(torch, card):
+    """Phase 25 (a)-(d) and the K2 / K3 holds of (b)'s and (c)'s recorded
+    calls (forward against the plain version, the backward launches
+    against the plain backward at the kernels' rounding points), under
+    SSL_ROOT, removed at the end. Returns {column: a step's or a decode's
+    launches} for the kernels line."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(SSL_ROOT).resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    laps = {}
+    t0 = time.perf_counter()
+
+    def lap(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        laps[name] = round(time.perf_counter() - t, 1)
+        return res
+
+    w2v_step, w2v_decode = lap("(a)", w2v_phase, torch, card)
+    ssl_step, ssl_calls = lap("(b)", ssl_cli_phase, torch, card, root)
+    hub_step, hub_calls = lap("(c)", hubert_phase, torch, card, root)
+    shutil.rmtree(root, ignore_errors=True)
+    pre_step = lap("(d)", pretrain_phase, torch, card)
+    worst = {}
+    for name, calls, n_ffn, n_att in (("(b)", ssl_calls, 24, 12),
+                                      ("(c)", hub_calls, 12, 6)):
+        worst[name] = lap(f"{name} hold", hold_calls, torch,
+                          f"phase 25 {name} train", calls, True, True)
+        if worst[name].get("K2", (0,))[0] != n_ffn or worst[name].get(
+                "K3", (0,))[0] != n_att:
+            raise AssertionError(f"phase 25 {name}: calls {worst[name]}")
+    print(f"phase 25: every K2 / K3 call of one train forward of (b)'s "
+          f"feats_type ssl Conformer (bf16) and of (c)'s HuBERT (fp32), "
+          f"both ways against the plain versions on the same inputs and "
+          f"seed: (calls, worst forward error, worst backward error, of "
+          f"max|ref|, worst share of the bf16 K3 backward's rounding "
+          f"bounds, worst distance of its plain backward summed in fp32 "
+          f"and in fp64, of max|ref|) {worst} (tolerances {TOL}, fp32 "
+          f"backward {BWD_PLAIN_TOL}, the share 1) on {card}")
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s ({laps})")
+    return {"launches_per_wav2vec2_step": w2v_step,
+            "launches_per_wav2vec2_decode": w2v_decode,
+            "launches_per_ssl_conformer_step": ssl_step,
+            "launches_per_hubert_step": hub_step,
+            "launches_per_wav2vec2_pretrain_step": pre_step}
 
 
 def main() -> int:
@@ -8170,6 +8791,17 @@ def main() -> int:
     stream_step, stream_tr, maskctc_step = timed("23", stream_phases, torch,
                                                  card)
     encoder_cols = timed("24", encoder_phases, torch, card)
+    encoder_cols.update(timed("25", ssl_phases, torch, card))
+    # HuBERT computes in fp32: its K2 / K3 launches are the fp32 entries'.
+    hubert_step = encoder_cols.pop("launches_per_hubert_step")
+    for kern in kernels:
+        base = kern["name"]
+        if base.endswith("_fp32"):
+            kern["launches_per_hubert_step"] = hubert_step.get(
+                base[:-len("_fp32")], 0)
+        elif base in COUNTED:
+            kern["launches_per_hubert_step"] = (
+                0 if base in BF16_TIMED else hubert_step.get(base, 0))
     for kern in kernels:
         base = kern["name"]
         if base.endswith("_fp32"):

@@ -4,7 +4,9 @@ espnet_slurp_tpu/bin/asr_inference.py.
 Parity target: reference espnet2/bin/asr_inference.py (Speech2Text over a
 data dir, writing exp/.../text) + asr.sh stage 12-13 scoring. Writes
 ``<output_dir>/text`` and, when the data dir has references,
-``score.txt`` (WER, CER, RTF). Decodes on the card unless ``--device``
+``score.txt`` (WER, CER, RTF). A ``feats_type: ssl`` model decodes the
+data dir's feats.scp (a bin/ssl_dump.py dump), its RTF at 100 frames a
+second as the reference counts it. Decodes on the card unless ``--device``
 names another device; with no card and no ``--device cpu`` it raises.
 ``--lm_exp_dir`` / ``--lm_weight`` (a bin/lm_train experiment) and
 ``--ngram_file`` / ``--ngram_weight`` (an ARPA file or its
@@ -76,10 +78,20 @@ def main(argv=None):
     # Sort by duration and decode in batches: one batched beam-search call
     # per group (length-sorted so pad waste inside a batch stays low).
     loaded = []
-    wavs = read_2column_text(Path(args.data_dir) / "wav.scp")
-    for uid, path in wavs.items():
-        wav, sr = load_wav(path)
-        loaded.append((uid, wav, sr))
+    if s2t.feats_type == "ssl":
+        # an SSL dump: decode its feats.scp matrices. The dump states no
+        # frame rate, so RTF counts 100 frames a second, as the
+        # reference's log does (wav2vec2 frames are 20 ms: ROADMAP.md
+        # queue 3).
+        import numpy as np
+        feats = read_2column_text(Path(args.data_dir) / "feats.scp")
+        for uid, path in feats.items():
+            loaded.append((uid, np.load(path), 100))
+    else:
+        wavs = read_2column_text(Path(args.data_dir) / "wav.scp")
+        for uid, path in wavs.items():
+            wav, sr = load_wav(path)
+            loaded.append((uid, wav, sr))
     loaded.sort(key=lambda x: len(x[1]))
     with DatadirWriter(args.output_dir) as w:
         for i in range(0, len(loaded), args.batch_size):

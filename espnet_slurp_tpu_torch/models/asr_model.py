@@ -1,12 +1,15 @@
 """Hybrid CTC/attention ASR model.
 
 Port of espnet_slurp_tpu/models/asr_model.py: ``ASRConfig`` (with the
-reference's fields and defaults) and the field set of ``Wav2Vec2Config``,
-``build_encoder`` (the encoder choice), ``build_decoder``, the pre- and
-post-encoder builders, ``add_sos_eos``,
+reference's fields and defaults; ``Wav2Vec2Config`` is models/wav2vec2.py's,
+imported here as the reference imports it), ``build_encoder`` (the encoder
+choice), ``build_decoder``, the pre- and post-encoder builders,
+``add_sos_eos``,
 ``label_smoothing_loss`` and ``ASRModel`` with ``encode`` (frontend, or a
-feature dump with ``input_feats`` -> SpecAug when training -> MVN -> the
-pre-encoder, if any -> encoder -> the post-encoder, if any),
+feature dump with ``input_feats``, an SSL dump's layers weighted with
+``ssl_num_layers`` -> SpecAug when training -> MVN -> the pre-encoder, if
+any -> encoder -> the post-encoder, if any; wav2vec2 takes the waveform
+straight),
 ``ctc_logprobs``, ``decoder_logits`` and ``forward`` (the
 training loss: CTC through the fused head K4 and the lattice K1, the
 interCTC taps through K4 and K1 (with self-conditioning through K1 from
@@ -18,7 +21,11 @@ it). ``unported_options`` names the values that select a path not ported
 yet. The encoders are the reference's: conformer, E-Branchformer
 (models/branchformer.py), transformer, longformer, the contextual-block
 Conformer (models/contextual_block.py), RNN and VGG-RNN
-(models/rnn_encoders.py), or one registered in utils/registry.py; the
+(models/rnn_encoders.py), wav2vec2 (models/wav2vec2.py), or one
+registered in utils/registry.py; the CTC head, the decoders' memory and
+the post-encoder's input are as wide as the encoder's states
+(``memory_dim``: the wav2vec2 config's d_model may differ from d_model);
+the
 decoders the Transformer decoder, with its self-attention or a lightweight
 / dynamic conv (models/lightconv.py), and the LAS decoder
 (models/rnn_decoder.py); the pre-encoders sinc and linear
@@ -29,7 +36,7 @@ flax modules do (models/layers.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -53,37 +60,9 @@ from .rnn_decoder import RNNDecoder
 from .rnn_encoders import RNNEncoder, VGGRNNEncoder
 from .tcpgen import TCPGen, tcpgen_final_logprobs
 from .transformer import TransformerDecoder, TransformerEncoder
+from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
 IGNORE_ID = -1
-
-
-@dataclasses.dataclass(frozen=True)
-class Wav2Vec2Config:
-    """The fields of the reference's models/wav2vec2.py:Wav2Vec2Config, so
-    that a config naming them loads. The wav2vec2 encoder is not ported yet
-    (ROADMAP.md queue 1 item 15, slice 29): ``encoder: wav2vec2``
-    raises."""
-    conv_dim: Sequence[int] = (512, 512, 512, 512, 512, 512, 512)
-    conv_kernel: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
-    conv_stride: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
-    d_model: int = 768
-    n_head: int = 12
-    d_ff: int = 3072
-    num_blocks: int = 12
-    pos_conv_kernel: int = 128
-    pos_conv_groups: int = 16
-    dropout_rate: float = 0.1
-    mask_prob: float = 0.065
-    mask_span: int = 10
-    n_negatives: int = 100
-    quantizer_groups: int = 2
-    quantizer_entries: int = 320
-    vq_dim: int = 256
-    final_dim: int = 256
-    gumbel_temp: float = 2.0
-    logit_temp: float = 0.1
-    diversity_weight: float = 0.1
-    dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,13 +72,18 @@ class ASRConfig:
     not ported yet raise in ``build_encoder`` (``unported_options``)."""
     vocab_size: int = 5000
     # conformer | ebranchformer | transformer | longformer |
-    # contextual_block_conformer | rnn | vgg_rnn | wav2vec2, or one
-    # registered in utils/registry.py: the port builds all but wav2vec2.
+    # contextual_block_conformer | rnn | vgg_rnn | wav2vec2 (the raw-
+    # waveform SSL encoder of models/wav2vec2.py, past no frontend, SpecAug,
+    # MVN or pre-encoder), or one registered in utils/registry.py.
     encoder: str = "conformer"
     # Precomputed-feature input (a stage-3 feature dump): ``speech`` is a
     # [B, T, input_feats_dim or n_mels] matrix past the frontend.
     input_feats: bool = False
     input_feats_dim: int = 0
+    # > 0 (with input_feats): ``speech`` is a [B, T, ssl_num_layers, D]
+    # dump of every SSL layer (bin/ssl_dump.py), collapsed by a learned
+    # softmax layer weighting before SpecAug and MVN (the s3prl
+    # Featurizer).
     ssl_num_layers: int = 0
     # Geometry of the longformer and contextual-block encoders.
     attention_window: int = 64
@@ -204,9 +188,6 @@ def flagship_config() -> ASRConfig:
                      dtype="bfloat16")
 
 
-# The reference's built-in encoders that the port does not build yet.
-UNPORTED_ENCODERS = ("wav2vec2",)
-
 # The decoder choice -> the Transformer decoder's self-attention type, as
 # the reference's ASRModel maps it ("rnn" is the LAS decoder instead).
 DECODER_SELFATTN = {"transformer": "selfattn",
@@ -227,6 +208,10 @@ IGNORED_ENCODER_OPTIONS = {
                                               "chunk_size"),
     "rnn": _IGNORED + ("interctc_layers", "chunk_size"),
     "vgg_rnn": _IGNORED + ("interctc_layers", "chunk_size"),
+    # the raw-waveform path of the reference's encode skips the feature
+    # dump, its layer weighting and the pre-encoder as well
+    "wav2vec2": _IGNORED + ("interctc_layers", "chunk_size", "input_feats",
+                            "ssl_num_layers", "preencoder"),
 }
 
 
@@ -236,6 +221,8 @@ def refuse_ignored_encoder_options(cfg: ASRConfig) -> None:
     d = ASRConfig()
     ignored = [f for f in IGNORED_ENCODER_OPTIONS.get(cfg.encoder, ())
                if getattr(cfg, f) != getattr(d, f)]
+    if cfg.wav2vec2 is not None and cfg.encoder != "wav2vec2":
+        ignored.append("wav2vec2")
     if ignored:
         raise NotImplementedError(
             f"encoder {cfg.encoder!r} takes no " + ", ".join(ignored)
@@ -247,13 +234,6 @@ def unported_options(cfg: ASRConfig) -> List[str]:
     """The values of ``cfg`` that select a path not ported yet, each naming
     its ROADMAP.md queue 1 item; empty when the port builds ``cfg``."""
     todo = []
-    if cfg.encoder in UNPORTED_ENCODERS:
-        todo.append(f"encoder {cfg.encoder!r} (the SSL encoders: queue 1 "
-                    "item 15)")
-    if cfg.wav2vec2 is not None:
-        todo.append("wav2vec2 (the SSL encoder: queue 1 item 15)")
-    if cfg.ssl_num_layers > 0:
-        todo.append("ssl_num_layers > 0 (SSL feature dumps: queue 1 item 15)")
     if cfg.use_wpe or cfg.use_beamformer:
         todo.append("use_wpe / use_beamformer (the multichannel frontends: "
                     "queue 1 items 15 and 16)")
@@ -281,6 +261,20 @@ def encoder_input_dim(cfg: ASRConfig) -> int:
     return input_dim(cfg)
 
 
+def encoder_output_dim(cfg: ASRConfig) -> int:
+    """The width of the encoder's states: the wav2vec2 config's d_model
+    for ``encoder: wav2vec2``, else d_model."""
+    if cfg.encoder == "wav2vec2":
+        return (cfg.wav2vec2 or Wav2Vec2Config()).d_model
+    return cfg.d_model
+
+
+def memory_dim(cfg: ASRConfig) -> int:
+    """The width of the states that the CTC head and the decoder read:
+    d_model past a post-encoder, else the encoder's."""
+    return cfg.d_model if cfg.postencoder else encoder_output_dim(cfg)
+
+
 def build_preencoder(cfg: ASRConfig) -> Optional[nn.Module]:
     """The pre-encoder of ``cfg``: "sinc" (over sliding-window frames),
     "linear", or None for ""."""
@@ -303,7 +297,7 @@ def build_postencoder(cfg: ASRConfig) -> Optional[nn.Module]:
             cfg.d_model, cfg.postencoder_hidden, cfg.postencoder_layers,
             cfg.postencoder_heads, cfg.postencoder_ff,
             cfg.postencoder_length_adaptor, cfg.postencoder_hf_dir,
-            dtype=cfg.torch_dtype)
+            dtype=cfg.torch_dtype, in_dim=encoder_output_dim(cfg))
     if cfg.postencoder:
         raise ValueError(f"postencoder must be hf_bert, got "
                          f"{cfg.postencoder!r}")
@@ -366,20 +360,23 @@ def build_encoder(cfg: ASRConfig) -> nn.Module:
             c.kernel_size, flash="off", dropout_rate=c.dropout_rate,
             interctc_layers=c.interctc_layers,
             attention_window=c.attention_window, remat=c.remat_encoder)
+    if c.encoder == "wav2vec2":
+        return Wav2Vec2Encoder(c.wav2vec2 or Wav2Vec2Config())
     if c.encoder in encoders:
         return encoders.get(c.encoder)(c, idim)
     raise ValueError(
         f"unknown encoder {c.encoder!r}; builtins: conformer, ebranchformer, "
-        f"transformer, longformer, contextual_block_conformer, rnn, vgg_rnn; "
-        f"registered: {encoders.choices()}")
+        f"transformer, longformer, contextual_block_conformer, rnn, vgg_rnn, "
+        f"wav2vec2; registered: {encoders.choices()}")
 
 
 def build_decoder(cfg: ASRConfig) -> nn.Module:
     """The decoder of ``cfg.decoder``: the LAS decoder for "rnn", else the
-    Transformer decoder with DECODER_SELFATTN's self-attention type."""
+    Transformer decoder with DECODER_SELFATTN's self-attention type; each
+    attends to memory_dim(cfg)-wide states."""
     c = cfg
     if c.decoder == "rnn":
-        return RNNDecoder(c.vocab_size, c.d_model, c.rnn_decoder_units,
+        return RNNDecoder(c.vocab_size, memory_dim(c), c.rnn_decoder_units,
                           c.rnn_decoder_layers, dtype=c.torch_dtype)
     if c.decoder not in DECODER_SELFATTN:
         raise ValueError(f"unknown decoder {c.decoder!r}; choices: rnn, "
@@ -389,7 +386,7 @@ def build_decoder(cfg: ASRConfig) -> nn.Module:
         c.num_decoder_blocks, dtype=c.torch_dtype,
         selfattn_type=DECODER_SELFATTN[c.decoder],
         conv_wshare=c.decoder_conv_wshare, conv_kernel=c.decoder_conv_kernel,
-        conv_usebias=c.decoder_conv_usebias)
+        conv_usebias=c.decoder_conv_usebias, memory_dim=memory_dim(c))
 
 
 def encode_speech(cfg: ASRConfig, encoder: nn.Module,
@@ -397,17 +394,32 @@ def encode_speech(cfg: ASRConfig, encoder: nn.Module,
                   mvn_stats=None, train: bool = False,
                   generator: Optional[torch.Generator] = None,
                   preencoder: Optional[nn.Module] = None,
-                  postencoder: Optional[nn.Module] = None):
+                  postencoder: Optional[nn.Module] = None,
+                  ssl_layer_weights: Optional[torch.Tensor] = None):
     """Frontend (or, with ``cfg.input_feats``, the [B, T, D] feature dump
-    as given) -> SpecAug (when ``train`` with ``cfg.specaug`` and a
-    ``generator``) -> MVN -> ``preencoder`` (if given; its output cast to
-    ``cfg.dtype``) -> ``encoder`` (with ``train``, dropout at
+    as given, or a [B, T, L, D] SSL dump collapsed by the softmax of
+    ``ssl_layer_weights``) -> SpecAug (when ``train`` with ``cfg.specaug``
+    and a ``generator``) -> MVN -> ``preencoder`` (if given; its output
+    cast to ``cfg.dtype``) -> ``encoder`` (with ``train``, dropout at
     ``cfg.dropout_rate`` drawn from ``generator``) -> ``postencoder`` (if
     given), in ``cfg.dtype``: the encode of every model built on the ASR
-    stack. Returns the encoder's (hs, h_lengths, taps), hs and h_lengths
-    past the post-encoder."""
+    stack. ``encoder: wav2vec2`` takes the raw waveform straight (no
+    frontend, SpecAug, MVN or pre-encoder) and its states, in the wav2vec2
+    config's dtype, are cast to ``cfg.dtype`` before the post-encoder, as
+    the reference's layers cast their inputs. Returns the encoder's (hs,
+    h_lengths, taps), hs and h_lengths past the post-encoder."""
+    if cfg.encoder == "wav2vec2":
+        hs, h_lengths, taps = encoder(speech, speech_lengths, train,
+                                      generator)
+        hs = hs.to(cfg.torch_dtype)
+        if postencoder is not None:
+            hs, h_lengths = postencoder(hs, h_lengths)
+        return hs, h_lengths, taps
     if cfg.input_feats:
         feats, feat_lengths = speech.float(), speech_lengths
+        if ssl_layer_weights is not None:
+            w = torch.softmax(ssl_layer_weights.float(), dim=0)
+            feats = torch.einsum("btld,l->btd", feats, w)
     else:
         feats, feat_lengths = default_frontend(speech, speech_lengths,
                                                cfg.frontend)
@@ -480,7 +492,13 @@ class ASRModel(nn.Module):
             self.preencoder = pre
         if post is not None:
             self.postencoder = post
-        self.ctc_proj = Linear(c.d_model, c.vocab_size)
+        if c.ssl_num_layers > 0:
+            if not c.input_feats:
+                raise ValueError("ssl_num_layers > 0 weights the layers of "
+                                 "an SSL feature dump: set input_feats")
+            self.ssl_layer_weights = nn.Parameter(
+                torch.zeros(c.ssl_num_layers))
+        self.ctc_proj = Linear(memory_dim(c), c.vocab_size)
         self.decoder = build_decoder(c)
         if c.use_tcpgen:
             self.tcpgen = TCPGen(c.d_model, c.vocab_size,
@@ -497,7 +515,8 @@ class ASRModel(nn.Module):
         return encode_speech(self.cfg, self.encoder, speech, speech_lengths,
                              mvn_stats, train, generator,
                              getattr(self, "preencoder", None),
-                             getattr(self, "postencoder", None))
+                             getattr(self, "postencoder", None),
+                             getattr(self, "ssl_layer_weights", None))
 
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                mvn_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,

@@ -32,14 +32,17 @@ def _same_stride2(conv: Conv1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class HFTransformersPostencoder(nn.Module):
-    """[B, T, D] encoder states -> ([B, T / 2^n, D], lengths)."""
+    """[B, T, in_dim] encoder states -> ([B, T / 2^n, D], lengths), D =
+    ``d_model`` (``in_dim`` defaults to it; the first adaptor, or
+    ``linear_in`` without one, takes the encoder's width, as the
+    reference's width-inferring flax layers do)."""
 
     def __init__(self, d_model: int, hidden_size: int = 256,
                  num_layers: int = 2, num_heads: int = 4,
                  intermediate_size: int = 1024,
                  length_adaptor_n_layers: int = 0,
                  hf_dir: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_dim: int = 0):
         super().__init__()
         if hf_dir:
             cfg = bert_config_from_dir(hf_dir)
@@ -54,10 +57,13 @@ class HFTransformersPostencoder(nn.Module):
         # fed inputs_embeds only: the reference's tree has no word
         # embedding either
         del self.bert.word_embeddings
-        self.linear_in = Linear(d_model, cfg.hidden_size)
+        in_dim = in_dim or d_model
+        self.linear_in = Linear(d_model if length_adaptor_n_layers
+                                else in_dim, cfg.hidden_size)
         self.linear_out = Linear(cfg.hidden_size, d_model)
         for i in range(length_adaptor_n_layers):
-            self.add_module(f"adaptor_{i}", Conv1d(d_model, d_model, 3, 2))
+            self.add_module(f"adaptor_{i}", Conv1d(
+                in_dim if i == 0 else d_model, d_model, 3, 2))
 
     def forward(self, hs: torch.Tensor, h_lengths: torch.Tensor):
         for i in range(self.n_adaptors):

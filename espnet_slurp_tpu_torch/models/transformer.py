@@ -31,14 +31,17 @@ from .lightconv import LightweightConvolution
 
 
 class CachedAttention(nn.Module):
-    """MHA whose K/V projections can be computed once and cached."""
+    """MHA whose K/V projections can be computed once and cached; the keys
+    and values are projected from ``kv_dim``-wide inputs (default
+    ``n_feat``: a cross-attention over a wider encoder's states sets
+    it)."""
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, kv_dim: int = 0):
         super().__init__()
         self.n_head, self.n_feat = n_head, n_feat
         self.linear_q = Linear(n_feat, n_feat)
-        self.linear_k = Linear(n_feat, n_feat)
-        self.linear_v = Linear(n_feat, n_feat)
+        self.linear_k = Linear(kv_dim or n_feat, n_feat)
+        self.linear_v = Linear(kv_dim or n_feat, n_feat)
         self.linear_out = Linear(n_feat, n_feat)
 
     def _split(self, x):
@@ -85,11 +88,13 @@ CONV_SELFATTN = {"lightconv": (False, False), "lightconv2d": (True, False),
 class DecoderLayer(nn.Module):
     """Pre-norm self-attention (or, with ``selfattn_type`` other than
     "selfattn", the causal lightweight / dynamic conv of CONV_SELFATTN),
-    cross-attention and relu FFN."""
+    cross-attention (over ``memory_dim``-wide states, default d_model) and
+    relu FFN."""
 
     def __init__(self, d_model: int, n_head: int, d_ff: int,
                  selfattn_type: str = "selfattn", conv_wshare: int = 4,
-                 conv_kernel: int = 11, conv_usebias: bool = False):
+                 conv_kernel: int = 11, conv_usebias: bool = False,
+                 memory_dim: int = 0):
         super().__init__()
         self.selfattn_type = selfattn_type
         self.norm1 = LayerNorm(d_model, eps=LN_EPS)
@@ -101,7 +106,7 @@ class DecoderLayer(nn.Module):
                 conv_wshare, d_model, conv_kernel, use_bias=conv_usebias,
                 two_dim=two_dim, dynamic=dynamic)
         self.norm2 = LayerNorm(d_model, eps=LN_EPS)
-        self.src_attn = CachedAttention(n_head, d_model)
+        self.src_attn = CachedAttention(n_head, d_model, memory_dim)
         self.norm3 = LayerNorm(d_model, eps=LN_EPS)
         self.ff = FeedForward(d_model, d_ff)
 
@@ -141,13 +146,15 @@ class TransformerDecoder(nn.Module):
     """Pre-norm Transformer decoder with an embedding + abs-PE input.
     Parameters stay fp32; ``dtype`` is the compute dtype (the embedding's
     output and the KV cache). ``selfattn_type`` "selfattn" or one of
-    CONV_SELFATTN replaces every layer's self-attention."""
+    CONV_SELFATTN replaces every layer's self-attention; ``memory_dim`` is
+    the width of the encoder states it attends to (default d_model)."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, n_head: int = 4,
                  d_ff: int = 2048, num_blocks: int = 6,
                  dtype: torch.dtype = torch.float32,
                  selfattn_type: str = "selfattn", conv_wshare: int = 4,
-                 conv_kernel: int = 11, conv_usebias: bool = False):
+                 conv_kernel: int = 11, conv_usebias: bool = False,
+                 memory_dim: int = 0):
         super().__init__()
         self.vocab_size, self.d_model, self.n_head = vocab_size, d_model, n_head
         self.num_blocks, self.dtype = num_blocks, dtype
@@ -156,7 +163,7 @@ class TransformerDecoder(nn.Module):
         for i in range(num_blocks):
             self.add_module(f"layer_{i}", DecoderLayer(
                 d_model, n_head, d_ff, selfattn_type, conv_wshare,
-                conv_kernel, conv_usebias))
+                conv_kernel, conv_usebias, memory_dim))
         self.after_norm = LayerNorm(d_model, eps=LN_EPS)
         self.output = Linear(d_model, vocab_size)
 

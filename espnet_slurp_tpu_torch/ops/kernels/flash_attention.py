@@ -146,7 +146,8 @@ def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g,
                                   seed=None, *, scale: float,
                                   dropout_rate: float = 0.0,
                                   keep: Optional[torch.Tensor] = None,
-                                  chunk_size: int = 0, left_chunks: int = -1):
+                                  chunk_size: int = 0, left_chunks: int = -1,
+                                  accumulate: torch.dtype = torch.float32):
     """The backward at the kernels' rounding points: (dq_u, dq_v, dk, dv, dp)
     for the output cotangent g [B, H, T, Dh] (q_u.dtype), given the
     forward's out and lse.
@@ -162,28 +163,32 @@ def rel_flash_attention_bwd_plain(q_u, q_v, k, v, p, lengths, out, lse, g,
     differs there, ROADMAP.md queue 3). At a rate above 0 (``seed``,
     ``keep`` as in rel_flash_attention_plain) dv takes the dropped P and dP
     is masked and scaled the same way before ds; P in ds stays undropped.
-    Nothing on the main path calls it."""
+    ``accumulate`` float64 computes between the same rounding points in
+    double precision: how far two summation orders fall apart on given
+    inputs. Nothing on the main path calls it."""
     b, h, t, _ = q_u.shape
     dt = q_u.dtype
-    qu, qv, kf, vf, pf, gf = (x.float() for x in (q_u, q_v, k, v, p, g))
+    qu, qv, kf, vf, pf, gf = (x.to(accumulate)
+                              for x in (q_u, q_v, k, v, p, g))
     idx = rel_shift_index(t, q_u.device).expand(b, h, t, t)
     bd = (qv @ pf.transpose(-1, -2)).gather(-1, idx)
     s = (qu @ kf.transpose(-1, -2) + bd) * scale
     ok = allowed_mask(t, lengths, chunk_size, left_chunks)
     dead = (lse < 0.5 * NEG)[..., None]
-    prob = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    prob = torch.where(ok, torch.exp(s - lse[..., None].to(accumulate)),
+                       0.0)
     prob = torch.where(dead, 1.0 / t, prob)
-    delta = (gf * out.float()).sum(-1, keepdim=True)
+    delta = (gf * out.to(accumulate)).sum(-1, keepdim=True)
     dprob, pd = gf @ vf.transpose(-1, -2), prob
     if dropout_rate > 0.0:
         kp = dropout_keep(seed, dropout_rate, b, h, t, keep)
         dprob = philox.apply_keep(dprob, kp, dropout_rate)
         pd = philox.apply_keep(prob, kp, dropout_rate)
     ds = prob * (dprob - delta) * scale
-    ds = torch.where(ok & ~dead, ds, 0.0).to(dt).float()
-    rawg = torch.zeros(b, h, t, 2 * t, device=q_u.device).scatter_(-1, idx,
-                                                                  ds)
-    dv = pd.to(dt).float().transpose(-1, -2) @ gf
+    ds = torch.where(ok & ~dead, ds, 0.0).to(dt).to(accumulate)
+    rawg = torch.zeros(b, h, t, 2 * t, device=q_u.device,
+                       dtype=accumulate).scatter_(-1, idx, ds)
+    dv = pd.to(dt).to(accumulate).transpose(-1, -2) @ gf
     dp = (rawg.transpose(-1, -2) @ qv).sum(0)
     return ((ds @ kf).to(dt), (rawg @ pf).to(dt),
             (ds.transpose(-1, -2) @ qu).to(dt), dv.to(dt), dp.to(p.dtype))

@@ -17,7 +17,10 @@ The YAML layout is the reference's:
 ``data.feats_type: fbank`` trains on a stage-3 feature dump (feats.scp of
 .npy [T, D] matrices, the npy loader) with the model's ``input_feats``;
 Speech2Text then turns waveforms into the same features on the model's
-device before it decodes, as the reference's does. ``mbr.weight > 0`` adds
+device before it decodes, as the reference's does. ``data.feats_type:
+ssl`` trains on a bin/ssl_dump.py dump ([T, D], or [T, L, D] with the
+model's ``ssl_num_layers`` L, padded along T only) and Speech2Text decodes
+the dumped matrices themselves. ``mbr.weight > 0`` adds
 the MBR / KB-MBR term to the step (train/mbr.py), and ``Speech2Text``
 decodes with TCPGen biasing over ``biasing_words`` (a ``use_tcpgen``
 model, beam search), with shallow fusion of a tasks/lm.py LM and an ARPA
@@ -33,7 +36,7 @@ training). Config values that select paths
 not ported yet raise, naming their queue item in ROADMAP.md:
 ``pipeline_stages > 1``,
 ``num_att_plot > 0``, ``data.multichannel``,
-``data.feats_type`` ``fbank_pitch`` or ``ssl``, and the model values of
+``data.feats_type: fbank_pitch``, and the model values of
 models/asr_model.py:unported_options.
 
 Speech2Text pads as the reference does, because the STFT reflect-pads the
@@ -107,9 +110,10 @@ class DataConfig:
     # ported yet, raises when set.
     multichannel: bool = False
     # "raw" decodes wav.scp on the fly; "fbank" reads a stage-3 feature
-    # dump (feats.scp of .npy [T, D] matrices; pair with model.input_feats).
-    # "fbank_pitch" and "ssl" (pitch, SSL dumps) are not ported yet and
-    # raise.
+    # dump (feats.scp of .npy [T, D] matrices; pair with model.input_feats);
+    # "ssl" a bin/ssl_dump.py dump (feats.scp of [T, D] or [T, L, D]
+    # matrices; pair with input_feats, and ssl_num_layers L for the
+    # latter). "fbank_pitch" (pitch) is not ported yet and raises.
     feats_type: str = "raw"
     batch_type: str = "numel"
     batch_size: int = 16
@@ -179,9 +183,9 @@ def refuse_unported(cfg: ASRTaskConfig) -> None:
     if cfg.data.multichannel:
         todo.append("data.multichannel (the WPE / beamformer frontends: "
                     "queue 1 item 15)")
-    if cfg.data.feats_type not in ("raw", "fbank"):
-        todo.append(f"data.feats_type {cfg.data.feats_type!r} (pitch and "
-                    "SSL feature dumps: queue 1 item 15)")
+    if cfg.data.feats_type not in ("raw", "fbank", "ssl"):
+        todo.append(f"data.feats_type {cfg.data.feats_type!r} (pitch "
+                    "feature dumps: queue 1 item 15)")
     todo += unported_options(cfg.model)
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
@@ -244,8 +248,8 @@ class ASRTask:
     def build_dataset(data_dir: str, tokenizer, converter,
                       text_cleaner: str = "",
                       feats_type: str = "raw") -> SpeechDataset:
-        """The speech stream is wav.scp, or with ``feats_type`` fbank the
-        dump's feats.scp (npy [T, D] matrices)."""
+        """The speech stream is wav.scp, or with ``feats_type`` fbank or
+        ssl the dump's feats.scp (npy [T, D] or [T, L, D] matrices)."""
         speech = (("feats.scp", "npy") if feats_type != "raw"
                   else ("wav.scp", "sound"))
         streams = [(str(Path(data_dir) / speech[0]), "speech", speech[1]),
@@ -370,7 +374,8 @@ class ASRTask:
         with a CPU ``torch.Generator`` seeded by ``seed`` (so the card and
         the CPU start from the same values): Linear and Conv weights
         lecun_normal (fan_in = in_features, or in_channels / groups x the
-        kernel's taps), their biases 0; LayerNorm scale 1, bias 0; Embedding
+        kernel's taps), their biases 0; LayerNorm and GroupNorm scale 1,
+        bias 0; Embedding
         N(0, 1 / features) (flax's Embed default); an LSTM layer as flax's
         OptimizedLSTMCell (input kernels lecun_normal, each gate's
         recurrent kernel orthogonal, bias 0); the MoE's expert kernels [E,
@@ -379,8 +384,10 @@ class ASRTask:
         N(0, 0.02^2) and its GAT tree encoder's a_src / a_tgt N(0, 0.1^2),
         bias 0; a SincConv's band edges ``f`` its scale's bank over fs; a
         lightweight conv's kernels ``weight`` / ``weight_f`` U[0, 1)
-        (flax's uniform(1.0)), its ``bias`` 0. Any other parameter raises.
-        Returns the model."""
+        (flax's uniform(1.0)), its ``bias`` 0; the SSL models'
+        ``mask_emb`` and ``codebook`` N(0, 0.02^2), an ASR model's
+        ``ssl_layer_weights`` 0. Any other parameter raises. Returns the
+        model."""
         gen = torch.Generator().manual_seed(seed)
         done = set()
         with torch.no_grad():
@@ -393,7 +400,7 @@ class ASRTask:
                     m.weight.copy_(w)
                     if m.bias is not None:
                         m.bias.zero_()
-                elif isinstance(m, nn.LayerNorm):
+                elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                     m.weight.fill_(1.0)
                     m.bias.zero_()
                 elif isinstance(m, nn.Embedding):
@@ -444,10 +451,13 @@ class ASRTask:
             for name, p in model.named_parameters():
                 if id(p) in done:
                     continue
-                if name.rsplit(".", 1)[-1] not in ("pos_bias_u",
-                                                   "pos_bias_v"):
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf in ("mask_emb", "codebook"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                elif leaf in ("pos_bias_u", "pos_bias_v", "ssl_layer_weights"):
+                    p.zero_()
+                else:
                     raise ValueError(f"init_params: no initializer for {name}")
-                p.zero_()
         return model
 
     @staticmethod
@@ -598,6 +608,8 @@ class Speech2Text:
     """Batched ASR decoding with the attention decoder (greedy when
     ``beam_size <= 1``) or joint CTC/attention beam search.
 
+    ``feats_type`` "ssl" (from_exp_dir passes the experiment's): the
+    model's inputs are SSL dump matrices, decoded as given.
     ``mvn_stats``: (mean, inv_std) of a ``use_mvn: global`` model, as
     arrays or tensors; ``tokenizer``, when given, replaces the one built
     from ``token_type`` / ``bpemodel``. ``biasing_words`` (a ``use_tcpgen``
@@ -641,8 +653,10 @@ class Speech2Text:
                  ngram_file: Optional[str] = None,
                  ngram_weight: float = 0.0, ilm_weight: float = 0.0,
                  sweep_fusion: bool = False, ctc_timesync: bool = False,
-                 lattice: bool = False, lattice_att_weight: float = 0.3):
+                 lattice: bool = False, lattice_att_weight: float = 0.3,
+                 feats_type: str = "raw"):
         self.model = ASRModel(cfg, device=device)
+        self.feats_type = feats_type
         self.model.load_state_dict(state_dict)
         self.tokenizer = tokenizer or build_tokenizer(token_type, bpemodel)
         self.converter = TokenIDConverter(list(token_list))
@@ -801,7 +815,8 @@ class Speech2Text:
                   ngram_file=ngram_file, ngram_weight=ngram_weight,
                   ilm_weight=ilm_weight, sweep_fusion=sweep_fusion,
                   ctc_timesync=ctc_timesync, lattice=lattice,
-                  lattice_att_weight=lattice_att_weight)
+                  lattice_att_weight=lattice_att_weight,
+                  feats_type=cfg.data.feats_type)
         s2t.task_cfg = cfg
         return s2t
 
@@ -826,9 +841,16 @@ class Speech2Text:
     def decode_batch(self, speeches: Sequence[np.ndarray]) -> List[str]:
         """List of [N_i] waveforms -> list of texts, in one batched search.
         A model on a feature dump (``input_feats``) decodes the waveforms'
-        features (``wav_to_feats``)."""
+        features (``wav_to_feats``), one on an SSL dump (``feats_type``
+        "ssl") the dumped [T, D] / [T, L, D] matrices as given."""
         if self.model.cfg.input_feats:
-            speeches = [self.wav_to_feats(s) for s in speeches]
+            if self.feats_type == "ssl":
+                if not all(np.ndim(s) >= 2 for s in speeches):
+                    raise ValueError("a feats_type ssl model decodes the "
+                                     "dumped feature matrices (bin/"
+                                     "ssl_dump.py), not waveforms")
+            else:
+                speeches = [self.wav_to_feats(s) for s in speeches]
         buf, lens = self.pad_batch(speeches)
         dev = self.model.device
         hs, h_lengths = self.model.encode(torch.from_numpy(buf).to(dev),

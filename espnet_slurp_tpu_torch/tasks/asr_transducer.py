@@ -80,8 +80,8 @@ def _encoder_options_the_reference_ignores(cfg: TransducerTaskConfig
     a, d = cfg.model.asr, ASRConfig()
     fields = ("encoder", "moe_experts", "interctc_layers", "interctc_weight",
               "self_conditioning", "stochastic_depth_rate", "remat_encoder",
-              "input_layer", "input_feats", "preencoder", "postencoder",
-              "decoder")
+              "input_layer", "input_feats", "ssl_num_layers", "preencoder",
+              "postencoder", "decoder", "wav2vec2")
     out = [f"model.asr.{f}" for f in fields
            if getattr(a, f) != getattr(d, f)]
     if cfg.data.feats_type != "raw":

@@ -30,7 +30,16 @@ does, so the key is the flax path joined by "." with the leaf renamed:
   Dense; the VGG front's 3x3 convs (HWIO -> OIHW) and the grouped 1-D
   convs of the E-Branchformer, the Sinc blocks and the post-encoder's
   length adaptors ([k, in/groups, out] -> [out, in/groups, k]) follow the
-  conv rule.
+  conv rule;
+- the SSL models' trees (models/wav2vec2.py, models/hubert.py): the
+  wav2vec2 encoder's ``feature_extractor/conv_{i}`` (bias-free [k, in,
+  out] convs) and ``gn`` (a GroupNorm: ``scale`` -> ``weight``), ``fp_norm``,
+  ``fp_proj``, the grouped ``pos_conv`` ([k, D / groups, D], the conv
+  rule), ``enc_norm``, ``attn_{i}/linear_*``, ``norm{1,2}_{i}``,
+  ``ff{1,2}_{i}``; the pretraining model's ``quantizer/{proj,out}``,
+  ``final_proj`` and HuBERT's ``pred`` (Dense), and the raw
+  ``ssl_layer_weights`` [L] of an ASR tree, ``mask_emb`` [D] and
+  ``quantizer/codebook`` [G, V, vq_dim / G], unchanged.
 
 A language model's tree (models/lm.py: ``embed``, ``attn_{i}/linear_*``,
 ``norm{1,2}_{i}``, ``ff_{i}/w{1,2}``, ``after_norm``, ``output`` and
@@ -70,7 +79,8 @@ _CTC_RENAMES = {("ctc",): ("ctc_proj",), ("asr", "ctc"): ("asr", "ctc_proj")}
 # Leaves kept as they are: attention biases, the MoE's expert tensors and
 # TCPGen's raw parameters.
 _RAW_LEAF = re.compile(r"(bias|pos_bias_[uv]|[wb][12]|ooKBemb"
-                       r"|(a_src|a_tgt|bias)_l\d+|weight(_f)?|f)$")
+                       r"|(a_src|a_tgt|bias)_l\d+|weight(_f)?|f"
+                       r"|ssl_layer_weights|mask_emb|codebook)$")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:

@@ -29,6 +29,7 @@ from espnet_slurp_tpu_torch.decode import ctc_segmentation as pseg
 from espnet_slurp_tpu_torch.tasks import asr as pasr
 from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 CONF = Path(__file__).resolve().parent.parent / "conf"
 

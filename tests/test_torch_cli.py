@@ -28,6 +28,7 @@ from espnet_slurp_tpu_torch.tasks import asr as pasr
 from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
 from espnet_slurp_tpu_torch.utils.config import save_yaml, to_dict
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 LOSS_RTOL = 1e-5
 MICRO = {

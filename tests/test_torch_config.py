@@ -34,6 +34,7 @@ from espnet_slurp_tpu_torch.tasks import asr_transducer as ptask
 from espnet_slurp_tpu_torch.tasks import slu as pslutask
 from espnet_slurp_tpu_torch.train import optim as poptim
 from espnet_slurp_tpu_torch.utils.config import to_dict
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 CONF = Path(__file__).resolve().parent.parent / "conf"
 PAIRS = [
@@ -211,17 +212,17 @@ def test_transducer_recipe_loads_and_builds():
     assert model.joint.lin_out.out_features == a.vocab_size
 
 
-# The ids keep the cases' names. The E-Branchformer, the LAS decoder and
-# the linear pre-encoder (override0-2) are ported since: each builds at
-# micro widths and takes one training step (their parity with the
-# reference: tests/test_torch_{branchformer,rnn_conv_decoders,
-# pre_post_encoders}.py).
+# The ids keep the cases' names. The E-Branchformer, the LAS decoder, the
+# linear pre-encoder and the SSL dump's layer weighting (override0-3) are
+# ported since: each builds at micro widths and takes one training step
+# (their parity with the reference: tests/test_torch_{branchformer,
+# rnn_conv_decoders,pre_post_encoders,ssl}.py).
 @pytest.mark.parametrize("override,match", [
     pytest.param({"encoder": "ebranchformer"}, None,
                  id="override0-item 15"),
     pytest.param({"decoder": "rnn"}, None, id="override1-item 15"),
     pytest.param({"preencoder": "linear"}, None, id="override2-item 15"),
-    pytest.param({"ssl_num_layers": 2, "input_feats": True}, "item 15",
+    pytest.param({"ssl_num_layers": 2, "input_feats": True}, None,
                  id="override3-item 15"),
     pytest.param({"use_tcpgen": True}, None, id="override4-None"),
     pytest.param({"use_wpe": True}, "items 15 and 16",
@@ -254,8 +255,12 @@ def test_unported_model_values_raise_naming_their_item(override, match):
         tx = build_optimizer(OptimConfig(scheduler="constant", lr=1e-3))
         state = TrainState.create(model, tx, seed=0)
         before = {k: v.clone() for k, v in model.state_dict().items()}
-        batch = {"speech": torch.randn(2, 4096) * 0.1,
-                 "speech_lengths": torch.tensor([4096, 3000]),
+        # an SSL dump [B, T, L, 16] for ssl_num_layers, else waveforms
+        ssl = override.get("ssl_num_layers", 0)
+        shape, lens = (((2, 40, ssl, 16), [40, 30]) if ssl
+                       else ((2, 4096), [4096, 3000]))
+        batch = {"speech": torch.randn(*shape) * 0.1,
+                 "speech_lengths": torch.tensor(lens),
                  "text": torch.tensor([[3, 4, 5], [6, 7, -1]]),
                  "text_lengths": torch.tensor([3, 2])}
         state, stats = make_train_step(model, tx)(state, batch)

@@ -34,6 +34,7 @@ import torch
 
 from espnet_slurp_tpu_torch.ops.kernels import ffn
 from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}

@@ -23,6 +23,7 @@ from espnet_slurp_tpu_torch.data.prefetch import (prefetch_factory,
                                                   prefetch_to_device)
 from espnet_slurp_tpu_torch.tasks import asr as pasr
 from espnet_slurp_tpu_torch.utils import metrics as pmetrics
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 TEXTS = ["alpha bravo", "charlie delta echo", "alpha alpha", "golf hotel",
          "india juliet foxtrot", "the quick brown fox", "bravo echo"] * 3

@@ -1,6 +1,7 @@
 """The new encoders and decoders through the port's CLIs, in-process: a
-micro E-Branchformer (Transformer decoder) and a micro VGG-RNN encoder
-with the LAS decoder, each trained one epoch by ``bin/asr_train --device
+micro E-Branchformer (Transformer decoder), a micro VGG-RNN encoder with
+the LAS decoder and a micro wav2vec2 encoder wider than its decoder, each
+trained one epoch by ``bin/asr_train --device
 cpu`` on a 6 + 2 utterance mini corpus and decoded by ``bin/asr_inference
 --device cpu`` (beam 2); the decode's text is the one Speech2Text gives
 from the experiment directory, and the experiment's config loads in the
@@ -18,6 +19,7 @@ from espnet_slurp_tpu_torch.data.fileio import (SoundScpReader,
                                                 read_2column_text)
 from espnet_slurp_tpu_torch.tasks.asr import Speech2Text
 from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 MICRO = {
     "max_epoch": 1,
@@ -34,6 +36,11 @@ CASES = {
     "vgg_rnn_las": {"encoder": "vgg_rnn", "rnn_encoder_units": 16,
                     "rnn_encoder_layers": 2, "decoder": "rnn",
                     "rnn_decoder_units": 16},
+    # the raw-waveform SSL encoder, 48 wide under the 32-wide decoder
+    "wav2vec2": {"encoder": "wav2vec2", "wav2vec2": {
+        "conv_dim": [16, 16], "conv_kernel": [8, 4], "conv_stride": [4, 2],
+        "d_model": 48, "n_head": 2, "d_ff": 64, "num_blocks": 1,
+        "pos_conv_kernel": 16, "pos_conv_groups": 2}},
 }
 
 
@@ -59,7 +66,12 @@ def test_train_and_decode_through_the_clis(case, corpus, tmp_path):
     assert (exp / "1epoch" / CKPT_FILE).exists()
     saved = jasr.load_task_config(str(exp / "config.yaml"))
     for k, v in CASES[case].items():
-        assert getattr(saved.model, k) == v
+        if isinstance(v, dict):
+            got = getattr(saved.model, k)
+            assert {f: json.loads(json.dumps(getattr(got, f)))
+                    for f in v} == v
+        else:
+            assert getattr(saved.model, k) == v
     dec = tmp_path / "dec"
     assert p_infer.main(["--exp_dir", str(exp), "--data_dir",
                          str(corpus[1]), "--output_dir", str(dec),

@@ -11,6 +11,7 @@ where they are absent."""
 import dataclasses
 import json
 import os
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 # transformers (tests only) loads TensorFlow where one is installed: not
 # needed here, and seconds to import.

@@ -29,6 +29,7 @@ from espnet_slurp_tpu_torch.decode.incremental import (
 from espnet_slurp_tpu_torch.models.asr_model import ASRConfig, ASRModel
 from espnet_slurp_tpu_torch.ops.frontend import FrontendConfig
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 TINY = dict(vocab_size=20, d_model=32, n_head=2, d_ff=64,
             num_decoder_blocks=1, decoder_d_ff=64, dropout_rate=0.0,

@@ -10,6 +10,7 @@ import sys
 import pytest
 
 import espnet_slurp_tpu_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 PKG = pathlib.Path(espnet_slurp_tpu_torch.__file__).parent
 
@@ -127,7 +128,12 @@ RUNTIME_AND_CLI = tuple("espnet_slurp_tpu_torch." + m for m in (
     # and MaskCTC with its CLI.
     "decode.streaming", "decode.incremental", "bin.asr_inference_streaming",
     "decode.timesync", "decode.lattice", "decode.ctc_segmentation",
-    "bin.asr_align", "models.maskctc", "bin.asr_inference_maskctc"))
+    "bin.asr_align", "models.maskctc", "bin.asr_inference_maskctc",
+    # The SSL models: wav2vec2 (with its HF weight import, which reads
+    # state dicts without transformers), HuBERT with its task and CLI,
+    # and the SSL feature dump.
+    "models.wav2vec2", "models.hubert", "tasks.hubert", "bin.hubert_train",
+    "bin.ssl_dump"))
 
 # Each module of the decoders' slice and the reference file it ports.
 DECODER_SLICE = {
@@ -171,5 +177,22 @@ def test_each_decoder_module_names_the_reference_file_it_ports(rel):
     """Each module of the decoders' slice says in its docstring which
     reference file it ports, and that file exists."""
     ref = DECODER_SLICE[rel]
+    assert ref in " ".join(_docstring(PKG / rel).split()), rel
+    assert (PKG.parent / ref).exists(), ref
+
+
+# Each module of the SSL slice and the reference file it ports.
+SSL_SLICE = {
+    "models/wav2vec2.py": "espnet_slurp_tpu/models/wav2vec2.py",
+    "models/hubert.py": "espnet_slurp_tpu/models/hubert.py",
+    "tasks/hubert.py": "espnet_slurp_tpu/tasks/hubert.py",
+    "bin/hubert_train.py": "espnet_slurp_tpu/bin/hubert_train.py",
+    "bin/ssl_dump.py": "espnet_slurp_tpu/bin/ssl_dump.py",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(SSL_SLICE))
+def test_each_ssl_module_names_the_reference_file_it_ports(rel):
+    ref = SSL_SLICE[rel]
     assert ref in " ".join(_docstring(PKG / rel).split()), rel
     assert (PKG.parent / ref).exists(), ref

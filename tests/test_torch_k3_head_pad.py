@@ -20,6 +20,7 @@ import torch
 from espnet_slurp_tpu.ops.pallas.flash_attention import (
     rel_flash_attention as jax_rel_flash)
 from espnet_slurp_tpu_torch.ops.kernels import flash_attention as fa
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 B, H, T, DH = 2, 2, 40, 36
 LENGTHS = np.asarray([40, 23], np.int32)

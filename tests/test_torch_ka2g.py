@@ -38,6 +38,7 @@ from espnet_slurp_tpu_torch.slu import generator as pgen
 from espnet_slurp_tpu_torch.slu import ka2g as pka2g
 from espnet_slurp_tpu_torch.utils.params import ka2g_state_dict
 from test_torch_slot_generator import _fixed_forward
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 STAT_RTOL, GRAD_TOL = 1e-5, 1e-4
 V = 24

@@ -35,6 +35,7 @@ from espnet_slurp_tpu_torch.slu.ka2g import KA2GConfig, KA2GModel
 from espnet_slurp_tpu_torch.tasks import generic as pgeneric
 from espnet_slurp_tpu_torch.tasks.asr import ASRTask
 from espnet_slurp_tpu_torch.train.optim import OptimConfig
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 
 def _files(root: Path):

@@ -20,6 +20,7 @@ from espnet_slurp_tpu.utils.metrics import \
     rare_word_error_rate as j_rare_wer
 from espnet_slurp_tpu_torch.slu import kb as pkb
 from espnet_slurp_tpu_torch.utils.metrics import rare_word_error_rate
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 # A suffix-marked token list (the fork's dictionary convention) and a
 # prefix-marked one (HF Metaspace), each with <blank> 0 and <sos/eos> last.

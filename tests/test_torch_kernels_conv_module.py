@@ -22,6 +22,7 @@ from espnet_slurp_tpu.ops.pallas.conv_module import \
 from espnet_slurp_tpu_torch.models.conformer import ConvModule
 from espnet_slurp_tpu_torch.ops.kernels.conv_module import fused_conv_module
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 PARAM_NAMES = ("pointwise1.weight", "pointwise1.bias", "depthwise.weight",
                "depthwise.bias", "norm.weight", "norm.bias",

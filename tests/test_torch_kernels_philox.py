@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from espnet_slurp_tpu_torch.ops.kernels import philox
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 # Random123's kat_vectors for philox4x32_10: counter, key, output.
 KAT = [

@@ -21,6 +21,7 @@ from espnet_slurp_tpu.ops.pallas.transducer import rnnt_lattice_pallas
 from espnet_slurp_tpu_torch.ops import transducer as ttr
 from espnet_slurp_tpu_torch.ops.kernels.transducer import (rnnt_lattice,
                                                           rnnt_lattice_plain)
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 NEG = jtr.NEG_INF
 

@@ -16,6 +16,7 @@ import torch
 from espnet_slurp_tpu.models import lm as jlm
 from espnet_slurp_tpu_torch.models import lm as plm
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 WIDTHS = dict(vocab_size=30, d_model=16, n_head=2, d_ff=32, num_blocks=2,
               num_layers=2)

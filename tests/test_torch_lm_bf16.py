@@ -26,6 +26,7 @@ import torch
 from espnet_slurp_tpu.models import lm as jlm
 from espnet_slurp_tpu_torch.models import lm as plm
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 WIDTHS = dict(arch="lstm", vocab_size=30, d_model=64, num_layers=2,
               dtype="bfloat16")

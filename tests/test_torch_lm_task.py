@@ -30,6 +30,7 @@ from espnet_slurp_tpu_torch.train.optim import build_optimizer
 from espnet_slurp_tpu_torch.train.state import TrainState
 from espnet_slurp_tpu_torch.utils.config import save_yaml
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 WORDS = "the a cat dog sat ran on mat log fast and of".split()
 MODEL = dict(d_model=16, n_head=2, d_ff=32, num_blocks=1, num_layers=1)

@@ -31,6 +31,7 @@ from espnet_slurp_tpu_torch.models.maskctc import MaskCTCModel
 from espnet_slurp_tpu_torch.ops.frontend import FrontendConfig
 from espnet_slurp_tpu_torch.tasks import asr as pasr
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 TINY = dict(vocab_size=20, d_model=32, n_head=2, d_ff=64,
             num_encoder_blocks=1, num_decoder_blocks=1, decoder_d_ff=64,

@@ -17,6 +17,7 @@ from espnet_slurp_tpu.decode import ngram_train as jtrain
 from espnet_slurp_tpu_torch.bin import ngram_compile as p_compile
 from espnet_slurp_tpu_torch.decode import ngram as png
 from espnet_slurp_tpu_torch.decode import ngram_train as ptrain
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 WORDS = [f"t{i}" for i in range(14)]
 TOKENS = ["<blank>", "<unk>"] + WORDS + ["<sos/eos>"]

@@ -42,6 +42,7 @@ from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
 from espnet_slurp_tpu_torch.train.collect_stats import collect_stats
 from espnet_slurp_tpu_torch.utils.config import from_dict
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 STATS_RTOL = 1e-5
 LOSS_RTOL = 1e-5

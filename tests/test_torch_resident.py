@@ -30,6 +30,7 @@ from espnet_slurp_tpu_torch.ops.frontend import FrontendConfig
 from espnet_slurp_tpu_torch.tasks.asr import (ASRTask, ASRTaskConfig,
                                               DataConfig)
 from espnet_slurp_tpu_torch.train.optim import OptimConfig
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 
 @pytest.fixture(scope="module")

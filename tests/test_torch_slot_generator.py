@@ -38,6 +38,7 @@ from espnet_slurp_tpu.models.tcpgen import tcpgen_final_logprobs as j_final
 from espnet_slurp_tpu.slu import generator as jgen
 from espnet_slurp_tpu_torch.slu import generator as pgen
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 MOD_TOL, STAT_RTOL, GRAD_TOL = 1e-5, 1e-5, 1e-4
 CFG = dict(n_slots=3, value_vocab_size=20, d_model=16, n_head=2, d_ff=32,

@@ -40,6 +40,7 @@ from espnet_slurp_tpu_torch.tasks import slu as ptask
 from espnet_slurp_tpu_torch.train.checkpoint import CKPT_FILE
 from espnet_slurp_tpu_torch.utils.config import save_yaml
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 MOD_TOL, STAT_RTOL, GRAD_TOL = 1e-5, 1e-5, 1e-4
 # tests/test_slu.py:17's TINY_ASR

@@ -20,6 +20,7 @@
 import json
 import os
 import shutil
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 # transformers (tests only) loads TensorFlow where one is installed: not
 # needed here, and seconds to import.

@@ -43,6 +43,7 @@ from espnet_slurp_tpu_torch.models.transducer import (TransducerConfig,
 from espnet_slurp_tpu_torch.ops.frontend import FrontendConfig
 from espnet_slurp_tpu_torch.tasks.asr import Speech2Text
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 FRONT = dict(n_fft=128, hop_length=64, n_mels=16)
 ASR = dict(vocab_size=20, d_model=32, n_head=2, d_ff=64,

@@ -18,6 +18,7 @@ from espnet_slurp_tpu_torch.decode import word_lm as pwl
 from espnet_slurp_tpu_torch.models import lm as plm
 from espnet_slurp_tpu_torch.tasks.lm import make_lm_fusion as p_lm_fusion
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+import torch_parity  # noqa: F401  (each test worker's CPU threads)
 
 V, SPACE, EOS = 10, 8, 9   # subword vocabulary, boundary, eos
 W, W_UNK, W_EOS = 6, 1, 5  # word vocabulary: 0 pad, 1 unk, 2-4 words, 5 eos

@@ -2,16 +2,25 @@
 
 Inputs come from np.random.RandomState(seed); weights from the JAX
 module's init, converted by espnet_slurp_tpu_torch.utils.params.
+
+Every tests/test_torch_*.py imports this module, which gives each process's
+torch its share of the CPU cores at import: the cores over the number of
+pytest-xdist workers (tiny ops on threads that outnumber the cores spin
+against each other). It imports JAX and the reference only inside the
+helpers that need them, so a card-only test file can import it where no
+JAX is installed.
 """
-import jax
+import os
+
 import numpy as np
 import torch
 
-from __graft_entry__ import _example_batch, _flagship_cfg
-from espnet_slurp_tpu.models.asr_model import ASRModel as JaxASRModel
 from espnet_slurp_tpu_torch.models.asr_model import ASRConfig, ASRModel
 from espnet_slurp_tpu_torch.ops.frontend import FrontendConfig
 from espnet_slurp_tpu_torch.utils.params import flax_to_torch
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def tiny_port_cfg(**kw) -> ASRConfig:
@@ -27,6 +36,11 @@ def tiny_port_cfg(**kw) -> ASRConfig:
 def tiny_jax_model(**kw):
     """(flax ASRModel, numpy params) of the tiny flagship, eager attention."""
     import dataclasses
+
+    import jax
+
+    from __graft_entry__ import _example_batch, _flagship_cfg
+    from espnet_slurp_tpu.models.asr_model import ASRModel as JaxASRModel
     cfg = dataclasses.replace(_flagship_cfg(tiny=True), flash_attention="off",
                               **kw)
     model = JaxASRModel(cfg)
@@ -68,6 +82,7 @@ def assert_grads_match(named_params, ref_tree, tol=1e-4):
     """Every port gradient against the reference's (a flax grad tree), as
     tests/test_torch_encoder_options.py holds them: within tol of each
     tensor's max |grad|, floored at tol of the largest one."""
+    import jax
     ref = flax_to_torch(jax.tree.map(np.asarray, ref_tree))
     grads = {n: p.grad for n, p in named_params}
     assert set(grads) == set(ref)
@@ -88,6 +103,11 @@ def asr_pair(jax_front=None, port_front=None, **kw):
     tiny flagship with ``kw`` (eager attention on the reference's side,
     no SpecAug); ``jax_front`` / ``port_front`` replace the frontend."""
     import dataclasses
+
+    import jax
+
+    from __graft_entry__ import _flagship_cfg
+    from espnet_slurp_tpu.models.asr_model import ASRModel as JaxASRModel
     jkw = dict(kw, **({"frontend": jax_front} if jax_front else {}))
     pkw = dict(kw, **({"frontend": port_front} if port_front else {}))
     cfg = dataclasses.replace(_flagship_cfg(tiny=True), flash_attention="off",
@@ -107,6 +127,7 @@ def assert_asr_loss_matches(jmodel, params, port, tol=1e-4, train=True):
     the reference's at fp32 on two ragged utterances (with ``train``
     False, the loss of the eval forward: for a model with dropout that
     the config's rate does not set, as the Sinc pre-encoder's)."""
+    import jax
     x, lens = waveforms([4096, 3000], seed=11)
     batch = dict(speech=x, speech_lengths=lens, text=LOSS_TEXT,
                  text_lengths=LOSS_TEXT_LENGTHS)
